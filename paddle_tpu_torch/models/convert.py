@@ -1,16 +1,24 @@
 """Weight carry-over between the reference and the port.
 
-Weights cross as a dict of numpy arrays keyed the way the reference's
-``jit.api._named_state`` names them (``gpt.embeddings.word_embeddings
-.weight``, ``gpt.layers.{i}.attn.qkv_proj.weight``, ...). The port's
-module tree uses the same names and the same ``[in, out]`` linear layout,
-so loading is a key-for-key copy: no transpose anywhere.
+Eager model weights cross as a dict of numpy arrays keyed the way the
+reference's ``jit.api._named_state`` names them (``gpt.embeddings
+.word_embeddings.weight``, ``gpt.layers.{i}.attn.qkv_proj.weight``, ...).
+The port's module tree uses the same names and the same ``[in, out]``
+linear layout, so loading is a key-for-key copy: no transpose anywhere.
+
+Training params (``models/gpt_spmd.py``) cross as the reference's
+``gpt_spmd.init_params`` pytree in numpy: the same keys, with the stage
+leaves ``[pp, L/pp, ...]`` on the reference's side and ``[L, ...]`` on the
+port's (one device, ``pp = 1``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
+from . import gpt_spmd
 from .gpt import GPTConfig, GPTForCausalLM
 
 
@@ -73,3 +81,54 @@ def random_state(config: GPTConfig, seed: int = 0) -> dict:
     if not config.tie_word_embeddings:
         out["lm_head.weight"] = normal(h, v)
     return out
+
+
+def train_params_from_jax_numpy(tree: dict, *, device=None,
+                                dtype=torch.float32) -> dict:
+    """Port training params on ``device`` from the reference's
+    ``gpt_spmd.init_params`` pytree (numpy leaves): the stage leaves drop
+    their ``pp = 1`` dim. Raises for ``pp > 1``."""
+    dev = resolve_device(device)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        if path.startswith("stages/"):
+            if a.shape[0] != 1:
+                raise ValueError(f"{path}: pp = {a.shape[0]} stages; the "
+                                 "port trains on one device (pp = 1)")
+            a = a[0]
+        return path, torch.from_numpy(np.array(a)).to(dev, dtype)
+
+    return gpt_spmd.unflatten(leaf(p, a)
+                              for p, a in gpt_spmd.leaves(tree))
+
+
+def train_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`train_params_from_jax_numpy`: numpy leaves in
+    the reference's layout (stage leaves regain their ``pp = 1`` dim)."""
+    def leaf(path, t):
+        a = t.detach().float().cpu().numpy()
+        return path, a[None] if path.startswith("stages/") else a
+
+    return gpt_spmd.unflatten(leaf(p, t) for p, t in gpt_spmd.leaves(params))
+
+
+def random_train_params(config: GPTConfig, seed: int = 0) -> dict:
+    """Seeded numpy training params in the port's layout (stage leaves
+    ``[L, ...]``): N(0, initializer_range) embeddings and weight matrices,
+    zero biases, unit LN scales — what ``build_spmd_train_step(params=)``
+    takes where no reference is at hand."""
+    rng = np.random.default_rng(seed)
+    std = np.float32(config.initializer_range)
+
+    def leaf(path, shape):
+        name = path.rsplit("/", 1)[-1]
+        if name.endswith("_g"):
+            return path, np.ones(shape, np.float32)
+        if name.startswith("b") or name.endswith("_b"):
+            return path, np.zeros(shape, np.float32)
+        return path, rng.standard_normal(shape, dtype=np.float32) * std
+
+    return gpt_spmd.unflatten(
+        leaf(p, shape) for p, shape in gpt_spmd.leaves(
+            gpt_spmd.param_shapes(config)))

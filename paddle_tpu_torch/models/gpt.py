@@ -113,7 +113,8 @@ def _check_forward_config(cfg: GPTConfig) -> None:
                          ("fused_mlp", "the training slice (fused_mlp "
                                        "kernels)"),
                          ("tensor_parallel", "the multi-GPU slice"),
-                         ("recompute", "the training slice")):
+                         ("recompute", "the eager model's recompute; "
+                                       "models.gpt_spmd's is ported")):
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"GPTConfig.{field} is not ported yet ({later})")

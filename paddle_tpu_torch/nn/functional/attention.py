@@ -3,7 +3,8 @@
 Port of ``paddle_tpu/nn/functional/attention.py``: inputs are paddle's
 ``[batch, seq, heads, head_dim]`` layout. ``scaled_dot_product_attention``
 routes causal, unmasked, dropout-free calls on a CUDA tensor (any GQA
-``hq % hkv == 0``) to the hand-written flash kernel; everything else —
+``hq % hkv == 0``) to the hand-written flash kernels (differentiable: the
+backward runs the flash backward kernel); everything else —
 every CPU call, masks, dropout, non-causal — runs :func:`_sdpa_ref`, the
 torch twin of the JAX ``_sdpa_ref``. The TPU's routing thresholds
 (``_FLASH_MIN_SEQ``, ``s % 128``) are not carried over: the kernel masks

@@ -1,3 +1,5 @@
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      default_registry)
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "default_registry"]

@@ -7,14 +7,16 @@ is created once per registry (idempotent by name) with a label schema;
 ``labels(**kv)`` returns the cached child; children mutate under the
 registry lock. ``snapshot_flat`` exports ``{key: finite number}``. (The
 reference's disabled-registry mode is not copied: every port registry
-is on.)
+is on.) :data:`default_registry` is the library-wide registry that the
+training step feeds (``train_steps``, ``train_dispatch_seconds``).
 """
 from __future__ import annotations
 
 import math
 import threading
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "default_registry"]
 
 DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
 
@@ -233,3 +235,6 @@ class MetricsRegistry:
             if not math.isfinite(v):
                 raise ValueError(f"non-finite telemetry value {k}={v!r}")
         return flat
+
+
+default_registry = MetricsRegistry()

@@ -11,16 +11,24 @@ need not have; this file imports only torch and the port.)
 
 Tolerances: fp32 kernels sum in another order than the plain version and
 use ``expf`` — ``atol 2e-5, rtol 1e-4`` on outputs of magnitude <= ~3.
-In bf16 both sides round an fp32 result to 8 mantissa bits once, so an
-element may differ by one bf16 step (<= 2^-7 of it): each row's (last
-axis) max abs error is held to ``1e-2`` of the row's max ``|want|``.
+The backward kernel's fp32 dq is summed with atomics across key blocks, in
+an order that changes from run to run: its dq, dk and dv are held as the
+max abs error over the tensor's max ``|want|``, to ``1e-5``. In bf16 both
+sides round an fp32 result to 8 mantissa bits once, so an element may
+differ by one bf16 step (<= 2^-7 of it): each row's (last axis) max abs
+error is held to ``1e-2`` of the row's max ``|want|``. Whole-model
+gradients (flash vs plain attention, fp32, TF32 off): each parameter's max
+abs error over its max ``|grad|``, to ``1e-5`` (seen: <= 2e-6).
 """
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.flash_attention import (flash_attention_fwd,
-                                                  flash_attention_reference)
+from paddle_tpu_torch.models.convert import random_state, state_from_jax_numpy
+from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+from paddle_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference)
 from paddle_tpu_torch.ops.paged_attention import (
     ragged_paged_attention, ragged_paged_attention_reference)
 
@@ -28,6 +36,8 @@ pytestmark = pytest.mark.gpu
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_ROW_TOL = 1e-2
+BWD_FP32_TOL = 1e-5
+GRAD_TOL = 1e-5
 
 
 def _assert_close(got, want, dtype):
@@ -113,3 +123,63 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
     want_out, want_lse = flash_attention_reference(q, k, v, causal=causal)
     _assert_close(out.float(), want_out.float(), dtype)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1024, 1024, 12, 12, 128, True),
+                                   (2, 128, 128, 4, 4, 64, True),
+                                   (2, 128, 128, 4, 4, 64, False),
+                                   (1, 128, 128, 4, 2, 64, True),
+                                   (1, 128, 256, 2, 2, 64, True),
+                                   (1, 256, 128, 2, 1, 128, True),
+                                   (2, 333, 333, 6, 3, 64, True),
+                                   (2, 130, 77, 6, 3, 128, False)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, shape):
+    b, sq, sk, hq, hkv, d, causal = shape
+    rng = np.random.RandomState(2)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, dtype) for s in
+        ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, hq, d)))
+    out, lse = flash_attention_reference(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = delta.reshape(b * hq, 1, sq).contiguous()
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                         causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            err = (g - w).abs().max() / w.abs().max()
+            assert err.item() <= BWD_FP32_TOL, err.item()
+        else:
+            _assert_close(g, w, dtype)
+
+
+def test_eager_gpt_gradients_flash_vs_plain(cuda):
+    """The eager GPT's backward through the flash kernels: every parameter
+    gets the gradient plain attention gives it, and none is ``None``."""
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    cfg = type(cfg)(**{**cfg.__dict__, "num_layers": 2})
+    model = state_from_jax_numpy(random_state(cfg, 0), cfg, device=cuda)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 257))).to(cuda)
+    grads = {}
+    for flash in (True, False):
+        cfg.use_flash_attention = flash
+        model.zero_grad(set_to_none=True)
+        before = flash_attention_bwd.launches
+        logits = model(ids[:, :-1]).float()
+        torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), ids[:, 1:].reshape(-1)
+        ).backward()
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches - before == (2 if flash else 0)
+        grads[flash] = {n: p.grad for n, p in model.named_parameters()}
+    for name, want in grads[False].items():
+        got = grads[True][name]
+        assert got is not None and want is not None, name
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= GRAD_TOL, (name, err.item())

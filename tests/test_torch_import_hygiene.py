@@ -31,6 +31,22 @@ def test_import_pulls_in_neither_jax_nor_reference():
     assert int(res.stdout.split()[-1]) >= 6   # the subpackages were walked
 
 
+def test_training_slice_modules_are_covered():
+    """The walk above imports the training slice's modules too."""
+    code = ("import pkgutil, paddle_tpu_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    walked = set(res.stdout.split())
+    assert {"paddle_tpu_torch.models.gpt_spmd",
+            "paddle_tpu_torch.models.convert",
+            "paddle_tpu_torch.ops.flash_attention"} <= walked
+    assert (ROOT / "paddle_tpu_torch" / "csrc"
+            / "flash_attention_bwd.cu").is_file()
+
+
 def test_no_import_statement_names_jax_or_reference():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
