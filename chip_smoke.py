@@ -5,7 +5,7 @@
 from the root of a checkout. Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
-2. build: the three hand-written kernels from ``paddle_tpu_torch/csrc``
+2. build: the four kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -37,6 +37,23 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    with the flash outputs saved, num_micro 1, momentum SGD at lr 1e-4),
    timed: step ms, tokens/s and MFU, with 24 forward and 24 backward flash
    launches per step.
+8. quantized serving (run between phases 6 and 7, while the GPT-125M
+   model is on the card): the weight-only GEMM kernels (int8 per channel,
+   int8 and int4 with groups of 128) forward and dx vs their plain
+   versions at the four serving shapes [24, K] x [K, N] and an odd shape,
+   fp32 and bf16, with kernel / plain / bound times, ``_weight_int8pack_mm``
+   as the int8 yardstick where the card's torch has it, and cuBLAS on a
+   pre-dequantized weight logged beside them; the ragged kernel's int8-KV
+   branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
+   (a) int8 weights, (b) int4 weights in groups of 128, (c) int8 weights
+   and an int8 KV cache, the phase-6 requests in fp32: every greedy token
+   and its logits row against a plain quantized forward over the served
+   context (the same quantized params through the plain GEMM; in (c) K
+   and V through the int8 write's quantize-dequantize), 12 ragged and 48
+   weight-only GEMM launches per step; the gradient of a loss with respect
+   to the input embeddings through the 12 quantized layers (the backward
+   kernels) vs the plain versions; token agreement with phase 6, weight
+   and KV bytes, and the bf16 step time of (a) and (c).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -95,6 +112,26 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # relative (seen 0)
 GRAD_TOL = 1e-5
 LOSS_TOL = 1e-6
+# phase 8. The weight-only GEMM splits its fp32 sums across blocks in
+# another order than cuBLAS: fp32 held as max abs error over the tensor's
+# max |value| (as BWD_TOL); bf16 per row as in KERNEL_TOL (both sides
+# dequantize with the same rounding, then round one fp32 sum).
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+QMM_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "w1": (768, 3072),
+              "w2": (3072, 768)}          # GPT-125M's [K, N] projections
+QMM_ROWS = 24                             # the serving token budget
+QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
+# (label, config fields, logits tolerance). Served logits vs the plain
+# quantized forward in fp32: the GEMMs sum in another order (seen 4.3e-6);
+# with int8 KV the step quantizes K and V computed by the kernel and the
+# oracle those computed by the plain GEMM, so an entry at a rounding
+# boundary may land one int8 step (1/127 of its row's absmax) apart, and
+# a few such entries move the logits by more (seen 4.5e-3)
+QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
+               ("b int4 g128", dict(weight_dtype="int4",
+                                    weight_quant_group_size=128), 1e-4),
+               ("c int8 + int8 KV", dict(weight_dtype="int8",
+                                         kv_cache_dtype="int8"), 2e-2))
 
 
 def log(msg: str) -> None:
@@ -195,12 +232,15 @@ def ragged_work(args):
     b, chunk, hq, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     elt = q.element_size()
+    # int8 pools: one byte a value and one fp32 scale a (row, head)
+    kv_row_bytes = hkv * (d * k_pages.element_size()
+                          + (4 if k_pages.dtype == torch.int8 else 0))
     lanes = [(kv, ql) for kv, ql in zip(kv_lens.tolist(), q_lens.tolist())
              if ql > 0]
     kv_rows = sum(kv for kv, _ in lanes)
     pages = sum(-(-kv // ps) for kv, _ in lanes)
     nbytes = ((sum(ql for _, ql in lanes) + b * chunk) * hq * d * elt
-              + 2 * kv_rows * hkv * d * elt + 4 * (pages + 2 * b))
+              + 2 * kv_rows * kv_row_bytes + 4 * (pages + 2 * b))
     pairs = sum(min(kv - ql + i + 1, kv) for kv, ql in lanes
                 for i in range(ql))
     return nbytes, 4.0 * d * pairs * hq
@@ -312,10 +352,24 @@ def reset_counts():
     from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                       flash_attention_fwd)
     from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
+                                                   quant_matmul_fwd)
 
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     ragged_paged_attention.launches = 0
+    for fn in (quant_matmul_fwd, quant_matmul_bwd):
+        fn.launches = {"int8": 0, "int4": 0}
+
+
+def qmm_counts() -> dict:
+    """Weight-only GEMM launches since :func:`reset_counts`, by kernel."""
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
+                                                   quant_matmul_fwd)
+
+    out = dict(quant_matmul_fwd.launches)
+    out.update({f"{k}_bwd": v for k, v in quant_matmul_bwd.launches.items()})
+    return out
 
 
 def read_counts():
@@ -349,7 +403,8 @@ def phase_forward(model, cfg, dev):
         f"flash launches {flash_n}, ragged launches {ragged_n}")
     if not torch.isfinite(logits).all() or not err <= LOGIT_TOL:
         raise AssertionError(f"full forward: flash vs plain err {err}")
-    if flash_n != cfg.num_layers or ragged_n or bwd_count():
+    if flash_n != cfg.num_layers or ragged_n or bwd_count() or any(
+            qmm_counts().values()):
         raise AssertionError(f"full forward ran flash {flash_n} times "
                              f"(want {cfg.num_layers}), ragged {ragged_n}, "
                              f"flash backward {bwd_count()}")
@@ -508,7 +563,401 @@ def phase_serve(model, cfg, dev, card):
         f"of {BF16_RUNS} runs {wall:.3f} s = {ntok / wall:.1f} tokens/s, "
         f"mean step {1e3 * wall / sp16.steps:.3f} ms (runs: "
         f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
-    return ragged_n
+    return ragged_n, outs, 1e3 * wall / sp16.steps
+
+
+# -- phase 8 ----------------------------------------------------------------
+
+
+def qmm_work(m, k, n, bits, groups, elt):
+    """(bytes, ops) of one weight-only GEMM, forward or dx (the same
+    traffic): the activations read and the output written once in their
+    type, the int8 / packed int4 weight and its fp32 scales read once;
+    2 m k n operations."""
+    nbytes = (m * k + m * n) * elt + k * n * bits // 8 + 4 * groups * n
+    return nbytes, 2.0 * m * k * n
+
+
+def qmm_case(m, k, n, weight_dtype, gs, dtype, dev, seed):
+    """Seeded x [m, k], dy [m, n] and a quantized [k, n] weight (N(0, 0.05)
+    cast to ``dtype`` first, as a served model's are)."""
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(0.05 * rng.standard_normal((k, n)).astype(
+        np.float32)).to(dev, dtype)
+    qw = quantize_weight(w, weight_dtype, gs)
+    x, dy = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(
+        dev, dtype) for sh in ((m, k), (m, n)))
+    return x, dy, qw["q"], qw["s"]
+
+
+def int8pack_ms(x, q, s):
+    """``torch._weight_int8pack_mm`` (int8 per channel, weight [N, K]) on
+    the same values, timed and never used; None where the card's torch has
+    no CUDA kernel for it."""
+    wt = q.t().contiguous()
+    sc = s.reshape(-1).to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:120]
+    return time_ms(lambda: torch._weight_int8pack_mm(x, wt, sc)), None
+
+
+def phase_qmm(dev):
+    """The four weight-only GEMM kernels vs their plain versions; per
+    (config, dtype) the summed times of the four serving shapes."""
+    from paddle_tpu_torch.ops.quant_matmul import (
+        dequantize_weight, quant_matmul_bwd, quant_matmul_dx_reference,
+        quant_matmul_fwd, quant_matmul_reference)
+
+    stats = {}
+    for wd, gs in QMM_CONFIGS:
+        bits = int(wd[3:])
+        for dtype in (torch.float32, torch.bfloat16):
+            tot = {key: 0.0 for key in ("ms", "plain_ms", "bwd_ms",
+                                        "bwd_plain_ms", "bound_ms",
+                                        "cublas_ms", "library_ms")}
+            errs, lib_note, work = [0.0, 0.0], None, [0.0, 0.0]
+            cases = [(QMM_ROWS, *QMM_SHAPES[name], name)
+                     for name in QMM_SHAPES] + [(5, 200, 130, "odd")]
+            for ci, (m, k, n, name) in enumerate(cases):
+                g = gs if name != "odd" or gs < 0 else 40
+                x, dy, q, sc = qmm_case(m, k, n, wd, g, dtype, dev,
+                                        SEED + ci)
+                got = quant_matmul_fwd(x, q, sc)
+                dx = quant_matmul_bwd(dy, q, sc, k, dtype)
+                torch.cuda.synchronize()
+                want = quant_matmul_reference(x, q, sc)
+                want_dx = quant_matmul_dx_reference(dy, q, sc, k, dtype)
+                held = []
+                for i, (a, b) in enumerate(((got, want), (dx, want_dx))):
+                    err, h = kernel_error(a, b, dtype)
+                    if dtype == torch.float32:
+                        h = err / b.abs().max().item()
+                    errs[i] = max(errs[i], err)
+                    held.append(h)
+                if not max(held) <= QMM_TOL[dtype]:
+                    raise AssertionError(
+                        f"quant_matmul {wd} g{g} {dtype} {name} [{m}, {k}] x "
+                        f"[{k}, {n}]: held errors fwd {held[0]}, dx {held[1]} "
+                        f"> {QMM_TOL[dtype]}")
+                if name == "odd":
+                    log(f"[quant] qmm {wd} g{g} {str(dtype)[6:]} odd [5, 200] "
+                        f"x [200, 130]: held fwd {held[0]:.3e}, dx "
+                        f"{held[1]:.3e} (tol {QMM_TOL[dtype]})")
+                    continue
+                nbytes, nops = qmm_work(m, k, n, bits, sc.shape[0],
+                                        x.element_size())
+                work = [work[0] + nbytes, work[1] + nops]
+                w_fp = dequantize_weight(q, sc, k=k, out_dtype=dtype)
+                t = dict(ms=time_ms(lambda: quant_matmul_fwd(x, q, sc)),
+                         plain_ms=time_ms(lambda: quant_matmul_reference(
+                             x, q, sc), iters=10),
+                         bwd_ms=time_ms(lambda: quant_matmul_bwd(
+                             dy, q, sc, k, dtype)),
+                         bwd_plain_ms=time_ms(
+                             lambda: quant_matmul_dx_reference(
+                                 dy, q, sc, k, dtype), iters=10),
+                         bound_ms=bound_ms(nbytes, nops, dtype),
+                         cublas_ms=time_ms(lambda: x @ w_fp))
+                lib = None
+                if wd == "int8" and gs < 0:
+                    lib, lib_note = int8pack_ms(x, q, sc)
+                t["library_ms"] = lib
+                for key, v in t.items():
+                    tot[key] = None if v is None or tot[key] is None \
+                        else tot[key] + v
+                log(f"[quant] qmm {wd} g{g} {str(dtype)[6:]} {name} [{m}, {k}]"
+                    f" x [{k}, {n}]: held fwd {held[0]:.3e}, dx "
+                    f"{held[1]:.3e}; kernel {t['ms']:.4f} ms (dx "
+                    f"{t['bwd_ms']:.4f}), plain {t['plain_ms']:.4f} (dx "
+                    f"{t['bwd_plain_ms']:.4f}), bound {t['bound_ms']:.4f} "
+                    f"({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP), cuBLAS "
+                    f"on the pre-dequantized weight (the fp product this "
+                    f"replaces) {t['cublas_ms']:.4f}, library "
+                    + (f"{lib:.4f}" if lib is not None else "null"))
+            tot["bound_by"] = ("bytes" if work[0] / HBM_BYTES_PER_S
+                               >= work[1] / PEAK_OPS[dtype] else "operations")
+            tot["max_abs_err"], tot["bwd_max_abs_err"] = errs
+            stats[(wd, gs, dtype)] = tot
+            log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, one layer's four "
+                f"GEMMs at M {QMM_ROWS}: kernel {tot['ms']:.4f} ms (dx "
+                f"{tot['bwd_ms']:.4f}), plain {tot['plain_ms']:.4f} (dx "
+                f"{tot['bwd_plain_ms']:.4f}), bound {tot['bound_ms']:.4f} "
+                f"({tot['bound_by']}: {work[0] / 1e6:.2f} MB, "
+                f"{work[1] / 1e9:.3f} GFLOP), cuBLAS "
+                f"fp product replaced {tot['cublas_ms']:.4f}, library "
+                + (f"(torch._weight_int8pack_mm) {tot['library_ms']:.4f}"
+                   if tot["library_ms"] is not None else
+                   f"null ({lib_note or 'no PyTorch call computes it'})"))
+    return stats
+
+
+def phase_ragged_int8(dev):
+    """The ragged kernel's int8-KV branch at the phase-3 geometry: pages
+    quantized by the KV write's formula."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+    from paddle_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention as kern,
+        ragged_paged_attention_reference as plain)
+
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, pt, kv_lens, q_lens = ragged_inputs(torch.float32, dev)
+        hkv, d = kp.shape[2], kp.shape[3]
+        (kq, ks), (vq, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
+                              for t in (kp, vp))
+        args = (q.to(dtype), kq.reshape(kp.shape), vq.reshape(vp.shape), pt,
+                kv_lens, q_lens)
+        sc = dict(k_scales=ks.reshape(kp.shape[:3]),
+                  v_scales=vs.reshape(vp.shape[:3]))
+        got = kern(*args, **sc)
+        torch.cuda.synchronize()
+        want = plain(*args, **sc)
+        valid = (torch.arange(got.shape[1], device=dev)[None]
+                 < q_lens[:, None])
+        err, held = kernel_error(got[valid], want[valid], dtype)
+        if not held <= KERNEL_TOL[dtype] or torch.count_nonzero(
+                got[~valid]).item():
+            raise AssertionError(f"ragged int8-KV kernel {dtype}: error "
+                                 f"{held} > {KERNEL_TOL[dtype]} or rows past "
+                                 "q_len not zero")
+        nbytes, nops = ragged_work(args)
+        st = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args, **sc)),
+                  plain_ms=time_ms(lambda: plain(*args, **sc), iters=5),
+                  bound_ms=bound_ms(nbytes, nops, dtype))
+        stats[dtype] = st
+        log(f"[quant] ragged int8 KV {str(dtype)[6:]}: max_abs_err {err:.3e},"
+            f" held {held:.3e} (tol {KERNEL_TOL[dtype]}); kernel "
+            f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+            f"{st['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.2f} MB, "
+            f"{nops / 1e9:.3f} GFLOP)")
+    return stats
+
+
+def quant_forward(params, x, cfg, kv_int8, mm):
+    """Plain forward of the serving params over one sequence's embedded
+    tokens ``x [s, h]`` -> logits ``[s, vocab]``: ``mm(y, q, s)`` for the
+    quantized projections, the serving step's association of the bias
+    adds, plain causal attention in fp32, and with ``kv_int8`` K and V
+    through the int8 KV write's quantize and dequantize."""
+    import torch.nn.functional as tnf
+
+    from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+
+    s, nh, hd = x.shape[0], cfg.num_heads, cfg.head_dim
+    eps = cfg.layer_norm_eps
+
+    def ln(v, g, b):
+        return tnf.layer_norm(v.float(), v.shape[-1:], g.float(), b.float(),
+                              eps).to(v.dtype)
+
+    def mm_(y, w):
+        return mm(y, w["q"], w["s"]) if isinstance(w, dict) else y @ w
+
+    def deq(t):
+        qv, sv = quantize_kv_rows(t)
+        return qv.float() * sv[..., None]
+
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    lay = params["layers"]
+    for i in range(cfg.num_layers):
+        p = {k: ({n: t[i] for n, t in w.items()} if isinstance(w, dict)
+                 else w[i]) for k, w in lay.items()}
+        qkv = (mm_(ln(x, p["ln1_g"], p["ln1_b"]), p["wqkv"]) + p["bqkv"]
+               ).reshape(s, 3, nh, hd)
+        q, k, v = qkv[:, 0].float(), qkv[:, 1].float(), qkv[:, 2].float()
+        if kv_int8:
+            k, v = deq(k), deq(v)
+        sc = torch.einsum("qhd,khd->hqk", q, k) / float(np.sqrt(hd))
+        pr = torch.softmax(sc.masked_fill(~causal, -1e30), dim=-1)
+        a = torch.einsum("hqk,khd->qhd", pr, v).to(x.dtype).reshape(s, -1)
+        x = x + mm_(a, p["wo"]) + p["bo"]
+        hid = tnf.gelu(mm_(ln(x, p["ln2_g"], p["ln2_b"]), p["w1"]) + p["b1"],
+                       approximate="tanh")
+        x = x + (mm_(hid, p["w2"]) + p["b2"])
+    x = ln(x, params["lnf_g"], params["lnf_b"])
+    return x @ params["tok_emb"].T
+
+
+def embed(params, ids):
+    return params["tok_emb"][ids] + params["pos_emb"][:ids.shape[0]]
+
+
+def check_quant_oracle(sp, cfg, reqs, rows, kv_int8, tol):
+    """Every served token and its logits row against the plain quantized
+    forward over the served context. Returns (near ties, max abs logit
+    error)."""
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_reference
+
+    near_ties, logit_err = 0, 0.0
+    with torch.no_grad():
+        for i, r in enumerate(reqs):
+            p, o = list(r.prompt_ids), list(r.output_ids)
+            if len(o) != MAX_NEW:
+                raise AssertionError(f"request {i}: {len(o)} tokens")
+            ids = torch.tensor(p + o[:-1], device=sp.device)
+            logits = quant_forward(sp.params, embed(sp.params, ids), cfg,
+                                   kv_int8, quant_matmul_reference)
+            logits = logits[len(p) - 1:].float()
+            served = torch.stack([rows[(r.req_id, j)] for j in range(len(o))])
+            logit_err = max(logit_err, (served - logits).abs().max().item())
+            top2 = logits.topk(2, dim=-1)
+            margin = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+            for j, (w, g) in enumerate(zip(top2.indices[:, 0].tolist(), o)):
+                if w == g:
+                    continue
+                if margin[j] < TIE_MARGIN:
+                    near_ties += 1
+                    continue
+                raise AssertionError(
+                    f"request {i} token {j}: served {g}, quantized oracle {w}"
+                    f" (margin {margin[j]:.3e})")
+    if not logit_err <= tol:
+        raise AssertionError(f"served logits differ from the quantized "
+                             f"forward's by {logit_err} > {tol}")
+    return near_ties, logit_err
+
+
+def quant_predictor(model, cfg, quant, dev, dtype=None):
+    """A ServingPredictor of ``model`` with the config fields ``quant`` set
+    while it is built (it quantizes at construction)."""
+    from paddle_tpu_torch.inference import ServingPredictor
+
+    saved = {k: getattr(cfg, k) for k in quant}
+    for k, v in quant.items():
+        setattr(cfg, k, v)
+    try:
+        return ServingPredictor(model, max_batch=8, device=dev, dtype=dtype)
+    finally:
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+
+
+def phase_quant_grad(params, cfg, dev, bits):
+    """d(loss)/d(input embeddings) through the 12 quantized layers (frozen
+    weights), the weight-only GEMM op against the same forward with the
+    plain GEMM: runs the backward kernels, 48 per backward."""
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                   quant_matmul_reference)
+
+    ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, 257)).to(dev)
+    grads, counts = {}, None
+    for name, mm in (("kernel", quant_matmul),
+                     ("plain", quant_matmul_reference)):
+        x = embed(params, ids[:-1]).detach().requires_grad_()
+        reset_counts()
+        logits = quant_forward(params, x, cfg, False, mm)
+        torch.nn.functional.cross_entropy(logits.float(), ids[1:]).backward()
+        torch.cuda.synchronize()
+        if name == "kernel":
+            counts = qmm_counts()
+        grads[name] = x.grad
+    err = ((grads["kernel"] - grads["plain"]).abs().max()
+           / grads["plain"].abs().max()).item()
+    want = cfg.num_layers * 4
+    log(f"[quant] int{bits} gradient wrt the input embeddings ([256, 768], "
+        f"fp32) through {cfg.num_layers} quantized layers: kernel vs plain "
+        f"{err:.3e} of its max |grad| (tol {GRAD_TOL}); launches {counts}")
+    if not err <= GRAD_TOL:
+        raise AssertionError(f"int{bits} input gradient: kernel vs plain "
+                             f"{err} > {GRAD_TOL}")
+    if counts[f"int{bits}"] != want or counts[f"int{bits}_bwd"] != want:
+        raise AssertionError(f"int{bits} gradient drive launched {counts} "
+                             f"(want {want} forward and backward)")
+    return counts[f"int{bits}_bwd"]
+
+
+def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
+    """Quantized serving on GPT-125M: three configurations in fp32 against
+    the plain quantized forward, the gradient drive through the backward
+    kernels, then bf16 step times."""
+    from paddle_tpu_torch.inference.quantize import serving_weight_bytes
+    from paddle_tpu_torch.models.gpt import serving_params
+
+    early, late = requests(cfg)
+    launches = {"ragged": 0, "int8": 0, "int4": 0, "int8_bwd": 0,
+                "int4_bwd": 0}
+    preds = {}
+    for label, quant, tol in QUANT_SERVE:
+        sp = quant_predictor(model, cfg, quant, dev)
+        preds[label] = sp
+        served_logits = StepLogits(sp)
+        reset_counts()
+        t0 = time.perf_counter()
+        reqs = serve(sp, early, late)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ragged_n, counts = read_counts()[1], qmm_counts()
+        tel, steps = sp.telemetry(), sp.steps
+        bits = quant["weight_dtype"]
+        kv_int8 = quant.get("kv_cache_dtype") == "int8"
+        outs = [list(r.output_ids) for r in reqs]
+        log(f"[quant] serve ({label}) fp32: {steps} steps, ragged launches "
+            f"{ragged_n}, weight-only GEMM launches {counts}, prefix-hit "
+            f"tokens {tel['kv_prefix_hit_tokens']:.0f}, CoW copies "
+            f"{tel['kv_cow_copies']:.0f}, KV pool {sp.cache.k_pool.dtype}, "
+            f"{wall:.3f} s wall")
+        others = sum(v for k, v in counts.items() if k != bits)
+        if (ragged_n != steps * cfg.num_layers or steps == 0
+                or counts[bits] != 4 * steps * cfg.num_layers or others):
+            raise AssertionError(f"({label}) launches: ragged {ragged_n}, "
+                                 f"GEMM {counts} over {steps} steps")
+        if tel["kv_cow_copies"] < 1 or tel["kv_prefix_hit_tokens"] < 1:
+            raise AssertionError(f"({label}) no prefix hit or CoW copy")
+        if kv_int8 != (sp.cache.k_pool.dtype == torch.int8):
+            raise AssertionError(f"({label}) KV pool {sp.cache.k_pool.dtype}")
+        launches["ragged"] += ragged_n
+        launches[bits] += counts[bits]
+        ties, logit_err = check_quant_oracle(sp, cfg, reqs,
+                                             served_logits.rows, kv_int8, tol)
+        agree = np.mean([a == b for o, f in zip(outs, fp_outs)
+                         for a, b in zip(o, f)])
+        log(f"[quant] serve ({label}) fp32: greedy streams match the plain "
+            f"quantized forward ({sum(map(len, outs))} tokens, {ties} near "
+            f"ties); logits max_abs_err {logit_err:.3e} (tol {tol}); token "
+            "agreement with the fp32 streams of "
+            f"phase 6: {agree:.4f}; {len({t for o in outs for t in o})} "
+            "distinct tokens")
+    for label, bits in (("a int8", 8), ("b int4 g128", 4)):
+        launches[f"int{bits}_bwd"] += phase_quant_grad(
+            preds[label].params, cfg, dev, bits)
+    fp_bytes = serving_weight_bytes(serving_params(model))
+    kv = {label: sum(t.numel() * t.element_size()
+                     for t in preds[label].cache.pools())
+          for label in ("a int8", "c int8 + int8 KV")}
+    log(f"[quant] serving_weight_bytes fp32 {fp_bytes / 1e6:.2f} MB, int8 "
+        f"{serving_weight_bytes(preds['a int8'].params) / 1e6:.2f} MB, int4 "
+        f"g128 {serving_weight_bytes(preds['b int4 g128'].params) / 1e6:.2f}"
+        f" MB; KV pools fp32 {kv['a int8'] / 1e6:.2f} MB, int8 + scales "
+        f"{kv['c int8 + int8 KV'] / 1e6:.2f} MB")
+    del preds
+    for label, quant, _ in (QUANT_SERVE[0], QUANT_SERVE[2]):
+        walls = []
+        for run in range(1 + BF16_RUNS):
+            sp16 = quant_predictor(model, cfg, quant, dev,
+                                   dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
+            torch.cuda.synchronize()
+            if run:
+                walls.append(time.perf_counter() - t0)
+        ntok = sum(map(len, outs16))
+        if ntok != MAX_NEW * len(outs16):
+            raise AssertionError(f"bf16 ({label}) malformed streams")
+        wall = sorted(walls)[len(walls) // 2]
+        log(f"[quant] serve ({label}) bf16: {ntok} tokens, {sp16.steps} steps"
+            f" per run; median of {BF16_RUNS} runs {wall:.3f} s = "
+            f"{ntok / wall:.1f} tokens/s, mean step "
+            f"{1e3 * wall / sp16.steps:.3f} ms (fp bf16 step of phase 6: "
+            f"{fp16_step_ms:.3f} ms; runs: "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
+    return launches
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -897,8 +1346,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
-                          "flash_attention_bwd"])
-    log(f"[build] three kernels for sm_90a in "
+                          "flash_attention_bwd", "quant_matmul"])
+    log(f"[build] four kernel sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -920,7 +1369,14 @@ def main() -> int:
     model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
     model.eval()
     flash_launches = phase_forward(model, cfg, dev)
-    ragged_launches = phase_serve(model, cfg, dev, card)
+    ragged_launches, fp_outs, fp16_step_ms = phase_serve(model, cfg, dev,
+                                                         card)
+
+    # 8. quantized serving, while GPT-125M is on the card
+    qmm = phase_qmm(dev)
+    ragged8 = phase_ragged_int8(dev)
+    quant_launches = phase_quant_serve(model, cfg, dev, card, fp_outs,
+                                       fp16_step_ms)
 
     # 7. training: the backward kernel, then the training path
     bwd = phase_flash_bwd(dev)
@@ -931,11 +1387,26 @@ def main() -> int:
     train_fwd, train_bwd = phase_train_bf16(dev, card, bwd[torch.bfloat16])
 
     kernels = []
+    bf16 = torch.bfloat16
+    qmm_rows = []
+    for bits, gs, line in ((8, -1, 154), (4, 128, 170)):
+        st = qmm[(f"int{bits}", gs, bf16)]
+        qmm_rows.append((f"quant_matmul_int{bits}", line,
+                         quant_launches[f"int{bits}"], st))
+    for bits, gs, line in ((8, -1, 194), (4, 128, 210)):
+        st = qmm[(f"int{bits}", gs, bf16)]
+        qmm_rows.append((f"quant_matmul_int{bits}_bwd", line,
+                         quant_launches[f"int{bits}_bwd"],
+                         dict(st, ms=st["bwd_ms"],
+                              plain_ms=st["bwd_plain_ms"],
+                              max_abs_err=st["bwd_max_abs_err"],
+                              library_ms=None)))
     for name, src, replaces, launches, s in (
             ("ragged_paged_attention",
              "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:264",
-             ragged_launches, ragged[torch.float32]),
+             ragged_launches + quant_launches["ragged"],
+             ragged[torch.float32]),
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:262",
@@ -943,18 +1414,30 @@ def main() -> int:
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:419",
-             train_bwd, bwd[torch.bfloat16])):
+             train_bwd, bwd[torch.bfloat16]),
+            *((name, "paddle_tpu_torch/csrc/quant_matmul.cu",
+               f"paddle_tpu/ops/pallas/quant_matmul.py:{line}", n, st)
+              for name, line, n, st in qmm_rows)):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+    kernels[0]["note"] = (
+        "int8-KV branch checked too: max_abs_err "
+        f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "
+        f"{ragged8[torch.float32]['ms']:.4f} ms vs bound "
+        f"{ragged8[torch.float32]['bound_ms']:.6f} ms; launches include the "
+        "quantized serving runs")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(summary: ragged and flash_attention_fwd times in fp32 at the "
         "serving / full-forward shapes of phases 3-4, launches on the main "
-        "paths of phases 5-7; flash_attention_bwd in bf16 at the training "
-        f"shape {list(BWD_SHAPE)}, launches in the bf16 training run)")
+        "paths of phases 5-8; flash_attention_bwd in bf16 at the training "
+        f"shape {list(BWD_SHAPE)}, launches in the bf16 training run; "
+        "quant_matmul_* in bf16, the sum of one layer's four GEMMs at M "
+        f"{QMM_ROWS}, launches in phase 8's fp32 serving runs (forward) and "
+        "gradient drives (backward))")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-// Helpers shared by the port's attention kernels: fp32 / bf16 element
-// access, a batched 16-byte tile loader and the host-side shared-memory cap.
+// Helpers shared by the port's kernels: fp32 / bf16 element access, a
+// batched 16-byte tile loader (fp32, bf16 or int8 rows, the last scaled per
+// row) and the host-side shared-memory cap.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace ptt {
 
@@ -55,31 +58,50 @@ __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
   }
 }
 
+// 16 int8 values
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[16]) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = (float)b[i];
+}
+
+// No per-row scale: load_rows stores the values as they are.
+struct NoScale {};
+
 // Copy rows [0, nrows) of NT tiles — row r of tile t at src[t] + off(r),
 // D contiguous elements — into shared memory as fp32 (row pitch pitch[t]).
-// Rows >= valid are zero-filled. Each thread keeps kBatch 16-byte loads per
-// tile in flight before it stores any, so a page costs about one memory
-// latency instead of one per element. Rows must be 16-byte aligned.
-template <typename T, int D, int kBatch, int NT, typename RowOff>
+// Rows >= valid are zero-filled. With a Scale callable, row r of tile t is
+// multiplied by scale(t, r) in fp32 (int8 rows dequantize on the way in).
+// Each thread keeps kBatch 16-byte loads per tile (and their scales) in
+// flight before it stores any, so a page costs about one memory latency
+// instead of one per element. Rows must be 16-byte aligned.
+template <typename T, int D, int kBatch, int NT, typename RowOff,
+          typename Scale = NoScale>
 __device__ __forceinline__ void load_rows(const T* const (&src)[NT],
                                           float* const (&dst)[NT],
                                           const int (&pitch)[NT], RowOff off,
-                                          int nrows, int valid) {
+                                          int nrows, int valid,
+                                          Scale scale = Scale{}) {
+  constexpr bool kScaled = !std::is_same_v<Scale, NoScale>;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int RV = D / VEC;  // vectors per row
   const int nvec = nrows * RV;
   for (int base = 0; base < nvec; base += blockDim.x * kBatch) {
     uint4 reg[NT][kBatch];
+    float sc[NT][kScaled ? kBatch : 1];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = base + u * blockDim.x + threadIdx.x;
       const int r = i / RV, c = (i % RV) * VEC;
 #pragma unroll
-      for (int t = 0; t < NT; ++t)
+      for (int t = 0; t < NT; ++t) {
         reg[t][u] = (i < nvec && r < valid)
                         ? __ldg(reinterpret_cast<const uint4*>(
                               src[t] + off(r) + c))
                         : make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (kScaled)
+          sc[t][u] = (i < nvec && r < valid) ? scale(t, r) : 0.f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -90,6 +112,10 @@ __device__ __forceinline__ void load_rows(const T* const (&src)[NT],
       for (int t = 0; t < NT; ++t) {
         float f[VEC];
         unpack(reg[t][u], f);
+        if constexpr (kScaled) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) f[e] *= sc[t][u];
+        }
 #pragma unroll
         for (int e = 0; e < VEC; ++e) dst[t][r * pitch[t] + c + e] = f[e];
       }

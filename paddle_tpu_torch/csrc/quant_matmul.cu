@@ -1,0 +1,359 @@
+// Weight-only quantized GEMM for Hopper (sm_90a): int8 and split-half int4
+// weights with per-channel or per-group fp32 scales, fp32 or bf16
+// activations, forward y = x @ deq(W) (+ bias) and backward
+// dx = dy @ deq(W)^T.
+//
+// Replaces paddle_tpu/ops/pallas/quant_matmul.py::_qmm_kernel (int8
+// forward), ::_qmm4_kernel (int4 forward), ::_qmm_bwd_kernel and
+// ::_qmm4_bwd_kernel (the backwards). Computes what they compute: each
+// weight element dequantizes as q * s[g] with g the scale group of its
+// ORIGINAL in-dim row, rounded to the activation type (the Pallas kernels
+// widen both to x.dtype and multiply there), products accumulate in fp32,
+// the result is written in the activation type. int4 is split-half packed:
+// byte i of the [K/2, N] array holds row i in its low nibble and row
+// K/2 + i in its high nibble, so the two nibbles of one byte read
+// different scale rows. Every element computes its own group, so k tiles
+// need not align with groups (the Pallas kernel needs bk | group size).
+//
+// One template serves all four: C[M, J] = A[M, R] . B[R, J] where the
+// forward takes A = x, R = K, B = deq(W), and the backward A = dy, R = N,
+// B = deq(W)^T. Both read the same raw weight tile (RW stored rows x 64
+// columns; RW = 64 int8 or 32 packed int4 rows = 64 original rows) and
+// differ only in how the dequantized tile lands in shared memory.
+//
+// What bounds it on the H100: at the serving shapes (M = 24 token rows,
+// GPT-125M's wqkv 768x2304, wo 768x768, w1 768x3072, w2 3072x768) bytes
+// in bf16 — the int8 weights of one step are 85 MB, ~25 us at 3.35 TB/s,
+// against ~4 GFLOP, ~4 us on the bf16 tensor cores — and operations in fp32
+// (~61 us at 67 TFLOP/s on the CUDA cores). The design reads each weight
+// tile from device memory once per 32 activation rows (16-byte loads,
+// the next stage's tile and scales already in flight in registers while
+// the block computes the current one), dequantizes it into fp32 shared
+// memory, and runs a 32 x 64 register-tiled fp32 FMA product on the CUDA
+// cores (2 x 4 outputs a thread). The full-precision weight never exists in
+// device memory. Tiny M leaves few output tiles (wo and w2 give 12), so the
+// reduction is split across blocks until ~2 blocks per SM are in flight;
+// each block writes an fp32 partial and the LAST block of a tile to arrive
+// (an arrival counter, reset by that block) sums the partials in split
+// order, so the result is deterministic. Not yet near the bound: no tensor
+// cores (mma.sync / wgmma), no cp.async / TMA ring — later work.
+#include "common.cuh"
+
+#include <cstdint>
+
+namespace {
+
+using ptt::store;
+using ptt::to_f;
+
+constexpr int kThreads = 256;
+constexpr int BM = 32;           // activation rows per block
+constexpr int BJ = 64;           // output columns per block
+constexpr int BR = 64;           // reduction indices per stage
+constexpr int kBPitch = BJ + 4;  // float4-aligned rows of the B tile
+constexpr int kAPitch = BM + 2;  // float2-aligned rows of the A tile
+
+struct Args {
+  const void* a;       // x [M, K] (forward) or dy [M, N] (backward), T
+  const int8_t* w;     // [KW, N]: int8 (KW = K) or packed int4 (KW = K / 2)
+  const float* s;      // [K / gs, N]
+  const float* bias;   // [N] or null (forward only), added in fp32
+  void* out;           // [M, N] (forward) or [M, K] (backward), T
+  float* ws;           // [splits, M, J] fp32 partials when splits > 1
+  int* counters;       // one arrival count per output tile, zero on entry
+  int M, K, N, gs, splits, per, vec;
+};
+
+// q * s rounded to the activation type (bf16: both widen exactly, the
+// product of two 8-bit significands is exact in fp32, one rounding)
+template <typename T>
+__device__ __forceinline__ float deq(int q, float s);
+template <>
+__device__ __forceinline__ float deq<float>(int q, float s) {
+  return (float)q * s;
+}
+template <>
+__device__ __forceinline__ float deq<__nv_bfloat16>(int q, float s) {
+  const float sb = __bfloat162float(__float2bfloat16(s));
+  return __bfloat162float(__float2bfloat16((float)q * sb));
+}
+
+template <typename T, bool kInt4, bool kBwd>
+__global__ void __launch_bounds__(kThreads)
+qmm_kernel(const Args p) {
+  constexpr int RW = kInt4 ? 32 : 64;   // stored weight rows per tile
+  constexpr int NS = kInt4 ? 2 : 1;     // original rows per stored row
+  __shared__ __align__(16) float Bs[BR * kBPitch];
+  __shared__ __align__(16) float As[BR * kAPitch];
+  __shared__ int last_flag;
+
+  const T* A = static_cast<const T*>(p.a);
+  const int M = p.M, K = p.K, N = p.N;
+  const int KW = kInt4 ? K / 2 : K;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM;
+  // forward: tile over output (N) columns, stages over stored rows;
+  // backward: tile over stored rows, stages over N columns
+  const int nst = kBwd ? (N + BR - 1) / BR : (KW + RW - 1) / RW;
+  const int t_begin = blockIdx.z * p.per;
+  const int t_end = min(nst, t_begin + p.per);
+  const int A_cols = kBwd ? N : K;
+  const int J = kBwd ? K : N;
+
+  // -- the stage's loads, kept in registers until the previous stage's
+  // compute is done
+  const bool w_loader = tid < RW * 4;
+  const int li = tid / 4, lc = (tid % 4) * 16;  // stored row, column segment
+  uint4 raw;
+  float sc[NS][16];
+  float av[8];
+
+  auto load_stage = [&](int t) {
+    const int wr0 = kBwd ? blockIdx.x * RW : t * RW;
+    const int wc0 = kBwd ? t * BR : blockIdx.x * BJ;
+    if (w_loader) {
+      const int row = wr0 + li, col = wc0 + lc;
+      const bool row_ok = row < KW;
+      if (p.vec) {
+        raw = (row_ok && col < N)
+                  ? __ldg(reinterpret_cast<const uint4*>(
+                        p.w + (long)row * N + col))
+                  : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        alignas(16) uint8_t b[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          b[e] = (row_ok && col + e < N)
+                     ? (uint8_t)__ldg(p.w + (long)row * N + col + e)
+                     : (uint8_t)0;
+        raw = *reinterpret_cast<const uint4*>(b);
+      }
+#pragma unroll
+      for (int h = 0; h < NS; ++h) {
+        const long g = (long)((h * KW + row) / p.gs) * N;
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          sc[h][e] = (row_ok && col + e < N) ? __ldg(p.s + g + col + e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int flat = u * kThreads + tid;
+      const int r = flat % BR, mm = m0 + flat / BR;
+      int c;
+      bool ok;
+      if (kBwd) {
+        c = wc0 + r;
+        ok = c < N;
+      } else if (kInt4) {
+        const int pr = wr0 + (r % 32);
+        c = (r < 32 ? 0 : KW) + pr;
+        ok = pr < KW;
+      } else {
+        c = wr0 + r;
+        ok = c < K;
+      }
+      av[u] = (ok && mm < M) ? to_f(A[(long)mm * A_cols + c]) : 0.f;
+    }
+  };
+
+  auto store_stage = [&]() {
+    if (w_loader) {
+      const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int c = lc + e;
+        float v[NS];
+        if constexpr (kInt4) {
+          const int byte = (int)(uint8_t)q[e];
+          v[0] = deq<T>(((byte & 0xF) ^ 8) - 8, sc[0][e]);
+          v[NS - 1] = deq<T>((((byte >> 4) & 0xF) ^ 8) - 8, sc[NS - 1][e]);
+        } else {
+          v[0] = deq<T>((int)q[e], sc[0][e]);
+        }
+#pragma unroll
+        for (int h = 0; h < NS; ++h) {
+          if constexpr (kBwd)
+            Bs[c * kBPitch + h * 32 + li] = v[h];
+          else
+            Bs[(h * 32 + li) * kBPitch + c] = v[h];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int flat = u * kThreads + tid;
+      As[(flat % BR) * kAPitch + flat / BR] = av[u];
+    }
+  };
+
+  float acc[2][4] = {};
+  if (t_begin < t_end) load_stage(t_begin);
+  for (int t = t_begin; t < t_end; ++t) {
+    __syncthreads();  // the previous stage's readers are done
+    store_stage();
+    __syncthreads();
+    if (t + 1 < t_end) load_stage(t + 1);  // in flight during the products
+#pragma unroll 8
+    for (int r = 0; r < BR; ++r) {
+      const float2 a = *reinterpret_cast<const float2*>(As + r * kAPitch +
+                                                        ty * 2);
+      const float4 b = *reinterpret_cast<const float4*>(Bs + r * kBPitch +
+                                                        tx * 4);
+      acc[0][0] = fmaf(a.x, b.x, acc[0][0]);
+      acc[0][1] = fmaf(a.x, b.y, acc[0][1]);
+      acc[0][2] = fmaf(a.x, b.z, acc[0][2]);
+      acc[0][3] = fmaf(a.x, b.w, acc[0][3]);
+      acc[1][0] = fmaf(a.y, b.x, acc[1][0]);
+      acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
+      acc[1][2] = fmaf(a.y, b.z, acc[1][2]);
+      acc[1][3] = fmaf(a.y, b.w, acc[1][3]);
+    }
+  }
+
+  // output column of local column jl (-1 past the edge)
+  auto out_col = [&](int jl) -> int {
+    if (!kBwd) {
+      const int c = blockIdx.x * BJ + jl;
+      return c < N ? c : -1;
+    }
+    const int wr0 = blockIdx.x * RW;
+    if (kInt4) {
+      const int pr = wr0 + (jl % 32);
+      return pr < KW ? (jl < 32 ? 0 : KW) + pr : -1;
+    }
+    return wr0 + jl < K ? wr0 + jl : -1;
+  };
+  T* out = static_cast<T*>(p.out);
+  auto finish = [&](int m, int c, float v) {
+    if (!kBwd && p.bias) v += p.bias[c];
+    store(out + (long)m * J + c, v);
+  };
+
+  if (p.splits == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + ty * 2 + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = out_col(tx * 4 + j);
+        if (c >= 0) finish(m, c, acc[i][j]);
+      }
+    }
+    return;
+  }
+  // split reduction: publish this split's partial; the last block of the
+  // tile to arrive sums all partials in split order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + ty * 2 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = out_col(tx * 4 + j);
+      if (c >= 0) p.ws[((long)blockIdx.z * M + m) * J + c] = acc[i][j];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0)
+    last_flag = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  // each (row, column) sums its partials in split order; the loads of a
+  // thread's 8 outputs over 4 splits are issued together
+  long off[2][4];
+  float sum[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 2 + i, c = out_col(tx * 4 + j);
+      off[i][j] = (m < M && c >= 0) ? (long)m * J + c : -1;
+    }
+  const long plane = (long)M * J;
+  for (int z0 = 0; z0 < p.splits; z0 += 4) {
+    float part[4][2][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          part[u][i][j] = (z0 + u < p.splits && off[i][j] >= 0)
+                              ? __ldcg(p.ws + (z0 + u) * plane + off[i][j])
+                              : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum[i][j] += part[u][i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (off[i][j] >= 0)
+        finish(m0 + ty * 2 + i, out_col(tx * 4 + j), sum[i][j]);
+  if (tid == 0) p.counters[tile] = 0;  // ready for the next launch
+}
+
+template <bool kInt4, bool kBwd>
+int launch(const void* a, const void* w, const void* s, const void* bias,
+           void* out, void* ws, void* counters, int M, int K, int N, int G,
+           int splits, int per, int vec, int dtype, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (G <= 0 || K % G || (kInt4 && K % 2) || splits < 1 || per < 1)
+    return (int)cudaErrorInvalidValue;
+  const int KW = kInt4 ? K / 2 : K;
+  const int RW = kInt4 ? 32 : 64;
+  const Args p{a, static_cast<const int8_t*>(w), static_cast<const float*>(s),
+               static_cast<const float*>(bias), out, static_cast<float*>(ws),
+               static_cast<int*>(counters), M, K, N, K / G, splits, per, vec};
+  const int gx = kBwd ? (KW + RW - 1) / RW : (N + BJ - 1) / BJ;
+  dim3 grid(gx, (M + BM - 1) / BM, splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    qmm_kernel<float, kInt4, kBwd><<<grid, kThreads, 0, st>>>(p);
+  else if (dtype == 1)
+    qmm_kernel<__nv_bfloat16, kInt4, kBwd><<<grid, kThreads, 0, st>>>(p);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ptt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// a: x [M, K] (forward) or dy [M, N] (backward); w [K, N] int8 or [K/2, N]
+// packed int4; s [G, N] fp32; bias [N] fp32 or null (forward); out [M, N]
+// (forward) or [M, K] (backward); ws [splits, M, N or K] fp32 (unused when
+// splits == 1); counters: one int per output tile, all zero. Each block
+// reduces `per` stages of its split. vec: w's rows are 16-byte aligned.
+// dtype: 0 = fp32, 1 = bf16 (a and out).
+#define PTT_QMM_ENTRY(name, int4, bwd)                                       \
+  int name(const void* a, const void* w, const void* s, const void* bias,   \
+           void* out, void* ws, void* counters, int M, int K, int N, int G, \
+           int splits, int per, int vec, int dtype, int device,             \
+           void* stream) {                                                  \
+    return launch<int4, bwd>(a, w, s, bias, out, ws, counters, M, K, N, G,  \
+                             splits, per, vec, dtype, device, stream);      \
+  }
+PTT_QMM_ENTRY(ptt_qmm_int8, false, false)
+PTT_QMM_ENTRY(ptt_qmm_int4, true, false)
+PTT_QMM_ENTRY(ptt_qmm_int8_bwd, false, true)
+PTT_QMM_ENTRY(ptt_qmm_int4_bwd, true, true)
+#undef PTT_QMM_ENTRY
+
+}  // extern "C"

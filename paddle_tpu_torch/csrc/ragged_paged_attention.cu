@@ -1,7 +1,8 @@
-// Ragged paged attention for Hopper (sm_90a), fp32 and bf16 K/V pools.
+// Ragged paged attention for Hopper (sm_90a): fp32 and bf16 K/V pools, and
+// int8 pools with per-(page slot, kv head) fp32 scales.
 //
-// Replaces paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel (its
-// fp branch; the int8-KV branch is a later slice). Computes what that
+// Replaces paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel (both
+// its fp branch and its quant=True int8-KV branch). Computes what that
 // kernel computes, not how: for each (sequence b, kv head h) the
 // R = chunk * group query rows (chunk-major, GQA group minor) attend that
 // sequence's pages through its page-table row, with the per-row causal
@@ -14,7 +15,12 @@
 // one block; the block reads its own page-table row and walks only
 // ceil(kv_len / page_size) pages — pages past the context are skipped,
 // not re-fetched. Entries are clipped to [0, num_pages) as the Pallas
-// index map clips them.
+// index map clips them. int8 pages dequantize in the same 16-byte load loop
+// (q * scale of the row's slot and head) straight into the fp32 K / V
+// tiles: a quarter of the fp32 bytes cross device memory, the math after
+// the load is the fp branch's. The Pallas int8 branch rounds the
+// dequantized rows to q's dtype; this kernel keeps them in fp32, as the
+// jnp reference does.
 //
 // What bounds it on the H100: bytes. Each (b, h) pair must read kv_len *
 // d K and V values once; at GPT-125M serving (max_batch 8, 12 heads,
@@ -47,10 +53,14 @@ size_t smem_floats(int rows, int ps, int d) {
          (size_t)rows * ps + (size_t)rows * d + 4 * (size_t)rows;
 }
 
-template <typename T, int D>
+// KV: the pool element type, T (fp) or int8_t (ks / vs then hold the
+// [num_pages, ps, hkv] fp32 scale planes)
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                         const T* __restrict__ vp,
+ragged_paged_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                         const KV* __restrict__ vp,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
                          const int* __restrict__ page_table,
                          const int* __restrict__ kv_lens,
                          const int* __restrict__ q_lens, T* __restrict__ out,
@@ -99,13 +109,21 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int n_pages = (kv_len + ps - 1) / ps;
   for (int p = 0; p < n_pages; ++p) {
     const int page = min(max(page_table[(long)b * pps + p], 0), num_pages - 1);
-    const T* src[2] = {kp + page * page_elems + (long)h * D,
-                       vp + page * page_elems + (long)h * D};
+    const KV* src[2] = {kp + page * page_elems + (long)h * D,
+                        vp + page * page_elems + (long)h * D};
     float* dst[2] = {Ks, Vs};
     const int pitch[2] = {D + 1, D};
+    auto rows = [=](int r) { return r * row_stride; };
     __syncthreads();  // the previous page's readers are done
-    load_rows<T, D, 8>(src, dst, pitch,
-                       [=](int r) { return r * row_stride; }, ps, ps);
+    if constexpr (std::is_same_v<KV, int8_t>) {
+      const long s0 = (long)page * ps * hkv + h;
+      load_rows<KV, D, 8>(src, dst, pitch, rows, ps, ps,
+                          [=](int t, int r) {
+                            return __ldg((t ? vs : ks) + s0 + (long)r * hkv);
+                          });
+    } else {
+      load_rows<KV, D, 8>(src, dst, pitch, rows, ps, ps);
+    }
     __syncthreads();
     // scores of every (row, key) pair, four independent partial sums
     for (int i = tid; i < nvalid_rows * ps; i += kThreads) {
@@ -183,19 +201,21 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* pt,
-           const void* kv_lens, const void* q_lens, void* out, int b,
-           int chunk, int hq, int hkv, int num_pages, int ps, int pps,
-           float scale, int device, cudaStream_t stream) {
+template <typename T, typename KV, int D>
+int launch(const void* q, const void* kp, const void* vp, const void* ks,
+           const void* vs, const void* pt, const void* kv_lens,
+           const void* q_lens, void* out, int b, int chunk, int hq, int hkv,
+           int num_pages, int ps, int pps, float scale, int device,
+           cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(chunk * (hq / hkv), ps, D);
-  cudaError_t err = ptt::allow_smem<ragged_paged_attn_kernel<T, D>>(
+  cudaError_t err = ptt::allow_smem<ragged_paged_attn_kernel<T, KV, D>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b, hkv);
-  ragged_paged_attn_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(pt),
+  ragged_paged_attn_kernel<T, KV, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
       static_cast<T*>(out), chunk, hq, hkv, num_pages, ps, pps, scale);
   return (int)cudaGetLastError();
@@ -215,10 +235,12 @@ int ptt_ragged_smem_bytes(int rows, int ps, int d) {
   return (int)(sizeof(float) * smem_floats(rows, ps, d));
 }
 
-// q/out [b, chunk, hq, d]; pools [num_pages, ps, hkv, d]; page_table
-// [b, pps] int32; kv_lens, q_lens [b] int32, all contiguous.
-// dtype: 0 = fp32, 1 = bf16. d: 64 or 128.
+// q/out [b, chunk, hq, d]; pools [num_pages, ps, hkv, d] in q's type, or
+// int8 with ks / vs the fp32 scale planes [num_pages, ps, hkv] (null for fp
+// pools); page_table [b, pps] int32; kv_lens, q_lens [b] int32, all
+// contiguous. dtype (of q and out): 0 = fp32, 1 = bf16. d: 64 or 128.
 int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
+                               const void* ks, const void* vs,
                                const void* pt, const void* kv_lens,
                                const void* q_lens, void* out, int b,
                                int chunk, int hq, int hkv, int num_pages,
@@ -226,13 +248,23 @@ int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
                                int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if ((ks == nullptr) != (vs == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_ARGS q, kp, vp, pt, kv_lens, q_lens, out, b, chunk, hq, hkv, \
-                 num_pages, ps, pps, scale, device, s
-  if (dtype == 0 && d == 64) return launch<float, 64>(PTT_ARGS);
-  if (dtype == 0 && d == 128) return launch<float, 128>(PTT_ARGS);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(PTT_ARGS);
-  if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128>(PTT_ARGS);
+  const bool quant = ks != nullptr;
+#define PTT_ARGS q, kp, vp, ks, vs, pt, kv_lens, q_lens, out, b, chunk, hq, \
+                 hkv, num_pages, ps, pps, scale, device, s
+  using bf16 = __nv_bfloat16;
+  if (!quant) {
+    if (dtype == 0 && d == 64) return launch<float, float, 64>(PTT_ARGS);
+    if (dtype == 0 && d == 128) return launch<float, float, 128>(PTT_ARGS);
+    if (dtype == 1 && d == 64) return launch<bf16, bf16, 64>(PTT_ARGS);
+    if (dtype == 1 && d == 128) return launch<bf16, bf16, 128>(PTT_ARGS);
+  } else {
+    if (dtype == 0 && d == 64) return launch<float, int8_t, 64>(PTT_ARGS);
+    if (dtype == 0 && d == 128) return launch<float, int8_t, 128>(PTT_ARGS);
+    if (dtype == 1 && d == 64) return launch<bf16, int8_t, 64>(PTT_ARGS);
+    if (dtype == 1 && d == 128) return launch<bf16, int8_t, 128>(PTT_ARGS);
+  }
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@ pages through a per-slot page table (``-1`` = unallocated) and
   content chain keys with refcounts and an LRU of zero-ref registered
   pages, and copy-on-write claims — plain Python/numpy, the same
   algorithm (and so the same page numbers) as the reference.
-- **device side** (functions below): the packed K/V scatter and the CoW
+- **device side** (functions below): the packed K/V scatter (fp, or
+  int8 with a per-token, per-head scale: quantize-on-write) and the CoW
   page copy the unified step runs.
 
 The reference drops out-of-range scatters (``mode="drop"``); torch has no
@@ -35,6 +36,20 @@ import torch
 from .._device import resolve_device
 from ..observability import MetricsRegistry
 from ..ops.paged_attention import PAGE_SIZE_DEFAULT
+
+
+def kv_cache_quantized(kv_cache_dtype) -> bool:
+    """Map a ``kv_cache_dtype`` config value to the pool-quantization flag;
+    an unsupported value raises rather than serving a full-precision
+    cache."""
+    if kv_cache_dtype in (None, "none"):
+        return False
+    if kv_cache_dtype == "int8":
+        return True
+    raise ValueError(
+        f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r} "
+        "(int4 KV is not supported — sub-byte pages would halve the "
+        "scatter granularity; weight_dtype='int4' is the 4x lever)")
 
 
 def pages_needed(length: int, page_size: int) -> int:
@@ -88,6 +103,46 @@ def paged_write_packed_(pool, toks, dest):
     pool[dest] = toks.to(pool.dtype)
 
 
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def quantize_kv_rows(toks):
+    """The int8 KV write's quantizer: each token row quantizes per head
+    against its own absmax, ``scale = max(absmax, 1e-8) / 127`` in fp32,
+    ``q = clip(round_half_even(x / scale), -127, 127)``. toks ``[budget,
+    kv_heads, head_dim]``; returns ``(q int8, scales fp32 [budget,
+    kv_heads])``. The division by 127 is a product with fp32(1/127): the
+    reference's step is jitted, and XLA computes a division by a constant
+    that way, so this gives its scales bit for bit."""
+    tf = toks.to(torch.float32)
+    s = tf.abs().amax(dim=-1).clamp_min(1e-8) * _INV_127
+    q = torch.round(tf / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def paged_write_packed_quant_(pool, scales, toks, dest):
+    """In-place quantize-on-write into ONE layer's int8 pool ``[num_pages +
+    1, page_size, kv_heads, head_dim]`` and its fp32 scale plane
+    ``[num_pages + 1, page_size, kv_heads]`` (spare page last)."""
+    q, s = quantize_kv_rows(toks)
+    pool[dest] = q
+    scales[dest] = s.to(scales.dtype)
+
+
+def paged_write_packed_quant(pages, scales, toks, page_table, tok_slot,
+                             tok_pos, page_size):
+    """Functional form over ``[num_pages, ...]`` int8 pages and ``[num_pages,
+    page_size, kv_heads]`` scales (the reference's signature): returns
+    ``(pages, scales)``, dropped writes dropped."""
+    n = pages.shape[0]
+    ext = torch.cat([pages, pages.new_zeros((1,) + tuple(pages.shape[1:]))])
+    ext_s = torch.cat([scales,
+                       scales.new_zeros((1,) + tuple(scales.shape[1:]))])
+    paged_write_packed_quant_(ext, ext_s, toks, packed_dest(
+        page_table, tok_slot, tok_pos, page_size, n))
+    return ext[:n], ext_s[:n]
+
+
 def paged_write_packed(pages, toks, page_table, tok_slot, tok_pos,
                        page_size):
     """Functional form over ``[num_pages, ...]`` pages (the reference's
@@ -135,7 +190,11 @@ class KVCacheManager:
     ``num_pages`` bounds cached tokens (``num_pages * page_size``),
     ``max_batch`` concurrent sequences, ``max_seq_len`` the per-sequence
     length (page-table width). Pools live on ``device`` (``None`` =
-    ``cuda:0``).
+    ``cuda:0``). ``quantize_kv=True`` stores the pools int8 with fp32
+    scale planes ``k_scales`` / ``v_scales`` ``[num_layers, num_pages + 1,
+    page_size, kv_heads]`` — one scale per (page slot, head), so a scale
+    travels with its page through copy-on-write and prefix sharing;
+    ``dtype`` stays the compute dtype.
     """
 
     def __init__(self, num_layers, num_kv_heads, head_dim, *, num_pages,
@@ -143,9 +202,6 @@ class KVCacheManager:
                  dtype=torch.float32, enable_prefix_cache=False,
                  quantize_kv=False, mesh=None, metrics=None,
                  host_tier_bytes=0, device=None):
-        if quantize_kv:
-            raise NotImplementedError(
-                "int8 KV pools are the quantized-KV serving slice")
         if mesh is not None:
             raise NotImplementedError(
                 "head-sharded pools are the multi-GPU serving slice")
@@ -163,8 +219,15 @@ class KVCacheManager:
         self.pages_per_slot = math.ceil(self.max_seq_len / self.page_size)
         shape = (num_layers, self.num_pages + 1, self.page_size,
                  num_kv_heads, head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.quantize_kv = bool(quantize_kv)
+        pool_dtype = torch.int8 if self.quantize_kv else dtype
+        self.k_pool = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        self.k_scales = self.v_scales = None
+        if self.quantize_kv:
+            self.k_scales = torch.zeros(shape[:4], dtype=torch.float32,
+                                        device=self.device)
+            self.v_scales = torch.zeros_like(self.k_scales)
         self._page_table = np.full((self.max_batch, self.pages_per_slot), -1,
                                    np.int32)
         self._seq_lens = np.zeros((self.max_batch,), np.int32)
@@ -445,6 +508,13 @@ class KVCacheManager:
         return page, dst
 
     # -- device views ------------------------------------------------------
+
+    def pools(self) -> tuple:
+        """The device pools in the unified step's order: ``(k_pool,
+        v_pool)``, then ``(k_scales, v_scales)`` when quantized."""
+        if self.quantize_kv:
+            return self.k_pool, self.v_pool, self.k_scales, self.v_scales
+        return self.k_pool, self.v_pool
 
     def page_table_device(self) -> torch.Tensor:
         """The page table on the pools' device, uploaded only when a

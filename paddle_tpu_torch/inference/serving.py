@@ -23,10 +23,13 @@ re-hits its own registered pages.
 The scheduling code is the reference's, so on the same weights and
 prompts the port and the reference's synchronous engine
 (``async_engine=False``) allocate the same pages and emit the same greedy
-tokens. Not ported here: the async dispatch-ahead engine
-(``async_engine=True`` raises), the legacy two-program path, SLO
-shedding, deadlines and fault injection; config flags of speculation,
-quantized KV or weights, the mega kernels and MoE raise.
+tokens. Quantized serving follows the config: ``GPTConfig.weight_dtype``
+(``"int8"`` / ``"int4"``, with ``weight_quant_group_size``) quantizes the
+stacked weights after the cast to ``dtype``, and ``kv_cache_dtype="int8"``
+(or the config's) keeps the KV pools int8. Not ported here: the async
+dispatch-ahead engine (``async_engine=True`` raises), the legacy
+two-program path, SLO shedding, deadlines and fault injection; config
+flags of speculation, the mega kernels and MoE raise.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ import torch
 from .._device import resolve_device
 from ..observability import MetricsRegistry
 from ..ops.paged_attention import CHUNK_DEFAULT, PAGE_SIZE_DEFAULT
-from .kv_cache import KVCacheManager, pages_needed
+from .kv_cache import KVCacheManager, kv_cache_quantized, pages_needed
+from .quantize import quantize_serving_params
 
 WAITING, RUNNING, FINISHED, FAILED = ("waiting", "running", "finished",
                                       "failed")
@@ -114,11 +118,15 @@ class ServingPredictor:
     admit / grow / preempt around ONE unified-step launch, then lands its
     tokens); ``generate`` drives ``step`` until a set of prompts finishes.
     The model's weights are stacked once (``serving_params``), cast to
-    ``dtype`` when given, and moved to ``device`` (``None`` = ``cuda:0``).
+    ``dtype`` when given, moved to ``device`` (``None`` = ``cuda:0``) and
+    then, when ``config.weight_dtype`` is set, quantized
+    (``quantize_serving_params``). ``kv_cache_dtype`` (default: the
+    config's) ``"int8"`` stores the KV pools int8.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
-                 dtype=None, chunk=None, async_engine=None, device=None):
+                 dtype=None, chunk=None, kv_cache_dtype=None,
+                 async_engine=None, device=None):
         from ..models.gpt import build_unified_step, serving_params
 
         gpt = model.gpt if hasattr(model, "gpt") else model
@@ -139,6 +147,13 @@ class ServingPredictor:
         self.params = {k: (place(v) if k != "layers"
                            else {n: place(w) for n, w in v.items()})
                        for k, v in params.items()}
+        if cfg.weight_dtype is not None:
+            # after the cast, as the reference does: a bf16 model's scales
+            # are bf16-rounded
+            self.params = quantize_serving_params(
+                self.params, cfg.weight_dtype, cfg.weight_quant_group_size)
+        self.kv_quant = kv_cache_quantized(kv_cache_dtype
+                                           or cfg.kv_cache_dtype)
         self.max_seq_len = cfg.max_seq_len
         self.max_batch = int(max_batch)
         page_size = int(page_size or PAGE_SIZE_DEFAULT)
@@ -147,17 +162,18 @@ class ServingPredictor:
             num_pages = self.max_batch * pages_needed(self.max_seq_len,
                                                       page_size)
         self.chunk = int(chunk or CHUNK_DEFAULT)
-        # config flags of unported paths (quantized KV, speculation, mega
-        # kernels, MoE, quantized weights) raise here
+        # config flags of unported paths (speculation, mega kernels, MoE)
+        # raise here
         self._unified = build_unified_step(
-            cfg, page_size, self.chunk, kv_quant=bool(cfg.kv_cache_dtype),
+            cfg, page_size, self.chunk, kv_quant=self.kv_quant,
             spec_k=cfg.spec_decode_k, mega=cfg.mega_decode)
         self.cache = KVCacheManager(
             cfg.num_layers, cfg.num_heads, cfg.head_dim,
             num_pages=num_pages, max_batch=self.max_batch,
             max_seq_len=self.max_seq_len, page_size=page_size,
             dtype=self.params["tok_emb"].dtype, enable_prefix_cache=True,
-            metrics=self.metrics, device=self.device)
+            quantize_kv=self.kv_quant, metrics=self.metrics,
+            device=self.device)
         self.token_budget = self.max_batch + self.chunk
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}   # slot -> request
@@ -452,14 +468,14 @@ class ServingPredictor:
             cow_src, cow_dst = self._put(src), self._put(dst)
         # page-table / seq-len views are taken BEFORE this step's advance:
         # kv_lens counts tokens cached before the step
-        next_toks, _, _, _ = self._unified(
+        next_toks = self._unified(
             self.params, self._put(tok_ids), self._put(tok_slot),
             self._put(tok_pos), self._put(q_lens), cache.seq_lens_device(),
             self._put(last_idx), self._zeros_t, self._zeros_b,
-            self._put(emit_mask), self._put(produced_n), cache.k_pool,
-            cache.v_pool, cache.page_table_device(), cow_src, cow_dst,
+            self._put(emit_mask), self._put(produced_n), *cache.pools(),
+            cache.page_table_device(), cow_src, cow_dst,
             self._put(seeds), self._put(temp), self._put(top_k),
-            self._put(top_p), sample=bool((temp > 0).any()))
+            self._put(top_p), sample=bool((temp > 0).any()))[0]
         self._m_steps.inc()
         for slot, n in sched.items():
             cache.advance(slot, n)

@@ -6,6 +6,9 @@ reference's ``jit.api._named_state`` names them (``gpt.embeddings
 The port's module tree uses the same names and the same ``[in, out]``
 linear layout, so loading is a key-for-key copy: no transpose anywhere.
 
+Serving params cross as the reference's serving pytree in numpy, fp or
+weight-only quantized, bit for bit (:func:`serving_params_from_jax_numpy`).
+
 Training params (``models/gpt_spmd.py``) cross as the reference's
 ``gpt_spmd.init_params`` pytree in numpy: the same keys, with the stage
 leaves ``[pp, L/pp, ...]`` on the reference's side and ``[L, ...]`` on the
@@ -81,6 +84,32 @@ def random_state(config: GPTConfig, seed: int = 0) -> dict:
     if not config.tie_word_embeddings:
         out["lm_head.weight"] = normal(h, v)
     return out
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array (bf16 as the ``ml_dtypes`` type JAX exports) as a
+    tensor of the same dtype and bits on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def serving_params_from_jax_numpy(tree: dict, *, device=None) -> dict:
+    """The port's serving params on ``device`` from the reference's serving
+    pytree (``models.gpt.serving_params``, optionally quantized by
+    ``inference.quantize``) with numpy leaves: the same keys and layouts,
+    every leaf bit for bit in its own dtype (quantized stacks keep their
+    ``{"q", "s"}`` form)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        if isinstance(a, dict):
+            return {k: leaf(v) for k, v in a.items()}
+        return _tensor_from_numpy(a, dev)
+
+    return leaf(tree)
 
 
 def train_params_from_jax_numpy(tree: dict, *, device=None,

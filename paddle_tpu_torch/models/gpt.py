@@ -12,7 +12,9 @@ Two halves, as in the reference:
   serving step over a packed token budget — per layer LN, QKV, packed
   paged KV write, ragged paged attention (the hand-written kernel on a
   CUDA tensor), output projection, LN, MLP — then the greedy / sampling
-  epilogue.
+  epilogue. Weight stacks quantized by ``inference.quantize`` (``{"q",
+  "s"}`` leaves) run through the weight-only GEMM kernel, and
+  ``kv_quant=True`` keeps the KV pools int8 with fp32 scale planes.
 
 Linear weights keep the JAX layout ``[in, out]`` (``y = x @ W + b``), so
 weights cross from the reference without a transpose.
@@ -26,18 +28,21 @@ from torch import nn
 
 from .._device import resolve_device
 from ..inference.kv_cache import (packed_dest, paged_copy_pages_,
-                                  paged_write_packed_)
+                                  paged_write_packed_,
+                                  paged_write_packed_quant_)
 from ..nn import functional as F
 from ..nn.functional.attention import _sdpa_ref
 from ..ops.paged_attention import ragged_paged_attention
+from ..ops.quant_matmul import quant_matmul
 
 
 @dataclass
 class GPTConfig:
     """Same fields and defaults as the reference ``GPTConfig``. Fields for
-    paths not ported yet (fused MLP kernels, TP, recompute, quantized
-    weights or KV, speculation, mega kernels, MoE) raise where they would
-    change behaviour."""
+    paths not ported yet (fused MLP kernels, TP, recompute, speculation,
+    mega kernels, MoE) raise where they would change behaviour;
+    ``weight_dtype`` / ``weight_quant_group_size`` / ``kv_cache_dtype``
+    configure quantized serving (``inference.serving``)."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_layers: int = 12
@@ -333,11 +338,36 @@ def _srv_logits(params, h):
     return h @ params["tok_emb"].T
 
 
+def _srv_mm(y, w):
+    """The serving matmul: fp weights ride ``@``; quantized stacks (``{"q":
+    int8 | packed int4, "s": scales}``, see ``inference/quantize.py``) ride
+    the weight-only GEMM, staying quantized on the device."""
+    if isinstance(w, dict):
+        return quant_matmul(y, w["q"], w["s"])
+    return y @ w
+
+
+def _srv_affine(y, w, b):
+    """``y @ w + b``: fp weights fuse the bias add in ``addmm``; quantized
+    ones add it after the GEMM's cast to y's dtype, as the reference's
+    ``_srv_mm(y, w) + b`` does."""
+    if isinstance(w, dict):
+        return _srv_mm(y, w) + b
+    return torch.addmm(b, y, w)
+
+
 def _srv_mlp(p, y):
-    """[t, h] rows through the tanh-GELU MLP (bias adds fused in addmm)."""
-    hidden = torch.nn.functional.gelu(torch.addmm(p["b1"], y, p["w1"]),
+    """[t, h] rows through the tanh-GELU MLP."""
+    hidden = torch.nn.functional.gelu(_srv_affine(y, p["w1"], p["b1"]),
                                       approximate="tanh")
-    return torch.addmm(p["b2"], hidden, p["w2"])
+    return _srv_affine(hidden, p["w2"], p["b2"])
+
+
+def _layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked serving params (quantized leaves keep
+    their ``{"q", "s"}`` form)."""
+    return {k: ({n: t[i] for n, t in w.items()} if isinstance(w, dict)
+                else w[i]) for k, w in layers.items()}
 
 
 def _split_qkv(qkv, nh, hd):
@@ -413,36 +443,50 @@ class UnifiedStep:
     one step; ``trace_count`` counts builds of this step (one: PyTorch runs
     eagerly; CUDA-graph capture per geometry is a later slice)."""
 
-    def __init__(self, config, page_size, chunk):
+    def __init__(self, config, page_size, chunk, kv_quant=False):
         self.config = config
         self.page_size = int(page_size)
         self.chunk = int(chunk)
+        self.kv_quant = bool(kv_quant)
         self.trace_count = 1
 
     @torch.no_grad()
     def __call__(self, params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
                  last_idx, feedback, prev_toks, emit_mask, produced,
-                 k_pool, v_pool, page_table, cow_src, cow_dst, lane_seeds,
-                 temperature, top_k, top_p, *, sample=None):
+                 *pools_and_tail, sample=None):
         """One step over the packed token budget (reference signature, with
-        ``lane_seeds [b]`` in place of the threefry ``base_keys``).
+        ``lane_seeds [b]`` in place of the threefry ``base_keys``): after
+        ``produced`` come the pools — ``k_pool, v_pool`` and, with
+        ``kv_quant``, ``k_scales, v_scales`` — then ``page_table, cow_src,
+        cow_dst, lane_seeds, temperature, top_k, top_p``.
 
-        ``k_pool`` / ``v_pool`` are ``[L, num_pages + 1, page_size, kv_heads,
-        head_dim]``: page ``num_pages`` is the spare page that padding and
-        unallocated writes land in (the reference's ``mode="drop"``). They
-        are updated in place (the reference donates them) and returned.
-        ``sample``: whether any lane samples (the host knows; ``None``
-        reads ``temperature``). ``cow_src = cow_dst = None`` skips the
-        copy-on-write lanes (no copy this step). Returns ``(next_toks [b]
-        int32, logits [b, v] fp32, k_pool, v_pool)``.
+        Pools are ``[L, num_pages + 1, page_size, kv_heads, head_dim]`` (int8
+        with ``kv_quant``; scale planes ``[L, num_pages + 1, page_size,
+        kv_heads]`` fp32): page ``num_pages`` is the spare page that padding
+        and unallocated writes land in (the reference's ``mode="drop"``).
+        They are updated in place (the reference donates them) and
+        returned. ``sample``: whether any lane samples (the host knows;
+        ``None`` reads ``temperature``). ``cow_src = cow_dst = None`` skips
+        the copy-on-write lanes (no copy this step). Returns ``(next_toks
+        [b] int32, logits [b, v] fp32, *pools)``.
         """
+        n_pool = 4 if self.kv_quant else 2
+        if len(pools_and_tail) != n_pool + 7:
+            raise TypeError(f"the unified step takes {n_pool} pools and 7 "
+                            f"trailing arrays, got {len(pools_and_tail)}")
+        pools = pools_and_tail[:n_pool]
+        (page_table, cow_src, cow_dst, lane_seeds, temperature, top_k,
+         top_p) = pools_and_tail[n_pool:]
+        k_pool, v_pool = pools[0], pools[1]
+        k_scales, v_scales = pools[2:] if self.kv_quant else (None, None)
         cfg, chunk, ps = self.config, self.chunk, self.page_size
         eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
         t, b = tok_ids.shape[0], q_lens.shape[0]
         num_pages = k_pool.shape[1] - 1
         if cow_dst is not None:
-            paged_copy_pages_(k_pool, cow_src, cow_dst)
-            paged_copy_pages_(v_pool, cow_src, cow_dst)
+            # scale planes are page-keyed: they ride the same copy lanes
+            for pool in pools:
+                paged_copy_pages_(pool, cow_src, cow_dst)
         valid = tok_slot >= 0
         slot_c = tok_slot.long().clamp(0, b - 1)
         tok_ids = torch.where((feedback > 0) & valid, prev_toks[slot_c],
@@ -460,19 +504,30 @@ class UnifiedStep:
         dest = packed_dest(page_table, tok_slot, tok_pos, ps, num_pages)
         lay = params["layers"]
         for i in range(cfg.num_layers):
-            p = {k: w[i] for k, w in lay.items()}
+            p = _layer_params(lay, i)
             y = _srv_ln(x, p["ln1_g"], p["ln1_b"], eps)
-            q, k_t, v_t = _split_qkv(torch.addmm(p["bqkv"], y, p["wqkv"]),
+            q, k_t, v_t = _split_qkv(_srv_affine(y, p["wqkv"], p["bqkv"]),
                                      nh, hd)
-            paged_write_packed_(k_pool[i], k_t, dest)
-            paged_write_packed_(v_pool[i], v_t, dest)
+            scales = {}
+            if self.kv_quant:
+                paged_write_packed_quant_(k_pool[i], k_scales[i], k_t, dest)
+                paged_write_packed_quant_(v_pool[i], v_scales[i], v_t, dest)
+                scales = dict(k_scales=k_scales[i, :num_pages],
+                              v_scales=v_scales[i, :num_pages])
+            else:
+                paged_write_packed_(k_pool[i], k_t, dest)
+                paged_write_packed_(v_pool[i], v_t, dest)
             qb = q.new_zeros(((b + 1) * chunk, nh, hd))
             qb[q_rows] = q
             ab = ragged_paged_attention(
                 qb[:b * chunk].view(b, chunk, nh, hd), k_pool[i, :num_pages],
-                v_pool[i, :num_pages], page_table, ctx, q_lens)
+                v_pool[i, :num_pages], page_table, ctx, q_lens, **scales)
             a = ab.reshape(b * chunk, nh * hd)[a_rows]  # back to packed [t]
-            x = x + torch.addmm(p["bo"], a, p["wo"])
+            if isinstance(p["wo"], dict):
+                # the reference's association: (x + a @ wo) + bo
+                x = x + _srv_mm(a, p["wo"]) + p["bo"]
+            else:
+                x = x + torch.addmm(p["bo"], a, p["wo"])
             x = x + _srv_mlp(p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps))
         x = _srv_ln(x, params["lnf_g"], params["lnf_b"], eps)
         h_last = x[last_idx.long().clamp(0, t - 1)]
@@ -486,26 +541,26 @@ class UnifiedStep:
             next_ids = torch.where(temperature > 0, sampled, next_ids)
         next_toks = torch.where(emit_mask > 0, next_ids.to(torch.int32),
                                 prev_toks)
-        return next_toks, logits, k_pool, v_pool
+        return (next_toks, logits) + tuple(pools)
 
 
 def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
                        kv_quant: bool = False, mesh=None, spec_k: int = 0,
                        mega: bool = False) -> UnifiedStep:
-    """The unified serving step on its per-op path: fp KV, one device,
-    no speculation, no mega kernels (each raises, naming its slice). The
-    step runs the ragged kernel when its tensors are on a CUDA device and
-    the plain version when they are on the CPU."""
-    for flag, later in ((kv_quant, "quantized-KV serving"),
-                        (mesh is not None, "multi-GPU (tensor-parallel) "
+    """The unified serving step on its per-op path: one device, no
+    speculation, no mega kernels (each raises, naming its slice).
+    ``kv_quant=True`` takes int8 pools with fp32 scale planes (quantize on
+    write); quantized weight leaves in the params run the weight-only GEMM.
+    The step runs the kernels when its tensors are on a CUDA device and
+    their plain versions when they are on the CPU."""
+    for flag, later in ((mesh is not None, "multi-GPU (tensor-parallel) "
                                            "serving"),
                         (spec_k, "speculative decoding"),
                         (mega, "mega-kernel serving")):
         if flag:
             raise NotImplementedError(
                 f"build_unified_step: {later} is a later port slice")
-    for field in ("moe_experts", "weight_dtype", "kv_cache_dtype"):
-        if getattr(config, field):
-            raise NotImplementedError(
-                f"build_unified_step: GPTConfig.{field} is not ported yet")
-    return UnifiedStep(config, page_size, chunk)
+    if config.moe_experts:
+        raise NotImplementedError(
+            "build_unified_step: GPTConfig.moe_experts is not ported yet")
+    return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant)

@@ -1,3 +1,3 @@
-from . import functional
+from . import functional, quant
 
-__all__ = ["functional"]
+__all__ = ["functional", "quant"]

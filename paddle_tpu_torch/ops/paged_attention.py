@@ -6,6 +6,10 @@ causal within the chunk, attending its whole paged context of
 ``kv_lens[b]`` tokens (this chunk included — its K/V is already written).
 Pools are ``[num_pages, page_size, kv_heads, head_dim]``; ``page_table``
 is ``[b, pages_per_seq]`` int32 with ``-1`` for unallocated entries.
+int8 pools come with fp32 scale planes ``k_scales`` / ``v_scales``
+``[num_pages, page_size, kv_heads]``: each page row dequantizes as
+``q * scale`` in fp32 (the Pallas kernel rounds it to q's dtype, its jnp
+reference keeps fp32; the port keeps fp32 in both versions).
 
 On a CUDA tensor :func:`ragged_paged_attention` launches the hand-written
 kernel of ``csrc/ragged_paged_attention.cu`` (or raises); on a CPU tensor
@@ -28,7 +32,7 @@ _KERNEL = "ragged_paged_attention"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptt_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8
+    "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 8
     + [ctypes.c_float, _I, _I, _P],
     "ptt_ragged_smem_bytes": [_I, _I, _I],
 }
@@ -42,11 +46,13 @@ def smem_bytes(rows: int, page_size: int, d: int) -> int:
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
-                                     kv_lens, q_lens, scale=None):
+                                     kv_lens, q_lens, scale=None,
+                                     k_scales=None, v_scales=None):
     """Gather-based oracle (torch twin of the jnp
     ``ragged_paged_attention_reference``): gather every page of each
-    sequence, mask by the per-row causal limit, softmax in fp32. Returns
-    ``[b, chunk, hq, d]`` in q's dtype with rows past ``q_lens`` zero."""
+    sequence (int8 pages dequantize after the gather with their scales),
+    mask by the per-row causal limit, softmax in fp32. Returns ``[b,
+    chunk, hq, d]`` in q's dtype with rows past ``q_lens`` zero."""
     b, c, hq, d = q.shape
     num_pages, page_size, hkv, _ = k_pages.shape
     pps = page_table.shape[1]
@@ -56,6 +62,9 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     pt = page_table.long().clamp(0, num_pages - 1)
     k = k_pages[pt].reshape(b, pps * page_size, hkv, d).float()
     v = v_pages[pt].reshape(b, pps * page_size, hkv, d).float()
+    if k_scales is not None:
+        k = k * k_scales[pt].reshape(b, pps * page_size, hkv, 1).float()
+        v = v * v_scales[pt].reshape(b, pps * page_size, hkv, 1).float()
     qg = q.reshape(b, c, hkv, group, d).float()
     s = torch.einsum("bchgd,bshd->bhgcs", qg, k) * scale
     kv_lens = kv_lens.long().reshape(-1, 1, 1)
@@ -72,18 +81,28 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     return out.reshape(b, c, hq, d).to(q.dtype)
 
 
-def _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale):
+def _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale,
+                 k_scales, v_scales):
     b, c, hq, d = q.shape
     num_pages, page_size, hkv, _ = k_pages.shape
     code = _build.dtype_code(q.dtype, "ragged_paged_attention")
+    quant = k_scales is not None
+    pool_dtype = torch.int8 if quant else q.dtype
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.dtype != pool_dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {pool_dtype} "
+                            f"(q is {q.dtype})")
+    scales = (k_scales, v_scales) if quant else ()
+    for name, t in zip(("k_scales", "v_scales"), scales):
+        if t.dtype != torch.float32 or tuple(t.shape) != (num_pages,
+                                                          page_size, hkv):
+            raise TypeError(f"{name} must be fp32 [{num_pages}, {page_size}, "
+                            f"{hkv}], got {t.dtype} {tuple(t.shape)}")
     for name, t in (("page_table", page_table), ("kv_lens", kv_lens),
                     ("q_lens", q_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    tensors = (q, k_pages, v_pages, page_table, kv_lens, q_lens)
+    tensors = (q, k_pages, v_pages, page_table, kv_lens, q_lens) + scales
     if any(t.device != q.device for t in tensors):
         raise ValueError("ragged_paged_attention: all inputs must be on "
                          f"{q.device}")
@@ -100,7 +119,8 @@ def _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale):
     out = torch.empty_like(q)
     err = lib.ptt_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None, page_table.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
         out.data_ptr(), b, c, hq, hkv, num_pages, page_size,
         page_table.shape[1], d, float(scale), code, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -115,10 +135,10 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens,
 
     q: ``[b, chunk, hq, d]`` right-padded query chunks; pools
     ``[num_pages, page_size, hkv, d]``; page_table ``[b, pps]`` int32;
-    kv_lens / q_lens ``[b]`` int32. Returns ``[b, chunk, hq, d]`` in q's
-    dtype. A CUDA ``q`` launches the kernel (``.launches`` counts them);
-    a CPU ``q`` runs the plain reference. int8 pools (``k_scales`` /
-    ``v_scales``) belong to the quantized-KV slice and raise.
+    kv_lens / q_lens ``[b]`` int32; int8 pools take fp32 ``k_scales`` /
+    ``v_scales`` ``[num_pages, page_size, hkv]``. Returns ``[b, chunk, hq,
+    d]`` in q's dtype. A CUDA ``q`` launches the kernel (``.launches``
+    counts them); a CPU ``q`` runs the plain reference.
     """
     b, c, hq, d = q.shape
     hkv = k_pages.shape[2]
@@ -131,20 +151,19 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens,
             or tuple(q_lens.shape) != (b,):
         raise ValueError("page_table / kv_lens / q_lens must lead with the "
                          f"batch {b}")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scales/v_scales) are ported with the "
-            "quantized-KV serving slice")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
-            q, k_pages, v_pages, page_table, kv_lens, q_lens, scale=scale)
+            q, k_pages, v_pages, page_table, kv_lens, q_lens, scale=scale,
+            k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"got {q.device}")
     return _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens,
-                        scale)
+                        scale, k_scales, v_scales)
 
 
 ragged_paged_attention.launches = 0

@@ -1,0 +1,298 @@
+"""Weight-only quantized GEMM — the serving step's projections when the
+weights are int8 or int4.
+
+Port of ``paddle_tpu/ops/pallas/quant_matmul.py``: ``y = x @ dequant(W) +
+bias`` with ``W`` int8 ``[K, N]`` or split-half packed int4 ``[K/2, N]``
+(byte ``i`` holds row ``i`` in its low nibble and row ``K/2 + i`` in its
+high nibble) and scales ``[N]`` per channel or ``[groups, N]`` per group
+along K. A weight element dequantizes as ``q * s`` computed in ``x``'s
+dtype (bf16 rounds it), products accumulate in fp32, and the result is
+cast to ``x``'s dtype; a bias is added in fp32 before that cast.
+
+On a CUDA tensor :func:`quant_matmul_fwd` / :func:`quant_matmul_bwd`
+launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise); on
+a CPU tensor they run :func:`quant_matmul_reference` and
+:func:`quant_matmul_dx_reference`. :func:`quant_matmul` is differentiable
+on both: one custom op (``paddle_tpu_torch::quant_matmul``) whose backward
+gives ``dx = dy @ dequant(W)^T`` through the backward kernel and the bias
+its row sum; the quantized weight and its scales get no gradient (the
+reference returns float0 and zeros for them). Calls that need no gradient
+(the serving step runs under ``no_grad``) skip the op's autograd dispatch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+_KERNEL = "quant_matmul"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ENTRY = [_P] * 7 + [_I] * 9 + [_P]
+_SIGNATURES = {f"ptt_qmm_{name}": _ENTRY
+               for name in ("int8", "int4", "int8_bwd", "int4_bwd")}
+# the kernel's tiles (csrc/quant_matmul.cu): 32 activation rows x 64
+# output columns a block, 64 reduction indices a stage; a stage of the
+# int8 weight is 64 stored rows, of the packed int4 weight 32
+_BM, _BJ, _BR = 32, 64, 64
+_BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
+
+
+# ---------------------------------------------------------------------------
+# int4 nibble packing (split-half layout) and scale layout
+# ---------------------------------------------------------------------------
+
+
+def pack_int4(q):
+    """Pack int8 values in [-8, 7] along the in-dim (axis -2): ``[..., K,
+    N] -> [..., K/2, N]``, byte ``i`` = row ``i`` (low nibble) | row
+    ``K/2 + i`` (high nibble). K must be even."""
+    k = q.shape[-2]
+    if k % 2:
+        raise ValueError(f"int4 packing needs an even in-dim, got {k}")
+    lo = q[..., :k // 2, :].to(torch.int32) & 0xF
+    hi = q[..., k // 2:, :].to(torch.int32) & 0xF
+    byte = (hi << 4) | lo                      # 0..255
+    return torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+
+
+def unpack_int4(packed):
+    """Inverse of :func:`pack_int4`: ``[..., K/2, N] int8 -> [..., K, N]
+    int8``, each nibble sign-extended from 4-bit two's complement."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-2).to(torch.int8)
+
+
+def _is_packed(qweight, k: int) -> bool:
+    if qweight.shape[0] == k:
+        return False
+    if qweight.shape[0] * 2 == k:
+        return True
+    raise ValueError(
+        f"quantized weight in-dim {qweight.shape[0]} matches neither K={k} "
+        f"(int8) nor K/2={k // 2} (packed int4)")
+
+
+def _norm_scales(scales, k: int, n: int):
+    """Normalize scales to ``[groups, N]``; returns (scales2d, group_size)."""
+    s = scales.reshape(1, -1) if scales.dim() == 1 else scales
+    if s.shape[-1] != n:
+        raise ValueError(f"scales last dim {s.shape[-1]} != out dim {n}")
+    groups = s.shape[0]
+    if k % groups:
+        raise ValueError(f"K={k} not divisible by {groups} scale groups")
+    return s, k // groups
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+
+def dequantize_weight(qweight, scales, k=None, out_dtype=torch.float32):
+    """The full-precision weight ``[K, N]``: widen and scale per group row,
+    both in ``out_dtype``. Packed int4 weights need ``k`` (the logical
+    in-dim): without it a ``[K/2, N]`` array is taken as int8."""
+    if k is not None and _is_packed(qweight, k):
+        qweight = unpack_int4(qweight)
+    kk, n = qweight.shape
+    s, group = _norm_scales(scales, kk, n)
+    return qweight.to(out_dtype) * s.to(out_dtype).repeat_interleave(
+        group, dim=0)
+
+
+def _acc_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def quant_matmul_reference(x, qweight, scales, bias=None):
+    """Dequantize-then-matmul: the weight materializes in ``x``'s dtype,
+    the product accumulates in fp32 (fp64 inputs stay fp64), a bias adds
+    in that precision, the result is cast to ``x``'s dtype."""
+    acc = _acc_dtype(x.dtype)
+    w = dequantize_weight(qweight, scales, k=x.shape[-1], out_dtype=x.dtype)
+    y = torch.matmul(x.to(acc), w.to(acc))
+    if bias is not None:
+        y = y + bias.to(acc)
+    return y.to(x.dtype)
+
+
+def quant_matmul_dx_reference(dy, qweight, scales, k, x_dtype):
+    """``dx = dy @ dequant(W)^T`` with the weight in ``x_dtype``, ``dy``
+    cast to ``x_dtype`` first, fp32 accumulation, the result in
+    ``x_dtype`` — the reference's custom VJP (``_qmm_bwd``)."""
+    acc = _acc_dtype(x_dtype)
+    w = dequantize_weight(qweight, scales, k=k, out_dtype=x_dtype)
+    return (dy.to(x_dtype).to(acc) @ w.to(acc).T).to(x_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+# per-device arrival counters of the split reduction: all zero between
+# launches (the last block of each tile resets its count). Launches that
+# share them must run in stream order, as the serving step's do. Grown
+# buffers are kept, so a captured CUDA graph never sees its buffer freed.
+_counters: dict[int, list[torch.Tensor]] = {}
+
+
+def _tile_counters(device, tiles: int) -> torch.Tensor:
+    held = _counters.setdefault(device.index, [])
+    if not held or held[-1].numel() < tiles:
+        held.append(torch.zeros(max(tiles, 1 << 16), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
+def _grid(m, k, n, packed, bwd, device):
+    """(output tiles, splits, stages per split) the kernel runs with."""
+    kw = k // 2 if packed else k
+    rw = 32 if packed else 64
+    tiles_j = -(-kw // rw) if bwd else -(-n // _BJ)
+    stages = -(-n // _BR) if bwd else -(-kw // rw)
+    tiles = tiles_j * -(-m // _BM)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(stages, -(-_BLOCKS_PER_SM * sms // tiles)))
+    per = -(-stages // want)
+    return tiles, -(-stages // per), per
+
+
+def _launch(a, qweight, scales2d, bias, k, n, bwd):
+    """One kernel launch: forward ``a = x [M, K]`` -> ``[M, N]``, backward
+    ``a = dy [M, N]`` -> ``[M, K]``, in ``a``'s dtype. Returns the output
+    and the kernel's name (None when ``M == 0`` and nothing launched)."""
+    code = _build.dtype_code(a.dtype, "quant_matmul")
+    packed = _is_packed(qweight, k)
+    if qweight.dtype != torch.int8:
+        raise TypeError(f"quant_matmul: qweight must be int8, got "
+                        f"{qweight.dtype}")
+    tensors = [a, qweight, scales2d] + ([] if bias is None else [bias])
+    if any(t.device != a.device for t in tensors):
+        raise ValueError(f"quant_matmul: all inputs must be on {a.device}")
+    a = a.contiguous()
+    qweight = qweight.contiguous()
+    scales2d = scales2d.to(torch.float32).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    m = a.shape[0]
+    name = ("int4" if packed else "int8") + ("_bwd" if bwd else "")
+    out = torch.empty((m, k if bwd else n), dtype=a.dtype, device=a.device)
+    if m == 0:
+        return out, None
+    tiles, splits, per = _grid(m, k, n, packed, bwd, a.device)
+    ws = (torch.empty((splits, m, out.shape[1]), dtype=torch.float32,
+                      device=a.device) if splits > 1 else None)
+    counters = _tile_counters(a.device, tiles)
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    err = getattr(lib, f"ptt_qmm_{name}")(
+        a.data_ptr(), qweight.data_ptr(), scales2d.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), counters.data_ptr(), m, k, n,
+        scales2d.shape[0], splits, per,
+        int(n % 16 == 0 and qweight.data_ptr() % 16 == 0), code,
+        a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, f"quant_matmul {name} launch")
+    return out, name
+
+
+def _check_device(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"quant_matmul runs on cuda or cpu, got {t.device}")
+
+
+def quant_matmul_fwd(x2, qweight, scales2d, bias=None):
+    """``x2 [M, K] @ dequant(qweight) (+ bias)`` in ``x2``'s dtype: the
+    kernel on a CUDA tensor (``.launches["int8" | "int4"]`` counts it), the
+    reference on a CPU tensor."""
+    _check_device(x2)
+    if x2.device.type == "cpu":
+        return quant_matmul_reference(x2, qweight, scales2d, bias=bias)
+    out, name = _launch(x2, qweight, scales2d, bias, x2.shape[1],
+                        qweight.shape[1], bwd=False)
+    if name:
+        quant_matmul_fwd.launches[name] += 1
+    return out
+
+
+quant_matmul_fwd.launches = {"int8": 0, "int4": 0}
+
+
+def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
+    """``dx = dy [M, N] @ dequant(qweight)^T`` in ``x_dtype``: the kernel on
+    a CUDA tensor (``.launches["int8" | "int4"]`` counts it), the reference
+    on a CPU tensor."""
+    _check_device(dy)
+    if dy.device.type == "cpu":
+        return quant_matmul_dx_reference(dy, qweight, scales2d, k, x_dtype)
+    out, name = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
+                        qweight.shape[1], bwd=True)
+    if name:
+        quant_matmul_bwd.launches[name[:4]] += 1
+    return out
+
+
+quant_matmul_bwd.launches = {"int8": 0, "int4": 0}
+
+
+@torch.library.custom_op("paddle_tpu_torch::quant_matmul", mutates_args=())
+def quant_matmul_op(x: torch.Tensor, qweight: torch.Tensor,
+                    scales: torch.Tensor, bias: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """Differentiable ``x [M, K] @ dequant(qweight) (+ bias)`` with
+    ``[groups, N]`` scales: :func:`quant_matmul_fwd` forward,
+    :func:`quant_matmul_bwd` backward."""
+    return quant_matmul_fwd(x, qweight, scales, bias)
+
+
+def _op_setup_context(ctx, inputs, output):
+    x, qweight, scales, bias = inputs
+    ctx.save_for_backward(qweight, scales)
+    ctx.k, ctx.x_dtype = x.shape[1], x.dtype
+    ctx.bias_dtype = None if bias is None else bias.dtype
+
+
+def _op_backward(ctx, dy):
+    qweight, scales = ctx.saved_tensors
+    dx = None
+    if ctx.needs_input_grad[0]:
+        dx = quant_matmul_bwd(dy.contiguous(), qweight, scales, ctx.k,
+                              ctx.x_dtype)
+    db = None
+    if ctx.bias_dtype is not None and ctx.needs_input_grad[3]:
+        db = dy.float().sum(0).to(ctx.bias_dtype)
+    return dx, None, None, db
+
+
+quant_matmul_op.register_autograd(_op_backward,
+                                  setup_context=_op_setup_context)
+
+
+def quant_matmul(x, qweight, scales, bias=None):
+    """Weight-only quantized GEMM ``y = x @ dequant(qweight) + bias`` with
+    the weight staying int8 (or packed int4) on the device.
+
+    x: ``[..., K]`` fp32/bf16; qweight: ``[K, N]`` int8 or ``[K/2, N]``
+    packed int4 (see :func:`pack_int4`); scales: ``[N]`` per channel or
+    ``[groups, N]`` per group (``K % groups == 0``); bias: ``[N]`` or None.
+    Returns ``[..., N]`` in x's dtype; differentiable in x and bias.
+    Where no gradient can flow (grad mode off, or neither x nor bias
+    requires grad) the forward wrapper runs without the autograd op, whose
+    dispatch costs more host time than the kernel takes.
+    """
+    k = x.shape[-1]
+    n = qweight.shape[-1]
+    _is_packed(qweight, k)
+    scales2d, _ = _norm_scales(scales, k, n)
+    lead = x.shape[:-1]
+    m = int(math.prod(lead)) if lead else 1
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or (bias is not None and bias.requires_grad))
+    fn = quant_matmul_op if needs_grad else quant_matmul_fwd
+    y = fn(x.reshape(m, k), qweight, scales2d, bias)
+    return y.reshape(*lead, n)

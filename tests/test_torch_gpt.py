@@ -89,7 +89,6 @@ def test_unported_flags_raise():
         tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, moe_experts=2),
                             device="cpu")
     cfg = tgpt.GPTConfig(**TINY)
-    for kw in (dict(kv_quant=True), dict(spec_k=2), dict(mega=True),
-               dict(mesh=object())):
+    for kw in (dict(spec_k=2), dict(mega=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later port slice"):
             tgpt.build_unified_step(cfg, 8, 4, **kw)

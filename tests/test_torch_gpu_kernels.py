@@ -18,7 +18,11 @@ sides round an fp32 result to 8 mantissa bits once, so an element may
 differ by one bf16 step (<= 2^-7 of it): each row's (last axis) max abs
 error is held to ``1e-2`` of the row's max ``|want|``. Whole-model
 gradients (flash vs plain attention, fp32, TF32 off): each parameter's max
-abs error over its max ``|grad|``, to ``1e-5`` (seen: <= 2e-6).
+abs error over its max ``|grad|``, to ``1e-5`` (seen: <= 2e-6). The
+weight-only GEMM splits its fp32 sums across blocks in another order than
+cuBLAS: fp32 outputs and dx are held as the max abs error over the
+tensor's max ``|want|``, to ``1e-5``; in bf16 both sides dequantize with
+the same rounding and round one fp32 sum, held per row as above.
 """
 import numpy as np
 import pytest
@@ -29,8 +33,13 @@ from paddle_tpu_torch.models.gpt import GPT_CONFIGS
 from paddle_tpu_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_reference)
+from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+from paddle_tpu_torch.inference.quantize import quantize_weight
 from paddle_tpu_torch.ops.paged_attention import (
     ragged_paged_attention, ragged_paged_attention_reference)
+from paddle_tpu_torch.ops.quant_matmul import (
+    quant_matmul, quant_matmul_bwd, quant_matmul_dx_reference,
+    quant_matmul_fwd, quant_matmul_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -38,6 +47,7 @@ FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_ROW_TOL = 1e-2
 BWD_FP32_TOL = 1e-5
 GRAD_TOL = 1e-5
+QMM_FP32_TOL = 1e-5
 
 
 def _assert_close(got, want, dtype):
@@ -183,3 +193,95 @@ def test_eager_gpt_gradients_flash_vs_plain(cuda):
         assert got is not None and want is not None, name
         err = (got - want).abs().max() / want.abs().max()
         assert err.item() <= GRAD_TOL, (name, err.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(8, 16, 12, 12, 64, 64, 16),
+                                  (4, 8, 8, 2, 128, 16, 12)])
+def test_ragged_int8_kernel_matches_plain(cuda, dtype, geom):
+    """The int8-KV branch: pages quantized by the KV write's formula,
+    dequantized with their scales in the kernel's load loop."""
+    b, chunk, hq, hkv, d, ps, pps = geom
+    q, kp, vp, pt, kv_lens, q_lens = _ragged_inputs(
+        np.random.RandomState(1), b, chunk, hq, hkv, d, ps, pps, cuda,
+        torch.float32)
+    (kq, ks), (vq, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
+                          for t in (kp, vp))
+    kq, vq = kq.reshape(kp.shape), vq.reshape(vp.shape)
+    ks, vs = ks.reshape(kp.shape[:3]), vs.reshape(vp.shape[:3])
+    args = (q.to(dtype), kq, vq, pt, kv_lens, q_lens)
+    before = ragged_paged_attention.launches
+    got = ragged_paged_attention(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    want = ragged_paged_attention_reference(*args, k_scales=ks, v_scales=vs)
+    _assert_close(_valid_rows(got, q_lens).float(),
+                  _valid_rows(want, q_lens).float(), dtype)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+def _qmm_err(got, want, dtype):
+    if dtype == torch.float32:
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= QMM_FP32_TOL, err
+    else:
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(24, 768, 2304, 8, -1),
+                                   (24, 768, 768, 8, 128),
+                                   (24, 3072, 768, 4, 128),
+                                   (24, 768, 3072, 4, -1),
+                                   (5, 200, 130, 8, 40),
+                                   (5, 200, 130, 4, 40),
+                                   (70, 96, 64, 4, -1)])
+def test_quant_matmul_kernels_match_plain(cuda, dtype, shape):
+    """Forward and dx of the weight-only GEMM against their plain versions
+    (the serving shapes, ragged tiles, groups that straddle k tiles, more
+    than one tile of rows), with a grad_fn on every output whose input
+    requires grad."""
+    m, k, n, bits, gs = shape
+    name = f"int{bits}"
+    rng = np.random.RandomState(4)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    qw = quantize_weight((0.05 * w).to(dtype), name, gs)
+    q, s = qw["q"].to(cuda), qw["s"].to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, dtype).requires_grad_()
+    fwd0, bwd0 = quant_matmul_fwd.launches[name], quant_matmul_bwd.launches[name]
+    y = quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert quant_matmul_fwd.launches[name] == fwd0 + 1
+    assert y.grad_fn is not None and y.dtype == dtype
+    _qmm_err(y.detach().float(), quant_matmul_reference(x.detach(), q, s
+                                                        ).float(), dtype)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        cuda, dtype)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert quant_matmul_bwd.launches[name] == bwd0 + 1
+    _qmm_err(x.grad.float(),
+             quant_matmul_dx_reference(dy, q, s, k, dtype).float(), dtype)
+
+
+def test_quant_matmul_bias_and_grad_wiring(cuda):
+    """A bias adds in fp32 before the cast and gets its row-sum gradient;
+    the weight and scales get none; an input without grad gives an output
+    without grad_fn."""
+    rng = np.random.RandomState(6)
+    qw = quantize_weight(torch.from_numpy(
+        0.05 * rng.standard_normal((256, 96)).astype(np.float32)), "int8",
+        64)
+    q, s = qw["q"].to(cuda), qw["s"].to(cuda).requires_grad_()
+    x = torch.from_numpy(rng.standard_normal((3, 7, 256)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    b = torch.from_numpy(rng.standard_normal(96).astype(np.float32)).to(
+        cuda).requires_grad_()
+    y = quant_matmul(x, q, s, bias=b)
+    want = quant_matmul_reference(x.detach(), q, s.detach(), bias=b.detach())
+    _qmm_err(y.detach(), want, torch.float32)
+    y.sum().backward()
+    assert x.grad is not None and s.grad is None
+    torch.testing.assert_close(b.grad, torch.full_like(b, 21.0))
+    assert quant_matmul(x.detach(), q, s.detach()).grad_fn is None

@@ -62,3 +62,18 @@ def test_no_import_statement_names_jax_or_reference():
                 continue
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} {bad}"
+
+
+def test_quant_slice_modules_are_covered():
+    """The walk above imports the quantized-serving slice's modules too."""
+    code = ("import pkgutil, paddle_tpu_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    walked = set(res.stdout.split())
+    assert {"paddle_tpu_torch.ops.quant_matmul",
+            "paddle_tpu_torch.nn.quant",
+            "paddle_tpu_torch.inference.quantize"} <= walked
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "quant_matmul.cu").is_file()

@@ -3,7 +3,8 @@ jnp ``ragged_paged_attention_reference`` on the same seeded inputs.
 
 Only valid rows (``row < q_lens[b]``) are compared: past ``q_lens`` the
 TPU kernel leaves garbage and both references write zeros. fp32,
-``atol 1e-5`` (both gather and reduce in fp32, in different orders).
+``atol 1e-5`` (both gather and reduce in fp32, in different orders);
+int8 pools dequantize in fp32 on both sides.
 """
 import numpy as np
 import pytest
@@ -58,8 +59,30 @@ def test_cpu_tensor_takes_plain_path():
     assert out.device.type == "cpu" and out.dtype == torch.float32
 
 
-def test_int8_scales_raise():
-    arrs = [torch.from_numpy(a) for a in _inputs(0, 2, 4, 4, 4, 8, 8, 2)]
-    scales = torch.ones(arrs[1].shape[:3])
-    with pytest.raises(NotImplementedError, match="quantized-KV"):
-        ragged_paged_attention(*arrs, k_scales=scales, v_scales=scales)
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_ragged_twin_int8_matches_jax_reference(hq, hkv):
+    """int8 pools with per-(slot, head) fp32 scales dequantize after the
+    gather on both sides."""
+    q, kp, vp, pt, kv_lens, q_lens = _inputs(hq + 7 * hkv, b=5, chunk=4,
+                                             hq=hq, hkv=hkv, d=8, ps=8, pps=4)
+    rng = np.random.RandomState(hq)
+    kq, vq = (rng.randint(-127, 128, kp.shape).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.001, 0.05, kp.shape[:3]).astype(np.float32)
+              for _ in range(2))
+    want = np.asarray(jax_ragged_reference(
+        *(jnp.asarray(a) for a in (q, kq, vq, pt, kv_lens, q_lens)),
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+    got = ragged_paged_attention(
+        *(torch.from_numpy(a) for a in (q, kq, vq, pt, kv_lens, q_lens)),
+        k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs)).numpy()
+    assert np.abs(want).max() > 1e-3
+    for b in range(q.shape[0]):
+        n = int(q_lens[b])
+        np.testing.assert_allclose(got[b, :n], want[b, :n], atol=1e-5,
+                                   rtol=0)
+        assert not got[b, n:].any()
+    with pytest.raises(ValueError, match="together"):
+        ragged_paged_attention(
+            *(torch.from_numpy(a) for a in (q, kq, vq, pt, kv_lens, q_lens)),
+            k_scales=torch.from_numpy(ks))

@@ -1,0 +1,211 @@
+"""Port weight-only quantization (packing, quantizer, weight-only GEMM and
+its dx, the int8 KV write) on the CPU against the JAX package's plain
+functions, on the same seeded numpy inputs.
+
+Quantized payloads (``q``, ``s``, int8 KV pages and scales) must be
+bit-equal: both sides run the same fp32 formula with round-half-even.
+Products are held fp32 at ``rtol 1e-5, atol 1e-6`` (the two libraries sum
+in other orders); bf16 products per row to one bf16 step (``1e-2`` of the
+row's max), since each side rounds an fp32 sum to bf16 once.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.inference import kv_cache as jkv
+from paddle_tpu.nn import quant as jquant
+from paddle_tpu.ops.pallas import quant_matmul as jqm
+from paddle_tpu.tensor.creation import to_tensor
+from paddle_tpu_torch.inference import kv_cache as tkv
+from paddle_tpu_torch.nn import quant as tquant
+from paddle_tpu_torch.ops import quant_matmul as tqm
+
+FP32_TOL = dict(rtol=1e-5, atol=1e-6)
+BF16_ROW_TOL = 1e-2
+
+
+def _bits(a):
+    """A numpy/JAX array or a tensor as raw integers (bf16 as its bits)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy()
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+def _torch_dtype(dtype):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+
+def _weights(seed, k, n, dtype):
+    w = np.random.RandomState(seed).standard_normal((k, n)).astype(np.float32)
+    return jnp.asarray(w).astype(dtype), torch.from_numpy(w).to(
+        _torch_dtype(dtype))
+
+
+def test_pack_unpack_int4_bit_equal_over_all_nibbles():
+    lo, hi = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8), indexing="ij")
+    q = np.concatenate([lo.reshape(16, 16), hi.reshape(16, 16)]
+                       ).astype(np.int8)                   # [32, 16]
+    want = np.asarray(jqm.pack_int4(jnp.asarray(q)))
+    got = tqm.pack_int4(torch.from_numpy(q))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(set(want.reshape(-1).tolist())) == 256    # every byte value
+    np.testing.assert_array_equal(tqm.unpack_int4(got).numpy(), q)
+    np.testing.assert_array_equal(
+        tqm.unpack_int4(got).numpy(),
+        np.asarray(jqm.unpack_int4(jnp.asarray(want))))
+    with pytest.raises(ValueError, match="even"):
+        tqm.pack_int4(torch.zeros((7, 4), dtype=torch.int8))
+    with pytest.raises(ValueError, match="even"):
+        jqm.pack_int4(jnp.zeros((7, 4), jnp.int8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group_size", [-1, 8])
+@pytest.mark.parametrize("algo", ["weight_only_int8", "weight_only_int4"])
+def test_weight_quantize_bit_equal(algo, group_size, dtype):
+    """Against the quantizer body the reference's serving conversion runs
+    (eagerly, under ``jax.vmap``). Its jitted ``nn.quant.weight_quantize``
+    op may put a scale one ulp off: XLA turns ``/ qmax`` into ``*
+    (1 / qmax)`` inside a jit."""
+    jw, tw = _weights(1, 64, 24, dtype)
+    jq, js = jquant._weight_quantize_fn(jw, jquant._qmax(algo),
+                                        algo.endswith("int4"), group_size)
+    tq, ts = tquant.weight_quantize(tw, algo=algo, group_size=group_size)
+    assert tq.dtype == torch.int8 and ts.dtype == tw.dtype
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(_bits(ts), _bits(js))
+    deq_j = jquant.weight_dequantize(to_tensor(jq), to_tensor(js), algo=algo,
+                                     out_dtype="float32")._data
+    deq_t = tquant.weight_dequantize(tq, ts, algo=algo,
+                                     out_dtype=torch.float32)
+    np.testing.assert_array_equal(deq_t.numpy(), np.asarray(deq_j))
+
+
+def _quantized(seed, k, n, bits, group_size, dtype="float32"):
+    jw, _ = _weights(seed, k, n, dtype)
+    algo = f"weight_only_int{bits}"
+    q, s = jquant._weight_quantize_fn(jw, jquant._qmax(algo), bits == 4,
+                                      group_size)
+    return np.array(q), np.array(s.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("bits,group_size,k", [(8, -1, 64), (8, 8, 40),
+                                               (4, -1, 64), (4, 8, 48)])
+def test_quant_matmul_twin_and_dx_match_jax(bits, group_size, k, bias):
+    n = 20
+    q, s = _quantized(2, k, n, bits, group_size)
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal((2, 3, k)).astype(np.float32)
+    g = rng.standard_normal((2, 3, n)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32) if bias else None
+    jb = None if b is None else jnp.asarray(b)
+    want = jqm.quant_matmul_reference(jnp.asarray(x), jnp.asarray(q),
+                                      jnp.asarray(s), bias=jb)
+    jdx, jdb = jax.grad(
+        lambda x_, b_: (jqm.quant_matmul(x_, jnp.asarray(q), jnp.asarray(s),
+                                         bias=b_, use_kernel=False)
+                        * jnp.asarray(g)).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jb)
+    tx = torch.from_numpy(x).requires_grad_()
+    tb = None if b is None else torch.from_numpy(b).requires_grad_()
+    ts = torch.from_numpy(s).requires_grad_()
+    got = tqm.quant_matmul(tx, torch.from_numpy(q), ts, bias=tb)
+    assert got.grad_fn is not None and got.shape == (2, 3, n)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **FP32_TOL)
+    (got * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **FP32_TOL)
+    if bias:
+        np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb),
+                                   **FP32_TOL)
+    assert ts.grad is None      # frozen PTQ scales: no gradient (JAX: zeros)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_bf16_matches_jax(bits):
+    q, s = _quantized(4, 64, 32, bits, 16, dtype="bfloat16")
+    x = np.random.RandomState(5).standard_normal((6, 64)).astype(np.float32)
+    want = np.asarray(jqm.quant_matmul_reference(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(q),
+        jnp.asarray(s)).astype(jnp.float32))
+    got = tqm.quant_matmul(torch.from_numpy(x).bfloat16(),
+                           torch.from_numpy(q), torch.from_numpy(s))
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want).max(-1)
+    assert (diff <= BF16_ROW_TOL * np.abs(want).max(-1)).all()
+
+
+def test_dequantize_and_dx_reference_match_jax():
+    """The plain versions the kernels are held against on the card."""
+    q, s = _quantized(6, 48, 16, 4, 8)
+    want = np.asarray(jqm.dequantize_weight(jnp.asarray(q), jnp.asarray(s),
+                                            k=48))
+    got = tqm.dequantize_weight(torch.from_numpy(q), torch.from_numpy(s),
+                                k=48)
+    np.testing.assert_array_equal(got.numpy(), want)
+    dy = np.random.RandomState(7).standard_normal((5, 16)).astype(np.float32)
+    jdx = jax.vjp(lambda x_: jqm.quant_matmul(x_, jnp.asarray(q),
+                                              jnp.asarray(s),
+                                              use_kernel=False),
+                  jnp.zeros((5, 48), jnp.float32))[1](jnp.asarray(dy))[0]
+    tdx = tqm.quant_matmul_dx_reference(torch.from_numpy(dy),
+                                        torch.from_numpy(q),
+                                        torch.from_numpy(s), 48,
+                                        torch.float32)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **FP32_TOL)
+
+
+def test_cpu_tensors_take_plain_path_and_shapes_are_checked():
+    q, s = _quantized(8, 32, 8, 8, -1)
+    before = (dict(tqm.quant_matmul_fwd.launches),
+              dict(tqm.quant_matmul_bwd.launches))
+    x = torch.randn(3, 32, requires_grad=True)
+    tqm.quant_matmul(x, torch.from_numpy(q), torch.from_numpy(s)).sum(
+        ).backward()
+    assert (tqm.quant_matmul_fwd.launches,
+            tqm.quant_matmul_bwd.launches) == before
+    with pytest.raises(ValueError, match="matches neither"):
+        tqm.quant_matmul(torch.randn(3, 30), torch.from_numpy(q),
+                         torch.from_numpy(s))
+    with pytest.raises(ValueError, match="scale groups"):
+        tqm.quant_matmul(x, torch.from_numpy(q), torch.ones(3, 8))
+    y = tquant.weight_only_linear(x, torch.from_numpy(q),
+                                  weight_scale=torch.from_numpy(s))
+    torch.testing.assert_close(y, tquant.quant_matmul(
+        x, torch.from_numpy(q), torch.from_numpy(s)))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tquant.grouped_matmul(x, None, None)
+
+
+def test_paged_write_packed_quant_bit_equal():
+    rng = np.random.RandomState(9)
+    num_pages, ps, hkv, d = 6, 4, 2, 8
+    pages = rng.randint(-127, 128, (num_pages, ps, hkv, d)).astype(np.int8)
+    scales = rng.rand(num_pages, ps, hkv).astype(np.float32)
+    pt = np.array([[2, 5, -1], [0, -1, -1]], np.int32)
+    tok_slot = np.array([0, 0, 0, 0, 0, 1, 1, -1, -1], np.int32)
+    tok_pos = np.array([2, 3, 4, 5, 6, 1, 8, 0, -1], np.int32)
+    toks = (rng.standard_normal((9, hkv, d)) * 3).astype(np.float32)
+    toks[1, 0] = 0.0                       # an all-zero row: scale 1e-8/127
+    # the reference's unified step runs the write inside its jit
+    jp, js = jax.jit(jkv.paged_write_packed_quant, static_argnums=6)(
+        jnp.asarray(pages), jnp.asarray(scales), jnp.asarray(toks),
+        jnp.asarray(pt), jnp.asarray(tok_slot), jnp.asarray(tok_pos), ps)
+    tp, ts = tkv.paged_write_packed_quant(
+        torch.from_numpy(pages), torch.from_numpy(scales),
+        torch.from_numpy(toks), torch.from_numpy(pt),
+        torch.from_numpy(tok_slot), torch.from_numpy(tok_pos), ps)
+    assert tp.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert not np.array_equal(tp.numpy(), pages)
+    for bad in ("int4", "fp8"):
+        with pytest.raises(ValueError, match="kv_cache_dtype"):
+            tkv.kv_cache_quantized(bad)
+    assert tkv.kv_cache_quantized("int8") and not tkv.kv_cache_quantized(None)

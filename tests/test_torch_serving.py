@@ -170,8 +170,7 @@ def test_unported_engines_raise():
     _, tm = _pair()
     with pytest.raises(NotImplementedError, match="async"):
         ServingPredictor(tm, async_engine=True, device="cpu")
-    for over, match in ((dict(kv_cache_dtype="int8"), "quantized-KV"),
-                        (dict(spec_decode_k=2), "speculative"),
+    for over, match in ((dict(spec_decode_k=2), "speculative"),
                         (dict(mega_decode=True), "mega-kernel")):
         model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, **over),
                                     device="cpu")
