@@ -5,7 +5,7 @@
 from the root of a checkout. Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
-2. build: the four kernel sources from ``paddle_tpu_torch/csrc``
+2. build: the five kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -54,6 +54,21 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    to the input embeddings through the 12 quantized layers (the backward
    kernels) vs the plain versions; token agreement with phase 6, weight
    and KV bytes, and the bf16 step time of (a) and (c).
+9. fused MLP (its steps run beside their phase-7 twins): the LN forward
+   (with and without the residual), LN backward (with and without dso),
+   GELU forward and backward (with and without the bias) kernels vs their
+   plain versions at the flagship shapes LN [8192, 1536] and GELU
+   [8192, 6144], GPT-125M's [2048, 768] / [2048, 3072] and an odd
+   [77, 200], fp32 and bf16, with kernel / plain / bound times and
+   ``F.layer_norm``, ``native_layer_norm_backward``, ``F.gelu`` and
+   ``gelu_backward`` as the yardsticks of the variants they compute; the
+   eager GPT-125M with ``fused_mlp`` on ids [4, 512] against the same
+   weights unfused (logits and every gradient, fp32); the fp32 760M-width
+   2-layer step with recompute, fused with and without ``remat_save_ln``
+   against unfused (loss, every gradient leaf, 3 steps' losses); then the
+   flagship bf16 step with ``fused_mlp=True``, timed beside phase 7's
+   unfused step, with 96 LN forward, 48 LN backward, 48 GELU forward and
+   24 GELU backward launches a step, and one profiled step.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -127,6 +142,21 @@ QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 # oracle those computed by the plain GEMM, so an entry at a rounding
 # boundary may land one int8 step (1/127 of its row's absmax) apart, and
 # a few such entries move the logits by more (seen 4.5e-3)
+# phase 9. The fused LN / GELU kernels vs their plain versions: fp32 held
+# as max abs error over the tensor's max |value| (another summation order,
+# rsqrtf / tanhf), bf16 per row as in KERNEL_TOL (one rounding of an fp32
+# result each side); the fp32 parameter sums as fp32.
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FUSED_LN_SHAPES = ((8192, 1536), (2048, 768), (77, 200))   # flagship,
+FUSED_GELU_SHAPES = ((8192, 6144), (2048, 3072), (77, 200))  # 125M, odd
+# operations an element: LN forward 8 (+1 with the residual), backward 14
+# (+1 with dso), GELU forward 20 and backward 32, a tanh counted as 10;
+# all fp32 on the CUDA cores (PEAK_OPS[float32]), whatever the input type
+FUSED_OPS = {"ln_fwd": 8, "ln_bwd": 14, "gelu_fwd": 20, "gelu_bwd": 32}
+# fused vs unfused fp32 training: the fused LN takes its variance by the
+# two-pass formula, the unfused by torch.var, so activations differ in the
+# last bits and three SGD steps carry that into the losses
+FUSED_LOSS_TOL = 1e-5
 QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
                ("b int4 g128", dict(weight_dtype="int4",
                                     weight_quant_group_size=128), 1e-4),
@@ -182,20 +212,22 @@ def bound_ms(nbytes: float, ops: float, dtype) -> float:
 
 
 def ptxas_summary(name: str, text: str):
-    """One line per compiled instantiation (element type, head_dim) with its
-    registers and spills, from the ``ptxas -v`` report."""
+    """One line per compiled instantiation (kernel, element type, first
+    template value: head_dim or a flag) with its registers and spills, from
+    the ``ptxas -v`` report."""
     inst, spills = None, ""
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?I(13__nv_bfloat16|f)"
-                      r"Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
+                      r"(13__nv_bfloat16|f)L[ib](\d+)E", line)
         if m:
-            inst = ("bf16" if m.group(1) != "f" else "fp32", m.group(2))
+            inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
+                    m.group(3))
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            yield (f"{name}<{inst[0]}, d{inst[1]}>: {regs} registers, "
-                   f"{spills}")
+            yield (f"{name} {inst[0]}<{inst[1]}, {inst[2]}>: {regs} "
+                   f"registers, {spills}")
             inst = None
 
 
@@ -355,11 +387,25 @@ def reset_counts():
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
                                                    quant_matmul_fwd)
 
+    from paddle_tpu_torch.ops import fused_mlp
+
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     ragged_paged_attention.launches = 0
     for fn in (quant_matmul_fwd, quant_matmul_bwd):
         fn.launches = {"int8": 0, "int4": 0}
+    for fn in (fused_mlp.ln_fwd, fused_mlp.ln_bwd, fused_mlp.gelu_fwd,
+               fused_mlp.gelu_bwd):
+        fn.launches = 0
+
+
+def fused_counts():
+    """(LN forward, LN backward, GELU forward, GELU backward) launches
+    since :func:`reset_counts`."""
+    from paddle_tpu_torch.ops import fused_mlp
+
+    return (fused_mlp.ln_fwd.launches, fused_mlp.ln_bwd.launches,
+            fused_mlp.gelu_fwd.launches, fused_mlp.gelu_bwd.launches)
 
 
 def qmm_counts() -> dict:
@@ -1214,13 +1260,17 @@ def phase_train_fp32(dev):
         raise AssertionError("fp32 training: flash and plain disagree")
 
 
-def phase_train_bf16(dev, card, bwd_stats):
-    """The flagship configuration: full-width gpt3-760m, bf16, timed."""
+def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
+    """The flagship configuration: full-width gpt3-760m, bf16, timed; with
+    ``fused`` the ``fused_mlp`` step (phase 9), logged beside ``unfused``,
+    the result of the unfused run of the same call."""
     from paddle_tpu_torch.models import gpt_spmd
     from paddle_tpu_torch.models.convert import random_train_params
     from paddle_tpu_torch.models.gpt import GPTConfig
 
-    cfg = GPTConfig(**TRAIN)
+    cfg = GPTConfig(**TRAIN, fused_mlp=fused)
+    tag = "[fused]" if fused else "[train]"
+    label = "fused_mlp" if fused else "unfused"
     b, s, L = TRAIN_BATCH, cfg.max_seq_len, cfg.num_layers
     t0 = time.perf_counter()
     step, params, mom, (ids, labels) = gpt_spmd.build_spmd_train_step(
@@ -1228,8 +1278,8 @@ def phase_train_bf16(dev, card, bwd_stats):
         device=dev, params=random_train_params(cfg, SEED),
         dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"[train] bf16 gpt3-760m: {cfg.num_params() / 1e6:.1f} M params, "
-        f"set up in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} bf16 gpt3-760m {label}: {cfg.num_params() / 1e6:.1f} M "
+        f"params, set up in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, walls = [], []
@@ -1239,40 +1289,311 @@ def phase_train_bf16(dev, card, bwd_stats):
         losses.append(loss.item())          # synchronizes
         walls.append(time.perf_counter() - t0)
     fwd_n, bwd_n = read_counts()[0], bwd_count()
+    fused_n = fused_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not np.isfinite(losses).all():
         raise AssertionError(f"bf16 training loss not finite: {losses}")
     if fwd_n != L * TRAIN_STEPS or bwd_n != L * TRAIN_STEPS:
         raise AssertionError(f"flash launches fwd {fwd_n}, bwd {bwd_n} over "
                              f"{TRAIN_STEPS} steps (want {L} each per step)")
+    # a step: two LNs a layer, each run again by the recompute; one GELU a
+    # layer, run again too; one backward each
+    per_step = (4 * L, 2 * L, 2 * L, L) if fused else (0, 0, 0, 0)
+    if fused_n != tuple(TRAIN_STEPS * n for n in per_step):
+        raise AssertionError(f"fused launches {fused_n} over {TRAIN_STEPS} "
+                             f"steps (want {per_step} per step)")
     timed = walls[1:]
     step_s = sum(timed) / len(timed)
     tps = b * s / step_s
     flops_per_token = 6 * cfg.num_params() + 6 * L * cfg.hidden_size * s
     mfu = tps * flops_per_token / PEAK_OPS[torch.bfloat16]
     attn_ms = L * (bwd_stats["ms"] + bwd_stats["fwd_ms"])
-    log(f"[train] bf16 gpt3-760m b{b} s{s} recompute+save_attn: losses "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; flash launches fwd "
-        f"{fwd_n} bwd {bwd_n} ({L} each per step); step {1e3 * step_s:.1f} ms"
-        f" (mean of {len(timed)} after 1 warm-up: "
+    log(f"{tag} bf16 gpt3-760m {label} b{b} s{s} recompute+save_attn: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; flash launches fwd "
+        f"{fwd_n} bwd {bwd_n} ({L} each per step); fused launches LN fwd/bwd"
+        f", GELU fwd/bwd {fused_n} ({per_step} per step); step "
+        f"{1e3 * step_s:.1f} ms (mean of {len(timed)} after 1 warm-up: "
         f"{', '.join(f'{1e3 * w:.1f}' for w in timed)}), {tps:.1f} tokens/s,"
         f" MFU {mfu:.4f} ({flops_per_token / 1e9:.3f} GFLOP/token over "
         f"989 TFLOP/s bf16); flash kernels alone {attn_ms:.1f} ms a step "
         f"({L} x (bwd {bwd_stats['ms']:.3f} + fwd {bwd_stats['fwd_ms']:.3f}) "
         f"ms, phase-7 kernel times); peak device memory {peak_gb:.2f} GB "
         f"({card})")
-    profile_step(step, params, mom, ids, labels, card)
-    return fwd_n, bwd_n
+    result = dict(fwd_n=fwd_n, bwd_n=bwd_n, fused_n=fused_n,
+                  step_ms=1e3 * step_s, tps=tps, mfu=mfu, peak_gb=peak_gb)
+    if unfused is not None:
+        log(f"{tag} bf16 gpt3-760m fused_mlp vs unfused, same call: step "
+            f"{result['step_ms']:.1f} vs {unfused['step_ms']:.1f} ms, "
+            f"tokens/s {tps:.1f} vs {unfused['tps']:.1f}, MFU {mfu:.4f} vs "
+            f"{unfused['mfu']:.4f}, peak {peak_gb:.2f} vs "
+            f"{unfused['peak_gb']:.2f} GB (one run each, not a benchmark)")
+    profile_step(step, params, mom, ids, labels, card, tag)
+    return result
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+
+def fused_inputs(kind, shape, dtype, dev, seed):
+    """The inputs of one fused kernel at ``shape``, drawn on the card from
+    a seeded generator: LN ``x, r, dy, dso [rows, h]`` and ``g, b [h]``;
+    GELU ``u`` (the GEMM output), ``dy [rows, n]`` and ``b [n]``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shp, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shp, generator=gen, device=dev)
+                ).to(dtype)
+
+    h = shape[-1]
+    if kind.startswith("ln"):
+        return dict(x=draw(shape), r=draw(shape), dy=draw(shape),
+                    dso=draw(shape), g=draw((h,), 0.1, 1.0),
+                    b=draw((h,), 0.1))
+    return dict(u=draw(shape, 2.0), dy=draw(shape), b=draw((h,), 0.5))
+
+
+def fused_work(kind, variant, rows, h, elt):
+    """(bytes, ops) of one call: every input read once and every output
+    written once (the statistics and parameter sums in fp32), and
+    ``FUSED_OPS`` operations an element (+1 for the residual, dso or
+    bias)."""
+    extra = variant != "plain"
+    n = rows * h
+    nbytes = {"ln_fwd": (2 + 2 * extra) * n * elt + 2 * h * elt + 8 * rows,
+              "ln_bwd": (3 + extra) * n * elt + 8 * rows + h * elt + 8 * h,
+              "gelu_fwd": 2 * n * elt + extra * h * elt,
+              "gelu_bwd": 3 * n * elt + extra * (h * elt + 4 * h)}[kind]
+    return nbytes, (FUSED_OPS[kind] + extra) * float(n)
+
+
+def fused_held(got, want, dtype):
+    """(max abs error, held error): fp32 tensors over the tensor's max
+    |want|, bf16 tensors per row (``kernel_error``)."""
+    if got.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        return err, err / max(want.abs().max().item(), 1e-30)
+    return kernel_error(got, want, dtype)
+
+
+def fused_calls(kind, variant, t):
+    """(kernel, plain, library or None) callables of one case on the
+    inputs ``t``; the library call computes the same function in one
+    PyTorch call (only the variants without residual, dso or bias have
+    one)."""
+    import torch.nn.functional as tnf
+
+    from paddle_tpu_torch.ops import fused_mlp as fm
+
+    eps, extra = 1e-5, variant != "plain"
+    if kind == "ln_fwd":
+        r = t["r"] if extra else None
+        args = (t["x"], r, t["g"], t["b"], eps)
+        lib = (None if extra else lambda: tnf.layer_norm(
+            t["x"], t["x"].shape[-1:], t["g"], t["b"], eps))
+        return (lambda: fm.ln_fwd(*args), lambda: fm.ln_fwd_reference(*args),
+                lib)
+    if kind == "ln_bwd":
+        # the statistics and s of the plain forward on the same inputs
+        r = t["r"] if extra else None
+        fwd = fm.ln_fwd_reference(t["x"], r, t["g"], t["b"], eps)
+        s = fwd[1] if extra else t["x"]
+        args = (t["dy"], t["dso"] if extra else None, s, fwd[-2], fwd[-1],
+                t["g"])
+        lib = None
+        if not extra:
+            h = t["x"].shape[-1]
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                t["x"], [h], t["g"], t["b"], eps)
+            lib = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
+                t["dy"], t["x"], [h], mean, rstd, t["g"], t["b"],
+                [True, True, True])
+        return (lambda: fm.ln_bwd(*args), lambda: fm.ln_bwd_reference(*args),
+                lib)
+    bias = t["b"] if extra else None
+    if kind == "gelu_fwd":
+        lib = (None if extra else lambda: tnf.gelu(t["u"],
+                                                   approximate="tanh"))
+        return (lambda: fm.gelu_fwd(t["u"], bias),
+                lambda: fm.gelu_fwd_reference(t["u"], bias), lib)
+    lib = (None if extra else lambda: torch.ops.aten.gelu_backward(
+        t["dy"], t["u"], approximate="tanh"))
+    return (lambda: fm.gelu_bwd(t["dy"], t["u"], bias),
+            lambda: fm.gelu_bwd_reference(t["dy"], t["u"], bias), lib)
+
+
+FUSED_KINDS = (("ln_fwd", ("plain", "residual")),
+               ("ln_bwd", ("plain", "dso")),
+               ("gelu_fwd", ("plain", "bias")),
+               ("gelu_bwd", ("plain", "bias")))
+
+
+def phase_fused_kernels(dev):
+    """Each fused kernel and variant against its plain version at the
+    flagship, GPT-125M and an odd shape, fp32 and bf16; kernel / plain /
+    library times and the bound at the flagship shape."""
+    stats = {}
+    for kind, variants in FUSED_KINDS:
+        shapes = FUSED_LN_SHAPES if kind.startswith("ln") \
+            else FUSED_GELU_SHAPES
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in variants:
+                for si, shape in enumerate(shapes):
+                    t = fused_inputs(kind, shape, dtype, dev, SEED + si)
+                    kern, plain, lib = fused_calls(kind, variant, t)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    got = [g for g in (got if isinstance(got, tuple)
+                                       else (got,)) if g is not None]
+                    want = [w for w in (want if isinstance(want, tuple)
+                                        else (want,)) if w is not None]
+                    errs = [fused_held(g, w, dtype) for g, w in zip(got, want)]
+                    max_err = max(e for e, _ in errs)
+                    held = max(hd for _, hd in errs)
+                    tol = FUSED_TOL[dtype]
+                    log(f"[fused] {kind} {variant} {str(dtype)[6:]} "
+                        f"{list(shape)}: {len(errs)} outputs, max_abs_err "
+                        f"{max_err:.3e}, held {held:.3e} (tol {tol})")
+                    if not (len(got) == len(want) and held <= tol):
+                        raise AssertionError(
+                            f"fused {kind} {variant} {dtype} {shape}: held "
+                            f"error {held} > {tol}")
+                    if kind == "ln_fwd" and variant == "residual" and \
+                            not torch.equal(got[1], want[1]):
+                        raise AssertionError("ln_fwd: s is not the plain "
+                                             "version's rounding of x + r")
+                    if si:
+                        continue
+                    nbytes, nops = fused_work(kind, variant, *shape,
+                                              t["dy"].element_size())
+                    st = dict(
+                        max_abs_err=max_err, ms=time_ms(kern, iters=20,
+                                                        replays=3),
+                        plain_ms=time_ms(plain, iters=5, replays=2),
+                        library_ms=None if lib is None else time_ms(
+                            lib, iters=20, replays=3),
+                        bound_ms=bound_ms(nbytes, nops, torch.float32),
+                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                        >= nops / PEAK_OPS[torch.float32]
+                        else "operations")
+                    stats[(kind, variant, dtype)] = st
+                    lib_txt = ("null (no single PyTorch call computes it)"
+                               if lib is None else
+                               f"{st['library_ms']:.4f} ms")
+                    log(f"[fused] {kind} {variant} {str(dtype)[6:]} "
+                        f"{list(shape)}: kernel {st['ms']:.4f} ms, plain "
+                        f"{st['plain_ms']:.4f} ms, library {lib_txt}, bound "
+                        f"{st['bound_ms']:.4f} ms ({st['bound_by']}: "
+                        f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP), "
+                        f"{st['bound_ms'] / st['ms']:.3f} of the bound")
+                    del t
+    return stats
+
+
+def phase_fused_eager(model, cfg, dev):
+    """The eager GPT-125M with ``fused_mlp`` on ids [4, 512], fp32: logits
+    and every parameter's gradient against the same weights unfused."""
+    ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, (4, 513))).to(dev)
+    runs = {}
+    for fused in (True, False):
+        cfg.fused_mlp = fused
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        logits = model(ids[:, :-1]).float()
+        torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), ids[:, 1:].reshape(-1)
+        ).backward()
+        torch.cuda.synchronize()
+        runs[fused] = (logits.detach(), {n: p.grad for n, p in
+                                         model.named_parameters()},
+                       fused_counts())
+    cfg.fused_mlp = False
+    model.zero_grad(set_to_none=True)
+    L = cfg.num_layers
+    want = (2 * L, 2 * L, L, L)
+    if runs[True][2] != want or any(runs[False][2]):
+        raise AssertionError(f"eager fused launches {runs[True][2]} (want "
+                             f"{want}), unfused {runs[False][2]}")
+    logit_err = ((runs[True][0] - runs[False][0]).abs().max()
+                 / runs[False][0].abs().max()).item()
+    errs = _grad_errors(runs[True][1], runs[False][1])
+    worst = max(errs, key=errs.get)
+    log(f"[fused] eager GPT-125M ids [4, 512] fp32, fused vs unfused: "
+        f"logits {logit_err:.3e} of the max |logit|, {len(errs)} parameter "
+        f"gradients, none None, worst {worst} {errs[worst]:.3e} of its max "
+        f"|grad| (tol {GRAD_TOL}); fused launches LN fwd/bwd, GELU fwd/bwd "
+        f"{runs[True][2]}")
+    if not (logit_err <= GRAD_TOL and errs[worst] <= GRAD_TOL):
+        raise AssertionError("eager fused vs unfused disagree")
+
+
+def phase_fused_train_fp32(dev):
+    """gpt3-760m's width at 2 layers in fp32 (TF32 off), recompute: the
+    fused step, with and without ``remat_save_ln``, against the unfused
+    one for the first loss, every gradient leaf and three steps' losses."""
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.models.convert import random_train_params
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    base = dict(TRAIN, num_layers=2)
+    weights = random_train_params(GPTConfig(**base), SEED)
+    L = base["num_layers"]
+    runs = {}
+    for label, over, want in (
+            ("unfused", {}, (0, 0, 0, 0)),
+            ("fused", dict(fused_mlp=True), (4 * L, 2 * L, 2 * L, L)),
+            ("fused+save_ln", dict(fused_mlp=True, remat_save_ln=True),
+             (2 * L, 2 * L, 2 * L, L))):
+        cfg = GPTConfig(**base, **over)
+        step, params, mom, (ids, labels) = gpt_spmd.build_spmd_train_step(
+            cfg, batch_size=2, seq_len=1024, num_micro=1, lr=0.05,
+            device=dev, params=weights)
+        reset_counts()
+        loss0, grads = gpt_spmd.value_and_grad(params, ids, labels, cfg, 1)
+        torch.cuda.synchronize()
+        counts = fused_counts()
+        grads = dict(gpt_spmd.leaves(grads))
+        losses = []
+        for _ in range(3):
+            params, mom, loss = step(params, mom, ids, labels)
+            losses.append(loss.item())
+        runs[label] = (loss0.item(), grads, losses)
+        log(f"[fused] fp32 760M-width 2 layers b2 s1024 recompute {label}: "
+            f"first loss {loss0.item():.6f}, launches LN fwd/bwd, GELU "
+            f"fwd/bwd {counts} (want {want}), 3 steps at lr 0.05: "
+            f"{', '.join(f'{x:.6f}' for x in losses)}")
+        if counts != want:
+            raise AssertionError(f"{label}: fused launches {counts}, want "
+                                 f"{want}")
+        if not losses[2] < losses[0] or not np.isfinite(losses).all():
+            raise AssertionError(f"fp32 training loss did not fall: {losses}")
+        del step, params, mom, grads
+    for label in ("fused", "fused+save_ln"):
+        errs = _grad_errors(runs[label][1], runs["unfused"][1])
+        worst = max(errs, key=errs.get)
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip([runs[label][0]] + runs[label][2],
+                           [runs["unfused"][0]] + runs["unfused"][2]))
+        log(f"[fused] fp32 {label} vs unfused: {len(errs)} gradient leaves,"
+            f" worst {worst} {errs[worst]:.3e} of its max |grad| (tol "
+            f"{GRAD_TOL}); losses rel err {loss_err:.3e} (tol "
+            f"{FUSED_LOSS_TOL})")
+        if not (errs[worst] <= GRAD_TOL and loss_err <= FUSED_LOSS_TOL):
+            raise AssertionError(f"fp32 training: {label} and unfused "
+                                 "disagree")
 
 
 KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel",)),
                  ("flash bwd", ("flash_bwd_kernel",)),
+                 ("fused LN / GELU", ("ln_fwd_kernel", "ln_bwd_kernel",
+                                      "gelu_kernel")),
                  ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                     "nvjet")),
                  ("copies and fills", ("memcpy", "memset")))
 
 
-def profile_step(step, params, mom, ids, labels, card):
+def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
     """One more training step under ``torch.profiler``: device time by
     kernel group, and the device's busy and idle share of the step's wall
     time (one stream, so kernels do not overlap)."""
@@ -1299,13 +1620,13 @@ def profile_step(step, params, mom, ids, labels, card):
     launches = sum(ev.count for ev in kernels)
     busy = sum(groups.values())
     if busy <= 0:
-        log("[train] profiler: no device time in the trace (device "
+        log(f"{tag} profiler: no device time in the trace (device "
             "breakdown not measured)")
         return
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[train] profiled kernel {ev.self_device_time_total / 1e3:8.2f} "
+        log(f"{tag} profiled kernel {ev.self_device_time_total / 1e3:8.2f} "
             f"ms x{ev.count:<4d} {ev.key[:90]}")
-    log(f"[train] profiled bf16 step: wall {wall_us / 1e3:.1f} ms (under the "
+    log(f"{tag} profiled bf16 step: wall {wall_us / 1e3:.1f} ms (under the "
         f"profiler), device busy {busy / 1e3:.1f} ms = "
         f"{busy / wall_us:.3f} of it, idle {1 - busy / wall_us:.3f}; "
         f"{launches} kernels; " + ", ".join(
@@ -1346,8 +1667,9 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
-                          "flash_attention_bwd", "quant_matmul"])
-    log(f"[build] four kernel sources for sm_90a in "
+                          "flash_attention_bwd", "quant_matmul",
+                          "fused_mlp"])
+    log(f"[build] five kernel sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -1378,13 +1700,21 @@ def main() -> int:
     quant_launches = phase_quant_serve(model, cfg, dev, card, fp_outs,
                                        fp16_step_ms)
 
-    # 7. training: the backward kernel, then the training path
+    # 7. training: the backward kernel, then the training path; 9. the
+    # fused-MLP kernels and their paths, each beside its phase-7 twin
     bwd = phase_flash_bwd(dev)
     model.train()
     phase_eager_grads(model, cfg, dev)
+    fused = phase_fused_kernels(dev)
+    phase_fused_eager(model, cfg, dev)
     del model
     phase_train_fp32(dev)
-    train_fwd, train_bwd = phase_train_bf16(dev, card, bwd[torch.bfloat16])
+    phase_fused_train_fp32(dev)
+    train = phase_train_bf16(dev, card, bwd[torch.bfloat16])
+    fused_train = phase_train_bf16(dev, card, bwd[torch.bfloat16],
+                                   fused=True, unfused=train)
+    train_fwd = train["fwd_n"] + fused_train["fwd_n"]
+    train_bwd = train["bwd_n"] + fused_train["bwd_n"]
 
     kernels = []
     bf16 = torch.bfloat16
@@ -1417,13 +1747,29 @@ def main() -> int:
              train_bwd, bwd[torch.bfloat16]),
             *((name, "paddle_tpu_torch/csrc/quant_matmul.cu",
                f"paddle_tpu/ops/pallas/quant_matmul.py:{line}", n, st)
-              for name, line, n, st in qmm_rows)):
+              for name, line, n, st in qmm_rows),
+            *((f"fused_mlp_{fkind}", "paddle_tpu_torch/csrc/fused_mlp.cu",
+               f"paddle_tpu/ops/pallas/fused_mlp.py:{line}",
+               fused_train["fused_n"][i], fused[(fkind, "plain", bf16)])
+              for i, ((fkind, _), line) in enumerate(
+                  zip(FUSED_KINDS, (105, 128, 281, 293))))):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+    for row, (fkind, variants) in zip(kernels[-4:], FUSED_KINDS):
+        other = fused[(fkind, variants[1], bf16)]
+        shape = (FUSED_LN_SHAPES if fkind.startswith("ln")
+                 else FUSED_GELU_SHAPES)[0]
+        row["note"] = (
+            f"bf16 at {list(shape)}"
+            f" without {variants[1]}; with {variants[1]}: ms "
+            f"{other['ms']:.4f}, plain_ms {other['plain_ms']:.4f}, bound_ms "
+            f"{other['bound_ms']:.6f}, max_abs_err {other['max_abs_err']:.3e}"
+            ", library_ms null (no single PyTorch call); launches: the "
+            f"{TRAIN_STEPS} fused bf16 flagship steps")
     kernels[0]["note"] = (
         "int8-KV branch checked too: max_abs_err "
         f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "
@@ -1437,11 +1783,13 @@ def main() -> int:
         f"shape {list(BWD_SHAPE)}, launches in the bf16 training run; "
         "quant_matmul_* in bf16, the sum of one layer's four GEMMs at M "
         f"{QMM_ROWS}, launches in phase 8's fp32 serving runs (forward) and "
-        "gradient drives (backward))")
+        "gradient drives (backward); fused_mlp_* in bf16 at the flagship "
+        "shapes, launches in phase 9's bf16 flagship run; flash launches "
+        "count both flagship runs)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..incubate.nn import functional as FI
 from ..inference.kv_cache import (packed_dest, paged_copy_pages_,
                                   paged_write_packed_,
                                   paged_write_packed_quant_)
@@ -39,8 +40,9 @@ from ..ops.quant_matmul import quant_matmul
 @dataclass
 class GPTConfig:
     """Same fields and defaults as the reference ``GPTConfig``. Fields for
-    paths not ported yet (fused MLP kernels, TP, recompute, speculation,
-    mega kernels, MoE) raise where they would change behaviour;
+    paths not ported yet (TP, recompute, speculation, mega kernels, MoE)
+    raise where they would change behaviour; ``fused_mlp`` sends the
+    eager decoder block through the fused LN / GELU kernels;
     ``weight_dtype`` / ``weight_quant_group_size`` / ``kv_cache_dtype``
     configure quantized serving (``inference.serving``)."""
     vocab_size: int = 50304
@@ -115,8 +117,6 @@ def _plain_sdpa(q, k, v, attn_mask=None, is_causal=False, dropout_p=0.0,
 
 def _check_forward_config(cfg: GPTConfig) -> None:
     for field, later in (("moe_experts", "the MoE slice"),
-                         ("fused_mlp", "the training slice (fused_mlp "
-                                       "kernels)"),
                          ("tensor_parallel", "the multi-GPU slice"),
                          ("recompute", "the eager model's recompute; "
                                        "models.gpt_spmd's is ported")):
@@ -210,14 +210,25 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
+        self.config = config
         h, f = config.hidden_size, config.ffn_size
         self.fc1 = Linear(h, f, device=device, dtype=dtype)
         self.fc2 = Linear(f, h, device=device, dtype=dtype)
         self.dropout = nn.Dropout(config.hidden_dropout)
 
     def forward(self, x):
+        if _fused_mlp_on(self.config):
+            # fc1's bias and the GELU in one epilogue kernel after the GEMM
+            y = FI.fused_bias_gelu(x @ self.fc1.weight, self.fc1.bias)
+            return self.dropout(self.fc2(y))
         return self.dropout(self.fc2(
             torch.nn.functional.gelu(self.fc1(x), approximate="tanh")))
+
+
+def _fused_mlp_on(config: GPTConfig) -> bool:
+    """The fused LN / GELU path: ``fused_mlp`` on one device (the kernel
+    on a CUDA tensor, its plain version on a CPU tensor)."""
+    return bool(config.fused_mlp) and not config.tensor_parallel
 
 
 class GPTDecoderLayer(nn.Module):
@@ -225,6 +236,7 @@ class GPTDecoderLayer(nn.Module):
 
     def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
+        self.config = config
         kw = dict(device=device, dtype=dtype)
         self.ln_1 = LayerNorm(config.hidden_size, config.layer_norm_eps, **kw)
         self.attn = GPTAttention(config, **kw)
@@ -232,8 +244,21 @@ class GPTDecoderLayer(nn.Module):
         self.mlp = GPTMLP(config, **kw)
 
     def forward(self, x, attn_mask=None):
+        if _fused_mlp_on(self.config):
+            return self._forward_fused(x, attn_mask=attn_mask)
         x = x + self.attn(self.ln_1(x), attn_mask=attn_mask)
         return x + self.mlp(self.ln_2(x))
+
+    def _forward_fused(self, x, attn_mask=None):
+        """LN1 in one kernel, then the attention branch's residual add and
+        LN2 in one residual-in / residual-out kernel."""
+        eps = self.config.layer_norm_eps
+        y1 = FI.fused_layer_norm(x, self.ln_1.weight, self.ln_1.bias,
+                                 epsilon=eps)
+        a = self.attn(y1, attn_mask=attn_mask)
+        y2, s = FI.fused_ln_residual(a, x, self.ln_2.weight, self.ln_2.bias,
+                                     epsilon=eps)
+        return s + self.mlp(y2)
 
 
 class GPTModel(nn.Module):

@@ -12,24 +12,30 @@ its one-device case (dp = pp = mp = 1), in eager PyTorch:
 - :func:`loss_fn` is ``_loss_fn_inner``: embedding gather plus positions,
   the microbatch loop (``_pipeline`` at pp = 1), the final LayerNorm and
   the chunked, rematerialized next-token CE over the tied embedding.
-- :func:`_block` is the dense, non-fused, mp = 1 decoder block. Attention
-  takes the flash custom op (``ops/flash_attention.py``: the hand-written
-  forward and backward kernels on a CUDA tensor) when
-  ``use_flash_attention`` is set on CUDA or ``force_flash`` on the CPU, and
-  plain causal softmax attention otherwise.
+- :func:`_block` is the dense, mp = 1 decoder block. Attention takes the
+  flash custom op (``ops/flash_attention.py``: the hand-written forward
+  and backward kernels on a CUDA tensor) when ``use_flash_attention`` is
+  set on CUDA or ``force_flash`` on the CPU, and plain causal softmax
+  attention otherwise. With ``fused_mlp`` (on CUDA; ``force_fused_mlp`` on
+  the CPU, where the plain versions run) LN1 is the fused LayerNorm op and
+  the MLP half :func:`_block_mlp_fused`: the residual add and LN2 in one
+  op, fc1's bias and GELU in another (``ops/fused_mlp.py``, the
+  hand-written LN and GELU kernels, forward and backward).
 - ``config.recompute`` maps onto non-reentrant ``torch.utils.checkpoint``
   per layer with a selective policy that keeps what the reference's
   ``checkpoint_dots_with_no_batch_dims`` keeps (the outputs of the weight
   GEMMs, ``aten.mm``) and, with ``remat_save_attn``, the flash op's
   ``out`` and ``lse`` — so the backward recomputes only LayerNorms,
-  biases, GELU and reshapes, and never runs the flash forward again.
+  biases, GELU and reshapes, and never runs the flash forward again. With
+  ``fused_mlp`` and ``remat_save_ln`` it keeps the fused LN ops' outputs
+  too (y, s, mean and rstd: what the reference's ``"ln_out"`` names save).
 - :func:`build_spmd_train_step` returns ``(step, params, mom, (ids,
   labels))`` like the reference; ``step`` does momentum SGD and updates
   ``params`` and ``mom`` in place (the reference donates them).
 
-Everything the reference shards or fuses (dp / pp / mp > 1, ZeRO,
-quantized gradient sync, MoE, the fused-MLP kernels, ``remat_save_ln``)
-raises ``NotImplementedError`` naming the slice that ports it.
+Everything the reference shards (dp / pp / mp > 1, ZeRO, quantized
+gradient sync), MoE, and ``remat_save_ln`` without ``fused_mlp`` raise
+``NotImplementedError`` naming the slice that ports it.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import resolve_device
 from ..observability import default_registry
+from ..ops import fused_mlp as _fm
 from ..ops.flash_attention import flash_attention
 from .gpt import GPTConfig
 
@@ -99,10 +106,12 @@ def _check_train_config(config: GPTConfig, mesh=None, zero_stage=0,
             ("comm_quant", comm_quant,
              "the multi-GPU slice (quantized gradient sync)"),
             ("moe_experts", config.moe_experts, "the MoE slice"),
-            ("fused_mlp", config.fused_mlp,
-             "the fused_mlp training slice (LN / GELU kernels)"),
-            ("remat_save_ln", config.recompute and config.remat_save_ln,
-             "the fused_mlp training slice")):
+            # the unfused LN is many aten ops: no op-level policy can name
+            # its output, as the reference's "ln_out" tag does
+            ("remat_save_ln", config.recompute and config.remat_save_ln
+             and not config.fused_mlp,
+             "a later slice: without fused_mlp the LayerNorm is no single "
+             "op a checkpoint policy can keep")):
         if value:
             raise NotImplementedError(
                 f"{flag}={value!r} is not ported yet ({later})")
@@ -161,13 +170,29 @@ def _use_flash(config: GPTConfig, device: torch.device) -> bool:
     return bool(config.force_flash)
 
 
-def _block(p, x, config: GPTConfig, flash: bool):
+def _fused_mlp_on(config: GPTConfig, device: torch.device) -> bool:
+    """Whether the fused LN / GELU ops replace the plain chains in the
+    block: ``fused_mlp`` on CUDA, ``force_fused_mlp`` on the CPU (where
+    they run their plain versions); never under MoE (the kernels are
+    dense-only)."""
+    if not config.fused_mlp or config.moe_experts:
+        return False
+    if device.type == "cuda":
+        return True
+    return bool(config.force_fused_mlp)
+
+
+def _block(p, x, config: GPTConfig, flash: bool, fused: bool):
     """One pre-LN decoder block on ``[mb, s, h]``."""
     if "attn" in config.ablate:   # perf attribution: skip the whole branch
         return _block_mlp(p, x, config)
     nh, hd = config.num_heads, config.head_dim
     mb, s, h = x.shape
-    y = _layer_norm(x, p["ln1_g"], p["ln1_b"], config.layer_norm_eps)
+    if fused:
+        y = _fm.fused_layer_norm(x, p["ln1_g"], p["ln1_b"],
+                                 eps=config.layer_norm_eps)
+    else:
+        y = _layer_norm(x, p["ln1_g"], p["ln1_b"], config.layer_norm_eps)
     qkv = y @ p["wqkv"] + p["bqkv"]
     q, k, v = qkv.split(h, dim=-1)
     if flash:
@@ -185,7 +210,21 @@ def _block(p, x, config: GPTConfig, flash: bool):
         attn = torch.softmax(scores, dim=-1)
         o = (attn @ vh).transpose(1, 2).reshape(mb, s, h)
     o = o @ p["wo"] + p["bo"]
+    if fused:
+        return _block_mlp_fused(p, x, o, config)
     return _block_mlp(p, x + o, config)
+
+
+def _block_mlp_fused(p, x, branch, config: GPTConfig):
+    """The fused MLP half: the attention branch's residual add and LN2 in
+    one op (``s = branch + x``, ``y = LN(s)``), fc1's bias and GELU in one
+    epilogue op after the GEMM, then ``s + fc2``."""
+    if "mlp" in config.ablate:    # perf attribution: skip the whole branch
+        return x + branch
+    y, s = _fm.fused_ln_residual(branch, x, p["ln2_g"], p["ln2_b"],
+                                 eps=config.layer_norm_eps)
+    y = _fm.fused_bias_gelu(y @ p["w1"], p["b1"])
+    return s + (y @ p["w2"] + p["b2"])
 
 
 def _block_mlp(p, x, config: GPTConfig):
@@ -196,14 +235,18 @@ def _block_mlp(p, x, config: GPTConfig):
     return x + (y @ p["w2"] + p["b2"])
 
 
-def _remat_policy(save_attn: bool):
+def _remat_policy(save_attn: bool, save_ln: bool):
     """Selective checkpoint policy: keep the weight-GEMM outputs (2-D
     ``aten.mm``, what ``checkpoint_dots_with_no_batch_dims`` keeps; the
-    plain attention's batched products are recomputed) and, with
-    ``save_attn``, the flash op's ``(out, lse)``."""
+    plain attention's batched products are recomputed), with
+    ``save_attn`` the flash op's ``(out, lse)``, and with ``save_ln`` the
+    fused LN ops' ``(y, [s,] mean, rstd)``."""
     keep = {torch.ops.aten.mm.default}
     if save_attn:
         keep.add(torch.ops.paddle_tpu_torch.flash_attention.default)
+    if save_ln:
+        keep.add(torch.ops.paddle_tpu_torch.fused_layer_norm.default)
+        keep.add(torch.ops.paddle_tpu_torch.fused_ln_residual.default)
 
     def policy(ctx, op, *args, **kwargs):
         return (CheckpointPolicy.MUST_SAVE if op in keep
@@ -212,31 +255,33 @@ def _remat_policy(save_attn: bool):
     return policy
 
 
-def _stage_fn(layers, x, config: GPTConfig, flash: bool):
+def _stage_fn(layers, x, config: GPTConfig, flash: bool, fused: bool):
     """Apply the layers (a list of per-layer param dicts) to ``x``; with
     ``config.recompute`` each layer is rematerialized in the backward."""
     def body(x, *vals):
-        return _block(dict(zip(STAGE_KEYS, vals)), x, config, flash)
+        return _block(dict(zip(STAGE_KEYS, vals)), x, config, flash, fused)
 
     if not config.recompute:
         for layer in layers:
             x = body(x, *(layer[k] for k in STAGE_KEYS))
         return x
-    context = functools.partial(create_selective_checkpoint_contexts,
-                                _remat_policy(config.remat_save_attn))
+    context = functools.partial(
+        create_selective_checkpoint_contexts,
+        _remat_policy(config.remat_save_attn,
+                      fused and config.remat_save_ln))
     for layer in layers:
         x = checkpoint(body, x, *(layer[k] for k in STAGE_KEYS),
                        use_reentrant=False, context_fn=context)
     return x
 
 
-def _pipeline(stages, mbs, config: GPTConfig, flash: bool):
+def _pipeline(stages, mbs, config: GPTConfig, flash: bool, fused: bool):
     """pp = 1: the layers over each microbatch of ``mbs [M, mb, s, h]``.
     The stacked leaves are unbound once, so their gradients come back as
     one stack per leaf."""
     per_key = [stages[k].unbind(0) for k in STAGE_KEYS]
     layers = [dict(zip(STAGE_KEYS, vals)) for vals in zip(*per_key)]
-    return torch.stack([_stage_fn(layers, mb, config, flash)
+    return torch.stack([_stage_fn(layers, mb, config, flash, fused)
                         for mb in mbs.unbind(0)])
 
 
@@ -261,7 +306,9 @@ def loss_fn(params, ids, labels, config: GPTConfig, num_micro: int = 1):
     flash = _use_flash(config, ids.device)
     x = params["tok_emb"][ids] + params["pos_emb"][:s]
     mbs = x.reshape(num_micro, b // num_micro, s, x.shape[-1])
-    y = _pipeline(params["stages"], mbs, config, flash).reshape(b, s, -1)
+    fused = _fused_mlp_on(config, ids.device)
+    y = _pipeline(params["stages"], mbs, config, flash, fused).reshape(
+        b, s, -1)
     y = _layer_norm(y, params["lnf_g"], params["lnf_b"],
                     config.layer_norm_eps)
     # shifted next-token CE over the tied embedding, chunked over the

@@ -1,0 +1,236 @@
+"""Port fused-MLP ops (``ops/fused_mlp.py``) against the JAX package's
+``ops/pallas/fused_mlp.py`` on the CPU.
+
+The same seeded numpy inputs go through the reference's Pallas kernels in
+interpret mode (``use_kernel=True``) and the port's public entries, whose
+custom ops run the kernels' plain versions on a CPU tensor; ``jax.vjp``
+with a seeded cotangent against ``torch.autograd.grad``. Tolerances: fp32
+max abs error <= 1e-5 of the tensor's max ``|want|`` (the same fp32 math,
+sums in another order); bf16 each row's max abs error <= 1e-2 of the
+row's max ``|want|`` (both sides round an fp32 result once, so an element
+may differ by one bf16 step, <= 2^-7 of it). Odd row counts and widths
+that are no multiple of 128, which the port's kernels take and the
+reference's kernel does not on a TPU, are held against the reference's
+``ln_reference`` / ``gelu_reference`` and their ``jax.vjp``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import fused_mlp as jfm
+from paddle_tpu_torch.incubate.nn import functional as FI
+from paddle_tpu_torch.ops import fused_mlp as tfm
+
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+EPS = 1e-5
+
+
+def _np(rng, shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _pair(a, leg):
+    jd, td = DTYPES[leg]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td).requires_grad_()
+
+
+def _assert_close(got, want, leg, what=""):
+    got = np.asarray(got.detach().float().numpy() if isinstance(
+        got, torch.Tensor) else jnp.asarray(got, jnp.float32), np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32), np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    diff = np.abs(got - want)
+    if leg == "fp32":
+        err = diff.max() / max(np.abs(want).max(), 1e-30)
+        assert err <= 1e-5, (what, err)
+        return
+    rows = diff.reshape(-1, want.shape[-1])
+    scale = np.abs(want).reshape(-1, want.shape[-1]).max(-1)
+    err = (rows.max(-1) / np.maximum(scale, 1e-30)).max()
+    assert err <= 1e-2, (what, err)
+
+
+def _check_vjp(jfn, tfn, arrays, cots, leg):
+    """Forward and VJP of ``jfn`` (jax) against ``tfn`` (torch) on the same
+    numpy ``arrays``, with the numpy cotangents ``cots``."""
+    jx, tx = zip(*(_pair(a, leg) for a in arrays))
+    want, vjp = jax.vjp(jfn, *jx)
+    got = tfn(*tx)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_close(g, w, leg, f"out {i}")
+    jc, tc = zip(*(_pair(c, leg) for c in cots))
+    want_grads = vjp(jc if len(jc) > 1 else jc[0])
+    got_grads = torch.autograd.grad(got, tx, [t.detach() for t in tc])
+    for i, (g, w) in enumerate(zip(got_grads, want_grads)):
+        assert g.dtype == tx[i].dtype
+        _assert_close(g, w, leg, f"grad {i}")
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 128), (2, 32, 256)])
+def test_layer_norm_matches_jax_kernel(leg, shape):
+    rng = np.random.RandomState(0)
+    h = shape[-1]
+    arrays = (_np(rng, shape), 1 + _np(rng, (h,), 0.1), _np(rng, (h,), 0.1))
+    _check_vjp(lambda x, g, b: jfm.fused_layer_norm(x, g, b, EPS, True),
+               lambda x, g, b: tfm.fused_layer_norm(x, g, b, EPS),
+               arrays, (_np(rng, shape),), leg)
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+def test_ln_residual_matches_jax_kernel_both_cotangents(leg):
+    """``(y, s)`` and the backward with both cotangents: the residual stream
+    ``s`` carries its own gradient, added inside the kernel, and x and the
+    residual get the same gradient."""
+    rng = np.random.RandomState(1)
+    shape, h = (96, 128), 128
+    arrays = (_np(rng, shape), _np(rng, shape), 1 + _np(rng, (h,), 0.1),
+              _np(rng, (h,), 0.1))
+    _check_vjp(lambda x, r, g, b: jfm.fused_ln_residual(x, r, g, b, EPS,
+                                                        True),
+               lambda x, r, g, b: tfm.fused_ln_residual(x, r, g, b, EPS),
+               arrays, (_np(rng, shape), _np(rng, shape)), leg)
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+def test_gelu_matches_jax_kernel(leg):
+    rng = np.random.RandomState(2)
+    shape = (64, 256)
+    _check_vjp(lambda x: jfm.fused_gelu(x, True),
+               lambda x: tfm.fused_gelu(x),
+               (_np(rng, shape, 2.0),), (_np(rng, shape),), leg)
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 512), (2, 16, 256)])
+def test_bias_gelu_matches_jax_kernel(leg, shape):
+    rng = np.random.RandomState(3)
+    n = shape[-1]
+    _check_vjp(lambda x, b: jfm.fused_bias_gelu(x, b, True),
+               lambda x, b: tfm.fused_bias_gelu(x, b),
+               (_np(rng, shape, 2.0), _np(rng, (n,), 0.5)),
+               (_np(rng, shape),), leg)
+
+
+@pytest.mark.parametrize("shape", [(77, 200), (3, 5, 40), (1, 8)])
+def test_odd_shapes_match_jax_references(shape):
+    """Rows and widths the Pallas kernels do not tile: the port's ops
+    against ``ln_reference`` / ``gelu_reference`` and their VJPs (fp32)."""
+    rng = np.random.RandomState(4)
+    h = shape[-1]
+    g, b = 1 + _np(rng, (h,), 0.1), _np(rng, (h,), 0.1)
+    x, r, dy, ds = (_np(rng, shape) for _ in range(4))
+    _check_vjp(lambda x_, g_, b_: jfm.ln_reference(x_, g_, b_, EPS),
+               lambda x_, g_, b_: tfm.fused_layer_norm(x_, g_, b_, EPS),
+               (x, g, b), (dy,), "fp32")
+    _check_vjp(lambda x_, r_, g_, b_: (jfm.ln_reference(x_ + r_, g_, b_, EPS),
+                                       x_ + r_),
+               lambda x_, r_, g_, b_: tfm.fused_ln_residual(x_, r_, g_, b_,
+                                                            EPS),
+               (x, r, g, b), (dy, ds), "fp32")
+    _check_vjp(lambda x_, b_: jfm.gelu_reference(x_, b_),
+               lambda x_, b_: tfm.fused_bias_gelu(x_, b_),
+               (2 * x, b), (dy,), "fp32")
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+def test_references_twin_jax_oracles(leg):
+    """``ln_reference`` and ``gelu_reference`` (op by op in x's dtype) are
+    the twins of the reference's oracles; the ``use_kernel=False`` entries
+    take them."""
+    rng = np.random.RandomState(5)
+    x, g, b = _np(rng, (40, 96)), 1 + _np(rng, (96,), 0.1), _np(rng, (96,))
+    jx, tx = _pair(x, leg)
+    jg, tg = _pair(g, leg)
+    jb, tb = _pair(b, leg)
+    _assert_close(tfm.ln_reference(tx, tg, tb, EPS),
+                  jfm.ln_reference(jx, jg, jb, EPS), leg)
+    _assert_close(tfm.fused_layer_norm(tx, tg, tb, EPS, use_kernel=False),
+                  jfm.ln_reference(jx, jg, jb, EPS), leg)
+    _assert_close(tfm.gelu_reference(tx, tb), jfm.gelu_reference(jx, jb), leg)
+    _assert_close(tfm.fused_bias_gelu(tx, tb, use_kernel=False),
+                  jfm.gelu_reference(jx, jb), leg)
+    _assert_close(tfm.gelu_reference(tx), jfm.gelu_reference(jx), leg)
+
+
+def test_plain_versions_follow_the_kernel_casts():
+    """bf16: statistics from the unrounded fp32 ``s``, ``s`` written rounded;
+    GELU in fp32 with one cast (not op by op like ``gelu_reference``)."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(_np(rng, (16, 64))).bfloat16()
+    r = torch.from_numpy(_np(rng, (16, 64))).bfloat16()
+    g, b = torch.ones(64, dtype=torch.bfloat16), torch.zeros(
+        64, dtype=torch.bfloat16)
+    y, s, mean, rstd = tfm.ln_fwd_reference(x, r, g, b, EPS)
+    s32 = x.float() + r.float()
+    assert torch.equal(s, s32.bfloat16())
+    torch.testing.assert_close(mean, s32.mean(-1), rtol=0, atol=1e-6)
+    assert mean.dtype == rstd.dtype == torch.float32
+    assert y.dtype == torch.bfloat16
+    u = torch.from_numpy(_np(rng, (16, 64), 3.0)).bfloat16()
+    want = torch.nn.functional.gelu(u.float(), approximate="tanh").bfloat16()
+    assert (tfm.gelu_fwd_reference(u).float() - want.float()).abs().max() \
+        <= 2 ** -7 * want.float().abs().max()
+
+
+def test_wrapper_checks_raise():
+    """What the kernels do not take raises before any launch (the checks
+    are device-independent; the launch itself needs a card)."""
+    x = torch.zeros(4, 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfm._check("ln", x.half())
+    with pytest.raises(TypeError, match="rows"):
+        tfm._check("ln", x, (torch.zeros(8, dtype=torch.bfloat16),))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfm._check("ln", torch.zeros(8, 4).t())
+    with pytest.raises(ValueError, match=r"\[rows, h\]"):
+        tfm._check("ln", torch.zeros(2, 4, 8))
+    with pytest.raises(ValueError, match="statistics"):
+        tfm._check("ln", x, (), (torch.zeros(4, dtype=torch.float64),))
+    with pytest.raises(ValueError, match="width"):
+        tfm._vec_param(torch.zeros(7), 8)
+    assert tfm._vec(torch.zeros(4, 8)) == 1
+    assert tfm._vec(torch.zeros(4, 6)) == 0        # 24-byte rows
+    assert tfm._check("ln", x) == 0
+    assert tfm._check("ln", x.bfloat16()) == 1
+
+
+def test_no_grad_skips_the_ops_and_grad_mode_takes_them():
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(_np(rng, (2, 3, 16))).requires_grad_()
+    g, b = torch.ones(16, requires_grad=True), torch.zeros(16)
+    y = tfm.fused_layer_norm(x, g, b)
+    assert y.grad_fn is not None and y.shape == x.shape
+    with torch.no_grad():
+        y2 = tfm.fused_layer_norm(x, g, b)
+        y3, s3 = tfm.fused_ln_residual(x, x, g, b)
+        z = tfm.fused_bias_gelu(x, b)
+    assert y2.grad_fn is None and z.grad_fn is None and s3.grad_fn is None
+    torch.testing.assert_close(y2, y.detach(), rtol=0, atol=0)
+    assert tfm.fused_gelu(x.detach()).grad_fn is None
+
+
+def test_incubate_functional_surface():
+    """``incubate.nn.functional`` keeps the reference's signatures; a
+    LayerNorm without weight or bias is the plain composite."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(_np(rng, (6, 32)))
+    g, b = 1 + torch.from_numpy(_np(rng, (32,), 0.1)), torch.zeros(32)
+    torch.testing.assert_close(FI.fused_layer_norm(x, g, b, epsilon=1e-6),
+                               tfm.ln_reference(x, g, b, 1e-6))
+    torch.testing.assert_close(FI.fused_layer_norm(x, g, None),
+                               tfm.ln_reference(x, g, b))
+    torch.testing.assert_close(FI.fused_layer_norm(x, None, None),
+                               tfm.ln_reference(x, torch.ones(32), b))
+    y, s = FI.fused_ln_residual(x, x, g, b, epsilon=1e-5, use_pallas=False)
+    torch.testing.assert_close(s, 2 * x)
+    torch.testing.assert_close(FI.fused_bias_gelu(x, b),
+                               tfm.gelu_fwd_reference(x, b))
+    torch.testing.assert_close(FI.fused_bias_gelu(x),
+                               tfm.gelu_fwd_reference(x))

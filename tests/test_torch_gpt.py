@@ -3,7 +3,12 @@ same weights, carried across by ``models/convert.py``.
 
 Full-forward logits: fp32 on the CPU, ``rtol 1e-5, atol 1e-5`` (the same
 math with fp32 sums in another order). ``serving_params`` stacks are
-copies of the same weights, so they must be equal exactly.
+copies of the same weights, so they must be equal exactly. With
+``fused_mlp=True`` the decoder blocks take the fused LN / GELU ops (their
+plain versions on the CPU; the reference's interpret-mode kernels with
+``force_fused_mlp``, its jnp references without): logits at the same
+tolerance, and every parameter's gradient of a seeded linear loss within
+1e-5 of the leaf's max ``|grad|``.
 """
 import dataclasses
 
@@ -44,6 +49,41 @@ def test_full_forward_logits_match_jax(over):
     with torch.no_grad():
         got = tm(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_fused_mlp_logits_and_grads_match_jax(force):
+    jm, tm = _pair(fused_mlp=True, force_fused_mlp=force)
+    jm.train()
+    tm.train()
+    rng = np.random.RandomState(6)
+    ids = rng.randint(0, TINY["vocab_size"], (2, 24))
+    w = rng.standard_normal((2, 24, TINY["vocab_size"])).astype(np.float32)
+    out = jm(paddle.to_tensor(ids.astype(np.int64)))
+    (out * paddle.to_tensor(w)).sum().backward()
+    want = {n: p.grad for n, p in jm.named_parameters()}
+    got_logits = tm(torch.from_numpy(ids))
+    (got_logits * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(got_logits.detach().numpy(), out.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    got = dict(tm.named_parameters())
+    assert set(got) == set(want)
+    for name, g in want.items():
+        assert g is not None and got[name].grad is not None, name
+        wg = np.asarray(g.numpy())
+        err = np.abs(got[name].grad.numpy() - wg).max() / np.abs(wg).max()
+        assert err <= 1e-5, (name, err)
+
+
+def test_fused_mlp_forward_equals_unfused():
+    """fp32: the fused block computes the unfused block's function."""
+    _, plain = _pair(seed=2)
+    _, fused = _pair(seed=2, fused_mlp=True)
+    ids = torch.from_numpy(np.random.RandomState(7).randint(
+        0, TINY["vocab_size"], (2, 20)))
+    with torch.no_grad():
+        torch.testing.assert_close(fused(ids), plain(ids), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_serving_params_stacks_equal():

@@ -13,6 +13,12 @@
   params and momentum, same tolerance.
 - ``remat_save_attn``: under ``recompute`` the flash forward runs once per
   layer per step when its outputs are saved and twice when they are not.
+- ``fused_mlp=True, force_fused_mlp=True``: the reference runs its fused
+  LN / GELU Pallas kernels in interpret mode, the port its fused custom ops
+  on their plain versions; the loss, every gradient and a 3-step
+  trajectory at the same tolerance, with and without ``recompute`` /
+  ``remat_save_ln`` (which keeps the fused LN ops' outputs, so their
+  forward runs once per layer per step instead of twice).
 """
 import numpy as np
 import pytest
@@ -30,6 +36,7 @@ from paddle_tpu_torch.models.convert import (random_train_params,
 from paddle_tpu_torch.models.gpt import GPTConfig as TConfig
 from paddle_tpu_torch.observability import default_registry
 from paddle_tpu_torch.ops import flash_attention as tflash
+from paddle_tpu_torch.ops import fused_mlp as tfm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
@@ -78,15 +85,76 @@ def test_loss_and_grads_match_jax(force_flash, recompute):
                         "grad")
 
 
+FUSED = dict(fused_mlp=True, force_fused_mlp=True)
+
+
+@pytest.mark.parametrize("recompute,save_ln,force_flash", [
+    (False, False, False), (True, False, False), (True, True, False),
+    (True, True, True)])
+def test_fused_mlp_loss_and_grads_match_jax(recompute, save_ln, force_flash):
+    over = dict(FUSED, recompute=recompute, remat_save_ln=save_ln,
+                force_flash=force_flash)
+    jcfg, tcfg = JConfig(**SMALL, **over), TConfig(**SMALL, **over)
+    mesh = jspmd.make_mesh(1)
+    params = jspmd.init_params(jcfg, mesh)
+    ids, labels = _batch(SMALL, 2, 128, seed=2)
+    with jax.set_mesh(mesh):
+        fn = jax.jit(lambda p, i, l: jax.value_and_grad(jspmd.loss_fn)(
+            p, i, l, jcfg, mesh, 2))
+        want_loss, want_grads = fn(params, jnp.asarray(ids, jnp.int32),
+                                   jnp.asarray(labels, jnp.int32))
+    tparams = train_params_from_jax_numpy(_np_tree(params), device="cpu")
+    loss, grads = tspmd.value_and_grad(tparams, torch.from_numpy(ids),
+                                       torch.from_numpy(labels), tcfg, 2)
+    assert np.isfinite(float(want_loss))
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL)
+    _assert_trees_close(train_params_to_numpy(grads), _np_tree(want_grads),
+                        "grad")
+
+
+@pytest.mark.parametrize("recompute,save_ln,per_ln", [
+    (False, False, 1), (True, False, 2), (True, True, 1)])
+def test_fused_mlp_op_counts_under_remat(monkeypatch, recompute, save_ln,
+                                         per_ln):
+    """Two fused LNs and one bias-GELU a layer: under ``recompute`` their
+    forwards run again in the backward unless ``remat_save_ln`` keeps the
+    LN ops' outputs (the GELU is always recomputed); one backward each."""
+    calls = {}
+    for name in ("ln_fwd_reference", "ln_bwd_reference",
+                 "gelu_fwd_reference", "gelu_bwd_reference"):
+        plain = getattr(tfm, name)
+        monkeypatch.setattr(tfm, name, lambda *a, _p=plain, _n=name: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1) or _p(*a)))
+    cfg = TConfig(**SMALL, **FUSED, recompute=recompute,
+                  remat_save_ln=save_ln)
+    step, params, mom, (ids, labels) = tspmd.build_spmd_train_step(
+        cfg, batch_size=2, seq_len=16, num_micro=1, device="cpu")
+    step(params, mom, ids, labels)
+    L = cfg.num_layers
+    assert calls == {"ln_fwd_reference": 2 * L * per_ln,
+                     "ln_bwd_reference": 2 * L,
+                     "gelu_fwd_reference": L * (2 if recompute else 1),
+                     "gelu_bwd_reference": L}
+
+
 def test_train_trajectory_matches_jax_gpt_case_1():
+    _check_trajectory({})
+
+
+def test_fused_mlp_train_trajectory_matches_jax():
+    _check_trajectory(FUSED)
+
+
+def _check_trajectory(over):
     mesh = jspmd.make_mesh(1)
     jstep, jparams, jmom, (jids, jlabels) = jspmd.build_spmd_train_step(
-        JConfig(**CASE1), mesh, batch_size=4, seq_len=32, num_micro=2,
-        lr=0.05)
+        JConfig(**CASE1, **over), mesh, batch_size=4, seq_len=32,
+        num_micro=2, lr=0.05)
     start = _np_tree(jparams)
     step, params, mom, (ids, labels) = tspmd.build_spmd_train_step(
-        TConfig(**CASE1), batch_size=4, seq_len=32, num_micro=2, lr=0.05,
-        device="cpu", params=train_params_from_jax_numpy(start, device="cpu"))
+        TConfig(**CASE1, **over), batch_size=4, seq_len=32, num_micro=2,
+        lr=0.05, device="cpu",
+        params=train_params_from_jax_numpy(start, device="cpu"))
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(labels.numpy(), np.asarray(jlabels))
     want_losses, losses = [], []
@@ -186,11 +254,13 @@ def test_unported_options_raise():
         tspmd.build_spmd_train_step(cfg, zero_stage=1, **kw)
     with pytest.raises(NotImplementedError, match="comm_quant"):
         tspmd.build_spmd_train_step(cfg, comm_quant="int8", **kw)
-    for over in (dict(moe_experts=2), dict(fused_mlp=True),
+    for over in (dict(moe_experts=2),
                  dict(recompute=True, remat_save_ln=True)):
         with pytest.raises(NotImplementedError, match="later|slice"):
             tspmd.build_spmd_train_step(TConfig(**SMALL, **over), **kw)
     tspmd.build_spmd_train_step(cfg, {"dp": 1, "pp": 1, "mp": 1}, **kw)
+    tspmd.build_spmd_train_step(
+        TConfig(**SMALL, **FUSED, recompute=True, remat_save_ln=True), **kw)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -22,7 +22,11 @@ abs error over its max ``|grad|``, to ``1e-5`` (seen: <= 2e-6). The
 weight-only GEMM splits its fp32 sums across blocks in another order than
 cuBLAS: fp32 outputs and dx are held as the max abs error over the
 tensor's max ``|want|``, to ``1e-5``; in bf16 both sides dequantize with
-the same rounding and round one fp32 sum, held per row as above.
+the same rounding and round one fp32 sum, held per row as above. The
+fused LayerNorm and GELU kernels sum rows in another order than the plain
+versions and use ``rsqrtf`` / ``tanhf``: fp32 outputs, and the fp32
+dgamma / dbeta / dbias sums in both types, held as the max abs error over
+the tensor's max ``|want|``, to ``1e-5``; bf16 outputs per row as above.
 """
 import numpy as np
 import pytest
@@ -37,6 +41,10 @@ from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
 from paddle_tpu_torch.inference.quantize import quantize_weight
 from paddle_tpu_torch.ops.paged_attention import (
     ragged_paged_attention, ragged_paged_attention_reference)
+from paddle_tpu_torch.ops.fused_mlp import (
+    MAX_H, fused_bias_gelu, fused_gelu, fused_layer_norm, fused_ln_residual,
+    gelu_bwd, gelu_bwd_reference, gelu_fwd, gelu_fwd_reference, ln_bwd,
+    ln_bwd_reference, ln_fwd, ln_fwd_reference)
 from paddle_tpu_torch.ops.quant_matmul import (
     quant_matmul, quant_matmul_bwd, quant_matmul_dx_reference,
     quant_matmul_fwd, quant_matmul_reference)
@@ -285,3 +293,146 @@ def test_quant_matmul_bias_and_grad_wiring(cuda):
     assert x.grad is not None and s.grad is None
     torch.testing.assert_close(b.grad, torch.full_like(b, 21.0))
     assert quant_matmul(x.detach(), q, s.detach()).grad_fn is None
+
+
+def _fused_err(got, want, dtype):
+    """fp32 tensors (and every fp32 parameter sum) to 1e-5 of their max;
+    bf16 rows to 1e-2 of each row's max."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= QMM_FP32_TOL, err
+    else:
+        _assert_close(got, want, dtype)
+
+
+def _rand(rng, shape, cuda, dtype, scale=1.0):
+    return (scale * torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32))).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 1536), (2048, 768), (77, 200),
+                                   (9, 1001), (16, MAX_H)])
+@pytest.mark.parametrize("res", [False, True])
+def test_ln_kernels_match_plain(cuda, dtype, shape, res):
+    """LN forward (with and without the residual) and backward (with and
+    without ``dso``) against their plain versions: the flagship and GPT-125M
+    shapes, a ragged row, a width that takes no 16-byte vectors, the widest
+    row."""
+    rows, h = shape
+    rng = np.random.RandomState(8)
+    x, r, dy, dso = (_rand(rng, shape, cuda, dtype) for _ in range(4))
+    g = 1 + _rand(rng, (h,), cuda, dtype, 0.1)
+    b = _rand(rng, (h,), cuda, dtype, 0.1)
+    resid = r if res else None
+    f0, b0 = ln_fwd.launches, ln_bwd.launches
+    got = ln_fwd(x, resid, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ln_fwd.launches == f0 + 1
+    want = ln_fwd_reference(x, resid, g, b, 1e-5)
+    _fused_err(got[0], want[0], dtype)
+    if res:   # one rounding of the same fp32 sum
+        assert torch.equal(got[1], want[1])
+    for g_, w_ in zip(got[-2:], want[-2:]):
+        _fused_err(g_, w_, torch.float32)
+    s = got[1] if res else x
+    mean, rstd = got[-2:]
+    d_so = dso if res else None
+    dgot = ln_bwd(dy, d_so, s, mean, rstd, g)
+    torch.cuda.synchronize()
+    assert ln_bwd.launches == b0 + 1
+    dwant = ln_bwd_reference(dy, d_so, s, mean, rstd, g)
+    for g_, w_ in zip(dgot, dwant):
+        _fused_err(g_, w_, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 6144), (2048, 3072), (77, 200),
+                                   (9, 1001)])
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_gelu_kernels_match_plain(cuda, dtype, shape, has_bias):
+    rows, n = shape
+    rng = np.random.RandomState(9)
+    x = _rand(rng, shape, cuda, dtype, 2.0)
+    dy = _rand(rng, shape, cuda, dtype)
+    bias = _rand(rng, (n,), cuda, dtype, 0.5) if has_bias else None
+    f0, b0 = gelu_fwd.launches, gelu_bwd.launches
+    y = gelu_fwd(x, bias)
+    torch.cuda.synchronize()
+    assert gelu_fwd.launches == f0 + 1
+    _fused_err(y, gelu_fwd_reference(x, bias), dtype)
+    dx, db = gelu_bwd(dy, x, bias)
+    torch.cuda.synchronize()
+    assert gelu_bwd.launches == b0 + 1
+    want_dx, want_db = gelu_bwd_reference(dy, x, bias)
+    _fused_err(dx, want_dx, dtype)
+    assert (db is None) == (not has_bias)
+    if has_bias:
+        _fused_err(db, want_db, torch.float32)
+
+
+def test_fused_ops_grad_wiring(cuda):
+    """Every custom op's output has a grad_fn when an input requires grad,
+    and its backward launches the backward kernel; the parameters get
+    gradients in their own dtype; widths past the kernels' maximum
+    raise."""
+    rng = np.random.RandomState(10)
+    x = _rand(rng, (3, 7, 64), cuda, torch.bfloat16).requires_grad_()
+    r = _rand(rng, (3, 7, 64), cuda, torch.bfloat16).requires_grad_()
+    g = (1 + _rand(rng, (64,), cuda, torch.bfloat16, 0.1)).requires_grad_()
+    b = _rand(rng, (64,), cuda, torch.bfloat16, 0.1).requires_grad_()
+    counts = lambda: (ln_fwd.launches, ln_bwd.launches,  # noqa: E731
+                      gelu_fwd.launches, gelu_bwd.launches)
+    c0 = counts()
+    y1 = fused_layer_norm(x, g, b)
+    y2, s = fused_ln_residual(x, r, g, b)
+    z1 = fused_gelu(x)
+    z2 = fused_bias_gelu(x, b)
+    for t in (y1, y2, s, z1, z2):
+        assert t.grad_fn is not None and t.dtype == torch.bfloat16
+    (y1.float().sum() + (y2.float() * s.float()).sum() + z1.float().sum()
+     + z2.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(counts(), c0)] == [2, 2, 2, 2]
+    for t in (x, r, g, b):
+        assert t.grad is not None and t.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match=str(MAX_H)):
+        ln_fwd(torch.zeros(2, MAX_H + 8, device=cuda), None,
+               torch.ones(MAX_H + 8, device=cuda),
+               torch.zeros(MAX_H + 8, device=cuda), 1e-5)
+
+
+def test_eager_gpt_gradients_fused_vs_unfused(cuda):
+    """The eager GPT with ``fused_mlp``: the same logits and every
+    parameter's gradient as the unfused block (fp32), none ``None``, with
+    two LN and one GELU launch a layer each way."""
+    base = GPT_CONFIGS["gpt3-125m"]
+    grads, logits = {}, {}
+    ids = torch.from_numpy(np.random.RandomState(11).randint(
+        0, base.vocab_size, (2, 129))).to(cuda)
+    for fused in (True, False):
+        cfg = type(base)(**{**base.__dict__, "num_layers": 2,
+                            "fused_mlp": fused})
+        model = state_from_jax_numpy(random_state(cfg, 0), cfg, device=cuda)
+        c0 = (ln_fwd.launches, ln_bwd.launches, gelu_fwd.launches,
+              gelu_bwd.launches)
+        out = model(ids[:, :-1]).float()
+        torch.nn.functional.cross_entropy(
+            out.reshape(-1, cfg.vocab_size), ids[:, 1:].reshape(-1)
+        ).backward()
+        torch.cuda.synchronize()
+        n = [a - b for a, b in zip((ln_fwd.launches, ln_bwd.launches,
+                                    gelu_fwd.launches, gelu_bwd.launches),
+                                   c0)]
+        assert n == ([4, 4, 2, 2] if fused else [0, 0, 0, 0])
+        logits[fused] = out.detach()
+        grads[fused] = {k: p.grad for k, p in model.named_parameters()}
+    err = ((logits[True] - logits[False]).abs().max()
+           / logits[False].abs().max()).item()
+    assert err <= GRAD_TOL, err
+    for name, want in grads[False].items():
+        got = grads[True][name]
+        assert got is not None and want is not None, name
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= GRAD_TOL, (name, err.item())

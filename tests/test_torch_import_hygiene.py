@@ -77,3 +77,19 @@ def test_quant_slice_modules_are_covered():
             "paddle_tpu_torch.nn.quant",
             "paddle_tpu_torch.inference.quantize"} <= walked
     assert (ROOT / "paddle_tpu_torch" / "csrc" / "quant_matmul.cu").is_file()
+
+
+def test_fused_mlp_slice_modules_are_covered():
+    """The walk above imports the fused-MLP slice's modules too."""
+    code = ("import pkgutil, paddle_tpu_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    walked = set(res.stdout.split())
+    assert {"paddle_tpu_torch.ops.fused_mlp",
+            "paddle_tpu_torch.incubate",
+            "paddle_tpu_torch.incubate.nn",
+            "paddle_tpu_torch.incubate.nn.functional"} <= walked
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "fused_mlp.cu").is_file()

@@ -84,6 +84,26 @@ def _step_args(lanes, b, t):
     return tok_ids, tok_slot, tok_pos, q_lens, kv_lens, last_idx, emit
 
 
+def test_fused_mlp_config_serves_the_same_tokens():
+    """The serving step keeps its per-op MLP whatever ``fused_mlp`` says (as
+    the reference's does): a fused_mlp config serves the unfused config's
+    greedy streams, and its first token is the fused full forward's argmax
+    over the prompt."""
+    named = random_state(tgpt.GPTConfig(**TINY), 3)
+    models = [state_from_jax_numpy(named, tgpt.GPTConfig(**TINY, **over),
+                                   device="cpu").eval()
+              for over in ({}, {"fused_mlp": True})]
+    kw = dict(max_batch=3, page_size=8, chunk=8, num_pages=10)
+    outs = [ServingPredictor(m, device="cpu", **kw).generate(
+        _churn(), max_new_tokens=8) for m in models]
+    assert all(outs[0]) and len({t for s in outs[0] for t in s}) > 3
+    assert outs[1] == outs[0]
+    with torch.no_grad():
+        for prompt, stream in zip(_churn(), outs[1]):
+            logits = models[1](torch.tensor([prompt]))[0, -1]
+            assert int(logits.argmax()) == stream[0]
+
+
 def test_unified_step_matches_jax():
     """Two steps: two prefill chunks, then a decode lane, a continuing
     chunk and a copy-on-write lane reading the copied page."""
