@@ -5,7 +5,7 @@
 from the root of a checkout. Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
-2. build: the five kernel sources from ``paddle_tpu_torch/csrc``
+2. build: the six kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -69,6 +69,24 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    flagship bf16 step with ``fused_mlp=True``, timed beside phase 7's
    unfused step, with 96 LN forward, 48 LN backward, 48 GELU forward and
    24 GELU backward launches a step, and one profiled step.
+
+10. mega serving (run after phase 8, while GPT-125M is on the card): the
+   mega attention and mega MLP kernels vs their plain versions at the
+   serving shapes (8 lanes of chunk 16 with an idle lane, a first chunk
+   and contexts to 1024 tokens, h 768, 12 heads of 64, page 64; MLP 128 x
+   768 x 3072) and an odd shape (5 lanes of chunk 3, 4 heads, ffn 640,
+   int8 in groups of 64), fp32 and bf16, fp / int8 per channel / int8 g128
+   weights, fp / int8 KV, with and without the fused epilogue (int8
+   payloads one step apart counted and held under 1%), with kernel /
+   plain / bound times and the one-layer per-op step on the same inputs;
+   then ``ServingPredictor(mega_decode=True)`` with the phase-6 requests
+   in fp32: (i) fp weights against phase 6's streams and the full-forward
+   oracle, (ii) int8 weights and (iii) int8 g128 weights with an int8 KV
+   cache against their per-op streams and the plain quantized forward,
+   12 launches of each mega kernel a step and none of the ragged kernel
+   or the weight-only GEMM; bf16 step times of (i) and (iii) beside their
+   per-op twins (median of 5 runs each, in turns) and one profiled run of
+   each.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -157,6 +175,30 @@ FUSED_OPS = {"ln_fwd": 8, "ln_bwd": 14, "gelu_fwd": 20, "gelu_bwd": 32}
 # two-pass formula, the unfused by torch.var, so activations differ in the
 # last bits and three SGD steps carry that into the losses
 FUSED_LOSS_TOL = 1e-5
+# phase 10. The mega kernels keep every rounding of their plain versions
+# and sum in another order (heads and ffn tiles in a fixed order, not
+# cuBLAS's): fp32 held as max abs error over the tensor's max |value|, bf16
+# per row as in KERNEL_TOL, on the rows each lane feeds. An int8 K / V
+# payload may land one step apart where its fp32 row sits on a rounding
+# boundary (allowed in under MEGA_FLIP_FRAC of the entries); what attends
+# it then moves, and the fp32 outputs are held to MEGA_KV_TOL instead.
+MEGA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MEGA_KV_TOL = 1e-3
+MEGA_FLIP_FRAC = 0.01
+# (b, chunk, h, heads, head_dim, page, pages a lane, ffn), q_lens, and the
+# contexts already in the pool: an idle lane, a first full chunk (ctx 0), a
+# full chunk on a context, decode rows and ragged chunks up to 1024 tokens
+MEGA_SERVING = ((8, 16, 768, 12, 64, 64, 16, 3072),
+                [0, 1, 16, 7, 1, 16, 12, 1],
+                [0, 1008, 984, 326, 63, 0, 688, 516])
+MEGA_ODD = ((5, 3, 256, 4, 64, 16, 4, 640), [0, 3, 2, 1, 3],
+            [0, 0, 37, 50, 12])
+MEGA_WEIGHTS = ((None, -1), ("int8", -1), ("int8", 128))
+MEGA_SERVE = (("i fp", {}, None),
+              ("ii int8", dict(weight_dtype="int8"), 1e-4),
+              ("iii int8 g128 + int8 KV",
+               dict(weight_dtype="int8", weight_quant_group_size=128,
+                    kv_cache_dtype="int8"), 2e-2))
 QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
                ("b int4 g128", dict(weight_dtype="int4",
                                     weight_quant_group_size=128), 1e-4),
@@ -218,10 +260,10 @@ def ptxas_summary(name: str, text: str):
     inst, spills = None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
-                      r"(13__nv_bfloat16|f)L[ib](\d+)E", line)
+                      r"(13__nv_bfloat16|f)(?:L[ib](\d+))?", line)
         if m:
             inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
-                    m.group(3))
+                    m.group(3) or "-")
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
@@ -387,8 +429,10 @@ def reset_counts():
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
                                                    quant_matmul_fwd)
 
-    from paddle_tpu_torch.ops import fused_mlp
+    from paddle_tpu_torch.ops import fused_mlp, mega_decode
 
+    mega_decode.mega_attn_layer.launches = 0
+    mega_decode.mega_mlp.launches = 0
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     ragged_paged_attention.launches = 0
@@ -868,7 +912,7 @@ def check_quant_oracle(sp, cfg, reqs, rows, kv_int8, tol):
     return near_ties, logit_err
 
 
-def quant_predictor(model, cfg, quant, dev, dtype=None):
+def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None):
     """A ServingPredictor of ``model`` with the config fields ``quant`` set
     while it is built (it quantizes at construction)."""
     from paddle_tpu_torch.inference import ServingPredictor
@@ -877,7 +921,8 @@ def quant_predictor(model, cfg, quant, dev, dtype=None):
     for k, v in quant.items():
         setattr(cfg, k, v)
     try:
-        return ServingPredictor(model, max_batch=8, device=dev, dtype=dtype)
+        return ServingPredictor(model, max_batch=8, device=dev, dtype=dtype,
+                                mega_decode=mega_decode)
     finally:
         for k, v in saved.items():
             setattr(cfg, k, v)
@@ -928,7 +973,7 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
     early, late = requests(cfg)
     launches = {"ragged": 0, "int8": 0, "int4": 0, "int8_bwd": 0,
                 "int4_bwd": 0}
-    preds = {}
+    preds, streams = {}, {}
     for label, quant, tol in QUANT_SERVE:
         sp = quant_predictor(model, cfg, quant, dev)
         preds[label] = sp
@@ -943,6 +988,7 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
         bits = quant["weight_dtype"]
         kv_int8 = quant.get("kv_cache_dtype") == "int8"
         outs = [list(r.output_ids) for r in reqs]
+        streams[label] = outs
         log(f"[quant] serve ({label}) fp32: {steps} steps, ragged launches "
             f"{ragged_n}, weight-only GEMM launches {counts}, prefix-hit "
             f"tokens {tel['kv_prefix_hit_tokens']:.0f}, CoW copies "
@@ -1003,7 +1049,441 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
             f"{1e3 * wall / sp16.steps:.3f} ms (fp bf16 step of phase 6: "
             f"{fp16_step_ms:.3f} ms; runs: "
             f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
-    return launches
+    return launches, streams
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+
+def mega_inputs(case, weights, group, kv_int8, dtype, dev, seed=SEED):
+    """One layer's lane blocks ``xb``, weights (``weights`` None or "int8"
+    in groups of ``group``), pools (fp, or int8 through the KV write's
+    quantizer), page table, contexts and q_lens of a ``MEGA_*`` case, plus
+    the MLP's inputs on the ``b * chunk`` rows."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+
+    (b, chunk, h, nh, d, ps, pps, f), q_lens, ctx = case
+    rng = np.random.RandomState(seed)
+    hq = nh * d
+
+    def to(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    p = {"ln1_g": to(1 + 0.1 * rng.randn(h)), "ln1_b": to(0.1 * rng.randn(h)),
+         "ln2_g": to(1 + 0.1 * rng.randn(h)), "ln2_b": to(0.1 * rng.randn(h)),
+         "bqkv": to(0.1 * rng.randn(3 * hq)), "bo": to(0.1 * rng.randn(h)),
+         "b1": to(0.1 * rng.randn(f)), "b2": to(0.1 * rng.randn(h))}
+    for name, (k, n) in (("wqkv", (h, 3 * hq)), ("wo", (hq, h)),
+                         ("w1", (h, f)), ("w2", (f, h))):
+        w = to(rng.randn(k, n) / np.sqrt(k), torch.float32)
+        p[name] = (quantize_weight(w, weights, group) if weights
+                   else w.to(dtype))
+    num_pages = b * pps + 1
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    for i in range(b):                 # unallocated past each context
+        pt[i, (ctx[i] + q_lens[i] + ps - 1) // ps:] = -1
+    kp, vp = (rng.standard_normal((num_pages, ps, nh, d)) for _ in range(2))
+    pools = dict(k_pages=to(kp), v_pages=to(vp))
+    if kv_int8:
+        (kq, ks), (vq, vs) = (quantize_kv_rows(to(t, torch.float32))
+                              for t in (kp, vp))
+        pools = dict(k_pages=kq, v_pages=vq, k_scales=ks, v_scales=vs)
+
+    def ints(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    mlp = (to(rng.randn(b * chunk, h)), to(rng.randn(b * chunk, h)))
+    return (to(rng.randn(b, chunk, h)), p, pools, ints(pt), ints(ctx),
+            ints(q_lens)), mlp
+
+
+def mega_held(got, want, q_lens, dtype, flips):
+    """(max abs error, held error, tolerance) of one fp output on the rows
+    each lane feeds (``q_lens`` None: every row)."""
+    if q_lens is not None:
+        valid = (torch.arange(got.shape[1], device=got.device)[None]
+                 < q_lens[:, None].long())
+        got, want = got[valid], want[valid]
+    err, held = kernel_error(got, want, dtype)
+    if dtype == torch.float32:
+        held = err / max(want.abs().max().item(), 1e-30)
+    tol = MEGA_KV_TOL if flips and dtype == torch.float32 else MEGA_TOL[dtype]
+    return err, held, tol
+
+
+def mega_check_attn(got, want, q_lens, dtype, label):
+    """Hold one attention call against its plain version: the int8
+    payloads by steps, then every other output. Returns (max abs error,
+    payload flips, payloads compared)."""
+    assert len(got) == len(want), label
+    valid = (torch.arange(got[0].shape[1], device=got[0].device)[None]
+             < q_lens[:, None].long())
+    flips = total = 0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.int8:
+            diff = (g[valid].int() - w[valid].int()).abs()
+            if diff.numel() and diff.max().item() > 1:
+                raise AssertionError(f"{label}: an int8 payload "
+                                     f"{diff.max().item()} steps off")
+            flips += int((diff > 0).sum())
+            total += diff.numel()
+    if total and flips > MEGA_FLIP_FRAC * total:
+        raise AssertionError(f"{label}: {flips} of {total} int8 payloads "
+                             f"one step off (> {MEGA_FLIP_FRAC})")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.int8:
+            continue
+        err, held, tol = mega_held(g, w, q_lens, dtype, flips)
+        if not held <= tol:
+            raise AssertionError(f"{label}: error {held} > {tol} (max abs "
+                                 f"{err}, {flips} payload flips)")
+        worst = max(worst, err)
+    if torch.count_nonzero(got[0][0]).item():
+        raise AssertionError(f"{label}: the idle lane's rows are not zero")
+    return worst, flips, total
+
+
+def mega_attn_work(args, fuse):
+    """(bytes, ops) of one attention call on these inputs: x's valid rows,
+    the vectors and both weights (int8 with their scales) read once, the
+    K and V rows of each active lane's context read once, every output row
+    written once; operations of the QKV product, the attention over each
+    valid row's keys and the output projection."""
+    xb, p, pools, pt, ctx, q_lens = args
+    b, chunk, h = xb.shape
+    _, ps, nh, d = pools["k_pages"].shape
+    elt, hq = xb.element_size(), nh * d
+
+    def wbytes(w):
+        if isinstance(w, dict):
+            return w["q"].numel() + 4 * w["s"].numel()
+        return w.numel() * w.element_size()
+
+    kv_int8 = "k_scales" in pools
+    kv_row = nh * (d * (1 if kv_int8 else elt) + (4 if kv_int8 else 0))
+    lanes = [(c, q) for c, q in zip(ctx.tolist(), q_lens.tolist()) if q]
+    rows = sum(q for _, q in lanes)
+    nbytes = (rows * h * elt + (5 * h + 3 * hq) * elt + wbytes(p["wqkv"])
+              + wbytes(p["wo"]) + 2 * kv_row * sum(c for c, _ in lanes)
+              + b * chunk * h * elt * (2 if fuse else 1)
+              + 2 * b * chunk * kv_row
+              + 4 * (sum(-(-(c + q) // ps) for c, q in lanes) + 2 * b))
+    keys = sum(c + r + 1 for c, q in lanes for r in range(q))
+    nops = 2 * rows * h * 3 * hq + 4 * d * nh * keys + 2 * rows * hq * h
+    return nbytes, float(nops)
+
+
+def mega_mlp_work(y2, p, fuse):
+    t, h = y2.shape
+    elt = y2.element_size()
+    f = p["b1"].shape[0]
+    w = sum((p[k]["q"].numel() + 4 * p[k]["s"].numel())
+            if isinstance(p[k], dict) else p[k].numel() * elt
+            for k in ("w1", "w2"))
+    nbytes = t * h * elt * (3 if fuse else 2) + w + (f + h) * elt
+    return nbytes, 4.0 * t * h * f
+
+
+def one_layer_step(case, p, pools, pt, ctx, q_lens, mega):
+    """A one-layer ``UnifiedStep`` on the case's lanes, its stacked params
+    and ``[1, pages + 1, ...]`` pools (spare page last), and the packed
+    plumbing the step computes for them: its ``_mega_layers`` /
+    ``_per_op_layers`` is the layer the pair replaces, through the port's
+    own code. Returns (a callable running the layer on packed rows, the
+    packed rows)."""
+    import dataclasses
+
+    from paddle_tpu_torch.inference.kv_cache import packed_dest
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, UnifiedStep
+
+    (b, chunk, h, nh, d, ps, pps, f), ql, cx = case
+    kv_int8 = "k_scales" in pools
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt3-125m"], num_layers=1,
+                              hidden_size=h, num_heads=nh,
+                              intermediate_size=f)
+    step = UnifiedStep(cfg, ps, chunk, kv_quant=kv_int8, mega=mega)
+    params = {"layers": {k: ({n: t[None] for n, t in v.items()}
+                             if isinstance(v, dict) else v[None])
+                         for k, v in p.items()}}
+    ext = [torch.cat([t, t[:1]])[None] for t in
+           [pools[k] for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+            if k in pools]]
+    slot = torch.tensor([i for i, q in enumerate(ql) for _ in range(q)],
+                        device=pt.device)
+    pos = torch.tensor([c + r for c, q in zip(cx, ql) for r in range(q)],
+                       device=pt.device)
+    off = pos - ctx[slot].long()
+    rows = slot * chunk + off
+    dest = packed_dest(pt, slot, pos, ps, ext[0].shape[1] - 1)
+    layers = step._mega_layers if mega else step._per_op_layers
+
+    def run(x):
+        return layers(params, x, ext, pt, q_lens, ctx, rows, rows, dest)
+
+    return run, rows
+
+
+def phase_mega_kernels(dev, card):
+    """Both mega kernels vs their plain versions at the serving shapes and
+    an odd shape, fp32 and bf16, fp / int8 weights, fp / int8 KV, with and
+    without the fused epilogue; kernel / plain / bound times of both, and
+    the per-op layer they replace, on the same inputs."""
+    from paddle_tpu_torch.ops.mega_decode import (
+        mega_attn_layer, mega_attn_layer_reference, mega_mlp,
+        mega_mlp_reference)
+
+    stats = {}
+    for cname, case, weight_list in (("serving", MEGA_SERVING, MEGA_WEIGHTS),
+                                     ("odd", MEGA_ODD, (("int8", 64),))):
+        for dtype in (torch.float32, torch.bfloat16):
+            for wd, gs in weight_list:
+                for kv_int8 in (False, True):
+                    args, (y2, s_res) = mega_inputs(case, wd, gs, kv_int8,
+                                                    dtype, dev)
+                    xb, p, pools, pt, ctx, q_lens = args
+                    pos = (xb, p, pools["k_pages"], pools["v_pages"], pt,
+                           ctx, q_lens)
+                    label = (f"{cname} {str(dtype)[6:]} weights "
+                             f"{wd or 'fp'}{'' if gs < 0 else f' g{gs}'}, "
+                             f"{'int8' if kv_int8 else 'fp'} KV")
+                    errs, flips = [], []
+                    for fuse in (True, False):
+                        kw = dict(k_scales=pools.get("k_scales"),
+                                  v_scales=pools.get("v_scales"),
+                                  fuse_epilogue=fuse)
+                        got = mega_attn_layer(*pos, **kw)
+                        torch.cuda.synchronize()
+                        want = mega_attn_layer_reference(*pos, **kw)
+                        err, n, total = mega_check_attn(
+                            got, want, q_lens, dtype,
+                            f"mega attention {label} fuse {fuse}")
+                        errs.append(err)
+                        flips.append(f"{n}/{total}")
+                        got = mega_mlp(y2, s_res if fuse else None, p,
+                                       fuse_epilogue=fuse)
+                        torch.cuda.synchronize()
+                        want = mega_mlp_reference(y2, s_res, p,
+                                                  fuse_epilogue=fuse)
+                        err, held, tol = mega_held(got, want, None, dtype, 0)
+                        if not held <= tol:
+                            raise AssertionError(
+                                f"mega MLP {label} fuse {fuse}: error {held}"
+                                f" > {tol} (max abs {err})")
+                        errs.append(err)
+                    log(f"[mega] {label}: attention max_abs_err fused "
+                        f"{errs[0]:.3e} / partial {errs[2]:.3e} (int8 "
+                        f"payloads one step off: {', '.join(flips)}), MLP "
+                        f"{errs[1]:.3e} / {errs[3]:.3e} (tol "
+                        f"{MEGA_TOL[dtype]}; {MEGA_KV_TOL} fp32 after a "
+                        "payload flip)")
+                    if cname != "serving" or (wd, kv_int8) not in (
+                            (None, False), ("int8", True)) or (
+                            wd and gs < 0):
+                        continue
+                    stats[(wd, kv_int8, dtype)] = mega_times(
+                        case, args, (y2, s_res), max(errs[0], errs[2]),
+                        max(errs[1], errs[3]), dtype, label, card)
+    return stats
+
+
+def mega_times(case, args, mlp_args, attn_err, mlp_err, dtype, label, card):
+    """Kernel, plain and bound times of both kernels on these inputs, and
+    device times of the one-layer mega step against the per-op layer."""
+    from paddle_tpu_torch.ops.mega_decode import (
+        mega_attn_layer, mega_attn_layer_reference, mega_mlp,
+        mega_mlp_reference)
+
+    xb, p, pools, pt, ctx, q_lens = args
+    y2, s_res = mlp_args
+    pos = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
+    kw = dict(k_scales=pools.get("k_scales"), v_scales=pools.get("v_scales"))
+    out = {}
+    for name, kern, plain, work, err in (
+            ("attn", lambda: mega_attn_layer(*pos, **kw),
+             lambda: mega_attn_layer_reference(*pos, **kw),
+             mega_attn_work(args, True), attn_err),
+            ("mlp", lambda: mega_mlp(y2, s_res, p),
+             lambda: mega_mlp_reference(y2, s_res, p),
+             mega_mlp_work(y2, p, True), mlp_err)):
+        nbytes, nops = work
+        out[name] = dict(
+            max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain,
+                                                                iters=5),
+            bound_ms=bound_ms(nbytes, nops, dtype), library_ms=None,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+            >= nops / PEAK_OPS[dtype] else "operations",
+            mb=nbytes / 1e6, gflop=nops / 1e9)
+    layer = {}
+    for mega in (True, False):
+        run, rows = one_layer_step(case, p, pools, pt, ctx, q_lens, mega)
+        x = xb.reshape(-1, xb.shape[-1])[rows]
+        layer[mega] = time_ms(lambda: run(x), iters=10)
+    out["layer_ms"], out["per_op_layer_ms"] = layer[True], layer[False]
+    a, m = out["attn"], out["mlp"]
+    log(f"[mega] {label} times: attention kernel {a['ms']:.4f} ms, plain "
+        f"{a['plain_ms']:.4f}, bound {a['bound_ms']:.6f} ({a['bound_by']}: "
+        f"{a['mb']:.2f} MB, {a['gflop']:.3f} GFLOP); MLP [{y2.shape[0]}, "
+        f"{y2.shape[1]}] x {p['b1'].shape[0]} kernel {m['ms']:.4f} ms, plain "
+        f"{m['plain_ms']:.4f}, bound {m['bound_ms']:.6f} ({m['bound_by']}: "
+        f"{m['mb']:.2f} MB, {m['gflop']:.3f} GFLOP); library null (no "
+        "PyTorch call computes either); one mega layer (both kernels and the "
+        f"K / V scatters) {out['layer_ms']:.4f} ms vs the per-op layer it "
+        f"replaces {out['per_op_layer_ms']:.4f} ms on the same "
+        f"{int(q_lens.sum())} rows (device time, {card})")
+    return out
+
+
+def mega_counts():
+    """(mega attention, mega MLP) launches since :func:`reset_counts`."""
+    from paddle_tpu_torch.ops.mega_decode import mega_attn_layer, mega_mlp
+
+    return mega_attn_layer.launches, mega_mlp.launches
+
+
+def profile_serve(sp, early, late, card, tag):
+    """One served bf16 run under ``torch.profiler``: device busy and idle
+    share of its wall time, and device time by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(sp, early, late)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    groups = {"mega kernels": ("mega_attn", "mega_mlp"),
+              "ragged kernel": ("ragged",),
+              "weight-only GEMM": ("qmm_kernel",),
+              "cuBLAS": ("gemm", "nvjet", "cutlass")}
+    times = {name: 0.0 for name in groups}
+    times["other PyTorch kernels"] = 0.0
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    for ev in kernels:
+        key = ev.key.lower()
+        name = next((n for n, marks in groups.items()
+                     if any(m in key for m in marks)),
+                    "other PyTorch kernels")
+        times[name] += ev.self_device_time_total
+    busy = sum(times.values())
+    if busy <= 0:
+        log(f"{tag} profiler: no device time in the trace (not measured)")
+        return
+    log(f"{tag} profiled bf16 run: {sp.steps} steps, wall {wall_us / 1e3:.1f}"
+        f" ms under the profiler, device busy {busy / 1e3:.1f} ms = "
+        f"{busy / wall_us:.3f}, idle {1 - busy / wall_us:.3f}; "
+        f"{sum(ev.count for ev in kernels)} kernels; " + ", ".join(
+            f"{n} {t / 1e3:.1f} ms ({t / busy:.3f})"
+            for n, t in times.items() if t) + f" ({card})")
+
+
+def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
+    """``ServingPredictor(mega_decode=True)`` on GPT-125M with the phase-6
+    requests in fp32: (i) fp weights against phase 6's per-op streams and
+    the full-forward oracle, (ii) int8 weights against phase 8's per-op
+    streams of the same config and the plain quantized forward, (iii) int8
+    g128 weights with an int8 KV cache against a per-op run of the same
+    config and the plain quantized forward; then bf16 step times of (i)
+    and (iii) beside their per-op twins, and one profiled run of each.
+    Returns the fp32 runs' (attention, MLP) launches."""
+    early, late = requests(cfg)
+    total = [0, 0]
+    for label, quant, tol in MEGA_SERVE:
+        if not quant:
+            want = fp_outs
+        elif label.startswith("ii "):
+            want = quant_streams["a int8"]      # the same config
+        else:
+            want = [list(r.output_ids) for r in serve(
+                quant_predictor(model, cfg, quant, dev), early, late)]
+        sp = quant_predictor(model, cfg, quant, dev, mega_decode=True)
+        served_logits = StepLogits(sp)
+        reset_counts()
+        t0 = time.perf_counter()
+        reqs = serve(sp, early, late)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        attn_n, mlp_n = mega_counts()
+        ragged_n, qmm = read_counts()[1], qmm_counts()
+        steps, tel = sp.steps, sp.telemetry()
+        outs = [list(r.output_ids) for r in reqs]
+        kv_int8 = quant.get("kv_cache_dtype") == "int8"
+        log(f"[mega] serve ({label}) fp32: {steps} steps, mega launches "
+            f"attention {attn_n} / MLP {mlp_n} (steps x {cfg.num_layers} = "
+            f"{steps * cfg.num_layers}), ragged {ragged_n}, weight-only GEMM "
+            f"{qmm}, prefix-hit tokens {tel['kv_prefix_hit_tokens']:.0f}, CoW "
+            f"copies {tel['kv_cow_copies']:.0f}, KV pool "
+            f"{sp.cache.k_pool.dtype}, {wall:.3f} s wall")
+        if not (attn_n == mlp_n == steps * cfg.num_layers and steps
+                and ragged_n == 0 and not any(qmm.values())):
+            raise AssertionError(f"({label}) launches: mega {attn_n} / "
+                                 f"{mlp_n}, ragged {ragged_n}, GEMM {qmm} "
+                                 f"over {steps} steps")
+        if tel["kv_cow_copies"] < 1 or tel["kv_prefix_hit_tokens"] < 1:
+            raise AssertionError(f"({label}) no prefix hit or CoW copy")
+        if kv_int8 != (sp.cache.k_pool.dtype == torch.int8):
+            raise AssertionError(f"({label}) KV pool {sp.cache.k_pool.dtype}")
+        if tol is None:
+            ties, logit_err = check_against_oracle(model, reqs,
+                                                   served_logits.rows, dev)
+            oracle = "the full forward"
+        else:
+            ties, logit_err = check_quant_oracle(
+                sp, cfg, reqs, served_logits.rows, kv_int8, tol)
+            oracle = "the plain quantized forward"
+        same = sum(a == b for o, w in zip(outs, want) for a, b in zip(o, w))
+        log(f"[mega] serve ({label}) fp32: greedy streams match {oracle} "
+            f"({sum(map(len, outs))} tokens, {ties} near ties), logits "
+            f"max_abs_err {logit_err:.3e} (tol {tol or LOGIT_TOL}); equal to "
+            f"the per-op streams in {same} of {sum(map(len, want))} tokens")
+        if outs != want:
+            raise AssertionError(f"({label}) mega streams differ from the "
+                                 "per-op streams")
+        total[0] += attn_n
+        total[1] += mlp_n
+    # bf16 step times, mega beside per-op in turns (the step is host-bound
+    # and its time moves between runs: median of BF16_RUNS each)
+    for label, quant, _ in (MEGA_SERVE[0], MEGA_SERVE[2]):
+        walls = {False: [], True: []}
+        for run in range(1 + BF16_RUNS):
+            for mega in ((False, True) if run % 2 else (True, False)):
+                sp16 = quant_predictor(model, cfg, quant, dev,
+                                       dtype=torch.bfloat16, mega_decode=mega)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs16 = [list(r.output_ids) for r in serve(sp16, early,
+                                                            late)]
+                torch.cuda.synchronize()
+                if run:
+                    walls[mega].append((time.perf_counter() - t0,
+                                        sp16.steps))
+                if sum(map(len, outs16)) != MAX_NEW * len(outs16):
+                    raise AssertionError(f"bf16 ({label}) malformed streams")
+        ms = {}
+        for mega, runs in walls.items():
+            wall, steps = sorted(runs)[len(runs) // 2]
+            ms[mega] = 1e3 * wall / steps
+            log(f"[mega] serve ({label}) bf16 {'mega' if mega else 'per-op'}"
+                f": {steps} steps per run; median of {BF16_RUNS} runs "
+                f"{wall:.3f} s, mean step {ms[mega]:.3f} ms (runs: "
+                f"{', '.join(f'{w:.3f}' for w, _ in runs)} s) ({card})")
+        log(f"[mega] serve ({label}) bf16 mean step mega {ms[True]:.3f} ms "
+            f"vs per-op {ms[False]:.3f} ms: {ms[False] / ms[True]:.2f}x "
+            f"({card})")
+        for mega in (True, False):
+            profile_serve(
+                quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
+                                mega_decode=mega), early, late,
+                card, f"[mega] ({label}, {'mega' if mega else 'per-op'})")
+    return total
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1649,6 +2129,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.flash_attention import bwd_smem_bytes
     from paddle_tpu_torch.ops.flash_attention import smem_bytes as flash_smem
+    from paddle_tpu_torch.ops.mega_decode import smem_bytes as mega_smem
     from paddle_tpu_torch.ops.paged_attention import smem_bytes as ragged_smem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1668,8 +2149,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "quant_matmul",
-                          "fused_mlp"])
-    log(f"[build] five kernel sources for sm_90a in "
+                          "fused_mlp", "mega_decode"])
+    log(f"[build] six kernel sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -1680,7 +2161,10 @@ def main() -> int:
         f" (chunk {g['chunk']}, page {g['ps']}, d {g['d']}), "
         f"flash_attention_fwd {flash_smem(FLASH_SHAPE[3])} B (d "
         f"{FLASH_SHAPE[3]}), flash_attention_bwd {bwd_smem_bytes(64)} B (d "
-        f"64) / {bwd_smem_bytes(128)} B (d 128)")
+        f"64) / {bwd_smem_bytes(128)} B (d 128), mega attention "
+        f"{mega_smem(MEGA_SERVING[0][1], 64, 64)} B (chunk "
+        f"{MEGA_SERVING[0][1]}, d 64, page 64) / {mega_smem(64, 128, 64)} B "
+        "(chunk 64, d 128)")
 
     # 3, 4. kernels vs plain versions
     ragged = phase_ragged(dev)
@@ -1697,8 +2181,13 @@ def main() -> int:
     # 8. quantized serving, while GPT-125M is on the card
     qmm = phase_qmm(dev)
     ragged8 = phase_ragged_int8(dev)
-    quant_launches = phase_quant_serve(model, cfg, dev, card, fp_outs,
-                                       fp16_step_ms)
+    quant_launches, quant_streams = phase_quant_serve(
+        model, cfg, dev, card, fp_outs, fp16_step_ms)
+
+    # 10. mega-kernel serving, while GPT-125M is on the card
+    mega = phase_mega_kernels(dev, card)
+    mega_launches = phase_mega_serve(model, cfg, dev, card, fp_outs,
+                                     quant_streams)
 
     # 7. training: the backward kernel, then the training path; 9. the
     # fused-MLP kernels and their paths, each beside its phase-7 twin
@@ -1752,14 +2241,19 @@ def main() -> int:
                f"paddle_tpu/ops/pallas/fused_mlp.py:{line}",
                fused_train["fused_n"][i], fused[(fkind, "plain", bf16)])
               for i, ((fkind, _), line) in enumerate(
-                  zip(FUSED_KINDS, (105, 128, 281, 293))))):
+                  zip(FUSED_KINDS, (105, 128, 281, 293)))),
+            *((f"mega_{part}", "paddle_tpu_torch/csrc/mega_decode.cu",
+               f"paddle_tpu/ops/pallas/mega_decode.py:{line}",
+               mega_launches[i], mega[(None, False, torch.float32)][part])
+              for i, (part, line) in enumerate((("attn", 224),
+                                                ("mlp", 677))))):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
-    for row, (fkind, variants) in zip(kernels[-4:], FUSED_KINDS):
+    for row, (fkind, variants) in zip(kernels[-6:-2], FUSED_KINDS):
         other = fused[(fkind, variants[1], bf16)]
         shape = (FUSED_LN_SHAPES if fkind.startswith("ln")
                  else FUSED_GELU_SHAPES)[0]
@@ -1770,6 +2264,19 @@ def main() -> int:
             f"{other['bound_ms']:.6f}, max_abs_err {other['max_abs_err']:.3e}"
             ", library_ms null (no single PyTorch call); launches: the "
             f"{TRAIN_STEPS} fused bf16 flagship steps")
+    fp32, b16 = (mega[(None, False, t)] for t in (torch.float32, bf16))
+    q8 = mega[("int8", True, bf16)]
+    for row, part in zip(kernels[-2:], ("attn", "mlp")):
+        row["note"] = (
+            f"fp32, fp weights and KV, at the serving shapes; bf16: ms "
+            f"{b16[part]['ms']:.4f}, plain_ms {b16[part]['plain_ms']:.4f}, "
+            f"bound_ms {b16[part]['bound_ms']:.6f}; bf16 int8 g128 weights "
+            f"+ int8 KV: ms {q8[part]['ms']:.4f}, bound_ms "
+            f"{q8[part]['bound_ms']:.6f}; one mega layer vs the per-op layer"
+            f" it replaces: fp32 {fp32['layer_ms']:.4f} vs "
+            f"{fp32['per_op_layer_ms']:.4f} ms, bf16 {b16['layer_ms']:.4f} vs"
+            f" {b16['per_op_layer_ms']:.4f} ms; launches: phase 10's three "
+            "fp32 served runs")
     kernels[0]["note"] = (
         "int8-KV branch checked too: max_abs_err "
         f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "

@@ -11,8 +11,9 @@ pages through a per-slot page table (``-1`` = unallocated) and
   pages, and copy-on-write claims — plain Python/numpy, the same
   algorithm (and so the same page numbers) as the reference.
 - **device side** (functions below): the packed K/V scatter (fp, or
-  int8 with a per-token, per-head scale: quantize-on-write) and the CoW
-  page copy the unified step runs.
+  int8 with a per-token, per-head scale: quantize-on-write, or rows the
+  mega attention kernel already quantized) and the CoW page copy the
+  unified step runs.
 
 The reference drops out-of-range scatters (``mode="drop"``); torch has no
 such mode. The port's pools therefore carry ONE spare page at index
@@ -120,13 +121,27 @@ def quantize_kv_rows(toks):
     return q, s
 
 
+def paged_write_packed_prequant_(pool, scales, q_toks, s_toks, dest):
+    """In-place scatter of rows ALREADY quantized (the mega attention
+    kernel quantizes them inline): int8 payloads ``q_toks [budget,
+    kv_heads, head_dim]`` and their scales ``s_toks [budget, kv_heads]``
+    into ONE layer's int8 pool and scale plane (spare page last)."""
+    pool[dest] = q_toks.to(pool.dtype)
+    scales[dest] = s_toks.to(scales.dtype)
+
+
 def paged_write_packed_quant_(pool, scales, toks, dest):
     """In-place quantize-on-write into ONE layer's int8 pool ``[num_pages +
     1, page_size, kv_heads, head_dim]`` and its fp32 scale plane
     ``[num_pages + 1, page_size, kv_heads]`` (spare page last)."""
-    q, s = quantize_kv_rows(toks)
-    pool[dest] = q
-    scales[dest] = s.to(scales.dtype)
+    paged_write_packed_prequant_(pool, scales, *quantize_kv_rows(toks), dest)
+
+
+def _with_spare(*planes):
+    """Copies of ``[num_pages, ...]`` arrays with a spare page appended, for
+    the functional forms: a write routed there is dropped."""
+    return [torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+            for t in planes]
 
 
 def paged_write_packed_quant(pages, scales, toks, page_table, tok_slot,
@@ -135,10 +150,20 @@ def paged_write_packed_quant(pages, scales, toks, page_table, tok_slot,
     page_size, kv_heads]`` scales (the reference's signature): returns
     ``(pages, scales)``, dropped writes dropped."""
     n = pages.shape[0]
-    ext = torch.cat([pages, pages.new_zeros((1,) + tuple(pages.shape[1:]))])
-    ext_s = torch.cat([scales,
-                       scales.new_zeros((1,) + tuple(scales.shape[1:]))])
+    ext, ext_s = _with_spare(pages, scales)
     paged_write_packed_quant_(ext, ext_s, toks, packed_dest(
+        page_table, tok_slot, tok_pos, page_size, n))
+    return ext[:n], ext_s[:n]
+
+
+def paged_write_packed_prequant(pages, scales, q_toks, s_toks, page_table,
+                                tok_slot, tok_pos, page_size):
+    """Functional form over ``[num_pages, ...]`` int8 pages and scales (the
+    reference's signature): returns ``(pages, scales)``, dropped writes
+    dropped."""
+    n = pages.shape[0]
+    ext, ext_s = _with_spare(pages, scales)
+    paged_write_packed_prequant_(ext, ext_s, q_toks, s_toks, packed_dest(
         page_table, tok_slot, tok_pos, page_size, n))
     return ext[:n], ext_s[:n]
 
@@ -148,7 +173,7 @@ def paged_write_packed(pages, toks, page_table, tok_slot, tok_pos,
     """Functional form over ``[num_pages, ...]`` pages (the reference's
     signature): returns the updated pool, dropped writes dropped."""
     n = pages.shape[0]
-    ext = torch.cat([pages, pages.new_zeros((1,) + tuple(pages.shape[1:]))])
+    (ext,) = _with_spare(pages)
     paged_write_packed_(ext, toks, packed_dest(page_table, tok_slot, tok_pos,
                                                page_size, n))
     return ext[:n]

@@ -26,10 +26,11 @@ prompts the port and the reference's synchronous engine
 tokens. Quantized serving follows the config: ``GPTConfig.weight_dtype``
 (``"int8"`` / ``"int4"``, with ``weight_quant_group_size``) quantizes the
 stacked weights after the cast to ``dtype``, and ``kv_cache_dtype="int8"``
-(or the config's) keeps the KV pools int8. Not ported here: the async
-dispatch-ahead engine (``async_engine=True`` raises), the legacy
+(or the config's) keeps the KV pools int8; ``mega_decode=True`` (or the
+config's) serves every round through the mega kernels. Not ported here:
+the async dispatch-ahead engine (``async_engine=True`` raises), the legacy
 two-program path, SLO shedding, deadlines and fault injection; config
-flags of speculation, the mega kernels and MoE raise.
+flags of speculation and MoE raise.
 """
 from __future__ import annotations
 
@@ -121,12 +122,14 @@ class ServingPredictor:
     ``dtype`` when given, moved to ``device`` (``None`` = ``cuda:0``) and
     then, when ``config.weight_dtype`` is set, quantized
     (``quantize_serving_params``). ``kv_cache_dtype`` (default: the
-    config's) ``"int8"`` stores the KV pools int8.
+    config's) ``"int8"`` stores the KV pools int8. ``mega_decode``
+    (default: the config's) runs every step's layers through the two mega
+    kernels (``ops/mega_decode.py``) instead of the per-op chain.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
                  dtype=None, chunk=None, kv_cache_dtype=None,
-                 async_engine=None, device=None):
+                 async_engine=None, device=None, mega_decode=None):
         from ..models.gpt import build_unified_step, serving_params
 
         gpt = model.gpt if hasattr(model, "gpt") else model
@@ -162,11 +165,13 @@ class ServingPredictor:
             num_pages = self.max_batch * pages_needed(self.max_seq_len,
                                                       page_size)
         self.chunk = int(chunk or CHUNK_DEFAULT)
-        # config flags of unported paths (speculation, mega kernels, MoE)
-        # raise here
+        self.mega_decode = bool(cfg.mega_decode if mega_decode is None
+                                else mega_decode)
+        # config flags of unported paths (speculation, MoE) and what the
+        # mega kernels cannot serve (int4 weights) raise here
         self._unified = build_unified_step(
             cfg, page_size, self.chunk, kv_quant=self.kv_quant,
-            spec_k=cfg.spec_decode_k, mega=cfg.mega_decode)
+            spec_k=cfg.spec_decode_k, mega=self.mega_decode)
         self.cache = KVCacheManager(
             cfg.num_layers, cfg.num_heads, cfg.head_dim,
             num_pages=num_pages, max_batch=self.max_batch,

@@ -14,7 +14,9 @@ Two halves, as in the reference:
   CUDA tensor), output projection, LN, MLP — then the greedy / sampling
   epilogue. Weight stacks quantized by ``inference.quantize`` (``{"q",
   "s"}`` leaves) run through the weight-only GEMM kernel, and
-  ``kv_quant=True`` keeps the KV pools int8 with fp32 scale planes.
+  ``kv_quant=True`` keeps the KV pools int8 with fp32 scale planes. With
+  ``mega=True`` a layer is two kernels instead (``ops/mega_decode.py``:
+  the attention side, the MLP side) and the K / V scatter between them.
 
 Linear weights keep the JAX layout ``[in, out]`` (``y = x @ W + b``), so
 weights cross from the reference without a transpose.
@@ -30,9 +32,11 @@ from .._device import resolve_device
 from ..incubate.nn import functional as FI
 from ..inference.kv_cache import (packed_dest, paged_copy_pages_,
                                   paged_write_packed_,
+                                  paged_write_packed_prequant_,
                                   paged_write_packed_quant_)
 from ..nn import functional as F
 from ..nn.functional.attention import _sdpa_ref
+from ..ops.mega_decode import mega_attn_layer, mega_mlp, validate_mega_config
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.quant_matmul import quant_matmul
 
@@ -40,9 +44,10 @@ from ..ops.quant_matmul import quant_matmul
 @dataclass
 class GPTConfig:
     """Same fields and defaults as the reference ``GPTConfig``. Fields for
-    paths not ported yet (TP, recompute, speculation, mega kernels, MoE)
-    raise where they would change behaviour; ``fused_mlp`` sends the
-    eager decoder block through the fused LN / GELU kernels;
+    paths not ported yet (TP, recompute, speculation, MoE) raise where
+    they would change behaviour; ``fused_mlp`` sends the eager decoder
+    block through the fused LN / GELU kernels; ``mega_decode`` serves
+    through the mega kernels;
     ``weight_dtype`` / ``weight_quant_group_size`` / ``kv_cache_dtype``
     configure quantized serving (``inference.serving``)."""
     vocab_size: int = 50304
@@ -468,11 +473,13 @@ class UnifiedStep:
     one step; ``trace_count`` counts builds of this step (one: PyTorch runs
     eagerly; CUDA-graph capture per geometry is a later slice)."""
 
-    def __init__(self, config, page_size, chunk, kv_quant=False):
+    def __init__(self, config, page_size, chunk, kv_quant=False,
+                 mega=False):
         self.config = config
         self.page_size = int(page_size)
         self.chunk = int(chunk)
         self.kv_quant = bool(kv_quant)
+        self.mega = bool(mega)
         self.trace_count = 1
 
     @torch.no_grad()
@@ -502,12 +509,9 @@ class UnifiedStep:
         pools = pools_and_tail[:n_pool]
         (page_table, cow_src, cow_dst, lane_seeds, temperature, top_k,
          top_p) = pools_and_tail[n_pool:]
-        k_pool, v_pool = pools[0], pools[1]
-        k_scales, v_scales = pools[2:] if self.kv_quant else (None, None)
         cfg, chunk, ps = self.config, self.chunk, self.page_size
-        eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
         t, b = tok_ids.shape[0], q_lens.shape[0]
-        num_pages = k_pool.shape[1] - 1
+        num_pages = pools[0].shape[1] - 1
         if cow_dst is not None:
             # scale planes are page-keyed: they ride the same copy lanes
             for pool in pools:
@@ -519,7 +523,6 @@ class UnifiedStep:
         pos_c = tok_pos.long().clamp(0, params["pos_emb"].shape[0] - 1)
         x = params["tok_emb"][tok_ids.long().clamp_min(0)] \
             + params["pos_emb"][pos_c]
-        ctx = (kv_lens + q_lens).to(torch.int32)
         # packed <-> [b, chunk] block plumbing shared by every layer: each
         # token's row in the flattened [(b + 1) * chunk] query block (block
         # b is the dump block for padding tokens) and its page slot
@@ -527,6 +530,36 @@ class UnifiedStep:
         q_rows = torch.where(valid, tok_slot.long(), b) * chunk + off_c
         a_rows = slot_c * chunk + off_c
         dest = packed_dest(page_table, tok_slot, tok_pos, ps, num_pages)
+        layers = self._mega_layers if self.mega else self._per_op_layers
+        x = layers(params, x, pools, page_table, q_lens, kv_lens, q_rows,
+                   a_rows, dest)
+        x = _srv_ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
+        h_last = x[last_idx.long().clamp(0, t - 1)]
+        logits = _srv_logits(params, h_last).float()
+        next_ids = logits.argmax(-1)
+        if sample is None:
+            sample = bool((temperature > 0).any())
+        if sample:
+            u = lane_uniform(lane_seeds, produced)
+            sampled = _sample_epilogue(logits, u, temperature, top_k, top_p)
+            next_ids = torch.where(temperature > 0, sampled, next_ids)
+        next_toks = torch.where(emit_mask > 0, next_ids.to(torch.int32),
+                                prev_toks)
+        return (next_toks, logits) + tuple(pools)
+
+    def _per_op_layers(self, params, x, pools, page_table, q_lens, kv_lens,
+                       q_rows, a_rows, dest):
+        """The decoder stack on the per-op path: per layer LN, QKV, the
+        packed K / V write, the ragged kernel over ``[b, chunk]`` query
+        blocks (contexts at ``kv_lens + q_lens``), output projection, LN
+        and MLP on the packed rows. Returns the packed rows."""
+        cfg, chunk = self.config, self.chunk
+        eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
+        b = q_lens.shape[0]
+        k_pool, v_pool = pools[0], pools[1]
+        k_scales, v_scales = pools[2:] if self.kv_quant else (None, None)
+        num_pages = k_pool.shape[1] - 1
+        ctx = (kv_lens + q_lens).to(torch.int32)
         lay = params["layers"]
         for i in range(cfg.num_layers):
             p = _layer_params(lay, i)
@@ -554,38 +587,71 @@ class UnifiedStep:
             else:
                 x = x + torch.addmm(p["bo"], a, p["wo"])
             x = x + _srv_mlp(p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps))
-        x = _srv_ln(x, params["lnf_g"], params["lnf_b"], eps)
-        h_last = x[last_idx.long().clamp(0, t - 1)]
-        logits = _srv_logits(params, h_last).float()
-        next_ids = logits.argmax(-1)
-        if sample is None:
-            sample = bool((temperature > 0).any())
-        if sample:
-            u = lane_uniform(lane_seeds, produced)
-            sampled = _sample_epilogue(logits, u, temperature, top_k, top_p)
-            next_ids = torch.where(temperature > 0, sampled, next_ids)
-        next_toks = torch.where(emit_mask > 0, next_ids.to(torch.int32),
-                                prev_toks)
-        return (next_toks, logits) + tuple(pools)
+        return x
+
+    def _mega_layers(self, params, x, pools, page_table, q_lens, kv_lens,
+                     q_rows, a_rows, dest):
+        """The decoder stack through the two mega kernels a layer: the
+        packed rows ``x [t, h]`` scatter once into ``[b, chunk, h]`` lane
+        blocks (padding rows into the dump block), each layer's attention
+        kernel reads the pool at ``kv_lens`` (this step's rows it attends
+        in-kernel) and emits the new K / V rows, which gather back to the
+        packed order and scatter into the pools; the MLP kernel runs on all
+        ``b * chunk`` rows with the residual. Returns the packed rows."""
+        cfg, chunk = self.config, self.chunk
+        nh, hd, h = cfg.num_heads, cfg.head_dim, x.shape[-1]
+        b = q_lens.shape[0]
+        num_pages = pools[0].shape[1] - 1
+        xb = x.new_zeros(((b + 1) * chunk, h))
+        xb[q_rows] = x
+        xb = xb[:b * chunk].view(b, chunk, h)
+        for i in range(cfg.num_layers):
+            p = _layer_params(params["layers"], i)
+            kv = [pool[i] for pool in pools]
+            scales = {}
+            if self.kv_quant:
+                scales = dict(k_scales=kv[2][:num_pages],
+                              v_scales=kv[3][:num_pages])
+            y2, s, k_new, v_new, *sc = mega_attn_layer(
+                xb, p, kv[0][:num_pages], kv[1][:num_pages], page_table,
+                kv_lens, q_lens, eps=cfg.layer_norm_eps, **scales)
+            for j, new in enumerate((k_new, v_new)):
+                rows = new.reshape(b * chunk, nh, hd)[a_rows]
+                if self.kv_quant:
+                    paged_write_packed_prequant_(
+                        kv[j], kv[j + 2], rows,
+                        sc[j].reshape(b * chunk, nh)[a_rows], dest)
+                else:
+                    paged_write_packed_(kv[j], rows, dest)
+            xb = mega_mlp(y2.reshape(b * chunk, h), s.reshape(b * chunk, h),
+                          p, chunk=chunk).view(b, chunk, h)
+        return xb.reshape(b * chunk, h)[a_rows]
 
 
 def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
                        kv_quant: bool = False, mesh=None, spec_k: int = 0,
                        mega: bool = False) -> UnifiedStep:
-    """The unified serving step on its per-op path: one device, no
-    speculation, no mega kernels (each raises, naming its slice).
-    ``kv_quant=True`` takes int8 pools with fp32 scale planes (quantize on
-    write); quantized weight leaves in the params run the weight-only GEMM.
-    The step runs the kernels when its tensors are on a CUDA device and
-    their plain versions when they are on the CPU."""
+    """The unified serving step on one device, without speculation (mesh
+    and ``spec_k`` raise, naming their slices). ``kv_quant=True`` takes int8
+    pools with fp32 scale planes (quantize on write); quantized weight
+    leaves in the params run the weight-only GEMM. ``mega=True`` runs each
+    layer through the two mega kernels instead (``ops/mega_decode.py``;
+    ``validate_mega_config`` rejects int4 weights and misaligned scale
+    groups here, at build time). The step runs the kernels when its tensors
+    are on a CUDA device and their plain versions when they are on the
+    CPU."""
     for flag, later in ((mesh is not None, "multi-GPU (tensor-parallel) "
                                            "serving"),
-                        (spec_k, "speculative decoding"),
-                        (mega, "mega-kernel serving")):
+                        (spec_k, "speculative decoding")):
         if flag:
             raise NotImplementedError(
                 f"build_unified_step: {later} is a later port slice")
     if config.moe_experts:
         raise NotImplementedError(
             "build_unified_step: GPTConfig.moe_experts is not ported yet")
-    return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant)
+    if mega:
+        validate_mega_config(config.weight_dtype,
+                             config.weight_quant_group_size, config.head_dim,
+                             moe_experts=config.moe_experts)
+    return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant,
+                       mega=mega)

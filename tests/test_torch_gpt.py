@@ -129,6 +129,11 @@ def test_unported_flags_raise():
         tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, moe_experts=2),
                             device="cpu")
     cfg = tgpt.GPTConfig(**TINY)
-    for kw in (dict(spec_k=2), dict(mega=True), dict(mesh=object())):
+    for kw in (dict(spec_k=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later port slice"):
             tgpt.build_unified_step(cfg, 8, 4, **kw)
+    # mega is ported; int4 weights are what it cannot serve, as in the
+    # reference
+    with pytest.raises(ValueError, match="int4"):
+        tgpt.build_unified_step(tgpt.GPTConfig(**TINY, weight_dtype="int4"),
+                                8, 4, mega=True)

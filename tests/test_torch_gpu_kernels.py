@@ -27,6 +27,14 @@ fused LayerNorm and GELU kernels sum rows in another order than the plain
 versions and use ``rsqrtf`` / ``tanhf``: fp32 outputs, and the fp32
 dgamma / dbeta / dbias sums in both types, held as the max abs error over
 the tensor's max ``|want|``, to ``1e-5``; bf16 outputs per row as above.
+The mega kernels keep every rounding of their plain versions and sum in
+another order (heads and ffn tiles in a fixed order, not cuBLAS's): fp32
+outputs held as the max abs error over the tensor's max ``|want|``, to
+``1e-5``, bf16 per row as above, on the rows each lane feeds; int8 K / V
+payloads may sit one step apart where the fp32 row sits on a rounding
+boundary, in under 1% of the entries, and their scales (absmax / 127 of
+those rows) are held like the outputs; where a payload differs, what
+attends it moves, and the fp32 outputs are then held to ``1e-3``.
 """
 import numpy as np
 import pytest
@@ -45,6 +53,8 @@ from paddle_tpu_torch.ops.fused_mlp import (
     MAX_H, fused_bias_gelu, fused_gelu, fused_layer_norm, fused_ln_residual,
     gelu_bwd, gelu_bwd_reference, gelu_fwd, gelu_fwd_reference, ln_bwd,
     ln_bwd_reference, ln_fwd, ln_fwd_reference)
+from paddle_tpu_torch.ops.mega_decode import (
+    mega_attn_layer, mega_attn_layer_reference, mega_mlp, mega_mlp_reference)
 from paddle_tpu_torch.ops.quant_matmul import (
     quant_matmul, quant_matmul_bwd, quant_matmul_dx_reference,
     quant_matmul_fwd, quant_matmul_reference)
@@ -436,3 +446,183 @@ def test_eager_gpt_gradients_fused_vs_unfused(cuda):
         assert got is not None and want is not None, name
         err = (got - want).abs().max() / want.abs().max()
         assert err.item() <= GRAD_TOL, (name, err.item())
+
+
+# fp32 outputs of the mega attention kernel where an int8 K / V payload
+# landed one step (1/127 of its row's absmax) from the plain version's
+MEGA_KV_TOL = 1e-3
+MEGA_GEOMS = {   # b, chunk, h, heads, head_dim, page, pages a lane, ffn
+    "serving": (8, 16, 768, 12, 64, 64, 16, 3072),
+    "odd": (5, 3, 256, 4, 64, 16, 6, 640),
+    "d128": (3, 40, 512, 4, 128, 32, 5, 1024),
+}
+
+
+def _mega_inputs(geom, weights, group, kv_quant, dtype, device, seed=0):
+    """One layer's lane blocks, weights and pools: lane 0 idle, lane 1 a
+    first chunk (ctx 0), lane 2 a full chunk, the rest decode rows or
+    ragged chunks over contexts that end mid-page."""
+    b, chunk, h, nh, d, ps, pps, f = MEGA_GEOMS[geom]
+    rng = np.random.RandomState(seed)
+    hq = nh * d
+    to = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(device, dt)
+    p = {"ln1_g": to(1 + 0.1 * rng.randn(h)), "ln1_b": to(0.1 * rng.randn(h)),
+         "ln2_g": to(1 + 0.1 * rng.randn(h)), "ln2_b": to(0.1 * rng.randn(h)),
+         "bqkv": to(0.1 * rng.randn(3 * hq)), "bo": to(0.1 * rng.randn(h)),
+         "b1": to(0.1 * rng.randn(f)), "b2": to(0.1 * rng.randn(h))}
+    for name, (k, n) in (("wqkv", (h, 3 * hq)), ("wo", (hq, h)),
+                         ("w1", (h, f)), ("w2", (f, h))):
+        w = to(rng.randn(k, n) / np.sqrt(k), torch.float32)
+        p[name] = (quantize_weight(w, "int8", group) if weights == "int8"
+                   else w.to(dtype))
+    num_pages = b * pps + 2
+    ctx = np.minimum(rng.randint(1, pps * ps - chunk, b), pps * ps - chunk)
+    ctx[:2] = 0
+    qlens = rng.randint(1, chunk + 1, b)
+    qlens[0], qlens[2] = 0, chunk
+    qlens[3:] = np.where(np.arange(3, b) % 2, 1, qlens[3:])
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps)
+    for i in range(b):
+        pt[i, (ctx[i] + qlens[i] + ps - 1) // ps:] = -1
+    kp, vp = (rng.randn(num_pages, ps, nh, d) for _ in range(2))
+    pools = dict(k_pages=to(kp), v_pages=to(vp))
+    if kv_quant:
+        (kq, ks), (vq, vs) = (quantize_kv_rows(to(t, torch.float32))
+                              for t in (kp, vp))
+        pools = dict(k_pages=kq, v_pages=vq, k_scales=ks, v_scales=vs)
+    ints = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.int32)).to(device)
+    return (to(rng.randn(b, chunk, h)), p, pools, ints(pt), ints(ctx),
+            ints(qlens))
+
+
+def _mega_close(got, want, dtype, q_lens, fp32_tol=QMM_FP32_TOL):
+    """Outputs on the rows each lane feeds: int8 payloads by steps (returns
+    how many differ), the rest by the module docstring's tolerances."""
+    g, w = _valid_rows(got, q_lens), _valid_rows(want, q_lens)
+    if got.dtype == torch.int8:
+        diff = (g.int() - w.int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).float().mean() < 0.01
+        return int((diff > 0).sum())
+    if dtype == torch.float32:
+        err = ((g - w).abs().max() / w.abs().max()).item()
+        assert err <= fp32_tol, err
+    else:
+        _assert_close(g.float(), w.float(), dtype)
+    return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", sorted(MEGA_GEOMS))
+@pytest.mark.parametrize("weights,group,kv_quant", [
+    ("fp", -1, False), ("int8", -1, False), ("int8", 64, True),
+    ("fp", -1, True)])
+def test_mega_attn_kernel_matches_plain(cuda, dtype, geom, weights, group,
+                                        kv_quant):
+    xb, p, pools, pt, ctx, q_lens = _mega_inputs(geom, weights, group,
+                                                 kv_quant, dtype, cuda)
+    for fuse in (True, False):
+        args = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
+        kw = dict(k_scales=pools.get("k_scales"),
+                  v_scales=pools.get("v_scales"), fuse_epilogue=fuse)
+        before = mega_attn_layer.launches
+        got = mega_attn_layer(*args, **kw)
+        torch.cuda.synchronize()
+        assert mega_attn_layer.launches == before + 1
+        want = mega_attn_layer_reference(*args, **kw)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+        # a payload one step apart moves what attends it: the fp32 outputs
+        # are held to 1e-5 when every payload agrees, else to MEGA_KV_TOL
+        n_out = 2 if fuse else 1
+        flips = sum(_mega_close(g, w, dtype, q_lens)
+                    for g, w in zip(got[n_out:], want[n_out:])
+                    if g.dtype == torch.int8)
+        for g, w in zip(got[:n_out] + got[n_out + 2:],
+                        want[:n_out] + want[n_out + 2:]):
+            _mega_close(g, w, dtype, q_lens,
+                        fp32_tol=MEGA_KV_TOL if flips else QMM_FP32_TOL)
+        assert torch.count_nonzero(got[0][0]) == 0     # the idle lane
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", ["odd", "d128"])
+def test_mega_attn_kernel_head_major(cuda, dtype, geom):
+    """wqkv's columns in the head-major ``[nh, 3, hd]`` order (the
+    tensor-parallel layout), int8 weights and KV, both epilogues."""
+    xb, p, pools, pt, ctx, q_lens = _mega_inputs(geom, "int8", 64, True,
+                                                 dtype, cuda, seed=5)
+    args = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
+    for fuse in (True, False):
+        kw = dict(k_scales=pools["k_scales"], v_scales=pools["v_scales"],
+                  head_major=True, fuse_epilogue=fuse)
+        got = mega_attn_layer(*args, **kw)
+        torch.cuda.synchronize()
+        want = mega_attn_layer_reference(*args, **kw)
+        n_out = 2 if fuse else 1
+        flips = sum(_mega_close(g, w, dtype, q_lens)
+                    for g, w in zip(got[n_out:n_out + 2],
+                                    want[n_out:n_out + 2]))
+        for g, w in zip(got[:n_out] + got[n_out + 2:],
+                        want[:n_out] + want[n_out + 2:]):
+            _mega_close(g, w, dtype, q_lens,
+                        fp32_tol=MEGA_KV_TOL if flips else QMM_FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 768, 3072, 128), (15, 200, 640, 40)])
+@pytest.mark.parametrize("weights", ["fp", "int8"])
+def test_mega_mlp_kernel_matches_plain(cuda, dtype, shape, weights):
+    t, h, f, group = shape
+    rng = np.random.RandomState(3)
+    to = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(cuda, dt)
+    p = {"b1": to(0.1 * rng.randn(f)), "b2": to(0.1 * rng.randn(h))}
+    for name, (k, n) in (("w1", (h, f)), ("w2", (f, h))):
+        w = to(rng.randn(k, n) / np.sqrt(k), torch.float32)
+        p[name] = (quantize_weight(w, "int8", group) if weights == "int8"
+                   else w.to(dtype))
+    y2, s_res = to(rng.randn(t, h)), to(rng.randn(t, h))
+    for fuse in (True, False):
+        before = mega_mlp.launches
+        got = mega_mlp(y2, s_res if fuse else None, p, fuse_epilogue=fuse)
+        torch.cuda.synchronize()
+        assert mega_mlp.launches == before + 1
+        want = mega_mlp_reference(y2, s_res, p, fuse_epilogue=fuse)
+        _mega_close(got[None], want[None], dtype,
+                    torch.full((1,), t, device=cuda))
+
+
+def test_mega_serving_launches_and_tokens(cuda):
+    """A two-layer model (head_dim 64) served with ``mega_decode=True``:
+    one launch of each mega kernel per layer and step, none of the ragged
+    kernel or the weight-only GEMM, and the per-op predictor's greedy
+    tokens (fp32)."""
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    model.eval()
+    rng = np.random.RandomState(11)
+    p0 = [int(x) for x in rng.randint(0, 97, 30)]
+    prompts = [p0, [int(x) for x in rng.randint(0, 97, 9)], list(p0),
+               p0[:20] + [1, 2, 3]]
+    kw = dict(max_batch=3, page_size=8, chunk=8, num_pages=10, device=cuda)
+    per_op = ServingPredictor(model, **kw).generate(prompts,
+                                                    max_new_tokens=12)
+    counts = (mega_attn_layer.launches, mega_mlp.launches,
+              ragged_paged_attention.launches,
+              dict(quant_matmul_fwd.launches))
+    sp = ServingPredictor(model, mega_decode=True, **kw)
+    got = sp.generate(prompts, max_new_tokens=12)
+    torch.cuda.synchronize()
+    assert got == per_op
+    n = sp.steps * cfg.num_layers
+    assert mega_attn_layer.launches - counts[0] == n > 0
+    assert mega_mlp.launches - counts[1] == n
+    assert ragged_paged_attention.launches == counts[2]
+    assert dict(quant_matmul_fwd.launches) == counts[3]

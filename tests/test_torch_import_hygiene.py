@@ -93,3 +93,16 @@ def test_fused_mlp_slice_modules_are_covered():
             "paddle_tpu_torch.incubate.nn",
             "paddle_tpu_torch.incubate.nn.functional"} <= walked
     assert (ROOT / "paddle_tpu_torch" / "csrc" / "fused_mlp.cu").is_file()
+
+
+def test_mega_slice_modules_are_covered():
+    """The walk above imports the mega-kernel serving slice's module too,
+    and its kernel source is in the package."""
+    code = ("import pkgutil, paddle_tpu_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "paddle_tpu_torch.ops.mega_decode" in set(res.stdout.split())
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "mega_decode.cu").is_file()

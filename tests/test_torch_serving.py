@@ -190,9 +190,14 @@ def test_unported_engines_raise():
     _, tm = _pair()
     with pytest.raises(NotImplementedError, match="async"):
         ServingPredictor(tm, async_engine=True, device="cpu")
-    for over, match in ((dict(spec_decode_k=2), "speculative"),
-                        (dict(mega_decode=True), "mega-kernel")):
-        model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, **over),
-                                    device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            ServingPredictor(model, device="cpu")
+    model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, spec_decode_k=2),
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="speculative"):
+        ServingPredictor(model, device="cpu")
+    # mega is ported; int4 weights are what it cannot serve, as in the
+    # reference
+    model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, mega_decode=True,
+                                               weight_dtype="int4"),
+                                device="cpu")
+    with pytest.raises(ValueError, match="int4"):
+        ServingPredictor(model, device="cpu")
