@@ -5,7 +5,7 @@
 from the root of a checkout. Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
-2. build: the six kernel sources from ``paddle_tpu_torch/csrc``
+2. build: the seven kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -88,6 +88,29 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    per-op twins (median of 5 runs each, in turns) and one profiled run of
    each.
 
+11. MoE serving (run after phase 10): the five grouped-GEMM kernels
+   (fp, int8 per channel, int8 and int4 in groups of 128; forward and dx)
+   vs their plain versions at (a) the serving rows (48 over 4 experts, one
+   empty; w1 768 x 3072, w2 3072 x 768), (b) the prefill rows (4,096,
+   skewed, one empty) and (c) an odd shape (5 experts, K 136, N 72, groups
+   of 8, an empty and a 1-row expert), fp32 and bf16, the empty experts'
+   weights NaN; kernel / plain / bound times at (a) and (b) with
+   ``torch._grouped_mm`` as the yardstick of bf16 fp weights; then
+   ``ServingPredictor`` on GPT-125M with 4 experts, top-2, and the phase-6
+   requests in fp32: (i) capacity factor 4.0 against the full-forward
+   oracle, (ii) 1.25 against the same step with the plain grouped GEMM
+   (router flips of one step counted), (iii) int8 and (iv) int4 g128
+   weights at 4.0 against the full forward over the dequantized weights;
+   24 grouped-GEMM and 12 ragged launches a step (and 24 weight-only GEMM
+   launches with (iii) / (iv)), none of the mega kernels; the router's
+   load imbalance and drop rate on an eager probe; the bf16 MoE step
+   beside phase 6's dense step, one profiled run, and the weight bytes;
+   the eager 2-layer MoE model's gradients, kernel vs plain (4 dx
+   launches), and an input gradient through int8 expert stacks; last, the
+   attention routing: a 2-layer gpt3-760m-width model (head_dim 96) and
+   an fp16 GPT-125M forward equal to the plain path's logits with no flash
+   launch, and one d 96 ``gpt_spmd`` training step.
+
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
 
@@ -99,6 +122,8 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import inspect
 import json
 import re
@@ -199,6 +224,24 @@ MEGA_SERVE = (("i fp", {}, None),
               ("iii int8 g128 + int8 KV",
                dict(weight_dtype="int8", weight_quant_group_size=128,
                     kv_cache_dtype="int8"), 2e-2))
+# phase 11. MoE serving: GPT-125M with 4 experts, top-2 (the reference's
+# bench_serving_moe_ab). The grouped GEMM is the weight-only GEMM per
+# expert (the same tiles, dequantization and split sums): held as QMM_TOL.
+MOE = dict(moe_experts=4, moe_top_k=2)
+GMM_TOL = QMM_TOL
+GMM_SHAPES = {"w1": (768, 3072), "w2": (3072, 768)}   # an expert's [K, N]
+GMM_ROWS = [30, 0, 11, 7]          # (a) 24 tokens x top-2, one expert empty
+GMM_PREFILL = [2400, 0, 900, 796]  # (b) 2 x 4 x 512 rows, skewed
+GMM_ODD = (136, 72, [5, 0, 1, 9, 3], 8)   # (c) K, N, rows, scale group
+GMM_WEIGHTS = (("fp", None, -1), ("int8", "int8", -1),
+               ("int8 g128", "int8", 128), ("int4 g128", "int4", 128))
+# (label, capacity factor, quantization): cf 4.0 drops nothing, so the
+# full forward is an exact oracle; 1.25 is the reference's production
+# setting, held against the same step with the plain grouped GEMM
+MOE_SERVE = (("i cf 4.0", 4.0, {}), ("ii cf 1.25", 1.25, {}),
+             ("iii int8 cf 4.0", 4.0, dict(weight_dtype="int8")),
+             ("iv int4 g128 cf 4.0", 4.0,
+              dict(weight_dtype="int4", weight_quant_group_size=128)))
 QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
                ("b int4 g128", dict(weight_dtype="int4",
                                     weight_quant_group_size=128), 1e-4),
@@ -429,8 +472,11 @@ def reset_counts():
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
                                                    quant_matmul_fwd)
 
-    from paddle_tpu_torch.ops import fused_mlp, mega_decode
+    from paddle_tpu_torch.ops import fused_mlp, grouped_matmul, mega_decode
 
+    grouped_matmul.grouped_matmul_fwd.launches = {"fp": 0, "int8": 0,
+                                                  "int4": 0}
+    grouped_matmul.grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
     mega_decode.mega_attn_layer.launches = 0
     mega_decode.mega_mlp.launches = 0
     flash_attention_fwd.launches = 0
@@ -1361,6 +1407,7 @@ def profile_serve(sp, early, late, card, tag):
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
               "weight-only GEMM": ("qmm_kernel",),
+              "grouped GEMM": ("gmm_kernel",),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
     times = {name: 0.0 for name in groups}
     times["other PyTorch kernels"] = 0.0
@@ -1484,6 +1531,544 @@ def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
                                 mega_decode=mega), early, late,
                 card, f"[mega] ({label}, {'mega' if mega else 'per-op'})")
     return total
+
+
+# -- phase 11 ---------------------------------------------------------------
+
+
+def gmm_counts() -> dict:
+    """Grouped-GEMM launches since :func:`reset_counts`, by kernel."""
+    from paddle_tpu_torch.ops.grouped_matmul import (grouped_matmul_bwd,
+                                                     grouped_matmul_fwd)
+
+    out = dict(grouped_matmul_fwd.launches)
+    out.update({f"{k}_bwd": v for k, v in grouped_matmul_bwd.launches.items()})
+    return out
+
+
+@contextlib.contextmanager
+def moe_twins():
+    """Every grouped GEMM the MoE FFN runs takes its plain version (on the
+    card) while the block is open: the same step or model built from the
+    twins, for the comparisons; their launches are not counted."""
+    from paddle_tpu_torch.models import moe
+
+    kernel_mm = moe._grouped_mm
+    moe._grouped_mm = lambda xs, w, offs, use_kernel: kernel_mm(
+        xs, w, offs, False)
+    try:
+        yield
+    finally:
+        moe._grouped_mm = kernel_mm
+
+
+@contextlib.contextmanager
+def record_routes():
+    """The router's expert choices ``idx [N, k]`` of every MoE layer run
+    while the block is open, in order."""
+    from paddle_tpu_torch.models import moe
+
+    route, seen = moe.route_topk, []
+
+    def recording(logits, top_k):
+        out = route(logits, top_k)
+        seen.append(out[1])
+        return out
+
+    moe.route_topk = recording
+    try:
+        yield seen
+    finally:
+        moe.route_topk = route
+
+
+def gmm_case(counts, k, n, weights, gs, dtype, dev, seed):
+    """Seeded x [M, K], dy [M, N], an expert stack (N(0, 0.05), cast to
+    ``dtype`` first, quantized per expert) whose EMPTY experts hold NaN
+    weights (fp) or NaN scales, its scales or None, and the offsets."""
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+
+    rng = np.random.RandomState(seed)
+    m, e = sum(counts), len(counts)
+    x, dy = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(
+        dev, dtype) for sh in ((m, k), (m, n)))
+    w = torch.from_numpy(0.05 * rng.standard_normal((e, k, n)).astype(
+        np.float32)).to(dev, dtype)
+    empty = [i for i, c in enumerate(counts) if c == 0]
+    scales = None
+    if weights is None:
+        w[empty] = float("nan")
+    else:
+        qw = quantize_weight(w, weights, gs)
+        w, scales = qw["q"], qw["s"]
+        scales[empty] = float("nan")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=dev)
+    return x, dy, w, scales, offs
+
+
+def gmm_work(counts, k, n, bits, groups, elt):
+    """(bytes, ops) of one grouped GEMM, forward or dx (the same traffic):
+    the activations read and the output written once in their type, the
+    weights (and fp32 scales) of the NON-EMPTY experts read once, the
+    offsets; 2 M K N operations."""
+    m, live = sum(counts), sum(1 for c in counts if c)
+    wbytes = k * n * (elt if bits == 0 else bits / 8) + 4 * groups * n
+    nbytes = (m * k + m * n) * elt + live * wbytes + 4 * (len(counts) + 1)
+    return nbytes, 2.0 * m * k * n
+
+
+def grouped_mm_ms(a, b, offs, want):
+    """``torch._grouped_mm`` on the same values (bf16, ``b`` as given or in
+    column-major layout), timed and never used: (ms, None), or (None, why)
+    where the card's torch refuses both layouts or disagrees with
+    ``want``."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "this torch has no torch._grouped_mm"
+    ends = offs[1:].contiguous()
+    why = None
+    for mat in (b.contiguous(),
+                b.transpose(-2, -1).contiguous().transpose(-2, -1)):
+        try:
+            got = fn(a, mat, offs=ends)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            why = str(e).splitlines()[0][:120]
+            continue
+        err = kernel_error(got, want, torch.bfloat16)[1]
+        if not err <= GMM_TOL[torch.bfloat16]:
+            return None, f"torch._grouped_mm disagrees ({err:.3e})"
+        return time_ms(lambda: fn(a, mat, offs=ends)), None
+    return None, why
+
+
+def phase_gmm(dev, card):
+    """The five grouped-GEMM kernels vs their plain versions at the three
+    shapes; per (kernel, dtype, shape set) the summed times of w1 and w2
+    (one MoE layer's two GEMMs) at (a) the serving and (b) the prefill
+    rows."""
+    from paddle_tpu_torch.ops.grouped_matmul import (
+        grouped_matmul_bwd, grouped_matmul_dx_reference, grouped_matmul_fwd,
+        grouped_matmul_reference)
+
+    stats, notes = {}, {}
+    for label, wd, gs in GMM_WEIGHTS:
+        bits = int(wd[3:]) if wd else 0
+        fwd_name = {0: "gmm", 8: "gmm_q", 4: "gmm_q4"}[bits]
+        bwd_name = {0: "gmm_bwd", 8: "gmm_q_bwd"}.get(bits)
+        for dtype in (torch.float32, torch.bfloat16):
+            k_odd, n_odd, c_odd, g_odd = GMM_ODD
+            cases = [(c, *GMM_SHAPES[name], name, rows, gs)
+                     for rows, c in (("a", GMM_ROWS), ("b", GMM_PREFILL))
+                     for name in GMM_SHAPES]
+            cases.append((c_odd, k_odd, n_odd, "odd", "c",
+                          g_odd if gs > 0 else -1))
+            for ci, (counts, k, n, name, rows, g) in enumerate(cases):
+                x, dy, w, sc, offs = gmm_case(counts, k, n, wd, g, dtype,
+                                              dev, SEED + ci)
+                pairs = [(grouped_matmul_fwd(x, w, offs, sc),
+                          grouped_matmul_reference(x, w, offs, sc))]
+                if bwd_name:
+                    pairs.append((
+                        grouped_matmul_bwd(dy, w, offs, sc, k, dtype),
+                        grouped_matmul_dx_reference(dy, w, offs, sc, k,
+                                                    dtype)))
+                torch.cuda.synchronize()
+                held, errs = [], []
+                for got, want in pairs:
+                    err, h = kernel_error(got, want, dtype)
+                    if dtype == torch.float32:
+                        h = err / want.abs().max().item()
+                    if not bool(torch.isfinite(got).all()):
+                        h = float("inf")   # an empty expert's NaN was read
+                    held.append(h)
+                    errs.append(err)
+                tag = (f"[moe] {fwd_name} {label} {str(dtype)[6:]} {name} "
+                       f"({rows}) M {sum(counts)} {counts} x [{k}, {n}] g{g}")
+                if not max(held) <= GMM_TOL[dtype]:
+                    raise AssertionError(f"{tag}: held errors {held} > "
+                                         f"{GMM_TOL[dtype]}")
+                if rows == "c":
+                    log(f"{tag}: held fwd / dx {held} (tol "
+                        f"{GMM_TOL[dtype]}); NaN weights of the empty expert"
+                        " absent from the output")
+                    continue
+                nbytes, nops = gmm_work(counts, k, n, bits,
+                                        1 if sc is None else sc.shape[1],
+                                        x.element_size())
+                it = 50 if rows == "a" else 10
+                t = {fwd_name: dict(
+                    ms=time_ms(lambda: grouped_matmul_fwd(x, w, offs, sc),
+                               iters=it),
+                    plain_ms=time_ms(lambda: grouped_matmul_reference(
+                        x, w, offs, sc), iters=10),
+                    max_abs_err=errs[0])}
+                lib, why = (grouped_mm_ms(x, w, offs, pairs[0][1])
+                            if bits == 0 and dtype == torch.bfloat16
+                            else (None, "no PyTorch call takes this type"
+                                  if bits == 0 else "no PyTorch call takes "
+                                  "quantized expert stacks"))
+                t[fwd_name]["library_ms"] = lib
+                notes[(fwd_name, dtype)] = why
+                if bwd_name:
+                    wt = w.transpose(1, 2)
+                    lib, why = (grouped_mm_ms(dy, wt, offs, pairs[1][1])
+                                if bits == 0 and dtype == torch.bfloat16
+                                else (None, notes[(fwd_name, dtype)]))
+                    t[bwd_name] = dict(
+                        ms=time_ms(lambda: grouped_matmul_bwd(
+                            dy, w, offs, sc, k, dtype), iters=it),
+                        plain_ms=time_ms(lambda: grouped_matmul_dx_reference(
+                            dy, w, offs, sc, k, dtype), iters=10),
+                        max_abs_err=errs[1], library_ms=lib)
+                    notes[(bwd_name, dtype)] = why
+                for kname, st in t.items():
+                    key = (kname, label, dtype, rows)
+                    tot = stats.setdefault(key, dict(
+                        ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+                        work=[0.0, 0.0]))
+                    for f in ("ms", "plain_ms", "library_ms"):
+                        tot[f] = (None if tot[f] is None or st[f] is None
+                                  else tot[f] + st[f])
+                    tot["max_abs_err"] = max(tot["max_abs_err"],
+                                             st["max_abs_err"])
+                    tot["work"] = [tot["work"][0] + nbytes,
+                                   tot["work"][1] + nops]
+                    log(f"[moe] {kname} {label} {str(dtype)[6:]} {name} "
+                        f"({rows}) M {sum(counts)} x [{k}, {n}]: held "
+                        f"{held[0 if kname == fwd_name else 1]:.3e}; kernel "
+                        f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f}, "
+                        f"bound {bound_ms(nbytes, nops, dtype):.6f} "
+                        f"({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP), "
+                        "library (torch._grouped_mm) " + (
+                            f"{st['library_ms']:.4f}"
+                            if st["library_ms"] is not None else
+                            f"null ({notes[(kname, dtype)]})"))
+    for key, tot in stats.items():
+        nbytes, nops = tot.pop("work")
+        dtype = key[2]
+        tot["bound_ms"] = bound_ms(nbytes, nops, dtype)
+        tot["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                           >= nops / PEAK_OPS[dtype] else "operations")
+        tot["library_note"] = notes[(key[0], dtype)]
+        log(f"[moe] {key[0]} {key[1]} {str(dtype)[6:]} ({key[3]}: w1 + w2, "
+            f"{'serving' if key[3] == 'a' else 'prefill'} rows): kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, bound "
+            f"{tot['bound_ms']:.6f} ({tot['bound_by']}: {nbytes / 1e6:.2f} MB"
+            f", {nops / 1e9:.3f} GFLOP), library "
+            + (f"{tot['library_ms']:.4f}" if tot["library_ms"] is not None
+               else f"null ({tot['library_note']})") + f" ({card})")
+    return stats
+
+
+def moe_model(cfg, dev, dtype=torch.float32):
+    """``cfg``'s model on the card with numpy-seeded weights, in eval."""
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev,
+                                 dtype=dtype)
+    model.eval()
+    return model
+
+
+def dequantized_clone(model, weight_dtype, group_size):
+    """The reference's ``_dequantized_clone``: a copy of ``model`` whose
+    stacks the serving conversion quantizes (qkv and output projections,
+    the expert stacks) hold their quantize -> dequantize image, so its
+    full forward computes what the quantized step computes."""
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+    from paddle_tpu_torch.ops.grouped_matmul import dequantize_grouped_weight
+    from paddle_tpu_torch.ops.quant_matmul import dequantize_weight
+
+    clone = copy.deepcopy(model)
+    with torch.no_grad():
+        for layer in clone.gpt.layers:
+            for p in (layer.attn.qkv_proj.weight, layer.attn.out_proj.weight):
+                qw = quantize_weight(p, weight_dtype, group_size)
+                p.copy_(dequantize_weight(qw["q"], qw["s"], k=p.shape[0]))
+            for p in (layer.mlp.w1, layer.mlp.w2):
+                qw = quantize_weight(p, weight_dtype, group_size)
+                p.copy_(dequantize_grouped_weight(qw["q"], qw["s"],
+                                                  k=p.shape[1]))
+    return clone
+
+
+class RouterFlips:
+    """Stands in for a predictor's unified step. At call ``at`` it runs the
+    step once more with the plain grouped GEMMs on copies of the pools
+    first, and counts the router choices (valid token, choice, layer) in
+    which the kernel run and the twin run differ."""
+
+    def __init__(self, sp, at):
+        self.sp, self.step, self.at, self.calls = sp, sp._unified, at, 0
+        self.flips = self.choices = None
+        sp._unified = self
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        if self.calls != self.at:
+            return self.step(*args, **kw)
+        from paddle_tpu_torch.ops import paged_attention
+
+        n_pool = 4 if self.sp.kv_quant else 2
+        twin_args = list(args)
+        twin_args[11:11 + n_pool] = [p.clone() for p in args[11:11 + n_pool]]
+        ragged = paged_attention.ragged_paged_attention
+        before = ragged.launches
+        with record_routes() as twin, moe_twins():
+            self.step(*twin_args, **kw)
+        ragged.launches = before       # the comparison's launches
+        with record_routes() as kern:
+            out = self.step(*args, **kw)
+        valid = (args[2] >= 0)[:, None]
+        self.flips = sum(int(((a != b) & valid).sum()) for a, b in
+                         zip(kern, twin))
+        self.choices = int(valid.sum()) * kern[0].shape[1] * len(kern)
+        return out
+
+
+def phase_moe_serve(cfg, dev, card, dense_step_ms):
+    """``ServingPredictor`` on GPT-125M with 4 experts, top-2, the phase-6
+    requests in fp32: (i) cf 4.0 against the full-forward oracle, (ii) cf
+    1.25 against the same step built from the plain grouped GEMM (router
+    flips of one step counted), (iii) int8 and (iv) int4 g128 weights (the
+    expert stacks and the qkv / output projections) at cf 4.0 against the
+    full forward over the dequantized weights; launches a step; the router
+    stats of one eager probe; then bf16 step times beside phase 6's dense
+    step, one profiled run, and the weight bytes. Returns the served runs'
+    grouped-GEMM launches by weight type."""
+    from paddle_tpu_torch.inference.quantize import serving_weight_bytes
+    from paddle_tpu_torch.models.gpt import serving_params
+
+    early, late = requests(cfg)
+    model = moe_model(cfg, dev)
+    mcfg = model.config
+    launches = {"fp": 0, "int8": 0, "int4": 0}
+    for label, cf, quant in MOE_SERVE:
+        mcfg.moe_capacity_factor = cf
+        sp = quant_predictor(model, mcfg, quant, dev)
+        served_logits = StepLogits(sp)
+        flips = RouterFlips(sp, at=20) if label.startswith("ii ") else None
+        reset_counts()
+        t0 = time.perf_counter()
+        reqs = serve(sp, early, late)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ragged_n, qmm, gmm = read_counts()[1], qmm_counts(), gmm_counts()
+        mega_n = sum(mega_counts())
+        steps = sp.steps
+        bits = quant.get("weight_dtype", "fp")
+        outs = [list(r.output_ids) for r in reqs]
+        log(f"[moe] serve ({label}) fp32: {steps} steps, grouped-GEMM "
+            f"launches {gmm}, ragged {ragged_n}, weight-only GEMM {qmm}, mega"
+            f" {mega_n}, {wall:.3f} s wall")
+        per_step = 2 * cfg.num_layers
+        want_qmm = per_step * steps if quant else 0
+        if not (steps and gmm[bits] == per_step * steps
+                and sum(gmm.values()) == gmm[bits]
+                and ragged_n == steps * cfg.num_layers and mega_n == 0
+                and sum(qmm.values()) == want_qmm
+                and (not quant or qmm[bits] == want_qmm)):
+            raise AssertionError(f"({label}) launches: grouped {gmm}, ragged "
+                                 f"{ragged_n}, GEMM {qmm}, mega {mega_n} "
+                                 f"over {steps} steps")
+        launches[bits] += gmm[bits]
+        if flips is not None:
+            with moe_twins():
+                want = [list(r.output_ids) for r in serve(
+                    quant_predictor(model, mcfg, quant, dev), early, late)]
+            same = sum(a == b for o, w in zip(outs, want)
+                       for a, b in zip(o, w))
+            log(f"[moe] serve ({label}) fp32: equal to the streams of the "
+                f"step built from the plain grouped GEMM in {same} of "
+                f"{sum(map(len, want))} tokens; router choices of step "
+                f"{flips.at}, kernel vs plain: {flips.flips} flips in "
+                f"{flips.choices}")
+            if outs != want:
+                raise AssertionError(f"({label}) kernel streams differ from "
+                                     "the plain grouped GEMM's")
+            continue
+        oracle = (dequantized_clone(model, quant["weight_dtype"],
+                                    quant.get("weight_quant_group_size", -1))
+                  if quant else model)
+        ties, logit_err = check_against_oracle(oracle, reqs,
+                                               served_logits.rows, dev)
+        log(f"[moe] serve ({label}) fp32: greedy streams match the full "
+            f"forward{' over the dequantized weights' if quant else ''} "
+            f"({sum(map(len, outs))} tokens, {ties} near ties), logits "
+            f"max_abs_err {logit_err:.3e} (tol {LOGIT_TOL}); "
+            f"{len({t for o in outs for t in o})} distinct tokens")
+        del oracle
+    # the router's stats on one eager probe (request 0's prompt)
+    ids = torch.tensor([early[0]], device=dev)
+    for cf in (4.0, 1.25):
+        mcfg.moe_capacity_factor = cf
+        with torch.no_grad():
+            model(ids)
+        st = [layer.mlp.router_stats for layer in model.gpt.layers]
+        log(f"[moe] router stats, eager probe on {ids.shape[1]} tokens at cf "
+            f"{cf}: load imbalance (largest expert share x E) per layer "
+            f"{[round(float(s['load'].max()) * 4, 3) for s in st]}, drop "
+            f"rate per layer {[round(float(s['drop_rate']), 4) for s in st]}")
+    # bf16 at cf 1.25: the MoE step beside phase 6's dense step, one
+    # profiled run, and the weight bytes per configuration
+    walls = []
+    for run in range(1 + BF16_RUNS):
+        sp16 = quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
+        torch.cuda.synchronize()
+        if run:
+            walls.append(time.perf_counter() - t0)
+        if sum(map(len, outs16)) != MAX_NEW * len(outs16):
+            raise AssertionError("bf16 MoE serving: malformed streams")
+    wall = sorted(walls)[len(walls) // 2]
+    log(f"[moe] serve (cf 1.25) bf16: {sp16.steps} steps per run; median of "
+        f"{BF16_RUNS} runs {wall:.3f} s, mean step "
+        f"{1e3 * wall / sp16.steps:.3f} ms beside the dense GPT-125M bf16 "
+        f"step of phase 6, {dense_step_ms:.3f} ms (runs: "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
+    profile_serve(quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16),
+                  early, late, card, "[moe] (cf 1.25)")
+    sizes = {"fp32": serving_weight_bytes(serving_params(model)),
+             "bf16": serving_weight_bytes(sp16.params)}
+    del sp16
+    for name, quant in (("int8", dict(weight_dtype="int8")),
+                        ("int4 g128", dict(weight_dtype="int4",
+                                           weight_quant_group_size=128))):
+        sizes[name] = serving_weight_bytes(quant_predictor(
+            model, mcfg, quant, dev).params)
+    log("[moe] serving_weight_bytes: " + ", ".join(
+        f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items())
+        + f" ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        "parameters)")
+    return launches
+
+
+def phase_moe_grads(cfg, dev):
+    """``loss.backward()`` through a 2-layer GPT-125M-width MoE model in
+    fp32, the grouped-GEMM kernels against the plain versions for every
+    gradient leaf (4 backward launches: two GEMMs a layer); then the input
+    gradient through the two layers' MoE FFNs with int8 expert stacks
+    (``ptt_gmm_q_bwd``). Returns (fp, int8) backward launches."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+    from paddle_tpu_torch.models.moe import moe_ffn
+
+    mcfg = replace(cfg, num_layers=2)
+    model = moe_model(mcfg, dev)
+    model.train()
+    ids = torch.from_numpy(np.random.RandomState(SEED + 4).randint(
+        0, cfg.vocab_size, (2, 129))).to(dev)
+    grads, counts = {}, None
+    for kernel in (True, False):
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            if not kernel:
+                stack.enter_context(moe_twins())
+            loss = _lm_loss(model, ids)
+            loss.backward()
+        torch.cuda.synchronize()
+        if kernel:
+            counts = gmm_counts()
+        grads[kernel] = {n: p.grad for n, p in model.named_parameters()}
+    errs = _grad_errors(grads[True], grads[False])
+    worst = max(errs, key=errs.get)
+    log(f"[moe] eager 2-layer GPT-125M-width MoE, ids [2, 128], fp32: "
+        f"grouped-GEMM launches {counts}; kernel vs plain gradients: "
+        f"{len(errs)} leaves, none None, worst {worst} {errs[worst]:.3e} of "
+        f"its max |grad| (tol {GRAD_TOL}); expert w1 of layer 0 "
+        f"{errs['gpt.layers.0.mlp.w1']:.3e}")
+    if counts["fp_bwd"] != 4 or counts["fp"] != 4 or not errs[worst] <= \
+            GRAD_TOL:
+        raise AssertionError(f"MoE eager gradients: launches {counts}, "
+                             f"worst error {errs[worst]}")
+    layers = [layer.mlp for layer in model.gpt.layers]
+    quant = [(quantize_weight(m.w1.detach(), "int8"),
+              quantize_weight(m.w2.detach(), "int8")) for m in layers]
+    x0 = model.gpt.embeddings(ids[:, :-1]).detach().reshape(
+        -1, cfg.hidden_size)
+    r = torch.from_numpy(np.random.RandomState(SEED + 5).standard_normal(
+        x0.shape).astype(np.float32)).to(dev)
+    dx = {}
+    for use_kernel in (None, False):
+        x = x0.clone().requires_grad_()
+        y = x
+        reset_counts()
+        for m, (q1, q2) in zip(layers, quant):
+            out, _ = moe_ffn(torch.nn.functional.layer_norm(y, y.shape[-1:]),
+                             m.gate_weight.detach(), q1, m.b1.detach(), q2,
+                             m.b2.detach(), top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             use_kernel=use_kernel)
+            y = y + out
+        (y * r).sum().backward()
+        torch.cuda.synchronize()
+        if use_kernel is None:
+            counts = gmm_counts()
+        dx[use_kernel] = x.grad
+    err = ((dx[None] - dx[False]).abs().max()
+           / dx[False].abs().max()).item()
+    log(f"[moe] input gradient through 2 layers of int8 expert stacks "
+        f"({list(x0.shape)}, fp32): kernel vs plain {err:.3e} of its max "
+        f"|grad| (tol {GRAD_TOL}); launches {counts}")
+    if counts["int8_bwd"] != 4 or counts["int8"] != 4 or not err <= GRAD_TOL:
+        raise AssertionError(f"int8 MoE input gradient: launches {counts}, "
+                             f"error {err}")
+    return 4, counts["int8_bwd"]
+
+
+def phase_attention_routing(dev):
+    """The repaired routing on the card: attention the flash kernels are
+    not built for runs plain ``_sdpa_ref`` instead of raising — an eager
+    2-layer model at gpt3-760m's width (16 heads of 96) and an fp16
+    GPT-125M forward, each equal to the plain path's logits, with no flash
+    launch; one d 96 ``gpt_spmd`` training step."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+
+    ids = torch.from_numpy(np.random.RandomState(SEED + 6).randint(
+        0, 50304, (2, 256))).to(dev)
+    for label, cfg, dtype in (
+            ("gpt3-760m width, 2 layers (d 96), fp32",
+             replace(GPT_CONFIGS["gpt3-760m"], num_layers=2), torch.float32),
+            ("GPT-125M fp16", GPT_CONFIGS["gpt3-125m"], torch.float16)):
+        cfg = replace(cfg)
+        model = moe_model(cfg, dev, dtype)
+        with torch.no_grad():
+            reset_counts()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            flash_n = read_counts()[0]
+            cfg.use_flash_attention = False
+            plain = model(ids)
+        same = bool(torch.equal(logits, plain))
+        log(f"[moe] routing: {label} eager forward on ids [2, 256]: logits "
+            f"{tuple(logits.shape)} {logits.dtype}, finite "
+            f"{bool(torch.isfinite(logits).all())}, equal to the plain "
+            f"path's {same}, flash launches {flash_n}")
+        if flash_n or not same or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"routing ({label}): flash {flash_n}, "
+                                 f"equal {same}")
+        del model
+    cfg = replace(GPT_CONFIGS["gpt3-760m"], num_layers=2)
+    step, params, mom, (sid, labels) = gpt_spmd.build_spmd_train_step(
+        cfg, batch_size=2, seq_len=256, num_micro=1, lr=1e-3, device=dev)
+    reset_counts()
+    params, mom, loss = step(params, mom, sid, labels)
+    torch.cuda.synchronize()
+    log(f"[moe] routing: gpt_spmd step at gpt3-760m width (d 96), 2 layers, "
+        f"b 2, s 256, fp32: loss {loss.item():.6f}, flash launches fwd/bwd "
+        f"{read_counts()[0]}/{bwd_count()}")
+    if not np.isfinite(loss.item()) or read_counts()[0] or bwd_count():
+        raise AssertionError("d 96 training step did not run plain attention")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -2124,6 +2709,8 @@ def main() -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from dataclasses import replace
+
     from paddle_tpu_torch.models.convert import random_state, state_from_jax_numpy
     from paddle_tpu_torch.models.gpt import GPT_CONFIGS
     from paddle_tpu_torch.ops import _build
@@ -2149,8 +2736,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "quant_matmul",
-                          "fused_mlp", "mega_decode"])
-    log(f"[build] six kernel sources for sm_90a in "
+                          "fused_mlp", "mega_decode", "grouped_matmul"])
+    log(f"[build] seven kernel sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -2188,6 +2775,15 @@ def main() -> int:
     mega = phase_mega_kernels(dev, card)
     mega_launches = phase_mega_serve(model, cfg, dev, card, fp_outs,
                                      quant_streams)
+
+    # 11. MoE serving (GPT-125M, 4 experts, top-2), its kernels and its
+    # gradients; the attention routing of what the flash kernels do not take
+    gmm = phase_gmm(dev, card)
+    moe_cfg = replace(cfg, **MOE)
+    gmm_launches = phase_moe_serve(moe_cfg, dev, card, fp16_step_ms)
+    gmm_bwd_launches = phase_moe_grads(replace(moe_cfg,
+                                               moe_capacity_factor=1.25), dev)
+    phase_attention_routing(dev)
 
     # 7. training: the backward kernel, then the training path; 9. the
     # fused-MLP kernels and their paths, each beside its phase-7 twin
@@ -2246,7 +2842,18 @@ def main() -> int:
                f"paddle_tpu/ops/pallas/mega_decode.py:{line}",
                mega_launches[i], mega[(None, False, torch.float32)][part])
               for i, (part, line) in enumerate((("attn", 224),
-                                                ("mlp", 677))))):
+                                                ("mlp", 677)))),
+            *((f"grouped_matmul_{name}",
+               "paddle_tpu_torch/csrc/grouped_matmul.cu",
+               f"paddle_tpu/ops/pallas/grouped_matmul.py:{line}", n,
+               gmm[(kname, label, bf16, "a")])
+              for name, kname, label, line, n in (
+                  ("fp", "gmm", "fp", 192, gmm_launches["fp"]),
+                  ("int8", "gmm_q", "int8", 210, gmm_launches["int8"]),
+                  ("int4", "gmm_q4", "int4 g128", 226, gmm_launches["int4"]),
+                  ("fp_bwd", "gmm_bwd", "fp", 251, gmm_bwd_launches[0]),
+                  ("int8_bwd", "gmm_q_bwd", "int8", 268,
+                   gmm_bwd_launches[1])))):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -2277,6 +2884,29 @@ def main() -> int:
             f"{fp32['per_op_layer_ms']:.4f} ms, bf16 {b16['layer_ms']:.4f} vs"
             f" {b16['per_op_layer_ms']:.4f} ms; launches: phase 10's three "
             "fp32 served runs")
+    for row, (kname, label) in zip(kernels[-5:], (
+            ("gmm", "fp"), ("gmm_q", "int8"), ("gmm_q4", "int4 g128"),
+            ("gmm_bwd", "fp"), ("gmm_q_bwd", "int8"))):
+        f32, pre = (gmm[(kname, label, t, r)] for t, r in
+                    ((torch.float32, "a"), (bf16, "b")))
+        extra = ""
+        if kname == "gmm_q":
+            g = gmm[(kname, "int8 g128", bf16, "a")]
+            extra = (f"; int8 g128: ms {g['ms']:.4f}, bound_ms "
+                     f"{g['bound_ms']:.6f}")
+        row["note"] = (
+            f"bf16, w1 + w2 at the serving rows {GMM_ROWS}; fp32: ms "
+            f"{f32['ms']:.4f}, plain_ms {f32['plain_ms']:.4f}, bound_ms "
+            f"{f32['bound_ms']:.6f}; bf16 prefill rows {GMM_PREFILL}: ms "
+            f"{pre['ms']:.4f}, plain_ms {pre['plain_ms']:.4f}, bound_ms "
+            f"{pre['bound_ms']:.6f} ({pre['bound_by']}), library_ms "
+            + (f"{pre['library_ms']:.4f}" if pre["library_ms"] is not None
+               else "null") + extra + "; library: torch._grouped_mm"
+            + ("" if row["library_ms"] is not None else
+               f" null ({gmm[(kname, label, bf16, 'a')]['library_note']})")
+            + ("; launches: phase 11's fp32 served runs"
+               if "bwd" not in kname
+               else "; launches: phase 11's gradient drives"))
     kernels[0]["note"] = (
         "int8-KV branch checked too: max_abs_err "
         f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "
@@ -2292,7 +2922,9 @@ def main() -> int:
         f"{QMM_ROWS}, launches in phase 8's fp32 serving runs (forward) and "
         "gradient drives (backward); fused_mlp_* in bf16 at the flagship "
         "shapes, launches in phase 9's bf16 flagship run; flash launches "
-        "count both flagship runs)")
+        "count both flagship runs; grouped_matmul_* in bf16, the sum of "
+        "one MoE layer's two GEMMs at the serving rows, launches in phase "
+        "11's fp32 served runs and gradient drives)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: fp32 / bf16 element access, a
 // batched 16-byte tile loader (fp32, bf16 or int8 rows, the last scaled per
-// row) and the host-side shared-memory cap.
+// row), the weight-only GEMMs' 16-element weight chunk and dequantization,
+// and the host-side shared-memory cap.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +40,56 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// A quantized weight element q * s rounded to the activation type T, as the
+// reference's kernels widen both to x.dtype and multiply there (bf16: both
+// widen exactly, the product of two 8-bit significands is exact in fp32,
+// then one rounding).
+template <typename T>
+__device__ __forceinline__ float deq(int q, float s);
+template <>
+__device__ __forceinline__ float deq<float>(int q, float s) {
+  return (float)q * s;
+}
+template <>
+__device__ __forceinline__ float deq<__nv_bfloat16>(int q, float s) {
+  const float sb = __bfloat162float(__float2bfloat16(s));
+  return __bfloat162float(__float2bfloat16((float)q * sb));
+}
+
+// 16 consecutive elements of one weight row (W: int8, bf16 or fp32) held in
+// sizeof(W) 16-byte registers.
+template <typename W>
+struct Row16 {
+  uint4 v[sizeof(W)];
+  __device__ __forceinline__ W operator[](int i) const {
+    return reinterpret_cast<const W*>(v)[i];
+  }
+};
+
+// Loads row[col, col + 16) into c; elements at or past n, or all of them
+// when !ok, read as zero bits. vec: the row's 16-byte vectors are aligned
+// and each lies wholly inside or outside n (n * sizeof(W) % 16 == 0).
+template <typename W>
+__device__ __forceinline__ void load_row16(Row16<W>& c, const W* row,
+                                           int col, int n, bool ok,
+                                           bool vec) {
+  constexpr int kPer = 16 / sizeof(W);  // elements per 16-byte vector
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(W); ++i)
+      c.v[i] = (ok && col + i * kPer < n)
+                   ? __ldg(reinterpret_cast<const uint4*>(row + col) + i)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(W); ++i) c.v[i] = make_uint4(0u, 0u, 0u, 0u);
+  W* e = reinterpret_cast<W*>(c.v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (ok && col + i < n) e[i] = __ldg(row + col + i);
 }
 
 // one 16-byte vector: 4 fp32 or 8 bf16 values

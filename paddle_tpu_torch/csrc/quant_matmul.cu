@@ -43,6 +43,9 @@
 
 namespace {
 
+using ptt::deq;
+using ptt::load_row16;
+using ptt::Row16;
 using ptt::store;
 using ptt::to_f;
 
@@ -63,20 +66,6 @@ struct Args {
   int* counters;       // one arrival count per output tile, zero on entry
   int M, K, N, gs, splits, per, vec;
 };
-
-// q * s rounded to the activation type (bf16: both widen exactly, the
-// product of two 8-bit significands is exact in fp32, one rounding)
-template <typename T>
-__device__ __forceinline__ float deq(int q, float s);
-template <>
-__device__ __forceinline__ float deq<float>(int q, float s) {
-  return (float)q * s;
-}
-template <>
-__device__ __forceinline__ float deq<__nv_bfloat16>(int q, float s) {
-  const float sb = __bfloat162float(__float2bfloat16(s));
-  return __bfloat162float(__float2bfloat16((float)q * sb));
-}
 
 template <typename T, bool kInt4, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
@@ -104,7 +93,7 @@ qmm_kernel(const Args p) {
   // compute is done
   const bool w_loader = tid < RW * 4;
   const int li = tid / 4, lc = (tid % 4) * 16;  // stored row, column segment
-  uint4 raw;
+  Row16<int8_t> raw;
   float sc[NS][16];
   float av[8];
 
@@ -114,20 +103,7 @@ qmm_kernel(const Args p) {
     if (w_loader) {
       const int row = wr0 + li, col = wc0 + lc;
       const bool row_ok = row < KW;
-      if (p.vec) {
-        raw = (row_ok && col < N)
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        p.w + (long)row * N + col))
-                  : make_uint4(0u, 0u, 0u, 0u);
-      } else {
-        alignas(16) uint8_t b[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          b[e] = (row_ok && col + e < N)
-                     ? (uint8_t)__ldg(p.w + (long)row * N + col + e)
-                     : (uint8_t)0;
-        raw = *reinterpret_cast<const uint4*>(b);
-      }
+      load_row16(raw, p.w + (long)row * N, col, N, row_ok, p.vec);
 #pragma unroll
       for (int h = 0; h < NS; ++h) {
         const long g = (long)((h * KW + row) / p.gs) * N;
@@ -159,17 +135,16 @@ qmm_kernel(const Args p) {
 
   auto store_stage = [&]() {
     if (w_loader) {
-      const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int c = lc + e;
         float v[NS];
         if constexpr (kInt4) {
-          const int byte = (int)(uint8_t)q[e];
+          const int byte = (int)(uint8_t)raw[e];
           v[0] = deq<T>(((byte & 0xF) ^ 8) - 8, sc[0][e]);
           v[NS - 1] = deq<T>((((byte >> 4) & 0xF) ^ 8) - 8, sc[NS - 1][e]);
         } else {
-          v[0] = deq<T>((int)q[e], sc[0][e]);
+          v[0] = deq<T>((int)raw[e], sc[0][e]);
         }
 #pragma unroll
         for (int h = 0; h < NS; ++h) {

@@ -4,15 +4,18 @@
 ``models.gpt.serving_params`` into their weight-only quantized form: each
 per-layer matmul stack ``[L, K, N]`` (``wqkv``, ``wo``, ``w1``, ``w2`` —
 what a decode step reads every token batch) becomes ``{"q": int8 [L, K, N]
-| packed int4 [L, K/2, N], "s": fp32 [L, G, N]}``; biases, LayerNorm
-affines, the embeddings and the LM head stay as they are. The unified step
-sends those leaves to the weight-only GEMM (``ops/quant_matmul.py``).
+| packed int4 [L, K/2, N], "s": fp32 [L, G, N]}``, and each MoE expert
+stack ``[L, E, K, N]`` (``moe_w1``, ``moe_w2``) quantizes per expert into
+``{"q": [L, E, K | K/2, N], "s": [L, E, G, N]}``; biases, LayerNorm
+affines, the router, the embeddings and the LM head stay as they are. The
+unified step sends those leaves to the weight-only GEMM
+(``ops/quant_matmul.py``) and the ragged grouped GEMM
+(``ops/grouped_matmul.py``).
 
 The scales go through the weight's dtype before fp32, as the reference's
 do (``nn.quant`` returns them in ``w.dtype``): a bf16 model serves
 bf16-rounded scales, while ``q`` was rounded against the unrounded ones.
-Not ported: MoE expert stacks (raise) and ``assert_quant_shardable``
-(tensor-parallel serving).
+Not ported: ``assert_quant_shardable`` (tensor-parallel serving).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from ..nn.quant import _qmax, _weight_quantize_fn
 
 #: the per-layer stacks that quantize (the decode-bound matmul weights)
 QUANT_LAYER_KEYS = ("wqkv", "wo", "w1", "w2")
-#: the MoE expert stacks (quantized by the MoE slice, not here)
+#: the MoE expert stacks ([L, E, K, N]: quantize per expert; the ragged
+#: grouped GEMM takes {"q": [E, K, N], "s": [E, G, N]} slices)
 MOE_QUANT_LAYER_KEYS = ("moe_w1", "moe_w2")
 
 
@@ -35,9 +39,10 @@ def _algo(weight_dtype: str) -> str:
 
 def quantize_weight(w, weight_dtype="int8", group_size=-1):
     """Quantize a ``[..., K, N]`` weight (leading dims batch: a ``[L, K,
-    N]`` layer stack quantizes in one pass, where the reference
-    ``jax.vmap``s its quantizer over L): ``{"q": int8 [..., K, N] | packed
-    [..., K/2, N], "s": fp32 [..., G, N]}`` (per channel: ``G = 1``)."""
+    N]`` layer stack or an ``[L, E, K, N]`` expert stack quantizes in one
+    pass, where the reference ``jax.vmap``s its quantizer over L and E):
+    ``{"q": int8 [..., K, N] | packed [..., K/2, N], "s": fp32 [..., G,
+    N]}`` (per channel: ``G = 1``)."""
     q, s = _weight_quantize_fn(w, _qmax(_algo(weight_dtype)),
                                weight_dtype == "int4", group_size)
     if s.dim() == w.dim() - 1:                     # per channel: [..., N]
@@ -51,18 +56,14 @@ def quantize_serving_params(params, weight_dtype="int8", group_size=-1,
 
     ``config``: an object whose ``_name_cfg`` mapping (the reference's
     ``QuantConfig.add_name_config`` entries) RESTRICTS which stacks of
-    :data:`QUANT_LAYER_KEYS` quantize; None quantizes all four. A config
-    naming none of them raises. Returns a new dict: fp leaves are shared,
+    :data:`QUANT_LAYER_KEYS` and :data:`MOE_QUANT_LAYER_KEYS` quantize;
+    None quantizes every one present. A config naming none of them
+    raises. Returns a new dict: fp leaves are shared,
     quantized stacks are new tensors on the stacks' device.
     """
     _algo(weight_dtype)  # validate early
     present = set(params["layers"])
-    moe = sorted(set(MOE_QUANT_LAYER_KEYS) & present)
-    if moe:
-        raise NotImplementedError(
-            f"quantizing the MoE expert stacks {moe} is ported with the MoE "
-            "slice")
-    keys = set(QUANT_LAYER_KEYS) & present
+    keys = (set(QUANT_LAYER_KEYS) | set(MOE_QUANT_LAYER_KEYS)) & present
     if config is not None:
         named = set(getattr(config, "_name_cfg", {}))
         keys = named & keys

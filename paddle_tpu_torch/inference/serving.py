@@ -27,10 +27,12 @@ tokens. Quantized serving follows the config: ``GPTConfig.weight_dtype``
 (``"int8"`` / ``"int4"``, with ``weight_quant_group_size``) quantizes the
 stacked weights after the cast to ``dtype``, and ``kv_cache_dtype="int8"``
 (or the config's) keeps the KV pools int8; ``mega_decode=True`` (or the
-config's) serves every round through the mega kernels. Not ported here:
-the async dispatch-ahead engine (``async_engine=True`` raises), the legacy
-two-program path, SLO shedding, deadlines and fault injection; config
-flags of speculation and MoE raise.
+config's) serves every round through the mega kernels. MoE configs
+(``moe_experts``) serve on the per-op unified step, their expert stacks
+quantized per expert with the weights. Not ported here: the async
+dispatch-ahead engine (``async_engine=True`` raises), the legacy
+two-program path (``unified=False`` raises), SLO shedding, deadlines and
+fault injection; speculation config flags raise.
 """
 from __future__ import annotations
 
@@ -124,12 +126,15 @@ class ServingPredictor:
     (``quantize_serving_params``). ``kv_cache_dtype`` (default: the
     config's) ``"int8"`` stores the KV pools int8. ``mega_decode``
     (default: the config's) runs every step's layers through the two mega
-    kernels (``ops/mega_decode.py``) instead of the per-op chain.
+    kernels (``ops/mega_decode.py``) instead of the per-op chain; MoE
+    configs cannot take it (``ValueError``, as in the reference).
+    ``unified=False`` (the reference's legacy two-program path) raises.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
                  dtype=None, chunk=None, kv_cache_dtype=None,
-                 async_engine=None, device=None, mega_decode=None):
+                 async_engine=None, device=None, mega_decode=None,
+                 unified=None):
         from ..models.gpt import build_unified_step, serving_params
 
         gpt = model.gpt if hasattr(model, "gpt") else model
@@ -138,6 +143,15 @@ class ServingPredictor:
             raise NotImplementedError(
                 "the async dispatch-ahead engine is a later port slice; "
                 "async_engine=None/False runs the synchronous engine")
+        if unified is False:
+            if cfg.moe_experts:
+                raise ValueError(
+                    "the legacy two-program path has no MoE FFN path — "
+                    "serve moe_experts > 0 through the unified step "
+                    "(unified=None)")
+            raise NotImplementedError(
+                "the legacy two-program path (unified=False) is a later "
+                "port slice; unified=None runs the unified step")
         self.device = resolve_device(device)
         self.metrics = MetricsRegistry()
         self._init_instruments()
@@ -167,8 +181,8 @@ class ServingPredictor:
         self.chunk = int(chunk or CHUNK_DEFAULT)
         self.mega_decode = bool(cfg.mega_decode if mega_decode is None
                                 else mega_decode)
-        # config flags of unported paths (speculation, MoE) and what the
-        # mega kernels cannot serve (int4 weights) raise here
+        # config flags of unported paths (speculation) and what the mega
+        # kernels cannot serve (MoE, int4 weights) raise here
         self._unified = build_unified_step(
             cfg, page_size, self.chunk, kv_quant=self.kv_quant,
             spec_k=cfg.spec_decode_k, mega=self.mega_decode)

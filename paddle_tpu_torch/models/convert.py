@@ -7,7 +7,8 @@ The port's module tree uses the same names and the same ``[in, out]``
 linear layout, so loading is a key-for-key copy: no transpose anywhere.
 
 Serving params cross as the reference's serving pytree in numpy, fp or
-weight-only quantized, bit for bit (:func:`serving_params_from_jax_numpy`).
+weight-only quantized, dense or with MoE expert stacks ``[L, E, ...]``, bit
+for bit (:func:`serving_params_from_jax_numpy`).
 
 Training params (``models/gpt_spmd.py``) cross as the reference's
 ``gpt_spmd.init_params`` pytree in numpy: the same keys, with the stage
@@ -51,10 +52,12 @@ def state_from_jax_numpy(named: dict, config: GPTConfig, *, device=None,
 
 def random_state(config: GPTConfig, seed: int = 0) -> dict:
     """Seeded numpy weights under the reference's names and init scheme:
-    N(0, initializer_range) embeddings and weight matrices, zero biases,
-    unit LN scales — what both packages load in tests and on the card."""
+    N(0, initializer_range) embeddings, weight matrices, router weights and
+    expert stacks, zero biases, unit LN scales — what both packages load
+    in tests and on the card."""
     rng = np.random.default_rng(seed)
     h, f, v = config.hidden_size, config.ffn_size, config.vocab_size
+    e = config.moe_experts
     std = config.initializer_range
 
     def normal(*shape):
@@ -74,11 +77,22 @@ def random_state(config: GPTConfig, seed: int = 0) -> dict:
             p + "attn.out_proj.bias": np.zeros(h, np.float32),
             p + "ln_2.weight": np.ones(h, np.float32),
             p + "ln_2.bias": np.zeros(h, np.float32),
-            p + "mlp.fc1.weight": normal(h, f),
-            p + "mlp.fc1.bias": np.zeros(f, np.float32),
-            p + "mlp.fc2.weight": normal(f, h),
-            p + "mlp.fc2.bias": np.zeros(h, np.float32),
         })
+        if e:
+            out.update({
+                p + "mlp.gate_weight": normal(h, e),
+                p + "mlp.w1": normal(e, h, f),
+                p + "mlp.b1": np.zeros((e, f), np.float32),
+                p + "mlp.w2": normal(e, f, h),
+                p + "mlp.b2": np.zeros((e, h), np.float32),
+            })
+        else:
+            out.update({
+                p + "mlp.fc1.weight": normal(h, f),
+                p + "mlp.fc1.bias": np.zeros(f, np.float32),
+                p + "mlp.fc2.weight": normal(f, h),
+                p + "mlp.fc2.bias": np.zeros(h, np.float32),
+            })
     out["gpt.ln_f.weight"] = np.ones(h, np.float32)
     out["gpt.ln_f.bias"] = np.zeros(h, np.float32)
     if not config.tie_word_embeddings:
@@ -100,8 +114,9 @@ def serving_params_from_jax_numpy(tree: dict, *, device=None) -> dict:
     """The port's serving params on ``device`` from the reference's serving
     pytree (``models.gpt.serving_params``, optionally quantized by
     ``inference.quantize``) with numpy leaves: the same keys and layouts,
-    every leaf bit for bit in its own dtype (quantized stacks keep their
-    ``{"q", "s"}`` form)."""
+    every leaf bit for bit in its own dtype (quantized stacks, dense
+    ``[L, K, N]`` or expert ``[L, E, K, N]``, keep their ``{"q", "s"}``
+    form)."""
     dev = resolve_device(device)
 
     def leaf(a):

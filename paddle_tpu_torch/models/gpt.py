@@ -11,9 +11,11 @@ Two halves, as in the reference:
   on a leading ``[L]`` dim, and :func:`build_unified_step` builds the ONE
   serving step over a packed token budget — per layer LN, QKV, packed
   paged KV write, ragged paged attention (the hand-written kernel on a
-  CUDA tensor), output projection, LN, MLP — then the greedy / sampling
-  epilogue. Weight stacks quantized by ``inference.quantize`` (``{"q",
-  "s"}`` leaves) run through the weight-only GEMM kernel, and
+  CUDA tensor), output projection, LN, MLP (with ``moe_experts``, the
+  routed expert FFN of ``models/moe.py`` through the ragged grouped GEMM)
+  — then the greedy / sampling epilogue. Weight stacks quantized by
+  ``inference.quantize`` (``{"q", "s"}`` leaves) run through the
+  weight-only GEMM kernel (expert stacks through the grouped GEMM), and
   ``kv_quant=True`` keeps the KV pools int8 with fp32 scale planes. With
   ``mega=True`` a layer is two kernels instead (``ops/mega_decode.py``:
   the attention side, the MLP side) and the K / V scatter between them.
@@ -39,15 +41,17 @@ from ..nn.functional.attention import _sdpa_ref
 from ..ops.mega_decode import mega_attn_layer, mega_mlp, validate_mega_config
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.quant_matmul import quant_matmul
+from .moe import GPTMoE, moe_ffn
 
 
 @dataclass
 class GPTConfig:
     """Same fields and defaults as the reference ``GPTConfig``. Fields for
-    paths not ported yet (TP, recompute, speculation, MoE) raise where
-    they would change behaviour; ``fused_mlp`` sends the eager decoder
-    block through the fused LN / GELU kernels; ``mega_decode`` serves
-    through the mega kernels;
+    paths not ported yet (TP, recompute, speculation) raise where they
+    would change behaviour; ``fused_mlp`` sends the eager decoder block
+    through the fused LN / GELU kernels; ``mega_decode`` serves through
+    the mega kernels; ``moe_experts`` replaces every block's MLP with a
+    top-``moe_top_k`` routed expert FFN (``models/moe.py``);
     ``weight_dtype`` / ``weight_quant_group_size`` / ``kv_cache_dtype``
     configure quantized serving (``inference.serving``)."""
     vocab_size: int = 50304
@@ -121,8 +125,7 @@ def _plain_sdpa(q, k, v, attn_mask=None, is_causal=False, dropout_p=0.0,
 
 
 def _check_forward_config(cfg: GPTConfig) -> None:
-    for field, later in (("moe_experts", "the MoE slice"),
-                         ("tensor_parallel", "the multi-GPU slice"),
+    for field, later in (("tensor_parallel", "the multi-GPU slice"),
                          ("recompute", "the eager model's recompute; "
                                        "models.gpt_spmd's is ported")):
         if getattr(cfg, field):
@@ -246,7 +249,8 @@ class GPTDecoderLayer(nn.Module):
         self.ln_1 = LayerNorm(config.hidden_size, config.layer_norm_eps, **kw)
         self.attn = GPTAttention(config, **kw)
         self.ln_2 = LayerNorm(config.hidden_size, config.layer_norm_eps, **kw)
-        self.mlp = GPTMLP(config, **kw)
+        self.mlp = (GPTMoE(config, **kw) if config.moe_experts
+                    else GPTMLP(config, **kw))
 
     def forward(self, x, attn_mask=None):
         if _fused_mlp_on(self.config):
@@ -290,8 +294,9 @@ class GPTForCausalLM(nn.Module):
     """GPTModel + LM head (weight-tied by default).
 
     Built on ``device`` (``None`` = ``cuda:0``, raising without a card)
-    with N(0, initializer_range) weight matrices and embeddings drawn from
-    a ``torch.Generator`` seeded with ``seed``; biases zero, LN scales one.
+    with N(0, initializer_range) weight matrices, router weights, expert
+    stacks and embeddings drawn from a ``torch.Generator`` seeded with
+    ``seed``; biases zero, LN scales one.
     """
 
     def __init__(self, config: GPTConfig, *, device=None,
@@ -307,7 +312,9 @@ class GPTForCausalLM(nn.Module):
         gen = torch.Generator(device=device).manual_seed(int(seed))
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.endswith(".weight") and ("ln_" not in name):
+                leaf = name.rsplit(".", 1)[-1]
+                if ((leaf == "weight" and "ln_" not in name)
+                        or (".mlp." in name and leaf in GPTMoE.MATRICES)):
                     p.normal_(0.0, config.initializer_range, generator=gen)
 
     def _logits(self, hidden):
@@ -337,6 +344,24 @@ _SRV_LAYER_WEIGHTS = (
     ("w2", lambda l: l.mlp.fc2.weight), ("b2", lambda l: l.mlp.fc2.bias),
 )
 
+# MoE blocks swap the dense-MLP rows for the stacked expert tree (the [E,
+# ...] stacks gain the leading [L] dim like the dense keys)
+_SRV_MOE_WEIGHTS = (
+    ("moe_gate", lambda l: l.mlp.gate_weight),
+    ("moe_w1", lambda l: l.mlp.w1), ("moe_b1", lambda l: l.mlp.b1),
+    ("moe_w2", lambda l: l.mlp.w2), ("moe_b2", lambda l: l.mlp.b2),
+)
+_DENSE_MLP_KEYS = ("w1", "b1", "w2", "b2")
+
+
+def _srv_layer_weight_table(config):
+    """The per-layer serving weights of ``config``: the dense table, or
+    with ``moe_experts`` its attention rows and the expert stacks."""
+    if config.moe_experts:
+        return tuple(kv for kv in _SRV_LAYER_WEIGHTS
+                     if kv[0] not in _DENSE_MLP_KEYS) + _SRV_MOE_WEIGHTS
+    return _SRV_LAYER_WEIGHTS
+
 
 @torch.no_grad()
 def serving_params(model) -> dict:
@@ -351,7 +376,7 @@ def serving_params(model) -> dict:
     if getattr(model, "lm_head", None) is not None:
         params["lm_head"] = model.lm_head.weight.detach()
     params["layers"] = {k: torch.stack([get(l).detach() for l in gpt.layers])
-                        for k, get in _SRV_LAYER_WEIGHTS}
+                        for k, get in _srv_layer_weight_table(gpt.config)}
     return params
 
 
@@ -391,6 +416,26 @@ def _srv_mlp(p, y):
     hidden = torch.nn.functional.gelu(_srv_affine(y, p["w1"], p["b1"]),
                                       approximate="tanh")
     return _srv_affine(hidden, p["w2"], p["b2"])
+
+
+def _srv_moe(config, p, y, valid=None):
+    """The serving MoE FFN: the same :func:`models.moe.moe_ffn` the eager
+    model runs, over the packed token rows. ``valid`` (``tok_slot >= 0``
+    in the unified step) keeps padding rows out of the capacity race: they
+    route nowhere and output zero."""
+    out, _aux = moe_ffn(
+        y, p["moe_gate"], p["moe_w1"], p["moe_b1"], p["moe_w2"],
+        p["moe_b2"], top_k=config.moe_top_k,
+        capacity_factor=config.moe_capacity_factor, valid=valid)
+    return out
+
+
+def _srv_ffn(config, p, y, valid=None):
+    """The block FFN of the serving step: the dense MLP, or the routed
+    experts with ``moe_experts``."""
+    if config.moe_experts:
+        return _srv_moe(config, p, y, valid=valid)
+    return _srv_mlp(p, y)
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -530,9 +575,12 @@ class UnifiedStep:
         q_rows = torch.where(valid, tok_slot.long(), b) * chunk + off_c
         a_rows = slot_c * chunk + off_c
         dest = packed_dest(page_table, tok_slot, tok_pos, ps, num_pages)
-        layers = self._mega_layers if self.mega else self._per_op_layers
-        x = layers(params, x, pools, page_table, q_lens, kv_lens, q_rows,
-                   a_rows, dest)
+        if self.mega:
+            x = self._mega_layers(params, x, pools, page_table, q_lens,
+                                  kv_lens, q_rows, a_rows, dest)
+        else:
+            x = self._per_op_layers(params, x, pools, page_table, q_lens,
+                                    kv_lens, q_rows, a_rows, dest, valid)
         x = _srv_ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
         h_last = x[last_idx.long().clamp(0, t - 1)]
         logits = _srv_logits(params, h_last).float()
@@ -548,11 +596,13 @@ class UnifiedStep:
         return (next_toks, logits) + tuple(pools)
 
     def _per_op_layers(self, params, x, pools, page_table, q_lens, kv_lens,
-                       q_rows, a_rows, dest):
+                       q_rows, a_rows, dest, valid=None):
         """The decoder stack on the per-op path: per layer LN, QKV, the
         packed K / V write, the ragged kernel over ``[b, chunk]`` query
         blocks (contexts at ``kv_lens + q_lens``), output projection, LN
-        and MLP on the packed rows. Returns the packed rows."""
+        and MLP (or the routed experts, where padding rows ``~valid`` take
+        no capacity slot; ``None``: every row is a token) on the packed
+        rows. Returns the packed rows."""
         cfg, chunk = self.config, self.chunk
         eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
         b = q_lens.shape[0]
@@ -586,7 +636,8 @@ class UnifiedStep:
                 x = x + _srv_mm(a, p["wo"]) + p["bo"]
             else:
                 x = x + torch.addmm(p["bo"], a, p["wo"])
-            x = x + _srv_mlp(p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps))
+            x = x + _srv_ffn(cfg, p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps),
+                             valid=valid)
         return x
 
     def _mega_layers(self, params, x, pools, page_table, q_lens, kv_lens,
@@ -636,19 +687,17 @@ def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
     pools with fp32 scale planes (quantize on write); quantized weight
     leaves in the params run the weight-only GEMM. ``mega=True`` runs each
     layer through the two mega kernels instead (``ops/mega_decode.py``;
-    ``validate_mega_config`` rejects int4 weights and misaligned scale
-    groups here, at build time). The step runs the kernels when its tensors
-    are on a CUDA device and their plain versions when they are on the
-    CPU."""
+    ``validate_mega_config`` rejects MoE, int4 weights and misaligned
+    scale groups here, at build time). With ``moe_experts`` each layer's
+    FFN is the routed expert FFN (``_srv_moe``). The step runs the
+    kernels when its tensors are on a CUDA device and their plain versions
+    when they are on the CPU."""
     for flag, later in ((mesh is not None, "multi-GPU (tensor-parallel) "
                                            "serving"),
                         (spec_k, "speculative decoding")):
         if flag:
             raise NotImplementedError(
                 f"build_unified_step: {later} is a later port slice")
-    if config.moe_experts:
-        raise NotImplementedError(
-            "build_unified_step: GPTConfig.moe_experts is not ported yet")
     if mega:
         validate_mega_config(config.weight_dtype,
                              config.weight_quant_group_size, config.head_dim,

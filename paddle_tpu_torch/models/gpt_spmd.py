@@ -15,12 +15,14 @@ its one-device case (dp = pp = mp = 1), in eager PyTorch:
 - :func:`_block` is the dense, mp = 1 decoder block. Attention takes the
   flash custom op (``ops/flash_attention.py``: the hand-written forward
   and backward kernels on a CUDA tensor) when ``use_flash_attention`` is
-  set on CUDA or ``force_flash`` on the CPU, and plain causal softmax
-  attention otherwise. With ``fused_mlp`` (on CUDA; ``force_fused_mlp`` on
-  the CPU, where the plain versions run) LN1 is the fused LayerNorm op and
-  the MLP half :func:`_block_mlp_fused`: the residual add and LN2 in one
-  op, fc1's bias and GELU in another (``ops/fused_mlp.py``, the
-  hand-written LN and GELU kernels, forward and backward).
+  set on CUDA and the kernels take the call (``kernel_takes``: head_dim 64
+  or 128, fp32 or bf16), or ``force_flash`` on the CPU, and plain causal
+  softmax attention otherwise. With ``fused_mlp`` (on CUDA;
+  ``force_fused_mlp`` on the CPU, where the plain versions run) LN1 is the
+  fused LayerNorm op and the MLP half :func:`_block_mlp_fused`: the
+  residual add and LN2 in one op, fc1's bias and GELU in another
+  (``ops/fused_mlp.py``, the hand-written LN and GELU kernels, forward and
+  backward).
 - ``config.recompute`` maps onto non-reentrant ``torch.utils.checkpoint``
   per layer with a selective policy that keeps what the reference's
   ``checkpoint_dots_with_no_batch_dims`` keeps (the outputs of the weight
@@ -51,7 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import resolve_device
 from ..observability import default_registry
 from ..ops import fused_mlp as _fm
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, kernel_takes
 from .gpt import GPTConfig
 
 STAGE_KEYS = ("ln1_g", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_g",
@@ -105,7 +107,8 @@ def _check_train_config(config: GPTConfig, mesh=None, zero_stage=0,
             ("zero_stage", zero_stage, "the multi-GPU slice (ZeRO)"),
             ("comm_quant", comm_quant,
              "the multi-GPU slice (quantized gradient sync)"),
-            ("moe_experts", config.moe_experts, "the MoE slice"),
+            ("moe_experts", config.moe_experts,
+             "MoE training, a later slice: the einsum block and ep"),
             # the unfused LN is many aten ops: no op-level policy can name
             # its output, as the reference's "ln_out" tag does
             ("remat_save_ln", config.recompute and config.remat_save_ln
@@ -165,6 +168,9 @@ def _layer_norm(x, g, b, eps):
 
 
 def _use_flash(config: GPTConfig, device: torch.device) -> bool:
+    """Whether the block may take the flash op: ``use_flash_attention`` on
+    CUDA (each call still needs ``kernel_takes``), ``force_flash`` on the
+    CPU (where the op runs its plain versions)."""
     if device.type == "cuda":
         return bool(config.use_flash_attention)
     return bool(config.force_flash)
@@ -195,7 +201,8 @@ def _block(p, x, config: GPTConfig, flash: bool, fused: bool):
         y = _layer_norm(x, p["ln1_g"], p["ln1_b"], config.layer_norm_eps)
     qkv = y @ p["wqkv"] + p["bqkv"]
     q, k, v = qkv.split(h, dim=-1)
-    if flash:
+    if flash and (x.device.type == "cpu" or kernel_takes(
+            q.view(mb, s, nh, hd), k.view(mb, s, nh, hd))):
         # the kernels take contiguous [b, s, heads, d]; .contiguous()
         # routes the gradients back into the split
         qh, kh, vh = (t.reshape(mb, s, nh, hd).contiguous()

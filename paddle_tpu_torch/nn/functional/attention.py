@@ -2,14 +2,16 @@
 
 Port of ``paddle_tpu/nn/functional/attention.py``: inputs are paddle's
 ``[batch, seq, heads, head_dim]`` layout. ``scaled_dot_product_attention``
-routes causal, unmasked, dropout-free calls on a CUDA tensor (any GQA
-``hq % hkv == 0``) to the hand-written flash kernels (differentiable: the
-backward runs the flash backward kernel); everything else —
-every CPU call, masks, dropout, non-causal — runs :func:`_sdpa_ref`, the
-torch twin of the JAX ``_sdpa_ref``. The TPU's routing thresholds
-(``_FLASH_MIN_SEQ``, ``s % 128``) are not carried over: the kernel masks
-its own ragged tails, and any threshold waits for a measurement on the
-card.
+routes causal, unmasked, dropout-free calls that the built kernels take
+(``ops.flash_attention.kernel_takes``: CUDA tensors, head_dim 64 or 128,
+fp32 or bf16, ``hq % hkv == 0``) to the hand-written flash kernels
+(differentiable: the backward runs the flash backward kernel); everything
+else — every CPU call, other head dims and dtypes, masks, dropout,
+non-causal — runs :func:`_sdpa_ref`, the torch twin of the JAX
+``_sdpa_ref``, as the reference runs it wherever its kernel does not
+apply. The TPU's routing thresholds (``_FLASH_MIN_SEQ``, ``s % 128``) are
+not carried over: the kernel masks its own ragged tails, and any
+threshold waits for a measurement on the card.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from ...ops.flash_attention import flash_attention
+from ...ops.flash_attention import flash_attention, kernel_takes
 
 
 def _sdpa_ref(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0,
@@ -55,8 +57,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Inputs ``[batch, seq, heads, head_dim]``. Dropout draws from
     ``generator`` (a ``torch.Generator`` on the inputs' device)."""
     drop = dropout_p if training else 0.0
-    if (query.device.type == "cuda" and is_causal and attn_mask is None
-            and drop == 0.0 and query.shape[2] % key.shape[2] == 0):
+    if (is_causal and attn_mask is None and drop == 0.0
+            and kernel_takes(query, key)):
         return flash_attention(query.contiguous(), key.contiguous(),
                                value.contiguous(), causal=True, scale=scale)
     return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal,

@@ -2,9 +2,10 @@
 
 Symmetric int8 / int4 quantization of ``[in, out]`` weights with
 per-output-channel (``group_size = -1``) or per-group scales along the
-in-dim, and the GEMM that keeps the weight quantized on the device
-(``ops/quant_matmul.py``: the hand-written kernel on a CUDA tensor, its
-plain version on a CPU tensor). int4 values are nibble-packed two per byte
+in-dim, and the GEMMs that keep the weight quantized on the device
+(``ops/quant_matmul.py``, and ``ops/grouped_matmul.py`` for expert stacks:
+the hand-written kernels on a CUDA tensor, their plain versions on a CPU
+tensor). int4 values are nibble-packed two per byte
 in the split-half layout of :func:`~paddle_tpu_torch.ops.quant_matmul
 .pack_int4`. Functions take and return plain tensors (no Tensor facade).
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.grouped_matmul import grouped_matmul as _gmm
 from ...ops.quant_matmul import pack_int4, unpack_int4
 from ...ops.quant_matmul import quant_matmul as _qmm
 
@@ -90,6 +92,6 @@ def quant_matmul(x, qweight, scales, bias=None):
 
 
 def grouped_matmul(x, weights, group_offsets, scales=None):
-    """The ragged grouped GEMM of the MoE expert path — not ported yet."""
-    raise NotImplementedError(
-        "grouped_matmul (the MoE expert GEMM) is ported with the MoE slice")
+    """The ragged grouped GEMM of the MoE expert path; see
+    :func:`paddle_tpu_torch.ops.grouped_matmul.grouped_matmul`."""
+    return _gmm(x, weights, group_offsets, scales=scales)

@@ -18,7 +18,9 @@ and whose backward forms ``delta = rowsum(do * out)`` in fp32 and runs the
 backward wrapper. Being one op, selective activation checkpointing can keep
 its ``out`` and ``lse`` (``models/gpt_spmd.py``, ``remat_save_attn``). The
 additive ``mask`` and the varlen ``q_seqlens`` / ``kv_seqlens`` branches are
-later slices and raise.
+later slices and raise. :func:`kernel_takes` says, before any launch,
+whether the built kernels take a call; the callers route the rest to plain
+attention.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from . import _build
 
 NEG_INF = -1e30
 LSE_INVALID = 1e30
+HEAD_DIMS = (64, 128)                       # the built instantiations
+DTYPES = (torch.float32, torch.bfloat16)    # the C entries' dtype codes
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _P = ctypes.c_void_p
@@ -88,6 +92,16 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
             lse.reshape(b * hq, 1, sq))
 
 
+def kernel_takes(q, k) -> bool:
+    """Whether the built kernels run attention of ``q [b, sq, hq, d]``
+    over ``k [b, sk, hkv, d]``: CUDA tensors, head_dim in
+    :data:`HEAD_DIMS`, dtype in :data:`DTYPES`, ``hq % hkv == 0``. Decided
+    from shape, dtype and device alone, before any launch."""
+    return (q.device.type == "cuda" and k.device == q.device
+            and q.shape[-1] in HEAD_DIMS and q.dtype in DTYPES
+            and k.dtype == q.dtype and q.shape[2] % k.shape[2] == 0)
+
+
 def _check_cuda_inputs(q, *rest):
     """The kernels' common demands on q, k, v (and do): one dtype they
     take, one device, contiguous, 16-byte aligned, head_dim 64 or 128.
@@ -104,7 +118,7 @@ def _check_cuda_inputs(q, *rest):
     if any(t.data_ptr() % 16 for t in (q, *rest)):
         raise ValueError("flash attention: inputs must be 16-byte aligned "
                          "(the kernels load 16-byte rows)")
-    if d not in (64, 128):
+    if d not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash attention kernels are built for head_dim 64 or 128, "
             f"got {d}")

@@ -20,7 +20,8 @@ from paddle_tpu_torch.nn.functional.attention import (
     _sdpa_ref, scaled_dot_product_attention)
 from paddle_tpu_torch.ops.flash_attention import (LSE_INVALID,
                                                   flash_attention,
-                                                  flash_attention_fwd)
+                                                  flash_attention_fwd,
+                                                  kernel_takes)
 
 
 def _jax_flash(q, k, v, causal):
@@ -82,3 +83,29 @@ def test_sdpa_routes_cpu_to_reference():
     # causal sdpa and the flash twin agree where every row sees a key
     torch.testing.assert_close(out, flash_attention(q, k, v, causal=True),
                                atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32])
+def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
+    """The routing predicate: CUDA tensors of head_dim 64 / 128 in fp32 /
+    bf16 with ``hq % hkv == 0`` go to the kernels; the rest (the
+    reference's d 32 / 80 / 96 configs, fp16) to plain attention. Decided
+    from shape, dtype and device only, so a stand-in with those attributes
+    plays a CUDA tensor here."""
+    from types import SimpleNamespace
+
+    cuda = torch.device("cuda", 0)
+
+    def fake(shape, dt=dtype, device=cuda):
+        return SimpleNamespace(shape=shape, dtype=dt, device=device)
+
+    want = d in (64, 128) and dtype in (torch.float32, torch.bfloat16)
+    assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 4, d))) == want
+    assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 2, d))) == want
+    assert not kernel_takes(fake((2, 16, 6, d)), fake((2, 16, 4, d)))
+    other = torch.float32 if dtype != torch.float32 else torch.bfloat16
+    assert not kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 4, d), other))
+    cpu = torch.zeros(2, 16, 4, d, dtype=dtype)
+    assert not kernel_takes(cpu, cpu)

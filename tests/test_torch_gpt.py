@@ -125,9 +125,11 @@ def test_convert_rejects_bad_state():
 
 
 def test_unported_flags_raise():
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, moe_experts=2),
-                            device="cpu")
+    # MoE is ported; the mega step stays dense-only, as in the reference
+    with pytest.raises(ValueError, match="dense-only"):
+        tgpt.build_unified_step(tgpt.GPTConfig(**TINY, moe_experts=2), 8, 4,
+                                mega=True)
+    tgpt.build_unified_step(tgpt.GPTConfig(**TINY, moe_experts=2), 8, 4)
     cfg = tgpt.GPTConfig(**TINY)
     for kw in (dict(spec_k=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later port slice"):

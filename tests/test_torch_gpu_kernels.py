@@ -35,6 +35,11 @@ payloads may sit one step apart where the fp32 row sits on a rounding
 boundary, in under 1% of the entries, and their scales (absmax / 127 of
 those rows) are held like the outputs; where a payload differs, what
 attends it moves, and the fp32 outputs are then held to ``1e-3``.
+The ragged grouped GEMM computes what the weight-only GEMM computes per
+expert, and is held the same way (fp32 to ``1e-5`` of the tensor's max,
+bf16 per row); attention routed to plain ``_sdpa_ref`` (head_dim 96, fp16)
+runs the same function as the reference path on the same device and is
+held to ``atol/rtol 1e-6`` in fp32 and exactly in fp16.
 """
 import numpy as np
 import pytest
@@ -58,6 +63,9 @@ from paddle_tpu_torch.ops.mega_decode import (
 from paddle_tpu_torch.ops.quant_matmul import (
     quant_matmul, quant_matmul_bwd, quant_matmul_dx_reference,
     quant_matmul_fwd, quant_matmul_reference)
+from paddle_tpu_torch.ops.grouped_matmul import (
+    grouped_matmul, grouped_matmul_bwd, grouped_matmul_dx_reference,
+    grouped_matmul_fwd, grouped_matmul_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -626,3 +634,148 @@ def test_mega_serving_launches_and_tokens(cuda):
     assert mega_mlp.launches - counts[1] == n
     assert ragged_paged_attention.launches == counts[2]
     assert dict(quant_matmul_fwd.launches) == counts[3]
+
+
+# (K, N, rows per expert, scale group): the serving shapes (48 routed rows,
+# one expert empty), a prefill-sized skewed split, and an odd shape with an
+# empty and a 1-row expert
+GMM_SHAPES = {
+    "serving_w1": (768, 3072, [30, 0, 11, 7], 128),
+    "serving_w2": (3072, 768, [30, 0, 11, 7], 128),
+    "prefill": (768, 3072, [2400, 900, 0, 796], 128),
+    "odd": (136, 72, [5, 0, 1, 9, 3], 8),
+}
+
+
+def _gmm_inputs(shape, weights, dtype, cuda, seed=7):
+    """x [M, K], the expert stack (NaN in the empty expert's weights or
+    scales), its [E, G, N] scales or None, offsets."""
+    k, n, counts, gs = GMM_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    m, e = sum(counts), len(counts)
+    x = _rand(rng, (m, k), cuda, dtype)
+    w = _rand(rng, (e, k, n), cuda, torch.float32, 0.05)
+    empty = counts.index(0)
+    if weights == "fp":
+        w = w.to(dtype)
+        w[empty] = float("nan")
+        scales = None
+    else:
+        bits, group = {"int8": ("int8", -1), "int8g": ("int8", gs),
+                       "int4g": ("int4", gs)}[weights]
+        qw = quantize_weight(w.to(dtype), bits, group)
+        w, scales = qw["q"], qw["s"]
+        scales[empty] = float("nan")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=cuda)
+    return x, w, scales, offs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(GMM_SHAPES))
+@pytest.mark.parametrize("weights", ["fp", "int8", "int8g", "int4g"])
+def test_grouped_matmul_kernels_match_plain(cuda, dtype, shape, weights):
+    """Forward and dx of the ragged grouped GEMM against their plain
+    versions; the empty expert's NaN weights never reach the output (its
+    tiles read nothing). int4 dx is the plain contraction on both sides."""
+    x, w, scales, offs = _gmm_inputs(shape, weights, dtype, cuda)
+    name = "fp" if weights == "fp" else weights[:4]
+    before = dict(grouped_matmul_fwd.launches)
+    got = grouped_matmul_fwd(x, w, offs, scales)
+    torch.cuda.synchronize()
+    assert grouped_matmul_fwd.launches[name] == before[name] + 1
+    want = grouped_matmul_reference(x, w, offs, scales)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    _qmm_err(got.float(), want.float(), dtype)
+    if name == "int4":
+        return
+    rng = np.random.RandomState(8)
+    dy = _rand(rng, (x.shape[0], w.shape[2]), cuda, dtype)
+    before = dict(grouped_matmul_bwd.launches)
+    dx = grouped_matmul_bwd(dy, w, offs, scales, x.shape[1], dtype)
+    torch.cuda.synchronize()
+    assert grouped_matmul_bwd.launches[name] == before[name] + 1
+    assert bool(torch.isfinite(dx).all())
+    _qmm_err(dx.float(), grouped_matmul_dx_reference(
+        dy, w, offs, scales, x.shape[1], dtype).float(), dtype)
+
+
+def test_grouped_matmul_grad_wiring(cuda):
+    """dx by the backward kernel and fp dw by the per-expert segment
+    products equal the plain version's autograd gradients (fp32); int8
+    weights take no gradient."""
+    rng = np.random.RandomState(9)
+    counts = [7, 0, 40, 1]
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=cuda)
+    x = _rand(rng, (48, 96), cuda, torch.float32).requires_grad_()
+    w = _rand(rng, (4, 96, 80), cuda, torch.float32, 0.1).requires_grad_()
+    r = _rand(rng, (48, 80), cuda, torch.float32)
+    (grouped_matmul(x, w, offs) * r).sum().backward()
+    gx, gw = x.grad.clone(), w.grad.clone()
+    x.grad = w.grad = None
+    (grouped_matmul(x, w, offs, use_kernel=False) * r).sum().backward()
+    _qmm_err(gx, x.grad, torch.float32)
+    _qmm_err(gw, w.grad, torch.float32)
+    qw = quantize_weight(w.detach(), "int8", 32)
+    x.grad = None
+    before = grouped_matmul_bwd.launches["int8"]
+    (grouped_matmul(x, qw["q"], offs, qw["s"]) * r).sum().backward()
+    assert grouped_matmul_bwd.launches["int8"] == before + 1
+    assert grouped_matmul(x.detach(), qw["q"], offs, qw["s"]).grad_fn is None
+
+
+def test_moe_serving_launches_and_tokens(cuda):
+    """A two-layer MoE model (4 experts, top-2, no drops) served on the
+    per-op step: two grouped-GEMM launches per layer and step, and the
+    greedy tokens of the same step with the plain grouped GEMM (fp32)."""
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models import moe
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5,
+                    moe_experts=4, moe_capacity_factor=4.0)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    model.eval()
+    rng = np.random.RandomState(12)
+    prompts = [[int(t) for t in rng.randint(0, 97, n)] for n in (30, 9, 17)]
+    kw = dict(max_batch=3, page_size=8, chunk=8, num_pages=12, device=cuda)
+    before = grouped_matmul_fwd.launches["fp"]
+    sp = ServingPredictor(model, **kw)
+    got = sp.generate(prompts, max_new_tokens=10)
+    torch.cuda.synchronize()
+    assert grouped_matmul_fwd.launches["fp"] - before == \
+        2 * cfg.num_layers * sp.steps
+    kernel_mm = moe._grouped_mm
+    moe._grouped_mm = lambda xs, w, offs, use_kernel: kernel_mm(
+        xs, w, offs, False)
+    try:
+        want = ServingPredictor(model, **kw).generate(prompts,
+                                                      max_new_tokens=10)
+    finally:
+        moe._grouped_mm = kernel_mm
+    assert got == want
+
+
+def test_attention_routes_what_the_kernel_cannot_take(cuda):
+    """head_dim 96 and fp16 attention run plain ``_sdpa_ref`` on the card
+    instead of raising, equal to it; a d 96 ``gpt_spmd`` step runs."""
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.nn.functional import attention as A
+
+    rng = np.random.RandomState(13)
+    for d, dtype in ((96, torch.float32), (64, torch.float16)):
+        q, k, v = (_rand(rng, (2, 40, 4, d), cuda, dtype) for _ in range(3))
+        before = flash_attention_fwd.launches
+        got = A.scaled_dot_product_attention(q, k, v, is_causal=True)
+        assert flash_attention_fwd.launches == before
+        want = A._sdpa_ref(q, k, v, causal=True)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    cfg = GPTConfig(vocab_size=128, hidden_size=384, num_layers=2,
+                    num_heads=4, max_seq_len=64)
+    step, params, mom, (ids, labels) = gpt_spmd.build_spmd_train_step(
+        cfg, batch_size=2, seq_len=32, num_micro=1, lr=1e-3, device=cuda)
+    params, mom, loss = step(params, mom, ids, labels)
+    assert bool(torch.isfinite(loss))

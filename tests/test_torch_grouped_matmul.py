@@ -1,0 +1,237 @@
+"""Port ragged grouped GEMM (``paddle_tpu_torch/ops/grouped_matmul.py``)
+against the JAX package on the CPU.
+
+The JAX Pallas kernels cannot trace on this jax (``pltpu.TPUCompilerParams``
+was renamed), so the port is held against ``grouped_matmul_reference`` and
+``grouped_matmul(use_kernel=False)`` only; both sides get the same seeded
+numpy inputs and the port's own quantized payloads. Tolerances: fp32
+``atol/rtol 1e-5`` (another summation order); bf16 outputs round one fp32
+sum each side, held per row to ``1e-2`` of the row's max ``|want|`` (one
+bf16 step is <= 2^-7). Layout helpers and integer outputs are compared
+exactly.
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops.pallas import grouped_matmul as jgmm
+from paddle_tpu_torch.inference.quantize import quantize_weight
+from paddle_tpu_torch.nn import quant as tquant
+from paddle_tpu_torch.ops import grouped_matmul as tgmm
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_ROW_TOL = 1e-2
+# rows per expert: empty experts first, middle and last; a 1-row expert;
+# more rows than one 32-row tile
+COUNTS = {"mixed": [0, 5, 0, 1, 40, 3], "tail_empty": [9, 33, 0],
+          "one": [0, 0, 7]}
+
+
+def _offsets(counts):
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def _j(a, dtype=None):
+    """numpy -> jnp, bf16 through ml_dtypes."""
+    if dtype == torch.bfloat16:
+        return jnp.asarray(np.asarray(a, np.float32).astype(
+            ml_dtypes.bfloat16))
+    return jnp.asarray(a)
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np(a):
+    """A jax or torch float array as fp32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(got, want, dtype):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+        return
+    diff = np.abs(got - want).max(-1)
+    scale = np.maximum(np.abs(want).max(-1), 1e-30)
+    assert (diff / scale).max() <= BF16_ROW_TOL
+
+
+def _case(counts, k, n, weights, dtype, seed=0):
+    """(x, weights, scales, offsets) as torch tensors and the same as jnp."""
+    rng = np.random.default_rng(seed)
+    m, e = sum(counts), len(counts)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((e, k, n))).astype(np.float32)
+    offs = _offsets(counts)
+    tx = _t(x, dtype)
+    if weights == "fp":
+        tw, ts = _t(w, dtype), None
+        jw, js = _j(w, dtype), None
+    else:
+        bits, group = {"int8": ("int8", -1), "int8g8": ("int8", 8),
+                       "int4": ("int4", -1), "int4g8": ("int4", 8)}[weights]
+        qw = quantize_weight(_t(w, dtype), bits, group)
+        tw, ts = qw["q"], qw["s"]
+        jw, js = jnp.asarray(tw.numpy()), jnp.asarray(ts.numpy())
+    return (tx, tw, ts, _t(offs)), (_j(x, dtype), jw, js, jnp.asarray(offs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weights", ["fp", "int8", "int8g8", "int4",
+                                     "int4g8"])
+@pytest.mark.parametrize("counts", sorted(COUNTS))
+def test_twin_matches_jax_reference(dtype, weights, counts):
+    (tx, tw, ts, toffs), (jx, jw, js, joffs) = _case(COUNTS[counts], 24, 40,
+                                                     weights, dtype)
+    want = jgmm.grouped_matmul_reference(jx, jw, joffs, scales=js)
+    got = tgmm.grouped_matmul_reference(tx, tw, toffs, scales=ts)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+    # the public entry (CPU: the twin) with per-channel [E, N] scales too
+    if ts is not None and ts.shape[1] == 1:
+        _close(tgmm.grouped_matmul(tx, tw, toffs, ts[:, 0]), want, dtype)
+    _close(tgmm.grouped_matmul(tx, tw, toffs, ts), want, dtype)
+
+
+@pytest.mark.parametrize("counts", sorted(COUNTS))
+def test_layout_matches_jax(counts):
+    """``token_group_ids`` equals the reference's; ``row_tiles`` (the
+    kernel's tile binding) gives each live tile the group and the rows the
+    reference's padded pack layout gives it."""
+    c = COUNTS[counts]
+    m, e, bm = sum(c), len(c), 8
+    offs = _offsets(c)
+    np.testing.assert_array_equal(
+        tgmm.token_group_ids(_t(offs), m).numpy(),
+        np.asarray(jgmm.token_group_ids(jnp.asarray(offs), m)))
+    dest, tile_gid, _ = jgmm._pack_layout(jnp.asarray(offs), m, e, bm)
+    dest, tile_gid = np.asarray(dest), np.asarray(tile_gid)
+    ex, lo, hi = (t.numpy() for t in tgmm.row_tiles(_t(offs), m, bm))
+    live = int((ex >= 0).sum())
+    assert live == sum(-(-n // bm) for n in c)
+    assert len(ex) == tgmm.max_row_tiles(m, e, bm) >= live
+    np.testing.assert_array_equal(ex[:live], tile_gid[:live])
+    assert (ex[live:] == -1).all()
+    for t in range(live):
+        want_rows = np.nonzero(dest // bm == t)[0]
+        np.testing.assert_array_equal(np.arange(lo[t], hi[t]), want_rows)
+
+
+def test_max_row_tiles_bounds_every_split():
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        e = int(rng.integers(1, 9))
+        c = rng.integers(0, 70, e) * (rng.random(e) < 0.7)
+        m = int(c.sum())
+        if m == 0:
+            continue
+        assert sum(-(-int(n) // 32) for n in c) <= tgmm.max_row_tiles(m, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weights", ["fp", "int8g8", "int4g8"])
+def test_custom_op_grads_match_jax_vjp(dtype, weights):
+    """dx (and dw for fp weights) of the port's custom op equal
+    ``jax.vjp`` of ``grouped_matmul(use_kernel=False)``; quantized weights
+    take no gradient."""
+    (tx, tw, ts, toffs), (jx, jw, js, joffs) = _case(COUNTS["mixed"], 24, 40,
+                                                     weights, dtype, seed=1)
+    rng = np.random.default_rng(2)
+    dy = rng.standard_normal((tx.shape[0], 40)).astype(np.float32)
+    fp = weights == "fp"
+
+    def f(x, w):
+        return jgmm.grouped_matmul(x, w, joffs, scales=js, use_kernel=False)
+
+    if fp:
+        want, vjp = jax.vjp(f, jx, jw)
+        jdx, jdw = vjp(_j(dy, dtype))
+    else:
+        want, vjp = jax.vjp(lambda x: f(x, jw), jx)
+        (jdx,) = vjp(_j(dy, dtype))
+    tx = tx.clone().requires_grad_()
+    if fp:
+        tw = tw.clone().requires_grad_()
+    y = tgmm.grouped_matmul(tx, tw, toffs, ts)
+    assert y.grad_fn is not None
+    y.backward(_t(dy, dtype))
+    _close(y, want, dtype)
+    _close(tx.grad, jdx, dtype)
+    if fp:
+        assert tw.grad.dtype == dtype
+        _close(tw.grad.reshape(-1, 40), np.asarray(jdw, np.float32).reshape(
+            -1, 40), dtype)
+    else:
+        assert not tw.requires_grad
+
+
+def test_custom_op_matches_plain_autograd():
+    """The custom op's gradients (fp32) equal torch autograd through the
+    twin (``use_kernel=False``)."""
+    (tx, tw, _, toffs), _ = _case(COUNTS["tail_empty"], 16, 24, "fp",
+                                  torch.float32, seed=4)
+    r = torch.randn(tx.shape[0], 24, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for use_kernel in (None, False):
+        x, w = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+        (tgmm.grouped_matmul(x, w, toffs, use_kernel=use_kernel) * r
+         ).sum().backward()
+        grads.append((x.grad, w.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_argument_checks_match_reference():
+    (tx, tw, ts, toffs), _ = _case([3, 4], 16, 8, "int8", torch.float32)
+    with pytest.raises(ValueError, match="2D tokens"):
+        tgmm.grouped_matmul(tx[None], tw, toffs, ts)
+    with pytest.raises(ValueError, match="stacked weights"):
+        tgmm.grouped_matmul(tx, tw[0], toffs, ts)
+    with pytest.raises(ValueError, match="group_offsets"):
+        tgmm.grouped_matmul(tx, tw, toffs[:-1], ts)
+    with pytest.raises(ValueError, match="needs scales"):
+        tgmm.grouped_matmul(tx, tw, toffs)
+    with pytest.raises(ValueError, match="takes no scales"):
+        tgmm.grouped_matmul(tx, tw.float(), toffs, ts)
+    with pytest.raises(ValueError, match="matches neither"):
+        tgmm.grouped_matmul(tx, tw[:, :5], toffs, ts)
+    with pytest.raises(ValueError, match="in-dim"):
+        tgmm.grouped_matmul(tx, tw.float()[:, :5], toffs)
+    with pytest.raises(ValueError, match="scale groups"):
+        tgmm.grouped_matmul(tx, tw, toffs, torch.ones(2, 3, 8))
+    with pytest.raises(ValueError, match=r"\[E, N\]"):
+        tgmm.grouped_matmul(tx, tw, toffs, torch.ones(3, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgmm.grouped_matmul(tx, tw, toffs, ts, use_kernel=True)
+
+
+def test_nn_quant_grouped_matmul_is_the_port_entry():
+    """``nn.quant.grouped_matmul`` (the reference's public name) runs the
+    port's grouped GEMM, fp and quantized."""
+    for weights in ("fp", "int4g8"):
+        (tx, tw, ts, toffs), (jx, jw, js, joffs) = _case(
+            COUNTS["mixed"], 24, 40, weights, torch.float32, seed=5)
+        got = tquant.grouped_matmul(tx, tw, toffs, scales=ts)
+        torch.testing.assert_close(
+            got, tgmm.grouped_matmul_reference(tx, tw, toffs, ts))
+        _close(got, jgmm.grouped_matmul_reference(jx, jw, joffs, js),
+               torch.float32)
+
+
+def test_dequantize_grouped_weight_matches_jax():
+    (_, tw, ts, _), (_, jw, js, _) = _case([2, 2], 16, 24, "int4g8",
+                                           torch.bfloat16)
+    got = tgmm.dequantize_grouped_weight(tw, ts, k=16,
+                                         out_dtype=torch.bfloat16)
+    want = jgmm.dequantize_grouped_weight(jw, js, k=16,
+                                          out_dtype=jnp.bfloat16)
+    np.testing.assert_array_equal(_np(got), _np(want))

@@ -106,3 +106,26 @@ def test_mega_slice_modules_are_covered():
     assert res.returncode == 0, res.stderr
     assert "paddle_tpu_torch.ops.mega_decode" in set(res.stdout.split())
     assert (ROOT / "paddle_tpu_torch" / "csrc" / "mega_decode.cu").is_file()
+
+
+def test_moe_slice_modules_are_covered():
+    """The walk above imports the MoE slice's modules, no import statement
+    in them names jax or the reference, and the grouped GEMM's kernel
+    source is in the package."""
+    code = ("import pkgutil, paddle_tpu_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert {"paddle_tpu_torch.ops.grouped_matmul",
+            "paddle_tpu_torch.models.moe"} <= set(res.stdout.split())
+    for rel in ("ops/grouped_matmul.py", "models/moe.py"):
+        tree = ast.parse((ROOT / "paddle_tpu_torch" / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0]
+        assert not [n for n in names if _forbidden(n)], rel
+    assert (ROOT / "paddle_tpu_torch" / "csrc"
+            / "grouped_matmul.cu").is_file()

@@ -20,6 +20,7 @@ from paddle_tpu.ops.pallas import quant_matmul as jqm
 from paddle_tpu.tensor.creation import to_tensor
 from paddle_tpu_torch.inference import kv_cache as tkv
 from paddle_tpu_torch.nn import quant as tquant
+from paddle_tpu_torch.ops import grouped_matmul as tgmm
 from paddle_tpu_torch.ops import quant_matmul as tqm
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -179,8 +180,12 @@ def test_cpu_tensors_take_plain_path_and_shapes_are_checked():
                                   weight_scale=torch.from_numpy(s))
     torch.testing.assert_close(y, tquant.quant_matmul(
         x, torch.from_numpy(q), torch.from_numpy(s)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tquant.grouped_matmul(x, None, None)
+    # the grouped GEMM entry is the port's (on the CPU: the twin)
+    qg = tquant.weight_quantize(torch.randn(2, 16, 24), group_size=8)
+    xs, offs = torch.randn(5, 16), torch.tensor([0, 3, 5], dtype=torch.int32)
+    torch.testing.assert_close(
+        tquant.grouped_matmul(xs, qg[0], offs, scales=qg[1]),
+        tgmm.grouped_matmul_reference(xs, qg[0], offs, qg[1]))
 
 
 def test_paged_write_packed_quant_bit_equal():

@@ -125,10 +125,23 @@ def test_quant_config_restricts_stacks():
                                           config=bad)
     with pytest.raises(ValueError, match="weight_dtype"):
         tquantize.quantize_serving_params(tgpt.serving_params(tm), "fp8")
+    # MoE expert stacks [L, E, K, N] quantize per expert, in the
+    # reference's layout
     params = tgpt.serving_params(tm)
-    params["layers"]["moe_w1"] = params["layers"]["w1"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tquantize.quantize_serving_params(params, "int8")
+    params["layers"]["moe_w1"] = params["layers"]["w1"][:, None].repeat(
+        1, 3, 1, 1)
+    for wd, gs in (("int8", -1), ("int4", 8)):
+        qp = tquantize.quantize_serving_params(params, wd, gs)["layers"]
+        jq = jquantize._quantize_stack(
+            jnp.asarray(params["layers"]["moe_w1"].numpy()), wd, gs)
+        for part in ("q", "s"):
+            np.testing.assert_array_equal(qp["moe_w1"][part].numpy(),
+                                          np.asarray(jq[part]))
+    only = QuantConfig()
+    only.add_name_config(["moe_w1"])
+    qp = tquantize.quantize_serving_params(params, "int8", config=only)
+    assert [k for k, v in qp["layers"].items() if isinstance(v, dict)] == [
+        "moe_w1"]
 
 
 def _step_args(lanes, b, t):
