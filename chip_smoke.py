@@ -5,7 +5,7 @@
 from the root of a checkout. Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
-2. build: the seven kernel sources from ``paddle_tpu_torch/csrc``
+2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -110,6 +110,24 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    attention routing: a 2-layer gpt3-760m-width model (head_dim 96) and
    an fp16 GPT-125M forward equal to the plain path's logits with no flash
    launch, and one d 96 ``gpt_spmd`` training step.
+
+12. legacy serving (run after phase 11): (a) the paged decode kernel vs
+   its plain version and vs the ragged kernel at chunk 1 on the same pools,
+   at phase 3's serving pools (8 slots, 12 heads of 64, page 64, lengths
+   0, 1, 64, 65 and up to 1,024, -1 entries past each context) and at GQA
+   16/2 and 12/4, MQA 8/1, page 16, head dims 32 / 80 / 96 / 128, fp32
+   and bf16, with kernel / plain / bound times at the serving pools; (b)
+   the ragged kernel vs its plain version at head dims 32 / 80 / 96 with
+   fp and int8 KV; (c) ``ServingPredictor(unified=False)`` on GPT-125M
+   with the phase-6 requests in fp32: (i) fp weights against the
+   full-forward oracle and phase 6's unified streams, (ii) int8 weights
+   against the plain quantized forward and phase 8 (a)'s streams, 12
+   decode-kernel launches a decode step and none of the ragged kernel (48
+   weight-only GEMM launches a program run in (ii)); bf16 legacy and
+   unified runs in turns (medians of 5: the generate wall and the mean
+   step) and one profiled legacy run; (d) gpt3-760m's width at 2 layers
+   (16 heads of 96) served fp32 through the per-op unified step and the
+   legacy path, both against the full forward.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -247,6 +265,24 @@ QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
                                     weight_quant_group_size=128), 1e-4),
                ("c int8 + int8 KV", dict(weight_dtype="int8",
                                          kv_cache_dtype="int8"), 2e-2))
+# phase 12. The paged decode kernel (row 4) and the legacy two-program path.
+# ((b, hq, hkv, d, page, pages a slot), the slots' lengths): phase 3's
+# serving pools with an empty slot, one token, one page, one past it and
+# 1,024 tokens; then GQA 16/2 and 12/4 and MQA 8/1 at page 16, across the
+# head dims the reference's configs use. Held as KERNEL_TOL, against the
+# plain version and against the ragged kernel at chunk 1 (another kernel
+# summing in another order: the same tolerance)
+DECODE_SERVING = ((8, 12, 12, 64, 64, 16), [0, 1, 64, 65, 1024, 1000, 700,
+                                            517])
+DECODE_ODD = (((5, 16, 2, 128, 16, 9), [0, 1, 16, 17, 144]),
+              ((5, 12, 4, 96, 16, 9), [0, 1, 16, 17, 140]),
+              ((4, 8, 1, 80, 16, 9), [0, 1, 33, 144]),
+              ((4, 4, 4, 32, 16, 9), [0, 7, 16, 130]))
+# the ragged kernel at gpt3-tiny's, gpt3-2.7b's and gpt3-760m's head dims:
+# phase 3's lanes with gpt3-760m's 16 heads
+RAGGED_DIMS = (32, 80, 96)
+# served through both paths at d 96: gpt3-760m's width at 2 layers
+LEGACY_D96_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -319,8 +355,7 @@ def ptxas_summary(name: str, text: str):
 # -- phase 3 ----------------------------------------------------------------
 
 
-def ragged_inputs(dtype, dev):
-    g = RAGGED_GEOM
+def ragged_inputs(dtype, dev, g=RAGGED_GEOM):
     b, chunk, hq, hkv, d, ps, pps = (g[k] for k in
                                      ("b", "chunk", "hq", "hkv", "d", "ps",
                                       "pps"))
@@ -468,7 +503,8 @@ def phase_flash(dev):
 def reset_counts():
     from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                       flash_attention_fwd)
-    from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention,
+                                                      ragged_paged_attention)
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
                                                    quant_matmul_fwd)
 
@@ -482,6 +518,7 @@ def reset_counts():
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     ragged_paged_attention.launches = 0
+    paged_attention.launches = 0
     for fn in (quant_matmul_fwd, quant_matmul_bwd):
         fn.launches = {"int8": 0, "int4": 0}
     for fn in (fused_mlp.ln_fwd, fused_mlp.ln_bwd, fused_mlp.gelu_fwd,
@@ -958,7 +995,8 @@ def check_quant_oracle(sp, cfg, reqs, rows, kv_int8, tol):
     return near_ties, logit_err
 
 
-def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None):
+def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None,
+                    unified=None):
     """A ServingPredictor of ``model`` with the config fields ``quant`` set
     while it is built (it quantizes at construction)."""
     from paddle_tpu_torch.inference import ServingPredictor
@@ -968,7 +1006,7 @@ def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None):
         setattr(cfg, k, v)
     try:
         return ServingPredictor(model, max_batch=8, device=dev, dtype=dtype,
-                                mega_decode=mega_decode)
+                                mega_decode=mega_decode, unified=unified)
     finally:
         for k, v in saved.items():
             setattr(cfg, k, v)
@@ -1406,6 +1444,7 @@ def profile_serve(sp, early, late, card, tag):
         wall_us = 1e6 * (time.perf_counter() - t0)
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
+              "paged decode kernel": ("paged_decode",),
               "weight-only GEMM": ("qmm_kernel",),
               "grouped GEMM": ("gmm_kernel",),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
@@ -2071,6 +2110,304 @@ def phase_attention_routing(dev):
         raise AssertionError("d 96 training step did not run plain attention")
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+
+def decode_inputs(geom, lengths, dtype, dev, seed):
+    b, hq, hkv, d, ps, pps = geom
+    rng = np.random.RandomState(seed)
+    num_pages = b * pps + 1
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    lens = np.array(lengths, np.int32)
+    for i in range(b):                 # unallocated past each context
+        pt[i, (lens[i] + ps - 1) // ps:] = -1
+    to = lambda a, t: torch.from_numpy(a).to(dev, t)  # noqa: E731
+    return (to(q, dtype), to(kp, dtype), to(vp, dtype), to(pt, torch.int32),
+            to(lens, torch.int32))
+
+
+def decode_work(args):
+    """(bytes, ops) the function needs on these inputs: the q rows of the
+    slots with a context read, every output row written (empty slots as
+    zeros), each slot's K and V rows read once, the page-table entries that
+    cover the contexts and the lengths read; 2 x 2 x d ops per (q row,
+    visible key)."""
+    q, k_pages, _, pt, lengths = args
+    b, hq, d = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    elt = q.element_size()
+    lens = [min(max(n, 0), pt.shape[1] * ps) for n in lengths.tolist()]
+    active = sum(1 for n in lens if n)
+    nbytes = ((active + b) * hq * d * elt + 2 * sum(lens) * hkv * d * elt
+              + 4 * (sum(-(-n // ps) for n in lens) + b))
+    return nbytes, 4.0 * d * hq * sum(lens)
+
+
+def phase_decode_kernel(dev):
+    """(a) The decode kernel against its plain version and against the
+    ragged kernel at chunk 1 on the same pools, at phase 3's serving pools
+    and the odd shapes, fp32 and bf16; kernel / plain / bound times at the
+    serving shape."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention as kern, paged_attention_reference as plain,
+        ragged_paged_attention as ragged)
+
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (geom, lengths) in enumerate((DECODE_SERVING,) + DECODE_ODD):
+            args = decode_inputs(geom, lengths, dtype, dev, SEED + ci)
+            lens = args[4]
+            got = kern(*args)
+            lane = ragged(args[0][:, None].contiguous(), *args[1:4], lens,
+                          (lens > 0).to(torch.int32))[:, 0]
+            torch.cuda.synchronize()
+            want = plain(*args)
+            active = lens > 0
+            err, held = kernel_error(got[active], want[active], dtype)
+            r_err, r_held = kernel_error(got[active], lane[active], dtype)
+            b, hq, hkv, d, ps, pps = geom
+            log(f"[legacy] decode kernel {str(dtype)[6:]} b{b} hq{hq} "
+                f"hkv{hkv} d{d} page {ps} lengths {lengths}: vs plain "
+                f"max_abs_err {err:.3e} (held {held:.3e}), vs the ragged "
+                f"kernel at chunk 1 {r_err:.3e} (held {r_held:.3e}); tol "
+                f"{KERNEL_TOL[dtype]}")
+            if not (held <= KERNEL_TOL[dtype] and r_held <= KERNEL_TOL[dtype]):
+                raise AssertionError(f"decode kernel {dtype} {geom}: error "
+                                     f"{held} / vs ragged {r_held}")
+            if torch.count_nonzero(got[~active]).item():
+                raise AssertionError("decode kernel: an empty slot's rows "
+                                     "are not zero")
+            if ci:
+                continue
+            nbytes, nops = decode_work(args)
+            st = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args)),
+                      plain_ms=time_ms(lambda: plain(*args), iters=5),
+                      bound_ms=bound_ms(nbytes, nops, dtype), library_ms=None,
+                      bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                      >= nops / PEAK_OPS[dtype] else "operations",
+                      ragged_ms=time_ms(lambda: ragged(
+                          args[0][:, None].contiguous(), *args[1:4], lens,
+                          (lens > 0).to(torch.int32))))
+            stats[dtype] = st
+            log(f"[legacy] decode kernel {str(dtype)[6:]} at the serving "
+                f"pools: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f}"
+                f" ms, bound {st['bound_ms']:.6f} ms ({st['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.4f} GFLOP), the ragged "
+                f"kernel at chunk 1 {st['ragged_ms']:.4f} ms, library_ms "
+                "null (no single PyTorch call reads a paged pool)")
+    return stats
+
+
+def phase_ragged_dims(dev):
+    """(b) The ragged kernel against its plain version at head dims 32, 80
+    and 96 (phase 3's lanes, 16 heads), fp and int8 KV, fp32 and bf16."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+    from paddle_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention as kern,
+        ragged_paged_attention_reference as plain, smem_bytes)
+
+    for d in RAGGED_DIMS:
+        g = dict(RAGGED_GEOM, hq=16, hkv=16, d=d)
+        for dtype in (torch.float32, torch.bfloat16):
+            for kv in ("fp", "int8"):
+                q, kp, vp, pt, kv_lens, q_lens = ragged_inputs(
+                    torch.float32, dev, g)
+                sc = {}
+                if kv == "int8":
+                    (kp, ks), (vp, vs) = (quantize_kv_rows(
+                        t.reshape(-1, 16, d)) for t in (kp, vp))
+                    shape = (-1, g["ps"], 16)
+                    kp, vp = kp.reshape(*shape, d), vp.reshape(*shape, d)
+                    sc = dict(k_scales=ks.reshape(shape),
+                              v_scales=vs.reshape(shape))
+                else:
+                    kp, vp = kp.to(dtype), vp.to(dtype)
+                args = (q.to(dtype), kp, vp, pt, kv_lens, q_lens)
+                got = kern(*args, **sc)
+                torch.cuda.synchronize()
+                want = plain(*args, **sc)
+                valid = (torch.arange(got.shape[1], device=dev)[None]
+                         < q_lens[:, None])
+                err, held = kernel_error(got[valid], want[valid], dtype)
+                log(f"[legacy] ragged kernel d {d} {str(dtype)[6:]} {kv} KV: "
+                    f"max_abs_err {err:.3e}, held {held:.3e} (tol "
+                    f"{KERNEL_TOL[dtype]}); shared memory "
+                    f"{smem_bytes(g['chunk'], g['ps'], d)} B a block")
+                if not held <= KERNEL_TOL[dtype] or torch.count_nonzero(
+                        got[~valid]).item():
+                    raise AssertionError(f"ragged kernel d {d} {dtype} {kv}:"
+                                         f" error {held}")
+
+
+class DecodeLogits:
+    """Stands in for a legacy predictor's decode step and keeps, for every
+    running slot, the logits row the step returned for the token it is
+    about to emit, keyed by ``(req_id, index of the token in
+    output_ids)``."""
+
+    def __init__(self, sp):
+        self.sp, self.step, self.rows = sp, sp._decode, {}
+        sp._decode = self
+
+    def __call__(self, *args):
+        out = self.step(*args)
+        for slot, req in self.sp.running.items():
+            self.rows[(req.req_id, len(req.output_ids))] = \
+                out[1][slot].clone()
+        return out
+
+
+def legacy_counts():
+    """(decode kernel, ragged) launches since :func:`reset_counts`."""
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+    return paged_attention.launches, read_counts()[1]
+
+
+def serve_legacy(sp, cfg, early, late, label, qmm_kind=None):
+    """One fp32 served run of a legacy predictor: its launches (one decode
+    kernel per layer and decode step, no ragged kernel; with ``qmm_kind``
+    four weight-only GEMMs per layer and program run) and the logits rows
+    behind its tokens. Returns (requests, rows)."""
+    rows = DecodeLogits(sp)
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = serve(sp, early, late)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_n, ragged_n = legacy_counts()
+    qmm = qmm_counts()
+    steps, tel = sp.steps, sp.telemetry()
+    prefills = int(tel["serving_requests_admitted"])
+    L = cfg.num_layers
+    want_qmm = {k: (4 * L * (steps + prefills) if k == qmm_kind else 0)
+                for k in qmm}
+    log(f"[legacy] serve ({label}) fp32: {steps} decode steps, {prefills} "
+        f"prefills ({sp.prefill_trace_count} bucket shapes), decode-kernel "
+        f"launches {decode_n} (steps x {L} = {steps * L}), ragged "
+        f"{ragged_n}, weight-only GEMM {qmm}, preemptions "
+        f"{tel['serving_preemptions']:.0f}, {wall:.3f} s wall")
+    if decode_n != steps * L or not steps or ragged_n or qmm != want_qmm:
+        raise AssertionError(f"({label}) launches: decode {decode_n}, ragged "
+                             f"{ragged_n}, GEMM {qmm} (want {want_qmm}) over "
+                             f"{steps} steps")
+    return reqs, rows.rows
+
+
+def phase_legacy_serve(model, cfg, dev, card, fp_outs, quant_streams,
+                       fp16_step_ms):
+    """(c) ``ServingPredictor(unified=False)`` on GPT-125M with the phase-6
+    requests in fp32: (i) fp weights against the full-forward oracle and
+    phase 6's unified streams, (ii) int8 weights against the plain
+    quantized forward and phase 8 (a)'s streams; then bf16 legacy and
+    unified runs in turns (medians of BF16_RUNS) and one profiled legacy
+    run. Returns the fp32 runs' decode-kernel launches."""
+    from paddle_tpu_torch.inference import ServingPredictor
+
+    early, late = requests(cfg)
+    total = 0
+    for label, quant, want, kind in (
+            ("i fp", {}, fp_outs, None),
+            ("ii int8", dict(weight_dtype="int8"), quant_streams["a int8"],
+             "int8")):
+        sp = quant_predictor(model, cfg, quant, dev, unified=False)
+        reqs, rows = serve_legacy(sp, cfg, early, late, label, kind)
+        total += sp.steps * cfg.num_layers
+        outs = [list(r.output_ids) for r in reqs]
+        if kind is None:
+            ties, logit_err = check_against_oracle(model, reqs, rows, dev)
+            oracle, tol = "the full forward", LOGIT_TOL
+        else:
+            ties, logit_err = check_quant_oracle(sp, cfg, reqs, rows, False,
+                                                 QUANT_SERVE[0][2])
+            oracle, tol = "the plain quantized forward", QUANT_SERVE[0][2]
+        same = sum(a == b for o, w in zip(outs, want) for a, b in zip(o, w))
+        log(f"[legacy] serve ({label}) fp32: greedy streams match {oracle} "
+            f"({sum(map(len, outs))} tokens, {ties} near ties), logits "
+            f"max_abs_err {logit_err:.3e} (tol {tol}); equal to the unified "
+            f"step's streams in {same} of {sum(map(len, want))} tokens")
+        if outs != want:
+            raise AssertionError(f"({label}) legacy streams differ from the "
+                                 "unified step's")
+    # bf16: the reference's legacy-two-jit / unified-step A/B, in turns
+    runs = {False: [], True: []}
+    for run in range(1 + BF16_RUNS):
+        for unified in ((False, True) if run % 2 else (True, False)):
+            sp16 = ServingPredictor(model, max_batch=8, device=dev,
+                                    dtype=torch.bfloat16, unified=unified)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
+            torch.cuda.synchronize()
+            if run:
+                runs[unified].append((time.perf_counter() - t0, sp16.steps))
+            if sum(map(len, outs16)) != MAX_NEW * len(outs16):
+                raise AssertionError("bf16 legacy / unified: malformed "
+                                     "streams")
+    ms = {}
+    for unified, rs in runs.items():
+        wall, steps = sorted(rs)[len(rs) // 2]
+        ms[unified] = (wall, 1e3 * wall / steps)
+        log(f"[legacy] serve bf16 {'unified' if unified else 'legacy'}: "
+            f"{steps} steps per run; median of {BF16_RUNS} runs {wall:.3f} s"
+            f" = {MAX_NEW * 8 / wall:.1f} tokens/s, mean step "
+            f"{ms[unified][1]:.3f} ms (runs: "
+            f"{', '.join(f'{w:.3f}' for w, _ in rs)} s) ({card})")
+    log(f"[legacy] serve bf16 generate wall legacy {ms[False][0]:.3f} s vs "
+        f"unified {ms[True][0]:.3f} s; mean step legacy {ms[False][1]:.3f} "
+        f"ms vs unified {ms[True][1]:.3f} ms (phase 6: {fp16_step_ms:.3f} "
+        f"ms) ({card})")
+    profile_serve(ServingPredictor(model, max_batch=8, device=dev,
+                                   dtype=torch.bfloat16, unified=False),
+                  early, late, card, "[legacy] (legacy)")
+    return total
+
+
+def phase_legacy_d96(dev):
+    """(d) gpt3-760m's width at 2 layers (h 1536, 16 heads of 96), fp32,
+    random weights: the per-op unified step (the ragged kernel at d 96) and
+    the legacy path (the decode kernel at d 96) against the full forward.
+    Returns the legacy run's decode-kernel launches."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+
+    cfg = replace(GPT_CONFIGS["gpt3-760m"], num_layers=LEGACY_D96_LAYERS)
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    early, late = requests(cfg)
+    sp = ServingPredictor(model, max_batch=8, device=dev)
+    rows = StepLogits(sp)
+    reset_counts()
+    reqs = serve(sp, early, late)
+    torch.cuda.synchronize()
+    ragged_n = read_counts()[1]
+    ties, err = check_against_oracle(model, reqs, rows.rows, dev)
+    unified = [list(r.output_ids) for r in reqs]
+    log(f"[legacy] d 96 (gpt3-760m width, {cfg.num_layers} layers) unified "
+        f"per-op fp32: {sp.steps} steps, ragged launches {ragged_n}; streams "
+        f"match the full forward ({ties} near ties, logits max_abs_err "
+        f"{err:.3e}); {len({t for o in unified for t in o})} distinct tokens")
+    if ragged_n != sp.steps * cfg.num_layers or not ragged_n:
+        raise AssertionError(f"d 96 unified: ragged launches {ragged_n}")
+    leg = ServingPredictor(model, max_batch=8, device=dev, unified=False)
+    reqs, rows = serve_legacy(leg, cfg, early, late, "d 96")
+    ties, err = check_against_oracle(model, reqs, rows, dev)
+    outs = [list(r.output_ids) for r in reqs]
+    log(f"[legacy] d 96 legacy fp32: streams match the full forward ({ties} "
+        f"near ties, logits max_abs_err {err:.3e}); equal to the unified "
+        f"streams: {outs == unified}")
+    if outs != unified:
+        raise AssertionError("d 96: legacy and unified streams differ")
+    return leg.steps * cfg.num_layers
+
+
 # -- phase 7 ----------------------------------------------------------------
 
 
@@ -2717,6 +3054,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.flash_attention import bwd_smem_bytes
     from paddle_tpu_torch.ops.flash_attention import smem_bytes as flash_smem
     from paddle_tpu_torch.ops.mega_decode import smem_bytes as mega_smem
+    from paddle_tpu_torch.ops.paged_attention import decode_smem_bytes
     from paddle_tpu_torch.ops.paged_attention import smem_bytes as ragged_smem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2736,8 +3074,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "quant_matmul",
-                          "fused_mlp", "mega_decode", "grouped_matmul"])
-    log(f"[build] seven kernel sources for sm_90a in "
+                          "fused_mlp", "mega_decode", "grouped_matmul",
+                          "paged_decode_attention"])
+    log(f"[build] eight kernel sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -2751,7 +3090,9 @@ def main() -> int:
         f"64) / {bwd_smem_bytes(128)} B (d 128), mega attention "
         f"{mega_smem(MEGA_SERVING[0][1], 64, 64)} B (chunk "
         f"{MEGA_SERVING[0][1]}, d 64, page 64) / {mega_smem(64, 128, 64)} B "
-        "(chunk 64, d 128)")
+        f"(chunk 64, d 128), paged decode {decode_smem_bytes(1, 64, 64)} B "
+        f"(group 1, page 64, d 64) / {decode_smem_bytes(8, 16, 128)} B "
+        "(group 8, page 16, d 128)")
 
     # 3, 4. kernels vs plain versions
     ragged = phase_ragged(dev)
@@ -2784,6 +3125,14 @@ def main() -> int:
     gmm_bwd_launches = phase_moe_grads(replace(moe_cfg,
                                                moe_capacity_factor=1.25), dev)
     phase_attention_routing(dev)
+
+    # 12. the legacy two-program path: the paged decode kernel, the ragged
+    # kernel's new head dims, GPT-125M served legacy, a d 96 model
+    decode = phase_decode_kernel(dev)
+    phase_ragged_dims(dev)
+    decode_launches = phase_legacy_serve(model, cfg, dev, card, fp_outs,
+                                         quant_streams, fp16_step_ms)
+    decode_launches += phase_legacy_d96(dev)
 
     # 7. training: the backward kernel, then the training path; 9. the
     # fused-MLP kernels and their paths, each beside its phase-7 twin
@@ -2822,6 +3171,10 @@ def main() -> int:
              "paddle_tpu/ops/pallas/paged_attention.py:264",
              ragged_launches + quant_launches["ragged"],
              ragged[torch.float32]),
+            ("paged_decode_attention",
+             "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:90",
+             decode_launches, decode[torch.float32]),
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:262",
@@ -2860,7 +3213,9 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
-    for row, (fkind, variants) in zip(kernels[-6:-2], FUSED_KINDS):
+    row_of = {k["name"]: k for k in kernels}
+    for fkind, variants in FUSED_KINDS:
+        row = row_of[f"fused_mlp_{fkind}"]
         other = fused[(fkind, variants[1], bf16)]
         shape = (FUSED_LN_SHAPES if fkind.startswith("ln")
                  else FUSED_GELU_SHAPES)[0]
@@ -2873,8 +3228,8 @@ def main() -> int:
             f"{TRAIN_STEPS} fused bf16 flagship steps")
     fp32, b16 = (mega[(None, False, t)] for t in (torch.float32, bf16))
     q8 = mega[("int8", True, bf16)]
-    for row, part in zip(kernels[-2:], ("attn", "mlp")):
-        row["note"] = (
+    for part in ("attn", "mlp"):
+        row_of[f"mega_{part}"]["note"] = (
             f"fp32, fp weights and KV, at the serving shapes; bf16: ms "
             f"{b16[part]['ms']:.4f}, plain_ms {b16[part]['plain_ms']:.4f}, "
             f"bound_ms {b16[part]['bound_ms']:.6f}; bf16 int8 g128 weights "
@@ -2884,9 +3239,11 @@ def main() -> int:
             f"{fp32['per_op_layer_ms']:.4f} ms, bf16 {b16['layer_ms']:.4f} vs"
             f" {b16['per_op_layer_ms']:.4f} ms; launches: phase 10's three "
             "fp32 served runs")
-    for row, (kname, label) in zip(kernels[-5:], (
-            ("gmm", "fp"), ("gmm_q", "int8"), ("gmm_q4", "int4 g128"),
-            ("gmm_bwd", "fp"), ("gmm_q_bwd", "int8"))):
+    for name, kname, label in (
+            ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
+            ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),
+            ("int8_bwd", "gmm_q_bwd", "int8")):
+        row = row_of[f"grouped_matmul_{name}"]
         f32, pre = (gmm[(kname, label, t, r)] for t, r in
                     ((torch.float32, "a"), (bf16, "b")))
         extra = ""
@@ -2907,12 +3264,20 @@ def main() -> int:
             + ("; launches: phase 11's fp32 served runs"
                if "bwd" not in kname
                else "; launches: phase 11's gradient drives"))
-    kernels[0]["note"] = (
+    row_of["ragged_paged_attention"]["note"] = (
         "int8-KV branch checked too: max_abs_err "
         f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "
         f"{ragged8[torch.float32]['ms']:.4f} ms vs bound "
         f"{ragged8[torch.float32]['bound_ms']:.6f} ms; launches include the "
-        "quantized serving runs")
+        "quantized serving runs; head dims 32 / 80 / 96 checked in phase 12")
+    d16 = decode[bf16]
+    row_of["paged_decode_attention"]["note"] = (
+        f"fp32 at phase 3's serving pools (lengths {DECODE_SERVING[1]}); "
+        f"bf16: ms {d16['ms']:.4f}, plain_ms {d16['plain_ms']:.4f}, "
+        f"bound_ms {d16['bound_ms']:.6f}; the ragged kernel at chunk 1 on "
+        f"the same pools: fp32 {decode[torch.float32]['ragged_ms']:.4f} ms, "
+        f"bf16 {d16['ragged_ms']:.4f} ms; launches: phase 12's fp32 legacy "
+        "served runs (GPT-125M fp and int8, the d 96 model)")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(summary: ragged and flash_attention_fwd times in fp32 at the "
         "serving / full-forward shapes of phases 3-4, launches on the main "
@@ -2924,7 +3289,9 @@ def main() -> int:
         "shapes, launches in phase 9's bf16 flagship run; flash launches "
         "count both flagship runs; grouped_matmul_* in bf16, the sum of "
         "one MoE layer's two GEMMs at the serving rows, launches in phase "
-        "11's fp32 served runs and gradient drives)")
+        "11's fp32 served runs and gradient drives; paged_decode_attention "
+        "in fp32 at phase 3's pools, launches in phase 12's fp32 legacy "
+        "runs)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

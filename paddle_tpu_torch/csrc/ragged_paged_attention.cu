@@ -238,7 +238,8 @@ int ptt_ragged_smem_bytes(int rows, int ps, int d) {
 // q/out [b, chunk, hq, d]; pools [num_pages, ps, hkv, d] in q's type, or
 // int8 with ks / vs the fp32 scale planes [num_pages, ps, hkv] (null for fp
 // pools); page_table [b, pps] int32; kv_lens, q_lens [b] int32, all
-// contiguous. dtype (of q and out): 0 = fp32, 1 = bf16. d: 64 or 128.
+// contiguous. dtype (of q and out): 0 = fp32, 1 = bf16. d: 32, 64, 80, 96
+// or 128.
 int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
                                const void* ks, const void* vs,
                                const void* pt, const void* kv_lens,
@@ -253,18 +254,21 @@ int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
   const bool quant = ks != nullptr;
 #define PTT_ARGS q, kp, vp, ks, vs, pt, kv_lens, q_lens, out, b, chunk, hq, \
                  hkv, num_pages, ps, pps, scale, device, s
-  using bf16 = __nv_bfloat16;
-  if (!quant) {
-    if (dtype == 0 && d == 64) return launch<float, float, 64>(PTT_ARGS);
-    if (dtype == 0 && d == 128) return launch<float, float, 128>(PTT_ARGS);
-    if (dtype == 1 && d == 64) return launch<bf16, bf16, 64>(PTT_ARGS);
-    if (dtype == 1 && d == 128) return launch<bf16, bf16, 128>(PTT_ARGS);
-  } else {
-    if (dtype == 0 && d == 64) return launch<float, int8_t, 64>(PTT_ARGS);
-    if (dtype == 0 && d == 128) return launch<float, int8_t, 128>(PTT_ARGS);
-    if (dtype == 1 && d == 64) return launch<bf16, int8_t, 64>(PTT_ARGS);
-    if (dtype == 1 && d == 128) return launch<bf16, int8_t, 128>(PTT_ARGS);
+#define PTT_D(DV)                                                      \
+  if (d == DV) {                                                       \
+    if (!quant && dtype == 0) return launch<float, float, DV>(PTT_ARGS); \
+    if (!quant && dtype == 1)                                          \
+      return launch<__nv_bfloat16, __nv_bfloat16, DV>(PTT_ARGS);       \
+    if (quant && dtype == 0) return launch<float, int8_t, DV>(PTT_ARGS); \
+    if (quant && dtype == 1)                                           \
+      return launch<__nv_bfloat16, int8_t, DV>(PTT_ARGS);              \
   }
+  PTT_D(32)
+  PTT_D(64)
+  PTT_D(80)
+  PTT_D(96)
+  PTT_D(128)
+#undef PTT_D
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }

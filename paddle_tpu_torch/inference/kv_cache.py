@@ -13,7 +13,8 @@ pages through a per-slot page table (``-1`` = unallocated) and
 - **device side** (functions below): the packed K/V scatter (fp, or
   int8 with a per-token, per-head scale: quantize-on-write, or rows the
   mega attention kernel already quantized) and the CoW page copy the
-  unified step runs.
+  unified step runs; the one-token-per-slot and whole-prompt writes of
+  the legacy decode and prefill programs.
 
 The reference drops out-of-range scatters (``mode="drop"``); torch has no
 such mode. The port's pools therefore carry ONE spare page at index
@@ -179,6 +180,34 @@ def paged_write_packed(pages, toks, page_table, tok_slot, tok_pos,
     return ext[:n]
 
 
+def paged_write_tokens_(pool, tok, page_table, positions, page_size):
+    """In-place decode-step write: ONE token per slot into ONE layer's pool
+    ``[num_pages + 1, page_size, kv_heads, head_dim]`` (spare page last).
+    tok ``[b, kv_heads, head_dim]``; positions ``[b]`` (< 0: an inactive
+    slot). Inactive slots and unallocated (-1) entries land on the spare
+    page — the reference's ``mode="drop"``."""
+    num_pages = pool.shape[0] - 1
+    b, pps = page_table.shape
+    pos = positions.long().clamp_min(0)
+    pg = page_table[torch.arange(b, device=pool.device),
+                    (pos // page_size).clamp_max(pps - 1)].long()
+    pg = torch.where((positions >= 0) & (pg >= 0), pg, num_pages)
+    pool[pg, pos % page_size] = tok.to(pool.dtype)
+
+
+def paged_write_prefill_(pool, seq, pages_for_slot, length, page_size):
+    """In-place prefill write of one slot's prompt K/V ``seq [s_pad,
+    kv_heads, head_dim]`` into ONE layer's pool (spare page last) through
+    its page-table row ``pages_for_slot [pps]``. Positions at or past
+    ``length`` (padding) and unallocated entries land on the spare page."""
+    num_pages = pool.shape[0] - 1
+    i = torch.arange(seq.shape[0], device=pool.device)
+    pg = pages_for_slot.long()[(i // page_size).clamp_max(
+        pages_for_slot.shape[0] - 1)]
+    pg = torch.where((i < length) & (pg >= 0), pg, num_pages)
+    pool[pg, i % page_size] = seq.to(pool.dtype)
+
+
 def paged_copy_pages_(pools, src, dst):
     """In-place copy-on-write over every layer of ``[L, num_pages + 1,
     ...]`` pools: lane i copies page ``src[i]`` to ``dst[i]``; the no-op
@@ -313,6 +342,12 @@ class KVCacheManager:
 
     def pages_needed(self, length: int) -> int:
         return pages_needed(length, self.page_size)
+
+    def can_admit(self, prompt_len: int) -> bool:
+        return (bool(self._free_slots)
+                and prompt_len <= self.max_seq_len
+                and self.pages_needed(prompt_len)
+                <= self.available_page_count)
 
     def _alloc_page(self) -> int:
         """The free list first, then evict the LRU tail of the zero-ref
@@ -559,6 +594,15 @@ class KVCacheManager:
 
     def seq_len(self, slot: int) -> int:
         return int(self._seq_lens[slot])
+
+    def slot_pages(self, slot: int) -> torch.Tensor:
+        """``slot``'s page-table row ``[pages_per_slot]`` on the pools'
+        device. The legacy prefill writes the pools in place through it, so
+        there is no ``update_pages``: the reference's jitted programs
+        return new pools for the manager to adopt, the port's update the
+        manager's own."""
+        return torch.from_numpy(self._page_table[slot].copy()).to(
+            self.device)
 
     withhold_pages = _not_ported("withhold_pages", "fault injection")
     trim_pages = _not_ported("trim_pages", "speculative decoding")

@@ -20,6 +20,13 @@ page ride the step's copy-on-write lanes. Capacity pressure preempts the
 YOUNGEST running request back to the queue (recompute mode); its replay
 re-hits its own registered pages.
 
+``unified=False`` runs the reference's legacy two-program path instead,
+its A/B baseline: admission prefills all but the last context token at
+once (``build_prefill``, prompts padded to ``prefill_bucket`` multiples),
+and every round is one decode step over all running slots
+(``build_decode_step``: the paged decode kernel) — greedy only, fp KV
+only, no prefix cache by default.
+
 The scheduling code is the reference's, so on the same weights and
 prompts the port and the reference's synchronous engine
 (``async_engine=False``) allocate the same pages and emit the same greedy
@@ -30,9 +37,8 @@ stacked weights after the cast to ``dtype``, and ``kv_cache_dtype="int8"``
 config's) serves every round through the mega kernels. MoE configs
 (``moe_experts``) serve on the per-op unified step, their expert stacks
 quantized per expert with the weights. Not ported here: the async
-dispatch-ahead engine (``async_engine=True`` raises), the legacy
-two-program path (``unified=False`` raises), SLO shedding, deadlines and
-fault injection; speculation config flags raise.
+dispatch-ahead engine (``async_engine=True`` raises), SLO shedding,
+deadlines and fault injection; speculation config flags raise.
 """
 from __future__ import annotations
 
@@ -128,14 +134,20 @@ class ServingPredictor:
     (default: the config's) runs every step's layers through the two mega
     kernels (``ops/mega_decode.py``) instead of the per-op chain; MoE
     configs cannot take it (``ValueError``, as in the reference).
-    ``unified=False`` (the reference's legacy two-program path) raises.
+    ``unified=False`` runs the reference's legacy two-program path
+    (per-bucket prefill at admission + the decode step); it refuses an
+    int8 KV cache, speculation, ``mega_decode`` and MoE with the
+    reference's ``ValueError``s. ``max_seq_len`` (capped at the config's)
+    bounds every context; ``prefix_cache`` defaults to ``unified``.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
-                 dtype=None, chunk=None, kv_cache_dtype=None,
-                 async_engine=None, device=None, mega_decode=None,
-                 unified=None):
-        from ..models.gpt import build_unified_step, serving_params
+                 max_seq_len=None, prefill_bucket=16, dtype=None,
+                 unified=None, chunk=None, prefix_cache=None,
+                 kv_cache_dtype=None, async_engine=None, device=None,
+                 mega_decode=None):
+        from ..models.gpt import (build_decode_step, build_prefill,
+                                  build_unified_step, serving_params)
 
         gpt = model.gpt if hasattr(model, "gpt") else model
         self.config = cfg = gpt.config
@@ -143,18 +155,50 @@ class ServingPredictor:
             raise NotImplementedError(
                 "the async dispatch-ahead engine is a later port slice; "
                 "async_engine=None/False runs the synchronous engine")
-        if unified is False:
-            if cfg.moe_experts:
-                raise ValueError(
-                    "the legacy two-program path has no MoE FFN path — "
-                    "serve moe_experts > 0 through the unified step "
-                    "(unified=None)")
-            raise NotImplementedError(
-                "the legacy two-program path (unified=False) is a later "
-                "port slice; unified=None runs the unified step")
+        self.unified = unified is None or bool(unified)
         self.device = resolve_device(device)
         self.metrics = MetricsRegistry()
         self._init_instruments()
+        self.kv_quant = kv_cache_quantized(kv_cache_dtype
+                                           or cfg.kv_cache_dtype)
+        if self.kv_quant and not self.unified:
+            raise ValueError(
+                "int8 KV cache rides the unified step's quantize-on-write "
+                "lanes; the legacy two-jit path serves fp only")
+        # the model's position table bounds every context
+        self.max_seq_len = min(int(max_seq_len or cfg.max_seq_len),
+                               cfg.max_seq_len)
+        self.max_batch = int(max_batch)
+        self.prefill_bucket = int(prefill_bucket)
+        page_size = int(page_size or PAGE_SIZE_DEFAULT)
+        if num_pages is None:
+            # default pool: every lane can reach max_seq_len
+            num_pages = self.max_batch * pages_needed(self.max_seq_len,
+                                                      page_size)
+        self.chunk = int(chunk or CHUNK_DEFAULT)
+        self.mega_decode = bool(cfg.mega_decode if mega_decode is None
+                                else mega_decode)
+        if cfg.spec_decode_k and not self.unified:
+            raise ValueError(
+                "speculative decoding rides the unified step's verify "
+                "rows; the legacy two-jit path serves plain decode only")
+        if self.mega_decode and not self.unified:
+            raise ValueError(
+                "mega_decode rides the unified step's packed layout; the "
+                "legacy two-jit path serves the per-op chain only")
+        # config flags of unported paths (speculation) and what the mega
+        # kernels cannot serve (MoE, int4 weights, head dims on the card)
+        # raise here; the legacy builders refuse MoE
+        self._unified = self._prefill = self._decode = None
+        if self.unified:
+            self._unified = build_unified_step(
+                cfg, page_size, self.chunk, kv_quant=self.kv_quant,
+                spec_k=cfg.spec_decode_k, mega=self.mega_decode,
+                device=self.device)
+        else:
+            self._decode = build_decode_step(cfg, page_size)
+            self._prefill = build_prefill(cfg, page_size)
+        # every refusal above comes before any weight reaches the device
         params = serving_params(model)
 
         def place(t):
@@ -169,28 +213,13 @@ class ServingPredictor:
             # are bf16-rounded
             self.params = quantize_serving_params(
                 self.params, cfg.weight_dtype, cfg.weight_quant_group_size)
-        self.kv_quant = kv_cache_quantized(kv_cache_dtype
-                                           or cfg.kv_cache_dtype)
-        self.max_seq_len = cfg.max_seq_len
-        self.max_batch = int(max_batch)
-        page_size = int(page_size or PAGE_SIZE_DEFAULT)
-        if num_pages is None:
-            # default pool: every lane can reach max_seq_len
-            num_pages = self.max_batch * pages_needed(self.max_seq_len,
-                                                      page_size)
-        self.chunk = int(chunk or CHUNK_DEFAULT)
-        self.mega_decode = bool(cfg.mega_decode if mega_decode is None
-                                else mega_decode)
-        # config flags of unported paths (speculation) and what the mega
-        # kernels cannot serve (MoE, int4 weights) raise here
-        self._unified = build_unified_step(
-            cfg, page_size, self.chunk, kv_quant=self.kv_quant,
-            spec_k=cfg.spec_decode_k, mega=self.mega_decode)
         self.cache = KVCacheManager(
             cfg.num_layers, cfg.num_heads, cfg.head_dim,
             num_pages=num_pages, max_batch=self.max_batch,
             max_seq_len=self.max_seq_len, page_size=page_size,
-            dtype=self.params["tok_emb"].dtype, enable_prefix_cache=True,
+            dtype=self.params["tok_emb"].dtype,
+            enable_prefix_cache=(self.unified if prefix_cache is None
+                                 else bool(prefix_cache)),
             quantize_kv=self.kv_quant, metrics=self.metrics,
             device=self.device)
         self.token_budget = self.max_batch + self.chunk
@@ -201,6 +230,9 @@ class ServingPredictor:
                                     device=self.device)
         self._zeros_b = torch.zeros((b,), dtype=torch.int32,
                                     device=self.device)
+        # the legacy path's per-slot decode input: each running slot's next
+        # token to feed
+        self._next_token = np.zeros((b,), np.int32)
 
     def _init_instruments(self):
         m = self.metrics
@@ -243,8 +275,16 @@ class ServingPredictor:
 
     @property
     def decode_trace_count(self) -> int:
-        """Builds of the serving step (one per predictor)."""
-        return self._unified.trace_count
+        """Builds of the serving step (one per predictor): the unified step,
+        or on the legacy path the decode step."""
+        return (self._unified if self.unified else self._decode).trace_count
+
+    @property
+    def prefill_trace_count(self) -> int:
+        """Prompt-bucket shapes the legacy prefill has run (the reference's
+        executables per bucket); the unified step has no prefill program
+        (0)."""
+        return 0 if self.unified else self._prefill.trace_count
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -321,18 +361,33 @@ class ServingPredictor:
             self.cache.free(slot)
             self._finish(req)
 
+    def _finish_waiting_unservable(self, req: Request) -> bool:
+        """Queue-head checks shared by both admission paths: a request done
+        while waiting, or preempted while sitting at the length ceiling,
+        finishes off the queue (True)."""
+        if req.done:
+            self.waiting.popleft()
+            self._finish(req)
+            return True
+        if req._ctx_len > self.max_seq_len:
+            self.waiting.popleft()
+            req.truncated = True
+            self._finish(req)
+            return True
+        return False
+
+    def _fail_never_admittable(self, req: Request, need: int) -> None:
+        """A context that can never fit the pool fails on its own; the
+        caller has popped it off the queue."""
+        self._fail(req, "never_admittable",
+                   f"context of {len(req._context_ids())} tokens needs "
+                   f"{need} pages but the pool only has "
+                   f"{self.cache.num_pages}")
+
     def _admit_waiting(self) -> None:
         while self.waiting and self.cache.free_slot_count:
             req = self.waiting[0]
-            if req.done:
-                self.waiting.popleft()
-                self._finish(req)
-                continue
-            if req._ctx_len > self.max_seq_len:
-                # preempted while sitting at the length ceiling
-                self.waiting.popleft()
-                req.truncated = True
-                self._finish(req)
+            if self._finish_waiting_unservable(req):
                 continue
             # vLLM-style watermark: with others running keep one free page
             # of growth headroom
@@ -344,11 +399,8 @@ class ServingPredictor:
                         == self.cache.num_pages):
                     # can NEVER fit: fail it, keep admitting behind it
                     self.waiting.popleft()
-                    need = self.cache.pages_needed(len(req._context_ids()))
-                    self._fail(req, "never_admittable",
-                               f"context of {len(req._context_ids())} "
-                               f"tokens needs {need} pages but the pool "
-                               f"only has {self.cache.num_pages}")
+                    self._fail_never_admittable(req, self.cache.pages_needed(
+                        len(req._context_ids())))
                     continue
                 break
             slot, cached = hit
@@ -505,33 +557,156 @@ class ServingPredictor:
                            req.eos_token_id):
                 continue
             tok = int(out[slot])
-            req.output_ids.append(tok)
-            self._m_tokens.inc()
-            if req.first_token_time is None:
-                req.first_token_time = time.monotonic()
-                self._m_ttft.observe(req.ttft * 1e3)
+            self._emit(req, tok)
             produced[req.req_id] = [tok]
         return produced
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
+    def _emit(self, req: Request, tok: int) -> None:
+        req.output_ids.append(tok)
+        self._m_tokens.inc()
+        if req.first_token_time is None:
+            req.first_token_time = time.monotonic()
+            self._m_ttft.observe(req.ttft * 1e3)
+
+    def _step_unified(self) -> dict[int, list[int]]:
+        self._retire_finished()
+        self._admit_waiting()
+        if not self.running:
+            return {}
+        sched, cows = self._schedule()
+        if not sched:
+            return {}
+        produced = self._dispatch(sched, cows)
+        self._register_prefixes()
+        return produced
+
+    # -- legacy (two-program) path -----------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        b = self.prefill_bucket
+        return max(b, ((n + b - 1) // b) * b)
+
+    def _admit_one_legacy(self, req: Request) -> bool:
+        """Claim a slot + pages and prefill ``req``'s context into them."""
+        ctx = req._context_ids()
+        # all but the LAST context token prefill; the last token becomes
+        # the next decode step's input, which produces its successor. A
+        # 1-token context prefills the token itself and takes the
+        # prefill's greedy argmax as the first output instead.
+        prefix, last = ctx[:-1], ctx[-1]
+        if not prefix:
+            prefix, last = ctx, None
+        need_len = len(prefix)
+        headroom = 1 if self.running else 0
+        if (not self.cache.can_admit(need_len)
+                or self.cache.available_page_count
+                < self.cache.pages_needed(need_len) + headroom):
+            return False
+        slot = self.cache.admit(need_len)
+        self._m_admitted.inc()
+        # bucket rounding must not push the prefill shape past the model's
+        # position table (max_seq_len need not be a bucket multiple)
+        padded = min(self._bucket(need_len), self.config.max_seq_len)
+        ids = np.zeros((1, padded), np.int32)
+        ids[0, :need_len] = prefix
+        next_ids = self._prefill(
+            self.params, self._put(ids),
+            self._put(np.array([need_len], np.int32)), self.cache.k_pool,
+            self.cache.v_pool, self.cache.slot_pages(slot)[None])[0]
+        if last is None:
+            tok = int(next_ids[0])
+            self._emit(req, tok)
+            self._next_token[slot] = tok
+        else:
+            self._next_token[slot] = last
+        req.state = RUNNING
+        self.running[slot] = req
+        return True
+
+    def _admit_waiting_legacy(self) -> None:
+        while self.waiting and self.cache.free_slot_count:
+            req = self.waiting[0]
+            if self._finish_waiting_unservable(req):
+                continue
+            if not self._admit_one_legacy(req):
+                if (not self.running and self.cache.available_page_count
+                        == self.cache.num_pages):
+                    self.waiting.popleft()
+                    self._fail_never_admittable(req, self.cache.pages_needed(
+                        len(req._context_ids()) - 1))
+                    continue
+                break
+            self.waiting.popleft()
+
+    def _step_legacy(self) -> dict[int, list[int]]:
+        self._retire_finished()
+        # admit/retire to fixpoint: a fresh prompt whose prefill token
+        # already satisfies done (budget 1, or eos) retires BEFORE the
+        # decode step, and its freed lane can admit the next request
+        while True:
+            self._admit_waiting_legacy()
+            if not any(r.done for r in self.running.values()):
+                break
+            self._retire_finished()
+        if not self.running:
+            return {}
+        # growth: every running sequence needs room for one more token;
+        # sorted() snapshots the slots, as preemption removes entries
+        cache = self.cache
+        for slot in sorted(self.running):
+            if slot not in self.running:
+                continue
+            if cache.seq_len(slot) + 1 > self.max_seq_len:
+                # the length ceiling: stop the sequence now
+                req = self.running.pop(slot)
+                req.truncated = True
+                cache.free(slot)
+                self._finish(req)
+                continue
+            while not cache.ensure_capacity(slot, cache.seq_len(slot) + 1):
+                victim_is_self = (max(self.running,
+                                      key=lambda s: self.running[s].req_id)
+                                  == slot)
+                if victim_is_self and len(self.running) == 1:
+                    self._requeue_one(slot, RuntimeError(
+                        f"slot {slot}: cannot grow to "
+                        f"{cache.seq_len(slot) + 1} tokens — page pool too "
+                        "small for this sequence"), code="pool_exhausted")
+                    break
+                self._preempt_youngest()
+                if slot not in self.running:  # preempted itself
+                    break
+        if not self.running:
+            return {}
+        next_ids = self._decode(
+            self.params, self._put(self._next_token),
+            cache.seq_lens_device(), cache.k_pool, cache.v_pool,
+            cache.page_table_device())[0]
+        self._m_steps.inc()
+        out = next_ids.cpu().numpy()
+        produced = {}
+        for slot, req in self.running.items():
+            tok = int(out[slot])
+            self._emit(req, tok)
+            self._next_token[slot] = tok
+            cache.advance(slot)
+            produced[req.req_id] = [tok]
+        return produced
+
     def step(self) -> dict[int, list[int]]:
         """One scheduler round. Returns ``{req_id: [token]}`` for the
-        tokens produced this round; a round that only advanced prefill
-        chunks produces none."""
+        tokens produced this round; a unified round that only advanced
+        prefill chunks produces none (a legacy round's admission prefill
+        of a 1-token context emits outside the returned map, as in the
+        reference)."""
         t0 = time.monotonic()
         try:
-            self._retire_finished()
-            self._admit_waiting()
-            if not self.running:
-                return {}
-            sched, cows = self._schedule()
-            if not sched:
-                return {}
-            produced = self._dispatch(sched, cows)
-            self._register_prefixes()
-            return produced
+            if self.unified:
+                return self._step_unified()
+            return self._step_legacy()
         finally:
             self._m_step_s.inc(time.monotonic() - t0)
             self._m_running.set(len(self.running))

@@ -19,12 +19,19 @@ Two halves, as in the reference:
   ``kv_quant=True`` keeps the KV pools int8 with fp32 scale planes. With
   ``mega=True`` a layer is two kernels instead (``ops/mega_decode.py``:
   the attention side, the MLP side) and the K / V scatter between them.
+- the legacy two-program path, the reference's A/B baseline and the
+  oracle of its unified-vs-legacy gate: :func:`build_prefill` (one
+  prompt bucket at a time, plain fp32 attention over the causal square,
+  then the prompt's K/V scattered into its pages) and
+  :func:`build_decode_step` (one token per slot: write its K/V, attend
+  through the paged decode kernel, greedy argmax).
 
 Linear weights keep the JAX layout ``[in, out]`` (``y = x @ W + b``), so
 weights cross from the reference without a transpose.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -35,11 +42,13 @@ from ..incubate.nn import functional as FI
 from ..inference.kv_cache import (packed_dest, paged_copy_pages_,
                                   paged_write_packed_,
                                   paged_write_packed_prequant_,
-                                  paged_write_packed_quant_)
+                                  paged_write_packed_quant_,
+                                  paged_write_prefill_, paged_write_tokens_)
 from ..nn import functional as F
 from ..nn.functional.attention import _sdpa_ref
+from ..ops.mega_decode import HEAD_DIMS as MEGA_HEAD_DIMS
 from ..ops.mega_decode import mega_attn_layer, mega_mlp, validate_mega_config
-from ..ops.paged_attention import ragged_paged_attention
+from ..ops.paged_attention import paged_attention, ragged_paged_attention
 from ..ops.quant_matmul import quant_matmul
 from .moe import GPTMoE, moe_ffn
 
@@ -411,6 +420,15 @@ def _srv_affine(y, w, b):
     return torch.addmm(b, y, w)
 
 
+def _srv_attn_out(x, a, p):
+    """The residual add of the attention output projection: quantized
+    ``wo`` keeps the reference's association ``(x + a @ wo) + bo``; fp
+    fuses the bias in ``addmm``."""
+    if isinstance(p["wo"], dict):
+        return x + _srv_mm(a, p["wo"]) + p["bo"]
+    return x + torch.addmm(p["bo"], a, p["wo"])
+
+
 def _srv_mlp(p, y):
     """[t, h] rows through the tanh-GELU MLP."""
     hidden = torch.nn.functional.gelu(_srv_affine(y, p["w1"], p["b1"]),
@@ -631,11 +649,7 @@ class UnifiedStep:
                 qb[:b * chunk].view(b, chunk, nh, hd), k_pool[i, :num_pages],
                 v_pool[i, :num_pages], page_table, ctx, q_lens, **scales)
             a = ab.reshape(b * chunk, nh * hd)[a_rows]  # back to packed [t]
-            if isinstance(p["wo"], dict):
-                # the reference's association: (x + a @ wo) + bo
-                x = x + _srv_mm(a, p["wo"]) + p["bo"]
-            else:
-                x = x + torch.addmm(p["bo"], a, p["wo"])
+            x = _srv_attn_out(x, a, p)
             x = x + _srv_ffn(cfg, p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps),
                              valid=valid)
         return x
@@ -681,7 +695,7 @@ class UnifiedStep:
 
 def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
                        kv_quant: bool = False, mesh=None, spec_k: int = 0,
-                       mega: bool = False) -> UnifiedStep:
+                       mega: bool = False, device=None) -> UnifiedStep:
     """The unified serving step on one device, without speculation (mesh
     and ``spec_k`` raise, naming their slices). ``kv_quant=True`` takes int8
     pools with fp32 scale planes (quantize on write); quantized weight
@@ -691,7 +705,9 @@ def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
     scale groups here, at build time). With ``moe_experts`` each layer's
     FFN is the routed expert FFN (``_srv_moe``). The step runs the
     kernels when its tensors are on a CUDA device and their plain versions
-    when they are on the CPU."""
+    when they are on the CPU. ``device``: where those tensors will live,
+    when the caller knows; on a CUDA device a mega build also rejects head
+    dims the mega kernels are not built for (the plain versions take any)."""
     for flag, later in ((mesh is not None, "multi-GPU (tensor-parallel) "
                                            "serving"),
                         (spec_k, "speculative decoding")):
@@ -702,5 +718,157 @@ def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
         validate_mega_config(config.weight_dtype,
                              config.weight_quant_group_size, config.head_dim,
                              moe_experts=config.moe_experts)
+        if (device is not None and torch.device(device).type == "cuda"
+                and config.head_dim not in MEGA_HEAD_DIMS):
+            raise NotImplementedError(
+                f"mega_decode on CUDA: the mega kernels are built for "
+                f"head_dim in {MEGA_HEAD_DIMS}, got {config.head_dim} (their "
+                "64-column tiles; ROADMAP.md queue 2 item 2) — serve this "
+                "config with mega_decode=False")
     return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant,
                        mega=mega)
+
+
+# ---------------------------------------------------------------------------
+# the legacy two-program path
+# ---------------------------------------------------------------------------
+
+
+def _legacy_refusals(config: GPTConfig, name: str, mesh) -> None:
+    if config.moe_experts:
+        raise ValueError(
+            f"{name} predates the packed unified step and has no MoE FFN "
+            "path — serve moe_experts > 0 through build_unified_step / "
+            "ServingPredictor")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}: multi-GPU (tensor-parallel) serving is a later port "
+            "slice")
+
+
+class PrefillProgram:
+    """What :func:`build_prefill` returns. ``trace_count`` counts the
+    distinct prompt-bucket shapes it has run: the reference compiles one
+    executable per bucket; PyTorch runs eagerly and compiles none, so the
+    count is the port's form of the same number."""
+
+    def __init__(self, config, page_size):
+        self.config = config
+        self.page_size = int(page_size)
+        self._shapes: set[tuple[int, int]] = set()
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._shapes)
+
+    @torch.no_grad()
+    def __call__(self, params, ids, lengths, k_pool, v_pool, pages):
+        """``ids [b, s]`` right-padded prompts, ``lengths [b]``, pools
+        ``[L, num_pages + 1, page_size, kv_heads, head_dim]`` (spare page
+        last), ``pages [b, pps]`` each slot's page-table row. Forwards the
+        prompts with fp32 attention over the causal square, scatters each
+        slot's K/V into its pages (in place; positions past the length land
+        on the spare page) and returns ``(next_ids [b] int32, logits [b, v]
+        fp32, k_pool, v_pool)`` at each prompt's last valid position."""
+        cfg = self.config
+        b, s = ids.shape
+        self._shapes.add((b, s))
+        eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
+        # rows [b * s, h]: the serving matmuls take 2-D operands
+        x = (params["tok_emb"][ids.long()]
+             + params["pos_emb"][:s]).reshape(b * s, -1)
+        causal = torch.ones((s, s), dtype=torch.bool,
+                            device=x.device).tril()
+        for i in range(cfg.num_layers):
+            p = _layer_params(params["layers"], i)
+            y = _srv_ln(x, p["ln1_g"], p["ln1_b"], eps)
+            q, k, v = (t.reshape(b, s, nh, hd) for t in _split_qkv(
+                _srv_affine(y, p["wqkv"], p["bqkv"]), nh, hd))
+            sc = torch.einsum("bqnd,bknd->bnqk", q.float(),
+                              k.float()) / math.sqrt(hd)
+            sc = torch.where(causal, sc, -1e30)
+            a = torch.einsum("bnqk,bknd->bqnd", torch.softmax(sc, dim=-1),
+                             v.float()).to(x.dtype)
+            x = _srv_attn_out(x, a.reshape(b * s, nh * hd), p)
+            x = x + _srv_mlp(p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps))
+            for bi in range(b):
+                paged_write_prefill_(k_pool[i], k[bi], pages[bi],
+                                     lengths[bi], self.page_size)
+                paged_write_prefill_(v_pool[i], v[bi], pages[bi],
+                                     lengths[bi], self.page_size)
+        x = _srv_ln(x, params["lnf_g"], params["lnf_b"], eps)
+        last = (lengths.long() - 1).clamp_min(0)
+        h_last = x.reshape(b, s, -1)[torch.arange(b, device=x.device), last]
+        logits = _srv_logits(params, h_last).float()
+        return logits.argmax(-1).to(torch.int32), logits, k_pool, v_pool
+
+
+def build_prefill(config: GPTConfig, page_size: int,
+                  mesh=None) -> PrefillProgram:
+    """The legacy path's prefill program (reference signature ``fn(params,
+    ids[b, s], lengths[b], k_pool, v_pool, pages[b, pps]) -> (next_ids[b],
+    logits[b, v], k_pool, v_pool)``, the pools updated in place). Its
+    attention is plain: the reference uses no kernel there. MoE configs
+    raise ``ValueError`` as in the reference; ``mesh`` raises (the
+    multi-GPU slice)."""
+    _legacy_refusals(config, "build_prefill", mesh)
+    return PrefillProgram(config, page_size)
+
+
+class DecodeStep:
+    """What :func:`build_decode_step` returns; ``trace_count`` counts
+    builds of this step (one: PyTorch runs eagerly)."""
+
+    def __init__(self, config, page_size):
+        self.config = config
+        self.page_size = int(page_size)
+        self.trace_count = 1
+
+    @torch.no_grad()
+    def __call__(self, params, ids, lengths, k_pool, v_pool, page_table):
+        """``ids [b]`` each slot's incoming token, ``lengths [b]`` tokens
+        already cached (0 = empty slot: its lane computes masked values and
+        writes only the spare page), pools ``[L, num_pages + 1, ...]``
+        (spare page last), ``page_table [b, pps]``. Per layer: LN, QKV, the
+        token's K/V written at position ``lengths`` (in place), paged
+        attention over ``lengths + 1`` positions (the decode kernel on a
+        CUDA tensor: one launch a layer), output projection, LN, MLP. Returns
+        ``(next_ids [b] int32, logits [b, v] fp32, k_pool, v_pool)``."""
+        cfg = self.config
+        eps, nh, hd = cfg.layer_norm_eps, cfg.num_heads, cfg.head_dim
+        b = ids.shape[0]
+        num_pages = k_pool.shape[1] - 1
+        active = lengths > 0
+        pos = torch.where(active, lengths, -1)
+        pos_emb = params["pos_emb"]
+        x = params["tok_emb"][ids.long().clamp_min(0)] \
+            + pos_emb[lengths.long().clamp(0, pos_emb.shape[0] - 1)]
+        ctx = torch.where(active, lengths + 1, 0).to(torch.int32)
+        for i in range(cfg.num_layers):
+            p = _layer_params(params["layers"], i)
+            y = _srv_ln(x, p["ln1_g"], p["ln1_b"], eps)
+            q, k, v = _split_qkv(_srv_affine(y, p["wqkv"], p["bqkv"]),
+                                 nh, hd)
+            paged_write_tokens_(k_pool[i], k, page_table, pos,
+                                self.page_size)
+            paged_write_tokens_(v_pool[i], v, page_table, pos,
+                                self.page_size)
+            a = paged_attention(q.contiguous(), k_pool[i, :num_pages],
+                                v_pool[i, :num_pages], page_table, ctx)
+            x = _srv_attn_out(x, a.reshape(b, nh * hd), p)
+            x = x + _srv_mlp(p, _srv_ln(x, p["ln2_g"], p["ln2_b"], eps))
+        x = _srv_ln(x, params["lnf_g"], params["lnf_b"], eps)
+        logits = _srv_logits(params, x).float()
+        return logits.argmax(-1).to(torch.int32), logits, k_pool, v_pool
+
+
+def build_decode_step(config: GPTConfig, page_size: int,
+                      mesh=None) -> DecodeStep:
+    """The legacy path's fixed-shape decode step (reference signature
+    ``fn(params, ids[b], lengths[b], k_pool, v_pool, page_table[b, pps])
+    -> (next_ids[b], logits[b, v], k_pool, v_pool)``, the pools updated in
+    place). Quantized weight leaves run the weight-only GEMM. MoE configs
+    raise ``ValueError`` as in the reference; ``mesh`` raises (the
+    multi-GPU slice)."""
+    _legacy_refusals(config, "build_decode_step", mesh)
+    return DecodeStep(config, page_size)

@@ -1,7 +1,9 @@
-"""Ragged paged attention — the unified serving step's attention.
+"""Paged attention over the serving KV pools — the unified step's ragged
+kernel and the legacy decode step's single-token kernel.
 
-Port of ``paddle_tpu/ops/pallas/paged_attention.py::ragged_paged_attention``:
-each sequence ``b`` feeds ``q_lens[b]`` (0..chunk) query rows this step,
+Port of ``paddle_tpu/ops/pallas/paged_attention.py``.
+
+:func:`ragged_paged_attention` (the unified step): each sequence ``b`` feeds ``q_lens[b]`` (0..chunk) query rows this step,
 causal within the chunk, attending its whole paged context of
 ``kv_lens[b]`` tokens (this chunk included — its K/V is already written).
 Pools are ``[num_pages, page_size, kv_heads, head_dim]``; ``page_table``
@@ -15,6 +17,15 @@ On a CUDA tensor :func:`ragged_paged_attention` launches the hand-written
 kernel of ``csrc/ragged_paged_attention.cu`` (or raises); on a CPU tensor
 it runs :func:`ragged_paged_attention_reference`, the torch twin of the
 jnp gather oracle. Rows past ``q_lens`` come back zero on both paths.
+
+:func:`paged_attention` (the legacy decode step): one query token per
+sequence, ``q [b, hq, d]``, attends positions ``[0, lengths[b])`` of its
+pages; ``lengths[b] == 0`` marks an empty slot and gives zeros. A CUDA
+``q`` launches the kernel of ``csrc/paged_decode_attention.cu`` (or
+raises); a CPU ``q`` runs :func:`paged_attention_reference`. Decode-only:
+the output carries no gradient, as the reference registers no VJP.
+
+Both kernels take head dims :data:`HEAD_DIMS` in fp32 and bf16.
 """
 from __future__ import annotations
 
@@ -28,13 +39,20 @@ from . import _build
 NEG_INF = -1e30
 PAGE_SIZE_DEFAULT = 64
 CHUNK_DEFAULT = 16
+HEAD_DIMS = (32, 64, 80, 96, 128)      # the built instantiations
 _KERNEL = "ragged_paged_attention"
+_DECODE = "paged_decode_attention"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 8
     + [ctypes.c_float, _I, _I, _P],
     "ptt_ragged_smem_bytes": [_I, _I, _I],
+}
+_DECODE_SIGNATURES = {
+    "ptt_paged_decode_attention": [_P] * 6 + [_I] * 7
+    + [ctypes.c_float, _I, _I, _P],
+    "ptt_paged_decode_smem_bytes": [_I, _I, _I],
 }
 
 
@@ -111,10 +129,10 @@ def _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("ragged_paged_attention: q and the pools must be "
                          "16-byte aligned (the kernel loads 16-byte rows)")
-    if d not in (64, 128):
+    if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"ragged_paged_attention kernel is built for head_dim 64 or "
-            f"128, got {d}")
+            f"ragged_paged_attention kernel is built for head_dim in "
+            f"{HEAD_DIMS}, got {d}")
     lib = _build.load(_KERNEL, _SIGNATURES)
     out = torch.empty_like(q)
     err = lib.ptt_ragged_paged_attention(
@@ -167,3 +185,109 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens,
 
 
 ragged_paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# single-token decode (the legacy two-program path)
+# ---------------------------------------------------------------------------
+
+
+def decode_smem_bytes(group: int, page_size: int, d: int) -> int:
+    """Dynamic shared memory one block of the decode kernel uses for a GQA
+    group of ``group`` query rows (builds the kernel on first use)."""
+    return _build.load(_DECODE, _DECODE_SIGNATURES
+                       ).ptt_paged_decode_smem_bytes(group, page_size, d)
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
+                              scale=None):
+    """Gather-based oracle (torch twin of the jnp
+    ``paged_attention_reference``): gather every page of each sequence in
+    fp32, mask ``col < length``, softmax, zero empty slots (``length <=
+    0``). q ``[b, hq, d]``; returns ``[b, hq, d]`` in q's dtype."""
+    b, hq, d = q.shape
+    num_pages, page_size, hkv, _ = k_pages.shape
+    pps = page_table.shape[1]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    pt = page_table.long().clamp(0, num_pages - 1)
+    k = k_pages[pt].reshape(b, pps * page_size, hkv, d).float()
+    v = v_pages[pt].reshape(b, pps * page_size, hkv, d).float()
+    qg = q.reshape(b, hkv, group, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k) * scale
+    lengths = lengths.long().reshape(-1, 1)
+    valid = torch.arange(pps * page_size, device=q.device)[None] < lengths
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # empty slots: the all-masked softmax is uniform garbage — zero it
+    p = torch.where((lengths > 0).reshape(-1, 1, 1, 1), p, 0.0)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _launch_decode(q, k_pages, v_pages, page_table, lengths, scale):
+    b, hq, d = q.shape
+    num_pages, page_size, hkv, _ = k_pages.shape
+    code = _build.dtype_code(q.dtype, "paged_attention")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected q's {q.dtype}")
+    for name, t in (("page_table", page_table), ("lengths", lengths)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    tensors = (q, k_pages, v_pages, page_table, lengths)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"paged_attention: all inputs must be on {q.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention: q and the pools must be 16-byte "
+                         "aligned (the kernel loads 16-byte rows)")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"paged_attention kernel is built for "
+                                  f"head_dim in {HEAD_DIMS}, got {d}")
+    lib = _build.load(_DECODE, _DECODE_SIGNATURES)
+    out = torch.empty_like(q)
+    err = lib.ptt_paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq,
+        hkv, num_pages, page_size, page_table.shape[1], d, float(scale),
+        code, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "paged_attention launch")
+    paged_attention.launches += 1
+    return out
+
+
+@torch.no_grad()
+def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
+    """Single-token decode attention over the paged KV cache.
+
+    q: ``[b, hq, d]``; pools ``[num_pages, page_size, hkv, d]`` in q's
+    dtype; page_table ``[b, pps]`` int32 (-1 unallocated); lengths ``[b]``
+    int32 (0 = empty slot -> zeros). Returns ``[b, hq, d]`` in q's dtype,
+    without a gradient. A CUDA ``q`` launches the kernel (``.launches``
+    counts them); a CPU ``q`` runs :func:`paged_attention_reference`.
+    """
+    b, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA needs q heads {hq} divisible by kv {hkv}")
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
+    if page_table.shape[0] != b or tuple(lengths.shape) != (b,):
+        raise ValueError(f"page_table / lengths must lead with the batch {b}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return _launch_decode(q, k_pages, v_pages, page_table, lengths, scale)
+
+
+paged_attention.launches = 0

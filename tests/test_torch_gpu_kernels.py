@@ -39,7 +39,10 @@ The ragged grouped GEMM computes what the weight-only GEMM computes per
 expert, and is held the same way (fp32 to ``1e-5`` of the tensor's max,
 bf16 per row); attention routed to plain ``_sdpa_ref`` (head_dim 96, fp16)
 runs the same function as the reference path on the same device and is
-held to ``atol/rtol 1e-6`` in fp32 and exactly in fp16.
+held to ``atol/rtol 1e-6`` in fp32 and exactly in fp16. The paged decode
+kernel is held like the ragged kernel (fp32 ``FP32_TOL``, bf16 per row),
+against its plain version and against the ragged kernel at chunk 1 on the
+same pools.
 """
 import numpy as np
 import pytest
@@ -53,7 +56,8 @@ from paddle_tpu_torch.ops.flash_attention import (
 from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
 from paddle_tpu_torch.inference.quantize import quantize_weight
 from paddle_tpu_torch.ops.paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_reference)
+    paged_attention, paged_attention_reference, ragged_paged_attention,
+    ragged_paged_attention_reference)
 from paddle_tpu_torch.ops.fused_mlp import (
     MAX_H, fused_bias_gelu, fused_gelu, fused_layer_norm, fused_ln_residual,
     gelu_bwd, gelu_bwd_reference, gelu_fwd, gelu_fwd_reference, ln_bwd,
@@ -779,3 +783,107 @@ def test_attention_routes_what_the_kernel_cannot_take(cuda):
         cfg, batch_size=2, seq_len=32, num_micro=1, lr=1e-3, device=cuda)
     params, mom, loss = step(params, mom, ids, labels)
     assert bool(torch.isfinite(loss))
+
+
+# (b, hq, hkv, d, page size, pages a slot): GPT-125M's serving shape, GQA,
+# MQA and the other head dims
+DECODE_GEOMS = [(8, 12, 12, 64, 64, 16), (5, 16, 2, 128, 16, 9),
+                (5, 12, 4, 96, 16, 9), (4, 8, 1, 80, 16, 9),
+                (4, 4, 4, 32, 16, 9)]
+
+
+def _decode_inputs(rng, b, hq, hkv, d, ps, pps, device, dtype):
+    """Lengths 0 (an empty slot), 1, one page, one past it, and the last
+    slot at every page; -1 entries past each context."""
+    num_pages = b * pps + 3
+    q = _rand(rng, (b, hq, d), device, dtype)
+    kp, vp = (_rand(rng, (num_pages, ps, hkv, d), device, dtype)
+              for _ in range(2))
+    lengths = np.array([0, 1, ps, ps + 1] + [pps * ps] * b, np.int32)[:b]
+    lengths[-1] = pps * ps
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    for i in range(b):
+        pt[i, (lengths[i] + ps - 1) // ps:] = -1
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return q, kp, vp, to(pt), to(lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", DECODE_GEOMS)
+def test_paged_decode_kernel_matches_plain(cuda, dtype, geom):
+    args = _decode_inputs(np.random.RandomState(3), *geom, cuda, dtype)
+    before = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_reference(*args)
+    _assert_close(got[1:].float(), want[1:].float(), dtype)
+    assert torch.count_nonzero(got[0]) == 0           # the empty slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", DECODE_GEOMS[:3])
+def test_paged_decode_kernel_matches_ragged_at_chunk_1(cuda, dtype, geom):
+    """The reference's ``test_ragged_decode_lane_matches_decode_kernel``:
+    a decode lane of the ragged kernel (chunk 1, q_len 1) computes what the
+    decode kernel computes on the same pools."""
+    q, kp, vp, pt, lengths = _decode_inputs(np.random.RandomState(4), *geom,
+                                            cuda, dtype)
+    got = paged_attention(q, kp, vp, pt, lengths)
+    ragged = ragged_paged_attention(q[:, None].contiguous(), kp, vp, pt,
+                                    lengths, (lengths > 0).to(torch.int32))
+    torch.cuda.synchronize()
+    _assert_close(got[1:].float(), ragged[1:, 0].float(), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 80, 96])
+def test_ragged_kernel_head_dims(cuda, dtype, d, quant):
+    """The ragged kernel at the head dims of gpt3-tiny, -2.7b and -760m."""
+    b, chunk, hq, hkv, ps, pps = 4, 8, 16 if d == 96 else 8, 4, 16, 12
+    q, kp, vp, pt, kv_lens, q_lens = _ragged_inputs(
+        np.random.RandomState(d), b, chunk, hq, hkv, d, ps, pps, cuda,
+        torch.float32)
+    scales = {}
+    if quant:
+        (kp, ks), (vp, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
+                              for t in (kp, vp))
+        kp, vp = kp.reshape(-1, ps, hkv, d), vp.reshape(-1, ps, hkv, d)
+        scales = dict(k_scales=ks.reshape(-1, ps, hkv),
+                      v_scales=vs.reshape(-1, ps, hkv))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    args = (q.to(dtype), kp, vp, pt, kv_lens, q_lens)
+    before = ragged_paged_attention.launches
+    got = ragged_paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    want = ragged_paged_attention_reference(*args, **scales)
+    _assert_close(_valid_rows(got, q_lens).float(),
+                  _valid_rows(want, q_lens).float(), dtype)
+
+
+def test_legacy_serving_launches_and_tokens(cuda):
+    """``ServingPredictor(unified=False)`` on the card: one decode-kernel
+    launch per layer and decode step, no ragged launch, and the unified
+    per-op predictor's greedy tokens (fp32)."""
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    model.eval()
+    rng = np.random.RandomState(11)
+    prompts = [[int(x) for x in rng.randint(0, 97, n)] for n in (30, 9, 1, 17)]
+    kw = dict(max_batch=3, page_size=8, num_pages=10, device=cuda)
+    unified = ServingPredictor(model, chunk=8, **kw).generate(
+        prompts, max_new_tokens=12)
+    counts = (paged_attention.launches, ragged_paged_attention.launches)
+    sp = ServingPredictor(model, unified=False, **kw)
+    got = sp.generate(prompts, max_new_tokens=12)
+    torch.cuda.synchronize()
+    assert got == unified
+    assert paged_attention.launches - counts[0] == sp.steps * 2 > 0
+    assert ragged_paged_attention.launches == counts[1]

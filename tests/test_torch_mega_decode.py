@@ -448,6 +448,24 @@ def test_mega_sampled_churn_matches_per_op():
     assert mega == per_op and mega != greedy
 
 
+def test_mega_unbuilt_head_dim_fails_at_construction(monkeypatch):
+    """On a CUDA device a mega build refuses a head dim the mega kernels are
+    not built for when it is built, naming the dim and the roadmap item;
+    on the CPU (the plain versions) it builds, and a built head dim builds
+    on CUDA too. The predictor refuses before any weight moves."""
+    cfg = tgpt.GPTConfig(**TINY)                       # head_dim 8
+    with pytest.raises(NotImplementedError, match="got 8.*queue 2 item 2"):
+        tgpt.build_unified_step(cfg, 8, 4, mega=True, device="cuda")
+    assert tgpt.build_unified_step(cfg, 8, 4, mega=True, device="cpu").mega
+    assert tgpt.build_unified_step(cfg, 8, 4, device="cuda")       # per-op
+    d64 = tgpt.GPTConfig(**dict(TINY, hidden_size=128, num_heads=2))
+    assert tgpt.build_unified_step(d64, 8, 4, mega=True, device="cuda").mega
+    _, tm = _pair(mega_decode=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        ServingPredictor(tm, device="cuda", **KW)
+
+
 def test_mega_config_flag_and_int4_rejection():
     """``GPTConfig.mega_decode`` selects the mega step, the argument
     overrides it, and int4 weights raise at construction as in the

@@ -86,3 +86,29 @@ def test_ragged_twin_int8_matches_jax_reference(hq, hkv):
         ragged_paged_attention(
             *(torch.from_numpy(a) for a in (q, kq, vq, pt, kv_lens, q_lens)),
             k_scales=torch.from_numpy(ks))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d", [32, 80, 96])
+def test_ragged_twin_head_dims_match_jax_reference(d, quant):
+    """The head dims of the reference's GPT configs that the kernel now
+    takes (gpt3-tiny 32, gpt3-2.7b 80, gpt3-760m 96), fp and int8 pools."""
+    q, kp, vp, pt, kv_lens, q_lens = _inputs(d + quant, b=5, chunk=4, hq=4,
+                                             hkv=2, d=d, ps=8, pps=4)
+    scales = {}
+    if quant:
+        rng = np.random.RandomState(d)
+        kp, vp = (rng.randint(-127, 128, kp.shape).astype(np.int8)
+                  for _ in range(2))
+        scales = {name: rng.uniform(0.001, 0.05, kp.shape[:3]).astype(
+            np.float32) for name in ("k_scales", "v_scales")}
+    want = np.asarray(jax_ragged_reference(
+        *(jnp.asarray(a) for a in (q, kp, vp, pt, kv_lens, q_lens)),
+        **{k: jnp.asarray(v) for k, v in scales.items()}))
+    got = ragged_paged_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, pt, kv_lens, q_lens)),
+        **{k: torch.from_numpy(v) for k, v in scales.items()}).numpy()
+    for b in range(q.shape[0]):
+        n = int(q_lens[b])
+        np.testing.assert_allclose(got[b, :n], want[b, :n], atol=1e-5,
+                                   rtol=0)
