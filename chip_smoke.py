@@ -12,7 +12,11 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    (b 8, chunk 16, 12 heads, d 64, page 64, 16 pages per sequence),
    fp32 and bf16, with kernel / plain / bound times;
 4. flash attention forward vs its plain version at the full-forward
-   shape [4, 512, 12, 64] causal, plus ``sq != sk`` and a ragged tail;
+   shape [4, 512, 12, 64] causal, plus ``sq != sk`` and a ragged tail, fp32
+   and bf16; the bf16 tensor-core kernel at head_dim 32 / 80 / 96 / 128
+   (``FLASH_TC_CASES``: GQA, the causal offset, ragged tails, rows that see
+   no key, non-causal) and at [1, 4096, 16, 128] causal; times with the
+   achieved TFLOP/s and share of the bound beside plain and SDPA;
 5. full forward: GPT-125M logits on ids [4, 512] with the flash kernel
    against the same model with plain attention;
 6. serving: ``ServingPredictor`` on GPT-125M in fp32 (TF32 off), 8
@@ -25,14 +29,17 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    (median of 5 runs);
 7. train: the flash backward kernel vs its plain version at the training
    shape [8, 1024, 12, 128] causal and at odd shapes (``sq != sk``, GQA,
-   ragged tails, non-causal), fp32 and bf16, with kernel / plain / bound
-   times and SDPA's backward as the library yardstick, and the forward
-   kernel vs its plain version at the training shape; the eager GPT-125M
-   forward and backward with flash vs plain attention (every parameter
+   ragged tails, non-causal), fp32 and bf16, the bf16 kernel at
+   ``FLASH_TC_CASES`` and [1, 4096, 16, 128], with kernel / plain / bound
+   times, TFLOP/s and SDPA's backward as the library yardstick, and the
+   forward kernel vs its plain version at the training shape; the eager
+   GPT-125M forward and backward with flash vs plain attention (every parameter
    gets the same gradient, none is ``None``); ``build_spmd_train_step`` in
    fp32 (TF32 off) at gpt3-760m's width and 2 layers, flash vs plain
-   attention for the loss, every gradient leaf and 3 steps' losses; then
-   the flagship training configuration (``bench.py``'s gpt3-760m: h 1536,
+   attention for the loss, every gradient leaf and 3 steps' losses; the
+   same in bf16 at 12 heads of 128 and at 16 heads of 96 (2 layers, loss
+   and every leaf, 2 + 2 flash launches); then the flagship training
+   configuration (``bench.py``'s gpt3-760m: h 1536,
    24 layers, 12 heads, vocab 50304, batch 8, seq 1024, bf16, recompute
    with the flash outputs saved, num_micro 1, momentum SGD at lr 1e-4),
    timed: step ms, tokens/s and MFU, with 24 forward and 24 backward flash
@@ -160,6 +167,18 @@ PEAK_OPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
             torch.bfloat16: 989e12}   # dense bf16 tensor cores
 RAGGED_GEOM = dict(b=8, chunk=16, hq=12, hkv=12, d=64, ps=64, pps=16)
 FLASH_SHAPE = (4, 512, 12, 64)
+# phases 4 and 7: the bf16 tensor-core kernels at every head dim of the
+# reference's configs, (b, sq, sk, hq, hkv, d, causal): d 32 with sq < sk
+# (causal offset) and GQA 3, d 80 with a ragged tail, gpt3-760m's 16 heads
+# of 96, rows that see no key (sq > sk causal), d 128 with GQA 8 and ragged
+# tails, non-causal with sq > sk; then a long sequence, [b, s, heads, d]
+FLASH_TC_CASES = ((2, 200, 456, 12, 4, 32, True),
+                  (2, 333, 333, 8, 8, 80, True),
+                  (2, 1024, 1024, 16, 16, 96, True),
+                  (1, 300, 100, 6, 2, 96, True),
+                  (2, 515, 515, 16, 2, 128, True),
+                  (2, 130, 77, 4, 4, 80, False))
+FLASH_LONG = (1, 4096, 16, 128)
 # fp32: another summation order and expf, held as max abs error. bf16: both
 # sides round an fp32 result to 8 mantissa bits once, so an element may
 # differ by one bf16 step (<= 2^-7 of it); held as each row's max abs error
@@ -188,6 +207,13 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # relative (seen 0)
 GRAD_TOL = 1e-5
 LOSS_TOL = 1e-6
+# flash vs plain attention through the bf16 training step (2 layers, b 2,
+# s 1024): the kernels round P and dS to bf16 per tile, the plain path its
+# scores, probabilities and products where cuBLAS and softmax return them,
+# and every gradient leaf is rounded to bf16 (one step <= 2^-7 of it): per
+# leaf, max abs error over the leaf's max |grad|; the loss relative
+BF16_GRAD_TOL = 2e-2
+BF16_LOSS_TOL = 1e-2
 # phase 8. The weight-only GEMM splits its fp32 sums across blocks in
 # another order than cuBLAS: fp32 held as max abs error over the tensor's
 # max |value| (as BWD_TOL); bf16 per row as in KERNEL_TOL (both sides
@@ -445,55 +471,108 @@ def flash_work(b, sq, sk, hq, hkv, d, causal, elt):
     return nbytes, 4.0 * d * pairs * b * hq
 
 
-def phase_flash(dev):
+def flash_rate(ms, nbytes, nops, dtype) -> str:
+    """Achieved TFLOP/s of a call of ``ms`` and the share of the bound it
+    reaches."""
+    return (f"{nops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms(nbytes, nops, dtype) / ms:.3f} of the bound")
+
+
+def flash_inputs(shape, dtype, dev, seed):
+    """q, k, v of one ``(b, sq, sk, hq, hkv, d, causal)`` case, drawn from
+    a numpy seed."""
+    b, sq, sk, hq, hkv, d, _ = shape
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev, dtype) for s in
+        ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+
+def check_flash_fwd(args, shape, dtype, tag):
+    """The forward kernel vs its plain version on one case: out held as
+    ``KERNEL_TOL``, lse to 1e-3. Returns the max abs error of out."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd as kern, flash_attention_reference as plain)
+
+    b, sq, sk, hq, hkv, d, causal = shape
+    out, lse = kern(*args, causal=causal)
+    torch.cuda.synchronize()
+    want, want_lse = plain(*args, causal=causal)
+    err, held = kernel_error(out, want, dtype)
+    lse_err = (lse - want_lse).abs().max().item()
+    label = (f"{str(dtype)[6:]} b{b} sq{sq} sk{sk} hq{hq} hkv{hkv} d{d} "
+             f"{'causal' if causal else 'non-causal'}")
+    if not (held <= KERNEL_TOL[dtype] and lse_err <= 1e-3):
+        raise AssertionError(
+            f"flash kernel {label}: error {held} (tol {KERNEL_TOL[dtype]}, "
+            f"max abs {err}), lse err {lse_err}")
+    log(f"{tag} flash fwd {label}: max_abs_err {err:.3e}, held {held:.3e} "
+        f"(tol {KERNEL_TOL[dtype]}), lse err {lse_err:.3e}")
+    return err
+
+
+def flash_fwd_times(args, shape, dtype, err, tag, iters, replays,
+                    plain_iters, plain_replays):
+    """Kernel, plain and SDPA times of one case with its bound, logged with
+    the achieved rates; returns the kernels-line fields."""
     import torch.nn.functional as tnf
 
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_fwd as kern, flash_attention_reference as plain)
 
+    b, sq, sk, hq, hkv, d, causal = shape
+    q = args[0]
+    nbytes, nops = flash_work(*shape, q.element_size())
+    qt, kt, vt = (x.transpose(1, 2) for x in args)
+    st = dict(max_abs_err=err,
+              ms=time_ms(lambda: kern(*args, causal=causal), iters=iters,
+                         replays=replays),
+              plain_ms=time_ms(lambda: plain(*args, causal=causal),
+                               iters=plain_iters, replays=plain_replays),
+              library_ms=time_ms(lambda: tnf.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=causal), iters=iters,
+                  replays=replays),
+              bound_ms=bound_ms(nbytes, nops, dtype),
+              bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+              >= nops / PEAK_OPS[dtype] else "operations")
+    log(f"{tag} flash fwd {str(dtype)[6:]} {[b, sq, hq, d]} "
+        f"{'causal' if causal else 'non-causal'}: kernel {st['ms']:.4f} ms "
+        f"({flash_rate(st['ms'], nbytes, nops, dtype)}), plain "
+        f"{st['plain_ms']:.4f} ms, library (torch sdpa) "
+        f"{st['library_ms']:.4f} ms "
+        f"({flash_rate(st['library_ms'], nbytes, nops, dtype)}), bound "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.3f} GFLOP)")
+    return st
+
+
+def phase_flash(dev):
+    """The forward kernel vs its plain version: the full-forward shape
+    (timed), ``sq != sk`` with GQA and a ragged tail in fp32 and bf16; the
+    bf16 tensor-core kernel at every head dim of ``FLASH_TC_CASES`` and at
+    ``FLASH_LONG`` (timed)."""
     stats = {}
     cases = [(*FLASH_SHAPE[:2], FLASH_SHAPE[1], FLASH_SHAPE[2],
               FLASH_SHAPE[2], FLASH_SHAPE[3], True),
              (2, 200, 456, 12, 4, 64, True),      # sq != sk, GQA
              (2, 333, 333, 12, 12, 64, True)]     # tail not a tile multiple
     for dtype in (torch.float32, torch.bfloat16):
-        for ci, (b, sq, sk, hq, hkv, d, causal) in enumerate(cases):
-            rng = np.random.RandomState(SEED + ci)
-            q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
-                np.float32)).to(dev, dtype) for s in
-                ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
-            out, lse = kern(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            want, want_lse = plain(q, k, v, causal=causal)
-            err, held = kernel_error(out, want, dtype)
-            lse_err = (lse - want_lse).abs().max().item()
-            if not (held <= KERNEL_TOL[dtype] and lse_err <= 1e-3):
-                raise AssertionError(
-                    f"flash kernel {dtype} case {ci}: error {held} (tol "
-                    f"{KERNEL_TOL[dtype]}, max abs {err}), lse err {lse_err}")
-            log(f"[flash] {str(dtype)[6:]} b{b} sq{sq} sk{sk} hq{hq} "
-                f"hkv{hkv} d{d}: max_abs_err {err:.3e}, held {held:.3e} "
-                f"(tol {KERNEL_TOL[dtype]}), lse err {lse_err:.3e}")
-            if ci:
-                continue
-            nbytes, nops = flash_work(b, sq, sk, hq, hkv, d, causal,
-                                      q.element_size())
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            s = dict(max_abs_err=err, ms=time_ms(lambda: kern(q, k, v,
-                                                                causal=True)),
-                     plain_ms=time_ms(lambda: plain(q, k, v, causal=True),
-                                      iters=5),
-                     library_ms=time_ms(lambda: tnf.scaled_dot_product_attention(
-                         qt, kt, vt, is_causal=True)),
-                     bound_ms=bound_ms(nbytes, nops, dtype),
-                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                     >= nops / PEAK_OPS[dtype] else "operations")
-            stats[dtype] = s
-            log(f"[flash] {str(dtype)[6:]} {list(FLASH_SHAPE)} causal: kernel "
-                f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
-                f"library (torch sdpa) {s['library_ms']:.4f} ms, bound "
-                f"{s['bound_ms']:.4f} ms ({s['bound_by']}: "
-                f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP)")
+        for ci, shape in enumerate(cases):
+            args = flash_inputs(shape, dtype, dev, SEED + ci)
+            err = check_flash_fwd(args, shape, dtype, "[flash]")
+            if not ci:
+                stats[dtype] = flash_fwd_times(args, shape, dtype, err,
+                                               "[flash]", 50, 4, 5, 4)
+    for ci, shape in enumerate(FLASH_TC_CASES):
+        check_flash_fwd(flash_inputs(shape, torch.bfloat16, dev,
+                                     SEED + 10 + ci), shape, torch.bfloat16,
+                        "[flash]")
+    b, s, h, d = FLASH_LONG
+    shape = (b, s, s, h, h, d, True)
+    args = flash_inputs(shape, torch.bfloat16, dev, SEED)
+    err = check_flash_fwd(args, shape, torch.bfloat16, "[flash]")
+    stats["long"] = flash_fwd_times(args, shape, torch.bfloat16, err,
+                                    "[flash]", 10, 2, 2, 2)
     return stats
 
 
@@ -2437,25 +2516,29 @@ def bwd_inputs(shape, dtype, dev, seed):
     return q, k, v, do, lse, delta.reshape(b * hq, 1, sq).contiguous()
 
 
-def events_ms(fn, iters=10) -> float:
+def events_ms(fn, iters=10, repeats=5) -> float:
     """Device milliseconds per call from CUDA events around ``iters`` eager
-    calls after 3 warm-up calls (for calls that run autograd, which a CUDA
-    graph does not capture here)."""
+    calls (for calls that run autograd, which a CUDA graph does not capture
+    here), the least of ``repeats`` runs after 3 warm-up calls: a host
+    stall can only add to a run."""
     for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return min(runs)
 
 
 def sdpa_bwd_ms(q, k, v, do) -> float:
-    """SDPA's backward (the aten flash / efficient backward op PyTorch
-    picks for these inputs) on the same tensors, timed, never used."""
+    """SDPA's backward (the aten backward PyTorch picks for these inputs)
+    on the same tensors, timed, never used."""
     import torch.nn.functional as tnf
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -2466,10 +2549,99 @@ def sdpa_bwd_ms(q, k, v, do) -> float:
                                                  retain_graph=True))
 
 
-def phase_flash_bwd(dev):
+def one_key_rows(sq, sk, causal, dev):
+    """[sq] bool: the queries that see exactly one key. Their dq is zero in
+    exact arithmetic (ds = p (dp - delta) with p = 1 and dp = delta)."""
+    r = torch.arange(sq, device=dev)
+    seen = (r + sk - sq + 1).clamp(0, sk) if causal else torch.full_like(
+        r, sk)
+    return seen == 1
+
+
+def bwd_error(got, want, dtype, zero_rows=None):
+    """(max abs error, held error, zero-row error) of one gradient
+    ``[b, s, h, d]``. fp32: held over the tensor's max |want|. bf16: held
+    per row as ``kernel_error``, except the ``zero_rows`` (dq of the
+    queries that see one key), whose exact value is zero: both sides
+    return fp32 rounding noise there (the tensor cores sum dp in another
+    rounding than the plain GEMM and delta), so such a row has no scale of
+    its own and is held as an fp32 gradient, over the tensor's max |want|,
+    to ``BWD_TOL[float32]`` (the zero-row error; 0 where there is none)."""
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        return err, err / scale, 0.0
+    if zero_rows is None or not zero_rows.any():
+        return (*kernel_error(got, want, dtype), 0.0)
+    zero = zero_rows.view(1, -1, 1).expand(got.shape[:-1])
+    err, held = kernel_error(got[~zero], want[~zero], dtype)
+    zero_err = (got[zero].float() - want[zero].float()).abs().max().item()
+    return max(err, zero_err), held, zero_err / scale
+
+
+def check_flash_bwd(args, shape, dtype, tag):
+    """The backward kernel vs its plain version on one case, held as
+    ``bwd_error``. Returns the max abs error over dq, dk, dv."""
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd as kern, flash_attention_bwd_reference as plain)
 
+    b, sq, sk, hq, hkv, d, causal = shape
+    got = kern(*args, causal=causal)
+    torch.cuda.synchronize()
+    want = plain(*args, causal=causal)
+    zero_rows = one_key_rows(sq, sk, causal, got[0].device)
+    errs = {name: bwd_error(g, w, dtype, zero_rows if name == "dq" else None)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    worst = max(h for _, h, _ in errs.values())
+    worst_zero = max(z for _, _, z in errs.values())
+    label = (f"{str(dtype)[6:]} b{b} sq{sq} sk{sk} hq{hq} hkv{hkv} d{d} "
+             f"{'causal' if causal else 'non-causal'}")
+    log(f"{tag} flash bwd {label}: " + ", ".join(
+        f"{n} max_abs_err {e:.3e} held {hd:.3e}"
+        + (f" zero rows {z:.3e}" if z else "")
+        for n, (e, hd, z) in errs.items())
+        + f" (tol {BWD_TOL[dtype]}; zero rows {BWD_TOL[torch.float32]})")
+    if not (worst <= BWD_TOL[dtype]
+            and worst_zero <= BWD_TOL[torch.float32]):
+        raise AssertionError(f"flash bwd kernel {label}: held error {worst} "
+                             f"> {BWD_TOL[dtype]} or zero-row error "
+                             f"{worst_zero} > {BWD_TOL[torch.float32]}")
+    return max(e for e, _, _ in errs.values())
+
+
+def flash_bwd_times(args, shape, dtype, err, tag, iters, plain_iters):
+    """Kernel, plain and SDPA-backward times of one case with its bound,
+    logged with the achieved rates; returns the kernels-line fields."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd as kern, flash_attention_bwd_reference as plain)
+
+    b, sq, sk, hq, hkv, d, causal = shape
+    nbytes, nops = bwd_work(*shape, args[0].element_size())
+    st = dict(max_abs_err=err,
+              ms=time_ms(lambda: kern(*args, causal=causal), iters=iters,
+                         replays=2),
+              plain_ms=time_ms(lambda: plain(*args, causal=causal),
+                               iters=plain_iters, replays=2),
+              library_ms=sdpa_bwd_ms(*args[:4]),
+              bound_ms=bound_ms(nbytes, nops, dtype),
+              bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+              >= nops / PEAK_OPS[dtype] else "operations")
+    log(f"{tag} flash bwd {str(dtype)[6:]} {[b, sq, hq, d]} causal: kernel "
+        f"{st['ms']:.4f} ms ({flash_rate(st['ms'], nbytes, nops, dtype)}), "
+        f"plain {st['plain_ms']:.4f} ms, library (torch sdpa backward) "
+        f"{st['library_ms']:.4f} ms "
+        f"({flash_rate(st['library_ms'], nbytes, nops, dtype)}), bound "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.3f} GFLOP)")
+    return st
+
+
+def phase_flash_bwd(dev):
+    """The backward kernel vs its plain version at the training shape
+    (timed) and odd shapes in fp32 and bf16; the bf16 tensor-core kernel at
+    every head dim of ``FLASH_TC_CASES`` and at ``FLASH_LONG`` (timed); the
+    forward kernel at the training shape (timed: the kernels line's
+    flash_attention_fwd row in bf16)."""
     b, s, h, d = BWD_SHAPE
     cases = [(b, s, s, h, h, d, True),
              (2, 200, 456, 12, 4, 64, True),      # sq != sk, GQA
@@ -2479,84 +2651,31 @@ def phase_flash_bwd(dev):
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         for ci, shape in enumerate(cases):
-            causal = shape[-1]
             args = bwd_inputs(shape, dtype, dev, SEED + ci)
-            got = kern(*args, causal=causal)
-            torch.cuda.synchronize()
-            want = plain(*args, causal=causal)
-            errs = {}
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                err, held = kernel_error(g, w, dtype)
-                if dtype == torch.float32:
-                    held = err / w.abs().max().item()
-                errs[name] = (err, held)
-            worst = max(h for _, h in errs.values())
-            max_err = max(e for e, _ in errs.values())
-            log(f"[train] flash bwd {str(dtype)[6:]} b{shape[0]} sq{shape[1]} "
-                f"sk{shape[2]} hq{shape[3]} hkv{shape[4]} d{shape[5]} "
-                f"{'causal' if causal else 'non-causal'}: " + ", ".join(
-                    f"{n} max_abs_err {e:.3e} held {hd:.3e}"
-                    for n, (e, hd) in errs.items())
-                + f" (tol {BWD_TOL[dtype]})")
-            if not worst <= BWD_TOL[dtype]:
-                raise AssertionError(f"flash bwd kernel {dtype} case {ci}: "
-                                     f"held error {worst} > {BWD_TOL[dtype]}")
-            if ci:
-                continue
-            elt = args[0].element_size()
-            nbytes, nops = bwd_work(*shape, elt)
-            st = dict(max_abs_err=max_err,
-                      ms=time_ms(lambda: kern(*args, causal=True), iters=10,
-                                 replays=2),
-                      plain_ms=time_ms(lambda: plain(*args, causal=True),
-                                       iters=2, replays=2),
-                      library_ms=sdpa_bwd_ms(*args[:4]),
-                      bound_ms=bound_ms(nbytes, nops, dtype),
-                      bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                      >= nops / PEAK_OPS[dtype] else "operations")
-            stats[dtype] = st
-            log(f"[train] flash bwd {str(dtype)[6:]} {list(BWD_SHAPE)} "
-                f"causal: "
-                f"kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-                f"library (torch sdpa backward) {st['library_ms']:.4f} ms, "
-                f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}: "
-                f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP)")
-    # the forward kernel at the same shape (d 128, which phase 4 does not
-    # cover): held against its plain version, and timed for the step's
-    # breakdown
-    import torch.nn.functional as tnf
-
-    from paddle_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_reference)
-
+            err = check_flash_bwd(args, shape, dtype, "[train]")
+            if not ci:
+                stats[dtype] = flash_bwd_times(args, shape, dtype, err,
+                                               "[train]", 10, 2)
+    for ci, shape in enumerate(FLASH_TC_CASES):
+        check_flash_bwd(bwd_inputs(shape, torch.bfloat16, dev,
+                                   SEED + 10 + ci), shape, torch.bfloat16,
+                        "[train]")
+    bl, sl, hl, dl = FLASH_LONG
+    shape = (bl, sl, sl, hl, hl, dl, True)
+    args = bwd_inputs(shape, torch.bfloat16, dev, SEED)
+    err = check_flash_bwd(args, shape, torch.bfloat16, "[train]")
+    stats["long"] = flash_bwd_times(args, shape, torch.bfloat16, err,
+                                    "[train]", 5, 1)
+    del args
+    # the forward kernel at the same shape: held against its plain version,
+    # and timed for the step's breakdown and the kernels line
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = bwd_inputs(cases[0], dtype, dev, SEED)[:3]
-        out, lse = flash_attention_fwd(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        want, want_lse = flash_attention_reference(q, k, v, causal=True)
-        err, held = kernel_error(out, want, dtype)
-        lse_err = (lse - want_lse).abs().max().item()
-        if not (held <= KERNEL_TOL[dtype] and lse_err <= 1e-3):
-            raise AssertionError(
-                f"flash kernel {dtype} at {list(BWD_SHAPE)}: error {held} "
-                f"(tol {KERNEL_TOL[dtype]}, max abs {err}), lse err "
-                f"{lse_err}")
-        nbytes, nops = flash_work(b, s, s, h, h, d, True, q.element_size())
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
-                     iters=10, replays=2)
-        plain_ms = time_ms(lambda: flash_attention_reference(
-            q, k, v, causal=True), iters=2, replays=2)
-        lib_ms = time_ms(lambda: tnf.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=10, replays=2)
-        stats[dtype]["fwd_ms"] = ms
-        log(f"[train] flash fwd {str(dtype)[6:]} {list(BWD_SHAPE)} causal: "
-            f"max_abs_err {err:.3e}, held {held:.3e} (tol "
-            f"{KERNEL_TOL[dtype]}), lse err {lse_err:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch "
-            f"sdpa) {lib_ms:.4f} ms, bound "
-            f"{bound_ms(nbytes, nops, dtype):.4f} ms ({nbytes / 1e6:.2f} MB, "
-            f"{nops / 1e9:.3f} GFLOP)")
+        args = bwd_inputs(cases[0], dtype, dev, SEED)[:3]
+        err = check_flash_fwd(args, cases[0], dtype, "[train]")
+        fwd = flash_fwd_times(args, cases[0], dtype, err, "[train]", 10, 2,
+                              2, 2)
+        stats[dtype]["fwd"] = fwd
+        stats[dtype]["fwd_ms"] = fwd["ms"]
     return stats
 
 
@@ -2660,6 +2779,56 @@ def phase_train_fp32(dev):
         f"losses rel err {loss_err:.3e} (tol {LOSS_TOL})")
     if not (errs[worst] <= GRAD_TOL and loss_err <= LOSS_TOL):
         raise AssertionError("fp32 training: flash and plain disagree")
+
+
+def phase_train_bf16_parity(dev):
+    """bf16 ``build_spmd_train_step`` with flash vs plain attention at the
+    flagship width (12 heads of 128) and at gpt3-760m's ``GPT_CONFIGS``
+    width (16 heads of 96), both cut to 2 layers, b 2, s 1024, recompute
+    with the flash outputs saved: the loss, every gradient leaf and the
+    flash launches (2 forward and 2 backward a step; none on the plain
+    path)."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.models.convert import random_train_params
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTConfig
+
+    for label, base in (
+            ("flagship width, 12 heads of 128",
+             GPTConfig(**dict(TRAIN, num_layers=2))),
+            ("gpt3-760m width, 16 heads of 96", replace(
+                GPT_CONFIGS["gpt3-760m"], num_layers=2, recompute=True,
+                remat_save_attn=True))):
+        weights = random_train_params(base, SEED)
+        runs = {}
+        for flash in (True, False):
+            cfg = replace(base, use_flash_attention=flash)
+            step, params, mom, (ids, labels) = gpt_spmd.build_spmd_train_step(
+                cfg, batch_size=2, seq_len=1024, num_micro=1, lr=0.05,
+                device=dev, params=weights, dtype=torch.bfloat16)
+            reset_counts()
+            loss, grads = gpt_spmd.value_and_grad(params, ids, labels, cfg, 1)
+            torch.cuda.synchronize()
+            runs[flash] = (loss.item(), dict(gpt_spmd.leaves(grads)),
+                           (read_counts()[0], bwd_count()))
+            del step, params, mom, grads
+        errs = _grad_errors(runs[True][1], runs[False][1])
+        worst = max(errs, key=errs.get)
+        loss_err = abs(runs[True][0] - runs[False][0]) / abs(runs[False][0])
+        log(f"[train] bf16 {label}, 2 layers b2 s1024 recompute+save_attn, "
+            f"flash vs plain: loss {runs[True][0]:.6f} vs "
+            f"{runs[False][0]:.6f} (rel err {loss_err:.3e}, tol "
+            f"{BF16_LOSS_TOL}); {len(errs)} gradient leaves, worst {worst} "
+            f"{errs[worst]:.3e} of its max |grad| (tol {BF16_GRAD_TOL}); "
+            f"flash launches fwd/bwd {runs[True][2]} / {runs[False][2]}")
+        if runs[True][2] != (2, 2) or runs[False][2] != (0, 0):
+            raise AssertionError(f"bf16 {label}: flash launches "
+                                 f"{runs[True][2]} / {runs[False][2]} (want "
+                                 "(2, 2) / (0, 0))")
+        if not (errs[worst] <= BF16_GRAD_TOL and loss_err <= BF16_LOSS_TOL):
+            raise AssertionError(f"bf16 training ({label}): flash and plain "
+                                 "disagree")
 
 
 def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
@@ -2986,8 +3155,9 @@ def phase_fused_train_fp32(dev):
                                  "disagree")
 
 
-KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel",)),
-                 ("flash bwd", ("flash_bwd_kernel",)),
+KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+                                 "flash_fwd_wg_kernel")),
+                 ("flash bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
                  ("fused LN / GELU", ("ln_fwd_kernel", "ln_bwd_kernel",
                                       "gelu_kernel")),
                  ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
@@ -3028,10 +3198,12 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag} profiled kernel {ev.self_device_time_total / 1e3:8.2f} "
             f"ms x{ev.count:<4d} {ev.key[:90]}")
+    flash = groups["flash fwd"] + groups["flash bwd"]
     log(f"{tag} profiled bf16 step: wall {wall_us / 1e3:.1f} ms (under the "
         f"profiler), device busy {busy / 1e3:.1f} ms = "
         f"{busy / wall_us:.3f} of it, idle {1 - busy / wall_us:.3f}; "
-        f"{launches} kernels; " + ", ".join(
+        f"{launches} kernels; flash share of device time "
+        f"{flash / busy:.3f}; " + ", ".join(
             f"{n} {t / 1e3:.1f} ms ({t / busy:.3f})"
             for n, t in groups.items()) + f" ({card})")
 
@@ -3085,9 +3257,14 @@ def main() -> int:
     log(f"[build] dynamic shared memory per block: ragged_paged_attention "
         f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['ps'], g['d'])} B"
         f" (chunk {g['chunk']}, page {g['ps']}, d {g['d']}), "
-        f"flash_attention_fwd {flash_smem(FLASH_SHAPE[3])} B (d "
-        f"{FLASH_SHAPE[3]}), flash_attention_bwd {bwd_smem_bytes(64)} B (d "
-        f"64) / {bwd_smem_bytes(128)} B (d 128), mega attention "
+        "flash_attention_fwd bf16 " + " / ".join(
+            f"{flash_smem(d)} B (d {d})" for d in (32, 64, 80, 96, 128))
+        + f", fp32 {flash_smem(64, torch.float32)} / "
+        f"{flash_smem(128, torch.float32)} B (d 64 / 128), "
+        "flash_attention_bwd bf16 " + " / ".join(
+            f"{bwd_smem_bytes(d)} B (d {d})" for d in (32, 64, 80, 96, 128))
+        + f", fp32 {bwd_smem_bytes(64, torch.float32)} / "
+        f"{bwd_smem_bytes(128, torch.float32)} B (d 64 / 128), mega attention "
         f"{mega_smem(MEGA_SERVING[0][1], 64, 64)} B (chunk "
         f"{MEGA_SERVING[0][1]}, d 64, page 64) / {mega_smem(64, 128, 64)} B "
         f"(chunk 64, d 128), paged decode {decode_smem_bytes(1, 64, 64)} B "
@@ -3143,6 +3320,7 @@ def main() -> int:
     phase_fused_eager(model, cfg, dev)
     del model
     phase_train_fp32(dev)
+    phase_train_bf16_parity(dev)
     phase_fused_train_fp32(dev)
     train = phase_train_bf16(dev, card, bwd[torch.bfloat16])
     fused_train = phase_train_bf16(dev, card, bwd[torch.bfloat16],
@@ -3178,7 +3356,7 @@ def main() -> int:
             ("flash_attention_fwd",
              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:262",
-             flash_launches + train_fwd, flash[torch.float32]),
+             flash_launches + train_fwd, bwd[bf16]["fwd"]),
             ("flash_attention_bwd",
              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:419",
@@ -3214,6 +3392,33 @@ def main() -> int:
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
     row_of = {k["name"]: k for k in kernels}
+    serving, long_fwd, long_bwd = flash[bf16], flash["long"], bwd["long"]
+    row_of["flash_attention_fwd"]["serving_shape"] = dict(
+        shape=list(FLASH_SHAPE), dtype="bf16",
+        **{k: serving[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")})
+    for name, st in (("flash_attention_fwd", long_fwd),
+                     ("flash_attention_bwd", long_bwd)):
+        row_of[name]["long"] = dict(
+            shape=list(FLASH_LONG), dtype="bf16",
+            **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")})
+    f32 = flash[torch.float32]
+    row_of["flash_attention_fwd"]["note"] = (
+        f"bf16 at the training shape {list(BWD_SHAPE)} causal (tensor "
+        "cores); serving_shape: bf16 at the full-forward shape; long: bf16 "
+        f"at {list(FLASH_LONG)}; fp32 (CUDA cores) at {list(FLASH_SHAPE)}: "
+        f"ms {f32['ms']:.4f}, plain_ms {f32['plain_ms']:.4f}, bound_ms "
+        f"{f32['bound_ms']:.6f}, library_ms {f32['library_ms']:.4f}; at the "
+        f"training shape ms {bwd[torch.float32]['fwd_ms']:.4f}; launches: "
+        "phase 5's full forward and both flagship runs")
+    b32 = bwd[torch.float32]
+    row_of["flash_attention_bwd"]["note"] = (
+        f"bf16 at the training shape {list(BWD_SHAPE)} causal (tensor "
+        f"cores); long: bf16 at {list(FLASH_LONG)}; fp32 (CUDA cores) at the"
+        f" training shape: ms {b32['ms']:.4f}, plain_ms "
+        f"{b32['plain_ms']:.4f}, bound_ms {b32['bound_ms']:.6f}, library_ms"
+        f" {b32['library_ms']:.4f}; launches: both flagship runs")
     for fkind, variants in FUSED_KINDS:
         row = row_of[f"fused_mlp_{fkind}"]
         other = fused[(fkind, variants[1], bf16)]
@@ -3279,10 +3484,10 @@ def main() -> int:
         f"bf16 {d16['ragged_ms']:.4f} ms; launches: phase 12's fp32 legacy "
         "served runs (GPT-125M fp and int8, the d 96 model)")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
-        "(summary: ragged and flash_attention_fwd times in fp32 at the "
-        "serving / full-forward shapes of phases 3-4, launches on the main "
-        "paths of phases 5-8; flash_attention_bwd in bf16 at the training "
-        f"shape {list(BWD_SHAPE)}, launches in the bf16 training run; "
+        "(summary: ragged times in fp32 at the serving shapes of phase 3, "
+        "launches on the main paths of phases 5-8; flash_attention_fwd and "
+        f"_bwd in bf16 at the training shape {list(BWD_SHAPE)}, launches in "
+        "phase 5 and the bf16 training runs; "
         "quant_matmul_* in bf16, the sum of one layer's four GEMMs at M "
         f"{QMM_ROWS}, launches in phase 8's fp32 serving runs (forward) and "
         "gradient drives (backward); fused_mlp_* in bf16 at the flagship "

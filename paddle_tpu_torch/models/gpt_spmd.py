@@ -15,11 +15,12 @@ its one-device case (dp = pp = mp = 1), in eager PyTorch:
 - :func:`_block` is the dense, mp = 1 decoder block. Attention takes the
   flash custom op (``ops/flash_attention.py``: the hand-written forward
   and backward kernels on a CUDA tensor) when ``use_flash_attention`` is
-  set on CUDA and the kernels take the call (``kernel_takes``: head_dim 64
-  or 128, fp32 or bf16), or ``force_flash`` on the CPU, and plain causal
-  softmax attention otherwise. With ``fused_mlp`` (on CUDA;
-  ``force_fused_mlp`` on the CPU, where the plain versions run) LN1 is the
-  fused LayerNorm op and the MLP half :func:`_block_mlp_fused`: the
+  set on CUDA and the kernels take the call (``kernel_takes``: bf16 at
+  head_dim 32, 64, 80, 96 or 128, fp32 at 64 or 128), or ``force_flash``
+  on the CPU, and plain causal softmax attention otherwise. With
+  ``fused_mlp`` (on CUDA; ``force_fused_mlp`` on the CPU, where the plain
+  versions run) LN1 is the fused LayerNorm op and the MLP half
+  :func:`_block_mlp_fused`: the
   residual add and LN2 in one op, fc1's bias and GELU in another
   (``ops/fused_mlp.py``, the hand-written LN and GELU kernels, forward and
   backward).

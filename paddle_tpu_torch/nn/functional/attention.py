@@ -3,9 +3,10 @@
 Port of ``paddle_tpu/nn/functional/attention.py``: inputs are paddle's
 ``[batch, seq, heads, head_dim]`` layout. ``scaled_dot_product_attention``
 routes causal, unmasked, dropout-free calls that the built kernels take
-(``ops.flash_attention.kernel_takes``: CUDA tensors, head_dim 64 or 128,
-fp32 or bf16, ``hq % hkv == 0``) to the hand-written flash kernels
-(differentiable: the backward runs the flash backward kernel); everything
+(``ops.flash_attention.kernel_takes``: CUDA tensors, bf16 at head_dim 32,
+64, 80, 96 or 128, fp32 at 64 or 128, ``hq % hkv == 0``) to the
+hand-written flash kernels (differentiable: the backward runs the flash
+backward kernel); everything
 else — every CPU call, other head dims and dtypes, masks, dropout,
 non-causal — runs :func:`_sdpa_ref`, the torch twin of the JAX
 ``_sdpa_ref``, as the reference runs it wherever its kernel does not

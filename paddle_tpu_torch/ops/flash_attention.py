@@ -10,10 +10,15 @@ bottom-right (row ``r`` sees keys ``<= r + sk - sq``); GQA reads kv head
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` (or
-raise); on a CPU tensor they run :func:`flash_attention_reference` and
-:func:`flash_attention_bwd_reference`. :func:`flash_attention` is
-differentiable on both: one custom op (``paddle_tpu_torch::flash_attention``)
-whose forward runs the forward wrapper and saves ``(q, k, v, out, lse)``,
+raise): bf16 on the tensor cores at head_dim 32, 64, 80, 96 and 128 (the
+widths of the reference's ``GPT_CONFIGS``), fp32 on the CUDA cores at 64
+and 128 (tensor cores would make it TF32). On a CPU tensor they run
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
+The bf16 forward kernel rounds ``p`` to bf16 before ``p v`` per key tile, as
+the reference's kernel does; the dense twin keeps ``p`` in fp32.
+:func:`flash_attention` is differentiable on both: one custom op
+(``paddle_tpu_torch::flash_attention``) whose forward runs the forward
+wrapper and saves ``(q, k, v, out, lse)``,
 and whose backward forms ``delta = rowsum(do * out)`` in fp32 and runs the
 backward wrapper. Being one op, selective activation checkpointing can keep
 its ``out`` and ``lse`` (``models/gpt_spmd.py``, ``remat_save_attn``). The
@@ -33,8 +38,9 @@ from . import _build
 
 NEG_INF = -1e30
 LSE_INVALID = 1e30
-HEAD_DIMS = (64, 128)                       # the built instantiations
-DTYPES = (torch.float32, torch.bfloat16)    # the C entries' dtype codes
+# the built instantiations, by dtype (the C entries' dtype codes)
+HEAD_DIMS = {torch.float32: (64, 128),
+             torch.bfloat16: (32, 64, 80, 96, 128)}
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _P = ctypes.c_void_p
@@ -42,26 +48,27 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ptt_flash_fwd": [_P] * 5 + [_I] * 6
     + [ctypes.c_float, _I, _I, _I, _P],
-    "ptt_flash_smem_bytes": [_I],
+    "ptt_flash_smem_bytes": [_I, _I],
 }
 _BWD_SIGNATURES = {
     "ptt_flash_bwd": [_P] * 9 + [_I] * 6
     + [ctypes.c_float, _I, _I, _I, _P],
-    "ptt_flash_bwd_smem_bytes": [_I],
+    "ptt_flash_bwd_smem_bytes": [_I, _I],
 }
 
 
-def smem_bytes(d: int) -> int:
+def smem_bytes(d: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory one block of the forward kernel uses at
-    head_dim ``d`` (builds the kernel on first use)."""
-    return _build.load(_KERNEL, _SIGNATURES).ptt_flash_smem_bytes(d)
+    head_dim ``d`` in ``dtype`` (builds the kernel on first use)."""
+    return _build.load(_KERNEL, _SIGNATURES).ptt_flash_smem_bytes(
+        d, _build.dtype_code(dtype, "flash attention"))
 
 
-def bwd_smem_bytes(d: int) -> int:
+def bwd_smem_bytes(d: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory one block of the backward kernel uses at
-    head_dim ``d`` (builds the kernel on first use)."""
-    return _build.load(_BWD_KERNEL,
-                       _BWD_SIGNATURES).ptt_flash_bwd_smem_bytes(d)
+    head_dim ``d`` in ``dtype`` (builds the kernel on first use)."""
+    return _build.load(_BWD_KERNEL, _BWD_SIGNATURES).ptt_flash_bwd_smem_bytes(
+        d, _build.dtype_code(dtype, "flash attention"))
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None):
@@ -94,18 +101,18 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
 
 def kernel_takes(q, k) -> bool:
     """Whether the built kernels run attention of ``q [b, sq, hq, d]``
-    over ``k [b, sk, hkv, d]``: CUDA tensors, head_dim in
-    :data:`HEAD_DIMS`, dtype in :data:`DTYPES`, ``hq % hkv == 0``. Decided
-    from shape, dtype and device alone, before any launch."""
+    over ``k [b, sk, hkv, d]``: CUDA tensors, a dtype of
+    :data:`HEAD_DIMS` with head_dim among its widths, ``hq % hkv == 0``.
+    Decided from shape, dtype and device alone, before any launch."""
     return (q.device.type == "cuda" and k.device == q.device
-            and q.shape[-1] in HEAD_DIMS and q.dtype in DTYPES
+            and q.shape[-1] in HEAD_DIMS.get(q.dtype, ())
             and k.dtype == q.dtype and q.shape[2] % k.shape[2] == 0)
 
 
 def _check_cuda_inputs(q, *rest):
     """The kernels' common demands on q, k, v (and do): one dtype they
-    take, one device, contiguous, 16-byte aligned, head_dim 64 or 128.
-    Returns the dtype code."""
+    take, one device, contiguous, 16-byte aligned, a head_dim built for
+    that dtype (:data:`HEAD_DIMS`). Returns the dtype code."""
     code = _build.dtype_code(q.dtype, "flash attention")
     d = q.shape[3]
     if any(t.dtype != q.dtype for t in rest):
@@ -118,10 +125,10 @@ def _check_cuda_inputs(q, *rest):
     if any(t.data_ptr() % 16 for t in (q, *rest)):
         raise ValueError("flash attention: inputs must be 16-byte aligned "
                          "(the kernels load 16-byte rows)")
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
-            f"flash attention kernels are built for head_dim 64 or 128, "
-            f"got {d}")
+            f"flash attention kernels are built for head_dim "
+            f"{HEAD_DIMS[q.dtype]} in {q.dtype}, got {d}")
     return code
 
 

@@ -6,6 +6,14 @@ Cases: causal and non-causal, GQA, ``sq < sk`` (bottom-right causal
 alignment) and ``sq > sk`` causal, whose first rows see no key (out 0,
 lse ``LSE_INVALID``). fp32, ``atol 1e-5`` on out (fp32 sums in another
 order), ``rtol 1e-5`` on lse.
+
+In bf16 the JAX kernel rounds each key block's ``p`` to bf16 before
+``p v`` (as the card's kernel does); the dense twin keeps ``p`` in fp32.
+Both round ``out`` to bf16 once, so an element may differ by one bf16 step
+(<= 2^-7 of it): each row's max abs error is held to ``1e-2`` of the row's
+max ``|out|`` — the tolerance the card's bf16 kernel is held to against the
+twin (``KERNEL_TOL`` in ``chip_smoke.py``) — and lse, summed from fp32
+``p`` on both sides, to ``1e-5`` relative.
 """
 import math
 
@@ -62,6 +70,38 @@ def test_flash_twin_matches_jax_kernel(b, sq, sk, hq, hkv, causal):
         assert (lse.numpy()[:, 0, :dead] == LSE_INVALID).all()
 
 
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 256, 256),
+                                          (True, 128, 256),
+                                          (False, 256, 128)])
+def test_bf16_twin_within_kernel_tolerance_of_jax_kernel(d, causal, sq, sk):
+    """gpt3-2.7b's (d 80) and gpt3-760m's (d 96) head widths in bf16:
+    the JAX kernel walks 64-key blocks (four or two of them), rounding each
+    block's ``p`` with that block's running max."""
+    b, hq, hkv = 1, 4, 2
+    rng = np.random.RandomState(d + sq + sk)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+
+    def bhsd(x):
+        return jnp.asarray(x.float().numpy().transpose(0, 2, 1, 3).reshape(
+            b * x.shape[2], x.shape[1], d), jnp.bfloat16)
+
+    jout, jlse = _flash_fwd_impl(bhsd(qb), bhsd(kb), bhsd(vb), None, None,
+                                 1.0 / math.sqrt(d), causal, hq,
+                                 blocks=(64, 64))
+    want = np.asarray(jout.astype(jnp.float32)).reshape(
+        b, hq, sq, d).transpose(0, 2, 1, 3)
+    out, lse = flash_attention_fwd(qb, kb, vb, causal=causal)
+    assert out.dtype == torch.bfloat16
+    diff = np.abs(out.float().numpy() - want).max(-1)
+    row_max = np.maximum(np.abs(want).max(-1), 1e-30)
+    assert (diff / row_max).max() <= 1e-2, (diff / row_max).max()
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5,
+                               atol=0)
+
+
 def test_flash_mask_and_varlen_raise():
     x = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="mask"):
@@ -89,11 +129,12 @@ def test_sdpa_routes_cpu_to_reference():
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
                                    torch.float32])
 def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
-    """The routing predicate: CUDA tensors of head_dim 64 / 128 in fp32 /
-    bf16 with ``hq % hkv == 0`` go to the kernels; the rest (the
-    reference's d 32 / 80 / 96 configs, fp16) to plain attention. Decided
-    from shape, dtype and device only, so a stand-in with those attributes
-    plays a CUDA tensor here."""
+    """The routing predicate: CUDA tensors with ``hq % hkv == 0`` in bf16
+    at every head dim the reference's configs use (32 / 64 / 80 / 96 /
+    128: the tensor-core kernels) or in fp32 at 64 / 128 go to the
+    kernels; the rest (fp32 at 32 / 80 / 96, fp16 at any width) to plain
+    attention. Decided from shape, dtype and device only, so a stand-in
+    with those attributes plays a CUDA tensor here."""
     from types import SimpleNamespace
 
     cuda = torch.device("cuda", 0)
@@ -101,7 +142,8 @@ def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
     def fake(shape, dt=dtype, device=cuda):
         return SimpleNamespace(shape=shape, dtype=dt, device=device)
 
-    want = d in (64, 128) and dtype in (torch.float32, torch.bfloat16)
+    want = (dtype == torch.bfloat16
+            or (dtype == torch.float32 and d in (64, 128)))
     assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 4, d))) == want
     assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 2, d))) == want
     assert not kernel_takes(fake((2, 16, 6, d)), fake((2, 16, 4, d)))
