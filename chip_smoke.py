@@ -1,8 +1,13 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --moe-forward [ROOT]
 
-from the root of a checkout. Phases (each failure ends the run non-zero):
+from the root of a checkout. The second form runs only phase 11's bf16
+MoE full forward, with the package of the checkout at ROOT (default: this
+one; an unpacked ``git archive`` of another commit compares two trees on
+one card) and prints one JSON line. Phases (each failure ends the run
+non-zero):
 
 1. device: the card's name and power limit;
 2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
@@ -101,8 +106,12 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    empty; w1 768 x 3072, w2 3072 x 768), (b) the prefill rows (4,096,
    skewed, one empty) and (c) an odd shape (5 experts, K 136, N 72, groups
    of 8, an empty and a 1-row expert), fp32 and bf16, the empty experts'
-   weights NaN; kernel / plain / bound times at (a) and (b) with
-   ``torch._grouped_mm`` as the yardstick of bf16 fp weights; then
+   weights NaN; bf16 fp weights run the tensor-core kernel at all three
+   (one ``tc_launches`` each for the forward and dx, none elsewhere), and
+   a second launch at (a) and (b) must be bitwise equal to the first;
+   kernel / plain / bound times at (a) and (b) with ``torch._grouped_mm``
+   as the yardstick of bf16 fp weights; bf16 fp weights at K 136, N 76
+   (a width the 16-byte copies cannot take) on the CUDA-core kernel; then
    ``ServingPredictor`` on GPT-125M with 4 experts, top-2, and the phase-6
    requests in fp32: (i) capacity factor 4.0 against the full-forward
    oracle, (ii) 1.25 against the same step with the plain grouped GEMM
@@ -110,13 +119,17 @@ from the root of a checkout. Phases (each failure ends the run non-zero):
    weights at 4.0 against the full forward over the dequantized weights;
    24 grouped-GEMM and 12 ragged launches a step (and 24 weight-only GEMM
    launches with (iii) / (iv)), none of the mega kernels; the router's
-   load imbalance and drop rate on an eager probe; the bf16 MoE step
-   beside phase 6's dense step, one profiled run, and the weight bytes;
-   the eager 2-layer MoE model's gradients, kernel vs plain (4 dx
-   launches), and an input gradient through int8 expert stacks; last, the
-   attention routing: a 2-layer gpt3-760m-width model (head_dim 96) and
-   an fp16 GPT-125M forward equal to the plain path's logits with no flash
-   launch, and one d 96 ``gpt_spmd`` training step.
+   load imbalance and drop rate on an eager probe; the bf16 MoE step at
+   cf 1.25 (every grouped GEMM on the tensor-core kernel) beside phase 6's
+   dense step, one profiled run, and the weight bytes; the bf16 MoE
+   full forward on ids [4, 512] at cf 1.25 (24 tensor-core launches a
+   forward, median of 5 after a warm-up, one profiled forward: the
+   grouped GEMM's device time and share); the eager 2-layer MoE model's
+   gradients, kernel vs plain (4 dx launches), an input gradient through
+   int8 expert stacks and a bf16 one through the tensor-core dx; last,
+   the attention routing: a 2-layer gpt3-760m-width model (head_dim 96)
+   and an fp16 GPT-125M forward equal to the plain path's logits with no
+   flash launch, and one d 96 ``gpt_spmd`` training step.
 
 12. legacy serving (run after phase 11): (a) the paged decode kernel vs
    its plain version and vs the ragged kernel at chunk 1 on the same pools,
@@ -270,13 +283,22 @@ MEGA_SERVE = (("i fp", {}, None),
                     kv_cache_dtype="int8"), 2e-2))
 # phase 11. MoE serving: GPT-125M with 4 experts, top-2 (the reference's
 # bench_serving_moe_ab). The grouped GEMM is the weight-only GEMM per
-# expert (the same tiles, dequantization and split sums): held as QMM_TOL.
+# expert (the same tiles, dequantization and split sums): held as QMM_TOL;
+# on the tensor cores (bf16 fp weights) the bf16 products are exact in
+# fp32 and summed in another order, and each side rounds one fp32 sum per
+# element: held per row as QMM_TOL[bf16].
 MOE = dict(moe_experts=4, moe_top_k=2)
 GMM_TOL = QMM_TOL
 GMM_SHAPES = {"w1": (768, 3072), "w2": (3072, 768)}   # an expert's [K, N]
 GMM_ROWS = [30, 0, 11, 7]          # (a) 24 tokens x top-2, one expert empty
 GMM_PREFILL = [2400, 0, 900, 796]  # (b) 2 x 4 x 512 rows, skewed
 GMM_ODD = (136, 72, [5, 0, 1, 9, 3], 8)   # (c) K, N, rows, scale group
+# bf16 fp weights at widths the tensor-core kernel's 16-byte copies cannot
+# take (N not a multiple of 8): the CUDA-core kernel, with (c)'s rows
+GMM_OFF_COPIES = (136, 76)
+# the bf16 MoE full forward: GPTForCausalLM on ids [4, 512] (2,048 tokens
+# x top-2 = 4,096 rows through each layer's two grouped GEMMs), cf 1.25
+MOE_FWD_IDS = (4, 512)
 GMM_WEIGHTS = (("fp", None, -1), ("int8", "int8", -1),
                ("int8 g128", "int8", 128), ("int4 g128", "int4", 128))
 # (label, capacity factor, quantization): cf 4.0 drops nothing, so the
@@ -366,9 +388,14 @@ def ptxas_summary(name: str, text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
                       r"(13__nv_bfloat16|f)(?:L[ib](\d+))?", line)
+        tc = re.search(r"Compiling entry function '.*?(gmm_(?:tc|wg)_kernel)"
+                       r"ILb(\d)E", line)
         if m:
             inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
                     m.group(3) or "-")
+        elif tc:
+            inst = (tc.group(1), "bf16",
+                    "dx" if tc.group(2) == "1" else "fwd")
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
@@ -592,6 +619,8 @@ def reset_counts():
     grouped_matmul.grouped_matmul_fwd.launches = {"fp": 0, "int8": 0,
                                                   "int4": 0}
     grouped_matmul.grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
+    grouped_matmul.grouped_matmul_fwd.tc_launches = 0
+    grouped_matmul.grouped_matmul_bwd.tc_launches = 0
     mega_decode.mega_attn_layer.launches = 0
     mega_decode.mega_mlp.launches = 0
     flash_attention_fwd.launches = 0
@@ -1511,6 +1540,15 @@ def mega_counts():
 def profile_serve(sp, early, late, card, tag):
     """One served bf16 run under ``torch.profiler``: device busy and idle
     share of its wall time, and device time by kernel group."""
+    return profile_run(lambda: serve(sp, early, late), card, tag,
+                       lambda: f"{sp.steps} steps")
+
+
+def profile_run(fn, card, tag, what):
+    """``fn()`` once under ``torch.profiler``: logs (``what()`` naming the
+    run) the device busy and idle share of its wall time and the device
+    time by kernel group; returns ``{group: (device us, launches)}`` and
+    the busy us, or None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1518,17 +1556,19 @@ def profile_serve(sp, early, late, card, tag):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(sp, early, late)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
               "paged decode kernel": ("paged_decode",),
               "weight-only GEMM": ("qmm_kernel",),
-              "grouped GEMM": ("gmm_kernel",),
+              "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
+                               "gmm_wg_kernel"),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
     times = {name: 0.0 for name in groups}
     times["other PyTorch kernels"] = 0.0
+    counts = dict.fromkeys(times, 0)
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
                and ev.self_device_time_total > 0]
@@ -1538,16 +1578,18 @@ def profile_serve(sp, early, late, card, tag):
                      if any(m in key for m in marks)),
                     "other PyTorch kernels")
         times[name] += ev.self_device_time_total
+        counts[name] += ev.count
     busy = sum(times.values())
     if busy <= 0:
         log(f"{tag} profiler: no device time in the trace (not measured)")
-        return
-    log(f"{tag} profiled bf16 run: {sp.steps} steps, wall {wall_us / 1e3:.1f}"
-        f" ms under the profiler, device busy {busy / 1e3:.1f} ms = "
+        return None
+    log(f"{tag} profiled bf16 run: {what()}, wall {wall_us / 1e3:.1f}"
+        f" ms under the profiler, device busy {busy / 1e3:.3f} ms = "
         f"{busy / wall_us:.3f}, idle {1 - busy / wall_us:.3f}; "
         f"{sum(ev.count for ev in kernels)} kernels; " + ", ".join(
-            f"{n} {t / 1e3:.1f} ms ({t / busy:.3f})"
+            f"{n} {t / 1e3:.3f} ms ({t / busy:.3f}, {counts[n]} launches)"
             for n, t in times.items() if t) + f" ({card})")
+    return {n: (t, counts[n]) for n, t in times.items()}, busy
 
 
 def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
@@ -1662,6 +1704,16 @@ def gmm_counts() -> dict:
     out = dict(grouped_matmul_fwd.launches)
     out.update({f"{k}_bwd": v for k, v in grouped_matmul_bwd.launches.items()})
     return out
+
+
+def gmm_tc_counts() -> list:
+    """[forward, dx] launches of the tensor-core grouped GEMM since
+    :func:`reset_counts` (0 for a package that has none)."""
+    from paddle_tpu_torch.ops.grouped_matmul import (grouped_matmul_bwd,
+                                                     grouped_matmul_fwd)
+
+    return [getattr(grouped_matmul_fwd, "tc_launches", 0),
+            getattr(grouped_matmul_bwd, "tc_launches", 0)]
 
 
 @contextlib.contextmanager
@@ -1785,6 +1837,9 @@ def phase_gmm(dev, card):
             for ci, (counts, k, n, name, rows, g) in enumerate(cases):
                 x, dy, w, sc, offs = gmm_case(counts, k, n, wd, g, dtype,
                                               dev, SEED + ci)
+                tag = (f"[moe] {fwd_name} {label} {str(dtype)[6:]} {name} "
+                       f"({rows}) M {sum(counts)} {counts} x [{k}, {n}] g{g}")
+                tc0 = gmm_tc_counts()
                 pairs = [(grouped_matmul_fwd(x, w, offs, sc),
                           grouped_matmul_reference(x, w, offs, sc))]
                 if bwd_name:
@@ -1793,6 +1848,22 @@ def phase_gmm(dev, card):
                         grouped_matmul_dx_reference(dy, w, offs, sc, k,
                                                     dtype)))
                 torch.cuda.synchronize()
+                # bf16 fp weights at these widths run the tensor-core
+                # kernel, everything else the CUDA-core one
+                tc = int(bits == 0 and dtype == torch.bfloat16)
+                ran = [a - b for a, b in zip(gmm_tc_counts(), tc0)]
+                if ran != [tc, tc if bwd_name else 0]:
+                    raise AssertionError(f"{tag}: tensor-core launches {ran}"
+                                         f", want {tc} each")
+                if rows != "c":   # a second launch gives the same bits
+                    again = [grouped_matmul_fwd(x, w, offs, sc)] + (
+                        [grouped_matmul_bwd(dy, w, offs, sc, k, dtype)]
+                        if bwd_name else [])
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, got) for a, (got, _) in
+                               zip(again, pairs)):
+                        raise AssertionError(f"{tag}: a second launch is not"
+                                             " bitwise equal to the first")
                 held, errs = [], []
                 for got, want in pairs:
                     err, h = kernel_error(got, want, dtype)
@@ -1802,15 +1873,14 @@ def phase_gmm(dev, card):
                         h = float("inf")   # an empty expert's NaN was read
                     held.append(h)
                     errs.append(err)
-                tag = (f"[moe] {fwd_name} {label} {str(dtype)[6:]} {name} "
-                       f"({rows}) M {sum(counts)} {counts} x [{k}, {n}] g{g}")
                 if not max(held) <= GMM_TOL[dtype]:
                     raise AssertionError(f"{tag}: held errors {held} > "
                                          f"{GMM_TOL[dtype]}")
+                route = "tensor cores" if tc else "CUDA cores"
                 if rows == "c":
                     log(f"{tag}: held fwd / dx {held} (tol "
-                        f"{GMM_TOL[dtype]}); NaN weights of the empty expert"
-                        " absent from the output")
+                        f"{GMM_TOL[dtype]}; {route}); NaN weights of the "
+                        "empty expert absent from the output")
                     continue
                 nbytes, nops = gmm_work(counts, k, n, bits,
                                         1 if sc is None else sc.shape[1],
@@ -1854,7 +1924,8 @@ def phase_gmm(dev, card):
                     tot["work"] = [tot["work"][0] + nbytes,
                                    tot["work"][1] + nops]
                     log(f"[moe] {kname} {label} {str(dtype)[6:]} {name} "
-                        f"({rows}) M {sum(counts)} x [{k}, {n}]: held "
+                        f"({rows}) M {sum(counts)} x [{k}, {n}] ({route}, "
+                        "repeat bitwise equal): held "
                         f"{held[0 if kname == fwd_name else 1]:.3e}; kernel "
                         f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f}, "
                         f"bound {bound_ms(nbytes, nops, dtype):.6f} "
@@ -1872,11 +1943,35 @@ def phase_gmm(dev, card):
         tot["library_note"] = notes[(key[0], dtype)]
         log(f"[moe] {key[0]} {key[1]} {str(dtype)[6:]} ({key[3]}: w1 + w2, "
             f"{'serving' if key[3] == 'a' else 'prefill'} rows): kernel "
-            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, bound "
+            f"{tot['ms']:.4f} ms ({nops / tot['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / tot['ms'] / 1e9:.3f} TB/s), plain "
+            f"{tot['plain_ms']:.4f}, bound "
             f"{tot['bound_ms']:.6f} ({tot['bound_by']}: {nbytes / 1e6:.2f} MB"
             f", {nops / 1e9:.3f} GFLOP), library "
             + (f"{tot['library_ms']:.4f}" if tot["library_ms"] is not None
                else f"null ({tot['library_note']})") + f" ({card})")
+    # bf16 fp weights at a width the 16-byte copies cannot take: the
+    # CUDA-core kernel, held like the rest
+    k, n = GMM_OFF_COPIES
+    counts = GMM_ODD[2]
+    x, dy, w, _, offs = gmm_case(counts, k, n, None, -1, torch.bfloat16,
+                                 dev, SEED + 9)
+    tc0 = gmm_tc_counts()
+    got = grouped_matmul_fwd(x, w, offs)
+    dx = grouped_matmul_bwd(dy, w, offs, None, k, torch.bfloat16)
+    torch.cuda.synchronize()
+    held = [kernel_error(a, b, torch.bfloat16)[1] if bool(
+        torch.isfinite(a).all()) else float("inf") for a, b in (
+        (got, grouped_matmul_reference(x, w, offs)),
+        (dx, grouped_matmul_dx_reference(dy, w, offs, None, k,
+                                         torch.bfloat16)))]
+    log(f"[moe] gmm fp bf16 at K {k}, N {n} (rows {counts}): CUDA-core "
+        f"kernel (tensor-core launches {gmm_tc_counts()} before "
+        f"{tc0}); held fwd / dx {held} (tol {GMM_TOL[torch.bfloat16]})")
+    if gmm_tc_counts() != tc0 or not max(held) <= GMM_TOL[torch.bfloat16]:
+        raise AssertionError(f"bf16 grouped GEMM at K {k}, N {n}: "
+                             f"tensor-core launches {gmm_tc_counts()} vs "
+                             f"{tc0}, held {held}")
     return stats
 
 
@@ -2031,8 +2126,10 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
             f"{[round(float(s['load'].max()) * 4, 3) for s in st]}, drop "
             f"rate per layer {[round(float(s['drop_rate']), 4) for s in st]}")
     # bf16 at cf 1.25: the MoE step beside phase 6's dense step, one
-    # profiled run, and the weight bytes per configuration
+    # profiled run, and the weight bytes per configuration; every grouped
+    # GEMM of these runs on the tensor-core kernel
     walls = []
+    reset_counts()
     for run in range(1 + BF16_RUNS):
         sp16 = quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16)
         torch.cuda.synchronize()
@@ -2043,14 +2140,22 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
             walls.append(time.perf_counter() - t0)
         if sum(map(len, outs16)) != MAX_NEW * len(outs16):
             raise AssertionError("bf16 MoE serving: malformed streams")
+    gmm, tc = gmm_counts(), gmm_tc_counts()
+    want = 2 * cfg.num_layers * sp16.steps * (1 + BF16_RUNS)
+    if gmm["fp"] != want or tc != [want, 0] or sum(gmm.values()) != want:
+        raise AssertionError(f"bf16 MoE serving: grouped-GEMM launches {gmm}"
+                             f", tensor-core {tc}, want {want}")
     wall = sorted(walls)[len(walls) // 2]
-    log(f"[moe] serve (cf 1.25) bf16: {sp16.steps} steps per run; median of "
+    log(f"[moe] serve (cf 1.25) bf16: {sp16.steps} steps per run, "
+        f"{tc[0]} grouped-GEMM launches in {1 + BF16_RUNS} runs, all on the "
+        f"tensor-core kernel; median of "
         f"{BF16_RUNS} runs {wall:.3f} s, mean step "
         f"{1e3 * wall / sp16.steps:.3f} ms beside the dense GPT-125M bf16 "
         f"step of phase 6, {dense_step_ms:.3f} ms (runs: "
         f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
     profile_serve(quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16),
                   early, late, card, "[moe] (cf 1.25)")
+    launches["tc"] = tc[0]
     sizes = {"fp32": serving_weight_bytes(serving_params(model)),
              "bf16": serving_weight_bytes(sp16.params)}
     del sp16
@@ -2066,12 +2171,98 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
     return launches
 
 
+def phase_moe_forward(cfg, dev, card):
+    """The bf16 MoE GPT-125M full forward (``GPTForCausalLM``, eval, cf
+    1.25) on ids ``MOE_FWD_IDS``: 24 grouped-GEMM launches a forward (all
+    on the tensor-core kernel where the package has one), finite logits of
+    the expected shape, layer 0's MoE FFN on the embedded ids against its
+    plain version (the same routes: held as ``BF16_GRAD_TOL`` of the
+    output's max), the router choices of every layer against the same
+    forward with the plain grouped GEMM (none may differ in layer 0, whose
+    input is the same) and the share of next-token argmaxes the two
+    forwards share, the median wall of ``BF16_RUNS`` forwards after a
+    warm-up, and one profiled forward (device time by kernel group).
+    Returns the figures."""
+    from paddle_tpu_torch.models.moe import moe_ffn
+    from paddle_tpu_torch.ops import grouped_matmul
+
+    model = moe_model(cfg, dev, dtype=torch.bfloat16)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 6).randint(
+        0, cfg.vocab_size, MOE_FWD_IDS)).to(dev)
+    walls = []
+    with torch.no_grad():
+        model(ids)                     # warm-up: builds and caches
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(BF16_RUNS):
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        gmm, tc = gmm_counts(), gmm_tc_counts()
+        prof = profile_run(lambda: model(ids), card, "[moe] full forward",
+                           lambda: f"ids {list(MOE_FWD_IDS)}")
+        with record_routes() as kern_routes:
+            model(ids)
+        with record_routes() as plain_routes, moe_twins():
+            plain = model(ids)
+        mlp = model.gpt.layers[0].mlp
+        x0 = model.gpt.embeddings(ids).reshape(-1, cfg.hidden_size)
+        x0 = torch.nn.functional.layer_norm(x0, x0.shape[-1:])
+        ffn = [moe_ffn(x0, mlp.gate_weight, mlp.w1, mlp.b1, mlp.w2, mlp.b2,
+                       top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       use_kernel=use)[0].float() for use in (None, False)]
+    ffn_err = ((ffn[0] - ffn[1]).abs().max() / ffn[1].abs().max()).item()
+    flips = [int((a != b).sum()) for a, b in zip(kern_routes, plain_routes)]
+    per = 2 * cfg.num_layers
+    # a package from before the tensor-core kernel (``--moe-forward`` on
+    # an older checkout) counts none
+    want_tc = ([per * BF16_RUNS, 0] if hasattr(grouped_matmul, "TC_TILES")
+               else [0, 0])
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    wall = sorted(walls)[len(walls) // 2]
+    shape = (*MOE_FWD_IDS, cfg.vocab_size)
+    out = dict(ms=1e3 * wall, runs_ms=[1e3 * w for w in walls],
+               launches=gmm["fp"] // BF16_RUNS, tc_launches=tc[0] // BF16_RUNS,
+               argmax_agree=agree, layer0_ffn_err=ffn_err,
+               route_flips=flips)
+    if prof is not None:
+        times, busy = prof
+        out.update(busy_ms=busy / 1e3, gmm_ms=times["grouped GEMM"][0] / 1e3,
+                   gmm_share=times["grouped GEMM"][0] / busy,
+                   gmm_profiled_launches=times["grouped GEMM"][1])
+    log(f"[moe] full forward bf16 ids {list(MOE_FWD_IDS)} (cf "
+        f"{cfg.moe_capacity_factor}): logits {tuple(logits.shape)}, median "
+        f"of {BF16_RUNS} {out['ms']:.3f} ms (runs: "
+        f"{', '.join(f'{w:.3f}' for w in out['runs_ms'])}); grouped-GEMM "
+        f"launches a forward {out['launches']} (tensor cores "
+        f"{out['tc_launches']}); layer 0's MoE FFN vs plain {ffn_err:.3e} "
+        f"of its max (tol {BF16_GRAD_TOL}); router choices differing from "
+        f"the plain grouped GEMM's forward, per layer, of "
+        f"{kern_routes[0].numel()}: {flips}; next-token argmax equal to it "
+        f"in {agree:.4f} of positions" + (
+            f"; profiled: grouped GEMM {out['gmm_ms']:.3f} ms of "
+            f"{out['busy_ms']:.3f} ms device time ({out['gmm_share']:.3f}, "
+            f"{out['gmm_profiled_launches']} launches)" if prof else "")
+        + f" ({card})")
+    if (tuple(logits.shape) != shape or not bool(torch.isfinite(
+            logits).all()) or gmm["fp"] != per * BF16_RUNS
+            or sum(gmm.values()) != gmm["fp"] or tc != want_tc
+            or not ffn_err <= BF16_GRAD_TOL or flips[0]):
+        raise AssertionError(f"MoE full forward: logits {tuple(logits.shape)}"
+                             f", launches {gmm}, tensor-core {tc}, layer 0 "
+                             f"FFN error {ffn_err}, router flips {flips}")
+    return out
+
+
 def phase_moe_grads(cfg, dev):
     """``loss.backward()`` through a 2-layer GPT-125M-width MoE model in
     fp32, the grouped-GEMM kernels against the plain versions for every
     gradient leaf (4 backward launches: two GEMMs a layer); then the input
     gradient through the two layers' MoE FFNs with int8 expert stacks
-    (``ptt_gmm_q_bwd``). Returns (fp, int8) backward launches."""
+    (``ptt_gmm_q_bwd``), and the bf16 input gradient through layer 0's
+    MoE FFN (the tensor-core dx). Returns (fp, int8) backward launches."""
     from dataclasses import replace
 
     from paddle_tpu_torch.inference.quantize import quantize_weight
@@ -2138,7 +2329,32 @@ def phase_moe_grads(cfg, dev):
     if counts["int8_bwd"] != 4 or counts["int8"] != 4 or not err <= GRAD_TOL:
         raise AssertionError(f"int8 MoE input gradient: launches {counts}, "
                              f"error {err}")
-    return 4, counts["int8_bwd"]
+    int8_bwd = counts["int8_bwd"]
+    # bf16: the input gradient through layer 0's MoE FFN (its weights in
+    # bf16; the routes are the same in both runs, computed from the same
+    # x): dx through the tensor-core kernel against the plain version
+    bf16, m = torch.bfloat16, layers[0]
+    dx = {}
+    for use_kernel in (None, False):
+        x = x0.to(bf16).requires_grad_()
+        reset_counts()
+        out, _ = moe_ffn(x, *(t.detach().to(bf16) for t in (
+            m.gate_weight, m.w1, m.b1, m.w2, m.b2)), top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, use_kernel=use_kernel)
+        (out.float() * r).sum().backward()
+        torch.cuda.synchronize()
+        if use_kernel is None:
+            counts, tc = gmm_counts(), gmm_tc_counts()
+        dx[use_kernel] = x.grad.float()
+    err = ((dx[None] - dx[False]).abs().max()
+           / dx[False].abs().max()).item()
+    log(f"[moe] bf16 input gradient through layer 0's MoE FFN "
+        f"({list(x0.shape)}): kernel vs plain {err:.3e} of its max |grad| "
+        f"(tol {BF16_GRAD_TOL}); launches {counts}, tensor-core {tc}")
+    if tc != [2, 2] or counts["fp_bwd"] != 2 or not err <= BF16_GRAD_TOL:
+        raise AssertionError(f"bf16 MoE input gradient: launches {counts}, "
+                             f"tensor-core {tc}, error {err}")
+    return 4 + tc[1], int8_bwd
 
 
 def phase_attention_routing(dev):
@@ -3208,15 +3424,54 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
             for n, t in groups.items()) + f" ({card})")
 
 
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def moe_forward_only(root: Path) -> int:
+    """``--moe-forward [ROOT]``: only phase 11's bf16 MoE full forward,
+    with the ``paddle_tpu_torch`` package of the checkout at ``ROOT``
+    (default: this one), for example a ``git archive`` copy of an earlier
+    commit, so two trees are compared on one card; prints one JSON line."""
+    sys.path.insert(0, str(root))
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    cfg = replace(GPT_CONFIGS["gpt3-125m"], **MOE, moe_capacity_factor=1.25)
+    out = phase_moe_forward(cfg, torch.device("cuda", 0), card)
+    print(json.dumps({"moe_forward": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        **out)}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "runs on a CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "paddle_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no paddle_tpu_torch package beside {__file__}; "
+    args = sys.argv[1:]
+    root = ROOT
+    if args[:1] == ["--moe-forward"] and len(args) <= 2:
+        root = Path(args[1]).resolve() if len(args) == 2 else ROOT
+    elif args:
+        print(f"chip_smoke: unknown arguments {args} (none, or "
+              "--moe-forward [ROOT])", file=sys.stderr)
+        return 2
+    if not (root / "paddle_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
               "run it from the root of a checkout", file=sys.stderr)
         return 2
+    if args:
+        return moe_forward_only(root)
     sys.path.insert(0, str(ROOT))
     from dataclasses import replace
 
@@ -3236,10 +3491,7 @@ def main() -> int:
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"[device] {kind}; nvidia-smi: {card}")
 
     # 2. build
@@ -3299,6 +3551,8 @@ def main() -> int:
     gmm = phase_gmm(dev, card)
     moe_cfg = replace(cfg, **MOE)
     gmm_launches = phase_moe_serve(moe_cfg, dev, card, fp16_step_ms)
+    moe_fwd = phase_moe_forward(replace(moe_cfg, moe_capacity_factor=1.25),
+                                dev, card)
     gmm_bwd_launches = phase_moe_grads(replace(moe_cfg,
                                                moe_capacity_factor=1.25), dev)
     phase_attention_routing(dev)
@@ -3379,7 +3633,8 @@ def main() -> int:
                f"paddle_tpu/ops/pallas/grouped_matmul.py:{line}", n,
                gmm[(kname, label, bf16, "a")])
               for name, kname, label, line, n in (
-                  ("fp", "gmm", "fp", 192, gmm_launches["fp"]),
+                  ("fp", "gmm", "fp", 192, gmm_launches["fp"]
+                   + gmm_launches["tc"] + moe_fwd["tc_launches"] * BF16_RUNS),
                   ("int8", "gmm_q", "int8", 210, gmm_launches["int8"]),
                   ("int4", "gmm_q4", "int4 g128", 226, gmm_launches["int4"]),
                   ("fp_bwd", "gmm_bwd", "fp", 251, gmm_bwd_launches[0]),
@@ -3456,6 +3711,15 @@ def main() -> int:
             g = gmm[(kname, "int8 g128", bf16, "a")]
             extra = (f"; int8 g128: ms {g['ms']:.4f}, bound_ms "
                      f"{g['bound_ms']:.6f}")
+        if kname in ("gmm", "gmm_bwd"):
+            row["prefill_shape"] = dict(
+                rows=GMM_PREFILL, dtype="bf16",
+                **{k: pre[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")})
+            extra = ("; bf16 on the tensor cores (gmm_tc_kernel at the "
+                     "serving rows, gmm_wg_kernel at the prefill rows), fp32 "
+                     "on the CUDA cores")
         row["note"] = (
             f"bf16, w1 + w2 at the serving rows {GMM_ROWS}; fp32: ms "
             f"{f32['ms']:.4f}, plain_ms {f32['plain_ms']:.4f}, bound_ms "
@@ -3466,7 +3730,9 @@ def main() -> int:
                else "null") + extra + "; library: torch._grouped_mm"
             + ("" if row["library_ms"] is not None else
                f" null ({gmm[(kname, label, bf16, 'a')]['library_note']})")
-            + ("; launches: phase 11's fp32 served runs"
+            + ("; launches: phase 11's fp32 served runs" + (
+                f", its {1 + BF16_RUNS} bf16 served runs and {BF16_RUNS} bf16"
+                " full forwards" if kname == "gmm" else "")
                if "bwd" not in kname
                else "; launches: phase 11's gradient drives"))
     row_of["ragged_paged_attention"]["note"] = (

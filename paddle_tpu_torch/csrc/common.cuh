@@ -2,8 +2,10 @@
 // batched 16-byte tile loader (fp32, bf16 or int8 rows, the last scaled per
 // row), the weight-only GEMMs' 16-element weight chunk and dequantization,
 // the host-side shared-memory cap, and the tensor-core building blocks
-// (cp.async copies, ldmatrix, mma.sync m16n8k16 and wgmma m64nNk16, bf16
-// -> fp32, a vector fp32 reduction).
+// (cp.async copies and tiles masked on one or both edges, plain or in
+// wgmma's 128-byte swizzle, ldmatrix, mma.sync m16n8k16 and wgmma
+// m64nNk16 with A and B from shared memory or A from registers, bf16 ->
+// fp32, a vector fp32 reduction).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -241,6 +243,53 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst,
   }
 }
 
+// An R x C bf16 tile into shared memory at a row pitch of P elements (P *
+// 2 a multiple of 16), row r from src + r * stride, both edges masked: a
+// 16-byte chunk whose row is >= rows or whose first column is >= cols is
+// zero-filled and reads nothing (cols a multiple of 8, so a chunk lies
+// wholly inside or outside; src itself must be a valid address). All NT
+// threads of the block take part; the caller commits the group.
+template <int R, int C, int P, int NT>
+__device__ __forceinline__ void cp_tile_2d(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long stride, int rows, int cols) {
+  constexpr int CH = C / 8, N = R * CH;
+  static_assert(C % 8 == 0 && P % 8 == 0, "16-byte chunks and rows");
+#pragma unroll
+  for (int u = 0; u < (N + NT - 1) / NT; ++u) {
+    const int i = u * NT + (int)threadIdx.x;
+    if (N % NT != 0 && i >= N) break;
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r < rows && c < cols;
+    cp_async16(dst + r * P + c, ok ? src + r * stride + c : src, ok);
+  }
+}
+
+// The same R x C tile (C a multiple of 64) in the 128-byte-swizzled layout
+// of wgmma: atoms of 8 rows x 64 columns (1,024 bytes), atom (c / 64,
+// r / 8) at ((c / 64) * (R / 8) + r / 8) * 1,024 bytes, row r % 8 of an
+// atom at (r % 8) * 128 bytes, its 16-byte chunk (c % 64) / 8 at chunk
+// position ((c % 64) / 8) ^ (r % 8) (the 8 rows of a chunk column fall in
+// 8 bank quads); dst 1,024-byte aligned. Both edges masked as cp_tile_2d.
+template <int R, int C, int NT>
+__device__ __forceinline__ void cp_tile_sw128_2d(__nv_bfloat16* dst,
+                                                 const __nv_bfloat16* src,
+                                                 long stride, int rows,
+                                                 int cols) {
+  constexpr int CH = C / 8, N = R * CH;
+  static_assert(C % 64 == 0 && R % 8 == 0, "whole swizzle atoms");
+#pragma unroll
+  for (int u = 0; u < (N + NT - 1) / NT; ++u) {
+    const int i = u * NT + (int)threadIdx.x;
+    if (N % NT != 0 && i >= N) break;
+    const int r = i / CH, ch = i % CH;
+    const bool ok = r < rows && ch * 8 < cols;
+    const int at = ((ch / 8) * (R / 8) + r / 8) * 512 + (r % 8) * 64 +
+                   ((ch % 8) ^ (r % 8)) * 8;
+    cp_async16(dst + at, ok ? src + r * stride + ch * 8 : src, ok);
+  }
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -382,6 +431,41 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a,
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, K-major) * B (16 x 128), both in shared
+// memory; B K-major ([n][k]) when kTransB is 0, MN-major ([k][n], n
+// contiguous) when it is 1
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransB));
 }
 
 // d (64 x 128) += A (registers: the warp's 16 x 16 A fragment) * B (16 x

@@ -9,38 +9,77 @@
 // Replaces paddle_tpu/ops/pallas/grouped_matmul.py::_gmm_kernel (fp
 // forward, ptt_gmm), ::_gmm_q_kernel (int8, ptt_gmm_q), ::_gmm_q4_kernel
 // (int4, ptt_gmm_q4), ::_gmm_bwd_kernel (fp dx, ptt_gmm_bwd) and
-// ::_gmm_q_bwd_kernel (int8 dx, ptt_gmm_q_bwd). A quantized element
-// dequantizes as q * s[g] rounded to the activation type (common.cuh deq,
-// the Pallas kernels widen both to x.dtype and multiply there), g the scale
-// group of its ORIGINAL in-dim row; fp weights are read in the activation
-// type. The two nibbles of one int4 byte are rows i and K/2 + i.
+// ::_gmm_q_bwd_kernel (int8 dx, ptt_gmm_q_bwd); gmm_tc_kernel and
+// gmm_wg_kernel take the bf16 fp-weight forward (ptt_gmm_tc) and dx
+// (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores. A
+// quantized element dequantizes as q * s[g] rounded to the activation
+// type (common.cuh deq, the Pallas kernels widen both to x.dtype and
+// multiply there), g the scale group of its ORIGINAL in-dim row; fp
+// weights are read in the activation type. The two nibbles of one int4
+// byte are rows i and K/2 + i.
 //
-// One template <T, bits, bwd> serves all five: the weight-only GEMM of
-// csrc/quant_matmul.cu (C[M, J] = A[M, R] . B[R, J]; forward A = x, R = K,
+// Both kernels compute C[M, J] = A[M, R] . B[R, J] (forward A = x, R = K,
 // B = deq(W_e); backward A = dy, R = N, B = deq(W_e)^T) with each row tile
 // bound to ONE expert, whose weight and scale pointers it offsets to. The
-// binding is the device-side twin of the Pallas kernel's scalar-prefetched
-// tile -> group table (_pack_layout): expert e owns ceil(n_e / 32) row
-// tiles, numbered expert after expert, and block row y finds its expert by
-// scanning the E + 1 offsets. Row tiles never straddle two experts, so no
+// binding (bind_tile) is the device-side twin of the Pallas kernel's
+// scalar-prefetched tile -> group table (_pack_layout): expert e owns
+// ceil(n_e / BM) row tiles (BM 32, or 128 for the prefill tile), numbered
+// expert after expert, and block row y finds its expert by scanning the
+// E + 1 offsets. Row tiles never straddle two experts, so no
 // row is padded or moved; grid rows past the last live tile, and every
 // expert with no rows, read no weight bytes. Offsets follow the twin's
 // token_group_ids: rows before offsets[1] belong to expert 0, rows from
 // offsets[E - 1] on to expert E - 1, everything clamped into [0, M].
 //
-// What bounds it on the H100: at the serving shape (48 routed rows over 4
-// experts, w1 768 x 3072 and w2 3072 x 768) bytes: each live expert's
-// weights are read once per row tile (~9.4 MB fp32 per GEMM for 3 live
-// experts), ~3 us at 3.35 TB/s, against ~0.2 GFLOP. At prefill (4,096
-// rows) operations: ~19 GFLOP per GEMM, ~0.3 ms at the fp32 CUDA-core
-// peak. The design reads each weight tile once per 32 rows with 16-byte
-// loads (the next stage's tile in flight in registers), dequantizes it into
-// fp32 shared memory and runs a 32 x 64 register-tiled fp32 FMA product on
-// the CUDA cores. Few live tiles at decode (w2: 12 column tiles per expert)
-// split the reduction across blocks until ~2 blocks per SM are in flight;
-// the LAST block of a tile to arrive (an arrival counter it resets) sums the
-// fp32 partials in split order: deterministic, no float atomics. Not yet
-// near the bound: no tensor cores, no cp.async / TMA ring — later work.
+// gmm_kernel<T, bits, bwd> (ptt_gmm, _q, _q4, _bwd, _q_bwd): fp32
+// activations with fp32 weights, every int8 / int4 stack (fp32 or bf16),
+// and the bf16 fp-weight calls the copies below cannot take (K or N not a
+// multiple of 8, a pointer not 16-byte aligned). The weight-only GEMM of
+// csrc/quant_matmul.cu per row tile of 32: each weight tile read once per
+// 32 rows with 16-byte loads (the next stage in flight in registers),
+// dequantized into fp32 shared memory, a 32 x 64 register-tiled fp32 FMA
+// product on the CUDA cores. At the serving shape (a) (48 routed rows over
+// 4 experts, one empty; w1 768 x 3072, w2 3072 x 768) it is bound by
+// bytes: each live expert's weights read once (9.4 MB fp32 per GEMM for 3
+// live experts, ~3 us at 3.35 TB/s, against ~0.2 GFLOP); at prefill (b)
+// (4,096 rows) by operations: ~19 GFLOP per GEMM, ~0.3 ms at the fp32
+// CUDA-core peak of 67 TFLOP/s. fp32 stays here because tensor cores would
+// make it TF32.
+//
+// gmm_tc_kernel<bwd> and gmm_wg_kernel<bwd> (ptt_gmm_tc, ptt_gmm_bwd_tc):
+// bf16 activations with bf16 fp weights, K and N multiples of 8, 16-byte
+// aligned x / dy, W and out. On the tensor cores, fed by a multi-stage
+// cp.async ring of bf16 A and B tiles (nothing widened in shared memory)
+// whose copies zero-fill the ragged row, K and N edges; fp32 sums rounded
+// once to bf16. Forward: A = x rows (K-major), B = W_e [k][n] (MN-major);
+// dx: A = dy rows, B = the rows of W_e, [n][k] (K-major). One barrier a
+// stage: the copy into a slot is issued right after the barrier that ends
+// the reads of it. The wrapper picks the tile by rows per expert
+// (ops/grouped_matmul.py _plan):
+// - serving, gmm_tc_kernel (32 rows x 128 columns, 8 warps side by side
+//   along N on mma.sync m16n8k16 with ldmatrix / ldmatrix.trans, tiles at
+//   a row pitch of cols + 8: a 16-byte shift a row keeps ldmatrix free of
+//   bank conflicts; 4 stages of 64): at (a) bound by bytes, 29.1 MB of
+//   bf16 weights for w1 + w2 (8.7 us at 3.35 TB/s). Each live expert's
+//   weights stream once, 48 KB of weight tiles in flight a block; the
+//   reduction is split over blocks only until about a third of the SMs
+//   hold a live block (the wrapper's choice: fewer, longer blocks stream
+//   faster than a deeper split, whose partials cost a second pass);
+// - prefill, gmm_wg_kernel (128 x 128, two warpgroups of 64 rows on wgmma
+//   m64n128k16, both operands read from 128-byte-swizzled tiles, 3 stages
+//   of 32 KB, two blocks an SM): at (b) bound by operations, 38.7 GFLOP
+//   for w1 + w2 (39 us at 989 TFLOP/s); each weight tile is read once per
+//   128 rows and each A tile once per 128 columns. (On the card an
+//   mma.sync 128 x 128 tile of 8 warps ran slower at (b), and a wgmma
+//   group kept in flight across the next barrier, 3 to 5 stages, was no
+//   faster.)
+// A later PR can feed the same ring dequantized bf16 tiles of int8 / int4
+// stacks.
+//
+// Split reductions (all three kernels): few live tiles at decode split the
+// reduction across blocks; the LAST block of a tile to arrive (an arrival
+// counter it resets) sums the fp32 partials in split order: deterministic,
+// no float atomics.
 #include "common.cuh"
 
 #include <cstdint>
@@ -72,6 +111,30 @@ struct Args {
   int M, K, N, E, gs, splits, per, vec;
 };
 
+// Row tile t of bm rows -> (expert, first row, end row), expert -1 past
+// the last live tile: expert e owns ceil(n_e / bm) tiles, numbered expert
+// after expert; rows before offs[1] belong to expert 0 and rows from
+// offs[E - 1] on to expert E - 1, everything clamped into [0, M].
+__device__ __forceinline__ void bind_tile(const int* offs, int E, int M,
+                                          int bm, int t, int (&bind)[3]) {
+  int ex = -1, lo = 0, hi = 0;
+  for (int e = 0; e < E; ++e) {
+    const int a = e == 0 ? 0 : min(max(__ldg(offs + e), 0), M);
+    const int b = e == E - 1 ? M : min(max(__ldg(offs + e + 1), a), M);
+    const int nt = (b - a + bm - 1) / bm;
+    if (t < nt) {
+      ex = e;
+      lo = a + t * bm;
+      hi = min(b, lo + bm);
+      break;
+    }
+    t -= nt;
+  }
+  bind[0] = ex;
+  bind[1] = lo;
+  bind[2] = hi;
+}
+
 // kBits: 0 = fp weights (the activation type), 8 = int8, 4 = packed int4
 template <typename T, int kBits, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
@@ -90,25 +153,7 @@ gmm_kernel(const Args p) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
   // -- bind this row tile to its expert and rows [r0, r1)
-  if (tid == 0) {
-    int t = blockIdx.y, ex = -1, lo = 0, hi = 0;
-    for (int e = 0; e < p.E; ++e) {
-      const int a = e == 0 ? 0 : min(max(__ldg(p.offs + e), 0), M);
-      const int b = e == p.E - 1 ? M
-                                 : min(max(__ldg(p.offs + e + 1), a), M);
-      const int nt = (b - a + BM - 1) / BM;
-      if (t < nt) {
-        ex = e;
-        lo = a + t * BM;
-        hi = min(b, lo + BM);
-        break;
-      }
-      t -= nt;
-    }
-    bind[0] = ex;
-    bind[1] = lo;
-    bind[2] = hi;
-  }
+  if (tid == 0) bind_tile(p.offs, p.E, M, BM, blockIdx.y, bind);
   __syncthreads();
   const int ex = bind[0];
   if (ex < 0) return;  // a dead tile: no weight bytes, no counter
@@ -332,6 +377,375 @@ int launch(const void* a, const void* w, const void* s, const void* offs,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 fp weights on the tensor cores --------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kBK = 64;  // reduction indices per stage
+
+struct TcArgs {
+  const bf16* a;      // x [M, K] (forward) or dy [M, N] (dx)
+  const bf16* w;      // [E, K, N]
+  const int* offs;    // [E + 1] row offsets of the experts
+  bf16* out;          // [M, N] (forward) or [M, K] (dx)
+  float* ws;          // [splits, M, J] fp32 partials when splits > 1
+  int* counters;      // one arrival count per output tile, zero on entry
+  int M, K, N, E, splits, per;
+};
+
+// The epilogue of both tensor-core kernels: a thread's fragments (i, j)
+// (mma.sync C layout) hold rows row0 + 16 i + g (+ 8) and columns col0 +
+// 8 j + 2 c4 (+ 1) of C [M, J]; rows >= m1 and columns >= J are dropped.
+// One split: rounded to bf16 and stored. Several: each block publishes its
+// fp32 partial, and the last block of the tile to arrive (an arrival count
+// it resets) sums all partials in split order, so two launches give the
+// same bits. Every thread of the block calls it.
+template <int MF, int NF>
+__device__ __forceinline__ void store_acc(const TcArgs& p,
+                                          const float (&acc)[MF][NF][4],
+                                          int row0, int col0, int m1, int J,
+                                          int& last_flag) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const auto row_of = [&](int i, int h) { return row0 + i * 16 + g + 8 * h; };
+  const auto col_of = [&](int j) { return col0 + j * 8 + 2 * c4; };
+  if (p.splits == 1) {
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row_of(i, h);
+        if (m >= m1) continue;
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          const int c = col_of(j);
+          if (c < J)
+            *reinterpret_cast<__nv_bfloat162*>(p.out + (long)m * J + c) =
+                __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
+    return;
+  }
+  const int M = p.M;
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row_of(i, h);
+      if (m >= m1) continue;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int c = col_of(j);
+        if (c < J)
+          *reinterpret_cast<float2*>(p.ws + ((long)blockIdx.z * M + m) * J +
+                                     c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    last_flag = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  const long plane = (long)M * J;
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row_of(i, h);
+      if (m >= m1) continue;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int c = col_of(j);
+        if (c >= J) continue;
+        const float* src = p.ws + (long)m * J + c;
+        float2 sum = make_float2(0.f, 0.f);
+        for (int z0 = 0; z0 < p.splits; z0 += 4) {
+          float2 part[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            part[u] = z0 + u < p.splits
+                          ? __ldcg(reinterpret_cast<const float2*>(
+                                src + (z0 + u) * plane))
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            sum.x += part[u].x;
+            sum.y += part[u].y;
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + (long)m * J + c) =
+            __floats2bfloat162_rn(sum.x, sum.y);
+      }
+    }
+  if (threadIdx.x == 0) p.counters[tile] = 0;  // ready for the next launch
+}
+
+// ---- the serving tile on mma.sync --------------------------------------
+//
+// 32 rows x 128 columns a block, 8 warps side by side along N (16 columns
+// each, two 16 x 8 mma tiles of both row fragments), a 4-stage ring of A
+// [32][64 + 8] and B (forward [64][128 + 8], dx [128][64 + 8]) tiles;
+// registers and shared memory for two blocks an SM.
+constexpr int kSvBM = 32, kSvBN = 128, kSvWN = 16, kSvStages = 4;
+constexpr int kSvThreads = 32 * (kSvBN / kSvWN);
+constexpr int kSvAP = kBK + 8;  // A pitch
+__host__ __device__ constexpr int sv_bp(bool bwd) {  // B pitch
+  return bwd ? kBK + 8 : kSvBN + 8;
+}
+__host__ __device__ constexpr int sv_stage(bool bwd) {  // elements a stage
+  return kSvBM * kSvAP + (bwd ? kSvBN : kBK) * sv_bp(bwd);
+}
+constexpr size_t sv_smem_bytes(bool bwd) {
+  return sizeof(bf16) * kSvStages * sv_stage(bwd);
+}
+
+template <bool kBwd>
+__global__ void __launch_bounds__(kSvThreads, 2)
+gmm_tc_kernel(const TcArgs p) {
+  constexpr int MF = kSvBM / 16, NF = kSvWN / 8, AP = kSvAP;
+  constexpr int BP = sv_bp(kBwd), kStage = sv_stage(kBwd);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  __shared__ int bind[3];
+  __shared__ int last_flag;
+
+  const int M = p.M, K = p.K, N = p.N;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid == 0) bind_tile(p.offs, p.E, M, kSvBM, blockIdx.y, bind);
+  __syncthreads();
+  const int ex = bind[0];
+  if (ex < 0) return;  // a dead tile: no weight bytes, no counter
+  const int m0 = bind[1], m1 = bind[2];
+
+  const int R = kBwd ? N : K;  // reduction length
+  const int J = kBwd ? K : N;  // output columns
+  const int j0 = blockIdx.x * kSvBN;
+  const bf16* A = p.a + (long)m0 * R;
+  const bf16* W = p.w + (long)ex * K * N;
+  const int nst = (R + kBK - 1) / kBK;
+  const int t_begin = blockIdx.z * p.per;
+  const int n_t = min(nst, t_begin + p.per) - t_begin;
+
+  // stage t of this split into ring slot `slot`: A rows [m0, m1) x
+  // reduction [r0, r0 + 64); B forward W_e rows [r0, r0 + 64) x columns
+  // [j0, j0 + 128), dx W_e rows [j0, j0 + 128) x columns [r0, r0 + 64)
+  const auto load_stage = [&](int t, int slot) {
+    bf16* As = ring + slot * kStage;
+    bf16* Bs = As + kSvBM * AP;
+    const int r0 = (t_begin + t) * kBK;
+    ptt::cp_tile_2d<kSvBM, kBK, AP, kSvThreads>(As, A + r0, R, m1 - m0,
+                                                R - r0);
+    if constexpr (kBwd)
+      ptt::cp_tile_2d<kSvBN, kBK, BP, kSvThreads>(
+          Bs, W + (long)j0 * N + r0, N, K - j0, N - r0);
+    else
+      ptt::cp_tile_2d<kBK, kSvBN, BP, kSvThreads>(
+          Bs, W + (long)r0 * N + j0, N, K - r0, N - j0);
+  };
+
+  float acc[MF][NF][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kSvStages - 1; ++s) {
+    if (s < n_t) load_stage(s, s);
+    ptt::cp_async_commit();
+  }
+  for (int t = 0; t < n_t; ++t) {
+    ptt::cp_async_wait<kSvStages - 2>();
+    // stage t has landed, and every warp is done with stage t - 1, whose
+    // slot the next copy takes
+    __syncthreads();
+    if (t + kSvStages - 1 < n_t)
+      load_stage(t + kSvStages - 1, (t + kSvStages - 1) % kSvStages);
+    ptt::cp_async_commit();
+    const bf16* As = ring + (t % kSvStages) * kStage;
+    const bf16* Bs = As + kSvBM * AP;
+    const int n0 = warp * kSvWN;  // the warp's 16 columns
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t af[MF][4], bfr[4];
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+        ptt::ldsm_x4(af[i], As + (i * 16 + ptt::a_row(lane)) * AP + kk * 16 +
+                                ptt::a_col(lane));
+      if constexpr (kBwd)  // W_e rows [n][k]
+        ptt::ldsm_x4(bfr, Bs + (n0 + ptt::b_row(lane)) * BP + kk * 16 +
+                              ptt::b_col(lane));
+      else  // W_e [k][n]
+        ptt::ldsm_x4_t(bfr, Bs + (kk * 16 + ptt::a_row(lane)) * BP + n0 +
+                                ptt::a_col(lane));
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+          ptt::mma_bf16(acc[i][j], af[i], bfr[2 * j], bfr[2 * j + 1]);
+    }
+  }
+  ptt::cp_async_wait<0>();
+  store_acc(p, acc, m0, j0 + warp * kSvWN, m1, J, last_flag);
+}
+
+// ---- the prefill tile on wgmma -----------------------------------------
+//
+// 128 rows x 128 columns a block: two consumer warpgroups of 64 rows
+// (m64n128k16, A and B from shared memory in the 128-byte-swizzled
+// layout, B MN-major in the forward and K-major in dx), a 3-stage ring of
+// 32 KB stages filled by all 256 threads (fence.proxy.async before wgmma
+// reads them), each stage's products waited for before the next barrier;
+// two blocks an SM, so one block's barrier and copies overlap the other's
+// products.
+constexpr int kWgThreads = 256, kWgBM = 128, kWgBN = 128, kWgStages = 3;
+constexpr int kWgA = kWgBM * kBK;             // A elements a stage
+constexpr int kWgStage = kWgA + kBK * kWgBN;  // A + B elements a stage
+// the ring and 1,024 bytes to align the swizzle atoms
+constexpr size_t kWgSmemBytes = sizeof(bf16) * kWgStages * kWgStage + 1024;
+
+template <bool kBwd>
+__global__ void __launch_bounds__(kWgThreads, 2)
+gmm_wg_kernel(const TcArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (ptt::smem_addr(smem_raw) & 1023)) & 1023));
+  __shared__ int bind[3];
+  __shared__ int last_flag;
+
+  const int M = p.M, K = p.K, N = p.N;
+  const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4;
+  if (tid == 0) bind_tile(p.offs, p.E, M, kWgBM, blockIdx.y, bind);
+  __syncthreads();
+  const int ex = bind[0];
+  if (ex < 0) return;  // a dead tile: no weight bytes, no counter
+  const int m0 = bind[1], m1 = bind[2];
+
+  const int R = kBwd ? N : K;  // reduction length
+  const int J = kBwd ? K : N;  // output columns
+  const int j0 = blockIdx.x * kWgBN;
+  const bf16* A = p.a + (long)m0 * R;
+  const bf16* W = p.w + (long)ex * K * N;
+  const int nst = (R + kBK - 1) / kBK;
+  const int t_begin = blockIdx.z * p.per;
+  const int n_t = min(nst, t_begin + p.per) - t_begin;
+
+  const auto load_stage = [&](int t, int slot) {
+    bf16* As = ring + slot * kWgStage;
+    bf16* Bs = As + kWgA;
+    const int r0 = (t_begin + t) * kBK;
+    ptt::cp_tile_sw128_2d<kWgBM, kBK, kWgThreads>(As, A + r0, R, m1 - m0,
+                                                  R - r0);
+    if constexpr (kBwd)
+      ptt::cp_tile_sw128_2d<kWgBN, kBK, kWgThreads>(
+          Bs, W + (long)j0 * N + r0, N, K - j0, N - r0);
+    else
+      ptt::cp_tile_sw128_2d<kBK, kWgBN, kWgThreads>(
+          Bs, W + (long)r0 * N + j0, N, K - r0, N - j0);
+  };
+
+  float acc[1][16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] = 0.f;
+  // a warpgroup whose rows all lie past the tile's end skips the products
+  const bool live = m0 + 64 * wg < m1;
+
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n_t) load_stage(s, s);
+    ptt::cp_async_commit();
+  }
+  for (int t = 0; t < n_t; ++t) {
+    ptt::cp_async_wait<kWgStages - 2>();
+    ptt::fence_proxy_async();  // the copies are visible to wgmma's reads
+    // stage t has landed, and both warpgroups are done with stage t - 1,
+    // whose slot the next copy takes
+    __syncthreads();
+    if (t + kWgStages - 1 < n_t)
+      load_stage(t + kWgStages - 1, (t + kWgStages - 1) % kWgStages);
+    ptt::cp_async_commit();
+    if (!live) continue;
+    // the warpgroup's 8 row atoms of A (1,024 bytes apart), 32 bytes a
+    // k-step inside the 128-byte rows
+    const bf16* As = ring + (t % kWgStages) * kWgStage + wg * 8 * 512;
+    const bf16* Bs = ring + (t % kWgStages) * kWgStage + kWgA;
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      const uint64_t a = ptt::gmma_desc_sw128(As + ks * 16, 16, 1024);
+      if constexpr (kBwd)
+        // W_e rows [n][k], K-major: 8-row atoms along n 1,024 bytes apart
+        ptt::wgmma_ss_n128<0>(acc[0], a,
+                              ptt::gmma_desc_sw128(Bs + ks * 16, 16, 1024));
+      else
+        // W_e [k][n], MN-major: k-step ks is k atoms 2 ks, 2 ks + 1 (1,024
+        // bytes apart); the two 64-column blocks (kBK / 8) atoms apart
+        ptt::wgmma_ss_n128<1>(
+            acc[0], a,
+            ptt::gmma_desc_sw128(Bs + 2 * ks * 512, (kBK / 8) * 1024, 1024));
+    }
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_operands(acc[0]);
+  }
+  ptt::cp_async_wait<0>();
+  // per warp the accumulator is the mma.sync C layout of its 16 rows
+  store_acc(p, acc, m0 + 64 * wg + 16 * w4, j0, m1, J, last_flag);
+}
+
+// tile 0: the serving tile (gmm_tc_kernel), 1: the prefill tile
+// (gmm_wg_kernel)
+template <bool kBwd>
+int launch_tc(const TcArgs& p, int tile, int tiles, int device,
+              cudaStream_t st) {
+  const int J = kBwd ? p.K : p.N;
+  cudaError_t err;
+  if (tile == 0) {
+    constexpr size_t bytes = sv_smem_bytes(kBwd);
+    err = ptt::allow_smem<gmm_tc_kernel<kBwd>>(device, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((J + kSvBN - 1) / kSvBN, tiles, p.splits);
+    gmm_tc_kernel<kBwd><<<grid, kSvThreads, bytes, st>>>(p);
+  } else {
+    err = ptt::allow_smem<gmm_wg_kernel<kBwd>>(device, (int)kWgSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((J + kWgBN - 1) / kWgBN, tiles, p.splits);
+    gmm_wg_kernel<kBwd><<<grid, kWgThreads, kWgSmemBytes, st>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kBwd>
+int launch_tc_entry(const void* a, const void* w, const void* offs,
+                    void* out, void* ws, void* counters, int M, int K, int N,
+                    int E, int tile, int tiles, int splits, int per,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (E < 1 || M < 1 || K < 8 || N < 8 || K % 8 || N % 8 || tiles < 1 ||
+      splits < 1 || per < 1 || (splits > 1 && ws == nullptr) ||
+      (long)(splits - 1) * per * kBK >= (kBwd ? N : K) ||
+      (tile != 0 && tile != 1))
+    return (int)cudaErrorInvalidValue;
+  if (misaligned(a) || misaligned(w) || misaligned(out))
+    return (int)cudaErrorMisalignedAddress;
+  const TcArgs p{static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+                 static_cast<const int*>(offs), static_cast<bf16*>(out),
+                 static_cast<float*>(ws), static_cast<int*>(counters),
+                 M, K, N, E, splits, per};
+  return launch_tc<kBwd>(p, tile, tiles, device,
+                         static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,5 +778,21 @@ PTT_GMM_ENTRY(ptt_gmm_q4, 4, false)
 PTT_GMM_ENTRY(ptt_gmm_bwd, 0, true)
 PTT_GMM_ENTRY(ptt_gmm_q_bwd, 8, true)
 #undef PTT_GMM_ENTRY
+
+// The bf16 fp-weight forward and dx on the tensor cores. a, w, out bf16
+// and 16-byte aligned, K and N multiples of 8; offs, ws, counters as
+// above; tile: 0 = serving (32-row tiles), 1 = prefill (128-row tiles);
+// tiles: grid rows, at least the live row tiles at that tile's rows; each
+// block reduces `per` stages of 64 of its split.
+#define PTT_GMM_TC_ENTRY(name, bwd)                                         \
+  int name(const void* a, const void* w, const void* offs, void* out,       \
+           void* ws, void* counters, int M, int K, int N, int E, int tile,  \
+           int tiles, int splits, int per, int device, void* stream) {      \
+    return launch_tc_entry<bwd>(a, w, offs, out, ws, counters, M, K, N, E,  \
+                                tile, tiles, splits, per, device, stream);  \
+  }
+PTT_GMM_TC_ENTRY(ptt_gmm_tc, false)
+PTT_GMM_TC_ENTRY(ptt_gmm_bwd_tc, true)
+#undef PTT_GMM_TC_ENTRY
 
 }  // extern "C"

@@ -13,7 +13,12 @@ result is cast to ``x``'s dtype.
 On a CUDA tensor :func:`grouped_matmul_fwd` / :func:`grouped_matmul_bwd`
 launch the hand-written kernels of ``csrc/grouped_matmul.cu`` (or raise);
 on a CPU tensor they run :func:`grouped_matmul_reference` and
-:func:`grouped_matmul_dx_reference`. :func:`grouped_matmul` is
+:func:`grouped_matmul_dx_reference`. :func:`_plan` picks the kernel before
+the launch, from shapes and pointers: bf16 activations with fp weights at
+K and N multiples of 8 and 16-byte aligned pointers take the tensor-core
+kernel (``"tc"``, ``ptt_gmm_tc`` / ``ptt_gmm_bwd_tc``; counted apart in
+``.tc_launches``); everything else (fp32, int8, int4, other widths) the
+CUDA-core kernel (``"cc"``). :func:`grouped_matmul` is
 differentiable on both: one custom op (``paddle_tpu_torch::grouped_matmul``)
 whose backward gives ``dx`` through the backward kernel and, for float
 weights, ``dw[e] = x_e^T dy_e`` as a plain matmul over each expert's rows
@@ -25,7 +30,9 @@ plain contraction on both devices.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from fractions import Fraction
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,13 +43,30 @@ _KERNEL = "grouped_matmul"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRY = [_P] * 7 + [_I] * 11 + [_P]
+_TC_ENTRY = [_P] * 6 + [_I] * 9 + [_P]
 _SIGNATURES = {name: _ENTRY for name in ("ptt_gmm", "ptt_gmm_q", "ptt_gmm_q4",
                                          "ptt_gmm_bwd", "ptt_gmm_q_bwd")}
-# the kernel's tiles (csrc/grouped_matmul.cu): 32 rows of one expert x 64
-# output columns a block, 64 reduction indices a stage (32 stored rows of
-# packed int4)
+_SIGNATURES.update(ptt_gmm_tc=_TC_ENTRY, ptt_gmm_bwd_tc=_TC_ENTRY)
+# the CUDA-core kernel's tiles (csrc/grouped_matmul.cu gmm_kernel): 32 rows
+# of one expert x 64 output columns a block, 64 reduction indices a stage
+# (32 stored rows of packed int4)
 BM, _BJ, _BR = 32, 64, 64
 _BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
+# the tensor-core tiles: serving (gmm_tc_kernel, mma.sync) and prefill
+# (gmm_wg_kernel, wgmma); the C entry's tile code, rows and columns a
+# block, and the blocks an SM the reduction is split towards. On an H100
+# at the serving rows, fewer and longer serving blocks streamed the
+# weights faster than a deeper split (w1 + w2 in 0.0218 ms split 1 / 4,
+# 0.0315 split 6 / 16 at two blocks an SM, chip_smoke.py phase 11); the
+# prefill tile splits only while its tiles leave SMs idle. 64 reduction
+# indices a stage
+TC_TILES = {"serving": dict(code=0, bm=32, bn=128,
+                            blocks_per_sm=Fraction(1, 3)),
+            "prefill": dict(code=1, bm=128, bn=128, blocks_per_sm=1)}
+_TC_BK = 64
+# the serving tile up to this many rows per expert (ceil(M / E)), the
+# prefill tile above it
+SERVING_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +217,44 @@ def grouped_matmul_dw(x, dy, group_offsets, e: int, w_dtype):
 # ---------------------------------------------------------------------------
 
 
-def _grid(m, k, n, e, bits, bwd, device):
-    """(grid rows, column tiles, splits, stages per split)."""
+class Plan(NamedTuple):
+    """One launch: the kernel (``"tc"`` tensor cores / ``"cc"`` CUDA
+    cores), the tc tile family (None for cc), rows a tile, grid rows,
+    column tiles, splits of the reduction and stages per split."""
+    route: str
+    tile: Optional[str]
+    bm: int
+    rows: int
+    cols: int
+    splits: int
+    per: int
+
+
+def _split(stages, live, blocks_per_sm, sms):
+    """(splits, stages per split): split the reduction until about
+    ``blocks_per_sm`` blocks an SM are live."""
+    want = max(1, min(stages, -(-blocks_per_sm * sms // live)))
+    per = -(-stages // want)
+    return -(-stages // per), per
+
+
+def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms) -> Plan:
+    """The launch of one grouped GEMM of ``m`` rows over ``e`` experts,
+    ``[K, N]`` weights of ``bits`` (0 fp, 8, 4), forward or dx
+    (``bwd``), activations of ``dtype``; ``aligned``: the activations,
+    weights and output start on 16 bytes; ``sms``: the card's SMs. A pure
+    function of its arguments, decided before any launch."""
+    if (bits == 0 and dtype == torch.bfloat16 and aligned and k % 8 == 0
+            and n % 8 == 0):
+        tile = "serving" if -(-m // e) <= SERVING_ROWS else "prefill"
+        t = TC_TILES[tile]
+        cols = -(-(k if bwd else n) // t["bn"])
+        stages = -(-(n if bwd else k) // _TC_BK)
+        # split against the tiles the rows fill, not the bound below
+        live = cols * -(-m // t["bm"])
+        splits, per = _split(stages, live, t["blocks_per_sm"], sms)
+        return Plan("tc", tile, t["bm"], max_row_tiles(m, e, t["bm"]), cols,
+                    splits, per)
     kw = k // 2 if bits == 4 else k
     rw = 32 if bits == 4 else 64
     cols = -(-kw // rw) if bwd else -(-n // _BJ)
@@ -202,16 +262,19 @@ def _grid(m, k, n, e, bits, bwd, device):
     rows = max_row_tiles(m, e)
     # split against the tiles the rows fill, not the bound above
     live = cols * -(-m // BM)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(stages, -(-_BLOCKS_PER_SM * sms // live)))
-    per = -(-stages // want)
-    return rows, cols, -(-stages // per), per
+    splits, per = _split(stages, live, _BLOCKS_PER_SM, sms)
+    return Plan("cc", None, BM, rows, cols, splits, per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
     """One kernel launch: forward ``a = x [M, K]`` -> ``[M, N]``, backward
     ``a = dy [M, N]`` -> ``[M, K]``, in ``a``'s dtype. Returns the output
-    and whether a kernel ran (not when ``M == 0``)."""
+    and the route that ran (None when ``M == 0``: no launch)."""
     code = _build.dtype_code(a.dtype, "grouped_matmul")
     tensors = [a, weights, offsets] + ([] if scales3d is None
                                        else [scales3d])
@@ -227,26 +290,37 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
     m, e = a.shape[0], weights.shape[0]
     out = torch.empty((m, k if bwd else n), dtype=a.dtype, device=a.device)
     if m == 0:
-        return out, False
-    rows, cols, splits, per = _grid(m, k, n, e, bits, bwd, a.device)
-    ws = (torch.empty((splits, m, out.shape[1]), dtype=torch.float32,
-                      device=a.device) if splits > 1 else None)
-    counters = _tile_counters(a.device, rows * cols)
-    vec = int(n * weights.element_size() % 16 == 0
-              and weights.data_ptr() % 16 == 0)
-    name = {0: "ptt_gmm", 8: "ptt_gmm_q", 4: "ptt_gmm_q4"}[bits] \
-        + ("_bwd" if bwd else "")
+        return out, None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, weights, out))
+    plan = _plan(m, e, k, n, bits, bwd, a.dtype, aligned,
+                 _sms(a.device.index))
+    ws = (torch.empty((plan.splits, m, out.shape[1]), dtype=torch.float32,
+                      device=a.device) if plan.splits > 1 else None)
+    counters = _tile_counters(a.device, plan.rows * plan.cols)
     lib = _build.load(_KERNEL, _SIGNATURES)
-    err = getattr(lib, name)(
-        a.data_ptr(), weights.data_ptr(),
-        None if scales3d is None else scales3d.data_ptr(),
-        offsets.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), counters.data_ptr(), m, k, n,
-        e, 1 if scales3d is None else scales3d.shape[1], rows, splits, per,
-        vec, code, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if plan.route == "tc":
+        name = "ptt_gmm_bwd_tc" if bwd else "ptt_gmm_tc"
+        err = getattr(lib, name)(
+            a.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            counters.data_ptr(), m, k, n, e, TC_TILES[plan.tile]["code"],
+            plan.rows, plan.splits, plan.per, a.device.index, stream)
+    else:
+        vec = int(n * weights.element_size() % 16 == 0
+                  and weights.data_ptr() % 16 == 0)
+        name = {0: "ptt_gmm", 8: "ptt_gmm_q", 4: "ptt_gmm_q4"}[bits] \
+            + ("_bwd" if bwd else "")
+        err = getattr(lib, name)(
+            a.data_ptr(), weights.data_ptr(),
+            None if scales3d is None else scales3d.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), counters.data_ptr(), m,
+            k, n, e, 1 if scales3d is None else scales3d.shape[1],
+            plan.rows, plan.splits, plan.per, vec, code, a.device.index,
+            stream)
     _build.check(lib, err, f"grouped_matmul {name} launch")
-    return out, True
+    return out, plan.route
 
 
 def _check_device(t):
@@ -259,42 +333,47 @@ _BITS_NAME = {0: "fp", 8: "int8", 4: "int4"}
 
 def grouped_matmul_fwd(x2, weights, group_offsets, scales3d=None):
     """``x2 [M, K]`` rows through their experts' weights, in ``x2``'s dtype:
-    the kernel on a CUDA tensor (``.launches["fp" | "int8" | "int4"]``
-    counts it), the reference on a CPU tensor."""
+    a kernel on a CUDA tensor (``.launches["fp" | "int8" | "int4"]``
+    counts either kernel, ``.tc_launches`` the tensor-core one alone), the
+    reference on a CPU tensor."""
     _check_device(x2)
     k = x2.shape[1]
     bits = _weight_bits(weights, k)
     if x2.device.type == "cpu":
         return grouped_matmul_reference(x2, weights, group_offsets,
                                         scales=scales3d)
-    out, ran = _launch(x2, weights, scales3d, group_offsets, k,
-                       weights.shape[2], bits, bwd=False)
-    if ran:
+    out, route = _launch(x2, weights, scales3d, group_offsets, k,
+                         weights.shape[2], bits, bwd=False)
+    if route:
         grouped_matmul_fwd.launches[_BITS_NAME[bits]] += 1
+        grouped_matmul_fwd.tc_launches += route == "tc"
     return out
 
 
 grouped_matmul_fwd.launches = {"fp": 0, "int8": 0, "int4": 0}
+grouped_matmul_fwd.tc_launches = 0
 
 
 def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
-    """``dx [M, K]`` in ``x_dtype``: the kernel on a CUDA tensor for fp and
-    int8 weights (``.launches["fp" | "int8"]`` counts it), the reference on
-    a CPU tensor and for int4 (the reference has no int4 backward
-    kernel)."""
+    """``dx [M, K]`` in ``x_dtype``: a kernel on a CUDA tensor for fp and
+    int8 weights (``.launches["fp" | "int8"]`` counts either kernel,
+    ``.tc_launches`` the tensor-core one alone), the reference on a CPU
+    tensor and for int4 (the reference has no int4 backward kernel)."""
     _check_device(dy)
     bits = _weight_bits(weights, k)
     if dy.device.type == "cpu" or bits == 4:
         return grouped_matmul_dx_reference(dy, weights, group_offsets,
                                            scales3d, k, x_dtype)
-    out, ran = _launch(dy.to(x_dtype), weights, scales3d, group_offsets, k,
-                       weights.shape[2], bits, bwd=True)
-    if ran:
+    out, route = _launch(dy.to(x_dtype), weights, scales3d, group_offsets,
+                         k, weights.shape[2], bits, bwd=True)
+    if route:
         grouped_matmul_bwd.launches[_BITS_NAME[bits]] += 1
+        grouped_matmul_bwd.tc_launches += route == "tc"
     return out
 
 
 grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
+grouped_matmul_bwd.tc_launches = 0
 
 
 @torch.library.custom_op("paddle_tpu_torch::grouped_matmul", mutates_args=())

@@ -43,7 +43,8 @@ those rows) are held like the outputs; where a payload differs, what
 attends it moves, and the fp32 outputs are then held to ``1e-3``.
 The ragged grouped GEMM computes what the weight-only GEMM computes per
 expert, and is held the same way (fp32 to ``1e-5`` of the tensor's max,
-bf16 per row); attention routed to plain ``_sdpa_ref`` (head_dim 96, fp16)
+bf16 per row; its bf16 tensor-core kernels sum exact bf16 products in
+another order and round once, as the plain version does); attention routed to plain ``_sdpa_ref`` (head_dim 96, fp16)
 runs the same function as the reference path on the same device and is
 held to ``atol/rtol 1e-6`` in fp32 and exactly in fp16. The paged decode
 kernel is held like the ragged kernel (fp32 ``FP32_TOL``, bf16 per row),
@@ -771,23 +772,130 @@ def test_grouped_matmul_kernels_match_plain(cuda, dtype, shape, weights):
         dy, w, offs, scales, x.shape[1], dtype).float(), dtype)
 
 
-def test_grouped_matmul_grad_wiring(cuda):
-    """dx by the backward kernel and fp dw by the per-expert segment
-    products equal the plain version's autograd gradients (fp32); int8
-    weights take no gradient."""
+# the tensor-core kernel (bf16 fp weights): (K, N, rows per expert, tile).
+# The serving rows and both GEMMs' widths; the prefill rows; rows that end
+# mid-tile; empty first / middle / last experts; K and N multiples of 8 but
+# not of the tiles (64 deep, 128 wide); a 1-row expert; a split reduction
+# over a K that leaves a short last stage
+GMM_TC_CASES = {
+    "serving_w1": (768, 3072, [30, 0, 11, 7], "serving"),
+    "serving_w2": (3072, 768, [30, 0, 11, 7], "serving"),
+    "prefill_w1": (768, 3072, [2400, 0, 900, 796], "prefill"),
+    "prefill_w2": (3072, 768, [2400, 900, 796, 0], "prefill"),
+    "empty_ends": (136, 72, [0, 5, 1, 0, 9, 3, 0], "serving"),
+    "mid_tile": (200, 264, [0, 177, 1, 0, 330, 133], "prefill"),
+    "short_stage": (1000, 40, [1, 0, 15, 2], "serving"),
+}
+
+
+def _gmm_tc_inputs(case, cuda, seed=21):
+    """bf16 x [M, K], dy [M, N], W [E, K, N] with NaN in every empty
+    expert, and the offsets."""
+    k, n, counts, _ = GMM_TC_CASES[case]
+    rng = np.random.RandomState(seed)
+    m, e = sum(counts), len(counts)
+    x = _rand(rng, (m, k), cuda, torch.bfloat16)
+    dy = _rand(rng, (m, n), cuda, torch.bfloat16)
+    w = _rand(rng, (e, k, n), cuda, torch.bfloat16, 0.05)
+    w[[i for i, c in enumerate(counts) if c == 0]] = float("nan")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=cuda)
+    return x, dy, w, offs
+
+
+@pytest.mark.parametrize("case", sorted(GMM_TC_CASES))
+def test_grouped_matmul_tc_matches_plain(cuda, case):
+    """The tensor-core forward and dx against their plain versions, the
+    empty experts' NaN weights absent from the outputs, one tensor-core
+    launch each, two launches bitwise equal."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    x, dy, w, offs = _gmm_tc_inputs(case, cuda)
+    k, n, counts, tile = GMM_TC_CASES[case]
+    plan = gm._plan(x.shape[0], w.shape[0], k, n, 0, False, torch.bfloat16,
+                    True, torch.cuda.get_device_properties(
+                        cuda).multi_processor_count)
+    assert (plan.route, plan.tile) == ("tc", tile)
+    fwd_tc, bwd_tc = grouped_matmul_fwd.tc_launches, \
+        grouped_matmul_bwd.tc_launches
+    fp_fwd, fp_bwd = grouped_matmul_fwd.launches["fp"], \
+        grouped_matmul_bwd.launches["fp"]
+    outs = [(grouped_matmul_fwd(x, w, offs),
+             grouped_matmul_bwd(dy, w, offs, None, k, torch.bfloat16))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert grouped_matmul_fwd.tc_launches == fwd_tc + 2
+    assert grouped_matmul_bwd.tc_launches == bwd_tc + 2
+    assert grouped_matmul_fwd.launches["fp"] == fp_fwd + 2
+    assert grouped_matmul_bwd.launches["fp"] == fp_bwd + 2
+    (got, dx), again = outs
+    assert torch.equal(got, again[0]) and torch.equal(dx, again[1])
+    assert got.dtype == dx.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(dx).all())
+    _assert_close(got, grouped_matmul_reference(x, w, offs), torch.bfloat16)
+    _assert_close(dx, grouped_matmul_dx_reference(dy, w, offs, None, k,
+                                                  torch.bfloat16),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("kn", [(136, 76), (132, 72)])
+def test_grouped_matmul_width_off_the_copies_runs_cuda_cores(cuda, kn):
+    """bf16 fp weights at a K or N that is not a multiple of 8, or with an
+    unaligned weight pointer, run the CUDA-core kernel (no tensor-core
+    launch) and match the plain version."""
+    k, n = kn
+    rng = np.random.RandomState(22)
+    counts = [5, 0, 1, 9, 3]
+    x = _rand(rng, (18, k), cuda, torch.bfloat16)
+    dy = _rand(rng, (18, n), cuda, torch.bfloat16)
+    w = _rand(rng, (5, k, n), cuda, torch.bfloat16, 0.05)
+    w[1] = float("nan")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=cuda)
+    ws = [w]
+    if k % 8 == 0 and n % 8 == 0:   # the same values one element off
+        flat = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+        ws = [flat[1:].view(w.shape).copy_(w)]
+        assert ws[0].data_ptr() % 16 != 0
+    tc = (grouped_matmul_fwd.tc_launches, grouped_matmul_bwd.tc_launches)
+    for wt in ws:
+        got = grouped_matmul_fwd(x, wt, offs)
+        dx = grouped_matmul_bwd(dy, wt, offs, None, k, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(dx).all())
+        _assert_close(got, grouped_matmul_reference(x, w, offs),
+                      torch.bfloat16)
+        _assert_close(dx, grouped_matmul_dx_reference(
+            dy, w, offs, None, k, torch.bfloat16), torch.bfloat16)
+    assert (grouped_matmul_fwd.tc_launches,
+            grouped_matmul_bwd.tc_launches) == tc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_grad_wiring(cuda, dtype):
+    """dx by the backward kernel (in bf16 the tensor-core one) and fp dw by
+    the per-expert segment products equal the plain version's autograd
+    gradients; int8 weights take no gradient."""
     rng = np.random.RandomState(9)
     counts = [7, 0, 40, 1]
     offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
                         dtype=torch.int32, device=cuda)
-    x = _rand(rng, (48, 96), cuda, torch.float32).requires_grad_()
-    w = _rand(rng, (4, 96, 80), cuda, torch.float32, 0.1).requires_grad_()
-    r = _rand(rng, (48, 80), cuda, torch.float32)
+    x = _rand(rng, (48, 96), cuda, dtype).requires_grad_()
+    w = _rand(rng, (4, 96, 80), cuda, dtype, 0.1).requires_grad_()
+    r = _rand(rng, (48, 80), cuda, dtype)
+    tc = grouped_matmul_bwd.tc_launches
     (grouped_matmul(x, w, offs) * r).sum().backward()
+    assert grouped_matmul_bwd.tc_launches == tc + (dtype == torch.bfloat16)
     gx, gw = x.grad.clone(), w.grad.clone()
+    assert gx.dtype == gw.dtype == dtype
     x.grad = w.grad = None
     (grouped_matmul(x, w, offs, use_kernel=False) * r).sum().backward()
-    _qmm_err(gx, x.grad, torch.float32)
-    _qmm_err(gw, w.grad, torch.float32)
+    _qmm_err(gx.float(), x.grad.float(), dtype)
+    _qmm_err(gw.float(), w.grad.float(), dtype)
+    if dtype != torch.float32:
+        return
     qw = quantize_weight(w.detach(), "int8", 32)
     x.grad = None
     before = grouped_matmul_bwd.launches["int8"]

@@ -28,6 +28,11 @@ BF16_ROW_TOL = 1e-2
 # more rows than one 32-row tile
 COUNTS = {"mixed": [0, 5, 0, 1, 40, 3], "tail_empty": [9, 33, 0],
           "one": [0, 0, 7]}
+# every row-tile height a launch plan can choose (the CUDA-core kernel's
+# and each tensor-core tile family's), and the reference's 8
+PLAN_BMS = sorted({tgmm.BM} | {t["bm"] for t in tgmm.TC_TILES.values()})
+LAYOUT_BMS = sorted({8, *PLAN_BMS})
+SMS = 132   # an H100's SMs: plans are pure functions, no card needed
 
 
 def _offsets(counts):
@@ -102,13 +107,15 @@ def test_twin_matches_jax_reference(dtype, weights, counts):
     _close(tgmm.grouped_matmul(tx, tw, toffs, ts), want, dtype)
 
 
+@pytest.mark.parametrize("bm", LAYOUT_BMS)
 @pytest.mark.parametrize("counts", sorted(COUNTS))
-def test_layout_matches_jax(counts):
+def test_layout_matches_jax(counts, bm):
     """``token_group_ids`` equals the reference's; ``row_tiles`` (the
-    kernel's tile binding) gives each live tile the group and the rows the
-    reference's padded pack layout gives it."""
+    kernels' tile binding, at every tile height a plan can choose) gives
+    each live tile the group and the rows the reference's padded pack
+    layout gives it."""
     c = COUNTS[counts]
-    m, e, bm = sum(c), len(c), 8
+    m, e = sum(c), len(c)
     offs = _offsets(c)
     np.testing.assert_array_equal(
         tgmm.token_group_ids(_t(offs), m).numpy(),
@@ -126,15 +133,90 @@ def test_layout_matches_jax(counts):
         np.testing.assert_array_equal(np.arange(lo[t], hi[t]), want_rows)
 
 
-def test_max_row_tiles_bounds_every_split():
+@pytest.mark.parametrize("bm", PLAN_BMS)
+def test_max_row_tiles_bounds_every_split(bm):
     rng = np.random.default_rng(3)
     for _ in range(200):
         e = int(rng.integers(1, 9))
-        c = rng.integers(0, 70, e) * (rng.random(e) < 0.7)
+        c = rng.integers(0, 2 * bm + 6, e) * (rng.random(e) < 0.7)
         m = int(c.sum())
         if m == 0:
             continue
-        assert sum(-(-int(n) // 32) for n in c) <= tgmm.max_row_tiles(m, e)
+        assert sum(-(-int(n) // bm) for n in c) <= tgmm.max_row_tiles(m, e,
+                                                                     bm)
+
+
+def _check_plan(p, m, e, k, n, bwd, counts):
+    """A tensor-core plan's grid: every stage of 64 of the reduction in
+    exactly one split, no split empty (the C entries refuse one), the
+    grid rows over every live tile of ``counts``."""
+    stages = -(-(n if bwd else k) // 64)
+    assert p.cols == -(-(k if bwd else n) // tgmm.TC_TILES[p.tile]["bn"])
+    assert p.per >= 1 and 1 <= p.splits <= stages
+    assert p.splits * p.per >= stages > (p.splits - 1) * p.per
+    assert p.rows == tgmm.max_row_tiles(m, e, p.bm)
+    assert sum(-(-c // p.bm) for c in counts) <= p.rows
+
+
+def test_plan_routes():
+    """bf16 fp weights at aligned widths multiple of 8 take the
+    tensor-core kernel, the serving tile at the serving rows and the
+    prefill tile at the prefill rows; fp32, int8, int4, a width that is
+    not a multiple of 8 and an unaligned pointer take the CUDA-core
+    kernel; the splits cover the reduction and the grid rows the live
+    tiles."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    serving, prefill = [30, 0, 11, 7], [2400, 0, 900, 796]
+    for bwd in (False, True):
+        for k, n in ((768, 3072), (3072, 768)):
+            for counts, tile, bm in ((serving, "serving", 32),
+                                     (prefill, "prefill", 128)):
+                m = sum(counts)
+                p = tgmm._plan(m, 4, k, n, 0, bwd, bf16, True, SMS)
+                assert (p.route, p.tile, p.bm) == ("tc", tile, bm)
+                _check_plan(p, m, 4, k, n, bwd, counts)
+            # the serving tile splits the reduction where it has few
+            # column tiles (768 wide: 6); the prefill tile fills the card
+            # with row tiles instead
+            p = tgmm._plan(48, 4, k, n, 0, bwd, bf16, True, SMS)
+            assert (p.cols, p.splits) == ((6, 4) if (k if bwd else n) == 768
+                                          else (24, 1))
+            assert tgmm._plan(4096, 4, k, n, 0, bwd, bf16, True,
+                              SMS).splits == 1
+        for args in ((48, 4, 768, 3072, 0, bwd, f32, True),
+                     (4096, 4, 768, 3072, 0, bwd, f32, True),
+                     (48, 4, 768, 3072, 8, bwd, bf16, True),
+                     (4096, 4, 3072, 768, 8, bwd, bf16, True),
+                     (48, 4, 768, 3072, 4, bwd, bf16, True),
+                     (23, 5, 136, 76, 0, bwd, bf16, True),
+                     (23, 5, 132, 72, 0, bwd, bf16, True),
+                     (48, 4, 768, 3072, 0, bwd, bf16, False)):
+            p = tgmm._plan(*args, SMS)
+            assert (p.route, p.tile, p.bm) == ("cc", None, tgmm.BM), args
+            assert p.rows == tgmm.max_row_tiles(args[0], args[1])
+            assert 1 <= p.splits and (p.splits - 1) * p.per < max(
+                1, -(-args[3] // 64) if bwd else -(-args[2] // 64))
+    # the odd shape (c) takes the tensor cores: K 136, N 72 are multiples
+    # of 8 though not of the tiles
+    p = tgmm._plan(18, 5, 136, 72, 0, False, bf16, True, SMS)
+    assert (p.route, p.tile) == ("tc", "serving")
+    # random splits: the grid rows cover the live tiles, the splits the
+    # reduction
+    rng = np.random.default_rng(11)
+    for _ in range(300):
+        e = int(rng.integers(1, 9))
+        counts = [int(c) for c in rng.integers(0, 600, e)
+                  * (rng.random(e) < 0.8)]
+        m = sum(counts)
+        if m == 0:
+            continue
+        k, n = (int(v) * 8 for v in rng.integers(1, 500, 2))
+        bwd = bool(rng.random() < 0.5)
+        p = tgmm._plan(m, e, k, n, 0, bwd, bf16, True, SMS)
+        assert p.route == "tc"
+        assert p.tile == ("serving" if -(-m // e) <= tgmm.SERVING_ROWS
+                          else "prefill")
+        _check_plan(p, m, e, k, n, bwd, counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
