@@ -2,11 +2,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --moe-forward [ROOT]
+    python3 chip_smoke.py --fused-gelu [ROOT]
 
 from the root of a checkout. The second form runs only phase 11's bf16
 MoE full forward, with the package of the checkout at ROOT (default: this
 one; an unpacked ``git archive`` of another commit compares two trees on
-one card) and prints one JSON line. Phases (each failure ends the run
+one card) and prints one JSON line. The third times only phase 9's GELU
+kernels (forward and backward, with and without the bias, fp32 and bf16)
+at [8192, 6144] beside their bounds and library calls, then profiles the
+fused bf16 flagship step (GELU device time, busy share), with ROOT's
+package, and prints one JSON line. Phases (each failure ends the run
 non-zero):
 
 1. device: the card's name and power limit;
@@ -80,7 +85,12 @@ non-zero):
    against unfused (loss, every gradient leaf, 3 steps' losses); then the
    flagship bf16 step with ``fused_mlp=True``, timed beside phase 7's
    unfused step, with 96 LN forward, 48 LN backward, 48 GELU forward and
-   24 GELU backward launches a step, and one profiled step.
+   24 GELU backward launches a step, and one profiled step (the LN and
+   GELU kernels' device time apart). The GELU kernels also meet inputs in
+   +-30 with +-1e4, +-inf and NaN in every row at the GPT-125M and odd
+   shapes (NaN / +-inf at the plain version's places, the finite entries
+   held as ``FUSED_TOL``), and every GELU case is launched twice: the
+   second result must be bitwise equal.
 
 10. mega serving (run after phase 8, while GPT-125M is on the card): the
    mega attention and mega MLP kernels vs their plain versions at the
@@ -249,6 +259,9 @@ QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FUSED_LN_SHAPES = ((8192, 1536), (2048, 768), (77, 200))   # flagship,
 FUSED_GELU_SHAPES = ((8192, 6144), (2048, 3072), (77, 200))  # 125M, odd
+# the GELU kernels' extreme inputs, in every row beside values in +-30:
+# NaN, +inf and -inf must land where the plain version puts them
+GELU_SPECIAL = (1e4, -1e4, float("inf"), float("-inf"), float("nan"))
 # operations an element: LN forward 8 (+1 with the residual), backward 14
 # (+1 with dso), GELU forward 20 and backward 32, a tanh counted as 10;
 # all fp32 on the CUDA cores (PEAK_OPS[float32]), whatever the input type
@@ -381,18 +394,19 @@ def bound_ms(nbytes: float, ops: float, dtype) -> float:
 
 
 def ptxas_summary(name: str, text: str):
-    """One line per compiled instantiation (kernel, element type, first
-    template value: head_dim or a flag) with its registers and spills, from
-    the ``ptxas -v`` report."""
+    """One line per compiled instantiation (kernel, element type, its
+    integer and bool template values: head_dim, flags) with its registers
+    and spills, from the ``ptxas -v`` report."""
     inst, spills = None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
-                      r"(13__nv_bfloat16|f)(?:L[ib](\d+))?", line)
+                      r"(13__nv_bfloat16|f)((?:L[ib]\d+E)*)", line)
         tc = re.search(r"Compiling entry function '.*?(gmm_(?:tc|wg)_kernel)"
                        r"ILb(\d)E", line)
         if m:
+            flags = re.findall(r"L[ib](\d+)E", m.group(3))
             inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
-                    m.group(3) or "-")
+                    ", ".join(flags) or "-")
         elif tc:
             inst = (tc.group(1), "bf16",
                     "dx" if tc.group(2) == "1" else "fwd")
@@ -3048,9 +3062,10 @@ def phase_train_bf16_parity(dev):
 
 
 def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
-    """The flagship configuration: full-width gpt3-760m, bf16, timed; with
-    ``fused`` the ``fused_mlp`` step (phase 9), logged beside ``unfused``,
-    the result of the unfused run of the same call."""
+    """The flagship configuration: full-width gpt3-760m, bf16, timed, and
+    one profiled step; with ``fused`` the ``fused_mlp`` step (phase 9),
+    logged beside ``unfused``, the result of the unfused run of the same
+    call. ``bwd_stats``: phase 7's flash times, or None."""
     from paddle_tpu_torch.models import gpt_spmd
     from paddle_tpu_torch.models.convert import random_train_params
     from paddle_tpu_torch.models.gpt import GPTConfig
@@ -3094,7 +3109,11 @@ def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
     tps = b * s / step_s
     flops_per_token = 6 * cfg.num_params() + 6 * L * cfg.hidden_size * s
     mfu = tps * flops_per_token / PEAK_OPS[torch.bfloat16]
-    attn_ms = L * (bwd_stats["ms"] + bwd_stats["fwd_ms"])
+    flash_txt = "" if bwd_stats is None else (
+        f"flash kernels alone "
+        f"{L * (bwd_stats['ms'] + bwd_stats['fwd_ms']):.1f} ms a step ({L} x"
+        f" (bwd {bwd_stats['ms']:.3f} + fwd {bwd_stats['fwd_ms']:.3f}) ms, "
+        "phase-7 kernel times); ")
     log(f"{tag} bf16 gpt3-760m {label} b{b} s{s} recompute+save_attn: "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; flash launches fwd "
         f"{fwd_n} bwd {bwd_n} ({L} each per step); fused launches LN fwd/bwd"
@@ -3102,9 +3121,7 @@ def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
         f"{1e3 * step_s:.1f} ms (mean of {len(timed)} after 1 warm-up: "
         f"{', '.join(f'{1e3 * w:.1f}' for w in timed)}), {tps:.1f} tokens/s,"
         f" MFU {mfu:.4f} ({flops_per_token / 1e9:.3f} GFLOP/token over "
-        f"989 TFLOP/s bf16); flash kernels alone {attn_ms:.1f} ms a step "
-        f"({L} x (bwd {bwd_stats['ms']:.3f} + fwd {bwd_stats['fwd_ms']:.3f}) "
-        f"ms, phase-7 kernel times); peak device memory {peak_gb:.2f} GB "
+        f"989 TFLOP/s bf16); {flash_txt}peak device memory {peak_gb:.2f} GB "
         f"({card})")
     result = dict(fwd_n=fwd_n, bwd_n=bwd_n, fused_n=fused_n,
                   step_ms=1e3 * step_s, tps=tps, mfu=mfu, peak_gb=peak_gb)
@@ -3114,7 +3131,16 @@ def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
             f"tokens/s {tps:.1f} vs {unfused['tps']:.1f}, MFU {mfu:.4f} vs "
             f"{unfused['mfu']:.4f}, peak {peak_gb:.2f} vs "
             f"{unfused['peak_gb']:.2f} GB (one run each, not a benchmark)")
-    profile_step(step, params, mom, ids, labels, card, tag)
+    prof = result["profile"] = profile_step(step, params, mom, ids, labels,
+                                            card, tag)
+    if fused and prof is not None:
+        gelu_ms, ln_ms = (prof["groups_ms"][g] for g in ("fused GELU",
+                                                         "fused LN"))
+        log(f"{tag} profiled fused step: GELU kernels {gelu_ms:.3f} ms "
+            f"({per_step[2]} forward + {per_step[3]} backward launches, "
+            f"{gelu_ms / prof['busy_ms']:.3f} of device busy "
+            f"{prof['busy_ms']:.1f} ms), LN kernels {ln_ms:.3f} ms; device "
+            f"busy share {prof['busy_share']:.3f} ({card})")
     return result
 
 
@@ -3249,6 +3275,9 @@ def phase_fused_kernels(dev):
                             not torch.equal(got[1], want[1]):
                         raise AssertionError("ln_fwd: s is not the plain "
                                              "version's rounding of x + r")
+                    if kind.startswith("gelu"):
+                        gelu_repeat(kern, got, f"{kind} {variant} "
+                                    f"{str(dtype)[6:]} {list(shape)}")
                     if si:
                         continue
                     nbytes, nops = fused_work(kind, variant, *shape,
@@ -3274,7 +3303,79 @@ def phase_fused_kernels(dev):
                         f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP), "
                         f"{st['bound_ms'] / st['ms']:.3f} of the bound")
                     del t
+    gelu_extremes(dev)
     return stats
+
+
+def bits(t):
+    """``t``'s bits as integers, so equal NaNs compare equal."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[
+        t.dtype])
+
+
+def gelu_repeat(kern, got, label):
+    """A second launch of a GELU kernel on the same inputs must be bitwise
+    equal to the first (dx, and dbias summed in a fixed order)."""
+    again = kern()
+    torch.cuda.synchronize()
+    again = [a for a in (again if isinstance(again, tuple) else (again,))
+             if a is not None]
+    if not all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got)):
+        raise AssertionError(f"fused {label}: a second launch differs")
+
+
+def gelu_special(shape, dtype, dev, seed):
+    """``u`` uniform in +-30 with +-1e4, +-inf and NaN in every row."""
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(-30, 30, shape).astype(np.float32)
+    special = np.array(GELU_SPECIAL, np.float32)
+    cols = np.argsort(rng.random_sample(shape), axis=1)[:, :special.size]
+    np.put_along_axis(u, cols, special[None], axis=1)
+    return torch.from_numpy(u).to(dev, dtype)
+
+
+def gelu_extremes(dev):
+    """The four GELU variants at GPT-125M's and the odd shape on inputs in
+    +-30 with +-1e4, +-inf and NaN in every row: NaN, +inf and -inf at the
+    same places as the plain version's, the finite entries held as
+    ``FUSED_TOL``; and a bitwise-equal second launch."""
+    for kind in ("gelu_fwd", "gelu_bwd"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("plain", "bias"):
+                for si, shape in enumerate(FUSED_GELU_SHAPES[1:]):
+                    t = fused_inputs(kind, shape, dtype, dev, SEED + 7 + si)
+                    t["u"] = gelu_special(shape, dtype, dev, SEED + 7 + si)
+                    kern, plain, _ = fused_calls(kind, variant, t)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    got, want = ([g for g in (o if isinstance(o, tuple)
+                                              else (o,)) if g is not None]
+                                 for o in (got, want))
+                    label = (f"{kind} {variant} {str(dtype)[6:]} "
+                             f"{list(shape)} extremes")
+                    held, counts = 0.0, []
+                    for g, w in zip(got, want):
+                        for test in (torch.isnan, torch.isposinf,
+                                     torch.isneginf):
+                            if not torch.equal(test(g), test(w)):
+                                raise AssertionError(
+                                    f"fused {label}: {test.__name__} at "
+                                    "other places than the plain version's")
+                            counts.append(int(test(w).sum()))
+                        fin = torch.isfinite(w)
+                        held = max(held, fused_held(
+                            torch.where(fin, g, 0), torch.where(fin, w, 0),
+                            dtype)[1])
+                    gelu_repeat(kern, got, label)
+                    tol = FUSED_TOL[dtype]
+                    log(f"[fused] {label}: NaN / +inf / -inf at the same "
+                        f"places ({' / '.join(map(str, counts))} over "
+                        f"{len(got)} outputs), finite held {held:.3e} (tol "
+                        f"{tol}), second launch bitwise equal")
+                    if not held <= tol:
+                        raise AssertionError(f"fused {label}: held error "
+                                             f"{held} > {tol}")
 
 
 def phase_fused_eager(model, cfg, dev):
@@ -3374,8 +3475,8 @@ def phase_fused_train_fp32(dev):
 KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                                  "flash_fwd_wg_kernel")),
                  ("flash bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
-                 ("fused LN / GELU", ("ln_fwd_kernel", "ln_bwd_kernel",
-                                      "gelu_kernel")),
+                 ("fused LN", ("ln_fwd_kernel", "ln_bwd_kernel")),
+                 ("fused GELU", ("gelu_kernel",)),
                  ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                     "nvjet")),
                  ("copies and fills", ("memcpy", "memset")))
@@ -3384,7 +3485,8 @@ KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
 def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
     """One more training step under ``torch.profiler``: device time by
     kernel group, and the device's busy and idle share of the step's wall
-    time (one stream, so kernels do not overlap)."""
+    time (one stream, so kernels do not overlap). Returns them (None when
+    the trace holds no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3410,7 +3512,7 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
     if busy <= 0:
         log(f"{tag} profiler: no device time in the trace (device "
             "breakdown not measured)")
-        return
+        return None
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag} profiled kernel {ev.self_device_time_total / 1e3:8.2f} "
             f"ms x{ev.count:<4d} {ev.key[:90]}")
@@ -3420,8 +3522,11 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
         f"{busy / wall_us:.3f} of it, idle {1 - busy / wall_us:.3f}; "
         f"{launches} kernels; flash share of device time "
         f"{flash / busy:.3f}; " + ", ".join(
-            f"{n} {t / 1e3:.1f} ms ({t / busy:.3f})"
+            f"{n} {t / 1e3:.3f} ms ({t / busy:.3f})"
             for n, t in groups.items()) + f" ({card})")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / wall_us, kernels=launches,
+                groups_ms={n: t / 1e3 for n, t in groups.items()})
 
 
 def card_line() -> str:
@@ -3453,6 +3558,126 @@ def moe_forward_only(root: Path) -> int:
     return 0
 
 
+def gelu_sass(root: Path) -> dict:
+    """Static SASS of ROOT's GELU kernels (``cuobjdump -sass`` of its built
+    ``fused_mlp`` library): per instantiation the instructions and MUFU
+    instructions in all and in the hottest loop (the backward branch that
+    spans the most instructions), and that loop's instructions per element
+    (rows a trip from the source's constants, times the elements of a
+    16-byte chunk). Empty when the toolkit has no ``cuobjdump``."""
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    src = (root / "paddle_tpu_torch" / "csrc" / "fused_mlp.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kGelu\w+) = (\d+);", src))
+    rows_a_trip = {False: int(consts.get("kGeluFwdDepth",
+                                         consts.get("kGeluUnroll", 1))),
+                   True: int(consts.get("kGeluBwdDepth",
+                                        consts.get("kGeluUnroll", 1)))}
+    text = subprocess.run([tool, "-sass", str(_build._target("fused_mlp")[1])],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, name, code = {}, None, []
+    for line in text.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if name and "gelu_kernel" in name:
+                out.update(sass_loop(name, code, rows_a_trip))
+            name, code = line.split("Function :")[1].strip(), []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                      r"([^;]*);", line)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return out
+
+
+def sass_loop(name, code, rows_a_trip):
+    """{label: counts} of one GELU instantiation's SASS (``gelu_sass``)."""
+    flags = re.findall(r"L[ib](\d+)E", name)
+    bf16 = "13__nv_bfloat16" in name
+    bwd = flags[:1] == ["1"]
+    label = (f"{'bf16' if bf16 else 'fp32'} {'bwd' if bwd else 'fwd'} "
+             f"flags {','.join(flags)}")
+    lo = hi = None
+    for addr, op, rest in code:
+        tgt = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr and (
+                lo is None or addr - int(tgt.group(1), 16) > hi - lo):
+            lo, hi = int(tgt.group(1), 16), addr
+    body = [op for addr, op, _ in code
+            if lo is not None and lo <= addr <= hi]
+    elems = rows_a_trip[bwd] * (8 if bf16 else 4)
+    return {label: dict(
+        instructions=len(code),
+        mufu=sum(op.startswith("MUFU") for _, op, _ in code),
+        loop_instructions=len(body),
+        loop_mufu=sum(op.startswith("MUFU") for op in body),
+        loop_per_element=len(body) / elems)}
+
+
+def fused_gelu_only(root: Path) -> int:
+    """``--fused-gelu [ROOT]``: the four GELU variants (forward and
+    backward, with and without the bias) at the flagship shape in fp32 and
+    bf16 with the ``paddle_tpu_torch`` package of the checkout at ``ROOT``
+    (default: this one), each beside its bound and its library call, then
+    the fused bf16 flagship step with its profile (the GELU kernels' device
+    time and the device's busy share); prints one JSON line. Run it with
+    two trees in turns to compare them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    shape = FUSED_GELU_SHAPES[0]
+    variants = {}
+    for kind in ("gelu_fwd", "gelu_bwd"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("plain", "bias"):
+                t = fused_inputs(kind, shape, dtype, dev, SEED)
+                kern, plain, lib = fused_calls(kind, variant, t)
+                got, want = kern(), plain()
+                got, want = ([g for g in (o if isinstance(o, tuple) else (o,))
+                              if g is not None] for o in (got, want))
+                held = max(fused_held(g, w, dtype)[1]
+                           for g, w in zip(got, want))
+                if not held <= FUSED_TOL[dtype]:
+                    raise AssertionError(f"{kind} {variant} {dtype}: held "
+                                         f"error {held}")
+                nbytes, nops = fused_work(kind, variant, *shape,
+                                          t["dy"].element_size())
+                ms = time_ms(kern, iters=20, replays=3)
+                lib_ms = None if lib is None else time_ms(lib, iters=20,
+                                                          replays=3)
+                bnd = bound_ms(nbytes, nops, torch.float32)
+                label = f"{kind} {variant} {str(dtype)[6:]}"
+                variants[label] = dict(ms=ms, bound_ms=bnd, library_ms=lib_ms,
+                                       held=held)
+                log(f"[fused-gelu] {label} {list(shape)}: kernel {ms:.4f} ms"
+                    f", bound {bnd:.4f} ms ({bnd / ms:.3f} of it), library "
+                    + ("null" if lib_ms is None else f"{lib_ms:.4f} ms")
+                    + f"; held error {held:.3e}")
+                del t
+    sass = gelu_sass(root)
+    for label, c in sass.items():
+        log(f"[fused-gelu] SASS {label}: {c['instructions']} instructions "
+            f"({c['mufu']} MUFU); hottest loop {c['loop_instructions']} "
+            f"({c['loop_mufu']} MUFU), {c['loop_per_element']:.1f} an "
+            "element")
+    step = phase_train_bf16(dev, card, None, fused=True)
+    print(json.dumps({"fused_gelu": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        shape=list(shape), variants=variants, sass=sass,
+        step=dict(step_ms=step["step_ms"], fused_n=step["fused_n"],
+                  profile=step["profile"]))}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3460,18 +3685,21 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     root = ROOT
-    if args[:1] == ["--moe-forward"] and len(args) <= 2:
+    modes = {"--moe-forward": moe_forward_only,
+             "--fused-gelu": fused_gelu_only}
+    if args[:1] and args[0] in modes and len(args) <= 2:
         root = Path(args[1]).resolve() if len(args) == 2 else ROOT
     elif args:
-        print(f"chip_smoke: unknown arguments {args} (none, or "
-              "--moe-forward [ROOT])", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {args} (none, "
+              "--moe-forward [ROOT] or --fused-gelu [ROOT])",
+              file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     if args:
-        return moe_forward_only(root)
+        return modes[args[0]](root)
     sys.path.insert(0, str(ROOT))
     from dataclasses import replace
 
@@ -3686,6 +3914,12 @@ def main() -> int:
             f"{other['bound_ms']:.6f}, max_abs_err {other['max_abs_err']:.3e}"
             ", library_ms null (no single PyTorch call); launches: the "
             f"{TRAIN_STEPS} fused bf16 flagship steps")
+        if fkind.startswith("gelu"):
+            row["variants"] = {
+                f"{v} {str(t)[6:]}": {k: fused[(fkind, v, t)][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}
+                for t in (torch.float32, bf16) for v in variants}
     fp32, b16 = (mega[(None, False, t)] for t in (torch.float32, bf16))
     q8 = mega[("int8", True, bf16)]
     for part in ("attn", "mlp"):

@@ -107,6 +107,22 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
+# per-device arrival counters, all zero between launches (the last block to
+# arrive resets its count); launches that share them run in stream order.
+# Grown buffers are kept, so a captured CUDA graph never sees one freed.
+_counters: dict[tuple, list[torch.Tensor]] = {}
+
+
+def arrival_counters(device, kind: str, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` for the kernels of
+    ``kind``, zero on entry; each kernel leaves them zero."""
+    held = _counters.setdefault((device.index, kind), [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 1 << 12), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
 def dtype_code(dtype, what: str) -> int:
     """The C entries' element-type code: 0 = fp32, 1 = bf16."""
     codes = {torch.float32: 0, torch.bfloat16: 1}

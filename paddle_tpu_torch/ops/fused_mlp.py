@@ -38,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,12 +50,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ptt_ln_fwd": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _I, _I, _P],
     "ptt_ln_bwd": [_P] * 9 + [_I] * 6 + [_P],
-    "ptt_gelu_fwd": [_P] * 3 + [_I] * 6 + [_P],
-    "ptt_gelu_bwd": [_P] * 5 + [_I] * 6 + [_P],
+    "ptt_gelu_fwd": [_P] * 3 + [_I] * 7 + [_P],
+    "ptt_gelu_bwd": [_P] * 7 + [_I] * 7 + [_P],
 }
 MAX_H = 8192          # the LN kernels' widest row (csrc/fused_mlp.cu kMaxH)
-_GELU_THREADS = 128   # columns of 16 bytes a GELU block owns
-_BLOCKS_PER_SM = 4    # bands of rows: about this many blocks per SM
+_BLOCKS_PER_SM = 4    # LN backward bands: about this many blocks per SM
+GELU_THREADS = 128    # threads of a GELU block (csrc/fused_mlp.cu kGeluThreads)
+GELU_BLOCKS_PER_SM = 8  # GELU blocks an SM holds (64 registers a thread)
+GELU_STRIP = 16       # widest strip of a GELU block, in 16-byte chunks
+GELU_ROWS = 2         # rows a GELU thread walks (without dbias partials)
+GELU_PART_SHARE = 0.005  # dbias partial rows: at most this share of the
+                         # bias backward's bytes (unless one band)
 
 _K0 = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -272,10 +277,43 @@ def ln_bwd(dy, dso, s, mean, rstd, gamma):
 ln_bwd.launches = 0
 
 
-def _gelu_band(rows, n, elt, device):
-    strips = -(-n // (_GELU_THREADS * 16 // elt))
-    want = max(1, _BLOCKS_PER_SM * _sms(device.index) // strips)
-    return -(-rows // want)
+class GeluPlan(NamedTuple):
+    """A GELU launch: a grid of ``strips x bands`` blocks; a block owns
+    ``strip`` 16-byte column chunks of each of ``band`` rows."""
+    strip: int
+    band: int
+    strips: int
+    bands: int
+
+
+def gelu_plan(rows: int, n: int, elt: int, sms: int,
+              partials: bool = False) -> GeluPlan:
+    """The GELU kernels' launch for ``[rows, n]`` elements of ``elt`` bytes
+    on a card of ``sms`` SMs; ``partials``: the bias backward, which
+    writes one fp32 dbias row of ``n`` per band.
+
+    Many small blocks, each thread walking ``GELU_ROWS`` rows, so the
+    card's block scheduler keeps every SM fed to the end (one persistent
+    wave of long bands is slower: its blocks end unevenly; ``gelu_plans.py``
+    times both). With partials the bands stay within ``GELU_PART_SHARE``
+    of the backward's bytes (``3 * rows * n * elt``), so a band is longer.
+    Where that leaves less than a wave of blocks, the strip narrows
+    (more strips, more row lanes a block) down to one chunk, or until a
+    block would have more lanes than there are rows."""
+    chunks = -(-n // (16 // elt))
+    target = sms * GELU_BLOCKS_PER_SM
+    max_bands = (max(1, int(GELU_PART_SHARE * 3 * rows * elt / 4))
+                 if partials else rows)
+    strip = min(GELU_STRIP, 1 << (chunks - 1).bit_length())
+    while True:
+        strips = -(-chunks // strip)
+        lanes = GELU_THREADS // strip
+        bands = min(-(-rows // (lanes * GELU_ROWS)), max_bands)
+        if strips * bands >= target or strip == 1 or 2 * lanes > rows:
+            break
+        strip //= 2
+    band = -(-rows // bands)
+    return GeluPlan(strip, band, strips, -(-rows // band))
 
 
 def gelu_fwd(x, bias=None):
@@ -290,10 +328,11 @@ def gelu_fwd(x, bias=None):
     code = _check("fused_mlp gelu_fwd", x, (bias,))
     y = torch.empty_like(x)
     if rows and n:
-        band = _gelu_band(rows, n, x.element_size(), x.device)
+        vec = _vec(x, bias, y)
+        plan = gelu_plan(rows, n, x.element_size(), _sms(x.device.index))
         lib = _build.load(_KERNEL, _SIGNATURES)
         err = lib.ptt_gelu_fwd(x.data_ptr(), _ptr(bias), y.data_ptr(), rows,
-                               n, band, _vec(x, bias, y), code,
+                               n, plan.strip, plan.band, vec, code,
                                x.device.index, _stream(x))
         _build.check(lib, err, "fused_mlp gelu_fwd launch")
         gelu_fwd.launches += 1
@@ -305,8 +344,8 @@ gelu_fwd.launches = 0
 
 def gelu_bwd(dy, x, bias=None):
     """``(dx, dbias)`` of :func:`gelu_fwd` at ``x (+ bias)``: the kernel on
-    a CUDA tensor (``.launches`` counts it; per-band fp32 dbias partials
-    summed here), :func:`gelu_bwd_reference` on a CPU tensor. dx in x's
+    a CUDA tensor (``.launches`` counts it; dbias summed in the kernel, in
+    a fixed order), :func:`gelu_bwd_reference` on a CPU tensor. dx in x's
     dtype; dbias fp32 (None without a bias)."""
     if dy.device.type == "cpu":
         return gelu_bwd_reference(dy, x, bias)
@@ -321,17 +360,23 @@ def gelu_bwd(dy, x, bias=None):
     if not (rows and n):
         return dx, (None if bias is None else torch.zeros(
             n, dtype=torch.float32, device=x.device))
-    band = _gelu_band(rows, n, x.element_size(), x.device)
-    part = (None if bias is None else torch.empty(
-        (-(-rows // band), n), dtype=torch.float32, device=x.device))
+    vec = _vec(x, dy, bias, dx)
+    plan = gelu_plan(rows, n, x.element_size(), _sms(x.device.index),
+                     partials=bias is not None)
+    part = dbias = counters = None
+    if bias is not None:
+        part = torch.empty((plan.bands, n), dtype=torch.float32,
+                           device=x.device)
+        dbias = torch.empty(n, dtype=torch.float32, device=x.device)
+        counters = _build.arrival_counters(x.device, "gelu_bwd", plan.strips)
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_gelu_bwd(dy.data_ptr(), x.data_ptr(), _ptr(bias),
-                           dx.data_ptr(), _ptr(part), rows, n, band,
-                           _vec(x, dy, bias, dx), code, x.device.index,
-                           _stream(x))
+                           dx.data_ptr(), _ptr(part), _ptr(dbias),
+                           _ptr(counters), rows, n, plan.strip, plan.band,
+                           vec, code, x.device.index, _stream(x))
     _build.check(lib, err, "fused_mlp gelu_bwd launch")
     gelu_bwd.launches += 1
-    return dx, None if part is None else part.sum(0)
+    return dx, dbias
 
 
 gelu_bwd.launches = 0

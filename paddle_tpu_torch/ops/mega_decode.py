@@ -212,20 +212,6 @@ def mega_mlp_reference(y2, s_res, p, *, fuse_epilogue=True):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# per-device arrival counters, all zero between launches (the last block to
-# arrive resets its count); launches that share them run in stream order.
-# Grown buffers are kept, so a captured CUDA graph never sees one freed.
-_counters: dict[tuple, list[torch.Tensor]] = {}
-
-
-def _arrival_counters(device, kind: str, n: int) -> torch.Tensor:
-    held = _counters.setdefault((device.index, kind), [])
-    if not held or held[-1].numel() < n:
-        held.append(torch.zeros(max(n, 1 << 12), dtype=torch.int32,
-                                device=device))
-    return held[-1]
-
-
 def _use_kernel(use_kernel, t, what) -> bool:
     """Whether to launch the kernel: ``None`` follows the tensor's device
     (CUDA: kernel, CPU: plain version); ``False`` runs the plain version;
@@ -345,7 +331,7 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
         v_sc = torch.empty_like(k_sc)
     if b:
         ws = torch.empty((b, nh, chunk, h), dtype=torch.float32, device=dev)
-        counters = _arrival_counters(dev, "attn", b)
+        counters = _build.arrival_counters(dev, "attn", b)
         lib = _build.load(_KERNEL, _SIGNATURES)
         err = lib.ptt_mega_attn(
             xb.data_ptr(), vecs["ln1_g"].data_ptr(), vecs["ln1_b"].data_ptr(),
@@ -427,7 +413,7 @@ def _launch_mlp(y2, s_res, p, fuse_epilogue):
         return out
     nf, nm = -(-f // _TILE), -(-t // _MLP_ROWS)
     ws = torch.empty((nf, t, h), dtype=torch.float32, device=dev)
-    counters = _arrival_counters(dev, "mlp", nm * -(-h // _TILE))
+    counters = _build.arrival_counters(dev, "mlp", nm * -(-h // _TILE))
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_mega_mlp(
         y2.data_ptr(), _ptr(s_res), w1.data_ptr(), _ptr(s1), b1.data_ptr(),

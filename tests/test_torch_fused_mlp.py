@@ -12,6 +12,16 @@ may differ by one bf16 step, <= 2^-7 of it). Odd row counts and widths
 that are no multiple of 128, which the port's kernels take and the
 reference's kernel does not on a TPU, are held against the reference's
 ``ln_reference`` / ``gelu_reference`` and their ``jax.vjp``.
+
+The CUDA GELU kernels compute ``0.5 u (1 + tanh z)`` as the equal ``u
+sigma(2z)`` (one ``ex2`` and one reciprocal). That form is written out here
+in fp32 torch, with the kernel's constants, exponent clamp and flush of
+subnormal reciprocals, and held to the same tolerances against the twins
+and the interpret-mode JAX kernels over ``u`` in +-30 plus +-1e4, +-inf and
+NaN: the non-finite entries must sit at the same places with the same
+values (NaN, +inf, -inf), and the finite ones are held over the finite
+entries' max. The kernels' launch plan (``gelu_plan``) is checked at
+``sms=132`` without a card.
 """
 import numpy as np
 import pytest
@@ -43,6 +53,10 @@ def _assert_close(got, want, leg, what=""):
         got, torch.Tensor) else jnp.asarray(got, jnp.float32), np.float32)
     want = np.asarray(jnp.asarray(want, jnp.float32), np.float32)
     assert got.shape == want.shape, (what, got.shape, want.shape)
+    if not np.isfinite(want).all() or not np.isfinite(got).all():
+        for test in (np.isnan, np.isposinf, np.isneginf):
+            assert np.array_equal(test(got), test(want)), (what, test)
+        got, want = (np.where(np.isfinite(want), a, 0) for a in (got, want))
     diff = np.abs(got - want)
     if leg == "fp32":
         err = diff.max() / max(np.abs(want).max(), 1e-30)
@@ -234,3 +248,128 @@ def test_incubate_functional_surface():
                                tfm.gelu_fwd_reference(x, b))
     torch.testing.assert_close(FI.fused_bias_gelu(x),
                                tfm.gelu_fwd_reference(x))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA GELU kernels' sigmoid form and launch plan
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+_C1 = _F(-2) * _F(1.4426950408889634) * _F(tfm._K0)  # kC1: -2 log2(e) K0
+_C2 = _C1 * _F(tfm._A)                                # kC2
+_D1, _D2 = _F(2) * _F(tfm._K0), _F(3) * _F(tfm._A)
+
+
+def _ftz(t):
+    """``rcp.approx.ftz``: subnormal results flush to zero."""
+    return torch.where(t.abs() < 2.0 ** -126, torch.zeros_like(t), t)
+
+
+def _sigmoid_fwd(x, bias=None):
+    """``gelu_f`` of ``csrc/fused_mlp.cu`` in fp32 torch, cast once."""
+    u = tfm._u32(x, bias)
+    e = torch.exp2(u * (float(_C2) * u * u + float(_C1)))
+    return (u * _ftz(1.0 / (1.0 + e))).to(x.dtype)
+
+
+def _sigmoid_bwd(dy, x, bias=None):
+    """``gelu_grad`` of ``csrc/fused_mlp.cu`` in fp32 torch: ``(dx,
+    dbias)`` as :func:`gelu_bwd_reference` returns them."""
+    u = tfm._u32(x, bias)
+    u2 = u * u
+    e = torch.exp2(torch.fmin(u * (float(_C2) * u2 + float(_C1)),
+                              torch.tensor(127.0)))
+    s = _ftz(1.0 / (1.0 + e))
+    du = dy.float() * ((float(_D1) * u * s) * ((e * s) * (float(_D2) * u2
+                                                          + 1.0)) + s)
+    return du.to(x.dtype), None if bias is None else du.sum(0)
+
+
+def _extreme_inputs(rng, rows, n):
+    """``u`` uniform in +-30 with +-1e4, +-inf and NaN in every row."""
+    u = rng.uniform(-30, 30, (rows, n)).astype(np.float32)
+    special = np.array([1e4, -1e4, np.inf, -np.inf, np.nan], np.float32)
+    for r in range(rows):
+        u[r, rng.choice(n, special.size, replace=False)] = special
+    return u
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_sigmoid_form_matches_tanh_form_at_extremes(leg, has_bias):
+    """The kernels' ``u sigma(2z)`` and its derivative against the twins
+    (the tanh form) and the interpret-mode JAX kernels, forward, dx and
+    dbias, over +-30, +-1e4, +-inf and NaN."""
+    rng = np.random.RandomState(11)
+    rows, n = 64, 256
+    x = _extreme_inputs(rng, rows, n)
+    b = _np(rng, (n,), 0.5) if has_bias else None
+    dy = _np(rng, (rows, n))
+    jd, td = DTYPES[leg]
+    tx, tdy = (torch.from_numpy(a).to(td) for a in (x, dy))
+    tb = None if b is None else torch.from_numpy(b).to(td)
+    y = _sigmoid_fwd(tx, tb)
+    dx, db = _sigmoid_bwd(tdy, tx, tb)
+    _assert_close(y, tfm.gelu_fwd_reference(tx, tb).float(), leg,
+                  "y vs twin")
+    want_dx, want_db = tfm.gelu_bwd_reference(tdy, tx, tb)
+    _assert_close(dx, want_dx.float(), leg, "dx vs twin")
+    if has_bias:
+        _assert_close(db, want_db, "fp32", "dbias vs twin")
+    jx, jdy = jnp.asarray(x, jd), jnp.asarray(dy, jd)
+    if has_bias:
+        jy, vjp = jax.vjp(lambda a, c: jfm.fused_bias_gelu(a, c, True), jx,
+                          jnp.asarray(b, jd))
+        jdx, jdb = vjp(jdy)
+        _assert_close(db.to(td), jdb, leg, "dbias vs jax")
+    else:
+        jy, vjp = jax.vjp(lambda a: jfm.fused_gelu(a, True), jx)
+        (jdx,) = vjp(jdy)
+    _assert_close(y, jy, leg, "y vs jax")
+    _assert_close(dx, jdx, leg, "dx vs jax")
+
+
+def _plan_cover(rows, n, elt, plan):
+    """How many threads of the planned grid own each (row, 16-byte chunk),
+    by the kernel's own index arithmetic."""
+    chunks = -(-n // (16 // elt))
+    lanes = tfm.GELU_THREADS // plan.strip
+    t = np.arange(tfm.GELU_THREADS)
+    steps = -(-plan.band // lanes)
+    hits = []
+    for by in range(plan.bands):
+        r1 = min(rows, (by + 1) * plan.band)
+        r = by * plan.band + t // plan.strip + lanes * np.arange(steps)[:, None]
+        for bx in range(plan.strips):
+            c = np.broadcast_to(bx * plan.strip + t % plan.strip, r.shape)
+            ok = (r < r1) & (c < chunks)
+            hits.append(r[ok] * chunks + c[ok])
+    return np.bincount(np.concatenate(hits), minlength=rows * chunks)
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("partials", [False, True])
+@pytest.mark.parametrize("shape", [(8192, 6144), (2048, 3072), (77, 200),
+                                   (1, 6144), (64, 8), (33, 6152)])
+def test_gelu_plan_covers_fills_and_bounds_partials(shape, partials, elt):
+    """At 132 SMs: every (row, chunk) belongs to exactly one thread; at the
+    flagship and GPT-125M shapes at least a wave of blocks; without dbias
+    partials at most ``GELU_ROWS`` rows a thread; with the bias backward's
+    partials, one fp32 row a band within ``GELU_PART_SHARE`` of its bytes
+    (or one band)."""
+    rows, n = shape
+    sms = 132
+    plan = tfm.gelu_plan(rows, n, elt, sms, partials)
+    assert plan.strip & (plan.strip - 1) == 0
+    assert 1 <= plan.strip <= tfm.GELU_STRIP
+    assert plan.bands == -(-rows // plan.band) <= 65535
+    cover = _plan_cover(rows, n, elt, plan)
+    assert cover.min() == 1 and cover.max() == 1
+    if rows >= 2048:
+        assert plan.strips * plan.bands >= sms * tfm.GELU_BLOCKS_PER_SM
+    if not partials:     # rows a thread walks
+        assert -(-plan.band // (tfm.GELU_THREADS // plan.strip)) \
+            <= tfm.GELU_ROWS
+    part, bwd = plan.bands * n * 4, 3 * rows * n * elt
+    assert not partials or plan.bands == 1 or \
+        part <= tfm.GELU_PART_SHARE * bwd

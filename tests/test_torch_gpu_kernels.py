@@ -30,9 +30,12 @@ cuBLAS: fp32 outputs and dx are held as the max abs error over the
 tensor's max ``|want|``, to ``1e-5``; in bf16 both sides dequantize with
 the same rounding and round one fp32 sum, held per row as above. The
 fused LayerNorm and GELU kernels sum rows in another order than the plain
-versions and use ``rsqrtf`` / ``tanhf``: fp32 outputs, and the fp32
-dgamma / dbeta / dbias sums in both types, held as the max abs error over
-the tensor's max ``|want|``, to ``1e-5``; bf16 outputs per row as above.
+versions and use ``rsqrtf`` / GELU's sigmoid form (``ex2.approx`` and
+``rcp.approx``, ~2 ulp): fp32 outputs, and the fp32 dgamma / dbeta / dbias
+sums in both types, held as the max abs error over the tensor's max
+``|want|``, to ``1e-5``; bf16 outputs per row as above. GELU inputs with
++-inf or NaN must give them at the same places; the finite entries are held
+as above.
 The mega kernels keep every rounding of their plain versions and sum in
 another order (heads and ffn tiles in a fixed order, not cuBLAS's): fp32
 outputs held as the max abs error over the tensor's max ``|want|``, to
@@ -437,29 +440,74 @@ def test_ln_kernels_match_plain(cuda, dtype, shape, res):
         _fused_err(g_, w_, dtype)
 
 
+def _gelu_inputs(rng, shape, cuda, dtype, inputs):
+    """``x [rows, n]`` as the kernels get it: ``"normal"`` N(0, 2);
+    ``"extreme"`` uniform in +-30 with +-1e4, +-inf and NaN in every row;
+    ``"offset"`` N(0, 2) one element past a 16-byte boundary (the scalar
+    path)."""
+    rows, n = shape
+    if inputs == "extreme":
+        u = rng.uniform(-30, 30, shape).astype(np.float32)
+        special = np.array([1e4, -1e4, np.inf, -np.inf, np.nan], np.float32)
+        for r in range(rows):
+            u[r, rng.choice(n, special.size, replace=False)] = special
+        return torch.from_numpy(u).to(cuda, dtype)
+    x = _rand(rng, shape, cuda, dtype, 2.0)
+    if inputs == "offset":
+        flat = torch.empty(rows * n + 1, device=cuda, dtype=dtype)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(rows, n)
+        assert x.data_ptr() % 16 != 0
+    return x
+
+
+def _gelu_held(got, want, dtype):
+    """``_fused_err`` over the finite entries; NaN, +inf and -inf must sit
+    at the same places on both sides."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want)), test
+    fin = torch.isfinite(want)
+    _fused_err(torch.where(fin, got, 0), torch.where(fin, want, 0), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8192, 6144), (2048, 3072), (77, 200),
-                                   (9, 1001)])
+@pytest.mark.parametrize("shape,inputs", [
+    ((8192, 6144), "normal"), ((2048, 3072), "normal"), ((77, 200), "normal"),
+    ((9, 1001), "normal"), ((1, 6144), "normal"), ((64, 8), "normal"),
+    ((33, 6152), "normal"), ((2048, 3072), "extreme"),
+    ((77, 200), "extreme"), ((33, 6152), "offset"), ((9, 1001), "offset")])
 @pytest.mark.parametrize("has_bias", [False, True])
-def test_gelu_kernels_match_plain(cuda, dtype, shape, has_bias):
+def test_gelu_kernels_match_plain(cuda, dtype, shape, inputs, has_bias):
+    """GELU forward and backward against their plain versions: the
+    flagship and GPT-125M shapes, ragged rows and widths, one row, a row of
+    one 16-byte chunk, a width one chunk past the flagship's, +-30 / +-1e4
+    / +-inf / NaN inputs, a pointer off the 16-byte grid; a second launch
+    is bitwise equal to the first."""
     rows, n = shape
     rng = np.random.RandomState(9)
-    x = _rand(rng, shape, cuda, dtype, 2.0)
+    x = _gelu_inputs(rng, shape, cuda, dtype, inputs)
     dy = _rand(rng, shape, cuda, dtype)
     bias = _rand(rng, (n,), cuda, dtype, 0.5) if has_bias else None
     f0, b0 = gelu_fwd.launches, gelu_bwd.launches
     y = gelu_fwd(x, bias)
     torch.cuda.synchronize()
     assert gelu_fwd.launches == f0 + 1
-    _fused_err(y, gelu_fwd_reference(x, bias), dtype)
+    _gelu_held(y, gelu_fwd_reference(x, bias), dtype)
     dx, db = gelu_bwd(dy, x, bias)
     torch.cuda.synchronize()
     assert gelu_bwd.launches == b0 + 1
     want_dx, want_db = gelu_bwd_reference(dy, x, bias)
-    _fused_err(dx, want_dx, dtype)
+    _gelu_held(dx, want_dx, dtype)
     assert (db is None) == (not has_bias)
     if has_bias:
-        _fused_err(db, want_db, torch.float32)
+        _gelu_held(db, want_db, torch.float32)
+    dx2, db2 = gelu_bwd(dy, x, bias)
+    y2 = gelu_fwd(x, bias)
+    torch.cuda.synchronize()
+    for a, b in ((y, y2), (dx, dx2), (db, db2)):
+        assert (a is None and b is None) or torch.equal(
+            a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+            b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
 
 
 def test_fused_ops_grad_wiring(cuda):
