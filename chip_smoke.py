@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --moe-forward [ROOT]
     python3 chip_smoke.py --fused-gelu [ROOT]
+    python3 chip_smoke.py --paged-walks [ROOT]
 
 from the root of a checkout. The second form runs only phase 11's bf16
 MoE full forward, with the package of the checkout at ROOT (default: this
@@ -11,8 +12,12 @@ one card) and prints one JSON line. The third times only phase 9's GELU
 kernels (forward and backward, with and without the bias, fp32 and bf16)
 at [8192, 6144] beside their bounds and library calls, then profiles the
 fused bf16 flagship step (GELU device time, busy share), with ROOT's
-package, and prints one JSON line. Phases (each failure ends the run
-non-zero):
+package, and prints one JSON line. The fourth times rows 1 and 13 (the
+ragged and mega attention kernels) at the table shapes and GPT-125M's
+decode round and rows 4 and 14 (controls) at the table shapes, then the
+bf16 per-op and mega serving steps (wall and profiled device busy), with
+ROOT's package, and prints one JSON line. Phases (each failure ends the
+run non-zero):
 
 1. device: the card's name and power limit;
 2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
@@ -20,7 +25,11 @@ non-zero):
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
    (b 8, chunk 16, 12 heads, d 64, page 64, 16 pages per sequence),
-   fp32 and bf16, with kernel / plain / bound times;
+   fp32 and bf16, with kernel / plain / bound times; then its split walk
+   at GPT-125M's decode round (8 lanes of one row over 1,024 tokens) and
+   gpt3-1.3b's 32 heads at 2,048-token contexts, fp and int8 KV, fp32 and
+   bf16, timed; every case launched twice, the second result bitwise equal
+   to the first;
 4. flash attention forward vs its plain version at the full-forward
    shape [4, 512, 12, 64] causal, plus ``sq != sk`` and a ragged tail, fp32
    and bf16; the bf16 tensor-core kernel at head_dim 32 / 80 / 96 / 128
@@ -108,7 +117,17 @@ non-zero):
    12 launches of each mega kernel a step and none of the ragged kernel
    or the weight-only GEMM; bf16 step times of (i) and (iii) beside their
    per-op twins (median of 5 runs each, in turns) and one profiled run of
-   each.
+   each. The split-walk kernel also at GPT-125M's decode round (timed)
+   and at head dims 32 / 80 / 96 at gpt3-tiny's, gpt3-2.7b's and
+   gpt3-760m's widths (fp, and int8 g64 weights with int8 KV, both
+   epilogues), every case launched twice and bitwise equal; then
+   ``mega_decode=True`` serving at gpt3-760m's and gpt3-2.7b's widths (2
+   layers, fp32): streams equal to the per-op streams and the full
+   forward, 2 launches of each mega kernel a step. Before the training
+   phases no fp32 / bf16 call has run a plain twin (``.twin_routes`` 0);
+   then GPT-125M served in fp16 (the ragged kernel's twin each layer,
+   counted) and an fp16 fused LN + residual and bias + GELU forward
+   against the fp32 twins.
 
 11. MoE serving (run after phase 10): the five grouped-GEMM kernels
    (fp, int8 per channel, int8 and int4 in groups of 128; forward and dx)
@@ -474,7 +493,11 @@ def phase_ragged(dev):
     for dtype in (torch.float32, torch.bfloat16):
         args = ragged_inputs(dtype, dev)
         got = kern(*args)
+        again = kern(*args)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"ragged kernel {dtype}: a second launch "
+                                 "differs from the first")
         want = plain(*args)
         q_lens = args[5]
         valid = (torch.arange(got.shape[1], device=dev)[None]
@@ -1010,11 +1033,15 @@ def phase_ragged_int8(dev):
         sc = dict(k_scales=ks.reshape(kp.shape[:3]),
                   v_scales=vs.reshape(vp.shape[:3]))
         got = kern(*args, **sc)
+        again = kern(*args, **sc)
         torch.cuda.synchronize()
         want = plain(*args, **sc)
         valid = (torch.arange(got.shape[1], device=dev)[None]
                  < q_lens[:, None])
         err, held = kernel_error(got[valid], want[valid], dtype)
+        if not torch.equal(got, again):
+            raise AssertionError(f"ragged int8-KV kernel {dtype}: a second "
+                                 "launch differs from the first")
         if not held <= KERNEL_TOL[dtype] or torch.count_nonzero(
                 got[~valid]).item():
             raise AssertionError(f"ragged int8-KV kernel {dtype}: error "
@@ -1349,8 +1376,8 @@ def mega_check_attn(got, want, q_lens, dtype, label):
             raise AssertionError(f"{label}: error {held} > {tol} (max abs "
                                  f"{err}, {flips} payload flips)")
         worst = max(worst, err)
-    if torch.count_nonzero(got[0][0]).item():
-        raise AssertionError(f"{label}: the idle lane's rows are not zero")
+    if torch.count_nonzero(got[0][q_lens == 0]).item():
+        raise AssertionError(f"{label}: the idle lanes' rows are not zero")
     return worst, flips, total
 
 
@@ -2544,7 +2571,7 @@ def phase_ragged_dims(dev):
                 log(f"[legacy] ragged kernel d {d} {str(dtype)[6:]} {kv} KV: "
                     f"max_abs_err {err:.3e}, held {held:.3e} (tol "
                     f"{KERNEL_TOL[dtype]}); shared memory "
-                    f"{smem_bytes(g['chunk'], g['ps'], d)} B a block")
+                    f"{smem_bytes(g['chunk'], d, kp.dtype)} B a block")
                 if not held <= KERNEL_TOL[dtype] or torch.count_nonzero(
                         got[~valid]).item():
                     raise AssertionError(f"ragged kernel d {d} {dtype} {kv}:"
@@ -3529,6 +3556,429 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
                 groups_ms={n: t / 1e3 for n, t in groups.items()})
 
 
+# -- the split page walks (rows 1 and 13) -------------------------------------
+
+# (b, chunk, hq, hkv, d, page, pages a lane, kv_lens, q_lens): GPT-125M's
+# decode round (8 lanes of one row at max_seq_len 1,024; the step's chunk 16)
+# and gpt3-1.3b's 32 heads of 64 at 2,048-token contexts with prefill chunks
+RAGGED_WALKS = {
+    "decode round": (8, 16, 12, 12, 64, 64, 16, [1024] * 8, [1] * 8),
+    "gpt3-1.3b 2,048": (8, 16, 32, 32, 64, 64, 32, [2048] * 8,
+                        [1, 16, 1, 7, 1, 1, 16, 1]),
+}
+# mega attention at GPT-125M's decode round (one row a lane over 1,023
+# tokens already in the pool) and at the head dims the split-walk kernel
+# added, at their configs' widths: gpt3-tiny (h 128, 4 heads of 32),
+# gpt3-2.7b (h 2560, 32 heads of 80), gpt3-760m (h 1536, 16 heads of 96)
+MEGA_DECODE_ROUND = ((8, 16, 768, 12, 64, 64, 16, 3072), [1] * 8, [1023] * 8)
+MEGA_DIMS = {
+    32: ((5, 4, 128, 4, 32, 16, 6, 512), [0, 4, 1, 3, 2], [0, 0, 37, 50, 12]),
+    80: ((8, 16, 2560, 32, 80, 64, 16, 10240), MEGA_SERVING[1],
+         MEGA_SERVING[2]),
+    96: ((8, 16, 1536, 16, 96, 64, 16, 6144), MEGA_SERVING[1],
+         MEGA_SERVING[2]),
+}
+# --paged-walks: the split plans timed beside the chosen ones (waves of
+# blocks a plan aims for: ops/paged_attention.py SPLIT_WAVES for row 1,
+# ops/mega_decode.py MEGA_WAVES for row 13; rows a QKV producer takes:
+# MEGA_ROWS)
+PLAN_WAVES = (2, 4, 8, 16)
+PLAN_ROWS = (16, 32, 64)
+# mega serving at full width, 2 layers: gpt3-760m (d 96) and gpt3-2.7b (d 80)
+MEGA_WIDE = ("gpt3-760m", "gpt3-2.7b")
+MEGA_WIDE_LAYERS = 2
+
+
+def walk_inputs(geom, dtype, kv, dev, seed=SEED):
+    """Ragged-kernel inputs of a ``RAGGED_WALKS`` geometry: fp pools in
+    ``dtype``, or int8 pools through the KV write's quantizer (``kv ==
+    "int8"``) with their scale planes in the returned kwargs."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_kv_rows
+
+    b, chunk, hq, hkv, d, ps, pps, kv_lens, q_lens = geom
+    rng = np.random.RandomState(seed)
+    num_pages = b * pps + 1
+    q = rng.standard_normal((b, chunk, hq, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    for i in range(b):
+        pt[i, (kv_lens[i] + ps - 1) // ps:] = -1
+    to = lambda a, t: torch.from_numpy(np.asarray(a)).to(dev, t)  # noqa: E731
+    kp, vp = to(kp, torch.float32), to(vp, torch.float32)
+    kw = {}
+    if kv == "int8":
+        (kp, ks), (vp, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
+                              for t in (kp, vp))
+        shape = (num_pages, ps, hkv)
+        kp, vp = kp.reshape(*shape, d), vp.reshape(*shape, d)
+        kw = dict(k_scales=ks.reshape(shape), v_scales=vs.reshape(shape))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return (to(q, dtype), kp, vp, to(pt, torch.int32),
+            to(kv_lens, torch.int32), to(q_lens, torch.int32)), kw
+
+
+def ragged_case(args, kw, dtype, label, timed=True):
+    """One ragged call against its plain version (``KERNEL_TOL``, rows
+    past q_len zero) and a second launch bitwise equal to the first;
+    kernel / plain / bound times when ``timed``."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention as kern,
+        ragged_paged_attention_reference as plain)
+
+    got = kern(*args, **kw)
+    again = kern(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"ragged {label}: a second launch differs")
+    want = plain(*args, **kw)
+    q_lens = args[5]
+    valid = torch.arange(got.shape[1], device=got.device)[None] \
+        < q_lens[:, None]
+    err, held = kernel_error(got[valid], want[valid], dtype)
+    if not held <= KERNEL_TOL[dtype] or torch.count_nonzero(
+            got[~valid]).item():
+        raise AssertionError(f"ragged {label}: error {held} > "
+                             f"{KERNEL_TOL[dtype]} or rows past q_len not "
+                             "zero")
+    out = dict(max_abs_err=err, held=held)
+    if timed:
+        nbytes, nops = ragged_work(args)
+        out.update(ms=time_ms(lambda: kern(*args, **kw)),
+                   plain_ms=time_ms(lambda: plain(*args, **kw), iters=5),
+                   bound_ms=bound_ms(nbytes, nops, dtype), mb=nbytes / 1e6)
+    return out
+
+
+def phase_ragged_walks(dev):
+    """The split walk at the decode round and at gpt3-1.3b's long
+    contexts: fp and int8 KV, fp32 and bf16, against the plain version,
+    bitwise repeats, kernel / plain / bound times and the walk's plan."""
+    from paddle_tpu_torch.ops.paged_attention import walk_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stats = {}
+    for name, geom in RAGGED_WALKS.items():
+        b, chunk, hq, hkv, d, ps, pps = geom[:7]
+        for kv in ("fp", "int8"):
+            for dtype in (torch.float32, torch.bfloat16):
+                args, kw = walk_inputs(geom, dtype, kv, dev)
+                st = ragged_case(args, kw, dtype, f"{name} {kv} {dtype}")
+                plan = walk_plan(b, hkv, pps, ps, d, chunk * hq // hkv,
+                                 args[1].element_size(), sms)
+                stats[(name, kv, dtype)] = st
+                log(f"[ragged] {name} {kv} KV {str(dtype)[6:]}: max_abs_err "
+                    f"{st['max_abs_err']:.3e} (held {st['held']:.3e}), "
+                    f"repeat bitwise equal; kernel {st['ms']:.4f} ms, plain "
+                    f"{st['plain_ms']:.4f}, bound {st['bound_ms']:.6f} "
+                    f"({st['mb']:.2f} MB); {plan.splits} splits of "
+                    f"{plan.pages} pages, {plan.blocks} blocks "
+                    f"({plan.waves:.2f} waves)")
+    return stats
+
+
+def mega_case(args, dtype, label, timed=True, fuse=True):
+    """One mega attention call against its plain version (as phase 10
+    holds it) and a second launch bitwise equal to the first; kernel /
+    plain / bound times when ``timed``."""
+    from paddle_tpu_torch.ops.mega_decode import (mega_attn_layer,
+                                                  mega_attn_layer_reference)
+
+    xb, p, pools, pt, ctx, q_lens = args
+    pos = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
+    kw = dict(k_scales=pools.get("k_scales"), v_scales=pools.get("v_scales"),
+              fuse_epilogue=fuse)
+    got = mega_attn_layer(*pos, **kw)
+    again = mega_attn_layer(*pos, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"mega attention {label}: a second launch "
+                             "differs")
+    want = mega_attn_layer_reference(*pos, **kw)
+    err, flips, total = mega_check_attn(got, want, q_lens, dtype, label)
+    out = dict(max_abs_err=err, flips=f"{flips}/{total}")
+    if timed:
+        nbytes, nops = mega_attn_work(args, fuse)
+        out.update(ms=time_ms(lambda: mega_attn_layer(*pos, **kw)),
+                   plain_ms=time_ms(lambda: mega_attn_layer_reference(
+                       *pos, **kw), iters=5),
+                   bound_ms=bound_ms(nbytes, nops, dtype), mb=nbytes / 1e6)
+    return out
+
+
+def phase_mega_walks(dev):
+    """The mega attention kernel at GPT-125M's decode round (fp32 and bf16,
+    fp and int8 KV, timed) and at head dims 32 / 80 / 96 at their configs'
+    widths (fp weights and KV, int8 g64 weights with int8 KV, both
+    epilogues), against its plain version, with bitwise repeats."""
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kv in (False, True):
+            args, _ = mega_inputs(MEGA_DECODE_ROUND, None, -1, kv, dtype, dev)
+            label = (f"decode round {str(dtype)[6:]} "
+                     f"{'int8' if kv else 'fp'} KV")
+            st = mega_case(args, dtype, label)
+            stats[("decode round", kv, dtype)] = st
+            log(f"[mega] {label}: max_abs_err {st['max_abs_err']:.3e} "
+                f"(payload flips {st['flips']}), repeat bitwise equal; "
+                f"kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f}, "
+                f"bound {st['bound_ms']:.6f} ({st['mb']:.2f} MB)")
+    for d, case in MEGA_DIMS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for wd, gs, kv in ((None, -1, False), ("int8", 64, True)):
+                args, _ = mega_inputs(case, wd, gs, kv, dtype, dev)
+                for fuse in (True, False):
+                    label = (f"d {d} (h {case[0][2]}) {str(dtype)[6:]} "
+                             f"weights {wd or 'fp'}, "
+                             f"{'int8' if kv else 'fp'} KV, fuse {fuse}")
+                    st = mega_case(args, dtype, label, timed=False,
+                                   fuse=fuse)
+                    log(f"[mega] {label}: max_abs_err "
+                        f"{st['max_abs_err']:.3e} (payload flips "
+                        f"{st['flips']}), repeat bitwise equal")
+    return stats
+
+
+def phase_mega_wide(dev):
+    """``ServingPredictor(mega_decode=True)`` at gpt3-760m's (16 heads of
+    96) and gpt3-2.7b's (32 heads of 80) widths, 2 layers, fp32, random
+    weights from the numpy seed: the mega streams equal the per-op streams
+    and the full-forward oracle, 2 launches of each mega kernel a step and
+    none of the ragged kernel. Returns the mega attention and MLP launches
+    (this path's own, reported apart from the main path's)."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+
+    total = [0, 0]
+    for name in MEGA_WIDE:
+        cfg = replace(GPT_CONFIGS[name], num_layers=MEGA_WIDE_LAYERS)
+        model = state_from_jax_numpy(random_state(cfg, SEED), cfg,
+                                     device=dev)
+        model.eval()
+        early, late = requests(cfg)
+        per_op = [list(r.output_ids) for r in serve(
+            ServingPredictor(model, max_batch=8, device=dev), early, late)]
+        sp = ServingPredictor(model, max_batch=8, device=dev,
+                              mega_decode=True)
+        rows = StepLogits(sp)
+        reset_counts()
+        reqs = serve(sp, early, late)
+        torch.cuda.synchronize()
+        attn_n, mlp_n = mega_counts()
+        ragged_n = read_counts()[1]
+        ties, err = check_against_oracle(model, reqs, rows.rows, dev)
+        outs = [list(r.output_ids) for r in reqs]
+        log(f"[mega] serve {name} width (h {cfg.hidden_size}, "
+            f"{cfg.num_heads} heads of {cfg.head_dim}, {cfg.num_layers} "
+            f"layers) fp32: {sp.steps} steps, mega launches {attn_n} / "
+            f"{mlp_n}, ragged {ragged_n}; streams match the full forward "
+            f"({ties} near ties, logits max_abs_err {err:.3e}); equal to "
+            f"the per-op streams: {outs == per_op}; "
+            f"{len({t for o in outs for t in o})} distinct tokens")
+        if not (attn_n == mlp_n == sp.steps * cfg.num_layers and attn_n
+                and ragged_n == 0):
+            raise AssertionError(f"{name} mega launches {attn_n} / {mlp_n},"
+                                 f" ragged {ragged_n}, {sp.steps} steps")
+        if outs != per_op:
+            raise AssertionError(f"{name}: mega streams differ from the "
+                                 "per-op streams")
+        total[0] += attn_n
+        total[1] += mlp_n
+        del model, sp
+    return total
+
+
+def twin_route_count() -> int:
+    """Calls routed to a plain twin on the card (a dtype the kernels are
+    not built for), summed over every kernel family's wrappers."""
+    from paddle_tpu_torch.ops import twin_routes
+
+    return twin_routes()
+
+
+def phase_fp16(model, cfg, dev, fp_outs):
+    """fp16, which the kernels are not built for: ``ServingPredictor`` on
+    GPT-125M in fp16 (the ragged kernel's twin runs each layer: one route a
+    layer and step, no launch) and an fp16 fused LN + residual and bias +
+    GELU forward at [2048, 768] / [2048, 3072] against the fp32 twins.
+    Returns the routes counted."""
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.ops.fused_mlp import (fused_bias_gelu,
+                                                fused_ln_residual,
+                                                gelu_reference, ln_reference)
+
+    early, late = requests(cfg)
+    n0 = twin_route_count()
+    sp = ServingPredictor(model, max_batch=8, device=dev,
+                          dtype=torch.float16)
+    reset_counts()
+    outs = [list(r.output_ids) for r in serve(sp, early, late)]
+    torch.cuda.synchronize()
+    routes, ragged_n = twin_route_count() - n0, read_counts()[1]
+    same = sum(a == b for o, w in zip(outs, fp_outs) for a, b in zip(o, w))
+    log(f"[fp16] serve GPT-125M fp16: {sp.steps} steps, twin routes {routes}"
+        f" (steps x {cfg.num_layers} = {sp.steps * cfg.num_layers}), ragged "
+        f"launches {ragged_n}; {sum(map(len, outs))} tokens, equal to the "
+        f"fp32 streams in {same}")
+    if routes != sp.steps * cfg.num_layers or ragged_n or any(
+            len(o) != MAX_NEW for o in outs):
+        raise AssertionError(f"fp16 serving: routes {routes}, ragged "
+                             f"{ragged_n}, streams {list(map(len, outs))}")
+    rng = np.random.RandomState(SEED)
+    f16 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev, torch.float16)
+    x, res, h1 = f16(2048, 768), f16(2048, 768), f16(2048, 3072)
+    g, bt, bias = 1 + 0.1 * f16(768), 0.1 * f16(768), 0.1 * f16(3072)
+    n1 = twin_route_count()
+    y, s = fused_ln_residual(x, res, g, bt)
+    u = fused_bias_gelu(h1, bias)
+    torch.cuda.synchronize()
+    want_s = x.float() + res.float()
+    errs = [kernel_error(y, ln_reference(want_s, g.float(), bt.float()),
+                         torch.bfloat16)[1],
+            kernel_error(u, gelu_reference(h1.float(), bias.float()),
+                         torch.bfloat16)[1]]
+    log(f"[fp16] fused LN + residual / bias + GELU forward: twin routes "
+        f"{twin_route_count() - n1}, row errors vs the fp32 twins "
+        f"{errs[0]:.3e} / {errs[1]:.3e} (held as bf16, "
+        f"{KERNEL_TOL[torch.bfloat16]})")
+    if (twin_route_count() - n1 != 2 or y.dtype != torch.float16
+            or s.dtype != torch.float16 or max(errs) > KERNEL_TOL[
+                torch.bfloat16]):
+        raise AssertionError(f"fp16 fused forward: routes "
+                             f"{twin_route_count() - n1}, errors {errs}")
+    return twin_route_count() - n0
+
+
+def paged_walks_only(root: Path) -> int:
+    """``--paged-walks [ROOT]``: rows 1 and 13 (the ragged and the mega
+    attention kernels) at the table shapes and GPT-125M's decode round, and
+    rows 4 and 14 (the paged decode kernel and the mega MLP, unchanged
+    controls) at the table shapes, fp32 and bf16, with the
+    ``paddle_tpu_torch`` package of the checkout at ``ROOT`` (default:
+    this one); then the bf16 per-op and mega serving steps of GPT-125M
+    (wall, one profiled run each: device busy); prints one JSON line. Run
+    it with two trees in turns to compare them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops.mega_decode import mega_mlp
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    rows = {}
+    decode = RAGGED_WALKS["decode round"]
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        for kv in ("fp", "int8"):
+            args, kw = walk_inputs((8, 16, 12, 12, 64, 64, 16,
+                                    [0, 1024, 1000, 333, 64, 16, 700, 517],
+                                    [0, 1, 16, 7, 1, 16, 12, 1]), dtype, kv,
+                                   dev)
+            rows[f"1 table {kv} KV {t}"] = ragged_case(args, kw, dtype, kv)
+            args, kw = walk_inputs(decode, dtype, kv, dev)
+            rows[f"1 decode round {kv} KV {t}"] = ragged_case(args, kw,
+                                                              dtype, kv)
+        for wd, gs, kv in ((None, -1, False), ("int8", 128, True)):
+            label = ("fp" if wd is None else "int8 g128 + int8 KV")
+            args, (y2, s_res) = mega_inputs(MEGA_SERVING, wd, gs, kv, dtype,
+                                            dev)
+            rows[f"13 table {label} {t}"] = mega_case(args, dtype, label)
+            if wd is None:
+                p = args[1]
+                nbytes, nops = mega_mlp_work(y2, p, True)
+                rows[f"14 table {t}"] = dict(
+                    ms=time_ms(lambda: mega_mlp(y2, s_res, p)),
+                    bound_ms=bound_ms(nbytes, nops, dtype))
+        args, _ = mega_inputs(MEGA_DECODE_ROUND, None, -1, False, dtype, dev)
+        rows[f"13 decode round {t}"] = mega_case(args, dtype, "decode round")
+        dargs = decode_inputs(DECODE_SERVING[0], DECODE_SERVING[1], dtype,
+                              dev, SEED)
+        nbytes, nops = decode_work(dargs)
+        rows[f"4 table {t}"] = dict(ms=time_ms(lambda: paged_attention(
+            *dargs)), bound_ms=bound_ms(nbytes, nops, dtype))
+    plans = {}
+    from paddle_tpu_torch.ops import paged_attention as pa
+    if hasattr(pa, "SPLIT_WAVES"):   # the split walk: other plans, timed
+        chosen = pa.SPLIT_WAVES
+        table = (8, 16, 12, 12, 64, 64, 16,
+                 [0, 1024, 1000, 333, 64, 16, 700, 517],
+                 [0, 1, 16, 7, 1, 16, 12, 1])
+        from paddle_tpu_torch.ops import mega_decode as md
+        chosen_mega, chosen_rows = md.MEGA_WAVES, md.MEGA_ROWS
+        mega_cases = (("table", MEGA_SERVING),
+                      ("decode round", MEGA_DECODE_ROUND))
+        for waves in PLAN_WAVES:
+            pa.SPLIT_WAVES = md.MEGA_WAVES = waves
+            for dtype in (torch.float32, torch.bfloat16):
+                t = str(dtype)[6:]
+                for name, geom in (("table", table), ("decode round",
+                                                      decode)):
+                    args, kw = walk_inputs(geom, dtype, "fp", dev)
+                    plans[f"1 {name} {t} waves {waves}"] = ragged_case(
+                        args, kw, dtype, name)["ms"]
+                for name, case in mega_cases:
+                    args, _ = mega_inputs(case, None, -1, False, dtype, dev)
+                    plans[f"13 {name} {t} waves {waves}"] = mega_case(
+                        args, dtype, name)["ms"]
+        pa.SPLIT_WAVES, md.MEGA_WAVES = chosen, chosen_mega
+        for mrows in PLAN_ROWS if hasattr(md, "MEGA_ROWS") else ():
+            md.MEGA_ROWS = mrows
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, case in mega_cases:
+                    args, _ = mega_inputs(case, None, -1, False, dtype, dev)
+                    plans[f"13 {name} {str(dtype)[6:]} rows {mrows}"] = \
+                        mega_case(args, dtype, name)["ms"]
+            md.MEGA_ROWS = chosen_rows
+        for label, ms in plans.items():
+            log(f"[paged-walks] plan: row {label}: {ms:.4f} ms ({card})")
+    for label, st in rows.items():
+        log(f"[paged-walks] row {label}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()) + f" ({card})")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    early, late = requests(cfg)
+    steps = {}
+    for mega in (False, True):
+        name = "mega" if mega else "per-op"
+        walls = []
+        for run in range(3):
+            sp = ServingPredictor(model, max_batch=8, device=dev,
+                                  dtype=torch.bfloat16, mega_decode=mega)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(sp, early, late)
+            torch.cuda.synchronize()
+            if run:
+                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+        sp = ServingPredictor(model, max_batch=8, device=dev,
+                              dtype=torch.bfloat16, mega_decode=mega)
+        prof = profile_serve(sp, early, late, card, f"[paged-walks] {name}")
+        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
+                           steps=sp.steps)
+        log(f"[paged-walks] serve {name} bf16: mean step "
+            + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
+            + ("not measured" if busy is None else f"{busy:.4f} ms")
+            + f" a step ({sp.steps} steps; {card})")
+    print(json.dumps({"paged_walks": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, plans=plans, serve=steps)}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3686,13 +4136,14 @@ def main() -> int:
     args = sys.argv[1:]
     root = ROOT
     modes = {"--moe-forward": moe_forward_only,
-             "--fused-gelu": fused_gelu_only}
+             "--fused-gelu": fused_gelu_only,
+             "--paged-walks": paged_walks_only}
     if args[:1] and args[0] in modes and len(args) <= 2:
         root = Path(args[1]).resolve() if len(args) == 2 else ROOT
     elif args:
         print(f"chip_smoke: unknown arguments {args} (none, "
-              "--moe-forward [ROOT] or --fused-gelu [ROOT])",
-              file=sys.stderr)
+              "--moe-forward [ROOT], --fused-gelu [ROOT] or --paged-walks "
+              "[ROOT])", file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
@@ -3735,8 +4186,9 @@ def main() -> int:
             log(f"[build] {line}")
     g = RAGGED_GEOM
     log(f"[build] dynamic shared memory per block: ragged_paged_attention "
-        f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['ps'], g['d'])} B"
-        f" (chunk {g['chunk']}, page {g['ps']}, d {g['d']}), "
+        f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['d'])} B"
+        f" (chunk {g['chunk']}, d {g['d']}, fp32 pools) / "
+        f"{ragged_smem(g['chunk'], g['d'], torch.int8)} B (int8 pools), "
         "flash_attention_fwd bf16 " + " / ".join(
             f"{flash_smem(d)} B (d {d})" for d in (32, 64, 80, 96, 128))
         + f", fp32 {flash_smem(64, torch.float32)} / "
@@ -3745,14 +4197,18 @@ def main() -> int:
             f"{bwd_smem_bytes(d)} B (d {d})" for d in (32, 64, 80, 96, 128))
         + f", fp32 {bwd_smem_bytes(64, torch.float32)} / "
         f"{bwd_smem_bytes(128, torch.float32)} B (d 64 / 128), mega attention "
-        f"{mega_smem(MEGA_SERVING[0][1], 64, 64)} B (chunk "
-        f"{MEGA_SERVING[0][1]}, d 64, page 64) / {mega_smem(64, 128, 64)} B "
-        f"(chunk 64, d 128), paged decode {decode_smem_bytes(1, 64, 64)} B "
+        f"{mega_smem(MEGA_SERVING[0][1], 64)} B (chunk "
+        f"{MEGA_SERVING[0][1]}, d 64, fp32) / {mega_smem(64, 128)} B "
+        f"(chunk 64, d 128, fp32) / " + " / ".join(
+            f"{mega_smem(16, d, torch.bfloat16)} B (d {d})"
+            for d in (32, 80, 96)) + " (chunk 16, bf16), paged decode "
+        f"{decode_smem_bytes(1, 64, 64)} B "
         f"(group 1, page 64, d 64) / {decode_smem_bytes(8, 16, 128)} B "
         "(group 8, page 16, d 128)")
 
     # 3, 4. kernels vs plain versions
     ragged = phase_ragged(dev)
+    ragged_walks = phase_ragged_walks(dev)
     flash = phase_flash(dev)
 
     # 5, 6. the main path on GPT-125M (random weights from a numpy seed)
@@ -3771,8 +4227,10 @@ def main() -> int:
 
     # 10. mega-kernel serving, while GPT-125M is on the card
     mega = phase_mega_kernels(dev, card)
+    mega_walks = phase_mega_walks(dev)
     mega_launches = phase_mega_serve(model, cfg, dev, card, fp_outs,
                                      quant_streams)
+    wide_launches = phase_mega_wide(dev)
 
     # 11. MoE serving (GPT-125M, 4 experts, top-2), its kernels and its
     # gradients; the attention routing of what the flash kernels do not take
@@ -3800,6 +4258,11 @@ def main() -> int:
     phase_eager_grads(model, cfg, dev)
     fused = phase_fused_kernels(dev)
     phase_fused_eager(model, cfg, dev)
+    # every fp32 / bf16 path so far ran the kernels; fp16 runs the twins
+    if twin_route_count():
+        raise AssertionError(f"{twin_route_count()} fp32 / bf16 calls ran a "
+                             "plain twin on the card")
+    fp16_routes = phase_fp16(model, cfg, dev, fp_outs)
     del model
     phase_train_fp32(dev)
     phase_train_bf16_parity(dev)
@@ -3810,6 +4273,9 @@ def main() -> int:
     train_fwd = train["fwd_n"] + fused_train["fwd_n"]
     train_bwd = train["bwd_n"] + fused_train["bwd_n"]
 
+    if twin_route_count() != fp16_routes:
+        raise AssertionError(f"{twin_route_count() - fp16_routes} fp32 / "
+                             "bf16 training calls ran a plain twin")
     kernels = []
     bf16 = torch.bfloat16
     qmm_rows = []
@@ -3875,6 +4341,8 @@ def main() -> int:
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
     row_of = {k["name"]: k for k in kernels}
+    for i, part in enumerate(("attn", "mlp")):   # gpt3-760m / 2.7b widths
+        row_of[f"mega_{part}"]["wide_launches"] = wide_launches[i]
     serving, long_fwd, long_bwd = flash[bf16], flash["long"], bwd["long"]
     row_of["flash_attention_fwd"]["serving_shape"] = dict(
         shape=list(FLASH_SHAPE), dtype="bf16",
@@ -3931,8 +4399,15 @@ def main() -> int:
             f"{q8[part]['bound_ms']:.6f}; one mega layer vs the per-op layer"
             f" it replaces: fp32 {fp32['layer_ms']:.4f} vs "
             f"{fp32['per_op_layer_ms']:.4f} ms, bf16 {b16['layer_ms']:.4f} vs"
-            f" {b16['per_op_layer_ms']:.4f} ms; launches: phase 10's three "
-            "fp32 served runs")
+            f" {b16['per_op_layer_ms']:.4f} ms; " + (
+                "decode round (8 lanes x 1 row, 1,023 tokens): " + ", ".join(
+                    f"{str(t)[6:]} {'int8' if kv else 'fp'} KV ms "
+                    f"{mega_walks[('decode round', kv, t)]['ms']:.4f} "
+                    f"(bound {mega_walks[('decode round', kv, t)]['bound_ms']:.6f})"
+                    for t in (torch.float32, bf16) for kv in (False, True))
+                + "; " if part == "attn" else "")
+            + "launches: phase 10's three fp32 served runs and the "
+            + f"{' / '.join(MEGA_WIDE)} runs (2 a step)")
     for name, kname, label in (
             ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
             ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),
@@ -3973,8 +4448,15 @@ def main() -> int:
         "int8-KV branch checked too: max_abs_err "
         f"{ragged8[torch.float32]['max_abs_err']:.3e} fp32, "
         f"{ragged8[torch.float32]['ms']:.4f} ms vs bound "
-        f"{ragged8[torch.float32]['bound_ms']:.6f} ms; launches include the "
-        "quantized serving runs; head dims 32 / 80 / 96 checked in phase 12")
+        f"{ragged8[torch.float32]['bound_ms']:.6f} ms; split walks: " + ", ".join(
+            f"{name} {kv} KV {str(t)[6:]} ms {st['ms']:.4f} (bound "
+            f"{st['bound_ms']:.6f})"
+            for (name, kv, t), st in ragged_walks.items())
+        + "; launches include the quantized serving runs; head dims 32 / "
+        "80 / 96 checked in phase 12")
+    row_of["mega_attn"]["note"] += (
+        "; head dims 32 / 80 / 96 checked against the plain version in "
+        "phase 10")
     d16 = decode[bf16]
     row_of["paged_decode_attention"]["note"] = (
         f"fp32 at phase 3's serving pools (lengths {DECODE_SERVING[1]}); "

@@ -9,215 +9,163 @@
 // limit min(kv_len - q_len + row / group + 1, kv_len), an online softmax
 // across pages and fp32 accumulation. A lane with q_len == 0 writes zeros;
 // rows past q_len write zeros too (the Pallas kernel leaves garbage there,
-// the jnp reference zeroes them; callers read valid rows only).
+// the jnp reference zeroes them; callers read valid rows only). Page-table
+// entries are clipped to [0, num_pages) as the Pallas index map clips
+// them. int8 pages dequantize element by element (q * scale of the row's
+// slot and head, fp32), as the jnp reference does; the Pallas int8 branch
+// rounds them to q's dtype, this kernel keeps fp32.
 //
-// Translation: the TPU grid's sequential page axis becomes a loop inside
-// one block; the block reads its own page-table row and walks only
-// ceil(kv_len / page_size) pages — pages past the context are skipped,
-// not re-fetched. Entries are clipped to [0, num_pages) as the Pallas
-// index map clips them. int8 pages dequantize in the same 16-byte load loop
-// (q * scale of the row's slot and head) straight into the fp32 K / V
-// tiles: a quarter of the fp32 bytes cross device memory, the math after
-// the load is the fp branch's. The Pallas int8 branch rounds the
-// dequantized rows to q's dtype; this kernel keeps them in fp32, as the
-// jnp reference does.
+// Translation: the TPU grid's sequential page axis becomes a split walk
+// (paged_walk.cuh). The grid is (b, kv head, split), sized from shapes
+// only: the page-table width over the pages a split walks, which
+// ops/paged_attention.py walk_plan chooses so that a decode round (8 lanes,
+// one query row each) fills the card. A block reads its own page-table
+// entries and walks only the pages below its lane's context; a split that
+// starts past it arrives at once. The causal limit bites only in the last
+// split(s) of a lane. The last split of a (b, h) pair to arrive merges the
+// splits' (acc, m, l) in split order and writes the rows (one split: the
+// block writes them itself, nothing is stored between).
 //
 // What bounds it on the H100: bytes. Each (b, h) pair must read kv_len *
 // d K and V values once; at GPT-125M serving (max_batch 8, 12 heads,
 // d 64, contexts up to 1024) that is up to 50 MB in fp32, ~15 us at
-// 3.35 TB/s, while the products are a few MFLOP. The design reads each
-// page once from device memory into shared memory (16-byte loads, a batch
-// in flight per thread), keeps Q, the accumulator and the running max /
-// sum of all R rows on chip for the whole walk, spreads the scores and
-// the P @ V products of a page over all 256 threads (a decode lane's
-// single row included), and writes each output row once. It is NOT yet
-// near the bound: one block per (b, h) gives only 8 * 12 = 96 blocks for
-// 132 SMs at max_batch 8, and each block walks its pages one after another
-// with no load/compute overlap. Splitting the page walk across blocks
-// (with a second combine pass) and a cp.async/TMA ring are later work.
-#include "common.cuh"
+// 3.35 TB/s, while the products are a few MFLOP. The design keeps three
+// tiles of 32 keys in flight a block (cp.async), several blocks an SM,
+// and the split partials small (fp32 rows of d + 2 values a split).
+#include "paged_walk.cuh"
 
 namespace {
 
-using ptt::load_rows;
 using ptt::store;
+using ptt::to_f;
+namespace wk = ptt::walk;
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+struct RaggedArgs {
+  const void *q, *kp, *vp;        // [b, C, hq, D] T; pools [P, ps, hkv, D]
+  const float *ks, *vs;           // [P, ps, hkv] fp32, int8 pools only
+  const int *pt, *kv_lens, *q_lens;
+  void* out;                      // [b, C, hq, D] T
+  float* part;                    // [b, hkv, splits, partial_floats(R, D)]
+  int* counters;                  // [b * hkv], zero on entry
+  int chunk, hq, hkv, num_pages, ps, pps, pages_per_split;
+  float scale;
+};
 
-// Qs [R][D], Ks [ps][D+1], Vs [ps][D], Ss [R][ps], Acc [R][D],
-// m, l, alpha [R], visible columns [R]
-size_t smem_floats(int rows, int ps, int d) {
-  return (size_t)rows * d + (size_t)ps * (d + 1) + (size_t)ps * d +
-         (size_t)rows * ps + (size_t)rows * d + 4 * (size_t)rows;
+// shared memory of one block: rows (q, acc, scores, m, l, alpha, ncols),
+// the split's page ids, then the tile ring
+__host__ __device__ inline size_t rows_bytes(int R, int D, int pages) {
+  return ((size_t)R * (2 * D + 4 + wk::kKeys + 1 + 4) * 4 + 4 * (size_t)pages +
+          15) / 16 * 16;
+}
+template <typename KV, int D>
+size_t smem_bytes(int R, int pages) {
+  return rows_bytes(R, D, pages) +
+         (size_t)wk::kStages * wk::Tile<KV, D>::kBytes;
 }
 
-// KV: the pool element type, T (fp) or int8_t (ks / vs then hold the
-// [num_pages, ps, hkv] fp32 scale planes)
 template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(kThreads)
-ragged_paged_attn_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
-                         const KV* __restrict__ vp,
-                         const float* __restrict__ ks,
-                         const float* __restrict__ vs,
-                         const int* __restrict__ page_table,
-                         const int* __restrict__ kv_lens,
-                         const int* __restrict__ q_lens, T* __restrict__ out,
-                         int chunk, int hq, int hkv, int num_pages, int ps,
-                         int pps, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int group = hq / hkv;
-  const int rows = chunk * group;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kv_len = kv_lens[b];
-  const int q_len = min(max(q_lens[b], 0), chunk);
-  const int nvalid_rows = q_len * group;
-
+__global__ void __launch_bounds__(wk::kThreads)
+ragged_split_kernel(const RaggedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z, Z = gridDim.z;
+  const int tid = threadIdx.x;
+  const int group = a.hq / a.hkv, R = a.chunk * group;
+  const int kv_len = max(a.kv_lens[b], 0);
+  const int q_len = min(max(a.q_lens[b], 0), a.chunk);
+  const int nrows = q_len * group;
+  const T* q = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
   // row r <-> (query token r / group, q head h * group + r % group)
   auto row_off = [=](int r) {
-    return (((long)b * chunk + r / group) * hq + h * group + r % group) * D;
+    return (((long)b * a.chunk + r / group) * a.hq + h * group + r % group) *
+           D;
   };
-  for (int i = nvalid_rows * D + tid; i < rows * D; i += kThreads)
-    store(out + row_off(i / D) + i % D, 0.f);
-  if (nvalid_rows == 0) return;
+  if (z == 0)
+    for (int i = nrows * D + tid; i < R * D; i += wk::kThreads)
+      store(out + row_off(i / D) + i % D, 0.f);
+  if (nrows == 0) return;   // every split of the pair returns here
 
-  float* Qs = smem;
-  float* Ks = Qs + rows * D;
-  float* Vs = Ks + ps * (D + 1);
-  float* Ss = Vs + ps * D;
-  float* Acc = Ss + rows * ps;
-  float* Ms = Acc + rows * D;
-  float* Ls = Ms + rows;
-  float* Alpha = Ls + rows;
-  int* Ncols = reinterpret_cast<int*>(Alpha + rows);
+  const int span = a.pages_per_split * a.ps;   // keys a split covers
+  const int ctx_keys = min(kv_len, a.pps * a.ps);
+  const int k0 = z * span, k1 = min(ctx_keys, k0 + span);
+  const int nkeys = max(k1 - k0, 0);
 
-  {
-    const T* src[1] = {q};
-    float* dst[1] = {Qs};
-    const int pitch[1] = {D};
-    load_rows<T, D, 4>(src, dst, pitch, row_off, nvalid_rows, nvalid_rows);
+  float* qs = reinterpret_cast<float*>(smem);
+  wk::Rows st{qs,
+              qs + R * (D + 4),
+              qs + R * (D + 4) + R * D,
+              nullptr,
+              nullptr,
+              nullptr,
+              nullptr,
+              nrows};
+  st.m = st.s + R * (wk::kKeys + 1);
+  st.l = st.m + R;
+  st.alpha = st.l + R;
+  st.ncols = reinterpret_cast<int*>(st.alpha + R);
+  int* pg = st.ncols + R;
+  unsigned char* ring = smem + rows_bytes(R, D, a.pages_per_split);
+
+  if (nkeys > 0) {
+    for (int i = tid; i < nrows * D; i += wk::kThreads)
+      qs[(i / D) * (D + 4) + i % D] = to_f(q[row_off(i / D) + i % D]);
+    wk::reset<D>(st);
+    const int tpp = (a.ps + wk::kKeys - 1) / wk::kKeys;   // tiles a page
+    const int n = (nkeys / a.ps) * tpp +
+                  (nkeys % a.ps + wk::kKeys - 1) / wk::kKeys;
+    const int p0 = z * a.pages_per_split;
+    wk::stage_pages(pg, a.pt + (long)b * a.pps, p0,
+                    (nkeys + a.ps - 1) / a.ps, a.num_pages);
+    __syncthreads();
+    auto tile_of = [&](int i) {
+      const int p = p0 + i / tpp, t0 = (i % tpp) * wk::kKeys;
+      const int page = pg[i / tpp];
+      const int key0 = p * a.ps + t0;
+      return wk::TileAt{((long)page * a.ps + t0) * a.hkv + h,
+                        min(min(wk::kKeys, a.ps - t0), k1 - key0), key0};
+    };
+    auto ncols_of = [&](int r, int key0) {
+      return min(kv_len - q_len + r / group + 1, kv_len) - key0;
+    };
+    wk::walk<KV, D>(st, ring, static_cast<const KV*>(a.kp),
+                    static_cast<const KV*>(a.vp), a.ks, a.vs, a.hkv, n,
+                    tile_of, a.scale, ncols_of);
   }
-  for (int i = tid; i < nvalid_rows * D; i += kThreads) Acc[i] = 0.f;
-  for (int r = tid; r < nvalid_rows; r += kThreads) {
-    Ms[r] = kNegInf;
-    Ls[r] = 0.f;
-  }
-  const long page_elems = (long)ps * hkv * D;
-  const long row_stride = (long)hkv * D;
-  const int n_pages = (kv_len + ps - 1) / ps;
-  for (int p = 0; p < n_pages; ++p) {
-    const int page = min(max(page_table[(long)b * pps + p], 0), num_pages - 1);
-    const KV* src[2] = {kp + page * page_elems + (long)h * D,
-                        vp + page * page_elems + (long)h * D};
-    float* dst[2] = {Ks, Vs};
-    const int pitch[2] = {D + 1, D};
-    auto rows = [=](int r) { return r * row_stride; };
-    __syncthreads();  // the previous page's readers are done
-    if constexpr (std::is_same_v<KV, int8_t>) {
-      const long s0 = (long)page * ps * hkv + h;
-      load_rows<KV, D, 8>(src, dst, pitch, rows, ps, ps,
-                          [=](int t, int r) {
-                            return __ldg((t ? vs : ks) + s0 + (long)r * hkv);
-                          });
+  auto put = [&](int r, int c, float4 v) {
+    T* o = out + row_off(r) + c;
+    store(o, v.x);
+    store(o + 1, v.y);
+    store(o + 2, v.z);
+    store(o + 3, v.w);
+  };
+  if (Z == 1) {   // the whole walk in this block
+    if (nkeys == 0) {
+      for (int i = tid; i < nrows * D; i += wk::kThreads)
+        store(out + row_off(i / D) + i % D, 0.f);
     } else {
-      load_rows<KV, D, 8>(src, dst, pitch, rows, ps, ps);
+      wk::finish<D>(st, put);
     }
-    __syncthreads();
-    // scores of every (row, key) pair, four independent partial sums
-    for (int i = tid; i < nvalid_rows * ps; i += kThreads) {
-      const float* qr = Qs + (i / ps) * D;
-      const float* kr = Ks + (i % ps) * (D + 1);
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        s0 = fmaf(qr[c], kr[c], s0);
-        s1 = fmaf(qr[c + 1], kr[c + 1], s1);
-        s2 = fmaf(qr[c + 2], kr[c + 2], s2);
-        s3 = fmaf(qr[c + 3], kr[c + 3], s3);
-      }
-      Ss[i] = ((s0 + s1) + (s2 + s3)) * scale;
-    }
-    __syncthreads();
-    // online softmax, one warp per row, over the page's columns below the
-    // row's causal limit; P overwrites the scores
-    for (int r = warp; r < nvalid_rows; r += kWarps) {
-      const int limit = min(kv_len - q_len + r / group + 1, kv_len);
-      const int ncols = min(max(limit - p * ps, 0), ps);
-      if (ncols == 0) {
-        if (lane == 0) {
-          Alpha[r] = 1.f;
-          Ncols[r] = 0;
-        }
-        continue;
-      }
-      float* sr = Ss + r * ps;
-      float mx = kNegInf;
-      for (int j = lane; j < ncols; j += 32) mx = fmaxf(mx, sr[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < ncols; j += 32) {
-        const float pj = expf(sr[j] - m_new);
-        sr[j] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Alpha[r] = alpha;
-        Ncols[r] = ncols;
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P @ V for every (row, column) output
-    for (int i = tid; i < nvalid_rows * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const int n = Ncols[r];
-      const float* pr = Ss + r * ps;
-      float a0 = 0.f, a1 = 0.f;
-      int j = 0;
-#pragma unroll 4
-      for (; j + 1 < n; j += 2) {
-        a0 = fmaf(pr[j], Vs[j * D + c], a0);
-        a1 = fmaf(pr[j + 1], Vs[(j + 1) * D + c], a1);
-      }
-      if (j < n) a0 = fmaf(pr[j], Vs[j * D + c], a0);
-      Acc[i] = Acc[i] * Alpha[r] + (a0 + a1);
-    }
+    return;
   }
-  __syncthreads();
-  for (int i = tid; i < nvalid_rows * D; i += kThreads) {
-    const float l = Ls[i / D];
-    store(out + row_off(i / D) + i % D, l > 0.f ? Acc[i] / l : 0.f);
-  }
+  const long pf = wk::partial_floats(R, D);
+  float* part0 = a.part + (long)(b * a.hkv + h) * Z * pf;
+  if (nkeys > 0) wk::save<D>(st, part0 + z * pf, R);
+  if (!wk::arrive(a.counters + b * a.hkv + h, Z)) return;
+  wk::merge<D>(
+      nrows, R, Z, [&](int s) { return part0 + s * pf; },
+      [&](int s) { return s * span < ctx_keys; }, put);
 }
 
 template <typename T, typename KV, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* ks,
-           const void* vs, const void* pt, const void* kv_lens,
-           const void* q_lens, void* out, int b, int chunk, int hq, int hkv,
-           int num_pages, int ps, int pps, float scale, int device,
+int launch(const RaggedArgs& a, int b, int splits, int device,
            cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(chunk * (hq / hkv), ps, D);
-  cudaError_t err = ptt::allow_smem<ragged_paged_attn_kernel<T, KV, D>>(
-      device, (int)bytes);
+  const int bytes =
+      (int)smem_bytes<KV, D>(a.chunk * (a.hq / a.hkv), a.pages_per_split);
+  cudaError_t err =
+      ptt::allow_smem<ragged_split_kernel<T, KV, D>>(device, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(b, hkv);
-  ragged_paged_attn_kernel<T, KV, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
-      static_cast<T*>(out), chunk, hq, hkv, num_pages, ps, pps, scale);
+  ragged_split_kernel<T, KV, D>
+      <<<dim3(b, a.hkv, splits), wk::kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -229,39 +177,71 @@ const char* ptt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shared-memory bytes one block needs (a launch past the 227 KB a block may
-// use fails with the driver's error).
-int ptt_ragged_smem_bytes(int rows, int ps, int d) {
-  return (int)(sizeof(float) * smem_floats(rows, ps, d));
+// Shared-memory bytes one block needs for R = chunk * group rows at head
+// dim d walking `pages` pages a split; kv: 0 = fp32 pools, 1 = bf16, 2 =
+// int8 (a launch past the 227 KB a block may use fails with CUDA's
+// error).
+int ptt_ragged_smem_bytes(int R, int d, int kv, int pages) {
+#define PTT_D(DV)                                                      \
+  if (d == DV)                                                         \
+    return (int)(kv == 0   ? smem_bytes<float, DV>(R, pages)           \
+                 : kv == 1 ? smem_bytes<__nv_bfloat16, DV>(R, pages)   \
+                           : smem_bytes<int8_t, DV>(R, pages));
+  PTT_D(32)
+  PTT_D(64)
+  PTT_D(80)
+  PTT_D(96)
+  PTT_D(128)
+#undef PTT_D
+  return -1;
 }
 
 // q/out [b, chunk, hq, d]; pools [num_pages, ps, hkv, d] in q's type, or
 // int8 with ks / vs the fp32 scale planes [num_pages, ps, hkv] (null for fp
 // pools); page_table [b, pps] int32; kv_lens, q_lens [b] int32, all
-// contiguous. dtype (of q and out): 0 = fp32, 1 = bf16. d: 32, 64, 80, 96
-// or 128.
+// contiguous, q and the pools 16-byte aligned. part: splits > 1 partials
+// [b, hkv, splits, R * (d + 2) rounded up to 4] fp32 (R = chunk * hq /
+// hkv); counters [b * hkv] int32, zero on entry and left zero. The grid
+// walks pages_per_split pages a split, splits = ceil(pps /
+// pages_per_split). dtype (of q and out): 0 = fp32, 1 = bf16. d: 32, 64,
+// 80, 96 or 128.
 int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
                                const void* ks, const void* vs,
                                const void* pt, const void* kv_lens,
-                               const void* q_lens, void* out, int b,
-                               int chunk, int hq, int hkv, int num_pages,
-                               int ps, int pps, int d, float scale,
+                               const void* q_lens, void* out, void* part,
+                               void* counters, int b, int chunk, int hq,
+                               int hkv, int num_pages, int ps, int pps,
+                               int d, int pages_per_split, float scale,
                                int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((ks == nullptr) != (vs == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((ks == nullptr) != (vs == nullptr) || pages_per_split < 1 ||
+      hkv < 1 || hq % hkv)
+    return (int)cudaErrorInvalidValue;
+  const int splits = (pps + pages_per_split - 1) / pages_per_split;
+  if (splits > 1 && (part == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quant = ks != nullptr;
-#define PTT_ARGS q, kp, vp, ks, vs, pt, kv_lens, q_lens, out, b, chunk, hq, \
-                 hkv, num_pages, ps, pps, scale, device, s
-#define PTT_D(DV)                                                      \
-  if (d == DV) {                                                       \
-    if (!quant && dtype == 0) return launch<float, float, DV>(PTT_ARGS); \
-    if (!quant && dtype == 1)                                          \
-      return launch<__nv_bfloat16, __nv_bfloat16, DV>(PTT_ARGS);       \
-    if (quant && dtype == 0) return launch<float, int8_t, DV>(PTT_ARGS); \
-    if (quant && dtype == 1)                                           \
-      return launch<__nv_bfloat16, int8_t, DV>(PTT_ARGS);              \
+  const RaggedArgs a{q, kp, vp, static_cast<const float*>(ks),
+                     static_cast<const float*>(vs),
+                     static_cast<const int*>(pt),
+                     static_cast<const int*>(kv_lens),
+                     static_cast<const int*>(q_lens), out,
+                     static_cast<float*>(part), static_cast<int*>(counters),
+                     chunk, hq, hkv, num_pages, ps, pps, pages_per_split,
+                     scale};
+  using bf16 = __nv_bfloat16;
+#define PTT_D(DV)                                                        \
+  if (d == DV) {                                                         \
+    if (!quant && dtype == 0)                                            \
+      return launch<float, float, DV>(a, b, splits, device, s);          \
+    if (!quant && dtype == 1)                                            \
+      return launch<bf16, bf16, DV>(a, b, splits, device, s);            \
+    if (quant && dtype == 0)                                             \
+      return launch<float, int8_t, DV>(a, b, splits, device, s);         \
+    if (quant && dtype == 1)                                             \
+      return launch<bf16, int8_t, DV>(a, b, splits, device, s);          \
   }
   PTT_D(32)
   PTT_D(64)
@@ -269,7 +249,6 @@ int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
   PTT_D(96)
   PTT_D(128)
 #undef PTT_D
-#undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

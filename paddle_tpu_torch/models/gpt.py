@@ -721,10 +721,9 @@ def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
         if (device is not None and torch.device(device).type == "cuda"
                 and config.head_dim not in MEGA_HEAD_DIMS):
             raise NotImplementedError(
-                f"mega_decode on CUDA: the mega kernels are built for "
-                f"head_dim in {MEGA_HEAD_DIMS}, got {config.head_dim} (their "
-                "64-column tiles; ROADMAP.md queue 2 item 2) — serve this "
-                "config with mega_decode=False")
+                f"mega_decode on CUDA: the mega attention kernel is built for "
+                f"head_dim in {MEGA_HEAD_DIMS}, got {config.head_dim} — serve "
+                "this config with mega_decode=False")
     return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant,
                        mega=mega)
 

@@ -107,20 +107,35 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
-# per-device arrival counters, all zero between launches (the last block to
-# arrive resets its count); launches that share them run in stream order.
-# Grown buffers are kept, so a captured CUDA graph never sees one freed.
-_counters: dict[tuple, list[torch.Tensor]] = {}
+# per-device buffers of the split reductions, kept once grown, so a
+# captured CUDA graph never sees one freed; launches that share one run in
+# stream order
+_kept: dict[tuple, list[torch.Tensor]] = {}
 
 
-def arrival_counters(device, kind: str, n: int) -> torch.Tensor:
-    """At least ``n`` int32 counters on ``device`` for the kernels of
-    ``kind``, zero on entry; each kernel leaves them zero."""
-    held = _counters.setdefault((device.index, kind), [])
+def kept(device, kind: str, n: int, dtype=torch.int32) -> torch.Tensor:
+    """At least ``n`` values of ``dtype`` on ``device`` for the kernels of
+    ``kind``, zero when first made. int32 buffers are arrival counters:
+    zero on entry, and each kernel leaves them zero (the last block to
+    arrive resets its count); fp32 ones are scratch (partials written by
+    one block, read by the last to arrive)."""
+    held = _kept.setdefault((device.index, kind, dtype), [])
     if not held or held[-1].numel() < n:
-        held.append(torch.zeros(max(n, 1 << 12), dtype=torch.int32,
-                                device=device))
+        held.append(torch.zeros(max(n, 1 << 12), dtype=dtype, device=device))
     return held[-1]
+
+
+# the activation types every kernel family is built for; anything else (fp16)
+# is routed to the family's plain twin
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_takes(dtype) -> bool:
+    """Whether the kernels take activations of ``dtype`` (fp32, bf16): the
+    one pure predicate of every family but flash (each module re-exports
+    it), decided before any launch. On CUDA tensors of another dtype (fp16)
+    a wrapper runs its plain twin and counts that in its ``.twin_routes``."""
+    return dtype in KERNEL_DTYPES
 
 
 def dtype_code(dtype, what: str) -> int:

@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from ._build import kernel_takes  # noqa: F401 (the family's predicate)
 
 _KERNEL = "fused_mlp"
 _P = ctypes.c_void_p
@@ -157,6 +158,8 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+
+
 def _check(what, t, params=(), stats=()):
     """The dtype code of ``t [rows, h]``; raises on what the kernels do not
     take: a dtype other than fp32 / bf16, parameters or gradients of
@@ -210,6 +213,9 @@ def ln_fwd(x, residual, gamma, beta, eps):
     mean, rstd)``. ``gamma`` and ``beta`` are ``[h]`` in x's dtype."""
     if x.device.type == "cpu":
         return ln_fwd_reference(x, residual, gamma, beta, eps)
+    if not kernel_takes(x.dtype):
+        ln_fwd.twin_routes += 1
+        return ln_fwd_reference(x, residual, gamma, beta, eps)
     rows, h = x.shape
     for p in (gamma, beta):
         _vec_param(p, h)
@@ -236,6 +242,7 @@ def ln_fwd(x, residual, gamma, beta, eps):
 
 
 ln_fwd.launches = 0
+ln_fwd.twin_routes = 0
 
 
 def ln_bwd(dy, dso, s, mean, rstd, gamma):
@@ -245,6 +252,9 @@ def ln_bwd(dy, dso, s, mean, rstd, gamma):
     summed here, outside the kernel), :func:`ln_bwd_reference` on a CPU
     tensor. dx in s's dtype; dgamma, dbeta fp32."""
     if dy.device.type == "cpu":
+        return ln_bwd_reference(dy, dso, s, mean, rstd, gamma)
+    if not kernel_takes(s.dtype):
+        ln_bwd.twin_routes += 1
         return ln_bwd_reference(dy, dso, s, mean, rstd, gamma)
     rows, h = s.shape
     _vec_param(gamma, h)
@@ -275,6 +285,7 @@ def ln_bwd(dy, dso, s, mean, rstd, gamma):
 
 
 ln_bwd.launches = 0
+ln_bwd.twin_routes = 0
 
 
 class GeluPlan(NamedTuple):
@@ -322,6 +333,9 @@ def gelu_fwd(x, bias=None):
     tensor."""
     if x.device.type == "cpu":
         return gelu_fwd_reference(x, bias)
+    if not kernel_takes(x.dtype):
+        gelu_fwd.twin_routes += 1
+        return gelu_fwd_reference(x, bias)
     rows, n = x.shape
     if bias is not None:
         _vec_param(bias, n)
@@ -340,6 +354,7 @@ def gelu_fwd(x, bias=None):
 
 
 gelu_fwd.launches = 0
+gelu_fwd.twin_routes = 0
 
 
 def gelu_bwd(dy, x, bias=None):
@@ -348,6 +363,9 @@ def gelu_bwd(dy, x, bias=None):
     a fixed order), :func:`gelu_bwd_reference` on a CPU tensor. dx in x's
     dtype; dbias fp32 (None without a bias)."""
     if dy.device.type == "cpu":
+        return gelu_bwd_reference(dy, x, bias)
+    if not kernel_takes(x.dtype):
+        gelu_bwd.twin_routes += 1
         return gelu_bwd_reference(dy, x, bias)
     rows, n = x.shape
     if bias is not None:
@@ -368,7 +386,7 @@ def gelu_bwd(dy, x, bias=None):
         part = torch.empty((plan.bands, n), dtype=torch.float32,
                            device=x.device)
         dbias = torch.empty(n, dtype=torch.float32, device=x.device)
-        counters = _build.arrival_counters(x.device, "gelu_bwd", plan.strips)
+        counters = _build.kept(x.device, "gelu_bwd", plan.strips)
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_gelu_bwd(dy.data_ptr(), x.data_ptr(), _ptr(bias),
                            dx.data_ptr(), _ptr(part), _ptr(dbias),
@@ -380,6 +398,7 @@ def gelu_bwd(dy, x, bias=None):
 
 
 gelu_bwd.launches = 0
+gelu_bwd.twin_routes = 0
 
 
 # ---------------------------------------------------------------------------

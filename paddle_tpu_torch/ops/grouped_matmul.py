@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from ._build import kernel_takes  # noqa: F401 (the family's predicate)
 from .quant_matmul import _norm_scales, _tile_counters, dequantize_weight
 
 _KERNEL = "grouped_matmul"
@@ -328,6 +329,8 @@ def _check_device(t):
         raise ValueError(f"grouped_matmul runs on cuda or cpu, got {t.device}")
 
 
+
+
 _BITS_NAME = {0: "fp", 8: "int8", 4: "int4"}
 
 
@@ -342,6 +345,10 @@ def grouped_matmul_fwd(x2, weights, group_offsets, scales3d=None):
     if x2.device.type == "cpu":
         return grouped_matmul_reference(x2, weights, group_offsets,
                                         scales=scales3d)
+    if not kernel_takes(x2.dtype):
+        grouped_matmul_fwd.twin_routes += 1
+        return grouped_matmul_reference(x2, weights, group_offsets,
+                                        scales=scales3d)
     out, route = _launch(x2, weights, scales3d, group_offsets, k,
                          weights.shape[2], bits, bwd=False)
     if route:
@@ -352,6 +359,7 @@ def grouped_matmul_fwd(x2, weights, group_offsets, scales3d=None):
 
 grouped_matmul_fwd.launches = {"fp": 0, "int8": 0, "int4": 0}
 grouped_matmul_fwd.tc_launches = 0
+grouped_matmul_fwd.twin_routes = 0
 
 
 def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
@@ -364,6 +372,10 @@ def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
     if dy.device.type == "cpu" or bits == 4:
         return grouped_matmul_dx_reference(dy, weights, group_offsets,
                                            scales3d, k, x_dtype)
+    if not kernel_takes(x_dtype):
+        grouped_matmul_bwd.twin_routes += 1
+        return grouped_matmul_dx_reference(dy, weights, group_offsets,
+                                           scales3d, k, x_dtype)
     out, route = _launch(dy.to(x_dtype), weights, scales3d, group_offsets,
                          k, weights.shape[2], bits, bwd=True)
     if route:
@@ -374,6 +386,7 @@ def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
 
 grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
 grouped_matmul_bwd.tc_launches = 0
+grouped_matmul_bwd.twin_routes = 0
 
 
 @torch.library.custom_op("paddle_tpu_torch::grouped_matmul", mutates_args=())

@@ -19,8 +19,12 @@ the output projection's partial instead of the residual + LN epilogue.
 ``head_major`` takes wqkv's columns in the ``[nh, 3, hd]`` order.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
-``csrc/mega_decode.cu`` (or raise), counting launches in ``.launches``; on
-a CPU tensor, or with ``use_kernel=False``, they run the plain versions
+``csrc/mega_decode.cu`` (or raise), counting launches in ``.launches``
+(activations of a dtype the kernels are not built for, fp16, run the plain
+versions there and count ``.twin_routes``: :func:`kernel_takes`); the
+attention kernel splits each lane's page walk over blocks as
+:func:`mega_plan` says; on a CPU tensor, or with ``use_kernel=False``, they
+run the plain versions
 :func:`mega_attn_layer_reference` / :func:`mega_mlp_reference`, twins of
 the reference's jnp oracles with the same stage order and roundings. The
 new K / V rows quantize with ``inference.kv_cache.quantize_kv_rows`` (scale
@@ -34,16 +38,19 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..inference.kv_cache import _INV_127, quantize_kv_rows
 from . import _build
+from ._build import kernel_takes  # noqa: F401 (the family's predicate)
+from .paged_attention import _sms, walk_plan
 from .quant_matmul import dequantize_weight
 
 NEG_INF = -1e30
 MAX_CHUNK = 64        # the attention kernel's rows a lane (csrc C <= 64)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)   # the attention kernel's instantiations
 
 _K0 = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -53,18 +60,57 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ptt_mega_attn": [_P] * 26 + [_I] * 12 + [_F] * 3 + [_I, _I, _P],
+    "ptt_mega_attn": [_P] * 29 + [_I] * 14 + [_F] * 3 + [_I, _I, _P],
     "ptt_mega_mlp": [_P] * 11 + [_I] * 8 + [_P],
-    "ptt_mega_attn_smem_bytes": [_I, _I, _I],
+    "ptt_mega_attn_smem_bytes": [_I] * 8,
 }
 _MLP_ROWS, _TILE = 32, 64   # the MLP kernel's rows / ffn columns a block
+_SLAB = 128                 # the attention kernel's projection columns a tile
 
 
-def smem_bytes(chunk: int, head_dim: int, page_size: int) -> int:
-    """Dynamic shared memory of one attention block (builds the kernel on
-    first use)."""
+def smem_bytes(chunk: int, head_dim: int, dtype=torch.float32,
+               int8_weights=False, int8_kv=False, pages=1, group=1) -> int:
+    """Dynamic shared memory of one attention block walking ``pages``
+    pages a split, its QKV producers taking ``group`` lanes (builds the
+    kernel on first use)."""
     return _build.load(_KERNEL, _SIGNATURES).ptt_mega_attn_smem_bytes(
-        chunk, head_dim, page_size)
+        chunk, head_dim, _build.dtype_code(dtype, "mega_attn_layer"),
+        int(int8_weights), int(int8_kv), int(int8_weights), pages, group)
+
+
+
+
+# the attention kernel's plan: QKV producer block rows (whole lanes, 64 at
+# most; a producer packs the rows that hold a new token, so one-row lanes
+# of a small chunk share each weight tile; 16 beat 32 and 64 at the
+# serving chunk of 16, chip_smoke.py --paged-walks), and consumer blocks
+# (a causal split and the page splits of each lane and head) aimed for in
+# waves of the card's SMs
+MEGA_ROWS = 16
+MEGA_WAVES = 4
+
+
+class MegaPlan(NamedTuple):
+    splits: int          # page splits a (lane, head) (plus its causal split)
+    pages: int           # pages a split walks (the last may walk fewer)
+    group: int           # lanes a QKV producer takes
+    blocks: int          # the grid: 3 producers a (group, head), consumers
+
+
+def mega_plan(b: int, heads: int, pps: int, page_size: int, d: int,
+              chunk: int, kv_elt: int, sms: int) -> MegaPlan:
+    """The attention kernel's grid from shapes alone: producers of
+    :data:`MEGA_ROWS` rows (whole lanes, one at least) and page splits from
+    :func:`walk_plan` aimed at :data:`MEGA_WAVES` waves of consumer
+    blocks."""
+    group = max(1, min(b, MEGA_ROWS // chunk))
+    units = max(b * heads, 1)
+    want = max(1, -(-MEGA_WAVES * sms // units) - 1)
+    walk = walk_plan(b, heads, pps, page_size, d, chunk, kv_elt, sms,
+                     want=want)
+    producers = 3 * -(-b // group) * heads
+    return MegaPlan(walk.splits, walk.pages, group,
+                    producers + units * (1 + walk.splits))
 
 
 # ---------------------------------------------------------------------------
@@ -281,10 +327,10 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
     dtype, dev = xb.dtype, xb.device
     code = _build.dtype_code(dtype, what)
     if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"{what} kernel takes head_dim 64 or 128, "
-                                  f"got {hd}")
-    if h % 4:
-        raise NotImplementedError(f"{what} kernel takes h a multiple of 4, "
+        raise NotImplementedError(f"{what} kernel takes head_dim in "
+                                  f"{HEAD_DIMS}, got {hd}")
+    if h % 64:
+        raise NotImplementedError(f"{what} kernel takes h a multiple of 64, "
                                   f"got {h}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise NotImplementedError(f"{what} kernel takes chunk 1..{MAX_CHUNK}"
@@ -318,9 +364,18 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
         xb=xb, wqkv=wq, sqkv=sq, bqkv=bqkv, wo=wo, so=so, k_pages=k_pages,
         v_pages=v_pages, k_scales=k_scales, v_scales=v_scales,
         page_table=page_table, ctx_lens=ctx_lens, q_lens=q_lens, **vecs))
-    if any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
-        raise ValueError(f"{what}: the pools must be 16-byte aligned (the "
-                         "kernel loads 16-byte rows)")
+    for name, g in (("wqkv", gq if sq is not None else 16),
+                    ("wo", go if so is not None else 16)):
+        if g % 16:
+            raise NotImplementedError(f"{what} kernel takes int8 {name} scale "
+                                      f"groups of a multiple of 16 rows, got "
+                                      f"{g}")
+    if any(t is not None and t.data_ptr() % 16 for t in (
+            xb, wq, sq, wo, so, k_pages, v_pages, vecs["ln1_g"],
+            vecs["ln1_b"])):
+        raise ValueError(f"{what}: x, the weights, their scales, LN1's "
+                         "vectors and the pools must be 16-byte aligned (the "
+                         "kernel copies 16-byte chunks)")
     y2 = torch.empty_like(xb)
     s = torch.empty_like(xb) if fuse_epilogue else None
     k_new = torch.empty((b, chunk, nh, hd), dtype=pool_dtype, device=dev)
@@ -330,8 +385,16 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
         k_sc = torch.empty((b, chunk, nh), dtype=torch.float32, device=dev)
         v_sc = torch.empty_like(k_sc)
     if b:
-        ws = torch.empty((b, nh, chunk, h), dtype=torch.float32, device=dev)
-        counters = _build.arrival_counters(dev, "attn", b)
+        plan = mega_plan(b, nh, page_table.shape[1], ps, hd, chunk,
+                         k_pages.element_size(), _sms(dev.index))
+        nslab = -(-h // _SLAB)
+        part_n = b * nh * (1 + plan.splits) * (4 * -(-chunk * (hd + 2) // 4))
+        ws_n = b * nh * chunk * h
+        pub_n = b * chunk * 3 * nh * hd
+        scratch = _build.kept(dev, "mega_attn",
+                              part_n + ws_n + pub_n + b * nslab * chunk * 2,
+                              torch.float32)
+        counters = _build.kept(dev, "attn", b * (3 * nh + nslab + 1) + 1)
         lib = _build.load(_KERNEL, _SIGNATURES)
         err = lib.ptt_mega_attn(
             xb.data_ptr(), vecs["ln1_g"].data_ptr(), vecs["ln1_b"].data_ptr(),
@@ -341,10 +404,14 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
             v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
             page_table.data_ptr(), ctx_lens.data_ptr(), q_lens.data_ptr(),
             y2.data_ptr(), _ptr(s), k_new.data_ptr(), v_new.data_ptr(),
-            _ptr(k_sc), _ptr(v_sc), ws.data_ptr(), counters.data_ptr(),
-            b, chunk, h, nh, hd, num_pages, ps, page_table.shape[1], gq, go,
-            int(head_major), int(fuse_epilogue), float(eps), _INV_127,
-            1.0 / math.sqrt(hd), code, dev.index,
+            _ptr(k_sc), _ptr(v_sc), scratch.data_ptr(),
+            scratch[part_n:].data_ptr(), scratch[part_n + ws_n:].data_ptr(),
+            scratch[part_n + ws_n + pub_n:].data_ptr(),
+            counters.data_ptr(), b, chunk, h,
+            nh, hd, num_pages, ps, page_table.shape[1], gq, go,
+            int(head_major), int(fuse_epilogue), plan.pages, plan.group,
+            float(eps),
+            _INV_127, 1.0 / math.sqrt(hd), code, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, f"{what} launch")
         mega_attn_layer.launches += 1
@@ -373,7 +440,11 @@ def mega_attn_layer(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens,
     """
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
-    if not _use_kernel(use_kernel, xb, "mega_attn_layer"):
+    kernel = _use_kernel(use_kernel, xb, "mega_attn_layer")
+    if kernel and not kernel_takes(xb.dtype):
+        mega_attn_layer.twin_routes += 1
+        kernel = False
+    if not kernel:
         return mega_attn_layer_reference(
             xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps=eps,
             k_scales=k_scales, v_scales=v_scales, head_major=head_major,
@@ -384,6 +455,7 @@ def mega_attn_layer(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens,
 
 
 mega_attn_layer.launches = 0
+mega_attn_layer.twin_routes = 0
 
 
 def _launch_mlp(y2, s_res, p, fuse_epilogue):
@@ -413,7 +485,7 @@ def _launch_mlp(y2, s_res, p, fuse_epilogue):
         return out
     nf, nm = -(-f // _TILE), -(-t // _MLP_ROWS)
     ws = torch.empty((nf, t, h), dtype=torch.float32, device=dev)
-    counters = _build.arrival_counters(dev, "mlp", nm * -(-h // _TILE))
+    counters = _build.kept(dev, "mlp", nm * -(-h // _TILE))
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_mega_mlp(
         y2.data_ptr(), _ptr(s_res), w1.data_ptr(), _ptr(s1), b1.data_ptr(),
@@ -432,9 +504,14 @@ def mega_mlp(y2, s_res, p, *, use_kernel=None, fuse_epilogue=True, chunk=1):
     the second product alone; ``s_res`` may be None). ``chunk`` keys the
     reference's autotune lookup and is unused here."""
     del chunk
-    if not _use_kernel(use_kernel, y2, "mega_mlp"):
+    kernel = _use_kernel(use_kernel, y2, "mega_mlp")
+    if kernel and not kernel_takes(y2.dtype):
+        mega_mlp.twin_routes += 1
+        kernel = False
+    if not kernel:
         return mega_mlp_reference(y2, s_res, p, fuse_epilogue=fuse_epilogue)
     return _launch_mlp(y2, s_res, p, fuse_epilogue)
 
 
 mega_mlp.launches = 0
+mega_mlp.twin_routes = 0

@@ -16,7 +16,10 @@ reference keeps fp32; the port keeps fp32 in both versions).
 On a CUDA tensor :func:`ragged_paged_attention` launches the hand-written
 kernel of ``csrc/ragged_paged_attention.cu`` (or raises); on a CPU tensor
 it runs :func:`ragged_paged_attention_reference`, the torch twin of the
-jnp gather oracle. Rows past ``q_lens`` come back zero on both paths.
+jnp gather oracle. Rows past ``q_lens`` come back zero on both paths. The
+kernel splits each (sequence, kv head) pair's pages over several blocks
+and merges their partials in split order; :func:`walk_plan` sizes the
+split from shapes alone.
 
 :func:`paged_attention` (the legacy decode step): one query token per
 sequence, ``q [b, hq, d]``, attends positions ``[0, lengths[b])`` of its
@@ -25,16 +28,21 @@ pages; ``lengths[b] == 0`` marks an empty slot and gives zeros. A CUDA
 raises); a CPU ``q`` runs :func:`paged_attention_reference`. Decode-only:
 the output carries no gradient, as the reference registers no VJP.
 
-Both kernels take head dims :data:`HEAD_DIMS` in fp32 and bf16.
+Both kernels take head dims :data:`HEAD_DIMS` in fp32 and bf16
+(:func:`kernel_takes`); on CUDA tensors of another dtype (fp16) the
+wrappers run the plain versions and count that in ``.twin_routes``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from ._build import kernel_takes  # noqa: F401 (the family's predicate)
 
 NEG_INF = -1e30
 PAGE_SIZE_DEFAULT = 64
@@ -45,10 +53,17 @@ _DECODE = "paged_decode_attention"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 8
+    "ptt_ragged_paged_attention": [_P] * 11 + [_I] * 9
     + [ctypes.c_float, _I, _I, _P],
-    "ptt_ragged_smem_bytes": [_I, _I, _I],
+    "ptt_ragged_smem_bytes": [_I] * 4,
 }
+# the split walk (csrc/paged_walk.cuh): blocks a plan aims for, in waves of
+# the card's SMs (more splits keep more pages in flight: chip_smoke.py
+# --paged-walks times 2 to 16); the most bytes of split partials a plan may
+# keep (device memory the scratch may take at large batches)
+SPLIT_WAVES = 8
+PARTIAL_CAP = 8 << 20
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _DECODE_SIGNATURES = {
     "ptt_paged_decode_attention": [_P] * 6 + [_I] * 7
     + [ctypes.c_float, _I, _I, _P],
@@ -56,11 +71,51 @@ _DECODE_SIGNATURES = {
 }
 
 
-def smem_bytes(rows: int, page_size: int, d: int) -> int:
+def smem_bytes(rows: int, d: int, pool_dtype=torch.float32,
+               pages: int = 1) -> int:
     """Dynamic shared memory one block of the kernel uses for ``rows`` =
-    chunk * group query rows (builds the kernel on first use)."""
+    chunk * group query rows over pools of ``pool_dtype``, walking
+    ``pages`` pages a split (builds the kernel on first use)."""
     return _build.load(_KERNEL, _SIGNATURES).ptt_ragged_smem_bytes(
-        rows, page_size, d)
+        rows, d, _KV_CODES[pool_dtype], pages)
+
+
+
+
+class WalkPlan(NamedTuple):
+    splits: int          # blocks a (sequence, kv head) pair's walk takes
+    pages: int           # pages a split walks (the last may walk fewer)
+    blocks: int          # the grid: sequences x kv heads x splits
+    waves: float         # blocks over the card's SMs
+    partial_bytes: int   # fp32 partials the splits leave (0: one split)
+
+
+def walk_plan(b: int, heads: int, pps: int, page_size: int, d: int,
+              rows: int, kv_elt: int, sms: int, want: int = 0) -> WalkPlan:
+    """How the kernels split a page walk, from shapes alone (never from the
+    context lengths, so a captured step stays valid): ``b`` sequences x
+    ``heads`` kv heads, page tables ``pps`` pages wide, pages of
+    ``page_size`` rows of ``d`` values of ``kv_elt`` bytes, ``rows`` query
+    rows a block, ``sms`` SMs. Aims for ``want`` splits a pair (default:
+    :data:`SPLIT_WAVES` waves of blocks), gives each split one page at
+    least and keeps the fp32 partials (``rows`` x ``d + 2`` a split) within
+    :data:`PARTIAL_CAP`."""
+    del page_size, kv_elt   # a split takes whole pages, whatever they hold
+    units = max(b * heads, 1)
+    splits = max(1, min(want or -(-SPLIT_WAVES * sms // units), pps))
+    per_split = 16 * (-(-rows * (d + 2) // 4))      # bytes, 16-aligned
+    while splits > 1 and units * splits * per_split > PARTIAL_CAP:
+        splits -= 1
+    pages = -(-max(pps, 1) // splits)
+    splits = -(-max(pps, 1) // pages)
+    blocks = units * splits
+    return WalkPlan(splits, pages, blocks, blocks / sms,
+                    units * splits * per_split if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
@@ -135,13 +190,25 @@ def _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale,
             f"{HEAD_DIMS}, got {d}")
     lib = _build.load(_KERNEL, _SIGNATURES)
     out = torch.empty_like(q)
+    if b == 0:
+        return out
+    rows, pps = c * (hq // hkv), page_table.shape[1]
+    plan = walk_plan(b, hkv, pps, page_size, d, rows,
+                     k_pages.element_size(), _sms(q.device.index))
+    part = counters = None
+    if plan.splits > 1:
+        part = _build.kept(q.device, "walk", plan.partial_bytes // 4,
+                           torch.float32)
+        counters = _build.kept(q.device, "walk", b * hkv)
     err = lib.ptt_ragged_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None,
-        v_scales.data_ptr() if quant else None, page_table.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), b, c, hq, hkv, num_pages, page_size,
-        page_table.shape[1], d, float(scale), code, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v_scales.data_ptr() if quant else None, page_table.data_ptr(),
+        kv_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, c, hq, hkv,
+        num_pages, page_size, pps, d, plan.pages, float(scale), code,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     return out
@@ -180,11 +247,17 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens,
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"got {q.device}")
+    if not kernel_takes(q.dtype):
+        ragged_paged_attention.twin_routes += 1
+        return ragged_paged_attention_reference(
+            q, k_pages, v_pages, page_table, kv_lens, q_lens, scale=scale,
+            k_scales=k_scales, v_scales=v_scales)
     return _launch_cuda(q, k_pages, v_pages, page_table, kv_lens, q_lens,
                         scale, k_scales, v_scales)
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.twin_routes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +360,12 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, got "
                          f"{q.device}")
+    if not kernel_takes(q.dtype):
+        paged_attention.twin_routes += 1
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         lengths, scale=scale)
     return _launch_decode(q, k_pages, v_pages, page_table, lengths, scale)
 
 
 paged_attention.launches = 0
+paged_attention.twin_routes = 0

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._build import kernel_takes  # noqa: F401 (the family's predicate)
 
 _KERNEL = "quant_matmul"
 _P = ctypes.c_void_p
@@ -206,12 +207,17 @@ def _check_device(t):
         raise ValueError(f"quant_matmul runs on cuda or cpu, got {t.device}")
 
 
+
+
 def quant_matmul_fwd(x2, qweight, scales2d, bias=None):
     """``x2 [M, K] @ dequant(qweight) (+ bias)`` in ``x2``'s dtype: the
     kernel on a CUDA tensor (``.launches["int8" | "int4"]`` counts it), the
     reference on a CPU tensor."""
     _check_device(x2)
     if x2.device.type == "cpu":
+        return quant_matmul_reference(x2, qweight, scales2d, bias=bias)
+    if not kernel_takes(x2.dtype):
+        quant_matmul_fwd.twin_routes += 1
         return quant_matmul_reference(x2, qweight, scales2d, bias=bias)
     out, name = _launch(x2, qweight, scales2d, bias, x2.shape[1],
                         qweight.shape[1], bwd=False)
@@ -221,6 +227,7 @@ def quant_matmul_fwd(x2, qweight, scales2d, bias=None):
 
 
 quant_matmul_fwd.launches = {"int8": 0, "int4": 0}
+quant_matmul_fwd.twin_routes = 0
 
 
 def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
@@ -230,6 +237,9 @@ def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
     _check_device(dy)
     if dy.device.type == "cpu":
         return quant_matmul_dx_reference(dy, qweight, scales2d, k, x_dtype)
+    if not kernel_takes(x_dtype):
+        quant_matmul_bwd.twin_routes += 1
+        return quant_matmul_dx_reference(dy, qweight, scales2d, k, x_dtype)
     out, name = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
                         qweight.shape[1], bwd=True)
     if name:
@@ -238,6 +248,7 @@ def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
 
 
 quant_matmul_bwd.launches = {"int8": 0, "int4": 0}
+quant_matmul_bwd.twin_routes = 0
 
 
 @torch.library.custom_op("paddle_tpu_torch::quant_matmul", mutates_args=())

@@ -583,6 +583,11 @@ MEGA_GEOMS = {   # b, chunk, h, heads, head_dim, page, pages a lane, ffn
     "serving": (8, 16, 768, 12, 64, 64, 16, 3072),
     "odd": (5, 3, 256, 4, 64, 16, 6, 640),
     "d128": (3, 40, 512, 4, 128, 32, 5, 1024),
+    # the head dims the split-walk kernel added: gpt3-tiny's 32, gpt3-2.7b's
+    # 80 and gpt3-760m's 96 (its 16 heads, h 1536)
+    "d32": (5, 4, 128, 4, 32, 16, 6, 512),
+    "d80": (5, 3, 320, 4, 80, 16, 6, 640),
+    "d96": (4, 16, 1536, 16, 96, 64, 4, 6144),
 }
 
 
@@ -1110,3 +1115,210 @@ def test_legacy_serving_launches_and_tokens(cuda):
     assert got == unified
     assert paged_attention.launches - counts[0] == sp.steps * 2 > 0
     assert ragged_paged_attention.launches == counts[1]
+
+
+# -- the split page walks (rows 1 and 13) ------------------------------------
+
+# (b, chunk, hq, hkv, d, page, pages a lane, kv_lens, q_lens): GPT-125M's
+# decode round (8 lanes, one row each, 1,024 tokens), gpt3-1.3b's 32 heads
+# at 2,048 tokens with prefill chunks, GQA 4 and MQA at contexts ending
+# mid-page, an idle lane, a first chunk (kv_len == q_len)
+WALK_CASES = {
+    "decode_round": (8, 16, 12, 12, 64, 64, 16, [1024] * 8, [1] * 8),
+    "long_1p3b": (8, 16, 32, 32, 64, 64, 32, [2048] * 8,
+                  [1, 16, 1, 7, 1, 1, 16, 1]),
+    "gqa4_d128": (6, 16, 16, 4, 128, 16, 40, [0, 16, 333, 640, 97, 17],
+                  [0, 16, 16, 1, 5, 1]),
+    "mqa_d80": (5, 8, 8, 1, 80, 32, 20, [640, 1, 8, 300, 511],
+                [1, 1, 8, 3, 8]),
+    "d32": (4, 16, 4, 4, 32, 64, 9, [576, 33, 64, 65], [16, 1, 16, 2]),
+}
+
+
+def _walk_inputs(case, dtype, quant, device, seed=0):
+    b, chunk, hq, hkv, d, ps, pps, kv_lens, q_lens = WALK_CASES[case]
+    rng = np.random.RandomState(seed)
+    num_pages = b * pps + 1
+    q = rng.standard_normal((b, chunk, hq, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    pt = rng.permutation(num_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    for i in range(b):
+        pt[i, (kv_lens[i] + ps - 1) // ps:] = -1
+    to = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa
+    kp, vp = to(kp, torch.float32), to(vp, torch.float32)
+    kw = {}
+    if quant:
+        (kp, ks), (vp, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
+                              for t in (kp, vp))
+        shape = (num_pages, ps, hkv)
+        kp, vp = kp.reshape(*shape, d), vp.reshape(*shape, d)
+        kw = dict(k_scales=ks.reshape(shape), v_scales=vs.reshape(shape))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    args = (to(q, dtype), kp, vp, to(pt, torch.int32),
+            to(kv_lens, torch.int32), to(q_lens, torch.int32))
+    return args, kw
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_ragged_split_walk_matches_plain(cuda, case, dtype, quant):
+    """The split walk against the plain version (fp and int8 KV, MHA, GQA,
+    MQA, d 32 / 64 / 80 / 128), and a second launch bitwise equal to the
+    first (the splits merge in a fixed order)."""
+    args, kw = _walk_inputs(case, dtype, quant, cuda)
+    before = ragged_paged_attention.launches
+    got = ragged_paged_attention(*args, **kw)
+    again = ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = ragged_paged_attention_reference(*args, **kw)
+    q_lens = args[-1]
+    _assert_close(_valid_rows(got, q_lens).float(),
+                  _valid_rows(want, q_lens).float(), dtype)
+    rows = (torch.arange(got.shape[1], device=cuda)[None]
+            >= q_lens[:, None].long())
+    assert torch.count_nonzero(got[rows]) == 0
+
+
+def _graph_equal(fn):
+    """One call captured in a CUDA graph and replayed: bitwise equal to an
+    eager call on the same inputs (the scratch the call needs is grown by
+    the eager call first and kept, so the graph holds live buffers)."""
+    eager = fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    flat = lambda t: t if isinstance(t, tuple) else (t,)  # noqa: E731
+    for a, b in zip(flat(eager), flat(out)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_split_walk_graph_replay(cuda, dtype):
+    args, kw = _walk_inputs("decode_round", dtype, False, cuda)
+    _graph_equal(lambda: ragged_paged_attention(*args, **kw))
+
+
+def _mega_decode_round(dtype, kv_quant, device):
+    """GPT-125M's decode round for one layer: 8 lanes of one row over
+    1,023-token contexts (page 64, 16 pages a lane), chunk 16."""
+    b, chunk, h, nh, d, ps, pps, f = MEGA_GEOMS["serving"]
+    xb, p, pools, pt, ctx, q_lens = _mega_inputs("serving", "fp", -1,
+                                                 kv_quant, dtype, device)
+    ctx = torch.full((b,), 1023, dtype=torch.int32, device=device)
+    q_lens = torch.ones(b, dtype=torch.int32, device=device)
+    rng = np.random.RandomState(4)
+    pt = torch.from_numpy(rng.permutation(b * pps + 2)[:b * pps].reshape(
+        b, pps).astype(np.int32)).to(device)
+    return (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens), \
+        dict(k_scales=pools.get("k_scales"), v_scales=pools.get("v_scales"))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mega_attn_decode_round_repeat_and_graph(cuda, dtype, kv_quant):
+    """The mega attention kernel at the decode round against its plain
+    version, a second launch bitwise equal to the first, and a captured
+    call bitwise equal to an eager one."""
+    args, kw = _mega_decode_round(dtype, kv_quant, cuda)
+    got = mega_attn_layer(*args, **kw)
+    again = mega_attn_layer(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = mega_attn_layer_reference(*args, **kw)
+    q_lens = args[-1]
+    flips = sum(_mega_close(g, w, dtype, q_lens)
+                for g, w in zip(got[2:4], want[2:4]))
+    for g, w in zip(got[:2] + got[4:], want[:2] + want[4:]):
+        _mega_close(g, w, dtype, q_lens,
+                    fp32_tol=MEGA_KV_TOL if flips else QMM_FP32_TOL)
+    _graph_equal(lambda: mega_attn_layer(*args, **kw))
+
+
+# -- fp16: every family's plain twin on the card ------------------------------
+
+
+def _routes():
+    from paddle_tpu_torch.ops import twin_routes
+    return twin_routes()
+
+
+def _fp16_held(got, want32):
+    """An fp16 result of a plain twin against the fp32 twin: per row, as
+    bf16 (fp16 rounds more finely)."""
+    assert got.dtype == torch.float16
+    _assert_close(got.float(), want32.float(), torch.bfloat16)
+
+
+def test_fp16_runs_every_family_twin(cuda):
+    """fp16 on CUDA raised ``TypeError`` in ``dtype_code``; each family
+    now routes it to its plain twin before any launch (one route counted a
+    call, no launch) and returns what the fp32 twin returns, rounded."""
+    rng = np.random.RandomState(9)
+    h16 = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(cuda, torch.float16)
+    # ragged and decode attention
+    args = _ragged_inputs(rng, 4, 8, 8, 2, 64, 16, 6, cuda, torch.float16)
+    n0 = _routes()
+    got = ragged_paged_attention(*args)
+    assert _routes() == n0 + 1
+    want = ragged_paged_attention_reference(
+        *(a.float() if a.is_floating_point() else a for a in args))
+    _fp16_held(_valid_rows(got, args[-1]), _valid_rows(want, args[-1]))
+    lengths = args[4]
+    got = paged_attention(args[0][:, 0], *args[1:4], lengths)
+    want = paged_attention_reference(args[0][:, 0].float(),
+                                     args[1].float(), args[2].float(),
+                                     args[3], lengths)
+    _fp16_held(got[lengths > 0], want[lengths > 0])
+    # fused LN / GELU, forward and backward through the custom ops
+    x = h16(rng.randn(33, 200)).requires_grad_()
+    g, b = h16(1 + 0.1 * rng.randn(200)), h16(0.1 * rng.randn(200))
+    before = (ln_fwd.launches, gelu_fwd.launches)
+    y = fused_bias_gelu(fused_layer_norm(x, g, b), b)
+    y.float().sum().backward()
+    assert (ln_fwd.launches, gelu_fwd.launches) == before
+    _fp16_held(y, gelu_fwd_reference(
+        ln_fwd_reference(x.detach().float(), None, g.float(), b.float(),
+                         1e-5)[0], b.float()))
+    assert x.grad is not None and x.grad.dtype == torch.float16
+    # weight-only GEMM and grouped GEMM
+    w = torch.from_numpy(rng.randn(200, 72).astype(np.float32)).to(cuda)
+    qw = quantize_weight(w, "int8", -1)
+    xq = h16(rng.randn(5, 200))
+    _fp16_held(quant_matmul(xq, qw["q"], qw["s"]),
+               quant_matmul_reference(xq.float(), qw["q"], qw["s"]))
+    we = torch.from_numpy(rng.randn(3, 200, 72).astype(np.float32)).to(cuda)
+    offs = torch.tensor([0, 2, 2, 5], dtype=torch.int32, device=cuda)
+    _fp16_held(grouped_matmul(xq, we.half(), offs),
+               grouped_matmul_reference(xq.float(), we, offs))
+    # mega attention and MLP
+    xb, p, pools, pt, ctx, q_lens = _mega_inputs("odd", "fp", -1, False,
+                                                 torch.float32, cuda)
+    p16 = {k: v.half() for k, v in p.items()}
+    args = (xb.half(), p16, pools["k_pages"].half(), pools["v_pages"].half(),
+            pt, ctx, q_lens)
+    n1 = _routes()
+    got = mega_attn_layer(*args)
+    assert _routes() == n1 + 1
+    want = mega_attn_layer_reference(xb, p, pools["k_pages"],
+                                     pools["v_pages"], pt, ctx, q_lens)
+    _fp16_held(_valid_rows(got[1], q_lens), _valid_rows(want[1], q_lens))
+    y2 = h16(rng.randn(15, 256))
+    _fp16_held(mega_mlp(y2, y2, p16), mega_mlp_reference(y2.float(),
+                                                         y2.float(), p))
+    assert _routes() >= n0 + 8

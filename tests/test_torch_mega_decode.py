@@ -52,16 +52,18 @@ def _to_torch(tree):
     return serving_params_from_jax_numpy(_np_tree(tree), device="cpu")
 
 
-def _layer(rng, quant=None, group=-1, head_major=False):
-    """One layer's serving weights as a JAX dict and its port twin (the
-    quantized leaves come from the reference's quantizer, bit for bit)."""
+def _layer(rng, quant=None, group=-1, head_major=False, hd=HD):
+    """One layer's serving weights (4 heads of ``hd``) as a JAX dict and its
+    port twin (the quantized leaves come from the reference's quantizer,
+    bit for bit)."""
     def w(*s):
         return jnp.asarray(rng.randn(*s) * 0.05, jnp.float32)
 
+    H = 4 * hd
     wqkv, bqkv = w(H, 3 * H), w(3 * H) * 0.1
     if head_major:
-        nh = H // HD
-        perm = np.arange(3 * H).reshape(3, nh, HD).transpose(1, 0, 2
+        nh = H // hd
+        perm = np.arange(3 * H).reshape(3, nh, hd).transpose(1, 0, 2
                                                              ).reshape(-1)
         wqkv, bqkv = wqkv[:, perm], bqkv[perm]
     p = {"ln1_g": 1.0 + w(H), "ln1_b": w(H) * 0.1,
@@ -74,22 +76,22 @@ def _layer(rng, quant=None, group=-1, head_major=False):
     return p, _to_torch(p)
 
 
-def _geometry(rng, b=5, chunk=4, pps=4, kv_quant=False):
+def _geometry(rng, b=5, chunk=4, pps=4, kv_quant=False, hd=HD):
     """Lanes: 0 a deep-context single row, 1 idle (q_len 0), 2 a full chunk
     on a short context, 3 a first chunk (ctx 0), 4 a ragged chunk on a
-    context that ends mid-page. Returns numpy arrays."""
-    nh = H // HD
+    context that ends mid-page; 4 heads of ``hd``. Returns numpy arrays."""
+    nh = 4
     num_pages = b * pps + 2
     if kv_quant:
-        kp = rng.randint(-127, 128, (num_pages, PAGE, nh, HD)).astype(np.int8)
-        vp = rng.randint(-127, 128, (num_pages, PAGE, nh, HD)).astype(np.int8)
+        kp = rng.randint(-127, 128, (num_pages, PAGE, nh, hd)).astype(np.int8)
+        vp = rng.randint(-127, 128, (num_pages, PAGE, nh, hd)).astype(np.int8)
         ks = (np.abs(rng.randn(num_pages, PAGE, nh)) * 0.01
               + 1e-3).astype(np.float32)
         vs = (np.abs(rng.randn(num_pages, PAGE, nh)) * 0.01
               + 1e-3).astype(np.float32)
     else:
-        kp = rng.randn(num_pages, PAGE, nh, HD).astype(np.float32)
-        vp = rng.randn(num_pages, PAGE, nh, HD).astype(np.float32)
+        kp = rng.randn(num_pages, PAGE, nh, hd).astype(np.float32)
+        vp = rng.randn(num_pages, PAGE, nh, hd).astype(np.float32)
         ks = vs = None
     ctx = np.array([13, 0, 5, 0, 11][:b], np.int32)
     qlens = np.array([1, 0, chunk, max(chunk - 1, 1), max(chunk // 2, 1)][:b],
@@ -100,7 +102,7 @@ def _geometry(rng, b=5, chunk=4, pps=4, kv_quant=False):
         need = -(-int(ctx[i] + qlens[i]) // PAGE) if qlens[i] else 0
         for j in range(need):
             pt[i, j] = next(used)
-    xb = rng.randn(b, chunk, H).astype(np.float32)
+    xb = rng.randn(b, chunk, nh * hd).astype(np.float32)
     return xb, (kp, vp, ks, vs), pt, ctx, qlens
 
 
@@ -144,18 +146,28 @@ def _run_attn(p_j, p_t, geom, head_major=False, fuse_epilogue=True):
     return ref, got
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 3, 4])
-@pytest.mark.parametrize("quant,group,kv_quant", [
-    (None, -1, False),
-    ("int8", -1, False),        # per-channel weight scales
-    ("int8", 16, False),        # two groups over h
-    (None, -1, True),           # int8 KV pools, fp weights
-    ("int8", 16, True),         # int8 weights and int8 KV
-])
-def test_attn_twin_matches_jax_reference(chunk, quant, group, kv_quant):
-    rng = np.random.RandomState(100 + chunk)
-    p_j, p_t = _layer(rng, quant, group)
-    geom = _geometry(rng, chunk=chunk, kv_quant=kv_quant)
+# (chunk, weights, group, int8 KV, head_dim): every weight / KV format at
+# head_dim 8 and chunks 1-4; a decode chunk and an int8 chunk at the head
+# dims the CUDA kernel is built for (gpt3-tiny 32, 64, gpt3-2.7b 80,
+# gpt3-760m 96)
+ATTN_CASES = [(chunk, quant, group, kv, HD)
+              for chunk in (1, 2, 3, 4)
+              for quant, group, kv in (
+                  (None, -1, False),
+                  ("int8", -1, False),        # per-channel weight scales
+                  ("int8", 16, False),        # two groups over h
+                  (None, -1, True),           # int8 KV pools, fp weights
+                  ("int8", 16, True))] + [    # int8 weights and int8 KV
+    (chunk, quant, group, kv, d) for d in (32, 64, 80, 96)
+    for chunk, quant, group, kv in ((1, None, -1, False),
+                                    (3, "int8", 16, True))]
+
+
+@pytest.mark.parametrize("chunk,quant,group,kv_quant,d", ATTN_CASES)
+def test_attn_twin_matches_jax_reference(chunk, quant, group, kv_quant, d):
+    rng = np.random.RandomState(100 + chunk + (d if d != HD else 0))
+    p_j, p_t = _layer(rng, quant, group, hd=d)
+    geom = _geometry(rng, chunk=chunk, kv_quant=kv_quant, hd=d)
     ref, got = _run_attn(p_j, p_t, geom)
     assert len(got) == len(ref) == (6 if kv_quant else 4)
     qlens = geom[4]
@@ -450,16 +462,25 @@ def test_mega_sampled_churn_matches_per_op():
 
 def test_mega_unbuilt_head_dim_fails_at_construction(monkeypatch):
     """On a CUDA device a mega build refuses a head dim the mega kernels are
-    not built for when it is built, naming the dim and the roadmap item;
-    on the CPU (the plain versions) it builds, and a built head dim builds
-    on CUDA too. The predictor refuses before any weight moves."""
+    not built for when it is built, naming the dim and the built ones; on
+    the CPU (the plain versions) it builds, and every built head dim (32,
+    64, 80, 96, 128: gpt3-tiny's to gpt3-2.7b's) builds on CUDA too. The
+    predictor refuses before any weight moves."""
     cfg = tgpt.GPTConfig(**TINY)                       # head_dim 8
-    with pytest.raises(NotImplementedError, match="got 8.*queue 2 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match=r"built for head_dim in \(32, 64, 80, 96, 128\),"
+                             r" got 8 .*mega_decode=False"):
         tgpt.build_unified_step(cfg, 8, 4, mega=True, device="cuda")
     assert tgpt.build_unified_step(cfg, 8, 4, mega=True, device="cpu").mega
     assert tgpt.build_unified_step(cfg, 8, 4, device="cuda")       # per-op
-    d64 = tgpt.GPTConfig(**dict(TINY, hidden_size=128, num_heads=2))
-    assert tgpt.build_unified_step(d64, 8, 4, mega=True, device="cuda").mega
+    for d in tmega.HEAD_DIMS:
+        built = tgpt.GPTConfig(**dict(TINY, hidden_size=2 * d, num_heads=2))
+        assert built.head_dim == d
+        assert tgpt.build_unified_step(built, 8, 4, mega=True,
+                                       device="cuda").mega
+    wide = tgpt.GPTConfig(**dict(TINY, hidden_size=512, num_heads=2))
+    with pytest.raises(NotImplementedError, match="got 256"):
+        tgpt.build_unified_step(wide, 8, 4, mega=True, device="cuda")
     _, tm = _pair(mega_decode=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(NotImplementedError, match="head_dim"):
@@ -480,3 +501,100 @@ def test_mega_config_flag_and_int4_rejection():
     with pytest.raises(ValueError, match="int4"):
         tgpt.build_unified_step(tgpt.GPTConfig(**TINY, weight_dtype="int4"),
                                 8, 4, mega=True)
+
+
+# -- the attention kernel's split walk, written out in torch ----------------
+
+
+def mega_split_twin(xb, p, kp, vp, pt, ctx, qlens, pages, ks=None, vs=None,
+                    eps=1e-5):
+    """The mega attention kernel's algorithm in torch (fp32): LN1 and Q /
+    K / V of every new row (the producers' work), then per (lane, head) a
+    causal split (the block over the lane's new rows, with int8 pools
+    their quantize-dequantize image) and page splits of ``pages`` pages over the pool keys below the context
+    (every new row sees all of them), each an online softmax over tiles of
+    32 keys, merged in split order; then the heads' output projections
+    summed in head order, the residual + bo and LN2. Returns (y2, s)."""
+    from test_torch_paged_attention import _merge, _tile_walk
+
+    b, chunk, h = xb.shape
+    num_pages, ps, nh, hd = kp.shape
+    pps = pt.shape[1]
+    y1 = tmega._ln_f32(xb, p["ln1_g"], p["ln1_b"], eps)
+    q4 = (tmega._mm(y1, p["wqkv"]) + p["bqkv"]).reshape(b, chunk, 3, nh, hd)
+    q, kn, vn = q4[:, :, 0], q4[:, :, 1], q4[:, :, 2]
+    if ks is not None:
+        (kq, ksc), (vq, vsc) = (tkv.quantize_kv_rows(t) for t in (kn, vn))
+        kn, vn = kq.float() * ksc[..., None], vq.float() * vsc[..., None]
+    wo = p["wo"]
+    if isinstance(wo, dict):
+        wo = tmega.dequantize_weight(wo["q"], wo["s"])
+    scale = 1.0 / np.sqrt(hd)
+    y = torch.zeros(b, chunk, h)
+    for i in range(b):
+        ql, c = int(qlens[i]), min(int(ctx[i]), pps * ps)
+        for n in range(nh):
+            if ql == 0:
+                continue
+            qr = q[i, :ql, n]
+            parts = [_tile_walk(qr, kn[i, :ql, n], vn[i, :ql, n], 0,
+                                torch.arange(ql) + 1, scale)]
+            for z in range(-(-pps // pages)):
+                k0, k1 = z * pages * ps, min(c, (z + 1) * pages * ps)
+                if k1 <= k0:
+                    parts.append(None)
+                    continue
+                keys = torch.arange(k0, k1)
+                page = pt[i, keys // ps].long().clamp(0, num_pages - 1)
+                kk, vv = (t[page, keys % ps, n].float() for t in (kp, vp))
+                if ks is not None:
+                    kk = kk * ks[page, keys % ps, n][:, None]
+                    vv = vv * vs[page, keys % ps, n][:, None]
+                parts.append(_tile_walk(qr, kk, vv, k0,
+                                        torch.full((ql,), c), scale))
+            y[i, :ql] += _merge(parts) @ wo[n * hd:(n + 1) * hd]
+    s = xb + y + p["bo"]
+    return tmega._ln_f32(s, p["ln2_g"], p["ln2_b"], eps), s
+
+
+@pytest.mark.parametrize("pages", [1, 2, 3])
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("d,quant,group", [(8, None, -1), (32, "int8", 16)])
+def test_mega_split_twin_matches_jax_reference(d, quant, group, kv_quant,
+                                               pages):
+    """The kernel's split-and-merge walk (a causal split over the new
+    rows, page splits in order, empty splits past the context, contexts
+    ending mid-page, an idle lane, a first chunk on ctx 0) computes the
+    reference's function: y2 and s at fp32 1e-5."""
+    rng = np.random.RandomState(300 + pages + d)
+    p_j, p_t = _layer(rng, quant, group, hd=d)
+    geom = _geometry(rng, chunk=3, kv_quant=kv_quant, hd=d)
+    ref, _ = _run_attn(p_j, p_t, geom)
+    xb, (kp, vp, ks, vs), pt, ctx, qlens = geom
+    got = mega_split_twin(_jt(xb), p_t, _jt(kp), _jt(vp), _jt(pt), ctx,
+                          qlens, pages, _jt(ks), _jt(vs))
+    for r, g in zip(ref[:2], got):
+        _assert_valid_rows(g.numpy(), r, qlens)
+
+
+def test_mega_plan_fills_the_card_at_a_decode_round():
+    """GPT-125M's decode round (8 lanes, 12 heads, a 1,024-token table):
+    the causal splits plus the page splits fill at least one wave of the
+    H100's 132 SMs (one block a (lane, head) gave 96), every page is walked
+    by one split, the QKV producers take lanes up to 16 rows (one lane of
+    16, all 8 of one), and the plan reads shapes only."""
+    for kv_elt in (4, 2, 1):
+        for chunk, group in ((16, 1), (1, 8)):
+            plan = tmega.mega_plan(8, 12, 16, 64, 64, chunk, kv_elt, 132)
+            assert plan.splits > 1 and plan.group == group
+            assert 8 * 12 * (1 + plan.splits) / 132 >= 1
+            assert (plan.splits - 1) * plan.pages < 16 \
+                <= plan.splits * plan.pages
+            assert plan.blocks == 3 * (8 // group) * 12 \
+                + 8 * 12 * (1 + plan.splits)
+            assert plan == tmega.mega_plan(8, 12, 16, 64, 64, chunk, kv_elt,
+                                           132)
+    # producers take whole lanes, one at least, none past the batch
+    assert tmega.mega_plan(3, 4, 8, 16, 64, 1, 4, 132).group == 3
+    assert tmega.mega_plan(8, 4, 8, 16, 64, 4, 4, 132).group == 4
+    assert tmega.mega_plan(8, 4, 8, 16, 64, 64, 4, 132).group == 1
