@@ -4,6 +4,7 @@
     python3 chip_smoke.py --moe-forward [ROOT]
     python3 chip_smoke.py --fused-gelu [ROOT]
     python3 chip_smoke.py --paged-walks [ROOT]
+    python3 chip_smoke.py --mlp-gemms [ROOT]
 
 from the root of a checkout. The second form runs only phase 11's bf16
 MoE full forward, with the package of the checkout at ROOT (default: this
@@ -16,8 +17,13 @@ package, and prints one JSON line. The fourth times rows 1 and 13 (the
 ragged and mega attention kernels) at the table shapes and GPT-125M's
 decode round and rows 4 and 14 (controls) at the table shapes, then the
 bf16 per-op and mega serving steps (wall and profiled device busy), with
-ROOT's package, and prints one JSON line. Phases (each failure ends the
-run non-zero):
+ROOT's package, and prints one JSON line. The fifth times rows 14 and 9
+(the mega MLP at a served round, a decode round and the dense block; the
+int8 weight-only GEMM's four serving GEMMs) beside the controls (rows 10,
+11 and 13) and the tensor-core route's other K splits, then the bf16 mega
+and int8 per-op serving steps (wall and profiled device busy), with ROOT's
+package, and prints one JSON line. Phases (each failure ends the run
+non-zero):
 
 1. device: the card's name and power limit;
 2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
@@ -69,14 +75,19 @@ run non-zero):
    versions at the four serving shapes [24, K] x [K, N] and an odd shape,
    fp32 and bf16, with kernel / plain / bound times, ``_weight_int8pack_mm``
    as the int8 yardstick where the card's torch has it, and cuBLAS on a
-   pre-dequantized weight logged beside them; the ragged kernel's int8-KV
+   pre-dequantized weight logged beside them; the int8 forward at the
+   serving shapes must take the tensor-core route (one ``tc_launches``
+   each, none at the odd shape or for int4), every forward launched twice
+   and bitwise equal, and the int8 four GEMMs are timed at a decode round
+   (M 8) too; the ragged kernel's int8-KV
    branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
    (a) int8 weights, (b) int4 weights in groups of 128, (c) int8 weights
    and an int8 KV cache, the phase-6 requests in fp32: every greedy token
    and its logits row against a plain quantized forward over the served
    context (the same quantized params through the plain GEMM; in (c) K
    and V through the int8 write's quantize-dequantize), 12 ragged and 48
-   weight-only GEMM launches per step; the gradient of a loss with respect
+   weight-only GEMM launches per step (with int8 weights all 48 on the
+   tensor-core route, in the fp32 and the bf16 runs); the gradient of a loss with respect
    to the input embeddings through the 12 quantized layers (the backward
    kernels) vs the plain versions; token agreement with phase 6, weight
    and KV bytes, and the bf16 step time of (a) and (c).
@@ -108,8 +119,11 @@ run non-zero):
    768 x 3072) and an odd shape (5 lanes of chunk 3, 4 heads, ffn 640,
    int8 in groups of 64), fp32 and bf16, fp / int8 per channel / int8 g128
    weights, fp / int8 KV, with and without the fused epilogue (int8
-   payloads one step apart counted and held under 1%), with kernel /
-   plain / bound times and the one-layer per-op step on the same inputs;
+   payloads one step apart counted and held under 1%; the MLP dense and
+   on the rows the lanes feed, each launched twice and bitwise equal), with
+   kernel / plain / bound times and the one-layer per-op step on the same
+   inputs; the MLP at ``MLP_ROUNDS`` (a served round of 24 live rows, a
+   decode round of 8, the dense block; fp and int8 g128 weights) timed;
    then ``ServingPredictor(mega_decode=True)`` with the phase-6 requests
    in fp32: (i) fp weights against phase 6's streams and the full-forward
    oracle, (ii) int8 weights and (iii) int8 g128 weights with an int8 KV
@@ -264,6 +278,7 @@ QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 QMM_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "w1": (768, 3072),
               "w2": (3072, 768)}          # GPT-125M's [K, N] projections
 QMM_ROWS = 24                             # the serving token budget
+QMM_DECODE_ROWS = 8                       # a decode round of 8 lanes
 QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 # (label, config fields, logits tolerance). Served logits vs the plain
 # quantized forward in fp32: the GEMMs sum in another order (seen 4.3e-6);
@@ -308,6 +323,12 @@ MEGA_SERVING = ((8, 16, 768, 12, 64, 64, 16, 3072),
 MEGA_ODD = ((5, 3, 256, 4, 64, 16, 4, 640), [0, 3, 2, 1, 3],
             [0, 0, 37, 50, 12])
 MEGA_WEIGHTS = ((None, -1), ("int8", -1), ("int8", 128))
+# the mega MLP's rows at GPT-125M's [8 lanes x chunk 16, 768] block: a
+# served round (24 live rows: one prefill chunk, a two-token chunk, decode
+# rows), a decode round (8 live rows) and the dense block (no q_lens, every
+# row); the kernel computes the live rows and writes zeros in the rest
+MLP_ROUNDS = {"served round": [16, 2, 1, 1, 1, 1, 1, 1],
+              "decode round": [1] * 8, "dense": None}
 MEGA_SERVE = (("i fp", {}, None),
               ("ii int8", dict(weight_dtype="int8"), 1e-4),
               ("iii int8 g128 + int8 KV",
@@ -666,6 +687,7 @@ def reset_counts():
     paged_attention.launches = 0
     for fn in (quant_matmul_fwd, quant_matmul_bwd):
         fn.launches = {"int8": 0, "int4": 0}
+    quant_matmul_fwd.tc_launches = 0
     for fn in (fused_mlp.ln_fwd, fused_mlp.ln_bwd, fused_mlp.gelu_fwd,
                fused_mlp.gelu_bwd):
         fn.launches = 0
@@ -688,6 +710,14 @@ def qmm_counts() -> dict:
     out = dict(quant_matmul_fwd.launches)
     out.update({f"{k}_bwd": v for k, v in quant_matmul_bwd.launches.items()})
     return out
+
+
+def qmm_tc_count() -> int:
+    """Weight-only GEMM forwards on the tensor-core route since
+    :func:`reset_counts`."""
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_fwd
+
+    return quant_matmul_fwd.tc_launches
 
 
 def read_counts():
@@ -945,9 +975,20 @@ def phase_qmm(dev):
                 g = gs if name != "odd" or gs < 0 else 40
                 x, dy, q, sc = qmm_case(m, k, n, wd, g, dtype, dev,
                                         SEED + ci)
+                tc0 = qmm_tc_count()
                 got = quant_matmul_fwd(x, q, sc)
+                tc_route = qmm_tc_count() - tc0
+                again = quant_matmul_fwd(x, q, sc)
                 dx = quant_matmul_bwd(dy, q, sc, k, dtype)
                 torch.cuda.synchronize()
+                if tc_route != (wd == "int8" and name != "odd"):
+                    raise AssertionError(
+                        f"quant_matmul {wd} g{g} {name}: {tc_route} "
+                        "tensor-core launches (the int8 forward at M <= 64 "
+                        "on aligned widths takes that route, nothing else)")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"quant_matmul {wd} g{g} {dtype} "
+                                         f"{name}: a second launch differs")
                 want = quant_matmul_reference(x, q, sc)
                 want_dx = quant_matmul_dx_reference(dy, q, sc, k, dtype)
                 held = []
@@ -989,7 +1030,8 @@ def phase_qmm(dev):
                     tot[key] = None if v is None or tot[key] is None \
                         else tot[key] + v
                 log(f"[quant] qmm {wd} g{g} {str(dtype)[6:]} {name} [{m}, {k}]"
-                    f" x [{k}, {n}]: held fwd {held[0]:.3e}, dx "
+                    f" x [{k}, {n}] ({'tensor cores' if tc_route else 'CUDA cores'}"
+                    f" route, repeat bitwise equal): held fwd {held[0]:.3e}, dx "
                     f"{held[1]:.3e}; kernel {t['ms']:.4f} ms (dx "
                     f"{t['bwd_ms']:.4f}), plain {t['plain_ms']:.4f} (dx "
                     f"{t['bwd_plain_ms']:.4f}), bound {t['bound_ms']:.4f} "
@@ -997,6 +1039,8 @@ def phase_qmm(dev):
                     f"on the pre-dequantized weight (the fp product this "
                     f"replaces) {t['cublas_ms']:.4f}, library "
                     + (f"{lib:.4f}" if lib is not None else "null"))
+            if wd == "int8":
+                tot.update(qmm_decode(wd, gs, dtype, dev))
             tot["bound_by"] = ("bytes" if work[0] / HBM_BYTES_PER_S
                                >= work[1] / PEAK_OPS[dtype] else "operations")
             tot["max_abs_err"], tot["bwd_max_abs_err"] = errs
@@ -1012,6 +1056,37 @@ def phase_qmm(dev):
                    if tot["library_ms"] is not None else
                    f"null ({lib_note or 'no PyTorch call computes it'})"))
     return stats
+
+
+def qmm_decode(wd, gs, dtype, dev):
+    """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
+    tokens) on the tensor-core route: held as phase 8 holds them, the
+    summed kernel time and bound."""
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_fwd,
+                                                   quant_matmul_reference)
+
+    ms, work = 0.0, [0.0, 0.0]
+    for ci, (k, n) in enumerate(QMM_SHAPES.values()):
+        x, _, q, sc = qmm_case(QMM_DECODE_ROWS, k, n, wd, gs, dtype, dev,
+                               SEED + 10 + ci)
+        got = quant_matmul_fwd(x, q, sc)
+        want = quant_matmul_reference(x, q, sc)
+        err, held = kernel_error(got, want, dtype)
+        if dtype == torch.float32:
+            held = err / want.abs().max().item()
+        if not held <= QMM_TOL[dtype]:
+            raise AssertionError(f"quant_matmul {wd} g{gs} {dtype} decode "
+                                 f"[{QMM_DECODE_ROWS}, {k}] x [{k}, {n}]: "
+                                 f"held error {held} > {QMM_TOL[dtype]}")
+        ms += time_ms(lambda: quant_matmul_fwd(x, q, sc))
+        nbytes, nops = qmm_work(QMM_DECODE_ROWS, k, n, 8, sc.shape[0],
+                                x.element_size())
+        work = [work[0] + nbytes, work[1] + nops]
+    out = dict(decode_ms=ms, decode_bound_ms=bound_ms(*work, dtype))
+    log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
+        f"{QMM_DECODE_ROWS} (a decode round, tensor-core route): kernel "
+        f"{ms:.4f} ms, bound {out['decode_bound_ms']:.4f} ms")
+    return out
 
 
 def phase_ragged_int8(dev):
@@ -1217,21 +1292,25 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ragged_n, counts = read_counts()[1], qmm_counts()
+        tc_n = qmm_tc_count()
         tel, steps = sp.telemetry(), sp.steps
         bits = quant["weight_dtype"]
         kv_int8 = quant.get("kv_cache_dtype") == "int8"
         outs = [list(r.output_ids) for r in reqs]
         streams[label] = outs
         log(f"[quant] serve ({label}) fp32: {steps} steps, ragged launches "
-            f"{ragged_n}, weight-only GEMM launches {counts}, prefix-hit "
+            f"{ragged_n}, weight-only GEMM launches {counts} ({tc_n} on the "
+            f"tensor-core route), prefix-hit "
             f"tokens {tel['kv_prefix_hit_tokens']:.0f}, CoW copies "
             f"{tel['kv_cow_copies']:.0f}, KV pool {sp.cache.k_pool.dtype}, "
             f"{wall:.3f} s wall")
         others = sum(v for k, v in counts.items() if k != bits)
         if (ragged_n != steps * cfg.num_layers or steps == 0
-                or counts[bits] != 4 * steps * cfg.num_layers or others):
+                or counts[bits] != 4 * steps * cfg.num_layers or others
+                or tc_n != (counts[bits] if bits == "int8" else 0)):
             raise AssertionError(f"({label}) launches: ragged {ragged_n}, "
-                                 f"GEMM {counts} over {steps} steps")
+                                 f"GEMM {counts} ({tc_n} tensor-core) over "
+                                 f"{steps} steps")
         if tel["kv_cow_copies"] < 1 or tel["kv_prefix_hit_tokens"] < 1:
             raise AssertionError(f"({label}) no prefix hit or CoW copy")
         if kv_int8 != (sp.cache.k_pool.dtype == torch.int8):
@@ -1262,7 +1341,8 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
         f"{kv['c int8 + int8 KV'] / 1e6:.2f} MB")
     del preds
     for label, quant, _ in (QUANT_SERVE[0], QUANT_SERVE[2]):
-        walls = []
+        walls, steps16 = [], 0
+        reset_counts()
         for run in range(1 + BF16_RUNS):
             sp16 = quant_predictor(model, cfg, quant, dev,
                                    dtype=torch.bfloat16)
@@ -1272,16 +1352,23 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
             torch.cuda.synchronize()
             if run:
                 walls.append(time.perf_counter() - t0)
+            steps16 += sp16.steps
         ntok = sum(map(len, outs16))
         if ntok != MAX_NEW * len(outs16):
             raise AssertionError(f"bf16 ({label}) malformed streams")
+        if qmm_tc_count() != 4 * cfg.num_layers * steps16:
+            raise AssertionError(f"bf16 ({label}): {qmm_tc_count()} "
+                                 "tensor-core GEMM launches over "
+                                 f"{steps16} steps")
         wall = sorted(walls)[len(walls) // 2]
         log(f"[quant] serve ({label}) bf16: {ntok} tokens, {sp16.steps} steps"
             f" per run; median of {BF16_RUNS} runs {wall:.3f} s = "
             f"{ntok / wall:.1f} tokens/s, mean step "
             f"{1e3 * wall / sp16.steps:.3f} ms (fp bf16 step of phase 6: "
             f"{fp16_step_ms:.3f} ms; runs: "
-            f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
+            f"{', '.join(f'{w:.3f}' for w in walls)} s; "
+            f"{qmm_tc_count()} tensor-core GEMM launches = 48 a step) "
+            f"({card})")
     return launches, streams
 
 
@@ -1411,15 +1498,20 @@ def mega_attn_work(args, fuse):
     return nbytes, float(nops)
 
 
-def mega_mlp_work(y2, p, fuse):
+def mega_mlp_work(y2, p, fuse, live=None):
+    """(bytes, ops) of one MLP call: y2 (and s_res) read on the ``live``
+    rows (all when None), both weights (int8 with their scales) and biases
+    read once, every output row written once; 4 live h f operations."""
     t, h = y2.shape
+    live = t if live is None else live
     elt = y2.element_size()
     f = p["b1"].shape[0]
     w = sum((p[k]["q"].numel() + 4 * p[k]["s"].numel())
             if isinstance(p[k], dict) else p[k].numel() * elt
             for k in ("w1", "w2"))
-    nbytes = t * h * elt * (3 if fuse else 2) + w + (f + h) * elt
-    return nbytes, 4.0 * t * h * f
+    nbytes = (live * h * elt * (2 if fuse else 1) + t * h * elt + w
+              + (f + h) * elt)
+    return nbytes, 4.0 * live * h * f
 
 
 def one_layer_step(case, p, pools, pt, ctx, q_lens, mega):
@@ -1497,20 +1589,31 @@ def phase_mega_kernels(dev, card):
                             f"mega attention {label} fuse {fuse}")
                         errs.append(err)
                         flips.append(f"{n}/{total}")
-                        got = mega_mlp(y2, s_res if fuse else None, p,
-                                       fuse_epilogue=fuse)
-                        torch.cuda.synchronize()
-                        want = mega_mlp_reference(y2, s_res, p,
-                                                  fuse_epilogue=fuse)
-                        err, held, tol = mega_held(got, want, None, dtype, 0)
-                        if not held <= tol:
-                            raise AssertionError(
-                                f"mega MLP {label} fuse {fuse}: error {held}"
-                                f" > {tol} (max abs {err})")
+                        err = 0.0
+                        for ql in (None, q_lens):   # dense, then live rows
+                            kw = dict(fuse_epilogue=fuse, q_lens=ql,
+                                      chunk=case[0][1])
+                            got = mega_mlp(y2, s_res if fuse else None, p,
+                                           **kw)
+                            again = mega_mlp(y2, s_res if fuse else None, p,
+                                             **kw)
+                            torch.cuda.synchronize()
+                            want = mega_mlp_reference(y2, s_res, p, **kw)
+                            e, held, tol = mega_held(got, want, None, dtype,
+                                                     0)
+                            if not held <= tol or not torch.equal(got,
+                                                                  again):
+                                raise AssertionError(
+                                    f"mega MLP {label} fuse {fuse} q_lens "
+                                    f"{ql is not None}: error {held} > {tol}"
+                                    f" (max abs {e}) or a second launch "
+                                    "differs")
+                            err = max(err, e)
                         errs.append(err)
                     log(f"[mega] {label}: attention max_abs_err fused "
                         f"{errs[0]:.3e} / partial {errs[2]:.3e} (int8 "
                         f"payloads one step off: {', '.join(flips)}), MLP "
+                        f"(dense and live rows, repeats bitwise equal) "
                         f"{errs[1]:.3e} / {errs[3]:.3e} (tol "
                         f"{MEGA_TOL[dtype]}; {MEGA_KV_TOL} fp32 after a "
                         "payload flip)")
@@ -1521,6 +1624,55 @@ def phase_mega_kernels(dev, card):
                     stats[(wd, kv_int8, dtype)] = mega_times(
                         case, args, (y2, s_res), max(errs[0], errs[2]),
                         max(errs[1], errs[3]), dtype, label, card)
+    return stats
+
+
+def phase_mlp_rounds(dev, card):
+    """The mega MLP on GPT-125M's lane block at ``MLP_ROUNDS`` (a served
+    round, a decode round, the dense block), fp32 and bf16, fp and int8 g128
+    weights: against its plain version (``MEGA_TOL``, zeros in the rows no
+    lane feeds), a second launch bitwise equal, kernel / plain / bound
+    times."""
+    from paddle_tpu_torch.ops.mega_decode import mega_mlp, mega_mlp_reference
+
+    stats = {}
+    chunk = MEGA_SERVING[0][1]
+    for dtype in (torch.float32, torch.bfloat16):
+        for wd, gs in ((None, -1), ("int8", 128)):
+            args, (y2, s_res) = mega_inputs(MEGA_SERVING, wd, gs, False,
+                                            dtype, dev)
+            p = args[1]
+            for rname, ql in MLP_ROUNDS.items():
+                q_lens = None if ql is None else torch.tensor(
+                    ql, dtype=torch.int32, device=dev)
+                kw = dict(q_lens=q_lens, chunk=chunk)
+                got = mega_mlp(y2, s_res, p, **kw)
+                again = mega_mlp(y2, s_res, p, **kw)
+                torch.cuda.synchronize()
+                want = mega_mlp_reference(y2, s_res, p, **kw)
+                err, held, tol = mega_held(got, want, None, dtype, 0)
+                label = (f"{rname} {str(dtype)[6:]} weights "
+                         f"{wd or 'fp'}{'' if gs < 0 else f' g{gs}'}")
+                if not held <= tol or not torch.equal(got, again):
+                    raise AssertionError(f"mega MLP {label}: error {held} > "
+                                         f"{tol} or a second launch differs")
+                live = None if ql is None else sum(ql)
+                nbytes, nops = mega_mlp_work(y2, p, True, live)
+                st = dict(max_abs_err=err,
+                          ms=time_ms(lambda: mega_mlp(y2, s_res, p, **kw)),
+                          plain_ms=time_ms(lambda: mega_mlp_reference(
+                              y2, s_res, p, **kw), iters=5),
+                          bound_ms=bound_ms(nbytes, nops, dtype),
+                          bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                          >= nops / PEAK_OPS[dtype] else "operations",
+                          library_ms=None, mb=nbytes / 1e6,
+                          rows=live or y2.shape[0])
+                stats[(rname, wd, dtype)] = st
+                log(f"[mega] MLP {label} ({st['rows']} live rows of "
+                    f"{y2.shape[0]}): max_abs_err {err:.3e} (tol {tol}), "
+                    f"repeat bitwise equal; kernel {st['ms']:.4f} ms, plain "
+                    f"{st['plain_ms']:.4f}, bound {st['bound_ms']:.6f} "
+                    f"({st['bound_by']}: {st['mb']:.2f} MB) ({card})")
     return stats
 
 
@@ -1603,7 +1755,7 @@ def profile_run(fn, card, tag, what):
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
               "paged decode kernel": ("paged_decode",),
-              "weight-only GEMM": ("qmm_kernel",),
+              "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel"),
               "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
                                "gmm_wg_kernel"),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
@@ -3979,6 +4131,118 @@ def paged_walks_only(root: Path) -> int:
     return 0
 
 
+def qmm_four(bits, gs, dtype, dev, m=QMM_ROWS, bwd=False):
+    """Summed kernel and bound times of one layer's four serving GEMMs
+    (forward, or dx with ``bwd``) at ``m`` tokens."""
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
+                                                   quant_matmul_fwd)
+
+    ms, work = 0.0, [0.0, 0.0]
+    for ci, (k, n) in enumerate(QMM_SHAPES.values()):
+        x, dy, q, sc = qmm_case(m, k, n, f"int{bits}", gs, dtype, dev,
+                                SEED + ci)
+        if bwd:
+            ms += time_ms(lambda: quant_matmul_bwd(dy, q, sc, k, dtype))
+        else:
+            ms += time_ms(lambda: quant_matmul_fwd(x, q, sc))
+        nbytes, nops = qmm_work(m, k, n, bits, sc.shape[0], x.element_size())
+        work = [work[0] + nbytes, work[1] + nops]
+    return dict(ms=ms, bound_ms=bound_ms(*work, dtype))
+
+
+def mlp_gemms_only(root: Path) -> int:
+    """``--mlp-gemms [ROOT]``: rows 14 and 9 (the mega MLP at
+    ``MLP_ROUNDS``, fp and int8 g128 weights; the int8 weight-only GEMM's
+    four serving GEMMs at M 24 and 8) and the controls (row 10: the int4
+    forward, row 11: the int8 dx, row 13: the mega attention kernel at the
+    table shape), fp32 and bf16, with the ``paddle_tpu_torch`` package of
+    the checkout at ``ROOT`` (default: this one; a package whose
+    ``mega_mlp`` takes no ``q_lens`` computes every row at each round);
+    then the bf16 mega step and the bf16 int8-weight per-op step of GPT-125M
+    (wall, one profiled run each: device busy); prints one JSON line. Run it
+    with two trees in turns to compare them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops.mega_decode import mega_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    takes_q = "q_lens" in inspect.signature(mega_mlp).parameters
+    chunk = MEGA_SERVING[0][1]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        for wd, gs in ((None, -1), ("int8", 128)):
+            args, (y2, s_res) = mega_inputs(MEGA_SERVING, wd, gs, False,
+                                            dtype, dev)
+            p = args[1]
+            for rname, ql in MLP_ROUNDS.items():
+                kw = {}
+                if ql is not None and takes_q:
+                    kw = dict(q_lens=torch.tensor(ql, dtype=torch.int32,
+                                                  device=dev), chunk=chunk)
+                nbytes, nops = mega_mlp_work(y2, p, True,
+                                             None if ql is None else sum(ql))
+                rows[f"14 {rname} {wd or 'fp'} {t}"] = dict(
+                    ms=time_ms(lambda: mega_mlp(y2, s_res, p, **kw)),
+                    bound_ms=bound_ms(nbytes, nops, dtype))
+            if wd is None:
+                rows[f"13 table fp {t}"] = {
+                    k: v for k, v in mega_case(args, dtype, "table").items()
+                    if k in ("ms", "bound_ms")}
+        rows[f"9 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(8, -1, dtype, dev)
+        rows[f"9 four GEMMs M {QMM_DECODE_ROWS} {t}"] = qmm_four(
+            8, -1, dtype, dev, m=QMM_DECODE_ROWS)
+        rows[f"9 g128 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(8, 128, dtype,
+                                                              dev)
+        rows[f"10 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(4, 128, dtype,
+                                                          dev)
+        rows[f"11 four dx M {QMM_ROWS} {t}"] = qmm_four(8, -1, dtype, dev,
+                                                       bwd=True)
+    for label, st in rows.items():
+        log(f"[mlp-gemms] row {label}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in st.items()) + f" ({card})")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    early, late = requests(cfg)
+    steps = {}
+    for name, quant, mega in (("mega", {}, True),
+                              ("int8 per-op", dict(weight_dtype="int8"),
+                               False)):
+        walls = []
+        for run in range(3):
+            sp = quant_predictor(model, cfg, quant, dev,
+                                 dtype=torch.bfloat16, mega_decode=mega)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(sp, early, late)
+            torch.cuda.synchronize()
+            if run:
+                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+        sp = quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
+                             mega_decode=mega)
+        prof = profile_serve(sp, early, late, card, f"[mlp-gemms] {name}")
+        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        groups = None if prof is None else {
+            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            prof[0].items() if us}
+        steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
+                           groups_ms_per_step=groups, steps=sp.steps)
+        log(f"[mlp-gemms] serve {name} bf16: mean step "
+            + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
+            + ("not measured" if busy is None else f"{busy:.4f} ms")
+            + f" a step ({sp.steps} steps; {card})")
+    print(json.dumps({"mlp_gemms": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, serve=steps)}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -4137,13 +4401,14 @@ def main() -> int:
     root = ROOT
     modes = {"--moe-forward": moe_forward_only,
              "--fused-gelu": fused_gelu_only,
-             "--paged-walks": paged_walks_only}
+             "--paged-walks": paged_walks_only,
+             "--mlp-gemms": mlp_gemms_only}
     if args[:1] and args[0] in modes and len(args) <= 2:
         root = Path(args[1]).resolve() if len(args) == 2 else ROOT
     elif args:
         print(f"chip_smoke: unknown arguments {args} (none, "
-              "--moe-forward [ROOT], --fused-gelu [ROOT] or --paged-walks "
-              "[ROOT])", file=sys.stderr)
+              "--moe-forward [ROOT], --fused-gelu [ROOT], --paged-walks "
+              "[ROOT] or --mlp-gemms [ROOT])", file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
@@ -4227,6 +4492,7 @@ def main() -> int:
 
     # 10. mega-kernel serving, while GPT-125M is on the card
     mega = phase_mega_kernels(dev, card)
+    mlp_rounds = phase_mlp_rounds(dev, card)
     mega_walks = phase_mega_walks(dev)
     mega_launches = phase_mega_serve(model, cfg, dev, card, fp_outs,
                                      quant_streams)
@@ -4319,9 +4585,11 @@ def main() -> int:
                   zip(FUSED_KINDS, (105, 128, 281, 293)))),
             *((f"mega_{part}", "paddle_tpu_torch/csrc/mega_decode.cu",
                f"paddle_tpu/ops/pallas/mega_decode.py:{line}",
-               mega_launches[i], mega[(None, False, torch.float32)][part])
-              for i, (part, line) in enumerate((("attn", 224),
-                                                ("mlp", 677)))),
+               mega_launches[i], st)
+              for i, (part, line, st) in enumerate((
+                  ("attn", 224, mega[(None, False, torch.float32)]["attn"]),
+                  ("mlp", 677, mlp_rounds[("served round", None,
+                                           torch.float32)])))),
             *((f"grouped_matmul_{name}",
                "paddle_tpu_torch/csrc/grouped_matmul.cu",
                f"paddle_tpu/ops/pallas/grouped_matmul.py:{line}", n,
@@ -4390,7 +4658,7 @@ def main() -> int:
                 for t in (torch.float32, bf16) for v in variants}
     fp32, b16 = (mega[(None, False, t)] for t in (torch.float32, bf16))
     q8 = mega[("int8", True, bf16)]
-    for part in ("attn", "mlp"):
+    for part in ("attn",):
         row_of[f"mega_{part}"]["note"] = (
             f"fp32, fp weights and KV, at the serving shapes; bf16: ms "
             f"{b16[part]['ms']:.4f}, plain_ms {b16[part]['plain_ms']:.4f}, "
@@ -4408,6 +4676,39 @@ def main() -> int:
                 + "; " if part == "attn" else "")
             + "launches: phase 10's three fp32 served runs and the "
             + f"{' / '.join(MEGA_WIDE)} runs (2 a step)")
+    dense = mlp_rounds[("dense", None, torch.float32)]
+    row_of["mega_mlp"]["dense"] = dict(   # every row of the lane block
+        shape=[MEGA_SERVING[0][0] * MEGA_SERVING[0][1], MEGA_SERVING[0][2]],
+        dtype="fp32", **{k: dense[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+    row_of["mega_mlp"]["note"] = (
+        f"fp32, fp weights, at the served round (q_lens "
+        f"{MLP_ROUNDS['served round']} of chunk {MEGA_SERVING[0][1]}: 24 live "
+        "rows of 128; the others written as zeros); dense: every row of the "
+        "block, the shape this row measured before; " + "; ".join(
+            f"{r} {str(t)[6:]} {wd or 'fp'}{'' if wd is None else ' g128'}: "
+            f"ms {st['ms']:.4f}, plain_ms {st['plain_ms']:.4f}, bound_ms "
+            f"{st['bound_ms']:.6f}"
+            for (r, wd, t), st in mlp_rounds.items()
+            if (r, wd, t) != ("served round", None, torch.float32))
+        + f"; one mega layer vs the per-op layer it replaces (phase 10's "
+        f"serving lanes): fp32 {fp32['layer_ms']:.4f} vs "
+        f"{fp32['per_op_layer_ms']:.4f} ms, bf16 {b16['layer_ms']:.4f} vs "
+        f"{b16['per_op_layer_ms']:.4f} ms; launches: phase 10's three fp32 "
+        f"served runs and the {' / '.join(MEGA_WIDE)} runs (2 a step)")
+    q8r = qmm[("int8", -1, bf16)]
+    row_of["quant_matmul_int8"]["note"] = (
+        "bf16, the sum of one layer's four GEMMs at M "
+        f"{QMM_ROWS} on the tensor-core route (qmm_tc_kernel); cuBLAS on "
+        f"the pre-dequantized weight (the fp product it replaces, reading "
+        f"twice the bytes): {q8r['cublas_ms']:.4f} ms; at M "
+        f"{QMM_DECODE_ROWS}: ms {q8r['decode_ms']:.4f}, bound_ms "
+        f"{q8r['decode_bound_ms']:.6f}; fp32: ms "
+        f"{qmm[('int8', -1, torch.float32)]['ms']:.4f}, bound_ms "
+        f"{qmm[('int8', -1, torch.float32)]['bound_ms']:.6f}; int8 g128 "
+        f"bf16: ms {qmm[('int8', 128, bf16)]['ms']:.4f}; launches: phase 8's "
+        "fp32 served runs (a) and (c), all on the tensor-core route")
     for name, kname, label in (
             ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
             ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),

@@ -10,14 +10,18 @@ ticket: QKV producers at their start, LN1's statistics, the product and
 the published rows; consumers (lane, head, split) at their start, the end
 of their wait for the producers, the end of the causal block or the page
 walk, the arrival, the merge of the last split, the output projection
-with the slab sums, and LN2 in the lane's last slab; MLP blocks at GEMM1,
-GELU, GEMM2 and the ffn-tile sums. It runs both kernels once at
+with the slab sums, and LN2 in the lane's last slab; MLP blocks by ticket
+too: GEMM1 producers at their start, the end of their product and the
+published hidden columns; GEMM2 consumers at their start, the end of
+their wait for the split's producers, the end of their product, and (the
+last split of an h tile) the split sums. It runs both kernels once at
 ``chip_smoke.py``'s phase-10 serving shapes and at its decode round (fp32
 and bf16; fp weights and KV, then int8 g128 weights with an int8 KV cache
 at the serving shapes) and prints each lane's stage times in
 microseconds: its producers' (mean over heads), the causal splits' and
 the longest page split's, and the merging blocks' (longest over the
-heads). The stamps cost a few percent; the graph-timed kernel times
+heads); and the MLP's stages (mean and longest over the blocks of each
+role), with the MLP given the lanes' q_lens (the step's call). The stamps cost a few percent; the graph-timed kernel times
 printed beside them come from the unstamped kernels of the package. The
 instrumented copy is never loaded by the package itself.
 """
@@ -47,8 +51,11 @@ __device__ __forceinline__ unsigned long long gtime() {
   g_stamps[g_slot * 16 + (i)] = gtime(); \\
 } while (0)
 #define STAMP_M(i) do { if (threadIdx.x == 0 && g_stamps) \\
-  atomicMax(g_stamps + STAMP_BASE_MLP + \\
-            (blockIdx.y * gridDim.x + blockIdx.x) * 16 + (i), gtime()); \\
+  g_stamps[STAMP_BASE_MLP + g_slot * 16 + (i)] = gtime(); \\
+} while (0)
+#define STAMP_M1(i) do { if (threadIdx.x == 0 && g_stamps && \\
+  g_stamps[STAMP_BASE_MLP + g_slot * 16 + (i)] == 0) \\
+  g_stamps[STAMP_BASE_MLP + g_slot * 16 + (i)] = gtime(); \\
 } while (0)
 extern "C" int ptt_set_stamps(void* p) {
   return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));
@@ -77,12 +84,19 @@ STAMPS = (
               "rstd);\n", "STAMP_A(8)"),
     ("before", "  // LN2: each row's (mean, M2)", "STAMP_A(9)"),
     ("after", "to_f(b2[c + e]))));\n  }\n", "STAMP_A(10)"),
-    ("after", "  const T* y2 = static_cast<const T*>(a.y2);\n", "STAMP_M(0)"),
-    ("before", "  // bias + tanh-GELU", "STAMP_M(8)"),
-    ("before", "  // GEMM2: hidden", "STAMP_M(9)"),
-    ("after", "    if (!last_flag) continue;\n", "STAMP_M(10)"),
-    ("before", "    if (tid == 0) *counter = 0;", "STAMP_M(11)"),
-    ("before", "}\n\n// 1 when the rows of a matrix", "STAMP_M(12)"),
+    ("after", "  const int R = pre[a.b];\n",
+     "if (threadIdx.x == 0) g_slot = ticket; STAMP_M(0)"),
+    ("before", "      // bias + tanh-GELU in fp32 on the rounded product",
+     "STAMP_M(1)"),
+    ("after", "    if (tid == 0) atomicAdd(a.flags + ticket / pps, 1);\n",
+     "STAMP_M(2)"),
+    ("after", "          if (p0 == 0) wait_count(a.flags + sp, nsp);\n",
+     "STAMP_M1(3)"),
+    ("before", "    sk::for_each_acc<T, W, kMlpCols>(acc, rp, [&](int i, int "
+               "cc, float v) {", "STAMP_M(4)"),
+    ("after", "  if (last_flag) {\n    __threadfence();\n", "STAMP_M(5)"),
+    ("before", "    if (tid == 0) arrive[hj] = 0;", "STAMP_M(6)"),
+    ("before", "  if (tid == 0 && atomicAdd(done, 1)", "STAMP_M(7)"),
 )
 
 
@@ -148,6 +162,30 @@ def lane_report(prod, cons, lane, q_len, ctx):
     return (f"  lane {lane} (q_len {q_len}, ctx {ctx}): " + "; ".join(parts))
 
 
+def mlp_report(mt, plan, live):
+    """The MLP's stages (us) from its blocks' stamps ``[blocks, 16]`` in
+    ticket order: producers, then consumers."""
+    us = lambda a, b: (a - b) / 1e3  # noqa: E731
+    t0 = mt[:, 0][mt[:, 0] > 0].min()
+    prod, cons = mt[:plan.producers], mt[plan.producers:]
+    last = cons[cons[:, 5] > 0]
+
+    def mm(v):
+        return f"{np.mean(v):.1f} / {np.max(v):.1f}"
+
+    return (f"  MLP ({live} live rows; {plan.producers} producers, "
+            f"{plan.consumers} consumers of {plan.splits} splits; mean / "
+            f"longest): span {us(mt.max(), t0):.1f} us; producers start "
+            f"{mm(us(prod[:, 0], t0))}, GEMM1 {mm(us(prod[:, 1], prod[:, 0]))}"
+            f", GELU + publish {mm(us(prod[:, 2], prod[:, 1]))}, last "
+            f"published at {us(prod[:, 2].max(), t0):.1f}; consumers start "
+            f"{mm(us(cons[:, 0], t0))}, waited until "
+            f"{mm(us(cons[:, 3], t0))}, GEMM2 after the wait "
+            f"{mm(us(cons[:, 4], cons[:, 3]))}, split sums "
+            + (mm(us(last[:, 6], last[:, 5])) if len(last) else "-")
+            + f", last block done at {us(cons[:, 7].max(), t0):.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("mega_stage_times: torch.cuda.is_available() is False",
@@ -180,6 +218,7 @@ def main() -> int:
             plan = md.mega_plan(b, nh, pps, ps, d, chunk,
                                 pools["k_pages"].element_size(), sms)
             z, per = 1 + plan.splits, -(-b // plan.group) * nh
+            mplan = md.mlp_plan(p["b2"].shape[0], p["b1"].shape[0])
 
             def attn():
                 return md.mega_attn_layer(xb, p, pools["k_pages"],
@@ -187,7 +226,7 @@ def main() -> int:
                                           q_lens, **kw)
 
             def mlp():
-                return md.mega_mlp(y2, s_res, p)
+                return md.mega_mlp(y2, s_res, p, q_lens=q_lens, chunk=chunk)
 
             _build._libs["mega_decode"] = unstamped
             ms = (cs.time_ms(attn), cs.time_ms(mlp))
@@ -202,7 +241,8 @@ def main() -> int:
                 if fn is attn:
                     st = stamps[:plan.blocks * 16].view(-1, 16).cpu()
                 else:
-                    m = stamps[STAMP_BASE_MLP:STAMP_BASE_MLP + 16 * 4096]
+                    m = stamps[STAMP_BASE_MLP:STAMP_BASE_MLP
+                               + 16 * mplan.blocks]
                     mt = m.view(-1, 16).cpu()
             stamped.ptt_set_stamps(None)
             _build._libs["mega_decode"] = unstamped
@@ -226,15 +266,8 @@ def main() -> int:
                 print(lane_report(prod[:, lane // plan.group], rows, lane,
                                   int(q_lens[lane]), int(ctx[lane]))
                       + f"; ends at {(rows.max() - t0) / 1e3:.1f} us")
-            mt = mt.numpy().astype(np.float64)
-            mt = mt[mt[:, 0] > 0]
-            t0 = mt[:, 0].min()
-            print(f"  MLP ({len(mt)} blocks): span "
-                  f"{(mt.max() - t0) / 1e3:.1f} us, last start "
-                  f"{(mt[:, 0].max() - t0) / 1e3:.1f}, GEMM1 "
-                  f"{np.mean(mt[:, 8] - mt[:, 0]) / 1e3:.1f}, GELU "
-                  f"{np.mean(mt[:, 9] - mt[:, 8]) / 1e3:.1f}, GEMM2 and sums "
-                  f"{np.mean(mt[:, 12] - mt[:, 9]) / 1e3:.1f} us a block")
+            print(mlp_report(mt.numpy().astype(np.float64), mplan,
+                             int(q_lens.sum())))
     return 0
 
 

@@ -48,12 +48,24 @@
 //
 // ptt_mega_mlp replaces _mega_mlp_kernel: out = s_res + b2 +
 // gelu_tanh(y2 @ w1 + b1) @ w2 with the [rows, ffn] hidden state rounded to
-// the activation type and never written to device memory. On the TPU one
-// resident output block accumulates the ffn tiles in order. Here a block
-// owns (32 rows, 64 ffn columns): GEMM1 over h, bias + GELU in fp32, the
-// hidden tile in shared memory, then GEMM2 into an fp32 partial [32, h] per
-// ffn tile. For each (row tile, 64 output columns) the last block to arrive
-// sums the ffn tiles' partials in ffn order and writes the epilogue.
+// the activation type. On the TPU one resident output block accumulates the
+// ffn tiles in order over every row of the lane block. Here only the live
+// rows are computed (given q_lens, the rows r with r % chunk < q_lens[r /
+// chunk]: 24 of 128 in a served round, 8 at a decode round; the others are
+// written as zeros), and each weight is read once a launch: one row of
+// blocks from shapes alone, roles from a ticket as in the attention
+// kernel. GEMM1 producers own 32 ffn columns over all of h and publish
+// their hidden columns (the live rows packed, kept in L2) with a count;
+// GEMM2 consumers own (32 h columns, an ffn split), put their first w2
+// stages in flight, wait for their split's producers, and leave fp32
+// partials [splits, live rows, h]; the last split of an h tile to arrive
+// sums them in split order and writes the epilogue (deterministic, no
+// float atomics). Products: skinny_gemm.cuh (a cp.async ring of weight,
+// scale and row stages; bf16 on the tensor cores, int8 dequantized to the
+// activation type in registers; fp32 FMA on the CUDA cores). Any h that is
+// a multiple of 4, any ffn and scale group and any input alignment: the
+// last tiles and stages are clipped, and a clipped or unaligned chunk is
+// copied element by element.
 //
 // What bounds them on the H100: at GPT-125M serving (8 lanes x chunk 16,
 // h 768, 12 heads of 64, ffn 3072, 128 MLP rows) the function needs one
@@ -69,10 +81,13 @@
 // cores, a thread holding up to 4 rows (8 past 16 rows a block) and the
 // reduction sliced over lanes when rows are few. The page walk's products
 // stay on the CUDA cores (one new row a lane at a decode round). The MLP
-// kernel (unchanged) loads 64 x 64 tiles into registers one tile ahead;
-// its partials cost (ffn / 64) * rows * h fp32 of device-memory traffic
-// (18.9 MB at 128 rows).
+// kernel reads each weight once (18.9 / 9.4 MB fp32 / bf16 at GPT-125M, 4.7
+// int8) and its partials are splits x live rows x h fp32 (0.3 MB at 24
+// rows), so bytes bound it: ~0.0058 / 0.0029 ms at 3.35 TB/s. Its GEMM2
+// waits for GEMM1's last producers, so at best it takes the time of both
+// halves' bytes in turn.
 #include "paged_walk.cuh"
+#include "skinny_gemm.cuh"
 
 #include <algorithm>
 #include <cstdint>
@@ -85,11 +100,6 @@ namespace wk = ptt::walk;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int TK = 64;           // reduction indices per MLP GEMM stage
-constexpr int TN = 64;           // output columns per MLP GEMM pass
-constexpr int kPitch = TN + 4;   // float4-aligned rows of the GEMM tiles
-constexpr int kMlpRows = 32;     // MLP rows per block
-constexpr int kTileBatch = 8;    // ffn-tile partials a thread loads at once
 
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
@@ -108,182 +118,6 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float ln_elem(float x, float mean, float rstd,
                                          float g, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), g), b);
-}
-
-// A weight [K, N]: elements of type T, or int8 with fp32 scales [K / gs, N]
-// (s != nullptr). An int8 element dequantizes as q * s in fp32, rounded to
-// T once. vec: rows and scale rows start on 16-byte boundaries, so a tile
-// loads in 16-byte chunks.
-template <typename T>
-struct Weight {
-  const void* w;
-  const float* s;
-  int K, N, gs, vec;
-};
-
-// One thread's share of a 64 x 64 weight tile in registers: fp32 4, bf16 2
-// chunks of 16 bytes; int8 one chunk of 16 values and its 16 scales.
-struct BFrag {
-  uint4 raw[4];
-  float4 sc[4];
-};
-
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  return __ldg(static_cast<const uint4*>(p));
-}
-
-// Fetch W[k0 : k0 + TK, n0 : n0 + ncols] (rows past kend and columns past
-// ncols as zeros): every load of the tile is issued before any is used
-template <typename T>
-__device__ __forceinline__ void fetch_b(BFrag& f, const Weight<T>& W, int k0,
-                                        int kend, int n0, int ncols) {
-  const int tid = threadIdx.x;
-  if (W.s) {
-    const int r = tid / 4, c = (tid % 4) * 16, k = k0 + r;
-    const int8_t* w = static_cast<const int8_t*>(W.w) + (long)k * W.N + n0 + c;
-    const float* s = W.s + (long)(k / W.gs) * W.N + n0 + c;
-    const bool row = k < kend;
-    if (W.vec) {
-      const bool ok = row && c < ncols;
-      f.raw[0] = ok ? ld16(w) : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        f.sc[q] = ok ? __ldg(reinterpret_cast<const float4*>(s) + q)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      alignas(16) int8_t v[16];
-      alignas(16) float sv[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const bool ok = row && c + e < ncols;
-        v[e] = ok ? __ldg(w + e) : (int8_t)0;
-        sv[e] = ok ? __ldg(s + e) : 0.f;
-      }
-      f.raw[0] = *reinterpret_cast<const uint4*>(v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        f.sc[q] = reinterpret_cast<const float4*>(sv)[q];
-    }
-    return;
-  }
-  constexpr int VEC = 16 / sizeof(T), CPR = TN / VEC;
-  constexpr int PER = TK * CPR / kThreads;
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * kThreads + tid;
-    const int r = i / CPR, c = (i % CPR) * VEC, k = k0 + r;
-    const T* w = static_cast<const T*>(W.w) + (long)k * W.N + n0 + c;
-    if (W.vec) {
-      f.raw[u] = (k < kend && c < ncols) ? ld16(w) : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      alignas(16) T v[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        T z;
-        store(&z, 0.f);
-        v[e] = (k < kend && c + e < ncols) ? __ldg(w + e) : z;
-      }
-      f.raw[u] = *reinterpret_cast<const uint4*>(v);
-    }
-  }
-}
-
-// Store a fetched weight tile as fp32 rows of Bs (pitch kPitch)
-template <typename T>
-__device__ __forceinline__ void put_b(float* Bs, const BFrag& f,
-                                      const Weight<T>& W) {
-  const int tid = threadIdx.x;
-  if (W.s) {
-    const int r = tid / 4, c = (tid % 4) * 16;
-    float v[16];
-    ptt::unpack(f.raw[0], v);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      Bs[r * kPitch + c + 4 * q] = round_to<T>(v[4 * q] * f.sc[q].x);
-      Bs[r * kPitch + c + 4 * q + 1] = round_to<T>(v[4 * q + 1] * f.sc[q].y);
-      Bs[r * kPitch + c + 4 * q + 2] = round_to<T>(v[4 * q + 2] * f.sc[q].z);
-      Bs[r * kPitch + c + 4 * q + 3] = round_to<T>(v[4 * q + 3] * f.sc[q].w);
-    }
-    return;
-  }
-  constexpr int VEC = 16 / sizeof(T), CPR = TN / VEC;
-  constexpr int PER = TK * CPR / kThreads;
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * kThreads + tid;
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    float v[VEC];
-    ptt::unpack(f.raw[u], v);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) Bs[r * kPitch + c + e] = v[e];
-  }
-}
-
-// One thread's share of an activation tile [rows, TK] of element type E in
-// 16-byte chunks (NCH of them). kL2: the rows were written by this kernel
-// (read through L2, never the read-only path).
-template <typename E, int NCH, bool kL2>
-__device__ __forceinline__ void fetch_a(uint4 (&raw)[NCH], const E* src,
-                                        long ld, int nrows, int k0, int kend,
-                                        bool vec) {
-  constexpr int VEC = 16 / sizeof(E), CPR = TK / VEC;
-#pragma unroll
-  for (int u = 0; u < NCH; ++u) {
-    const int i = u * kThreads + threadIdx.x;
-    const int r = i / CPR, c = k0 + (i % CPR) * VEC;
-    const E* p = src + r * ld + c;
-    if (vec) {
-      const uint4* q = reinterpret_cast<const uint4*>(p);
-      raw[u] = (r < nrows && c < kend) ? (kL2 ? __ldcg(q) : __ldg(q))
-                                       : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      alignas(16) E v[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        E z;
-        store(&z, 0.f);
-        v[e] = (r < nrows && c + e < kend) ? p[e] : z;
-      }
-      raw[u] = *reinterpret_cast<const uint4*>(v);
-    }
-  }
-}
-
-template <typename E, int NCH>
-__device__ __forceinline__ void put_a(float* As, const uint4 (&raw)[NCH]) {
-  constexpr int VEC = 16 / sizeof(E), CPR = TK / VEC;
-#pragma unroll
-  for (int u = 0; u < NCH; ++u) {
-    const int i = u * kThreads + threadIdx.x;
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    float v[VEC];
-    ptt::unpack(raw[u], v);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) As[r * kPitch + c + e] = v[e];
-  }
-}
-
-// acc[i][j] += sum_k A[ty + 16 i][k] * B[k][tx * 4 + j] over one stage;
-// threads whose first row is past `rows` skip the products
-template <int RPT>
-__device__ __forceinline__ void tile_fma(const float* As, int apitch,
-                                         const float* Bs,
-                                         float (&acc)[RPT][4], int rows) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  if (ty >= rows) return;
-#pragma unroll 8
-  for (int k = 0; k < TK; ++k) {
-    const float4 bv =
-        *reinterpret_cast<const float4*>(Bs + k * kPitch + tx * 4);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float av = As[(ty + 16 * i) * apitch + k];
-      acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-      acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-      acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-      acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-    }
-  }
 }
 
 // ---- the attention layer ----
@@ -1281,157 +1115,197 @@ int dispatch_dim(const AttnArgs& a, int D, int device, cudaStream_t st) {
   }
 }
 
+// ---- the MLP layer ----
+
+constexpr int kMlpCols = 32;        // weight columns a block: ffn (GEMM1), h (GEMM2)
+constexpr int kMlpRing = 96 << 10;  // the ring's shared memory: 2 blocks an SM
+
 struct MlpArgs {
-  const void* y2;      // [T, h] T
-  const void* s_res;   // [T, h] T, or null without the epilogue
+  const void* y2;      // [t, h] T
+  const void* s_res;   // [t, h] T, or null without the epilogue
   const void* w1;      // [h, f] T or int8
   const float* s1;     // [h / g1, f] or null
   const void* b1;      // [f] T
   const void* w2;      // [f, h] T or int8
   const float* s2;     // [f / g2, h] or null
   const void* b2;      // [h] T
-  void* out;           // [T, h] T
-  float* ws;           // [ceil(f / 64), T, h] fp32 partials
-  int* counters;       // [ceil(T / 32) * ceil(h / 64)], zero on entry
-  int rows, h, f, g1, g2, fuse;
-  int vec_a, vec1, vec2;                // 16-byte tiles of y2, w1, w2
+  const int* qlen;     // [b] rows each lane feeds, or null: every row
+  void* out;           // [t, h] T
+  void* hid;           // [t, f] T: the hidden state of the live rows, packed
+  float* part;         // [splits, t, h] fp32: GEMM2's partials, packed rows
+  int* flags;          // [splits] producers published, [h / 32] column
+                       // arrivals, consumers done, the block ticket
+  int t, h, f, g1, g2, fuse, b, chunk, splits;
 };
 
 constexpr float kK0 = 0.7978845608028654f;   // sqrt(2 / pi)
 constexpr float kA = 0.044715f;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) mega_mlp_kernel(const MlpArgs a) {
-  __shared__ __align__(16) float As[kMlpRows * kPitch];   // y2 tile
-  __shared__ __align__(16) float Bs[TK * kPitch];         // weight tile
-  __shared__ __align__(16) float Gs[kMlpRows * kPitch];   // hidden tile
-  __shared__ int last_flag;
-  constexpr int RPT = kMlpRows / 16;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int R = a.rows, h = a.h, f = a.f;
-  const int f0 = blockIdx.x * TN, m0 = blockIdx.y * kMlpRows;
-  const int nrows = min(kMlpRows, R - m0);
-  const T* y2 = static_cast<const T*>(a.y2);
-
-  // GEMM1: [32, h] @ w1[:, f0 : f0 + 64], the next k tile's loads in
-  // flight while the current one multiplies
-  const Weight<T> W1{a.w1, a.s1, h, f, a.g1, a.vec1};
-  constexpr int kANch = kMlpRows * TK * (int)sizeof(T) / 16 / kThreads;
-  const T* arow = y2 + (long)m0 * h;
-  uint4 araw[kANch];
-  BFrag bfrag;
-  fetch_a<T, kANch, false>(araw, arow, h, nrows, 0, h, a.vec_a);
-  fetch_b(bfrag, W1, 0, h, f0, min(TN, f - f0));
-  float acc[RPT][4] = {};
-  for (int k0 = 0; k0 < h; k0 += TK) {
-    __syncthreads();
-    put_a<T, kANch>(As, araw);
-    put_b(Bs, bfrag, W1);
-    __syncthreads();
-    if (k0 + TK < h) {
-      fetch_a<T, kANch, false>(araw, arow, h, nrows, k0 + TK, h, a.vec_a);
-      fetch_b(bfrag, W1, k0 + TK, h, f0, min(TN, f - f0));
-    }
-    tile_fma<RPT>(As, kPitch, Bs, acc, nrows);
+// Waits (thread 0 polling, the block at a barrier) until *f >= n. Only a
+// consumer waits, and only on producers, which hold earlier tickets: they
+// have started and never wait. One poller a block, a quarter microsecond
+// apart, leaves the memory system to the producers.
+__device__ __forceinline__ void wait_count(const int* f, int n) {
+  if (threadIdx.x == 0) {
+    const volatile int* v = f;
+    while (*v < n) __nanosleep(256);
+    __threadfence();
   }
-  // bias + tanh-GELU in fp32 on the rounded product; the hidden rounds to T
-  const T* b1 = static_cast<const T*>(a.b1);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = f0 + tx * 4 + j;
-      float g = 0.f;
-      if (c < f) {
-        const float u = round_to<T>(acc[i][j]) + to_f(b1[c]);
-        g = round_to<T>(0.5f * u *
-                        (1.f + tanhf(kK0 * (u + kA * u * u * u))));
-      }
-      Gs[(ty + 16 * i) * kPitch + tx * 4 + j] = g;
-    }
+  __syncthreads();
+}
 
-  // GEMM2: hidden [32, 64] @ w2[f0 : f0 + 64, :], one 64-column slab at a
-  // time, slabs in an order rotated by the ffn tile so that the slabs'
-  // last arrivals spread over the blocks
-  const Weight<T> W2{a.w2, a.s2, f, h, a.g2, a.vec2};
-  const int nslabs = (h + TN - 1) / TN, nf = gridDim.x;
-  const long plane = (long)R * h;
-  const T* sres = static_cast<const T*>(a.s_res);
-  const T* b2 = static_cast<const T*>(a.b2);
-  T* out = static_cast<T*>(a.out);
-  auto slab_n0 = [&](int si) {
-    return (si + (int)blockIdx.x) % nslabs * TN;
+// One block of the MLP kernel; its role comes from its ticket (taken in
+// the order blocks start, back to 0 after every launch):
+// - tickets [0, ceil(f / 32)) are producers: GEMM1 for 32 ffn columns
+//   (fewer in the last) of every
+//   live row (y2's rows gathered by the lanes' q_len), bias + tanh-GELU in
+//   fp32 on the rounded product, the hidden rounded to T and published to
+//   `hid`; then the producer counts itself in its ffn split's counter
+//   (a split: fs rows of whole 64-row stages, the last split ends at f);
+// - the rest are consumers (h tile of 32 columns, ffn split): their w2
+//   stages go in flight first, then they wait for the split's counter to
+//   reach its producers and run GEMM2 over the split's hidden columns into
+//   fp32 partials. The last split of an h tile to arrive sums the partials
+//   in split order and writes the epilogue, zeros in the rows no lane
+//   feeds; the last consumer to finish resets the split counters.
+// Each weight is read once a launch (per 64 live rows); nothing reads
+// q_lens on the host.
+template <typename T, typename W>
+__global__ void __launch_bounds__(ptt::sk::Shape<T, W, kMlpCols>::kThreads)
+mega_mlp_kernel(const MlpArgs a) {
+  namespace sk = ptt::sk;
+  using S = sk::Shape<T, W, kMlpCols>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* pre = reinterpret_cast<int*>(smem + kMlpRing);   // live rows before
+  int* rowid = pre + a.b + 1;                          // lane l; a pass's rows
+  __shared__ int ticket, last_flag;
+  const int tid = threadIdx.x;
+  const int nprod = (a.f + kMlpCols - 1) / kMlpCols;
+  const int nht = (a.h + kMlpCols - 1) / kMlpCols;
+  const int fs = (a.f + sk::KS - 1) / sk::KS / a.splits * sk::KS;
+  const int pps = fs / kMlpCols;   // producers of a full ffn split
+  int* arrive = a.flags + a.splits;
+  int* done = arrive + nht;
+  if (tid == 0)
+    ticket = (int)atomicInc(reinterpret_cast<unsigned*>(done + 1),
+                            (unsigned)(nprod + nht * a.splits - 1));
+  for (int l = tid; l < a.b; l += S::kThreads)
+    pre[l + 1] = a.qlen ? min(max(a.qlen[l], 0), a.chunk) : a.chunk;
+  __syncthreads();
+  if (tid == 0) {
+    pre[0] = 0;
+    for (int l = 0; l < a.b; ++l) pre[l + 1] += pre[l];
+  }
+  __syncthreads();
+  const int R = pre[a.b];
+  // the row of live row i: lane l with pre[l] <= i < pre[l + 1]
+  auto row_of = [&](int i) {
+    int lo = 0, hi = a.b;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (pre[mid] <= i) lo = mid; else hi = mid;
+    }
+    return lo * a.chunk + (i - pre[lo]);
   };
-  fetch_b(bfrag, W2, f0, f, slab_n0(0), min(TN, h - slab_n0(0)));
-  for (int si = 0; si < nslabs; ++si) {
-    const int n0 = slab_n0(si), slab = n0 / TN;
-    float acc2[RPT][4] = {};
-    __syncthreads();
-    put_b(Bs, bfrag, W2);
-    __syncthreads();
-    if (si + 1 < nslabs) {
-      const int n1 = slab_n0(si + 1);
-      fetch_b(bfrag, W2, f0, f, n1, min(TN, h - n1));
-    }
-    tile_fma<RPT>(Gs, kPitch, Bs, acc2, nrows);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= nrows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + tx * 4 + j;
-        if (c < h)
-          a.ws[blockIdx.x * plane + (long)(m0 + r) * h + c] = acc2[i][j];
-      }
+  float acc[8][4];
+  T* hid = static_cast<T*>(a.hid);
+
+  if (ticket < nprod) {
+    const int n0 = ticket * kMlpCols, ncols = min(kMlpCols, a.f - n0);
+    const sk::WTile<W> wt{static_cast<const W*>(a.w1), a.s1, a.f, n0,
+                          ncols, a.g1, a.s1 ? a.h / a.g1 : 1};
+    const T* y2 = static_cast<const T*>(a.y2);
+    const T* b1 = static_cast<const T*>(a.b1);
+    for (int p0 = 0; p0 < R; p0 += sk::RP) {
+      const int rp = min(sk::RP, R - p0);
+      for (int i = tid; i < rp; i += S::kThreads) rowid[i] = row_of(p0 + i);
+      __syncthreads();
+      sk::run_tile<T, W, kMlpCols, false, true>(
+          acc, smem, kMlpRing, wt, 0, a.h,
+          [&](int r) { return y2 + (long)rowid[r] * a.h; }, rp, a.y2, [] {});
+      // bias + tanh-GELU in fp32 on the rounded product; the hidden
+      // rounds to T
+      sk::for_each_acc<T, W, kMlpCols>(acc, rp, [&](int i, int c, float v) {
+        if (c >= ncols) return;
+        const float u = round_to<T>(v) + to_f(b1[n0 + c]);
+        store(hid + (long)(p0 + i) * a.f + n0 + c,
+              0.5f * u * (1.f + tanhf(kK0 * (u + kA * u * u * u))));
+      });
     }
     __threadfence();
     __syncthreads();
-    int* counter = a.counters + blockIdx.y * nslabs + slab;
-    if (tid == 0) last_flag = atomicAdd(counter, 1) == nf - 1;
-    __syncthreads();
-    if (!last_flag) continue;
+    if (tid == 0) atomicAdd(a.flags + ticket / pps, 1);
+    return;
+  }
+
+  const int c = ticket - nprod, hj = c % nht, sp = c / nht;
+  const int k0 = sp * fs, n0 = hj * kMlpCols, ncols = min(kMlpCols, a.h - n0);
+  const int nsp = min(pps, nprod - sp * pps);   // the split's producers
+  const sk::WTile<W> wt{static_cast<const W*>(a.w2), a.s2, a.h, n0,
+                        ncols, a.g2, a.s2 ? a.f / a.g2 : 1};
+  for (int p0 = 0; p0 < R; p0 += sk::RP) {
+    const int rp = min(sk::RP, R - p0);
+    sk::run_tile<T, W, kMlpCols, false, true>(
+        acc, smem, kMlpRing, wt, k0, min(a.f, k0 + fs),
+        [&](int r) { return hid + (long)(p0 + r) * a.f; }, rp, a.w2, [&] {
+          if (p0 == 0) wait_count(a.flags + sp, nsp);
+        });
+    sk::for_each_acc<T, W, kMlpCols>(acc, rp, [&](int i, int cc, float v) {
+      if (cc < ncols) a.part[((long)sp * a.t + p0 + i) * a.h + n0 + cc] = v;
+    });
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_flag = atomicAdd(arrive + hj, 1) == a.splits - 1;
+  __syncthreads();
+  if (last_flag) {
     __threadfence();
-    // the last block of this (row tile, slab) sums the ffn tiles in
-    // order, 4 columns a thread, kTileBatch partials in flight
-    for (int i = tid; i < kMlpRows * TN / 4; i += kThreads) {
-      const int r = i / (TN / 4), c = n0 + (i % (TN / 4)) * 4;
-      if (r >= nrows || c >= h) continue;
-      const long e = (long)(m0 + r) * h + c;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int t0 = 0; t0 < nf; t0 += kTileBatch) {
-        float4 part[kTileBatch];
-#pragma unroll
-        for (int u = 0; u < kTileBatch; ++u)
-          part[u] = t0 + u < nf ? __ldcg(reinterpret_cast<const float4*>(
-                                      a.ws + (t0 + u) * plane + e))
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int u = 0; u < kTileBatch; ++u) {
-          v[0] += part[u].x;
-          v[1] += part[u].y;
-          v[2] += part[u].z;
-          v[3] += part[u].w;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float o = round_to<T>(v[j]);   // the second product, rounded
-        if (a.fuse)
-          o = round_to<T>((to_f(sres[e + j]) + o) + to_f(b2[c + j]));
-        store(out + e + j, o);
-      }
+    // the splits summed in order; the second product rounded, then the
+    // epilogue; rows no lane feeds are written as zeros
+    const T* sres = static_cast<const T*>(a.s_res);
+    const T* b2 = static_cast<const T*>(a.b2);
+    T* out = static_cast<T*>(a.out);
+    sk::sum_splits<kMlpCols, S::kThreads>(
+        a.part, (long)a.t * a.h, a.h, n0, ncols, R, a.splits,
+        [&](int i, int c, float4 v) {
+          const long e = (long)row_of(i) * a.h + n0 + c;
+          v = make_float4(round_to<T>(v.x), round_to<T>(v.y),
+                          round_to<T>(v.z), round_to<T>(v.w));
+          if (a.fuse) {   // element loads: s_res and b2 may sit anywhere
+            const T* r = sres + e;
+            const T* bb = b2 + n0 + c;
+            v = make_float4(round_to<T>((to_f(r[0]) + v.x) + to_f(bb[0])),
+                            round_to<T>((to_f(r[1]) + v.y) + to_f(bb[1])),
+                            round_to<T>((to_f(r[2]) + v.z) + to_f(bb[2])),
+                            round_to<T>((to_f(r[3]) + v.w) + to_f(bb[3])));
+          }
+          sk::store4(out + e, v);
+        });
+    constexpr int Q = kMlpCols / 4;
+    for (int i = tid; i < a.t * Q; i += S::kThreads) {
+      const int r = i / Q, lane = r / a.chunk;
+      if ((i % Q) * 4 < ncols && r % a.chunk >= pre[lane + 1] - pre[lane])
+        sk::store4(out + (long)r * a.h + n0 + (i % Q) * 4,
+                   make_float4(0.f, 0.f, 0.f, 0.f));
     }
-    if (tid == 0) *counter = 0;   // ready for the next launch
+    if (tid == 0) arrive[hj] = 0;   // ready for the next launch
+  }
+  if (tid == 0 && atomicAdd(done, 1) == nht * a.splits - 1) {
+    for (int j = 0; j < a.splits; ++j) a.flags[j] = 0;
+    *done = 0;
   }
 }
 
-// 1 when the rows of a matrix with n columns of esize-byte elements (and
-// its fp32 scale rows, if any) start on 16-byte boundaries
-int rows16(const void* p, int n, int esize, const void* s) {
-  const bool ok = reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-                  (long)n * esize % 16 == 0;
-  return ok && (s == nullptr || reinterpret_cast<uintptr_t>(s) % 16 == 0);
+template <typename T, typename W>
+int launch_mlp(const MlpArgs& a, int device, cudaStream_t st) {
+  using S = ptt::sk::Shape<T, W, kMlpCols>;
+  const int smem = kMlpRing + (a.b + 1 + ptt::sk::RP) * 4;
+  cudaError_t err = ptt::allow_smem<mega_mlp_kernel<T, W>>(device, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.f + kMlpCols - 1) / kMlpCols +
+                     (a.h + kMlpCols - 1) / kMlpCols * a.splits;
+  mega_mlp_kernel<T, W><<<blocks, S::kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1521,33 +1395,42 @@ int ptt_mega_attn(const void* x, const void* ln1_g, const void* ln1_b,
              : dispatch_dim<bf16, bf16>(a, D, device, st);
 }
 
-// Pointers as in MlpArgs; g1, g2: K rows per scale group of w1 and w2; h a
-// multiple of 4.
+// Pointers as in MlpArgs (out, hid and part 16-byte aligned; the inputs
+// anywhere); g1, g2: K rows per scale group of w1 and w2 (both weights int8
+// or neither); the rows t are b lanes of chunk rows (qlen null: every row
+// is live); h a multiple of 4, ceil(f / 64) % splits == 0. hid: t * f of
+// T; part: splits * t * h fp32; flags: splits + ceil(h / 32) + 2 int32,
+// zero on entry and left zero. dtype: 0 = fp32, 1 = bf16.
 int ptt_mega_mlp(const void* y2, const void* s_res, const void* w1,
                  const void* s1, const void* b1, const void* w2,
-                 const void* s2, const void* b2, void* out, void* ws,
-                 void* counters, int rows, int h, int f, int g1, int g2,
-                 int fuse, int dtype, int device, void* stream) {
+                 const void* s2, const void* b2, const void* qlen, void* out,
+                 void* hid, void* part, void* flags, int t, int h, int f,
+                 int g1, int g2, int b, int chunk, int splits, int fuse,
+                 int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (rows < 1 || h % 4 || g1 < 1 || g2 < 1 ||
-      (fuse != 0) != (s_res != nullptr) || (dtype != 0 && dtype != 1))
+  const bool q8 = s1 != nullptr;
+  if (t < 1 || h < 4 || h % 4 || f < 1 || b < 1 || chunk < 1 ||
+      b * chunk != t || splits < 1 ||
+      ((f + ptt::sk::KS - 1) / ptt::sk::KS) % splits ||
+      (s2 != nullptr) != q8 ||
+      (q8 && (g1 < 1 || g2 < 1 || h % g1 || f % g2)) ||
+      (fuse != 0) != (s_res != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int esize = dtype == 0 ? 4 : 2;
-  MlpArgs a{y2, s_res, w1, static_cast<const float*>(s1), b1, w2,
-            static_cast<const float*>(s2), b2, out, static_cast<float*>(ws),
-            static_cast<int*>(counters), rows, h, f, g1, g2, fuse,
-            rows16(y2, h, esize, nullptr), rows16(w1, f, s1 ? 1 : esize, s1),
-            rows16(w2, h, s2 ? 1 : esize, s2)};
-  dim3 grid((f + TN - 1) / TN, (rows + kMlpRows - 1) / kMlpRows);
+  const MlpArgs a{y2, s_res, w1, static_cast<const float*>(s1), b1, w2,
+                  static_cast<const float*>(s2), b2,
+                  static_cast<const int*>(qlen), out, hid,
+                  static_cast<float*>(part), static_cast<int*>(flags), t, h,
+                  f, g1, g2, fuse, b, chunk, splits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
   if (dtype == 0)
-    mega_mlp_kernel<float><<<grid, kThreads, 0, st>>>(a);
-  else if (dtype == 1)
-    mega_mlp_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return q8 ? launch_mlp<float, int8_t>(a, device, st)
+              : launch_mlp<float, float>(a, device, st);
+  if (dtype == 1)
+    return q8 ? launch_mlp<bf16, int8_t>(a, device, st)
+              : launch_mlp<bf16, bf16>(a, device, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -12,32 +12,44 @@
 // the result is written in the activation type. int4 is split-half packed:
 // byte i of the [K/2, N] array holds row i in its low nibble and row
 // K/2 + i in its high nibble, so the two nibbles of one byte read
-// different scale rows. Every element computes its own group, so k tiles
-// need not align with groups (the Pallas kernel needs bk | group size).
+// different scale rows.
 //
-// One template serves all four: C[M, J] = A[M, R] . B[R, J] where the
-// forward takes A = x, R = K, B = deq(W), and the backward A = dy, R = N,
-// B = deq(W)^T. Both read the same raw weight tile (RW stored rows x 64
-// columns; RW = 64 int8 or 32 packed int4 rows = 64 original rows) and
-// differ only in how the dequantized tile lands in shared memory.
+// Two kernels. ops/quant_matmul.py qmm_plan picks one before the launch,
+// from shapes and alignment alone:
 //
-// What bounds it on the H100: at the serving shapes (M = 24 token rows,
-// GPT-125M's wqkv 768x2304, wo 768x768, w1 768x3072, w2 3072x768) bytes
-// in bf16 — the int8 weights of one step are 85 MB, ~25 us at 3.35 TB/s,
-// against ~4 GFLOP, ~4 us on the bf16 tensor cores — and operations in fp32
-// (~61 us at 67 TFLOP/s on the CUDA cores). The design reads each weight
-// tile from device memory once per 32 activation rows (16-byte loads,
-// the next stage's tile and scales already in flight in registers while
-// the block computes the current one), dequantizes it into fp32 shared
-// memory, and runs a 32 x 64 register-tiled fp32 FMA product on the CUDA
-// cores (2 x 4 outputs a thread). The full-precision weight never exists in
-// device memory. Tiny M leaves few output tiles (wo and w2 give 12), so the
-// reduction is split across blocks until ~2 blocks per SM are in flight;
-// each block writes an fp32 partial and the LAST block of a tile to arrive
-// (an arrival counter, reset by that block) sums the partials in split
-// order, so the result is deterministic. Not yet near the bound: no tensor
-// cores (mma.sync / wgmma), no cp.async / TMA ring — later work.
+// qmm_tc_kernel ("tc": the int8 forward at M <= 64 tokens, K a multiple of
+// 64, N of 16, scale groups of a multiple of 16 rows, 16-byte aligned
+// rows) — what the serving step runs. A block owns 64 output columns and a
+// K-slice (the plan splits K until the blocks fill the card's SMs: GPT-125M's
+// four GEMMs at M 24 launch 144 blocks each). The int8 weight tile, its
+// scale rows and x's k-slice stream through one cp.async ring of 16-byte
+// chunks, stages of 64 rows in 96 KB (skinny_gemm.cuh: 9 stages at M 24),
+// so each weight byte is read once and a block's whole K-slice is in
+// flight at once. bf16 activations multiply on
+// the tensor cores: mma.sync m16n8k16 with W as the A operand (the 64
+// columns are four warps' 16-row sides, the 24 tokens three n8 tiles); an
+// int8 tile reaches the A fragments by ldmatrix.x2.trans and dequantizes in
+// registers to bf16 (q * bf16(s), rounded once, as the reference). fp32
+// activations run the same ring and plan on the CUDA cores (FMA, no
+// TF32; 256 threads, 4 columns and every 16th token a thread). Each K-slice leaves an fp32 partial; the last block of a column
+// tile to arrive (a counter it resets) sums them in split order, adds the
+// fp32 bias and casts: deterministic.
+//
+// qmm_kernel ("cc": everything else — int4, the backward, other M and
+// widths) reads each weight tile once per 32 activation rows with 16-byte
+// loads one stage ahead in registers, dequantizes it into fp32 shared
+// memory and runs a 32 x 64 register-tiled FMA product (2 x 4 outputs a
+// thread), with the same split sums.
+//
+// What bounds them on the H100: at the serving shapes (M = 24 token rows,
+// GPT-125M's wqkv 768x2304, wo 768x768, w1 768x3072, w2 3072x768) bytes in
+// bf16 — the int8 weights of one layer are 7.1 MB, ~2.1 us at 3.35 TB/s,
+// against 0.34 GFLOP, ~0.3 us on the bf16 tensor cores — and operations in
+// fp32 (~5.1 us at 67 TFLOP/s on the CUDA cores). At that size a launch's
+// fixed costs (the first bytes' latency, the split sums' second pass)
+// weigh as much as the bytes.
 #include "common.cuh"
+#include "skinny_gemm.cuh"
 
 #include <cstdint>
 
@@ -277,6 +289,83 @@ qmm_kernel(const Args p) {
   if (tid == 0) p.counters[tile] = 0;  // ready for the next launch
 }
 
+// ---- the tensor-core route (int8 forward, M <= 64) ----
+
+constexpr int kTcCols = 64;          // output columns a block
+constexpr int kTcRing = 96 << 10;    // the ring's shared memory: 2 blocks an SM
+
+struct TcArgs {
+  const void* x;       // [M, K], T
+  const int8_t* w;     // [K, N]
+  const float* s;      // [G, N]
+  const float* bias;   // [N] or null, added in fp32
+  void* out;           // [M, N], T
+  float* ws;           // [splits, M, N] fp32 partials when splits > 1
+  int* counters;       // one arrival count per column tile, zero on entry
+  int M, K, N, G, splits, per;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ptt::sk::Shape<T, int8_t, kTcCols>::kThreads)
+qmm_tc_kernel(const TcArgs p) {
+  namespace sk = ptt::sk;
+  using S = sk::Shape<T, int8_t, kTcCols>;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ int last_flag;
+  const int n0 = blockIdx.x * kTcCols, z = blockIdx.y;
+  const int ncols = min(kTcCols, p.N - n0);
+  const int s0 = z * p.per, s1 = min(p.K / sk::KS, s0 + p.per);
+  const T* x = static_cast<const T*>(p.x);
+  const sk::WTile<int8_t> wt{p.w, p.s, p.N, n0, ncols, p.K / p.G, p.G};
+  float acc[8][4];
+  sk::run_tile<T, int8_t, kTcCols, true, false>(
+      acc, ring, kTcRing, wt, s0 * sk::KS, min(p.K, s1 * sk::KS),
+      [&](int r) { return x + (long)r * p.K; }, p.M, p.w, [] {});
+  T* out = static_cast<T*>(p.out);
+  if (p.splits == 1) {
+    sk::for_each_acc<T, int8_t, kTcCols>(acc, p.M, [&](int m, int c,
+                                                      float v) {
+      if (c >= ncols) return;
+      if (p.bias) v += p.bias[n0 + c];
+      store(out + (long)m * p.N + n0 + c, v);
+    });
+    return;
+  }
+  sk::for_each_acc<T, int8_t, kTcCols>(acc, p.M, [&](int m, int c, float v) {
+    if (c < ncols) p.ws[((long)z * p.M + m) * p.N + n0 + c] = v;
+  });
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last_flag = atomicAdd(p.counters + blockIdx.x, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  // the last block sums the partials in split order, adds the bias, casts
+  sk::sum_splits<kTcCols, S::kThreads>(
+      p.ws, (long)p.M * p.N, p.N, n0, ncols, p.M, p.splits,
+      [&](int m, int c, float4 v) {
+        if (p.bias) {
+          v.x += p.bias[n0 + c];
+          v.y += p.bias[n0 + c + 1];
+          v.z += p.bias[n0 + c + 2];
+          v.w += p.bias[n0 + c + 3];
+        }
+        sk::store4(out + (long)m * p.N + n0 + c, v);
+      });
+  if (threadIdx.x == 0) p.counters[blockIdx.x] = 0;   // ready for the next
+}
+
+template <typename T>
+int launch_tc(const TcArgs& p, int device, cudaStream_t st) {
+  using S = ptt::sk::Shape<T, int8_t, kTcCols>;
+  cudaError_t err = ptt::allow_smem<qmm_tc_kernel<T>>(device, kTcRing);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.N + kTcCols - 1) / kTcCols, p.splits);
+  qmm_tc_kernel<T><<<grid, S::kThreads, kTcRing, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <bool kInt4, bool kBwd>
 int launch(const void* a, const void* w, const void* s, const void* bias,
            void* out, void* ws, void* counters, int M, int K, int N, int G,
@@ -330,5 +419,31 @@ PTT_QMM_ENTRY(ptt_qmm_int4, true, false)
 PTT_QMM_ENTRY(ptt_qmm_int8_bwd, false, true)
 PTT_QMM_ENTRY(ptt_qmm_int4_bwd, true, true)
 #undef PTT_QMM_ENTRY
+
+// The tensor-core route's forward (int8 weights): x [M, K], w [K, N], s [G,
+// N], bias [N] fp32 or null, out [M, N]; ws [splits, M, N] fp32 (unused when
+// splits == 1); counters: one int per 64-column tile, all zero. 1 <= M <=
+// 64, K % 64 == 0, N % 16 == 0, (K / G) % 16 == 0, x / w / s / out 16-byte
+// aligned; each block reduces `per` 64-row stages of its split.
+int ptt_qmm_int8_tc(const void* x, const void* w, const void* s,
+                    const void* bias, void* out, void* ws, void* counters,
+                    int M, int K, int N, int G, int splits, int per,
+                    int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M < 1 || M > ptt::sk::RP || K % ptt::sk::KS || N % 16 || G < 1 ||
+      K % G || (K / G) % 16 || splits < 1 || per < 1 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const TcArgs p{x, static_cast<const int8_t*>(w),
+                 static_cast<const float*>(s),
+                 static_cast<const float*>(bias), out,
+                 static_cast<float*>(ws), static_cast<int*>(counters), M, K,
+                 N, G, splits, per};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_tc<float>(p, device, st);
+  if (dtype == 1) return launch_tc<__nv_bfloat16>(p, device, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // extern "C"

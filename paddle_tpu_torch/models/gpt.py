@@ -661,8 +661,9 @@ class UnifiedStep:
         blocks (padding rows into the dump block), each layer's attention
         kernel reads the pool at ``kv_lens`` (this step's rows it attends
         in-kernel) and emits the new K / V rows, which gather back to the
-        packed order and scatter into the pools; the MLP kernel runs on all
-        ``b * chunk`` rows with the residual. Returns the packed rows."""
+        packed order and scatter into the pools; the MLP kernel runs on the
+        rows each lane feeds (``q_lens``) with the residual and leaves the
+        others zero. Returns the packed rows."""
         cfg, chunk = self.config, self.chunk
         nh, hd, h = cfg.num_heads, cfg.head_dim, x.shape[-1]
         b = q_lens.shape[0]
@@ -688,8 +689,10 @@ class UnifiedStep:
                         sc[j].reshape(b * chunk, nh)[a_rows], dest)
                 else:
                     paged_write_packed_(kv[j], rows, dest)
+            # rows past q_lens come back zero: the next layer's attention
+            # skips them and the step gathers only a_rows
             xb = mega_mlp(y2.reshape(b * chunk, h), s.reshape(b * chunk, h),
-                          p, chunk=chunk).view(b, chunk, h)
+                          p, chunk=chunk, q_lens=q_lens).view(b, chunk, h)
         return xb.reshape(b * chunk, h)[a_rows]
 
 

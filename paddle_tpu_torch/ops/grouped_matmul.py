@@ -38,7 +38,7 @@ import torch
 
 from . import _build
 from ._build import kernel_takes  # noqa: F401 (the family's predicate)
-from .quant_matmul import _norm_scales, _tile_counters, dequantize_weight
+from .quant_matmul import _norm_scales, dequantize_weight
 
 _KERNEL = "grouped_matmul"
 _P = ctypes.c_void_p
@@ -297,7 +297,7 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
                  _sms(a.device.index))
     ws = (torch.empty((plan.splits, m, out.shape[1]), dtype=torch.float32,
                       device=a.device) if plan.splits > 1 else None)
-    counters = _tile_counters(a.device, plan.rows * plan.cols)
+    counters = _build.kept(a.device, "gmm", plan.rows * plan.cols)
     lib = _build.load(_KERNEL, _SIGNATURES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if plan.route == "tc":

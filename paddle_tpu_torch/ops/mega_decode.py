@@ -12,7 +12,9 @@ A decoder layer of the unified serving step in two kernels, over the
   + ``bo`` -> LN2. Returns ``(y2, s, k_new, v_new[, k_sc, v_sc])``; the
   caller scatters the new rows into the pools.
 - :func:`mega_mlp`: ``s_res + b2 + gelu_tanh(y2 @ w1 + b1) @ w2`` with the
-  hidden state rounded to the activation type.
+  hidden state rounded to the activation type; given ``q_lens`` (and the
+  ``chunk`` of the lane blocks) only the rows each lane feeds, the others
+  zero (the attention kernel's convention; nothing reads them).
 
 ``fuse_epilogue=False`` (the reference's tensor-parallel spelling) returns
 the output projection's partial instead of the residual + LN epilogue.
@@ -23,7 +25,8 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 (activations of a dtype the kernels are not built for, fp16, run the plain
 versions there and count ``.twin_routes``: :func:`kernel_takes`); the
 attention kernel splits each lane's page walk over blocks as
-:func:`mega_plan` says; on a CPU tensor, or with ``use_kernel=False``, they
+:func:`mega_plan` says, the MLP kernel its GEMM2 as :func:`mlp_plan` says;
+on a CPU tensor, or with ``use_kernel=False``, they
 run the plain versions
 :func:`mega_attn_layer_reference` / :func:`mega_mlp_reference`, twins of
 the reference's jnp oracles with the same stage order and roundings. The
@@ -61,10 +64,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ptt_mega_attn": [_P] * 29 + [_I] * 14 + [_F] * 3 + [_I, _I, _P],
-    "ptt_mega_mlp": [_P] * 11 + [_I] * 8 + [_P],
+    "ptt_mega_mlp": [_P] * 13 + [_I] * 11 + [_P],
     "ptt_mega_attn_smem_bytes": [_I] * 8,
 }
-_MLP_ROWS, _TILE = 32, 64   # the MLP kernel's rows / ffn columns a block
+# the MLP kernel (csrc/mega_decode.cu, csrc/skinny_gemm.cuh): 32 weight
+# columns a block (ffn columns for GEMM1, h columns for GEMM2), up to 64
+# live rows a pass, K in stages of 64 rows through a ring of MLP_RING bytes
+# of shared memory (two blocks an SM, beside a few row tables)
+MLP_COLS, MLP_STAGE, MLP_RING = 32, 64, 96 << 10
 _SLAB = 128                 # the attention kernel's projection columns a tile
 
 
@@ -111,6 +118,38 @@ def mega_plan(b: int, heads: int, pps: int, page_size: int, d: int,
     producers = 3 * -(-b // group) * heads
     return MegaPlan(walk.splits, walk.pages, group,
                     producers + units * (1 + walk.splits))
+
+
+class MlpPlan(NamedTuple):
+    splits: int          # ffn splits of GEMM2 (consumers an h tile)
+    producers: int       # GEMM1 blocks: f / 32 ffn tiles
+    consumers: int       # GEMM2 blocks: h / 32 tiles x splits
+    blocks: int          # the grid
+
+
+def mlp_plan(h: int, f: int) -> MlpPlan:
+    """The MLP kernel's grid from its weights' shapes alone (never the
+    rows' values): producers of 32 ffn columns each (the last may have
+    fewer), consumers of 32 h columns, and GEMM2's ffn range split in whole
+    64-row stages (the last split ends at f) so that a consumer reads about
+    as many weight bytes as a producer (``splits`` = the largest divisor of
+    ceil(f / 64) not above f / h)."""
+    producers, cols = -(-f // MLP_COLS), -(-h // MLP_COLS)
+    stages = -(-f // MLP_STAGE)
+    want = max(1, round(f / h))
+    splits = max(d for d in range(1, stages + 1)
+                 if stages % d == 0 and d <= want)
+    return MlpPlan(splits, producers, cols * splits,
+                   producers + cols * splits)
+
+
+def live_rows(t: int, q_lens, chunk: int):
+    """``[t]`` bool: row ``r`` is fed by its lane (``r % chunk <
+    q_lens[r // chunk]``); every row when ``q_lens`` is None."""
+    if q_lens is None:
+        return torch.ones(t, dtype=torch.bool)
+    r = torch.arange(t, device=q_lens.device)
+    return (r % chunk) < q_lens.long().clamp(0, chunk)[r // chunk]
 
 
 # ---------------------------------------------------------------------------
@@ -242,16 +281,24 @@ def mega_attn_layer_reference(xb, p, k_pages, v_pages, page_table,
     return y2, s_out, k_emit, v_emit
 
 
-def mega_mlp_reference(y2, s_res, p, *, fuse_epilogue=True):
+def mega_mlp_reference(y2, s_res, p, *, fuse_epilogue=True, q_lens=None,
+                       chunk=1):
     """Twin of the reference's ``mega_mlp_reference``: ``fuse_epilogue=
-    False`` returns the second product alone (no residual, no ``b2``)."""
+    False`` returns the second product alone (no residual, no ``b2``).
+    Given ``q_lens``, the rows no lane feeds (:func:`live_rows`) are zero,
+    as the kernel writes them."""
     dtype = y2.dtype
     u = _mm(y2, p["w1"]).float() + p["b1"].float()
     g = _gelu_f32(u).to(dtype)
     if not fuse_epilogue:
-        return _mm(g, p["w2"]).to(dtype)
-    return (s_res.float() + _mm(g, p["w2"]).float()
-            + p["b2"].float()).to(dtype)
+        out = _mm(g, p["w2"]).to(dtype)
+    else:
+        out = (s_res.float() + _mm(g, p["w2"]).float()
+               + p["b2"].float()).to(dtype)
+    if q_lens is None:
+        return out
+    return torch.where(live_rows(out.shape[0], q_lens, chunk)[:, None], out,
+                       torch.zeros((), dtype=dtype, device=out.device))
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +505,7 @@ mega_attn_layer.launches = 0
 mega_attn_layer.twin_routes = 0
 
 
-def _launch_mlp(y2, s_res, p, fuse_epilogue):
+def _launch_mlp(y2, s_res, p, fuse_epilogue, q_lens, chunk):
     what = "mega_mlp"
     t, h = y2.shape
     dtype, dev = y2.dtype, y2.device
@@ -470,6 +517,9 @@ def _launch_mlp(y2, s_res, p, fuse_epilogue):
     f = (w1l["q"] if isinstance(w1l, dict) else w1l).shape[1]
     w1, s1, g1 = _weight(w1l, h, f, dtype, what + " w1")
     w2, s2, g2 = _weight(p["w2"], f, h, dtype, what + " w2")
+    if (s1 is None) != (s2 is None):
+        raise NotImplementedError(f"{what} kernel takes w1 and w2 both int8 "
+                                  "or both in the activation type")
     b1 = _vector(p, "b1", f, dtype, what)
     b2 = _vector(p, "b2", h, dtype, what)
     if fuse_epilogue:
@@ -478,39 +528,57 @@ def _launch_mlp(y2, s_res, p, fuse_epilogue):
                              f" {dtype}")
     else:
         s_res = None
+    if q_lens is None:
+        lanes, chunk = 1, t
+    else:
+        lanes = q_lens.shape[0]
+        if q_lens.dtype != torch.int32 or q_lens.dim() != 1 \
+                or lanes * chunk != t:
+            raise ValueError(f"{what}: q_lens must be int32 [t / chunk] = "
+                             f"[{t} / {chunk}], got {q_lens.dtype} "
+                             f"{tuple(q_lens.shape)}")
     _check_tensors(what, dev, dict(y2=y2, s_res=s_res, w1=w1, s1=s1, b1=b1,
-                                   w2=w2, s2=s2, b2=b2))
+                                   w2=w2, s2=s2, b2=b2, q_lens=q_lens))
     out = torch.empty_like(y2)
     if t == 0:
         return out
-    nf, nm = -(-f // _TILE), -(-t // _MLP_ROWS)
-    ws = torch.empty((nf, t, h), dtype=torch.float32, device=dev)
-    counters = _build.kept(dev, "mlp", nm * -(-h // _TILE))
+    plan = mlp_plan(h, f)
+    elt = y2.element_size()
+    hid_n = -(-t * f * elt // 4)
+    scratch = _build.kept(dev, "mega_mlp",
+                          hid_n + 4 + plan.splits * t * h, torch.float32)
+    part = scratch[-(-hid_n // 4) * 4:]      # 16-byte aligned after hid
+    flags = _build.kept(dev, "mlp", plan.splits + plan.consumers
+                        // plan.splits + 2)
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_mega_mlp(
         y2.data_ptr(), _ptr(s_res), w1.data_ptr(), _ptr(s1), b1.data_ptr(),
-        w2.data_ptr(), _ptr(s2), b2.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), counters.data_ptr(), t, h, f, g1, g2,
-        int(fuse_epilogue), code, dev.index,
+        w2.data_ptr(), _ptr(s2), b2.data_ptr(), _ptr(q_lens), out.data_ptr(),
+        scratch.data_ptr(), part.data_ptr(), flags.data_ptr(), t, h, f, g1,
+        g2, lanes, chunk, plan.splits, int(fuse_epilogue), code, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, f"{what} launch")
     mega_mlp.launches += 1
     return out
 
 
-def mega_mlp(y2, s_res, p, *, use_kernel=None, fuse_epilogue=True, chunk=1):
+def mega_mlp(y2, s_res, p, *, use_kernel=None, fuse_epilogue=True, chunk=1,
+             q_lens=None):
     """The MLP side of a decoder layer on ``[t, h]`` rows: ``s_res + b2 +
     gelu_tanh(y2 @ w1 + b1) @ w2`` in y2's dtype (``fuse_epilogue=False``:
-    the second product alone; ``s_res`` may be None). ``chunk`` keys the
-    reference's autotune lookup and is unused here."""
-    del chunk
+    the second product alone; ``s_res`` may be None). ``q_lens`` (int32
+    ``[t / chunk]``): the rows are lane blocks of ``chunk`` rows and lane
+    ``l`` feeds its first ``q_lens[l]``; only those are computed and the
+    others are zero (the kernel reads q_lens on the device, so a captured
+    step stays valid). Without it every row is computed."""
     kernel = _use_kernel(use_kernel, y2, "mega_mlp")
     if kernel and not kernel_takes(y2.dtype):
         mega_mlp.twin_routes += 1
         kernel = False
     if not kernel:
-        return mega_mlp_reference(y2, s_res, p, fuse_epilogue=fuse_epilogue)
-    return _launch_mlp(y2, s_res, p, fuse_epilogue)
+        return mega_mlp_reference(y2, s_res, p, fuse_epilogue=fuse_epilogue,
+                                  q_lens=q_lens, chunk=chunk)
+    return _launch_mlp(y2, s_res, p, fuse_epilogue, q_lens, chunk)
 
 
 mega_mlp.launches = 0

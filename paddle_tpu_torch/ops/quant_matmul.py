@@ -10,8 +10,12 @@ dtype (bf16 rounds it), products accumulate in fp32, and the result is
 cast to ``x``'s dtype; a bias is added in fp32 before that cast.
 
 On a CUDA tensor :func:`quant_matmul_fwd` / :func:`quant_matmul_bwd`
-launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise); on
-a CPU tensor they run :func:`quant_matmul_reference` and
+launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise),
+the route chosen before the launch by the pure :func:`qmm_plan`: the int8
+forward at up to :data:`TC_ROWS` tokens on aligned widths takes the
+tensor-core kernel (``"tc"``, counted in ``quant_matmul_fwd.tc_launches``
+too), everything else the CUDA-core kernel (``"cc"``); on a CPU tensor
+they run :func:`quant_matmul_reference` and
 :func:`quant_matmul_dx_reference`. :func:`quant_matmul` is differentiable
 on both: one custom op (``paddle_tpu_torch::quant_matmul``) whose backward
 gives ``dx = dy @ dequant(W)^T`` through the backward kernel and the bias
@@ -22,8 +26,9 @@ reference returns float0 and zeros for them). Calls that need no gradient
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,11 +41,18 @@ _I = ctypes.c_int
 _ENTRY = [_P] * 7 + [_I] * 9 + [_P]
 _SIGNATURES = {f"ptt_qmm_{name}": _ENTRY
                for name in ("int8", "int4", "int8_bwd", "int4_bwd")}
-# the kernel's tiles (csrc/quant_matmul.cu): 32 activation rows x 64
-# output columns a block, 64 reduction indices a stage; a stage of the
-# int8 weight is 64 stored rows, of the packed int4 weight 32
+_SIGNATURES["ptt_qmm_int8_tc"] = [_P] * 7 + [_I] * 8 + [_P]
+# the CUDA-core kernel's tiles (csrc/quant_matmul.cu qmm_kernel): 32
+# activation rows x 64 output columns a block, 64 reduction indices a
+# stage; a stage of the int8 weight is 64 stored rows, of the packed int4
+# weight 32
 _BM, _BJ, _BR = 32, 64, 64
 _BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
+# the tensor-core kernel (qmm_tc_kernel, csrc/skinny_gemm.cuh): up to
+# TC_ROWS tokens, 64 output columns a block, K in stages of 64 rows through
+# a ring of TC_RING bytes of shared memory; K is split until the blocks fill
+# one wave of the card's SMs
+TC_ROWS, TC_COLS, TC_STAGE, TC_RING = 64, 64, 64, 96 << 10
 
 
 # ---------------------------------------------------------------------------
@@ -137,38 +149,53 @@ def quant_matmul_dx_reference(dy, qweight, scales, k, x_dtype):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# per-device arrival counters of the split reduction: all zero between
-# launches (the last block of each tile resets its count). Launches that
-# share them must run in stream order, as the serving step's do. Grown
-# buffers are kept, so a captured CUDA graph never sees its buffer freed.
-_counters: dict[int, list[torch.Tensor]] = {}
+class QmmPlan(NamedTuple):
+    route: str      # "tc": qmm_tc_kernel, "cc": qmm_kernel
+    tiles: int      # output tiles (column tiles x row tiles)
+    splits: int     # blocks sharing a tile's reduction
+    per: int        # reduction stages a split walks (the last may walk fewer)
 
 
-def _tile_counters(device, tiles: int) -> torch.Tensor:
-    held = _counters.setdefault(device.index, [])
-    if not held or held[-1].numel() < tiles:
-        held.append(torch.zeros(max(tiles, 1 << 16), dtype=torch.int32,
-                                device=device))
-    return held[-1]
-
-
-def _grid(m, k, n, packed, bwd, device):
-    """(output tiles, splits, stages per split) the kernel runs with."""
+def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
+    """The launch of one weight-only GEMM: ``m`` rows, a ``[K, N]`` weight
+    (``packed`` int4 or int8) with ``groups`` scale rows, forward or dx
+    (``bwd``), activations of ``dtype``; ``aligned``: x, the weight, its
+    scales and the output start on 16 bytes; ``sms``: the card's SMs. A pure
+    function of its arguments, decided before any launch: the int8 forward
+    at ``1 <= m <= TC_ROWS`` with ``K % 64`` (its stages), ``N % 16`` and
+    the scale groups' rows ``% 16`` all 0 takes the tensor-core kernel, the
+    rest the CUDA-core kernel. Either splits the reduction across blocks
+    until they fill the card."""
+    gs = k // max(groups, 1)
+    if (not packed and not bwd and 1 <= m <= TC_ROWS and k % TC_STAGE == 0
+            and n % 16 == 0 and gs % 16 == 0 and aligned
+            and dtype in (torch.float32, torch.bfloat16)):
+        tiles = -(-n // TC_COLS)
+        stages = k // TC_STAGE
+        want = max(1, -(-sms // tiles))
+        per = max(1, stages // want)
+        return QmmPlan("tc", tiles, -(-stages // per), per)
     kw = k // 2 if packed else k
     rw = 32 if packed else 64
     tiles_j = -(-kw // rw) if bwd else -(-n // _BJ)
     stages = -(-n // _BR) if bwd else -(-kw // rw)
     tiles = tiles_j * -(-m // _BM)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(stages, -(-_BLOCKS_PER_SM * sms // tiles)))
     per = -(-stages // want)
-    return tiles, -(-stages // per), per
+    return QmmPlan("cc", tiles, -(-stages // per), per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(a, qweight, scales2d, bias, k, n, bwd):
     """One kernel launch: forward ``a = x [M, K]`` -> ``[M, N]``, backward
-    ``a = dy [M, N]`` -> ``[M, K]``, in ``a``'s dtype. Returns the output
-    and the kernel's name (None when ``M == 0`` and nothing launched)."""
+    ``a = dy [M, N]`` -> ``[M, K]``, in ``a``'s dtype, split partials and
+    arrival counters from ``_build.kept`` (kept once grown, so a captured
+    CUDA graph holds them). Returns the output, the kernel's name and the
+    route (None, None when ``M == 0`` and nothing launched)."""
     code = _build.dtype_code(a.dtype, "quant_matmul")
     packed = _is_packed(qweight, k)
     if qweight.dtype != torch.int8:
@@ -185,21 +212,29 @@ def _launch(a, qweight, scales2d, bias, k, n, bwd):
     name = ("int4" if packed else "int8") + ("_bwd" if bwd else "")
     out = torch.empty((m, k if bwd else n), dtype=a.dtype, device=a.device)
     if m == 0:
-        return out, None
-    tiles, splits, per = _grid(m, k, n, packed, bwd, a.device)
-    ws = (torch.empty((splits, m, out.shape[1]), dtype=torch.float32,
-                      device=a.device) if splits > 1 else None)
-    counters = _tile_counters(a.device, tiles)
+        return out, None, None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, qweight, scales2d, out))
+    plan = qmm_plan(m, k, n, scales2d.shape[0], a.dtype, packed, bwd,
+                    aligned, _sms(a.device.index))
+    ws = None
+    if plan.splits > 1:
+        ws = _build.kept(a.device, "qmm", plan.splits * m * out.shape[1],
+                         torch.float32)
+    counters = _build.kept(a.device, "qmm", plan.tiles)
+    args = (a.data_ptr(), qweight.data_ptr(), scales2d.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), counters.data_ptr(), m, k,
+            n, scales2d.shape[0], plan.splits, plan.per)
+    tail = (code, a.device.index,
+            torch.cuda.current_stream(a.device).cuda_stream)
     lib = _build.load(_KERNEL, _SIGNATURES)
-    err = getattr(lib, f"ptt_qmm_{name}")(
-        a.data_ptr(), qweight.data_ptr(), scales2d.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), counters.data_ptr(), m, k, n,
-        scales2d.shape[0], splits, per,
-        int(n % 16 == 0 and qweight.data_ptr() % 16 == 0), code,
-        a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, err, f"quant_matmul {name} launch")
-    return out, name
+    if plan.route == "tc":
+        err = lib.ptt_qmm_int8_tc(*args, *tail)
+    else:
+        err = getattr(lib, f"ptt_qmm_{name}")(
+            *args, int(n % 16 == 0 and qweight.data_ptr() % 16 == 0), *tail)
+    _build.check(lib, err, f"quant_matmul {name} ({plan.route}) launch")
+    return out, name, plan.route
 
 
 def _check_device(t):
@@ -211,7 +246,8 @@ def _check_device(t):
 
 def quant_matmul_fwd(x2, qweight, scales2d, bias=None):
     """``x2 [M, K] @ dequant(qweight) (+ bias)`` in ``x2``'s dtype: the
-    kernel on a CUDA tensor (``.launches["int8" | "int4"]`` counts it), the
+    kernel :func:`qmm_plan` picks on a CUDA tensor (``.launches["int8" |
+    "int4"]`` counts both routes, ``.tc_launches`` the tensor-core one), the
     reference on a CPU tensor."""
     _check_device(x2)
     if x2.device.type == "cpu":
@@ -219,14 +255,16 @@ def quant_matmul_fwd(x2, qweight, scales2d, bias=None):
     if not kernel_takes(x2.dtype):
         quant_matmul_fwd.twin_routes += 1
         return quant_matmul_reference(x2, qweight, scales2d, bias=bias)
-    out, name = _launch(x2, qweight, scales2d, bias, x2.shape[1],
-                        qweight.shape[1], bwd=False)
+    out, name, route = _launch(x2, qweight, scales2d, bias, x2.shape[1],
+                               qweight.shape[1], bwd=False)
     if name:
         quant_matmul_fwd.launches[name] += 1
+        quant_matmul_fwd.tc_launches += route == "tc"
     return out
 
 
 quant_matmul_fwd.launches = {"int8": 0, "int4": 0}
+quant_matmul_fwd.tc_launches = 0
 quant_matmul_fwd.twin_routes = 0
 
 
@@ -240,8 +278,8 @@ def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
     if not kernel_takes(x_dtype):
         quant_matmul_bwd.twin_routes += 1
         return quant_matmul_dx_reference(dy, qweight, scales2d, k, x_dtype)
-    out, name = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
-                        qweight.shape[1], bwd=True)
+    out, name, _ = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
+                           qweight.shape[1], bwd=True)
     if name:
         quant_matmul_bwd.launches[name[:4]] += 1
     return out

@@ -77,6 +77,7 @@ from paddle_tpu_torch.ops.mega_decode import (
 from paddle_tpu_torch.ops.quant_matmul import (
     quant_matmul, quant_matmul_bwd, quant_matmul_dx_reference,
     quant_matmul_fwd, quant_matmul_reference)
+from paddle_tpu_torch.ops import quant_matmul as qmm_mod
 from paddle_tpu_torch.ops.grouped_matmul import (
     grouped_matmul, grouped_matmul_bwd, grouped_matmul_dx_reference,
     grouped_matmul_fwd, grouped_matmul_reference)
@@ -705,7 +706,8 @@ def test_mega_attn_kernel_head_major(cuda, dtype, geom):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(128, 768, 3072, 128), (15, 200, 640, 40)])
+@pytest.mark.parametrize("shape", [(128, 768, 3072, 128), (15, 200, 640, 40),
+                                   (15, 192, 640, 32)])
 @pytest.mark.parametrize("weights", ["fp", "int8"])
 def test_mega_mlp_kernel_matches_plain(cuda, dtype, shape, weights):
     t, h, f, group = shape
@@ -726,6 +728,144 @@ def test_mega_mlp_kernel_matches_plain(cuda, dtype, shape, weights):
         want = mega_mlp_reference(y2, s_res, p, fuse_epilogue=fuse)
         _mega_close(got[None], want[None], dtype,
                     torch.full((1,), t, device=cuda))
+
+
+# (lanes, chunk, h, ffn, q_lens or None, int8 group): GPT-125M's served
+# round (24 live rows of 128), its decode round (8 of 128), the dense block
+# (no q_lens), an odd block (5 lanes of 3, an idle lane: 9 live rows), a
+# wide one (more than 64 live rows: two passes), and widths off the
+# kernel's tiles and stages (h 200, ffn 600) with groups of 40 rows
+MLP_LIVE_CASES = {
+    "served": (8, 16, 768, 3072, [16, 2, 1, 1, 1, 1, 1, 1], 128),
+    "decode": (8, 16, 768, 3072, [1] * 8, 128),
+    "dense": (8, 16, 768, 3072, None, 128),
+    "odd": (5, 3, 256, 640, [0, 3, 2, 1, 3], 64),
+    "wide": (12, 16, 256, 640, [16, 16, 16, 16, 16, 9, 0, 1, 16, 2, 3, 4],
+             32),
+    "edge": (5, 3, 200, 600, [0, 3, 2, 1, 3], 40),
+}
+
+
+def _mlp_live_inputs(case, weights, dtype, device, seed=3):
+    b, chunk, h, f, ql, group = MLP_LIVE_CASES[case]
+    rng = np.random.RandomState(seed)
+    to = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(device, dt)
+    p = {"b1": to(0.1 * rng.randn(f)), "b2": to(0.1 * rng.randn(h))}
+    for name, (k, n) in (("w1", (h, f)), ("w2", (f, h))):
+        w = to(rng.randn(k, n) / np.sqrt(k), torch.float32)
+        p[name] = (quantize_weight(w, "int8", group if weights == "int8g"
+                                   else -1) if weights != "fp"
+                   else w.to(dtype))
+    y2, s_res = to(rng.randn(b * chunk, h)), to(rng.randn(b * chunk, h))
+    q_lens = None if ql is None else torch.tensor(ql, dtype=torch.int32,
+                                                  device=device)
+    return y2, s_res, p, q_lens, chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MLP_LIVE_CASES))
+@pytest.mark.parametrize("weights", ["fp", "int8", "int8g"])
+def test_mega_mlp_live_rows_repeat_and_graph(cuda, dtype, case, weights):
+    """The mega MLP kernel on the rows each lane feeds (zeros elsewhere)
+    against its plain version, both epilogues, one launch each; a second
+    launch bitwise equal; a captured call bitwise equal to an eager one."""
+    y2, s_res, p, q_lens, chunk = _mlp_live_inputs(case, weights, dtype,
+                                                   cuda)
+    for fuse in (True, False):
+        kw = dict(fuse_epilogue=fuse, q_lens=q_lens, chunk=chunk)
+        before = mega_mlp.launches
+        got = mega_mlp(y2, s_res if fuse else None, p, **kw)
+        again = mega_mlp(y2, s_res if fuse else None, p, **kw)
+        torch.cuda.synchronize()
+        assert mega_mlp.launches == before + 2
+        assert torch.equal(got, again)
+        want = mega_mlp_reference(y2, s_res, p, **kw)
+        _mega_close(got[None], want[None], dtype,
+                    torch.full((1,), got.shape[0], device=cuda))
+    _graph_equal(lambda: mega_mlp(y2, s_res, p, q_lens=q_lens, chunk=chunk))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mega_mlp_unaligned_inputs(cuda, dtype):
+    """Inputs that do not start on 16 bytes (each a view one element into
+    its buffer) give the same result as aligned copies, bitwise, at widths
+    off the kernel's tiles."""
+    y2, s_res, p, q_lens, chunk = _mlp_live_inputs("edge", "int8g", dtype,
+                                                   cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    moved = {k: ({"q": shifted(v["q"]), "s": shifted(v["s"])}
+                 if isinstance(v, dict) else shifted(v))
+             for k, v in p.items()}
+    kw = dict(q_lens=q_lens, chunk=chunk)
+    got = mega_mlp(shifted(y2), shifted(s_res), moved, **kw)
+    want = mega_mlp(y2, s_res, p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# (M, K, N, int8 group): GPT-125M's four serving GEMMs at the token budget,
+# a decode round (8 tokens), one token, the route's widest M, and an odd M
+QMM_TC_CASES = [(24, 768, 2304, -1), (24, 768, 768, 128),
+                (24, 768, 3072, 128), (24, 3072, 768, -1), (8, 768, 2304, 64),
+                (1, 768, 768, -1), (64, 3072, 768, 128), (37, 512, 336, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QMM_TC_CASES)
+def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case):
+    """The int8 forward at M <= 64 on aligned widths runs the tensor-core
+    route (one ``tc_launches`` a call) and matches its plain version, with
+    the bias; a second launch is bitwise equal, a captured call equal to an
+    eager one."""
+    m, k, n, gs = case
+    rng = np.random.RandomState(8)
+    qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
+        (k, n)).astype(np.float32)).to(dtype), "int8", gs)
+    q, s = qw["q"].to(cuda), qw["s"].to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, dtype)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda)
+    plan = qmm_mod.qmm_plan(m, k, n, s.reshape(-1, n).shape[0], dtype,
+                            False, False, True, 132)
+    assert plan.route == "tc"
+    before = quant_matmul_fwd.tc_launches
+    got = quant_matmul_fwd(x, q, s.reshape(-1, n), bias)
+    again = quant_matmul_fwd(x, q, s.reshape(-1, n), bias)
+    torch.cuda.synchronize()
+    assert quant_matmul_fwd.tc_launches == before + 2
+    assert torch.equal(got, again)
+    _qmm_err(got.float(), quant_matmul_reference(x, q, s, bias=bias).float(),
+             dtype)
+    _graph_equal(lambda: quant_matmul_fwd(x, q, s.reshape(-1, n), bias))
+
+
+def test_quant_matmul_other_shapes_run_cuda_cores(cuda):
+    """M past the route's 64 rows, K off its 32-row stages, N off 16 and
+    int4 take the CUDA-core kernel (no ``tc_launches``), correct."""
+    rng = np.random.RandomState(9)
+    for m, k, n, bits, gs in ((65, 768, 768, 8, -1), (24, 200, 768, 8, 40),
+                              (24, 768, 130, 8, -1), (24, 768, 768, 4, 128)):
+        name = f"int{bits}"
+        qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
+            (k, n)).astype(np.float32)).to(torch.bfloat16), name, gs)
+        q, s = qw["q"].to(cuda), qw["s"].to(cuda)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        before = quant_matmul_fwd.tc_launches
+        got = quant_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert quant_matmul_fwd.tc_launches == before
+        _qmm_err(got.float(), quant_matmul_reference(x, q, s).float(),
+                 torch.bfloat16)
 
 
 def test_mega_serving_launches_and_tokens(cuda):

@@ -210,6 +210,77 @@ def test_mlp_twin_matches_jax_reference(quant, group, fuse):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("quant,group", [(None, -1), ("int8", -1),
+                                         ("int8", 16)])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_mlp_twin_live_rows_match_jax_reference(quant, group, fuse):
+    """Given ``q_lens``, the twin (the kernel's oracle) equals the JAX
+    ``mega_mlp_reference`` on the rows each lane feeds and is exactly zero
+    in the others: lanes of chunk 4 with a full, a partial, an idle and a
+    one-row lane."""
+    rng = np.random.RandomState(7)
+    p_j, p_t = _layer(rng, quant, group)
+    chunk, qlens = 4, np.array([4, 2, 0, 1], np.int32)
+    t = chunk * len(qlens)
+    y2 = rng.randn(t, H).astype(np.float32)
+    sres = rng.randn(t, H).astype(np.float32)
+    ref = np.asarray(jax.jit(functools.partial(
+        jmega.mega_mlp_reference, fuse_epilogue=fuse))(
+        jnp.asarray(y2), jnp.asarray(sres) if fuse else None, p_j))
+    got = tmega.mega_mlp(_jt(y2), _jt(sres) if fuse else None, p_t,
+                         fuse_epilogue=fuse, q_lens=_jt(qlens),
+                         chunk=chunk).numpy()
+    live = np.arange(t) % chunk < qlens[np.arange(t) // chunk]
+    assert live.sum() == qlens.sum()
+    np.testing.assert_allclose(got[live], ref[live], **TOL)
+    assert not got[~live].any()
+    np.testing.assert_array_equal(
+        tmega.live_rows(t, _jt(qlens), chunk).numpy(), live)
+    dense = tmega.mega_mlp(_jt(y2), _jt(sres) if fuse else None, p_t,
+                           fuse_epilogue=fuse, chunk=chunk).numpy()
+    np.testing.assert_allclose(dense, ref, **TOL)
+
+
+def test_mlp_plan_covers_fills_and_ignores_row_values():
+    """The MLP kernel's plan reads the weights' shapes only (no row count,
+    no q_lens): GEMM1 producers tile the ffn columns once; GEMM2 consumers
+    tile (h columns x ffn splits) once, each split whole 64-row stages and
+    a whole number of producers (the last split ends at ffn, on any
+    width); GPT-125M's plan fills a wave of the H100's 132 SMs with
+    consumers reading as many weight bytes as producers; every block's
+    shared memory lets two blocks share an SM."""
+    import inspect
+
+    assert list(inspect.signature(tmega.mlp_plan).parameters) == ["h", "f"]
+    cols, stage = tmega.MLP_COLS, tmega.MLP_STAGE
+    for h, f in ((768, 3072), (1536, 6144), (2560, 10240), (256, 640),
+                 (64, 128), (4096, 16384), (192, 640), (128, 128),
+                 (200, 640), (200, 600), (4, 7), (100, 1000), (36, 4000)):
+        plan = tmega.mlp_plan(h, f)
+        assert plan.producers == -(-f // cols)
+        assert plan.consumers == -(-h // cols) * plan.splits
+        assert plan.blocks == plan.producers + plan.consumers
+        # the kernel's split: fs rows of whole stages, fs / 32 producers
+        fs = -(-f // stage) // plan.splits * stage
+        assert fs % stage == 0 and (plan.splits - 1) * fs < f
+        ffn = sorted(r for s in range(plan.splits)
+                     for r in range(s * fs, min(f, (s + 1) * fs)))
+        assert ffn == list(range(f))
+        owners = [min(p * cols // fs, plan.splits - 1)
+                  for p in range(plan.producers)]
+        assert [p * cols // fs for p in range(plan.producers)] == owners
+        assert set(owners) == set(range(plan.splits))
+        hcols = sorted(c for j in range(-(-h // cols))
+                       for c in range(j * cols, min(h, (j + 1) * cols)))
+        assert hcols == list(range(h))
+    served = tmega.mlp_plan(768, 3072)
+    assert served == (4, 96, 96, 192) and served.blocks >= 132
+    # a consumer's w2 slice (f / splits x 32) matches a producer's w1 slice
+    assert 3072 // served.splits * 32 == 768 * 32
+    # two blocks share an SM, with the row tables of 64 lanes
+    assert 2 * (tmega.MLP_RING + 4 * (64 + 1 + 64)) <= 232448
+
+
 def test_quantizer_bit_equal_to_jitted_reference():
     """The port's KV quantizer against ``jax.jit`` of the reference mega
     kernels' ``_quantize_rows_f32``, on rows of every magnitude."""
@@ -402,6 +473,56 @@ def test_unified_step_mega_matches_jax(weight_dtype, group_size, kv_quant):
             else:
                 np.testing.assert_allclose(got, want, **TOL)
     assert tpools[0][:, 4].abs().sum() > 0           # the CoW page landed
+
+
+def test_mega_step_rows_past_q_lens_are_not_read():
+    """The mega step hands ``mega_mlp`` its lanes' ``q_lens`` (rows past
+    them come back zero); the step's logits equal those of the same step
+    with the MLP computing every row, so nothing reads those rows."""
+    jm, _ = _pair(seed=5)
+    cfg = tgpt.GPTConfig(**TINY)
+    ps, chunk, b, t, num_pages = 4, 4, 3, 8, 6
+    tparams = _to_torch(jgpt.serving_params(jm))
+    shape = (cfg.num_layers, num_pages + 1, ps, cfg.num_heads, cfg.head_dim)
+    step = tgpt.build_unified_step(cfg, ps, chunk, mega=True)
+    lanes = {0: (0, [5, 6, 7]), 2: (0, [9])}
+    ids, slot, pos, ql, kl, last, emit = _step_args(lanes, b, t)
+    pt = np.array([[1, -1], [-1, -1], [0, -1]], np.int32)
+    zb, zt = np.zeros(b, np.int32), np.zeros(t, np.int32)
+    seen = []
+    real = tgpt.mega_mlp
+
+    def run(mlp):
+        pools = [torch.zeros(shape), torch.zeros(shape)]
+        tgpt.mega_mlp = mlp
+        try:
+            return step(tparams, *(torch.from_numpy(a) for a in
+                                   (ids, slot, pos, ql, kl, last, zt, zb,
+                                    emit, zb)),
+                        *pools, torch.from_numpy(pt),
+                        torch.full((b,), num_pages, dtype=torch.int32),
+                        torch.full((b,), num_pages, dtype=torch.int32),
+                        torch.zeros(b, dtype=torch.int64), torch.zeros(b),
+                        torch.zeros(b, dtype=torch.int32), torch.ones(b))
+        finally:
+            tgpt.mega_mlp = real
+
+    def recording(y2, s_res, p, **kw):
+        out = real(y2, s_res, p, **kw)
+        seen.append((kw["q_lens"].tolist(), int((out != 0).any(-1).sum())))
+        return out
+
+    def dense(y2, s_res, p, **kw):
+        kw.pop("q_lens")
+        return real(y2, s_res, p, **kw)
+
+    masked, full = run(recording), run(dense)
+    assert seen == [(ql.tolist(), 4)] * cfg.num_layers
+    rows = sorted(lanes)
+    np.testing.assert_array_equal(masked[1].numpy()[rows],
+                                  full[1].numpy()[rows])
+    np.testing.assert_array_equal(masked[0].numpy()[rows],
+                                  full[0].numpy()[rows])
 
 
 def _churn():

@@ -214,3 +214,94 @@ def test_paged_write_packed_quant_bit_equal():
         with pytest.raises(ValueError, match="kv_cache_dtype"):
             tkv.kv_cache_quantized(bad)
     assert tkv.kv_cache_quantized("int8") and not tkv.kv_cache_quantized(None)
+
+
+SERVING_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def test_qmm_plan_routes_every_shape():
+    """The pure plan routes every M, width, alignment, dtype and weight
+    before any launch: the int8 forward at 1 <= M <= 64 with K % 64 (its
+    stages), N % 16, scale groups of a multiple of 16 rows and aligned rows
+    takes the tensor-core kernel, everything else (int4, dx, M > 64 as in
+    legacy prefill buckets, odd widths, unaligned pointers) the CUDA-core
+    one;
+    either way every reduction stage is walked by exactly one split."""
+    for m in (1, 7, 8, 24, 33, 64, 65, 128, 512):
+        for k, n, groups in ((768, 2304, 1), (3072, 768, 24), (200, 130, 5),
+                             (768, 770, 1), (768, 768, 48), (96, 64, 3),
+                             (768, 768, 64), (128, 64, 4)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for packed, bwd, aligned in ((False, False, True),
+                                             (False, False, False),
+                                             (True, False, True),
+                                             (False, True, True)):
+                    plan = tqm.qmm_plan(m, k, n, groups, dtype, packed, bwd,
+                                        aligned, 132)
+                    tc = (not packed and not bwd and aligned and m <= 64
+                          and k % tqm.TC_STAGE == 0 and n % 16 == 0
+                          and (k // groups) % 16 == 0)
+                    assert plan.route == ("tc" if tc else "cc"), (m, k, n)
+                    assert plan == tqm.qmm_plan(m, k, n, groups, dtype,
+                                                packed, bwd, aligned, 132)
+                    if tc:
+                        stages = k // tqm.TC_STAGE
+                        assert plan.tiles == -(-n // tqm.TC_COLS)
+                    else:
+                        kw = k // 2 if packed else k
+                        rw = 32 if packed else 64
+                        stages = -(-n // 64) if bwd else -(-kw // rw)
+                    assert (plan.splits - 1) * plan.per < stages \
+                        <= plan.splits * plan.per
+
+
+def test_qmm_plan_fills_the_card_at_the_serving_shapes():
+    """GPT-125M's four GEMMs at the 24-token budget and a decode round of 8
+    take the tensor-core route with at least one block per SM of the
+    H100's 132, and a block's shared memory fits the 227 KB it may use."""
+    for m in (24, 8):
+        for k, n in SERVING_GEMMS:
+            for groups in (1, k // 128):
+                plan = tqm.qmm_plan(m, k, n, groups, torch.bfloat16, False,
+                                    False, True, 132)
+                assert plan.route == "tc" and plan.tiles * plan.splits >= 132
+    assert 2 * tqm.TC_RING <= 232448      # two blocks share an SM
+    assert hasattr(tqm._sms, "cache_info")   # the SM count is read once
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group_size", [-1, 32])
+def test_tc_split_plan_sums_to_the_jax_gemm(dtype, group_size):
+    """The tensor-core route's arithmetic in torch: each split's fp32
+    product over its K-slice (the weight dequantized as the kernel does, q
+    times the bf16-rounded scale in bf16), the splits summed in order, the
+    bias added in fp32, one cast — against the JAX reference GEMM (fp32:
+    max abs error over the output's max ``|want|``, to 1e-6, as the other
+    summation order allows; bf16 per row as the module says)."""
+    m, k, n = 24, 256, 96
+    q, s = _quantized(11, k, n, 8, group_size, dtype)
+    rng = np.random.RandomState(12)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    td = _torch_dtype(dtype)
+    xt = torch.from_numpy(x).to(td)
+    s2 = torch.from_numpy(s).reshape(-1, n)
+    plan = tqm.qmm_plan(m, k, n, s2.shape[0], td, False, False, True, 132)
+    assert plan.route == "tc" and plan.splits > 1
+    w = tqm.dequantize_weight(torch.from_numpy(q), s2, out_dtype=td).float()
+    acc = torch.zeros(m, n)
+    for z in range(plan.splits):
+        ks = slice(z * plan.per * tqm.TC_STAGE,
+                   min(k, (z + 1) * plan.per * tqm.TC_STAGE))
+        acc = acc + xt[:, ks].float() @ w[ks]
+    got = (acc + torch.from_numpy(bias)).to(td).float().numpy()
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jqm.quant_matmul_reference(
+        jx, jnp.asarray(q), jnp.asarray(s), bias=jnp.asarray(bias)
+    ).astype(jnp.float32))
+    if dtype == "float32":   # eight split sums: held as the card holds it
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 1e-6, err
+    else:
+        err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+        assert err.max() <= BF16_ROW_TOL
