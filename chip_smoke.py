@@ -5,6 +5,7 @@
     python3 chip_smoke.py --fused-gelu [ROOT]
     python3 chip_smoke.py --paged-walks [ROOT]
     python3 chip_smoke.py --mlp-gemms [ROOT]
+    python3 chip_smoke.py --moe-gemms [ROOT]
 
 from the root of a checkout. The second form runs only phase 11's bf16
 MoE full forward, with the package of the checkout at ROOT (default: this
@@ -22,8 +23,13 @@ ROOT's package, and prints one JSON line. The fifth times rows 14 and 9
 int8 weight-only GEMM's four serving GEMMs) beside the controls (rows 10,
 11 and 13) and the tensor-core route's other K splits, then the bf16 mega
 and int8 per-op serving steps (wall and profiled device busy), with ROOT's
-package, and prints one JSON line. Phases (each failure ends the run
-non-zero):
+package, and prints one JSON line. The sixth times rows 16 and 17 (the
+grouped GEMM with int8 and int4 expert stacks at the serving rows, fp32 on
+both routes where the package has the skinny one) beside the controls
+(rows 9, 10, 13, 14 and 15) and the skinny route's other K splits, then
+the bf16 int8 and int4 g128 MoE serving steps (wall and profiled device
+busy), with ROOT's package, and prints one JSON line. Phases (each failure
+ends the run non-zero):
 
 1. device: the card's name and power limit;
 2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
@@ -76,8 +82,9 @@ non-zero):
    fp32 and bf16, with kernel / plain / bound times, ``_weight_int8pack_mm``
    as the int8 yardstick where the card's torch has it, and cuBLAS on a
    pre-dequantized weight logged beside them; the int8 forward at the
-   serving shapes must take the tensor-core route (one ``tc_launches``
-   each, none at the odd shape or for int4), every forward launched twice
+   serving shapes must take the tensor-core route in bf16 (one
+   ``tc_launches`` each, none in fp32, at the odd shape or for int4),
+   every forward launched twice
    and bitwise equal, and the int8 four GEMMs are timed at a decode round
    (M 8) too; the ragged kernel's int8-KV
    branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
@@ -87,10 +94,11 @@ non-zero):
    context (the same quantized params through the plain GEMM; in (c) K
    and V through the int8 write's quantize-dequantize), 12 ragged and 48
    weight-only GEMM launches per step (with int8 weights all 48 on the
-   tensor-core route, in the fp32 and the bf16 runs); the gradient of a loss with respect
-   to the input embeddings through the 12 quantized layers (the backward
-   kernels) vs the plain versions; token agreement with phase 6, weight
-   and KV bytes, and the bf16 step time of (a) and (c).
+   tensor-core route in the bf16 runs; fp32 on the CUDA-core kernel); the
+   gradient of a loss with
+   respect to the input embeddings through the 12 quantized layers (the
+   backward kernels) vs the plain versions; token agreement with phase 6,
+   weight and KV bytes, and the bf16 step time of (a) and (c).
 9. fused MLP (its steps run beside their phase-7 twins): the LN forward
    (with and without the residual), LN backward (with and without dso),
    GELU forward and backward (with and without the bias) kernels vs their
@@ -150,9 +158,11 @@ non-zero):
    skewed, one empty) and (c) an odd shape (5 experts, K 136, N 72, groups
    of 8, an empty and a 1-row expert), fp32 and bf16, the empty experts'
    weights NaN; bf16 fp weights run the tensor-core kernel at all three
-   (one ``tc_launches`` each for the forward and dx, none elsewhere), and
-   a second launch at (a) and (b) must be bitwise equal to the first;
-   kernel / plain / bound times at (a) and (b) with ``torch._grouped_mm``
+   (one ``tc_launches`` each for the forward and dx, none elsewhere), the
+   int8 / int4 forwards at (a) the skinny route in bf16 (one
+   ``sk_launches`` each, none in fp32, at (b) or at (c)), and a second
+   launch at (a) and (b) must be bitwise equal to the first; kernel /
+   plain / bound times at (a) and (b) with ``torch._grouped_mm``
    as the yardstick of bf16 fp weights; bf16 fp weights at K 136, N 76
    (a width the 16-byte copies cannot take) on the CUDA-core kernel; then
    ``ServingPredictor`` on GPT-125M with 4 experts, top-2, and the phase-6
@@ -164,7 +174,12 @@ non-zero):
    launches with (iii) / (iv)), none of the mega kernels; the router's
    load imbalance and drop rate on an eager probe; the bf16 MoE step at
    cf 1.25 (every grouped GEMM on the tensor-core kernel) beside phase 6's
-   dense step, one profiled run, and the weight bytes; the bf16 MoE
+   dense step, one profiled run; then (v) int8 and (vi) int4 g128 stacks
+   served in bf16 at cf 1.25, every grouped GEMM on the skinny route (24
+   a step): step 20 against the same step with the plain grouped GEMM
+   (``MOE_BF16_STEP_TOL``, router flips counted), the streams' agreement
+   with the plain grouped GEMM's, the mean step and one profiled run
+   each; and the weight bytes; the bf16 MoE
    full forward on ids [4, 512] at cf 1.25 (24 tensor-core launches a
    forward, median of 5 after a warm-up, one profiled forward: the
    grouped GEMM's device time and share); the eager 2-layer MoE model's
@@ -361,6 +376,22 @@ MOE_SERVE = (("i cf 4.0", 4.0, {}), ("ii cf 1.25", 1.25, {}),
              ("iii int8 cf 4.0", 4.0, dict(weight_dtype="int8")),
              ("iv int4 g128 cf 4.0", 4.0,
               dict(weight_dtype="int4", weight_quant_group_size=128)))
+# bf16 MoE serving with int8 / int4 g128 expert stacks at cf 1.25 (every
+# grouped GEMM on the skinny route), held at one step against the same step
+# with the plain grouped GEMM: both round each expert output to bf16, the
+# kernel after summing in another order, so an output may sit one bf16 step
+# (2^-8 of it) apart and 12 layers carry that into the logits. Each emitting
+# lane's logits row is held as its max abs error over its max |logit| to
+# MOE_BF16_STEP_TOL, the lanes whose tokens took other experts in some
+# layer left out (counted); the greedy token must be the twin's argmax
+# unless the twin's top-2 margin is within twice that row's error. Then
+# MOE_QUANT_RUNS timed runs (the checked and the twin runs before them warm
+# up) and one profiled run.
+MOE_SERVE_BF16 = (("v int8 cf 1.25", dict(weight_dtype="int8")),
+                  ("vi int4 g128 cf 1.25",
+                   dict(weight_dtype="int4", weight_quant_group_size=128)))
+MOE_BF16_STEP_TOL = 5e-2
+MOE_QUANT_RUNS = 1
 QUANT_SERVE = (("a int8", dict(weight_dtype="int8"), 1e-4),
                ("b int4 g128", dict(weight_dtype="int4",
                                     weight_quant_group_size=128), 1e-4),
@@ -388,6 +419,21 @@ LEGACY_D96_LAYERS = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# wall seconds by phase, summed over its calls (main logs them at the end)
+PHASE_S: dict = {}
+
+
+def timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds added to ``PHASE_S`` under
+    its name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[fn.__name__] = (PHASE_S.get(fn.__name__, 0.0)
+                                + time.perf_counter() - t0)
 
 
 def time_ms(fn, iters=50, replays=4) -> float:
@@ -443,6 +489,9 @@ def ptxas_summary(name: str, text: str):
                       r"(13__nv_bfloat16|f)((?:L[ib]\d+E)*)", line)
         tc = re.search(r"Compiling entry function '.*?(gmm_(?:tc|wg)_kernel)"
                        r"ILb(\d)E", line)
+        # bf16-only kernels: templated on an int (the weight bits) or not
+        bf = re.search(r"Compiling entry function '.*?\d((?:gmm_sk|qmm_tc)"
+                       r"_kernel)(?:ILi(\d+)E)?", line)
         if m:
             flags = re.findall(r"L[ib](\d+)E", m.group(3))
             inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
@@ -450,6 +499,8 @@ def ptxas_summary(name: str, text: str):
         elif tc:
             inst = (tc.group(1), "bf16",
                     "dx" if tc.group(2) == "1" else "fwd")
+        elif bf:
+            inst = (bf.group(1), "bf16", bf.group(2) or "-")
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
@@ -678,6 +729,7 @@ def reset_counts():
                                                   "int4": 0}
     grouped_matmul.grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
     grouped_matmul.grouped_matmul_fwd.tc_launches = 0
+    grouped_matmul.grouped_matmul_fwd.sk_launches = 0
     grouped_matmul.grouped_matmul_bwd.tc_launches = 0
     mega_decode.mega_attn_layer.launches = 0
     mega_decode.mega_mlp.launches = 0
@@ -981,11 +1033,13 @@ def phase_qmm(dev):
                 again = quant_matmul_fwd(x, q, sc)
                 dx = quant_matmul_bwd(dy, q, sc, k, dtype)
                 torch.cuda.synchronize()
-                if tc_route != (wd == "int8" and name != "odd"):
+                if tc_route != (wd == "int8" and name != "odd"
+                                and dtype == torch.bfloat16):
                     raise AssertionError(
                         f"quant_matmul {wd} g{g} {name}: {tc_route} "
-                        "tensor-core launches (the int8 forward at M <= 64 "
-                        "on aligned widths takes that route, nothing else)")
+                        "tensor-core launches (the bf16 int8 forward at M <= "
+                        "64 on aligned widths takes that route, nothing "
+                        "else)")
                 if not torch.equal(got, again):
                     raise AssertionError(f"quant_matmul {wd} g{g} {dtype} "
                                          f"{name}: a second launch differs")
@@ -1060,8 +1114,8 @@ def phase_qmm(dev):
 
 def qmm_decode(wd, gs, dtype, dev):
     """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
-    tokens) on the tensor-core route: held as phase 8 holds them, the
-    summed kernel time and bound."""
+    tokens) on the route the plan picks (the tensor cores in bf16): held
+    as phase 8 holds them, the summed kernel time and bound."""
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_fwd,
                                                    quant_matmul_reference)
 
@@ -1084,7 +1138,10 @@ def qmm_decode(wd, gs, dtype, dev):
         work = [work[0] + nbytes, work[1] + nops]
     out = dict(decode_ms=ms, decode_bound_ms=bound_ms(*work, dtype))
     log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
-        f"{QMM_DECODE_ROWS} (a decode round, tensor-core route): kernel "
+        f"{QMM_DECODE_ROWS} (a decode round, "
+        f"{'tensor-core' if dtype == torch.bfloat16 else 'CUDA-core'} "
+        "route): "
+        "kernel "
         f"{ms:.4f} ms, bound {out['decode_bound_ms']:.4f} ms")
     return out
 
@@ -1307,7 +1364,7 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
         others = sum(v for k, v in counts.items() if k != bits)
         if (ragged_n != steps * cfg.num_layers or steps == 0
                 or counts[bits] != 4 * steps * cfg.num_layers or others
-                or tc_n != (counts[bits] if bits == "int8" else 0)):
+                or tc_n):
             raise AssertionError(f"({label}) launches: ragged {ragged_n}, "
                                  f"GEMM {counts} ({tc_n} tensor-core) over "
                                  f"{steps} steps")
@@ -1757,21 +1814,23 @@ def profile_run(fn, card, tag, what):
               "paged decode kernel": ("paged_decode",),
               "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel"),
               "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
-                               "gmm_wg_kernel"),
+                               "gmm_wg_kernel", "gmm_sk_kernel"),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
     times = {name: 0.0 for name in groups}
     times["other PyTorch kernels"] = 0.0
     counts = dict.fromkeys(times, 0)
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
-    for ev in kernels:
-        key = ev.key.lower()
+    # the trace's raw device events (kernels, copies, fills) give the device
+    # times key_averages() would, without the event tree it builds first:
+    # tens of seconds for the ~10^5 kernels of a served MoE run
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
+            continue
+        key = ev.name().lower()
         name = next((n for n, marks in groups.items()
                      if any(m in key for m in marks)),
                     "other PyTorch kernels")
-        times[name] += ev.self_device_time_total
-        counts[name] += ev.count
+        times[name] += ev.duration_ns() / 1e3
+        counts[name] += 1
     busy = sum(times.values())
     if busy <= 0:
         log(f"{tag} profiler: no device time in the trace (not measured)")
@@ -1779,7 +1838,7 @@ def profile_run(fn, card, tag, what):
     log(f"{tag} profiled bf16 run: {what()}, wall {wall_us / 1e3:.1f}"
         f" ms under the profiler, device busy {busy / 1e3:.3f} ms = "
         f"{busy / wall_us:.3f}, idle {1 - busy / wall_us:.3f}; "
-        f"{sum(ev.count for ev in kernels)} kernels; " + ", ".join(
+        f"{sum(counts.values())} kernels; " + ", ".join(
             f"{n} {t / 1e3:.3f} ms ({t / busy:.3f}, {counts[n]} launches)"
             for n, t in times.items() if t) + f" ({card})")
     return {n: (t, counts[n]) for n, t in times.items()}, busy
@@ -1909,6 +1968,15 @@ def gmm_tc_counts() -> list:
             getattr(grouped_matmul_bwd, "tc_launches", 0)]
 
 
+def gmm_sk_count() -> int:
+    """Grouped-GEMM forwards on the skinny route (int8 / int4 stacks at
+    the serving rows) since :func:`reset_counts` (0 for a package that has
+    none)."""
+    from paddle_tpu_torch.ops.grouped_matmul import grouped_matmul_fwd
+
+    return getattr(grouped_matmul_fwd, "sk_launches", 0)
+
+
 @contextlib.contextmanager
 def moe_twins():
     """Every grouped GEMM the MoE FFN runs takes its plain version (on the
@@ -2032,7 +2100,7 @@ def phase_gmm(dev, card):
                                               dev, SEED + ci)
                 tag = (f"[moe] {fwd_name} {label} {str(dtype)[6:]} {name} "
                        f"({rows}) M {sum(counts)} {counts} x [{k}, {n}] g{g}")
-                tc0 = gmm_tc_counts()
+                tc0, sk0 = gmm_tc_counts(), gmm_sk_count()
                 pairs = [(grouped_matmul_fwd(x, w, offs, sc),
                           grouped_matmul_reference(x, w, offs, sc))]
                 if bwd_name:
@@ -2048,6 +2116,14 @@ def phase_gmm(dev, card):
                 if ran != [tc, tc if bwd_name else 0]:
                     raise AssertionError(f"{tag}: tensor-core launches {ran}"
                                          f", want {tc} each")
+                # int8 / int4 stacks at the serving rows (a) take the
+                # skinny route in bf16; fp32, the prefill rows (b) and the
+                # odd widths (c) gmm_kernel
+                sk = int(bits != 0 and rows == "a"
+                         and dtype == torch.bfloat16)
+                if gmm_sk_count() - sk0 != sk:
+                    raise AssertionError(f"{tag}: skinny-route launches "
+                                         f"{gmm_sk_count() - sk0}, want {sk}")
                 if rows != "c":   # a second launch gives the same bits
                     again = [grouped_matmul_fwd(x, w, offs, sc)] + (
                         [grouped_matmul_bwd(dy, w, offs, sc, k, dtype)]
@@ -2069,7 +2145,8 @@ def phase_gmm(dev, card):
                 if not max(held) <= GMM_TOL[dtype]:
                     raise AssertionError(f"{tag}: held errors {held} > "
                                          f"{GMM_TOL[dtype]}")
-                route = "tensor cores" if tc else "CUDA cores"
+                route = ("tensor cores" if tc else "skinny route" if sk
+                         else "CUDA cores")
                 if rows == "c":
                     log(f"{tag}: held fwd / dx {held} (tol "
                         f"{GMM_TOL[dtype]}; {route}); NaN weights of the "
@@ -2117,8 +2194,10 @@ def phase_gmm(dev, card):
                     tot["work"] = [tot["work"][0] + nbytes,
                                    tot["work"][1] + nops]
                     log(f"[moe] {kname} {label} {str(dtype)[6:]} {name} "
-                        f"({rows}) M {sum(counts)} x [{k}, {n}] ({route}, "
-                        "repeat bitwise equal): held "
+                        f"({rows}) M {sum(counts)} x [{k}, {n}] ("
+                        + (route if kname == fwd_name else
+                           "tensor cores" if tc else "CUDA cores")
+                        + ", repeat bitwise equal): held "
                         f"{held[0 if kname == fwd_name else 1]:.3e}; kernel "
                         f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f}, "
                         f"bound {bound_ms(nbytes, nops, dtype):.6f} "
@@ -2205,11 +2284,19 @@ class RouterFlips:
     """Stands in for a predictor's unified step. At call ``at`` it runs the
     step once more with the plain grouped GEMMs on copies of the pools
     first, and counts the router choices (valid token, choice, layer) in
-    which the kernel run and the twin run differ."""
+    which the kernel run and the twin run differ; ``rows`` keeps both
+    runs' logits rows (fp32) of the lanes that emit a token and whose
+    tokens took the same experts in every layer, and the number of lanes
+    left out for a flip."""
 
     def __init__(self, sp, at):
         self.sp, self.step, self.at, self.calls = sp, sp._unified, at, 0
-        self.flips = self.choices = None
+        self.flips = self.choices = self.rows = None
+        inner = self.step   # the unified step, under any StepLogits
+        while "emit_mask" not in inspect.signature(inner.__call__).parameters:
+            inner = inner.step
+        self.emit_at = list(inspect.signature(
+            inner.__call__).parameters).index("emit_mask")
         sp._unified = self
 
     def __call__(self, *args, **kw):
@@ -2224,14 +2311,21 @@ class RouterFlips:
         ragged = paged_attention.ragged_paged_attention
         before = ragged.launches
         with record_routes() as twin, moe_twins():
-            self.step(*twin_args, **kw)
+            twin_out = self.step(*twin_args, **kw)
         ragged.launches = before       # the comparison's launches
         with record_routes() as kern:
             out = self.step(*args, **kw)
-        valid = (args[2] >= 0)[:, None]
-        self.flips = sum(int(((a != b) & valid).sum()) for a, b in
-                         zip(kern, twin))
+        tok_slot = args[2]
+        valid = (tok_slot >= 0)[:, None]
+        diff = [(a != b) & valid for a, b in zip(kern, twin)]
+        self.flips = sum(int(d.sum()) for d in diff)
         self.choices = int(valid.sum()) * kern[0].shape[1] * len(kern)
+        moved = set(tok_slot[torch.stack([d.any(-1) for d in diff]).any(
+            0)].tolist())
+        emit = args[self.emit_at].tolist()
+        slots = [i for i, e in enumerate(emit) if e and i not in moved]
+        self.rows = (out[1][slots].float(), twin_out[1][slots].float(),
+                     len(moved))
         return out
 
 
@@ -2267,13 +2361,15 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
         steps = sp.steps
         bits = quant.get("weight_dtype", "fp")
         outs = [list(r.output_ids) for r in reqs]
+        sk_n = gmm_sk_count()
         log(f"[moe] serve ({label}) fp32: {steps} steps, grouped-GEMM "
-            f"launches {gmm}, ragged {ragged_n}, weight-only GEMM {qmm}, mega"
-            f" {mega_n}, {wall:.3f} s wall")
+            f"launches {gmm} ({sk_n} on the skinny route), ragged "
+            f"{ragged_n}, weight-only GEMM {qmm}, mega {mega_n}, {wall:.3f} "
+            "s wall")
         per_step = 2 * cfg.num_layers
         want_qmm = per_step * steps if quant else 0
         if not (steps and gmm[bits] == per_step * steps
-                and sum(gmm.values()) == gmm[bits]
+                and sum(gmm.values()) == gmm[bits] and sk_n == 0
                 and ragged_n == steps * cfg.num_layers and mega_n == 0
                 and sum(qmm.values()) == want_qmm
                 and (not quant or qmm[bits] == want_qmm)):
@@ -2349,6 +2445,8 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
     profile_serve(quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16),
                   early, late, card, "[moe] (cf 1.25)")
     launches["tc"] = tc[0]
+    launches["serve_bf16"] = timed(moe_serve_quant_bf16, model, mcfg, cfg,
+                                   dev, card, launches)
     sizes = {"fp32": serving_weight_bytes(serving_params(model)),
              "bf16": serving_weight_bytes(sp16.params)}
     del sp16
@@ -2362,6 +2460,87 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
         + f" ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
         "parameters)")
     return launches
+
+
+def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
+    """``MOE_SERVE_BF16``: the MoE GPT-125M served in bf16 at cf 1.25 with
+    int8 and int4 g128 expert stacks, every grouped GEMM on the skinny
+    route (24 a step); one step held against the same step with the plain
+    grouped GEMM (router flips counted), token agreement with the streams
+    of the step built from the plain grouped GEMM (reported), the mean step
+    of ``MOE_QUANT_RUNS`` runs and one profiled run.
+    Adds the launches to ``launches``; returns the figures by label."""
+    early, late = requests(cfg)
+    bf16, out = torch.bfloat16, {}
+    mcfg.moe_capacity_factor = 1.25
+    for label, quant in MOE_SERVE_BF16:
+        bits = quant["weight_dtype"]
+        sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
+        cmp = RouterFlips(sp, at=20)
+        reset_counts()
+        outs = [list(r.output_ids) for r in serve(sp, early, late)]
+        torch.cuda.synchronize()
+        gmm, sk, steps = gmm_counts(), gmm_sk_count(), sp.steps
+        want = 2 * cfg.num_layers * steps
+        if not (steps and gmm[bits] == want == sum(gmm.values()) == sk
+                and sum(map(len, outs)) == MAX_NEW * len(outs)):
+            raise AssertionError(f"bf16 MoE ({label}): grouped-GEMM launches "
+                                 f"{gmm}, skinny {sk}, want {want} over "
+                                 f"{steps} steps")
+        got, ref, moved = cmp.rows
+        err = (got - ref).abs().amax(-1)
+        held = (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item() \
+            if len(got) else float("inf")
+        top2 = ref.topk(2, -1).values
+        off = int(((got.argmax(-1) != ref.argmax(-1))
+                   & (top2[:, 0] - top2[:, 1] > 2 * err)).sum())
+        with moe_twins():
+            twin = [list(r.output_ids) for r in serve(quant_predictor(
+                model, mcfg, quant, dev, dtype=bf16), early, late)]
+        same = sum(a == b for o, w in zip(outs, twin) for a, b in zip(o, w))
+        log(f"[moe] serve ({label}) bf16: {steps} steps, {sk} grouped-GEMM "
+            f"launches, all on the skinny route; step {cmp.at} vs the same "
+            f"step with the plain grouped GEMM: router {cmp.flips} flips in "
+            f"{cmp.choices}, {len(got)} emitting lanes held (logits error "
+            f"{held:.3e} of the row's max, tol {MOE_BF16_STEP_TOL}; greedy "
+            f"token off the twin's argmax past a near tie in {off}), {moved}"
+            f" lanes left out for a flip; token agreement with the plain "
+            f"grouped GEMM's streams {same} of {sum(map(len, twin))}")
+        if not held <= MOE_BF16_STEP_TOL or off:
+            raise AssertionError(f"bf16 MoE ({label}): step {cmp.at} logits "
+                                 f"{held} of the row's max (tol "
+                                 f"{MOE_BF16_STEP_TOL}), {off} greedy tokens "
+                                 "off the plain step's argmax")
+        launches[bits] += gmm[bits]
+        walls = []
+        reset_counts()
+        for _ in range(MOE_QUANT_RUNS):
+            sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(sp, early, late)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+        gmm = gmm_counts()
+        if not gmm[bits] == sum(gmm.values()) == gmm_sk_count():
+            raise AssertionError(f"bf16 MoE ({label}) timed runs: "
+                                 f"grouped-GEMM launches {gmm}, skinny "
+                                 f"{gmm_sk_count()}")
+        launches[bits] += gmm[bits]
+        sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
+        prof = profile_serve(sp, early, late, card, f"[moe] ({label})")
+        st = dict(step_ms=walls, steps=sp.steps, held=held, flips=cmp.flips,
+                  agree=same / sum(map(len, twin)))
+        if prof is not None:
+            st.update(busy_ms=prof[1] / 1e3 / sp.steps,
+                      gmm_ms=prof[0]["grouped GEMM"][0] / 1e3 / sp.steps)
+        log(f"[moe] serve ({label}) bf16: mean step "
+            + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
+            + (f"{st['busy_ms']:.4f} ms a step, the grouped GEMM "
+               f"{st['gmm_ms']:.4f} of it" if prof else "not measured")
+            + f" ({card})")
+        out[label] = st
+    return out
 
 
 def phase_moe_forward(cfg, dev, card):
@@ -4243,6 +4422,116 @@ def mlp_gemms_only(root: Path) -> int:
     return 0
 
 
+def gmm_pair(wd, gs, dtype, dev):
+    """w1 + w2 of one MoE layer at the serving rows (a): the summed kernel
+    time, the bound and the route the package's plan took (``"sk"``,
+    ``"tc"`` or ``"cc"``)."""
+    from paddle_tpu_torch.ops.grouped_matmul import grouped_matmul_fwd
+
+    bits = 0 if wd is None else int(wd[3:])
+    ms, work, routes = 0.0, [0.0, 0.0], set()
+    for ci, (k, n) in enumerate(GMM_SHAPES.values()):
+        x, _, w, sc, offs = gmm_case(GMM_ROWS, k, n, wd, gs, dtype, dev,
+                                     SEED + ci)
+        tc0, sk0 = gmm_tc_counts()[0], gmm_sk_count()
+        grouped_matmul_fwd(x, w, offs, sc)
+        torch.cuda.synchronize()
+        routes.add("sk" if gmm_sk_count() > sk0 else
+                   "tc" if gmm_tc_counts()[0] > tc0 else "cc")
+        ms += time_ms(lambda: grouped_matmul_fwd(x, w, offs, sc))
+        nbytes, nops = gmm_work(GMM_ROWS, k, n, bits,
+                                1 if sc is None else sc.shape[1],
+                                x.element_size())
+        work = [work[0] + nbytes, work[1] + nops]
+    return dict(ms=ms, bound_ms=bound_ms(*work, dtype),
+                route="/".join(sorted(routes)))
+
+
+def moe_gemms_only(root: Path) -> int:
+    """``--moe-gemms [ROOT]``: rows 16 and 17 (the grouped GEMM with int8
+    per-channel, int8 g128 and int4 g128 expert stacks, w1 + w2 at the
+    serving rows (a)) in fp32 and bf16; the controls: row 15 (fp weights
+    at (a)), row 9 (the int8 weight-only GEMM's four serving GEMMs at M
+    24), row 10 (the int4 ones), row 13 (the mega attention kernel at the
+    table shape) and row 14 (the mega MLP at a served round); then the
+    bf16 MoE
+    GPT-125M served at cf 1.25 with int8 and int4 g128 stacks (mean step of
+    2 runs after a warm-up, one profiled run: device busy and the grouped
+    GEMM's device time a step), all with the ``paddle_tpu_torch`` package
+    of the checkout at ``ROOT`` (default: this one); prints one JSON line.
+    Run it with two trees in turns to compare them on one card."""
+    sys.path.insert(0, str(root))
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops.mega_decode import mega_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    for dtype in (f32, bf16):
+        t = str(dtype)[6:]
+        for label, wd, gs in (("16 int8", "int8", -1),
+                              ("16 int8 g128", "int8", 128),
+                              ("17 int4 g128", "int4", 128)):
+            rows[f"{label} (a) {t}"] = gmm_pair(wd, gs, dtype, dev)
+        rows[f"15 fp (a) {t}"] = gmm_pair(None, -1, dtype, dev)
+        rows[f"9 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(8, -1, dtype, dev)
+        rows[f"10 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(4, 128, dtype,
+                                                          dev)
+        args, (y2, s_res) = mega_inputs(MEGA_SERVING, None, -1, False, dtype,
+                                        dev)
+        rows[f"13 table fp {t}"] = {
+            k: v for k, v in mega_case(args, dtype, "table").items()
+            if k in ("ms", "bound_ms")}
+        ql = MLP_ROUNDS["served round"]
+        kw = dict(q_lens=torch.tensor(ql, dtype=torch.int32, device=dev),
+                  chunk=MEGA_SERVING[0][1])
+        nbytes, nops = mega_mlp_work(y2, args[1], True, sum(ql))
+        rows[f"14 served round fp {t}"] = dict(
+            ms=time_ms(lambda: mega_mlp(y2, s_res, args[1], **kw)),
+            bound_ms=bound_ms(nbytes, nops, dtype))
+    for label, st in rows.items():
+        log(f"[moe-gemms] row {label}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()) + f" ({card})")
+    cfg = replace(GPT_CONFIGS["gpt3-125m"], **MOE, moe_capacity_factor=1.25)
+    model = moe_model(cfg, dev)
+    early, late = requests(cfg)
+    steps = {}
+    for name, quant in (("int8", dict(weight_dtype="int8")),
+                        ("int4 g128", dict(weight_dtype="int4",
+                                           weight_quant_group_size=128))):
+        walls = []
+        for run in range(3):
+            sp = quant_predictor(model, cfg, quant, dev, dtype=bf16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(sp, early, late)
+            torch.cuda.synchronize()
+            if run:
+                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+        sp = quant_predictor(model, cfg, quant, dev, dtype=bf16)
+        prof = profile_serve(sp, early, late, card, f"[moe-gemms] {name}")
+        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        groups = None if prof is None else {
+            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            prof[0].items() if us}
+        steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
+                           groups_ms_per_step=groups, steps=sp.steps)
+        log(f"[moe-gemms] serve MoE {name} bf16: mean step "
+            + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
+            + ("not measured" if busy is None else f"{busy:.4f} ms")
+            + f" a step ({sp.steps} steps; {card})")
+    print(json.dumps({"moe_gemms": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, serve=steps)}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -4402,13 +4691,15 @@ def main() -> int:
     modes = {"--moe-forward": moe_forward_only,
              "--fused-gelu": fused_gelu_only,
              "--paged-walks": paged_walks_only,
-             "--mlp-gemms": mlp_gemms_only}
+             "--mlp-gemms": mlp_gemms_only,
+             "--moe-gemms": moe_gemms_only}
     if args[:1] and args[0] in modes and len(args) <= 2:
         root = Path(args[1]).resolve() if len(args) == 2 else ROOT
     elif args:
         print(f"chip_smoke: unknown arguments {args} (none, "
               "--moe-forward [ROOT], --fused-gelu [ROOT], --paged-walks "
-              "[ROOT] or --mlp-gemms [ROOT])", file=sys.stderr)
+              "[ROOT], --mlp-gemms [ROOT] or --moe-gemms [ROOT])",
+              file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
@@ -4444,8 +4735,9 @@ def main() -> int:
                           "flash_attention_bwd", "quant_matmul",
                           "fused_mlp", "mega_decode", "grouped_matmul",
                           "paged_decode_attention"])
+    PHASE_S["build"] = time.perf_counter() - t0
     log(f"[build] eight kernel sources for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{PHASE_S['build']:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
             log(f"[build] {line}")
@@ -4472,70 +4764,70 @@ def main() -> int:
         "(group 8, page 16, d 128)")
 
     # 3, 4. kernels vs plain versions
-    ragged = phase_ragged(dev)
-    ragged_walks = phase_ragged_walks(dev)
-    flash = phase_flash(dev)
+    ragged = timed(phase_ragged, dev)
+    ragged_walks = timed(phase_ragged_walks, dev)
+    flash = timed(phase_flash, dev)
 
     # 5, 6. the main path on GPT-125M (random weights from a numpy seed)
     cfg = GPT_CONFIGS["gpt3-125m"]
     model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
     model.eval()
-    flash_launches = phase_forward(model, cfg, dev)
-    ragged_launches, fp_outs, fp16_step_ms = phase_serve(model, cfg, dev,
-                                                         card)
+    flash_launches = timed(phase_forward, model, cfg, dev)
+    ragged_launches, fp_outs, fp16_step_ms = timed(phase_serve, model, cfg,
+                                                   dev, card)
 
     # 8. quantized serving, while GPT-125M is on the card
-    qmm = phase_qmm(dev)
-    ragged8 = phase_ragged_int8(dev)
-    quant_launches, quant_streams = phase_quant_serve(
-        model, cfg, dev, card, fp_outs, fp16_step_ms)
+    qmm = timed(phase_qmm, dev)
+    ragged8 = timed(phase_ragged_int8, dev)
+    quant_launches, quant_streams = timed(
+        phase_quant_serve, model, cfg, dev, card, fp_outs, fp16_step_ms)
 
     # 10. mega-kernel serving, while GPT-125M is on the card
-    mega = phase_mega_kernels(dev, card)
-    mlp_rounds = phase_mlp_rounds(dev, card)
-    mega_walks = phase_mega_walks(dev)
-    mega_launches = phase_mega_serve(model, cfg, dev, card, fp_outs,
-                                     quant_streams)
-    wide_launches = phase_mega_wide(dev)
+    mega = timed(phase_mega_kernels, dev, card)
+    mlp_rounds = timed(phase_mlp_rounds, dev, card)
+    mega_walks = timed(phase_mega_walks, dev)
+    mega_launches = timed(phase_mega_serve, model, cfg, dev, card, fp_outs,
+                          quant_streams)
+    wide_launches = timed(phase_mega_wide, dev)
 
     # 11. MoE serving (GPT-125M, 4 experts, top-2), its kernels and its
     # gradients; the attention routing of what the flash kernels do not take
-    gmm = phase_gmm(dev, card)
+    gmm = timed(phase_gmm, dev, card)
     moe_cfg = replace(cfg, **MOE)
-    gmm_launches = phase_moe_serve(moe_cfg, dev, card, fp16_step_ms)
-    moe_fwd = phase_moe_forward(replace(moe_cfg, moe_capacity_factor=1.25),
-                                dev, card)
-    gmm_bwd_launches = phase_moe_grads(replace(moe_cfg,
-                                               moe_capacity_factor=1.25), dev)
-    phase_attention_routing(dev)
+    gmm_launches = timed(phase_moe_serve, moe_cfg, dev, card, fp16_step_ms)
+    moe_fwd = timed(phase_moe_forward,
+                    replace(moe_cfg, moe_capacity_factor=1.25), dev, card)
+    gmm_bwd_launches = timed(phase_moe_grads,
+                             replace(moe_cfg, moe_capacity_factor=1.25), dev)
+    timed(phase_attention_routing, dev)
 
     # 12. the legacy two-program path: the paged decode kernel, the ragged
     # kernel's new head dims, GPT-125M served legacy, a d 96 model
-    decode = phase_decode_kernel(dev)
-    phase_ragged_dims(dev)
-    decode_launches = phase_legacy_serve(model, cfg, dev, card, fp_outs,
-                                         quant_streams, fp16_step_ms)
-    decode_launches += phase_legacy_d96(dev)
+    decode = timed(phase_decode_kernel, dev)
+    timed(phase_ragged_dims, dev)
+    decode_launches = timed(phase_legacy_serve, model, cfg, dev, card,
+                            fp_outs, quant_streams, fp16_step_ms)
+    decode_launches += timed(phase_legacy_d96, dev)
 
     # 7. training: the backward kernel, then the training path; 9. the
     # fused-MLP kernels and their paths, each beside its phase-7 twin
-    bwd = phase_flash_bwd(dev)
+    bwd = timed(phase_flash_bwd, dev)
     model.train()
-    phase_eager_grads(model, cfg, dev)
-    fused = phase_fused_kernels(dev)
-    phase_fused_eager(model, cfg, dev)
+    timed(phase_eager_grads, model, cfg, dev)
+    fused = timed(phase_fused_kernels, dev)
+    timed(phase_fused_eager, model, cfg, dev)
     # every fp32 / bf16 path so far ran the kernels; fp16 runs the twins
     if twin_route_count():
         raise AssertionError(f"{twin_route_count()} fp32 / bf16 calls ran a "
                              "plain twin on the card")
-    fp16_routes = phase_fp16(model, cfg, dev, fp_outs)
+    fp16_routes = timed(phase_fp16, model, cfg, dev, fp_outs)
     del model
-    phase_train_fp32(dev)
-    phase_train_bf16_parity(dev)
-    phase_fused_train_fp32(dev)
-    train = phase_train_bf16(dev, card, bwd[torch.bfloat16])
-    fused_train = phase_train_bf16(dev, card, bwd[torch.bfloat16],
-                                   fused=True, unfused=train)
+    timed(phase_train_fp32, dev)
+    timed(phase_train_bf16_parity, dev)
+    timed(phase_fused_train_fp32, dev)
+    train = timed(phase_train_bf16, dev, card, bwd[torch.bfloat16])
+    fused_train = timed(phase_train_bf16, dev, card, bwd[torch.bfloat16],
+                        fused=True, unfused=train)
     train_fwd = train["fwd_n"] + fused_train["fwd_n"]
     train_bwd = train["bwd_n"] + fused_train["bwd_n"]
 
@@ -4708,7 +5000,7 @@ def main() -> int:
         f"{qmm[('int8', -1, torch.float32)]['ms']:.4f}, bound_ms "
         f"{qmm[('int8', -1, torch.float32)]['bound_ms']:.6f}; int8 g128 "
         f"bf16: ms {qmm[('int8', 128, bf16)]['ms']:.4f}; launches: phase 8's "
-        "fp32 served runs (a) and (c), all on the tensor-core route")
+        "fp32 served runs (a) and (c), on the CUDA-core kernel (qmm_kernel)")
     for name, kname, label in (
             ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
             ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),
@@ -4721,6 +5013,18 @@ def main() -> int:
             g = gmm[(kname, "int8 g128", bf16, "a")]
             extra = (f"; int8 g128: ms {g['ms']:.4f}, bound_ms "
                      f"{g['bound_ms']:.6f}")
+        if kname in ("gmm_q", "gmm_q4"):
+            served = gmm_launches["serve_bf16"][MOE_SERVE_BF16[
+                kname == "gmm_q4"][0]]
+            row["serve_bf16"] = served
+            extra += ("; at the serving rows bf16 on the skinny route "
+                      "(gmm_sk_kernel), prefill rows and fp32 on gmm_kernel"
+                      "; bf16 MoE serving at cf 1.25: mean step "
+                      + " / ".join(f"{w:.3f}" for w in served["step_ms"])
+                      + " ms" + (f", device busy {served['busy_ms']:.4f} ms"
+                                 f" a step (grouped GEMM "
+                                 f"{served['gmm_ms']:.4f})"
+                                 if "busy_ms" in served else ""))
         if kname in ("gmm", "gmm_bwd"):
             row["prefill_shape"] = dict(
                 rows=GMM_PREFILL, dtype="bf16",
@@ -4742,7 +5046,8 @@ def main() -> int:
                f" null ({gmm[(kname, label, bf16, 'a')]['library_note']})")
             + ("; launches: phase 11's fp32 served runs" + (
                 f", its {1 + BF16_RUNS} bf16 served runs and {BF16_RUNS} bf16"
-                " full forwards" if kname == "gmm" else "")
+                " full forwards" if kname == "gmm" else
+                f" and its {1 + MOE_QUANT_RUNS} bf16 served runs")
                if "bwd" not in kname
                else "; launches: phase 11's gradient drives"))
     row_of["ragged_paged_attention"]["note"] = (
@@ -4766,6 +5071,9 @@ def main() -> int:
         f"the same pools: fp32 {decode[torch.float32]['ragged_ms']:.4f} ms, "
         f"bf16 {d16['ragged_ms']:.4f} ms; launches: phase 12's fp32 legacy "
         "served runs (GPT-125M fp and int8, the d 96 model)")
+    log("[time] wall seconds by phase (moe_serve_quant_bf16 inside "
+        "phase_moe_serve): " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in PHASE_S.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(summary: ragged times in fp32 at the serving shapes of phase 3, "
         "launches on the main paths of phases 5-8; flash_attention_fwd and "
@@ -4777,7 +5085,8 @@ def main() -> int:
         "shapes, launches in phase 9's bf16 flagship run; flash launches "
         "count both flagship runs; grouped_matmul_* in bf16, the sum of "
         "one MoE layer's two GEMMs at the serving rows, launches in phase "
-        "11's fp32 served runs and gradient drives; paged_decode_attention "
+        "11's fp32 served runs, its bf16 int8 / int4 served runs (v) / (vi) "
+        "and gradient drives; paged_decode_attention "
         "in fp32 at phase 3's pools, launches in phase 12's fp32 legacy "
         "runs)")
     print(json.dumps({"kernels": kernels}))

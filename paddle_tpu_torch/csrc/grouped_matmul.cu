@@ -11,7 +11,9 @@
 // (int4, ptt_gmm_q4), ::_gmm_bwd_kernel (fp dx, ptt_gmm_bwd) and
 // ::_gmm_q_bwd_kernel (int8 dx, ptt_gmm_q_bwd); gmm_tc_kernel and
 // gmm_wg_kernel take the bf16 fp-weight forward (ptt_gmm_tc) and dx
-// (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores. A
+// (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores, and
+// gmm_sk_kernel the int8 / int4 forward of the second and the third at the
+// serving rows (ptt_gmm_sk, the skinny route). A
 // quantized element dequantizes as q * s[g] rounded to the activation
 // type (common.cuh deq, the Pallas kernels widen both to x.dtype and
 // multiply there), g the scale group of its ORIGINAL in-dim row; fp
@@ -31,20 +33,20 @@
 // token_group_ids: rows before offsets[1] belong to expert 0, rows from
 // offsets[E - 1] on to expert E - 1, everything clamped into [0, M].
 //
-// gmm_kernel<T, bits, bwd> (ptt_gmm, _q, _q4, _bwd, _q_bwd): fp32
-// activations with fp32 weights, every int8 / int4 stack (fp32 or bf16),
-// and the bf16 fp-weight calls the copies below cannot take (K or N not a
-// multiple of 8, a pointer not 16-byte aligned). The weight-only GEMM of
-// csrc/quant_matmul.cu per row tile of 32: each weight tile read once per
-// 32 rows with 16-byte loads (the next stage in flight in registers),
-// dequantized into fp32 shared memory, a 32 x 64 register-tiled fp32 FMA
-// product on the CUDA cores. At the serving shape (a) (48 routed rows over
-// 4 experts, one empty; w1 768 x 3072, w2 3072 x 768) it is bound by
-// bytes: each live expert's weights read once (9.4 MB fp32 per GEMM for 3
-// live experts, ~3 us at 3.35 TB/s, against ~0.2 GFLOP); at prefill (b)
-// (4,096 rows) by operations: ~19 GFLOP per GEMM, ~0.3 ms at the fp32
-// CUDA-core peak of 67 TFLOP/s. fp32 stays here because tensor cores would
-// make it TF32.
+// gmm_kernel<T, bits, bwd> (ptt_gmm, _q, _q4, _bwd, _q_bwd): fp32 activations
+// with fp32 weights, the int8 / int4 stacks the skinny route below does not
+// take (fp32 activations, the dx, prefill rows, odd widths, unaligned
+// pointers), and the bf16 fp-weight calls the copies below cannot take (K or N
+// not a multiple of 8, a pointer not 16-byte aligned). The weight-only GEMM of
+// csrc/quant_matmul.cu per row tile of 32: each weight tile read once per 32
+// rows with 16-byte loads (the next stage in flight in registers), dequantized
+// into fp32 shared memory, a 32 x 64 register-tiled fp32 FMA product on the
+// CUDA cores. At the serving shape (a) (48 routed rows over 4 experts, one
+// empty; w1 768 x 3072, w2 3072 x 768) it is bound by bytes: each live expert's
+// weights read once (9.4 MB fp32 per GEMM for 3 live experts, ~3 us at 3.35
+// TB/s, against ~0.2 GFLOP); at prefill (b) (4,096 rows) by operations: ~19
+// GFLOP per GEMM, ~0.3 ms at the fp32 CUDA-core peak of 67 TFLOP/s. fp32
+// stays here because tensor cores would make it TF32.
 //
 // gmm_tc_kernel<bwd> and gmm_wg_kernel<bwd> (ptt_gmm_tc, ptt_gmm_bwd_tc):
 // bf16 activations with bf16 fp weights, K and N multiples of 8, 16-byte
@@ -73,14 +75,33 @@
 //   mma.sync 128 x 128 tile of 8 warps ran slower at (b), and a wgmma
 //   group kept in flight across the next barrier, 3 to 5 stages, was no
 //   faster.)
-// A later PR can feed the same ring dequantized bf16 tiles of int8 / int4
-// stacks.
+// The prefill rows of int8 / int4 stacks still run gmm_kernel; the same
+// ring could take dequantized bf16 tiles of them.
 //
-// Split reductions (all three kernels): few live tiles at decode split the
+// gmm_sk_kernel<bits> (ptt_gmm_sk): the bf16 int8 and split-half int4
+// forward at the serving rows (ceil(M / E) <= 64), K (int4: K / 2) a
+// multiple of 64, N of 16, scale groups of 16k rows, x / W / scales / out
+// 16-byte aligned (ops/grouped_matmul.py _plan route "sk"). A block is
+// (row tile of up to 64 rows of one expert, 64 output columns, K split):
+// bind_tile at 64 rows, then the skinny tile of skinny_gemm.cuh over the
+// expert's stack and scales and its live rows only, so no product is spent
+// on a dead row (bf16 rounds the tile up to 16 rows), and experts without
+// rows read nothing. The weight stripe, its scale rows and the rows'
+// k-slices stream through one cp.async ring of 64-row stages in 96 KB (up
+// to 16 stages: two blocks an SM), each live expert's weight read once a
+// launch. bf16 on the tensor cores (mma.sync m16n8k16, the weight as the A
+// operand, dequantized in registers: q * bf16(s) rounded once; int4 gives
+// two A fragments a load). At the serving shape (a) it is bound by bytes
+// (int8 w1 + w2 of 3 live experts 14.9 MB, 4.5 us at 3.35 TB/s; int4
+// 8.3 MB). fp32 stays on gmm_kernel, which an H100 ran faster there than
+// this tile's CUDA-core branch.
+//
+// Split reductions (all four kernels): few live tiles at decode split the
 // reduction across blocks; the LAST block of a tile to arrive (an arrival
 // counter it resets) sums the fp32 partials in split order: deterministic,
 // no float atomics.
 #include "common.cuh"
+#include "skinny_gemm.cuh"
 
 #include <cstdint>
 #include <type_traits>
@@ -746,6 +767,90 @@ int launch_tc_entry(const void* a, const void* w, const void* offs,
                          static_cast<cudaStream_t>(stream));
 }
 
+// ---- the skinny route: int8 / int4 stacks at the serving rows ----------
+
+constexpr int kSkCols = 64;          // output columns a block
+constexpr int kSkRing = 96 << 10;    // the ring's shared memory: 2 blocks an SM
+
+struct SkArgs {
+  const void* x;       // [M, K], T
+  const void* w;       // [E, K, N] int8 or [E, K / 2, N] packed int4
+  const float* s;      // [E, G, N]
+  const int* offs;     // [E + 1] row offsets of the experts
+  void* out;           // [M, N], T
+  float* ws;           // [splits, M, N] fp32 partials when splits > 1
+  int* counters;       // one arrival count per output tile, zero on entry
+  int M, K, N, E, G, splits, per;
+};
+
+// bf16 activations only: an H100 ran fp32 faster on gmm_kernel
+template <int kBits>
+using SkShape = ptt::sk::Shape<__nv_bfloat16,
+                               std::conditional_t<kBits == 4, uint8_t, int8_t>,
+                               kSkCols>;
+
+template <int kBits>
+__global__ void __launch_bounds__(SkShape<kBits>::kThreads)
+gmm_sk_kernel(const SkArgs p) {
+  namespace sk = ptt::sk;
+  using T = __nv_bfloat16;
+  using W = std::conditional_t<kBits == 4, uint8_t, int8_t>;
+  using S = SkShape<kBits>;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ int bind[3];
+  __shared__ int last_flag;
+  if (threadIdx.x == 0) bind_tile(p.offs, p.E, p.M, sk::RP, blockIdx.y, bind);
+  __syncthreads();
+  const int ex = bind[0];
+  if (ex < 0) return;  // a dead tile: no weight bytes, no counter
+  const int m0 = bind[1], R = bind[2] - m0;
+  const int KW = kBits == 4 ? p.K / 2 : p.K;   // stored rows
+  const int n0 = blockIdx.x * kSkCols, z = blockIdx.z;
+  const int ncols = min(kSkCols, p.N - n0);
+  const int s0 = z * p.per, s1 = min(KW / sk::KS, s0 + p.per);
+  const T* x = static_cast<const T*>(p.x) + (long)m0 * p.K;
+  const sk::WTile<W> wt{static_cast<const W*>(p.w) + (long)ex * KW * p.N,
+                        p.s + (long)ex * p.G * p.N, p.N, n0, ncols,
+                        p.K / p.G, p.G, kBits == 4 ? p.K / 2 : 0};
+  float acc[8][4];
+  sk::run_tile<T, W, kSkCols, true, false>(
+      acc, ring, kSkRing, wt, s0 * sk::KS, s1 * sk::KS,
+      [&](int r) { return x + (long)r * p.K; }, R, p.w, [] {});
+  T* out = static_cast<T*>(p.out) + (long)m0 * p.N + n0;
+  if (p.splits == 1) {
+    sk::for_each_acc<T, W, kSkCols>(acc, R, [&](int m, int c, float v) {
+      if (c < ncols) store(out + (long)m * p.N + c, v);
+    });
+    return;
+  }
+  float* part = p.ws + (long)m0 * p.N;
+  sk::for_each_acc<T, W, kSkCols>(acc, R, [&](int m, int c, float v) {
+    if (c < ncols) part[((long)z * p.M + m) * p.N + n0 + c] = v;
+  });
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    last_flag = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  // the last block sums the partials in split order and casts
+  sk::sum_splits<kSkCols, S::kThreads>(
+      part, (long)p.M * p.N, p.N, n0, ncols, R, p.splits,
+      [&](int m, int c, float4 v) { sk::store4(out + (long)m * p.N + c, v); });
+  if (threadIdx.x == 0) p.counters[tile] = 0;  // ready for the next launch
+}
+
+template <int kBits>
+int launch_sk(const SkArgs& p, int tiles, int device, cudaStream_t st) {
+  cudaError_t err = ptt::allow_smem<gmm_sk_kernel<kBits>>(device, kSkRing);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.N + kSkCols - 1) / kSkCols, tiles, p.splits);
+  gmm_sk_kernel<kBits><<<grid, SkShape<kBits>::kThreads, kSkRing, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -794,5 +899,39 @@ PTT_GMM_ENTRY(ptt_gmm_q_bwd, 8, true)
 PTT_GMM_TC_ENTRY(ptt_gmm_tc, false)
 PTT_GMM_TC_ENTRY(ptt_gmm_bwd_tc, true)
 #undef PTT_GMM_TC_ENTRY
+
+// The skinny route's forward: x [M, K], w [E, K, N] int8 (bits 8) or [E,
+// K / 2, N] packed int4 (bits 4), s [E, G, N] fp32, offs [E + 1], out [M,
+// N]; ws [splits, M, N] fp32 (unused when splits == 1); counters: one int
+// per output tile (tiles x 64-column tiles), all zero. The stored rows (K
+// or K / 2) a multiple of 64, N of 16, K / G of 16; x, w, s, out 16-byte
+// aligned; tiles: grid rows, at least the live 64-row tiles; each block
+// reduces `per` 64-row stages of its split. dtype: 1 = bf16, the only one
+// taken.
+int ptt_gmm_sk(const void* x, const void* w, const void* s, const void* offs,
+               void* out, void* ws, void* counters, int M, int K, int N,
+               int E, int G, int bits, int tiles, int splits, int per,
+               int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int KW = bits == 4 ? K / 2 : K;
+  if ((bits != 8 && bits != 4) || dtype != 1 || M < 1 || E < 1 || K < 1 ||
+      (bits == 4 && K % 2) || KW % ptt::sk::KS || N < 16 || N % 16 ||
+      G < 1 || K % G || (K / G) % 16 || tiles < 1 || splits < 1 ||
+      per < 1 || (long)(splits - 1) * per * ptt::sk::KS >= KW ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (misaligned(x) || misaligned(w) || misaligned(s) || misaligned(out))
+    return (int)cudaErrorMisalignedAddress;
+  const SkArgs p{x, w, static_cast<const float*>(s),
+                 static_cast<const int*>(offs), out, static_cast<float*>(ws),
+                 static_cast<int*>(counters), M, K, N, E, G, splits, per};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bits == 8 ? launch_sk<8>(p, tiles, device, st)
+                   : launch_sk<4>(p, tiles, device, st);
+}
 
 }  // extern "C"

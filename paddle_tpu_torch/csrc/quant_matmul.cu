@@ -17,29 +17,28 @@
 // Two kernels. ops/quant_matmul.py qmm_plan picks one before the launch,
 // from shapes and alignment alone:
 //
-// qmm_tc_kernel ("tc": the int8 forward at M <= 64 tokens, K a multiple of
-// 64, N of 16, scale groups of a multiple of 16 rows, 16-byte aligned
-// rows) — what the serving step runs. A block owns 64 output columns and a
-// K-slice (the plan splits K until the blocks fill the card's SMs: GPT-125M's
-// four GEMMs at M 24 launch 144 blocks each). The int8 weight tile, its
-// scale rows and x's k-slice stream through one cp.async ring of 16-byte
-// chunks, stages of 64 rows in 96 KB (skinny_gemm.cuh: 9 stages at M 24),
-// so each weight byte is read once and a block's whole K-slice is in
-// flight at once. bf16 activations multiply on
-// the tensor cores: mma.sync m16n8k16 with W as the A operand (the 64
-// columns are four warps' 16-row sides, the 24 tokens three n8 tiles); an
+// qmm_tc_kernel ("tc": the bf16 int8 forward at M <= 64 tokens, K a multiple of
+// 64, N of 16, scale groups of a multiple of 16 rows, 16-byte aligned rows) —
+// what the serving step runs. A block owns 64 output columns and a K-slice (the
+// plan splits K until the blocks fill the card's SMs: GPT-125M's four GEMMs at
+// M 24 launch 144 blocks each). The int8 weight tile, its scale rows and x's
+// k-slice stream through one cp.async ring of 16-byte chunks, stages of 64 rows
+// in 96 KB (skinny_gemm.cuh: 9 stages at M 24), so each weight byte is read
+// once and a block's whole K-slice is in flight at once. bf16 activations
+// multiply on the tensor cores: mma.sync m16n8k16 with W as the A operand (the
+// 64 columns are four warps' 16-row sides, the 24 tokens three n8 tiles); an
 // int8 tile reaches the A fragments by ldmatrix.x2.trans and dequantizes in
-// registers to bf16 (q * bf16(s), rounded once, as the reference). fp32
-// activations run the same ring and plan on the CUDA cores (FMA, no
-// TF32; 256 threads, 4 columns and every 16th token a thread). Each K-slice leaves an fp32 partial; the last block of a column
-// tile to arrive (a counter it resets) sums them in split order, adds the
-// fp32 bias and casts: deterministic.
+// registers to bf16 (q * bf16(s), rounded once, as the reference). bf16 only:
+// an H100 ran fp32 faster on qmm_kernel than on this tile's CUDA-core branch.
+// Each K-slice leaves an fp32 partial; the last block of a column tile to
+// arrive (a counter it resets) sums them in split order, adds the fp32 bias and
+// casts: deterministic.
 //
-// qmm_kernel ("cc": everything else — int4, the backward, other M and
-// widths) reads each weight tile once per 32 activation rows with 16-byte
-// loads one stage ahead in registers, dequantizes it into fp32 shared
-// memory and runs a 32 x 64 register-tiled FMA product (2 x 4 outputs a
-// thread), with the same split sums.
+// qmm_kernel ("cc": everything else — fp32, int4, the backward, other M
+// and widths) reads each weight tile once per 32 activation rows with
+// 16-byte loads one stage ahead in registers, dequantizes it into fp32
+// shared memory and runs a 32 x 64 register-tiled FMA product (2 x 4
+// outputs a thread), with the same split sums.
 //
 // What bounds them on the H100: at the serving shapes (M = 24 token rows,
 // GPT-125M's wqkv 768x2304, wo 768x768, w1 768x3072, w2 3072x768) bytes in
@@ -305,11 +304,13 @@ struct TcArgs {
   int M, K, N, G, splits, per;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(ptt::sk::Shape<T, int8_t, kTcCols>::kThreads)
+using TcShape = ptt::sk::Shape<__nv_bfloat16, int8_t, kTcCols>;
+
+__global__ void __launch_bounds__(TcShape::kThreads)
 qmm_tc_kernel(const TcArgs p) {
   namespace sk = ptt::sk;
-  using S = sk::Shape<T, int8_t, kTcCols>;
+  using T = __nv_bfloat16;
+  using S = TcShape;
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int last_flag;
   const int n0 = blockIdx.x * kTcCols, z = blockIdx.y;
@@ -356,13 +357,11 @@ qmm_tc_kernel(const TcArgs p) {
   if (threadIdx.x == 0) p.counters[blockIdx.x] = 0;   // ready for the next
 }
 
-template <typename T>
 int launch_tc(const TcArgs& p, int device, cudaStream_t st) {
-  using S = ptt::sk::Shape<T, int8_t, kTcCols>;
-  cudaError_t err = ptt::allow_smem<qmm_tc_kernel<T>>(device, kTcRing);
+  cudaError_t err = ptt::allow_smem<qmm_tc_kernel>(device, kTcRing);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + kTcCols - 1) / kTcCols, p.splits);
-  qmm_tc_kernel<T><<<grid, S::kThreads, kTcRing, st>>>(p);
+  qmm_tc_kernel<<<grid, TcShape::kThreads, kTcRing, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -424,15 +423,16 @@ PTT_QMM_ENTRY(ptt_qmm_int4_bwd, true, true)
 // N], bias [N] fp32 or null, out [M, N]; ws [splits, M, N] fp32 (unused when
 // splits == 1); counters: one int per 64-column tile, all zero. 1 <= M <=
 // 64, K % 64 == 0, N % 16 == 0, (K / G) % 16 == 0, x / w / s / out 16-byte
-// aligned; each block reduces `per` 64-row stages of its split.
+// aligned; each block reduces `per` 64-row stages of its split. dtype: 1 =
+// bf16, the only one taken.
 int ptt_qmm_int8_tc(const void* x, const void* w, const void* s,
                     const void* bias, void* out, void* ws, void* counters,
                     int M, int K, int N, int G, int splits, int per,
                     int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (M < 1 || M > ptt::sk::RP || K % ptt::sk::KS || N % 16 || G < 1 ||
-      K % G || (K / G) % 16 || splits < 1 || per < 1 ||
+  if (dtype != 1 || M < 1 || M > ptt::sk::RP || K % ptt::sk::KS ||
+      N % 16 || G < 1 || K % G || (K / G) % 16 || splits < 1 || per < 1 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const TcArgs p{x, static_cast<const int8_t*>(w),
@@ -441,9 +441,7 @@ int ptt_qmm_int8_tc(const void* x, const void* w, const void* s,
                  static_cast<float*>(ws), static_cast<int*>(counters), M, K,
                  N, G, splits, per};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_tc<float>(p, device, st);
-  if (dtype == 1) return launch_tc<__nv_bfloat16>(p, device, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_tc(p, device, st);
 }
 
 }  // extern "C"

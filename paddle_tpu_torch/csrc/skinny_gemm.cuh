@@ -1,10 +1,11 @@
 // Skinny GEMM tiles for Hopper (sm_90a), shared by the weight-only GEMM's
-// tensor-core route (quant_matmul.cu) and the mega MLP (mega_decode.cu).
+// tensor-core route (quant_matmul.cu), the mega MLP (mega_decode.cu) and
+// the quantized grouped GEMM's skinny route (grouped_matmul.cu).
 //
 // A block multiplies up to RP = 64 activation rows ("tokens") by NT columns
 // of a weight [K, ldw] over a reduction range [k0, k1), walked in stages of
 // KS = 64 rows (the last may hold fewer). The weight tile (with its fp32
-// scale rows when it is int8) and the activations' matching k-slice stream
+// scale rows when it is quantized) and the activations' matching k-slice stream
 // through one cp.async ring of 16-byte chunks, so each weight byte is read
 // from device memory once. With kEdge (the mega MLP, which takes any width,
 // group and address) a chunk that is clipped by an edge or does not start
@@ -32,6 +33,23 @@
 //   columns x every 16th token (4 NT threads a block), FMA over the stage
 //   from float4s; an int8 stage dequantizes once (q * s in fp32) into an
 //   fp32 tile first.
+//
+// Split-half int4 (W = uint8_t, the layout of ops/quant_matmul.py
+// pack_int4): stored byte row i of a [K/2, N] weight holds reduction row i
+// in its low nibble and row K/2 + i in its high nibble (kh = K/2 in the
+// WTile). A stage is 64 stored rows, so it feeds 128 reduction rows: rows
+// k .. k + 63 (lo) and kh + k .. kh + k + 63 (hi). It carries both halves'
+// scale rows (SG from group k / gs, then SG from group (kh + k) / gs) and
+// each token row holds both k-slices side by side (x[r, k : k + 64] then
+// x[r, kh + k : kh + k + 64]). Lane -> (k, column) map on the tensor cores:
+// ldmatrix.x2.trans of byte pairs gives lane (g = lane / 4, t = lane % 4)
+// register q (q = 0, 1) = bytes {(row 8q + 2t, col 2g), (8q + 2t, 2g + 1),
+// (8q + 2t + 1, 2g), (8q + 2t + 1, 2g + 1)}; each byte's low nibble is
+// reduction row k + kk + that row, its high nibble kh + k + kk + that row.
+// So one ldmatrix yields two A fragments (lo, hi: A row g = column 2g, row
+// g + 8 = column 2g + 1, as for int8), each multiplied with its own slice's
+// B fragment: two mma a weight load, half of int8's weight bytes. Only
+// bf16 activations take int4 (the tensor cores).
 //
 // Either way a thread holds acc[8][4]; for_each_acc maps each to its
 // (token, column).
@@ -75,18 +93,20 @@ __host__ __device__ constexpr int scale_rows(int gs) {
 // the weight rows, scale_rows(gs) scale rows and xrows(R) token rows.
 template <typename T, typename W, int NT>
 struct Shape {
-  static constexpr bool kQ = std::is_same_v<W, int8_t>;
+  static constexpr bool kQ4 = std::is_same_v<W, uint8_t>;  // int4 pairs
+  static constexpr bool kQ = std::is_same_v<W, int8_t> || kQ4;
+  static constexpr int kH = kQ4 ? 2 : 1;   // reduction rows a stored row
   static constexpr bool kTC = std::is_same_v<T, __nv_bfloat16>;
   static_assert(NT == 32 || NT == 64, "a warp per 16 columns, 2 or 4 warps");
   static_assert(kTC ? (kQ || std::is_same_v<W, __nv_bfloat16>)
-                    : (kQ || std::is_same_v<W, float>),
-                "bf16 activations take bf16 or int8 weights, fp32 fp32 or "
-                "int8");
+                    : (std::is_same_v<W, int8_t> || std::is_same_v<W, float>),
+                "bf16 activations take bf16, int8 or int4 weights, fp32 "
+                "fp32 or int8");
   // bf16: a warp per 16 columns; fp32: a thread per (4 columns, token
   // class of 16)
   static constexpr int kThreads = kTC ? NT * 2 : NT * 4;
   static constexpr int WP = NT * (int)sizeof(W) + 16;   // bytes a weight row
-  static constexpr int XP = KS * (int)sizeof(T) + 16;   // bytes a token row
+  static constexpr int XP = kH * KS * (int)sizeof(T) + 16;  // a token row
   static constexpr int W_BYTES = KS * WP;
   // fp32 activations with int8 weights: one dequantized fp32 stage
   static constexpr int WF_BYTES = !kTC && kQ ? KS * (NT + 4) * 4 : 0;
@@ -96,18 +116,20 @@ struct Shape {
   }
   // where a stage's token rows start
   __host__ __device__ static constexpr int xoff(int gs) {
-    return W_BYTES + (kQ ? scale_rows(gs) * NT * 4 : 0);
+    return W_BYTES + (kQ ? kH * scale_rows(gs) * NT * 4 : 0);
   }
 };
 
-// Columns [n0, n0 + ncols) of a weight [K, ldw]; int8 weights with scales
-// [G, ldw], gs rows a group.
+// Columns [n0, n0 + ncols) of a weight [K, ldw] (split-half int4: [K/2,
+// ldw] stored rows); quantized weights with scales [G, ldw], gs rows a
+// group; int4: kh = K/2, the first reduction row of the high nibbles.
 template <typename W>
 struct WTile {
   const W* w;
   const float* s;
   long ldw;
   int n0, ncols, gs, G;
+  int kh = 0;
 };
 
 // Waits until at most n of this thread's committed groups are in flight (n
@@ -170,10 +192,11 @@ __device__ __forceinline__ void issue_w(unsigned char* st, const WTile<W>& t,
   }
   if constexpr (S::kQ) {
     constexpr int SC = NT / 4;   // 16-byte chunks a scale row
-    const int g0 = k / t.gs;
-    for (int i = threadIdx.x; i < sg * SC; i += S::kThreads) {
+    // int4: the low half's sg rows, then the high half's
+    for (int i = threadIdx.x; i < S::kH * sg * SC; i += S::kThreads) {
       const int j = i / SC, col = (i % SC) * 4;
-      const int g = min(g0 + j, t.G - 1);
+      const int h = S::kQ4 ? j / sg : 0;
+      const int g = min((h * t.kh + k) / t.gs + j - h * sg, t.G - 1);
       const float* src = t.s + (long)g * t.ldw + t.n0 + col;
       if constexpr (kEdge)
         copy_chunk(st + S::W_BYTES + (j * NT + col) * 4, src, t.ncols - col,
@@ -186,24 +209,27 @@ __device__ __forceinline__ void issue_w(unsigned char* st, const WTile<W>& t,
 }
 
 // The tokens' k-slice [k, min(k + KS, kend)) into xs (zeros past kend):
-// token r at xrow(r) + k (xrow(r) + j is element j of its reduction axis).
+// token r at xrow(r) + k (xrow(r) + j is element j of its reduction axis);
+// split-half int4 puts the slice at kh + k beside it in the same row.
 // Tokens past R read nothing; on the tensor cores those up to the next 16
 // are zero-filled (a B fragment holds 16 tokens).
 template <typename T, typename W, int NT, bool kEdge, typename XRow>
 __device__ __forceinline__ void issue_x(unsigned char* xs, XRow xrow, int k,
-                                        int kend, int R, const void* base) {
+                                        int kend, int R, const void* base,
+                                        int kh) {
   using S = Shape<T, W, NT>;
   constexpr int CPR = KS * (int)sizeof(T) / 16, VEC = 16 / (int)sizeof(T);
+  constexpr int CH = S::kH * CPR;   // 16-byte chunks a token row
   const int rows = S::xrows(R);
-  for (int i = threadIdx.x; i < rows * CPR; i += S::kThreads) {
-    const int r = i / CPR, c = i % CPR;
+  for (int i = threadIdx.x; i < rows * CH; i += S::kThreads) {
+    const int r = i / CH, c = i % CH;
+    const int e = (S::kQ4 && c >= CPR ? kh - CPR * VEC : 0) + c * VEC;
     if (kEdge && r < R)
-      copy_chunk(xs + r * S::XP + c * 16, xrow(r) + k + c * VEC,
-                 kend - k - c * VEC, base);
+      copy_chunk(xs + r * S::XP + c * 16, xrow(r) + k + e, kend - k - e,
+                 base);
     else
       cp_async16(xs + r * S::XP + c * 16,
-                 r < R ? static_cast<const void*>(xrow(r) + k + c * VEC)
-                       : base,
+                 r < R ? static_cast<const void*>(xrow(r) + k + e) : base,
                  r < R);
   }
 }
@@ -276,6 +302,62 @@ __device__ __forceinline__ void mma_stage(float (&acc)[8][4],
   }
 }
 
+// One split-half int4 stage on the tensor cores (bf16 activations; each
+// token row at xs holds the low half's 64 k then the high half's): per
+// 16-row step one ldmatrix of stored bytes, both nibbles sign-extended and
+// scaled in registers (q * bf16(s), rounded once) into the lo and hi A
+// fragments, each multiplied with its own slice (see the map at the top).
+// Groups of 16k rows: a 16-row step of either half lies in one group.
+template <int NT, bool kRS>
+__device__ __forceinline__ void mma_stage_q4(float (&acc)[8][4],
+                                             const unsigned char* st,
+                                             const unsigned char* xs, int k,
+                                             int kh, int gs, int R) {
+  using S = Shape<__nv_bfloat16, uint8_t, NT>;
+  const int lane = threadIdx.x & 31, ns = (threadIdx.x >> 5) * 16;
+  const float* ss = reinterpret_cast<const float*>(st + S::W_BYTES) + ns +
+                    2 * (lane >> 2);
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 16) {
+    uint32_t r[2];
+    ldsm_x2_t(r, st + (kk + (lane & 15)) * S::WP + ns);
+    // columns 2g, 2g + 1: the low half's scale row, then the high half's
+    float2 sl = *reinterpret_cast<const float2*>(
+        ss + ((k + kk) / gs - k / gs) * NT);
+    float2 sh = *reinterpret_cast<const float2*>(
+        ss + (SG + (kh + k + kk) / gs - (kh + k) / gs) * NT);
+    if (kRS) {
+      sl = make_float2(bf16_round(sl.x), bf16_round(sl.y));
+      sh = make_float2(bf16_round(sh.x), bf16_round(sh.y));
+    }
+    uint32_t alo[4], ahi[4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      // byte j of r[q]: its low nibble at bits 8j.., its high at 8j + 4..
+      const auto nib = [&](int j, int h) {
+        return (float)((int)(r[q] << (28 - 8 * j - 4 * h)) >> 28);
+      };
+      alo[2 * q] = pack_bf16(nib(0, 0) * sl.x, nib(2, 0) * sl.x);
+      alo[2 * q + 1] = pack_bf16(nib(1, 0) * sl.y, nib(3, 0) * sl.y);
+      ahi[2 * q] = pack_bf16(nib(0, 1) * sh.x, nib(2, 1) * sh.x);
+      ahi[2 * q + 1] = pack_bf16(nib(1, 1) * sh.y, nib(3, 1) * sh.y);
+    }
+#pragma unroll
+    for (int p = 0; p < RP / 16; ++p) {
+      if (16 * p < R) {
+        uint32_t b[4];
+        const unsigned char* xr = xs + (16 * p + b_row(lane)) * S::XP;
+        ldsm_x4(b, xr + (kk + b_col(lane)) * 2);
+        mma_bf16(acc[2 * p], alo, b[0], b[1]);
+        if (16 * p + 8 < R) mma_bf16(acc[2 * p + 1], alo, b[2], b[3]);
+        ldsm_x4(b, xr + (KS + kk + b_col(lane)) * 2);
+        mma_bf16(acc[2 * p], ahi, b[0], b[1]);
+        if (16 * p + 8 < R) mma_bf16(acc[2 * p + 1], ahi, b[2], b[3]);
+      }
+    }
+  }
+}
+
 // One stage on the CUDA cores (fp32 activations; the token rows at xs
 // (pointer to floats)): a thread owns 4 columns
 // (a quad) x every 16th token (its class), acc[i][j] holding token class +
@@ -338,7 +420,8 @@ __device__ __forceinline__ void fma_stage(float (&acc)[8][4],
   }
 }
 
-// acc = x[tokens < R] . W[k0 : k1, columns] (k0 a multiple of KS), through
+// acc = x[tokens < R] . W[k0 : k1, columns] (k0 a multiple of KS; split-
+// half int4: k0, k1 in stored rows, each feeding rows k and t.kh + k), through
 // a ring of ring_bytes of shared memory (at least two stages); without
 // kEdge, k1 - k0 a multiple of KS and every chunk whole and aligned.
 // xrow(r): token r's row (see issue_x); base: any valid global address.
@@ -351,6 +434,7 @@ __device__ void run_tile(float (&acc)[8][4], unsigned char* ring,
                          int ring_bytes, const WTile<W>& t, int k0, int k1,
                          XRow xrow, int R, const void* base, Wait wait) {
   using S = Shape<T, W, NT>;
+  static_assert(!(S::kQ4 && kEdge), "split-half int4 takes whole chunks");
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -371,7 +455,7 @@ __device__ void run_tile(float (&acc)[8][4], unsigned char* ring,
   for (int s = 0; s < depth - 1; ++s) {
     if (s < n)
       issue_x<T, W, NT, kEdge>(ring + s * stage + xoff, xrow, k0 + s * KS,
-                               k1, R, base);
+                               k1, R, base, t.kh);
     cp_async_commit();
   }
   for (int s = 0; s < n; ++s) {
@@ -383,11 +467,14 @@ __device__ void run_tile(float (&acc)[8][4], unsigned char* ring,
     if (nx < n) {
       unsigned char* st = ring + (nx % depth) * stage;
       issue_w<T, W, NT, kEdge>(st, t, k0 + nx * KS, k1, sg);
-      issue_x<T, W, NT, kEdge>(st + xoff, xrow, k0 + nx * KS, k1, R, base);
+      issue_x<T, W, NT, kEdge>(st + xoff, xrow, k0 + nx * KS, k1, R, base,
+                               t.kh);
     }
     cp_async_commit();
     const unsigned char* st = ring + (s % depth) * stage;
-    if constexpr (S::kTC)
+    if constexpr (S::kTC && S::kQ4)
+      mma_stage_q4<NT, kRS>(acc, st, st + xoff, k0 + s * KS, t.kh, t.gs, R);
+    else if constexpr (S::kTC)
       mma_stage<W, NT, kRS, kEdge>(acc, st, st + xoff, k0 + s * KS, t.gs,
                                    R);
     else

@@ -17,8 +17,10 @@ on a CPU tensor they run :func:`grouped_matmul_reference` and
 the launch, from shapes and pointers: bf16 activations with fp weights at
 K and N multiples of 8 and 16-byte aligned pointers take the tensor-core
 kernel (``"tc"``, ``ptt_gmm_tc`` / ``ptt_gmm_bwd_tc``; counted apart in
-``.tc_launches``); everything else (fp32, int8, int4, other widths) the
-CUDA-core kernel (``"cc"``). :func:`grouped_matmul` is
+``.tc_launches``); the bf16 int8 / int4 forward at the serving rows on
+whole 16-byte chunks the skinny route (``"sk"``, ``ptt_gmm_sk``; counted
+apart in ``.sk_launches``); everything else (fp32 activations, quantized dx
+and prefill rows, other widths) the CUDA-core kernel (``"cc"``). :func:`grouped_matmul` is
 differentiable on both: one custom op (``paddle_tpu_torch::grouped_matmul``)
 whose backward gives ``dx`` through the backward kernel and, for float
 weights, ``dw[e] = x_e^T dy_e`` as a plain matmul over each expert's rows
@@ -46,7 +48,8 @@ _I = ctypes.c_int
 _ENTRY = [_P] * 7 + [_I] * 11 + [_P]
 _TC_ENTRY = [_P] * 6 + [_I] * 9 + [_P]
 _SIGNATURES = {name: _ENTRY for name in ("ptt_gmm", "ptt_gmm_q", "ptt_gmm_q4",
-                                         "ptt_gmm_bwd", "ptt_gmm_q_bwd")}
+                                         "ptt_gmm_bwd", "ptt_gmm_q_bwd",
+                                         "ptt_gmm_sk")}
 _SIGNATURES.update(ptt_gmm_tc=_TC_ENTRY, ptt_gmm_bwd_tc=_TC_ENTRY)
 # the CUDA-core kernel's tiles (csrc/grouped_matmul.cu gmm_kernel): 32 rows
 # of one expert x 64 output columns a block, 64 reduction indices a stage
@@ -68,6 +71,16 @@ _TC_BK = 64
 # the serving tile up to this many rows per expert (ceil(M / E)), the
 # prefill tile above it
 SERVING_ROWS = 64
+# the skinny route (gmm_sk_kernel, csrc/skinny_gemm.cuh): row tiles of up to
+# SK_ROWS rows of one expert x SK_COLS output columns a block, the stored
+# weight rows (K, or K / 2 packed int4) in stages of SK_STAGE through a 96 KB
+# ring; K is split (_split) until the grid's blocks fill SK_BLOCKS_PER_SM x
+# the SMs: one wave of resident blocks, two an SM. On an H100 at the
+# serving rows (w1 + w2, bf16) 2 blocks an SM ran int8 / int4 in 0.0416 /
+# 0.0307 ms, 1 in 0.0511 / 0.0336, 4 in 0.0428 / 0.0332 and 1/2 in 0.0653
+# / 0.0415 (PERF.md §6)
+SK_ROWS, SK_COLS, SK_STAGE = 64, 64, 64
+SK_BLOCKS_PER_SM = 2
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +232,10 @@ def grouped_matmul_dw(x, dy, group_offsets, e: int, w_dtype):
 
 
 class Plan(NamedTuple):
-    """One launch: the kernel (``"tc"`` tensor cores / ``"cc"`` CUDA
-    cores), the tc tile family (None for cc), rows a tile, grid rows,
-    column tiles, splits of the reduction and stages per split."""
+    """One launch: the kernel (``"tc"`` tensor cores / ``"sk"`` the
+    skinny route / ``"cc"`` CUDA cores), the tc tile family (None
+    otherwise), rows a tile, grid rows, column tiles, splits of the
+    reduction and stages per split."""
     route: str
     tile: Optional[str]
     bm: int
@@ -239,12 +253,35 @@ def _split(stages, live, blocks_per_sm, sms):
     return -(-stages // per), per
 
 
-def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms) -> Plan:
+def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1) -> Plan:
     """The launch of one grouped GEMM of ``m`` rows over ``e`` experts,
-    ``[K, N]`` weights of ``bits`` (0 fp, 8, 4), forward or dx
-    (``bwd``), activations of ``dtype``; ``aligned``: the activations,
-    weights and output start on 16 bytes; ``sms``: the card's SMs. A pure
-    function of its arguments, decided before any launch."""
+    ``[K, N]`` weights of ``bits`` (0 fp, 8, 4) with ``groups`` scale rows,
+    forward or dx (``bwd``), activations of ``dtype``; ``aligned``: the
+    activations, weights, scales and output start on 16 bytes; ``sms``: the
+    card's SMs. A pure function of its arguments, decided before any
+    launch.
+
+    The int8 / int4 forward takes the skinny route when ``dtype`` is bf16,
+    ``ceil(m / e) <= SERVING_ROWS``, the stored rows (K, int4 K / 2) are a
+    multiple of ``SK_STAGE``, N of 16 and the scale groups of 16 rows, and
+    the pointers are aligned. Its grid rows cover every live 64-row tile
+    (:func:`max_row_tiles`), and K is split until those rows x the column
+    tiles fill ``SK_BLOCKS_PER_SM`` blocks an SM (every grid row counted
+    live). Each dtype goes to the kernel an H100 ran faster at the serving
+    rows (48 over 4 experts, w1 + w2 of GPT-125M, 2 blocks an SM, PERF.md
+    §6 rows 16-17): bf16 to this route (int8 0.0416, int4 0.0307 ms against
+    the CUDA-core kernel's 0.0812 / 0.0832), fp32 to the CUDA-core kernel
+    (0.0736 ms against 0.0957 on the skinny tile's FMA branch, which is
+    therefore not built)."""
+    kw = k // 2 if bits == 4 else k
+    if (bits and not bwd and dtype == torch.bfloat16 and aligned
+            and -(-m // e) <= SERVING_ROWS and kw % SK_STAGE == 0
+            and n % 16 == 0 and (k // max(groups, 1)) % 16 == 0):
+        rows = max_row_tiles(m, e, SK_ROWS)
+        cols = -(-n // SK_COLS)
+        splits, per = _split(kw // SK_STAGE, rows * cols, SK_BLOCKS_PER_SM,
+                             sms)
+        return Plan("sk", None, SK_ROWS, rows, cols, splits, per)
     if (bits == 0 and dtype == torch.bfloat16 and aligned and k % 8 == 0
             and n % 8 == 0):
         tile = "serving" if -(-m // e) <= SERVING_ROWS else "prefill"
@@ -256,7 +293,6 @@ def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms) -> Plan:
         splits, per = _split(stages, live, t["blocks_per_sm"], sms)
         return Plan("tc", tile, t["bm"], max_row_tiles(m, e, t["bm"]), cols,
                     splits, per)
-    kw = k // 2 if bits == 4 else k
     rw = 32 if bits == 4 else 64
     cols = -(-kw // rw) if bwd else -(-n // _BJ)
     stages = -(-n // _BR) if bwd else -(-kw // rw)
@@ -292,9 +328,11 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
     out = torch.empty((m, k if bwd else n), dtype=a.dtype, device=a.device)
     if m == 0:
         return out, None
-    aligned = all(t.data_ptr() % 16 == 0 for t in (a, weights, out))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, weights, out) + (
+        () if scales3d is None else (scales3d,)))
+    groups = 1 if scales3d is None else scales3d.shape[1]
     plan = _plan(m, e, k, n, bits, bwd, a.dtype, aligned,
-                 _sms(a.device.index))
+                 _sms(a.device.index), groups)
     ws = (torch.empty((plan.splits, m, out.shape[1]), dtype=torch.float32,
                       device=a.device) if plan.splits > 1 else None)
     counters = _build.kept(a.device, "gmm", plan.rows * plan.cols)
@@ -307,6 +345,14 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
             out.data_ptr(), None if ws is None else ws.data_ptr(),
             counters.data_ptr(), m, k, n, e, TC_TILES[plan.tile]["code"],
             plan.rows, plan.splits, plan.per, a.device.index, stream)
+    elif plan.route == "sk":
+        name = "ptt_gmm_sk"
+        err = lib.ptt_gmm_sk(
+            a.data_ptr(), weights.data_ptr(), scales3d.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), counters.data_ptr(), m,
+            k, n, e, groups, bits, plan.rows, plan.splits, plan.per, code,
+            a.device.index, stream)
     else:
         vec = int(n * weights.element_size() % 16 == 0
                   and weights.data_ptr() % 16 == 0)
@@ -337,8 +383,9 @@ _BITS_NAME = {0: "fp", 8: "int8", 4: "int4"}
 def grouped_matmul_fwd(x2, weights, group_offsets, scales3d=None):
     """``x2 [M, K]`` rows through their experts' weights, in ``x2``'s dtype:
     a kernel on a CUDA tensor (``.launches["fp" | "int8" | "int4"]``
-    counts either kernel, ``.tc_launches`` the tensor-core one alone), the
-    reference on a CPU tensor."""
+    counts every kernel, ``.tc_launches`` the fp tensor-core one alone,
+    ``.sk_launches`` the skinny route alone), the reference on a CPU
+    tensor."""
     _check_device(x2)
     k = x2.shape[1]
     bits = _weight_bits(weights, k)
@@ -354,11 +401,13 @@ def grouped_matmul_fwd(x2, weights, group_offsets, scales3d=None):
     if route:
         grouped_matmul_fwd.launches[_BITS_NAME[bits]] += 1
         grouped_matmul_fwd.tc_launches += route == "tc"
+        grouped_matmul_fwd.sk_launches += route == "sk"
     return out
 
 
 grouped_matmul_fwd.launches = {"fp": 0, "int8": 0, "int4": 0}
 grouped_matmul_fwd.tc_launches = 0
+grouped_matmul_fwd.sk_launches = 0
 grouped_matmul_fwd.twin_routes = 0
 
 

@@ -11,8 +11,8 @@ cast to ``x``'s dtype; a bias is added in fp32 before that cast.
 
 On a CUDA tensor :func:`quant_matmul_fwd` / :func:`quant_matmul_bwd`
 launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise),
-the route chosen before the launch by the pure :func:`qmm_plan`: the int8
-forward at up to :data:`TC_ROWS` tokens on aligned widths takes the
+the route chosen before the launch by the pure :func:`qmm_plan`: the bf16
+int8 forward at up to :data:`TC_ROWS` tokens on aligned widths takes the
 tensor-core kernel (``"tc"``, counted in ``quant_matmul_fwd.tc_launches``
 too), everything else the CUDA-core kernel (``"cc"``); on a CPU tensor
 they run :func:`quant_matmul_reference` and
@@ -163,13 +163,17 @@ def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
     scales and the output start on 16 bytes; ``sms``: the card's SMs. A pure
     function of its arguments, decided before any launch: the int8 forward
     at ``1 <= m <= TC_ROWS`` with ``K % 64`` (its stages), ``N % 16`` and
-    the scale groups' rows ``% 16`` all 0 takes the tensor-core kernel, the
-    rest the CUDA-core kernel. Either splits the reduction across blocks
-    until they fill the card."""
+    the scale groups' rows ``% 16`` all 0, in bf16, takes the tensor-core
+    kernel, the rest the CUDA-core kernel. Each dtype goes to the kernel an
+    H100 ran faster at GPT-125M's four serving GEMMs (M 24, A/B in turns,
+    PERF.md §6 row 9): bf16 to the tensor-core route (0.0374 against 0.0763
+    ms for the four), fp32 to the CUDA-core kernel (0.0678 against 0.0783 ms
+    on the route's FMA branch, which is therefore not built). Either splits the reduction across blocks until
+    they fill the card."""
     gs = k // max(groups, 1)
     if (not packed and not bwd and 1 <= m <= TC_ROWS and k % TC_STAGE == 0
             and n % 16 == 0 and gs % 16 == 0 and aligned
-            and dtype in (torch.float32, torch.bfloat16)):
+            and dtype == torch.bfloat16):
         tiles = -(-n // TC_COLS)
         stages = k // TC_STAGE
         want = max(1, -(-sms // tiles))

@@ -822,9 +822,10 @@ QMM_TC_CASES = [(24, 768, 2304, -1), (24, 768, 768, 128),
 @pytest.mark.parametrize("case", QMM_TC_CASES)
 def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case):
     """The int8 forward at M <= 64 on aligned widths runs the tensor-core
-    route (one ``tc_launches`` a call) and matches its plain version, with
-    the bias; a second launch is bitwise equal, a captured call equal to an
-    eager one."""
+    route in bf16 (one ``tc_launches`` a call; fp32 the CUDA-core kernel)
+    and matches its plain version, with the bias; a
+    second launch is bitwise equal, a captured call equal to an eager
+    one."""
     m, k, n, gs = case
     rng = np.random.RandomState(8)
     qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
@@ -836,12 +837,13 @@ def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case):
         cuda)
     plan = qmm_mod.qmm_plan(m, k, n, s.reshape(-1, n).shape[0], dtype,
                             False, False, True, 132)
-    assert plan.route == "tc"
+    tc = dtype == torch.bfloat16
+    assert plan.route == ("tc" if tc else "cc")
     before = quant_matmul_fwd.tc_launches
     got = quant_matmul_fwd(x, q, s.reshape(-1, n), bias)
     again = quant_matmul_fwd(x, q, s.reshape(-1, n), bias)
     torch.cuda.synchronize()
-    assert quant_matmul_fwd.tc_launches == before + 2
+    assert quant_matmul_fwd.tc_launches == before + 2 * tc
     assert torch.equal(got, again)
     _qmm_err(got.float(), quant_matmul_reference(x, q, s, bias=bias).float(),
              dtype)
@@ -902,14 +904,18 @@ def test_mega_serving_launches_and_tokens(cuda):
 
 
 # (K, N, rows per expert, scale group): the serving shapes (48 routed rows,
-# one expert empty), a prefill-sized skewed split, and an odd shape with an
-# empty and a 1-row expert
+# one expert empty), a prefill-sized skewed split, an odd shape with an
+# empty and a 1-row expert, and serving rows with a 1-row, an empty and a
+# 100-row expert (two 64-row tiles of one expert on the skinny route)
 GMM_SHAPES = {
     "serving_w1": (768, 3072, [30, 0, 11, 7], 128),
     "serving_w2": (3072, 768, [30, 0, 11, 7], 128),
     "prefill": (768, 3072, [2400, 900, 0, 796], 128),
     "odd": (136, 72, [5, 0, 1, 9, 3], 8),
+    "one_row": (1024, 320, [1, 0, 100, 7], 64),
 }
+# the shapes whose quantized forward takes the skinny route in bf16
+GMM_SK_SHAPES = ("serving_w1", "serving_w2", "one_row")
 
 
 def _gmm_inputs(shape, weights, dtype, cuda, seed=7):
@@ -942,13 +948,30 @@ def _gmm_inputs(shape, weights, dtype, cuda, seed=7):
 def test_grouped_matmul_kernels_match_plain(cuda, dtype, shape, weights):
     """Forward and dx of the ragged grouped GEMM against their plain
     versions; the empty expert's NaN weights never reach the output (its
-    tiles read nothing). int4 dx is the plain contraction on both sides."""
+    tiles read nothing). The quantized forward at the serving rows runs the
+    skinny route in bf16 (one ``sk_launches`` a call), fp32, prefill rows
+    and the odd shape the CUDA-core kernel; a second launch is bitwise
+    equal. int4 dx is the plain contraction on both sides."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
     x, w, scales, offs = _gmm_inputs(shape, weights, dtype, cuda)
     name = "fp" if weights == "fp" else weights[:4]
+    k, n, counts, _ = GMM_SHAPES[shape]
+    bits = {"fp": 0, "int8": 8, "int4": 4}[name]
+    plan = gm._plan(x.shape[0], len(counts), k, n, bits, False, dtype, True,
+                    torch.cuda.get_device_properties(
+                        cuda).multi_processor_count,
+                    1 if scales is None else scales.shape[1])
+    sk = bits and shape in GMM_SK_SHAPES and dtype == torch.bfloat16
+    assert (plan.route == "sk") == bool(sk)
     before = dict(grouped_matmul_fwd.launches)
+    sk0 = grouped_matmul_fwd.sk_launches
     got = grouped_matmul_fwd(x, w, offs, scales)
+    again = grouped_matmul_fwd(x, w, offs, scales)
     torch.cuda.synchronize()
-    assert grouped_matmul_fwd.launches[name] == before[name] + 1
+    assert grouped_matmul_fwd.launches[name] == before[name] + 2
+    assert grouped_matmul_fwd.sk_launches == sk0 + 2 * bool(sk)
+    assert torch.equal(got, again)
     want = grouped_matmul_reference(x, w, offs, scales)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     _qmm_err(got.float(), want.float(), dtype)

@@ -83,7 +83,9 @@ def _case(counts, k, n, weights, dtype, seed=0):
         jw, js = _j(w, dtype), None
     else:
         bits, group = {"int8": ("int8", -1), "int8g8": ("int8", 8),
-                       "int4": ("int4", -1), "int4g8": ("int4", 8)}[weights]
+                       "int4": ("int4", -1), "int4g8": ("int4", 8),
+                       "int8g32": ("int8", 32),
+                       "int4g32": ("int4", 32)}[weights]
         qw = quantize_weight(_t(w, dtype), bits, group)
         tw, ts = qw["q"], qw["s"]
         jw, js = jnp.asarray(tw.numpy()), jnp.asarray(ts.numpy())
@@ -158,15 +160,78 @@ def _check_plan(p, m, e, k, n, bwd, counts):
     assert sum(-(-c // p.bm) for c in counts) <= p.rows
 
 
+def _check_sk_plan(p, m, e, k, n, bits, counts):
+    """A skinny-route plan's grid: 64-column tiles, every 64-row stage of
+    the stored rows in exactly one split, no split empty, the grid rows
+    over every live 64-row tile of ``counts``, and the K split filling one
+    wave: the fewest splits of equal stage counts that bring the grid
+    (every row counted live) to ``SK_BLOCKS_PER_SM`` blocks an SM, or to
+    one split a stage."""
+    stages = (k // 2 if bits == 4 else k) // tgmm.SK_STAGE
+    assert (p.route, p.tile, p.bm) == ("sk", None, tgmm.SK_ROWS)
+    assert p.cols == -(-n // tgmm.SK_COLS)
+    assert p.per >= 1 and 1 <= p.splits <= stages
+    assert p.splits * p.per >= stages > (p.splits - 1) * p.per
+    assert p.rows == tgmm.max_row_tiles(m, e, tgmm.SK_ROWS)
+    assert sum(-(-c // tgmm.SK_ROWS) for c in counts) <= p.rows
+    blocks, wave = p.rows * p.cols, tgmm.SK_BLOCKS_PER_SM * SMS
+    want = min(stages, max(1, -(-wave // blocks)))
+    assert p.per == -(-stages // want) and p.splits <= want
+
+
 def test_plan_routes():
     """bf16 fp weights at aligned widths multiple of 8 take the
     tensor-core kernel, the serving tile at the serving rows and the
-    prefill tile at the prefill rows; fp32, int8, int4, a width that is
-    not a multiple of 8 and an unaligned pointer take the CUDA-core
-    kernel; the splits cover the reduction and the grid rows the live
-    tiles."""
+    prefill tile at the prefill rows; the int8 / int4 forward at the
+    serving rows on whole aligned chunks takes the skinny route in bf16;
+    fp32 (fp or quantized weights), quantized prefill rows, stored rows not a multiple of 64, N not of 16, scale
+    groups not of 16k rows, an unaligned pointer and every dx take the
+    CUDA-core kernel; the splits cover the reduction and the grid rows the
+    live tiles."""
     bf16, f32 = torch.bfloat16, torch.float32
     serving, prefill = [30, 0, 11, 7], [2400, 0, 900, 796]
+    # the skinny route at the serving rows (a): w1's 48 column tiles x 4
+    # grid rows split K two ways to fill two blocks an SM, w2's 12 x 4 six
+    # ways
+    for bits in (8, 4):
+        for k, n in ((768, 3072), (3072, 768)):
+            for groups in (1, k // 128):
+                for dtype in (bf16, f32):
+                    p = tgmm._plan(48, 4, k, n, bits, False, dtype, True, SMS,
+                                   groups)
+                    if dtype == f32:
+                        assert (p.route, p.bm) == ("cc", tgmm.BM)
+                        continue
+                    _check_sk_plan(p, 48, 4, k, n, bits, serving)
+                    assert p.splits == (2 if n == 3072 else 6)
+                for args in ((4096, 4, k, n, bits, False, bf16, True, groups),
+                             (48, 4, k, n, bits, True, bf16, True, groups),
+                             (48, 4, k, n, bits, False, bf16, False, groups),
+                             (48, 4, k, n + 8, bits, False, bf16, True,
+                              groups),
+                             (48, 4, k, n, bits, False, bf16, True, k // 8)):
+                    p = tgmm._plan(*args[:8], SMS, args[8])
+                    assert (p.route, p.bm) == ("cc", tgmm.BM), args
+        # stored rows off the 64-row stages: int8 K 1040, int4 K / 2 544
+        # (per-channel groups of 16k rows)
+        for k in (1040, 1088):
+            want = "sk" if (k // 2 if bits == 4 else k) % 64 == 0 else "cc"
+            assert tgmm._plan(48, 4, k, 768, bits, False, bf16, True,
+                              SMS).route == want
+    # random serving splits: the grid rows cover the live 64-row tiles
+    rng = np.random.default_rng(12)
+    for _ in range(300):
+        e = int(rng.integers(1, 9))
+        counts = [int(c) for c in rng.integers(0, 130, e)
+                  * (rng.random(e) < 0.8)]
+        m = sum(counts)
+        if m == 0 or -(-m // e) > tgmm.SERVING_ROWS:
+            continue
+        bits = int(rng.choice([8, 4]))
+        k = int(rng.integers(1, 40)) * 128
+        n = int(rng.integers(1, 200)) * 16
+        p = tgmm._plan(m, e, k, n, bits, False, bf16, True, SMS)
+        _check_sk_plan(p, m, e, k, n, bits, counts)
     for bwd in (False, True):
         for k, n in ((768, 3072), (3072, 768)):
             for counts, tile, bm in ((serving, "serving", 32),
@@ -185,9 +250,7 @@ def test_plan_routes():
                               SMS).splits == 1
         for args in ((48, 4, 768, 3072, 0, bwd, f32, True),
                      (4096, 4, 768, 3072, 0, bwd, f32, True),
-                     (48, 4, 768, 3072, 8, bwd, bf16, True),
                      (4096, 4, 3072, 768, 8, bwd, bf16, True),
-                     (48, 4, 768, 3072, 4, bwd, bf16, True),
                      (23, 5, 136, 76, 0, bwd, bf16, True),
                      (23, 5, 132, 72, 0, bwd, bf16, True),
                      (48, 4, 768, 3072, 0, bwd, bf16, False)):
@@ -217,6 +280,112 @@ def test_plan_routes():
         assert p.tile == ("serving" if -(-m // e) <= tgmm.SERVING_ROWS
                           else "prefill")
         _check_plan(p, m, e, k, n, bwd, counts)
+
+
+def _sk_int4_stage(packed, scales3d, k: int, s: int,
+                   out_dtype=torch.float32):
+    """Stage ``s`` of the skinny route's split-half int4 tile, in plain
+    torch: the stored rows ``[64 s, 64 s + 64)`` of ``packed [E, K/2,
+    N]``. Stored row ``i`` holds reduction row ``i`` in its low nibble and
+    ``K/2 + i`` in its high nibble (sign-extended ``((p & 0xF) ^ 8) - 8``,
+    as the reference's ``_gmm_q4_kernel``), each scaled by the scale row of
+    its own group. Returns ``(rows_lo, rows_hi, groups_lo, groups_hi, lo,
+    hi)``: the reduction rows the stage feeds, the scale row each uses, and
+    the dequantized ``[E, 64, N]`` values (``q * s`` in ``out_dtype``). The
+    kernel holds ``4`` scale rows a half from ``groups_lo[0]`` and
+    ``groups_hi[0]`` (groups of 16k rows: one group a 16-row step)."""
+    kh = k // 2
+    gs = k // scales3d.shape[1]
+    i = torch.arange(tgmm.SK_STAGE * s, tgmm.SK_STAGE * (s + 1))
+    rows_lo, rows_hi = i, i + kh
+    groups_lo, groups_hi = rows_lo // gs, rows_hi // gs
+    b = packed[:, i].to(torch.int32)
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = (((b >> 4) & 0xF) ^ 8) - 8
+    sc = scales3d.to(out_dtype)
+    return (rows_lo, rows_hi, groups_lo, groups_hi,
+            lo.to(out_dtype) * sc[:, groups_lo], hi.to(out_dtype)
+            * sc[:, groups_hi])
+
+
+@pytest.mark.parametrize("group", [128, -1])
+@pytest.mark.parametrize("k", [768, 3072])
+def test_sk_int4_stage_feeds_both_halves(k, group):
+    """The skinny route's split-half int4 stage, the contract its kernel
+    is written to: stored row ``i`` of stage ``s`` feeds reduction rows
+    ``64 s + i`` (low nibble) and ``K/2 + 64 s + i`` (high nibble), each
+    with its own group's scale row; a 16-row step of either half lies in
+    one group and each half of a stage within the 4 scale rows the kernel
+    holds from its first group. The stages together give every row once,
+    equal to ``dequantize_grouped_weight`` (fp32 and bf16, bit for bit)."""
+    e, n = 2, 32
+    rng = np.random.default_rng(k + group)
+    w = torch.from_numpy((0.1 * rng.standard_normal((e, k, n))).astype(
+        np.float32))
+    qw = quantize_weight(w, "int4", group)
+    q, s3 = qw["q"], qw["s"]
+    gs = k // s3.shape[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        got = torch.full((e, k, n), float("nan"), dtype=dtype)
+        seen = torch.zeros(k, dtype=torch.int64)
+        for st in range(k // 2 // tgmm.SK_STAGE):
+            rl, rh, gl, gh, lo, hi = _sk_int4_stage(q, s3, k, st, dtype)
+            first = tgmm.SK_STAGE * st
+            assert torch.equal(rl, torch.arange(first, first + 64))
+            assert torch.equal(rh, rl + k // 2)
+            assert torch.equal(gl, rl // gs) and torch.equal(gh, rh // gs)
+            for groups in (gl, gh):
+                steps = groups.view(4, 16)
+                assert bool((steps == steps[:, :1]).all())
+                assert int(groups[-1] - groups[0]) < 4
+            got[:, rl], got[:, rh] = lo, hi
+            seen[rl] += 1
+            seen[rh] += 1
+        assert bool((seen == 1).all())
+        want = tgmm.dequantize_grouped_weight(q, s3, k=k, out_dtype=dtype)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weights", ["int8", "int8g32", "int4g32"])
+def test_sk_split_plan_sums_to_the_jax_reference(dtype, weights):
+    """The skinny route's arithmetic in torch: each 64-row tile of an
+    expert multiplied, split by split of the plan, with its expert's weight
+    dequantized as the kernel does (``q * s`` rounded to the activation
+    type; int4 stage by stage through ``_sk_int4_stage``, both nibbles of a
+    stored row against their own k-slices), the fp32 splits summed in
+    order and cast once — against the JAX reference (as ``_close``)."""
+    counts = [5, 0, 70, 2]
+    k, n = 512, 48
+    (tx, tw, ts, toffs), (jx, jw, js, joffs) = _case(counts, k, n, weights,
+                                                     dtype, seed=6)
+    bits = 4 if weights.startswith("int4") else 8
+    m, e = sum(counts), len(counts)
+    p = tgmm._plan(m, e, k, n, bits, False, torch.bfloat16, True, SMS,
+                   ts.shape[1])
+    assert p.route == "sk" and p.splits > 1
+    deq = tgmm.dequantize_grouped_weight(tw, ts, k=k, out_dtype=dtype)
+    stages = (k // 2 if bits == 4 else k) // tgmm.SK_STAGE
+    ex, lo, hi = tgmm.row_tiles(toffs, m, tgmm.SK_ROWS)
+    out = torch.empty(m, n)
+    for t in range(int((ex >= 0).sum())):
+        x = tx[int(lo[t]):int(hi[t])].float()
+        acc = torch.zeros(x.shape[0], n)
+        for z in range(p.splits):
+            part = torch.zeros(x.shape[0], n)
+            for st in range(z * p.per, min((z + 1) * p.per, stages)):
+                if bits == 4:
+                    rl, rh, _, _, wl, wh = _sk_int4_stage(tw, ts, k, st,
+                                                          dtype)
+                    part += (x[:, rl] @ wl[int(ex[t])].float()
+                             + x[:, rh] @ wh[int(ex[t])].float())
+                else:
+                    ks = slice(64 * st, 64 * st + 64)
+                    part += x[:, ks] @ deq[int(ex[t]), ks].float()
+            acc += part
+        out[int(lo[t]):int(hi[t])] = acc
+    want = jgmm.grouped_matmul_reference(jx, jw, joffs, scales=js)
+    _close(out.to(dtype), want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

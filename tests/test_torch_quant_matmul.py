@@ -223,9 +223,9 @@ def test_qmm_plan_routes_every_shape():
     """The pure plan routes every M, width, alignment, dtype and weight
     before any launch: the int8 forward at 1 <= M <= 64 with K % 64 (its
     stages), N % 16, scale groups of a multiple of 16 rows and aligned rows
-    takes the tensor-core kernel, everything else (int4, dx, M > 64 as in
-    legacy prefill buckets, odd widths, unaligned pointers) the CUDA-core
-    one;
+    takes the tensor-core kernel in bf16, everything else (fp32, int4, dx,
+    M > 64 as in legacy prefill buckets, odd widths, unaligned pointers)
+    the CUDA-core one;
     either way every reduction stage is walked by exactly one split."""
     for m in (1, 7, 8, 24, 33, 64, 65, 128, 512):
         for k, n, groups in ((768, 2304, 1), (3072, 768, 24), (200, 130, 5),
@@ -240,7 +240,8 @@ def test_qmm_plan_routes_every_shape():
                                         aligned, 132)
                     tc = (not packed and not bwd and aligned and m <= 64
                           and k % tqm.TC_STAGE == 0 and n % 16 == 0
-                          and (k // groups) % 16 == 0)
+                          and (k // groups) % 16 == 0
+                          and dtype == torch.bfloat16)
                     assert plan.route == ("tc" if tc else "cc"), (m, k, n)
                     assert plan == tqm.qmm_plan(m, k, n, groups, dtype,
                                                 packed, bwd, aligned, 132)
@@ -286,7 +287,9 @@ def test_tc_split_plan_sums_to_the_jax_gemm(dtype, group_size):
     td = _torch_dtype(dtype)
     xt = torch.from_numpy(x).to(td)
     s2 = torch.from_numpy(s).reshape(-1, n)
-    plan = tqm.qmm_plan(m, k, n, s2.shape[0], td, False, False, True, 132)
+    # the route's splits (the plan's for bf16; fp32 sums the same splits)
+    plan = tqm.qmm_plan(m, k, n, s2.shape[0], torch.bfloat16, False, False,
+                        True, 132)
     assert plan.route == "tc" and plan.splits > 1
     w = tqm.dequantize_weight(torch.from_numpy(q), s2, out_dtype=td).float()
     acc = torch.zeros(m, n)
