@@ -6,6 +6,7 @@
     python3 chip_smoke.py --paged-walks [ROOT]
     python3 chip_smoke.py --mlp-gemms [ROOT]
     python3 chip_smoke.py --moe-gemms [ROOT]
+    python3 chip_smoke.py --int4-decode [ROOT]
 
 from the root of a checkout. The second form runs only phase 11's bf16
 MoE full forward, with the package of the checkout at ROOT (default: this
@@ -28,8 +29,13 @@ grouped GEMM with int8 and int4 expert stacks at the serving rows, fp32 on
 both routes where the package has the skinny one) beside the controls
 (rows 9, 10, 13, 14 and 15) and the skinny route's other K splits, then
 the bf16 int8 and int4 g128 MoE serving steps (wall and profiled device
-busy), with ROOT's package, and prints one JSON line. Phases (each failure
-ends the run non-zero):
+busy), with ROOT's package, and prints one JSON line. The seventh times
+rows 10 and 4 (the int4 g128 weight-only GEMM's four serving GEMMs at M 24
+and 8; the paged decode kernel at the serving pools beside the ragged
+kernel at chunk 1) beside the controls (rows 1, 9, 13 and 17), then the
+bf16 int4 g128 per-op and legacy serving steps of GPT-125M (wall and
+profiled device busy), with ROOT's package, and prints one JSON line.
+Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
 2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
@@ -81,24 +87,27 @@ ends the run non-zero):
    versions at the four serving shapes [24, K] x [K, N] and an odd shape,
    fp32 and bf16, with kernel / plain / bound times, ``_weight_int8pack_mm``
    as the int8 yardstick where the card's torch has it, and cuBLAS on a
-   pre-dequantized weight logged beside them; the int8 forward at the
-   serving shapes must take the tensor-core route in bf16 (one
-   ``tc_launches`` each, none in fp32, at the odd shape or for int4),
+   pre-dequantized weight logged beside them; the int8 and int4 forwards
+   at the serving shapes must take the tensor-core route in bf16 (one
+   ``tc_launches`` each, none in fp32 or at the odd shape),
    every forward launched twice
-   and bitwise equal, and the int8 four GEMMs are timed at a decode round
-   (M 8) too; the ragged kernel's int8-KV
+   and bitwise equal, and the int8 and int4 four GEMMs are timed at a
+   decode round (M 8) too; the ragged kernel's int8-KV
    branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
    (a) int8 weights, (b) int4 weights in groups of 128, (c) int8 weights
    and an int8 KV cache, the phase-6 requests in fp32: every greedy token
    and its logits row against a plain quantized forward over the served
    context (the same quantized params through the plain GEMM; in (c) K
    and V through the int8 write's quantize-dequantize), 12 ragged and 48
-   weight-only GEMM launches per step (with int8 weights all 48 on the
-   tensor-core route in the bf16 runs; fp32 on the CUDA-core kernel); the
+   weight-only GEMM launches per step (fp32 on the CUDA-core kernel); the
    gradient of a loss with
    respect to the input embeddings through the 12 quantized layers (the
    backward kernels) vs the plain versions; token agreement with phase 6,
-   weight and KV bytes, and the bf16 step time of (a) and (c).
+   weight and KV bytes; then (a), (b) and (c) served in bf16 in turns
+   (every one of the 48 weight-only GEMMs a step on the tensor-core route,
+   well-formed streams, the median wall and mean step of 5 runs after a
+   warm-up) and one profiled run of (a) and of (b) (device busy a step and
+   the weight-only GEMM's device time).
 9. fused MLP (its steps run beside their phase-7 twins): the LN forward
    (with and without the residual), LN backward (with and without dso),
    GELU forward and backward (with and without the bias) kernels vs their
@@ -177,7 +186,8 @@ ends the run non-zero):
    dense step, one profiled run; then (v) int8 and (vi) int4 g128 stacks
    served in bf16 at cf 1.25, every grouped GEMM on the skinny route (24
    a step): step 20 against the same step with the plain grouped GEMM
-   (``MOE_BF16_STEP_TOL``, router flips counted), the streams' agreement
+   (``MOE_BF16_STEP_TOL``, router flips counted), the 24 weight-only
+   GEMMs a step (wqkv, wo) on the tensor-core route, the streams' agreement
    with the plain grouped GEMM's, the mean step and one profiled run
    each; and the weight bytes; the bf16 MoE
    full forward on ids [4, 512] at cf 1.25 (24 tensor-core launches a
@@ -189,12 +199,14 @@ ends the run non-zero):
    and an fp16 GPT-125M forward equal to the plain path's logits with no
    flash launch, and one d 96 ``gpt_spmd`` training step.
 
-12. legacy serving (run after phase 11): (a) the paged decode kernel vs
-   its plain version and vs the ragged kernel at chunk 1 on the same pools,
-   at phase 3's serving pools (8 slots, 12 heads of 64, page 64, lengths
-   0, 1, 64, 65 and up to 1,024, -1 entries past each context) and at GQA
-   16/2 and 12/4, MQA 8/1, page 16, head dims 32 / 80 / 96 / 128, fp32
-   and bf16, with kernel / plain / bound times at the serving pools; (b)
+12. legacy serving (run after phase 11): (a) the paged decode kernel (the
+   split walk) vs its plain version and vs the ragged kernel at chunk 1 on
+   the same pools, at phase 3's serving pools (8 slots, 12 heads of 64,
+   page 64, lengths 0, 1, 64, 65 and up to 1,024, -1 entries past each
+   context) and at GQA 16/2 and 12/4, MQA 8/1, pages 16 and 8, head dims
+   32 / 64 / 80 / 96 / 128, fp32 and bf16, each launched twice and bitwise
+   equal, with kernel / plain / bound / ragged-at-chunk-1 times at the
+   serving pools; (b)
    the ragged kernel vs its plain version at head dims 32 / 80 / 96 with
    fp and int8 KV; (c) ``ServingPredictor(unified=False)`` on GPT-125M
    with the phase-6 requests in fp32: (i) fp weights against the
@@ -409,7 +421,8 @@ DECODE_SERVING = ((8, 12, 12, 64, 64, 16), [0, 1, 64, 65, 1024, 1000, 700,
 DECODE_ODD = (((5, 16, 2, 128, 16, 9), [0, 1, 16, 17, 144]),
               ((5, 12, 4, 96, 16, 9), [0, 1, 16, 17, 140]),
               ((4, 8, 1, 80, 16, 9), [0, 1, 33, 144]),
-              ((4, 4, 4, 32, 16, 9), [0, 7, 16, 130]))
+              ((4, 4, 4, 32, 16, 9), [0, 7, 16, 130]),
+              ((6, 12, 4, 64, 8, 12), [0, 1, 8, 9, 96, 50]))
 # the ragged kernel at gpt3-tiny's, gpt3-2.7b's and gpt3-760m's head dims:
 # phase 3's lanes with gpt3-760m's 16 heads
 RAGGED_DIMS = (32, 80, 96)
@@ -491,7 +504,7 @@ def ptxas_summary(name: str, text: str):
                        r"ILb(\d)E", line)
         # bf16-only kernels: templated on an int (the weight bits) or not
         bf = re.search(r"Compiling entry function '.*?\d((?:gmm_sk|qmm_tc)"
-                       r"_kernel)(?:ILi(\d+)E)?", line)
+                       r"_kernel)(?:ILi(\d+)E|I([ah])E)?", line)
         if m:
             flags = re.findall(r"L[ib](\d+)E", m.group(3))
             inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
@@ -499,8 +512,9 @@ def ptxas_summary(name: str, text: str):
         elif tc:
             inst = (tc.group(1), "bf16",
                     "dx" if tc.group(2) == "1" else "fwd")
-        elif bf:
-            inst = (bf.group(1), "bf16", bf.group(2) or "-")
+        elif bf:   # qmm_tc_kernel<int8_t> / <uint8_t>: int8 / int4
+            inst = (bf.group(1), "bf16", bf.group(2) or {
+                "a": "int8", "h": "int4"}.get(bf.group(3), "-"))
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
@@ -1033,13 +1047,12 @@ def phase_qmm(dev):
                 again = quant_matmul_fwd(x, q, sc)
                 dx = quant_matmul_bwd(dy, q, sc, k, dtype)
                 torch.cuda.synchronize()
-                if tc_route != (wd == "int8" and name != "odd"
-                                and dtype == torch.bfloat16):
+                if tc_route != (name != "odd" and dtype == torch.bfloat16):
                     raise AssertionError(
                         f"quant_matmul {wd} g{g} {name}: {tc_route} "
-                        "tensor-core launches (the bf16 int8 forward at M <= "
-                        "64 on aligned widths takes that route, nothing "
-                        "else)")
+                        "tensor-core launches (the bf16 int8 / int4 forward "
+                        "at M <= 64 on aligned widths takes that route, "
+                        "nothing else)")
                 if not torch.equal(got, again):
                     raise AssertionError(f"quant_matmul {wd} g{g} {dtype} "
                                          f"{name}: a second launch differs")
@@ -1093,7 +1106,7 @@ def phase_qmm(dev):
                     f"on the pre-dequantized weight (the fp product this "
                     f"replaces) {t['cublas_ms']:.4f}, library "
                     + (f"{lib:.4f}" if lib is not None else "null"))
-            if wd == "int8":
+            if (wd, gs) != ("int8", 128):
                 tot.update(qmm_decode(wd, gs, dtype, dev))
             tot["bound_by"] = ("bytes" if work[0] / HBM_BYTES_PER_S
                                >= work[1] / PEAK_OPS[dtype] else "operations")
@@ -1114,8 +1127,9 @@ def phase_qmm(dev):
 
 def qmm_decode(wd, gs, dtype, dev):
     """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
-    tokens) on the route the plan picks (the tensor cores in bf16): held
-    as phase 8 holds them, the summed kernel time and bound."""
+    tokens) on the route the plan picks (the tensor cores in bf16, int8 or
+    int4): held as phase 8 holds them, the summed kernel time and
+    bound."""
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_fwd,
                                                    quant_matmul_reference)
 
@@ -1133,8 +1147,8 @@ def qmm_decode(wd, gs, dtype, dev):
                                  f"[{QMM_DECODE_ROWS}, {k}] x [{k}, {n}]: "
                                  f"held error {held} > {QMM_TOL[dtype]}")
         ms += time_ms(lambda: quant_matmul_fwd(x, q, sc))
-        nbytes, nops = qmm_work(QMM_DECODE_ROWS, k, n, 8, sc.shape[0],
-                                x.element_size())
+        nbytes, nops = qmm_work(QMM_DECODE_ROWS, k, n, int(wd[3:]),
+                                sc.shape[0], x.element_size())
         work = [work[0] + nbytes, work[1] + nops]
     out = dict(decode_ms=ms, decode_bound_ms=bound_ms(*work, dtype))
     log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
@@ -1397,35 +1411,60 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
         f" MB; KV pools fp32 {kv['a int8'] / 1e6:.2f} MB, int8 + scales "
         f"{kv['c int8 + int8 KV'] / 1e6:.2f} MB")
     del preds
-    for label, quant, _ in (QUANT_SERVE[0], QUANT_SERVE[2]):
-        walls, steps16 = [], 0
-        reset_counts()
-        for run in range(1 + BF16_RUNS):
+    # bf16: (a), (b) and (c) in turns, every forward on the tensor-core
+    # route (48 a step); then one profiled run of (a) and of (b)
+    bf16_labels = [label for label, _, _ in QUANT_SERVE]
+    walls = {label: [] for label in bf16_labels}
+    for run in range(1 + BF16_RUNS):
+        for label, quant, _ in (QUANT_SERVE if run % 2
+                                else QUANT_SERVE[::-1]):
             sp16 = quant_predictor(model, cfg, quant, dev,
                                    dtype=torch.bfloat16)
+            reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            bits, tc_n = quant["weight_dtype"], qmm_tc_count()
+            counts = qmm_counts()
+            if sum(map(len, outs16)) != MAX_NEW * len(outs16):
+                raise AssertionError(f"bf16 ({label}) malformed streams")
+            if not (tc_n == counts[bits] == sum(counts.values())
+                    == 4 * cfg.num_layers * sp16.steps > 0):
+                raise AssertionError(f"bf16 ({label}): {tc_n} tensor-core "
+                                     f"GEMM launches, {counts} in all over "
+                                     f"{sp16.steps} steps (want 48 a step, "
+                                     "all on the route)")
+            launches[f"{bits}_bf16"] = launches.get(f"{bits}_bf16", 0) + tc_n
             if run:
-                walls.append(time.perf_counter() - t0)
-            steps16 += sp16.steps
-        ntok = sum(map(len, outs16))
-        if ntok != MAX_NEW * len(outs16):
-            raise AssertionError(f"bf16 ({label}) malformed streams")
-        if qmm_tc_count() != 4 * cfg.num_layers * steps16:
-            raise AssertionError(f"bf16 ({label}): {qmm_tc_count()} "
-                                 "tensor-core GEMM launches over "
-                                 f"{steps16} steps")
-        wall = sorted(walls)[len(walls) // 2]
-        log(f"[quant] serve ({label}) bf16: {ntok} tokens, {sp16.steps} steps"
-            f" per run; median of {BF16_RUNS} runs {wall:.3f} s = "
-            f"{ntok / wall:.1f} tokens/s, mean step "
-            f"{1e3 * wall / sp16.steps:.3f} ms (fp bf16 step of phase 6: "
-            f"{fp16_step_ms:.3f} ms; runs: "
-            f"{', '.join(f'{w:.3f}' for w in walls)} s; "
-            f"{qmm_tc_count()} tensor-core GEMM launches = 48 a step) "
-            f"({card})")
+                walls[label].append((wall, sp16.steps))
+    bf16_stats = {}
+    for label, quant, _ in QUANT_SERVE:
+        rs = walls[label]
+        wall, steps = sorted(rs)[len(rs) // 2]
+        st = dict(step_ms=[1e3 * w / n for w, n in rs], steps=steps)
+        log(f"[quant] serve ({label}) bf16: {MAX_NEW * 8} tokens, {steps} "
+            f"steps per run; median of {BF16_RUNS} runs (in turns with the "
+            f"other configurations) {wall:.3f} s = {MAX_NEW * 8 / wall:.1f} "
+            f"tokens/s, mean step {1e3 * wall / steps:.3f} ms (fp bf16 step "
+            f"of phase 6: {fp16_step_ms:.3f} ms; runs: "
+            f"{', '.join(f'{w:.3f}' for w, _ in rs)} s; 48 tensor-core GEMM "
+            f"launches a step) ({card})")
+        if label != QUANT_SERVE[2][0]:
+            sp16 = quant_predictor(model, cfg, quant, dev,
+                                   dtype=torch.bfloat16)
+            prof = profile_serve(sp16, early, late, card,
+                                 f"[quant] ({label})")
+            if prof is not None:
+                st.update(busy_ms=prof[1] / 1e3 / sp16.steps,
+                          gemm_ms=prof[0]["weight-only GEMM"][0] / 1e3
+                          / sp16.steps)
+                log(f"[quant] serve ({label}) bf16: device busy "
+                    f"{st['busy_ms']:.4f} ms a step, the weight-only GEMM "
+                    f"{st['gemm_ms']:.4f} ms of it ({card})")
+        bf16_stats[label] = st
+    launches["serve_bf16"] = bf16_stats
     return launches, streams
 
 
@@ -2481,12 +2520,22 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
         outs = [list(r.output_ids) for r in serve(sp, early, late)]
         torch.cuda.synchronize()
         gmm, sk, steps = gmm_counts(), gmm_sk_count(), sp.steps
+        qmm, qtc = qmm_counts(), qmm_tc_count()
         want = 2 * cfg.num_layers * steps
         if not (steps and gmm[bits] == want == sum(gmm.values()) == sk
                 and sum(map(len, outs)) == MAX_NEW * len(outs)):
             raise AssertionError(f"bf16 MoE ({label}): grouped-GEMM launches "
                                  f"{gmm}, skinny {sk}, want {want} over "
                                  f"{steps} steps")
+        # wqkv and wo quantize too: 24 weight-only GEMMs a step, every one
+        # on the tensor-core route (int8 and int4 alike); the step
+        # RouterFlips replays with the plain grouped GEMM runs them once more
+        if not (qtc == qmm[bits] == sum(qmm.values())
+                == want + 2 * cfg.num_layers):
+            raise AssertionError(f"bf16 MoE ({label}): weight-only GEMM "
+                                 f"launches {qmm}, {qtc} on the tensor-core "
+                                 f"route, want {want} over {steps} steps "
+                                 "and 24 for the replayed step")
         got, ref, moved = cmp.rows
         err = (got - ref).abs().amax(-1)
         held = (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item() \
@@ -2499,7 +2548,9 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
                 model, mcfg, quant, dev, dtype=bf16), early, late)]
         same = sum(a == b for o, w in zip(outs, twin) for a, b in zip(o, w))
         log(f"[moe] serve ({label}) bf16: {steps} steps, {sk} grouped-GEMM "
-            f"launches, all on the skinny route; step {cmp.at} vs the same "
+            f"launches, all on the skinny route, {qtc} weight-only GEMM "
+            f"launches (wqkv, wo), all on the tensor-core route; step "
+            f"{cmp.at} vs the same "
             f"step with the plain grouped GEMM: router {cmp.flips} flips in "
             f"{cmp.choices}, {len(got)} emitting lanes held (logits error "
             f"{held:.3e} of the row's max, tol {MOE_BF16_STEP_TOL}; greedy "
@@ -2521,11 +2572,13 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
             serve(sp, early, late)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
-        gmm = gmm_counts()
-        if not gmm[bits] == sum(gmm.values()) == gmm_sk_count():
+        gmm, qmm = gmm_counts(), qmm_counts()
+        if not (gmm[bits] == sum(gmm.values()) == gmm_sk_count()
+                and qmm[bits] == sum(qmm.values()) == qmm_tc_count()):
             raise AssertionError(f"bf16 MoE ({label}) timed runs: "
                                  f"grouped-GEMM launches {gmm}, skinny "
-                                 f"{gmm_sk_count()}")
+                                 f"{gmm_sk_count()}; weight-only GEMM {qmm}, "
+                                 f"tensor-core {qmm_tc_count()}")
         launches[bits] += gmm[bits]
         sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
         prof = profile_serve(sp, early, late, card, f"[moe] ({label})")
@@ -2533,11 +2586,14 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
                   agree=same / sum(map(len, twin)))
         if prof is not None:
             st.update(busy_ms=prof[1] / 1e3 / sp.steps,
-                      gmm_ms=prof[0]["grouped GEMM"][0] / 1e3 / sp.steps)
+                      gmm_ms=prof[0]["grouped GEMM"][0] / 1e3 / sp.steps,
+                      qmm_ms=prof[0]["weight-only GEMM"][0] / 1e3
+                      / sp.steps)
         log(f"[moe] serve ({label}) bf16: mean step "
             + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
             + (f"{st['busy_ms']:.4f} ms a step, the grouped GEMM "
-               f"{st['gmm_ms']:.4f} of it" if prof else "not measured")
+               f"{st['gmm_ms']:.4f} and the weight-only GEMM "
+               f"{st['qmm_ms']:.4f} of it" if prof else "not measured")
             + f" ({card})")
         out[label] = st
     return out
@@ -2814,10 +2870,11 @@ def decode_work(args):
 
 
 def phase_decode_kernel(dev):
-    """(a) The decode kernel against its plain version and against the
-    ragged kernel at chunk 1 on the same pools, at phase 3's serving pools
-    and the odd shapes, fp32 and bf16; kernel / plain / bound times at the
-    serving shape."""
+    """(a) The split-walk decode kernel against its plain version and
+    against the ragged kernel at chunk 1 on the same pools, at phase 3's
+    serving pools and the odd shapes (GQA, MQA, page 16 and 8), fp32 and
+    bf16, every case launched twice and bitwise equal; kernel / plain /
+    bound / ragged-at-chunk-1 times at the serving pools."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_attention as kern, paged_attention_reference as plain,
         ragged_paged_attention as ragged)
@@ -2828,16 +2885,21 @@ def phase_decode_kernel(dev):
             args = decode_inputs(geom, lengths, dtype, dev, SEED + ci)
             lens = args[4]
             got = kern(*args)
+            again = kern(*args)
             lane = ragged(args[0][:, None].contiguous(), *args[1:4], lens,
                           (lens > 0).to(torch.int32))[:, 0]
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"decode kernel {dtype} {geom}: a "
+                                     "second launch differs")
             want = plain(*args)
             active = lens > 0
             err, held = kernel_error(got[active], want[active], dtype)
             r_err, r_held = kernel_error(got[active], lane[active], dtype)
             b, hq, hkv, d, ps, pps = geom
             log(f"[legacy] decode kernel {str(dtype)[6:]} b{b} hq{hq} "
-                f"hkv{hkv} d{d} page {ps} lengths {lengths}: vs plain "
+                f"hkv{hkv} d{d} page {ps} lengths {lengths} (repeat bitwise "
+                f"equal): vs plain "
                 f"max_abs_err {err:.3e} (held {held:.3e}), vs the ragged "
                 f"kernel at chunk 1 {r_err:.3e} (held {r_held:.3e}); tol "
                 f"{KERNEL_TOL[dtype]}")
@@ -4532,6 +4594,101 @@ def moe_gemms_only(root: Path) -> int:
     return 0
 
 
+def int4_decode_only(root: Path) -> int:
+    """``--int4-decode [ROOT]``: row 10 (the int4 g128 weight-only GEMM's
+    four serving GEMMs at M 24 and M 8) and row 4 (the paged decode kernel
+    at the serving pools, beside the ragged kernel at chunk 1 on the same
+    pools) in fp32 and bf16; the controls: row 1 (the ragged kernel at the
+    table shape), row 9 (the int8 four GEMMs at M 24), row 13 (the mega
+    attention kernel at the table shape) and row 17 (the grouped GEMM with
+    int4 g128 stacks at the serving rows (a)); then GPT-125M served in bf16
+    with int4 g128 weights (the per-op step) and through the legacy path
+    (mean step of 2 runs after a warm-up, one profiled run each: device
+    busy, the weight-only GEMM's and the decode kernel's device time a
+    step), all with the ``paddle_tpu_torch`` package of the checkout at
+    ``ROOT`` (default: this one); prints one JSON line. Run it with two
+    trees in turns to compare them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention,
+                                                      ragged_paged_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    rows = {}
+    table = (8, 16, 12, 12, 64, 64, 16, [0, 1024, 1000, 333, 64, 16, 700, 517],
+             [0, 1, 16, 7, 1, 16, 12, 1])
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        rows[f"10 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(4, 128, dtype, dev)
+        rows[f"10 four GEMMs M {QMM_DECODE_ROWS} {t}"] = qmm_four(
+            4, 128, dtype, dev, m=QMM_DECODE_ROWS)
+        dargs = decode_inputs(DECODE_SERVING[0], DECODE_SERVING[1], dtype,
+                              dev, SEED)
+        lens = dargs[4]
+        nbytes, nops = decode_work(dargs)
+        rows[f"4 serving pools {t}"] = dict(
+            ms=time_ms(lambda: paged_attention(*dargs)),
+            bound_ms=bound_ms(nbytes, nops, dtype),
+            ragged_chunk1_ms=time_ms(lambda: ragged_paged_attention(
+                dargs[0][:, None].contiguous(), *dargs[1:4], lens,
+                (lens > 0).to(torch.int32))))
+        args, kw = walk_inputs(table, dtype, "fp", dev)
+        rows[f"1 table {t}"] = {k: v for k, v in ragged_case(
+            args, kw, dtype, "table").items() if k in ("ms", "bound_ms")}
+        rows[f"9 four GEMMs M {QMM_ROWS} {t}"] = qmm_four(8, -1, dtype, dev)
+        margs, _ = mega_inputs(MEGA_SERVING, None, -1, False, dtype, dev)
+        rows[f"13 table fp {t}"] = {
+            k: v for k, v in mega_case(margs, dtype, "table").items()
+            if k in ("ms", "bound_ms")}
+        rows[f"17 int4 g128 (a) {t}"] = gmm_pair("int4", 128, dtype, dev)
+    for label, st in rows.items():
+        log(f"[int4-decode] row {label}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()) + f" ({card})")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    early, late = requests(cfg)
+    steps = {}
+    for name, make in (
+            ("int4 g128 per-op", lambda: quant_predictor(
+                model, cfg, QUANT_SERVE[1][1], dev, dtype=torch.bfloat16)),
+            ("legacy", lambda: ServingPredictor(
+                model, max_batch=8, device=dev, dtype=torch.bfloat16,
+                unified=False))):
+        walls = []
+        for run in range(3):
+            sp = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(sp, early, late)
+            torch.cuda.synchronize()
+            if run:
+                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+        sp = make()
+        prof = profile_serve(sp, early, late, card, f"[int4-decode] {name}")
+        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        groups = None if prof is None else {
+            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            prof[0].items() if us}
+        steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
+                           groups_ms_per_step=groups, steps=sp.steps)
+        log(f"[int4-decode] serve {name} bf16: mean step "
+            + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
+            + ("not measured" if busy is None else f"{busy:.4f} ms")
+            + f" a step ({sp.steps} steps; {card})")
+    print(json.dumps({"int4_decode": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, serve=steps)}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -4692,14 +4849,13 @@ def main() -> int:
              "--fused-gelu": fused_gelu_only,
              "--paged-walks": paged_walks_only,
              "--mlp-gemms": mlp_gemms_only,
-             "--moe-gemms": moe_gemms_only}
+             "--moe-gemms": moe_gemms_only,
+             "--int4-decode": int4_decode_only}
     if args[:1] and args[0] in modes and len(args) <= 2:
         root = Path(args[1]).resolve() if len(args) == 2 else ROOT
     elif args:
-        print(f"chip_smoke: unknown arguments {args} (none, "
-              "--moe-forward [ROOT], --fused-gelu [ROOT], --paged-walks "
-              "[ROOT], --mlp-gemms [ROOT] or --moe-gemms [ROOT])",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {args} (none, or one of "
+              f"{', '.join(modes)} with an optional ROOT)", file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
@@ -4716,8 +4872,8 @@ def main() -> int:
     from paddle_tpu_torch.ops.flash_attention import bwd_smem_bytes
     from paddle_tpu_torch.ops.flash_attention import smem_bytes as flash_smem
     from paddle_tpu_torch.ops.mega_decode import smem_bytes as mega_smem
-    from paddle_tpu_torch.ops.paged_attention import decode_smem_bytes
     from paddle_tpu_torch.ops.paged_attention import smem_bytes as ragged_smem
+    from paddle_tpu_torch.ops.paged_attention import walk_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4758,10 +4914,14 @@ def main() -> int:
         f"{MEGA_SERVING[0][1]}, d 64, fp32) / {mega_smem(64, 128)} B "
         f"(chunk 64, d 128, fp32) / " + " / ".join(
             f"{mega_smem(16, d, torch.bfloat16)} B (d {d})"
-            for d in (32, 80, 96)) + " (chunk 16, bf16), paged decode "
-        f"{decode_smem_bytes(1, 64, 64)} B "
-        f"(group 1, page 64, d 64) / {decode_smem_bytes(8, 16, 128)} B "
-        "(group 8, page 16, d 128)")
+            for d in (32, 80, 96)) + " (chunk 16, bf16)")
+    b, hq, hkv, d, ps, pps = DECODE_SERVING[0]
+    plan = walk_plan(b, hkv, pps, ps, d, hq // hkv, 4,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"[build] paged decode split walk at the serving pools ({b} slots x "
+        f"{hkv} heads, {pps} pages of {ps}): {plan.splits} splits of "
+        f"{plan.pages} pages a pair, {plan.blocks} blocks = "
+        f"{plan.waves:.2f} waves, {plan.partial_bytes} B of partials")
 
     # 3, 4. kernels vs plain versions
     ragged = timed(phase_ragged, dev)
@@ -4840,7 +5000,8 @@ def main() -> int:
     for bits, gs, line in ((8, -1, 154), (4, 128, 170)):
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}", line,
-                         quant_launches[f"int{bits}"], st))
+                         quant_launches[f"int{bits}"]
+                         + quant_launches[f"int{bits}_bf16"], st))
     for bits, gs, line in ((8, -1, 194), (4, 128, 210)):
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}_bwd", line,
@@ -5000,7 +5161,22 @@ def main() -> int:
         f"{qmm[('int8', -1, torch.float32)]['ms']:.4f}, bound_ms "
         f"{qmm[('int8', -1, torch.float32)]['bound_ms']:.6f}; int8 g128 "
         f"bf16: ms {qmm[('int8', 128, bf16)]['ms']:.4f}; launches: phase 8's "
-        "fp32 served runs (a) and (c), on the CUDA-core kernel (qmm_kernel)")
+        "fp32 served runs (a) and (c), on the CUDA-core kernel (qmm_kernel), "
+        "and its bf16 served runs (a) and (c), on the tensor-core route")
+    q4r, q4f = qmm[("int4", 128, bf16)], qmm[("int4", 128, torch.float32)]
+    s4 = quant_launches["serve_bf16"][QUANT_SERVE[1][0]]
+    row_of["quant_matmul_int4"]["note"] = (
+        "bf16 g128, the sum of one layer's four GEMMs at M "
+        f"{QMM_ROWS} on the tensor-core route (qmm_tc_kernel<uint8_t>); at "
+        f"M {QMM_DECODE_ROWS}: ms {q4r['decode_ms']:.4f}, bound_ms "
+        f"{q4r['decode_bound_ms']:.6f}; fp32 (qmm_kernel, the CUDA-core "
+        f"kernel): ms {q4f['ms']:.4f}, plain_ms {q4f['plain_ms']:.4f}, "
+        f"bound_ms {q4f['bound_ms']:.6f}; bf16 serving (b): mean step "
+        + " / ".join(f"{w:.3f}" for w in s4["step_ms"]) + " ms"
+        + (f", device busy {s4['busy_ms']:.4f} ms a step (weight-only GEMM "
+           f"{s4['gemm_ms']:.4f})" if "busy_ms" in s4 else "")
+        + "; launches: phase 8's fp32 served run (b) on qmm_kernel and its "
+        "bf16 served runs (b) on the tensor-core route")
     for name, kname, label in (
             ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
             ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),
@@ -5065,7 +5241,8 @@ def main() -> int:
         "phase 10")
     d16 = decode[bf16]
     row_of["paged_decode_attention"]["note"] = (
-        f"fp32 at phase 3's serving pools (lengths {DECODE_SERVING[1]}); "
+        "the split walk (paged_decode_split_kernel); fp32 at phase 3's "
+        f"serving pools (lengths {DECODE_SERVING[1]}); "
         f"bf16: ms {d16['ms']:.4f}, plain_ms {d16['plain_ms']:.4f}, "
         f"bound_ms {d16['bound_ms']:.6f}; the ragged kernel at chunk 1 on "
         f"the same pools: fp32 {decode[torch.float32]['ragged_ms']:.4f} ms, "
@@ -5080,8 +5257,9 @@ def main() -> int:
         f"_bwd in bf16 at the training shape {list(BWD_SHAPE)}, launches in "
         "phase 5 and the bf16 training runs; "
         "quant_matmul_* in bf16, the sum of one layer's four GEMMs at M "
-        f"{QMM_ROWS}, launches in phase 8's fp32 serving runs (forward) and "
-        "gradient drives (backward); fused_mlp_* in bf16 at the flagship "
+        f"{QMM_ROWS}, launches in phase 8's fp32 and bf16 serving runs "
+        "(forward) and gradient drives (backward); fused_mlp_* in bf16 at "
+        "the flagship "
         "shapes, launches in phase 9's bf16 flagship run; flash launches "
         "count both flagship runs; grouped_matmul_* in bf16, the sum of "
         "one MoE layer's two GEMMs at the serving rows, launches in phase "

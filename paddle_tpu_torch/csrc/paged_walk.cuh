@@ -1,6 +1,7 @@
 // Split page walks over the paged KV pools (flash-decoding), shared by the
-// ragged paged attention kernel (ragged_paged_attention.cu) and the mega
-// attention layer (mega_decode.cu).
+// ragged paged attention kernel (ragged_paged_attention.cu), the paged
+// decode kernel (paged_decode_attention.cu) and the mega attention layer
+// (mega_decode.cu).
 //
 // A (lane, kv head) pair's context is cut into splits of whole pages, one
 // block each, so a decode round of 8 lanes fills the card's 132 SMs instead
@@ -112,6 +113,35 @@ struct Rows {
   int* ncols;     // [R] keys of the current tile a row sees
   int nrows;      // valid rows
 };
+
+// Shared memory of a walking block for R rows at head dim D walking
+// `pages` pages a split: the rows' state (q [R][D + 4], acc [R][D], scores
+// [R][kKeys + 1], m, l, alpha and ncols [R]), the split's page ids, then
+// the ring of kStages tiles of KV.
+__host__ __device__ inline size_t rows_bytes(int R, int D, int pages) {
+  return ((size_t)R * (2 * D + 4 + kKeys + 1 + 4) * 4 + 4 * (size_t)pages +
+          15) / 16 * 16;
+}
+template <typename KV, int D>
+size_t smem_bytes(int R, int pages) {
+  return rows_bytes(R, D, pages) + (size_t)kStages * Tile<KV, D>::kBytes;
+}
+
+// The rows' state of R rows (nrows valid) laid out at smem as rows_bytes
+// says; pg: where the split's page ids go.
+template <int D>
+__device__ __forceinline__ Rows carve(unsigned char* smem, int R, int nrows,
+                                      int** pg) {
+  float* q = reinterpret_cast<float*>(smem);
+  Rows st{q, q + R * (D + 4), q + R * (D + 4) + R * D,
+          nullptr, nullptr, nullptr, nullptr, nrows};
+  st.m = st.s + R * (kKeys + 1);
+  st.l = st.m + R;
+  st.alpha = st.l + R;
+  st.ncols = reinterpret_cast<int*>(st.alpha + R);
+  *pg = st.ncols + R;
+  return st;
+}
 
 template <int D>
 __device__ __forceinline__ void reset(const Rows& st) {

@@ -17,24 +17,32 @@
 // Two kernels. ops/quant_matmul.py qmm_plan picks one before the launch,
 // from shapes and alignment alone:
 //
-// qmm_tc_kernel ("tc": the bf16 int8 forward at M <= 64 tokens, K a multiple of
-// 64, N of 16, scale groups of a multiple of 16 rows, 16-byte aligned rows) —
-// what the serving step runs. A block owns 64 output columns and a K-slice (the
-// plan splits K until the blocks fill the card's SMs: GPT-125M's four GEMMs at
-// M 24 launch 144 blocks each). The int8 weight tile, its scale rows and x's
-// k-slice stream through one cp.async ring of 16-byte chunks, stages of 64 rows
-// in 96 KB (skinny_gemm.cuh: 9 stages at M 24), so each weight byte is read
-// once and a block's whole K-slice is in flight at once. bf16 activations
-// multiply on the tensor cores: mma.sync m16n8k16 with W as the A operand (the
-// 64 columns are four warps' 16-row sides, the 24 tokens three n8 tiles); an
-// int8 tile reaches the A fragments by ldmatrix.x2.trans and dequantizes in
-// registers to bf16 (q * bf16(s), rounded once, as the reference). bf16 only:
-// an H100 ran fp32 faster on qmm_kernel than on this tile's CUDA-core branch.
-// Each K-slice leaves an fp32 partial; the last block of a column tile to
-// arrive (a counter it resets) sums them in split order, adds the fp32 bias and
-// casts: deterministic.
+// qmm_tc_kernel<W> ("tc": the bf16 int8 (W = int8_t) or split-half int4 (W =
+// uint8_t) forward at M <= 64 tokens, the stored rows (K, or K / 2 for int4) a
+// multiple of 64, N of 16, scale groups of a multiple of 16 rows, 16-byte
+// aligned rows) — what the serving step runs. A block owns 64 output columns
+// and a K-slice (the plan splits the stored rows until the blocks fill the
+// card's SMs: GPT-125M's four int8 GEMMs at M 24 launch 144 blocks
+// each). The
+// weight tile, its scale rows and x's k-slice stream through one cp.async
+// ring of 16-byte chunks, stages of 64 stored rows in 96 KB
+// (skinny_gemm.cuh), so each weight byte is read once and a block's whole
+// K-slice is in flight at once. bf16 activations multiply on the tensor
+// cores: mma.sync m16n8k16 with W as the A operand (the 64 columns are four
+// warps' 16-row sides, the 24 tokens three n8 tiles); a weight tile reaches
+// the A fragments by ldmatrix.x2.trans and dequantizes in registers to bf16
+// (q * bf16(s), rounded once, as the reference). An int4 stage is 64 stored
+// rows feeding reduction rows k.. (low nibbles) and K/2 + k.. (high
+// nibbles): one ldmatrix gives both halves' A fragments, each multiplied
+// with its own k-slice of x (both slices side by side in a token row, both
+// halves' scale rows in the stage), so int4 moves half of int8's weight
+// bytes for the same mma count. bf16 only: an H100 ran fp32 faster on
+// qmm_kernel than on this tile's CUDA-core branch. Each K-slice leaves an
+// fp32 partial; the last block of a column tile to arrive (a counter it
+// resets) sums them in split order, adds the fp32 bias and casts:
+// deterministic.
 //
-// qmm_kernel ("cc": everything else — fp32, int4, the backward, other M
+// qmm_kernel ("cc": everything else — fp32, the backward, other M
 // and widths) reads each weight tile once per 32 activation rows with
 // 16-byte loads one stage ahead in registers, dequantizes it into fp32
 // shared memory and runs a 32 x 64 register-tiled FMA product (2 x 4
@@ -288,14 +296,14 @@ qmm_kernel(const Args p) {
   if (tid == 0) p.counters[tile] = 0;  // ready for the next launch
 }
 
-// ---- the tensor-core route (int8 forward, M <= 64) ----
+// ---- the tensor-core route (the bf16 int8 / int4 forward, M <= 64) ----
 
 constexpr int kTcCols = 64;          // output columns a block
 constexpr int kTcRing = 96 << 10;    // the ring's shared memory: 2 blocks an SM
 
 struct TcArgs {
   const void* x;       // [M, K], T
-  const int8_t* w;     // [K, N]
+  const void* w;       // [K, N] int8 or [K / 2, N] packed int4
   const float* s;      // [G, N]
   const float* bias;   // [N] or null, added in fp32
   void* out;           // [M, N], T
@@ -304,35 +312,39 @@ struct TcArgs {
   int M, K, N, G, splits, per;
 };
 
-using TcShape = ptt::sk::Shape<__nv_bfloat16, int8_t, kTcCols>;
+// W, the weight kind: int8_t (int8) or uint8_t (split-half packed int4)
+template <typename W>
+using TcShape = ptt::sk::Shape<__nv_bfloat16, W, kTcCols>;
 
-__global__ void __launch_bounds__(TcShape::kThreads)
+template <typename W>
+__global__ void __launch_bounds__(TcShape<W>::kThreads)
 qmm_tc_kernel(const TcArgs p) {
   namespace sk = ptt::sk;
   using T = __nv_bfloat16;
-  using S = TcShape;
+  using S = TcShape<W>;
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int last_flag;
+  const int KW = S::kQ4 ? p.K / 2 : p.K;   // stored rows
   const int n0 = blockIdx.x * kTcCols, z = blockIdx.y;
   const int ncols = min(kTcCols, p.N - n0);
-  const int s0 = z * p.per, s1 = min(p.K / sk::KS, s0 + p.per);
+  const int s0 = z * p.per, s1 = min(KW / sk::KS, s0 + p.per);
   const T* x = static_cast<const T*>(p.x);
-  const sk::WTile<int8_t> wt{p.w, p.s, p.N, n0, ncols, p.K / p.G, p.G};
+  const sk::WTile<W> wt{static_cast<const W*>(p.w), p.s, p.N, n0, ncols,
+                        p.K / p.G, p.G, S::kQ4 ? p.K / 2 : 0};
   float acc[8][4];
-  sk::run_tile<T, int8_t, kTcCols, true, false>(
-      acc, ring, kTcRing, wt, s0 * sk::KS, min(p.K, s1 * sk::KS),
+  sk::run_tile<T, W, kTcCols, true, false>(
+      acc, ring, kTcRing, wt, s0 * sk::KS, s1 * sk::KS,
       [&](int r) { return x + (long)r * p.K; }, p.M, p.w, [] {});
   T* out = static_cast<T*>(p.out);
   if (p.splits == 1) {
-    sk::for_each_acc<T, int8_t, kTcCols>(acc, p.M, [&](int m, int c,
-                                                      float v) {
+    sk::for_each_acc<T, W, kTcCols>(acc, p.M, [&](int m, int c, float v) {
       if (c >= ncols) return;
       if (p.bias) v += p.bias[n0 + c];
       store(out + (long)m * p.N + n0 + c, v);
     });
     return;
   }
-  sk::for_each_acc<T, int8_t, kTcCols>(acc, p.M, [&](int m, int c, float v) {
+  sk::for_each_acc<T, W, kTcCols>(acc, p.M, [&](int m, int c, float v) {
     if (c < ncols) p.ws[((long)z * p.M + m) * p.N + n0 + c] = v;
   });
   __threadfence();
@@ -357,11 +369,12 @@ qmm_tc_kernel(const TcArgs p) {
   if (threadIdx.x == 0) p.counters[blockIdx.x] = 0;   // ready for the next
 }
 
+template <typename W>
 int launch_tc(const TcArgs& p, int device, cudaStream_t st) {
-  cudaError_t err = ptt::allow_smem<qmm_tc_kernel>(device, kTcRing);
+  cudaError_t err = ptt::allow_smem<qmm_tc_kernel<W>>(device, kTcRing);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + kTcCols - 1) / kTcCols, p.splits);
-  qmm_tc_kernel<<<grid, TcShape::kThreads, kTcRing, st>>>(p);
+  qmm_tc_kernel<W><<<grid, TcShape<W>::kThreads, kTcRing, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -419,29 +432,39 @@ PTT_QMM_ENTRY(ptt_qmm_int8_bwd, false, true)
 PTT_QMM_ENTRY(ptt_qmm_int4_bwd, true, true)
 #undef PTT_QMM_ENTRY
 
-// The tensor-core route's forward (int8 weights): x [M, K], w [K, N], s [G,
-// N], bias [N] fp32 or null, out [M, N]; ws [splits, M, N] fp32 (unused when
-// splits == 1); counters: one int per 64-column tile, all zero. 1 <= M <=
-// 64, K % 64 == 0, N % 16 == 0, (K / G) % 16 == 0, x / w / s / out 16-byte
-// aligned; each block reduces `per` 64-row stages of its split. dtype: 1 =
-// bf16, the only one taken.
-int ptt_qmm_int8_tc(const void* x, const void* w, const void* s,
-                    const void* bias, void* out, void* ws, void* counters,
-                    int M, int K, int N, int G, int splits, int per,
-                    int dtype, int device, void* stream) {
+// The tensor-core route's forward: x [M, K], w [K, N] int8 (bits 8) or
+// [K / 2, N] packed int4 (bits 4), s [G, N], bias [N] fp32 or null, out
+// [M, N]; ws [splits, M, N] fp32 (unused when splits == 1); counters: one
+// int per 64-column tile, all zero. 1 <= M <= 64, the stored rows (K or
+// K / 2) a multiple of 64, N of 16, (K / G) % 16 == 0, x / w / s / out
+// 16-byte aligned; each block reduces `per` 64-row stages of stored rows of
+// its split. dtype: 1 = bf16, the only one taken.
+int ptt_qmm_tc(const void* x, const void* w, const void* s, const void* bias,
+               void* out, void* ws, void* counters, int M, int K, int N,
+               int G, int bits, int splits, int per, int dtype, int device,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (dtype != 1 || M < 1 || M > ptt::sk::RP || K % ptt::sk::KS ||
-      N % 16 || G < 1 || K % G || (K / G) % 16 || splits < 1 || per < 1 ||
+  const int KW = bits == 4 ? K / 2 : K;
+  if ((bits != 8 && bits != 4) || dtype != 1 || M < 1 ||
+      M > ptt::sk::RP || K < 1 || (bits == 4 && K % 2) ||
+      KW % ptt::sk::KS || N % 16 || G < 1 || K % G || (K / G) % 16 ||
+      splits < 1 || per < 1 ||
+      (long)(splits - 1) * per * ptt::sk::KS >= KW ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const TcArgs p{x, static_cast<const int8_t*>(w),
-                 static_cast<const float*>(s),
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (misaligned(x) || misaligned(w) || misaligned(s) || misaligned(out))
+    return (int)cudaErrorMisalignedAddress;
+  const TcArgs p{x, w, static_cast<const float*>(s),
                  static_cast<const float*>(bias), out,
                  static_cast<float*>(ws), static_cast<int*>(counters), M, K,
                  N, G, splits, per};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_tc(p, device, st);
+  return bits == 8 ? launch_tc<int8_t>(p, device, st)
+                   : launch_tc<uint8_t>(p, device, st);
 }
 
 }  // extern "C"

@@ -51,18 +51,6 @@ struct RaggedArgs {
   float scale;
 };
 
-// shared memory of one block: rows (q, acc, scores, m, l, alpha, ncols),
-// the split's page ids, then the tile ring
-__host__ __device__ inline size_t rows_bytes(int R, int D, int pages) {
-  return ((size_t)R * (2 * D + 4 + wk::kKeys + 1 + 4) * 4 + 4 * (size_t)pages +
-          15) / 16 * 16;
-}
-template <typename KV, int D>
-size_t smem_bytes(int R, int pages) {
-  return rows_bytes(R, D, pages) +
-         (size_t)wk::kStages * wk::Tile<KV, D>::kBytes;
-}
-
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(wk::kThreads)
 ragged_split_kernel(const RaggedArgs a) {
@@ -90,21 +78,10 @@ ragged_split_kernel(const RaggedArgs a) {
   const int k0 = z * span, k1 = min(ctx_keys, k0 + span);
   const int nkeys = max(k1 - k0, 0);
 
-  float* qs = reinterpret_cast<float*>(smem);
-  wk::Rows st{qs,
-              qs + R * (D + 4),
-              qs + R * (D + 4) + R * D,
-              nullptr,
-              nullptr,
-              nullptr,
-              nullptr,
-              nrows};
-  st.m = st.s + R * (wk::kKeys + 1);
-  st.l = st.m + R;
-  st.alpha = st.l + R;
-  st.ncols = reinterpret_cast<int*>(st.alpha + R);
-  int* pg = st.ncols + R;
-  unsigned char* ring = smem + rows_bytes(R, D, a.pages_per_split);
+  int* pg;
+  const wk::Rows st = wk::carve<D>(smem, R, nrows, &pg);
+  float* qs = st.q;
+  unsigned char* ring = smem + wk::rows_bytes(R, D, a.pages_per_split);
 
   if (nkeys > 0) {
     for (int i = tid; i < nrows * D; i += wk::kThreads)
@@ -160,7 +137,7 @@ template <typename T, typename KV, int D>
 int launch(const RaggedArgs& a, int b, int splits, int device,
            cudaStream_t stream) {
   const int bytes =
-      (int)smem_bytes<KV, D>(a.chunk * (a.hq / a.hkv), a.pages_per_split);
+      (int)wk::smem_bytes<KV, D>(a.chunk * (a.hq / a.hkv), a.pages_per_split);
   cudaError_t err =
       ptt::allow_smem<ragged_split_kernel<T, KV, D>>(device, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -184,9 +161,9 @@ const char* ptt_error_string(int err) {
 int ptt_ragged_smem_bytes(int R, int d, int kv, int pages) {
 #define PTT_D(DV)                                                      \
   if (d == DV)                                                         \
-    return (int)(kv == 0   ? smem_bytes<float, DV>(R, pages)           \
-                 : kv == 1 ? smem_bytes<__nv_bfloat16, DV>(R, pages)   \
-                           : smem_bytes<int8_t, DV>(R, pages));
+    return (int)(kv == 0   ? wk::smem_bytes<float, DV>(R, pages)           \
+                 : kv == 1 ? wk::smem_bytes<__nv_bfloat16, DV>(R, pages)   \
+                           : wk::smem_bytes<int8_t, DV>(R, pages));
   PTT_D(32)
   PTT_D(64)
   PTT_D(80)

@@ -25,8 +25,10 @@ split from shapes alone.
 sequence, ``q [b, hq, d]``, attends positions ``[0, lengths[b])`` of its
 pages; ``lengths[b] == 0`` marks an empty slot and gives zeros. A CUDA
 ``q`` launches the kernel of ``csrc/paged_decode_attention.cu`` (or
-raises); a CPU ``q`` runs :func:`paged_attention_reference`. Decode-only:
-the output carries no gradient, as the reference registers no VJP.
+raises), the same split walk with the GQA group as its rows, planned by
+:func:`walk_plan`; a CPU ``q`` runs :func:`paged_attention_reference`.
+Decode-only: the output carries no gradient, as the reference registers
+no VJP.
 
 Both kernels take head dims :data:`HEAD_DIMS` in fp32 and bf16
 (:func:`kernel_takes`); on CUDA tensors of another dtype (fp16) the
@@ -65,9 +67,8 @@ SPLIT_WAVES = 8
 PARTIAL_CAP = 8 << 20
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _DECODE_SIGNATURES = {
-    "ptt_paged_decode_attention": [_P] * 6 + [_I] * 7
+    "ptt_paged_decode_attention": [_P] * 8 + [_I] * 8
     + [ctypes.c_float, _I, _I, _P],
-    "ptt_paged_decode_smem_bytes": [_I, _I, _I],
 }
 
 
@@ -265,13 +266,6 @@ ragged_paged_attention.twin_routes = 0
 # ---------------------------------------------------------------------------
 
 
-def decode_smem_bytes(group: int, page_size: int, d: int) -> int:
-    """Dynamic shared memory one block of the decode kernel uses for a GQA
-    group of ``group`` query rows (builds the kernel on first use)."""
-    return _build.load(_DECODE, _DECODE_SIGNATURES
-                       ).ptt_paged_decode_smem_bytes(group, page_size, d)
-
-
 def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
                               scale=None):
     """Gather-based oracle (torch twin of the jnp
@@ -322,12 +316,23 @@ def _launch_decode(q, k_pages, v_pages, page_table, lengths, scale):
                                   f"head_dim in {HEAD_DIMS}, got {d}")
     lib = _build.load(_DECODE, _DECODE_SIGNATURES)
     out = torch.empty_like(q)
+    if b == 0:
+        return out
+    pps = page_table.shape[1]
+    plan = walk_plan(b, hkv, pps, page_size, d, hq // hkv,
+                     k_pages.element_size(), _sms(q.device.index))
+    part = counters = None
+    if plan.splits > 1:
+        part = _build.kept(q.device, "walk", plan.partial_bytes // 4,
+                           torch.float32)
+        counters = _build.kept(q.device, "walk", b * hkv)
     err = lib.ptt_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq,
-        hkv, num_pages, page_size, page_table.shape[1], d, float(scale),
-        code, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, hq, hkv,
+        num_pages, page_size, pps, d, plan.pages, float(scale), code,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "paged_attention launch")
     paged_attention.launches += 1
     return out
@@ -341,7 +346,9 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
     dtype; page_table ``[b, pps]`` int32 (-1 unallocated); lengths ``[b]``
     int32 (0 = empty slot -> zeros). Returns ``[b, hq, d]`` in q's dtype,
     without a gradient. A CUDA ``q`` launches the kernel (``.launches``
-    counts them); a CPU ``q`` runs :func:`paged_attention_reference`.
+    counts them; split partials and arrival counters come from
+    ``_build.kept``, shared with the ragged kernel, so a captured step
+    holds them); a CPU ``q`` runs :func:`paged_attention_reference`.
     """
     b, hq, d = q.shape
     hkv = k_pages.shape[2]

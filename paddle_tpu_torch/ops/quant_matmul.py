@@ -12,9 +12,10 @@ cast to ``x``'s dtype; a bias is added in fp32 before that cast.
 On a CUDA tensor :func:`quant_matmul_fwd` / :func:`quant_matmul_bwd`
 launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise),
 the route chosen before the launch by the pure :func:`qmm_plan`: the bf16
-int8 forward at up to :data:`TC_ROWS` tokens on aligned widths takes the
-tensor-core kernel (``"tc"``, counted in ``quant_matmul_fwd.tc_launches``
-too), everything else the CUDA-core kernel (``"cc"``); on a CPU tensor
+int8 and packed int4 forward at up to :data:`TC_ROWS` tokens on aligned
+widths takes the tensor-core kernel (``"tc"``, counted in
+``quant_matmul_fwd.tc_launches`` too), everything else (fp32, dx, more
+tokens, odd widths) the CUDA-core kernel (``"cc"``); on a CPU tensor
 they run :func:`quant_matmul_reference` and
 :func:`quant_matmul_dx_reference`. :func:`quant_matmul` is differentiable
 on both: one custom op (``paddle_tpu_torch::quant_matmul``) whose backward
@@ -41,7 +42,7 @@ _I = ctypes.c_int
 _ENTRY = [_P] * 7 + [_I] * 9 + [_P]
 _SIGNATURES = {f"ptt_qmm_{name}": _ENTRY
                for name in ("int8", "int4", "int8_bwd", "int4_bwd")}
-_SIGNATURES["ptt_qmm_int8_tc"] = [_P] * 7 + [_I] * 8 + [_P]
+_SIGNATURES["ptt_qmm_tc"] = [_P] * 7 + [_I] * 9 + [_P]
 # the CUDA-core kernel's tiles (csrc/quant_matmul.cu qmm_kernel): 32
 # activation rows x 64 output columns a block, 64 reduction indices a
 # stage; a stage of the int8 weight is 64 stored rows, of the packed int4
@@ -49,9 +50,10 @@ _SIGNATURES["ptt_qmm_int8_tc"] = [_P] * 7 + [_I] * 8 + [_P]
 _BM, _BJ, _BR = 32, 64, 64
 _BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
 # the tensor-core kernel (qmm_tc_kernel, csrc/skinny_gemm.cuh): up to
-# TC_ROWS tokens, 64 output columns a block, K in stages of 64 rows through
-# a ring of TC_RING bytes of shared memory; K is split until the blocks fill
-# one wave of the card's SMs
+# TC_ROWS tokens, 64 output columns a block, the stored rows (K, or K / 2 of
+# a packed int4 weight: a stage then feeds 2 x 64 reduction rows) in stages
+# of 64 through a ring of TC_RING bytes of shared memory; they are split
+# until the blocks fill one wave of the card's SMs
 TC_ROWS, TC_COLS, TC_STAGE, TC_RING = 64, 64, 64, 96 << 10
 
 
@@ -161,25 +163,32 @@ def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
     (``packed`` int4 or int8) with ``groups`` scale rows, forward or dx
     (``bwd``), activations of ``dtype``; ``aligned``: x, the weight, its
     scales and the output start on 16 bytes; ``sms``: the card's SMs. A pure
-    function of its arguments, decided before any launch: the int8 forward
-    at ``1 <= m <= TC_ROWS`` with ``K % 64`` (its stages), ``N % 16`` and
-    the scale groups' rows ``% 16`` all 0, in bf16, takes the tensor-core
-    kernel, the rest the CUDA-core kernel. Each dtype goes to the kernel an
-    H100 ran faster at GPT-125M's four serving GEMMs (M 24, A/B in turns,
-    PERF.md §6 row 9): bf16 to the tensor-core route (0.0374 against 0.0763
-    ms for the four), fp32 to the CUDA-core kernel (0.0678 against 0.0783 ms
-    on the route's FMA branch, which is therefore not built). Either splits the reduction across blocks until
-    they fill the card."""
+    function of its arguments, decided before any launch.
+
+    The int8 or packed int4 forward in bf16 at ``1 <= m <= TC_ROWS``, with
+    the stored rows (K, or K / 2 packed) a multiple of ``TC_STAGE`` (its
+    stages), ``N % 16`` and the scale groups' rows ``% 16`` all 0 (so a
+    stage's 16-row steps, in either half of a packed weight, each lie in
+    one group), takes the tensor-core kernel; everything else (fp32, dx,
+    more rows, odd widths, unaligned pointers) the CUDA-core kernel. Each
+    dtype goes to the kernel an H100 ran faster at GPT-125M's four serving
+    GEMMs (M 24, A/B in turns, PERF.md §6 rows 9 and 10): bf16 to the
+    tensor-core route (int8 0.0374 against 0.0763 ms for the four, int4
+    g128 0.0384 against 0.0735), fp32 to the CUDA-core kernel (int8 0.0678
+    against 0.0783 ms on the route's FMA branch, which is therefore not
+    built). Either splits the reduction's
+    stages (the route's over stored rows) across blocks until they fill the
+    card."""
+    kw = k // 2 if packed else k
     gs = k // max(groups, 1)
-    if (not packed and not bwd and 1 <= m <= TC_ROWS and k % TC_STAGE == 0
+    if (not bwd and 1 <= m <= TC_ROWS and kw % TC_STAGE == 0
             and n % 16 == 0 and gs % 16 == 0 and aligned
             and dtype == torch.bfloat16):
         tiles = -(-n // TC_COLS)
-        stages = k // TC_STAGE
+        stages = kw // TC_STAGE
         want = max(1, -(-sms // tiles))
         per = max(1, stages // want)
         return QmmPlan("tc", tiles, -(-stages // per), per)
-    kw = k // 2 if packed else k
     rw = 32 if packed else 64
     tiles_j = -(-kw // rw) if bwd else -(-n // _BJ)
     stages = -(-n // _BR) if bwd else -(-kw // rw)
@@ -233,7 +242,8 @@ def _launch(a, qweight, scales2d, bias, k, n, bwd):
             torch.cuda.current_stream(a.device).cuda_stream)
     lib = _build.load(_KERNEL, _SIGNATURES)
     if plan.route == "tc":
-        err = lib.ptt_qmm_int8_tc(*args, *tail)
+        err = lib.ptt_qmm_tc(*args[:-2], 4 if packed else 8, *args[-2:],
+                             *tail)
     else:
         err = getattr(lib, f"ptt_qmm_{name}")(
             *args, int(n % 16 == 0 and qweight.data_ptr() % 16 == 0), *tail)

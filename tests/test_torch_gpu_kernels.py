@@ -818,25 +818,30 @@ QMM_TC_CASES = [(24, 768, 2304, -1), (24, 768, 768, 128),
                 (1, 768, 768, -1), (64, 3072, 768, 128), (37, 512, 336, 32)]
 
 
+@pytest.mark.parametrize("weights", ["int8", "int4 g128", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", QMM_TC_CASES)
-def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case):
-    """The int8 forward at M <= 64 on aligned widths runs the tensor-core
-    route in bf16 (one ``tc_launches`` a call; fp32 the CUDA-core kernel)
-    and matches its plain version, with the bias; a
+def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case, weights):
+    """The int8 forward (the case's group) and the packed int4 forward (in
+    groups of 128 and per channel) at M <= 64 on aligned widths run the
+    tensor-core route in bf16 (one ``tc_launches`` a call; fp32 the
+    CUDA-core kernel) and match their plain version, with the bias; a
     second launch is bitwise equal, a captured call equal to an eager
     one."""
     m, k, n, gs = case
+    name = weights.split()[0]
+    if name == "int4":
+        gs = 128 if "g128" in weights else -1
     rng = np.random.RandomState(8)
     qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
-        (k, n)).astype(np.float32)).to(dtype), "int8", gs)
+        (k, n)).astype(np.float32)).to(dtype), name, gs)
     q, s = qw["q"].to(cuda), qw["s"].to(cuda)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
         cuda, dtype)
     bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
         cuda)
     plan = qmm_mod.qmm_plan(m, k, n, s.reshape(-1, n).shape[0], dtype,
-                            False, False, True, 132)
+                            name == "int4", False, True, 132)
     tc = dtype == torch.bfloat16
     assert plan.route == ("tc" if tc else "cc")
     before = quant_matmul_fwd.tc_launches
@@ -851,23 +856,28 @@ def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case):
 
 
 def test_quant_matmul_other_shapes_run_cuda_cores(cuda):
-    """M past the route's 64 rows, K off its 32-row stages, N off 16 and
-    int4 take the CUDA-core kernel (no ``tc_launches``), correct."""
+    """M past the route's 64 rows, K off its 64-row stages (int8 K 200;
+    int4 K / 2 = 100), N off 16, and fp32 int4 take the CUDA-core kernel
+    (no ``tc_launches``), correct."""
     rng = np.random.RandomState(9)
-    for m, k, n, bits, gs in ((65, 768, 768, 8, -1), (24, 200, 768, 8, 40),
-                              (24, 768, 130, 8, -1), (24, 768, 768, 4, 128)):
+    for m, k, n, bits, gs, dtype in (
+            (65, 768, 768, 8, -1, torch.bfloat16),
+            (24, 200, 768, 8, 40, torch.bfloat16),
+            (24, 768, 130, 8, -1, torch.bfloat16),
+            (24, 200, 768, 4, 40, torch.bfloat16),
+            (24, 768, 768, 4, 128, torch.float32)):
         name = f"int{bits}"
         qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
-            (k, n)).astype(np.float32)).to(torch.bfloat16), name, gs)
+            (k, n)).astype(np.float32)).to(dtype), name, gs)
         q, s = qw["q"].to(cuda), qw["s"].to(cuda)
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(
-            np.float32)).to(cuda, torch.bfloat16)
+            np.float32)).to(cuda, dtype)
         before = quant_matmul_fwd.tc_launches
         got = quant_matmul(x, q, s)
         torch.cuda.synchronize()
         assert quant_matmul_fwd.tc_launches == before
         _qmm_err(got.float(), quant_matmul_reference(x, q, s).float(),
-                 torch.bfloat16)
+                 dtype)
 
 
 def test_mega_serving_launches_and_tokens(cuda):
@@ -1177,10 +1187,11 @@ def test_attention_routes_what_the_kernel_cannot_take(cuda):
 
 
 # (b, hq, hkv, d, page size, pages a slot): GPT-125M's serving shape, GQA,
-# MQA and the other head dims
+# MQA and the other head dims, then GQA 12/4 at page 8 (a page below the
+# walk's 32-key tile, as the CPU twin's)
 DECODE_GEOMS = [(8, 12, 12, 64, 64, 16), (5, 16, 2, 128, 16, 9),
                 (5, 12, 4, 96, 16, 9), (4, 8, 1, 80, 16, 9),
-                (4, 4, 4, 32, 16, 9)]
+                (4, 4, 4, 32, 16, 9), (6, 12, 4, 64, 8, 12)]
 
 
 def _decode_inputs(rng, b, hq, hkv, d, ps, pps, device, dtype):
@@ -1202,18 +1213,22 @@ def _decode_inputs(rng, b, hq, hkv, d, ps, pps, device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", DECODE_GEOMS)
 def test_paged_decode_kernel_matches_plain(cuda, dtype, geom):
+    """The split-walk decode kernel against its plain version: the empty
+    slot zero, a second launch bitwise equal."""
     args = _decode_inputs(np.random.RandomState(3), *geom, cuda, dtype)
     before = paged_attention.launches
     got = paged_attention(*args)
+    again = paged_attention(*args)
     torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
+    assert paged_attention.launches == before + 2
+    assert torch.equal(got, again)
     want = paged_attention_reference(*args)
     _assert_close(got[1:].float(), want[1:].float(), dtype)
     assert torch.count_nonzero(got[0]) == 0           # the empty slot
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("geom", DECODE_GEOMS[:3])
+@pytest.mark.parametrize("geom", DECODE_GEOMS)
 def test_paged_decode_kernel_matches_ragged_at_chunk_1(cuda, dtype, geom):
     """The reference's ``test_ragged_decode_lane_matches_decode_kernel``:
     a decode lane of the ragged kernel (chunk 1, q_len 1) computes what the
@@ -1225,6 +1240,15 @@ def test_paged_decode_kernel_matches_ragged_at_chunk_1(cuda, dtype, geom):
                                     lengths, (lengths > 0).to(torch.int32))
     torch.cuda.synchronize()
     _assert_close(got[1:].float(), ragged[1:, 0].float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [DECODE_GEOMS[0], DECODE_GEOMS[-1]])
+def test_paged_decode_kernel_graph_replay(cuda, dtype, geom):
+    """A captured decode launch (its split partials and counters kept
+    across the capture) replays to the eager result."""
+    args = _decode_inputs(np.random.RandomState(5), *geom, cuda, dtype)
+    _graph_equal(lambda: paged_attention(*args))
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -112,6 +112,122 @@ def test_cpu_entry_takes_the_twin_and_checks_shapes():
         paged_attention(q.detach().to("meta"), kp, vp, pt, lengths)
 
 
+# -- the kernel's split walk (csrc/paged_decode_attention.cu on
+# csrc/paged_walk.cuh), written out in torch ---------------------------------
+
+KEYS = 32   # keys a tile of the walk (paged_walk.cuh kKeys)
+# (hq, hkv): MHA, GQA 12/4 (a group of 3 rows against the walk's 4-row
+# thread groups) and 16/2, MQA 8/1
+WALK_HEADS = [(4, 4), (12, 4), (16, 2), (8, 1)]
+
+
+def decode_split_twin(q, kp, vp, pt, lengths, pages):
+    """The decode kernel's algorithm in torch: each (slot, kv head) pair's
+    context cut into splits of ``pages`` whole pages, each split an online
+    softmax over tiles of at most KEYS keys that never cross a page (a page
+    below KEYS keys is one tile), keeping (acc, m, l) of the GQA group's
+    rows; the splits merged in split order; an empty slot zeros and no
+    page read."""
+    b, hq, d = q.shape
+    num_pages, ps, hkv, _ = kp.shape
+    group, pps = hq // hkv, pt.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros(b, hq, d)
+    for i in range(b):
+        length = int(lengths[i])
+        if length <= 0:
+            continue
+        ctx = min(length, pps * ps)
+        for h in range(hkv):
+            qr = q[i, h * group:(h + 1) * group].float()
+            parts = []
+            for k0 in range(0, pps * ps, pages * ps):
+                k1 = min(ctx, k0 + pages * ps)
+                if k1 <= k0:
+                    parts.append(None)     # owns no page, still arrives
+                    continue
+                acc = torch.zeros(group, d)
+                m = torch.full((group,), -1e30)
+                l = torch.zeros(group)
+                for p in range(k0 // ps, -(-k1 // ps)):
+                    page = min(max(int(pt[i, p]), 0), num_pages - 1)
+                    for t0 in range(0, ps, KEYS):
+                        key0 = p * ps + t0
+                        nt = min(KEYS, ps - t0, k1 - key0)
+                        if nt <= 0:
+                            break
+                        kk = kp[page, t0:t0 + nt, h].float()
+                        vv = vp[page, t0:t0 + nt, h].float()
+                        s = (qr @ kk.T) * scale
+                        m_new = torch.maximum(m, s.amax(1))
+                        pr = torch.exp(s - m_new[:, None])
+                        alpha = torch.exp(m - m_new)
+                        acc = acc * alpha[:, None] + pr @ vv
+                        l = l * alpha + pr.sum(1)
+                        m = m_new
+                parts.append((acc, m, l))
+            live = [x for x in parts if x is not None]
+            mx = torch.stack([x[1] for x in live]).amax(0)
+            acc, l = torch.zeros(group, d), torch.zeros(group)
+            for a, ms, ls in live:      # in split order
+                w = torch.where(ls > 0, torch.exp(ms - mx), 0.0)
+                acc, l = acc + a * w[:, None], l + ls * w
+            out[i, h * group:(h + 1) * group] = acc / l[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("pages", [1, 2, 3, 4])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("hq,hkv", WALK_HEADS)
+def test_decode_split_twin_matches_jax_reference(hq, hkv, ps, pages):
+    """The split walk (any whole pages a split, from one to the whole
+    table, empty splits past a short context, pages below the 32-key tile)
+    computes the jnp reference's function: fp32, 1e-5; the empty slot
+    zeros."""
+    arrays = _inputs(hq * 31 + ps + pages, hq, hkv, 16, ps)
+    want = _jax(arrays)
+    got = decode_split_twin(*_torch(arrays), pages).numpy()
+    np.testing.assert_allclose(got, want, **FP32_TOL)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("geom", [
+    (8, 12, 16, 64, 64, 1),       # GPT-125M's legacy step: b 8, 1,024 keys
+    (8, 32, 32, 64, 64, 1),       # gpt3-1.3b, contexts to 2,048
+    (5, 2, 9, 16, 128, 8),        # GQA 16/2 at page 16
+    (5, 4, 9, 16, 96, 3),         # GQA 12/4
+    (4, 1, 9, 16, 80, 8),         # MQA 8/1
+    (4, 4, 9, 16, 32, 1),         # d 32
+    (6, 2, 4, 8, 16, 2),          # page 8, the CPU twin's
+    (256, 32, 64, 16, 128, 8),    # a large batch: one split a pair
+    (1, 1, 1, 64, 64, 1)])        # a one-page table
+def test_decode_walk_plan_walks_every_page_once(geom):
+    """The decode kernel's plan (``walk_plan`` with the GQA group as its
+    rows): every page of the table walked by exactly one split, each split
+    one page at least, the partials within ``PARTIAL_CAP``, a decode round
+    of GPT-125M's 96 pairs past one wave of the H100's 132 SMs, and the
+    same shapes give the same plan (nothing but shapes goes in)."""
+    from paddle_tpu_torch.ops.paged_attention import PARTIAL_CAP, walk_plan
+    b, hkv, pps, ps, d, group = geom
+    plan = walk_plan(b, hkv, pps, ps, d, group, 4, 132)
+    seen = np.zeros(pps, int)
+    for z in range(plan.splits):
+        lo, hi = z * plan.pages, min((z + 1) * plan.pages, pps)
+        assert lo < hi, f"split {z} covers no page"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan.blocks == b * hkv * plan.splits
+    assert plan.partial_bytes <= PARTIAL_CAP
+    assert (plan.partial_bytes == 0) == (plan.splits == 1)
+    if plan.splits > 1:   # one fp32 partial of the group's rows a split
+        assert plan.partial_bytes == b * hkv * plan.splits * 16 * -(
+            -group * (d + 2) // 4)
+    if geom[:3] == (8, 12, 16):
+        assert plan.blocks > 132 > b * hkv
+    assert walk_plan(b, hkv, pps, ps, d, group, 4, 132) == plan
+    assert walk_plan(b, hkv, pps, ps, d, group, 2, 132) == plan
+
+
 # -- incubate.nn.functional serving entries --------------------------------
 
 

@@ -221,35 +221,39 @@ SERVING_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 
 def test_qmm_plan_routes_every_shape():
     """The pure plan routes every M, width, alignment, dtype and weight
-    before any launch: the int8 forward at 1 <= M <= 64 with K % 64 (its
-    stages), N % 16, scale groups of a multiple of 16 rows and aligned rows
-    takes the tensor-core kernel in bf16, everything else (fp32, int4, dx,
-    M > 64 as in legacy prefill buckets, odd widths, unaligned pointers)
-    the CUDA-core one;
-    either way every reduction stage is walked by exactly one split."""
+    before any launch: the int8 and packed int4 forward at 1 <= M <= 64
+    with the stored rows (K, or K / 2 packed) % 64 (its stages), N % 16,
+    scale groups of a multiple of 16 rows and aligned rows takes the
+    tensor-core kernel in bf16, everything else (fp32, dx, M > 64 as in
+    legacy prefill buckets, odd widths, unaligned pointers) the CUDA-core
+    one; either way every reduction stage (the route's: 64 stored rows) is
+    walked by exactly one split."""
     for m in (1, 7, 8, 24, 33, 64, 65, 128, 512):
         for k, n, groups in ((768, 2304, 1), (3072, 768, 24), (200, 130, 5),
                              (768, 770, 1), (768, 768, 48), (96, 64, 3),
-                             (768, 768, 64), (128, 64, 4)):
+                             (768, 768, 64), (128, 64, 4), (128, 64, 1),
+                             (256, 96, 8), (384, 64, 1)):
             for dtype in (torch.float32, torch.bfloat16):
                 for packed, bwd, aligned in ((False, False, True),
                                              (False, False, False),
                                              (True, False, True),
-                                             (False, True, True)):
+                                             (True, False, False),
+                                             (False, True, True),
+                                             (True, True, True)):
                     plan = tqm.qmm_plan(m, k, n, groups, dtype, packed, bwd,
                                         aligned, 132)
-                    tc = (not packed and not bwd and aligned and m <= 64
-                          and k % tqm.TC_STAGE == 0 and n % 16 == 0
+                    kw = k // 2 if packed else k
+                    tc = (not bwd and aligned and m <= 64
+                          and kw % tqm.TC_STAGE == 0 and n % 16 == 0
                           and (k // groups) % 16 == 0
                           and dtype == torch.bfloat16)
                     assert plan.route == ("tc" if tc else "cc"), (m, k, n)
                     assert plan == tqm.qmm_plan(m, k, n, groups, dtype,
                                                 packed, bwd, aligned, 132)
                     if tc:
-                        stages = k // tqm.TC_STAGE
+                        stages = kw // tqm.TC_STAGE
                         assert plan.tiles == -(-n // tqm.TC_COLS)
                     else:
-                        kw = k // 2 if packed else k
                         rw = 32 if packed else 64
                         stages = -(-n // 64) if bwd else -(-kw // rw)
                     assert (plan.splits - 1) * plan.per < stages \
@@ -259,50 +263,68 @@ def test_qmm_plan_routes_every_shape():
 def test_qmm_plan_fills_the_card_at_the_serving_shapes():
     """GPT-125M's four GEMMs at the 24-token budget and a decode round of 8
     take the tensor-core route with at least one block per SM of the
-    H100's 132, and a block's shared memory fits the 227 KB it may use."""
+    H100's 132 (int8 per channel and g128, packed int4 g128 and per
+    channel), or one a stage where a packed weight has fewer stages (wo:
+    K / 2 = 384 stored rows, 6 stages x 12 column tiles), and a block's
+    shared memory fits the 227 KB it may use."""
     for m in (24, 8):
         for k, n in SERVING_GEMMS:
-            for groups in (1, k // 128):
-                plan = tqm.qmm_plan(m, k, n, groups, torch.bfloat16, False,
+            for packed, groups in ((False, 1), (False, k // 128),
+                                   (True, k // 128), (True, 1)):
+                plan = tqm.qmm_plan(m, k, n, groups, torch.bfloat16, packed,
                                     False, True, 132)
-                assert plan.route == "tc" and plan.tiles * plan.splits >= 132
+                stored = (k // 2 if packed else k) // tqm.TC_STAGE
+                assert plan.route == "tc"
+                assert plan.tiles * plan.splits >= min(132,
+                                                       plan.tiles * stored)
+                assert plan.splits * plan.per >= stored
     assert 2 * tqm.TC_RING <= 232448      # two blocks share an SM
     assert hasattr(tqm._sms, "cache_info")   # the SM count is read once
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("group_size", [-1, 32])
-def test_tc_split_plan_sums_to_the_jax_gemm(dtype, group_size):
+def test_tc_split_plan_sums_to_the_jax_gemm(dtype, group_size, bits):
     """The tensor-core route's arithmetic in torch: each split's fp32
-    product over its K-slice (the weight dequantized as the kernel does, q
-    times the bf16-rounded scale in bf16), the splits summed in order, the
-    bias added in fp32, one cast — against the JAX reference GEMM (fp32:
-    max abs error over the output's max ``|want|``, to 1e-6, as the other
-    summation order allows; bf16 per row as the module says)."""
-    m, k, n = 24, 256, 96
-    q, s = _quantized(11, k, n, 8, group_size, dtype)
+    product over its stored-row slice (the weight dequantized as the kernel
+    does, q times the bf16-rounded scale in bf16; a packed int4 slice of
+    stored rows [r0, r1) feeds reduction rows [r0, r1) from its low nibbles
+    and [K/2 + r0, K/2 + r1) from its high ones), the splits summed in
+    order, the bias added in fp32, one cast — against the JAX reference
+    GEMM (fp32: max abs error over the output's max ``|want|``, to 1e-6,
+    as the other summation order allows; bf16 per row as the module
+    says)."""
+    m, k, n = 24, 512 if bits == 4 else 256, 96
+    q, s = _quantized(11, k, n, bits, group_size, dtype)
     rng = np.random.RandomState(12)
     x = rng.standard_normal((m, k)).astype(np.float32)
     bias = rng.standard_normal(n).astype(np.float32)
     td = _torch_dtype(dtype)
     xt = torch.from_numpy(x).to(td)
     s2 = torch.from_numpy(s).reshape(-1, n)
+    packed = bits == 4
     # the route's splits (the plan's for bf16; fp32 sums the same splits)
-    plan = tqm.qmm_plan(m, k, n, s2.shape[0], torch.bfloat16, False, False,
+    plan = tqm.qmm_plan(m, k, n, s2.shape[0], torch.bfloat16, packed, False,
                         True, 132)
     assert plan.route == "tc" and plan.splits > 1
-    w = tqm.dequantize_weight(torch.from_numpy(q), s2, out_dtype=td).float()
+    w = tqm.dequantize_weight(torch.from_numpy(q), s2, k=k,
+                              out_dtype=td).float()
+    kw, kh = q.shape[0], k // 2
     acc = torch.zeros(m, n)
     for z in range(plan.splits):
-        ks = slice(z * plan.per * tqm.TC_STAGE,
-                   min(k, (z + 1) * plan.per * tqm.TC_STAGE))
-        acc = acc + xt[:, ks].float() @ w[ks]
+        r0 = z * plan.per * tqm.TC_STAGE
+        r1 = min(kw, (z + 1) * plan.per * tqm.TC_STAGE)
+        rows = torch.arange(r0, r1)
+        if packed:
+            rows = torch.cat([rows, kh + rows])
+        acc = acc + xt[:, rows].float() @ w[rows]
     got = (acc + torch.from_numpy(bias)).to(td).float().numpy()
     jx = jnp.asarray(x).astype(dtype)
     want = np.asarray(jqm.quant_matmul_reference(
         jx, jnp.asarray(q), jnp.asarray(s), bias=jnp.asarray(bias)
     ).astype(jnp.float32))
-    if dtype == "float32":   # eight split sums: held as the card holds it
+    if dtype == "float32":   # split sums: held as the card holds it
         err = np.abs(got - want).max() / np.abs(want).max()
         assert err <= 1e-6, err
     else:
