@@ -1,40 +1,42 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --moe-forward [ROOT]
-    python3 chip_smoke.py --fused-gelu [ROOT]
-    python3 chip_smoke.py --paged-walks [ROOT]
-    python3 chip_smoke.py --mlp-gemms [ROOT]
-    python3 chip_smoke.py --moe-gemms [ROOT]
-    python3 chip_smoke.py --int4-decode [ROOT]
+    python3 chip_smoke.py --ab PART [ROOT]
 
-from the root of a checkout. The second form runs only phase 11's bf16
-MoE full forward, with the package of the checkout at ROOT (default: this
-one; an unpacked ``git archive`` of another commit compares two trees on
-one card) and prints one JSON line. The third times only phase 9's GELU
-kernels (forward and backward, with and without the bias, fp32 and bf16)
-at [8192, 6144] beside their bounds and library calls, then profiles the
-fused bf16 flagship step (GELU device time, busy share), with ROOT's
-package, and prints one JSON line. The fourth times rows 1 and 13 (the
-ragged and mega attention kernels) at the table shapes and GPT-125M's
-decode round and rows 4 and 14 (controls) at the table shapes, then the
-bf16 per-op and mega serving steps (wall and profiled device busy), with
-ROOT's package, and prints one JSON line. The fifth times rows 14 and 9
-(the mega MLP at a served round, a decode round and the dense block; the
-int8 weight-only GEMM's four serving GEMMs) beside the controls (rows 10,
-11 and 13) and the tensor-core route's other K splits, then the bf16 mega
-and int8 per-op serving steps (wall and profiled device busy), with ROOT's
-package, and prints one JSON line. The sixth times rows 16 and 17 (the
-grouped GEMM with int8 and int4 expert stacks at the serving rows, fp32 on
-both routes where the package has the skinny one) beside the controls
-(rows 9, 10, 13, 14 and 15) and the skinny route's other K splits, then
-the bf16 int8 and int4 g128 MoE serving steps (wall and profiled device
-busy), with ROOT's package, and prints one JSON line. The seventh times
-rows 10 and 4 (the int4 g128 weight-only GEMM's four serving GEMMs at M 24
-and 8; the paged decode kernel at the serving pools beside the ragged
-kernel at chunk 1) beside the controls (rows 1, 9, 13 and 17), then the
-bf16 int4 g128 per-op and legacy serving steps of GPT-125M (wall and
-profiled device busy), with ROOT's package, and prints one JSON line.
+from the root of a checkout. The second form times one part with the
+package of the checkout at ROOT (default: this one; an unpacked ``git
+archive`` of another commit, run in turns with this one, compares two
+trees on one card) and prints one JSON line. PART is one of:
+
+- ``moe-forward``: only phase 11's bf16 MoE full forward;
+- ``fused-gelu``: phase 9's GELU kernels (forward and backward, with and
+  without the bias, fp32 and bf16) at [8192, 6144] beside their bounds
+  and library calls, then the fused bf16 flagship step profiled (GELU
+  device time, busy share);
+- ``paged-walks``: rows 1 and 13 (the ragged and mega attention kernels)
+  at the table shapes and GPT-125M's decode round, rows 4 and 14
+  (controls) at the table shapes, then the bf16 per-op and mega serving
+  steps (wall and profiled device busy);
+- ``mlp-gemms``: rows 14 and 9 (the mega MLP at a served round, a decode
+  round and the dense block; the int8 weight-only GEMM's four serving
+  GEMMs) beside the controls (rows 10, 11 and 13) and the tensor-core
+  route's other K splits, then the bf16 mega and int8 per-op serving
+  steps;
+- ``moe-gemms``: rows 16 and 17 (the grouped GEMM with int8 and int4
+  expert stacks at the serving rows, fp32 on both routes where the
+  package has the skinny one) beside the controls (rows 9, 10, 13, 14 and
+  15) and the skinny route's other K splits, then the bf16 int8 and int4
+  g128 MoE serving steps;
+- ``int4-decode``: rows 10 and 4 (the int4 g128 weight-only GEMM's four
+  serving GEMMs at M 24 and 8; the paged decode kernel at the serving
+  pools beside the ragged kernel at chunk 1) beside the controls (rows 1,
+  9, 13 and 17), then the bf16 int4 g128 per-op and legacy serving steps
+  of GPT-125M;
+- ``flash``: rows 2 and 3 (the flash kernels) in bf16 without a mask at
+  phase 4's, the training and the long shapes causal and BERT-base's [16,
+  512, 12, 64] non-causal, and with BERT's key-padding mask where ROOT's
+  package has the branch.
+
 Phases (each failure ends the run non-zero):
 
 1. device: the card's name and power limit;
@@ -197,7 +199,10 @@ Phases (each failure ends the run non-zero):
    int8 expert stacks and a bf16 one through the tensor-core dx; last,
    the attention routing: a 2-layer gpt3-760m-width model (head_dim 96)
    and an fp16 GPT-125M forward equal to the plain path's logits with no
-   flash launch, and one d 96 ``gpt_spmd`` training step.
+   flash launch, and one d 96 ``gpt_spmd`` training step; bf16 d 64
+   attention calls non-causal, causal, with a key-padding mask and a bool
+   mask (to the kernels), with a mask that does not stream and with
+   dropout (to ``_sdpa_ref``, equal to it).
 
 12. legacy serving (run after phase 11): (a) the paged decode kernel (the
    split walk) vs its plain version and vs the ragged kernel at chunk 1 on
@@ -218,6 +223,26 @@ Phases (each failure ends the run non-zero):
    step) and one profiled legacy run; (d) gpt3-760m's width at 2 layers
    (16 heads of 96) served fp32 through the per-op unified step and the
    legacy path, both against the full forward.
+
+13. BERT (run after phase 9): ``BERT_CONFIGS["bert-base"]`` at full depth
+   (12 layers, h 768, 12 heads of 64, vocab 30522), random weights from
+   numpy seed 0 in bf16, dropout 0, batch 16 at seq 512 with per-sequence
+   lengths from the seed in 64-512 (one of 512) and the 1/0
+   ``attention_mask`` built from them: (a) the MLM + NSP loss's gradients
+   through the masked flash kernels held per leaf against the same step
+   with attention pinned to ``_sdpa_ref``, then momentum SGD (0.9, lr
+   1e-4, as ``bench.py``), one warm-up and three timed steps with 12
+   masked forward and 12 masked backward launches a step, and one profiled
+   step; (b) ``BertForSequenceClassification``'s logits on the same batch
+   in fp32 and bf16 against the plain route; (c) ``flash_attn_unpadded``
+   at BERT-base widths on the same lengths packed, causal and not, forward
+   and backward, against its segment-masked plain version; (d) each
+   branch alone against its plain version, fp32 and bf16, at [16, 512,
+   12, 64]: masks [b, 1, 1, s], [b, hq, s, s], [1, 1, s, s] and a bool
+   mask, causal and not, and lengths with a 0 and q_len != kv_len (alone
+   and with the key-padding mask), with kernel / plain / bound times of
+   the key-padding mask and of the batch's lengths beside
+   ``F.scaled_dot_product_attention(attn_mask=)``.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -747,8 +772,8 @@ def reset_counts():
     grouped_matmul.grouped_matmul_bwd.tc_launches = 0
     mega_decode.mega_attn_layer.launches = 0
     mega_decode.mega_mlp.launches = 0
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches = 0
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        fn.launches = fn.mask_launches = fn.lens_launches = 0
     ragged_paged_attention.launches = 0
     paged_attention.launches = 0
     for fn in (quant_matmul_fwd, quant_matmul_bwd):
@@ -2644,7 +2669,7 @@ def phase_moe_forward(cfg, dev, card):
     ffn_err = ((ffn[0] - ffn[1]).abs().max() / ffn[1].abs().max()).item()
     flips = [int((a != b).sum()) for a, b in zip(kern_routes, plain_routes)]
     per = 2 * cfg.num_layers
-    # a package from before the tensor-core kernel (``--moe-forward`` on
+    # a package from before the tensor-core kernel (``--ab moe-forward`` on
     # an older checkout) counts none
     want_tc = ([per * BF16_RUNS, 0] if hasattr(grouped_matmul, "TC_TILES")
                else [0, 0])
@@ -2790,7 +2815,10 @@ def phase_attention_routing(dev):
     not built for runs plain ``_sdpa_ref`` instead of raising — an eager
     2-layer model at gpt3-760m's width (16 heads of 96) and an fp16
     GPT-125M forward, each equal to the plain path's logits, with no flash
-    launch; one d 96 ``gpt_spmd`` training step."""
+    launch; one d 96 ``gpt_spmd`` training step; then
+    ``scaled_dot_product_attention``'s routes since the mask branch: those
+    to the kernels held against their plain twin, those to plain
+    attention equal to ``_sdpa_ref``."""
     from dataclasses import replace
 
     from paddle_tpu_torch.models import gpt_spmd
@@ -2831,6 +2859,53 @@ def phase_attention_routing(dev):
         f"{read_counts()[0]}/{bwd_count()}")
     if not np.isfinite(loss.item()) or read_counts()[0] or bwd_count():
         raise AssertionError("d 96 training step did not run plain attention")
+    # the routes of the mask branch: bf16 d 64 calls the kernels take go to
+    # them causal or not, unmasked or with a mask that streams; a mask that
+    # does not, and dropout, go to _sdpa_ref
+    from paddle_tpu_torch.nn.functional import (
+        scaled_dot_product_attention as sdpa)
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_reference, normalize_mask)
+
+    shape = (2, 256, 256, 12, 12, 64, False)
+    q, k, v = flash_inputs(shape, torch.bfloat16, dev, SEED + 7)
+    pad = torch.zeros(2, 1, 1, 256, device=dev)
+    pad[1, ..., 100:] = -1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, kw, want in (
+            ("non-causal", {}, (1, 0)),
+            ("causal", dict(is_causal=True), (1, 0)),
+            ("key-padding mask [b, 1, 1, s]", dict(attn_mask=pad), (1, 1)),
+            ("bool mask [s, s]", dict(attn_mask=torch.ones(
+                256, 256, dtype=torch.bool, device=dev).tril()), (1, 1)),
+            ("mask [b, hq, s, 1]", dict(attn_mask=torch.zeros(
+                2, 12, 256, 1, device=dev)), (0, 0)),
+            ("dropout 0.1", dict(dropout_p=0.1, generator=gen), (0, 0))):
+        reset_counts()
+        with torch.no_grad():
+            out = sdpa(q, k, v, **kw)
+            torch.cuda.synchronize()
+            got = (read_counts()[0], branch_counts()["fwd_mask"])
+            mask, causal = kw.get("attn_mask"), kw.get("is_causal", False)
+            if want[0]:     # the kernels: held against their plain twin
+                ref = flash_attention_reference(
+                    q, k, v, causal=causal, mask=None if mask is None
+                    else normalize_mask(mask, q, 256))[0]
+                err = kernel_error(out, ref, torch.bfloat16)[1]
+            elif "dropout_p" not in kw:     # plain attention: the same op
+                err = 0.0 if torch.equal(out, _sdpa_ref(
+                    q, k, v, mask=mask, causal=causal)) else float("inf")
+            else:
+                err = 0.0
+        log(f"[moe] routing: sdpa bf16 d 64 {label}: flash launches "
+            f"{got[0]} (masked {got[1]}), want {want}; held against "
+            + ("the kernels' plain twin" if want[0] else "_sdpa_ref (equal)")
+            + f" {err:.3e} (tol {KERNEL_TOL[torch.bfloat16]})")
+        if got != want or not err <= KERNEL_TOL[torch.bfloat16] or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"routing ({label}): launches {got}, "
+                                 f"err {err}")
 
 
 # -- phase 12 ---------------------------------------------------------------
@@ -3564,6 +3639,572 @@ def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
     return result
 
 
+# -- phase 13: BERT-base pretraining through the mask branch -----------------
+
+# bench.py's bench_bert_jit configuration (BASELINE config 2) at BERT-base's
+# max_position_embeddings: batch 16 of per-sequence lengths 64-512 (one of
+# 512), dropout 0, momentum SGD at lr 1e-4 (bench.py:359-363)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 16, 512, 4     # one warm-up, three timed
+BERT_MLM_FRAC = 0.15
+# classifier logits, flash vs plain route, over the max |logit|: fp32 sums
+# in another order (seen in the GPT forward: <= 1e-6 relative); bf16 rounds
+# every activation to bf16 (2^-8) at other places in 12 post-LN layers on
+# the two routes, so only a gross error (a wrong bias, a dropped row)
+# shows: 5e-2
+BERT_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# bf16 gradients through 12 layers sit at bf16's own noise: on an H100 the
+# plain route read up to 5.2e-2 of a leaf's max |grad| from the exact fp32
+# gradients of the same weights, the kernel route up to 3.9e-2, and the
+# two 3.4e-2 apart (4 seeds; per leaf the kernel / plain distance ratio
+# scattered 0.57-1.35). So in bf16 every leaf of the kernel route must be
+# within BERT_GRAD_CAP of exact, and where a leaf is past BF16_GRAD_TOL
+# from the plain route, the kernel route's worst leaf distance from exact
+# within BERT_NOISE_MARGIN x the plain route's (read 0.76-1.13). The fp32
+# step holds the masked kernels to GRAD_TOL
+BERT_GRAD_CAP = 5e-2
+BERT_NOISE_MARGIN = 1.25
+BERT_GRAD_SEEDS = 4     # weights and batch from SEED + i; i = 0 then trains
+# (d): the masks the branch is held with at [16, 512, 12, 64]
+BERT_MASKS = ("key padding [b, 1, 1, s]", "dense bias [b, hq, s, s]",
+              "shared holes [1, 1, s, s]", "bool [b, 1, s, s]")
+
+
+def bert_batch(cfg, dev, seed=SEED):
+    """The pretraining batch from ``seed``: lengths in 64-512 (one of
+    512), the 1/0 attention mask built from them, ids, segment B from the
+    middle of each sequence, MLM labels at 15% of the valid positions
+    (-100 elsewhere), NSP labels."""
+    rng = np.random.RandomState(seed + 13)
+    b, s = BERT_BATCH, BERT_SEQ
+    lens = rng.randint(64, s + 1, b)
+    lens[rng.randint(b)] = s
+    pos = np.arange(s)[None]
+    valid = pos < lens[:, None]
+    ids = rng.randint(0, cfg.vocab_size, (b, s))
+    types = (pos >= lens[:, None] // 2) & valid
+    labels = np.where(valid & (rng.rand(b, s) < BERT_MLM_FRAC), ids, -100)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return dict(lens=lens, input_ids=to(ids.astype(np.int64)),
+                token_type_ids=to(types.astype(np.int64)),
+                attention_mask=to(valid.astype(np.int64)),
+                masked_lm_labels=to(labels.astype(np.int64)),
+                next_sentence_label=to(rng.randint(0, 2, b).astype(np.int64)))
+
+
+def branch_counts():
+    """Forward and backward launches with the mask branch and with the
+    lens branch since :func:`reset_counts`."""
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_fwd)
+
+    return dict(fwd_mask=flash_attention_fwd.mask_launches,
+                bwd_mask=flash_attention_bwd.mask_launches,
+                fwd_lens=flash_attention_fwd.lens_launches,
+                bwd_lens=flash_attention_bwd.lens_launches)
+
+
+def bert_route_grads(model, batch, flash, L):
+    """(loss, {name: grad}) of one pretraining step of ``model`` on the
+    masked kernels (``flash``: L masked forward and backward launches) or
+    under ``plain_attention()`` (none)."""
+    from paddle_tpu_torch.nn.functional.attention import plain_attention
+
+    model.zero_grad(set_to_none=True)
+    reset_counts()
+    with contextlib.nullcontext() if flash else plain_attention():
+        loss = model(**batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    n = branch_counts()
+    fwd_n, bwd_n = read_counts()[0], bwd_count()
+    want = (L, L) if flash else (0, 0)
+    if (fwd_n, bwd_n) != want or (n["fwd_mask"], n["bwd_mask"]) != want:
+        raise AssertionError(f"bert {'flash' if flash else 'plain'}: "
+                             f"launches {fwd_n}/{bwd_n}, masked {n}")
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def bert_grad_check(cfg, dev, seed):
+    """The MLM + NSP loss's gradients at bert-base with the weights and
+    batch of ``seed``, through the masked kernels against the same step
+    under ``plain_attention()`` (``_sdpa_ref``): in fp32 (the bf16 weights
+    upcast, TF32 off) every leaf within ``GRAD_TOL``; in bf16 every leaf
+    within ``BERT_GRAD_CAP`` of the exact gradients (the fp32 plain
+    route), and within ``BF16_GRAD_TOL`` of the plain route unless the
+    kernel route's worst leaf distance from exact is within
+    ``BERT_NOISE_MARGIN`` x the plain route's. Returns the bf16 model, the
+    batch, its lengths and the readings."""
+    from paddle_tpu_torch.models.convert import (bert_from_jax_numpy,
+                                                 bert_to_numpy,
+                                                 random_bert_state)
+
+    t0 = time.perf_counter()
+    model = bert_from_jax_numpy(random_bert_state(cfg, seed), cfg,
+                                device=dev, dtype=torch.bfloat16)
+    batch = bert_batch(cfg, dev, seed)
+    lens = batch.pop("lens")
+    L, (b, s) = cfg.num_layers, (BERT_BATCH, BERT_SEQ)
+    log(f"[bert] bert-base bf16 seed {seed}: {cfg.num_params() / 1e6:.1f} M "
+        f"params, batch {b} x {s}, lengths {lens.tolist()} ({lens.sum()} "
+        f"valid tokens of {b * s}); set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses, grads = zip(*(bert_route_grads(model, batch, flash, L)
+                          for flash in (True, False)))
+    f32 = bert_from_jax_numpy(bert_to_numpy(model.state_dict()), cfg,
+                              device=dev)
+    losses32, grads32 = zip(*(bert_route_grads(f32, batch, flash, L)
+                              for flash in (True, False)))
+    del f32
+    exact = grads32[1]
+    e32 = _grad_errors(grads32[0], exact)
+    errs = _grad_errors(*grads)
+    ek, ep = (_grad_errors(g, exact) for g in grads)
+    del grads, grads32, exact
+    worst, worst32 = max(errs, key=errs.get), max(e32, key=e32.get)
+    noisy = sorted(n for n in errs if errs[n] > BF16_GRAD_TOL)
+    far = sorted(n for n in ek if not ek[n] <= BERT_GRAD_CAP)
+    ratio = max(ek.values()) / max(ep.values())
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    loss32_err = abs(losses32[0] - losses32[1]) / abs(losses32[1])
+    log(f"[bert] seed {seed} gradients, masked kernels vs plain _sdpa_ref: "
+        f"fp32 loss rel err {loss32_err:.3e} (tol {LOSS_TOL}), worst leaf "
+        f"{worst32} {e32[worst32]:.3e} of its max |grad| (tol {GRAD_TOL}); "
+        f"bf16 loss {losses[0]:.6f} vs {losses[1]:.6f} (rel err "
+        f"{loss_err:.3e}, tol {BF16_LOSS_TOL}), worst leaf {worst} "
+        f"{errs[worst]:.3e} (tol {BF16_GRAD_TOL}), {len(noisy)} of "
+        f"{len(errs)} leaves past it; from the exact gradients, worst leaf:"
+        f" kernel route {max(ek.values()):.3e} (cap {BERT_GRAD_CAP}), plain"
+        f" route {max(ep.values()):.3e}, ratio {ratio:.3f} (margin "
+        f"{BERT_NOISE_MARGIN}" + (f" held: {len(noisy)} leaves past "
+                                  f"{BF16_GRAD_TOL})" if noisy else
+                                  " not needed)")
+        + ("; per leaf past it, kernel / plain distance from exact "
+           f"{min(ek[n] / ep[n] for n in noisy):.3f}-"
+           f"{max(ek[n] / ep[n] for n in noisy):.3f} x" if noisy else ""))
+    if not (e32[worst32] <= GRAD_TOL and loss32_err <= LOSS_TOL):
+        raise AssertionError(f"bert fp32 seed {seed}: masked kernels and "
+                             f"plain disagree ({worst32} {e32[worst32]})")
+    if far or (noisy and ratio > BERT_NOISE_MARGIN) or not (
+            loss_err <= BF16_LOSS_TOL and np.isfinite(losses[0])):
+        raise AssertionError(f"bert bf16 seed {seed}: masked kernels and "
+                             f"plain disagree: past the cap {far}, worst-"
+                             f"leaf ratio {ratio} on {noisy}, loss "
+                             f"{loss_err}")
+    return model, batch, lens, dict(
+        seed=seed, worst=errs[worst], worst32=e32[worst32], noisy=len(noisy),
+        ratio=ratio, kernel_max=max(ek.values()),
+        plain_max=max(ep.values()))
+
+
+def phase_bert_train(dev, card):
+    """(a) BERT-base pretraining in bf16 at batch 16, seq 512, full depth:
+    :func:`bert_grad_check` on ``BERT_GRAD_SEEDS`` seeds; then, on the
+    first seed's weights and batch, momentum SGD, one warm-up and three
+    timed steps (12 masked forward and 12 masked backward launches a step,
+    none unmasked), one profiled."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models.bert import BERT_CONFIGS
+
+    cfg = replace(BERT_CONFIGS["bert-base"], hidden_dropout=0.0,
+                  attn_dropout=0.0)
+    L, (b, s) = cfg.num_layers, (BERT_BATCH, BERT_SEQ)
+    readings = []
+    for i in reversed(range(BERT_GRAD_SEEDS)):      # SEED's model kept last
+        model, batch, lens, r = bert_grad_check(cfg, dev, SEED + i)
+        readings.append(r)
+    log(f"[bert] gradient readings over {BERT_GRAD_SEEDS} seeds: "
+        + "; ".join(f"seed {r['seed']}: fp32 {r['worst32']:.3e}, bf16 "
+                    f"{r['worst']:.3e} ({r['noisy']} past), kernel / plain "
+                    f"from exact {r['kernel_max']:.3e} / "
+                    f"{r['plain_max']:.3e} ({r['ratio']:.3f})"
+                    for r in readings))
+    model.zero_grad(set_to_none=True)
+    params = [p for p in model.parameters()]
+    mom = [torch.zeros_like(p) for p in params]
+
+    def step():
+        loss = model(**batch)
+        loss.backward()
+        with torch.no_grad():   # bench.py: mom = 0.9 mom + g; p -= lr mom
+            torch._foreach_mul_(mom, 0.9)
+            torch._foreach_add_(mom, [p.grad for p in params])
+            torch._foreach_add_(params, mom, alpha=-1e-4)
+        for p in params:
+            p.grad = None
+        return loss
+
+    reset_counts()
+    walls, step_losses = [], []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        step_losses.append(step().item())   # synchronizes
+        walls.append(time.perf_counter() - t0)
+    n = branch_counts()
+    launches = dict(fwd=n["fwd_mask"], bwd=n["bwd_mask"])
+    if not np.isfinite(step_losses).all():
+        raise AssertionError(f"bert loss not finite: {step_losses}")
+    if (read_counts()[0], bwd_count()) != (L * BERT_STEPS,) * 2 or (
+            n["fwd_mask"], n["bwd_mask"]) != (L * BERT_STEPS,) * 2:
+        raise AssertionError(f"bert steps: launches {read_counts()[0]}/"
+                             f"{bwd_count()}, branches {n} (want {L} masked"
+                             " forward and backward a step)")
+    timed_s = walls[1:]
+    step_s = sum(timed_s) / len(timed_s)
+    flops = 6 * cfg.num_params() + 6 * L * cfg.hidden_size * s
+    mfu = b * s / step_s * flops / PEAK_OPS[torch.bfloat16]
+    log(f"[bert] bf16 pretraining steps: losses "
+        f"{', '.join(f'{x:.4f}' for x in step_losses)}; masked flash "
+        f"launches fwd {n['fwd_mask']} bwd {n['bwd_mask']} ({L} each a "
+        f"step); step {1e3 * step_s:.1f} ms (mean of {len(timed_s)} after 1 "
+        f"warm-up: {', '.join(f'{1e3 * w:.1f}' for w in timed_s)}), "
+        f"{b * s / step_s:.1f} tokens/s ({lens.sum() / step_s:.1f} valid), "
+        f"MFU {mfu:.4f} (padding counted; {flops / 1e9:.3f} GFLOP/token "
+        f"over 989 TFLOP/s bf16) ({card})")
+    prof = profile_step(lambda *_: (None, None, step()), None, None, None,
+                        None, card, "[bert]")
+    return dict(launches=launches, step_ms=1e3 * step_s, mfu=mfu,
+                profile=prof, lens=lens)
+
+
+def phase_bert_classify(dev):
+    """(b) ``BertForSequenceClassification`` forward on the phase's batch
+    at bert-base, fp32 (TF32 off) and bf16: logits through the masked
+    kernels (12 masked forward launches) against the plain route."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models.bert import BERT_CONFIGS
+    from paddle_tpu_torch.models.convert import (bert_from_jax_numpy,
+                                                 random_bert_state)
+    from paddle_tpu_torch.nn.functional.attention import plain_attention
+
+    cfg = replace(BERT_CONFIGS["bert-base"], hidden_dropout=0.0,
+                  attn_dropout=0.0)
+    batch = bert_batch(cfg, dev)
+    kw = {k: batch[k] for k in ("input_ids", "token_type_ids",
+                                "attention_mask")}
+    named = random_bert_state(cfg, SEED + 1, num_classes=2)
+    launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = bert_from_jax_numpy(named, cfg, device=dev, dtype=dtype)
+        model.eval()
+        with torch.no_grad():
+            reset_counts()
+            logits = model(**kw)
+            torch.cuda.synchronize()
+            n = branch_counts()["fwd_mask"]
+            with plain_attention():
+                plain = model(**kw)
+        err = ((logits.float() - plain.float()).abs().max()
+               / plain.float().abs().max()).item()
+        log(f"[bert] classifier {str(dtype)[6:]} logits "
+            f"{tuple(logits.shape)}: masked kernels vs plain route "
+            f"{err:.3e} of max |logit| (tol {BERT_LOGIT_TOL[dtype]}), "
+            f"masked forward launches {n}")
+        if (n != cfg.num_layers or not err <= BERT_LOGIT_TOL[dtype]
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"bert classifier {dtype}: err {err}, "
+                                 f"launches {n}")
+        launches += n
+        del model
+    return launches
+
+
+def varlen_grad_error(name, got, want, lens):
+    """(max abs error, held error, zero error) of one packed bf16 gradient
+    ``[total, h, d]`` against the fp32 plain one, per sequence: each
+    sequence's rows over that sequence's max |want| (the kernels form
+    delta from the bf16 out, and a query that sees a few keys cancels in
+    dp - delta, so a row's own scale does not bound its error against
+    exact gradients; its sequence's does). dq and dk of a length-1
+    sequence are zero in exact arithmetic (p = 1, so ds = 0): held as an
+    fp32 gradient over the tensor's max |want| (the zero error), as
+    ``bwd_error`` holds its zero rows."""
+    scale = want.abs().max().item()
+    err = held = zero = 0.0
+    start = 0
+    for n in (int(x) for x in lens):
+        g, w = got[start:start + n].float(), want[start:start + n]
+        start += n
+        e = (g - w).abs().max().item()
+        err = max(err, e)
+        if n == 1 and name != "dv":
+            zero = max(zero, e / scale)
+        else:
+            held = max(held, e / w.abs().max().item())
+    return err, held, zero
+
+
+def phase_bert_varlen(dev, lens):
+    """(c) ``flash_attn_unpadded`` at BERT-base widths (12 heads of 64) in
+    bf16 on the phase's lengths packed, causal and not: the kernel route
+    (one lens-branch forward and backward launch a call) against the plain
+    segment-masked version on the same values in fp32: out per row as
+    ``KERNEL_TOL``, dq / dk / dv per sequence (``varlen_grad_error``) to
+    ``BWD_TOL``."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.nn.functional.attention import _unpadded_ref
+
+    dt = torch.bfloat16
+    cu = torch.tensor(np.cumsum([0, *lens]), device=dev)
+    total, h, d, s = int(cu[-1]), 12, 64, BERT_SEQ
+    rng = np.random.RandomState(SEED + 14)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((total, h, d))
+                                    .astype(np.float32)).to(dev, dt)
+                   for _ in range(4))
+    stats, launches = {}, dict(fwd=0, bwd=0)
+    for causal in (False, True):
+        outs = {}
+        for route in ("kernel", "plain"):
+            # the plain version on the same bf16 values in fp32: it scores
+            # in its input dtype, which in bf16 alone would round every
+            # score before the softmax
+            args = [(x if route == "kernel" else x.float()).clone()
+                    .requires_grad_() for x in (q, k, v)]
+            reset_counts()
+            out = (flash_attn_unpadded(*args, cu, cu, s, s, causal=causal)[0]
+                   if route == "kernel" else
+                   _unpadded_ref(*args, cu, cu, causal=causal))
+            out.backward(do if route == "kernel" else do.float())
+            torch.cuda.synchronize()
+            n = branch_counts()
+            if route == "kernel":
+                launches["fwd"] += n["fwd_lens"]
+                launches["bwd"] += n["bwd_lens"]
+                if (n["fwd_lens"], n["bwd_lens"]) != (1, 1):
+                    raise AssertionError(f"flash_attn_unpadded: {n}")
+            outs[route] = (out.detach(), *(a.grad for a in args))
+        err, held = kernel_error(outs["kernel"][0], outs["plain"][0], dt)
+        grads = [varlen_grad_error(name, g, w, lens) for name, g, w in zip(
+            ("dq", "dk", "dv"), outs["kernel"][1:], outs["plain"][1:])]
+        bheld = max(x[1] for x in grads)
+        bzero = max(x[2] for x in grads)
+        log(f"[bert] flash_attn_unpadded {'causal' if causal else 'non-causal'}"
+            f" total {total} x {h} x {d} bf16: out held {held:.3e} per row "
+            f"(tol {KERNEL_TOL[dt]}), dq / dk / dv "
+            + ", ".join(f"{x[1]:.3e}" for x in grads)
+            + f" of their sequence's max |grad| (tol {BWD_TOL[dt]}; length-1"
+            f" sequences {bzero:.3e}, tol {BWD_TOL[torch.float32]})")
+        if not (held <= KERNEL_TOL[dt] and bheld <= BWD_TOL[dt]
+                and bzero <= BWD_TOL[torch.float32]):
+            raise AssertionError(f"flash_attn_unpadded causal={causal}: out "
+                                 f"{held}, gradients {bheld}, zero {bzero}")
+        stats[causal] = max(err, *(x[0] for x in grads))
+    return launches, stats[False]
+
+
+def branch_inputs(dtype, dev, seed):
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 12, 64
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(4))
+
+
+def branch_mask(kind, lens, dev):
+    """The normalized masks of (d) at [16, 512, 12 heads]."""
+    b, s, h = BERT_BATCH, BERT_SEQ, 12
+    rng = np.random.RandomState(SEED + 15)
+    if kind.startswith("key padding"):      # BERT's (1 - m) * -1e9
+        m = (np.arange(s)[None] >= np.asarray(lens)[:, None]) * -1e9
+        m = m.reshape(b, 1, 1, s)
+    elif kind.startswith("dense"):
+        m = rng.standard_normal((b, h, s, s))
+    elif kind.startswith("shared"):
+        m = np.where(rng.rand(1, 1, s, s) < 0.2, -1e30, 0.0)
+    else:
+        return torch.from_numpy(rng.rand(b, 1, s, s) >= 0.2).to(dev)
+    return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+
+def branch_zero_rows(b, s, h, causal, mask, lens, dev):
+    """The gradient rows that are zero in exact arithmetic (both sides
+    return fp32 rounding noise there): ``{"dq": [b, s, h], "dk": [b, s,
+    h]}`` bool, the queries that see exactly one key (p = 1, so ds = 0)
+    and the keys seen only by such queries. A bias below -1e6 hides a
+    key."""
+    from paddle_tpu_torch.ops.flash_attention import _scores_masked
+
+    s0, dead = _scores_masked(torch.zeros(b, h, s, s, device=dev), b, s, s,
+                              causal, mask, lens)
+    seen = s0 > -1e6
+    if dead is not None:
+        seen = seen & ~dead
+    one = seen.sum(-1) == 1
+    lone = ~(seen & ~one[..., None]).any(-2)
+    return dict(dq=one.transpose(1, 2), dk=lone.transpose(1, 2))
+
+
+def check_branch(args, dtype, causal, mask, lens, label):
+    """Forward and backward kernels against their plain versions with one
+    mask and / or lens at [16, 512, 12, 64]; returns the max abs errors
+    and the plain forward's lse and delta."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+
+    q, k, v, do = args
+    kw = dict(causal=causal, mask=mask, lens=lens)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention_reference(q, k, v, **kw)
+    err, held = kernel_error(out, want, dtype)
+    lse_err = (lse - want_lse).abs().max().item()
+    delta = (do.float() * want.float()).sum(-1).transpose(1, 2)
+    delta = delta.reshape(lse.shape).contiguous()
+    got = flash_attention_bwd(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_reference(q, k, v, do, want_lse, delta, **kw)
+    b, s, h, _ = q.shape
+    zero = branch_zero_rows(b, s, h, causal, mask, lens, q.device)
+    berrs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, ref):
+        one = zero.get(name)
+        if dtype == torch.float32 or one is None or not one.any():
+            berrs[name] = bwd_error(g, w, dtype)
+        else:       # bwd_error's zero rows, per (batch, row, head)
+            e, hd = kernel_error(g[~one], w[~one], dtype)
+            z = (g[one].float() - w[one].float()).abs().max().item()
+            berrs[name] = (max(e, z), hd, z / w.float().abs().max().item())
+    bheld = max(x[1] for x in berrs.values())
+    bzero = max(x[2] for x in berrs.values())
+    log(f"[bert] branch {str(dtype)[6:]} {label} "
+        f"{'causal' if causal else 'non-causal'}: fwd max_abs_err {err:.3e} "
+        f"held {held:.3e} (tol {KERNEL_TOL[dtype]}), lse err {lse_err:.3e}; "
+        + ", ".join(f"{n} held {x[1]:.3e}" for n, x in berrs.items())
+        + f" (tol {BWD_TOL[dtype]}; zero rows {bzero:.3e}, tol "
+        f"{BWD_TOL[torch.float32]})")
+    if not (held <= KERNEL_TOL[dtype] and lse_err <= 1e-3
+            and bheld <= BWD_TOL[dtype]
+            and bzero <= BWD_TOL[torch.float32]):
+        raise AssertionError(f"flash branch {dtype} {label} causal={causal}")
+    return err, max(x[0] for x in berrs.values()), want_lse, delta
+
+
+def masked_sdpa_bwd_ms(q, k, v, do, mask) -> float:
+    """SDPA's backward with the same additive mask, timed, never used."""
+    import torch.nn.functional as tnf
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = tnf.scaled_dot_product_attention(qt, kt, vt,
+                                           attn_mask=mask.to(q.dtype))
+    dot = do.transpose(1, 2)
+    return events_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+
+
+def branch_times(args, dtype, mask, lens, lse, delta, errs):
+    """Kernel, plain and library times of the forward and backward at one
+    branch (non-causal), with their bounds: the work this run's data needs
+    (under lens only the valid rows and keys and their pairs). The library
+    call is torch's SDPA with the same ``attn_mask``; under lens (q_len =
+    kv_len) with the key-padding mask built from the lengths, which gives
+    the same valid rows and computes the padded rows too."""
+    import torch.nn.functional as tnf
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+
+    q, k, v, do = args
+    b, s, h, d = q.shape
+    elt = q.element_size()
+    kw = dict(causal=False, mask=mask, lens=lens)
+    if lens is None:
+        rows = keys = b * s
+        pairs = b * s * s
+    else:
+        ql, kl = (lens[i].long().cpu().numpy() for i in (0, 1))
+        rows, keys, pairs = int(ql.sum()), int(kl.sum()), int((ql * kl).sum())
+    mbytes = 0 if mask is None else 4 * mask.numel()
+    lib_mask = mask
+    if lens is not None:
+        cols = torch.arange(s, device=q.device)
+        lib_mask = torch.where(cols[None] < lens[1, :, None].long(), 0.0,
+                               -1e9).reshape(b, 1, 1, s)
+    lib_mask = lib_mask.to(dtype)
+    # forward: valid q, k, v rows read, out and lse written in full
+    fb = (rows * h + 2 * keys * h) * d * elt + b * s * h * (d * elt + 4) \
+        + mbytes
+    fo = 4.0 * d * pairs * h
+    # backward: q, do, lse, delta of the valid rows and k, v read; dq, dk,
+    # dv written in full
+    bb = (2 * rows * h * d + 2 * keys * h * d) * elt + 8 * rows * h \
+        + (b * s * h * d * 3) * elt + mbytes
+    bo = 10.0 * d * pairs * h
+    out = {}
+    for part, nb, no in (("fwd", fb, fo), ("bwd", bb, bo)):
+        st = dict(max_abs_err=errs[part == "bwd"],
+                  bound_ms=bound_ms(nb, no, dtype),
+                  bound_by="bytes" if nb / HBM_BYTES_PER_S
+                  >= no / PEAK_OPS[dtype] else "operations")
+        if part == "fwd":
+            st["ms"] = time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                               iters=20, replays=2)
+            st["plain_ms"] = time_ms(
+                lambda: flash_attention_reference(q, k, v, **kw), iters=2,
+                replays=2)
+            st["library_ms"] = time_ms(
+                lambda: tnf.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in (q, k, v)),
+                    attn_mask=lib_mask), iters=20, replays=2)
+        else:
+            st["ms"] = time_ms(lambda: flash_attention_bwd(
+                q, k, v, do, lse, delta, **kw), iters=10, replays=2)
+            st["plain_ms"] = time_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, do, lse, delta, **kw), iters=2, replays=2)
+            st["library_ms"] = masked_sdpa_bwd_ms(q, k, v, do, lib_mask)
+        log(f"[bert] {'mask' if lens is None else 'varlen'} {part} "
+            f"{str(dtype)[6:]} [{b}, {s}, {h}, {d}] non-causal: kernel "
+            f"{st['ms']:.4f} ms ({flash_rate(st['ms'], nb, no, dtype)}), "
+            f"plain {st['plain_ms']:.4f} ms, library (torch sdpa "
+            f"attn_mask{'' if lens is None else ' from the lengths'}) "
+            f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+            f"({st['bound_by']}: {nb / 1e6:.2f} MB, {no / 1e9:.3f} GFLOP)")
+        out[part] = st
+    return out
+
+
+def phase_bert_branches(dev, lens):
+    """(d) each branch alone against its plain version, fp32 and bf16, at
+    [16, 512, 12, 64]: the masks of ``BERT_MASKS`` causal and not; lens with
+    a 0 and q_len != kv_len (causal and not, and with the key-padding mask);
+    BERT's key-padding mask and the phase's lengths timed non-causal."""
+    from paddle_tpu_torch.ops.flash_attention import normalize_mask
+
+    b, s = BERT_BATCH, BERT_SEQ
+    stats = {}
+    ql = np.asarray(lens).copy()
+    kl = np.asarray(lens).copy()
+    ql[1], kl[2], ql[3], kl[3] = 0, 0, 77, 400     # zeros, q_len != kv_len
+    lens_odd = torch.tensor(np.stack([ql, kl]), dtype=torch.int32, device=dev)
+    lens_same = torch.tensor(np.stack([lens, lens]), dtype=torch.int32,
+                             device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = branch_inputs(dtype, dev, SEED + 16)
+        for kind in BERT_MASKS:
+            mask = normalize_mask(branch_mask(kind, lens, dev), args[0], s)
+            res = [check_branch(args, dtype, causal, mask, None, kind)
+                   for causal in (False, True)][0]
+            if kind == BERT_MASKS[0]:
+                stats[("mask", dtype)] = branch_times(
+                    args, dtype, mask, None, res[2], res[3], res[:2])
+        pad = normalize_mask(branch_mask(BERT_MASKS[0], lens, dev), args[0],
+                             s)
+        for label, lz, mask in (("lens with 0, q != kv", lens_odd, None),
+                                ("lens + key padding", lens_odd, pad)):
+            for causal in (False, True):
+                check_branch(args, dtype, causal, mask, lz, label)
+        res = check_branch(args, dtype, False, None, lens_same,
+                           "lens (the batch's lengths)")
+        stats[("lens", dtype)] = branch_times(args, dtype, None, lens_same,
+                                              res[2], res[3], res[:2])
+        del args
+    return stats
+
+
 # -- phase 9 ----------------------------------------------------------------
 
 
@@ -3971,7 +4612,7 @@ MEGA_DIMS = {
     96: ((8, 16, 1536, 16, 96, 64, 16, 6144), MEGA_SERVING[1],
          MEGA_SERVING[2]),
 }
-# --paged-walks: the split plans timed beside the chosen ones (waves of
+# --ab paged-walks: the split plans timed beside the chosen ones (waves of
 # blocks a plan aims for: ops/paged_attention.py SPLIT_WAVES for row 1,
 # ops/mega_decode.py MEGA_WAVES for row 13; rows a QKV producer takes:
 # MEGA_ROWS)
@@ -4249,7 +4890,7 @@ def phase_fp16(model, cfg, dev, fp_outs):
 
 
 def paged_walks_only(root: Path) -> int:
-    """``--paged-walks [ROOT]``: rows 1 and 13 (the ragged and the mega
+    """``--ab paged-walks [ROOT]``: rows 1 and 13 (the ragged and the mega
     attention kernels) at the table shapes and GPT-125M's decode round, and
     rows 4 and 14 (the paged decode kernel and the mega MLP, unchanged
     controls) at the table shapes, fp32 and bf16, with the
@@ -4392,7 +5033,7 @@ def qmm_four(bits, gs, dtype, dev, m=QMM_ROWS, bwd=False):
 
 
 def mlp_gemms_only(root: Path) -> int:
-    """``--mlp-gemms [ROOT]``: rows 14 and 9 (the mega MLP at
+    """``--ab mlp-gemms [ROOT]``: rows 14 and 9 (the mega MLP at
     ``MLP_ROUNDS``, fp and int8 g128 weights; the int8 weight-only GEMM's
     four serving GEMMs at M 24 and 8) and the controls (row 10: the int4
     forward, row 11: the int8 dx, row 13: the mega attention kernel at the
@@ -4510,7 +5151,7 @@ def gmm_pair(wd, gs, dtype, dev):
 
 
 def moe_gemms_only(root: Path) -> int:
-    """``--moe-gemms [ROOT]``: rows 16 and 17 (the grouped GEMM with int8
+    """``--ab moe-gemms [ROOT]``: rows 16 and 17 (the grouped GEMM with int8
     per-channel, int8 g128 and int4 g128 expert stacks, w1 + w2 at the
     serving rows (a)) in fp32 and bf16; the controls: row 15 (fp weights
     at (a)), row 9 (the int8 weight-only GEMM's four serving GEMMs at M
@@ -4595,7 +5236,7 @@ def moe_gemms_only(root: Path) -> int:
 
 
 def int4_decode_only(root: Path) -> int:
-    """``--int4-decode [ROOT]``: row 10 (the int4 g128 weight-only GEMM's
+    """``--ab int4-decode [ROOT]``: row 10 (the int4 g128 weight-only GEMM's
     four serving GEMMs at M 24 and M 8) and row 4 (the paged decode kernel
     at the serving pools, beside the ragged kernel at chunk 1 on the same
     pools) in fp32 and bf16; the controls: row 1 (the ragged kernel at the
@@ -4697,8 +5338,62 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def flash_ab_only(root: Path) -> int:
+    """``--ab flash [ROOT]``: rows 2 and 3 (the flash forward and backward
+    kernels) in bf16 without a mask at phase 4's [4, 512, 12, 64] causal,
+    the training shape [8, 1024, 12, 128] causal, ``FLASH_LONG`` causal and
+    BERT-base's [16, 512, 12, 64] non-causal, and with BERT's key-padding
+    mask at the last where ROOT's package has the mask branch, all with the
+    ``paddle_tpu_torch`` package of the checkout at ``ROOT`` (default: this
+    one); prints one JSON line. Run it with two trees in turns to compare
+    them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    bf16 = torch.bfloat16
+    b, s = BERT_BATCH, BERT_SEQ
+    pad = torch.zeros(b, 1, 1, s, device=dev)
+    pad[1:, ..., s // 2:] = -1e9
+    rows = {}
+    for label, shape, masked in (
+            ("[4, 512, 12, 64] causal", (4, 512, 512, 12, 12, 64, True),
+             False),
+            ("[8, 1024, 12, 128] causal", (*BWD_SHAPE[:2], BWD_SHAPE[1],
+                                           BWD_SHAPE[2], BWD_SHAPE[2],
+                                           BWD_SHAPE[3], True), False),
+            ("[1, 4096, 16, 128] causal", (1, 4096, 4096, 16, 16, 128, True),
+             False),
+            ("[16, 512, 12, 64] non-causal", (b, s, s, 12, 12, 64, False),
+             False),
+            ("[16, 512, 12, 64] key-padding mask", (b, s, s, 12, 12, 64,
+                                                   False), True)):
+        if masked and not hasattr(fa.flash_attention_fwd, "mask_launches"):
+            continue
+        q, k, v, do, lse, delta = bwd_inputs(shape, bf16, dev, SEED)
+        kw = dict(causal=shape[-1], **(dict(mask=pad) if masked else {}))
+        if masked:      # the masked twin's lse and delta
+            out, lse = fa.flash_attention_reference(q, k, v, **kw)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+            delta = delta.reshape(lse.shape).contiguous()
+        rows[label] = dict(
+            fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                           iters=20, replays=3),
+            bwd_ms=time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, do, lse, delta, **kw), iters=10, replays=3))
+        log(f"[flash-ab] {label} bf16: fwd {rows[label]['fwd_ms']:.4f} ms, "
+            f"bwd {rows[label]['bwd_ms']:.4f} ms ({card})")
+        del q, k, v, do, lse, delta
+    print(json.dumps({"flash_ab": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows)}), flush=True)
+    return 0
+
+
 def moe_forward_only(root: Path) -> int:
-    """``--moe-forward [ROOT]``: only phase 11's bf16 MoE full forward,
+    """``--ab moe-forward [ROOT]``: only phase 11's bf16 MoE full forward,
     with the ``paddle_tpu_torch`` package of the checkout at ``ROOT``
     (default: this one), for example a ``git archive`` copy of an earlier
     commit, so two trees are compared on one card; prints one JSON line."""
@@ -4780,7 +5475,7 @@ def sass_loop(name, code, rows_a_trip):
 
 
 def fused_gelu_only(root: Path) -> int:
-    """``--fused-gelu [ROOT]``: the four GELU variants (forward and
+    """``--ab fused-gelu [ROOT]``: the four GELU variants (forward and
     backward, with and without the bias) at the flagship shape in fp32 and
     bf16 with the ``paddle_tpu_torch`` package of the checkout at ``ROOT``
     (default: this one), each beside its bound and its library call, then
@@ -4845,24 +5540,23 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     root = ROOT
-    modes = {"--moe-forward": moe_forward_only,
-             "--fused-gelu": fused_gelu_only,
-             "--paged-walks": paged_walks_only,
-             "--mlp-gemms": mlp_gemms_only,
-             "--moe-gemms": moe_gemms_only,
-             "--int4-decode": int4_decode_only}
-    if args[:1] and args[0] in modes and len(args) <= 2:
-        root = Path(args[1]).resolve() if len(args) == 2 else ROOT
+    parts = {"moe-forward": moe_forward_only, "fused-gelu": fused_gelu_only,
+             "paged-walks": paged_walks_only, "mlp-gemms": mlp_gemms_only,
+             "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
+             "flash": flash_ab_only}
+    if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
+        root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
-        print(f"chip_smoke: unknown arguments {args} (none, or one of "
-              f"{', '.join(modes)} with an optional ROOT)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {args} (none, or --ab PART "
+              f"[ROOT] with PART one of {', '.join(parts)})",
+              file=sys.stderr)
         return 2
     if not (root / "paddle_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no paddle_tpu_torch package in {root}; "
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     if args:
-        return modes[args[0]](root)
+        return parts[args[1]](root)
     sys.path.insert(0, str(ROOT))
     from dataclasses import replace
 
@@ -4991,6 +5685,13 @@ def main() -> int:
     train_fwd = train["fwd_n"] + fused_train["fwd_n"]
     train_bwd = train["bwd_n"] + fused_train["bwd_n"]
 
+    # 13. BERT-base pretraining through the mask branch; its classifier,
+    # the varlen entry and each branch alone against its plain version
+    bert = timed(phase_bert_train, dev, card)
+    bert_cls = timed(phase_bert_classify, dev)
+    varlen_launches = timed(phase_bert_varlen, dev, bert["lens"])[0]
+    branches = timed(phase_bert_branches, dev, bert["lens"])
+
     if twin_route_count() != fp16_routes:
         raise AssertionError(f"{twin_route_count() - fp16_routes} fp32 / "
                              "bf16 training calls ran a plain twin")
@@ -5061,6 +5762,34 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
+    for part, line in (("fwd", 262), ("bwd", 419)):
+        for branch, key, n in (("mask", "mask", bert["launches"][part]),
+                               ("varlen", "lens", varlen_launches[part])):
+            st = branches[(key, bf16)][part]
+            f32 = branches[(key, torch.float32)][part]
+            kernels.append({
+                "name": f"flash_attention_{part}_{branch}", "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/flash_attention_{part}.cu",
+                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+                "launches": n,
+                **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+                "note": (
+                    f"bf16 at [{BERT_BATCH}, {BERT_SEQ}, 12, 64] non-causal "
+                    + ("with BERT's key-padding mask [b, 1, 1, s]; library: "
+                       "torch sdpa with the same attn_mask"
+                       if branch == "mask" else
+                       "with the batch's lengths (lens = q_len = kv_len); "
+                       "library: torch sdpa with the key-padding attn_mask "
+                       "[b, 1, 1, s] built from the lengths (it computes "
+                       "the padded rows too)")
+                    + f"; fp32: ms {f32['ms']:.4f}, plain_ms "
+                    f"{f32['plain_ms']:.4f}, bound_ms {f32['bound_ms']:.6f}; "
+                    + (f"launches: the {BERT_STEPS} bert-base pretraining "
+                       f"steps ({bert_cls} more in the classifier forwards)"
+                       if branch == "mask" else
+                       "launches: the flash_attn_unpadded calls of phase 13 "
+                       "(c)"))})
     row_of = {k["name"]: k for k in kernels}
     for i, part in enumerate(("attn", "mlp")):   # gpt3-760m / 2.7b widths
         row_of[f"mega_{part}"]["wide_launches"] = wide_launches[i]
@@ -5266,7 +5995,8 @@ def main() -> int:
         "11's fp32 served runs, its bf16 int8 / int4 served runs (v) / (vi) "
         "and gradient drives; paged_decode_attention "
         "in fp32 at phase 3's pools, launches in phase 12's fp32 legacy "
-        "runs)")
+        "runs; flash_attention_*_mask and _varlen in bf16 at [16, 512, 12, "
+        "64], launches in phase 13's bert-base steps and varlen calls)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

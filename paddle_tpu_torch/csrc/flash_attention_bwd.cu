@@ -1,15 +1,22 @@
 // Flash attention backward for Hopper (sm_90a): bf16 on the tensor cores,
 // fp32 on the CUDA cores.
 //
-// Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_fused_kernel (the
-// causal / no-mask / no-varlen branch of flash_bwd_impl): dq, dk and dv from
-// the forward's lse and delta = rowsum(do * out), recomputing
+// Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_fused_kernel, all
+// of its branches: dq, dk and dv from the forward's lse and delta =
+// rowsum(do * out), recomputing
 //   s = scale * q k^T   (bottom-right causal: row + sk - sq >= col)
 //   p = exp(s - lse),  dv += p^T do,  dp = do v^T,  ds = p * (dp - delta),
 //   dk += scale * ds^T q,  dq += scale * ds k,
 // with the Pallas kernel's casts: p is rounded to do's type before p^T do,
 // ds to q's type before both of its products. Rows whose lse is 1e30 (they
-// saw no key in the forward) get p = 0 and so no gradient.
+// saw no key in the forward) get p = 0 and so no gradient. The mask and
+// varlen branches (flash_branches.cuh) are template flags, as in the
+// forward. MASK: the additive fp32 mask is added to s of the kept (row,
+// key) pairs. LENS: the lengths are read once a block; keys from kv_len
+// get p = 0 (a key block past kv_len walks nothing and writes zero dk,
+// dv), the causal offset becomes kv_len - q_len, and rows from q_len get
+// p = 0 (the q blocks past q_len are not walked), so padded rows leak no
+// gradient.
 //
 // Design. The TPU kernel keeps a full-sequence fp32 dq accumulator resident
 // in VMEM while its sequential grid walks the k blocks; blocks on the GPU
@@ -57,10 +64,12 @@
 // in shared memory (4 x 4 score tiles and 4 x d/16 accumulator tiles a
 // thread).
 #include "common.cuh"
+#include "flash_branches.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ptt::FlashBranches;
 using ptt::load_rows;
 using ptt::store;
 
@@ -84,14 +93,15 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
-                 T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
-                 int sq, int sk, float scale, int causal) {
+                 T* __restrict__ dk, T* __restrict__ dv,
+                 const FlashBranches br, int hq, int hkv, int sq, int sk,
+                 float scale, int causal) {
   constexpr int DC = D / 16;  // accumulator columns per thread
   constexpr int P = D + 1;    // padded row stride of the q/k/v/do tiles
   extern __shared__ float smem[];
@@ -111,7 +121,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16, tx = tid % 16;
   const long q_row = (long)hq * D;  // [b, s, h, d] row strides
   const long kv_row = (long)hkv * D;
-  const int off = sk - sq;
+  const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
+  const int off = sv.off, kv = sv.k_valid, qv = sv.q_valid;
 
   {
     const T* src[2] = {k + ((long)b * sk + k0) * kv_row + (long)kvh * D,
@@ -119,7 +130,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* dst[2] = {Ks, Vs};
     const int pitch[2] = {P, P};
     load_rows<T, D, 2>(src, dst, pitch, [=](int r) { return r * kv_row; },
-                       kBK, sk - k0);
+                       kBK, kv - k0);
   }
 
   float dk_acc[kTR][DC], dv_acc[kTR][DC];
@@ -128,13 +139,15 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // first q block with a row that sees key k0: row >= k0 - off
-  const int n_qb = (sq + kBQ - 1) / kBQ;
+  // first q block with a row that sees key k0: row >= k0 - off; none
+  // past q_len, none for a key block past kv_len
+  const int n_qb = !LENS || k0 < kv ? (qv + kBQ - 1) / kBQ : 0;
   const int lower = causal ? max(k0 - off, 0) / kBQ : 0;
 
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
     const long bh = (long)b * hq + h;
+    const float* mp = ptt::mask_plane<MASK>(br, b, h);
     const T* qb = q + (long)b * sq * q_row + (long)h * D;
     const T* dob = dout + (long)b * sq * q_row + (long)h * D;
     for (int qi = lower; qi < n_qb; ++qi) {
@@ -145,10 +158,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float* dst[2] = {Qs, dOs};
         const int pitch[2] = {P, P};
         load_rows<T, D, 2>(src, dst, pitch,
-                           [=](int r) { return r * q_row; }, kBQ, sq - q0);
+                           [=](int r) { return r * q_row; }, kBQ, qv - q0);
       }
       if (tid < kBQ) {
-        const bool ok = q0 + tid < sq;
+        const bool ok = q0 + tid < qv;
         lse_s[tid] = ok ? lse[bh * sq + q0 + tid] : 0.f;
         delta_s[tid] = ok ? delta[bh * sq + q0 + tid] : 0.f;
       }
@@ -189,8 +202,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kTC; ++j) {
           const int c = tx + 16 * j;
           const int col = k0 + c;
-          const bool ok = row < sq && col < sk && (!causal || col <= row + off);
-          const float p = ok ? expf(scale * s[i][j] - lse_s[r]) : 0.f;
+          const bool ok = row < qv && col < kv && (!causal || col <= row + off);
+          float x = scale * s[i][j];
+          if constexpr (MASK)
+            if (ok) x += mp[row * br.sr + col];
+          const float p = ok ? expf(x - lse_s[r]) : 0.f;
           Ps[r * kPS + c] = round_to(p, T());
           dSs[r * kPS + c] = round_to(p * (dp[i][j] - delta_s[r]), T());
         }
@@ -240,7 +256,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kTR; ++i) {
         const int row = q0 + ty + 16 * i;
-        if (row >= sq) continue;
+        if (row >= qv) continue;
         float* dst = dq + ((long)b * sq + row) * q_row + (long)h * D;
 #pragma unroll
         for (int j = 0; j < DC; ++j)
@@ -281,14 +297,15 @@ constexpr size_t tc_smem_bytes() {
          sizeof(float) * 4 * kTcBQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
-                    int sq, int sk, float scale, int causal) {
+                    T* __restrict__ dk, T* __restrict__ dv,
+                    const FlashBranches br, int hq, int hkv, int sq, int sk,
+                    float scale, int causal) {
   static_assert(std::is_same_v<T, bf16>, "the tensor-core path is bf16");
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   static_assert((D / 8) % kColSplit == 0, "dQ columns split evenly");
@@ -313,11 +330,13 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kw = k0 + warp * 16;  // the warp's first key
   const long q_row = (long)hq * D;  // [b, s, h, d] row strides
   const long kv_row = (long)hkv * D;
-  const int off = sk - sq;
+  const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
+  const int off = sv.off, kv = sv.k_valid, qv = sv.q_valid;
   const float sl2 = scale * kLog2e;
 
-  // first q block with a row that sees key k0: row >= k0 - off
-  const int n_qb = (sq + kTcBQ - 1) / kTcBQ;
+  // first q block with a row that sees key k0: row >= k0 - off; none past
+  // q_len, none for a key block past kv_len
+  const int n_qb = !LENS || k0 < kv ? (qv + kTcBQ - 1) / kTcBQ : 0;
   const int lower = causal ? max(k0 - off, 0) / kTcBQ : 0;
   const int per_head = max(n_qb - lower, 0);
   const int items = group * per_head;
@@ -328,14 +347,14 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long bh = (long)b * hq + h;
     bf16* Qs = ring + (it & 1) * 2 * kTcBQ * P;
     const long row0 = ((long)b * sq + q0) * q_row + (long)h * D;
-    ptt::cp_tile<D, kTcBQ, kTcThreads>(Qs, q + row0, q_row, sq - q0, q);
+    ptt::cp_tile<D, kTcBQ, kTcThreads>(Qs, q + row0, q_row, qv - q0, q);
     ptt::cp_tile<D, kTcBQ, kTcThreads>(Qs + kTcBQ * P, dout + row0, q_row,
-                                       sq - q0, dout);
+                                       qv - q0, dout);
     float* st = stats + (it & 1) * 2 * kTcBQ;
     for (int i = threadIdx.x; i < 2 * kTcBQ; i += kTcThreads) {
       const int r = i % kTcBQ;
       const float* src = (i < kTcBQ ? lse : delta);
-      const bool ok = q0 + r < sq;
+      const bool ok = q0 + r < qv;
       ptt::cp_async4(st + i, ok ? src + bh * sq + q0 + r : src, ok);
     }
     ptt::cp_async_commit();
@@ -349,8 +368,8 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (items > 0) {
     const long kv0 = ((long)b * sk + k0) * kv_row + (long)kvh * D;
-    ptt::cp_tile<D, kTcBK, kTcThreads>(Ks, k + kv0, kv_row, sk - k0, k);
-    ptt::cp_tile<D, kTcBK, kTcThreads>(Vs, v + kv0, kv_row, sk - k0, v);
+    ptt::cp_tile<D, kTcBK, kTcThreads>(Ks, k + kv0, kv_row, kv - k0, k);
+    ptt::cp_tile<D, kTcBK, kTcThreads>(Vs, v + kv0, kv_row, kv - k0, v);
     issue(0);  // one group: K, V and item 0
   }
   for (int it = 0; it < items; ++it) {
@@ -367,8 +386,8 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* delta_s = lse_s + kTcBQ;
 
     // the warp's keys are seen by some row of the item (the last row sees
-    // the most keys) and lie before sk
-    if (kw < sk && (!causal || kw <= q0 + kTcBQ - 1 + off)) {
+    // the most keys) and lie before kv
+    if (kw < kv && (!causal || kw <= q0 + kTcBQ - 1 + off)) {
       float s[NQ][4], dp[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -396,6 +415,7 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       // p^T = exp(s - lse) where the key is visible (else 0), in fp32;
       // ds^T = p^T (dp^T - delta)
+      const float* mp = ptt::mask_plane<MASK>(br, b, h);
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -404,9 +424,11 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int c = n * 8 + 2 * t4 + (e & 1);
           const int row = q0 + c;
           const bool ok =
-              key < sk && row < sq && (!causal || key <= row + off);
-          const float p =
-              ok ? exp2f(s[n][e] * sl2 - lse_s[c] * kLog2e) : 0.f;
+              key < kv && row < qv && (!causal || key <= row + off);
+          float x = s[n][e] * sl2 - lse_s[c] * kLog2e;
+          if constexpr (MASK)
+            if (ok) x += mp[row * br.sr + key] * kLog2e;
+          const float p = ok ? exp2f(x) : 0.f;
           s[n][e] = p;
           dp[n][e] = p * (dp[n][e] - delta_s[c]);
         }
@@ -473,7 +495,7 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = q0 + mt * 16 + g + 8 * i;
-        if (row >= sq) continue;
+        if (row >= qv) continue;
         float* dst = dq + ((long)b * sq + row) * q_row + (long)h * D +
                      cp * NW * 8 + 2 * t4;
 #pragma unroll
@@ -500,42 +522,67 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool MASK, bool LENS>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, void* dk,
-              void* dv, int b, int hq, int hkv, int sq, int sk, float scale,
-              int causal, int device, cudaStream_t stream) {
+              void* dv, const FlashBranches& br, int b, int hq, int hkv,
+              int sq, int sk, float scale, int causal, int device,
+              cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_bwd_tc_kernel<bf16, D>>(
+  cudaError_t err = ptt::allow_smem<flash_bwd_tc_kernel<bf16, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hkv, (sk + kTcBK - 1) / kTcBK);
-  flash_bwd_tc_kernel<bf16, D><<<grid, kTcThreads, bytes, stream>>>(
+  flash_bwd_tc_kernel<bf16, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      br, hq, hkv, sq, sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool MASK, bool LENS>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, void* dk, void* dv,
+           const FlashBranches& br, int b, int hq, int hkv, int sq, int sk,
+           float scale, int causal, int device, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<D>();
+  cudaError_t err = ptt::allow_smem<flash_bwd_kernel<T, D, MASK, LENS>>(
+      device, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(b * hkv, (sk + kBK - 1) / kBK);
+  flash_bwd_kernel<T, D, MASK, LENS><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), br,
       hq, hkv, sq, sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, void* dk, void* dv,
-           int b, int hq, int hkv, int sq, int sk, float scale, int causal,
-           int device, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_bwd_kernel<T, D>>(device,
-                                                            (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(b * hkv, (sk + kBK - 1) / kBK);
-  flash_bwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), hq,
-      hkv, sq, sk, scale, causal);
-  return (int)cudaGetLastError();
+// The route of (dtype, d) with the branches given.
+template <bool MASK, bool LENS>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, void* dk,
+             void* dv, const FlashBranches& br, int b, int hq, int hkv,
+             int sq, int sk, int d, float scale, int causal, int dtype,
+             int device, cudaStream_t s) {
+#define PTT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, br, b, hq, hkv, sq, \
+                 sk, scale, causal, device, s
+  if (dtype == 0 && d == 64) return launch<float, 64, MASK, LENS>(PTT_ARGS);
+  if (dtype == 0 && d == 128) return launch<float, 128, MASK, LENS>(PTT_ARGS);
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_tc<32, MASK, LENS>(PTT_ARGS);
+      case 64: return launch_tc<64, MASK, LENS>(PTT_ARGS);
+      case 80: return launch_tc<80, MASK, LENS>(PTT_ARGS);
+      case 96: return launch_tc<96, MASK, LENS>(PTT_ARGS);
+      case 128: return launch_tc<128, MASK, LENS>(PTT_ARGS);
+    }
+  }
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -565,30 +612,28 @@ int ptt_flash_bwd_smem_bytes(int d, int dtype) {
 // q, dout [b, sq, hq, d] and k, v [b, sk, hkv, d] contiguous; lse, delta
 // [b*hq, sq] fp32; dq [b, sq, hq, d] fp32 and ZEROED (the kernel adds into
 // it); dk, dv like k. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16
-// (d 32, 64, 80, 96 or 128, tensor cores).
+// (d 32, 64, 80, 96 or 128, tensor cores). mask and lens as the forward's
+// (ptt_flash_fwd).
 int ptt_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dq, void* dk, void* dv, int b, int hq, int hkv,
-                  int sq, int sk, int d, float scale, int causal, int dtype,
-                  int device, void* stream) {
+                  void* dq, void* dk, void* dv, const void* mask,
+                  long long mask_sb, long long mask_sh, long long mask_sr,
+                  const void* lens, int b, int hq, int hkv, int sq, int sk,
+                  int d, float scale, int causal, int dtype, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const FlashBranches br{static_cast<const float*>(mask), mask_sb, mask_sh,
+                         mask_sr, static_cast<const int*>(lens), b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq, sk, \
-                 scale, causal, device, s
-  if (dtype == 0 && d == 64) return launch<float, 64>(PTT_ARGS);
-  if (dtype == 0 && d == 128) return launch<float, 128>(PTT_ARGS);
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_tc<32>(PTT_ARGS);
-      case 64: return launch_tc<64>(PTT_ARGS);
-      case 80: return launch_tc<80>(PTT_ARGS);
-      case 96: return launch_tc<96>(PTT_ARGS);
-      case 128: return launch_tc<128>(PTT_ARGS);
-    }
-  }
+#define PTT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, br, b, hq, hkv, sq, \
+                 sk, d, scale, causal, dtype, device, s
+  if (mask)
+    return lens ? dispatch<true, true>(PTT_ARGS)
+                : dispatch<true, false>(PTT_ARGS);
+  return lens ? dispatch<false, true>(PTT_ARGS)
+              : dispatch<false, false>(PTT_ARGS);
 #undef PTT_ARGS
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

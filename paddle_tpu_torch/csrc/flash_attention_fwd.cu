@@ -1,14 +1,23 @@
 // Flash attention forward for Hopper (sm_90a): bf16 on the tensor cores,
 // fp32 on the CUDA cores.
 //
-// Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (the
-// causal / no-mask / no-varlen branch): blocked attention with the
-// FlashAttention-2 online softmax, bottom-right causal alignment
-// (row r sees columns <= r + sk - sq), GQA by reading kv head h / group,
-// fully masked rows give out = 0 and lse = 1e30; p is rounded to v's type
-// before p v, as the reference's p.astype(v.dtype). Unlike the Pallas
-// kernel, whose blocks had to divide the sequence, this one masks its own
-// ragged tails, so any sq and sk work.
+// Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel, all of
+// its branches: blocked attention with the FlashAttention-2 online softmax,
+// bottom-right causal alignment (row r sees columns <= r + sk - sq), GQA by
+// reading kv head h / group, fully masked rows give out = 0 and lse = 1e30;
+// p is rounded to v's type before p v, as the reference's
+// p.astype(v.dtype). Unlike the Pallas kernel, whose blocks had to divide
+// the sequence, this one masks its own ragged tails, so any sq and sk work.
+// The mask and varlen branches (flash_branches.cuh) are template flags of
+// every kernel, so the instantiation without them is the kernel of before
+// the branches. MASK: each key tile's additive fp32 bias is added to the
+// fp32 scores of the rows and keys the causal and length masks keep, in
+// the masked-tile path, which every tile then takes. LENS: the lengths are
+// read once a block; kv_len clips the key tiles and zero-fills K / V past
+// it, the causal offset becomes kv_len - q_len, a block past q_len walks
+// no key, and rows past q_len are written as zeros with lse = 1e30. (One
+// runtime flag for both ran the masked forward 1.5x slower and the plain
+// one 4-9% slower: the branch code and its registers stayed in the loop.)
 //
 // What bounds it on the H100: at the flagship training shape [8, 1024, 12,
 // 128] causal in bf16, q, k, v and out are 100.7 MB, 0.030 ms at 3.35 TB/s,
@@ -48,10 +57,12 @@
 // tile and the score tile in shared memory as fp32; each thread owns an
 // 8 x 4 score tile and an 8 x (d / 16) output tile.
 #include "common.cuh"
+#include "flash_branches.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ptt::FlashBranches;
 using ptt::load_rows;
 using ptt::store;
 
@@ -71,12 +82,12 @@ constexpr size_t smem_bytes() {
          (2 * kBQ * (D + 1) + kBK * D + kBQ * kSS + 3 * kBQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                 float scale, int causal) {
+                 float* __restrict__ lse, const FlashBranches br, int hq,
+                 int hkv, int sq, int sk, float scale, int causal) {
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -99,7 +110,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + (long)b * sq * q_row + (long)h * D;
   const T* kb = k + (long)b * sk * kv_row + (long)kvh * D;
   const T* vb = v + (long)b * sk * kv_row + (long)kvh * D;
-  const int off = sk - sq;
+  const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
+  const int off = sv.off, kv = sv.k_valid;
+  const float* mp = ptt::mask_plane<MASK>(br, b, h);
 
   const auto q_off = [=](int r) { return (q0 + r) * q_row; };
   const auto kv_off = [=](int r) { return r * kv_row; };
@@ -113,10 +126,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_m[tid] = kNegInf;
     row_l[tid] = 0.f;
   }
-  int n_tiles = (sk + kBK - 1) / kBK;
+  int n_tiles = !LENS || q0 < sv.q_valid ? (kv + kBK - 1) / kBK : 0;
   if (causal) {
     // columns the block's last valid row may see (bottom-right aligned)
-    const int last = min(q0 + kBQ, sq) - 1;
+    const int last = min(q0 + kBQ, sv.q_valid) - 1;
     const int visible = last + off + 1;
     n_tiles = min(n_tiles, visible > 0 ? (visible + kBK - 1) / kBK : 0);
   }
@@ -134,7 +147,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* src[2] = {kb + k0 * kv_row, vb + k0 * kv_row};
       float* dst[2] = {Ks, Vs};
       const int pitch[2] = {D + 1, D};
-      load_rows<T, D, 4>(src, dst, pitch, kv_off, kBK, sk - k0);
+      load_rows<T, D, 4>(src, dst, pitch, kv_off, kBK, kv - k0);
     }
     __syncthreads();
     // scores: rows rg*8 + i, columns cg + 16*j
@@ -161,8 +174,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kTC; ++j) {
         const int c = cg + 16 * j;
         const int col = k0 + c;
-        const bool ok = col < sk && (!causal || col <= q0 + r + off);
-        Ss[r * kSS + c] = ok ? s[i][j] * scale : kNegInf;
+        const bool ok = col < kv && (!causal || col <= q0 + r + off);
+        float x = s[i][j] * scale;
+        if constexpr (MASK)
+          if (ok && q0 + r < sq)
+            x += mp[(q0 + r) * br.sr + col];
+        Ss[r * kSS + c] = ok ? x : kNegInf;
       }
     }
     __syncthreads();
@@ -218,11 +235,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r;
     if (row >= sq) continue;
     const float m = row_m[r], l = row_l[r];
-    const bool invalid = m <= kNegInf * 0.5f || l == 0.f;
+    // rows past q_len: zeros whatever their padding held
+    const bool dead = LENS && row >= sv.q_valid;
+    const bool invalid = dead || m <= kNegInf * 0.5f || l == 0.f;
     const float inv = invalid ? 0.f : 1.f / l;
     T* o = out + (long)b * sq * q_row + (long)row * q_row + (long)h * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(o + cg + 16 * j, acc[i][j] * inv);
+    for (int j = 0; j < DC; ++j)
+      store(o + cg + 16 * j, dead ? 0.f : acc[i][j] * inv);
     if (cg == 0) lse[(long)bh * sq + row] = invalid ? kLseInvalid : m + logf(l);
   }
 }
@@ -237,17 +257,21 @@ constexpr float kLn2 = 0.6931471805599453f;
 // One key tile of the online softmax for a warp's 16 rows (rows r0 + g and
 // r0 + g + 8 of this lane): s holds the raw scores of keys k0 .. k0 + 63 in
 // C-fragment layout. Scales them to log2 units, masks the causal diagonal
-// and the key tail (masked: this tile crosses either), updates the running
-// max m and this lane's share of the running sum l, rescales o, and leaves
-// P rounded to bf16 in pf, the A fragments of P V.
-template <int NO>
+// and the keys from kv (the tail or kv_len) and adds the bias of the kept
+// ones (rows < sq) from the mask plane mp, if any (masked: this tile
+// crosses the diagonal or kv, or has a bias), updates the running max m
+// and this lane's share of the running sum l, rescales o, and leaves P
+// rounded to bf16 in pf, the A fragments of P V.
+template <int NO, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
                                              float (&o)[NO][4],
                                              float (&m)[2], float (&l)[2],
                                              uint32_t (&pf)[4][4],
                                              bool masked, int r0, int k0,
-                                             int sk, int off, int causal,
-                                             float scale_log2) {
+                                             int kv, int off, int causal,
+                                             float scale_log2,
+                                             const float* mp, long long sr,
+                                             int sq) {
   const int g = (threadIdx.x % 32) >> 2, t4 = threadIdx.x & 3;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -258,7 +282,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
       if (masked) {
         const int row = r0 + g + (e >> 1) * 8;
         const int col = k0 + n * 8 + 2 * t4 + (e & 1);
-        if (col >= sk || (causal && col > row + off)) x = kNegInf;
+        if (col >= kv || (causal && col > row + off))
+          x = kNegInf;
+        else if constexpr (MASK)
+          if (row < sq) x += mp[row * sr + col] * kLog2e;
       }
       s[n][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -288,14 +315,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
 }
 
 // The warp's 16 rows of out (bf16) and lse after the last tile: one
-// divide by l; rows whose running max never left NEG_INF saw no key and
-// get zeros and LSE_INVALID.
-template <int D>
+// divide by l; rows whose running max never left NEG_INF saw no key, and
+// with LENS rows from q_valid, get zeros and LSE_INVALID.
+template <int D, bool LENS>
 __device__ __forceinline__ void store_rows(float (&o)[D / 8][4],
                                            float (&m)[2], float (&l)[2],
                                            bf16* out, float* lse, int r0,
-                                           int sq, long q_row, long row_base,
-                                           long lse_base) {
+                                           int sq, int q_valid, long q_row,
+                                           long row_base, long lse_base) {
   const int g = (threadIdx.x % 32) >> 2, t4 = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -303,25 +330,32 @@ __device__ __forceinline__ void store_rows(float (&o)[D / 8][4],
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = r0 + g + 8 * i;
     if (row >= sq) continue;
-    const bool invalid = m[i] <= kNegInf * 0.5f || l[i] == 0.f;
+    // rows past q_len: zeros whatever their padding held
+    const bool dead = LENS && row >= q_valid;
+    const bool invalid = dead || m[i] <= kNegInf * 0.5f || l[i] == 0.f;
     const float inv = invalid ? 0.f : 1.f / l[i];
     bf16* dst = out + row_base + (long)row * q_row + 2 * t4;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          ptt::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+          dead ? 0u
+               : ptt::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     if (t4 == 0)
       lse[lse_base + row] =
           invalid ? kLseInvalid : (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
-// Key tiles the block walks: up to the columns its last valid row may see
-// (bottom-right aligned) under causal masking.
-__device__ __forceinline__ int key_tiles(int q0, int sq, int sk, int causal) {
-  int n = (sk + kBK16 - 1) / kBK16;
+// Key tiles the block walks: with LENS none past q_valid; up to kv and
+// under causal masking up to the columns its last valid row may see
+// (bottom-right aligned).
+template <bool LENS>
+__device__ __forceinline__ int key_tiles(int q0, const ptt::SeqView& sv,
+                                         int causal) {
+  if (LENS && q0 >= sv.q_valid) return 0;
+  int n = (sv.k_valid + kBK16 - 1) / kBK16;
   if (causal) {
-    const int visible = min(q0 + kBQ16, sq) + sk - sq;
+    const int visible = min(q0 + kBQ16, sv.q_valid) + sv.off;
     n = min(n, visible > 0 ? (visible + kBK16 - 1) / kBK16 : 0);
   }
   return n;
@@ -337,12 +371,12 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * (kBQ16 + 4 * kBK16) * (D + 8);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
-                    float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                    float scale_log2, int causal) {
+                    float* __restrict__ lse, const FlashBranches br, int hq,
+                    int hkv, int sq, int sk, float scale_log2, int causal) {
   static_assert(std::is_same_v<T, bf16>, "the tensor-core path is bf16");
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int P = D + 8;   // shared row pitch, bf16 elements
@@ -361,9 +395,11 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bf16* qb = q + (long)b * sq * q_row + (long)h * D;
   const bf16* kb = k + (long)b * sk * kv_row + (long)kvh * D;
   const bf16* vb = v + (long)b * sk * kv_row + (long)kvh * D;
-  const int off = sk - sq;
+  const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
+  const int off = sv.off, kv = sv.k_valid;
+  const float* mp = ptt::mask_plane<MASK>(br, b, h);
   const int r0 = q0 + warp * 16;  // the warp's first row
-  const int n_tiles = key_tiles(q0, sq, sk, causal);
+  const int n_tiles = key_tiles<LENS>(q0, sv, causal);
 
   float o[D / 8][4];
 #pragma unroll
@@ -376,9 +412,9 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     bf16* Ks = ring + (t & 1) * 2 * kBK16 * P;
     const int k0 = t * kBK16;
     ptt::cp_tile<D, kBK16, kTcThreads>(Ks, kb + k0 * kv_row, kv_row,
-                                       sk - k0, kb);
+                                       kv - k0, kb);
     ptt::cp_tile<D, kBK16, kTcThreads>(Ks + kBK16 * P, vb + k0 * kv_row,
-                                       kv_row, sk - k0, vb);
+                                       kv_row, kv - k0, vb);
     ptt::cp_async_commit();
   };
 
@@ -422,9 +458,11 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     uint32_t pf[4][4];
-    softmax_tile(s, o, m, l, pf,
-                 (causal && k0 + kBK16 - 1 > r0 + off) || k0 + kBK16 > sk,
-                 r0, k0, sk, off, causal, scale_log2);
+    softmax_tile<D / 8, MASK>(
+        s, o, m, l, pf,
+        MASK || (causal && k0 + kBK16 - 1 > r0 + off) ||
+            k0 + kBK16 > kv,
+        r0, k0, kv, off, causal, scale_log2, mp, br.sr, sq);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -437,23 +475,24 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  store_rows<D>(o, m, l, out, lse, r0, sq, q_row,
+  store_rows<D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
                 (long)b * sq * q_row + (long)h * D, (long)bh * sq);
 }
 
-template <int D>
+template <int D, bool MASK, bool LENS>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              void* lse, int b, int hq, int hkv, int sq, int sk, float scale,
-              int causal, int device, cudaStream_t stream) {
+              void* lse, const FlashBranches& br, int b, int hq, int hkv,
+              int sq, int sk, float scale, int causal, int device,
+              cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_fwd_tc_kernel<bf16, D>>(
+  cudaError_t err = ptt::allow_smem<flash_fwd_tc_kernel<bf16, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hq, (sq + kBQ16 - 1) / kBQ16);
-  flash_fwd_tc_kernel<bf16, D><<<grid, kTcThreads, bytes, stream>>>(
+  flash_fwd_tc_kernel<bf16, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), hq, hkv, sq, sk, scale * kLog2e, causal);
+      static_cast<float*>(lse), br, hq, hkv, sq, sk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -488,12 +527,12 @@ __device__ __forceinline__ void cp_tile_sw128(bf16* dst, const bf16* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
-                    float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                    float scale_log2, int causal) {
+                    float* __restrict__ lse, const FlashBranches br, int hq,
+                    int hkv, int sq, int sk, float scale_log2, int causal) {
   static_assert(std::is_same_v<T, bf16>, "the warpgroup path is bf16");
   static_assert(D % 64 == 0, "the 128-byte swizzle needs d % 64 == 0");
   constexpr int KS = D / 16;  // k-steps of Q K^T
@@ -512,10 +551,12 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bf16* qb = q + (long)b * sq * q_row + (long)h * D;
   const bf16* kb = k + (long)b * sk * kv_row + (long)kvh * D;
   const bf16* vb = v + (long)b * sk * kv_row + (long)kvh * D;
-  const int off = sk - sq;
+  const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
+  const int off = sv.off, kv = sv.k_valid;
+  const float* mp = ptt::mask_plane<MASK>(br, b, h);
   const int rg = q0 + 64 * wg;    // the warpgroup's first row
   const int r0 = rg + 16 * warp;  // this warp's first row
-  const int n_tiles = key_tiles(q0, sq, sk, causal);
+  const int n_tiles = key_tiles<LENS>(q0, sv, causal);
 
   float o[D / 8][4];
 #pragma unroll
@@ -527,9 +568,9 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const auto load_kv = [&](int t) {
     bf16* Ks = ring + (t & 1) * 2 * kBK16 * D;
     const int k0 = t * kBK16;
-    cp_tile_sw128<D, kBK16>(Ks, kb + k0 * kv_row, kv_row, sk - k0, kb);
+    cp_tile_sw128<D, kBK16>(Ks, kb + k0 * kv_row, kv_row, kv - k0, kb);
     cp_tile_sw128<D, kBK16>(Ks + kBK16 * D, vb + k0 * kv_row, kv_row,
-                            sk - k0, vb);
+                            kv - k0, vb);
     ptt::cp_async_commit();
   };
 
@@ -569,9 +610,11 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ptt::wgmma_wait<0>();
     ptt::fence_operands(s);
     uint32_t pf[4][4];
-    softmax_tile(s, o, m, l, pf,
-                 (causal && k0 + kBK16 - 1 > r0 + off) || k0 + kBK16 > sk,
-                 r0, k0, sk, off, causal, scale_log2);
+    softmax_tile<D / 8, MASK>(
+        s, o, m, l, pf,
+        MASK || (causal && k0 + kBK16 - 1 > r0 + off) ||
+            k0 + kBK16 > kv,
+        r0, k0, kv, off, causal, scale_log2, mp, br.sr, sq);
     ptt::wgmma_fence();
     // V as the transposed (MN-major) B: key blocks 2 kk, 2 kk + 1 (1,024
     // bytes apart), column blocks 8 atoms apart
@@ -584,40 +627,64 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ptt::wgmma_wait<0>();
     ptt::fence_operands(o);
   }
-  store_rows<D>(o, m, l, out, lse, r0, sq, q_row,
+  store_rows<D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
                 (long)b * sq * q_row + (long)h * D, (long)bh * sq);
 }
 
-template <int D>
+template <int D, bool MASK, bool LENS>
 int launch_wg(const void* q, const void* k, const void* v, void* out,
-              void* lse, int b, int hq, int hkv, int sq, int sk, float scale,
-              int causal, int device, cudaStream_t stream) {
+              void* lse, const FlashBranches& br, int b, int hq, int hkv,
+              int sq, int sk, float scale, int causal, int device,
+              cudaStream_t stream) {
   constexpr size_t bytes = wg_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_fwd_wg_kernel<bf16, D>>(
+  cudaError_t err = ptt::allow_smem<flash_fwd_wg_kernel<bf16, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hq, (sq + kBQ16 - 1) / kBQ16);
-  flash_fwd_wg_kernel<bf16, D><<<grid, kWgThreads, bytes, stream>>>(
+  flash_fwd_wg_kernel<bf16, D, MASK, LENS><<<grid, kWgThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), hq, hkv, sq, sk, scale * kLog2e, causal);
+      static_cast<float*>(lse), br, hq, hkv, sq, sk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool LENS>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int b, int hq, int hkv, int sq, int sk, float scale, int causal,
-           int device, cudaStream_t stream) {
+           const FlashBranches& br, int b, int hq, int hkv, int sq, int sk,
+           float scale, int causal, int device, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_fwd_kernel<T, D>>(device,
-                                                            (int)bytes);
+  cudaError_t err = ptt::allow_smem<flash_fwd_kernel<T, D, MASK, LENS>>(
+      device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<T, D, MASK, LENS><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), hq, hkv, sq, sk, scale, causal);
+      static_cast<float*>(lse), br, hq, hkv, sq, sk, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// The route of (dtype, d) with the branches given.
+template <bool MASK, bool LENS>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, const FlashBranches& br, int b, int hq, int hkv,
+             int sq, int sk, int d, float scale, int causal, int dtype,
+             int device, cudaStream_t s) {
+#define PTT_ARGS q, k, v, out, lse, br, b, hq, hkv, sq, sk, scale, causal, \
+                 device, s
+  if (dtype == 0 && d == 64) return launch<float, 64, MASK, LENS>(PTT_ARGS);
+  if (dtype == 0 && d == 128) return launch<float, 128, MASK, LENS>(PTT_ARGS);
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_tc<32, MASK, LENS>(PTT_ARGS);
+      case 64: return launch_tc<64, MASK, LENS>(PTT_ARGS);
+      case 80: return launch_tc<80, MASK, LENS>(PTT_ARGS);
+      case 96: return launch_tc<96, MASK, LENS>(PTT_ARGS);
+      case 128: return launch_wg<128, MASK, LENS>(PTT_ARGS);
+    }
+  }
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -646,29 +713,28 @@ int ptt_flash_smem_bytes(int d, int dtype) {
 
 // q [b, sq, hq, d], k/v [b, sk, hkv, d] contiguous; out like q; lse
 // [b*hq, sq] fp32. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16
-// (d 32, 64, 80 or 96 on mma.sync, d 128 on wgmma).
+// (d 32, 64, 80 or 96 on mma.sync, d 128 on wgmma). mask: nullptr or fp32
+// with element (b, h, r, c) at b * mask_sb + h * mask_sh + r * mask_sr + c
+// (strides 0 on broadcast dims); lens: nullptr or int32 [2, b] (q_len;
+// kv_len).
 int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                  void* lse, int b, int hq, int hkv, int sq, int sk, int d,
-                  float scale, int causal, int dtype, int device,
-                  void* stream) {
+                  void* lse, const void* mask, long long mask_sb,
+                  long long mask_sh, long long mask_sr, const void* lens,
+                  int b, int hq, int hkv, int sq, int sk, int d, float scale,
+                  int causal, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const FlashBranches br{static_cast<const float*>(mask), mask_sb, mask_sh,
+                         mask_sr, static_cast<const int*>(lens), b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_ARGS q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal, \
-                 device, s
-  if (dtype == 0 && d == 64) return launch<float, 64>(PTT_ARGS);
-  if (dtype == 0 && d == 128) return launch<float, 128>(PTT_ARGS);
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_tc<32>(PTT_ARGS);
-      case 64: return launch_tc<64>(PTT_ARGS);
-      case 80: return launch_tc<80>(PTT_ARGS);
-      case 96: return launch_tc<96>(PTT_ARGS);
-      case 128: return launch_wg<128>(PTT_ARGS);
-    }
-  }
+#define PTT_ARGS q, k, v, out, lse, br, b, hq, hkv, sq, sk, d, scale, causal, \
+                 dtype, device, s
+  if (mask)
+    return lens ? dispatch<true, true>(PTT_ARGS)
+                : dispatch<true, false>(PTT_ARGS);
+  return lens ? dispatch<false, true>(PTT_ARGS)
+              : dispatch<false, false>(PTT_ARGS);
 #undef PTT_ARGS
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

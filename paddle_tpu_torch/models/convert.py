@@ -10,6 +10,12 @@ Serving params cross as the reference's serving pytree in numpy, fp or
 weight-only quantized, dense or with MoE expert stacks ``[L, E, ...]``, bit
 for bit (:func:`serving_params_from_jax_numpy`).
 
+BERT weights (``models/bert.py``) cross the same way, under the names of
+the reference's ``BertForPretraining`` / ``BertForSequenceClassification``
+(the MLM decoder is the word embeddings, one tensor under one name):
+:func:`bert_from_jax_numpy`, :func:`bert_to_numpy` (the inverse, for
+weights and gradients), :func:`random_bert_state`.
+
 Training params (``models/gpt_spmd.py``) cross as the reference's
 ``gpt_spmd.init_params`` pytree in numpy: the same keys, with the stage
 leaves ``[pp, L/pp, ...]`` on the reference's side and ``[L, ...]`` on the
@@ -23,6 +29,7 @@ import torch
 from .._device import resolve_device
 
 from . import gpt_spmd
+from .bert import BertConfig, BertForPretraining, BertForSequenceClassification
 from .gpt import GPTConfig, GPTForCausalLM
 
 
@@ -31,7 +38,13 @@ def state_from_jax_numpy(named: dict, config: GPTConfig, *, device=None,
     """A ``GPTForCausalLM`` on ``device`` holding exactly ``named``'s
     weights (cast to ``dtype``). Raises on any missing, extra or wrongly
     shaped key."""
-    model = GPTForCausalLM(config, device=device, dtype=dtype)
+    return _load_named(GPTForCausalLM(config, device=device, dtype=dtype),
+                       named, dtype)
+
+
+def _load_named(model, named: dict, dtype):
+    """``model`` with exactly ``named``'s weights (cast to ``dtype``).
+    Raises on any missing, extra or wrongly shaped key."""
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     missing = sorted(set(want) - set(named))
     extra = sorted(set(named) - set(want))
@@ -48,6 +61,75 @@ def state_from_jax_numpy(named: dict, config: GPTConfig, *, device=None,
     model.load_state_dict({k: torch.as_tensor(np.asarray(v)).to(dev, dtype)
                            for k, v in named.items()})
     return model
+
+
+def bert_from_jax_numpy(named: dict, config: BertConfig, *, device=None,
+                        dtype=torch.float32):
+    """The port's BERT on ``device`` holding exactly ``named``'s weights
+    (the reference's ``_named_state`` as numpy, cast to ``dtype``): a
+    ``BertForPretraining`` when ``named`` has the pretraining heads
+    (``cls.*``), else a ``BertForSequenceClassification`` with as many
+    classes as ``classifier.bias`` has. Raises on any missing, extra or
+    wrongly shaped key."""
+    if "cls.decoder_bias" in named:
+        model = BertForPretraining(config, device=device, dtype=dtype)
+    else:
+        model = BertForSequenceClassification(
+            config, len(np.asarray(named["classifier.bias"])), device=device,
+            dtype=dtype)
+    return _load_named(model, named, dtype)
+
+
+def bert_to_numpy(tensors: dict) -> dict:
+    """The inverse of :func:`bert_from_jax_numpy`: ``{name: tensor}`` (a
+    model's ``state_dict()``, or its parameters' gradients by name) as fp32
+    numpy under the same names, the reference's."""
+    return {k: t.detach().float().cpu().numpy() for k, t in tensors.items()}
+
+
+def random_bert_state(config: BertConfig, seed: int = 0,
+                      num_classes: int | None = None) -> dict:
+    """Seeded numpy BERT weights under the reference's names and init
+    scheme: N(0, initializer_range) embeddings and weight matrices, zero
+    biases, unit LN scales; the pretraining heads, or with ``num_classes``
+    the sequence classifier."""
+    rng = np.random.default_rng(seed)
+    h, f, std = (config.hidden_size, config.intermediate_size,
+                 config.initializer_range)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * std
+
+    def ln(prefix):
+        return {prefix + ".weight": np.ones(h, np.float32),
+                prefix + ".bias": np.zeros(h, np.float32)}
+
+    def linear(prefix, i, o):
+        return {prefix + ".weight": normal(i, o),
+                prefix + ".bias": np.zeros(o, np.float32)}
+
+    e = "bert.embeddings."
+    out = {e + "word_embeddings.weight": normal(config.vocab_size, h),
+           e + "position_embeddings.weight":
+               normal(config.max_position_embeddings, h),
+           e + "token_type_embeddings.weight":
+               normal(config.type_vocab_size, h),
+           **ln(e + "layer_norm")}
+    for i in range(config.num_layers):
+        p = f"bert.encoder.{i}."
+        out.update({**linear(p + "attention.qkv", h, 3 * h),
+                    **linear(p + "attention.out", h, h), **ln(p + "ln1"),
+                    **linear(p + "fc1", h, f), **linear(p + "fc2", f, h),
+                    **ln(p + "ln2")})
+    out.update(linear("bert.pooler.dense", h, h))
+    if num_classes is None:
+        out.update({"cls.decoder_bias": np.zeros(config.vocab_size,
+                                                 np.float32),
+                    **linear("cls.transform", h, h), **ln("cls.layer_norm"),
+                    **linear("cls.seq_relationship", h, 2)})
+    else:
+        out.update(linear("classifier", h, num_classes))
+    return out
 
 
 def random_state(config: GPTConfig, seed: int = 0) -> dict:

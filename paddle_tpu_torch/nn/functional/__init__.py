@@ -1,3 +1,3 @@
-from .attention import scaled_dot_product_attention
+from .attention import flash_attn_unpadded, scaled_dot_product_attention
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["flash_attn_unpadded", "scaled_dot_product_attention"]

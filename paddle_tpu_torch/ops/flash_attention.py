@@ -1,5 +1,6 @@
 """Flash attention, forward and backward — the attention kernels of the
-full forward and of the training step.
+full forward, of the training steps and of the encoders' masked and
+varlen attention.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py``: the public layout is
 paddle's ``[batch, seq, heads, head_dim]``; causal masking is aligned
@@ -8,29 +9,44 @@ bottom-right (row ``r`` sees keys ``<= r + sk - sq``); GQA reads kv head
 ``lse`` and ``delta`` are ``[batch * hq, 1, sq]`` fp32, the shapes
 ``_flash_fwd_impl`` / ``flash_bwd_impl`` use.
 
+Two optional branches, as in the reference's kernels:
+
+- ``mask``: an additive bias ``[1|b, 1|hq, 1|sq, sk]`` (:func:`flash_attention`
+  turns a bool mask into ``0 / NEG_INF`` and lifts 2-D and 3-D masks to
+  4-D; :func:`mask_kernel_compatible` says which shapes stream), added in
+  fp32 to the scores after the causal mask. It gets no gradient.
+- ``lens``: per-sequence ``(q_len, kv_len)``, an int32 ``[2, batch]``
+  tensor (built from ``q_seqlens`` / ``kv_seqlens``): keys at ``kv_len`` and
+  beyond are masked, causal attention is aligned bottom-right per sequence
+  (row ``r`` sees keys ``<= r + kv_len - q_len``), and rows at ``q_len`` and
+  beyond give zeros and ``LSE_INVALID``, so they get no gradient.
+
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` (or
 raise): bf16 on the tensor cores at head_dim 32, 64, 80, 96 and 128 (the
-widths of the reference's ``GPT_CONFIGS``), fp32 on the CUDA cores at 64
-and 128 (tensor cores would make it TF32). On a CPU tensor they run
+widths of the reference's ``GPT_CONFIGS`` and ``BERT_CONFIGS``), fp32 on
+the CUDA cores at 64 and 128 (tensor cores would make it TF32); each
+instantiated with and without each branch (template flags ``MASK`` and
+``LENS``, so the call with neither runs the kernel of before them): the
+mask read in fp32 with a stride of 0 on each broadcast dim, lens once a
+block. On a CPU tensor they run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
 The bf16 forward kernel rounds ``p`` to bf16 before ``p v`` per key tile, as
 the reference's kernel does; the dense twin keeps ``p`` in fp32.
 :func:`flash_attention` is differentiable on both: one custom op
 (``paddle_tpu_torch::flash_attention``) whose forward runs the forward
-wrapper and saves ``(q, k, v, out, lse)``,
+wrapper and saves ``(q, k, v, out, lse)`` with the mask and lens,
 and whose backward forms ``delta = rowsum(do * out)`` in fp32 and runs the
 backward wrapper. Being one op, selective activation checkpointing can keep
-its ``out`` and ``lse`` (``models/gpt_spmd.py``, ``remat_save_attn``). The
-additive ``mask`` and the varlen ``q_seqlens`` / ``kv_seqlens`` branches are
-later slices and raise. :func:`kernel_takes` says, before any launch,
-whether the built kernels take a call; the callers route the rest to plain
-attention.
+its ``out`` and ``lse`` (``models/gpt_spmd.py``, ``remat_save_attn``).
+:func:`kernel_takes` says, before any launch, whether the built kernels
+take a call; the callers route the rest to plain attention.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -45,13 +61,17 @@ _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# the optional branches: mask pointer, its batch / head / row strides in
+# elements (0 on a broadcast dim), lens pointer
+_BRANCHES = [_P, _L, _L, _L, _P]
 _SIGNATURES = {
-    "ptt_flash_fwd": [_P] * 5 + [_I] * 6
+    "ptt_flash_fwd": [_P] * 5 + _BRANCHES + [_I] * 6
     + [ctypes.c_float, _I, _I, _I, _P],
     "ptt_flash_smem_bytes": [_I, _I],
 }
 _BWD_SIGNATURES = {
-    "ptt_flash_bwd": [_P] * 9 + [_I] * 6
+    "ptt_flash_bwd": [_P] * 9 + _BRANCHES + [_I] * 6
     + [ctypes.c_float, _I, _I, _I, _P],
     "ptt_flash_bwd_smem_bytes": [_I, _I],
 }
@@ -71,9 +91,91 @@ def bwd_smem_bytes(d: int, dtype=torch.bfloat16) -> int:
         d, _build.dtype_code(dtype, "flash attention"))
 
 
-def flash_attention_reference(q, k, v, causal=False, scale=None):
-    """Dense twin of the kernel: fp32 scores masked with ``NEG_INF``,
-    softmax, rows that see no key zeroed with ``lse = LSE_INVALID``.
+def mask_kernel_compatible(mask_shape, b, hq, sq, sk) -> bool:
+    """Whether a (normalized, 4-D) additive mask streams into the kernels:
+    every dim broadcastable (1 or full), except sk which must be full."""
+    if len(mask_shape) != 4:
+        return False
+    mb, mh, msq, msk = mask_shape
+    return mb in (1, b) and mh in (1, hq) and msq in (1, sq) and msk == sk
+
+
+def lift_mask_shape(shape) -> tuple:
+    """A mask shape lifted to 4-D as the reference lifts it: ``[sq, sk]``
+    -> ``[1, 1, sq, sk]``, ``[b, sq, sk]`` -> ``[b, 1, sq, sk]``; other
+    ranks unchanged."""
+    shape = tuple(shape)
+    if len(shape) == 2:
+        return (1, 1) + shape
+    if len(shape) == 3:
+        return (shape[0], 1) + shape[1:]
+    return shape
+
+
+def normalize_mask(mask, q, sk):
+    """The reference's mask normalization: bool -> ``0 / NEG_INF`` in q's
+    dtype, 2-D and 3-D masks lifted by :func:`lift_mask_shape`. Raises
+    ``ValueError`` for a shape the kernels cannot stream."""
+    b, sq, hq, _ = q.shape
+    if mask.dtype == torch.bool:
+        mask = torch.where(mask, 0.0, NEG_INF).to(q.dtype)
+    mask = mask.reshape(lift_mask_shape(mask.shape))
+    if not mask_kernel_compatible(tuple(mask.shape), b, hq, sq, sk):
+        raise ValueError(
+            f"flash_attention: mask shape {tuple(mask.shape)} not supported "
+            f"in-kernel (want broadcastable [{{1|{b}}}, {{1|{hq}}}, "
+            f"{{1|{sq}}}, {sk}]); use the reference attention path for "
+            "other shapes")
+    return mask
+
+
+def seq_lens(q_seqlens, kv_seqlens, b, sq, sk, device):
+    """The ``[2, b]`` int32 ``(q_len; kv_len)`` tensor of the varlen branch
+    (a missing side is full length), or None when neither is given."""
+    if q_seqlens is None and kv_seqlens is None:
+        return None
+
+    def side(lens, full):
+        if lens is None:
+            return torch.full((b,), full, dtype=torch.int32, device=device)
+        lens = torch.as_tensor(lens, device=device)
+        if tuple(lens.shape) != (b,):
+            raise ValueError(f"flash_attention: varlen lengths must be [{b}]"
+                             f", got {tuple(lens.shape)}")
+        return lens.to(torch.int32)
+
+    return torch.stack([side(q_seqlens, sq), side(kv_seqlens, sk)])
+
+
+def _scores_masked(s, b, sq, sk, causal, mask, lens):
+    """The fp32 scores ``s [b, hq, sq, sk]`` with the kernels' masking:
+    causal (bottom-right, per sequence under lens) and keys past kv_len to
+    ``NEG_INF``, then the additive mask; plus the ``[b, 1, sq, 1]`` rows at
+    or past q_len (None without lens)."""
+    dev = s.device
+    rows = torch.arange(sq, device=dev).reshape(1, 1, -1, 1)
+    cols = torch.arange(sk, device=dev).reshape(1, 1, 1, -1)
+    dead_rows = None
+    if lens is not None:
+        ql = lens[0].long().reshape(b, 1, 1, 1)
+        kl = lens[1].long().reshape(b, 1, 1, 1)
+        keep = cols < kl
+        if causal:
+            keep = keep & (cols <= rows + (kl - ql))
+        s = torch.where(keep, s, NEG_INF)
+        dead_rows = rows >= ql
+    elif causal:
+        s = torch.where(cols <= rows + (sk - sq), s, NEG_INF)
+    if mask is not None:
+        s = s + mask.float()
+    return s, dead_rows
+
+
+def flash_attention_reference(q, k, v, causal=False, scale=None, mask=None,
+                              lens=None):
+    """Dense twin of the kernel: fp32 scores masked with ``NEG_INF``, the
+    additive ``mask`` added, softmax; rows that see no key, and rows at or
+    past q_len under ``lens``, zeroed with ``lse = LSE_INVALID``.
     Returns ``(out [b, sq, hq, d] in q's dtype, lse [b*hq, 1, sq] fp32)``."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -83,15 +185,14 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
     qh = q.float().transpose(1, 2)                              # [b,hq,sq,d]
     kh = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vh = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    s = (qh @ kh.transpose(-1, -2)) * scale
-    if causal:
-        rows = torch.arange(sq, device=q.device).reshape(-1, 1)
-        cols = torch.arange(sk, device=q.device).reshape(1, -1)
-        s = torch.where(cols <= rows + (sk - sq), s, NEG_INF)
+    s, dead_rows = _scores_masked((qh @ kh.transpose(-1, -2)) * scale, b,
+                                  sq, sk, causal, mask, lens)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     invalid = (m <= NEG_INF * 0.5) | (l == 0.0)
+    if dead_rows is not None:
+        invalid = invalid | dead_rows
     l_safe = torch.where(invalid, 1.0, l)
     out = torch.where(invalid, 0.0, (p @ vh) / l_safe)
     lse = torch.where(invalid, LSE_INVALID, m + torch.log(l_safe))
@@ -103,7 +204,8 @@ def kernel_takes(q, k) -> bool:
     """Whether the built kernels run attention of ``q [b, sq, hq, d]``
     over ``k [b, sk, hkv, d]``: CUDA tensors, a dtype of
     :data:`HEAD_DIMS` with head_dim among its widths, ``hq % hkv == 0``.
-    Decided from shape, dtype and device alone, before any launch."""
+    Decided from shape, dtype and device alone, before any launch (a mask
+    also needs :func:`mask_kernel_compatible`)."""
     return (q.device.type == "cuda" and k.device == q.device
             and q.shape[-1] in HEAD_DIMS.get(q.dtype, ())
             and k.dtype == q.dtype and q.shape[2] % k.shape[2] == 0)
@@ -132,20 +234,49 @@ def _check_cuda_inputs(q, *rest):
     return code
 
 
-def _launch_cuda(q, k, v, causal, scale):
+def _branch_args(q, sk, mask, lens):
+    """The C entries' optional-branch arguments (mask pointer and strides,
+    lens pointer) and the fp32 mask they point into (kept alive by the
+    caller until the launch is queued)."""
+    b = q.shape[0]
+    m = None
+    strides = (0, 0, 0)
+    if mask is not None:
+        m = normalize_mask(mask, q, sk).to(q.device,
+                                           torch.float32).contiguous()
+        mb, mh, msq, _ = m.shape
+        strides = (0 if mb == 1 else mh * msq * sk,
+                   0 if mh == 1 else msq * sk, 0 if msq == 1 else sk)
+    if lens is not None:
+        if (lens.dtype != torch.int32 or tuple(lens.shape) != (2, b)
+                or lens.device != q.device or not lens.is_contiguous()):
+            raise ValueError(f"flash attention: lens must be a contiguous "
+                             f"int32 [2, {b}] tensor on {q.device}, got "
+                             f"{lens.dtype} {tuple(lens.shape)} on "
+                             f"{lens.device}")
+    return m, [None if m is None else m.data_ptr(), *strides,
+               None if lens is None else lens.data_ptr()]
+
+
+def _launch_cuda(q, k, v, causal, scale, mask, lens):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     code = _check_cuda_inputs(q, k, v)
+    m, branches = _branch_args(q, sk, mask, lens)
     lib = _build.load(_KERNEL, _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty((b * hq, 1, sq), dtype=torch.float32, device=q.device)
     err = lib.ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, sq, sk, d, float(scale), int(causal),
-        code, q.device.index,
+        lse.data_ptr(), *branches, b, hq, hkv, sq, sk, d, float(scale),
+        int(causal), code, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash attention launch")
     flash_attention_fwd.launches += 1
+    if m is not None:
+        flash_attention_fwd.mask_launches += 1
+    if lens is not None:
+        flash_attention_fwd.lens_launches += 1
     return out, lse
 
 
@@ -162,27 +293,34 @@ def _check_shapes(q, k, v):
                          f"{q.device}")
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """``(out, lse)`` for ``[batch, seq, heads, head_dim]`` inputs: the
-    kernel on a CUDA tensor (``.launches`` counts it), the reference on a
-    CPU tensor."""
+def flash_attention_fwd(q, k, v, causal=False, scale=None, mask=None,
+                        lens=None):
+    """``(out, lse)`` for ``[batch, seq, heads, head_dim]`` inputs, with an
+    optional normalized 4-D additive ``mask`` and int32 ``lens [2, b]``:
+    the kernel on a CUDA tensor (``.launches`` counts it, and
+    ``.mask_launches`` / ``.lens_launches`` the launches with each branch),
+    the reference on a CPU tensor."""
     _check_shapes(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
-    return _launch_cuda(q, k, v, causal, scale)
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale,
+                                         mask=mask, lens=lens)
+    return _launch_cuda(q, k, v, causal, scale, mask, lens)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.mask_launches = 0
+flash_attention_fwd.lens_launches = 0
 
 
 def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal=False,
-                                  scale=None):
+                                  scale=None, mask=None, lens=None):
     """Dense twin of the backward kernel, with the Pallas kernel's casts:
-    ``s = scale q k^T`` from the inputs' values in fp32, masked
-    bottom-right with ``NEG_INF``; ``p = exp(s - lse)`` (0 on rows whose
-    lse is ``LSE_INVALID``); ``dv = p^T do`` with ``p`` rounded to ``do``'s
+    ``s = scale q k^T`` from the inputs' values in fp32, masked as the
+    forward (causal and lens with ``NEG_INF``, then the additive mask);
+    ``p = exp(s - lse)`` (0 on rows whose lse is ``LSE_INVALID`` and on
+    rows at or past q_len); ``dv = p^T do`` with ``p`` rounded to ``do``'s
     dtype; ``dp = do v^T``; ``ds = p (dp - delta)`` rounded to ``q``'s
     dtype; ``dk = scale ds^T q``; ``dq = scale ds k``. GQA sums dk and dv
     over each group in fp32. Returns ``(dq, dk, dv)`` in the inputs'
@@ -196,12 +334,11 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal=False,
     kh = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vh = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
     doh = do.float().transpose(1, 2)
-    s = scale * (qh @ kh.transpose(-1, -2))
-    if causal:
-        rows = torch.arange(sq, device=q.device).reshape(-1, 1)
-        cols = torch.arange(sk, device=q.device).reshape(1, -1)
-        s = torch.where(cols <= rows + (sk - sq), s, NEG_INF)
+    s, dead_rows = _scores_masked(scale * (qh @ kh.transpose(-1, -2)), b,
+                                  sq, sk, causal, mask, lens)
     p = torch.exp(s - lse.reshape(b, hq, sq, 1))
+    if dead_rows is not None:
+        p = torch.where(dead_rows, 0.0, p)
     pc = p.to(do.dtype).float()
     dv = pc.transpose(-1, -2) @ doh                             # [b,hq,sk,d]
     dp = doh @ vh.transpose(-1, -2)
@@ -214,7 +351,7 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal=False,
             dv.transpose(1, 2).to(v.dtype))
 
 
-def _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale):
+def _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale, mask, lens):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     code = _check_cuda_inputs(q, k, v, do)
@@ -225,6 +362,7 @@ def _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale):
                 f"flash attention backward: {name} must be a contiguous fp32 "
                 f"[{b * hq}, 1, {sq}] tensor on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    m, branches = _branch_args(q, sk, mask, lens)
     lib = _build.load(_BWD_KERNEL, _BWD_SIGNATURES)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
@@ -232,19 +370,26 @@ def _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale):
     err = lib.ptt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, hq, hkv, sq, sk, d, float(scale), int(causal),
-        code, q.device.index,
+        dv.data_ptr(), *branches, b, hq, hkv, sq, sk, d, float(scale),
+        int(causal), code, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash attention backward launch")
     flash_attention_bwd.launches += 1
+    if m is not None:
+        flash_attention_bwd.mask_launches += 1
+    if lens is not None:
+        flash_attention_bwd.lens_launches += 1
     return dq.to(q.dtype), dk, dv
 
 
-def flash_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None,
+                        mask=None, lens=None):
     """``(dq, dk, dv)`` from the forward's ``lse`` and ``delta = rowsum(do *
-    out)`` (both ``[batch * hq, 1, sq]`` fp32): the kernel on a CUDA tensor
-    (``.launches`` counts it; dq is summed with fp32 atomics, so it is not
-    bit-deterministic), the reference on a CPU tensor."""
+    out)`` (both ``[batch * hq, 1, sq]`` fp32), with the forward's ``mask``
+    and ``lens``: the kernel on a CUDA tensor (``.launches`` counts it, and
+    ``.mask_launches`` / ``.lens_launches`` the launches with each branch;
+    dq is summed with fp32 atomics, so it is not bit-deterministic), the
+    reference on a CPU tensor."""
     _check_shapes(q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} does not fit q "
@@ -253,32 +398,40 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None):
         scale = 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, do, lse, delta,
-                                             causal=causal, scale=scale)
-    return _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale)
+                                             causal=causal, scale=scale,
+                                             mask=mask, lens=lens)
+    return _launch_bwd_cuda(q, k, v, do, lse, delta, causal, scale, mask,
+                            lens)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.mask_launches = 0
+flash_attention_bwd.lens_launches = 0
 
 
 @torch.library.custom_op("paddle_tpu_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, scale: float
+                       causal: bool, scale: float,
+                       mask: Optional[torch.Tensor] = None,
+                       lens: Optional[torch.Tensor] = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable ``(out, lse)``: :func:`flash_attention_fwd` forward,
-    :func:`flash_attention_bwd` backward (``lse`` gets no gradient)."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    :func:`flash_attention_bwd` backward (``lse``, ``mask`` and ``lens``
+    get no gradient)."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                               mask=mask, lens=lens)
 
 
 def _op_setup_context(ctx, inputs, output):
-    q, k, v, causal, scale = inputs
+    q, k, v, causal, scale, mask, lens = inputs
     out, lse = output
-    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.save_for_backward(q, k, v, out, lse, mask, lens)
     ctx.causal, ctx.scale = causal, scale
     ctx.mark_non_differentiable(lse)
 
 
 def _op_backward(ctx, dout, _dlse):
-    q, k, v, out, lse = ctx.saved_tensors
+    q, k, v, out, lse, mask, lens = ctx.saved_tensors
     b, sq, hq, _ = q.shape
     dout = dout.contiguous()
     # delta = rowsum(do * out) in fp32, outside the kernel as in the
@@ -286,8 +439,9 @@ def _op_backward(ctx, dout, _dlse):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     delta = delta.reshape(b * hq, 1, sq).contiguous()
     dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, delta,
-                                     causal=ctx.causal, scale=ctx.scale)
-    return dq, dk, dv, None, None
+                                     causal=ctx.causal, scale=ctx.scale,
+                                     mask=mask, lens=lens)
+    return dq, dk, dv, None, None, None, None
 
 
 flash_attention_op.register_autograd(_op_backward,
@@ -298,14 +452,19 @@ def flash_attention(q, k, v, causal=False, scale=None, mask=None,
                     q_seqlens=None, kv_seqlens=None):
     """Flash attention over ``[batch, seq, heads, head_dim]`` inputs;
     returns ``out`` only, like the JAX entry, and is differentiable (the
-    backward kernel on a CUDA tensor, its twin on a CPU tensor)."""
-    if mask is not None:
-        raise NotImplementedError(
-            "flash attention with an additive mask is a later port slice")
-    if q_seqlens is not None or kv_seqlens is not None:
-        raise NotImplementedError(
-            "varlen flash attention (q_seqlens/kv_seqlens) is a later port "
-            "slice")
+    backward kernel on a CUDA tensor, its twin on a CPU tensor).
+
+    - ``mask``: an additive (or bool) bias, normalized by
+      :func:`normalize_mask` (``ValueError`` for a shape the kernels cannot
+      stream).
+    - ``q_seqlens`` / ``kv_seqlens``: ``[b]`` per-sequence valid lengths
+      (padded varlen); rows past the length give zeros and no gradient.
+    """
+    b, sq, _, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[3])
-    return flash_attention_op(q, k, v, bool(causal), float(scale))[0]
+        scale = 1.0 / math.sqrt(d)
+    if mask is not None:
+        mask = normalize_mask(mask, q, k.shape[1])
+    lens = seq_lens(q_seqlens, kv_seqlens, b, sq, k.shape[1], q.device)
+    return flash_attention_op(q, k, v, bool(causal), float(scale), mask,
+                              lens)[0]

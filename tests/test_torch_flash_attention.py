@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas.flash_attention import _flash_fwd_impl
 from paddle_tpu_torch.nn.functional.attention import (
-    _sdpa_ref, scaled_dot_product_attention)
+    _mask_streams, _sdpa_ref, scaled_dot_product_attention)
 from paddle_tpu_torch.ops.flash_attention import (LSE_INVALID,
                                                   flash_attention,
                                                   flash_attention_fwd,
@@ -103,11 +103,17 @@ def test_bf16_twin_within_kernel_tolerance_of_jax_kernel(d, causal, sq, sk):
 
 
 def test_flash_mask_and_varlen_raise():
+    """Both branches are ported (``tests/test_torch_flash_mask.py`` holds
+    them against the JAX kernels); what they cannot take raises: a mask
+    whose shape does not stream into the kernels, lengths that are not one
+    per sequence."""
     x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="mask"):
-        flash_attention(x, x, x, mask=torch.zeros(1, 1, 4, 4))
-    with pytest.raises(NotImplementedError, match="varlen"):
-        flash_attention(x, x, x, q_seqlens=torch.tensor([4]))
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention(x, x, x, mask=torch.zeros(1, 1, 4, 1))
+    with pytest.raises(ValueError, match="varlen"):
+        flash_attention(x, x, x, q_seqlens=torch.tensor([4, 4]))
+    flash_attention(x, x, x, mask=torch.zeros(1, 1, 4, 4),
+                    q_seqlens=torch.tensor([4]))
 
 
 def test_sdpa_routes_cpu_to_reference():
@@ -151,3 +157,12 @@ def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
     assert not kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 4, d), other))
     cpu = torch.zeros(2, 16, 4, d, dtype=dtype)
     assert not kernel_takes(cpu, cpu)
+    # scaled_dot_product_attention sends a call the kernels take to them
+    # causal or not, with no mask or a mask that streams ([1|b, 1|hq,
+    # 1|sq, sk] once lifted to 4-D); other masks go to plain attention
+    q = fake((2, 16, 4, d))
+    for shape, streams in (((2, 1, 1, 16), True), ((1, 4, 16, 16), True),
+                           ((16, 16), True), ((2, 16, 16), True),
+                           ((2, 4, 16, 1), False), ((2, 3, 16, 16), False),
+                           ((3, 1, 1, 16), False)):
+        assert _mask_streams(fake(shape), q, q) == streams, shape

@@ -54,6 +54,8 @@ kernel is held like the ragged kernel (fp32 ``FP32_TOL``, bf16 per row),
 against its plain version and against the ragged kernel at chunk 1 on the
 same pools.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1509,3 +1511,247 @@ def test_fp16_runs_every_family_twin(cuda):
     _fp16_held(mega_mlp(y2, y2, p16), mega_mlp_reference(y2.float(),
                                                          y2.float(), p))
     assert _routes() >= n0 + 8
+
+
+# -- the flash kernels' mask and varlen branches ----------------------------
+
+# (b, s, hq, hkv, d): BERT-base's attention cut in batch, a GQA case with a
+# ragged tail, and the wgmma route (d 128); fp32 runs d 64 / 128 only
+FLASH_BRANCH_SHAPES = [(2, 512, 12, 12, 64), (2, 200, 8, 2, 64),
+                       (1, 333, 4, 4, 128)]
+
+
+def _branch_mask(kind, b, s, hq, rng, device):
+    """The masks the kernels stream: key padding ``[b, 1, 1, s]`` (-1e9
+    past a length, as BERT builds it), a dense bias ``[b, hq, s, s]``, a
+    shared ``[1, 1, s, s]`` with ``NEG_INF`` holes, a bool ``[b, 1, s, s]``
+    (normalized to ``0 / NEG_INF``)."""
+    if kind == "key padding":
+        lens = rng.randint(s // 4, s + 1, b)
+        m = (np.arange(s)[None] >= lens[:, None]) * -1e9
+        return torch.from_numpy(m.reshape(b, 1, 1, s).astype(np.float32))
+    if kind == "dense bias":
+        return torch.from_numpy(rng.standard_normal(
+            (b, hq, s, s)).astype(np.float32))
+    if kind == "shared holes":
+        return torch.from_numpy(np.where(rng.rand(1, 1, s, s) < 0.2, -1e30,
+                                         0.0).astype(np.float32))
+    return torch.from_numpy(rng.rand(b, 1, s, s) >= 0.2)
+
+
+def _zero_rows(b, s, hq, hkv, causal, mask, lens, device):
+    """The gradient rows that are zero in exact arithmetic, where both
+    sides return fp32 rounding noise: ``[b, s, hq]`` bool, the dq rows of
+    queries that see exactly one key (``p = 1``, so ``ds = 0``), and
+    ``[b, s, hkv]`` bool, the dk rows of keys seen only by such queries
+    (for every head of the kv head's group). A bias below -1e6 hides a
+    key."""
+    from paddle_tpu_torch.ops.flash_attention import _scores_masked
+
+    s0, dead = _scores_masked(torch.zeros(b, hq, s, s, device=device), b, s,
+                              s, causal, mask, lens)
+    seen = s0 > -1e6
+    if dead is not None:
+        seen = seen & ~dead
+    one = seen.sum(-1) == 1                              # [b, hq, sq]
+    lone_key = ~(seen & ~one[..., None]).any(-2)        # [b, hq, sk]
+    lone_key = lone_key.reshape(b, hkv, hq // hkv, s).all(2)
+    return one.transpose(1, 2), lone_key.transpose(1, 2)
+
+
+def _check_branches(cuda, dtype, shape, causal, mask=None, lens=None,
+                    seed=0):
+    """Forward and backward kernels against their plain versions with a
+    normalized mask and / or lens: one launch each, counted under the
+    branch; out and lse, then dq, dk, dv fed the plain forward's lse and
+    delta. In bf16 the rows that are zero in exact arithmetic
+    (``_zero_rows``) are held as an fp32 gradient, as ``_assert_bwd_close``
+    holds them."""
+    from paddle_tpu_torch.ops.flash_attention import normalize_mask
+
+    b, s, hq, hkv, d = shape
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(x).astype(
+        np.float32)).to(cuda, dtype) for x in
+        ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    if mask is not None:
+        mask = normalize_mask(mask.to(cuda), q, s)
+    kw = dict(causal=causal, mask=mask, lens=lens)
+    n = (flash_attention_fwd.launches, flash_attention_fwd.mask_launches,
+         flash_attention_fwd.lens_launches)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_fwd.mask_launches,
+            flash_attention_fwd.lens_launches) == (
+        n[0] + 1, n[1] + (mask is not None), n[2] + (lens is not None))
+    want, want_lse = flash_attention_reference(q, k, v, **kw)
+    _assert_close(out.float(), want.float(), dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * want.float()).sum(-1).transpose(1, 2)
+    delta = delta.reshape(b * hq, 1, s).contiguous()
+    nb = flash_attention_bwd.mask_launches + flash_attention_bwd.lens_launches
+    got = flash_attention_bwd(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.mask_launches
+            + flash_attention_bwd.lens_launches) == nb + (
+        mask is not None) + (lens is not None)
+    ref = flash_attention_bwd_reference(q, k, v, do, want_lse, delta, **kw)
+    zero_rows = dict(zip(("dq", "dk"), _zero_rows(b, s, hq, hkv, causal,
+                                                   mask, lens, cuda)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        zero = zero_rows.get(name)
+        if dtype == torch.float32:
+            err = (g - w).abs().max() / w.abs().max()
+            assert err.item() <= BWD_FP32_TOL, (name, err.item())
+        elif zero is not None and zero.any():
+            _assert_close(g[~zero], w[~zero], dtype)
+            err = (g[zero].float() - w[zero].float()).abs().max() \
+                / w.float().abs().max()
+            assert err.item() <= BWD_FP32_TOL, err.item()
+        else:
+            _assert_close(g, w, dtype)
+    return out, lse.reshape(b, hq, s), got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_BRANCH_SHAPES)
+@pytest.mark.parametrize("kind", ["key padding", "dense bias",
+                                  "shared holes", "bool"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mask_branch_matches_plain(cuda, dtype, shape, kind, causal):
+    b, s, hq, _, _ = shape
+    mask = _branch_mask(kind, b, s, hq, np.random.RandomState(1), cuda)
+    _check_branches(cuda, dtype, shape, causal, mask=mask, seed=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_BRANCH_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_flash_varlen_branch_matches_plain(cuda, dtype, shape, causal,
+                                           with_mask):
+    """Lengths with a 0, q_len != kv_len both ways, a full one and one
+    past a tile edge; rows past q_len come back zero with LSE_INVALID."""
+    from paddle_tpu_torch.ops.flash_attention import LSE_INVALID
+
+    _, s, hq, _, d = shape
+    b = 4
+    shape = (b, s, hq, shape[3], d)
+    ql = [s, 0, s // 2 + 3, 65]
+    kl = [s, s // 3, 1, s - 7]
+    lens = torch.tensor([ql, kl], dtype=torch.int32, device=cuda)
+    mask = (_branch_mask("key padding", b, s, hq, np.random.RandomState(3),
+                         cuda) if with_mask else None)
+    out, lse, grads = _check_branches(cuda, dtype, shape, causal, mask=mask,
+                                      lens=lens, seed=4)
+    for i, n in enumerate(ql):
+        assert torch.count_nonzero(out[i, n:]) == 0
+        assert (lse[i, :, n:] == LSE_INVALID).all()
+        assert torch.count_nonzero(grads[0][i, n:]) == 0
+        assert torch.count_nonzero(grads[1][i, kl[i]:]) == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attn_unpadded_kernel_vs_plain(cuda, causal):
+    """The varlen entry at BERT-base widths in bf16: the kernel route
+    (scatter, flash with lengths, gather; one lens launch each way)
+    against the segment-masked plain version on the same values in fp32,
+    the output per row as the bf16 kernels are, the gradients as
+    ``_assert_varlen_grad_close`` holds them."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.nn.functional.attention import _unpadded_ref
+
+    lens = [512, 77, 300, 1, 129]
+    cu = torch.tensor(np.cumsum([0] + lens), device=cuda)
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (sum(lens), 12, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+        for _ in range(4))
+    grads = {}
+    for route in ("kernel", "plain"):
+        # the plain version on the same values in fp32 (in bf16 it would
+        # round every score before the softmax)
+        args = [(x if route == "kernel" else x.float()).clone()
+                .requires_grad_() for x in (q, k, v)]
+        n = (flash_attention_fwd.lens_launches,
+             flash_attention_bwd.lens_launches)
+        if route == "kernel":
+            out = flash_attn_unpadded(*args, cu, cu, 512, 512,
+                                      causal=causal)[0]
+        else:
+            out = _unpadded_ref(*args, cu, cu, causal=causal)
+        out.backward(do if route == "kernel" else do.float())
+        torch.cuda.synchronize()
+        assert (flash_attention_fwd.lens_launches,
+                flash_attention_bwd.lens_launches) == tuple(
+            x + (route == "kernel") for x in n)
+        grads[route] = (out.detach(), *(a.grad for a in args))
+    _assert_close(grads["kernel"][0], grads["plain"][0], torch.bfloat16)
+    for name, g, w in zip(("dq", "dk", "dv"), grads["kernel"][1:],
+                          grads["plain"][1:]):
+        _assert_varlen_grad_close(name, g, w, lens)
+
+
+def _assert_varlen_grad_close(name, got, want, lens):
+    """One packed bf16 gradient ``[total, h, d]`` against the fp32 plain
+    one, per sequence: each sequence's rows over that sequence's max
+    ``|want|`` to ``BF16_ROW_TOL`` (the kernels form delta from the bf16
+    output, and a query that sees a few keys cancels in ``dp - delta``, so
+    a row's own scale does not bound its error against exact gradients;
+    the sequence's does). dq and dk of a length-1 sequence are zero in
+    exact arithmetic (``p = 1``, so ``ds = 0``): held as an fp32 gradient
+    over the tensor's max ``|want|`` to ``BWD_FP32_TOL``."""
+    scale = want.abs().max().item()
+    start = 0
+    for n in lens:
+        g, w = got[start:start + n].float(), want[start:start + n]
+        start += n
+        err = (g - w).abs().max().item()
+        if n == 1 and name != "dv":
+            assert err / scale <= BWD_FP32_TOL, (name, n, err / scale)
+        else:
+            held = err / w.abs().max().item()
+            assert held <= BF16_ROW_TOL, (name, n, held)
+
+
+def test_eager_bert_gradients_flash_vs_plain(cuda):
+    """A 2-layer BERT-base-width model in fp32 with a padded attention
+    mask: the loss's gradients through the masked kernels (2 + 2 masked
+    launches) equal plain attention's, every parameter, none ``None``."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models.bert import BERT_CONFIGS
+    from paddle_tpu_torch.models.convert import (bert_from_jax_numpy,
+                                                 random_bert_state)
+    from paddle_tpu_torch.nn.functional.attention import plain_attention
+
+    cfg = replace(BERT_CONFIGS["bert-base"], num_layers=2,
+                  hidden_dropout=0.0, attn_dropout=0.0)
+    rng = np.random.RandomState(6)
+    b, s = 2, 384
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(cuda)
+    am = torch.ones(b, s, device=cuda)
+    am[1, 200:] = 0
+    labels = torch.where(torch.from_numpy(rng.rand(b, s) < 0.2).to(cuda),
+                         ids, -100)
+    nsp = torch.tensor([0, 1], device=cuda)
+    model = bert_from_jax_numpy(random_bert_state(cfg, 0), cfg, device=cuda)
+    grads = {}
+    for flash in (True, False):
+        model.zero_grad(set_to_none=True)
+        n = (flash_attention_fwd.mask_launches,
+             flash_attention_bwd.mask_launches)
+        with contextlib.nullcontext() if flash else plain_attention():
+            model(ids, attention_mask=am, masked_lm_labels=labels,
+                  next_sentence_label=nsp).backward()
+        torch.cuda.synchronize()
+        assert (flash_attention_fwd.mask_launches - n[0],
+                flash_attention_bwd.mask_launches - n[1]) == (
+            (2, 2) if flash else (0, 0))
+        grads[flash] = {k: p.grad for k, p in model.named_parameters()}
+    for name, want in grads[False].items():
+        got = grads[True][name]
+        assert got is not None and want is not None, name
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= GRAD_TOL, (name, err.item())
