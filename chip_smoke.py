@@ -37,10 +37,14 @@ trees on one card) and prints one JSON line. PART is one of:
   512, 12, 64] non-causal, and with BERT's key-padding mask where ROOT's
   package has the branch.
 
-Phases (each failure ends the run non-zero):
+Phases (each failure ends the run non-zero). Every kernel is built for
+fp32, bf16 and fp16; the phases that hold kernels against their plain
+versions and time them (3, 4, 7, 8, 9, 10, 11, 12 (a), 13 (d)) run each of
+the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
+2e-3 per row), and phase 14 drives the fp16 paths:
 
 1. device: the card's name and power limit;
-2. build: the eight kernel sources from ``paddle_tpu_torch/csrc``
+2. build: the nine kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
    registers and spills;
 3. ragged paged attention vs its plain version at the serving shapes
@@ -65,7 +69,7 @@ Phases (each failure ends the run non-zero):
    the full forward over the served context, the streams must hold at
    least ``MIN_DISTINCT`` distinct tokens, and every step must run the
    ragged kernel once per layer. Then the same requests in bf16, timed
-   (median of 5 runs);
+   (median of ``BF16_RUNS`` runs);
 7. train: the flash backward kernel vs its plain version at the training
    shape [8, 1024, 12, 128] causal and at odd shapes (``sq != sk``, GQA,
    ragged tails, non-causal), fp32 and bf16, the bf16 kernel at
@@ -107,8 +111,8 @@ Phases (each failure ends the run non-zero):
    backward kernels) vs the plain versions; token agreement with phase 6,
    weight and KV bytes; then (a), (b) and (c) served in bf16 in turns
    (every one of the 48 weight-only GEMMs a step on the tensor-core route,
-   well-formed streams, the median wall and mean step of 5 runs after a
-   warm-up) and one profiled run of (a) and of (b) (device busy a step and
+   well-formed streams, the median wall and mean step of ``BF16_RUNS``
+   runs after a warm-up) and one profiled run of (a) and of (b) (device busy a step and
    the weight-only GEMM's device time).
 9. fused MLP (its steps run beside their phase-7 twins): the LN forward
    (with and without the residual), LN backward (with and without dso),
@@ -149,18 +153,16 @@ Phases (each failure ends the run non-zero):
    cache against their per-op streams and the plain quantized forward,
    12 launches of each mega kernel a step and none of the ragged kernel
    or the weight-only GEMM; bf16 step times of (i) and (iii) beside their
-   per-op twins (median of 5 runs each, in turns) and one profiled run of
-   each. The split-walk kernel also at GPT-125M's decode round (timed)
-   and at head dims 32 / 80 / 96 at gpt3-tiny's, gpt3-2.7b's and
-   gpt3-760m's widths (fp, and int8 g64 weights with int8 KV, both
-   epilogues), every case launched twice and bitwise equal; then
+   per-op twins (median of ``BF16_RUNS`` runs each, in turns) and one
+   profiled mega run of each. The split-walk kernel also at GPT-125M's
+   decode round (timed) and at head dims 32 / 80 / 96 at gpt3-tiny's,
+   gpt3-2.7b's and gpt3-760m's widths (fp, and int8 g64 weights with int8
+   KV, the fused epilogue), every case launched twice and bitwise equal;
+   then
    ``mega_decode=True`` serving at gpt3-760m's and gpt3-2.7b's widths (2
    layers, fp32): streams equal to the per-op streams and the full
    forward, 2 launches of each mega kernel a step. Before the training
-   phases no fp32 / bf16 call has run a plain twin (``.twin_routes`` 0);
-   then GPT-125M served in fp16 (the ragged kernel's twin each layer,
-   counted) and an fp16 fused LN + residual and bias + GELU forward
-   against the fp32 twins.
+   phases no call has run a plain twin (``.twin_routes`` 0).
 
 11. MoE serving (run after phase 10): the five grouped-GEMM kernels
    (fp, int8 per channel, int8 and int4 in groups of 128; forward and dx)
@@ -189,20 +191,20 @@ Phases (each failure ends the run non-zero):
    served in bf16 at cf 1.25, every grouped GEMM on the skinny route (24
    a step): step 20 against the same step with the plain grouped GEMM
    (``MOE_BF16_STEP_TOL``, router flips counted), the 24 weight-only
-   GEMMs a step (wqkv, wo) on the tensor-core route, the streams' agreement
-   with the plain grouped GEMM's, the mean step and one profiled run
-   each; and the weight bytes; the bf16 MoE
+   GEMMs a step (wqkv, wo) on the tensor-core route, the mean step and
+   one profiled run each; and the weight bytes; the bf16 MoE
    full forward on ids [4, 512] at cf 1.25 (24 tensor-core launches a
-   forward, median of 5 after a warm-up, one profiled forward: the
+   forward, median of ``BF16_RUNS`` after a warm-up, one profiled
+   forward: the
    grouped GEMM's device time and share); the eager 2-layer MoE model's
    gradients, kernel vs plain (4 dx launches), an input gradient through
-   int8 expert stacks and a bf16 one through the tensor-core dx; last,
-   the attention routing: a 2-layer gpt3-760m-width model (head_dim 96)
-   and an fp16 GPT-125M forward equal to the plain path's logits with no
-   flash launch, and one d 96 ``gpt_spmd`` training step; bf16 d 64
-   attention calls non-causal, causal, with a key-padding mask and a bool
-   mask (to the kernels), with a mask that does not stream and with
-   dropout (to ``_sdpa_ref``, equal to it).
+   int8 expert stacks and a bf16 one through the tensor-core dx; last, the
+   attention routing: a 2-layer gpt3-760m-width model (head_dim 96) in fp32 and
+   an fp64 GPT-125M forward (no kernel takes fp64) equal to the plain path's
+   logits with no flash launch, and one d 96 ``gpt_spmd`` training step; bf16 d
+   64 attention calls non-causal, causal, with a key-padding mask and a bool
+   mask (to the kernels), with a mask that does not stream and with dropout (to
+   ``_sdpa_ref``, equal to it).
 
 12. legacy serving (run after phase 11): (a) the paged decode kernel (the
    split walk) vs its plain version and vs the ragged kernel at chunk 1 on
@@ -244,6 +246,28 @@ Phases (each failure ends the run non-zero):
    the key-padding mask and of the batch's lengths beside
    ``F.scaled_dot_product_attention(attn_mask=)``.
 
+14. fp16 (run after phase 9, before the training phases): every path in
+   fp16 on the fp16 kernels with ``ops.twin_routes()`` 0 and launches of
+   each kernel row, each held against the same path on the twins (every
+   family's ``kernel_takes`` answering no; ``twins()``): (a) GPT-125M
+   served per-op, with int4 g128 weights, with int8 weights and an int8
+   KV cache, on the mega step and on the legacy path, and the MoE
+   GPT-125M (4 experts, top-2, cf 4.0) with fp, int8 and int4 g128 expert
+   stacks: greedy streams and logits rows against the twin route's
+   (``F16_STEP_TOL``, near ties, router flips counted); the fp16 full
+   forward on ids [4, 512] against plain attention; (b) the fused LN +
+   residual and bias + GELU forward against the fp16 twins, then the
+   ``gpt_spmd`` step at gpt3-760m's width (16 heads of 96), 2 layers, b 2,
+   s 1024, unfused and ``fused_mlp``, no loss scaling: loss and gradients
+   against the plain route and the exact fp32 gradients, 4 SGD steps with
+   finite falling losses; (c) BERT at bert-base width, 2 layers, the
+   padded batch of phase 13, gradients through the masked kernels the
+   same way, and ``flash_attn_unpadded`` on its lengths; (d) input
+   gradients through 12 int8 / int4 g128 layers and through a MoE FFN
+   with fp / int8 expert stacks. Each kernel row of the JSON line gains
+   an ``fp16`` record: route, fp16 launches, time, plain, bound, library
+   and error, and the bf16 leg's time beside it.
+
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
 
@@ -272,7 +296,11 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
-            torch.bfloat16: 989e12}   # dense bf16 tensor cores
+            torch.bfloat16: 989e12,   # dense bf16 tensor cores
+            torch.float16: 989e12}    # dense fp16 tensor cores
+# every kernel family is built for these activation types (phases that
+# hold kernels against their plain versions run each)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 RAGGED_GEOM = dict(b=8, chunk=16, hq=12, hkv=12, d=64, ps=64, pps=16)
 FLASH_SHAPE = (4, 512, 12, 64)
 # phases 4 and 7: the bf16 tensor-core kernels at every head dim of the
@@ -291,14 +319,20 @@ FLASH_LONG = (1, 4096, 16, 128)
 # sides round an fp32 result to 8 mantissa bits once, so an element may
 # differ by one bf16 step (<= 2^-7 of it); held as each row's max abs error
 # over the row's max |value|, so a row of small values is held to its scale.
-KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# fp16 the same way: 10 mantissa bits, one step <= 2^-10 (4.9e-4 unit
+# roundoff), so 2e-3 admits about two steps (the flash forward also rounds
+# each key tile's p to fp16, where the plain version keeps fp32) and is
+# tighter than bf16's one step.
+F16_TOL = 2e-3
+KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2,
+              torch.float16: F16_TOL}
 LOGIT_TOL = 1e-3      # fp32 logits after 12 layers, flash vs plain
 TIE_MARGIN = 1e-4     # greedy mismatches allowed only below this margin
 MAX_NEW = 32
 # served fp32 streams must vary: at least this many distinct tokens among
 # the 256 (8 constant streams give at most 8), and no constant stream
 MIN_DISTINCT = 32
-BF16_RUNS = 5
+BF16_RUNS = 3
 # phase 7. The flagship training configuration (bench.py's gpt3-760m leg)
 TRAIN = dict(vocab_size=50304, hidden_size=1536, num_layers=24, num_heads=12,
              max_seq_len=1024, recompute=True, remat_save_attn=True)
@@ -309,7 +343,15 @@ BWD_SHAPE = (8, 1024, 12, 128)           # its attention: [b, s, heads, d]
 # per row as in KERNEL_TOL: dq, dk, dv each round an fp32 sum to bf16 once,
 # so a row may differ by one bf16 step of its max (<= 2^-7, seen 7.7e-3);
 # 1e-2 admits one step and not two
-BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+           torch.float16: F16_TOL}
+# a gradient row that is zero in exact arithmetic (the dq of a query that
+# sees one key) holds fp32 noise on both sides: held over the tensor's max
+# |value|. bf16's 16-bit products mostly sum exactly in fp32; fp16's 22-bit
+# products are rounded by the fp32 sums of dp and delta, which leaves more
+# noise (seen 1.7e-5 in the card tests): 1e-4 in fp16
+ZERO_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5,
+                torch.float16: 1e-4}
 # flash vs plain attention through whole models in fp32: per gradient leaf,
 # max abs error over the leaf's max |value| (seen <= 1.8e-6); losses
 # relative (seen 0)
@@ -326,7 +368,8 @@ BF16_LOSS_TOL = 1e-2
 # another order than cuBLAS: fp32 held as max abs error over the tensor's
 # max |value| (as BWD_TOL); bf16 per row as in KERNEL_TOL (both sides
 # dequantize with the same rounding, then round one fp32 sum).
-QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+           torch.float16: F16_TOL}
 QMM_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "w1": (768, 3072),
               "w2": (3072, 768)}          # GPT-125M's [K, N] projections
 QMM_ROWS = 24                             # the serving token budget
@@ -342,7 +385,8 @@ QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 # as max abs error over the tensor's max |value| (another summation order,
 # rsqrtf / tanhf), bf16 per row as in KERNEL_TOL (one rounding of an fp32
 # result each side); the fp32 parameter sums as fp32.
-FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+             torch.float16: F16_TOL}
 FUSED_LN_SHAPES = ((8192, 1536), (2048, 768), (77, 200))   # flagship,
 FUSED_GELU_SHAPES = ((8192, 6144), (2048, 3072), (77, 200))  # 125M, odd
 # the GELU kernels' extreme inputs, in every row beside values in +-30:
@@ -363,7 +407,8 @@ FUSED_LOSS_TOL = 1e-5
 # payload may land one step apart where its fp32 row sits on a rounding
 # boundary (allowed in under MEGA_FLIP_FRAC of the entries); what attends
 # it then moves, and the fp32 outputs are held to MEGA_KV_TOL instead.
-MEGA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MEGA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+            torch.float16: F16_TOL}
 MEGA_KV_TOL = 1e-3
 MEGA_FLIP_FRAC = 0.01
 # (b, chunk, h, heads, head_dim, page, pages a lane, ffn), q_lens, and the
@@ -453,6 +498,52 @@ DECODE_ODD = (((5, 16, 2, 128, 16, 9), [0, 1, 16, 17, 144]),
 RAGGED_DIMS = (32, 80, 96)
 # served through both paths at d 96: gpt3-760m's width at 2 layers
 LEGACY_D96_LAYERS = 2
+# phase 14. The fp16 paths on the fp16 kernels, each held against the same
+# path on the twins (every family's plain version, on the card). Served
+# logits rows, kernel vs twin route: max abs error over the row's max
+# |logit|, to F16_STEP_TOL (fp16 rounds every activation to 2^-11 at other
+# places on the two routes through 12 layers: bf16's MOE_BF16_STEP_TOL
+# scaled by fp16's 8x finer step); a greedy token may differ only at a
+# near tie (the twin's top-2 margin within twice that row's error), and a
+# stream is compared up to there. The full forward's logits, flash vs
+# plain attention, likewise.
+F16_STEP_TOL = 1e-2
+# (label, config fields, predictor options) served in fp16: the per-op
+# step, int4 g128 weights, int8 weights with an int8 KV cache, the mega
+# step and the legacy two-program path
+F16_SERVE = (("fp16 per-op", {}, {}),
+             ("fp16 int4 g128", dict(weight_dtype="int4",
+                                     weight_quant_group_size=128), {}),
+             ("fp16 int8 + int8 KV", dict(weight_dtype="int8",
+                                          kv_cache_dtype="int8"), {}),
+             ("fp16 mega", {}, dict(mega_decode=True)),
+             ("fp16 legacy", {}, dict(unified=False)))
+# the MoE GPT-125M (4 experts, top-2, cf 4.0) served in fp16 with fp, int8
+# and int4 g128 expert stacks
+F16_MOE = (("fp16 MoE fp", {}),
+           ("fp16 MoE int8", dict(weight_dtype="int8")),
+           ("fp16 MoE int4 g128", dict(weight_dtype="int4",
+                                       weight_quant_group_size=128)))
+# fp16 training (gpt_spmd at gpt3-760m's width, 2 layers) and BERT (2
+# layers at bert-base width), no loss scaling: the loss relative to the
+# plain route's; per gradient leaf, kernel vs plain route over the leaf's
+# max |grad| to F16_GRAD_TOL (a few fp16 steps: the kernels round P and dS
+# to fp16 per tile, the plain route where cuBLAS and softmax return them);
+# a leaf past it (an fp16 gradient near its underflow: the loss is not
+# scaled) is held by its distance from the exact fp32 gradients of the
+# same weights, the kernel route's worst within BERT_NOISE_MARGIN x the
+# plain route's; every leaf within F16_GRAD_CAP of exact unless the plain
+# route's leaf is as far (BERT's MLM-head LN read 0.11 of its max from
+# exact on both routes: its gradient underflows in fp16)
+F16_LOSS_TOL = 5e-3
+F16_GRAD_TOL = 1e-2
+F16_GRAD_CAP = 5e-2
+F16_TRAIN_STEPS = 4
+F16_BERT_LAYERS = 2
+# (d) input gradients through frozen layers, kernel vs plain, over the
+# gradient's max: a few fp16 steps through 12 layers (bf16's drives are
+# held to BF16_GRAD_TOL; fp16's step is 8x finer)
+F16_DRIVE_TOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -518,28 +609,20 @@ def bound_ms(nbytes: float, ops: float, dtype) -> float:
 
 
 def ptxas_summary(name: str, text: str):
-    """One line per compiled instantiation (kernel, element type, its
-    integer and bool template values: head_dim, flags) with its registers
-    and spills, from the ``ptxas -v`` report."""
+    """One line per compiled instantiation (kernel, element type, its other
+    template values: weight or KV type, head_dim, flags) with its
+    registers and spills, from the ``ptxas -v`` report."""
+    types = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    ty = "(13__nv_bfloat16|6__half|f)"
     inst, spills = None, ""
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
-                      r"(13__nv_bfloat16|f)((?:L[ib]\d+E)*)", line)
-        tc = re.search(r"Compiling entry function '.*?(gmm_(?:tc|wg)_kernel)"
-                       r"ILb(\d)E", line)
-        # bf16-only kernels: templated on an int (the weight bits) or not
-        bf = re.search(r"Compiling entry function '.*?\d((?:gmm_sk|qmm_tc)"
-                       r"_kernel)(?:ILi(\d+)E|I([ah])E)?", line)
+        m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I" + ty
+                      + r"((?:L[ib]\d+E|S\d*_|[ah])*)", line)
         if m:
-            flags = re.findall(r"L[ib](\d+)E", m.group(3))
-            inst = (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
-                    ", ".join(flags) or "-")
-        elif tc:
-            inst = (tc.group(1), "bf16",
-                    "dx" if tc.group(2) == "1" else "fwd")
-        elif bf:   # qmm_tc_kernel<int8_t> / <uint8_t>: int8 / int4
-            inst = (bf.group(1), "bf16", bf.group(2) or {
-                "a": "int8", "h": "int4"}.get(bf.group(3), "-"))
+            args = re.findall(r"L[ib](\d+)E|(S\d*_)|([ah])", m.group(3))
+            inst = (m.group(1), types[m.group(2)], ", ".join(
+                n or ("T" if sub else {"a": "int8", "h": "int4"}[w])
+                for n, sub, w in args) or "-")
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and inst:
@@ -601,7 +684,7 @@ def phase_ragged(dev):
         ragged_paged_attention_reference as plain)
 
     stats = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         args = ragged_inputs(dtype, dev)
         got = kern(*args)
         again = kern(*args)
@@ -731,17 +814,17 @@ def phase_flash(dev):
               FLASH_SHAPE[2], FLASH_SHAPE[3], True),
              (2, 200, 456, 12, 4, 64, True),      # sq != sk, GQA
              (2, 333, 333, 12, 12, 64, True)]     # tail not a tile multiple
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for ci, shape in enumerate(cases):
             args = flash_inputs(shape, dtype, dev, SEED + ci)
             err = check_flash_fwd(args, shape, dtype, "[flash]")
             if not ci:
                 stats[dtype] = flash_fwd_times(args, shape, dtype, err,
                                                "[flash]", 50, 4, 5, 4)
-    for ci, shape in enumerate(FLASH_TC_CASES):
-        check_flash_fwd(flash_inputs(shape, torch.bfloat16, dev,
-                                     SEED + 10 + ci), shape, torch.bfloat16,
-                        "[flash]")
+    for dtype in (torch.bfloat16, torch.float16):
+        for ci, shape in enumerate(FLASH_TC_CASES):
+            check_flash_fwd(flash_inputs(shape, dtype, dev, SEED + 10 + ci),
+                            shape, dtype, "[flash]")
     b, s, h, d = FLASH_LONG
     shape = (b, s, s, h, h, d, True)
     args = flash_inputs(shape, torch.bfloat16, dev, SEED)
@@ -884,24 +967,39 @@ def serve(sp, early, late):
     return reqs
 
 
-class StepLogits:
-    """Stands in for a predictor's unified step and keeps, for every lane
-    that emits a token, the logits row the step returned for it, keyed by
-    ``(req_id, index of the token in output_ids)``."""
+class StepRecord:
+    """Stands in for a predictor's unified step (or, with ``legacy``, its
+    decode step) and records every call: the logits row of each lane that
+    emits, keyed ``(req_id, index of the token in output_ids)``; with
+    ``routes`` the MoE router's choices of every layer and the request of
+    each token row."""
 
-    def __init__(self, sp):
-        self.sp, self.step, self.rows = sp, sp._unified, {}
-        self.emit_at = inspect.signature(self.step.__call__).parameters
-        self.emit_at = list(self.emit_at).index("emit_mask")
-        sp._unified = self
+    def __init__(self, sp, legacy=False, routes=False):
+        self.sp, self.legacy, self.routes = sp, legacy, routes
+        self.step = sp._decode if legacy else sp._unified
+        params = list(inspect.signature(self.step.__call__).parameters)
+        self.emit_at = None if legacy else params.index("emit_mask")
+        self.slot_at = None if legacy else params.index("tok_slot")
+        self.rows, self.calls, self.n = {}, [], 0
+        if legacy:
+            sp._decode = self
+        else:
+            sp._unified = self
 
     def __call__(self, *args, **kw):
-        out = self.step(*args, **kw)
-        emit = args[self.emit_at].tolist()
+        self.n += 1
+        with record_routes() if self.routes else contextlib.nullcontext(
+                []) as seen:
+            out = self.step(*args, **kw)
+        emit = (None if self.legacy else args[self.emit_at].tolist())
+        at = {}
         for slot, req in self.sp.running.items():
-            if emit[slot]:
-                self.rows[(req.req_id, len(req.output_ids))] = \
-                    out[1][slot].clone()
+            at[slot] = (req.req_id, len(req.output_ids))
+            if emit is None or emit[slot]:
+                self.rows[at[slot]] = out[1][slot].float().clone()
+        if self.routes:
+            self.calls.append((at, args[self.slot_at].clone(),
+                               [s.clone() for s in seen]))
         return out
 
 
@@ -947,7 +1045,7 @@ def phase_serve(model, cfg, dev, card):
 
     early, late = requests(cfg)
     sp = ServingPredictor(model, max_batch=8, device=dev)
-    served_logits = StepLogits(sp)
+    served_logits = StepRecord(sp)
     reset_counts()
     t0 = time.perf_counter()
     reqs = serve(sp, early, late)
@@ -1055,7 +1153,7 @@ def phase_qmm(dev):
     stats = {}
     for wd, gs in QMM_CONFIGS:
         bits = int(wd[3:])
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             tot = {key: 0.0 for key in ("ms", "plain_ms", "bwd_ms",
                                         "bwd_plain_ms", "bound_ms",
                                         "cublas_ms", "library_ms")}
@@ -1072,12 +1170,12 @@ def phase_qmm(dev):
                 again = quant_matmul_fwd(x, q, sc)
                 dx = quant_matmul_bwd(dy, q, sc, k, dtype)
                 torch.cuda.synchronize()
-                if tc_route != (name != "odd" and dtype == torch.bfloat16):
+                if tc_route != (name != "odd" and dtype != torch.float32):
                     raise AssertionError(
                         f"quant_matmul {wd} g{g} {name}: {tc_route} "
-                        "tensor-core launches (the bf16 int8 / int4 forward "
-                        "at M <= 64 on aligned widths takes that route, "
-                        "nothing else)")
+                        "tensor-core launches (the bf16 / fp16 int8 / int4 "
+                        "forward at M <= 64 on aligned widths takes that "
+                        "route, nothing else)")
                 if not torch.equal(got, again):
                     raise AssertionError(f"quant_matmul {wd} g{g} {dtype} "
                                          f"{name}: a second launch differs")
@@ -1178,7 +1276,7 @@ def qmm_decode(wd, gs, dtype, dev):
     out = dict(decode_ms=ms, decode_bound_ms=bound_ms(*work, dtype))
     log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
         f"{QMM_DECODE_ROWS} (a decode round, "
-        f"{'tensor-core' if dtype == torch.bfloat16 else 'CUDA-core'} "
+        f"{'tensor-core' if dtype != torch.float32 else 'CUDA-core'} "
         "route): "
         "kernel "
         f"{ms:.4f} ms, bound {out['decode_bound_ms']:.4f} ms")
@@ -1194,7 +1292,7 @@ def phase_ragged_int8(dev):
         ragged_paged_attention_reference as plain)
 
     stats = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         q, kp, vp, pt, kv_lens, q_lens = ragged_inputs(torch.float32, dev)
         hkv, d = kp.shape[2], kp.shape[3]
         (kq, ks), (vq, vs) = (quantize_kv_rows(t.reshape(-1, hkv, d))
@@ -1381,7 +1479,7 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
     for label, quant, tol in QUANT_SERVE:
         sp = quant_predictor(model, cfg, quant, dev)
         preds[label] = sp
-        served_logits = StepLogits(sp)
+        served_logits = StepRecord(sp)
         reset_counts()
         t0 = time.perf_counter()
         reqs = serve(sp, early, late)
@@ -1686,7 +1784,7 @@ def phase_mega_kernels(dev, card):
     stats = {}
     for cname, case, weight_list in (("serving", MEGA_SERVING, MEGA_WEIGHTS),
                                      ("odd", MEGA_ODD, (("int8", 64),))):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for wd, gs in weight_list:
                 for kv_int8 in (False, True):
                     args, (y2, s_res) = mega_inputs(case, wd, gs, kv_int8,
@@ -1738,9 +1836,12 @@ def phase_mega_kernels(dev, card):
                         f"{errs[1]:.3e} / {errs[3]:.3e} (tol "
                         f"{MEGA_TOL[dtype]}; {MEGA_KV_TOL} fp32 after a "
                         "payload flip)")
+                    # timed: the rows' fp weights and KV, and bf16 / fp32
+                    # int8 g128 weights with int8 KV for row 13's note
                     if cname != "serving" or (wd, kv_int8) not in (
                             (None, False), ("int8", True)) or (
-                            wd and gs < 0):
+                            wd and gs < 0) or (
+                            wd and dtype == torch.float16):
                         continue
                     stats[(wd, kv_int8, dtype)] = mega_times(
                         case, args, (y2, s_res), max(errs[0], errs[2]),
@@ -1758,7 +1859,7 @@ def phase_mlp_rounds(dev, card):
 
     stats = {}
     chunk = MEGA_SERVING[0][1]
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for wd, gs in ((None, -1), ("int8", 128)):
             args, (y2, s_res) = mega_inputs(MEGA_SERVING, wd, gs, False,
                                             dtype, dev)
@@ -1915,7 +2016,7 @@ def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
     streams of the same config and the plain quantized forward, (iii) int8
     g128 weights with an int8 KV cache against a per-op run of the same
     config and the plain quantized forward; then bf16 step times of (i)
-    and (iii) beside their per-op twins, and one profiled run of each.
+    and (iii) beside their per-op twins, and one profiled mega run of each.
     Returns the fp32 runs' (attention, MLP) launches."""
     early, late = requests(cfg)
     total = [0, 0]
@@ -1928,7 +2029,7 @@ def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
             want = [list(r.output_ids) for r in serve(
                 quant_predictor(model, cfg, quant, dev), early, late)]
         sp = quant_predictor(model, cfg, quant, dev, mega_decode=True)
-        served_logits = StepLogits(sp)
+        served_logits = StepRecord(sp)
         reset_counts()
         t0 = time.perf_counter()
         reqs = serve(sp, early, late)
@@ -2001,11 +2102,10 @@ def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
         log(f"[mega] serve ({label}) bf16 mean step mega {ms[True]:.3f} ms "
             f"vs per-op {ms[False]:.3f} ms: {ms[False] / ms[True]:.2f}x "
             f"({card})")
-        for mega in (True, False):
-            profile_serve(
-                quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
-                                mega_decode=mega), early, late,
-                card, f"[mega] ({label}, {'mega' if mega else 'per-op'})")
+        profile_serve(
+            quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
+                            mega_decode=True), early, late,
+            card, f"[mega] ({label}, mega)")
     return total
 
 
@@ -2114,10 +2214,12 @@ def gmm_work(counts, k, n, bits, groups, elt):
 
 
 def grouped_mm_ms(a, b, offs, want):
-    """``torch._grouped_mm`` on the same values (bf16, ``b`` as given or in
-    column-major layout), timed and never used: (ms, None), or (None, why)
-    where the card's torch refuses both layouts or disagrees with
-    ``want``."""
+    """``torch._grouped_mm`` on the same values (bf16 or fp16, ``b`` as
+    given or in column-major layout), timed and never used: (ms, None), or
+    (None, why) where the card's torch refuses both layouts or disagrees
+    with ``want``. fp16 is timed eagerly between CUDA events
+    (``events_ms``): the card's torch copies the offsets to the host for
+    it, which a CUDA graph cannot capture."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         return None, "this torch has no torch._grouped_mm"
@@ -2131,10 +2233,11 @@ def grouped_mm_ms(a, b, offs, want):
         except (RuntimeError, NotImplementedError, TypeError) as e:
             why = str(e).splitlines()[0][:120]
             continue
-        err = kernel_error(got, want, torch.bfloat16)[1]
-        if not err <= GMM_TOL[torch.bfloat16]:
+        err = kernel_error(got, want, a.dtype)[1]
+        if not err <= GMM_TOL[a.dtype]:
             return None, f"torch._grouped_mm disagrees ({err:.3e})"
-        return time_ms(lambda: fn(a, mat, offs=ends)), None
+        timer = time_ms if a.dtype == torch.bfloat16 else events_ms
+        return timer(lambda: fn(a, mat, offs=ends)), None
     return None, why
 
 
@@ -2152,7 +2255,7 @@ def phase_gmm(dev, card):
         bits = int(wd[3:]) if wd else 0
         fwd_name = {0: "gmm", 8: "gmm_q", 4: "gmm_q4"}[bits]
         bwd_name = {0: "gmm_bwd", 8: "gmm_q_bwd"}.get(bits)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             k_odd, n_odd, c_odd, g_odd = GMM_ODD
             cases = [(c, *GMM_SHAPES[name], name, rows, gs)
                      for rows, c in (("a", GMM_ROWS), ("b", GMM_PREFILL))
@@ -2173,18 +2276,18 @@ def phase_gmm(dev, card):
                         grouped_matmul_dx_reference(dy, w, offs, sc, k,
                                                     dtype)))
                 torch.cuda.synchronize()
-                # bf16 fp weights at these widths run the tensor-core
-                # kernel, everything else the CUDA-core one
-                tc = int(bits == 0 and dtype == torch.bfloat16)
+                # bf16 / fp16 fp weights at these widths run the
+                # tensor-core kernel, everything else the CUDA-core one
+                tc = int(bits == 0 and dtype != torch.float32)
                 ran = [a - b for a, b in zip(gmm_tc_counts(), tc0)]
                 if ran != [tc, tc if bwd_name else 0]:
                     raise AssertionError(f"{tag}: tensor-core launches {ran}"
                                          f", want {tc} each")
                 # int8 / int4 stacks at the serving rows (a) take the
-                # skinny route in bf16; fp32, the prefill rows (b) and the
-                # odd widths (c) gmm_kernel
+                # skinny route in bf16 / fp16; fp32, the prefill rows (b)
+                # and the odd widths (c) gmm_kernel
                 sk = int(bits != 0 and rows == "a"
-                         and dtype == torch.bfloat16)
+                         and dtype != torch.float32)
                 if gmm_sk_count() - sk0 != sk:
                     raise AssertionError(f"{tag}: skinny-route launches "
                                          f"{gmm_sk_count() - sk0}, want {sk}")
@@ -2211,7 +2314,9 @@ def phase_gmm(dev, card):
                                          f"{GMM_TOL[dtype]}")
                 route = ("tensor cores" if tc else "skinny route" if sk
                          else "CUDA cores")
-                if rows == "c":
+                # fp16 is timed at the serving rows (a), its rows'
+                # figures; (b) checked only
+                if rows == "c" or (rows == "b" and dtype == torch.float16):
                     log(f"{tag}: held fwd / dx {held} (tol "
                         f"{GMM_TOL[dtype]}; {route}); NaN weights of the "
                         "empty expert absent from the output")
@@ -2227,7 +2332,7 @@ def phase_gmm(dev, card):
                         x, w, offs, sc), iters=10),
                     max_abs_err=errs[0])}
                 lib, why = (grouped_mm_ms(x, w, offs, pairs[0][1])
-                            if bits == 0 and dtype == torch.bfloat16
+                            if bits == 0 and dtype != torch.float32
                             else (None, "no PyTorch call takes this type"
                                   if bits == 0 else "no PyTorch call takes "
                                   "quantized expert stacks"))
@@ -2236,7 +2341,7 @@ def phase_gmm(dev, card):
                 if bwd_name:
                     wt = w.transpose(1, 2)
                     lib, why = (grouped_mm_ms(dy, wt, offs, pairs[1][1])
-                                if bits == 0 and dtype == torch.bfloat16
+                                if bits == 0 and dtype != torch.float32
                                 else (None, notes[(fwd_name, dtype)]))
                     t[bwd_name] = dict(
                         ms=time_ms(lambda: grouped_matmul_bwd(
@@ -2356,7 +2461,7 @@ class RouterFlips:
     def __init__(self, sp, at):
         self.sp, self.step, self.at, self.calls = sp, sp._unified, at, 0
         self.flips = self.choices = self.rows = None
-        inner = self.step   # the unified step, under any StepLogits
+        inner = self.step   # the unified step, under any StepRecord
         while "emit_mask" not in inspect.signature(inner.__call__).parameters:
             inner = inner.step
         self.emit_at = list(inspect.signature(
@@ -2413,7 +2518,7 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
     for label, cf, quant in MOE_SERVE:
         mcfg.moe_capacity_factor = cf
         sp = quant_predictor(model, mcfg, quant, dev)
-        served_logits = StepLogits(sp)
+        served_logits = StepRecord(sp)
         flips = RouterFlips(sp, at=20) if label.startswith("ii ") else None
         reset_counts()
         t0 = time.perf_counter()
@@ -2530,9 +2635,8 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
     """``MOE_SERVE_BF16``: the MoE GPT-125M served in bf16 at cf 1.25 with
     int8 and int4 g128 expert stacks, every grouped GEMM on the skinny
     route (24 a step); one step held against the same step with the plain
-    grouped GEMM (router flips counted), token agreement with the streams
-    of the step built from the plain grouped GEMM (reported), the mean step
-    of ``MOE_QUANT_RUNS`` runs and one profiled run.
+    grouped GEMM (router flips counted), the mean step of
+    ``MOE_QUANT_RUNS`` runs and one profiled run.
     Adds the launches to ``launches``; returns the figures by label."""
     early, late = requests(cfg)
     bf16, out = torch.bfloat16, {}
@@ -2568,10 +2672,6 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
         top2 = ref.topk(2, -1).values
         off = int(((got.argmax(-1) != ref.argmax(-1))
                    & (top2[:, 0] - top2[:, 1] > 2 * err)).sum())
-        with moe_twins():
-            twin = [list(r.output_ids) for r in serve(quant_predictor(
-                model, mcfg, quant, dev, dtype=bf16), early, late)]
-        same = sum(a == b for o, w in zip(outs, twin) for a, b in zip(o, w))
         log(f"[moe] serve ({label}) bf16: {steps} steps, {sk} grouped-GEMM "
             f"launches, all on the skinny route, {qtc} weight-only GEMM "
             f"launches (wqkv, wo), all on the tensor-core route; step "
@@ -2580,8 +2680,7 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
             f"{cmp.choices}, {len(got)} emitting lanes held (logits error "
             f"{held:.3e} of the row's max, tol {MOE_BF16_STEP_TOL}; greedy "
             f"token off the twin's argmax past a near tie in {off}), {moved}"
-            f" lanes left out for a flip; token agreement with the plain "
-            f"grouped GEMM's streams {same} of {sum(map(len, twin))}")
+            " lanes left out for a flip")
         if not held <= MOE_BF16_STEP_TOL or off:
             raise AssertionError(f"bf16 MoE ({label}): step {cmp.at} logits "
                                  f"{held} of the row's max (tol "
@@ -2607,8 +2706,7 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
         launches[bits] += gmm[bits]
         sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
         prof = profile_serve(sp, early, late, card, f"[moe] ({label})")
-        st = dict(step_ms=walls, steps=sp.steps, held=held, flips=cmp.flips,
-                  agree=same / sum(map(len, twin)))
+        st = dict(step_ms=walls, steps=sp.steps, held=held, flips=cmp.flips)
         if prof is not None:
             st.update(busy_ms=prof[1] / 1e3 / sp.steps,
                       gmm_ms=prof[0]["grouped GEMM"][0] / 1e3 / sp.steps,
@@ -2813,9 +2911,10 @@ def phase_moe_grads(cfg, dev):
 def phase_attention_routing(dev):
     """The repaired routing on the card: attention the flash kernels are
     not built for runs plain ``_sdpa_ref`` instead of raising — an eager
-    2-layer model at gpt3-760m's width (16 heads of 96) and an fp16
-    GPT-125M forward, each equal to the plain path's logits, with no flash
-    launch; one d 96 ``gpt_spmd`` training step; then
+    2-layer model at gpt3-760m's width (16 heads of 96) in fp32 and an fp64
+    GPT-125M forward (no kernel is built for fp64), each equal to the plain
+    path's logits, with no flash launch; one d 96 ``gpt_spmd`` training
+    step; then
     ``scaled_dot_product_attention``'s routes since the mask branch: those
     to the kernels held against their plain twin, those to plain
     attention equal to ``_sdpa_ref``."""
@@ -2829,7 +2928,7 @@ def phase_attention_routing(dev):
     for label, cfg, dtype in (
             ("gpt3-760m width, 2 layers (d 96), fp32",
              replace(GPT_CONFIGS["gpt3-760m"], num_layers=2), torch.float32),
-            ("GPT-125M fp16", GPT_CONFIGS["gpt3-125m"], torch.float16)):
+            ("GPT-125M fp64", GPT_CONFIGS["gpt3-125m"], torch.float64)):
         cfg = replace(cfg)
         model = moe_model(cfg, dev, dtype)
         with torch.no_grad():
@@ -2955,7 +3054,7 @@ def phase_decode_kernel(dev):
         ragged_paged_attention as ragged)
 
     stats = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for ci, (geom, lengths) in enumerate((DECODE_SERVING,) + DECODE_ODD):
             args = decode_inputs(geom, lengths, dtype, dev, SEED + ci)
             lens = args[4]
@@ -3046,24 +3145,6 @@ def phase_ragged_dims(dev):
                                          f" error {held}")
 
 
-class DecodeLogits:
-    """Stands in for a legacy predictor's decode step and keeps, for every
-    running slot, the logits row the step returned for the token it is
-    about to emit, keyed by ``(req_id, index of the token in
-    output_ids)``."""
-
-    def __init__(self, sp):
-        self.sp, self.step, self.rows = sp, sp._decode, {}
-        sp._decode = self
-
-    def __call__(self, *args):
-        out = self.step(*args)
-        for slot, req in self.sp.running.items():
-            self.rows[(req.req_id, len(req.output_ids))] = \
-                out[1][slot].clone()
-        return out
-
-
 def legacy_counts():
     """(decode kernel, ragged) launches since :func:`reset_counts`."""
     from paddle_tpu_torch.ops.paged_attention import paged_attention
@@ -3076,7 +3157,7 @@ def serve_legacy(sp, cfg, early, late, label, qmm_kind=None):
     kernel per layer and decode step, no ragged kernel; with ``qmm_kind``
     four weight-only GEMMs per layer and program run) and the logits rows
     behind its tokens. Returns (requests, rows)."""
-    rows = DecodeLogits(sp)
+    rows = StepRecord(sp, legacy=True)
     reset_counts()
     t0 = time.perf_counter()
     reqs = serve(sp, early, late)
@@ -3187,7 +3268,7 @@ def phase_legacy_d96(dev):
     model.eval()
     early, late = requests(cfg)
     sp = ServingPredictor(model, max_batch=8, device=dev)
-    rows = StepLogits(sp)
+    rows = StepRecord(sp)
     reset_counts()
     reqs = serve(sp, early, late)
     torch.cuda.synchronize()
@@ -3291,7 +3372,7 @@ def bwd_error(got, want, dtype, zero_rows=None):
     return fp32 rounding noise there (the tensor cores sum dp in another
     rounding than the plain GEMM and delta), so such a row has no scale of
     its own and is held as an fp32 gradient, over the tensor's max |want|,
-    to ``BWD_TOL[float32]`` (the zero-row error; 0 where there is none)."""
+    to ``ZERO_ROW_TOL`` (the zero-row error; 0 where there is none)."""
     scale = want.float().abs().max().item()
     if dtype == torch.float32:
         err = (got - want).abs().max().item()
@@ -3325,12 +3406,12 @@ def check_flash_bwd(args, shape, dtype, tag):
         f"{n} max_abs_err {e:.3e} held {hd:.3e}"
         + (f" zero rows {z:.3e}" if z else "")
         for n, (e, hd, z) in errs.items())
-        + f" (tol {BWD_TOL[dtype]}; zero rows {BWD_TOL[torch.float32]})")
+        + f" (tol {BWD_TOL[dtype]}; zero rows {ZERO_ROW_TOL[dtype]})")
     if not (worst <= BWD_TOL[dtype]
-            and worst_zero <= BWD_TOL[torch.float32]):
+            and worst_zero <= ZERO_ROW_TOL[dtype]):
         raise AssertionError(f"flash bwd kernel {label}: held error {worst} "
                              f"> {BWD_TOL[dtype]} or zero-row error "
-                             f"{worst_zero} > {BWD_TOL[torch.float32]}")
+                             f"{worst_zero} > {ZERO_ROW_TOL[dtype]}")
     return max(e for e, _, _ in errs.values())
 
 
@@ -3374,17 +3455,17 @@ def phase_flash_bwd(dev):
              (1, 300, 100, 4, 1, 128, True),      # rows that see no key
              (2, 130, 77, 6, 3, 64, False)]       # non-causal, sq > sk
     stats = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for ci, shape in enumerate(cases):
             args = bwd_inputs(shape, dtype, dev, SEED + ci)
             err = check_flash_bwd(args, shape, dtype, "[train]")
             if not ci:
                 stats[dtype] = flash_bwd_times(args, shape, dtype, err,
                                                "[train]", 10, 2)
-    for ci, shape in enumerate(FLASH_TC_CASES):
-        check_flash_bwd(bwd_inputs(shape, torch.bfloat16, dev,
-                                   SEED + 10 + ci), shape, torch.bfloat16,
-                        "[train]")
+    for dtype in (torch.bfloat16, torch.float16):
+        for ci, shape in enumerate(FLASH_TC_CASES):
+            check_flash_bwd(bwd_inputs(shape, dtype, dev, SEED + 10 + ci),
+                            shape, dtype, "[train]")
     bl, sl, hl, dl = FLASH_LONG
     shape = (bl, sl, sl, hl, hl, dl, True)
     args = bwd_inputs(shape, torch.bfloat16, dev, SEED)
@@ -3394,7 +3475,7 @@ def phase_flash_bwd(dev):
     del args
     # the forward kernel at the same shape: held against its plain version,
     # and timed for the step's breakdown and the kernels line
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         args = bwd_inputs(cases[0], dtype, dev, SEED)[:3]
         err = check_flash_fwd(args, cases[0], dtype, "[train]")
         fwd = flash_fwd_times(args, cases[0], dtype, err, "[train]", 10, 2,
@@ -3937,9 +4018,10 @@ def varlen_grad_error(name, got, want, lens):
     return err, held, zero
 
 
-def phase_bert_varlen(dev, lens):
+def phase_bert_varlen(dev, lens, dt=torch.bfloat16):
     """(c) ``flash_attn_unpadded`` at BERT-base widths (12 heads of 64) in
-    bf16 on the phase's lengths packed, causal and not: the kernel route
+    ``dt`` (bf16; fp16 in phase 14) on the phase's lengths packed, causal
+    and not: the kernel route
     (one lens-branch forward and backward launch a call) against the plain
     segment-masked version on the same values in fp32: out per row as
     ``KERNEL_TOL``, dq / dk / dv per sequence (``varlen_grad_error``) to
@@ -3947,7 +4029,6 @@ def phase_bert_varlen(dev, lens):
     from paddle_tpu_torch.nn.functional import flash_attn_unpadded
     from paddle_tpu_torch.nn.functional.attention import _unpadded_ref
 
-    dt = torch.bfloat16
     cu = torch.tensor(np.cumsum([0, *lens]), device=dev)
     total, h, d, s = int(cu[-1]), 12, 64, BERT_SEQ
     rng = np.random.RandomState(SEED + 14)
@@ -3958,9 +4039,9 @@ def phase_bert_varlen(dev, lens):
     for causal in (False, True):
         outs = {}
         for route in ("kernel", "plain"):
-            # the plain version on the same bf16 values in fp32: it scores
-            # in its input dtype, which in bf16 alone would round every
-            # score before the softmax
+            # the plain version on the same 16-bit values in fp32: it scores
+            # in its input dtype, which in bf16 or fp16 alone would round
+            # every score before the softmax
             args = [(x if route == "kernel" else x.float()).clone()
                     .requires_grad_() for x in (q, k, v)]
             reset_counts()
@@ -3982,13 +4063,13 @@ def phase_bert_varlen(dev, lens):
         bheld = max(x[1] for x in grads)
         bzero = max(x[2] for x in grads)
         log(f"[bert] flash_attn_unpadded {'causal' if causal else 'non-causal'}"
-            f" total {total} x {h} x {d} bf16: out held {held:.3e} per row "
-            f"(tol {KERNEL_TOL[dt]}), dq / dk / dv "
+            f" total {total} x {h} x {d} {str(dt)[6:]}: out held {held:.3e} "
+            f"per row (tol {KERNEL_TOL[dt]}), dq / dk / dv "
             + ", ".join(f"{x[1]:.3e}" for x in grads)
             + f" of their sequence's max |grad| (tol {BWD_TOL[dt]}; length-1"
-            f" sequences {bzero:.3e}, tol {BWD_TOL[torch.float32]})")
+            f" sequences {bzero:.3e}, tol {ZERO_ROW_TOL[dt]})")
         if not (held <= KERNEL_TOL[dt] and bheld <= BWD_TOL[dt]
-                and bzero <= BWD_TOL[torch.float32]):
+                and bzero <= ZERO_ROW_TOL[dt]):
             raise AssertionError(f"flash_attn_unpadded causal={causal}: out "
                                  f"{held}, gradients {bheld}, zero {bzero}")
         stats[causal] = max(err, *(x[0] for x in grads))
@@ -4074,10 +4155,10 @@ def check_branch(args, dtype, causal, mask, lens, label):
         f"held {held:.3e} (tol {KERNEL_TOL[dtype]}), lse err {lse_err:.3e}; "
         + ", ".join(f"{n} held {x[1]:.3e}" for n, x in berrs.items())
         + f" (tol {BWD_TOL[dtype]}; zero rows {bzero:.3e}, tol "
-        f"{BWD_TOL[torch.float32]})")
+        f"{ZERO_ROW_TOL[dtype]})")
     if not (held <= KERNEL_TOL[dtype] and lse_err <= 1e-3
             and bheld <= BWD_TOL[dtype]
-            and bzero <= BWD_TOL[torch.float32]):
+            and bzero <= ZERO_ROW_TOL[dtype]):
         raise AssertionError(f"flash branch {dtype} {label} causal={causal}")
     return err, max(x[0] for x in berrs.values()), want_lse, delta
 
@@ -4182,7 +4263,7 @@ def phase_bert_branches(dev, lens):
     lens_odd = torch.tensor(np.stack([ql, kl]), dtype=torch.int32, device=dev)
     lens_same = torch.tensor(np.stack([lens, lens]), dtype=torch.int32,
                              device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         args = branch_inputs(dtype, dev, SEED + 16)
         for kind in BERT_MASKS:
             mask = normalize_mask(branch_mask(kind, lens, dev), args[0], s)
@@ -4309,7 +4390,7 @@ def phase_fused_kernels(dev):
     for kind, variants in FUSED_KINDS:
         shapes = FUSED_LN_SHAPES if kind.startswith("ln") \
             else FUSED_GELU_SHAPES
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for variant in variants:
                 for si, shape in enumerate(shapes):
                     t = fused_inputs(kind, shape, dtype, dev, SEED + si)
@@ -4370,8 +4451,7 @@ def phase_fused_kernels(dev):
 
 def bits(t):
     """``t``'s bits as integers, so equal NaNs compare equal."""
-    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[
-        t.dtype])
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def gelu_repeat(kern, got, label):
@@ -4401,7 +4481,7 @@ def gelu_extremes(dev):
     same places as the plain version's, the finite entries held as
     ``FUSED_TOL``; and a bitwise-equal second launch."""
     for kind in ("gelu_fwd", "gelu_bwd"):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for variant in ("plain", "bias"):
                 for si, shape in enumerate(FUSED_GELU_SHAPES[1:]):
                     t = fused_inputs(kind, shape, dtype, dev, SEED + 7 + si)
@@ -4712,17 +4792,16 @@ def phase_ragged_walks(dev):
     return stats
 
 
-def mega_case(args, dtype, label, timed=True, fuse=True):
-    """One mega attention call against its plain version (as phase 10
-    holds it) and a second launch bitwise equal to the first; kernel /
-    plain / bound times when ``timed``."""
+def mega_case(args, dtype, label, timed=True):
+    """One mega attention call (the fused epilogue) against its plain
+    version (as phase 10 holds it) and a second launch bitwise equal to
+    the first; kernel / plain / bound times when ``timed``."""
     from paddle_tpu_torch.ops.mega_decode import (mega_attn_layer,
                                                   mega_attn_layer_reference)
 
     xb, p, pools, pt, ctx, q_lens = args
     pos = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
-    kw = dict(k_scales=pools.get("k_scales"), v_scales=pools.get("v_scales"),
-              fuse_epilogue=fuse)
+    kw = dict(k_scales=pools.get("k_scales"), v_scales=pools.get("v_scales"))
     got = mega_attn_layer(*pos, **kw)
     again = mega_attn_layer(*pos, **kw)
     torch.cuda.synchronize()
@@ -4733,7 +4812,7 @@ def mega_case(args, dtype, label, timed=True, fuse=True):
     err, flips, total = mega_check_attn(got, want, q_lens, dtype, label)
     out = dict(max_abs_err=err, flips=f"{flips}/{total}")
     if timed:
-        nbytes, nops = mega_attn_work(args, fuse)
+        nbytes, nops = mega_attn_work(args, True)
         out.update(ms=time_ms(lambda: mega_attn_layer(*pos, **kw)),
                    plain_ms=time_ms(lambda: mega_attn_layer_reference(
                        *pos, **kw), iters=5),
@@ -4744,8 +4823,9 @@ def mega_case(args, dtype, label, timed=True, fuse=True):
 def phase_mega_walks(dev):
     """The mega attention kernel at GPT-125M's decode round (fp32 and bf16,
     fp and int8 KV, timed) and at head dims 32 / 80 / 96 at their configs'
-    widths (fp weights and KV, int8 g64 weights with int8 KV, both
-    epilogues), against its plain version, with bitwise repeats."""
+    widths (fp weights and KV, int8 g64 weights with int8 KV, the fused
+    epilogue; phase 10 runs both at the serving shapes), against its plain
+    version, with bitwise repeats."""
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         for kv in (False, True):
@@ -4762,15 +4842,11 @@ def phase_mega_walks(dev):
         for dtype in (torch.float32, torch.bfloat16):
             for wd, gs, kv in ((None, -1, False), ("int8", 64, True)):
                 args, _ = mega_inputs(case, wd, gs, kv, dtype, dev)
-                for fuse in (True, False):
-                    label = (f"d {d} (h {case[0][2]}) {str(dtype)[6:]} "
-                             f"weights {wd or 'fp'}, "
-                             f"{'int8' if kv else 'fp'} KV, fuse {fuse}")
-                    st = mega_case(args, dtype, label, timed=False,
-                                   fuse=fuse)
-                    log(f"[mega] {label}: max_abs_err "
-                        f"{st['max_abs_err']:.3e} (payload flips "
-                        f"{st['flips']}), repeat bitwise equal")
+                label = (f"d {d} (h {case[0][2]}) {str(dtype)[6:]} weights "
+                         f"{wd or 'fp'}, {'int8' if kv else 'fp'} KV")
+                st = mega_case(args, dtype, label, timed=False)
+                log(f"[mega] {label}: max_abs_err {st['max_abs_err']:.3e} "
+                    f"(payload flips {st['flips']}), repeat bitwise equal")
     return stats
 
 
@@ -4799,7 +4875,7 @@ def phase_mega_wide(dev):
             ServingPredictor(model, max_batch=8, device=dev), early, late)]
         sp = ServingPredictor(model, max_batch=8, device=dev,
                               mega_decode=True)
-        rows = StepLogits(sp)
+        rows = StepRecord(sp)
         reset_counts()
         reqs = serve(sp, early, late)
         torch.cuda.synchronize()
@@ -4828,65 +4904,517 @@ def phase_mega_wide(dev):
 
 
 def twin_route_count() -> int:
-    """Calls routed to a plain twin on the card (a dtype the kernels are
-    not built for), summed over every kernel family's wrappers."""
+    """Calls routed to a plain twin on the card (a dtype no kernel is built
+    for), summed over every kernel family's wrappers."""
     from paddle_tpu_torch.ops import twin_routes
 
     return twin_routes()
 
 
-def phase_fp16(model, cfg, dev, fp_outs):
-    """fp16, which the kernels are not built for: ``ServingPredictor`` on
-    GPT-125M in fp16 (the ragged kernel's twin runs each layer: one route a
-    layer and step, no launch) and an fp16 fused LN + residual and bias +
-    GELU forward at [2048, 768] / [2048, 3072] against the fp32 twins.
-    Returns the routes counted."""
-    from paddle_tpu_torch.inference import ServingPredictor
-    from paddle_tpu_torch.ops.fused_mlp import (fused_bias_gelu,
-                                                fused_ln_residual,
-                                                gelu_reference, ln_reference)
+@contextlib.contextmanager
+def twins():
+    """Every kernel family takes its plain twin on the card while the block
+    is open (each family's ``kernel_takes`` answers no, as it does for a
+    dtype no kernel is built for; flash attention's callers then run plain
+    attention): the twin route the fp16 paths are held against. Its calls
+    count in ``.twin_routes``; no kernel launches."""
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.ops import (fused_mlp, grouped_matmul, mega_decode,
+                                      paged_attention, quant_matmul)
 
-    early, late = requests(cfg)
-    n0 = twin_route_count()
-    sp = ServingPredictor(model, max_batch=8, device=dev,
-                          dtype=torch.float16)
+    saved = []
+    for mod, fn in ((paged_attention, lambda dtype: False),
+                    (fused_mlp, lambda dtype: False),
+                    (quant_matmul, lambda dtype: False),
+                    (grouped_matmul, lambda dtype: False),
+                    (mega_decode, lambda dtype: False),
+                    (attention, lambda q, k: False),
+                    (gpt_spmd, lambda q, k: False)):
+        saved.append((mod, mod.kernel_takes))
+        mod.kernel_takes = fn
+    try:
+        yield
+    finally:
+        for mod, fn in saved:
+            mod.kernel_takes = fn
+
+
+def hold_streams(label, kern, twin, reqs, twin_reqs):
+    """The fp16 kernel route's greedy streams against the twin route's, by
+    the tie-margin rule the bf16 steps are held to: per request, every
+    emitted position up to the first token that differs has its logits row
+    within ``F16_STEP_TOL`` of the twin's (max abs error over the row's
+    max |logit|); at that token the twin's top-2 margin must be within
+    twice the row's error (a near tie), and the streams are not compared
+    past it (their contexts differ). A position from which a token of the
+    request took other experts in some layer (MoE) ends the comparison
+    too, counted. Returns (tokens equal, near ties, router flips)."""
+    flipped = {}
+    for (at_k, slots, seen_k), (_, _, seen_t) in zip(kern.calls, twin.calls):
+        diff = torch.zeros_like(slots, dtype=torch.bool)
+        for a, b in zip(seen_k, seen_t):
+            diff |= (a != b).any(-1) & (slots >= 0)
+        for slot in set(slots[diff].tolist()):
+            req_id, j = at_k[slot]
+            flipped.setdefault(req_id, j)
+    same = ties = 0
+    worst = 0.0
+    outs = [list(r.output_ids) for r in reqs]
+    for i, (rk, rt) in enumerate(zip(reqs, twin_reqs)):
+        o, w = outs[i], list(rt.output_ids)
+        stop = flipped.get(rk.req_id, len(o))
+        for j, (a, b) in enumerate(zip(o, w)):
+            if j >= stop:
+                break
+            row_k = kern.rows.get((rk.req_id, j))
+            row_t = twin.rows.get((rt.req_id, j))
+            if row_k is None or row_t is None:   # emitted by a prefill
+                if a != b:
+                    raise AssertionError(f"fp16 ({label}) request {i} token "
+                                         f"{j}: {a} vs the twin's {b} with "
+                                         "no logits row to hold them")
+                same += 1
+                continue
+            err = (row_k - row_t).abs().max().item()
+            held = err / row_t.abs().max().clamp_min(1e-30).item()
+            worst = max(worst, held)
+            if not held <= F16_STEP_TOL:
+                raise AssertionError(f"fp16 ({label}) request {i} token {j}:"
+                                     f" logits {held:.3e} of the row's max "
+                                     f"from the twin's (tol {F16_STEP_TOL})")
+            if a == b:
+                same += 1
+                continue
+            top2 = row_t.topk(2).values
+            margin = (top2[0] - top2[1]).item()
+            if margin > 2 * err:
+                raise AssertionError(f"fp16 ({label}) request {i} token {j}:"
+                                     f" {a} vs the twin's {b}, top-2 margin "
+                                     f"{margin:.3e} > 2 x {err:.3e}")
+            ties += 1
+            break
+    log(f"[fp16] serve ({label}): kernel vs twin route, logits rows within "
+        f"{worst:.3e} of their max (tol {F16_STEP_TOL}); {same} of "
+        f"{sum(map(len, outs))} tokens equal before a near tie ({ties}) or a"
+        f" router flip ({len(flipped)} requests)")
+    return same, ties, len(flipped)
+
+
+def serve16(label, make, cfg, early, late, legacy=False, routes=False):
+    """One fp16 served run of ``make()`` on the kernels and one on the twins,
+    held by :func:`hold_streams`. Returns the kernel run's launch counts
+    (read right after it) and its step count."""
+    sp = make()
+    rec = StepRecord(sp, legacy, routes)
     reset_counts()
-    outs = [list(r.output_ids) for r in serve(sp, early, late)]
+    n0 = twin_route_count()
+    reqs = serve(sp, early, late)
+    outs = [list(r.output_ids) for r in reqs]
     torch.cuda.synchronize()
-    routes, ragged_n = twin_route_count() - n0, read_counts()[1]
-    same = sum(a == b for o, w in zip(outs, fp_outs) for a, b in zip(o, w))
-    log(f"[fp16] serve GPT-125M fp16: {sp.steps} steps, twin routes {routes}"
-        f" (steps x {cfg.num_layers} = {sp.steps * cfg.num_layers}), ragged "
-        f"launches {ragged_n}; {sum(map(len, outs))} tokens, equal to the "
-        f"fp32 streams in {same}")
-    if routes != sp.steps * cfg.num_layers or ragged_n or any(
-            len(o) != MAX_NEW for o in outs):
-        raise AssertionError(f"fp16 serving: routes {routes}, ragged "
-                             f"{ragged_n}, streams {list(map(len, outs))}")
+    counts = dict(routes=twin_route_count() - n0, ragged=read_counts()[1],
+                  decode=legacy_counts()[0], qmm=qmm_counts(),
+                  qmm_tc=qmm_tc_count(), mega=mega_counts(),
+                  gmm=gmm_counts(), gmm_tc=gmm_tc_counts(),
+                  gmm_sk=gmm_sk_count(), steps=sp.steps,
+                  kv=str(sp.cache.k_pool.dtype)[6:], calls=rec.n)
+    if sum(map(len, outs)) != MAX_NEW * len(outs) or not all(
+            0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"fp16 ({label}): malformed streams")
+    with twins():
+        sp_t = make()
+        rec_t = StepRecord(sp_t, legacy, routes)
+        n1 = twin_route_count()
+        twin_reqs = serve(sp_t, early, late)
+        torch.cuda.synchronize()
+        if twin_route_count() == n1:
+            raise AssertionError(f"fp16 ({label}): the twin route ran no "
+                                 "twin")
+    counts["held"] = hold_streams(label, rec, rec_t, reqs, twin_reqs)
+    return counts
+
+
+def f16_grads_held(label, kern, plain, exact, tol):
+    """Per gradient leaf, the fp16 kernel route against the fp16 plain
+    route: within ``tol`` of the leaf's max |grad|; where a leaf is past it,
+    the kernel route's worst leaf distance from the exact gradients (the
+    fp32 plain route on the same weights) within ``BERT_NOISE_MARGIN`` x
+    the plain route's; and every kernel leaf within ``F16_GRAD_CAP`` of
+    exact, or no farther from it than ``BERT_NOISE_MARGIN`` x the plain
+    route's leaf (fp16 without loss scaling loses gradient on leaves no
+    kernel touches, BERT's MLM head among them, on both routes alike).
+    Returns the readings."""
+    errs = _grad_errors(kern, plain)
+    ek, ep = (_grad_errors(g, exact) for g in (kern, plain))
+    worst = max(errs, key=errs.get)
+    noisy = sorted(n for n in errs if errs[n] > tol)
+    far = sorted(n for n in ek if not (ek[n] <= F16_GRAD_CAP
+                                       or ek[n] <= BERT_NOISE_MARGIN * ep[n]))
+    ratio = max(ek.values()) / max(max(ep.values()), 1e-30)
+    log(f"[fp16] {label}: {len(errs)} gradient leaves, kernel vs plain "
+        f"route worst {worst} {errs[worst]:.3e} of its max |grad| (tol "
+        f"{tol}), {len(noisy)} past it; from the exact fp32 gradients, "
+        f"worst leaf kernel route {max(ek.values()):.3e} (cap "
+        f"{F16_GRAD_CAP}), plain route {max(ep.values()):.3e}, ratio "
+        f"{ratio:.3f} (margin {BERT_NOISE_MARGIN}"
+        + (" held)" if noisy else " not needed)"))
+    if far or (noisy and ratio > BERT_NOISE_MARGIN):
+        raise AssertionError(f"fp16 {label}: kernel and plain routes "
+                             f"disagree: past the cap {far}, worst-leaf "
+                             f"ratio {ratio} on {noisy}")
+    return dict(worst=errs[worst], noisy=len(noisy), ratio=ratio)
+
+
+def f16_serving(model, cfg, dev):
+    """(a) GPT-125M served in fp16, each config on the kernels and then on
+    the twins (:func:`serve16`), the kernel runs' launches checked; then
+    the fp16 full forward on ids [4, 512] against plain attention.
+    Returns the fp16 launches by kernel row."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+
+    f16, L = torch.float16, cfg.num_layers
+    early, late = requests(cfg)
+    n = dict.fromkeys(("ragged", "decode", "flash_fwd", "qmm_int8",
+                       "qmm_int4", "mega_attn", "mega_mlp", "gmm_fp",
+                       "gmm_int8", "gmm_int4"), 0)
+    for label, quant, kw in F16_SERVE:
+        c = serve16(label, lambda: quant_predictor(model, cfg, quant, dev,
+                                                   dtype=f16, **kw),
+                    cfg, early, late, legacy=kw.get("unified") is False)
+        steps, bits = c["steps"], quant.get("weight_dtype")
+        mega = kw.get("mega_decode", False)
+        legacy = kw.get("unified") is False
+        want = dict(ragged=0 if mega or legacy else L * steps,
+                    decode=L * c["calls"] if legacy else 0,
+                    mega=(L * steps,) * 2 if mega else (0, 0))
+        got = dict(ragged=c["ragged"], decode=c["decode"], mega=c["mega"])
+        qmm = c["qmm"].get(bits, 0) if bits else 0
+        log(f"[fp16] serve ({label}): {steps} steps, twin routes "
+            f"{c['routes']}, launches ragged {c['ragged']}, decode "
+            f"{c['decode']}, mega {c['mega']}, weight-only GEMM {c['qmm']} "
+            f"({c['qmm_tc']} on the tensor-core route), KV pool {c['kv']}")
+        if (c["routes"] or got != want or (bits and (
+                qmm != 4 * L * (steps if not legacy else c["calls"]) or
+                (not legacy and c["qmm_tc"] != qmm)))
+                or (quant.get("kv_cache_dtype") == "int8") != (
+                    c["kv"] == "int8")):
+            raise AssertionError(f"fp16 ({label}): routes {c['routes']}, "
+                                 f"launches {got} (want {want}), GEMM "
+                                 f"{c['qmm']} / tc {c['qmm_tc']}")
+        n["ragged"] += c["ragged"]
+        n["decode"] += c["decode"]
+        n["mega_attn"] += c["mega"][0]
+        n["mega_mlp"] += c["mega"][1]
+        if bits:
+            n[f"qmm_{bits}"] += qmm
+    # MoE, 4 experts top-2 at cf 4.0 (nothing dropped), fp / int8 / int4
+    # g128 expert stacks (the qkv and output projections quantized too)
+    mcfg = replace(cfg, **MOE, moe_capacity_factor=4.0)
+    moe = moe_model(mcfg, dev)
+    for label, quant in F16_MOE:
+        c = serve16(label, lambda: quant_predictor(moe, mcfg, quant, dev,
+                                                   dtype=f16),
+                    mcfg, early, late, routes=True)
+        steps, bits = c["steps"], quant.get("weight_dtype")
+        kind = bits or "fp"
+        want = 2 * L * steps
+        ok = (not c["routes"] and c["ragged"] == L * steps
+              and c["gmm"][kind] == want == sum(c["gmm"].values())
+              and (c["gmm_tc"][0] == want if kind == "fp"
+                   else c["gmm_sk"] == want)
+              and (not bits or c["qmm"][bits] == c["qmm_tc"] == want))
+        log(f"[fp16] serve ({label}): {steps} steps, twin routes "
+            f"{c['routes']}, grouped GEMM {c['gmm']} (tensor cores "
+            f"{c['gmm_tc'][0]}, skinny {c['gmm_sk']}), weight-only GEMM "
+            f"{c['qmm']} ({c['qmm_tc']} tensor-core), ragged {c['ragged']}")
+        if not ok:
+            raise AssertionError(f"fp16 ({label}): launches {c}")
+        n[f"gmm_{kind}"] += c["gmm"][kind]
+        n["ragged"] += c["ragged"]
+        if bits:
+            n[f"qmm_{bits}"] += c["qmm"][bits]
+    del moe
+    # the fp16 full forward on ids [4, 512]: flash against plain attention
+    m16 = state_from_jax_numpy(random_state(cfg, SEED), replace(cfg),
+                               device=dev, dtype=f16)
+    m16.eval()
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (4, 512))).to(dev)
+    with torch.no_grad():
+        reset_counts()
+        n0 = twin_route_count()
+        logits = m16(ids).float()
+        torch.cuda.synchronize()
+        flash_n, routes = read_counts()[0], twin_route_count() - n0
+        m16.config.use_flash_attention = False
+        plain = m16(ids).float()
+    held = ((logits - plain).abs().amax(-1)
+            / plain.abs().amax(-1).clamp_min(1e-30)).max().item()
+    log(f"[fp16] GPT-125M fp16 full forward on ids [4, 512]: flash "
+        f"launches {flash_n}, twin routes {routes}; logits vs plain "
+        f"attention {held:.3e} of each row's max (tol {F16_STEP_TOL})")
+    if flash_n != L or routes or not held <= F16_STEP_TOL or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"fp16 full forward: flash {flash_n}, routes "
+                             f"{routes}, logits {held}")
+    n["flash_fwd"] += flash_n
+    del m16
+    return n
+
+
+def f16_training(dev):
+    """(b) the fused LN + residual and bias + GELU forward at GPT-125M's
+    widths against the fp16 twins; the ``gpt_spmd`` training step in fp16
+    at gpt3-760m's width (16 heads of 96), 2 layers, b 2, s 1024, unfused
+    and ``fused_mlp``, no loss scaling: gradients on the kernels against
+    the plain route and the exact fp32 gradients (:func:`f16_grads_held`),
+    then ``F16_TRAIN_STEPS`` momentum-SGD steps with finite, falling
+    losses. Returns the launches by kernel row."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models import gpt_spmd
+    from paddle_tpu_torch.models.convert import random_train_params
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops.fused_mlp import (fused_bias_gelu,
+                                                fused_ln_residual)
+
+    f16 = torch.float16
+    n = dict.fromkeys(("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd",
+                       "gelu_fwd", "gelu_bwd"), 0)
     rng = np.random.RandomState(SEED)
-    f16 = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(dev, torch.float16)
-    x, res, h1 = f16(2048, 768), f16(2048, 768), f16(2048, 3072)
-    g, bt, bias = 1 + 0.1 * f16(768), 0.1 * f16(768), 0.1 * f16(3072)
-    n1 = twin_route_count()
-    y, s = fused_ln_residual(x, res, g, bt)
-    u = fused_bias_gelu(h1, bias)
+    h16 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev, f16)
+    x, res, h1 = h16(2048, 768), h16(2048, 768), h16(2048, 3072)
+    g, bt, bias = 1 + 0.1 * h16(768), 0.1 * h16(768), 0.1 * h16(3072)
+    reset_counts()
+    n0 = twin_route_count()
+    outs = (*fused_ln_residual(x, res, g, bt), fused_bias_gelu(h1, bias))
     torch.cuda.synchronize()
-    want_s = x.float() + res.float()
-    errs = [kernel_error(y, ln_reference(want_s, g.float(), bt.float()),
-                         torch.bfloat16)[1],
-            kernel_error(u, gelu_reference(h1.float(), bias.float()),
-                         torch.bfloat16)[1]]
-    log(f"[fp16] fused LN + residual / bias + GELU forward: twin routes "
-        f"{twin_route_count() - n1}, row errors vs the fp32 twins "
-        f"{errs[0]:.3e} / {errs[1]:.3e} (held as bf16, "
-        f"{KERNEL_TOL[torch.bfloat16]})")
-    if (twin_route_count() - n1 != 2 or y.dtype != torch.float16
-            or s.dtype != torch.float16 or max(errs) > KERNEL_TOL[
-                torch.bfloat16]):
-        raise AssertionError(f"fp16 fused forward: routes "
-                             f"{twin_route_count() - n1}, errors {errs}")
-    return twin_route_count() - n0
+    counts, routes = fused_counts(), twin_route_count() - n0
+    with twins():
+        want = (*fused_ln_residual(x, res, g, bt), fused_bias_gelu(h1, bias))
+    errs = [kernel_error(a, b, f16)[1] for a, b in zip(outs, want)]
+    log(f"[fp16] fused LN + residual (y, s) / bias + GELU forward at [2048, "
+        f"768] / [2048, 3072]: launches {counts[0]} / {counts[2]}, twin "
+        f"routes {routes}; row errors vs the fp16 twins "
+        + " / ".join(f"{e:.3e}" for e in errs) + f" (tol {F16_TOL})")
+    if routes or counts[0] != 1 or counts[2] != 1 or not max(errs) <= F16_TOL:
+        raise AssertionError(f"fp16 fused forward: routes {routes}, "
+                             f"launches {counts}, errors {errs}")
+    n["ln_fwd"] += counts[0]
+    n["gelu_fwd"] += counts[2]
+    base = replace(GPT_CONFIGS["gpt3-760m"], num_layers=2, recompute=True,
+                   remat_save_attn=True)
+    weights = random_train_params(base, SEED)
+    # the exact route's fp32 weights: the fp16 ones, widened
+    weights32 = gpt_spmd.unflatten(
+        (path, a.astype(np.float16).astype(np.float32))
+        for path, a in gpt_spmd.leaves(weights))
+    exact = None   # the fp32 plain route: one function, fused or not
+    for fused in (False, True):
+        cfg = replace(base, fused_mlp=fused)
+        tag = f"gpt_spmd fp16 {'fused_mlp' if fused else 'unfused'}"
+        grads = {} if exact is None else dict(exact=exact)
+        for route in ("kernel", "plain", "exact")[:3 if exact is None else 2]:
+            with twins() if route != "kernel" else contextlib.nullcontext():
+                step, params, mom, (ids, labels) = \
+                    gpt_spmd.build_spmd_train_step(
+                        cfg, batch_size=2, seq_len=1024, num_micro=1,
+                        lr=0.05, device=dev,
+                        params=weights32 if route == "exact" else weights,
+                        dtype=torch.float32 if route == "exact" else f16)
+                reset_counts()
+                n0 = twin_route_count()
+                loss, g = gpt_spmd.value_and_grad(params, ids, labels, cfg, 1)
+                torch.cuda.synchronize()
+                grads[route] = (loss.item(), dict(gpt_spmd.leaves(g)))
+            if route == "kernel":
+                launches = (read_counts()[0], bwd_count(), *fused_counts())
+                routes = twin_route_count() - n0
+                losses = []
+                for _ in range(F16_TRAIN_STEPS):
+                    params, mom, loss = step(params, mom, ids, labels)
+                    losses.append(loss.item())
+                torch.cuda.synchronize()
+                total = (read_counts()[0], bwd_count(), *fused_counts())
+            del step, params, mom, g
+        exact = grads["exact"]
+        loss_err = abs(grads["kernel"][0] - grads["plain"][0]) / abs(
+            grads["plain"][0])
+        log(f"[fp16] {tag}, 2 layers b2 s1024 recompute+save_attn: loss "
+            f"{grads['kernel'][0]:.6f} vs plain {grads['plain'][0]:.6f} "
+            f"(rel err {loss_err:.3e}, tol {F16_LOSS_TOL}), exact fp32 "
+            f"{grads['exact'][0]:.6f}; launches flash fwd/bwd, LN fwd/bwd, "
+            f"GELU fwd/bwd {launches}, twin routes {routes}; "
+            f"{F16_TRAIN_STEPS} steps at lr 0.05: "
+            + ", ".join(f"{x:.6f}" for x in losses))
+        f16_grads_held(tag, grads["kernel"][1], grads["plain"][1],
+                       grads["exact"][1], F16_GRAD_TOL)
+        want = (2, 2) + ((2, 2, 2, 2) if fused else (0, 0, 0, 0))
+        if (routes or launches[:2] != want[:2] or (fused and not all(
+                launches[2:])) or (not fused and any(launches[2:]))
+                or not loss_err <= F16_LOSS_TOL
+                or not np.isfinite(losses).all()
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"{tag}: routes {routes}, launches "
+                                 f"{launches} (want {want[:2]} flash), loss "
+                                 f"{loss_err}, steps {losses}")
+        for key, v in zip(("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd",
+                           "gelu_fwd", "gelu_bwd"), total):
+            n[key] += v
+    return n
+
+
+def f16_bert(dev):
+    """(c) BERT in fp16 at bert-base width (12 heads of 64), 2 layers, the
+    padded batch of phase 13 (16 x 512, lengths 64-512): the MLM + NSP
+    gradients through the masked kernels against ``plain_attention()`` and
+    the exact fp32 gradients (:func:`f16_grads_held`); then
+    ``flash_attn_unpadded`` on the batch's lengths (phase 13 (c) in fp16).
+    Returns the mask and lens launches."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models.bert import BERT_CONFIGS
+    from paddle_tpu_torch.models.convert import (bert_from_jax_numpy,
+                                                 bert_to_numpy,
+                                                 random_bert_state)
+
+    cfg = replace(BERT_CONFIGS["bert-base"], hidden_dropout=0.0,
+                  attn_dropout=0.0, num_layers=F16_BERT_LAYERS)
+    L = cfg.num_layers
+    state = random_bert_state(cfg, SEED)
+    batch = bert_batch(cfg, dev, SEED)
+    lens = batch.pop("lens")
+    n0 = twin_route_count()
+    model = bert_from_jax_numpy(state, cfg, device=dev, dtype=torch.float16)
+    losses, grads = zip(*(bert_route_grads(model, batch, flash, L)
+                          for flash in (True, False)))
+    routes = twin_route_count() - n0
+    # exact: the fp32 plain route on the fp16 weights, widened
+    exact = bert_route_grads(bert_from_jax_numpy(
+        bert_to_numpy(model.state_dict()), cfg, device=dev), batch, False, L)
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    log(f"[fp16] bert-base width fp16, {L} layers, batch {BERT_BATCH} x "
+        f"{BERT_SEQ} (lengths {lens.tolist()}): masked flash launches "
+        f"{L} / {L}, twin routes {routes}; loss {losses[0]:.6f} vs plain "
+        f"{losses[1]:.6f} (rel err {loss_err:.3e}, tol {F16_LOSS_TOL}), "
+        f"exact fp32 {exact[0]:.6f}")
+    f16_grads_held(f"bert fp16 {L} layers", grads[0], grads[1], exact[1],
+                   F16_GRAD_TOL)
+    if routes or not loss_err <= F16_LOSS_TOL or not np.isfinite(losses[0]):
+        raise AssertionError(f"bert fp16: routes {routes}, loss {loss_err}")
+    del model, grads, exact
+    varlen, _ = phase_bert_varlen(dev, lens, torch.float16)
+    return dict(mask_fwd=L, mask_bwd=L, lens_fwd=varlen["fwd"],
+                lens_bwd=varlen["bwd"])
+
+
+def f16_grad_drives(model, cfg, dev):
+    """(d) the input-gradient drives in fp16: d(loss)/d(input embeddings)
+    through GPT-125M's 12 layers with int8 and int4 g128 weights (rows 11
+    and 12 under the custom op's backward), and through layer 0 of the
+    2-layer MoE model's FFN with fp and int8 expert stacks (rows 18 and
+    19), each against the same drive on the plain versions, to
+    ``F16_DRIVE_TOL`` of its max |grad|. Returns the backward launches."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+    from paddle_tpu_torch.models.moe import moe_ffn
+    from paddle_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                   quant_matmul_reference)
+
+    f16, n = torch.float16, {}
+    ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, 257)).to(dev)
+    for bits, quant in (("int8", dict(weight_dtype="int8")),
+                        ("int4", dict(weight_dtype="int4",
+                                      weight_quant_group_size=128))):
+        params = quant_predictor(model, cfg, quant, dev, dtype=f16).params
+        grads, counts = {}, None
+        for name, mm in (("kernel", quant_matmul),
+                         ("plain", quant_matmul_reference)):
+            x = embed(params, ids[:-1]).detach().requires_grad_()
+            reset_counts()
+            n0 = twin_route_count()
+            logits = quant_forward(params, x, cfg, False, mm)
+            torch.nn.functional.cross_entropy(logits.float(),
+                                              ids[1:]).backward()
+            torch.cuda.synchronize()
+            if name == "kernel":
+                counts, routes = qmm_counts(), twin_route_count() - n0
+            grads[name] = x.grad.float()
+        err = ((grads["kernel"] - grads["plain"]).abs().max()
+               / grads["plain"].abs().max()).item()
+        want = 4 * cfg.num_layers
+        log(f"[fp16] {bits} gradient wrt the input embeddings ([256, 768]) "
+            f"through {cfg.num_layers} quantized layers: kernel vs plain "
+            f"{err:.3e} of its max |grad| (tol {F16_DRIVE_TOL}); launches "
+            f"{counts}, twin routes {routes}")
+        if (routes or not err <= F16_DRIVE_TOL or counts[bits] != want
+                or counts[f"{bits}_bwd"] != want):
+            raise AssertionError(f"fp16 {bits} input gradient: {err}, "
+                                 f"launches {counts}, routes {routes}")
+        n[f"qmm_{bits}_bwd"] = counts[f"{bits}_bwd"]
+    mcfg = replace(cfg, **MOE, num_layers=2)
+    moe = moe_model(mcfg, dev)
+    m = moe.gpt.layers[0].mlp
+    x0 = moe.gpt.embeddings(ids[None, :-1]).detach().reshape(
+        -1, cfg.hidden_size).to(f16)
+    r = torch.from_numpy(np.random.RandomState(SEED + 5).standard_normal(
+        x0.shape).astype(np.float32)).to(dev)
+    w16 = [t.detach().to(f16) for t in (m.gate_weight, m.w1, m.b1, m.w2,
+                                        m.b2)]
+    for kind in ("fp", "int8"):
+        w1, w2 = w16[1], w16[3]
+        if kind == "int8":
+            w1, w2 = (quantize_weight(w, "int8") for w in (w1, w2))
+        dx = {}
+        for use_kernel in (None, False):
+            x = x0.clone().requires_grad_()
+            reset_counts()
+            n0 = twin_route_count()
+            out, _ = moe_ffn(x, w16[0], w1, w16[2], w2, w16[4],
+                             top_k=mcfg.moe_top_k,
+                             capacity_factor=mcfg.moe_capacity_factor,
+                             use_kernel=use_kernel)
+            (out.float() * r).sum().backward()
+            torch.cuda.synchronize()
+            if use_kernel is None:
+                counts, tc = gmm_counts(), gmm_tc_counts()
+                routes = twin_route_count() - n0
+            dx[use_kernel] = x.grad.float()
+        err = ((dx[None] - dx[False]).abs().max()
+               / dx[False].abs().max()).item()
+        log(f"[fp16] input gradient through layer 0's MoE FFN ({kind} "
+            f"expert stacks, {list(x0.shape)}): kernel vs plain {err:.3e} of "
+            f"its max |grad| (tol {F16_DRIVE_TOL}); launches {counts}, "
+            f"tensor-core {tc}, twin routes {routes}")
+        if (routes or not err <= F16_DRIVE_TOL
+                or counts[f"{kind}_bwd"] != 2
+                or (kind == "fp" and tc != [2, 2])):
+            raise AssertionError(f"fp16 MoE {kind} input gradient: {err}, "
+                                 f"launches {counts}, tc {tc}")
+        n[f"gmm_{kind}_bwd"] = counts[f"{kind}_bwd"]
+    del moe
+    return n
+
+
+def phase_fp16(model, cfg, dev):
+    """Phase 14: the fp16 paths on the fp16 kernels, ``ops.twin_routes()``
+    0 on each: (a) serving, (b) the fused-MLP forward and the training
+    step, (c) BERT, (d) the input-gradient drives. Returns the fp16
+    launches by kernel row."""
+    n = {}
+    for part in (f16_serving(model, cfg, dev), f16_training(dev),
+                 f16_bert(dev), f16_grad_drives(model, cfg, dev)):
+        for k, v in part.items():
+            n[k] = n.get(k, 0) + v
+    log(f"[fp16] launches on the fp16 paths by kernel row: {n}")
+    return n
 
 
 def paged_walks_only(root: Path) -> int:
@@ -5583,10 +6111,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "quant_matmul",
-                          "fused_mlp", "mega_decode", "grouped_matmul",
-                          "paged_decode_attention"])
+                          "fused_mlp", "mega_decode", "mega_decode_f16",
+                          "grouped_matmul", "paged_decode_attention"])
     PHASE_S["build"] = time.perf_counter() - t0
-    log(f"[build] eight kernel sources for sm_90a in "
+    log(f"[build] nine kernel sources for sm_90a in "
         f"{PHASE_S['build']:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
@@ -5670,11 +6198,14 @@ def main() -> int:
     timed(phase_eager_grads, model, cfg, dev)
     fused = timed(phase_fused_kernels, dev)
     timed(phase_fused_eager, model, cfg, dev)
-    # every fp32 / bf16 path so far ran the kernels; fp16 runs the twins
+    # every path so far ran the kernels; 14. the fp16 paths run the fp16
+    # kernels (each held against the same path on the twins, whose calls
+    # count as twin routes: read the count after it)
     if twin_route_count():
-        raise AssertionError(f"{twin_route_count()} fp32 / bf16 calls ran a "
-                             "plain twin on the card")
-    fp16_routes = timed(phase_fp16, model, cfg, dev, fp_outs)
+        raise AssertionError(f"{twin_route_count()} fp32 / bf16 / fp16 calls"
+                             " ran a plain twin on the card")
+    n16 = timed(phase_fp16, model, cfg, dev)
+    twin_n = twin_route_count()
     del model
     timed(phase_train_fp32, dev)
     timed(phase_train_bf16_parity, dev)
@@ -5692,9 +6223,9 @@ def main() -> int:
     varlen_launches = timed(phase_bert_varlen, dev, bert["lens"])[0]
     branches = timed(phase_bert_branches, dev, bert["lens"])
 
-    if twin_route_count() != fp16_routes:
-        raise AssertionError(f"{twin_route_count() - fp16_routes} fp32 / "
-                             "bf16 training calls ran a plain twin")
+    if twin_route_count() != twin_n:
+        raise AssertionError(f"{twin_route_count() - twin_n} fp32 / bf16 "
+                             "training calls ran a plain twin")
     kernels = []
     bf16 = torch.bfloat16
     qmm_rows = []
@@ -5977,6 +6508,74 @@ def main() -> int:
         f"the same pools: fp32 {decode[torch.float32]['ragged_ms']:.4f} ms, "
         f"bf16 {d16['ragged_ms']:.4f} ms; launches: phase 12's fp32 legacy "
         "served runs (GPT-125M fp and int8, the d 96 model)")
+    # each row's fp16 instance: launches on the fp16 paths of phase 14, its
+    # route, and the same figures as the row's, from the fp16 legs of the
+    # phases that time the row (beside the bf16 leg's time)
+    f16, keys = torch.float16, ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")
+
+    def qmm_leg(bits, gs, t, bwd):
+        st = qmm[(f"int{bits}", gs, t)]
+        return (dict(st, ms=st["bwd_ms"], plain_ms=st["bwd_plain_ms"],
+                     max_abs_err=st["bwd_max_abs_err"], library_ms=None)
+                if bwd else st)
+
+    legs = {   # row: (fp16 stats, bf16 stats, fp16 route, fp16 launches)
+        "ragged_paged_attention": (
+            ragged[f16], ragged[bf16], "CUDA cores: the split page walk "
+            "(fp32 FMA over fp16 pages)", n16["ragged"]),
+        "paged_decode_attention": (
+            decode[f16], decode[bf16], "CUDA cores: the split page walk",
+            n16["decode"]),
+        "flash_attention_fwd": (
+            bwd[f16]["fwd"], bwd[bf16]["fwd"], "tensor cores: wgmma "
+            "(d 128, this shape), mma.sync below", n16["flash_fwd"]),
+        "flash_attention_bwd": (bwd[f16], bwd[bf16], "tensor cores: "
+                                "mma.sync", n16["flash_bwd"]),
+        **{f"quant_matmul_int{bits}{sfx}": (
+            qmm_leg(bits, gs, f16, sfx), qmm_leg(bits, gs, bf16, sfx),
+            "CUDA cores: qmm_kernel" if sfx else
+            "tensor cores: qmm_tc_kernel (mma.sync, dequantized in "
+            "registers)", n16[f"qmm_int{bits}{sfx}"])
+           for bits, gs in ((8, -1), (4, 128)) for sfx in ("", "_bwd")},
+        **{f"fused_mlp_{fkind}": (
+            fused[(fkind, "plain", f16)], fused[(fkind, "plain", bf16)],
+            "CUDA cores: streaming, fp32 math", n16[fkind])
+           for fkind, _ in FUSED_KINDS},
+        "mega_attn": (mega[(None, False, f16)]["attn"],
+                      mega[(None, False, bf16)]["attn"],
+                      "tensor cores: mma.sync (QKV, projection), the page "
+                      "walk on the CUDA cores", n16["mega_attn"]),
+        "mega_mlp": (mlp_rounds[("served round", None, f16)],
+                     mlp_rounds[("served round", None, bf16)],
+                     "tensor cores: the skinny tile (mma.sync)",
+                     n16["mega_mlp"]),
+        **{f"grouped_matmul_{name}": (
+            gmm[(kname, label, f16, "a")], gmm[(kname, label, bf16, "a")],
+            route, n16[f"gmm_{name}"]) for name, kname, label, route in (
+            ("fp", "gmm", "fp", "tensor cores: gmm_tc_kernel (mma.sync)"),
+            ("int8", "gmm_q", "int8", "tensor cores: gmm_sk_kernel"),
+            ("int4", "gmm_q4", "int4 g128", "tensor cores: gmm_sk_kernel"),
+            ("fp_bwd", "gmm_bwd", "fp", "tensor cores: gmm_tc_kernel dx"),
+            ("int8_bwd", "gmm_q_bwd", "int8", "CUDA cores: gmm_kernel"))},
+        **{f"flash_attention_{part}_{branch}": (
+            branches[(key, f16)][part], branches[(key, bf16)][part],
+            "tensor cores: mma.sync", n16[f"{key}_{part}"])
+           for part in ("fwd", "bwd")
+           for branch, key in (("mask", "mask"), ("varlen", "lens"))},
+    }
+    for row in kernels:
+        st, b16, route, n = legs[row["name"]]
+        row["fp16"] = dict(route=route, launches=n, bf16_ms=b16["ms"],
+                           **{k: st[k] for k in keys})
+        if not n:
+            raise AssertionError(f"{row['name']}: no fp16 launch on the "
+                                 "fp16 paths")
+    log("[fp16] by kernel row, fp16 vs bf16 ms (" + card + "): " + "; ".join(
+        f"{r['name']} {r['fp16']['ms']:.4f} vs {r['fp16']['bf16_ms']:.4f} "
+        f"({r['fp16']['ms'] / r['fp16']['bf16_ms'] - 1:+.1%}), bound "
+        f"{r['fp16']['bound_ms']:.6f}, launches {r['fp16']['launches']}"
+        for r in kernels))
     log("[time] wall seconds by phase (moe_serve_quant_bf16 inside "
         "phase_moe_serve): " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in PHASE_S.items()))

@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a): bf16 on the tensor cores,
-// fp32 on the CUDA cores.
+// Flash attention backward for Hopper (sm_90a): bf16 and fp16 on the
+// tensor cores, fp32 on the CUDA cores.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_fused_kernel, all
 // of its branches: dq, dk and dv from the forward's lse and delta =
@@ -36,7 +36,8 @@
 // ms at 989 TFLOP/s bf16 (0.96 ms at the fp32 CUDA-core peak); the inputs
 // and outputs are ~100 MB in bf16, 0.03 ms.
 //
-// bf16 (flash_bwd_tc_kernel, head_dim 32, 64, 80, 96, 128): 256 threads, a
+// bf16 and fp16 (flash_bwd_tc_kernel<T>, head_dim 32, 64, 80, 96, 128; one
+// template, the mma's type suffix and the roundings differ): 256 threads, a
 // key block of 128, and each of the 8 warps owns 16 keys. The block walks
 // (q head, 64-row q block) items through a 2-stage cp.async ring (Q, dO,
 // lse, delta), so the next item's copy overlaps this one's products. All
@@ -44,7 +45,7 @@
 // computes S^T = K Q^T and dP^T = V dO^T for its 16 keys (K, V fragments
 // by ldmatrix, Q, dO as B fragments), so P^T and dS^T come out in the
 // accumulator layout, which is the A layout of dV += P^T dO and dK +=
-// dS^T Q: both stay in registers, rounded to bf16. dS^T goes to shared
+// dS^T Q: both stay in registers, rounded to T. dS^T goes to shared
 // memory once (pitch 72), and after a barrier the 8 warps split dQ's
 // 64 x d tile (4 row tiles x 2 column halves), read dS and K by
 // ldmatrix.trans, and add their fp32 fragments into dq with vector
@@ -85,12 +86,6 @@ constexpr size_t smem_bytes() {
   // Ks, Vs: [64][D+1]; Qs, dOs: [64][D+1]; Ps, dSs: [64][65]; lse, delta: [64]
   return sizeof(float) *
          (2 * kBK * (D + 1) + 2 * kBQ * (D + 1) + 2 * kBQ * kPS + 2 * kBQ);
-}
-
-// x rounded to T and back: the Pallas kernel's `.astype` before a product
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <typename T, int D, bool MASK, bool LENS>
@@ -207,8 +202,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if constexpr (MASK)
             if (ok) x += mp[row * br.sr + col];
           const float p = ok ? expf(x - lse_s[r]) : 0.f;
-          Ps[r * kPS + c] = round_to(p, T());
-          dSs[r * kPS + c] = round_to(p * (dp[i][j] - delta_s[r]), T());
+          // rounded to T and back: the Pallas kernel's `.astype` before a
+          // product
+          Ps[r * kPS + c] = ptt::round_to<T>(p);
+          dSs[r * kPS + c] = ptt::round_to<T>(p * (dp[i][j] - delta_s[r]));
         }
       }
       __syncthreads();
@@ -278,7 +275,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------
+// ---- bf16 / fp16 on the tensor cores ---------------------------------
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -291,9 +288,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  // K, V [128][D+8]; 2 stages of Q, dO [64][D+8]; dS^T [128][72] (bf16);
+  // K, V [128][D+8]; 2 stages of Q, dO [64][D+8]; dS^T [128][72] (16-bit);
   // 2 stages of lse, delta [64] (fp32)
-  return sizeof(bf16) * ((2 * kTcBK + 4 * kTcBQ) * (D + 8) + kTcBK * kTcSP) +
+  return 2 * ((2 * kTcBK + 4 * kTcBQ) * (D + 8) + kTcBK * kTcSP) +
          sizeof(float) * 4 * kTcBQ;
 }
 
@@ -306,19 +303,19 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dk, T* __restrict__ dv,
                     const FlashBranches br, int hq, int hkv, int sq, int sk,
                     float scale, int causal) {
-  static_assert(std::is_same_v<T, bf16>, "the tensor-core path is bf16");
+  static_assert(ptt::is16<T>, "the tensor-core path is bf16 or fp16");
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   static_assert((D / 8) % kColSplit == 0, "dQ columns split evenly");
-  constexpr int P = D + 8;          // shared row pitch, bf16 elements
+  constexpr int P = D + 8;          // shared row pitch, elements
   constexpr int KS = D / 16;        // k-steps over d
   constexpr int NQ = kTcBQ / 8;     // 8-row C tiles of S^T over q
   constexpr int ND = D / 8;         // 8-col C tiles over d
   constexpr int NW = ND / kColSplit;  // dQ C tiles a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTcBK * P;
-  bf16* ring = Vs + kTcBK * P;  // stage s: Q at ring + 2s*64*P, dO after
-  bf16* dSs = ring + 4 * kTcBQ * P;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kTcBK * P;
+  T* ring = Vs + kTcBK * P;  // stage s: Q at ring + 2s*64*P, dO after
+  T* dSs = ring + 4 * kTcBQ * P;
   float* stats = reinterpret_cast<float*>(dSs + kTcBK * kTcSP);
   // stage s: lse at stats + 2s*64, delta after it
 
@@ -345,7 +342,7 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + it / per_head;
     const int q0 = (lower + it % per_head) * kTcBQ;
     const long bh = (long)b * hq + h;
-    bf16* Qs = ring + (it & 1) * 2 * kTcBQ * P;
+    T* Qs = ring + (it & 1) * 2 * kTcBQ * P;
     const long row0 = ((long)b * sq + q0) * q_row + (long)h * D;
     ptt::cp_tile<D, kTcBQ, kTcThreads>(Qs, q + row0, q_row, qv - q0, q);
     ptt::cp_tile<D, kTcBQ, kTcThreads>(Qs + kTcBQ * P, dout + row0, q_row,
@@ -380,8 +377,8 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < items) issue(it + 1);
     const int h = kvh * group + it / per_head;
     const int q0 = (lower + it % per_head) * kTcBQ;
-    const bf16* Qs = ring + (it & 1) * 2 * kTcBQ * P;
-    const bf16* dOs = Qs + kTcBQ * P;
+    const T* Qs = ring + (it & 1) * 2 * kTcBQ * P;
+    const T* dOs = Qs + kTcBQ * P;
     const float* lse_s = stats + (it & 1) * 2 * kTcBQ;
     const float* delta_s = lse_s + kTcBQ;
 
@@ -407,10 +404,10 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          ptt::b_col(lane);
           ptt::ldsm_x4(qf, Qs + at);
           ptt::ldsm_x4(of, dOs + at);
-          ptt::mma_bf16(s[2 * j], kf, qf[0], qf[1]);
-          ptt::mma_bf16(s[2 * j + 1], kf, qf[2], qf[3]);
-          ptt::mma_bf16(dp[2 * j], vf, of[0], of[1]);
-          ptt::mma_bf16(dp[2 * j + 1], vf, of[2], of[3]);
+          ptt::mma16<T>(s[2 * j], kf, qf[0], qf[1]);
+          ptt::mma16<T>(s[2 * j + 1], kf, qf[2], qf[3]);
+          ptt::mma16<T>(dp[2 * j], vf, of[0], of[1]);
+          ptt::mma16<T>(dp[2 * j + 1], vf, of[2], of[3]);
         }
       }
       // p^T = exp(s - lse) where the key is visible (else 0), in fp32;
@@ -432,16 +429,16 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
           s[n][e] = p;
           dp[n][e] = p * (dp[n][e] - delta_s[c]);
         }
-      uint32_t pf[NQ / 2][4], dsf[NQ / 2][4];  // rounded to bf16
-      ptt::c_to_a(pf, s);
-      ptt::c_to_a(dsf, dp);
+      uint32_t pf[NQ / 2][4], dsf[NQ / 2][4];  // rounded to T
+      ptt::c_to_a<T>(pf, s);
+      ptt::c_to_a<T>(dsf, dp);
       // dS^T to shared memory for dQ: rows are keys, columns q rows
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
-        bf16* d0 = dSs + (warp * 16 + g) * kTcSP + n * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(d0) = ptt::pack_bf16(dp[n][0], dp[n][1]);
+        T* d0 = dSs + (warp * 16 + g) * kTcSP + n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(d0) = ptt::pack2<T>(dp[n][0], dp[n][1]);
         *reinterpret_cast<uint32_t*>(d0 + 8 * kTcSP) =
-            ptt::pack_bf16(dp[n][2], dp[n][3]);
+            ptt::pack2<T>(dp[n][2], dp[n][3]);
       }
       // dV += P^T dO, dK += dS^T Q: k-steps over the item's q rows
 #pragma unroll
@@ -453,16 +450,16 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          ptt::a_col(lane);
           ptt::ldsm_x4_t(of, dOs + at);
           ptt::ldsm_x4_t(qf, Qs + at);
-          ptt::mma_bf16(dv_acc[2 * j], pf[kk], of[0], of[1]);
-          ptt::mma_bf16(dv_acc[2 * j + 1], pf[kk], of[2], of[3]);
-          ptt::mma_bf16(dk_acc[2 * j], dsf[kk], qf[0], qf[1]);
-          ptt::mma_bf16(dk_acc[2 * j + 1], dsf[kk], qf[2], qf[3]);
+          ptt::mma16<T>(dv_acc[2 * j], pf[kk], of[0], of[1]);
+          ptt::mma16<T>(dv_acc[2 * j + 1], pf[kk], of[2], of[3]);
+          ptt::mma16<T>(dk_acc[2 * j], dsf[kk], qf[0], qf[1]);
+          ptt::mma16<T>(dk_acc[2 * j + 1], dsf[kk], qf[2], qf[3]);
         }
       }
     } else {
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
-        bf16* d0 = dSs + (warp * 16 + g) * kTcSP + n * 8 + 2 * t4;
+        T* d0 = dSs + (warp * 16 + g) * kTcSP + n * 8 + 2 * t4;
         *reinterpret_cast<uint32_t*>(d0) = 0u;
         *reinterpret_cast<uint32_t*>(d0 + 8 * kTcSP) = 0u;
       }
@@ -480,7 +477,7 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int k2 = 0; k2 < kTcBK / 32; ++k2) {
         uint32_t a0[4], a1[4];  // dS, keys 32 k2 .. +15 and +16 .. +31
-        const bf16* ds0 = dSs + (k2 * 32 + ptt::b_row(lane)) * kTcSP +
+        const T* ds0 = dSs + (k2 * 32 + ptt::b_row(lane)) * kTcSP +
                           mt * 16 + ptt::b_col(lane);
         ptt::ldsm_x4_t(a0, ds0);
         ptt::ldsm_x4_t(a1, ds0 + 16 * kTcSP);
@@ -488,8 +485,8 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int n = 0; n < NW; ++n) {
           uint32_t kf[4];  // K, keys 32 k2 + lane, cols of C tile n
           ptt::ldsm_x4_t(kf, Ks + (k2 * 32 + lane) * P + (cp * NW + n) * 8);
-          ptt::mma_bf16(acc[n], a0, kf[0], kf[1]);
-          ptt::mma_bf16(acc[n], a1, kf[2], kf[3]);
+          ptt::mma16<T>(acc[n], a0, kf[0], kf[1]);
+          ptt::mma16<T>(acc[n], a1, kf[2], kf[3]);
         }
       }
 #pragma unroll
@@ -514,30 +511,30 @@ flash_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ((long)b * sk + key) * kv_row + (long)kvh * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + base + n * 8) = ptt::pack_bf16(
+      *reinterpret_cast<uint32_t*>(dk + base + n * 8) = ptt::pack2<T>(
           scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + base + n * 8) =
-          ptt::pack_bf16(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+          ptt::pack2<T>(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
 
-template <int D, bool MASK, bool LENS>
+template <typename T, int D, bool MASK, bool LENS>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, void* dk,
               void* dv, const FlashBranches& br, int b, int hq, int hkv,
               int sq, int sk, float scale, int causal, int device,
               cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_bwd_tc_kernel<bf16, D, MASK, LENS>>(
+  cudaError_t err = ptt::allow_smem<flash_bwd_tc_kernel<T, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hkv, (sk + kTcBK - 1) / kTcBK);
-  flash_bwd_tc_kernel<bf16, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_tc_kernel<T, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
       br, hq, hkv, sq, sk, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -561,6 +558,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The 16-bit route of d (mma.sync at every width).
+template <typename T, bool MASK, bool LENS>
+int dispatch16(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, void* dk,
+               void* dv, const FlashBranches& br, int b, int hq, int hkv,
+               int sq, int sk, int d, float scale, int causal, int device,
+               cudaStream_t s) {
+#define PTT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, br, b, hq, hkv, sq, \
+                 sk, scale, causal, device, s
+  switch (d) {
+    case 32: return launch_tc<T, 32, MASK, LENS>(PTT_ARGS);
+    case 64: return launch_tc<T, 64, MASK, LENS>(PTT_ARGS);
+    case 80: return launch_tc<T, 80, MASK, LENS>(PTT_ARGS);
+    case 96: return launch_tc<T, 96, MASK, LENS>(PTT_ARGS);
+    case 128: return launch_tc<T, 128, MASK, LENS>(PTT_ARGS);
+  }
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 // The route of (dtype, d) with the branches given.
 template <bool MASK, bool LENS>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
@@ -572,15 +589,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
                  sk, scale, causal, device, s
   if (dtype == 0 && d == 64) return launch<float, 64, MASK, LENS>(PTT_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128, MASK, LENS>(PTT_ARGS);
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_tc<32, MASK, LENS>(PTT_ARGS);
-      case 64: return launch_tc<64, MASK, LENS>(PTT_ARGS);
-      case 80: return launch_tc<80, MASK, LENS>(PTT_ARGS);
-      case 96: return launch_tc<96, MASK, LENS>(PTT_ARGS);
-      case 128: return launch_tc<128, MASK, LENS>(PTT_ARGS);
-    }
-  }
+#undef PTT_ARGS
+#define PTT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, br, b, hq, hkv, sq, \
+                 sk, d, scale, causal, device, s
+  if (dtype == 1) return dispatch16<bf16, MASK, LENS>(PTT_ARGS);
+  if (dtype == 2) return dispatch16<__half, MASK, LENS>(PTT_ARGS);
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -594,11 +607,12 @@ const char* ptt_error_string(int err) {
 }
 
 // Dynamic shared-memory bytes one block uses at head_dim d and dtype
-// (0 = fp32, 1 = bf16); 0: not built.
+// (0 = fp32, 1 = bf16, 2 = fp16); 0: not built.
 int ptt_flash_bwd_smem_bytes(int d, int dtype) {
   if (dtype == 0)
     return d == 64 ? (int)smem_bytes<64>()
                    : d == 128 ? (int)smem_bytes<128>() : 0;
+  if (dtype != 1 && dtype != 2) return 0;
   switch (d) {
     case 32: return (int)tc_smem_bytes<32>();
     case 64: return (int)tc_smem_bytes<64>();
@@ -611,8 +625,8 @@ int ptt_flash_bwd_smem_bytes(int d, int dtype) {
 
 // q, dout [b, sq, hq, d] and k, v [b, sk, hkv, d] contiguous; lse, delta
 // [b*hq, sq] fp32; dq [b, sq, hq, d] fp32 and ZEROED (the kernel adds into
-// it); dk, dv like k. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16
-// (d 32, 64, 80, 96 or 128, tensor cores). mask and lens as the forward's
+// it); dk, dv like k. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16, 2 =
+// fp16 (d 32, 64, 80, 96 or 128, tensor cores). mask and lens as the forward's
 // (ptt_flash_fwd).
 int ptt_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,

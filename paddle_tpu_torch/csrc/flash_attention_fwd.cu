@@ -1,11 +1,11 @@
-// Flash attention forward for Hopper (sm_90a): bf16 on the tensor cores,
-// fp32 on the CUDA cores.
+// Flash attention forward for Hopper (sm_90a): bf16 and fp16 on the tensor
+// cores, fp32 on the CUDA cores.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel, all of
 // its branches: blocked attention with the FlashAttention-2 online softmax,
 // bottom-right causal alignment (row r sees columns <= r + sk - sq), GQA by
 // reading kv head h / group, fully masked rows give out = 0 and lse = 1e30;
-// p is rounded to v's type before p v, as the reference's
+// p is rounded to v's type before p v (bf16 or fp16), as the reference's
 // p.astype(v.dtype). Unlike the Pallas kernel, whose blocks had to divide
 // the sequence, this one masks its own ragged tails, so any sq and sk work.
 // The mask and varlen branches (flash_branches.cuh) are template flags of
@@ -26,14 +26,15 @@
 // products reach on the tensor cores. CUDA-core fp32 products could not
 // pass 67 TFLOP/s.
 //
-// bf16: one block per (128-row q tile, b * hq); the grid runs the q tiles
+// bf16 and fp16 (T, one template; only the mma's type suffix and the roundings
+// differ): one block per (128-row q tile, b * hq); the grid runs the q tiles
 // with the most keys first, so the last wave is short. K and V tiles of 64
-// keys go through a 2-stage cp.async ring in shared memory; the next
-// tile's copy is issued right after the one barrier a tile and overlaps
-// this tile's products. Scores and the output accumulate in fp32
+// keys go through a 2-stage cp.async ring in shared memory; the next tile's
+// copy is issued right after the one barrier a tile and overlaps this tile's
+// products. Scores and the output accumulate in fp32
 // fragments; the running max and sum of a row live in the 4 lanes that
 // own it (__shfl_xor_sync, no score tile in shared memory); P is rounded
-// to bf16 in registers and fed back as the A operand of P V (the
+// to T in registers and fed back as the A operand of P V (the
 // accumulator layout is the A layout); one divide by l at the end
 // (softmax_tile, store_rows). Masks run only on tiles that cross the
 // causal diagonal or the key tail; rows that see no key of a tile skip it.
@@ -247,9 +248,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: shared pieces ---------------------------------------------
+// ---- bf16 / fp16: shared pieces ----------------------------------------
 
-constexpr int kBQ16 = 128;    // q rows per block (both bf16 kernels)
+constexpr int kBQ16 = 128;    // q rows per block (both tensor-core kernels)
 constexpr int kBK16 = 64;     // keys per ring stage
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -261,8 +262,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // ones (rows < sq) from the mask plane mp, if any (masked: this tile
 // crosses the diagonal or kv, or has a bias), updates the running max m
 // and this lane's share of the running sum l, rescales o, and leaves P
-// rounded to bf16 in pf, the A fragments of P V.
-template <int NO, bool MASK>
+// rounded to T in pf, the A fragments of P V. A mask value of -inf (a bool
+// mask normalized in fp16) gives p = 0: the running max never drops below
+// NEG_INF, so no inf - inf arises.
+template <typename T, int NO, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
                                              float (&o)[NO][4],
                                              float (&m)[2], float (&l)[2],
@@ -311,16 +314,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
       s[n][e] = p;
       l[e >> 1] += p;  // fp32 p, as the reference's row sum
     }
-  ptt::c_to_a(pf, s);
+  ptt::c_to_a<T>(pf, s);
 }
 
-// The warp's 16 rows of out (bf16) and lse after the last tile: one
-// divide by l; rows whose running max never left NEG_INF saw no key, and
-// with LENS rows from q_valid, get zeros and LSE_INVALID.
-template <int D, bool LENS>
+// The warp's 16 rows of out (T) and lse after the last tile: one divide by
+// l; rows whose running max never left NEG_INF saw no key, and with LENS
+// rows from q_valid, get zeros and LSE_INVALID.
+template <typename T, int D, bool LENS>
 __device__ __forceinline__ void store_rows(float (&o)[D / 8][4],
                                            float (&m)[2], float (&l)[2],
-                                           bf16* out, float* lse, int r0,
+                                           T* out, float* lse, int r0,
                                            int sq, int q_valid, long q_row,
                                            long row_base, long lse_base) {
   const int g = (threadIdx.x % 32) >> 2, t4 = threadIdx.x & 3;
@@ -334,12 +337,12 @@ __device__ __forceinline__ void store_rows(float (&o)[D / 8][4],
     const bool dead = LENS && row >= q_valid;
     const bool invalid = dead || m[i] <= kNegInf * 0.5f || l[i] == 0.f;
     const float inv = invalid ? 0.f : 1.f / l[i];
-    bf16* dst = out + row_base + (long)row * q_row + 2 * t4;
+    T* dst = out + row_base + (long)row * q_row + 2 * t4;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
           dead ? 0u
-               : ptt::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+               : ptt::pack2<T>(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     if (t4 == 0)
       lse[lse_base + row] =
           invalid ? kLseInvalid : (m[i] + log2f(l[i])) * kLn2;
@@ -361,14 +364,14 @@ __device__ __forceinline__ int key_tiles(int q0, const ptt::SeqView& sv,
   return n;
 }
 
-// ---- bf16 on mma.sync (head_dim 32, 64, 80, 96) ------------------------
+// ---- bf16 / fp16 on mma.sync (head_dim 32, 64, 80, 96) -----------------
 
 constexpr int kTcThreads = 256;  // 8 warps of 16 q rows
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  // Q [128][D+8], then 2 stages of K [64][D+8] and V [64][D+8], bf16
-  return sizeof(bf16) * (kBQ16 + 4 * kBK16) * (D + 8);
+  // Q [128][D+8], then 2 stages of K [64][D+8] and V [64][D+8], 16-bit
+  return 2 * (kBQ16 + 4 * kBK16) * (D + 8);
 }
 
 template <typename T, int D, bool MASK, bool LENS>
@@ -377,13 +380,13 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ lse, const FlashBranches br, int hq,
                     int hkv, int sq, int sk, float scale_log2, int causal) {
-  static_assert(std::is_same_v<T, bf16>, "the tensor-core path is bf16");
+  static_assert(ptt::is16<T>, "the tensor-core path is bf16 or fp16");
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int P = D + 8;   // shared row pitch, bf16 elements
+  constexpr int P = D + 8;   // shared row pitch, elements
   constexpr int KS = D / 16;  // k-steps of Q K^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ring = Qs + kBQ16 * P;  // stage s: K at ring + 2s*64*P, V after it
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + kBQ16 * P;  // stage s: K at ring + 2s*64*P, V after it
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;  // most keys first
@@ -392,9 +395,9 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long q_row = (long)hq * D;  // [b, s, h, d] row strides
   const long kv_row = (long)hkv * D;
-  const bf16* qb = q + (long)b * sq * q_row + (long)h * D;
-  const bf16* kb = k + (long)b * sk * kv_row + (long)kvh * D;
-  const bf16* vb = v + (long)b * sk * kv_row + (long)kvh * D;
+  const T* qb = q + (long)b * sq * q_row + (long)h * D;
+  const T* kb = k + (long)b * sk * kv_row + (long)kvh * D;
+  const T* vb = v + (long)b * sk * kv_row + (long)kvh * D;
   const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
   const int off = sv.off, kv = sv.k_valid;
   const float* mp = ptt::mask_plane<MASK>(br, b, h);
@@ -409,7 +412,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   const auto load_kv = [&](int t) {
-    bf16* Ks = ring + (t & 1) * 2 * kBK16 * P;
+    T* Ks = ring + (t & 1) * 2 * kBK16 * P;
     const int k0 = t * kBK16;
     ptt::cp_tile<D, kBK16, kTcThreads>(Ks, kb + k0 * kv_row, kv_row,
                                        kv - k0, kb);
@@ -437,8 +440,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  ks * 16 + ptt::a_col(lane));
     }
     const int k0 = t * kBK16;
-    const bf16* Ks = ring + (t & 1) * 2 * kBK16 * P;
-    const bf16* Vs = Ks + kBK16 * P;
+    const T* Ks = ring + (t & 1) * 2 * kBK16 * P;
+    const T* Vs = Ks + kBK16 * P;
     // a warp whose last row sees no key of this tile skips it
     if (causal && k0 > r0 + 15 + off) continue;
     float s[8][4];
@@ -453,12 +456,12 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t kf[4];
         ptt::ldsm_x4(kf, Ks + (j * 16 + ptt::b_row(lane)) * P + ks * 16 +
                              ptt::b_col(lane));
-        ptt::mma_bf16(s[2 * j], qf[ks], kf[0], kf[1]);
-        ptt::mma_bf16(s[2 * j + 1], qf[ks], kf[2], kf[3]);
+        ptt::mma16<T>(s[2 * j], qf[ks], kf[0], kf[1]);
+        ptt::mma16<T>(s[2 * j + 1], qf[ks], kf[2], kf[3]);
       }
     }
     uint32_t pf[4][4];
-    softmax_tile<D / 8, MASK>(
+    softmax_tile<T, D / 8, MASK>(
         s, o, m, l, pf,
         MASK || (causal && k0 + kBK16 - 1 > r0 + off) ||
             k0 + kBK16 > kv,
@@ -470,53 +473,53 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t vf[4];
         ptt::ldsm_x4_t(vf, Vs + (kk * 16 + ptt::a_row(lane)) * P + j * 16 +
                                ptt::a_col(lane));
-        ptt::mma_bf16(o[2 * j], pf[kk], vf[0], vf[1]);
-        ptt::mma_bf16(o[2 * j + 1], pf[kk], vf[2], vf[3]);
+        ptt::mma16<T>(o[2 * j], pf[kk], vf[0], vf[1]);
+        ptt::mma16<T>(o[2 * j + 1], pf[kk], vf[2], vf[3]);
       }
     }
   }
-  store_rows<D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
+  store_rows<T, D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
                 (long)b * sq * q_row + (long)h * D, (long)bh * sq);
 }
 
-template <int D, bool MASK, bool LENS>
+template <typename T, int D, bool MASK, bool LENS>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               void* lse, const FlashBranches& br, int b, int hq, int hkv,
               int sq, int sk, float scale, int causal, int device,
               cudaStream_t stream) {
   constexpr size_t bytes = tc_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_fwd_tc_kernel<bf16, D, MASK, LENS>>(
+  cudaError_t err = ptt::allow_smem<flash_fwd_tc_kernel<T, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hq, (sq + kBQ16 - 1) / kBQ16);
-  flash_fwd_tc_kernel<bf16, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+  flash_fwd_tc_kernel<T, D, MASK, LENS><<<grid, kTcThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), br, hq, hkv, sq, sk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 on wgmma (head_dim 128) -------------------------------------
+// ---- bf16 / fp16 on wgmma (head_dim 128) ------------------------------
 
 constexpr int kWgThreads = 256;  // 2 warpgroups of 64 q rows
 
 template <int D>
 constexpr size_t wg_smem_bytes() {
-  // Q [128][D], then 2 stages of K [64][D] and V [64][D], bf16, swizzled,
-  // and 1,024 bytes to align the swizzle atoms
-  return sizeof(bf16) * (kBQ16 + 4 * kBK16) * D + 1024;
+  // Q [128][D], then 2 stages of K [64][D] and V [64][D], 16-bit,
+  // swizzled, and 1,024 bytes to align the swizzle atoms
+  return 2 * (kBQ16 + 4 * kBK16) * D + 1024;
 }
 
-// Rows [0, R) of D bf16 (row r at src + r * stride) into a tile in the
+// Rows [0, R) of D 16-bit E (row r at src + r * stride) into a tile in the
 // 128-byte-swizzled layout of wgmma: atoms of 8 rows x 64 columns (1,024
 // bytes, row r % 8 at (r % 8) * 128), atom (column block c / 8, row block
 // r / 8) at ((c / 8) * R / 8 + r / 8) * 1,024 bytes, and the 16-byte chunk
 // c of row r at chunk position (c % 8) ^ (r % 8) of its row (so the 8 rows
 // of a chunk column fall in 8 bank quads). Rows >= valid are zero-filled.
-template <int D, int R>
-__device__ __forceinline__ void cp_tile_sw128(bf16* dst, const bf16* src,
+template <int D, int R, typename E>
+__device__ __forceinline__ void cp_tile_sw128(E* dst, const E* src,
                                               long stride, int valid,
-                                              const bf16* base) {
+                                              const E* base) {
   constexpr int C = D / 8;
   for (int i = threadIdx.x; i < R * C; i += kWgThreads) {
     const int r = i / C, c = i % C;
@@ -533,13 +536,13 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ lse, const FlashBranches br, int hq,
                     int hkv, int sq, int sk, float scale_log2, int causal) {
-  static_assert(std::is_same_v<T, bf16>, "the warpgroup path is bf16");
+  static_assert(ptt::is16<T>, "the warpgroup path is bf16 or fp16");
   static_assert(D % 64 == 0, "the 128-byte swizzle needs d % 64 == 0");
   constexpr int KS = D / 16;  // k-steps of Q K^T
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(
+  T* Qs = reinterpret_cast<T*>(
       smem_raw + ((1024 - (ptt::smem_addr(smem_raw) & 1023)) & 1023));
-  bf16* ring = Qs + kBQ16 * D;  // stage s: K at ring + 2s*64*D, V after it
+  T* ring = Qs + kBQ16 * D;  // stage s: K at ring + 2s*64*D, V after it
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;  // most keys first
@@ -548,9 +551,9 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const long q_row = (long)hq * D;  // [b, s, h, d] row strides
   const long kv_row = (long)hkv * D;
-  const bf16* qb = q + (long)b * sq * q_row + (long)h * D;
-  const bf16* kb = k + (long)b * sk * kv_row + (long)kvh * D;
-  const bf16* vb = v + (long)b * sk * kv_row + (long)kvh * D;
+  const T* qb = q + (long)b * sq * q_row + (long)h * D;
+  const T* kb = k + (long)b * sk * kv_row + (long)kvh * D;
+  const T* vb = v + (long)b * sk * kv_row + (long)kvh * D;
   const ptt::SeqView sv = ptt::seq_view<LENS>(br, b, sq, sk);
   const int off = sv.off, kv = sv.k_valid;
   const float* mp = ptt::mask_plane<MASK>(br, b, h);
@@ -566,7 +569,7 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   const auto load_kv = [&](int t) {
-    bf16* Ks = ring + (t & 1) * 2 * kBK16 * D;
+    T* Ks = ring + (t & 1) * 2 * kBK16 * D;
     const int k0 = t * kBK16;
     cp_tile_sw128<D, kBK16>(Ks, kb + k0 * kv_row, kv_row, kv - k0, kb);
     cp_tile_sw128<D, kBK16>(Ks + kBK16 * D, vb + k0 * kv_row, kv_row,
@@ -578,7 +581,7 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_tile_sw128<D, kBQ16>(Qs, qb + q0 * q_row, q_row, sq - q0, qb);
     load_kv(0);  // one group: Q and the first K / V tile
   }
-  const bf16* Qw = Qs + 8 * wg * 512;  // the warpgroup's 8 row blocks
+  const T* Qw = Qs + 8 * wg * 512;  // the warpgroup's 8 row blocks
   for (int t = 0; t < n_tiles; ++t) {
     ptt::cp_async_wait<0>();
     ptt::fence_proxy_async();  // the copies are visible to wgmma's reads
@@ -587,8 +590,8 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (t + 1 < n_tiles) load_kv(t + 1);
     const int k0 = t * kBK16;
-    const bf16* Ks = ring + (t & 1) * 2 * kBK16 * D;
-    const bf16* Vs = Ks + kBK16 * D;
+    const T* Ks = ring + (t & 1) * 2 * kBK16 * D;
+    const T* Vs = Ks + kBK16 * D;
     // a warpgroup whose last row sees no key of this tile skips it
     if (causal && k0 > rg + 63 + off) continue;
     float s[8][4];
@@ -602,7 +605,7 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // column block ks / 4 (R / 8 atoms each), 32 bytes a k-step within
       // it; 8-row blocks 1,024 bytes apart
       const int col = (ks % 4) * 16;
-      ptt::wgmma_ss_n64(
+      ptt::wgmma_ss_n64<T>(
           s, ptt::gmma_desc_sw128(Qw + (ks / 4) * 16 * 512 + col, 16, 1024),
           ptt::gmma_desc_sw128(Ks + (ks / 4) * 8 * 512 + col, 16, 1024));
     }
@@ -610,7 +613,7 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ptt::wgmma_wait<0>();
     ptt::fence_operands(s);
     uint32_t pf[4][4];
-    softmax_tile<D / 8, MASK>(
+    softmax_tile<T, D / 8, MASK>(
         s, o, m, l, pf,
         MASK || (causal && k0 + kBK16 - 1 > r0 + off) ||
             k0 + kBK16 > kv,
@@ -620,30 +623,30 @@ flash_fwd_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // bytes apart), column blocks 8 atoms apart
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      ptt::wgmma_rs_n128_t(o, pf[kk],
+      ptt::wgmma_rs_n128_t<T>(o, pf[kk],
                            ptt::gmma_desc_sw128(Vs + 2 * kk * 512,
                                                 (kBK16 / 8) * 1024, 1024));
     ptt::wgmma_commit();
     ptt::wgmma_wait<0>();
     ptt::fence_operands(o);
   }
-  store_rows<D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
+  store_rows<T, D, LENS>(o, m, l, out, lse, r0, sq, sv.q_valid, q_row,
                 (long)b * sq * q_row + (long)h * D, (long)bh * sq);
 }
 
-template <int D, bool MASK, bool LENS>
+template <typename T, int D, bool MASK, bool LENS>
 int launch_wg(const void* q, const void* k, const void* v, void* out,
               void* lse, const FlashBranches& br, int b, int hq, int hkv,
               int sq, int sk, float scale, int causal, int device,
               cudaStream_t stream) {
   constexpr size_t bytes = wg_smem_bytes<D>();
-  cudaError_t err = ptt::allow_smem<flash_fwd_wg_kernel<bf16, D, MASK, LENS>>(
+  cudaError_t err = ptt::allow_smem<flash_fwd_wg_kernel<T, D, MASK, LENS>>(
       device, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * hq, (sq + kBQ16 - 1) / kBQ16);
-  flash_fwd_wg_kernel<bf16, D, MASK, LENS><<<grid, kWgThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+  flash_fwd_wg_kernel<T, D, MASK, LENS><<<grid, kWgThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), br, hq, hkv, sq, sk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
@@ -664,6 +667,25 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// The 16-bit routes of d: mma.sync below 128, wgmma at 128.
+template <typename T, bool MASK, bool LENS>
+int dispatch16(const void* q, const void* k, const void* v, void* out,
+               void* lse, const FlashBranches& br, int b, int hq, int hkv,
+               int sq, int sk, int d, float scale, int causal, int device,
+               cudaStream_t s) {
+#define PTT_ARGS q, k, v, out, lse, br, b, hq, hkv, sq, sk, scale, causal, \
+                 device, s
+  switch (d) {
+    case 32: return launch_tc<T, 32, MASK, LENS>(PTT_ARGS);
+    case 64: return launch_tc<T, 64, MASK, LENS>(PTT_ARGS);
+    case 80: return launch_tc<T, 80, MASK, LENS>(PTT_ARGS);
+    case 96: return launch_tc<T, 96, MASK, LENS>(PTT_ARGS);
+    case 128: return launch_wg<T, 128, MASK, LENS>(PTT_ARGS);
+  }
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 // The route of (dtype, d) with the branches given.
 template <bool MASK, bool LENS>
 int dispatch(const void* q, const void* k, const void* v, void* out,
@@ -674,15 +696,11 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
                  device, s
   if (dtype == 0 && d == 64) return launch<float, 64, MASK, LENS>(PTT_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128, MASK, LENS>(PTT_ARGS);
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_tc<32, MASK, LENS>(PTT_ARGS);
-      case 64: return launch_tc<64, MASK, LENS>(PTT_ARGS);
-      case 80: return launch_tc<80, MASK, LENS>(PTT_ARGS);
-      case 96: return launch_tc<96, MASK, LENS>(PTT_ARGS);
-      case 128: return launch_wg<128, MASK, LENS>(PTT_ARGS);
-    }
-  }
+#undef PTT_ARGS
+#define PTT_ARGS q, k, v, out, lse, br, b, hq, hkv, sq, sk, d, scale, causal, \
+                 device, s
+  if (dtype == 1) return dispatch16<bf16, MASK, LENS>(PTT_ARGS);
+  if (dtype == 2) return dispatch16<__half, MASK, LENS>(PTT_ARGS);
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -696,11 +714,12 @@ const char* ptt_error_string(int err) {
 }
 
 // Dynamic shared-memory bytes one block uses at head_dim d and dtype
-// (0 = fp32, 1 = bf16); 0: not built.
+// (0 = fp32, 1 = bf16, 2 = fp16); 0: not built.
 int ptt_flash_smem_bytes(int d, int dtype) {
   if (dtype == 0)
     return d == 64 ? (int)smem_bytes<64>()
                    : d == 128 ? (int)smem_bytes<128>() : 0;
+  if (dtype != 1 && dtype != 2) return 0;
   switch (d) {
     case 32: return (int)tc_smem_bytes<32>();
     case 64: return (int)tc_smem_bytes<64>();
@@ -712,8 +731,8 @@ int ptt_flash_smem_bytes(int d, int dtype) {
 }
 
 // q [b, sq, hq, d], k/v [b, sk, hkv, d] contiguous; out like q; lse
-// [b*hq, sq] fp32. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16
-// (d 32, 64, 80 or 96 on mma.sync, d 128 on wgmma). mask: nullptr or fp32
+// [b*hq, sq] fp32. dtype 0 = fp32 (d 64 or 128, CUDA cores), 1 = bf16, 2 =
+// fp16 (d 32, 64, 80 or 96 on mma.sync, d 128 on wgmma). mask: nullptr or fp32
 // with element (b, h, r, c) at b * mask_sb + h * mask_sh + r * mask_sr + c
 // (strides 0 on broadcast dims); lens: nullptr or int32 [2, b] (q_len;
 // kv_len).

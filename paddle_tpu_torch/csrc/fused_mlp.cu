@@ -1,5 +1,5 @@
 // Fused LayerNorm and tanh-GELU, forward and backward, for Hopper (sm_90a),
-// fp32 or bf16 activations with parameters of the same type.
+// fp32, bf16 or fp16 activations with parameters of the same type.
 //
 // Replaces paddle_tpu/ops/pallas/fused_mlp.py::_ln_fwd_kernel,
 // ::_ln_bwd_kernel, ::_gelu_fwd_kernel and ::_gelu_bwd_kernel, one C entry
@@ -76,22 +76,7 @@ constexpr int kGeluThreads = 128;
 constexpr int kGeluFwdDepth = 4;  // rows a forward thread has in flight
 constexpr int kGeluBwdDepth = 2;  // backward: two inputs a row
 
-// one 16-byte vector of T as fp32 values
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using ptt::store;
 
 // Elements [e0, e0 + V) of a row of h elements, as fp32; zero past h. One
 // 16-byte load when `vec` (16-byte aligned rows, h % V == 0).
@@ -99,7 +84,7 @@ template <typename T, int V>
 __device__ __forceinline__ void load_chunk(const T* row, int e0, int h,
                                            bool vec, float (&f)[V]) {
   if (vec) {
-    ptt::unpack(__ldg(reinterpret_cast<const uint4*>(row + e0)), f);
+    ptt::unpack<T>(__ldg(reinterpret_cast<const uint4*>(row + e0)), f);
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i) f[i] = e0 + i < h ? to_f(row[e0 + i]) : 0.f;
@@ -111,11 +96,11 @@ template <typename T, int V>
 __device__ __forceinline__ void store_chunk(T* row, int e0, int h, bool vec,
                                             const float (&f)[V]) {
   if (vec) {
-    *reinterpret_cast<uint4*>(row + e0) = pack(f);
+    *reinterpret_cast<uint4*>(row + e0) = ptt::pack<T>(f);
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      if (e0 + i < h) store1(row + e0 + i, f[i]);
+      if (e0 + i < h) store(row + e0 + i, f[i]);
   }
 }
 
@@ -408,11 +393,11 @@ template <typename T, bool kVec, int V>
 __device__ __forceinline__ void gelu_store(T* row, int e0, int n,
                                            const float (&f)[V]) {
   if constexpr (kVec) {
-    st_stream(row + e0, pack(f));
+    st_stream(row + e0, ptt::pack<T>(f));
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      if (e0 + i < n) store1(row + e0 + i, f[i]);
+      if (e0 + i < n) store(row + e0 + i, f[i]);
   }
 }
 
@@ -442,8 +427,8 @@ __global__ void __launch_bounds__(kGeluThreads, 8) gelu_kernel(GeluArgs p) {
 #pragma unroll
   for (int i = 0; i < V; ++i) bias[i] = acc[i] = 0.f;
   if (kBias && col)
-    ptt::unpack(gelu_load<T, kVec>(static_cast<const T*>(p.bias), e0, n),
-                bias);
+    ptt::unpack<T>(gelu_load<T, kVec>(static_cast<const T*>(p.bias), e0, n),
+                   bias);
   uint4 xr[kDepth], dr[kBwd ? kDepth : 1];
 #pragma unroll
   for (int k = 0; k < kDepth; ++k) {
@@ -462,8 +447,8 @@ __global__ void __launch_bounds__(kGeluThreads, 8) gelu_kernel(GeluArgs p) {
         const int row = base + k * lanes;
         if (row >= r1) break;
         float u[V], d[kBwd ? V : 1];
-        ptt::unpack(xr[k], u);
-        if constexpr (kBwd) ptt::unpack(dr[k], d);
+        ptt::unpack<T>(xr[k], u);
+        if constexpr (kBwd) ptt::unpack<T>(dr[k], d);
         const int next = row + kDepth * lanes;
         if (next < r1) {
           xr[k] = gelu_load<T, kVec>(x + (size_t)next * n, e0, n);
@@ -562,6 +547,7 @@ template <bool kBwd>
 void (*gelu_kernel_for(bool bias, bool vec, int dtype))(GeluArgs) {
   if (dtype == 0) return gelu_kernel_of<kBwd, float>(bias, vec);
   if (dtype == 1) return gelu_kernel_of<kBwd, __nv_bfloat16>(bias, vec);
+  if (dtype == 2) return gelu_kernel_of<kBwd, __half>(bias, vec);
   return nullptr;
 }
 
@@ -610,7 +596,7 @@ const char* ptt_error_string(int err) {
 
 // x, r (or null), g, b, y, s (or null, with r), mean, rstd [rows] fp32.
 // vec: every row and vector 16-byte aligned and h a multiple of 16 bytes.
-// dtype: 0 = fp32, 1 = bf16 (x, r, g, b, y, s).
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (x, r, g, b, y, s).
 int ptt_ln_fwd(const void* x, const void* r, const void* g, const void* b,
                void* y, void* s, void* mean, void* rstd, int rows, int h,
                float eps, int vec, int dtype, int device, void* stream) {
@@ -629,6 +615,10 @@ int ptt_ln_fwd(const void* x, const void* r, const void* g, const void* b,
     ln_fwd_kernel<__nv_bfloat16, false><<<rows, threads, 0, st>>>(p);
   else if (dtype == 1)
     ln_fwd_kernel<__nv_bfloat16, true><<<rows, threads, 0, st>>>(p);
+  else if (dtype == 2 && !res)
+    ln_fwd_kernel<__half, false><<<rows, threads, 0, st>>>(p);
+  else if (dtype == 2)
+    ln_fwd_kernel<__half, true><<<rows, threads, 0, st>>>(p);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -658,6 +648,10 @@ int ptt_ln_bwd(const void* dy, const void* dso, const void* s,
     ln_bwd_kernel<__nv_bfloat16, false><<<bands, threads, 0, st>>>(p);
   else if (dtype == 1)
     ln_bwd_kernel<__nv_bfloat16, true><<<bands, threads, 0, st>>>(p);
+  else if (dtype == 2 && !has_dso)
+    ln_bwd_kernel<__half, false><<<bands, threads, 0, st>>>(p);
+  else if (dtype == 2)
+    ln_bwd_kernel<__half, true><<<bands, threads, 0, st>>>(p);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -10,7 +10,7 @@
 // forward, ptt_gmm), ::_gmm_q_kernel (int8, ptt_gmm_q), ::_gmm_q4_kernel
 // (int4, ptt_gmm_q4), ::_gmm_bwd_kernel (fp dx, ptt_gmm_bwd) and
 // ::_gmm_q_bwd_kernel (int8 dx, ptt_gmm_q_bwd); gmm_tc_kernel and
-// gmm_wg_kernel take the bf16 fp-weight forward (ptt_gmm_tc) and dx
+// gmm_wg_kernel take the bf16 / fp16 fp-weight forward (ptt_gmm_tc) and dx
 // (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores, and
 // gmm_sk_kernel the int8 / int4 forward of the second and the third at the
 // serving rows (ptt_gmm_sk, the skinny route). A
@@ -48,13 +48,14 @@
 // GFLOP per GEMM, ~0.3 ms at the fp32 CUDA-core peak of 67 TFLOP/s. fp32
 // stays here because tensor cores would make it TF32.
 //
-// gmm_tc_kernel<bwd> and gmm_wg_kernel<bwd> (ptt_gmm_tc, ptt_gmm_bwd_tc):
-// bf16 activations with bf16 fp weights, K and N multiples of 8, 16-byte
-// aligned x / dy, W and out. On the tensor cores, fed by a multi-stage
-// cp.async ring of bf16 A and B tiles (nothing widened in shared memory)
-// whose copies zero-fill the ragged row, K and N edges; fp32 sums rounded
-// once to bf16. Forward: A = x rows (K-major), B = W_e [k][n] (MN-major);
-// dx: A = dy rows, B = the rows of W_e, [n][k] (K-major). One barrier a
+// gmm_tc_kernel<T, bwd> and gmm_wg_kernel<T, bwd> (ptt_gmm_tc,
+// ptt_gmm_bwd_tc): bf16 or fp16 activations T with fp weights of the same
+// type, K and N multiples of 8, 16-byte aligned x / dy, W and out. On the
+// tensor cores, fed by a multi-stage cp.async ring of T A and B tiles (nothing
+// widened in shared memory) whose copies zero-fill the ragged row, K and N
+// edges; fp32 sums rounded once to T. Forward: A = x rows (K-major), B = W_e
+// [k][n] (MN-major); dx: A = dy rows, B = the rows of W_e, [n][k] (K-major).
+// One barrier a
 // stage: the copy into a slot is issued right after the barrier that ends
 // the reads of it. The wrapper picks the tile by rows per expert
 // (ops/grouped_matmul.py _plan):
@@ -78,19 +79,19 @@
 // The prefill rows of int8 / int4 stacks still run gmm_kernel; the same
 // ring could take dequantized bf16 tiles of them.
 //
-// gmm_sk_kernel<bits> (ptt_gmm_sk): the bf16 int8 and split-half int4
-// forward at the serving rows (ceil(M / E) <= 64), K (int4: K / 2) a
+// gmm_sk_kernel<T, bits> (ptt_gmm_sk): the bf16 / fp16 int8 and split-half
+// int4 forward at the serving rows (ceil(M / E) <= 64), K (int4: K / 2) a
 // multiple of 64, N of 16, scale groups of 16k rows, x / W / scales / out
 // 16-byte aligned (ops/grouped_matmul.py _plan route "sk"). A block is
 // (row tile of up to 64 rows of one expert, 64 output columns, K split):
 // bind_tile at 64 rows, then the skinny tile of skinny_gemm.cuh over the
 // expert's stack and scales and its live rows only, so no product is spent
-// on a dead row (bf16 rounds the tile up to 16 rows), and experts without
+// on a dead row (16-bit rounds the tile up to 16 rows), and experts without
 // rows read nothing. The weight stripe, its scale rows and the rows'
 // k-slices stream through one cp.async ring of 64-row stages in 96 KB (up
 // to 16 stages: two blocks an SM), each live expert's weight read once a
-// launch. bf16 on the tensor cores (mma.sync m16n8k16, the weight as the A
-// operand, dequantized in registers: q * bf16(s) rounded once; int4 gives
+// launch. T on the tensor cores (mma.sync m16n8k16, the weight as the A
+// operand, dequantized in registers: q * T(s) rounded once; int4 gives
 // two A fragments a load). At the serving shape (a) it is bound by bytes
 // (int8 w1 + w2 of 3 live experts 14.9 MB, 4.5 us at 3.35 TB/s; int4
 // 8.3 MB). fp32 stays on gmm_kernel, which an H100 ran faster there than
@@ -393,21 +394,24 @@ int launch(const void* a, const void* w, const void* s, const void* offs,
     gmm_kernel<float, kBits, kBwd><<<grid, kThreads, 0, st>>>(p);
   else if (dtype == 1)
     gmm_kernel<__nv_bfloat16, kBits, kBwd><<<grid, kThreads, 0, st>>>(p);
+  else if (dtype == 2)
+    gmm_kernel<__half, kBits, kBwd><<<grid, kThreads, 0, st>>>(p);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 fp weights on the tensor cores --------------------------------
+// ---- bf16 / fp16 fp weights on the tensor cores ------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kBK = 64;  // reduction indices per stage
 
+// T: bf16 or fp16, the activations and the weights
+template <typename T>
 struct TcArgs {
-  const bf16* a;      // x [M, K] (forward) or dy [M, N] (dx)
-  const bf16* w;      // [E, K, N]
+  const T* a;         // x [M, K] (forward) or dy [M, N] (dx)
+  const T* w;         // [E, K, N]
   const int* offs;    // [E + 1] row offsets of the experts
-  bf16* out;          // [M, N] (forward) or [M, K] (dx)
+  T* out;             // [M, N] (forward) or [M, K] (dx)
   float* ws;          // [splits, M, J] fp32 partials when splits > 1
   int* counters;      // one arrival count per output tile, zero on entry
   int M, K, N, E, splits, per;
@@ -416,12 +420,12 @@ struct TcArgs {
 // The epilogue of both tensor-core kernels: a thread's fragments (i, j)
 // (mma.sync C layout) hold rows row0 + 16 i + g (+ 8) and columns col0 +
 // 8 j + 2 c4 (+ 1) of C [M, J]; rows >= m1 and columns >= J are dropped.
-// One split: rounded to bf16 and stored. Several: each block publishes its
+// One split: rounded to T and stored. Several: each block publishes its
 // fp32 partial, and the last block of the tile to arrive (an arrival count
 // it resets) sums all partials in split order, so two launches give the
 // same bits. Every thread of the block calls it.
-template <int MF, int NF>
-__device__ __forceinline__ void store_acc(const TcArgs& p,
+template <typename T, int MF, int NF>
+__device__ __forceinline__ void store_acc(const TcArgs<T>& p,
                                           const float (&acc)[MF][NF][4],
                                           int row0, int col0, int m1, int J,
                                           int& last_flag) {
@@ -439,8 +443,8 @@ __device__ __forceinline__ void store_acc(const TcArgs& p,
         for (int j = 0; j < NF; ++j) {
           const int c = col_of(j);
           if (c < J)
-            *reinterpret_cast<__nv_bfloat162*>(p.out + (long)m * J + c) =
-                __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(p.out + (long)m * J + c) =
+                ptt::pack2<T>(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
       }
     return;
@@ -496,8 +500,8 @@ __device__ __forceinline__ void store_acc(const TcArgs& p,
             sum.y += part[u].y;
           }
         }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + (long)m * J + c) =
-            __floats2bfloat162_rn(sum.x, sum.y);
+        *reinterpret_cast<uint32_t*>(p.out + (long)m * J + c) =
+            ptt::pack2<T>(sum.x, sum.y);
       }
     }
   if (threadIdx.x == 0) p.counters[tile] = 0;  // ready for the next launch
@@ -519,16 +523,16 @@ __host__ __device__ constexpr int sv_stage(bool bwd) {  // elements a stage
   return kSvBM * kSvAP + (bwd ? kSvBN : kBK) * sv_bp(bwd);
 }
 constexpr size_t sv_smem_bytes(bool bwd) {
-  return sizeof(bf16) * kSvStages * sv_stage(bwd);
+  return 2 * kSvStages * sv_stage(bwd);   // 16-bit elements
 }
 
-template <bool kBwd>
+template <typename T, bool kBwd>
 __global__ void __launch_bounds__(kSvThreads, 2)
-gmm_tc_kernel(const TcArgs p) {
+gmm_tc_kernel(const TcArgs<T> p) {
   constexpr int MF = kSvBM / 16, NF = kSvWN / 8, AP = kSvAP;
   constexpr int BP = sv_bp(kBwd), kStage = sv_stage(kBwd);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
   __shared__ int bind[3];
   __shared__ int last_flag;
 
@@ -543,8 +547,8 @@ gmm_tc_kernel(const TcArgs p) {
   const int R = kBwd ? N : K;  // reduction length
   const int J = kBwd ? K : N;  // output columns
   const int j0 = blockIdx.x * kSvBN;
-  const bf16* A = p.a + (long)m0 * R;
-  const bf16* W = p.w + (long)ex * K * N;
+  const T* A = p.a + (long)m0 * R;
+  const T* W = p.w + (long)ex * K * N;
   const int nst = (R + kBK - 1) / kBK;
   const int t_begin = blockIdx.z * p.per;
   const int n_t = min(nst, t_begin + p.per) - t_begin;
@@ -553,8 +557,8 @@ gmm_tc_kernel(const TcArgs p) {
   // reduction [r0, r0 + 64); B forward W_e rows [r0, r0 + 64) x columns
   // [j0, j0 + 128), dx W_e rows [j0, j0 + 128) x columns [r0, r0 + 64)
   const auto load_stage = [&](int t, int slot) {
-    bf16* As = ring + slot * kStage;
-    bf16* Bs = As + kSvBM * AP;
+    T* As = ring + slot * kStage;
+    T* Bs = As + kSvBM * AP;
     const int r0 = (t_begin + t) * kBK;
     ptt::cp_tile_2d<kSvBM, kBK, AP, kSvThreads>(As, A + r0, R, m1 - m0,
                                                 R - r0);
@@ -587,8 +591,8 @@ gmm_tc_kernel(const TcArgs p) {
     if (t + kSvStages - 1 < n_t)
       load_stage(t + kSvStages - 1, (t + kSvStages - 1) % kSvStages);
     ptt::cp_async_commit();
-    const bf16* As = ring + (t % kSvStages) * kStage;
-    const bf16* Bs = As + kSvBM * AP;
+    const T* As = ring + (t % kSvStages) * kStage;
+    const T* Bs = As + kSvBM * AP;
     const int n0 = warp * kSvWN;  // the warp's 16 columns
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -607,7 +611,7 @@ gmm_tc_kernel(const TcArgs p) {
       for (int i = 0; i < MF; ++i)
 #pragma unroll
         for (int j = 0; j < NF; ++j)
-          ptt::mma_bf16(acc[i][j], af[i], bfr[2 * j], bfr[2 * j + 1]);
+          ptt::mma16<T>(acc[i][j], af[i], bfr[2 * j], bfr[2 * j + 1]);
     }
   }
   ptt::cp_async_wait<0>();
@@ -627,13 +631,13 @@ constexpr int kWgThreads = 256, kWgBM = 128, kWgBN = 128, kWgStages = 3;
 constexpr int kWgA = kWgBM * kBK;             // A elements a stage
 constexpr int kWgStage = kWgA + kBK * kWgBN;  // A + B elements a stage
 // the ring and 1,024 bytes to align the swizzle atoms
-constexpr size_t kWgSmemBytes = sizeof(bf16) * kWgStages * kWgStage + 1024;
+constexpr size_t kWgSmemBytes = 2 * kWgStages * kWgStage + 1024;
 
-template <bool kBwd>
+template <typename T, bool kBwd>
 __global__ void __launch_bounds__(kWgThreads, 2)
-gmm_wg_kernel(const TcArgs p) {
+gmm_wg_kernel(const TcArgs<T> p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(
+  T* ring = reinterpret_cast<T*>(
       smem_raw + ((1024 - (ptt::smem_addr(smem_raw) & 1023)) & 1023));
   __shared__ int bind[3];
   __shared__ int last_flag;
@@ -649,15 +653,15 @@ gmm_wg_kernel(const TcArgs p) {
   const int R = kBwd ? N : K;  // reduction length
   const int J = kBwd ? K : N;  // output columns
   const int j0 = blockIdx.x * kWgBN;
-  const bf16* A = p.a + (long)m0 * R;
-  const bf16* W = p.w + (long)ex * K * N;
+  const T* A = p.a + (long)m0 * R;
+  const T* W = p.w + (long)ex * K * N;
   const int nst = (R + kBK - 1) / kBK;
   const int t_begin = blockIdx.z * p.per;
   const int n_t = min(nst, t_begin + p.per) - t_begin;
 
   const auto load_stage = [&](int t, int slot) {
-    bf16* As = ring + slot * kWgStage;
-    bf16* Bs = As + kWgA;
+    T* As = ring + slot * kWgStage;
+    T* Bs = As + kWgA;
     const int r0 = (t_begin + t) * kBK;
     ptt::cp_tile_sw128_2d<kWgBM, kBK, kWgThreads>(As, A + r0, R, m1 - m0,
                                                   R - r0);
@@ -694,20 +698,20 @@ gmm_wg_kernel(const TcArgs p) {
     if (!live) continue;
     // the warpgroup's 8 row atoms of A (1,024 bytes apart), 32 bytes a
     // k-step inside the 128-byte rows
-    const bf16* As = ring + (t % kWgStages) * kWgStage + wg * 8 * 512;
-    const bf16* Bs = ring + (t % kWgStages) * kWgStage + kWgA;
+    const T* As = ring + (t % kWgStages) * kWgStage + wg * 8 * 512;
+    const T* Bs = ring + (t % kWgStages) * kWgStage + kWgA;
     ptt::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks) {
       const uint64_t a = ptt::gmma_desc_sw128(As + ks * 16, 16, 1024);
       if constexpr (kBwd)
         // W_e rows [n][k], K-major: 8-row atoms along n 1,024 bytes apart
-        ptt::wgmma_ss_n128<0>(acc[0], a,
+        ptt::wgmma_ss_n128<T, 0>(acc[0], a,
                               ptt::gmma_desc_sw128(Bs + ks * 16, 16, 1024));
       else
         // W_e [k][n], MN-major: k-step ks is k atoms 2 ks, 2 ks + 1 (1,024
         // bytes apart); the two 64-column blocks (kBK / 8) atoms apart
-        ptt::wgmma_ss_n128<1>(
+        ptt::wgmma_ss_n128<T, 1>(
             acc[0], a,
             ptt::gmma_desc_sw128(Bs + 2 * ks * 512, (kBK / 8) * 1024, 1024));
     }
@@ -722,31 +726,43 @@ gmm_wg_kernel(const TcArgs p) {
 
 // tile 0: the serving tile (gmm_tc_kernel), 1: the prefill tile
 // (gmm_wg_kernel)
-template <bool kBwd>
-int launch_tc(const TcArgs& p, int tile, int tiles, int device,
+template <typename T, bool kBwd>
+int launch_tc(const TcArgs<T>& p, int tile, int tiles, int device,
               cudaStream_t st) {
   const int J = kBwd ? p.K : p.N;
   cudaError_t err;
   if (tile == 0) {
     constexpr size_t bytes = sv_smem_bytes(kBwd);
-    err = ptt::allow_smem<gmm_tc_kernel<kBwd>>(device, (int)bytes);
+    err = ptt::allow_smem<gmm_tc_kernel<T, kBwd>>(device, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((J + kSvBN - 1) / kSvBN, tiles, p.splits);
-    gmm_tc_kernel<kBwd><<<grid, kSvThreads, bytes, st>>>(p);
+    gmm_tc_kernel<T, kBwd><<<grid, kSvThreads, bytes, st>>>(p);
   } else {
-    err = ptt::allow_smem<gmm_wg_kernel<kBwd>>(device, (int)kWgSmemBytes);
+    err = ptt::allow_smem<gmm_wg_kernel<T, kBwd>>(device, (int)kWgSmemBytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((J + kWgBN - 1) / kWgBN, tiles, p.splits);
-    gmm_wg_kernel<kBwd><<<grid, kWgThreads, kWgSmemBytes, st>>>(p);
+    gmm_wg_kernel<T, kBwd><<<grid, kWgThreads, kWgSmemBytes, st>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kBwd>
+int launch_tc_typed(const void* a, const void* w, const void* offs,
+                    void* out, void* ws, void* counters, int M, int K, int N,
+                    int E, int tile, int tiles, int splits, int per,
+                    int device, cudaStream_t st) {
+  const TcArgs<T> p{static_cast<const T*>(a), static_cast<const T*>(w),
+                    static_cast<const int*>(offs), static_cast<T*>(out),
+                    static_cast<float*>(ws), static_cast<int*>(counters),
+                    M, K, N, E, splits, per};
+  return launch_tc<T, kBwd>(p, tile, tiles, device, st);
 }
 
 template <bool kBwd>
 int launch_tc_entry(const void* a, const void* w, const void* offs,
                     void* out, void* ws, void* counters, int M, int K, int N,
                     int E, int tile, int tiles, int splits, int per,
-                    int device, void* stream) {
+                    int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const auto misaligned = [](const void* q) {
@@ -755,16 +771,18 @@ int launch_tc_entry(const void* a, const void* w, const void* offs,
   if (E < 1 || M < 1 || K < 8 || N < 8 || K % 8 || N % 8 || tiles < 1 ||
       splits < 1 || per < 1 || (splits > 1 && ws == nullptr) ||
       (long)(splits - 1) * per * kBK >= (kBwd ? N : K) ||
-      (tile != 0 && tile != 1))
+      (tile != 0 && tile != 1) || (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
   if (misaligned(a) || misaligned(w) || misaligned(out))
     return (int)cudaErrorMisalignedAddress;
-  const TcArgs p{static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-                 static_cast<const int*>(offs), static_cast<bf16*>(out),
-                 static_cast<float*>(ws), static_cast<int*>(counters),
-                 M, K, N, E, splits, per};
-  return launch_tc<kBwd>(p, tile, tiles, device,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 2
+             ? launch_tc_typed<__half, kBwd>(a, w, offs, out, ws, counters, M,
+                                             K, N, E, tile, tiles, splits,
+                                             per, device, st)
+             : launch_tc_typed<__nv_bfloat16, kBwd>(
+                   a, w, offs, out, ws, counters, M, K, N, E, tile, tiles,
+                   splits, per, device, st);
 }
 
 // ---- the skinny route: int8 / int4 stacks at the serving rows ----------
@@ -783,19 +801,19 @@ struct SkArgs {
   int M, K, N, E, G, splits, per;
 };
 
-// bf16 activations only: an H100 ran fp32 faster on gmm_kernel
-template <int kBits>
-using SkShape = ptt::sk::Shape<__nv_bfloat16,
+// 16-bit activations T (bf16, fp16) only: an H100 ran fp32 faster on
+// gmm_kernel
+template <typename T, int kBits>
+using SkShape = ptt::sk::Shape<T,
                                std::conditional_t<kBits == 4, uint8_t, int8_t>,
                                kSkCols>;
 
-template <int kBits>
-__global__ void __launch_bounds__(SkShape<kBits>::kThreads)
+template <typename T, int kBits>
+__global__ void __launch_bounds__(SkShape<T, kBits>::kThreads)
 gmm_sk_kernel(const SkArgs p) {
   namespace sk = ptt::sk;
-  using T = __nv_bfloat16;
   using W = std::conditional_t<kBits == 4, uint8_t, int8_t>;
-  using S = SkShape<kBits>;
+  using S = SkShape<T, kBits>;
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int bind[3];
   __shared__ int last_flag;
@@ -842,12 +860,14 @@ gmm_sk_kernel(const SkArgs p) {
   if (threadIdx.x == 0) p.counters[tile] = 0;  // ready for the next launch
 }
 
-template <int kBits>
+template <typename T, int kBits>
 int launch_sk(const SkArgs& p, int tiles, int device, cudaStream_t st) {
-  cudaError_t err = ptt::allow_smem<gmm_sk_kernel<kBits>>(device, kSkRing);
+  cudaError_t err =
+      ptt::allow_smem<gmm_sk_kernel<T, kBits>>(device, kSkRing);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + kSkCols - 1) / kSkCols, tiles, p.splits);
-  gmm_sk_kernel<kBits><<<grid, SkShape<kBits>::kThreads, kSkRing, st>>>(p);
+  gmm_sk_kernel<T, kBits>
+      <<<grid, SkShape<T, kBits>::kThreads, kSkRing, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -867,7 +887,7 @@ const char* ptt_error_string(int err) {
 // column tiles), all zero. tiles: grid rows, at least the live row tiles
 // (sum over experts of ceil(rows / 32)). Each block reduces `per` stages
 // of its split. vec: w's rows are 16-byte aligned. dtype: 0 = fp32,
-// 1 = bf16 (a, out and fp w).
+// 1 = bf16, 2 = fp16 (a, out and fp w).
 #define PTT_GMM_ENTRY(name, bits, bwd)                                      \
   int name(const void* a, const void* w, const void* s, const void* offs,  \
            void* out, void* ws, void* counters, int M, int K, int N, int E, \
@@ -884,17 +904,19 @@ PTT_GMM_ENTRY(ptt_gmm_bwd, 0, true)
 PTT_GMM_ENTRY(ptt_gmm_q_bwd, 8, true)
 #undef PTT_GMM_ENTRY
 
-// The bf16 fp-weight forward and dx on the tensor cores. a, w, out bf16
-// and 16-byte aligned, K and N multiples of 8; offs, ws, counters as
-// above; tile: 0 = serving (32-row tiles), 1 = prefill (128-row tiles);
-// tiles: grid rows, at least the live row tiles at that tile's rows; each
-// block reduces `per` stages of 64 of its split.
+// The 16-bit fp-weight forward and dx on the tensor cores. a, w, out of dtype
+// 1 = bf16 or 2 = fp16 and 16-byte aligned, K and N multiples of 8; offs, ws,
+// counters as above; tile: 0 = serving (32-row tiles), 1 = prefill (128-row
+// tiles); tiles: grid rows, at least the live row tiles at that tile's rows;
+// each block reduces `per` stages of 64 of its split.
 #define PTT_GMM_TC_ENTRY(name, bwd)                                         \
   int name(const void* a, const void* w, const void* offs, void* out,       \
            void* ws, void* counters, int M, int K, int N, int E, int tile,  \
-           int tiles, int splits, int per, int device, void* stream) {      \
+           int tiles, int splits, int per, int dtype, int device,           \
+           void* stream) {                                                  \
     return launch_tc_entry<bwd>(a, w, offs, out, ws, counters, M, K, N, E,  \
-                                tile, tiles, splits, per, device, stream);  \
+                                tile, tiles, splits, per, dtype, device,    \
+                                stream);                                    \
   }
 PTT_GMM_TC_ENTRY(ptt_gmm_tc, false)
 PTT_GMM_TC_ENTRY(ptt_gmm_bwd_tc, true)
@@ -906,8 +928,8 @@ PTT_GMM_TC_ENTRY(ptt_gmm_bwd_tc, true)
 // per output tile (tiles x 64-column tiles), all zero. The stored rows (K
 // or K / 2) a multiple of 64, N of 16, K / G of 16; x, w, s, out 16-byte
 // aligned; tiles: grid rows, at least the live 64-row tiles; each block
-// reduces `per` 64-row stages of its split. dtype: 1 = bf16, the only one
-// taken.
+// reduces `per` 64-row stages of its split. dtype: 1 = bf16, 2 = fp16 (x
+// and out).
 int ptt_gmm_sk(const void* x, const void* w, const void* s, const void* offs,
                void* out, void* ws, void* counters, int M, int K, int N,
                int E, int G, int bits, int tiles, int splits, int per,
@@ -915,7 +937,8 @@ int ptt_gmm_sk(const void* x, const void* w, const void* s, const void* offs,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int KW = bits == 4 ? K / 2 : K;
-  if ((bits != 8 && bits != 4) || dtype != 1 || M < 1 || E < 1 || K < 1 ||
+  if ((bits != 8 && bits != 4) || (dtype != 1 && dtype != 2) || M < 1 ||
+      E < 1 || K < 1 ||
       (bits == 4 && K % 2) || KW % ptt::sk::KS || N < 16 || N % 16 ||
       G < 1 || K % G || (K / G) % 16 || tiles < 1 || splits < 1 ||
       per < 1 || (long)(splits - 1) * per * ptt::sk::KS >= KW ||
@@ -930,8 +953,11 @@ int ptt_gmm_sk(const void* x, const void* w, const void* s, const void* offs,
                  static_cast<const int*>(offs), out, static_cast<float*>(ws),
                  static_cast<int*>(counters), M, K, N, E, G, splits, per};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bits == 8 ? launch_sk<8>(p, tiles, device, st)
-                   : launch_sk<4>(p, tiles, device, st);
+  if (dtype == 2)
+    return bits == 8 ? launch_sk<__half, 8>(p, tiles, device, st)
+                     : launch_sk<__half, 4>(p, tiles, device, st);
+  return bits == 8 ? launch_sk<__nv_bfloat16, 8>(p, tiles, device, st)
+                   : launch_sk<__nv_bfloat16, 4>(p, tiles, device, st);
 }
 
 }  // extern "C"

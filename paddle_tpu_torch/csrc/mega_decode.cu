@@ -1,7 +1,7 @@
 // The mega-kernel serving layer for Hopper (sm_90a): one kernel for the
-// attention side of a decoder layer and one for its MLP side, fp32 or bf16
-// activations, fp or int8 weights (per channel or per group along K), fp or
-// int8 KV pools.
+// attention side of a decoder layer and one for its MLP side, fp32, bf16 or
+// fp16 activations, fp or int8 weights (per channel or per group along K),
+// fp or int8 KV pools.
 //
 // ptt_mega_attn replaces paddle_tpu/ops/pallas/mega_decode.py::
 // _mega_attn_kernel. Per lane b (q_len[b] new rows of a [b, chunk, h]
@@ -61,8 +61,9 @@
 // partials [splits, live rows, h]; the last split of an h tile to arrive
 // sums them in split order and writes the epilogue (deterministic, no
 // float atomics). Products: skinny_gemm.cuh (a cp.async ring of weight,
-// scale and row stages; bf16 on the tensor cores, int8 dequantized to the
-// activation type in registers; fp32 FMA on the CUDA cores). Any h that is
+// scale and row stages; bf16 and fp16 on the tensor cores, int8
+// dequantized to the activation type in registers; fp32 FMA on the CUDA
+// cores). Any h that is
 // a multiple of 4, any ffn and scale group and any input alignment: the
 // last tiles and stages are clipped, and a clipped or unaligned chunk is
 // copied element by element.
@@ -75,8 +76,9 @@
 // columns a step, rows padded off the bank period) through cp.async rings
 // of 2 to 8 stages (as many as keep two blocks an SM) and its page tiles
 // through a ring of 3, and spreads a lane's page walk, head sum and
-// epilogue over many blocks. bf16 with bf16 weights multiplies the QKV and
-// output products on the tensor cores (mma.sync m16n8k16, fp32 sums);
+// epilogue over many blocks. bf16 or fp16 with weights of the same type
+// multiplies the QKV and output products on the tensor cores (mma.sync
+// m16n8k16, fp32 sums);
 // fp32 (which must not become TF32) and int8 weights use FMA on the CUDA
 // cores, a thread holding up to 4 rows (8 past 16 rows a block) and the
 // reduction sliced over lanes when rows are few. The page walk's products
@@ -87,6 +89,15 @@
 // waits for GEMM1's last producers, so at best it takes the time of both
 // halves' bytes in turn.
 #include "paged_walk.cuh"
+
+// The element types of this library: fp32 and bf16; built from
+// mega_decode_f16.cu (PTT_MEGA_F16 1), fp16 alone. Two libraries of one
+// source, so their nvcc processes run side by side: with all three types
+// one process took 187 s on the H100's 8-core host, the build's critical
+// path.
+#ifndef PTT_MEGA_F16
+#define PTT_MEGA_F16 0
+#endif
 #include "skinny_gemm.cuh"
 
 #include <algorithm>
@@ -101,16 +112,7 @@ namespace wk = ptt::walk;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+using ptt::round_to;
 
 
 // LayerNorm of one element as the plain version spells it:
@@ -139,7 +141,7 @@ __host__ __device__ inline int align16(long v) { return (int)((v + 15) / 16 * 16
 // ring and the LN1 tile ya there (then the k-slice sums in its place); the causal split its
 // new K and V rows, then acc and scores (home); a page split acc and
 // scores, then the page ring (ring); the merging block the output
-// projection's ring, then its bf16 A tile (oa).
+// projection's ring, then its 16-bit A tile (oa).
 struct Layout {
   int stats, idx, rv, u;         // from the start of shared memory
   int g_stage, g_gb, g_w, g_s;   // QKV stage: bytes, gamma / beta, W, scales
@@ -214,9 +216,11 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 __device__ __forceinline__ float4 ld4_cg(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 ld4_cg(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ float4 ld4_cg(const T* p) {
+  static_assert(ptt::is16<T>, "four 16-bit values");
   const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
-  return wk::ld4(reinterpret_cast<const __nv_bfloat16*>(&u));
+  return wk::ld4(reinterpret_cast<const T*>(&u));
 }
 
 struct AttnArgs {
@@ -344,7 +348,7 @@ __device__ __forceinline__ void split_sum(const Split& m, float (&acc)[R][4]) {
         acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
 }
 
-// How the warps share a bf16 product on the tensor cores: `units` (16-row
+// How the warps share a 16-bit product on the tensor cores: `units` (16-row
 // m-tile, 16-column n-pair) items; with fewer units than warps the k-steps
 // of a tile are sliced over nks warps per unit (summed in slice order at
 // the end). A warp holds up to kMU units (j = 0 .. kMU - 1 at unit
@@ -367,7 +371,8 @@ struct MmaSplit {
 // rows vr[0 .. nr) of x (the rows that hold a new token, packed): x,
 // gamma / beta and the W tiles (with their scale rows) stream through a
 // ring of L.g_stages stages; each tile's y1 = LN1(x) rows, rounded to T,
-// are formed once into the tile at ya. bf16 with bf16 weights multiplies on
+// are formed once into the tile at ya. bf16 / fp16 with weights of the same
+// type multiply on
 // the tensor cores (mma.sync m16n8k16, fp32 sums), fp32 and int8 weights on
 // the CUDA cores. The result lands in dst ([nr][D + 4] fp32) as
 // round(round(y1 @ W) + bias), the plain version's two roundings. Ends
@@ -379,7 +384,7 @@ __device__ void qkv_product(const AttnArgs& a, const T* x, const int* vr,
                             unsigned char* yt, float* red, int* srow,
                             float* dst) {
   constexpr bool kQ8 = std::is_same_v<W, int8_t>;
-  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16> && !kQ8;
+  constexpr bool kMma = ptt::is16<T> && !kQ8;
   constexpr int kAP = kGK + 16 / (int)sizeof(T);       // x tile pitch
   constexpr int kACh = kGK * (int)sizeof(T) / 16;      // 16-byte chunks
   constexpr int kWCh = D * (int)sizeof(W) / 16;
@@ -387,7 +392,7 @@ __device__ void qkv_product(const AttnArgs& a, const T* x, const int* vr,
   // reduction (and the rows of an ldmatrix) fall in different banks
   constexpr int kWRow = D * (int)sizeof(W) + 16;
   constexpr int kYP = kGK + 4;                         // fp32 LN1 tile pitch
-  constexpr int kYB = kGK + 8;                         // bf16 LN1 tile pitch
+  constexpr int kYB = kGK + 8;                         // 16-bit LN1 tile pitch
   constexpr int NP = D / 16, kMU = R == 4 ? 1 : 4;
   const int tid = threadIdx.x, h = a.h, N = 3 * a.nh * D, gs = a.gq;
   const int nk = h / kGK, m16 = (nr + 15) / 16;
@@ -462,16 +467,15 @@ __device__ void qkv_product(const AttnArgs& a, const T* x, const int* vr,
         v = round_to<T>(ln_elem(to_f(xa[r * kAP + kk]), mean[r], rstd[r],
                                 to_f(gb[kk]), to_f(gb[kGK + kk])));
       if constexpr (kMma)
-        reinterpret_cast<__nv_bfloat16*>(yt)[r * kYB + kk] =
-            __float2bfloat16(v);
+        store(reinterpret_cast<T*>(yt) + r * kYB + kk, v);
       else
         reinterpret_cast<float*>(yt)[r * kYP + kk] = v;
     }
     __syncthreads();
     if constexpr (kMma) {
       if (mm.on) {
-        const __nv_bfloat16* yb = reinterpret_cast<const __nv_bfloat16*>(yt);
-        const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(wt);
+        const T* yb = reinterpret_cast<const T*>(yt);
+        const T* wb = reinterpret_cast<const T*>(wt);
         for (int s = mm.ksl; s < kGK / 16; s += mm.nks) {
 #pragma unroll
           for (int j = 0; j < kMU; ++j) {
@@ -484,8 +488,8 @@ __device__ void qkv_product(const AttnArgs& a, const T* x, const int* vr,
               ptt::ldsm_x4_t(bfr, wb + (s * 16 + ptt::a_row(lane)) *
                                            (kWRow / 2) +
                                       np * 16 + ptt::a_col(lane));
-              ptt::mma_bf16(macc[j][0], af, bfr[0], bfr[1]);
-              ptt::mma_bf16(macc[j][1], af, bfr[2], bfr[3]);
+              ptt::mma16<T>(macc[j][0], af, bfr[0], bfr[1]);
+              ptt::mma16<T>(macc[j][1], af, bfr[2], bfr[3]);
             }
           }
         }
@@ -680,7 +684,8 @@ __device__ __forceinline__ void wait_flags(const int* f, int n, const int* g,
 // The output projection of one head, o [q_len, D] (os) @ wo[hh D : (hh +
 // 1) D, :], in 128-column slabs through a ring (the slabs in an order
 // rotated by the head, so the slabs' last arrivals spread over the
-// blocks; bf16 with bf16 weights on the tensor cores); each slab's fp32
+// blocks; bf16 / fp16 with weights of the same type on the tensor cores);
+// each slab's fp32
 // partial goes to ws. One fence, then the block arrives at every slab's
 // counter; for each slab it finished last it sums the slab over the heads
 // in head order and writes the residual stream (or, without the fused
@@ -693,7 +698,7 @@ __device__ void out_proj(const AttnArgs& a, const float* os, int q_len,
                          float* row_mean, float* row_rstd) {
   __shared__ int n_mine, lane_last;
   constexpr bool kQ8 = std::is_same_v<W, int8_t>;
-  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16> && !kQ8;
+  constexpr bool kMma = ptt::is16<T> && !kQ8;
   constexpr int kWCh = kSlab * (int)sizeof(W) / 16;   // chunks a W row
   constexpr int kWRow = kSlab * (int)sizeof(W) + 16;  // its padded bytes
   constexpr int kC4 = kSlab / 4;
@@ -734,15 +739,14 @@ __device__ void out_proj(const AttnArgs& a, const float* os, int q_len,
     }
   };
   const Split m(q_len, kSlab, R);
-  __nv_bfloat16* oa = reinterpret_cast<__nv_bfloat16*>(ring + L.oa);
+  T* oa = reinterpret_cast<T*>(ring + L.oa);
   __syncthreads();   // os is written
   if constexpr (kQ8)   // the scale row of each of the head's wo rows
     for (int k = tid; k < D; k += kThreads) orow[k] = (hh * D + k) / go - g0;
-  if constexpr (kMma)   // the head's output as a bf16 A tile, zero rows
+  if constexpr (kMma)   // the head's output as a T A tile, zero rows
     for (int i = tid; i < m16 * 16 * D; i += kThreads) {   // past q_len
       const int r = i / D, c = i % D;
-      oa[r * (D + 8) + c] =
-          __float2bfloat16(r < q_len ? os[r * (D + 4) + c] : 0.f);
+      store(oa + r * (D + 8) + c, r < q_len ? os[r * (D + 4) + c] : 0.f);
     }
   for (int i = 0; i < ns - 1; ++i) {
     if (i < nslab) issue_tile(i);
@@ -757,7 +761,7 @@ __device__ void out_proj(const AttnArgs& a, const float* os, int q_len,
     const W* wt = reinterpret_cast<const W*>(st);
     const float* sc = reinterpret_cast<const float*>(st + L.o_s);
     if constexpr (kMma) {   // warp w: columns 16 w .. 16 w + 15 of every m-tile
-      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(wt);
+      const T* wb = reinterpret_cast<const T*>(wt);
       float acc[kMU][2][4] = {};
 #pragma unroll
       for (int s = 0; s < D / 16; ++s) {
@@ -770,8 +774,8 @@ __device__ void out_proj(const AttnArgs& a, const float* os, int q_len,
             uint32_t af[4];
             ptt::ldsm_x4(af, oa + (j * 16 + ptt::a_row(lane)) * (D + 8) +
                                  s * 16 + ptt::a_col(lane));
-            ptt::mma_bf16(acc[j][0], af, bfr[0], bfr[1]);
-            ptt::mma_bf16(acc[j][1], af, bfr[2], bfr[3]);
+            ptt::mma16<T>(acc[j][0], af, bfr[0], bfr[1]);
+            ptt::mma16<T>(acc[j][1], af, bfr[2], bfr[3]);
           }
       }
       const int g = lane / 4, t4 = lane % 4;
@@ -1318,7 +1322,8 @@ const char* ptt_error_string(int err) {
 
 
 // Shared-memory bytes one attention block uses (chunk C, head_dim D;
-// dtype 0 = fp32, 1 = bf16; whether wqkv / the pools / wo are int8; pages a
+// dtype 0 = fp32, 1 = bf16, 2 = fp16; whether wqkv / the pools / wo are
+// int8; pages a
 // split walks; lanes a producer takes), or -1 for a head dim that is not
 // built.
 int ptt_mega_attn_smem_bytes(int C, int D, int dtype, int wq8, int kv8,
@@ -1345,8 +1350,9 @@ int ptt_mega_attn_smem_bytes(int C, int D, int dtype, int wq8, int kv8,
 // int8 weights). The grid walks pages_per_split pages a split, splits =
 // ceil(pps / pages_per_split); a QKV producer takes `group` lanes (group *
 // C <= 64). C <= 64, D 32 / 64 / 80 / 96 / 128, h a multiple of 64.
-// dtype: 0 = fp32, 1 = bf16 (x, LN and bias vectors, y2, s, fp weights and
-// fp pools).
+// dtype: 0 = fp32, 1 = bf16 (this library), 2 = fp16 (the one built from
+// mega_decode_f16.cu) (x, LN and bias vectors, y2, s, fp weights and fp
+// pools).
 int ptt_mega_attn(const void* x, const void* ln1_g, const void* ln1_b,
                   const void* ln2_g, const void* ln2_b, const void* wqkv,
                   const void* sqkv, const void* bqkv, const void* wo,
@@ -1364,7 +1370,7 @@ int ptt_mega_attn(const void* x, const void* ln1_g, const void* ln1_b,
   if (C < 1 || C > 64 || h % 64 || pages_per_split < 1 || group < 1 ||
       group * C > 64 || (sqkv && gq % 16) || (so && go % 16) ||
       (ks == nullptr) != (vs == nullptr) || (fuse != 0) != (s != nullptr) ||
-      (dtype != 0 && dtype != 1))
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const int splits = (pps + pages_per_split - 1) / pages_per_split;
   const int ngroups = (b + group - 1) / group;
@@ -1388,11 +1394,19 @@ int ptt_mega_attn(const void* x, const void* ln1_g, const void* ln1_b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   const bool kv8 = ks != nullptr;
+#if PTT_MEGA_F16
+  if (dtype == 2)
+    return kv8 ? dispatch_dim<__half, int8_t>(a, D, device, st)
+               : dispatch_dim<__half, __half>(a, D, device, st);
+#else
   if (dtype == 0)
     return kv8 ? dispatch_dim<float, int8_t>(a, D, device, st)
                : dispatch_dim<float, float>(a, D, device, st);
-  return kv8 ? dispatch_dim<bf16, int8_t>(a, D, device, st)
-             : dispatch_dim<bf16, bf16>(a, D, device, st);
+  if (dtype == 1)
+    return kv8 ? dispatch_dim<bf16, int8_t>(a, D, device, st)
+               : dispatch_dim<bf16, bf16>(a, D, device, st);
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 // Pointers as in MlpArgs (out, hid and part 16-byte aligned; the inputs
@@ -1400,7 +1414,8 @@ int ptt_mega_attn(const void* x, const void* ln1_g, const void* ln1_b,
 // or neither); the rows t are b lanes of chunk rows (qlen null: every row
 // is live); h a multiple of 4, ceil(f / 64) % splits == 0. hid: t * f of
 // T; part: splits * t * h fp32; flags: splits + ceil(h / 32) + 2 int32,
-// zero on entry and left zero. dtype: 0 = fp32, 1 = bf16.
+// zero on entry and left zero. dtype: 0 = fp32, 1 = bf16 (this library),
+// 2 = fp16 (the one built from mega_decode_f16.cu).
 int ptt_mega_mlp(const void* y2, const void* s_res, const void* w1,
                  const void* s1, const void* b1, const void* w2,
                  const void* s2, const void* b2, const void* qlen, void* out,
@@ -1424,12 +1439,18 @@ int ptt_mega_mlp(const void* y2, const void* s_res, const void* w1,
                   f, g1, g2, fuse, b, chunk, splits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+#if PTT_MEGA_F16
+  if (dtype == 2)
+    return q8 ? launch_mlp<__half, int8_t>(a, device, st)
+              : launch_mlp<__half, __half>(a, device, st);
+#else
   if (dtype == 0)
     return q8 ? launch_mlp<float, int8_t>(a, device, st)
               : launch_mlp<float, float>(a, device, st);
   if (dtype == 1)
     return q8 ? launch_mlp<bf16, int8_t>(a, device, st)
               : launch_mlp<bf16, bf16>(a, device, st);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 

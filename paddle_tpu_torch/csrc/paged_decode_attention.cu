@@ -1,5 +1,5 @@
 // Paged decode attention for Hopper (sm_90a): one query token per sequence
-// over its paged K/V context, fp32 and bf16 pools.
+// over its paged K/V context, fp32, bf16 and fp16 pools.
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py::_decode_kernel (entry
 // paged_attention, through _kernel_impl). Computes what that kernel
@@ -147,7 +147,7 @@ const char* ptt_error_string(int err) {
 // group * (d + 2) rounded up to 4] fp32 (group = hq / hkv); counters
 // [b * hkv] int32, zero on entry and left zero. The grid walks
 // pages_per_split pages a split, splits = ceil(pps / pages_per_split).
-// dtype: 0 = fp32, 1 = bf16. d: 32, 64, 80, 96 or 128.
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16. d: 32, 64, 80, 96 or 128.
 int ptt_paged_decode_attention(const void* q, const void* kp, const void* vp,
                                const void* pt, const void* lengths,
                                void* out, void* part, void* counters, int b,
@@ -172,6 +172,7 @@ int ptt_paged_decode_attention(const void* q, const void* kp, const void* vp,
     if (dtype == 0) return launch<float, DV>(a, b, splits, device, s); \
     if (dtype == 1)                                                    \
       return launch<__nv_bfloat16, DV>(a, b, splits, device, s);       \
+    if (dtype == 2) return launch<__half, DV>(a, b, splits, device, s); \
   }
   PTT_D(32)
   PTT_D(64)

@@ -47,10 +47,11 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+// bf16 or fp16
+template <typename T>
+__device__ __forceinline__ float4 ld4(const T* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
   return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ float4 ld4(const int8_t* p) {

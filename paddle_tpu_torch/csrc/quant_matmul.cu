@@ -1,5 +1,5 @@
 // Weight-only quantized GEMM for Hopper (sm_90a): int8 and split-half int4
-// weights with per-channel or per-group fp32 scales, fp32 or bf16
+// weights with per-channel or per-group fp32 scales, fp32, bf16 or fp16
 // activations, forward y = x @ deq(W) (+ bias) and backward
 // dx = dy @ deq(W)^T.
 //
@@ -17,26 +17,27 @@
 // Two kernels. ops/quant_matmul.py qmm_plan picks one before the launch,
 // from shapes and alignment alone:
 //
-// qmm_tc_kernel<W> ("tc": the bf16 int8 (W = int8_t) or split-half int4 (W =
-// uint8_t) forward at M <= 64 tokens, the stored rows (K, or K / 2 for int4) a
-// multiple of 64, N of 16, scale groups of a multiple of 16 rows, 16-byte
-// aligned rows) — what the serving step runs. A block owns 64 output columns
+// qmm_tc_kernel<T, W> ("tc": the bf16 / fp16 (T) int8 (W = int8_t) or
+// split-half int4 (W = uint8_t) forward at M <= 64 tokens, the stored rows (K,
+// or K / 2 for int4) a multiple of 64, N of 16, scale groups of a multiple of
+// 16 rows, 16-byte aligned rows) — what the serving step runs. A block owns 64
+// output columns
 // and a K-slice (the plan splits the stored rows until the blocks fill the
 // card's SMs: GPT-125M's four int8 GEMMs at M 24 launch 144 blocks
 // each). The
 // weight tile, its scale rows and x's k-slice stream through one cp.async
 // ring of 16-byte chunks, stages of 64 stored rows in 96 KB
 // (skinny_gemm.cuh), so each weight byte is read once and a block's whole
-// K-slice is in flight at once. bf16 activations multiply on the tensor
+// K-slice is in flight at once. 16-bit activations multiply on the tensor
 // cores: mma.sync m16n8k16 with W as the A operand (the 64 columns are four
 // warps' 16-row sides, the 24 tokens three n8 tiles); a weight tile reaches
-// the A fragments by ldmatrix.x2.trans and dequantizes in registers to bf16
-// (q * bf16(s), rounded once, as the reference). An int4 stage is 64 stored
+// the A fragments by ldmatrix.x2.trans and dequantizes in registers to T
+// (q * T(s), rounded once, as the reference). An int4 stage is 64 stored
 // rows feeding reduction rows k.. (low nibbles) and K/2 + k.. (high
 // nibbles): one ldmatrix gives both halves' A fragments, each multiplied
 // with its own k-slice of x (both slices side by side in a token row, both
 // halves' scale rows in the stage), so int4 moves half of int8's weight
-// bytes for the same mma count. bf16 only: an H100 ran fp32 faster on
+// bytes for the same mma count. 16-bit only: an H100 ran fp32 faster on
 // qmm_kernel than on this tile's CUDA-core branch. Each K-slice leaves an
 // fp32 partial; the last block of a column tile to arrive (a counter it
 // resets) sums them in split order, adds the fp32 bias and casts:
@@ -296,7 +297,7 @@ qmm_kernel(const Args p) {
   if (tid == 0) p.counters[tile] = 0;  // ready for the next launch
 }
 
-// ---- the tensor-core route (the bf16 int8 / int4 forward, M <= 64) ----
+// ---- the tensor-core route (the 16-bit int8 / int4 forward, M <= 64) ----
 
 constexpr int kTcCols = 64;          // output columns a block
 constexpr int kTcRing = 96 << 10;    // the ring's shared memory: 2 blocks an SM
@@ -312,16 +313,16 @@ struct TcArgs {
   int M, K, N, G, splits, per;
 };
 
-// W, the weight kind: int8_t (int8) or uint8_t (split-half packed int4)
-template <typename W>
-using TcShape = ptt::sk::Shape<__nv_bfloat16, W, kTcCols>;
+// T, the activations: bf16 or fp16; W, the weight kind: int8_t (int8) or
+// uint8_t (split-half packed int4)
+template <typename T, typename W>
+using TcShape = ptt::sk::Shape<T, W, kTcCols>;
 
-template <typename W>
-__global__ void __launch_bounds__(TcShape<W>::kThreads)
+template <typename T, typename W>
+__global__ void __launch_bounds__(TcShape<T, W>::kThreads)
 qmm_tc_kernel(const TcArgs p) {
   namespace sk = ptt::sk;
-  using T = __nv_bfloat16;
-  using S = TcShape<W>;
+  using S = TcShape<T, W>;
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int last_flag;
   const int KW = S::kQ4 ? p.K / 2 : p.K;   // stored rows
@@ -369,12 +370,12 @@ qmm_tc_kernel(const TcArgs p) {
   if (threadIdx.x == 0) p.counters[blockIdx.x] = 0;   // ready for the next
 }
 
-template <typename W>
+template <typename T, typename W>
 int launch_tc(const TcArgs& p, int device, cudaStream_t st) {
-  cudaError_t err = ptt::allow_smem<qmm_tc_kernel<W>>(device, kTcRing);
+  cudaError_t err = ptt::allow_smem<qmm_tc_kernel<T, W>>(device, kTcRing);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + kTcCols - 1) / kTcCols, p.splits);
-  qmm_tc_kernel<W><<<grid, TcShape<W>::kThreads, kTcRing, st>>>(p);
+  qmm_tc_kernel<T, W><<<grid, TcShape<T, W>::kThreads, kTcRing, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -399,6 +400,8 @@ int launch(const void* a, const void* w, const void* s, const void* bias,
     qmm_kernel<float, kInt4, kBwd><<<grid, kThreads, 0, st>>>(p);
   else if (dtype == 1)
     qmm_kernel<__nv_bfloat16, kInt4, kBwd><<<grid, kThreads, 0, st>>>(p);
+  else if (dtype == 2)
+    qmm_kernel<__half, kInt4, kBwd><<<grid, kThreads, 0, st>>>(p);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -417,7 +420,7 @@ const char* ptt_error_string(int err) {
 // (forward) or [M, K] (backward); ws [splits, M, N or K] fp32 (unused when
 // splits == 1); counters: one int per output tile, all zero. Each block
 // reduces `per` stages of its split. vec: w's rows are 16-byte aligned.
-// dtype: 0 = fp32, 1 = bf16 (a and out).
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (a and out).
 #define PTT_QMM_ENTRY(name, int4, bwd)                                       \
   int name(const void* a, const void* w, const void* s, const void* bias,   \
            void* out, void* ws, void* counters, int M, int K, int N, int G, \
@@ -438,7 +441,7 @@ PTT_QMM_ENTRY(ptt_qmm_int4_bwd, true, true)
 // int per 64-column tile, all zero. 1 <= M <= 64, the stored rows (K or
 // K / 2) a multiple of 64, N of 16, (K / G) % 16 == 0, x / w / s / out
 // 16-byte aligned; each block reduces `per` 64-row stages of stored rows of
-// its split. dtype: 1 = bf16, the only one taken.
+// its split. dtype: 1 = bf16, 2 = fp16 (x and out).
 int ptt_qmm_tc(const void* x, const void* w, const void* s, const void* bias,
                void* out, void* ws, void* counters, int M, int K, int N,
                int G, int bits, int splits, int per, int dtype, int device,
@@ -446,7 +449,7 @@ int ptt_qmm_tc(const void* x, const void* w, const void* s, const void* bias,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int KW = bits == 4 ? K / 2 : K;
-  if ((bits != 8 && bits != 4) || dtype != 1 || M < 1 ||
+  if ((bits != 8 && bits != 4) || (dtype != 1 && dtype != 2) || M < 1 ||
       M > ptt::sk::RP || K < 1 || (bits == 4 && K % 2) ||
       KW % ptt::sk::KS || N % 16 || G < 1 || K % G || (K / G) % 16 ||
       splits < 1 || per < 1 ||
@@ -463,8 +466,11 @@ int ptt_qmm_tc(const void* x, const void* w, const void* s, const void* bias,
                  static_cast<float*>(ws), static_cast<int*>(counters), M, K,
                  N, G, splits, per};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bits == 8 ? launch_tc<int8_t>(p, device, st)
-                   : launch_tc<uint8_t>(p, device, st);
+  if (dtype == 2)
+    return bits == 8 ? launch_tc<__half, int8_t>(p, device, st)
+                     : launch_tc<__half, uint8_t>(p, device, st);
+  return bits == 8 ? launch_tc<__nv_bfloat16, int8_t>(p, device, st)
+                   : launch_tc<__nv_bfloat16, uint8_t>(p, device, st);
 }
 
 }  // extern "C"

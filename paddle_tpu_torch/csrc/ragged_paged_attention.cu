@@ -1,5 +1,5 @@
-// Ragged paged attention for Hopper (sm_90a): fp32 and bf16 K/V pools, and
-// int8 pools with per-(page slot, kv head) fp32 scales.
+// Ragged paged attention for Hopper (sm_90a): fp32, bf16 and fp16 K/V pools,
+// and int8 pools with per-(page slot, kv head) fp32 scales.
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel (both
 // its fp branch and its quant=True int8-KV branch). Computes what that
@@ -156,14 +156,14 @@ const char* ptt_error_string(int err) {
 
 // Shared-memory bytes one block needs for R = chunk * group rows at head
 // dim d walking `pages` pages a split; kv: 0 = fp32 pools, 1 = bf16, 2 =
-// int8 (a launch past the 227 KB a block may use fails with CUDA's
+// int8, 3 = fp16 (a launch past the 227 KB a block may use fails with CUDA's
 // error).
 int ptt_ragged_smem_bytes(int R, int d, int kv, int pages) {
 #define PTT_D(DV)                                                      \
   if (d == DV)                                                         \
     return (int)(kv == 0   ? wk::smem_bytes<float, DV>(R, pages)           \
-                 : kv == 1 ? wk::smem_bytes<__nv_bfloat16, DV>(R, pages)   \
-                           : wk::smem_bytes<int8_t, DV>(R, pages));
+                 : kv == 2 ? wk::smem_bytes<int8_t, DV>(R, pages)          \
+                           : wk::smem_bytes<__nv_bfloat16, DV>(R, pages));
   PTT_D(32)
   PTT_D(64)
   PTT_D(80)
@@ -180,8 +180,8 @@ int ptt_ragged_smem_bytes(int R, int d, int kv, int pages) {
 // [b, hkv, splits, R * (d + 2) rounded up to 4] fp32 (R = chunk * hq /
 // hkv); counters [b * hkv] int32, zero on entry and left zero. The grid
 // walks pages_per_split pages a split, splits = ceil(pps /
-// pages_per_split). dtype (of q and out): 0 = fp32, 1 = bf16. d: 32, 64,
-// 80, 96 or 128.
+// pages_per_split). dtype (of q and out): 0 = fp32, 1 = bf16, 2 = fp16.
+// d: 32, 64, 80, 96 or 128.
 int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
                                const void* ks, const void* vs,
                                const void* pt, const void* kv_lens,
@@ -209,16 +209,21 @@ int ptt_ragged_paged_attention(const void* q, const void* kp, const void* vp,
                      chunk, hq, hkv, num_pages, ps, pps, pages_per_split,
                      scale};
   using bf16 = __nv_bfloat16;
+  using f16 = __half;
 #define PTT_D(DV)                                                        \
   if (d == DV) {                                                         \
     if (!quant && dtype == 0)                                            \
       return launch<float, float, DV>(a, b, splits, device, s);          \
     if (!quant && dtype == 1)                                            \
       return launch<bf16, bf16, DV>(a, b, splits, device, s);            \
+    if (!quant && dtype == 2)                                            \
+      return launch<f16, f16, DV>(a, b, splits, device, s);              \
     if (quant && dtype == 0)                                             \
       return launch<float, int8_t, DV>(a, b, splits, device, s);         \
     if (quant && dtype == 1)                                             \
       return launch<bf16, int8_t, DV>(a, b, splits, device, s);          \
+    if (quant && dtype == 2)                                             \
+      return launch<f16, int8_t, DV>(a, b, splits, device, s);           \
   }
   PTT_D(32)
   PTT_D(64)

@@ -18,15 +18,16 @@
 // size the kernels wait on memory latency, and the bytes in flight set the
 // rate. Products accumulate in fp32 registers:
 //
-// - bf16 activations (the tensor cores): mma.sync m16n8k16 with the weight
-//   as the A operand (out^T = W^T . x^T), so the weight's columns fill the
+// - bf16 or fp16 activations T (the tensor cores; one template, the mma's
+//   suffix and the roundings differ): mma.sync m16n8k16 with the weight as
+//   the A operand (out^T = W^T . x^T), so the weight's columns fill the
 //   16-row side and the tokens are n8 tiles (24 tokens: three tiles, no
-//   padding). A warp owns 16 weight columns. A bf16 weight tile [k][n]
+//   padding). A warp owns 16 weight columns. A T weight tile [k][n]
 //   gives its A fragments by ldmatrix.x4.trans (row g <-> column g, row
 //   g + 8 <-> column g + 8). An int8 tile is read as b16 pairs of columns by
 //   ldmatrix.x2.trans: a lane receives rows k 2t, 2t + 1 of columns 2g and
 //   2g + 1, so A row g is column 2g and row g + 8 column 2g + 1; each value
-//   dequantizes in registers to bf16 (q * s rounded once) before the mma.
+//   dequantizes in registers to T (q * s rounded once) before the mma.
 //   The activations' B fragments come by ldmatrix.x4 from the [token][k]
 //   slice.
 // - fp32 activations (the CUDA cores, never TF32): a thread owns 4
@@ -49,7 +50,7 @@
 // So one ldmatrix yields two A fragments (lo, hi: A row g = column 2g, row
 // g + 8 = column 2g + 1, as for int8), each multiplied with its own slice's
 // B fragment: two mma a weight load, half of int8's weight bytes. Only
-// bf16 activations take int4 (the tensor cores).
+// 16-bit activations take int4 (the tensor cores).
 //
 // Either way a thread holds acc[8][4]; for_each_acc maps each to its
 // (token, column).
@@ -69,10 +70,6 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 namespace sk {
 
 constexpr int KS = 64;          // reduction rows a stage
@@ -86,24 +83,24 @@ __host__ __device__ constexpr int scale_rows(int gs) {
   return gs % 16 == 0 ? SG : (63 / gs + 2 < KS ? 63 / gs + 2 : KS);
 }
 
-// Shared-memory geometry of one block: T the activations, W the weight
-// (T, or int8 with fp32 scales), NT weight columns. Rows of the weight and
-// activation slices are padded by 16 bytes: an odd number of 16-byte chunks
-// a row, so the 8 rows an ldmatrix reads fall in 8 bank quads. A stage is
-// the weight rows, scale_rows(gs) scale rows and xrows(R) token rows.
+// Shared-memory geometry of one block: T the activations, W the weight (T, or
+// int8 / packed int4 with fp32 scales), NT weight columns. Rows of the weight
+// and activation slices are padded by 16 bytes: an odd number of 16-byte
+// chunks a row, so the 8 rows an ldmatrix reads fall in 8 bank quads. A stage
+// is the weight rows, scale_rows(gs) scale rows and xrows(R) token rows.
 template <typename T, typename W, int NT>
 struct Shape {
   static constexpr bool kQ4 = std::is_same_v<W, uint8_t>;  // int4 pairs
   static constexpr bool kQ = std::is_same_v<W, int8_t> || kQ4;
   static constexpr int kH = kQ4 ? 2 : 1;   // reduction rows a stored row
-  static constexpr bool kTC = std::is_same_v<T, __nv_bfloat16>;
+  static constexpr bool kTC = is16<T>;   // bf16 or fp16: the tensor cores
   static_assert(NT == 32 || NT == 64, "a warp per 16 columns, 2 or 4 warps");
-  static_assert(kTC ? (kQ || std::is_same_v<W, __nv_bfloat16>)
+  static_assert(kTC ? (kQ || std::is_same_v<W, T>)
                     : (std::is_same_v<W, int8_t> || std::is_same_v<W, float>),
-                "bf16 activations take bf16, int8 or int4 weights, fp32 "
-                "fp32 or int8");
-  // bf16: a warp per 16 columns; fp32: a thread per (4 columns, token
-  // class of 16)
+                "bf16 / fp16 activations take weights of their type, int8 "
+                "or int4, fp32 fp32 or int8");
+  // bf16 / fp16: a warp per 16 columns; fp32: a thread per (4 columns,
+  // token class of 16)
   static constexpr int kThreads = kTC ? NT * 2 : NT * 4;
   static constexpr int WP = NT * (int)sizeof(W) + 16;   // bytes a weight row
   static constexpr int XP = kH * KS * (int)sizeof(T) + 16;  // a token row
@@ -234,15 +231,16 @@ __device__ __forceinline__ void issue_x(unsigned char* xs, XRow xrow, int k,
   }
 }
 
-// One stage on the tensor cores (bf16 activations; the token rows at xs).
-// kRS: the scale rounds to bf16 before the product (the weight-only GEMM's
-// dequantization; the mega MLP's rounds q * s once, in fp32).
-template <typename W, int NT, bool kRS, bool kEdge>
+// One stage on the tensor cores (T activations, bf16 or fp16; the token
+// rows at xs). kRS: the scale rounds to T before the product (the
+// weight-only GEMM's dequantization; the mega MLP's rounds q * s once, in
+// fp32).
+template <typename T, typename W, int NT, bool kRS, bool kEdge>
 __device__ __forceinline__ void mma_stage(float (&acc)[8][4],
                                           const unsigned char* st,
                                           const unsigned char* xs, int k,
                                           int gs, int R) {
-  using S = Shape<__nv_bfloat16, W, NT>;
+  using S = Shape<T, W, NT>;
   const int lane = threadIdx.x & 31, ns = (threadIdx.x >> 5) * 16;
 #pragma unroll
   for (int kk = 0; kk < KS; kk += 16) {
@@ -277,13 +275,13 @@ __device__ __forceinline__ void mma_stage(float (&acc)[8][4],
         float s00 = sc[q][0].x, s01 = sc[q][0].y;
         float s10 = sc[q][1].x, s11 = sc[q][1].y;
         if (kRS) {
-          s00 = bf16_round(s00);
-          s01 = bf16_round(s01);
-          s10 = bf16_round(s10);
-          s11 = bf16_round(s11);
+          s00 = round_to<T>(s00);
+          s01 = round_to<T>(s01);
+          s10 = round_to<T>(s10);
+          s11 = round_to<T>(s11);
         }
-        a[2 * q] = pack_bf16(b0 * s00, b2 * s10);       // column 2g
-        a[2 * q + 1] = pack_bf16(b1 * s01, b3 * s11);   // column 2g + 1
+        a[2 * q] = pack2<T>(b0 * s00, b2 * s10);       // column 2g
+        a[2 * q + 1] = pack2<T>(b1 * s01, b3 * s11);   // column 2g + 1
       }
     } else {
       ldsm_x4_t(a, st + (kk + ((lane >> 4) << 3) + (lane & 7)) * S::WP +
@@ -295,25 +293,26 @@ __device__ __forceinline__ void mma_stage(float (&acc)[8][4],
         uint32_t b[4];
         ldsm_x4(b, xs + (16 * p + b_row(lane)) * S::XP +
                        (kk + b_col(lane)) * 2);
-        mma_bf16(acc[2 * p], a, b[0], b[1]);
-        if (16 * p + 8 < R) mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+        mma16<T>(acc[2 * p], a, b[0], b[1]);
+        if (16 * p + 8 < R) mma16<T>(acc[2 * p + 1], a, b[2], b[3]);
       }
     }
   }
 }
 
-// One split-half int4 stage on the tensor cores (bf16 activations; each
-// token row at xs holds the low half's 64 k then the high half's): per
-// 16-row step one ldmatrix of stored bytes, both nibbles sign-extended and
-// scaled in registers (q * bf16(s), rounded once) into the lo and hi A
-// fragments, each multiplied with its own slice (see the map at the top).
-// Groups of 16k rows: a 16-row step of either half lies in one group.
-template <int NT, bool kRS>
+// One split-half int4 stage on the tensor cores (T activations, bf16 or
+// fp16; each token row at xs holds the low half's 64 k then the high
+// half's): per 16-row step one ldmatrix of stored bytes, both nibbles
+// sign-extended and scaled in registers (q * T(s), rounded once) into the
+// lo and hi A fragments, each multiplied with its own slice (see the map
+// at the top). Groups of 16k rows: a 16-row step of either half lies in
+// one group.
+template <typename T, int NT, bool kRS>
 __device__ __forceinline__ void mma_stage_q4(float (&acc)[8][4],
                                              const unsigned char* st,
                                              const unsigned char* xs, int k,
                                              int kh, int gs, int R) {
-  using S = Shape<__nv_bfloat16, uint8_t, NT>;
+  using S = Shape<T, uint8_t, NT>;
   const int lane = threadIdx.x & 31, ns = (threadIdx.x >> 5) * 16;
   const float* ss = reinterpret_cast<const float*>(st + S::W_BYTES) + ns +
                     2 * (lane >> 2);
@@ -327,8 +326,8 @@ __device__ __forceinline__ void mma_stage_q4(float (&acc)[8][4],
     float2 sh = *reinterpret_cast<const float2*>(
         ss + (SG + (kh + k + kk) / gs - (kh + k) / gs) * NT);
     if (kRS) {
-      sl = make_float2(bf16_round(sl.x), bf16_round(sl.y));
-      sh = make_float2(bf16_round(sh.x), bf16_round(sh.y));
+      sl = make_float2(round_to<T>(sl.x), round_to<T>(sl.y));
+      sh = make_float2(round_to<T>(sh.x), round_to<T>(sh.y));
     }
     uint32_t alo[4], ahi[4];
 #pragma unroll
@@ -337,10 +336,10 @@ __device__ __forceinline__ void mma_stage_q4(float (&acc)[8][4],
       const auto nib = [&](int j, int h) {
         return (float)((int)(r[q] << (28 - 8 * j - 4 * h)) >> 28);
       };
-      alo[2 * q] = pack_bf16(nib(0, 0) * sl.x, nib(2, 0) * sl.x);
-      alo[2 * q + 1] = pack_bf16(nib(1, 0) * sl.y, nib(3, 0) * sl.y);
-      ahi[2 * q] = pack_bf16(nib(0, 1) * sh.x, nib(2, 1) * sh.x);
-      ahi[2 * q + 1] = pack_bf16(nib(1, 1) * sh.y, nib(3, 1) * sh.y);
+      alo[2 * q] = pack2<T>(nib(0, 0) * sl.x, nib(2, 0) * sl.x);
+      alo[2 * q + 1] = pack2<T>(nib(1, 0) * sl.y, nib(3, 0) * sl.y);
+      ahi[2 * q] = pack2<T>(nib(0, 1) * sh.x, nib(2, 1) * sh.x);
+      ahi[2 * q + 1] = pack2<T>(nib(1, 1) * sh.y, nib(3, 1) * sh.y);
     }
 #pragma unroll
     for (int p = 0; p < RP / 16; ++p) {
@@ -348,11 +347,11 @@ __device__ __forceinline__ void mma_stage_q4(float (&acc)[8][4],
         uint32_t b[4];
         const unsigned char* xr = xs + (16 * p + b_row(lane)) * S::XP;
         ldsm_x4(b, xr + (kk + b_col(lane)) * 2);
-        mma_bf16(acc[2 * p], alo, b[0], b[1]);
-        if (16 * p + 8 < R) mma_bf16(acc[2 * p + 1], alo, b[2], b[3]);
+        mma16<T>(acc[2 * p], alo, b[0], b[1]);
+        if (16 * p + 8 < R) mma16<T>(acc[2 * p + 1], alo, b[2], b[3]);
         ldsm_x4(b, xr + (KS + kk + b_col(lane)) * 2);
-        mma_bf16(acc[2 * p], ahi, b[0], b[1]);
-        if (16 * p + 8 < R) mma_bf16(acc[2 * p + 1], ahi, b[2], b[3]);
+        mma16<T>(acc[2 * p], ahi, b[0], b[1]);
+        if (16 * p + 8 < R) mma16<T>(acc[2 * p + 1], ahi, b[2], b[3]);
       }
     }
   }
@@ -473,10 +472,11 @@ __device__ void run_tile(float (&acc)[8][4], unsigned char* ring,
     cp_async_commit();
     const unsigned char* st = ring + (s % depth) * stage;
     if constexpr (S::kTC && S::kQ4)
-      mma_stage_q4<NT, kRS>(acc, st, st + xoff, k0 + s * KS, t.kh, t.gs, R);
+      mma_stage_q4<T, NT, kRS>(acc, st, st + xoff, k0 + s * KS, t.kh, t.gs,
+                               R);
     else if constexpr (S::kTC)
-      mma_stage<W, NT, kRS, kEdge>(acc, st, st + xoff, k0 + s * KS, t.gs,
-                                   R);
+      mma_stage<T, W, NT, kRS, kEdge>(acc, st, st + xoff, k0 + s * KS, t.gs,
+                                      R);
     else
       fma_stage<W, NT>(acc, st, reinterpret_cast<const float*>(st + xoff),
                        k0 + s * KS, t.gs, R, wf);
@@ -519,21 +519,18 @@ __device__ __forceinline__ void for_each_acc(const float (&acc)[8][4], int R,
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  uint2 u;
-  u.x = pack_bf16(v.x, v.y);
-  u.y = pack_bf16(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = u;
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2<T>(v.x, v.y),
+                                            pack2<T>(v.z, v.w));
 }
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
   return make_float4(a.x, a.y, b.x, b.y);
 }
 

@@ -14,12 +14,12 @@ its one-device case (dp = pp = mp = 1), in eager PyTorch:
   the chunked, rematerialized next-token CE over the tied embedding.
 - :func:`_block` is the dense, mp = 1 decoder block. Attention takes the
   flash custom op (``ops/flash_attention.py``: the hand-written forward
-  and backward kernels on a CUDA tensor) when ``use_flash_attention`` is
-  set on CUDA and the kernels take the call (``kernel_takes``: bf16 at
-  head_dim 32, 64, 80, 96 or 128, fp32 at 64 or 128), or ``force_flash``
-  on the CPU, and plain causal softmax attention otherwise. With
-  ``fused_mlp`` (on CUDA; ``force_fused_mlp`` on the CPU, where the plain
-  versions run) LN1 is the fused LayerNorm op and the MLP half
+  and backward kernels on a CUDA tensor) when ``use_flash_attention`` is set on
+  CUDA and the kernels take the call (``kernel_takes``: bf16 or fp16 at
+  head_dim 32, 64, 80, 96 or 128, fp32 at 64 or 128), or ``force_flash`` on the
+  CPU, and plain causal softmax attention otherwise. With ``fused_mlp`` (on
+  CUDA; ``force_fused_mlp`` on the CPU, where the plain versions run) LN1 is
+  the fused LayerNorm op and the MLP half
   :func:`_block_mlp_fused`: the
   residual add and LN2 in one op, fc1's bias and GELU in another
   (``ops/fused_mlp.py``, the hand-written LN and GELU kernels, forward and
@@ -214,7 +214,9 @@ def _block(p, x, config: GPTConfig, flash: bool, fused: bool):
                       for t in (q, k, v))
         scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(hd)
         causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-        scores = torch.where(causal, scores, -1e30)
+        # -1e30 in the scores' dtype, as the reference's jnp.where takes
+        # it (-inf in fp16; a CUDA where refuses the overflowing scalar)
+        scores = torch.where(causal, scores, scores.new_tensor(-1e30))
         attn = torch.softmax(scores, dim=-1)
         o = (attn @ vh).transpose(1, 2).reshape(mb, s, h)
     o = o @ p["wo"] + p["bo"]

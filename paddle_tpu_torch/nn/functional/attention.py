@@ -3,8 +3,8 @@
 Port of ``paddle_tpu/nn/functional/attention.py``: inputs are paddle's
 ``[batch, seq, heads, head_dim]`` layout. ``scaled_dot_product_attention``
 routes dropout-free calls that the built kernels take
-(``ops.flash_attention.kernel_takes``: CUDA tensors, bf16 at head_dim 32,
-64, 80, 96 or 128, fp32 at 64 or 128, ``hq % hkv == 0``) to the
+(``ops.flash_attention.kernel_takes``: CUDA tensors, bf16 or fp16 at
+head_dim 32, 64, 80, 96 or 128, fp32 at 64 or 128, ``hq % hkv == 0``) to the
 hand-written flash kernels, causal or not, with no mask or with one whose
 normalized shape streams into them (``mask_kernel_compatible``: ``[1|b,
 1|hq, 1|sq, sk]``), as the reference routes them to its kernel

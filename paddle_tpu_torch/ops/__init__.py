@@ -3,9 +3,9 @@ kernel (``csrc/*.cu``) and holds its plain PyTorch version beside it."""
 
 
 def twin_routes() -> int:
-    """Calls routed to a plain twin on the card (activations of a dtype the
-    kernels are not built for: ``_build.kernel_takes``), summed over every
-    wrapper's ``.twin_routes``."""
+    """Calls routed to a plain twin on the card (activations of a dtype no
+    kernel is built for, fp64 say: ``_build.kernel_takes``), summed over
+    every wrapper's ``.twin_routes``."""
     from . import (fused_mlp, grouped_matmul, mega_decode, paged_attention,
                    quant_matmul)
 

@@ -12,8 +12,10 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
 the H100's 8-core host, with the same registers and spills for every
 kernel.
 
-The file name carries a hash of the source, the shared ``csrc/*.cuh``
-headers and the flags, so an edited source never loads a stale library.
+The file name carries a hash of the source, every other ``csrc`` file (the
+shared ``*.cuh`` headers, and sources another includes, as
+``mega_decode_f16.cu`` includes ``mega_decode.cu``) and the flags, so an
+edited source never loads a stale library.
 ``ptxas -v`` output (registers, spills) is kept beside the library. Pointers and the stream cross
 the boundary as ``c_void_p``; every C entry returns ``cudaGetLastError()``
 and :func:`check` raises when it is not 0.
@@ -56,8 +58,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
+    for other in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(other.read_bytes())
     digest = h.hexdigest()[:12]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
@@ -132,26 +134,26 @@ def kept(device, kind: str, n: int, dtype=torch.int32) -> torch.Tensor:
     return held[-1]
 
 
-# the activation types every kernel family is built for; anything else (fp16)
-# is routed to the family's plain twin
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the activation types every kernel family is built for, in the order of
+# their C dtype codes
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def kernel_takes(dtype) -> bool:
-    """Whether the kernels take activations of ``dtype`` (fp32, bf16): the
-    one pure predicate of every family but flash (each module re-exports
-    it), decided before any launch. On CUDA tensors of another dtype (fp16)
-    a wrapper runs its plain twin and counts that in its ``.twin_routes``."""
+    """Whether the kernels take activations of ``dtype`` (fp32, bf16,
+    fp16): the one pure predicate of every family but flash (each module
+    re-exports it), decided before any launch. On CUDA tensors of another
+    dtype (fp64, say) a wrapper runs its plain twin and counts that in its
+    ``.twin_routes``."""
     return dtype in KERNEL_DTYPES
 
 
 def dtype_code(dtype, what: str) -> int:
-    """The C entries' element-type code: 0 = fp32, 1 = bf16."""
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
-        raise TypeError(f"{what} kernel takes float32 or bfloat16, "
+    """The C entries' element-type code: 0 = fp32, 1 = bf16, 2 = fp16."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what} kernel takes float32, bfloat16 or float16, "
                         f"got {dtype}")
-    return codes[dtype]
+    return KERNEL_DTYPES.index(dtype)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -23,16 +23,19 @@ Two optional branches, as in the reference's kernels:
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` (or
-raise): bf16 on the tensor cores at head_dim 32, 64, 80, 96 and 128 (the
-widths of the reference's ``GPT_CONFIGS`` and ``BERT_CONFIGS``), fp32 on
-the CUDA cores at 64 and 128 (tensor cores would make it TF32); each
+raise): bf16 and fp16 on the tensor cores at head_dim 32, 64, 80, 96 and
+128 (the widths of the reference's ``GPT_CONFIGS`` and ``BERT_CONFIGS``),
+fp32 on the CUDA cores at 64 and 128 (tensor cores would make it TF32); each
 instantiated with and without each branch (template flags ``MASK`` and
 ``LENS``, so the call with neither runs the kernel of before them): the
 mask read in fp32 with a stride of 0 on each broadcast dim, lens once a
 block. On a CPU tensor they run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
-The bf16 forward kernel rounds ``p`` to bf16 before ``p v`` per key tile, as
-the reference's kernel does; the dense twin keeps ``p`` in fp32.
+The bf16 and fp16 forward kernels round ``p`` to the input type before ``p
+v`` per key tile, as the reference's kernel does; the dense twin keeps
+``p`` in fp32. A bool mask normalized in fp16 holds ``-inf`` where bf16
+holds ``-1e30``: the kernels and twins then give such keys ``p = 0``, and a
+row with no other key zeros and ``LSE_INVALID``, as the reference does.
 :func:`flash_attention` is differentiable on both: one custom op
 (``paddle_tpu_torch::flash_attention``) whose forward runs the forward
 wrapper and saves ``(q, k, v, out, lse)`` with the mask and lens,
@@ -56,7 +59,8 @@ NEG_INF = -1e30
 LSE_INVALID = 1e30
 # the built instantiations, by dtype (the C entries' dtype codes)
 HEAD_DIMS = {torch.float32: (64, 128),
-             torch.bfloat16: (32, 64, 80, 96, 128)}
+             torch.bfloat16: (32, 64, 80, 96, 128),
+             torch.float16: (32, 64, 80, 96, 128)}
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _P = ctypes.c_void_p

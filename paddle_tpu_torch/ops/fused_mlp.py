@@ -162,7 +162,7 @@ def _sms(index: int) -> int:
 
 def _check(what, t, params=(), stats=()):
     """The dtype code of ``t [rows, h]``; raises on what the kernels do not
-    take: a dtype other than fp32 / bf16, parameters or gradients of
+    take: a dtype other than fp32 / bf16 / fp16, parameters or gradients of
     another dtype or device than ``t``, rows that are not contiguous,
     statistics that are not ``[rows]`` fp32."""
     code = _build.dtype_code(t.dtype, what)

@@ -6,20 +6,20 @@ dequant(W)[g(i)]`` for token rows PRE-SORTED by expert, with ``group_offsets
 ``W`` is an expert stack ``[E, K, N]`` — float, int8, or split-half packed
 int4 ``[E, K/2, N]`` (``quant_matmul.pack_int4`` per expert) — with scales
 ``[E, N]`` per channel or ``[E, groups, N]`` per group along K. A quantized
-element dequantizes as ``q * s`` in ``x``'s dtype (bf16 rounds it), float
-weights are cast to ``x``'s dtype, products accumulate in fp32, and the
-result is cast to ``x``'s dtype.
+element dequantizes as ``q * s`` in ``x``'s dtype (bf16 / fp16 round it),
+float weights are cast to ``x``'s dtype, products accumulate in fp32, and
+the result is cast to ``x``'s dtype.
 
 On a CUDA tensor :func:`grouped_matmul_fwd` / :func:`grouped_matmul_bwd`
 launch the hand-written kernels of ``csrc/grouped_matmul.cu`` (or raise);
 on a CPU tensor they run :func:`grouped_matmul_reference` and
-:func:`grouped_matmul_dx_reference`. :func:`_plan` picks the kernel before
-the launch, from shapes and pointers: bf16 activations with fp weights at
-K and N multiples of 8 and 16-byte aligned pointers take the tensor-core
-kernel (``"tc"``, ``ptt_gmm_tc`` / ``ptt_gmm_bwd_tc``; counted apart in
-``.tc_launches``); the bf16 int8 / int4 forward at the serving rows on
-whole 16-byte chunks the skinny route (``"sk"``, ``ptt_gmm_sk``; counted
-apart in ``.sk_launches``); everything else (fp32 activations, quantized dx
+:func:`grouped_matmul_dx_reference`. :func:`_plan` picks the kernel before the
+launch, from shapes and pointers: bf16 or fp16 activations with fp weights at K
+and N multiples of 8 and 16-byte aligned pointers take the tensor-core kernel
+(``"tc"``, ``ptt_gmm_tc`` / ``ptt_gmm_bwd_tc``; counted apart in
+``.tc_launches``); the bf16 / fp16 int8 / int4 forward at the serving rows on
+whole 16-byte chunks the skinny route (``"sk"``, ``ptt_gmm_sk``; counted apart
+in ``.sk_launches``); everything else (fp32 activations, quantized dx
 and prefill rows, other widths) the CUDA-core kernel (``"cc"``). :func:`grouped_matmul` is
 differentiable on both: one custom op (``paddle_tpu_torch::grouped_matmul``)
 whose backward gives ``dx`` through the backward kernel and, for float
@@ -40,13 +40,13 @@ import torch
 
 from . import _build
 from ._build import kernel_takes  # noqa: F401 (the family's predicate)
-from .quant_matmul import _norm_scales, dequantize_weight
+from .quant_matmul import _TC_DTYPES, _norm_scales, dequantize_weight
 
 _KERNEL = "grouped_matmul"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRY = [_P] * 7 + [_I] * 11 + [_P]
-_TC_ENTRY = [_P] * 6 + [_I] * 9 + [_P]
+_TC_ENTRY = [_P] * 6 + [_I] * 10 + [_P]
 _SIGNATURES = {name: _ENTRY for name in ("ptt_gmm", "ptt_gmm_q", "ptt_gmm_q4",
                                          "ptt_gmm_bwd", "ptt_gmm_q_bwd",
                                          "ptt_gmm_sk")}
@@ -261,7 +261,8 @@ def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1) -> Plan:
     card's SMs. A pure function of its arguments, decided before any
     launch.
 
-    The int8 / int4 forward takes the skinny route when ``dtype`` is bf16,
+    The int8 / int4 forward takes the skinny route when ``dtype`` is bf16
+    or fp16,
     ``ceil(m / e) <= SERVING_ROWS``, the stored rows (K, int4 K / 2) are a
     multiple of ``SK_STAGE``, N of 16 and the scale groups of 16 rows, and
     the pointers are aligned. Its grid rows cover every live 64-row tile
@@ -270,11 +271,12 @@ def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1) -> Plan:
     live). Each dtype goes to the kernel an H100 ran faster at the serving
     rows (48 over 4 experts, w1 + w2 of GPT-125M, 2 blocks an SM, PERF.md
     §6 rows 16-17): bf16 to this route (int8 0.0416, int4 0.0307 ms against
-    the CUDA-core kernel's 0.0812 / 0.0832), fp32 to the CUDA-core kernel
+    the CUDA-core kernel's 0.0812 / 0.0832) and fp16 with it (the same
+    tile, bytes and tensor-core rate), fp32 to the CUDA-core kernel
     (0.0736 ms against 0.0957 on the skinny tile's FMA branch, which is
     therefore not built)."""
     kw = k // 2 if bits == 4 else k
-    if (bits and not bwd and dtype == torch.bfloat16 and aligned
+    if (bits and not bwd and dtype in _TC_DTYPES and aligned
             and -(-m // e) <= SERVING_ROWS and kw % SK_STAGE == 0
             and n % 16 == 0 and (k // max(groups, 1)) % 16 == 0):
         rows = max_row_tiles(m, e, SK_ROWS)
@@ -282,7 +284,7 @@ def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1) -> Plan:
         splits, per = _split(kw // SK_STAGE, rows * cols, SK_BLOCKS_PER_SM,
                              sms)
         return Plan("sk", None, SK_ROWS, rows, cols, splits, per)
-    if (bits == 0 and dtype == torch.bfloat16 and aligned and k % 8 == 0
+    if (bits == 0 and dtype in _TC_DTYPES and aligned and k % 8 == 0
             and n % 8 == 0):
         tile = "serving" if -(-m // e) <= SERVING_ROWS else "prefill"
         t = TC_TILES[tile]
@@ -344,7 +346,7 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
             a.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
             out.data_ptr(), None if ws is None else ws.data_ptr(),
             counters.data_ptr(), m, k, n, e, TC_TILES[plan.tile]["code"],
-            plan.rows, plan.splits, plan.per, a.device.index, stream)
+            plan.rows, plan.splits, plan.per, code, a.device.index, stream)
     elif plan.route == "sk":
         name = "ptt_gmm_sk"
         err = lib.ptt_gmm_sk(

@@ -22,8 +22,8 @@ the output projection's partial instead of the residual + LN epilogue.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/mega_decode.cu`` (or raise), counting launches in ``.launches``
-(activations of a dtype the kernels are not built for, fp16, run the plain
-versions there and count ``.twin_routes``: :func:`kernel_takes`); the
+(activations of a dtype the kernels are not built for, fp64 say, run the
+plain versions there and count ``.twin_routes``: :func:`kernel_takes`); the
 attention kernel splits each lane's page walk over blocks as
 :func:`mega_plan` says, the MLP kernel its GEMM2 as :func:`mlp_plan` says;
 on a CPU tensor, or with ``use_kernel=False``, they
@@ -59,6 +59,9 @@ _K0 = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
 
 _KERNEL = "mega_decode"
+# fp16's instances: the same source built apart (csrc/mega_decode_f16.cu),
+# so the two builds run side by side
+_KERNEL_F16 = "mega_decode_f16"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -75,12 +78,19 @@ MLP_COLS, MLP_STAGE, MLP_RING = 32, 64, 96 << 10
 _SLAB = 128                 # the attention kernel's projection columns a tile
 
 
+def _lib(dtype):
+    """The library of the kernels' ``dtype`` instances (builds it on first
+    use)."""
+    return _build.load(_KERNEL_F16 if dtype == torch.float16 else _KERNEL,
+                       _SIGNATURES)
+
+
 def smem_bytes(chunk: int, head_dim: int, dtype=torch.float32,
                int8_weights=False, int8_kv=False, pages=1, group=1) -> int:
     """Dynamic shared memory of one attention block walking ``pages``
     pages a split, its QKV producers taking ``group`` lanes (builds the
     kernel on first use)."""
-    return _build.load(_KERNEL, _SIGNATURES).ptt_mega_attn_smem_bytes(
+    return _lib(dtype).ptt_mega_attn_smem_bytes(
         chunk, head_dim, _build.dtype_code(dtype, "mega_attn_layer"),
         int(int8_weights), int(int8_kv), int(int8_weights), pages, group)
 
@@ -442,7 +452,7 @@ def _launch_attn(xb, p, k_pages, v_pages, page_table, ctx_lens, q_lens, eps,
                               part_n + ws_n + pub_n + b * nslab * chunk * 2,
                               torch.float32)
         counters = _build.kept(dev, "attn", b * (3 * nh + nslab + 1) + 1)
-        lib = _build.load(_KERNEL, _SIGNATURES)
+        lib = _lib(dtype)
         err = lib.ptt_mega_attn(
             xb.data_ptr(), vecs["ln1_g"].data_ptr(), vecs["ln1_b"].data_ptr(),
             vecs["ln2_g"].data_ptr(), vecs["ln2_b"].data_ptr(),
@@ -550,7 +560,7 @@ def _launch_mlp(y2, s_res, p, fuse_epilogue, q_lens, chunk):
     part = scratch[-(-hid_n // 4) * 4:]      # 16-byte aligned after hid
     flags = _build.kept(dev, "mlp", plan.splits + plan.consumers
                         // plan.splits + 2)
-    lib = _build.load(_KERNEL, _SIGNATURES)
+    lib = _lib(dtype)
     err = lib.ptt_mega_mlp(
         y2.data_ptr(), _ptr(s_res), w1.data_ptr(), _ptr(s1), b1.data_ptr(),
         w2.data_ptr(), _ptr(s2), b2.data_ptr(), _ptr(q_lens), out.data_ptr(),

@@ -30,9 +30,9 @@ raises), the same split walk with the GQA group as its rows, planned by
 Decode-only: the output carries no gradient, as the reference registers
 no VJP.
 
-Both kernels take head dims :data:`HEAD_DIMS` in fp32 and bf16
-(:func:`kernel_takes`); on CUDA tensors of another dtype (fp16) the
-wrappers run the plain versions and count that in ``.twin_routes``.
+Both kernels take head dims :data:`HEAD_DIMS` in fp32, bf16 and fp16
+(:func:`kernel_takes`); on CUDA tensors of another dtype the wrappers run
+the plain versions and count that in ``.twin_routes``.
 """
 from __future__ import annotations
 
@@ -65,7 +65,8 @@ _SIGNATURES = {
 # keep (device memory the scratch may take at large batches)
 SPLIT_WAVES = 8
 PARTIAL_CAP = 8 << 20
-_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float16: 3}
 _DECODE_SIGNATURES = {
     "ptt_paged_decode_attention": [_P] * 8 + [_I] * 8
     + [ctypes.c_float, _I, _I, _P],

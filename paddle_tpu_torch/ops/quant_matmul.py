@@ -6,16 +6,16 @@ bias`` with ``W`` int8 ``[K, N]`` or split-half packed int4 ``[K/2, N]``
 (byte ``i`` holds row ``i`` in its low nibble and row ``K/2 + i`` in its
 high nibble) and scales ``[N]`` per channel or ``[groups, N]`` per group
 along K. A weight element dequantizes as ``q * s`` computed in ``x``'s
-dtype (bf16 rounds it), products accumulate in fp32, and the result is
-cast to ``x``'s dtype; a bias is added in fp32 before that cast.
+dtype (bf16 and fp16 round it), products accumulate in fp32, and the
+result is cast to ``x``'s dtype; a bias is added in fp32 before that cast.
 
 On a CUDA tensor :func:`quant_matmul_fwd` / :func:`quant_matmul_bwd`
 launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise),
-the route chosen before the launch by the pure :func:`qmm_plan`: the bf16
-int8 and packed int4 forward at up to :data:`TC_ROWS` tokens on aligned
+the route chosen before the launch by the pure :func:`qmm_plan`: the bf16 or
+fp16 int8 and packed int4 forward at up to :data:`TC_ROWS` tokens on aligned
 widths takes the tensor-core kernel (``"tc"``, counted in
-``quant_matmul_fwd.tc_launches`` too), everything else (fp32, dx, more
-tokens, odd widths) the CUDA-core kernel (``"cc"``); on a CPU tensor
+``quant_matmul_fwd.tc_launches`` too), everything else (fp32, dx, more tokens,
+odd widths) the CUDA-core kernel (``"cc"``); on a CPU tensor
 they run :func:`quant_matmul_reference` and
 :func:`quant_matmul_dx_reference`. :func:`quant_matmul` is differentiable
 on both: one custom op (``paddle_tpu_torch::quant_matmul``) whose backward
@@ -55,6 +55,9 @@ _BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
 # of 64 through a ring of TC_RING bytes of shared memory; they are split
 # until the blocks fill one wave of the card's SMs
 TC_ROWS, TC_COLS, TC_STAGE, TC_RING = 64, 64, 64, 96 << 10
+# the activation types the tensor-core routes are built for (here and in
+# the grouped GEMM, csrc/skinny_gemm.cuh)
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 # ---------------------------------------------------------------------------
@@ -165,25 +168,25 @@ def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
     scales and the output start on 16 bytes; ``sms``: the card's SMs. A pure
     function of its arguments, decided before any launch.
 
-    The int8 or packed int4 forward in bf16 at ``1 <= m <= TC_ROWS``, with
-    the stored rows (K, or K / 2 packed) a multiple of ``TC_STAGE`` (its
-    stages), ``N % 16`` and the scale groups' rows ``% 16`` all 0 (so a
-    stage's 16-row steps, in either half of a packed weight, each lie in
-    one group), takes the tensor-core kernel; everything else (fp32, dx,
-    more rows, odd widths, unaligned pointers) the CUDA-core kernel. Each
-    dtype goes to the kernel an H100 ran faster at GPT-125M's four serving
-    GEMMs (M 24, A/B in turns, PERF.md §6 rows 9 and 10): bf16 to the
-    tensor-core route (int8 0.0374 against 0.0763 ms for the four, int4
-    g128 0.0384 against 0.0735), fp32 to the CUDA-core kernel (int8 0.0678
-    against 0.0783 ms on the route's FMA branch, which is therefore not
-    built). Either splits the reduction's
+    The int8 or packed int4 forward in bf16 or fp16 at ``1 <= m <= TC_ROWS``,
+    with the stored rows (K, or K / 2 packed) a multiple of ``TC_STAGE`` (its
+    stages), ``N % 16`` and the scale groups' rows ``% 16`` all 0 (so a stage's
+    16-row steps, in either half of a packed weight, each lie in one group),
+    takes the tensor-core kernel; everything else (fp32, dx, more rows, odd
+    widths, unaligned pointers) the CUDA-core kernel. Each dtype goes to the
+    kernel an H100 ran faster at GPT-125M's four serving GEMMs (M 24, A/B in
+    turns, PERF.md §6 rows 9 and 10): bf16 to the tensor-core route (int8
+    0.0374 against 0.0763 ms for the four, int4 g128 0.0384 against 0.0735),
+    fp16 with it (the same tile, the same bytes and the same tensor-core rate),
+    fp32 to the CUDA-core kernel (int8 0.0678 against 0.0783 ms on the route's
+    FMA branch, which is therefore not built). Either splits the reduction's
     stages (the route's over stored rows) across blocks until they fill the
     card."""
     kw = k // 2 if packed else k
     gs = k // max(groups, 1)
     if (not bwd and 1 <= m <= TC_ROWS and kw % TC_STAGE == 0
             and n % 16 == 0 and gs % 16 == 0 and aligned
-            and dtype == torch.bfloat16):
+            and dtype in _TC_DTYPES):
         tiles = -(-n // TC_COLS)
         stages = kw // TC_STAGE
         want = max(1, -(-sms // tiles))
@@ -340,7 +343,7 @@ def quant_matmul(x, qweight, scales, bias=None):
     """Weight-only quantized GEMM ``y = x @ dequant(qweight) + bias`` with
     the weight staying int8 (or packed int4) on the device.
 
-    x: ``[..., K]`` fp32/bf16; qweight: ``[K, N]`` int8 or ``[K/2, N]``
+    x: ``[..., K]`` fp32/bf16/fp16; qweight: ``[K, N]`` int8 or ``[K/2, N]``
     packed int4 (see :func:`pack_int4`); scales: ``[N]`` per channel or
     ``[groups, N]`` per group (``K % groups == 0``); bias: ``[N]`` or None.
     Returns ``[..., N]`` in x's dtype; differentiable in x and bias.

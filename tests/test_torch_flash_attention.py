@@ -136,11 +136,11 @@ def test_sdpa_routes_cpu_to_reference():
                                    torch.float32])
 def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
     """The routing predicate: CUDA tensors with ``hq % hkv == 0`` in bf16
-    at every head dim the reference's configs use (32 / 64 / 80 / 96 /
-    128: the tensor-core kernels) or in fp32 at 64 / 128 go to the
-    kernels; the rest (fp32 at 32 / 80 / 96, fp16 at any width) to plain
-    attention. Decided from shape, dtype and device only, so a stand-in
-    with those attributes plays a CUDA tensor here."""
+    or fp16 at every head dim the reference's configs use (32 / 64 / 80 /
+    96 / 128: the tensor-core kernels) or in fp32 at 64 / 128 go to the
+    kernels; the rest (fp32 at 32 / 80 / 96) to plain attention. Decided
+    from shape, dtype and device only, so a stand-in with those attributes
+    plays a CUDA tensor here."""
     from types import SimpleNamespace
 
     cuda = torch.device("cuda", 0)
@@ -148,7 +148,7 @@ def test_kernel_takes_only_what_the_kernels_are_built_for(d, dtype):
     def fake(shape, dt=dtype, device=cuda):
         return SimpleNamespace(shape=shape, dtype=dt, device=device)
 
-    want = (dtype == torch.bfloat16
+    want = (dtype in (torch.bfloat16, torch.float16)
             or (dtype == torch.float32 and d in (64, 128)))
     assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 4, d))) == want
     assert kernel_takes(fake((2, 16, 4, d)), fake((2, 16, 2, d))) == want

@@ -197,8 +197,8 @@ def test_wrapper_checks_raise():
     """What the kernels do not take raises before any launch (the checks
     are device-independent; the launch itself needs a card)."""
     x = torch.zeros(4, 8)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfm._check("ln", x.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tfm._check("ln", x.double())
     with pytest.raises(TypeError, match="rows"):
         tfm._check("ln", x, (torch.zeros(8, dtype=torch.bfloat16),))
     with pytest.raises(ValueError, match="contiguous"):
@@ -213,6 +213,7 @@ def test_wrapper_checks_raise():
     assert tfm._vec(torch.zeros(4, 6)) == 0        # 24-byte rows
     assert tfm._check("ln", x) == 0
     assert tfm._check("ln", x.bfloat16()) == 1
+    assert tfm._check("ln", x.half()) == 2
 
 
 def test_no_grad_skips_the_ops_and_grad_mode_takes_them():

@@ -16,13 +16,18 @@ an order that changes from run to run: its dq, dk and dv are held as the
 max abs error over the tensor's max ``|want|``, to ``1e-5``. In bf16 both
 sides round an fp32 result to 8 mantissa bits once, so an element may
 differ by one bf16 step (<= 2^-7 of it): each row's (last axis) max abs
-error is held to ``1e-2`` of the row's max ``|want|``. The dq row of a
+error is held to ``1e-2`` of the row's max ``|want|``. fp16 (10 mantissa
+bits, one step <= 2^-10) is held the same way to ``2e-3``: about two
+steps, where the flash forward kernels also round each key tile's ``p``
+to fp16 (<= 2^-11 of each term) and the plain version does not. Every
+dtype-parametrized test runs fp32, bf16 and fp16 (``DTYPES``). The dq row of a
 query that sees one key is zero in exact arithmetic (``ds = p (dp -
 delta)`` with ``p = 1`` and ``dp = delta``): both sides return fp32
 rounding noise there (the bf16 tensor-core kernel sums ``dp`` in another
 rounding than the plain GEMM and ``delta``), so such a row has no scale
 of its own and is held as an fp32 gradient, its max abs error over the
-tensor's max ``|want|``, to ``1e-5``. Whole-model
+tensor's max ``|want|``, to ``1e-5`` (``1e-4`` in fp16: ``ZERO_ROW_TOL``).
+Whole-model
 gradients (flash vs plain attention, fp32, TF32 off): each parameter's max
 abs error over its max ``|grad|``, to ``1e-5`` (seen: <= 2e-6). The
 weight-only GEMM splits its fp32 sums across blocks in another order than
@@ -47,12 +52,12 @@ attends it moves, and the fp32 outputs are then held to ``1e-3``.
 The ragged grouped GEMM computes what the weight-only GEMM computes per
 expert, and is held the same way (fp32 to ``1e-5`` of the tensor's max,
 bf16 per row; its bf16 tensor-core kernels sum exact bf16 products in
-another order and round once, as the plain version does); attention routed to plain ``_sdpa_ref`` (head_dim 96, fp16)
-runs the same function as the reference path on the same device and is
-held to ``atol/rtol 1e-6`` in fp32 and exactly in fp16. The paged decode
-kernel is held like the ragged kernel (fp32 ``FP32_TOL``, bf16 per row),
-against its plain version and against the ragged kernel at chunk 1 on the
-same pools.
+another order and round once, as the plain version does); attention routed to
+plain ``_sdpa_ref`` (fp32 head_dim 96, fp64) runs the same function as the
+reference path on the same device and is held to ``atol/rtol 1e-6``. The paged
+decode kernel is held like the ragged kernel (fp32 ``FP32_TOL``, bf16 per row),
+against its plain version and against the ragged kernel at chunk 1 on the same
+pools.
 """
 import contextlib
 
@@ -88,7 +93,15 @@ pytestmark = pytest.mark.gpu
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_ROW_TOL = 1e-2
+FP16_ROW_TOL = 2e-3
+ROW_TOL = {torch.bfloat16: BF16_ROW_TOL, torch.float16: FP16_ROW_TOL}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 BWD_FP32_TOL = 1e-5
+# rows zero in exact arithmetic, over the tensor's max |want|: fp32 noise
+# both sides. bf16's 16-bit products mostly sum exactly in fp32; fp16's
+# 22-bit products are rounded by the fp32 sums of dp and delta, so the
+# noise left is larger (seen 1.7e-5 on an H100): held to 1e-4 in fp16
+ZERO_ROW_TOL = {torch.bfloat16: BWD_FP32_TOL, torch.float16: 1e-4}
 GRAD_TOL = 1e-5
 QMM_FP32_TOL = 1e-5
 
@@ -100,23 +113,23 @@ def _assert_close(got, want, dtype):
     diff = (got.float() - want.float()).abs().amax(-1)
     scale = want.float().abs().amax(-1).clamp_min(1e-30)
     worst = (diff / scale).max().item()
-    assert worst <= BF16_ROW_TOL, (
-        f"bf16 row error {worst:.3e} of the row's max |want| > "
-        f"{BF16_ROW_TOL}")
+    assert worst <= ROW_TOL[dtype], (
+        f"{dtype} row error {worst:.3e} of the row's max |want| > "
+        f"{ROW_TOL[dtype]}")
 
 
 def _assert_bwd_close(got, want, zero_rows=None):
-    """A bf16 gradient ``[b, s, h, d]``: rows per ``_assert_close``; the
-    ``zero_rows`` (``[s]`` bool: dq of the queries that see one key) to
-    ``BWD_FP32_TOL`` of the tensor's max ``|want|``."""
+    """A bf16 / fp16 gradient ``[b, s, h, d]``: rows per ``_assert_close``;
+    the ``zero_rows`` (``[s]`` bool: dq of the queries that see one key) to
+    ``ZERO_ROW_TOL`` of the tensor's max ``|want|``."""
     if zero_rows is None or not zero_rows.any():
-        _assert_close(got, want, torch.bfloat16)
+        _assert_close(got, want, got.dtype)
         return
     zero = zero_rows.view(1, -1, 1).expand(got.shape[:-1])
-    _assert_close(got[~zero], want[~zero], torch.bfloat16)
+    _assert_close(got[~zero], want[~zero], got.dtype)
     err = ((got[zero].float() - want[zero].float()).abs().max()
            / want.float().abs().max())
-    assert err.item() <= BWD_FP32_TOL, err.item()
+    assert err.item() <= ZERO_ROW_TOL[got.dtype], err.item()
 
 
 def _one_key_rows(sq, sk, causal, device):
@@ -160,7 +173,7 @@ def _valid_rows(out, q_lens):
     return out[mask]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", [(8, 16, 12, 12, 64, 64, 16),
                                   (4, 8, 8, 2, 128, 16, 12)])
 def test_ragged_kernel_matches_plain(cuda, dtype, geom):
@@ -226,7 +239,7 @@ def _check_flash_bwd(cuda, dtype, shape, seed):
             _assert_bwd_close(g, w, zero_rows if g is got[0] else None)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(4, 512, 512, 12, 12, 64, True),
                                    (2, 200, 200, 8, 2, 64, True),
                                    (2, 64, 300, 4, 4, 128, True),
@@ -236,7 +249,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
     _check_flash_fwd(cuda, dtype, shape, 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024, 1024, 12, 12, 128, True),
                                    (2, 128, 128, 4, 4, 64, True),
                                    (2, 128, 128, 4, 4, 64, False),
@@ -249,10 +262,10 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, shape):
     _check_flash_bwd(cuda, dtype, shape, 2)
 
 
-# bf16 only (fp32 is built for d 64 / 128): every head dim the reference's
-# configs use, with sq < sk (causal offset) and GQA, ragged tails, rows
-# that see no key (sq > sk causal), non-causal, GQA 8 with ragged tails on
-# both sides, and one query row
+# bf16 and fp16 (fp32 is built for d 64 / 128): every head dim the
+# reference's configs use, with sq < sk (causal offset) and GQA, ragged
+# tails, rows that see no key (sq > sk causal), non-causal, GQA 8 with
+# ragged tails on both sides, and one query row
 TC_SHAPES = [(2, 200, 456, 12, 4, 32, True),
              (2, 333, 333, 8, 8, 80, True),
              (1, 300, 100, 6, 2, 96, True),
@@ -262,14 +275,17 @@ TC_SHAPES = [(2, 200, 456, 12, 4, 32, True),
              (1, 1, 129, 4, 4, 64, True)]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", TC_SHAPES)
-def test_flash_tc_kernel_matches_plain_at_every_head_dim(cuda, shape):
-    _check_flash_fwd(cuda, torch.bfloat16, shape, 4)
+def test_flash_tc_kernel_matches_plain_at_every_head_dim(cuda, shape, dtype):
+    _check_flash_fwd(cuda, dtype, shape, 4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", TC_SHAPES)
-def test_flash_tc_bwd_kernel_matches_plain_at_every_head_dim(cuda, shape):
-    _check_flash_bwd(cuda, torch.bfloat16, shape, 5)
+def test_flash_tc_bwd_kernel_matches_plain_at_every_head_dim(cuda, shape,
+                                                             dtype):
+    _check_flash_bwd(cuda, dtype, shape, 5)
 
 
 def test_eager_gpt_gradients_flash_vs_plain(cuda):
@@ -299,7 +315,7 @@ def test_eager_gpt_gradients_flash_vs_plain(cuda):
         assert err.item() <= GRAD_TOL, (name, err.item())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", [(8, 16, 12, 12, 64, 64, 16),
                                   (4, 8, 8, 2, 128, 16, 12)])
 def test_ragged_int8_kernel_matches_plain(cuda, dtype, geom):
@@ -332,7 +348,7 @@ def _qmm_err(got, want, dtype):
         _assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(24, 768, 2304, 8, -1),
                                    (24, 768, 768, 8, 128),
                                    (24, 3072, 768, 4, 128),
@@ -407,7 +423,7 @@ def _rand(rng, shape, cuda, dtype, scale=1.0):
         np.float32))).to(cuda, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 1536), (2048, 768), (77, 200),
                                    (9, 1001), (16, MAX_H)])
 @pytest.mark.parametrize("res", [False, True])
@@ -473,7 +489,7 @@ def _gelu_held(got, want, dtype):
     _fused_err(torch.where(fin, got, 0), torch.where(fin, want, 0), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,inputs", [
     ((8192, 6144), "normal"), ((2048, 3072), "normal"), ((77, 200), "normal"),
     ((9, 1001), "normal"), ((1, 6144), "normal"), ((64, 8), "normal"),
@@ -509,8 +525,8 @@ def test_gelu_kernels_match_plain(cuda, dtype, shape, inputs, has_bias):
     torch.cuda.synchronize()
     for a, b in ((y, y2), (dx, dx2), (db, db2)):
         assert (a is None and b is None) or torch.equal(
-            a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
-            b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+            a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+            b.view(torch.int16 if b.element_size() == 2 else torch.int32))
 
 
 def test_fused_ops_grad_wiring(cuda):
@@ -649,7 +665,7 @@ def _mega_close(got, want, dtype, q_lens, fp32_tol=QMM_FP32_TOL):
     return 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", sorted(MEGA_GEOMS))
 @pytest.mark.parametrize("weights,group,kv_quant", [
     ("fp", -1, False), ("int8", -1, False), ("int8", 64, True),
@@ -683,7 +699,7 @@ def test_mega_attn_kernel_matches_plain(cuda, dtype, geom, weights, group,
         assert torch.count_nonzero(got[0][0]) == 0     # the idle lane
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", ["odd", "d128"])
 def test_mega_attn_kernel_head_major(cuda, dtype, geom):
     """wqkv's columns in the head-major ``[nh, 3, hd]`` order (the
@@ -707,7 +723,7 @@ def test_mega_attn_kernel_head_major(cuda, dtype, geom):
                         fp32_tol=MEGA_KV_TOL if flips else QMM_FP32_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(128, 768, 3072, 128), (15, 200, 640, 40),
                                    (15, 192, 640, 32)])
 @pytest.mark.parametrize("weights", ["fp", "int8"])
@@ -765,7 +781,7 @@ def _mlp_live_inputs(case, weights, dtype, device, seed=3):
     return y2, s_res, p, q_lens, chunk
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(MLP_LIVE_CASES))
 @pytest.mark.parametrize("weights", ["fp", "int8", "int8g"])
 def test_mega_mlp_live_rows_repeat_and_graph(cuda, dtype, case, weights):
@@ -788,7 +804,7 @@ def test_mega_mlp_live_rows_repeat_and_graph(cuda, dtype, case, weights):
     _graph_equal(lambda: mega_mlp(y2, s_res, p, q_lens=q_lens, chunk=chunk))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_mega_mlp_unaligned_inputs(cuda, dtype):
     """Inputs that do not start on 16 bytes (each a view one element into
     its buffer) give the same result as aligned copies, bitwise, at widths
@@ -821,7 +837,7 @@ QMM_TC_CASES = [(24, 768, 2304, -1), (24, 768, 768, 128),
 
 
 @pytest.mark.parametrize("weights", ["int8", "int4 g128", "int4"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", QMM_TC_CASES)
 def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case, weights):
     """The int8 forward (the case's group) and the packed int4 forward (in
@@ -844,7 +860,7 @@ def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case, weights):
         cuda)
     plan = qmm_mod.qmm_plan(m, k, n, s.reshape(-1, n).shape[0], dtype,
                             name == "int4", False, True, 132)
-    tc = dtype == torch.bfloat16
+    tc = dtype != torch.float32
     assert plan.route == ("tc" if tc else "cc")
     before = quant_matmul_fwd.tc_launches
     got = quant_matmul_fwd(x, q, s.reshape(-1, n), bias)
@@ -954,7 +970,7 @@ def _gmm_inputs(shape, weights, dtype, cuda, seed=7):
     return x, w, scales, offs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", sorted(GMM_SHAPES))
 @pytest.mark.parametrize("weights", ["fp", "int8", "int8g", "int4g"])
 def test_grouped_matmul_kernels_match_plain(cuda, dtype, shape, weights):
@@ -974,7 +990,7 @@ def test_grouped_matmul_kernels_match_plain(cuda, dtype, shape, weights):
                     torch.cuda.get_device_properties(
                         cuda).multi_processor_count,
                     1 if scales is None else scales.shape[1])
-    sk = bits and shape in GMM_SK_SHAPES and dtype == torch.bfloat16
+    sk = bits and shape in GMM_SK_SHAPES and dtype != torch.float32
     assert (plan.route == "sk") == bool(sk)
     before = dict(grouped_matmul_fwd.launches)
     sk0 = grouped_matmul_fwd.sk_launches
@@ -1016,31 +1032,32 @@ GMM_TC_CASES = {
 }
 
 
-def _gmm_tc_inputs(case, cuda, seed=21):
-    """bf16 x [M, K], dy [M, N], W [E, K, N] with NaN in every empty
-    expert, and the offsets."""
+def _gmm_tc_inputs(case, cuda, seed=21, dtype=torch.bfloat16):
+    """x [M, K], dy [M, N], W [E, K, N] in ``dtype`` (bf16 or fp16) with NaN
+    in every empty expert, and the offsets."""
     k, n, counts, _ = GMM_TC_CASES[case]
     rng = np.random.RandomState(seed)
     m, e = sum(counts), len(counts)
-    x = _rand(rng, (m, k), cuda, torch.bfloat16)
-    dy = _rand(rng, (m, n), cuda, torch.bfloat16)
-    w = _rand(rng, (e, k, n), cuda, torch.bfloat16, 0.05)
+    x = _rand(rng, (m, k), cuda, dtype)
+    dy = _rand(rng, (m, n), cuda, dtype)
+    w = _rand(rng, (e, k, n), cuda, dtype, 0.05)
     w[[i for i, c in enumerate(counts) if c == 0]] = float("nan")
     offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
                         dtype=torch.int32, device=cuda)
     return x, dy, w, offs
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", sorted(GMM_TC_CASES))
-def test_grouped_matmul_tc_matches_plain(cuda, case):
+def test_grouped_matmul_tc_matches_plain(cuda, case, dtype):
     """The tensor-core forward and dx against their plain versions, the
     empty experts' NaN weights absent from the outputs, one tensor-core
     launch each, two launches bitwise equal."""
     from paddle_tpu_torch.ops import grouped_matmul as gm
 
-    x, dy, w, offs = _gmm_tc_inputs(case, cuda)
+    x, dy, w, offs = _gmm_tc_inputs(case, cuda, dtype=dtype)
     k, n, counts, tile = GMM_TC_CASES[case]
-    plan = gm._plan(x.shape[0], w.shape[0], k, n, 0, False, torch.bfloat16,
+    plan = gm._plan(x.shape[0], w.shape[0], k, n, 0, False, dtype,
                     True, torch.cuda.get_device_properties(
                         cuda).multi_processor_count)
     assert (plan.route, plan.tile) == ("tc", tile)
@@ -1049,7 +1066,7 @@ def test_grouped_matmul_tc_matches_plain(cuda, case):
     fp_fwd, fp_bwd = grouped_matmul_fwd.launches["fp"], \
         grouped_matmul_bwd.launches["fp"]
     outs = [(grouped_matmul_fwd(x, w, offs),
-             grouped_matmul_bwd(dy, w, offs, None, k, torch.bfloat16))
+             grouped_matmul_bwd(dy, w, offs, None, k, dtype))
             for _ in range(2)]
     torch.cuda.synchronize()
     assert grouped_matmul_fwd.tc_launches == fwd_tc + 2
@@ -1058,13 +1075,12 @@ def test_grouped_matmul_tc_matches_plain(cuda, case):
     assert grouped_matmul_bwd.launches["fp"] == fp_bwd + 2
     (got, dx), again = outs
     assert torch.equal(got, again[0]) and torch.equal(dx, again[1])
-    assert got.dtype == dx.dtype == torch.bfloat16
+    assert got.dtype == dx.dtype == dtype
     assert bool(torch.isfinite(got).all()) and bool(
         torch.isfinite(dx).all())
-    _assert_close(got, grouped_matmul_reference(x, w, offs), torch.bfloat16)
+    _assert_close(got, grouped_matmul_reference(x, w, offs), dtype)
     _assert_close(dx, grouped_matmul_dx_reference(dy, w, offs, None, k,
-                                                  torch.bfloat16),
-                  torch.bfloat16)
+                                                  dtype), dtype)
 
 
 @pytest.mark.parametrize("kn", [(136, 76), (132, 72)])
@@ -1101,7 +1117,7 @@ def test_grouped_matmul_width_off_the_copies_runs_cuda_cores(cuda, kn):
             grouped_matmul_bwd.tc_launches) == tc
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_grouped_matmul_grad_wiring(cuda, dtype):
     """dx by the backward kernel (in bf16 the tensor-core one) and fp dw by
     the per-expert segment products equal the plain version's autograd
@@ -1115,7 +1131,7 @@ def test_grouped_matmul_grad_wiring(cuda, dtype):
     r = _rand(rng, (48, 80), cuda, dtype)
     tc = grouped_matmul_bwd.tc_launches
     (grouped_matmul(x, w, offs) * r).sum().backward()
-    assert grouped_matmul_bwd.tc_launches == tc + (dtype == torch.bfloat16)
+    assert grouped_matmul_bwd.tc_launches == tc + (dtype != torch.float32)
     gx, gw = x.grad.clone(), w.grad.clone()
     assert gx.dtype == gw.dtype == dtype
     x.grad = w.grad = None
@@ -1166,14 +1182,15 @@ def test_moe_serving_launches_and_tokens(cuda):
 
 
 def test_attention_routes_what_the_kernel_cannot_take(cuda):
-    """head_dim 96 and fp16 attention run plain ``_sdpa_ref`` on the card
-    instead of raising, equal to it; a d 96 ``gpt_spmd`` step runs."""
+    """fp32 head_dim 96 and fp64 attention (no kernel is built for either)
+    run plain ``_sdpa_ref`` on the card instead of raising, equal to it; a
+    d 96 ``gpt_spmd`` step runs."""
     from paddle_tpu_torch.models import gpt_spmd
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.nn.functional import attention as A
 
     rng = np.random.RandomState(13)
-    for d, dtype in ((96, torch.float32), (64, torch.float16)):
+    for d, dtype in ((96, torch.float32), (64, torch.float64)):
         q, k, v = (_rand(rng, (2, 40, 4, d), cuda, dtype) for _ in range(3))
         before = flash_attention_fwd.launches
         got = A.scaled_dot_product_attention(q, k, v, is_causal=True)
@@ -1212,7 +1229,7 @@ def _decode_inputs(rng, b, hq, hkv, d, ps, pps, device, dtype):
     return q, kp, vp, to(pt), to(lengths)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", DECODE_GEOMS)
 def test_paged_decode_kernel_matches_plain(cuda, dtype, geom):
     """The split-walk decode kernel against its plain version: the empty
@@ -1229,7 +1246,7 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, geom):
     assert torch.count_nonzero(got[0]) == 0           # the empty slot
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", DECODE_GEOMS)
 def test_paged_decode_kernel_matches_ragged_at_chunk_1(cuda, dtype, geom):
     """The reference's ``test_ragged_decode_lane_matches_decode_kernel``:
@@ -1244,7 +1261,7 @@ def test_paged_decode_kernel_matches_ragged_at_chunk_1(cuda, dtype, geom):
     _assert_close(got[1:].float(), ragged[1:, 0].float(), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("geom", [DECODE_GEOMS[0], DECODE_GEOMS[-1]])
 def test_paged_decode_kernel_graph_replay(cuda, dtype, geom):
     """A captured decode launch (its split partials and counters kept
@@ -1254,7 +1271,7 @@ def test_paged_decode_kernel_graph_replay(cuda, dtype, geom):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [32, 80, 96])
 def test_ragged_kernel_head_dims(cuda, dtype, d, quant):
     """The ragged kernel at the head dims of gpt3-tiny, -2.7b and -760m."""
@@ -1351,7 +1368,7 @@ def _walk_inputs(case, dtype, quant, device, seed=0):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_ragged_split_walk_matches_plain(cuda, case, dtype, quant):
     """The split walk against the plain version (fp and int8 KV, MHA, GQA,
@@ -1395,7 +1412,7 @@ def _graph_equal(fn):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_ragged_split_walk_graph_replay(cuda, dtype):
     args, kw = _walk_inputs("decode_round", dtype, False, cuda)
     _graph_equal(lambda: ragged_paged_attention(*args, **kw))
@@ -1417,7 +1434,7 @@ def _mega_decode_round(dtype, kv_quant, device):
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_mega_attn_decode_round_repeat_and_graph(cuda, dtype, kv_quant):
     """The mega attention kernel at the decode round against its plain
     version, a second launch bitwise equal to the first, and a captured
@@ -1446,71 +1463,81 @@ def _routes():
     return twin_routes()
 
 
-def _fp16_held(got, want32):
-    """An fp16 result of a plain twin against the fp32 twin: per row, as
-    bf16 (fp16 rounds more finely)."""
-    assert got.dtype == torch.float16
-    _assert_close(got.float(), want32.float(), torch.bfloat16)
+def _fp16_held(got, want):
+    """An fp16 kernel result against its fp16 plain twin: per row, to
+    ``FP16_ROW_TOL``."""
+    assert got.dtype == want.dtype == torch.float16
+    _assert_close(got.float(), want.float(), torch.float16)
 
 
 def test_fp16_runs_every_family_twin(cuda):
-    """fp16 on CUDA raised ``TypeError`` in ``dtype_code``; each family
-    now routes it to its plain twin before any launch (one route counted a
-    call, no launch) and returns what the fp32 twin returns, rounded."""
+    """fp16 is a kernel dtype: each family launches its kernel (no twin
+    route counted) and returns what its fp16 twin returns; fp64, which no
+    kernel takes, still routes to the twin and is counted."""
+    from paddle_tpu_torch.ops.fused_mlp import gelu_bwd, ln_bwd
+
     rng = np.random.RandomState(9)
     h16 = lambda a: torch.from_numpy(  # noqa: E731
         np.asarray(a, np.float32)).to(cuda, torch.float16)
+    n0 = _routes()
     # ragged and decode attention
     args = _ragged_inputs(rng, 4, 8, 8, 2, 64, 16, 6, cuda, torch.float16)
-    n0 = _routes()
+    before = ragged_paged_attention.launches
     got = ragged_paged_attention(*args)
-    assert _routes() == n0 + 1
-    want = ragged_paged_attention_reference(
-        *(a.float() if a.is_floating_point() else a for a in args))
+    assert ragged_paged_attention.launches == before + 1
+    want = ragged_paged_attention_reference(*args)
     _fp16_held(_valid_rows(got, args[-1]), _valid_rows(want, args[-1]))
     lengths = args[4]
-    got = paged_attention(args[0][:, 0], *args[1:4], lengths)
-    want = paged_attention_reference(args[0][:, 0].float(),
-                                     args[1].float(), args[2].float(),
-                                     args[3], lengths)
+    before = paged_attention.launches
+    q1 = args[0][:, 0].contiguous()
+    got = paged_attention(q1, *args[1:4], lengths)
+    assert paged_attention.launches == before + 1
+    want = paged_attention_reference(q1, *args[1:4], lengths)
     _fp16_held(got[lengths > 0], want[lengths > 0])
     # fused LN / GELU, forward and backward through the custom ops
     x = h16(rng.randn(33, 200)).requires_grad_()
     g, b = h16(1 + 0.1 * rng.randn(200)), h16(0.1 * rng.randn(200))
-    before = (ln_fwd.launches, gelu_fwd.launches)
+    before = (ln_fwd.launches, gelu_fwd.launches, ln_bwd.launches,
+              gelu_bwd.launches)
     y = fused_bias_gelu(fused_layer_norm(x, g, b), b)
     y.float().sum().backward()
-    assert (ln_fwd.launches, gelu_fwd.launches) == before
+    assert (ln_fwd.launches, gelu_fwd.launches, ln_bwd.launches,
+            gelu_bwd.launches) == tuple(n + 1 for n in before)
     _fp16_held(y, gelu_fwd_reference(
-        ln_fwd_reference(x.detach().float(), None, g.float(), b.float(),
-                         1e-5)[0], b.float()))
+        ln_fwd_reference(x.detach(), None, g, b, 1e-5)[0], b))
     assert x.grad is not None and x.grad.dtype == torch.float16
     # weight-only GEMM and grouped GEMM
     w = torch.from_numpy(rng.randn(200, 72).astype(np.float32)).to(cuda)
     qw = quantize_weight(w, "int8", -1)
     xq = h16(rng.randn(5, 200))
+    before = quant_matmul_fwd.launches["int8"]
     _fp16_held(quant_matmul(xq, qw["q"], qw["s"]),
-               quant_matmul_reference(xq.float(), qw["q"], qw["s"]))
-    we = torch.from_numpy(rng.randn(3, 200, 72).astype(np.float32)).to(cuda)
+               quant_matmul_reference(xq, qw["q"], qw["s"]))
+    assert quant_matmul_fwd.launches["int8"] == before + 1
+    we = torch.from_numpy(rng.randn(3, 200, 72).astype(np.float32)).to(
+        cuda).half()
     offs = torch.tensor([0, 2, 2, 5], dtype=torch.int32, device=cuda)
-    _fp16_held(grouped_matmul(xq, we.half(), offs),
-               grouped_matmul_reference(xq.float(), we, offs))
+    before = grouped_matmul_fwd.launches["fp"]
+    _fp16_held(grouped_matmul(xq, we, offs),
+               grouped_matmul_reference(xq, we, offs))
+    assert grouped_matmul_fwd.launches["fp"] == before + 1
     # mega attention and MLP
     xb, p, pools, pt, ctx, q_lens = _mega_inputs("odd", "fp", -1, False,
-                                                 torch.float32, cuda)
-    p16 = {k: v.half() for k, v in p.items()}
-    args = (xb.half(), p16, pools["k_pages"].half(), pools["v_pages"].half(),
-            pt, ctx, q_lens)
-    n1 = _routes()
+                                                 torch.float16, cuda)
+    args = (xb, p, pools["k_pages"], pools["v_pages"], pt, ctx, q_lens)
+    before = (mega_attn_layer.launches, mega_mlp.launches)
     got = mega_attn_layer(*args)
-    assert _routes() == n1 + 1
-    want = mega_attn_layer_reference(xb, p, pools["k_pages"],
-                                     pools["v_pages"], pt, ctx, q_lens)
+    want = mega_attn_layer_reference(*args)
     _fp16_held(_valid_rows(got[1], q_lens), _valid_rows(want[1], q_lens))
     y2 = h16(rng.randn(15, 256))
-    _fp16_held(mega_mlp(y2, y2, p16), mega_mlp_reference(y2.float(),
-                                                         y2.float(), p))
-    assert _routes() >= n0 + 8
+    _fp16_held(mega_mlp(y2, y2, p), mega_mlp_reference(y2, y2, p))
+    assert (mega_attn_layer.launches, mega_mlp.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _routes() == n0
+    # fp64: no kernel, the twin on the card, one route counted
+    args = _ragged_inputs(rng, 2, 4, 4, 4, 64, 16, 3, cuda, torch.float64)
+    got = ragged_paged_attention(*args)
+    assert _routes() == n0 + 1 and got.dtype == torch.float64
 
 
 # -- the flash kernels' mask and varlen branches ----------------------------
@@ -1564,9 +1591,9 @@ def _check_branches(cuda, dtype, shape, causal, mask=None, lens=None,
     """Forward and backward kernels against their plain versions with a
     normalized mask and / or lens: one launch each, counted under the
     branch; out and lse, then dq, dk, dv fed the plain forward's lse and
-    delta. In bf16 the rows that are zero in exact arithmetic
-    (``_zero_rows``) are held as an fp32 gradient, as ``_assert_bwd_close``
-    holds them."""
+    delta. In bf16 / fp16 the rows that are zero in exact arithmetic
+    (``_zero_rows``) are held over the tensor's max, as
+    ``_assert_bwd_close`` holds them."""
     from paddle_tpu_torch.ops.flash_attention import normalize_mask
 
     b, s, hq, hkv, d = shape
@@ -1608,13 +1635,13 @@ def _check_branches(cuda, dtype, shape, causal, mask=None, lens=None,
             _assert_close(g[~zero], w[~zero], dtype)
             err = (g[zero].float() - w[zero].float()).abs().max() \
                 / w.float().abs().max()
-            assert err.item() <= BWD_FP32_TOL, err.item()
+            assert err.item() <= ZERO_ROW_TOL[dtype], err.item()
         else:
             _assert_close(g, w, dtype)
     return out, lse.reshape(b, hq, s), got
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", FLASH_BRANCH_SHAPES)
 @pytest.mark.parametrize("kind", ["key padding", "dense bias",
                                   "shared holes", "bool"])
@@ -1625,7 +1652,7 @@ def test_flash_mask_branch_matches_plain(cuda, dtype, shape, kind, causal):
     _check_branches(cuda, dtype, shape, causal, mask=mask, seed=2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", FLASH_BRANCH_SHAPES)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("with_mask", [False, True])
