@@ -35,7 +35,12 @@ trees on one card) and prints one JSON line. PART is one of:
 - ``flash``: rows 2 and 3 (the flash kernels) in bf16 without a mask at
   phase 4's, the training and the long shapes causal and BERT-base's [16,
   512, 12, 64] non-causal, and with BERT's key-padding mask where ROOT's
-  package has the branch.
+  package has the branch;
+- ``ln-bwd``: row 6 (the LN backward) at phase 9's three LN shapes in
+  fp32, bf16 and fp16, with and without dso, beside its bound and
+  ``native_layer_norm_backward``; one call at the flagship shape profiled
+  (its kernels); then the fused bf16 flagship step profiled (the LN
+  backward's device time, kernels a step, busy share).
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -132,8 +137,11 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    GELU kernels' device time apart). The GELU kernels also meet inputs in
    +-30 with +-1e4, +-inf and NaN in every row at the GPT-125M and odd
    shapes (NaN / +-inf at the plain version's places, the finite entries
-   held as ``FUSED_TOL``), and every GELU case is launched twice: the
-   second result must be bitwise equal.
+   held as ``FUSED_TOL``), and every GELU and LN backward case is launched
+   twice: the second result must be bitwise equal. The LN kernels are timed
+   at the GPT-125M shape too; one LN backward call must be one CUDA kernel
+   under ``torch.profiler`` and leave its arrival counters at zero, and
+   phase 2 fails if any ``ln_bwd_kernel`` instance spills.
 
 10. mega serving (run after phase 8, while GPT-125M is on the card): the
    mega attention and mega MLP kernels vs their plain versions at the
@@ -3710,13 +3718,15 @@ def phase_train_bf16(dev, card, bwd_stats, fused=False, unfused=None):
     prof = result["profile"] = profile_step(step, params, mom, ids, labels,
                                             card, tag)
     if fused and prof is not None:
-        gelu_ms, ln_ms = (prof["groups_ms"][g] for g in ("fused GELU",
-                                                         "fused LN"))
+        gelu_ms, ln_fwd_ms, ln_bwd_ms = (prof["groups_ms"][g] for g in (
+            "fused GELU", "fused LN fwd", "fused LN bwd"))
         log(f"{tag} profiled fused step: GELU kernels {gelu_ms:.3f} ms "
             f"({per_step[2]} forward + {per_step[3]} backward launches, "
             f"{gelu_ms / prof['busy_ms']:.3f} of device busy "
-            f"{prof['busy_ms']:.1f} ms), LN kernels {ln_ms:.3f} ms; device "
-            f"busy share {prof['busy_share']:.3f} ({card})")
+            f"{prof['busy_ms']:.1f} ms), LN kernels forward "
+            f"{ln_fwd_ms:.3f} ms ({per_step[0]} launches), backward "
+            f"{ln_bwd_ms:.3f} ms ({per_step[1]} launches); device busy "
+            f"share {prof['busy_share']:.3f} ({card})")
     return result
 
 
@@ -4384,8 +4394,11 @@ FUSED_KINDS = (("ln_fwd", ("plain", "residual")),
 
 def phase_fused_kernels(dev):
     """Each fused kernel and variant against its plain version at the
-    flagship, GPT-125M and an odd shape, fp32 and bf16; kernel / plain /
-    library times and the bound at the flagship shape."""
+    flagship, GPT-125M and an odd shape, fp32, bf16 and fp16; kernel /
+    plain / library times and the bound at the flagship shape (and, for the
+    LN kernels, at GPT-125M's, under ``(kind, variant, dtype, 1)``); every
+    GELU and LN backward case launched twice, bitwise equal; one LN
+    backward call one CUDA kernel, its arrival counters left at zero."""
     stats = {}
     for kind, variants in FUSED_KINDS:
         shapes = FUSED_LN_SHAPES if kind.startswith("ln") \
@@ -4417,10 +4430,10 @@ def phase_fused_kernels(dev):
                             not torch.equal(got[1], want[1]):
                         raise AssertionError("ln_fwd: s is not the plain "
                                              "version's rounding of x + r")
-                    if kind.startswith("gelu"):
-                        gelu_repeat(kern, got, f"{kind} {variant} "
-                                    f"{str(dtype)[6:]} {list(shape)}")
-                    if si:
+                    if kind.startswith("gelu") or kind == "ln_bwd":
+                        bitwise_repeat(kern, got, f"{kind} {variant} "
+                                       f"{str(dtype)[6:]} {list(shape)}")
+                    if si > (1 if kind.startswith("ln") else 0):
                         continue
                     nbytes, nops = fused_work(kind, variant, *shape,
                                               t["dy"].element_size())
@@ -4434,7 +4447,7 @@ def phase_fused_kernels(dev):
                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                         >= nops / PEAK_OPS[torch.float32]
                         else "operations")
-                    stats[(kind, variant, dtype)] = st
+                    stats[(kind, variant, dtype) + ((si,) if si else ())] = st
                     lib_txt = ("null (no single PyTorch call computes it)"
                                if lib is None else
                                f"{st['library_ms']:.4f} ms")
@@ -4445,8 +4458,53 @@ def phase_fused_kernels(dev):
                         f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP), "
                         f"{st['bound_ms'] / st['ms']:.3f} of the bound")
                     del t
+    ln_bwd_one_kernel(dev)
     gelu_extremes(dev)
     return stats
+
+
+def call_kernels(fn):
+    """``(kernels, device ms, {kernel name: [launches, device ms]})`` of
+    one call of ``fn`` under ``torch.profiler`` (after a call outside it,
+    so nothing is built or first allocated in the window), from the
+    trace's raw device events as ``profile_run`` reads them (late in a
+    long run ``key_averages()`` has returned none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            n, ms = names.get(ev.name(), (0, 0.0))
+            names[ev.name()] = [n + 1, ms + ev.duration_ns() / 1e6]
+    return (sum(n for n, _ in names.values()),
+            sum(ms for _, ms in names.values()), names)
+
+
+def ln_bwd_one_kernel(dev):
+    """One LN backward call at the flagship shape, bf16 with dso: one CUDA
+    kernel under ``torch.profiler`` (dgamma and dbeta summed inside it),
+    and its arrival counters zero after it."""
+    from paddle_tpu_torch.ops import _build
+
+    t = fused_inputs("ln_bwd", FUSED_LN_SHAPES[0], torch.bfloat16, dev, SEED)
+    kern = fused_calls("ln_bwd", "dso", t)[0]
+    n, ms, names = call_kernels(kern)
+    zero = bool((_build.kept(dev, "ln_bwd", 1) == 0).all())
+    log(f"[fused] ln_bwd dso bf16 {list(FUSED_LN_SHAPES[0])} under the "
+        f"profiler: {n} CUDA kernel(s) {names}, {ms:.4f} ms; arrival "
+        f"counters zero after it: {zero}" + (
+            " (no device events in the trace: kernels a call not "
+            "measured)" if not n else ""))
+    if n > 1 or not zero:
+        raise AssertionError(f"ln_bwd: {n} kernels a call, counters zero "
+                             f"{zero}")
 
 
 def bits(t):
@@ -4454,9 +4512,10 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def gelu_repeat(kern, got, label):
-    """A second launch of a GELU kernel on the same inputs must be bitwise
-    equal to the first (dx, and dbias summed in a fixed order)."""
+def bitwise_repeat(kern, got, label):
+    """A second launch of a GELU or LN backward kernel on the same inputs
+    must be bitwise equal to the first (dx, and dbias, dgamma and dbeta
+    summed in a fixed order)."""
     again = kern()
     torch.cuda.synchronize()
     again = [a for a in (again if isinstance(again, tuple) else (again,))
@@ -4508,7 +4567,7 @@ def gelu_extremes(dev):
                         held = max(held, fused_held(
                             torch.where(fin, g, 0), torch.where(fin, w, 0),
                             dtype)[1])
-                    gelu_repeat(kern, got, label)
+                    bitwise_repeat(kern, got, label)
                     tol = FUSED_TOL[dtype]
                     log(f"[fused] {label}: NaN / +inf / -inf at the same "
                         f"places ({' / '.join(map(str, counts))} over "
@@ -4616,7 +4675,8 @@ def phase_fused_train_fp32(dev):
 KERNEL_GROUPS = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                                  "flash_fwd_wg_kernel")),
                  ("flash bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
-                 ("fused LN", ("ln_fwd_kernel", "ln_bwd_kernel")),
+                 ("fused LN fwd", ("ln_fwd_kernel",)),
+                 ("fused LN bwd", ("ln_bwd_kernel",)),
                  ("fused GELU", ("gelu_kernel",)),
                  ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                     "nvjet")),
@@ -6061,6 +6121,87 @@ def fused_gelu_only(root: Path) -> int:
     return 0
 
 
+def ln_bwd_only(root: Path) -> int:
+    """``--ab ln-bwd [ROOT]``: row 6 (the LN backward) at
+    ``FUSED_LN_SHAPES`` in fp32, bf16 and fp16, with and without dso, with
+    the ``paddle_tpu_torch`` package of the checkout at ``ROOT`` (default:
+    this one), each held against its plain version and timed beside its
+    bound and ``native_layer_norm_backward``; one call at the flagship shape
+    under the profiler (its kernels and device time); then the fused bf16
+    flagship step profiled: the LN backward's
+    device time a step (its kernels' time in the step's profile, plus, for
+    kernels of the call other than ``ln_bwd_kernel``, their time in the
+    one-call profile times the step's launches), kernels a step and the
+    busy share. Prints one JSON line; run it with two trees in turns to
+    compare them on one card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    cases = {}
+    for si, shape in enumerate(FUSED_LN_SHAPES):
+        for dtype in DTYPES:
+            for variant in ("plain", "dso"):
+                t = fused_inputs("ln_bwd", shape, dtype, dev, SEED + si)
+                kern, plain, lib = fused_calls("ln_bwd", variant, t)
+                got, want = kern(), plain()
+                held = max(fused_held(g, w, dtype)[1]
+                           for g, w in zip(got, want))
+                if not held <= FUSED_TOL[dtype]:
+                    raise AssertionError(f"ln_bwd {variant} {dtype} {shape}:"
+                                         f" held error {held}")
+                nbytes, nops = fused_work("ln_bwd", variant, *shape,
+                                          t["dy"].element_size())
+                ms = time_ms(kern, iters=20, replays=3)
+                lib_ms = None if lib is None else time_ms(lib, iters=20,
+                                                          replays=3)
+                bnd = bound_ms(nbytes, nops, torch.float32)
+                label = f"{variant} {str(dtype)[6:]} {list(shape)}"
+                cases[label] = dict(ms=ms, bound_ms=bnd, library_ms=lib_ms,
+                                    held=held)
+                log(f"[ln-bwd] {label}: kernel {ms:.4f} ms, bound {bnd:.4f} "
+                    f"ms ({bnd / ms:.3f} of it), library "
+                    + ("null" if lib_ms is None else f"{lib_ms:.4f} ms")
+                    + f"; held error {held:.3e}")
+                del t
+    shape, bf16 = FUSED_LN_SHAPES[0], torch.bfloat16
+    t = fused_inputs("ln_bwd", shape, bf16, dev, SEED)
+    kern = fused_calls("ln_bwd", "plain", t)[0]
+    n_call, call_ms, names = call_kernels(kern)
+    # the call's kernels other than ln_bwd_kernel (the parent's partial sums)
+    other_ms = sum(ms for key, (_, ms) in names.items()
+                   if "ln_bwd_kernel" not in key)
+    log(f"[ln-bwd] one call, plain bf16 {list(shape)}: {n_call} kernel(s) "
+        f"{names}, {call_ms:.4f} ms device (other than ln_bwd_kernel "
+        f"{other_ms:.4f} ms)")
+    del t
+    step = phase_train_bf16(dev, card, None, fused=True)
+    prof = step["profile"] or {}
+    per_step = step["fused_n"][1] // TRAIN_STEPS
+    ln_step = None
+    if prof:
+        ln_step = prof["groups_ms"]["fused LN bwd"] + per_step * other_ms
+        log(f"[ln-bwd] fused bf16 flagship step: LN backward device time "
+            f"{ln_step:.3f} ms a step ({per_step} calls: ln_bwd_kernel "
+            f"{prof['groups_ms']['fused LN bwd']:.3f} ms + {per_step} x "
+            f"{other_ms:.4f} ms of the call's other kernels), "
+            f"{prof['kernels']} kernels a step, busy share "
+            f"{prof['busy_share']:.3f}, step {step['step_ms']:.1f} ms "
+            f"({card})")
+    print(json.dumps({"ln_bwd": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        cases=cases, call=dict(kernels=n_call, ms=call_ms, names=names,
+                               other_ms=other_ms),
+        step=dict(step_ms=step["step_ms"],
+                               fused_n=step["fused_n"],
+                               ln_bwd_ms=ln_step, profile=prof))}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -6071,7 +6212,7 @@ def main() -> int:
     parts = {"moe-forward": moe_forward_only, "fused-gelu": fused_gelu_only,
              "paged-walks": paged_walks_only, "mlp-gemms": mlp_gemms_only,
              "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
-             "flash": flash_ab_only}
+             "flash": flash_ab_only, "ln-bwd": ln_bwd_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -6119,6 +6260,14 @@ def main() -> int:
     for name, text in logs.items():
         for line in ptxas_summary(name, text):
             log(f"[build] {line}")
+    ln_bwd = [line for line in ptxas_summary("fused_mlp", logs["fused_mlp"])
+              if "ln_bwd_kernel" in line]
+    spilled = [line for line in ln_bwd
+               if re.search(r"[1-9]\d* bytes spill", line)]
+    log(f"[build] ln_bwd_kernel: {len(ln_bwd)} instances, "
+        f"{len(spilled)} with spills")
+    if not ln_bwd or spilled:
+        raise AssertionError(f"ln_bwd_kernel spills: {spilled}")
     g = RAGGED_GEOM
     log(f"[build] dynamic shared memory per block: ragged_paged_attention "
         f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['d'])} B"
@@ -6363,6 +6512,13 @@ def main() -> int:
             f"{other['bound_ms']:.6f}, max_abs_err {other['max_abs_err']:.3e}"
             ", library_ms null (no single PyTorch call); launches: the "
             f"{TRAIN_STEPS} fused bf16 flagship steps")
+        if fkind.startswith("ln"):
+            small = fused[(fkind, "plain", bf16, 1)]
+            row["gpt3_125m_shape"] = dict(
+                shape=list(FUSED_LN_SHAPES[1]), dtype="bf16",
+                **{k: small[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")})
         if fkind.startswith("gelu"):
             row["variants"] = {
                 f"{v} {str(t)[6:]}": {k: fused[(fkind, v, t)][k] for k in (

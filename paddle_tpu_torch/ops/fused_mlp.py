@@ -50,12 +50,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ptt_ln_fwd": [_P] * 8 + [_I, _I, ctypes.c_float, _I, _I, _I, _P],
-    "ptt_ln_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    "ptt_ln_bwd": [_P] * 11 + [_I] * 11 + [_P],
     "ptt_gelu_fwd": [_P] * 3 + [_I] * 7 + [_P],
     "ptt_gelu_bwd": [_P] * 7 + [_I] * 7 + [_P],
 }
 MAX_H = 8192          # the LN kernels' widest row (csrc/fused_mlp.cu kMaxH)
-_BLOCKS_PER_SM = 4    # LN backward bands: about this many blocks per SM
+# most threads of an LN backward block by 16-byte chunks a thread holds
+# (csrc/fused_mlp.cu kLnBwdThreads, kLnBwdWide): one block an SM at up to
+# 80 / 128 registers a thread; four chunks only for fp32
+LN_BWD_THREADS = {1: 768, 2: 512, 4: 512}
+LN_BWD_GROUPS = 15    # row groups a block when a row takes more than a warp
+                      # (a named barrier each: ids 1-15)
+LN_BWD_BATCH = 8      # partial rows a thread of the summing block has in
+                      # flight (csrc/fused_mlp.cu kSumBatch)
 GELU_THREADS = 128    # threads of a GELU block (csrc/fused_mlp.cu kGeluThreads)
 GELU_BLOCKS_PER_SM = 8  # GELU blocks an SM holds (64 registers a thread)
 GELU_STRIP = 16       # widest strip of a GELU block, in 16-byte chunks
@@ -245,12 +252,66 @@ ln_fwd.launches = 0
 ln_fwd.twin_routes = 0
 
 
+class LnBwdPlan(NamedTuple):
+    """An LN backward launch: ``blocks`` blocks of ``groups`` row groups of
+    ``threads`` threads; block b owns rows ``[b band, (b + 1) band)``, its
+    group k the band's rows k, k + groups, ...; a thread holds ``per``
+    16-byte chunks of each. The blocks' partial sums are added in sets of
+    ``set`` blocks, then the ``sets`` sets."""
+    per: int
+    threads: int
+    groups: int
+    band: int
+    blocks: int
+    set: int
+    sets: int
+
+    def scratch(self, h: int) -> int:
+        """fp32 values of the partial rows: one ``[2, h]`` a block and a
+        set."""
+        return (self.blocks + self.sets) * 2 * h
+
+
+@functools.lru_cache(maxsize=256)
+def ln_bwd_plan(rows: int, h: int, elt: int, sms: int) -> LnBwdPlan:
+    """The LN backward kernel's launch for ``[rows, h]`` elements of ``elt``
+    bytes on a card of ``sms`` SMs.
+
+    A row's group is the fewest whole warps whose threads hold it at the
+    fewest 16-byte chunks a thread that fit (the fewest registers a
+    thread, so the most threads an SM); a block as many groups as ``LN_BWD_THREADS``
+    allows; at most one block an SM (a persistent grid: one fp32 partial
+    row a block) and no more blocks than full groups need, so a small
+    input takes few blocks and few partial rows; each block owns one
+    contiguous band of rows. The partial rows are added in sets of
+    ceil(sqrt(blocks)) blocks, then the sets, so no block adds more than
+    about sqrt(blocks) rows; up to ``LN_BWD_BATCH`` blocks in one set (one
+    round of loads, no second arrival)."""
+    if rows <= 0 or not 0 < h <= MAX_H:
+        raise ValueError(f"fused_mlp ln_bwd takes rows > 0 and 0 < h <= "
+                         f"{MAX_H}, got [{rows}, {h}]")
+    chunks = -(-h // (16 // elt))
+    for per in (1, 2, 4) if elt == 4 else (1, 2):
+        threads = 32 * -(-chunks // (32 * per))
+        if threads <= LN_BWD_THREADS[per]:
+            break
+    groups = LN_BWD_THREADS[per] // threads
+    if threads > 32:
+        groups = min(groups, LN_BWD_GROUPS)
+    blocks = min(sms, -(-rows // groups))
+    band = -(-rows // blocks)
+    blocks = -(-rows // band)
+    set_ = blocks if blocks <= LN_BWD_BATCH else math.isqrt(blocks - 1) + 1
+    return LnBwdPlan(per, threads, groups, band, blocks, set_,
+                     -(-blocks // set_))
+
+
 def ln_bwd(dy, dso, s, mean, rstd, gamma):
     """``(dx, dgamma, dbeta)`` of the LayerNorm whose input was ``s [rows,
     h]`` (+ ``dso``, the gradient reaching ``s`` itself): the kernel on a
-    CUDA tensor (``.launches`` counts it; the per-band fp32 partials are
-    summed here, outside the kernel), :func:`ln_bwd_reference` on a CPU
-    tensor. dx in s's dtype; dgamma, dbeta fp32."""
+    CUDA tensor, one launch that also sums dgamma and dbeta (``.launches``
+    counts it), :func:`ln_bwd_reference` on a CPU tensor. dx in s's dtype;
+    dgamma, dbeta fp32."""
     if dy.device.type == "cpu":
         return ln_bwd_reference(dy, dso, s, mean, rstd, gamma)
     if not kernel_takes(s.dtype):
@@ -269,18 +330,22 @@ def ln_bwd(dy, dso, s, mean, rstd, gamma):
     if not rows:
         zeros = torch.zeros(h, dtype=torch.float32, device=s.device)
         return dx, zeros, zeros.clone()
-    band = -(-rows // (_BLOCKS_PER_SM * _sms(s.device.index)))
-    bands = -(-rows // band)
-    part = torch.empty((2, bands, h), dtype=torch.float32, device=s.device)
+    plan = ln_bwd_plan(rows, h, s.element_size(), _sms(s.device.index))
+    dg = torch.empty(h, dtype=torch.float32, device=s.device)
+    db = torch.empty_like(dg)
+    # the partial rows and arrival counters, kept per device
+    part = _build.kept(s.device, "ln_bwd", plan.scratch(h), torch.float32)
+    counters = _build.kept(s.device, "ln_bwd", plan.sets + 1)
     lib = _build.load(_KERNEL, _SIGNATURES)
     err = lib.ptt_ln_bwd(
         dy.data_ptr(), _ptr(dso), s.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), gamma.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), rows, h, band, _vec(s, dy, dso, gamma, dx), code,
-        s.device.index, _stream(s))
+        rstd.data_ptr(), gamma.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+        db.data_ptr(), part.data_ptr(), counters.data_ptr(), rows, h,
+        plan.per, plan.threads, plan.groups, plan.band, plan.blocks,
+        plan.set, _vec(s, dy, dso, gamma, dx), code, s.device.index,
+        _stream(s))
     _build.check(lib, err, "fused_mlp ln_bwd launch")
     ln_bwd.launches += 1
-    dg, db = part.sum(1)
     return dx, dg, db
 
 

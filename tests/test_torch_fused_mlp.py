@@ -374,3 +374,135 @@ def test_gelu_plan_covers_fills_and_bounds_partials(shape, partials, elt):
     part, bwd = plan.bands * n * 4, 3 * rows * n * elt
     assert not partials or plan.bands == 1 or \
         part <= tfm.GELU_PART_SHARE * bwd
+
+
+# ---------------------------------------------------------------------------
+# the CUDA LN backward's launch plan and its order of sums
+# ---------------------------------------------------------------------------
+
+
+def _plan_rows(rows, plan):
+    """The rows each (block, group) walks, in order, by the kernel's own
+    index arithmetic: block b owns ``[b band, (b + 1) band)``, its group k
+    the band's rows k, k + groups, ..."""
+    out = {}
+    for b in range(plan.blocks):
+        r1 = min(rows, (b + 1) * plan.band)
+        for k in range(plan.groups):
+            out[b, k] = list(range(b * plan.band + k, r1, plan.groups))
+    return out
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("sms", [132, 114, 7])
+@pytest.mark.parametrize("shape", [(8192, 1536), (2048, 768), (77, 200),
+                                   (1, 1536), (3, 768), (8191, 1536),
+                                   (16, tfm.MAX_H), (9, 1001), (5, 8)])
+def test_ln_bwd_plan_covers_rows_in_band_order(shape, sms, elt):
+    """Every row belongs to exactly one (block, group), the blocks' bands
+    are contiguous and in order; a row's group is the fewest whole warps
+    that hold it at the fewest chunks a thread that fit; a block fits its
+    thread cap (and its named barriers); at most one block an SM and no
+    more blocks than rows; the partial rows' sets cover the blocks, one set
+    up to ``LN_BWD_BATCH`` blocks, else ~sqrt(blocks) sets of
+    ~sqrt(blocks); the counters fit ``_build.kept``'s first buffer and the
+    groups' shared sums the shared memory of a block."""
+    rows, h = shape
+    plan = tfm.ln_bwd_plan(rows, h, elt, sms)
+    walked = _plan_rows(rows, plan)
+    flat = sorted(r for rs in walked.values() for r in rs)
+    assert flat == list(range(rows))
+    for b in range(plan.blocks):
+        band = sorted(r for (bb, _), rs in walked.items() if bb == b
+                      for r in rs)
+        assert band == list(range(b * plan.band,
+                                  min(rows, (b + 1) * plan.band)))
+    assert 1 <= plan.blocks <= min(sms, rows)
+    chunks = -(-h // (16 // elt))
+    per_ok = [p for p in ((1, 2, 4) if elt == 4 else (1, 2))
+              if 32 * -(-chunks // (32 * p)) <= tfm.LN_BWD_THREADS[p]]
+    assert plan.per == per_ok[0]
+    assert plan.threads % 32 == 0
+    assert plan.threads * plan.per >= chunks > (plan.threads - 32) * plan.per
+    assert plan.groups * plan.threads <= tfm.LN_BWD_THREADS[plan.per]
+    assert plan.threads == 32 or plan.groups <= tfm.LN_BWD_GROUPS
+    assert plan.groups * 8 * h <= 227 * 1024
+    assert plan.set * plan.sets >= plan.blocks > plan.set * (plan.sets - 1)
+    if plan.blocks <= tfm.LN_BWD_BATCH:   # one set: one round of loads
+        assert plan.sets == 1
+    else:
+        assert plan.set ** 2 >= plan.blocks > (plan.set - 1) ** 2
+    assert plan.scratch(h) == (plan.blocks + plan.sets) * 2 * h
+    assert plan.sets + 1 <= 4096    # _build.kept's least buffer
+    # no block owns more rows than an even split over the blocks a grid of
+    # one block an SM (or of full groups) needs
+    assert plan.band == -(-rows // min(sms, -(-rows // plan.groups)))
+
+
+def test_ln_bwd_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match=str(tfm.MAX_H)):
+        tfm.ln_bwd_plan(4, tfm.MAX_H + 1, 2, 132)
+    with pytest.raises(ValueError, match="rows"):
+        tfm.ln_bwd_plan(0, 128, 2, 132)
+    assert tfm.ln_bwd_plan(4, tfm.MAX_H, 4, 132).per == 4
+    assert tfm.ln_bwd_plan(4, tfm.MAX_H, 2, 132).per == 2
+
+
+def _plan_twin(dy, dso, s, mean, rstd, g, plan):
+    """The LN backward in fp32 torch in the kernel's order of sums on
+    ``plan``: each group adds its rows' ``dy * xhat`` and ``dy`` in row
+    order, a block its groups in group order, the last block of each set
+    its set's blocks in block order, the last set the sets in set order;
+    dx row by row as the plain version computes it."""
+    dx = tfm.ln_bwd_reference(dy, dso, s, mean, rstd, g)[0]
+    dy32 = dy.float()
+    xhat = (s.float() - mean[:, None]) * rstd[:, None]
+    parts = []
+    for b in range(plan.blocks):
+        block = None
+        for k in range(plan.groups):
+            acc = torch.zeros(2, s.shape[1])
+            for r in _plan_rows(s.shape[0], plan)[b, k]:
+                acc = acc + torch.stack([dy32[r] * xhat[r], dy32[r]])
+            block = acc if block is None else block + acc
+        parts.append(block)
+    sets = []
+    for i in range(plan.sets):
+        acc = torch.zeros(2, s.shape[1])
+        for part in parts[i * plan.set:(i + 1) * plan.set]:
+            acc = acc + part
+        sets.append(acc)
+    total = sets[0]
+    for part in sets[1:]:
+        total = total + part
+    return dx, total[0], total[1]
+
+
+@pytest.mark.parametrize("leg", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,sms", [((64, 128), 3), ((77, 200), 4),
+                                       ((9, 1001), 132), ((1, 8), 132),
+                                       ((640, 16), 132)])
+def test_ln_bwd_plan_sums_match_jax(leg, shape, sms):
+    """dx, dgamma and dbeta summed in the kernel's order on its plan (many
+    groups a block, a short last band, one set of blocks at 3-4 SMs, two
+    levels of sets at [640, 16])
+    against ``jax.vjp`` of the reference: its Pallas kernel in interpret
+    mode where the rows tile, else ``ln_reference``."""
+    rng = np.random.RandomState(13)
+    rows, h = shape
+    x, dy = _np(rng, shape), _np(rng, shape)
+    g, b = 1 + _np(rng, (h,), 0.1), _np(rng, (h,), 0.1)
+    jd, td = DTYPES[leg]
+    jfn = (lambda x_, g_, b_: jfm.fused_layer_norm(x_, g_, b_, EPS, True)) \
+        if shape == (64, 128) else \
+        (lambda x_, g_, b_: jfm.ln_reference(x_, g_, b_, EPS))
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a, jd) for a in (x, g, b)))
+    want = vjp(jnp.asarray(dy, jd))
+    tx, tdy, tg = (torch.from_numpy(a).to(td) for a in (x, dy, g))
+    _, mean, rstd = tfm.ln_fwd_reference(tx, None, tg, tg, EPS)
+    plan = tfm.ln_bwd_plan(rows, h, tx.element_size(), sms)
+    assert shape != (640, 16) or plan.sets > 1
+    got = _plan_twin(tdy, None, tx, mean, rstd, tg, plan)
+    _assert_close(got[0], want[0], leg, "dx")
+    for i in (1, 2):    # fp32 sums; JAX returns them in gamma's dtype
+        _assert_close(got[i], want[i], leg, f"sum {i}")

@@ -78,7 +78,7 @@ from paddle_tpu_torch.ops.paged_attention import (
 from paddle_tpu_torch.ops.fused_mlp import (
     MAX_H, fused_bias_gelu, fused_gelu, fused_layer_norm, fused_ln_residual,
     gelu_bwd, gelu_bwd_reference, gelu_fwd, gelu_fwd_reference, ln_bwd,
-    ln_bwd_reference, ln_fwd, ln_fwd_reference)
+    ln_bwd_plan, ln_bwd_reference, ln_fwd, ln_fwd_reference)
 from paddle_tpu_torch.ops.mega_decode import (
     mega_attn_layer, mega_attn_layer_reference, mega_mlp, mega_mlp_reference)
 from paddle_tpu_torch.ops.quant_matmul import (
@@ -423,18 +423,46 @@ def _rand(rng, shape, cuda, dtype, scale=1.0):
         np.float32))).to(cuda, dtype)
 
 
+def _bits(t):
+    """``t``'s bits as integers, so equal NaNs compare equal."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _offset(t):
+    """``t`` copied one element past a 16-byte boundary (the kernels'
+    element-by-element path)."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    flat[1:] = t.reshape(-1)
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(8192, 1536), (2048, 768), (77, 200),
-                                   (9, 1001), (16, MAX_H)])
+@pytest.mark.parametrize("shape,inputs", [
+    ((8192, 1536), "normal"), ((2048, 768), "normal"), ((77, 200), "normal"),
+    ((9, 1001), "normal"), ((16, MAX_H), "normal"), ((1, 1536), "normal"),
+    ((3, 768), "normal"), ((8191, 1536), "short band"),
+    ((2048, 768), "offset")])
 @pytest.mark.parametrize("res", [False, True])
-def test_ln_kernels_match_plain(cuda, dtype, shape, res):
+def test_ln_kernels_match_plain(cuda, dtype, shape, inputs, res):
     """LN forward (with and without the residual) and backward (with and
     without ``dso``) against their plain versions: the flagship and GPT-125M
     shapes, a ragged row, a width that takes no 16-byte vectors, the widest
-    row."""
+    row, one and three rows (fewer than the backward's blocks), a row count
+    whose last band is short (8191 is prime), and inputs one element off
+    the 16-byte grid; a second backward launch is bitwise equal to the
+    first."""
     rows, h = shape
     rng = np.random.RandomState(8)
     x, r, dy, dso = (_rand(rng, shape, cuda, dtype) for _ in range(4))
+    if inputs == "offset":
+        x, r, dy, dso = (_offset(t) for t in (x, r, dy, dso))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ln_bwd_plan(rows, h, x.element_size(), sms)
+    assert plan.blocks <= min(rows, sms)
+    if inputs == "short band":
+        assert plan.blocks * plan.band > rows
     g = 1 + _rand(rng, (h,), cuda, dtype, 0.1)
     b = _rand(rng, (h,), cuda, dtype, 0.1)
     resid = r if res else None
@@ -457,6 +485,44 @@ def test_ln_kernels_match_plain(cuda, dtype, shape, res):
     dwant = ln_bwd_reference(dy, d_so, s, mean, rstd, g)
     for g_, w_ in zip(dgot, dwant):
         _fused_err(g_, w_, dtype)
+    again = ln_bwd(dy, d_so, s, mean, rstd, g)
+    torch.cuda.synchronize()
+    for a, b in zip(dgot, again):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("has_dso", [False, True])
+def test_ln_bwd_is_one_kernel_and_leaves_counters_zero(cuda, dtype,
+                                                       has_dso):
+    """One ``ln_bwd`` call at the flagship shape is exactly one CUDA kernel
+    under ``torch.profiler`` (dgamma and dbeta are summed inside it), and
+    its arrival counters are zero after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(12)
+    shape = (8192, 1536)
+    x, dy, dso = (_rand(rng, shape, cuda, dtype) for _ in range(3))
+    g = 1 + _rand(rng, (shape[1],), cuda, dtype, 0.1)
+    _, mean, rstd = ln_fwd_reference(x, None, g, g, 1e-5)
+    args = (dy, dso if has_dso else None, x, mean, rstd, g)
+    ln_bwd(*args)      # builds the library and grows the kept buffers
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ln_bwd(*args)
+        torch.cuda.synchronize()
+    kernels = [ev.name() for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA]
+    assert len(kernels) == 1 and "ln_bwd_kernel" in kernels[0], kernels
+    plan = ln_bwd_plan(*shape, x.element_size(),
+                       torch.cuda.get_device_properties(cuda)
+                       .multi_processor_count)
+    assert int(_build.kept(cuda, "ln_bwd", plan.sets + 1)
+               [:plan.sets + 1].abs().sum()) == 0
 
 
 def _gelu_inputs(rng, shape, cuda, dtype, inputs):
