@@ -40,7 +40,13 @@ trees on one card) and prints one JSON line. PART is one of:
   fp32, bf16 and fp16, with and without dso, beside its bound and
   ``native_layer_norm_backward``; one call at the flagship shape profiled
   (its kernels); then the fused bf16 flagship step profiled (the LN
-  backward's device time, kernels a step, busy share).
+  backward's device time, kernels a step, busy share);
+- ``qmm-dx``: rows 11 and 12 (the weight-only GEMM's dx, four serving
+  GEMMs at M 8, 24 and 256, fp32 / bf16 / fp16, int8 per channel, int8
+  g128, int4 g128) beside the controls rows 9 and 10 (the forwards at M
+  24, with digests of their outputs), the dx route's split plans swept
+  where ROOT's package has the route, then the dx kernels' device time in
+  one profiled backward of the bf16 input-gradient drives.
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -51,7 +57,8 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
 1. device: the card's name and power limit;
 2. build: the nine kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
-   registers and spills;
+   registers and spills (an ``ln_bwd_kernel`` or ``qmm_dx_kernel``
+   instance that spills fails the run);
 3. ragged paged attention vs its plain version at the serving shapes
    (b 8, chunk 16, 12 heads, d 64, page 64, 16 pages per sequence),
    fp32 and bf16, with kernel / plain / bound times; then its split walk
@@ -99,11 +106,12 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    fp32 and bf16, with kernel / plain / bound times, ``_weight_int8pack_mm``
    as the int8 yardstick where the card's torch has it, and cuBLAS on a
    pre-dequantized weight logged beside them; the int8 and int4 forwards
-   at the serving shapes must take the tensor-core route in bf16 (one
-   ``tc_launches`` each, none in fp32 or at the odd shape),
-   every forward launched twice
-   and bitwise equal, and the int8 and int4 four GEMMs are timed at a
-   decode round (M 8) too; the ragged kernel's int8-KV
+   and dx at the serving shapes must take the tensor-core routes in bf16
+   and fp16 (one ``tc_launches`` of each wrapper a call, none in fp32 or
+   at the odd shape), every forward and dx launched twice and bitwise
+   equal, and the int8 and int4 four GEMMs are timed at a decode round (M
+   8) too, their dx at M 8 and at 256 rows (beside the bound and cuBLAS
+   on the pre-dequantized weight); the ragged kernel's int8-KV
    branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
    (a) int8 weights, (b) int4 weights in groups of 128, (c) int8 weights
    and an int8 KV cache, the phase-6 requests in fp32: every greedy token
@@ -113,8 +121,11 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    weight-only GEMM launches per step (fp32 on the CUDA-core kernel); the
    gradient of a loss with
    respect to the input embeddings through the 12 quantized layers (the
-   backward kernels) vs the plain versions; token agreement with phase 6,
-   weight and KV bytes; then (a), (b) and (c) served in bf16 in turns
+   backward kernels, fp32: the CUDA-core kernel) vs the plain versions;
+   token agreement with phase 6, weight and KV bytes; the same gradient
+   through bf16 weights (every one
+   of its 48 dx on the tensor-core dx route, ``BF16_GRAD_TOL``); then (a),
+   (b) and (c) served in bf16 in turns
    (every one of the 48 weight-only GEMMs a step on the tensor-core route,
    well-formed streams, the median wall and mean step of ``BF16_RUNS``
    runs after a warm-up) and one profiled run of (a) and of (b) (device busy a step and
@@ -382,6 +393,7 @@ QMM_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "w1": (768, 3072),
               "w2": (3072, 768)}          # GPT-125M's [K, N] projections
 QMM_ROWS = 24                             # the serving token budget
 QMM_DECODE_ROWS = 8                       # a decode round of 8 lanes
+QMM_DX_ROWS = 256                         # the input-gradient drives' rows
 QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 # (label, config fields, logits tolerance). Served logits vs the plain
 # quantized forward in fp32: the GEMMs sum in another order (seen 4.3e-6);
@@ -869,7 +881,7 @@ def reset_counts():
     paged_attention.launches = 0
     for fn in (quant_matmul_fwd, quant_matmul_bwd):
         fn.launches = {"int8": 0, "int4": 0}
-    quant_matmul_fwd.tc_launches = 0
+        fn.tc_launches = 0
     for fn in (fused_mlp.ln_fwd, fused_mlp.ln_bwd, fused_mlp.gelu_fwd,
                fused_mlp.gelu_bwd):
         fn.launches = 0
@@ -900,6 +912,14 @@ def qmm_tc_count() -> int:
     from paddle_tpu_torch.ops.quant_matmul import quant_matmul_fwd
 
     return quant_matmul_fwd.tc_launches
+
+
+def qmm_dx_tc_count() -> int:
+    """Weight-only GEMM dx launches on the tensor-core route
+    (``qmm_dx_kernel``) since :func:`reset_counts`."""
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_bwd
+
+    return quant_matmul_bwd.tc_launches
 
 
 def read_counts():
@@ -1164,7 +1184,8 @@ def phase_qmm(dev):
         for dtype in DTYPES:
             tot = {key: 0.0 for key in ("ms", "plain_ms", "bwd_ms",
                                         "bwd_plain_ms", "bound_ms",
-                                        "cublas_ms", "library_ms")}
+                                        "cublas_ms", "bwd_cublas_ms",
+                                        "library_ms")}
             errs, lib_note, work = [0.0, 0.0], None, [0.0, 0.0]
             cases = [(QMM_ROWS, *QMM_SHAPES[name], name)
                      for name in QMM_SHAPES] + [(5, 200, 130, "odd")]
@@ -1172,19 +1193,23 @@ def phase_qmm(dev):
                 g = gs if name != "odd" or gs < 0 else 40
                 x, dy, q, sc = qmm_case(m, k, n, wd, g, dtype, dev,
                                         SEED + ci)
-                tc0 = qmm_tc_count()
+                tc0, dx0 = qmm_tc_count(), qmm_dx_tc_count()
                 got = quant_matmul_fwd(x, q, sc)
                 tc_route = qmm_tc_count() - tc0
                 again = quant_matmul_fwd(x, q, sc)
                 dx = quant_matmul_bwd(dy, q, sc, k, dtype)
+                dx_route = qmm_dx_tc_count() - dx0
+                dx_again = quant_matmul_bwd(dy, q, sc, k, dtype)
                 torch.cuda.synchronize()
-                if tc_route != (name != "odd" and dtype != torch.float32):
+                on_route = name != "odd" and dtype != torch.float32
+                if tc_route != on_route or dx_route != on_route:
                     raise AssertionError(
-                        f"quant_matmul {wd} g{g} {name}: {tc_route} "
-                        "tensor-core launches (the bf16 / fp16 int8 / int4 "
-                        "forward at M <= 64 on aligned widths takes that "
-                        "route, nothing else)")
-                if not torch.equal(got, again):
+                        f"quant_matmul {wd} g{g} {name}: {tc_route} forward "
+                        f"and {dx_route} dx tensor-core launches (the bf16 / "
+                        "fp16 int8 / int4 forward at M <= 64 and dx on "
+                        "aligned widths take those routes, nothing else)")
+                if not (torch.equal(got, again)
+                        and torch.equal(dx, dx_again)):
                     raise AssertionError(f"quant_matmul {wd} g{g} {dtype} "
                                          f"{name}: a second launch differs")
                 want = quant_matmul_reference(x, q, sc)
@@ -1219,7 +1244,8 @@ def phase_qmm(dev):
                              lambda: quant_matmul_dx_reference(
                                  dy, q, sc, k, dtype), iters=10),
                          bound_ms=bound_ms(nbytes, nops, dtype),
-                         cublas_ms=time_ms(lambda: x @ w_fp))
+                         cublas_ms=time_ms(lambda: x @ w_fp),
+                         bwd_cublas_ms=time_ms(lambda: dy @ w_fp.T))
                 lib = None
                 if wd == "int8" and gs < 0:
                     lib, lib_note = int8pack_ms(x, q, sc)
@@ -1229,16 +1255,19 @@ def phase_qmm(dev):
                         else tot[key] + v
                 log(f"[quant] qmm {wd} g{g} {str(dtype)[6:]} {name} [{m}, {k}]"
                     f" x [{k}, {n}] ({'tensor cores' if tc_route else 'CUDA cores'}"
-                    f" route, repeat bitwise equal): held fwd {held[0]:.3e}, dx "
+                    f" routes, forward and dx repeat bitwise equal): held fwd "
+                    f"{held[0]:.3e}, dx "
                     f"{held[1]:.3e}; kernel {t['ms']:.4f} ms (dx "
                     f"{t['bwd_ms']:.4f}), plain {t['plain_ms']:.4f} (dx "
                     f"{t['bwd_plain_ms']:.4f}), bound {t['bound_ms']:.4f} "
                     f"({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP), cuBLAS "
                     f"on the pre-dequantized weight (the fp product this "
-                    f"replaces) {t['cublas_ms']:.4f}, library "
+                    f"replaces) {t['cublas_ms']:.4f} (dx "
+                    f"{t['bwd_cublas_ms']:.4f}), library "
                     + (f"{lib:.4f}" if lib is not None else "null"))
             if (wd, gs) != ("int8", 128):
                 tot.update(qmm_decode(wd, gs, dtype, dev))
+            tot.update(qmm_dx_rows(wd, gs, dtype, dev, QMM_DX_ROWS))
             tot["bound_by"] = ("bytes" if work[0] / HBM_BYTES_PER_S
                                >= work[1] / PEAK_OPS[dtype] else "operations")
             tot["max_abs_err"], tot["bwd_max_abs_err"] = errs
@@ -1249,18 +1278,61 @@ def phase_qmm(dev):
                 f"{tot['bwd_plain_ms']:.4f}), bound {tot['bound_ms']:.4f} "
                 f"({tot['bound_by']}: {work[0] / 1e6:.2f} MB, "
                 f"{work[1] / 1e9:.3f} GFLOP), cuBLAS "
-                f"fp product replaced {tot['cublas_ms']:.4f}, library "
+                f"fp product replaced {tot['cublas_ms']:.4f} (dx "
+                f"{tot['bwd_cublas_ms']:.4f}), library "
                 + (f"(torch._weight_int8pack_mm) {tot['library_ms']:.4f}"
                    if tot["library_ms"] is not None else
                    f"null ({lib_note or 'no PyTorch call computes it'})"))
     return stats
 
 
+def qmm_dx_rows(wd, gs, dtype, dev, m):
+    """The four serving GEMMs' dx at ``m`` dy rows on the route the plan
+    picks (the tensor-core dx in bf16 and fp16, one ``tc_launches`` each;
+    fp32 the CUDA-core kernel): held as phase 8 holds them, launched twice
+    (bitwise equal); the summed kernel, bound and cuBLAS (``dy @ w_fp.T`` on
+    the pre-dequantized weight, not a port path) times."""
+    from paddle_tpu_torch.ops.quant_matmul import (
+        dequantize_weight, quant_matmul_bwd, quant_matmul_dx_reference)
+
+    t, work = dict(ms=0.0, cublas_ms=0.0), [0.0, 0.0]
+    for ci, (k, n) in enumerate(QMM_SHAPES.values()):
+        _, dy, q, sc = qmm_case(m, k, n, wd, gs, dtype, dev, SEED + 20 + ci)
+        n0 = qmm_dx_tc_count()
+        got = quant_matmul_bwd(dy, q, sc, k, dtype)
+        route = qmm_dx_tc_count() - n0
+        again = quant_matmul_bwd(dy, q, sc, k, dtype)
+        want = quant_matmul_dx_reference(dy, q, sc, k, dtype)
+        err, held = kernel_error(got, want, dtype)
+        if dtype == torch.float32:
+            held = err / want.abs().max().item()
+        if (not held <= QMM_TOL[dtype] or not torch.equal(got, again)
+                or route != (dtype != torch.float32)):
+            raise AssertionError(f"quant_matmul dx {wd} g{gs} {dtype} [{m}, "
+                                 f"{n}] x [{n}, {k}]: held error {held} (tol "
+                                 f"{QMM_TOL[dtype]}), bitwise repeat "
+                                 f"{torch.equal(got, again)}, {route} "
+                                 "tensor-core launches")
+        w_fp = dequantize_weight(q, sc, k=k, out_dtype=dtype)
+        t["ms"] += time_ms(lambda: quant_matmul_bwd(dy, q, sc, k, dtype))
+        t["cublas_ms"] += time_ms(lambda: dy @ w_fp.T)
+        nbytes, nops = qmm_work(m, k, n, int(wd[3:]), sc.shape[0],
+                                dy.element_size())
+        work = [work[0] + nbytes, work[1] + nops]
+    t["bound_ms"] = bound_ms(*work, dtype)
+    log(f"[quant] qmm dx {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
+        f"{m} ({'CUDA-core' if dtype == torch.float32 else 'tensor-core'} "
+        f"route, repeat bitwise equal): kernel {t['ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms, cuBLAS on the pre-dequantized weight "
+        f"{t['cublas_ms']:.4f} ms")
+    return {f"dx{m}_{key}": v for key, v in t.items()}
+
+
 def qmm_decode(wd, gs, dtype, dev):
     """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
     tokens) on the route the plan picks (the tensor cores in bf16, int8 or
     int4): held as phase 8 holds them, the summed kernel time and
-    bound."""
+    bound; their dx the same way (:func:`qmm_dx_rows`)."""
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_fwd,
                                                    quant_matmul_reference)
 
@@ -1288,6 +1360,7 @@ def qmm_decode(wd, gs, dtype, dev):
         "route): "
         "kernel "
         f"{ms:.4f} ms, bound {out['decode_bound_ms']:.4f} ms")
+    out.update(qmm_dx_rows(wd, gs, dtype, dev, QMM_DECODE_ROWS))
     return out
 
 
@@ -1438,16 +1511,18 @@ def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None,
             setattr(cfg, k, v)
 
 
-def phase_quant_grad(params, cfg, dev, bits):
+def quant_grad_drive(params, cfg, dev):
     """d(loss)/d(input embeddings) through the 12 quantized layers (frozen
-    weights), the weight-only GEMM op against the same forward with the
-    plain GEMM: runs the backward kernels, 48 per backward."""
+    weights) of ``params`` in their dtype, the weight-only GEMM op against
+    the same forward with the plain GEMM. Returns the error over the plain
+    gradient's max, the kernel run's launches and its tensor-core dx
+    launches."""
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                    quant_matmul_reference)
 
     ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
         0, cfg.vocab_size, 257)).to(dev)
-    grads, counts = {}, None
+    grads, counts, tc = {}, None, None
     for name, mm in (("kernel", quant_matmul),
                      ("plain", quant_matmul_reference)):
         x = embed(params, ids[:-1]).detach().requires_grad_()
@@ -1456,21 +1531,42 @@ def phase_quant_grad(params, cfg, dev, bits):
         torch.nn.functional.cross_entropy(logits.float(), ids[1:]).backward()
         torch.cuda.synchronize()
         if name == "kernel":
-            counts = qmm_counts()
-        grads[name] = x.grad
+            counts, tc = qmm_counts(), qmm_dx_tc_count()
+        grads[name] = x.grad.float()
     err = ((grads["kernel"] - grads["plain"]).abs().max()
            / grads["plain"].abs().max()).item()
-    want = cfg.num_layers * 4
-    log(f"[quant] int{bits} gradient wrt the input embeddings ([256, 768], "
-        f"fp32) through {cfg.num_layers} quantized layers: kernel vs plain "
-        f"{err:.3e} of its max |grad| (tol {GRAD_TOL}); launches {counts}")
-    if not err <= GRAD_TOL:
-        raise AssertionError(f"int{bits} input gradient: kernel vs plain "
-                             f"{err} > {GRAD_TOL}")
-    if counts[f"int{bits}"] != want or counts[f"int{bits}_bwd"] != want:
-        raise AssertionError(f"int{bits} gradient drive launched {counts} "
-                             f"(want {want} forward and backward)")
-    return counts[f"int{bits}_bwd"]
+    return err, counts, tc
+
+
+def phase_quant_grad(model, cfg, dev, bits, quant, params):
+    """The input-gradient drives through the backward kernels, 48 dx a
+    drive: fp32 with the fp32 served ``params`` (the CUDA-core kernel) to
+    ``GRAD_TOL``, then bf16 with the same weights served in bf16 (every dx
+    on the tensor-core route) to ``BF16_GRAD_TOL``. Returns the dx launches
+    of each."""
+    want, out = cfg.num_layers * 4, []
+    for dtype, tol in ((torch.float32, GRAD_TOL),
+                       (torch.bfloat16, BF16_GRAD_TOL)):
+        if dtype != torch.float32:
+            params = quant_predictor(model, cfg, quant, dev,
+                                     dtype=dtype).params
+        err, counts, tc = quant_grad_drive(params, cfg, dev)
+        on_route = want if dtype != torch.float32 else 0
+        log(f"[quant] int{bits} gradient wrt the input embeddings ([256, "
+            f"768], {str(dtype)[6:]}) through {cfg.num_layers} quantized "
+            f"layers: kernel vs plain {err:.3e} of its max |grad| (tol "
+            f"{tol}); launches {counts}, {tc} dx on the tensor-core route")
+        if not err <= tol:
+            raise AssertionError(f"int{bits} {dtype} input gradient: kernel "
+                                 f"vs plain {err} > {tol}")
+        if (counts[f"int{bits}"] != want or counts[f"int{bits}_bwd"] != want
+                or tc != on_route):
+            raise AssertionError(f"int{bits} {dtype} gradient drive launched"
+                                 f" {counts}, {tc} dx on the tensor-core "
+                                 f"route (want {want} forward and backward,"
+                                 f" {on_route} on the route)")
+        out.append(counts[f"int{bits}_bwd"])
+    return out
 
 
 def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
@@ -1529,9 +1625,11 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
             "agreement with the fp32 streams of "
             f"phase 6: {agree:.4f}; {len({t for o in outs for t in o})} "
             "distinct tokens")
-    for label, bits in (("a int8", 8), ("b int4 g128", 4)):
-        launches[f"int{bits}_bwd"] += phase_quant_grad(
-            preds[label].params, cfg, dev, bits)
+    for (label, quant, _), bits in zip(QUANT_SERVE[:2], (8, 4)):
+        n32, n16 = phase_quant_grad(model, cfg, dev, bits, quant,
+                                    preds[label].params)
+        launches[f"int{bits}_bwd"] += n32
+        launches[f"int{bits}_bwd_bf16"] = n16
     fp_bytes = serving_weight_bytes(serving_params(model))
     kv = {label: sum(t.numel() * t.element_size()
                      for t in preds[label].cache.pools())
@@ -1985,7 +2083,8 @@ def profile_run(fn, card, tag, what):
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
               "paged decode kernel": ("paged_decode",),
-              "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel"),
+              "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel",
+                                   "qmm_dx_kernel"),
               "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
                                "gmm_wg_kernel", "gmm_sk_kernel"),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
@@ -5406,6 +5505,7 @@ def f16_grad_drives(model, cfg, dev):
             torch.cuda.synchronize()
             if name == "kernel":
                 counts, routes = qmm_counts(), twin_route_count() - n0
+                tc = qmm_dx_tc_count()
             grads[name] = x.grad.float()
         err = ((grads["kernel"] - grads["plain"]).abs().max()
                / grads["plain"].abs().max()).item()
@@ -5413,11 +5513,13 @@ def f16_grad_drives(model, cfg, dev):
         log(f"[fp16] {bits} gradient wrt the input embeddings ([256, 768]) "
             f"through {cfg.num_layers} quantized layers: kernel vs plain "
             f"{err:.3e} of its max |grad| (tol {F16_DRIVE_TOL}); launches "
-            f"{counts}, twin routes {routes}")
+            f"{counts} ({tc} dx on the tensor-core route), twin routes "
+            f"{routes}")
         if (routes or not err <= F16_DRIVE_TOL or counts[bits] != want
-                or counts[f"{bits}_bwd"] != want):
+                or counts[f"{bits}_bwd"] != want or tc != want):
             raise AssertionError(f"fp16 {bits} input gradient: {err}, "
-                                 f"launches {counts}, routes {routes}")
+                                 f"launches {counts}, {tc} dx on the "
+                                 f"tensor-core route, routes {routes}")
         n[f"qmm_{bits}_bwd"] = counts[f"{bits}_bwd"]
     mcfg = replace(cfg, **MOE, num_layers=2)
     moe = moe_model(mcfg, dev)
@@ -5601,23 +5703,165 @@ def paged_walks_only(root: Path) -> int:
     return 0
 
 
-def qmm_four(bits, gs, dtype, dev, m=QMM_ROWS, bwd=False):
+def qmm_four(bits, gs, dtype, dev, m=QMM_ROWS, bwd=False, digest=False):
     """Summed kernel and bound times of one layer's four serving GEMMs
-    (forward, or dx with ``bwd``) at ``m`` tokens."""
+    (forward, or dx with ``bwd``) at ``m`` tokens; with ``digest`` also each
+    GEMM's time and a digest of the four outputs' bytes (equal digests:
+    bitwise-equal outputs)."""
+    import hashlib
+
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_bwd,
                                                    quant_matmul_fwd)
 
-    ms, work = 0.0, [0.0, 0.0]
+    ms, work, each, h = 0.0, [0.0, 0.0], [], hashlib.sha1()
     for ci, (k, n) in enumerate(QMM_SHAPES.values()):
         x, dy, q, sc = qmm_case(m, k, n, f"int{bits}", gs, dtype, dev,
                                 SEED + ci)
         if bwd:
-            ms += time_ms(lambda: quant_matmul_bwd(dy, q, sc, k, dtype))
+            fn = lambda: quant_matmul_bwd(dy, q, sc, k, dtype)  # noqa: E731
         else:
-            ms += time_ms(lambda: quant_matmul_fwd(x, q, sc))
+            fn = lambda: quant_matmul_fwd(x, q, sc)  # noqa: E731
+        each.append(time_ms(fn))
+        ms += each[-1]
+        if digest:   # fp32 holds every bf16 / fp16 value exactly
+            h.update(fn().float().cpu().numpy().tobytes())
         nbytes, nops = qmm_work(m, k, n, bits, sc.shape[0], x.element_size())
         work = [work[0] + nbytes, work[1] + nops]
-    return dict(ms=ms, bound_ms=bound_ms(*work, dtype))
+    out = dict(ms=ms, bound_ms=bound_ms(*work, dtype))
+    if digest:
+        out.update(each=each, digest=h.hexdigest()[:16])
+    return out
+
+
+# --ab qmm-dx: the dx route's split plans swept (stages of N a split,
+# forced into the plan; the plan's own choice is timed beside them)
+DX_SWEEP_PER = (1, 2, 3, 4, 6, 8, 12)
+
+
+def dx_backward_profile(params, cfg, dev, card, tag):
+    """The input-gradient drive's backward once under ``torch.profiler``
+    (after a warm-up drive; the forward outside the window): device time
+    of its weight-only GEMM dx kernels (``qmm_dx_kernel``, or
+    ``qmm_kernel<.., true>`` where the package has no dx route) and of the
+    whole backward, and the dx launches; None when the trace holds no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul
+
+    ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, 257)).to(dev)
+    for timed_run in (False, True):
+        x = embed(params, ids[:-1]).detach().requires_grad_()
+        loss = torch.nn.functional.cross_entropy(
+            quant_forward(params, x, cfg, False, quant_matmul).float(),
+            ids[1:])
+        torch.cuda.synchronize()
+        if not timed_run:
+            loss.backward()
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss.backward()
+            torch.cuda.synchronize()
+    dx_us = all_us = 0.0
+    n = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
+            continue
+        all_us += ev.duration_ns() / 1e3
+        if ("qmm_dx_kernel" in ev.name()
+                or re.search(r"qmm_kernel<[^>]*, true>", ev.name())):
+            dx_us += ev.duration_ns() / 1e3
+            n += 1
+    if all_us <= 0:
+        log(f"{tag} profiler: no device time in the trace (not measured)")
+        return None
+    log(f"{tag} one profiled backward: dx kernels {dx_us / 1e3:.4f} ms "
+        f"device ({n} launches) of {all_us / 1e3:.4f} ms ({card})")
+    return dict(dx_ms=dx_us / 1e3, backward_ms=all_us / 1e3, dx_launches=n)
+
+
+def qmm_dx_only(root: Path) -> int:
+    """``--ab qmm-dx [ROOT]``: rows 11 and 12 (the weight-only GEMM's dx:
+    one layer's four serving GEMMs at M 8, 24 and 256 in fp32, bf16 and
+    fp16, int8 per channel, int8 g128 and int4 g128), the controls rows 9
+    and 10 (the int8 and int4 g128 forwards at M 24 in bf16 and fp16, each
+    GEMM's time and a digest of the outputs), where ROOT's package has the
+    tensor-core dx route its split plans swept (``DX_SWEEP_PER`` stages a
+    split, bf16, M 8, 24 and 256), then the bf16 input-gradient drives (GPT-125M,
+    [256, 768] through 12 int8 / int4 g128 layers): the dx kernels' device
+    time in one profiled backward; all with the ``paddle_tpu_torch``
+    package of the checkout at ``ROOT`` (default: this one). Prints one
+    JSON line; run it with two trees in turns to compare them on one
+    card."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    rows = {}
+    for wd, gs in QMM_CONFIGS:
+        bits = int(wd[3:])
+        for dtype in DTYPES:
+            for m in (QMM_DECODE_ROWS, QMM_ROWS, QMM_DX_ROWS):
+                rows[f"{11 if bits == 8 else 12} dx {wd} g{gs} M {m} "
+                     f"{str(dtype)[6:]}"] = qmm_four(bits, gs, dtype, dev,
+                                                     m=m, bwd=True,
+                                                     digest=True)
+    for bits, gs in ((8, -1), (4, 128)):
+        for dtype in (torch.bfloat16, torch.float16):
+            rows[f"{9 if bits == 8 else 10} fwd int{bits} g{gs} M "
+                 f"{QMM_ROWS} {str(dtype)[6:]}"] = qmm_four(
+                     bits, gs, dtype, dev, digest=True)
+    for label, st in rows.items():
+        log(f"[qmm-dx] row {label}: ms {st['ms']:.4f} (each " + ", ".join(
+            f"{v:.4f}" for v in st["each"]) + f"), bound "
+            f"{st['bound_ms']:.4f}, digest {st['digest']} ({card})")
+    sweep = {}
+    if hasattr(qm.quant_matmul_bwd, "tc_launches"):
+        plan = qm.qmm_plan
+        for per in DX_SWEEP_PER:
+            def forced(m, k, n, groups, dtype, packed, bwd, aligned, sms,
+                       per=per):
+                p = plan(m, k, n, groups, dtype, packed, bwd, aligned, sms)
+                if p.route != "tc" or not bwd:
+                    return p
+                stages = -(-n // qm.TC_STAGE)
+                return p._replace(splits=-(-stages // min(per, stages)),
+                                  per=min(per, stages))
+            qm.qmm_plan = forced
+            try:
+                for wd, gs in (("int8", -1), ("int4", 128)):
+                    for m in (QMM_DECODE_ROWS, QMM_ROWS, QMM_DX_ROWS):
+                        st = qmm_four(int(wd[3:]), gs, torch.bfloat16, dev,
+                                      m=m, bwd=True, digest=True)
+                        sweep[f"{wd} g{gs} M {m} per {per}"] = st
+                        log(f"[qmm-dx] sweep {wd} g{gs} bf16 M {m}, {per} "
+                            f"stages a split: ms {st['ms']:.4f} (each "
+                            + ", ".join(f"{v:.4f}" for v in st["each"])
+                            + f") ({card})")
+            finally:
+                qm.qmm_plan = plan
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    drive = {}
+    for (label, quant, _) in QUANT_SERVE[:2]:
+        params = quant_predictor(model, cfg, quant, dev,
+                                 dtype=torch.bfloat16).params
+        drive[label] = dx_backward_profile(params, cfg, dev, card,
+                                           f"[qmm-dx] bf16 drive ({label})")
+    print(json.dumps({"qmm_dx": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, sweep=sweep, drive=drive)}), flush=True)
+    return 0
 
 
 def mlp_gemms_only(root: Path) -> int:
@@ -6212,7 +6456,8 @@ def main() -> int:
     parts = {"moe-forward": moe_forward_only, "fused-gelu": fused_gelu_only,
              "paged-walks": paged_walks_only, "mlp-gemms": mlp_gemms_only,
              "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
-             "flash": flash_ab_only, "ln-bwd": ln_bwd_only}
+             "flash": flash_ab_only, "ln-bwd": ln_bwd_only,
+             "qmm-dx": qmm_dx_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -6268,6 +6513,15 @@ def main() -> int:
         f"{len(spilled)} with spills")
     if not ln_bwd or spilled:
         raise AssertionError(f"ln_bwd_kernel spills: {spilled}")
+    dx = [line for line in ptxas_summary("quant_matmul",
+                                         logs["quant_matmul"])
+          if "qmm_dx_kernel" in line]
+    spilled = [line for line in dx
+               if re.search(r"[1-9]\d* bytes spill", line)]
+    log(f"[build] qmm_dx_kernel: {len(dx)} instances, {len(spilled)} with "
+        "spills")
+    if len(dx) != 4 or spilled:
+        raise AssertionError(f"qmm_dx_kernel: {dx}")
     g = RAGGED_GEOM
     log(f"[build] dynamic shared memory per block: ragged_paged_attention "
         f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['d'])} B"
@@ -6386,7 +6640,8 @@ def main() -> int:
     for bits, gs, line in ((8, -1, 194), (4, 128, 210)):
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}_bwd", line,
-                         quant_launches[f"int{bits}_bwd"],
+                         quant_launches[f"int{bits}_bwd"]
+                         + quant_launches[f"int{bits}_bwd_bf16"],
                          dict(st, ms=st["bwd_ms"],
                               plain_ms=st["bwd_plain_ms"],
                               max_abs_err=st["bwd_max_abs_err"],
@@ -6593,6 +6848,25 @@ def main() -> int:
            f"{s4['gemm_ms']:.4f})" if "busy_ms" in s4 else "")
         + "; launches: phase 8's fp32 served run (b) on qmm_kernel and its "
         "bf16 served runs (b) on the tensor-core route")
+    for bits, gs in ((8, -1), (4, 128)):
+        b, f = qmm[(f"int{bits}", gs, bf16)], qmm[(f"int{bits}", gs,
+                                                    torch.float32)]
+        row_of[f"quant_matmul_int{bits}_bwd"]["note"] = (
+            f"bf16{' g128' if gs > 0 else ''}, the sum of one layer's four dx"
+            f" GEMMs at M {QMM_ROWS} on the tensor-core dx route "
+            f"(qmm_dx_kernel); at M {QMM_DECODE_ROWS}: ms "
+            f"{b['dx8_ms']:.4f}, bound_ms {b['dx8_bound_ms']:.6f}; at M "
+            f"{QMM_DX_ROWS}: ms {b[f'dx{QMM_DX_ROWS}_ms']:.4f}, bound_ms "
+            f"{b[f'dx{QMM_DX_ROWS}_bound_ms']:.6f}; cuBLAS on the "
+            f"pre-dequantized weight (dy @ w_fp.T, not a port path): "
+            f"{b['bwd_cublas_ms']:.4f} ms at M {QMM_ROWS}, "
+            f"{b[f'dx{QMM_DX_ROWS}_cublas_ms']:.4f} at M {QMM_DX_ROWS}; fp32"
+            f" (qmm_kernel, the CUDA-core kernel): ms {f['bwd_ms']:.4f}, "
+            f"plain_ms {f['bwd_plain_ms']:.4f}, bound_ms "
+            f"{f['bound_ms']:.6f}; launches: phase 8's fp32 input-gradient "
+            f"drive ({quant_launches[f'int{bits}_bwd']} on qmm_kernel) and "
+            f"its bf16 drive ({quant_launches[f'int{bits}_bwd_bf16']} on "
+            "qmm_dx_kernel)")
     for name, kname, label in (
             ("fp", "gmm", "fp"), ("int8", "gmm_q", "int8"),
             ("int4", "gmm_q4", "int4 g128"), ("fp_bwd", "gmm_bwd", "fp"),
@@ -6690,7 +6964,8 @@ def main() -> int:
                                 "mma.sync", n16["flash_bwd"]),
         **{f"quant_matmul_int{bits}{sfx}": (
             qmm_leg(bits, gs, f16, sfx), qmm_leg(bits, gs, bf16, sfx),
-            "CUDA cores: qmm_kernel" if sfx else
+            "tensor cores: qmm_dx_kernel (mma.sync, dequantized in "
+            "registers)" if sfx else
             "tensor cores: qmm_tc_kernel (mma.sync, dequantized in "
             "registers)", n16[f"qmm_int{bits}{sfx}"])
            for bits, gs in ((8, -1), (4, 128)) for sfx in ("", "_bwd")},

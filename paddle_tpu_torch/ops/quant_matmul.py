@@ -14,8 +14,10 @@ launch the hand-written kernels of ``csrc/quant_matmul.cu`` (or raise),
 the route chosen before the launch by the pure :func:`qmm_plan`: the bf16 or
 fp16 int8 and packed int4 forward at up to :data:`TC_ROWS` tokens on aligned
 widths takes the tensor-core kernel (``"tc"``, counted in
-``quant_matmul_fwd.tc_launches`` too), everything else (fp32, dx, more tokens,
-odd widths) the CUDA-core kernel (``"cc"``); on a CPU tensor
+``quant_matmul_fwd.tc_launches`` too), and so does their dx at any number of
+rows (``qmm_dx_kernel``, counted in ``quant_matmul_bwd.tc_launches``);
+everything else (fp32, more tokens in the forward, odd widths, unaligned
+pointers) the CUDA-core kernel (``"cc"``); on a CPU tensor
 they run :func:`quant_matmul_reference` and
 :func:`quant_matmul_dx_reference`. :func:`quant_matmul` is differentiable
 on both: one custom op (``paddle_tpu_torch::quant_matmul``) whose backward
@@ -43,6 +45,7 @@ _ENTRY = [_P] * 7 + [_I] * 9 + [_P]
 _SIGNATURES = {f"ptt_qmm_{name}": _ENTRY
                for name in ("int8", "int4", "int8_bwd", "int4_bwd")}
 _SIGNATURES["ptt_qmm_tc"] = [_P] * 7 + [_I] * 9 + [_P]
+_SIGNATURES["ptt_qmm_dx_tc"] = [_P] * 6 + [_I] * 9 + [_P]
 # the CUDA-core kernel's tiles (csrc/quant_matmul.cu qmm_kernel): 32
 # activation rows x 64 output columns a block, 64 reduction indices a
 # stage; a stage of the int8 weight is 64 stored rows, of the packed int4
@@ -55,6 +58,18 @@ _BLOCKS_PER_SM = 2   # split the reduction until this many blocks per SM
 # of 64 through a ring of TC_RING bytes of shared memory; they are split
 # until the blocks fill one wave of the card's SMs
 TC_ROWS, TC_COLS, TC_STAGE, TC_RING = 64, 64, 64, 96 << 10
+# the tensor-core dx (qmm_dx_kernel): a block owns TC_STAGE stored rows (64
+# dx columns, or 128 of a packed int4 weight: its low and high nibbles) and
+# a pass of up to TC_ROWS dy rows (the passes are a grid dimension, so any M
+# runs), and walks the reduction over N in stages of TC_STAGE columns
+# through the same ring. A split walks DX_PER stages where the grid then
+# keeps between half an SM and two blocks an SM (two fit in shared memory):
+# every split leaves an fp32 partial of its tile that the tile's last block
+# reads back, so splitting until the blocks fill the card made that sum the
+# longest part of the call; an H100 ran GPT-125M's four int4 g128 dx at M 24
+# in 0.0416 ms with 3 stages a split against 0.0506 with the card filled
+# (PERF.md §6, row 12)
+DX_PER = 3
 # the activation types the tensor-core routes are built for (here and in
 # the grouped GEMM, csrc/skinny_gemm.cuh)
 _TC_DTYPES = (torch.bfloat16, torch.float16)
@@ -155,7 +170,8 @@ def quant_matmul_dx_reference(dy, qweight, scales, k, x_dtype):
 # ---------------------------------------------------------------------------
 
 class QmmPlan(NamedTuple):
-    route: str      # "tc": qmm_tc_kernel, "cc": qmm_kernel
+    route: str      # "tc": qmm_tc_kernel (forward) / qmm_dx_kernel (dx),
+    #                 "cc": qmm_kernel
     tiles: int      # output tiles (column tiles x row tiles)
     splits: int     # blocks sharing a tile's reduction
     per: int        # reduction stages a split walks (the last may walk fewer)
@@ -164,29 +180,41 @@ class QmmPlan(NamedTuple):
 def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
     """The launch of one weight-only GEMM: ``m`` rows, a ``[K, N]`` weight
     (``packed`` int4 or int8) with ``groups`` scale rows, forward or dx
-    (``bwd``), activations of ``dtype``; ``aligned``: x, the weight, its
-    scales and the output start on 16 bytes; ``sms``: the card's SMs. A pure
-    function of its arguments, decided before any launch.
+    (``bwd``), activations of ``dtype``; ``aligned``: x (or dy), the weight,
+    its scales and the output start on 16 bytes; ``sms``: the card's SMs. A
+    pure function of its arguments, decided before any launch.
 
-    The int8 or packed int4 forward in bf16 or fp16 at ``1 <= m <= TC_ROWS``,
-    with the stored rows (K, or K / 2 packed) a multiple of ``TC_STAGE`` (its
-    stages), ``N % 16`` and the scale groups' rows ``% 16`` all 0 (so a stage's
-    16-row steps, in either half of a packed weight, each lie in one group),
-    takes the tensor-core kernel; everything else (fp32, dx, more rows, odd
-    widths, unaligned pointers) the CUDA-core kernel. Each dtype goes to the
-    kernel an H100 ran faster at GPT-125M's four serving GEMMs (M 24, A/B in
-    turns, PERF.md §6 rows 9 and 10): bf16 to the tensor-core route (int8
-    0.0374 against 0.0763 ms for the four, int4 g128 0.0384 against 0.0735),
-    fp16 with it (the same tile, the same bytes and the same tensor-core rate),
-    fp32 to the CUDA-core kernel (int8 0.0678 against 0.0783 ms on the route's
-    FMA branch, which is therefore not built). Either splits the reduction's
-    stages (the route's over stored rows) across blocks until they fill the
-    card."""
+    bf16 or fp16 with the stored rows (K, or K / 2 packed) a multiple of
+    ``TC_STAGE``, ``N % 16`` and the scale groups' rows ``% 16`` all 0 (so
+    each 16-row step, in either half of a packed weight, lies in one group)
+    and aligned pointers take the tensor-core kernels: the forward at ``1 <=
+    m <= TC_ROWS`` (``qmm_tc_kernel``; its stages are 64 stored rows, split
+    across blocks until they fill the card), the dx at any ``m >= 1``
+    (``qmm_dx_kernel``: 64 stored rows x a pass of up to 64 dy rows a tile,
+    stages of 64 columns of N, ``DX_PER`` a split where that keeps the grid
+    between ``sms / 2`` and ``2 sms`` blocks). Everything else (fp32, the
+    forward at more rows, odd widths, unaligned pointers) takes the
+    CUDA-core kernel. Each dtype goes to the kernel an H100 ran faster at
+    GPT-125M's four serving GEMMs (M 24, A/B in turns, PERF.md §6 rows 9 to
+    12): bf16 and fp16 to the tensor-core routes (forward int8 0.0374
+    against 0.0763 ms for the four, int4 g128 0.0384 against 0.0735), fp32
+    to the CUDA-core kernel (int8 0.0678 against 0.0783 ms on the route's
+    FMA branch, which is therefore not built); the CUDA-core kernel splits
+    its stages until the blocks fill the card."""
     kw = k // 2 if packed else k
     gs = k // max(groups, 1)
-    if (not bwd and 1 <= m <= TC_ROWS and kw % TC_STAGE == 0
-            and n % 16 == 0 and gs % 16 == 0 and aligned
-            and dtype in _TC_DTYPES):
+    tc = (kw % TC_STAGE == 0 and n % 16 == 0 and gs % 16 == 0 and aligned
+          and dtype in _TC_DTYPES and m >= 1)
+    if tc and bwd:
+        tiles = kw // TC_STAGE * -(-m // TC_ROWS)
+        stages = -(-n // TC_STAGE)
+        per = min(stages, DX_PER)
+        while per > 1 and 2 * tiles * -(-stages // per) < sms:
+            per -= 1
+        while per < stages and tiles * -(-stages // per) > 2 * sms:
+            per += 1
+        return QmmPlan("tc", tiles, -(-stages // per), per)
+    if tc and m <= TC_ROWS:
         tiles = -(-n // TC_COLS)
         stages = kw // TC_STAGE
         want = max(1, -(-sms // tiles))
@@ -244,7 +272,10 @@ def _launch(a, qweight, scales2d, bias, k, n, bwd):
     tail = (code, a.device.index,
             torch.cuda.current_stream(a.device).cuda_stream)
     lib = _build.load(_KERNEL, _SIGNATURES)
-    if plan.route == "tc":
+    if plan.route == "tc" and bwd:
+        err = lib.ptt_qmm_dx_tc(*args[:3], *args[4:-2], 4 if packed else 8,
+                                *args[-2:], *tail)
+    elif plan.route == "tc":
         err = lib.ptt_qmm_tc(*args[:-2], 4 if packed else 8, *args[-2:],
                              *tail)
     else:
@@ -286,8 +317,9 @@ quant_matmul_fwd.twin_routes = 0
 
 
 def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
-    """``dx = dy [M, N] @ dequant(qweight)^T`` in ``x_dtype``: the kernel on
-    a CUDA tensor (``.launches["int8" | "int4"]`` counts it), the reference
+    """``dx = dy [M, N] @ dequant(qweight)^T`` in ``x_dtype``: the kernel
+    :func:`qmm_plan` picks on a CUDA tensor (``.launches["int8" | "int4"]``
+    counts both routes, ``.tc_launches`` the tensor-core one), the reference
     on a CPU tensor."""
     _check_device(dy)
     if dy.device.type == "cpu":
@@ -295,14 +327,16 @@ def quant_matmul_bwd(dy, qweight, scales2d, k, x_dtype):
     if not kernel_takes(x_dtype):
         quant_matmul_bwd.twin_routes += 1
         return quant_matmul_dx_reference(dy, qweight, scales2d, k, x_dtype)
-    out, name, _ = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
-                           qweight.shape[1], bwd=True)
+    out, name, route = _launch(dy.to(x_dtype), qweight, scales2d, None, k,
+                               qweight.shape[1], bwd=True)
     if name:
         quant_matmul_bwd.launches[name[:4]] += 1
+        quant_matmul_bwd.tc_launches += route == "tc"
     return out
 
 
 quant_matmul_bwd.launches = {"int8": 0, "int4": 0}
+quant_matmul_bwd.tc_launches = 0
 quant_matmul_bwd.twin_routes = 0
 
 

@@ -939,29 +939,74 @@ def test_quant_matmul_tc_route_matches_plain(cuda, dtype, case, weights):
     _graph_equal(lambda: quant_matmul_fwd(x, q, s.reshape(-1, n), bias))
 
 
+@pytest.mark.parametrize("weights", ["int8", "int4 g128", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", QMM_TC_CASES + [(65, 768, 768, -1),
+                                                 (256, 768, 2304, 128)])
+def test_quant_matmul_dx_tc_route_matches_plain(cuda, dtype, case, weights):
+    """The 16-bit int8 dx (the case's group) and packed int4 dx (in groups
+    of 128 and per channel) on aligned widths run the tensor-core dx kernel
+    at any M (one ``tc_launches`` of the backward a call; M 65 and 256: two
+    and four passes of 64 dy rows) and match their plain version; a second
+    launch is bitwise equal, a captured call equal to an eager one."""
+    m, k, n, gs = case
+    name = weights.split()[0]
+    if name == "int4":
+        gs = 128 if "g128" in weights else -1
+    rng = np.random.RandomState(10)
+    qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
+        (k, n)).astype(np.float32)).to(dtype), name, gs)
+    q, s = qw["q"].to(cuda), qw["s"].to(cuda).reshape(-1, n)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        cuda, dtype)
+    plan = qmm_mod.qmm_plan(m, k, n, s.shape[0], dtype, name == "int4", True,
+                            True, 132)
+    assert plan.route == "tc"
+    before = quant_matmul_bwd.tc_launches
+    got = quant_matmul_bwd(dy, q, s, k, dtype)
+    again = quant_matmul_bwd(dy, q, s, k, dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul_bwd.tc_launches == before + 2
+    assert torch.equal(got, again)
+    _qmm_err(got.float(),
+             quant_matmul_dx_reference(dy, q, s, k, dtype).float(), dtype)
+    _graph_equal(lambda: quant_matmul_bwd(dy, q, s, k, dtype))
+
+
 def test_quant_matmul_other_shapes_run_cuda_cores(cuda):
-    """M past the route's 64 rows, K off its 64-row stages (int8 K 200;
-    int4 K / 2 = 100), N off 16, and fp32 int4 take the CUDA-core kernel
-    (no ``tc_launches``), correct."""
+    """M past the forward route's 64 rows, K off the routes' 64-row stages
+    (int8 K 200; int4 K / 2 = 100), N off 16, fp32 and unaligned pointers
+    take the CUDA-core kernel (no ``tc_launches``), correct: the forward
+    and the dx (whose route takes M 65)."""
     rng = np.random.RandomState(9)
-    for m, k, n, bits, gs, dtype in (
-            (65, 768, 768, 8, -1, torch.bfloat16),
-            (24, 200, 768, 8, 40, torch.bfloat16),
-            (24, 768, 130, 8, -1, torch.bfloat16),
-            (24, 200, 768, 4, 40, torch.bfloat16),
-            (24, 768, 768, 4, 128, torch.float32)):
+    for m, k, n, bits, gs, dtype, off in (
+            (65, 768, 768, 8, -1, torch.bfloat16, 0),
+            (24, 200, 768, 8, 40, torch.bfloat16, 0),
+            (24, 768, 130, 8, -1, torch.bfloat16, 0),
+            (24, 200, 768, 4, 40, torch.bfloat16, 0),
+            (24, 768, 768, 4, 128, torch.float32, 0),
+            (24, 768, 768, 8, -1, torch.float32, 0),
+            (24, 768, 768, 8, 128, torch.bfloat16, 1),
+            (24, 768, 768, 4, 128, torch.float16, 1)):
         name = f"int{bits}"
         qw = quantize_weight(torch.from_numpy(0.05 * rng.standard_normal(
             (k, n)).astype(np.float32)).to(dtype), name, gs)
         q, s = qw["q"].to(cuda), qw["s"].to(cuda)
-        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
-            np.float32)).to(cuda, dtype)
+        x, dy = (torch.from_numpy(rng.standard_normal(
+            (m * c + off,)).astype(np.float32)).to(cuda, dtype)[off:].view(
+                m, c) for c in (k, n))   # off: starts 2 or 4 bytes past 16
         before = quant_matmul_fwd.tc_launches
         got = quant_matmul(x, q, s)
         torch.cuda.synchronize()
         assert quant_matmul_fwd.tc_launches == before
-        _qmm_err(got.float(), quant_matmul_reference(x, q, s).float(),
-                 dtype)
+        _qmm_err(got.float(), quant_matmul_reference(x, q, s).float(), dtype)
+        on_route = (m > 64 and not off and dtype != torch.float32)
+        before = quant_matmul_bwd.tc_launches
+        dx = quant_matmul_bwd(dy, q, s, k, dtype)
+        torch.cuda.synchronize()
+        assert quant_matmul_bwd.tc_launches == before + on_route
+        _qmm_err(dx.float(),
+                 quant_matmul_dx_reference(dy, q, s, k, dtype).float(), dtype)
 
 
 def test_mega_serving_launches_and_tokens(cuda):

@@ -38,7 +38,8 @@ def _bits(a):
 
 
 def _torch_dtype(dtype):
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[dtype]
 
 
 def _weights(seed, k, n, dtype):
@@ -221,13 +222,14 @@ SERVING_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 
 def test_qmm_plan_routes_every_shape():
     """The pure plan routes every M, width, alignment, dtype and weight
-    before any launch: the int8 and packed int4 forward at 1 <= M <= 64
-    with the stored rows (K, or K / 2 packed) % 64 (its stages), N % 16,
-    scale groups of a multiple of 16 rows and aligned rows takes the
-    tensor-core kernel in bf16, everything else (fp32, dx, M > 64 as in
-    legacy prefill buckets, odd widths, unaligned pointers) the CUDA-core
-    one; either way every reduction stage (the route's: 64 stored rows) is
-    walked by exactly one split."""
+    before any launch: with the stored rows (K, or K / 2 packed) % 64 (its
+    stages), N % 16, scale groups of a multiple of 16 rows and aligned
+    pointers, the bf16 int8 and packed int4 forward at 1 <= M <= 64 takes
+    the tensor-core kernel, and so does their dx at any M (its tiles: 64
+    stored rows x a pass of up to 64 dy rows; its stages: 64 columns of N);
+    everything else (fp32, the forward at M > 64 as in legacy prefill
+    buckets, odd widths, unaligned pointers) the CUDA-core one; either way
+    every reduction stage is walked by exactly one split."""
     for m in (1, 7, 8, 24, 33, 64, 65, 128, 512):
         for k, n, groups in ((768, 2304, 1), (3072, 768, 24), (200, 130, 5),
                              (768, 770, 1), (768, 768, 48), (96, 64, 3),
@@ -239,18 +241,23 @@ def test_qmm_plan_routes_every_shape():
                                              (True, False, True),
                                              (True, False, False),
                                              (False, True, True),
-                                             (True, True, True)):
+                                             (True, True, True),
+                                             (False, True, False)):
                     plan = tqm.qmm_plan(m, k, n, groups, dtype, packed, bwd,
                                         aligned, 132)
                     kw = k // 2 if packed else k
-                    tc = (not bwd and aligned and m <= 64
+                    tc = ((bwd or m <= 64) and aligned
                           and kw % tqm.TC_STAGE == 0 and n % 16 == 0
                           and (k // groups) % 16 == 0
                           and dtype == torch.bfloat16)
                     assert plan.route == ("tc" if tc else "cc"), (m, k, n)
                     assert plan == tqm.qmm_plan(m, k, n, groups, dtype,
                                                 packed, bwd, aligned, 132)
-                    if tc:
+                    if tc and bwd:
+                        stages = -(-n // tqm.TC_STAGE)
+                        assert plan.tiles == (kw // tqm.TC_STAGE
+                                              * -(-m // tqm.TC_ROWS))
+                    elif tc:
                         stages = kw // tqm.TC_STAGE
                         assert plan.tiles == -(-n // tqm.TC_COLS)
                     else:
@@ -330,3 +337,116 @@ def test_tc_split_plan_sums_to_the_jax_gemm(dtype, group_size, bits):
     else:
         err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
         assert err.max() <= BF16_ROW_TOL
+
+
+def test_qmm_dx_plan_splits_n_into_short_walks_at_the_serving_shapes():
+    """GPT-125M's four dx GEMMs at a decode round (8 rows), the 24-token
+    budget and 256 rows (the input-gradient drives) take the tensor-core
+    dx route in bf16 and fp16, int8 per channel and g128 and packed int4
+    g128 and per channel. Every stage of N is walked by exactly one split;
+    a split walks ``DX_PER`` stages unless that leaves fewer than half the
+    H100's 132 SMs a block (then fewer: int8 wo at M 24 walks 2, int4 wo 1)
+    or more than two blocks an SM (then more: M 256); the grid keeps between
+    66 blocks (or one a stage) and 264 (or one a tile)."""
+    for m in (8, 24, 256):
+        for k, n in SERVING_GEMMS:
+            for packed, groups in ((False, 1), (False, k // 128),
+                                   (True, k // 128), (True, 1)):
+                for dtype in (torch.bfloat16, torch.float16):
+                    plan = tqm.qmm_plan(m, k, n, groups, dtype, packed, True,
+                                        True, 132)
+                    stages = -(-n // tqm.TC_STAGE)
+                    blocks = plan.tiles * plan.splits
+                    assert plan.route == "tc"
+                    assert (plan.splits - 1) * plan.per < stages \
+                        <= plan.splits * plan.per
+                    assert min(66, plan.tiles * stages) <= blocks \
+                        <= max(264, plan.tiles), (m, k, n, packed, plan)
+                    if plan.per > tqm.DX_PER:   # raised to fit 2 an SM
+                        assert plan.tiles * -(-stages // (plan.per - 1)) > 264
+                    elif plan.per < tqm.DX_PER:   # lowered to fill half
+                        assert plan.tiles * -(-stages // (plan.per + 1)) < 66
+    # the shapes the card measured: int4 g128 wqkv at M 24 walks 3 stages a
+    # split (72 blocks; 0.0437 ms for the four dx against 0.0520 with one
+    # stage a split and the card filled), int8 w1 at M 256 10 (240 blocks)
+    assert tqm.qmm_plan(24, 768, 2304, 6, torch.bfloat16, True, True, True,
+                        132) == tqm.QmmPlan("tc", 6, 12, 3)
+    assert tqm.qmm_plan(256, 768, 3072, 1, torch.bfloat16, False, True, True,
+                        132) == tqm.QmmPlan("tc", 48, 5, 10)
+
+
+def _dx_tc_twin(dy, q, s2, k, td, plan):
+    """The dx route's arithmetic in torch (``qmm_dx_kernel``): per tile of
+    64 stored rows and pass of 64 dy rows, each split's fp32 partial over its
+    stages of N (the weight dequantized as the kernel does: q times the
+    scale rounded to ``td``, the product rounded to ``td``; a packed int4
+    byte row i feeds dx column i from its low nibble and K / 2 + i from its
+    high one, with the scale groups of those columns), the splits summed in
+    order from 0, one cast."""
+    m, n = dy.shape
+    packed = q.shape[0] * 2 == k
+    gs = k // s2.shape[0]
+    kh = k // 2 if packed else 0
+    p32 = q.to(torch.int32)
+    halves = ([((p32 & 0xF) ^ 8) - 8, (((p32 >> 4) & 0xF) ^ 8) - 8]
+              if packed else [p32])
+    dyf = dy.to(td).float()
+    out = torch.empty(m, k)
+    for h, nib in enumerate(halves):
+        cols = h * kh + torch.arange(q.shape[0])
+        w = (nib.to(td) * s2[cols // gs].to(td)).float()   # rounded to td
+        for r0 in range(0, q.shape[0], tqm.TC_STAGE):
+            rows = torch.arange(r0, r0 + tqm.TC_STAGE)
+            for m0 in range(0, m, tqm.TC_ROWS):
+                ms = slice(m0, min(m, m0 + tqm.TC_ROWS))
+                acc = torch.zeros(ms.stop - ms.start, len(rows))
+                for z in range(plan.splits):
+                    n0 = z * plan.per * tqm.TC_STAGE
+                    n1 = min(n, (z + 1) * plan.per * tqm.TC_STAGE)
+                    acc = acc + dyf[ms, n0:n1] @ w[rows, n0:n1].T
+                out[ms, cols[rows]] = acc
+    return out.to(td)
+
+
+@pytest.mark.parametrize("m", [24, 160])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bits,group_size", [(8, -1), (8, 32), (4, -1),
+                                             (4, 32)])
+def test_tc_dx_split_plan_sums_to_the_jax_vjp(bits, group_size, dtype, m,
+                                              monkeypatch):
+    """The tensor-core dx route's arithmetic (``_dx_tc_twin``, on the bf16
+    plan's splits; fp32 sums the same splits) against the JAX package's own
+    dx: ``jax.vjp`` of ``quant_matmul(..., use_kernel=True)``, which runs
+    ``_qmm_bwd_kernel`` / ``_qmm4_bwd_kernel`` in interpret mode (this jax
+    names the kernels' compiler parameters ``CompilerParams``, which the
+    package spells ``TPUCompilerParams``: aliased for the test). M 160 is
+    three passes of 64 dy rows, the last partial; N 208 leaves a last stage
+    of 16 columns. fp32: max abs error over the max ``|want|`` to 1e-6 (the
+    summation orders differ); bf16 per row as the module says, fp16 per row
+    to 2e-3 (two fp16 steps: both sides round one fp32 sum per element)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                        raising=False)
+    k, n = (256 if bits == 4 else 128), 208
+    q, s = _quantized(13, k, n, bits, group_size, dtype)
+    dy = np.random.RandomState(14).standard_normal((m, n)).astype(np.float32)
+    td = _torch_dtype(dtype)
+    s2 = torch.from_numpy(s).reshape(-1, n)
+    plan = tqm.qmm_plan(m, k, n, s2.shape[0], torch.bfloat16, bits == 4, True,
+                        True, 132)
+    assert plan.route == "tc" and plan.splits > 1
+    got = _dx_tc_twin(torch.from_numpy(dy), torch.from_numpy(q), s2, k, td,
+                      plan).float().numpy()
+    jd = jnp.dtype(dtype)
+    jdx = jax.vjp(lambda x_: jqm.quant_matmul(
+        x_, jnp.asarray(q), jnp.asarray(s), use_kernel=True),
+        jnp.zeros((m, k), jd))[1](jnp.asarray(dy).astype(jd))[0]
+    want = np.asarray(jdx.astype(jnp.float32))
+    if dtype == "float32":
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 1e-6, err
+    else:
+        tol = BF16_ROW_TOL if dtype == "bfloat16" else 2e-3
+        err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+        assert err.max() <= tol, err.max()
