@@ -46,7 +46,15 @@ trees on one card) and prints one JSON line. PART is one of:
   g128, int4 g128) beside the controls rows 9 and 10 (the forwards at M
   24, with digests of their outputs), the dx route's split plans swept
   where ROOT's package has the route, then the dx kernels' device time in
-  one profiled backward of the bf16 input-gradient drives.
+  one profiled backward of the bf16 input-gradient drives;
+- ``moe-dx``: row 19 (the grouped GEMM's dx with int8 expert stacks, w1 +
+  w2 at the serving rows (a) and the prefill rows (b), fp32 / bf16 /
+  fp16, per channel and g128) beside the controls row 16 (the int8
+  forward at (a)) and rows 11 and 12 (the weight-only GEMM's dx at M 24),
+  with digests of every output, the dx route's split plans swept where
+  ROOT's package has the route, then the dx kernels' device time in one
+  profiled backward of phase 11's bf16 input-gradient drives (int8
+  stacks through both layers; fp stacks through layer 0).
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -57,8 +65,8 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
 1. device: the card's name and power limit;
 2. build: the nine kernel sources from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with ``ptxas -v``
-   registers and spills (an ``ln_bwd_kernel`` or ``qmm_dx_kernel``
-   instance that spills fails the run);
+   registers and spills (an ``ln_bwd_kernel``, ``qmm_dx_kernel`` or
+   ``gmm_dx_kernel`` instance that spills fails the run);
 3. ragged paged attention vs its plain version at the serving shapes
    (b 8, chunk 16, 12 heads, d 64, page 64, 16 pages per sequence),
    fp32 and bf16, with kernel / plain / bound times; then its split walk
@@ -192,10 +200,14 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    weights NaN; bf16 fp weights run the tensor-core kernel at all three
    (one ``tc_launches`` each for the forward and dx, none elsewhere), the
    int8 / int4 forwards at (a) the skinny route in bf16 (one
-   ``sk_launches`` each, none in fp32, at (b) or at (c)), and a second
+   ``sk_launches`` each, none in fp32, at (b) or at (c)), the int8 dx at
+   (a) and (b) the dx route in bf16 (one ``dx_launches`` each, none in
+   fp32 or at (c)), and a second
    launch at (a) and (b) must be bitwise equal to the first; kernel /
    plain / bound times at (a) and (b) with ``torch._grouped_mm``
-   as the yardstick of bf16 fp weights; bf16 fp weights at K 136, N 76
+   as the yardstick of bf16 fp weights (and, not a port path, on the
+   pre-dequantized stack's transpose beside the int8 dx); bf16 fp
+   weights at K 136, N 76
    (a width the 16-byte copies cannot take) on the CUDA-core kernel; then
    ``ServingPredictor`` on GPT-125M with 4 experts, top-2, and the phase-6
    requests in fp32: (i) capacity factor 4.0 against the full-forward
@@ -217,7 +229,9 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    forward: the
    grouped GEMM's device time and share); the eager 2-layer MoE model's
    gradients, kernel vs plain (4 dx launches), an input gradient through
-   int8 expert stacks and a bf16 one through the tensor-core dx; last, the
+   both layers' int8 expert stacks in fp32 (4 dx on ``gmm_kernel``) and in
+   bf16 on the fp32 drive's routing (4 on the dx route, ``BF16_GRAD_TOL``)
+   and a bf16 one through layer 0's fp stacks (the tensor-core dx); last, the
    attention routing: a 2-layer gpt3-760m-width model (head_dim 96) in fp32 and
    an fp64 GPT-125M forward (no kernel takes fp64) equal to the plain path's
    logits with no flash launch, and one d 96 ``gpt_spmd`` training step; bf16 d
@@ -873,6 +887,7 @@ def reset_counts():
     grouped_matmul.grouped_matmul_fwd.tc_launches = 0
     grouped_matmul.grouped_matmul_fwd.sk_launches = 0
     grouped_matmul.grouped_matmul_bwd.tc_launches = 0
+    grouped_matmul.grouped_matmul_bwd.dx_launches = 0
     mega_decode.mega_attn_layer.launches = 0
     mega_decode.mega_mlp.launches = 0
     for fn in (flash_attention_fwd, flash_attention_bwd):
@@ -2248,6 +2263,15 @@ def gmm_sk_count() -> int:
     return getattr(grouped_matmul_fwd, "sk_launches", 0)
 
 
+def gmm_dx_count() -> int:
+    """Grouped-GEMM dx launches on the dx route (int8 stacks,
+    ``gmm_dx_kernel``) since :func:`reset_counts` (0 for a package that has
+    none)."""
+    from paddle_tpu_torch.ops.grouped_matmul import grouped_matmul_bwd
+
+    return getattr(grouped_matmul_bwd, "dx_launches", 0)
+
+
 @contextlib.contextmanager
 def moe_twins():
     """Every grouped GEMM the MoE FFN runs takes its plain version (on the
@@ -2280,6 +2304,35 @@ def record_routes():
     moe.route_topk = recording
     try:
         yield seen
+    finally:
+        moe.route_topk = route
+
+
+@contextlib.contextmanager
+def replay_routes(seen):
+    """Every MoE layer run while the block is open takes the expert choices
+    ``seen`` (``idx [N, k]`` of :func:`record_routes`, in order, cycled):
+    the gates are the router's own probabilities at those choices,
+    renormalized, as ``route_topk`` makes them. Two runs in another dtype
+    then route alike."""
+    from paddle_tpu_torch.models import moe
+
+    route, at = moe.route_topk, [0]
+
+    def replaying(logits, top_k):
+        idx = seen[at[0] % len(seen)]
+        at[0] += 1
+        probs = torch.softmax(logits.float(), dim=-1)
+        raw = probs.gather(1, idx.long())
+        gates = raw / raw.sum(1, keepdim=True).clamp_min(1e-9)
+        masks = [torch.nn.functional.one_hot(
+            idx[:, j].long(), logits.shape[-1]).to(torch.float32)
+            for j in range(idx.shape[1])]
+        return gates, idx, probs, masks
+
+    moe.route_topk = replaying
+    try:
+        yield
     finally:
         moe.route_topk = route
 
@@ -2354,7 +2407,8 @@ def phase_gmm(dev, card):
     (one MoE layer's two GEMMs) at (a) the serving and (b) the prefill
     rows."""
     from paddle_tpu_torch.ops.grouped_matmul import (
-        grouped_matmul_bwd, grouped_matmul_dx_reference, grouped_matmul_fwd,
+        dequantize_grouped_weight, grouped_matmul_bwd,
+        grouped_matmul_dx_reference, grouped_matmul_fwd,
         grouped_matmul_reference)
 
     stats, notes = {}, {}
@@ -2374,7 +2428,8 @@ def phase_gmm(dev, card):
                                               dev, SEED + ci)
                 tag = (f"[moe] {fwd_name} {label} {str(dtype)[6:]} {name} "
                        f"({rows}) M {sum(counts)} {counts} x [{k}, {n}] g{g}")
-                tc0, sk0 = gmm_tc_counts(), gmm_sk_count()
+                tc0, sk0, dx0 = gmm_tc_counts(), gmm_sk_count(), \
+                    gmm_dx_count()
                 pairs = [(grouped_matmul_fwd(x, w, offs, sc),
                           grouped_matmul_reference(x, w, offs, sc))]
                 if bwd_name:
@@ -2398,6 +2453,14 @@ def phase_gmm(dev, card):
                 if gmm_sk_count() - sk0 != sk:
                     raise AssertionError(f"{tag}: skinny-route launches "
                                          f"{gmm_sk_count() - sk0}, want {sk}")
+                # the int8 dx at (a) and (b) takes the dx route in bf16 /
+                # fp16; fp32 and the odd widths (c) gmm_kernel
+                dxr = int(bits == 8 and rows != "c"
+                          and dtype != torch.float32)
+                if gmm_dx_count() - dx0 != dxr:
+                    raise AssertionError(f"{tag}: dx-route launches "
+                                         f"{gmm_dx_count() - dx0}, want "
+                                         f"{dxr}")
                 if rows != "c":   # a second launch gives the same bits
                     again = [grouped_matmul_fwd(x, w, offs, sc)] + (
                         [grouped_matmul_bwd(dy, w, offs, sc, k, dtype)]
@@ -2421,12 +2484,14 @@ def phase_gmm(dev, card):
                                          f"{GMM_TOL[dtype]}")
                 route = ("tensor cores" if tc else "skinny route" if sk
                          else "CUDA cores")
+                bwd_route = ("tensor cores" if tc else "dx route" if dxr
+                             else "CUDA cores")
                 # fp16 is timed at the serving rows (a), its rows'
                 # figures; (b) checked only
                 if rows == "c" or (rows == "b" and dtype == torch.float16):
                     log(f"{tag}: held fwd / dx {held} (tol "
-                        f"{GMM_TOL[dtype]}; {route}); NaN weights of the "
-                        "empty expert absent from the output")
+                        f"{GMM_TOL[dtype]}; {route} / {bwd_route}); NaN "
+                        "weights of the empty expert absent from the output")
                     continue
                 nbytes, nops = gmm_work(counts, k, n, bits,
                                         1 if sc is None else sc.shape[1],
@@ -2455,15 +2520,23 @@ def phase_gmm(dev, card):
                             dy, w, offs, sc, k, dtype), iters=it),
                         plain_ms=time_ms(lambda: grouped_matmul_dx_reference(
                             dy, w, offs, sc, k, dtype), iters=10),
-                        max_abs_err=errs[1], library_ms=lib)
+                        max_abs_err=errs[1], library_ms=lib, deq_ms=None)
                     notes[(bwd_name, dtype)] = why
+                    if bits == 8 and dtype != torch.float32:
+                        # a reference figure, not a port path: the grouped
+                        # product on the pre-dequantized stack's transpose
+                        wfp = dequantize_grouped_weight(w, sc, k=k,
+                                                        out_dtype=dtype)
+                        t[bwd_name]["deq_ms"] = grouped_mm_ms(
+                            dy, wfp.transpose(1, 2), offs, pairs[1][1])[0]
+                        del wfp
                 for kname, st in t.items():
                     key = (kname, label, dtype, rows)
                     tot = stats.setdefault(key, dict(
-                        ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-                        work=[0.0, 0.0]))
-                    for f in ("ms", "plain_ms", "library_ms"):
-                        tot[f] = (None if tot[f] is None or st[f] is None
+                        ms=0.0, plain_ms=0.0, library_ms=0.0, deq_ms=0.0,
+                        max_abs_err=0.0, work=[0.0, 0.0]))
+                    for f in ("ms", "plain_ms", "library_ms", "deq_ms"):
+                        tot[f] = (None if tot[f] is None or st.get(f) is None
                                   else tot[f] + st[f])
                     tot["max_abs_err"] = max(tot["max_abs_err"],
                                              st["max_abs_err"])
@@ -2471,8 +2544,7 @@ def phase_gmm(dev, card):
                                    tot["work"][1] + nops]
                     log(f"[moe] {kname} {label} {str(dtype)[6:]} {name} "
                         f"({rows}) M {sum(counts)} x [{k}, {n}] ("
-                        + (route if kname == fwd_name else
-                           "tensor cores" if tc else "CUDA cores")
+                        + (route if kname == fwd_name else bwd_route)
                         + ", repeat bitwise equal): held "
                         f"{held[0 if kname == fwd_name else 1]:.3e}; kernel "
                         f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f}, "
@@ -2497,7 +2569,10 @@ def phase_gmm(dev, card):
             f"{tot['bound_ms']:.6f} ({tot['bound_by']}: {nbytes / 1e6:.2f} MB"
             f", {nops / 1e9:.3f} GFLOP), library "
             + (f"{tot['library_ms']:.4f}" if tot["library_ms"] is not None
-               else f"null ({tot['library_note']})") + f" ({card})")
+               else f"null ({tot['library_note']})")
+            + (f"; torch._grouped_mm on the pre-dequantized stack's "
+               f"transpose (not a port path) {tot['deq_ms']:.4f}"
+               if tot["deq_ms"] is not None else "") + f" ({card})")
     # bf16 fp weights at a width the 16-byte copies cannot take: the
     # CUDA-core kernel, held like the rest
     k, n = GMM_OFF_COPIES
@@ -2918,9 +2993,11 @@ def phase_moe_grads(cfg, dev):
     """``loss.backward()`` through a 2-layer GPT-125M-width MoE model in
     fp32, the grouped-GEMM kernels against the plain versions for every
     gradient leaf (4 backward launches: two GEMMs a layer); then the input
-    gradient through the two layers' MoE FFNs with int8 expert stacks
-    (``ptt_gmm_q_bwd``), and the bf16 input gradient through layer 0's
-    MoE FFN (the tensor-core dx). Returns (fp, int8) backward launches."""
+    gradient through the two layers' MoE FFNs with int8 expert stacks in
+    fp32 (``ptt_gmm_q_bwd``, 4 launches) and in bf16 (the dx route, 4
+    launches; the fp32 drive's routing replayed), and the bf16 input
+    gradient through layer 0's MoE FFN with fp stacks (the tensor-core dx).
+    Returns (fp, int8) backward launches."""
     from dataclasses import replace
 
     from paddle_tpu_torch.inference.quantize import quantize_weight
@@ -2962,32 +3039,41 @@ def phase_moe_grads(cfg, dev):
         -1, cfg.hidden_size)
     r = torch.from_numpy(np.random.RandomState(SEED + 5).standard_normal(
         x0.shape).astype(np.float32)).to(dev)
-    dx = {}
+    dx, routes = {}, None
     for use_kernel in (None, False):
         x = x0.clone().requires_grad_()
-        y = x
         reset_counts()
-        for m, (q1, q2) in zip(layers, quant):
-            out, _ = moe_ffn(torch.nn.functional.layer_norm(y, y.shape[-1:]),
-                             m.gate_weight.detach(), q1, m.b1.detach(), q2,
-                             m.b2.detach(), top_k=cfg.moe_top_k,
-                             capacity_factor=cfg.moe_capacity_factor,
-                             use_kernel=use_kernel)
-            y = y + out
-        (y * r).sum().backward()
+        with record_routes() as seen:
+            (int8_drive(x, layers, quant, cfg, use_kernel) * r).sum(
+            ).backward()
         torch.cuda.synchronize()
         if use_kernel is None:
-            counts = gmm_counts()
+            counts, routes, n_dx = gmm_counts(), seen, gmm_dx_count()
         dx[use_kernel] = x.grad
     err = ((dx[None] - dx[False]).abs().max()
            / dx[False].abs().max()).item()
     log(f"[moe] input gradient through 2 layers of int8 expert stacks "
         f"({list(x0.shape)}, fp32): kernel vs plain {err:.3e} of its max "
-        f"|grad| (tol {GRAD_TOL}); launches {counts}")
-    if counts["int8_bwd"] != 4 or counts["int8"] != 4 or not err <= GRAD_TOL:
+        f"|grad| (tol {GRAD_TOL}); launches {counts}, on the dx route "
+        f"{n_dx}")
+    if (counts["int8_bwd"] != 4 or counts["int8"] != 4 or n_dx
+            or not err <= GRAD_TOL):
         raise AssertionError(f"int8 MoE input gradient: launches {counts}, "
-                             f"error {err}")
+                             f"dx route {n_dx}, error {err}")
     int8_bwd = counts["int8_bwd"]
+    # bf16: the same input gradient through int8 stacks quantized from the
+    # bf16 weights, the fp32 drive's routing replayed in both runs: dx on
+    # the dx route against the plain version
+    err, counts, n_dx = bf16_int8_drive(x0, r, layers, cfg, routes)
+    log(f"[moe] bf16 input gradient through 2 layers of int8 expert stacks "
+        f"({list(x0.shape)}; the fp32 drive's routing): kernel vs plain "
+        f"{err:.3e} of its max |grad| (tol {BF16_GRAD_TOL}); launches "
+        f"{counts}, on the dx route {n_dx}")
+    if (counts["int8_bwd"] != 4 or n_dx != 4
+            or not err <= BF16_GRAD_TOL):
+        raise AssertionError(f"bf16 int8 MoE input gradient: launches "
+                             f"{counts}, dx route {n_dx}, error {err}")
+    int8_bwd += counts["int8_bwd"]
     # bf16: the input gradient through layer 0's MoE FFN (its weights in
     # bf16; the routes are the same in both runs, computed from the same
     # x): dx through the tensor-core kernel against the plain version
@@ -3013,6 +3099,52 @@ def phase_moe_grads(cfg, dev):
         raise AssertionError(f"bf16 MoE input gradient: launches {counts}, "
                              f"tensor-core {tc}, error {err}")
     return 4 + tc[1], int8_bwd
+
+
+def int8_drive(x, layers, quant, cfg, use_kernel):
+    """``x`` through the MoE FFNs of ``layers`` (pre-LN residual blocks)
+    with the int8 stacks ``quant`` [(w1, w2), ...], in ``x``'s dtype (the
+    gate and biases cast to it); returns the output in fp32."""
+    from paddle_tpu_torch.models.moe import moe_ffn
+
+    y = x
+    for m, (q1, q2) in zip(layers, quant):
+        out, _ = moe_ffn(torch.nn.functional.layer_norm(y, y.shape[-1:]),
+                         m.gate_weight.detach().to(x.dtype), q1,
+                         m.b1.detach().to(x.dtype), q2,
+                         m.b2.detach().to(x.dtype), top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         use_kernel=use_kernel)
+        y = y + out
+    return y.float()
+
+
+def bf16_int8_drive(x0, r, layers, cfg, routes):
+    """The bf16 input gradient of ``(y * r).sum()`` through ``layers``' MoE
+    FFNs with int8 stacks quantized from their bf16 weights, kernel route
+    against ``use_kernel=False``, both on the expert choices ``routes``:
+    (error over the plain gradient's max, grouped-GEMM launches of the
+    kernel run, its dx-route launches)."""
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+
+    bf16 = torch.bfloat16
+    quant = [(quantize_weight(m.w1.detach().to(bf16), "int8"),
+              quantize_weight(m.w2.detach().to(bf16), "int8"))
+             for m in layers]
+    dx = {}
+    for use_kernel in (None, False):
+        x = x0.to(bf16).requires_grad_()
+        reset_counts()
+        with replay_routes(routes):
+            (int8_drive(x, layers, quant, cfg, use_kernel) * r).sum(
+            ).backward()
+        torch.cuda.synchronize()
+        if use_kernel is None:
+            counts, n_dx = gmm_counts(), gmm_dx_count()
+        dx[use_kernel] = x.grad.float()
+    err = ((dx[None] - dx[False]).abs().max()
+           / dx[False].abs().max()).item()
+    return err, counts, n_dx
 
 
 def phase_attention_routing(dev):
@@ -5547,19 +5679,21 @@ def f16_grad_drives(model, cfg, dev):
             torch.cuda.synchronize()
             if use_kernel is None:
                 counts, tc = gmm_counts(), gmm_tc_counts()
-                routes = twin_route_count() - n0
+                routes, n_dx = twin_route_count() - n0, gmm_dx_count()
             dx[use_kernel] = x.grad.float()
         err = ((dx[None] - dx[False]).abs().max()
                / dx[False].abs().max()).item()
         log(f"[fp16] input gradient through layer 0's MoE FFN ({kind} "
             f"expert stacks, {list(x0.shape)}): kernel vs plain {err:.3e} of "
             f"its max |grad| (tol {F16_DRIVE_TOL}); launches {counts}, "
-            f"tensor-core {tc}, twin routes {routes}")
+            f"tensor-core {tc}, dx route {n_dx}, twin routes {routes}")
         if (routes or not err <= F16_DRIVE_TOL
                 or counts[f"{kind}_bwd"] != 2
+                or n_dx != (2 if kind == "int8" else 0)
                 or (kind == "fp" and tc != [2, 2])):
             raise AssertionError(f"fp16 MoE {kind} input gradient: {err}, "
-                                 f"launches {counts}, tc {tc}")
+                                 f"launches {counts}, tc {tc}, dx route "
+                                 f"{n_dx}")
         n[f"gmm_{kind}_bwd"] = counts[f"{kind}_bwd"]
     del moe
     return n
@@ -5739,40 +5873,47 @@ DX_SWEEP_PER = (1, 2, 3, 4, 6, 8, 12)
 
 
 def dx_backward_profile(params, cfg, dev, card, tag):
-    """The input-gradient drive's backward once under ``torch.profiler``
-    (after a warm-up drive; the forward outside the window): device time
-    of its weight-only GEMM dx kernels (``qmm_dx_kernel``, or
-    ``qmm_kernel<.., true>`` where the package has no dx route) and of the
-    whole backward, and the dx launches; None when the trace holds no
-    device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """The input-gradient drive's backward profiled by
+    :func:`backward_profile`: its weight-only GEMM dx kernels
+    (``qmm_dx_kernel``, or ``qmm_kernel<.., true>`` where the package has
+    no dx route)."""
     from paddle_tpu_torch.ops.quant_matmul import quant_matmul
 
     ids = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
         0, cfg.vocab_size, 257)).to(dev)
-    for timed_run in (False, True):
+
+    def loss_fn():
         x = embed(params, ids[:-1]).detach().requires_grad_()
-        loss = torch.nn.functional.cross_entropy(
+        return torch.nn.functional.cross_entropy(
             quant_forward(params, x, cfg, False, quant_matmul).float(),
             ids[1:])
+
+    return backward_profile(
+        loss_fn, r"qmm_dx_kernel|qmm_kernel<[^>]*, true>", card, tag)
+
+
+def backward_profile(loss_fn, pattern, card, tag):
+    """One backward of ``loss_fn()`` (a warm-up drive first; the forward
+    outside the window) under ``torch.profiler``: device time of the
+    kernels whose names match ``pattern``, their count and the whole
+    backward's device time; None when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss_fn().backward()
+    loss = loss_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
         torch.cuda.synchronize()
-        if not timed_run:
-            loss.backward()
-            continue
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            loss.backward()
-            torch.cuda.synchronize()
     dx_us = all_us = 0.0
     n = 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
             continue
         all_us += ev.duration_ns() / 1e3
-        if ("qmm_dx_kernel" in ev.name()
-                or re.search(r"qmm_kernel<[^>]*, true>", ev.name())):
+        if re.search(pattern, ev.name()):
             dx_us += ev.duration_ns() / 1e3
             n += 1
     if all_us <= 0:
@@ -5957,29 +6098,40 @@ def mlp_gemms_only(root: Path) -> int:
     return 0
 
 
-def gmm_pair(wd, gs, dtype, dev):
-    """w1 + w2 of one MoE layer at the serving rows (a): the summed kernel
-    time, the bound and the route the package's plan took (``"sk"``,
-    ``"tc"`` or ``"cc"``)."""
-    from paddle_tpu_torch.ops.grouped_matmul import grouped_matmul_fwd
+def gmm_pair(wd, gs, dtype, dev, counts=GMM_ROWS, bwd=False):
+    """w1 + w2 of one MoE layer at ``counts`` rows (default the serving rows
+    (a)), forward or dx (``bwd``): the summed kernel time, each GEMM's, the
+    bound, the route the package's plan took (``"sk"``, ``"dx"``, ``"tc"``
+    or ``"cc"``) and a digest of the two outputs' bytes (equal digests:
+    bitwise-equal outputs)."""
+    import hashlib
+
+    from paddle_tpu_torch.ops.grouped_matmul import (grouped_matmul_bwd,
+                                                     grouped_matmul_fwd)
 
     bits = 0 if wd is None else int(wd[3:])
-    ms, work, routes = 0.0, [0.0, 0.0], set()
+    ms, work, routes, each, h = 0.0, [0.0, 0.0], set(), [], hashlib.sha1()
     for ci, (k, n) in enumerate(GMM_SHAPES.values()):
-        x, _, w, sc, offs = gmm_case(GMM_ROWS, k, n, wd, gs, dtype, dev,
-                                     SEED + ci)
-        tc0, sk0 = gmm_tc_counts()[0], gmm_sk_count()
-        grouped_matmul_fwd(x, w, offs, sc)
-        torch.cuda.synchronize()
+        x, dy, w, sc, offs = gmm_case(counts, k, n, wd, gs, dtype, dev,
+                                      SEED + ci)
+        if bwd:
+            fn = lambda: grouped_matmul_bwd(  # noqa: E731
+                dy, w, offs, sc, k, dtype)
+        else:
+            fn = lambda: grouped_matmul_fwd(x, w, offs, sc)  # noqa: E731
+        tc0, sk0, dx0 = gmm_tc_counts(), gmm_sk_count(), gmm_dx_count()
+        h.update(fn().float().cpu().numpy().tobytes())
         routes.add("sk" if gmm_sk_count() > sk0 else
-                   "tc" if gmm_tc_counts()[0] > tc0 else "cc")
-        ms += time_ms(lambda: grouped_matmul_fwd(x, w, offs, sc))
-        nbytes, nops = gmm_work(GMM_ROWS, k, n, bits,
+                   "dx" if gmm_dx_count() > dx0 else
+                   "tc" if gmm_tc_counts() != tc0 else "cc")
+        each.append(time_ms(fn, iters=50 if counts is GMM_ROWS else 10))
+        ms += each[-1]
+        nbytes, nops = gmm_work(counts, k, n, bits,
                                 1 if sc is None else sc.shape[1],
                                 x.element_size())
         work = [work[0] + nbytes, work[1] + nops]
-    return dict(ms=ms, bound_ms=bound_ms(*work, dtype),
-                route="/".join(sorted(routes)))
+    return dict(ms=ms, each=each, bound_ms=bound_ms(*work, dtype),
+                route="/".join(sorted(routes)), digest=h.hexdigest()[:16])
 
 
 def moe_gemms_only(root: Path) -> int:
@@ -6064,6 +6216,118 @@ def moe_gemms_only(root: Path) -> int:
     print(json.dumps({"moe_gemms": dict(
         package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
         rows=rows, serve=steps)}), flush=True)
+    return 0
+
+
+# --ab moe-dx: the dx route's split plans swept at the serving rows (a)
+# (stages of N a split forced into the plan, 48: one split for w1's N; the
+# plan's own choice is timed beside them)
+GMM_DX_SWEEP_PER = (1, 2, 3, 4, 6, 8, 12, 48)
+
+
+def moe_dx_only(root: Path) -> int:
+    """``--ab moe-dx [ROOT]``: row 19 (the grouped GEMM's dx with int8
+    expert stacks, per channel and g128, w1 + w2 at the serving rows (a)
+    and the prefill rows (b), fp32, bf16 and fp16, each GEMM's time and a
+    digest of the outputs); the controls row 16 (the int8 forward at (a) in
+    bf16 and fp16) and rows 11 and 12 (the weight-only GEMM's int8 and int4
+    g128 dx, four GEMMs at M 24), with digests; where ROOT's package has the
+    dx route, its split plans swept (``GMM_DX_SWEEP_PER`` stages a split,
+    bf16 at (a)); then the bf16 input-gradient drives of phase 11 (the
+    2-layer GPT-125M-width MoE model, [256, 768]: through both layers' int8
+    stacks, and through layer 0's fp stacks, row 18): the dx kernels'
+    device time in one profiled backward each; all with the
+    ``paddle_tpu_torch`` package of the checkout at ``ROOT`` (default: this
+    one). Prints one JSON line; run it with two trees in turns to compare
+    them on one card."""
+    sys.path.insert(0, str(root))
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference.quantize import quantize_weight
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.models.moe import moe_ffn
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    bf16 = torch.bfloat16
+    rows = {}
+    for gs in (-1, 128):
+        for dtype in DTYPES:
+            for label, counts in (("a", GMM_ROWS), ("b", GMM_PREFILL)):
+                rows[f"19 dx int8 g{gs} ({label}) {str(dtype)[6:]}"] = \
+                    gmm_pair("int8", gs, dtype, dev, counts, bwd=True)
+    for dtype in (bf16, torch.float16):
+        t = str(dtype)[6:]
+        rows[f"16 fwd int8 (a) {t}"] = gmm_pair("int8", -1, dtype, dev)
+        for bits, gs in ((8, -1), (4, 128)):
+            rows[f"{11 if bits == 8 else 12} dx int{bits} g{gs} M "
+                 f"{QMM_ROWS} {t}"] = qmm_four(bits, gs, dtype, dev,
+                                               bwd=True, digest=True)
+    for label, st in rows.items():
+        log(f"[moe-dx] row {label}: ms {st['ms']:.4f} (each " + ", ".join(
+            f"{v:.4f}" for v in st["each"]) + f"), bound "
+            f"{st['bound_ms']:.6f}"
+            + (f", route {st['route']}" if "route" in st else "")
+            + f", digest {st['digest']} ({card})")
+    sweep = {}
+    if hasattr(gm.grouped_matmul_bwd, "dx_launches"):
+        plan = gm._plan
+        for per in GMM_DX_SWEEP_PER:
+            def forced(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1,
+                       per=per):
+                p = plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups)
+                if p.route != "dx":
+                    return p
+                stages = -(-n // gm.DX_STAGE)
+                return p._replace(splits=-(-stages // min(per, stages)),
+                                  per=min(per, stages))
+            gm._plan = forced
+            try:
+                for gs in (-1, 128):
+                    st = gmm_pair("int8", gs, bf16, dev, bwd=True)
+                    sweep[f"int8 g{gs} (a) per {per}"] = st
+                    log(f"[moe-dx] sweep int8 g{gs} bf16 (a), {per} stages "
+                        f"a split: ms {st['ms']:.4f} (each " + ", ".join(
+                            f"{v:.4f}" for v in st["each"]) + f") ({card})")
+            finally:
+                gm._plan = plan
+    cfg = replace(GPT_CONFIGS["gpt3-125m"], **MOE, num_layers=2,
+                  moe_capacity_factor=1.25)
+    layers = [layer.mlp for layer in moe_model(cfg, dev).gpt.layers]
+    rng = np.random.RandomState(SEED + 4)
+    x0 = torch.from_numpy(rng.standard_normal((256, cfg.hidden_size)).astype(
+        np.float32)).to(dev, bf16)
+    r = torch.from_numpy(rng.standard_normal(x0.shape).astype(
+        np.float32)).to(dev)
+    quant = [(quantize_weight(m.w1.detach().to(bf16), "int8"),
+              quantize_weight(m.w2.detach().to(bf16), "int8"))
+             for m in layers]
+    m0 = layers[0]
+
+    def int8_loss():
+        x = x0.clone().requires_grad_()
+        return (int8_drive(x, layers, quant, cfg, None) * r).sum()
+
+    def fp_loss():
+        x = x0.clone().requires_grad_()
+        out, _ = moe_ffn(x, *(t.detach().to(bf16) for t in (
+            m0.gate_weight, m0.w1, m0.b1, m0.w2, m0.b2)),
+            top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+        return (out.float() * r).sum()
+
+    drive = {
+        "int8, 2 layers": backward_profile(
+            int8_loss, r"gmm_dx_kernel|gmm_kernel<[^>]*, 8, true>", card,
+            "[moe-dx] bf16 int8 drive (2 layers)"),
+        "fp, layer 0 (row 18)": backward_profile(
+            fp_loss, r"gmm_(tc|wg)_kernel<[^>]*, true>", card,
+            "[moe-dx] bf16 fp drive (layer 0)")}
+    print(json.dumps({"moe_dx": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        rows=rows, sweep=sweep, drive=drive)}), flush=True)
     return 0
 
 
@@ -6457,7 +6721,7 @@ def main() -> int:
              "paged-walks": paged_walks_only, "mlp-gemms": mlp_gemms_only,
              "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
              "flash": flash_ab_only, "ln-bwd": ln_bwd_only,
-             "qmm-dx": qmm_dx_only}
+             "qmm-dx": qmm_dx_only, "moe-dx": moe_dx_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -6522,6 +6786,15 @@ def main() -> int:
         "spills")
     if len(dx) != 4 or spilled:
         raise AssertionError(f"qmm_dx_kernel: {dx}")
+    gdx = [line for line in ptxas_summary("grouped_matmul",
+                                          logs["grouped_matmul"])
+           if "gmm_dx_kernel" in line]
+    spilled = [line for line in gdx
+               if re.search(r"[1-9]\d* bytes spill", line)]
+    log(f"[build] gmm_dx_kernel: {len(gdx)} instances, {len(spilled)} with "
+        "spills")
+    if len(gdx) != 2 or spilled:
+        raise AssertionError(f"gmm_dx_kernel: {gdx}")
     g = RAGGED_GEOM
     log(f"[build] dynamic shared memory per block: ragged_paged_attention "
         f"{ragged_smem(g['chunk'] * g['hq'] // g['hkv'], g['d'])} B"
@@ -6891,6 +7164,25 @@ def main() -> int:
                                  f" a step (grouped GEMM "
                                  f"{served['gmm_ms']:.4f})"
                                  if "busy_ms" in served else ""))
+        if kname == "gmm_q_bwd":
+            g = gmm[(kname, "int8 g128", bf16, "a")]
+            a16 = gmm[(kname, label, bf16, "a")]
+            row["prefill_shape"] = dict(
+                rows=GMM_PREFILL, dtype="bf16",
+                **{k: pre[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")})
+            extra = (f"; int8 g128: ms {g['ms']:.4f}, bound_ms "
+                     f"{g['bound_ms']:.6f}; bf16 on the dx route "
+                     "(gmm_dx_kernel, the dx tile of csrc/dx_tile.cuh) at "
+                     "the serving and the prefill rows, fp32 on gmm_kernel"
+                     "; torch._grouped_mm on the pre-dequantized stack's "
+                     "transpose (not a port path): "
+                     + " / ".join("null" if v is None else f"{v:.4f}"
+                                  for v in (a16["deq_ms"], pre["deq_ms"]))
+                     + " ms at the serving / prefill rows; launches: the "
+                     "fp32 drive's 4 on gmm_kernel and the bf16 drive's 4 "
+                     "on the dx route")
         if kname in ("gmm", "gmm_bwd"):
             row["prefill_shape"] = dict(
                 rows=GMM_PREFILL, dtype="bf16",
@@ -6988,7 +7280,8 @@ def main() -> int:
             ("int8", "gmm_q", "int8", "tensor cores: gmm_sk_kernel"),
             ("int4", "gmm_q4", "int4 g128", "tensor cores: gmm_sk_kernel"),
             ("fp_bwd", "gmm_bwd", "fp", "tensor cores: gmm_tc_kernel dx"),
-            ("int8_bwd", "gmm_q_bwd", "int8", "CUDA cores: gmm_kernel"))},
+            ("int8_bwd", "gmm_q_bwd", "int8", "tensor cores: gmm_dx_kernel "
+             "(the dx tile, mma.sync, dequantized in registers)"))},
         **{f"flash_attention_{part}_{branch}": (
             branches[(key, f16)][part], branches[(key, bf16)][part],
             "tensor cores: mma.sync", n16[f"{key}_{part}"])

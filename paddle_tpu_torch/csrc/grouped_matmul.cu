@@ -11,9 +11,10 @@
 // (int4, ptt_gmm_q4), ::_gmm_bwd_kernel (fp dx, ptt_gmm_bwd) and
 // ::_gmm_q_bwd_kernel (int8 dx, ptt_gmm_q_bwd); gmm_tc_kernel and
 // gmm_wg_kernel take the bf16 / fp16 fp-weight forward (ptt_gmm_tc) and dx
-// (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores, and
+// (ptt_gmm_bwd_tc) of the first and the fourth on the tensor cores,
 // gmm_sk_kernel the int8 / int4 forward of the second and the third at the
-// serving rows (ptt_gmm_sk, the skinny route). A
+// serving rows (ptt_gmm_sk, the skinny route), and gmm_dx_kernel the bf16 /
+// fp16 dx of the fifth at any rows (ptt_gmm_dx_tc, the dx route). A
 // quantized element dequantizes as q * s[g] rounded to the activation
 // type (common.cuh deq, the Pallas kernels widen both to x.dtype and
 // multiply there), g the scale group of its ORIGINAL in-dim row; fp
@@ -34,19 +35,19 @@
 // offsets[E - 1] on to expert E - 1, everything clamped into [0, M].
 //
 // gmm_kernel<T, bits, bwd> (ptt_gmm, _q, _q4, _bwd, _q_bwd): fp32 activations
-// with fp32 weights, the int8 / int4 stacks the skinny route below does not
-// take (fp32 activations, the dx, prefill rows, odd widths, unaligned
+// with fp32 weights, the int8 / int4 stacks the skinny and dx routes below do
+// not take (fp32 activations, the prefill rows' forward, odd widths, unaligned
 // pointers), and the bf16 fp-weight calls the copies below cannot take (K or N
 // not a multiple of 8, a pointer not 16-byte aligned). The weight-only GEMM of
 // csrc/quant_matmul.cu per row tile of 32: each weight tile read once per 32
 // rows with 16-byte loads (the next stage in flight in registers), dequantized
 // into fp32 shared memory, a 32 x 64 register-tiled fp32 FMA product on the
 // CUDA cores. At the serving shape (a) (48 routed rows over 4 experts, one
-// empty; w1 768 x 3072, w2 3072 x 768) it is bound by bytes: each live expert's
-// weights read once (9.4 MB fp32 per GEMM for 3 live experts, ~3 us at 3.35
-// TB/s, against ~0.2 GFLOP); at prefill (b) (4,096 rows) by operations: ~19
-// GFLOP per GEMM, ~0.3 ms at the fp32 CUDA-core peak of 67 TFLOP/s. fp32
-// stays here because tensor cores would make it TF32.
+// empty; w1 768 x 3072, w2 3072 x 768) it is bound by bytes: each live
+// expert's weights read once (9.4 MB fp32 per GEMM for 3 live experts, ~3 us
+// at 3.35 TB/s, against ~0.2 GFLOP); at prefill (b) (4,096 rows) by
+// operations: ~19 GFLOP per GEMM, ~0.3 ms at the fp32 CUDA-core peak of 67
+// TFLOP/s. fp32 stays here because tensor cores would make it TF32.
 //
 // gmm_tc_kernel<T, bwd> and gmm_wg_kernel<T, bwd> (ptt_gmm_tc,
 // ptt_gmm_bwd_tc): bf16 or fp16 activations T with fp weights of the same
@@ -76,8 +77,8 @@
 //   mma.sync 128 x 128 tile of 8 warps ran slower at (b), and a wgmma
 //   group kept in flight across the next barrier, 3 to 5 stages, was no
 //   faster.)
-// The prefill rows of int8 / int4 stacks still run gmm_kernel; the same
-// ring could take dequantized bf16 tiles of them.
+// The prefill rows' forward of int8 / int4 stacks still runs gmm_kernel;
+// the same ring could take dequantized bf16 tiles of them.
 //
 // gmm_sk_kernel<T, bits> (ptt_gmm_sk): the bf16 / fp16 int8 and split-half
 // int4 forward at the serving rows (ceil(M / E) <= 64), K (int4: K / 2) a
@@ -97,11 +98,30 @@
 // 8.3 MB). fp32 stays on gmm_kernel, which an H100 ran faster there than
 // this tile's CUDA-core branch.
 //
-// Split reductions (all four kernels): few live tiles at decode split the
+// gmm_dx_kernel<T> (ptt_gmm_dx_tc): the bf16 / fp16 dx of int8 stacks at any
+// rows, K a multiple of 64, N of 16, scale groups of 16k rows, dy / W /
+// scales / dx 16-byte aligned (_plan route "dx"). A block is (64 stored rows
+// = 64 dx columns of one expert's stack, a row tile of up to 64 rows of that
+// expert, a split of N): bind_tile at 64 rows, then the dx tile of
+// dx_tile.cuh (the weight-only GEMM's, qmm_dx_kernel) over the expert's
+// [K, N] stripe, its scale rows and the tile's dy rows: W the A operand of
+// mma.sync with no transpose, each byte dequantized in registers with its
+// own n's scale (q * T(s), rounded once), dy's n-slices and the stripe
+// streamed through the 96 KB cp.async ring. At the serving rows (a) it is
+// bound by bytes (as gmm_sk_kernel: 14.9 MB for w1 + w2 of 3 live experts);
+// N is split DX_PER stages a split while the grid keeps half to two blocks
+// an SM. At the prefill rows (b) (~67 row tiles) no split: each 64-row tile
+// walks all of N and an expert's stripe is re-read from L2 by its tiles; it
+// is bound by operations there (38.7 GFLOP for w1 + w2, 39 us at 989
+// TFLOP/s), and mma.sync on 4-warp blocks does not reach that rate (a
+// wgmma tile would).
+//
+// Split reductions (all five kernels): few live tiles at decode split the
 // reduction across blocks; the LAST block of a tile to arrive (an arrival
 // counter it resets) sums the fp32 partials in split order: deterministic,
 // no float atomics.
 #include "common.cuh"
+#include "dx_tile.cuh"
 #include "skinny_gemm.cuh"
 
 #include <cstdint>
@@ -871,6 +891,54 @@ int launch_sk(const SkArgs& p, int tiles, int device, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core dx of int8 stacks: dx_tile.cuh, tiles bound to experts
+
+struct DxArgs {
+  const void* dy;      // [M, N], T
+  const void* w;       // [E, K, N] int8
+  const float* s;      // [E, G, N]
+  const int* offs;     // [E + 1] row offsets of the experts
+  void* out;           // dx [M, K], T
+  float* ws;           // [splits, M, K] fp32 partials when splits > 1
+  int* counters;       // one arrival count per output tile, zero on entry
+  int M, K, N, E, G, splits, per;
+};
+
+// T, the activations: bf16 or fp16. Block (x, y, z): stored rows [64 x, 64
+// x + 64) of its expert's stack (dx columns), row tile y of 64 rows bound to
+// its expert on the device, the n stages [z per, z per + per) of 64
+// columns: one tile of dx_tile.cuh over the expert's stack, scale rows and
+// rows only. A dead tile (past the last live one) returns before any load
+// and touches no counter, so experts without rows read nothing.
+template <typename T>
+__global__ void __launch_bounds__(ptt::dx::kThreads)
+gmm_dx_kernel(const DxArgs p) {
+  namespace sk = ptt::sk;
+  namespace dx = ptt::dx;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ int bind[3];
+  if (threadIdx.x == 0) bind_tile(p.offs, p.E, p.M, sk::RP, blockIdx.y, bind);
+  __syncthreads();
+  const int ex = bind[0];
+  if (ex < 0) return;  // a dead tile: no weight bytes, no counter
+  const int m0 = bind[1];
+  const int8_t* w = static_cast<const int8_t*>(p.w) + (long)ex * p.K * p.N;
+  const dx::Tile t{p.dy, w, p.s + (long)ex * p.G * p.N, p.out, p.ws,
+                   p.counters, p.M, p.K, p.N, p.G, p.splits, p.per};
+  dx::run<T, int8_t>(ring, t, blockIdx.x * dx::kRows, m0, bind[2] - m0,
+                     blockIdx.z);
+}
+
+template <typename T>
+int launch_dx(const DxArgs& p, int tiles, int device, cudaStream_t st) {
+  namespace dx = ptt::dx;
+  cudaError_t err = ptt::allow_smem<gmm_dx_kernel<T>>(device, dx::kRing);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(p.K / dx::kRows, tiles, p.splits);
+  gmm_dx_kernel<T><<<grid, dx::kThreads, dx::kRing, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -958,6 +1026,39 @@ int ptt_gmm_sk(const void* x, const void* w, const void* s, const void* offs,
                      : launch_sk<__half, 4>(p, tiles, device, st);
   return bits == 8 ? launch_sk<__nv_bfloat16, 8>(p, tiles, device, st)
                    : launch_sk<__nv_bfloat16, 4>(p, tiles, device, st);
+}
+
+// The tensor-core dx of int8 stacks: dy [M, N], w [E, K, N] int8, s [E, G,
+// N] fp32, offs [E + 1], out dx [M, K]; ws [splits, M, K] fp32 (unused when
+// splits == 1); counters: one int per output tile (tiles x K / 64), all
+// zero. K a multiple of 64, N of 16, K / G of 16; dy, w, s, out 16-byte
+// aligned; tiles: grid rows, at least the live 64-row tiles; each block
+// reduces `per` 64-column stages of N of its split. dtype: 1 = bf16, 2 =
+// fp16 (dy and out).
+int ptt_gmm_dx_tc(const void* dy, const void* w, const void* s,
+                  const void* offs, void* out, void* ws, void* counters,
+                  int M, int K, int N, int E, int G, int tiles, int splits,
+                  int per, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int nst = (N + ptt::sk::KS - 1) / ptt::sk::KS;
+  if ((dtype != 1 && dtype != 2) || M < 1 || E < 1 || K < 1 ||
+      K % ptt::dx::kRows || N < 16 || N % 16 || G < 1 || K % G ||
+      (K / G) % 16 || tiles < 1 || splits < 1 || per < 1 ||
+      (long)(splits - 1) * per >= nst || (long)splits * per < nst ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (misaligned(dy) || misaligned(w) || misaligned(s) || misaligned(out))
+    return (int)cudaErrorMisalignedAddress;
+  const DxArgs p{dy, w, static_cast<const float*>(s),
+                 static_cast<const int*>(offs), out, static_cast<float*>(ws),
+                 static_cast<int*>(counters), M, K, N, E, G, splits, per};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 2 ? launch_dx<__half>(p, tiles, device, st)
+                    : launch_dx<__nv_bfloat16>(p, tiles, device, st);
 }
 
 }  // extern "C"

@@ -19,8 +19,12 @@ and N multiples of 8 and 16-byte aligned pointers take the tensor-core kernel
 (``"tc"``, ``ptt_gmm_tc`` / ``ptt_gmm_bwd_tc``; counted apart in
 ``.tc_launches``); the bf16 / fp16 int8 / int4 forward at the serving rows on
 whole 16-byte chunks the skinny route (``"sk"``, ``ptt_gmm_sk``; counted apart
-in ``.sk_launches``); everything else (fp32 activations, quantized dx
-and prefill rows, other widths) the CUDA-core kernel (``"cc"``). :func:`grouped_matmul` is
+in ``.sk_launches``); the bf16 / fp16 int8 dx at any rows on whole chunks the
+dx route (``"dx"``, ``ptt_gmm_dx_tc``: the weight-only GEMM's dx tile with
+each row tile bound to an expert; counted apart in
+``grouped_matmul_bwd.dx_launches``); everything else (fp32 activations, the
+quantized prefill rows' forward, other widths) the CUDA-core kernel
+(``"cc"``). :func:`grouped_matmul` is
 differentiable on both: one custom op (``paddle_tpu_torch::grouped_matmul``)
 whose backward gives ``dx`` through the backward kernel and, for float
 weights, ``dw[e] = x_e^T dy_e`` as a plain matmul over each expert's rows
@@ -40,7 +44,8 @@ import torch
 
 from . import _build
 from ._build import kernel_takes  # noqa: F401 (the family's predicate)
-from .quant_matmul import _TC_DTYPES, _norm_scales, dequantize_weight
+from .quant_matmul import (_TC_DTYPES, _norm_scales, dequantize_weight,
+                           dx_split)
 
 _KERNEL = "grouped_matmul"
 _P = ctypes.c_void_p
@@ -50,7 +55,8 @@ _TC_ENTRY = [_P] * 6 + [_I] * 10 + [_P]
 _SIGNATURES = {name: _ENTRY for name in ("ptt_gmm", "ptt_gmm_q", "ptt_gmm_q4",
                                          "ptt_gmm_bwd", "ptt_gmm_q_bwd",
                                          "ptt_gmm_sk")}
-_SIGNATURES.update(ptt_gmm_tc=_TC_ENTRY, ptt_gmm_bwd_tc=_TC_ENTRY)
+_SIGNATURES.update(ptt_gmm_tc=_TC_ENTRY, ptt_gmm_bwd_tc=_TC_ENTRY,
+                   ptt_gmm_dx_tc=[_P] * 7 + [_I] * 10 + [_P])
 # the CUDA-core kernel's tiles (csrc/grouped_matmul.cu gmm_kernel): 32 rows
 # of one expert x 64 output columns a block, 64 reduction indices a stage
 # (32 stored rows of packed int4)
@@ -81,6 +87,12 @@ SERVING_ROWS = 64
 # / 0.0415 (PERF.md §6)
 SK_ROWS, SK_COLS, SK_STAGE = 64, 64, 64
 SK_BLOCKS_PER_SM = 2
+# the dx route (gmm_dx_kernel, csrc/dx_tile.cuh): DX_COLS stored rows of an
+# expert's int8 stack (dx columns) x a row tile of up to DX_ROWS rows of that
+# expert a block, the reduction over N in stages of DX_STAGE columns, split
+# by quant_matmul.dx_split (DX_PER stages a split while the grid keeps
+# between half an SM and two blocks an SM)
+DX_ROWS, DX_COLS, DX_STAGE = 64, 64, 64
 
 
 # ---------------------------------------------------------------------------
@@ -233,9 +245,9 @@ def grouped_matmul_dw(x, dy, group_offsets, e: int, w_dtype):
 
 class Plan(NamedTuple):
     """One launch: the kernel (``"tc"`` tensor cores / ``"sk"`` the
-    skinny route / ``"cc"`` CUDA cores), the tc tile family (None
-    otherwise), rows a tile, grid rows, column tiles, splits of the
-    reduction and stages per split."""
+    skinny route / ``"dx"`` the dx route / ``"cc"`` CUDA cores), the tc
+    tile family (None otherwise), rows a tile, grid rows, column tiles,
+    splits of the reduction and stages per split."""
     route: str
     tile: Optional[str]
     bm: int
@@ -274,8 +286,24 @@ def _plan(m, e, k, n, bits, bwd, dtype, aligned, sms, groups=1) -> Plan:
     the CUDA-core kernel's 0.0812 / 0.0832) and fp16 with it (the same
     tile, bytes and tensor-core rate), fp32 to the CUDA-core kernel
     (0.0736 ms against 0.0957 on the skinny tile's FMA branch, which is
-    therefore not built)."""
+    therefore not built).
+
+    The int8 dx takes the dx route when ``dtype`` is bf16 or fp16, K is a
+    multiple of ``DX_COLS``, N of 16 and the scale groups of 16 rows, and
+    the pointers are aligned, at any rows (serving or prefill): column
+    tiles of ``DX_COLS`` dx columns, grid rows over every live
+    ``DX_ROWS``-row tile (:func:`max_row_tiles`, every grid row counted
+    live), N split by ``quant_matmul.dx_split``. fp32, int4 (whose dx is
+    the plain contraction, as the reference's) and the rest of the dx keep
+    the CUDA-core kernel."""
     kw = k // 2 if bits == 4 else k
+    if (bits == 8 and bwd and dtype in _TC_DTYPES and aligned
+            and k % DX_COLS == 0 and n % 16 == 0
+            and (k // max(groups, 1)) % 16 == 0):
+        rows = max_row_tiles(m, e, DX_ROWS)
+        cols = k // DX_COLS
+        splits, per = dx_split(rows * cols, -(-n // DX_STAGE), sms)
+        return Plan("dx", None, DX_ROWS, rows, cols, splits, per)
     if (bits and not bwd and dtype in _TC_DTYPES and aligned
             and -(-m // e) <= SERVING_ROWS and kw % SK_STAGE == 0
             and n % 16 == 0 and (k // max(groups, 1)) % 16 == 0):
@@ -347,6 +375,14 @@ def _launch(a, weights, scales3d, offsets, k, n, bits, bwd):
             out.data_ptr(), None if ws is None else ws.data_ptr(),
             counters.data_ptr(), m, k, n, e, TC_TILES[plan.tile]["code"],
             plan.rows, plan.splits, plan.per, code, a.device.index, stream)
+    elif plan.route == "dx":
+        name = "ptt_gmm_dx_tc"
+        err = lib.ptt_gmm_dx_tc(
+            a.data_ptr(), weights.data_ptr(), scales3d.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), counters.data_ptr(), m,
+            k, n, e, groups, plan.rows, plan.splits, plan.per, code,
+            a.device.index, stream)
     elif plan.route == "sk":
         name = "ptt_gmm_sk"
         err = lib.ptt_gmm_sk(
@@ -415,9 +451,10 @@ grouped_matmul_fwd.twin_routes = 0
 
 def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
     """``dx [M, K]`` in ``x_dtype``: a kernel on a CUDA tensor for fp and
-    int8 weights (``.launches["fp" | "int8"]`` counts either kernel,
-    ``.tc_launches`` the tensor-core one alone), the reference on a CPU
-    tensor and for int4 (the reference has no int4 backward kernel)."""
+    int8 weights (``.launches["fp" | "int8"]`` counts every kernel,
+    ``.tc_launches`` the fp tensor-core one alone, ``.dx_launches`` the
+    int8 dx route alone), the reference on a CPU tensor and for int4 (the
+    reference has no int4 backward kernel)."""
     _check_device(dy)
     bits = _weight_bits(weights, k)
     if dy.device.type == "cpu" or bits == 4:
@@ -432,11 +469,13 @@ def grouped_matmul_bwd(dy, weights, group_offsets, scales3d, k, x_dtype):
     if route:
         grouped_matmul_bwd.launches[_BITS_NAME[bits]] += 1
         grouped_matmul_bwd.tc_launches += route == "tc"
+        grouped_matmul_bwd.dx_launches += route == "dx"
     return out
 
 
 grouped_matmul_bwd.launches = {"fp": 0, "int8": 0}
 grouped_matmul_bwd.tc_launches = 0
+grouped_matmul_bwd.dx_launches = 0
 grouped_matmul_bwd.twin_routes = 0
 
 

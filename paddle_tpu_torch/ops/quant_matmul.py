@@ -177,6 +177,20 @@ class QmmPlan(NamedTuple):
     per: int        # reduction stages a split walks (the last may walk fewer)
 
 
+def dx_split(tiles, stages, sms):
+    """(splits, stages per split) of the tensor-core dx tile's reduction
+    over N (``csrc/dx_tile.cuh``; the weight-only and the int8 grouped
+    GEMM's dx): ``DX_PER`` stages a split, fewer while the grid of
+    ``tiles`` x splits blocks is under ``sms / 2``, more while it is over
+    ``2 sms`` (two blocks fit an SM)."""
+    per = min(stages, DX_PER)
+    while per > 1 and 2 * tiles * -(-stages // per) < sms:
+        per -= 1
+    while per < stages and tiles * -(-stages // per) > 2 * sms:
+        per += 1
+    return -(-stages // per), per
+
+
 def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
     """The launch of one weight-only GEMM: ``m`` rows, a ``[K, N]`` weight
     (``packed`` int4 or int8) with ``groups`` scale rows, forward or dx
@@ -207,13 +221,7 @@ def qmm_plan(m, k, n, groups, dtype, packed, bwd, aligned, sms) -> QmmPlan:
           and dtype in _TC_DTYPES and m >= 1)
     if tc and bwd:
         tiles = kw // TC_STAGE * -(-m // TC_ROWS)
-        stages = -(-n // TC_STAGE)
-        per = min(stages, DX_PER)
-        while per > 1 and 2 * tiles * -(-stages // per) < sms:
-            per -= 1
-        while per < stages and tiles * -(-stages // per) > 2 * sms:
-            per += 1
-        return QmmPlan("tc", tiles, -(-stages // per), per)
+        return QmmPlan("tc", tiles, *dx_split(tiles, -(-n // TC_STAGE), sms))
     if tc and m <= TC_ROWS:
         tiles = -(-n // TC_COLS)
         stages = kw // TC_STAGE

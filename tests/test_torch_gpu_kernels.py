@@ -1259,6 +1259,90 @@ def test_grouped_matmul_grad_wiring(cuda, dtype):
     assert grouped_matmul(x.detach(), qw["q"], offs, qw["s"]).grad_fn is None
 
 
+# the dx route (int8 stacks, gmm_dx_kernel): (K, N, rows per expert). The
+# serving rows (a) and the prefill rows (b) of both MoE GEMMs, and a 1-row,
+# an empty and a 100-row expert (two 64-row tiles of one expert)
+GMM_DX_CASES = {
+    "serving_w1": (768, 3072, [30, 0, 11, 7]),
+    "serving_w2": (3072, 768, [30, 0, 11, 7]),
+    "prefill_w1": (768, 3072, [2400, 0, 900, 796]),
+    "prefill_w2": (3072, 768, [2400, 900, 796, 0]),
+    "one_row": (1024, 320, [1, 0, 100, 7]),
+}
+
+
+@pytest.mark.parametrize("gs", [-1, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(GMM_DX_CASES))
+def test_grouped_matmul_dx_route_matches_plain(cuda, case, dtype, gs):
+    """The 16-bit int8 dx (per channel and in groups of 128) runs the dx
+    route at the serving and the prefill rows (one ``dx_launches`` a call)
+    and matches its plain version; the empty expert's NaN scales never
+    reach dx; a second launch is bitwise equal, a captured call equal to an
+    eager one."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    k, n, counts = GMM_DX_CASES[case]
+    rng = np.random.RandomState(23)
+    m, e = sum(counts), len(counts)
+    qw = quantize_weight(_rand(rng, (e, k, n), cuda, dtype, 0.05), "int8",
+                         gs)
+    w, scales = qw["q"], qw["s"]
+    scales[counts.index(0)] = float("nan")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=cuda)
+    dy = _rand(rng, (m, n), cuda, dtype)
+    plan = gm._plan(m, e, k, n, 8, True, dtype, True,
+                    torch.cuda.get_device_properties(
+                        cuda).multi_processor_count, scales.shape[1])
+    assert plan.route == "dx"
+    before, launches = grouped_matmul_bwd.dx_launches, dict(
+        grouped_matmul_bwd.launches)
+    got = grouped_matmul_bwd(dy, w, offs, scales, k, dtype)
+    again = grouped_matmul_bwd(dy, w, offs, scales, k, dtype)
+    torch.cuda.synchronize()
+    assert grouped_matmul_bwd.dx_launches == before + 2
+    assert grouped_matmul_bwd.launches["int8"] == launches["int8"] + 2
+    assert torch.equal(got, again)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    _assert_close(got, grouped_matmul_dx_reference(dy, w, offs, scales, k,
+                                                   dtype), dtype)
+    _graph_equal(lambda: grouped_matmul_bwd(dy, w, offs, scales, k, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mkn", [(24, 768, 3072, 128), (24, 3072, 768, -1),
+                                 (256, 768, 2304, 128), (65, 768, 768, -1)])
+def test_grouped_matmul_dx_one_expert_equals_qmm_dx(cuda, dtype, mkn):
+    """Both dx kernels run csrc/dx_tile.cuh's tile: a one-expert grouped
+    dx (its grid the weight-only GEMM's, the same split plan) is bitwise
+    equal to ``qmm_dx_kernel``'s on the same weight, and both match the
+    plain version."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    m, k, n, gs = mkn
+    rng = np.random.RandomState(24)
+    qw = quantize_weight(_rand(rng, (1, k, n), cuda, dtype, 0.05), "int8",
+                         gs)
+    dy = _rand(rng, (m, n), cuda, dtype)
+    offs = torch.tensor([0, m], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = gm._plan(m, 1, k, n, 8, True, dtype, True, sms, qw["s"].shape[1])
+    q = qmm_mod.qmm_plan(m, k, n, qw["s"].shape[1], dtype, False, True,
+                         True, sms)
+    assert (g.route, q.route) == ("dx", "tc")
+    assert (g.rows * g.cols, g.splits, g.per) == (q.tiles, q.splits, q.per)
+    before = (grouped_matmul_bwd.dx_launches, quant_matmul_bwd.tc_launches)
+    got = grouped_matmul_bwd(dy, qw["q"], offs, qw["s"], k, dtype)
+    ref = quant_matmul_bwd(dy, qw["q"][0], qw["s"][0], k, dtype)
+    torch.cuda.synchronize()
+    assert (grouped_matmul_bwd.dx_launches,
+            quant_matmul_bwd.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits(got), _bits(ref))
+    _assert_close(got, quant_matmul_dx_reference(dy, qw["q"][0], qw["s"][0],
+                                                 k, dtype), dtype)
+
+
 def test_moe_serving_launches_and_tokens(cuda):
     """A two-layer MoE model (4 experts, top-2, no drops) served on the
     per-op step: two grouped-GEMM launches per layer and step, and the

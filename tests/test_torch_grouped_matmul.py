@@ -21,6 +21,7 @@ from paddle_tpu.ops.pallas import grouped_matmul as jgmm
 from paddle_tpu_torch.inference.quantize import quantize_weight
 from paddle_tpu_torch.nn import quant as tquant
 from paddle_tpu_torch.ops import grouped_matmul as tgmm
+from paddle_tpu_torch.ops.quant_matmul import DX_PER
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_ROW_TOL = 1e-2
@@ -183,11 +184,12 @@ def test_plan_routes():
     """bf16 fp weights at aligned widths multiple of 8 take the
     tensor-core kernel, the serving tile at the serving rows and the
     prefill tile at the prefill rows; the int8 / int4 forward at the
-    serving rows on whole aligned chunks takes the skinny route in bf16;
-    fp32 (fp or quantized weights), quantized prefill rows, stored rows not a multiple of 64, N not of 16, scale
-    groups not of 16k rows, an unaligned pointer and every dx take the
-    CUDA-core kernel; the splits cover the reduction and the grid rows the
-    live tiles."""
+    serving rows on whole aligned chunks takes the skinny route in bf16,
+    and the int8 dx the dx route; fp32 (fp or quantized weights), the
+    quantized prefill rows' forward, stored rows not a multiple of 64, N
+    not of 16, scale groups not of 16k rows, an unaligned pointer and the
+    int4 dx take the CUDA-core kernel; the splits cover the reduction and
+    the grid rows the live tiles."""
     bf16, f32 = torch.bfloat16, torch.float32
     serving, prefill = [30, 0, 11, 7], [2400, 0, 900, 796]
     # the skinny route at the serving rows (a): w1's 48 column tiles x 4
@@ -204,8 +206,12 @@ def test_plan_routes():
                         continue
                     _check_sk_plan(p, 48, 4, k, n, bits, serving)
                     assert p.splits == (2 if n == 3072 else 6)
+                # the int8 dx at the serving rows takes the dx route, int4's
+                # (a plain contraction) keeps the CUDA-core plan
+                p = tgmm._plan(48, 4, k, n, bits, True, bf16, True, SMS,
+                               groups)
+                assert p.route == ("dx" if bits == 8 else "cc")
                 for args in ((4096, 4, k, n, bits, False, bf16, True, groups),
-                             (48, 4, k, n, bits, True, bf16, True, groups),
                              (48, 4, k, n, bits, False, bf16, False, groups),
                              (48, 4, k, n + 8, bits, False, bf16, True,
                               groups),
@@ -248,9 +254,13 @@ def test_plan_routes():
                                           else (24, 1))
             assert tgmm._plan(4096, 4, k, n, 0, bwd, bf16, True,
                               SMS).splits == 1
+        # the int8 prefill rows: the dx route for the dx, the CUDA-core
+        # kernel for the forward
+        p = tgmm._plan(4096, 4, 3072, 768, 8, bwd, bf16, True, SMS)
+        assert p.route == ("dx" if bwd else "cc")
         for args in ((48, 4, 768, 3072, 0, bwd, f32, True),
                      (4096, 4, 768, 3072, 0, bwd, f32, True),
-                     (4096, 4, 3072, 768, 8, bwd, bf16, True),
+                     (4096, 4, 3072, 768, 8, bwd, f32, True),
                      (23, 5, 136, 76, 0, bwd, bf16, True),
                      (23, 5, 132, 72, 0, bwd, bf16, True),
                      (48, 4, 768, 3072, 0, bwd, bf16, False)):
@@ -386,6 +396,144 @@ def test_sk_split_plan_sums_to_the_jax_reference(dtype, weights):
         out[int(lo[t]):int(hi[t])] = acc
     want = jgmm.grouped_matmul_reference(jx, jw, joffs, scales=js)
     _close(out.to(dtype), want, dtype)
+
+
+def _check_dx_plan(p, m, e, k, n, counts, sms=SMS):
+    """A dx-route plan's grid: 64-column tiles of dx, the grid rows over
+    every live 64-row tile of ``counts``, every 64-column stage of N in
+    exactly one split, no split empty, and ``dx_split``'s rule: ``DX_PER``
+    stages a split where the grid (every row counted live) then holds
+    ``sms / 2`` to ``2 sms`` blocks, else the nearest count of stages that
+    brings it there or to one stage / one split a tile."""
+    stages = -(-n // tgmm.DX_STAGE)
+    assert (p.route, p.tile, p.bm) == ("dx", None, tgmm.DX_ROWS)
+    assert p.cols == k // tgmm.DX_COLS
+    assert p.rows == tgmm.max_row_tiles(m, e, tgmm.DX_ROWS)
+    assert sum(-(-c // tgmm.DX_ROWS) for c in counts) <= p.rows
+    assert p.per >= 1 and 1 <= p.splits <= stages
+    assert p.splits * p.per >= stages > (p.splits - 1) * p.per
+    tiles = p.rows * p.cols
+
+    def blocks(per):
+        return tiles * -(-stages // per)
+
+    assert 2 * blocks(p.per) >= sms or p.per == 1
+    assert blocks(p.per) <= 2 * sms or p.per == stages
+    first = min(stages, DX_PER)
+    if sms <= 2 * blocks(first) and blocks(first) <= 2 * sms:
+        assert p.per == first
+    elif p.per < first:   # lowered only as far as half an SM a block
+        assert 2 * blocks(p.per + 1) < sms
+    elif p.per > first:   # raised only as far as two blocks an SM
+        assert blocks(p.per - 1) > 2 * sms
+
+
+def test_dx_plan_routes_and_splits():
+    """The bf16 / fp16 int8 dx takes the dx route at the serving rows (a)
+    and the prefill rows (b), per channel and in groups of 128, both MoE
+    GEMMs of GPT-125M (their splits pinned), and at random rows, experts
+    and widths (K % 64, N % 16); fp32, K off 64, N off 16, groups off 16k
+    rows, an unaligned pointer and int4 keep the CUDA-core plan, fp weights
+    the tensor-core one."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    serving, prefill = [30, 0, 11, 7], [2400, 0, 900, 796]
+    # (a): 4 grid rows x w1's 12 / w2's 48 column tiles: w1's 48 stages of
+    # N go 10 a split (5 splits, 240 blocks), w2's 12 in one (192 blocks);
+    # (b): 67 grid rows fill the card without a split
+    want = {(48, 768): (5, 10), (48, 3072): (1, 12),
+            (4096, 768): (1, 48), (4096, 3072): (1, 12)}
+    for dtype in (bf16, f16):
+        for counts in (serving, prefill):
+            m = sum(counts)
+            for k, n in ((768, 3072), (3072, 768)):
+                for groups in (1, k // 128):
+                    p = tgmm._plan(m, 4, k, n, 8, True, dtype, True, SMS,
+                                   groups)
+                    _check_dx_plan(p, m, 4, k, n, counts)
+                    assert (p.splits, p.per) == want[(m, k)]
+    for args in ((48, 4, 768, 3072, 8, True, f32, True, 1),
+                 (18, 5, 136, 72, 8, True, bf16, True, 17),
+                 (48, 4, 768, 3080, 8, True, bf16, True, 1),
+                 (48, 4, 768, 3072, 8, True, f16, True, 96),
+                 (48, 4, 768, 3072, 8, True, bf16, False, 1),
+                 (48, 4, 768, 3072, 4, True, bf16, True, 6)):
+        p = tgmm._plan(*args[:8], SMS, args[8])
+        assert (p.route, p.bm) == ("cc", tgmm.BM), args
+    for counts in (serving, prefill):
+        p = tgmm._plan(sum(counts), 4, 768, 3072, 0, True, bf16, True, SMS)
+        assert p.route == "tc"
+    rng = np.random.default_rng(19)
+    for _ in range(300):
+        e = int(rng.integers(1, 9))
+        counts = [int(c) for c in rng.integers(0, 900, e)
+                  * (rng.random(e) < 0.8)]
+        m = sum(counts)
+        if m == 0:
+            continue
+        k = int(rng.integers(1, 64)) * 64
+        n = int(rng.integers(1, 300)) * 16
+        sms = int(rng.choice([8, 40, 132]))
+        p = tgmm._plan(m, e, k, n, 8, True, bf16, True, sms)
+        _check_dx_plan(p, m, e, k, n, counts, sms)
+
+
+def _dx_tiles(dy, q, s3, offs, k, dtype, plan):
+    """The dx route's arithmetic in plain torch: each live 64-row tile of
+    one expert (``row_tiles``) times that expert's stack, dequantized as the
+    reference does (``q * s`` in ``dtype``: the scale rounded, the product
+    rounded once), 64 dx columns at a time, each split of N's stages
+    summed in fp32 and the splits added in split order, cast once."""
+    m, n = dy.shape
+    ex, lo, hi = tgmm.row_tiles(offs, m, tgmm.DX_ROWS)
+    gs = k // s3.shape[1]
+    deq = (q.float() * s3.to(dtype).float().repeat_interleave(gs, 1)).to(
+        dtype)
+    assert torch.equal(deq, tgmm.dequantize_grouped_weight(
+        q, s3, k=k, out_dtype=dtype))
+    stages = -(-n // tgmm.DX_STAGE)
+    dx = torch.full((m, k), float("nan"))
+    y = dy.to(dtype).float()
+    for t in range(int((ex >= 0).sum())):
+        rows = slice(int(lo[t]), int(hi[t]))
+        w = deq[int(ex[t])].float()
+        for c in range(plan.cols):
+            cols = slice(tgmm.DX_COLS * c, tgmm.DX_COLS * (c + 1))
+            acc = torch.zeros(int(hi[t] - lo[t]), tgmm.DX_COLS)
+            for z in range(plan.splits):
+                ns = slice(tgmm.DX_STAGE * z * plan.per,
+                           min(n, tgmm.DX_STAGE * (z + 1) * plan.per))
+                acc += y[rows, ns] @ w[cols, ns].T
+            dx[rows, cols] = acc
+    return dx.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weights", ["int8", "int8g32"])
+@pytest.mark.parametrize("counts", [[0, 5, 0, 1, 70, 3], [70]])
+def test_dx_tile_split_plan_sums_to_the_jax_vjp(dtype, weights, counts):
+    """The dx route's tile decomposition (expert-bound 64-row tiles, 64
+    dx columns, splits of N summed in split order, the reference's
+    rounding of ``q * s``) at a plan with splits, mixed rows with empty
+    experts and a one-expert case: equal to ``grouped_matmul_dx_reference``
+    and to ``jax.vjp`` of ``grouped_matmul(use_kernel=False)`` (fp32 to
+    1e-5, bf16 per row to 1e-2 of its max)."""
+    k, n = 128, 512
+    (tx, tw, ts, toffs), (jx, jw, js, joffs) = _case(counts, k, n, weights,
+                                                     dtype, seed=9)
+    m, e = sum(counts), len(counts)
+    dy = np.random.default_rng(10).standard_normal((m, n)).astype(
+        np.float32)
+    p = tgmm._plan(m, e, k, n, 8, True, torch.bfloat16, True, 40,
+                   ts.shape[1])
+    assert p.route == "dx" and p.splits > 1
+    got = _dx_tiles(_t(dy), tw, ts, toffs, k, dtype, p)
+    assert bool(torch.isfinite(got).all())
+    _close(got, tgmm.grouped_matmul_dx_reference(_t(dy, dtype), tw, toffs,
+                                                 ts, k, dtype), dtype)
+    _, vjp = jax.vjp(lambda x: jgmm.grouped_matmul(
+        x, jw, joffs, scales=js, use_kernel=False), jx)
+    (jdx,) = vjp(_j(dy, dtype))
+    _close(got, jdx, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
