@@ -54,7 +54,16 @@ trees on one card) and prints one JSON line. PART is one of:
   with digests of every output, the dx route's split plans swept where
   ROOT's package has the route, then the dx kernels' device time in one
   profiled backward of phase 11's bf16 input-gradient drives (int8
-  stacks through both layers; fp stacks through layer 0).
+  stacks through both layers; fp stacks through layer 0);
+- ``capture``: only phase 15 (every unified form served on the captured
+  step with the async engine beside the eager step with the synchronous
+  engine, then the bf16 per-op, mega and MoE timings in turns); ROOT's
+  package must have the captured step;
+- ``serve-steps``: the bf16 per-op, mega and MoE serving steps of
+  GPT-125M on ROOT's package's defaults (and, where it has the captured
+  step, on the eager step with the synchronous engine), timed in turns
+  from the end of each run's first step, with a digest of the streams:
+  run it for a parent and a change as parent, change, change, parent.
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -89,7 +98,7 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    the full forward over the served context, the streams must hold at
    least ``MIN_DISTINCT`` distinct tokens, and every step must run the
    ragged kernel once per layer. Then the same requests in bf16, timed
-   (median of ``BF16_RUNS`` runs);
+   (median of ``BF16_RUNS`` runs after a warm-up);
 7. train: the flash backward kernel vs its plain version at the training
    shape [8, 1024, 12, 128] causal and at odd shapes (``sq != sk``, GQA,
    ragged tails, non-causal), fp32 and bf16, the bf16 kernel at
@@ -300,6 +309,35 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    with fp / int8 expert stacks. Each kernel row of the JSON line gains
    an ``fp16`` record: route, fp16 launches, time, plain, bound, library
    and error, and the bf16 leg's time beside it.
+15. captured step and async engine (run after phase 11): every unified
+   form — per-op fp32 / bf16 / fp16, int8 and int4 g128 weights with an
+   int8 KV cache, mega and MoE (4 experts, top-2, cf 1.25), all but the
+   first two in bf16 — served with the predictor's defaults (one CUDA
+   graph per step geometry, replayed every round; the async
+   dispatch-ahead engine) beside the synchronous engine on the eager step
+   (``EagerStep``), the phase-6 requests in ``CAPTURE_PAGES`` pages (two
+   preemptions, one copy-on-write copy): streams equal token for token,
+   ``decode_trace_count`` 1, every step's launches counted once (ragged =
+   steps x 12 on the per-op forms, mega 12 + 12, grouped GEMM 24, the
+   weight-only GEMM 48), ``ops.twin_routes()`` 0, and what one replay
+   launches. Then the bf16 per-op, mega and MoE runs timed in turns
+   (``CAPTURE_RUNS`` each way, from the end of the first step, which
+   holds the capture): mean step, tokens/s, ``step_gap_frac``,
+   ``host_ms_per_step``, and one profiled run of each engine (device busy
+   and idle share; the launches of each kernel group the trace holds
+   must be the window's steps times what a step launches). The kernel
+   rows run inside the captured step gain ``captured_replay``: launches
+   one replay holds, by form.
+
+Every serving phase runs the predictor's defaults, so phases 6, 8, 10, 11
+and 14 serve on the captured step and the async engine too. Their bf16
+times, like phase 15's, run from the end of each run's first step (which
+holds the capture) to the end of its flush (``timed_serve``), and every
+profiled serving run (``profile_serve``) covers the same window and fails
+unless the launches the trace holds in each kernel group equal what the
+wrappers' counters gained over it (a replay adds its capture's launches
+to the counters). ``serve()`` flushes the ring, and ``StepRecord`` runs a
+call eagerly where it records the router's choices.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 the graph is replayed between CUDA events.
@@ -989,33 +1027,93 @@ def requests(cfg):
     return early, late
 
 
-def serve(sp, early, late):
+def dispatched(req):
+    """Tokens of ``req`` landed or in flight (a package without the async
+    engine has none in flight)."""
+    return len(req.output_ids) + getattr(req, "_pending_n", 0)
+
+
+def serve(sp, early, late, after_first=None):
+    """``early`` at once, ``late`` once the first request has emitted (a
+    token dispatched counts, landed or not, so the synchronous and the
+    async engine see one schedule), stepped until every request finished,
+    then flushed. ``after_first(reqs)`` runs after the first step."""
     from paddle_tpu_torch.inference.serving import FAILED, FINISHED
 
     reqs = [sp.add_request(p, MAX_NEW) for p in early]
     first = reqs[0]
     pending = list(late)
     for _ in range(10_000):
-        if pending and first.output_ids:
+        if pending and dispatched(first):
             reqs += [sp.add_request(p, MAX_NEW) for p in pending]
             pending = []
         if not pending and all(r.state in (FINISHED, FAILED) for r in reqs):
             break
         sp.step()
+        if after_first is not None:
+            after_first(reqs)
+            after_first = None
     else:
         raise AssertionError("serving did not finish")
+    if hasattr(sp, "flush"):
+        sp.flush()
     failed = [r.error for r in reqs if r.state == FAILED]
     if failed:
         raise AssertionError(f"requests failed: {failed}")
     return reqs
 
 
+def timed_serve(sp, early, late):
+    """One :func:`serve` run clocked from the end of its first step (which
+    holds the capture of a captured step) to the end of its flush: a dict
+    of the requests, the wall (s), the steps after the first, their mean
+    step (ms) and tokens a second (the tokens dispatched after the first
+    step), and the engine's ``step_gap_frac`` / ``host_ms_per_step`` over
+    those steps (None for a package without them)."""
+    mark = {}
+
+    def begin(reqs):
+        torch.cuda.synchronize()
+        if hasattr(sp, "reset_perf_stats"):
+            sp.reset_perf_stats()
+        mark.update(t=time.perf_counter(), steps=sp.steps,
+                    tokens=sum(map(dispatched, reqs)))
+
+    reqs = serve(sp, early, late, after_first=begin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - mark["t"]
+    steps = sp.steps - mark["steps"]
+    ntok = sum(len(r.output_ids) for r in reqs) - mark["tokens"]
+    return dict(reqs=reqs, wall=wall, steps=steps, step_ms=1e3 * wall / steps,
+                tok_s=ntok / wall, gap=getattr(sp, "step_gap_frac", None),
+                host_ms=getattr(sp, "host_ms_per_step", None))
+
+
+def median_run(runs):
+    """The :func:`timed_serve` run of median mean step."""
+    return sorted(runs, key=lambda r: r["step_ms"])[len(runs) // 2]
+
+
+def step_list(runs):
+    """The mean steps of :func:`timed_serve` runs, for a log line."""
+    return ", ".join(f"{r['step_ms']:.3f}" for r in runs)
+
+
+def unified_of(step):
+    """The ``UnifiedStep`` under any stand-ins (``StepRecord``,
+    ``RouterFlips``, ``EagerStep``)."""
+    while not hasattr(step, "eager"):
+        step = step.step
+    return step
+
+
 class StepRecord:
     """Stands in for a predictor's unified step (or, with ``legacy``, its
     decode step) and records every call: the logits row of each lane that
-    emits, keyed ``(req_id, index of the token in output_ids)``; with
-    ``routes`` the MoE router's choices of every layer and the request of
-    each token row."""
+    emits, keyed ``(req_id, index of the token in output_ids)`` (tokens the
+    async engine has in flight count); with ``routes`` the MoE router's
+    choices of every layer and the request of each token row, which runs
+    each call eagerly (a captured graph runs no Python to record them)."""
 
     def __init__(self, sp, legacy=False, routes=False):
         self.sp, self.legacy, self.routes = sp, legacy, routes
@@ -1033,11 +1131,12 @@ class StepRecord:
         self.n += 1
         with record_routes() if self.routes else contextlib.nullcontext(
                 []) as seen:
-            out = self.step(*args, **kw)
+            out = (unified_of(self.step).eager(*args, **kw) if self.routes
+                   else self.step(*args, **kw))
         emit = (None if self.legacy else args[self.emit_at].tolist())
         at = {}
         for slot, req in self.sp.running.items():
-            at[slot] = (req.req_id, len(req.output_ids))
+            at[slot] = (req.req_id, len(req.output_ids) + req._pending_n)
             if emit is None or emit[slot]:
                 self.rows[at[slot]] = out[1][slot].float().clone()
         if self.routes:
@@ -1123,27 +1222,25 @@ def phase_serve(model, cfg, dev, card):
                              f"tokens (< {MIN_DISTINCT}): too uniform to "
                              "test the step's plumbing")
     # the same requests in bf16: one warm-up run, then BF16_RUNS timed
-    # runs (the step is host-bound, so its time varies between runs)
-    walls = []
+    # runs, each from the end of its first step (the capture)
+    runs = []
     for run in range(1 + BF16_RUNS):
         sp16 = ServingPredictor(model, max_batch=8, device=dev,
                                 dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
-        torch.cuda.synchronize()
+        got = timed_serve(sp16, early, late)
+        outs16 = [list(r.output_ids) for r in got["reqs"]]
         if run:
-            walls.append(time.perf_counter() - t0)
+            runs.append(got)
     ntok = sum(map(len, outs16))
     if ntok != MAX_NEW * len(outs16) or not all(
             0 <= t < cfg.vocab_size for o in outs16 for t in o):
         raise AssertionError("bf16 serving produced malformed streams")
-    wall = sorted(walls)[len(walls) // 2]
+    med = median_run(runs)
     log(f"[serve] bf16: {ntok} tokens, {sp16.steps} steps per run; median "
-        f"of {BF16_RUNS} runs {wall:.3f} s = {ntok / wall:.1f} tokens/s, "
-        f"mean step {1e3 * wall / sp16.steps:.3f} ms (runs: "
-        f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
-    return ragged_n, outs, 1e3 * wall / sp16.steps
+        f"of {BF16_RUNS} runs from the end of the first step: "
+        f"{med['tok_s']:.1f} tokens/s, mean step {med['step_ms']:.3f} ms "
+        f"(runs: {step_list(runs)} ms) ({card})")
+    return ragged_n, outs, med["step_ms"]
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -1510,9 +1607,10 @@ def check_quant_oracle(sp, cfg, reqs, rows, kv_int8, tol):
 
 
 def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None,
-                    unified=None):
+                    unified=None, **kw):
     """A ServingPredictor of ``model`` with the config fields ``quant`` set
-    while it is built (it quantizes at construction)."""
+    while it is built (it quantizes at construction); ``kw`` goes to the
+    predictor."""
     from paddle_tpu_torch.inference import ServingPredictor
 
     saved = {k: getattr(cfg, k) for k in quant}
@@ -1520,7 +1618,8 @@ def quant_predictor(model, cfg, quant, dev, dtype=None, mega_decode=None,
         setattr(cfg, k, v)
     try:
         return ServingPredictor(model, max_batch=8, device=dev, dtype=dtype,
-                                mega_decode=mega_decode, unified=unified)
+                                mega_decode=mega_decode, unified=unified,
+                                **kw)
     finally:
         for k, v in saved.items():
             setattr(cfg, k, v)
@@ -1665,11 +1764,8 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
             sp16 = quant_predictor(model, cfg, quant, dev,
                                    dtype=torch.bfloat16)
             reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            got = timed_serve(sp16, early, late)
+            outs16 = [list(r.output_ids) for r in got["reqs"]]
             bits, tc_n = quant["weight_dtype"], qmm_tc_count()
             counts = qmm_counts()
             if sum(map(len, outs16)) != MAX_NEW * len(outs16):
@@ -1682,28 +1778,30 @@ def phase_quant_serve(model, cfg, dev, card, fp_outs, fp16_step_ms):
                                      "all on the route)")
             launches[f"{bits}_bf16"] = launches.get(f"{bits}_bf16", 0) + tc_n
             if run:
-                walls[label].append((wall, sp16.steps))
+                walls[label].append(got)
     bf16_stats = {}
     for label, quant, _ in QUANT_SERVE:
         rs = walls[label]
-        wall, steps = sorted(rs)[len(rs) // 2]
-        st = dict(step_ms=[1e3 * w / n for w, n in rs], steps=steps)
-        log(f"[quant] serve ({label}) bf16: {MAX_NEW * 8} tokens, {steps} "
-            f"steps per run; median of {BF16_RUNS} runs (in turns with the "
-            f"other configurations) {wall:.3f} s = {MAX_NEW * 8 / wall:.1f} "
-            f"tokens/s, mean step {1e3 * wall / steps:.3f} ms (fp bf16 step "
-            f"of phase 6: {fp16_step_ms:.3f} ms; runs: "
-            f"{', '.join(f'{w:.3f}' for w, _ in rs)} s; 48 tensor-core GEMM "
-            f"launches a step) ({card})")
+        med = median_run(rs)
+        st = dict(step_ms=[r["step_ms"] for r in rs], steps=sp16.steps)
+        log(f"[quant] serve ({label}) bf16: {MAX_NEW * 8} tokens, "
+            f"{sp16.steps} steps per run; median of {BF16_RUNS} runs (in "
+            f"turns with the other configurations) from the end of the "
+            f"first step: {med['tok_s']:.1f} tokens/s, mean step "
+            f"{med['step_ms']:.3f} ms (fp bf16 step of phase 6: "
+            f"{fp16_step_ms:.3f} ms; runs: "
+            f"{step_list(rs)} ms; 48 "
+            f"tensor-core GEMM launches a step) ({card})")
         if label != QUANT_SERVE[2][0]:
             sp16 = quant_predictor(model, cfg, quant, dev,
                                    dtype=torch.bfloat16)
             prof = profile_serve(sp16, early, late, card,
                                  f"[quant] ({label})")
             if prof is not None:
-                st.update(busy_ms=prof[1] / 1e3 / sp16.steps,
-                          gemm_ms=prof[0]["weight-only GEMM"][0] / 1e3
-                          / sp16.steps)
+                groups, busy, steps = prof
+                st.update(busy_ms=busy / 1e3 / steps,
+                          gemm_ms=groups["weight-only GEMM"][0] / 1e3
+                          / steps)
                 log(f"[quant] serve ({label}) bf16: device busy "
                     f"{st['busy_ms']:.4f} ms a step, the weight-only GEMM "
                     f"{st['gemm_ms']:.4f} ms of it ({card})")
@@ -2073,19 +2171,11 @@ def mega_counts():
     return mega_attn_layer.launches, mega_mlp.launches
 
 
-def profile_serve(sp, early, late, card, tag):
-    """One served bf16 run under ``torch.profiler``: device busy and idle
-    share of its wall time, and device time by kernel group."""
-    return profile_run(lambda: serve(sp, early, late), card, tag,
-                       lambda: f"{sp.steps} steps")
-
-
 def profile_run(fn, card, tag, what):
     """``fn()`` once under ``torch.profiler``: logs (``what()`` naming the
     run) the device busy and idle share of its wall time and the device
     time by kernel group; returns ``{group: (device us, launches)}`` and
     the busy us, or None when the trace holds no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2095,17 +2185,93 @@ def profile_run(fn, card, tag, what):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    return trace_report(prof, wall_us, card, tag, what)
+
+
+def group_launches() -> dict:
+    """The wrappers' launch counters summed by :func:`trace_report`'s
+    kernel groups (every wrapper in a group launches one kernel of the
+    group a counted call). Read off the wrappers, so a package from
+    before ``ops.counters`` reads the same."""
+    from paddle_tpu_torch.ops import (grouped_matmul, mega_decode,
+                                      paged_attention, quant_matmul)
+
+    def total(*fns):
+        return sum(sum(f.launches.values()) if isinstance(f.launches, dict)
+                   else f.launches for f in fns)
+
+    return {"ragged kernel": total(paged_attention.ragged_paged_attention),
+            "paged decode kernel": total(paged_attention.paged_attention),
+            "mega kernels": total(mega_decode.mega_attn_layer,
+                                  mega_decode.mega_mlp),
+            "weight-only GEMM": total(quant_matmul.quant_matmul_fwd,
+                                      quant_matmul.quant_matmul_bwd),
+            "grouped GEMM": total(grouped_matmul.grouped_matmul_fwd,
+                                  grouped_matmul.grouped_matmul_bwd)}
+
+
+def profile_serve(sp, early, late, card, tag, top=0, need=False):
+    """One served run with ``torch.profiler`` on from the end of its first
+    step (which holds the capture of a captured step) to the end of its
+    flush: as :func:`profile_run`, plus the ``top`` kernels by device time.
+    The launches the trace holds in each kernel group of
+    :func:`group_launches` must equal what the wrappers' counters gained
+    over the window (on the captured step the counters add a capture's
+    launches a replay: the trace sees the replays' kernels), or it raises.
+    Returns (groups, busy us, steps in the window), or None when the trace
+    holds no device time (``need``: raises then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    mark = {}
+
+    def begin(_):
+        torch.cuda.synchronize()
+        prof.start()
+        mark.update(t=time.perf_counter(), steps=sp.steps,
+                    counted=group_launches())
+
+    serve(sp, early, late, after_first=begin)
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - mark["t"])
+    prof.stop()
+    steps = sp.steps - mark["steps"]
+    out = trace_report(prof, wall_us, card, tag,
+                       lambda: f"{steps} steps after the first", top)
+    if out is None:
+        if need:
+            raise AssertionError(f"{tag}: the profiler saw no device time")
+        return None
+    counted = {g: n - mark["counted"][g] for g, n in group_launches().items()}
+    seen = {g: out[0][g][1] for g in counted}
+    if seen != counted:
+        raise AssertionError(f"{tag}: the trace's launches by kernel group "
+                             f"{seen} differ from the counters' {counted} "
+                             f"over {steps} steps")
+    log(f"{tag} the trace's launches by kernel group equal the counters' "
+        f"over the window: { {g: n for g, n in seen.items() if n} }")
+    return out + (steps,)
+
+
+def trace_report(prof, wall_us, card, tag, what, top=0):
+    """The device time of a finished ``torch.profiler`` trace by kernel
+    group against ``wall_us`` (see :func:`profile_run`), and with ``top``
+    the longest kernels by name."""
+    from torch.autograd import DeviceType
+
     groups = {"mega kernels": ("mega_attn", "mega_mlp"),
               "ragged kernel": ("ragged",),
               "paged decode kernel": ("paged_decode",),
               "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel",
                                    "qmm_dx_kernel"),
               "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
-                               "gmm_wg_kernel", "gmm_sk_kernel"),
+                               "gmm_wg_kernel", "gmm_sk_kernel",
+                               "gmm_dx_kernel"),
               "cuBLAS": ("gemm", "nvjet", "cutlass")}
     times = {name: 0.0 for name in groups}
     times["other PyTorch kernels"] = 0.0
     counts = dict.fromkeys(times, 0)
+    by_name: dict = {}
     # the trace's raw device events (kernels, copies, fills) give the device
     # times key_averages() would, without the event tree it builds first:
     # tens of seconds for the ~10^5 kernels of a served MoE run
@@ -2118,6 +2284,9 @@ def profile_run(fn, card, tag, what):
                     "other PyTorch kernels")
         times[name] += ev.duration_ns() / 1e3
         counts[name] += 1
+        if top:
+            t, c = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (t + ev.duration_ns() / 1e3, c + 1)
     busy = sum(times.values())
     if busy <= 0:
         log(f"{tag} profiler: no device time in the trace (not measured)")
@@ -2128,6 +2297,10 @@ def profile_run(fn, card, tag, what):
         f"{sum(counts.values())} kernels; " + ", ".join(
             f"{n} {t / 1e3:.3f} ms ({t / busy:.3f}, {counts[n]} launches)"
             for n, t in times.items() if t) + f" ({card})")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        log(f"{tag} kernel {t / 1e3:8.3f} ms ({t / busy:.3f}) x{c:<6d} "
+            f"{name[:100]}")
     return {n: (t, counts[n]) for n, t in times.items()}, busy
 
 
@@ -2195,32 +2368,27 @@ def phase_mega_serve(model, cfg, dev, card, fp_outs, quant_streams):
                                  "per-op streams")
         total[0] += attn_n
         total[1] += mlp_n
-    # bf16 step times, mega beside per-op in turns (the step is host-bound
-    # and its time moves between runs: median of BF16_RUNS each)
+    # bf16 step times, mega beside per-op in turns (median of BF16_RUNS
+    # each, from the end of the first step: the capture)
     for label, quant, _ in (MEGA_SERVE[0], MEGA_SERVE[2]):
         walls = {False: [], True: []}
         for run in range(1 + BF16_RUNS):
             for mega in ((False, True) if run % 2 else (True, False)):
                 sp16 = quant_predictor(model, cfg, quant, dev,
                                        dtype=torch.bfloat16, mega_decode=mega)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs16 = [list(r.output_ids) for r in serve(sp16, early,
-                                                            late)]
-                torch.cuda.synchronize()
+                got = timed_serve(sp16, early, late)
                 if run:
-                    walls[mega].append((time.perf_counter() - t0,
-                                        sp16.steps))
+                    walls[mega].append(got)
+                outs16 = [list(r.output_ids) for r in got["reqs"]]
                 if sum(map(len, outs16)) != MAX_NEW * len(outs16):
                     raise AssertionError(f"bf16 ({label}) malformed streams")
         ms = {}
         for mega, runs in walls.items():
-            wall, steps = sorted(runs)[len(runs) // 2]
-            ms[mega] = 1e3 * wall / steps
+            ms[mega] = median_run(runs)["step_ms"]
             log(f"[mega] serve ({label}) bf16 {'mega' if mega else 'per-op'}"
-                f": {steps} steps per run; median of {BF16_RUNS} runs "
-                f"{wall:.3f} s, mean step {ms[mega]:.3f} ms (runs: "
-                f"{', '.join(f'{w:.3f}' for w, _ in runs)} s) ({card})")
+                f": {sp16.steps} steps per run; median of {BF16_RUNS} runs "
+                f"from the end of the first step: mean step {ms[mega]:.3f} "
+                f"ms (runs: {step_list(runs)} ms) ({card})")
         log(f"[mega] serve ({label}) bf16 mean step mega {ms[True]:.3f} ms "
             f"vs per-op {ms[False]:.3f} ms: {ms[False] / ms[True]:.2f}x "
             f"({card})")
@@ -2638,7 +2806,8 @@ class RouterFlips:
     which the kernel run and the twin run differ; ``rows`` keeps both
     runs' logits rows (fp32) of the lanes that emit a token and whose
     tokens took the same experts in every layer, and the number of lanes
-    left out for a flip."""
+    left out for a flip. Both runs of call ``at`` are eager (the router's
+    choices are recorded in Python)."""
 
     def __init__(self, sp, at):
         self.sp, self.step, self.at, self.calls = sp, sp._unified, at, 0
@@ -2661,11 +2830,12 @@ class RouterFlips:
         twin_args[11:11 + n_pool] = [p.clone() for p in args[11:11 + n_pool]]
         ragged = paged_attention.ragged_paged_attention
         before = ragged.launches
+        eager = unified_of(self.step).eager
         with record_routes() as twin, moe_twins():
-            twin_out = self.step(*twin_args, **kw)
+            twin_out = eager(*twin_args, **kw)
         ragged.launches = before       # the comparison's launches
         with record_routes() as kern:
-            out = self.step(*args, **kw)
+            out = eager(*args, **kw)
         tok_slot = args[2]
         valid = (tok_slot >= 0)[:, None]
         diff = [(a != b) & valid for a, b in zip(kern, twin)]
@@ -2772,12 +2942,10 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
     reset_counts()
     for run in range(1 + BF16_RUNS):
         sp16 = quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
-        torch.cuda.synchronize()
+        got = timed_serve(sp16, early, late)
+        outs16 = [list(r.output_ids) for r in got["reqs"]]
         if run:
-            walls.append(time.perf_counter() - t0)
+            walls.append(got)
         if sum(map(len, outs16)) != MAX_NEW * len(outs16):
             raise AssertionError("bf16 MoE serving: malformed streams")
     gmm, tc = gmm_counts(), gmm_tc_counts()
@@ -2785,14 +2953,12 @@ def phase_moe_serve(cfg, dev, card, dense_step_ms):
     if gmm["fp"] != want or tc != [want, 0] or sum(gmm.values()) != want:
         raise AssertionError(f"bf16 MoE serving: grouped-GEMM launches {gmm}"
                              f", tensor-core {tc}, want {want}")
-    wall = sorted(walls)[len(walls) // 2]
     log(f"[moe] serve (cf 1.25) bf16: {sp16.steps} steps per run, "
         f"{tc[0]} grouped-GEMM launches in {1 + BF16_RUNS} runs, all on the "
-        f"tensor-core kernel; median of "
-        f"{BF16_RUNS} runs {wall:.3f} s, mean step "
-        f"{1e3 * wall / sp16.steps:.3f} ms beside the dense GPT-125M bf16 "
-        f"step of phase 6, {dense_step_ms:.3f} ms (runs: "
-        f"{', '.join(f'{w:.3f}' for w in walls)} s) ({card})")
+        f"tensor-core kernel; median of {BF16_RUNS} runs from the end of "
+        f"the first step: mean step {median_run(walls)['step_ms']:.3f} ms "
+        f"beside the dense GPT-125M bf16 step of phase 6, "
+        f"{dense_step_ms:.3f} ms (runs: {step_list(walls)} ms) ({card})")
     profile_serve(quant_predictor(model, mcfg, {}, dev, dtype=torch.bfloat16),
                   early, late, card, "[moe] (cf 1.25)")
     launches["tc"] = tc[0]
@@ -2873,11 +3039,7 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
         reset_counts()
         for _ in range(MOE_QUANT_RUNS):
             sp = quant_predictor(model, mcfg, quant, dev, dtype=bf16)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve(sp, early, late)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+            walls.append(timed_serve(sp, early, late)["step_ms"])
         gmm, qmm = gmm_counts(), qmm_counts()
         if not (gmm[bits] == sum(gmm.values()) == gmm_sk_count()
                 and qmm[bits] == sum(qmm.values()) == qmm_tc_count()):
@@ -2890,11 +3052,12 @@ def moe_serve_quant_bf16(model, mcfg, cfg, dev, card, launches):
         prof = profile_serve(sp, early, late, card, f"[moe] ({label})")
         st = dict(step_ms=walls, steps=sp.steps, held=held, flips=cmp.flips)
         if prof is not None:
-            st.update(busy_ms=prof[1] / 1e3 / sp.steps,
-                      gmm_ms=prof[0]["grouped GEMM"][0] / 1e3 / sp.steps,
-                      qmm_ms=prof[0]["weight-only GEMM"][0] / 1e3
-                      / sp.steps)
-        log(f"[moe] serve ({label}) bf16: mean step "
+            groups, busy, steps = prof
+            st.update(busy_ms=busy / 1e3 / steps,
+                      gmm_ms=groups["grouped GEMM"][0] / 1e3 / steps,
+                      qmm_ms=groups["weight-only GEMM"][0] / 1e3 / steps)
+        log(f"[moe] serve ({label}) bf16: mean step (from the end of the "
+            "first step) "
             + " / ".join(f"{w:.3f}" for w in walls) + " ms; device busy "
             + (f"{st['busy_ms']:.4f} ms a step, the grouped GEMM "
                f"{st['gmm_ms']:.4f} and the weight-only GEMM "
@@ -3246,6 +3409,216 @@ def phase_attention_routing(dev):
                                  f"err {err}")
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+# the phase-6 requests in 14 pages of 64 tokens: two preemptions and one
+# copy-on-write copy (the schedule is count-driven, the same for every form)
+CAPTURE_PAGES = 14
+# (label, config fields, predictor fields, dtype): every unified form
+CAPTURE_FORMS = (
+    ("per-op fp32", {}, {}, torch.float32),
+    ("per-op bf16", {}, {}, torch.bfloat16),
+    ("per-op fp16", {}, {}, torch.float16),
+    ("int8 + int8 KV (bf16)", dict(weight_dtype="int8"),
+     dict(kv_cache_dtype="int8"), torch.bfloat16),
+    ("int4 g128 + int8 KV (bf16)", dict(weight_dtype="int4",
+                                 weight_quant_group_size=128),
+     dict(kv_cache_dtype="int8"), torch.bfloat16),
+    ("mega (bf16)", {}, dict(mega_decode=True), torch.bfloat16),
+    ("MoE (bf16)", dict(MOE, moe_capacity_factor=1.25), {},
+     torch.bfloat16))
+CAPTURE_TIMED = ("per-op bf16", "mega (bf16)", "MoE (bf16)")
+CAPTURE_RUNS = 5
+
+
+class EagerStep:
+    """Stands in for a predictor's unified step and runs every call op by
+    op (``UnifiedStep.eager``, never captured): phase 15's baseline."""
+
+    def __init__(self, sp):
+        self.step = sp._unified
+        sp._unified = self
+
+    @property
+    def trace_count(self):
+        return self.step.trace_count
+
+    def __call__(self, *args):
+        return self.step.eager(*args)
+
+
+def capture_form_predictor(label, models, dev, engine, **kw):
+    """Form ``label``'s predictor: ``engine`` "captured" is the default
+    (the captured step, the async engine), "eager" the synchronous engine
+    on :class:`EagerStep`."""
+    _, quant, fields, dtype = next(f for f in CAPTURE_FORMS
+                                   if f[0] == label)
+    model = models["moe" if "moe_experts" in quant else "dense"]
+    quant = {k: v for k, v in quant.items() if k not in MOE}
+    sp = quant_predictor(model, model.config, quant, dev, dtype=dtype,
+                         async_engine=engine == "captured", **fields, **kw)
+    if engine == "eager":
+        EagerStep(sp)
+    return sp
+
+
+def capture_launch_check(label, sp, cfg, bits):
+    """The launches one served run of form ``label`` (weights ``bits``,
+    ``None`` for fp) must have made, every step's counted once, replays
+    included: returns them, raises if off."""
+    from paddle_tpu_torch.ops import fused_mlp
+
+    steps, n = sp.steps, sp.steps * cfg.num_layers
+    ragged_n, qmm, gmm = read_counts()[1], qmm_counts(), gmm_counts()
+    attn_n, mlp_n = mega_counts()
+    fused = sum(f.launches for f in (fused_mlp.ln_fwd, fused_mlp.gelu_fwd))
+    want = dict(ragged=0 if sp.mega_decode else n,
+                mega=(n, n) if sp.mega_decode else (0, 0),
+                gmm=2 * n if sp.config.moe_experts else 0,
+                qmm=0)
+    if bits:
+        want["qmm"] = (2 if sp.config.moe_experts else 4) * n
+    got = dict(ragged=ragged_n, mega=(attn_n, mlp_n),
+               gmm=sum(gmm.values()), qmm=sum(qmm.values()))
+    if got != want or not steps or fused or (bits and qmm[bits] != want[
+            "qmm"]):
+        raise AssertionError(f"({label}) launches {got}, want {want} over "
+                             f"{steps} steps (fused {fused})")
+    return got
+
+
+def step_launches(sp) -> dict:
+    """The launches one unified step of ``sp`` makes by kernel group
+    (:func:`group_launches`): the attention kernels 12, the mega pair 24,
+    the grouped GEMM 24 (MoE), the weight-only GEMM 48 (24 with MoE)."""
+    cfg, n = sp.config, sp.config.num_layers
+    quant = isinstance(sp.params["layers"]["wqkv"], dict)
+    return {"ragged kernel": 0 if sp.mega_decode else n,
+            "paged decode kernel": 0,
+            "mega kernels": 2 * n if sp.mega_decode else 0,
+            "grouped GEMM": 2 * n if cfg.moe_experts else 0,
+            "weight-only GEMM": ((2 if cfg.moe_experts else 4) * n
+                                 if quant else 0)}
+
+
+def phase_captured(model, cfg, moe_cfg, dev, card):
+    """15. Every unified form served on the captured step with the async
+    engine (the defaults) beside the synchronous engine on the eager step
+    (:class:`EagerStep`): the phase-6 requests in ``CAPTURE_PAGES`` pages
+    (two preemptions, one copy-on-write copy); the streams equal token for
+    token, one capture over the run, the launches of every step counted
+    once (ragged launches = steps x 12 on the per-op forms), no twin route.
+    Then the bf16 per-op, mega and MoE runs timed in turns (median of
+    ``CAPTURE_RUNS`` each, from the end of the first step: the capture
+    happens in it) and one profiled run of each engine. Returns the
+    captured runs' launches by form and the timings."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch import ops
+
+    early, late = requests(cfg)
+    models = {"dense": model, "moe": moe_model(
+        replace(moe_cfg, moe_capacity_factor=1.25), dev)}
+    launches, timing = {}, {}
+    for label, *_ in CAPTURE_FORMS:
+        runs = {}
+        for engine in ("captured", "eager"):
+            if ops.twin_routes():
+                raise AssertionError(f"{ops.twin_routes()} twin routes")
+            sp = capture_form_predictor(label, models, dev, engine,
+                                        num_pages=CAPTURE_PAGES)
+            reset_counts()
+            reqs = serve(sp, early, late)
+            torch.cuda.synchronize()
+            got = capture_launch_check(label, sp, sp.config, next(
+                f[1].get("weight_dtype") for f in CAPTURE_FORMS
+                if f[0] == label))
+            tel = sp.telemetry()
+            runs[engine] = (sp, [list(r.output_ids) for r in reqs], tel, got)
+            if ops.twin_routes():
+                raise AssertionError(f"({label}, {engine}) ran "
+                                     f"{ops.twin_routes()} plain twins")
+        (sp, outs, tel, got), (sp_e, outs_e, tel_e, _) = (runs["captured"],
+                                                          runs["eager"])
+        same = sum(a == b for o, w in zip(outs, outs_e) for a, b in zip(o, w))
+        log(f"[capture] {label}: {sp.steps} steps ({sp_e.steps} eager), "
+            f"captures {sp.decode_trace_count} (eager step "
+            f"{sp_e.decode_trace_count}), launches {got}, preemptions "
+            f"{tel['serving_preemptions']:.0f}, CoW copies "
+            f"{tel['kv_cow_copies']:.0f}, prefix-hit tokens "
+            f"{tel['kv_prefix_hit_tokens']:.0f}, hard syncs "
+            f"{sp.hard_syncs} ({sp_e.hard_syncs} sync), steady hits "
+            f"{sp.steady_hits}, step_gap_frac {sp.step_gap_frac:.3f} "
+            f"({sp_e.step_gap_frac:.3f} sync), host_ms_per_step "
+            f"{sp.host_ms_per_step:.3f} ({sp_e.host_ms_per_step:.3f} sync); "
+            f"streams equal to the eager sync engine's in {same} of "
+            f"{sum(map(len, outs_e))} tokens")
+        if outs != outs_e or sum(map(len, outs)) != MAX_NEW * len(outs):
+            raise AssertionError(f"({label}) captured async streams differ "
+                                 "from the eager sync engine's")
+        if sp.decode_trace_count != 1 or sp_e.decode_trace_count != 0:
+            raise AssertionError(f"({label}) captures {sp.decode_trace_count}"
+                                 f" (eager {sp_e.decode_trace_count})")
+        if (sp.steps != sp_e.steps or tel["serving_preemptions"] < 1
+                or tel["kv_cow_copies"] < 1
+                or tel["serving_preemptions"] != tel_e["serving_preemptions"]):
+            raise AssertionError(f"({label}) churn: {sp.steps} / "
+                                 f"{sp_e.steps} steps, preemptions "
+                                 f"{tel['serving_preemptions']}, CoW "
+                                 f"{tel['kv_cow_copies']}")
+        counts = unified_of(sp._unified).replay_counts
+        replay = {k: v for k, v in (counts[0] if counts else {}).items()
+                  if v}
+        log(f"[capture] {label}: one replay launches {replay}")
+        launches[label] = dict(got, replay=replay)
+        del sp, sp_e, runs
+    # the bf16 A/B: captured + async vs eager + sync, in turns, each run a
+    # fresh predictor on the default pool (phase 6's runs)
+    for label in CAPTURE_TIMED:
+        walls = {"captured": [], "eager": []}
+        for run in range(CAPTURE_RUNS):
+            for engine in (("captured", "eager") if run % 2
+                           else ("eager", "captured")):
+                sp = capture_form_predictor(label, models, dev, engine)
+                walls[engine].append(timed_serve(sp, early, late))
+        st = {}
+        for engine, rows in walls.items():
+            med = median_run(rows)
+            st[engine] = dict(step_ms=med["step_ms"], tok_s=med["tok_s"],
+                              gap=med["gap"], host_ms=med["host_ms"],
+                              runs=[r["step_ms"] for r in rows])
+            log(f"[capture] {label} {engine}: mean step "
+                f"{med['step_ms']:.3f} ms (median of {CAPTURE_RUNS}; runs "
+                f"{step_list(rows)} ms), {med['tok_s']:.1f} tokens/s, "
+                f"step_gap_frac {med['gap']:.3f}, host_ms_per_step "
+                f"{med['host_ms']:.3f} ({card})")
+        for engine in ("captured", "eager"):
+            sp = capture_form_predictor(label, models, dev, engine)
+            groups, busy, steps = profile_serve(
+                sp, early, late, card, f"[capture] ({label}, {engine})",
+                top=10, need=True)
+            seen = {g: c for g, (_, c) in groups.items() if c}
+            # every step of the window launches what one replay holds
+            want = {g: steps * n for g, n in step_launches(sp).items()}
+            got = {g: groups[g][1] for g in want}
+            if got != want:
+                raise AssertionError(f"({label}, {engine}) the trace's "
+                                     f"launches {got} over {steps} steps, "
+                                     f"want {want}")
+            st[engine].update(busy_ms=busy / 1e3 / steps, prof_steps=steps,
+                              kernels=seen)
+            log(f"[capture] ({label}, {engine}) the profiler's kernel "
+                f"groups over {steps} steps ({steps * cfg.num_layers} "
+                f"layer-steps): {seen}, as many as the steps launch; device"
+                f" busy {busy / 1e3 / steps:.4f} ms a step")
+        log(f"[capture] {label}: captured + async {st['captured']['step_ms']:.3f}"
+            f" ms a step vs eager + sync {st['eager']['step_ms']:.3f} ms: "
+            f"{st['eager']['step_ms'] / st['captured']['step_ms']:.2f}x "
+            f"({card})")
+        timing[label] = st
+    return launches, timing
+
+
 # -- phase 12 ---------------------------------------------------------------
 
 
@@ -3462,28 +3835,26 @@ def phase_legacy_serve(model, cfg, dev, card, fp_outs, quant_streams,
         for unified in ((False, True) if run % 2 else (True, False)):
             sp16 = ServingPredictor(model, max_batch=8, device=dev,
                                     dtype=torch.bfloat16, unified=unified)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs16 = [list(r.output_ids) for r in serve(sp16, early, late)]
-            torch.cuda.synchronize()
+            got = timed_serve(sp16, early, late)
+            outs16 = [list(r.output_ids) for r in got["reqs"]]
             if run:
-                runs[unified].append((time.perf_counter() - t0, sp16.steps))
+                runs[unified].append(got)
             if sum(map(len, outs16)) != MAX_NEW * len(outs16):
                 raise AssertionError("bf16 legacy / unified: malformed "
                                      "streams")
     ms = {}
     for unified, rs in runs.items():
-        wall, steps = sorted(rs)[len(rs) // 2]
-        ms[unified] = (wall, 1e3 * wall / steps)
+        med = median_run(rs)
+        ms[unified] = (med["wall"], med["step_ms"])
         log(f"[legacy] serve bf16 {'unified' if unified else 'legacy'}: "
-            f"{steps} steps per run; median of {BF16_RUNS} runs {wall:.3f} s"
-            f" = {MAX_NEW * 8 / wall:.1f} tokens/s, mean step "
-            f"{ms[unified][1]:.3f} ms (runs: "
-            f"{', '.join(f'{w:.3f}' for w, _ in rs)} s) ({card})")
-    log(f"[legacy] serve bf16 generate wall legacy {ms[False][0]:.3f} s vs "
-        f"unified {ms[True][0]:.3f} s; mean step legacy {ms[False][1]:.3f} "
-        f"ms vs unified {ms[True][1]:.3f} ms (phase 6: {fp16_step_ms:.3f} "
-        f"ms) ({card})")
+            f"{med['steps'] + 1} steps per run; median of {BF16_RUNS} runs "
+            f"from the end of the first step {med['wall']:.3f} s = "
+            f"{med['tok_s']:.1f} tokens/s, mean step {med['step_ms']:.3f} ms"
+            f" (runs: {step_list(rs)} ms) ({card})")
+    log(f"[legacy] serve bf16 wall after the first step legacy "
+        f"{ms[False][0]:.3f} s vs unified {ms[True][0]:.3f} s; mean step "
+        f"legacy {ms[False][1]:.3f} ms vs unified {ms[True][1]:.3f} ms "
+        f"(phase 6: {fp16_step_ms:.3f} ms) ({card})")
     profile_serve(ServingPredictor(model, max_batch=8, device=dev,
                                    dtype=torch.bfloat16, unified=False),
                   early, late, card, "[legacy] (legacy)")
@@ -5815,16 +6186,13 @@ def paged_walks_only(root: Path) -> int:
         for run in range(3):
             sp = ServingPredictor(model, max_batch=8, device=dev,
                                   dtype=torch.bfloat16, mega_decode=mega)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve(sp, early, late)
-            torch.cuda.synchronize()
+            ms = timed_serve(sp, early, late)["step_ms"]
             if run:
-                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+                walls.append(ms)
         sp = ServingPredictor(model, max_batch=8, device=dev,
                               dtype=torch.bfloat16, mega_decode=mega)
         prof = profile_serve(sp, early, late, card, f"[paged-walks] {name}")
-        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        busy = None if prof is None else prof[1] / 1e3 / prof[2]
         steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
                            steps=sp.steps)
         log(f"[paged-walks] serve {name} bf16: mean step "
@@ -6073,18 +6441,15 @@ def mlp_gemms_only(root: Path) -> int:
         for run in range(3):
             sp = quant_predictor(model, cfg, quant, dev,
                                  dtype=torch.bfloat16, mega_decode=mega)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve(sp, early, late)
-            torch.cuda.synchronize()
+            ms = timed_serve(sp, early, late)["step_ms"]
             if run:
-                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+                walls.append(ms)
         sp = quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
                              mega_decode=mega)
         prof = profile_serve(sp, early, late, card, f"[mlp-gemms] {name}")
-        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        busy = None if prof is None else prof[1] / 1e3 / prof[2]
         groups = None if prof is None else {
-            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            g: round(us / 1e3 / prof[2], 4) for g, (us, _) in
             prof[0].items() if us}
         steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
                            groups_ms_per_step=groups, steps=sp.steps)
@@ -6195,17 +6560,14 @@ def moe_gemms_only(root: Path) -> int:
         walls = []
         for run in range(3):
             sp = quant_predictor(model, cfg, quant, dev, dtype=bf16)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve(sp, early, late)
-            torch.cuda.synchronize()
+            ms = timed_serve(sp, early, late)["step_ms"]
             if run:
-                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+                walls.append(ms)
         sp = quant_predictor(model, cfg, quant, dev, dtype=bf16)
         prof = profile_serve(sp, early, late, card, f"[moe-gemms] {name}")
-        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        busy = None if prof is None else prof[1] / 1e3 / prof[2]
         groups = None if prof is None else {
-            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            g: round(us / 1e3 / prof[2], 4) for g, (us, _) in
             prof[0].items() if us}
         steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
                            groups_ms_per_step=groups, steps=sp.steps)
@@ -6402,17 +6764,14 @@ def int4_decode_only(root: Path) -> int:
         walls = []
         for run in range(3):
             sp = make()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve(sp, early, late)
-            torch.cuda.synchronize()
+            ms = timed_serve(sp, early, late)["step_ms"]
             if run:
-                walls.append(1e3 * (time.perf_counter() - t0) / sp.steps)
+                walls.append(ms)
         sp = make()
         prof = profile_serve(sp, early, late, card, f"[int4-decode] {name}")
-        busy = None if prof is None else prof[1] / 1e3 / sp.steps
+        busy = None if prof is None else prof[1] / 1e3 / prof[2]
         groups = None if prof is None else {
-            g: round(us / 1e3 / sp.steps, 4) for g, (us, _) in
+            g: round(us / 1e3 / prof[2], 4) for g, (us, _) in
             prof[0].items() if us}
         steps[name] = dict(step_ms=walls, busy_ms_per_step=busy,
                            groups_ms_per_step=groups, steps=sp.steps)
@@ -6506,6 +6865,118 @@ def moe_forward_only(root: Path) -> int:
     print(json.dumps({"moe_forward": dict(
         package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
         **out)}), flush=True)
+    return 0
+
+
+def capture_only(root: Path) -> int:
+    """``--ab capture [ROOT]``: only phase 15 (every unified form on the
+    captured step and the async engine beside the eager step and the
+    synchronous engine; the bf16 A/B in turns) on GPT-125M, with the
+    ``paddle_tpu_torch`` package at ``ROOT`` (it must have the captured
+    step); builds the four kernel sources serving runs first, in parallel;
+    prints one JSON line."""
+    sys.path.insert(0, str(root))
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build(["ragged_paged_attention", "quant_matmul", "mega_decode",
+                  "grouped_matmul"])
+    log(f"[build] four kernel sources in {time.perf_counter() - t0:.1f} s")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    launches, timing = phase_captured(model, cfg, replace(cfg, **MOE), dev,
+                                      card)
+    print(json.dumps({"capture": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        launches={k: {n: v for n, v in st.items() if n != "replay"}
+                  for k, st in launches.items()},
+        timing=timing)}, default=str), flush=True)
+    return 0
+
+
+def serve_steps_only(root: Path) -> int:
+    """``--ab serve-steps [ROOT]``: GPT-125M bf16 served with the
+    ``paddle_tpu_torch`` package at ``ROOT`` on its defaults, per-op, mega
+    and MoE (4 experts, top-2, cf 1.25), over phase 6's requests: one
+    warm-up run, then ``CAPTURE_RUNS`` runs of each in turns, each from
+    the end of its first step (:func:`timed_serve`). Where the package has
+    the captured step, the same forms also run on the eager step with the
+    synchronous engine (:class:`EagerStep`). A step A/B with another
+    package runs this part for both as parent, change, change, parent.
+    Prints one JSON line: by form and engine, the median mean step,
+    tokens/s, the runs and a digest of the streams."""
+    sys.path.insert(0, str(root))
+    import hashlib
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, UnifiedStep
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build(["ragged_paged_attention", "quant_matmul", "mega_decode",
+                  "grouped_matmul"])
+    log(f"[build] four kernel sources in {time.perf_counter() - t0:.1f} s")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    dense = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    dense.eval()
+    moe = moe_model(replace(cfg, moe_capacity_factor=1.25, **MOE), dev)
+    early, late = requests(cfg)
+    forms = {"per-op": (dense, None), "mega": (dense, True),
+             "MoE": (moe, None)}
+    engines = ["default"] + (["eager"] if hasattr(UnifiedStep, "eager")
+                             else [])
+
+    def run(form, engine):
+        model, mega = forms[form]
+        kw = {"async_engine": False} if engine == "eager" else {}
+        sp = quant_predictor(model, model.config, {}, dev,
+                             dtype=torch.bfloat16, mega_decode=mega, **kw)
+        if engine == "eager":
+            EagerStep(sp)
+        got = timed_serve(sp, early, late)
+        outs = [list(r.output_ids) for r in got["reqs"]]
+        if sum(map(len, outs)) != MAX_NEW * len(outs):
+            raise AssertionError(f"({form}, {engine}) malformed streams")
+        got["digest"] = hashlib.sha1(json.dumps(outs).encode()).hexdigest()
+        return got
+
+    cells = [(f, e) for f in forms for e in engines]
+    for cell in cells:
+        run(*cell)
+    rows = {cell: [] for cell in cells}
+    for i in range(CAPTURE_RUNS):
+        for cell in (cells if i % 2 else cells[::-1]):
+            rows[cell].append(run(*cell))
+    out = {}
+    for (form, engine), rs in rows.items():
+        med = median_run(rs)
+        out[f"{form} {engine}"] = dict(
+            step_ms=med["step_ms"], tok_s=med["tok_s"],
+            runs=[r["step_ms"] for r in rs], steps=med["steps"] + 1,
+            digest=sorted({r["digest"] for r in rs}))
+        log(f"[serve-steps] {form} {engine}: mean step {med['step_ms']:.3f}"
+            f" ms (median of {CAPTURE_RUNS}; runs {step_list(rs)} ms), "
+            f"{med['tok_s']:.1f} tokens/s, {med['steps'] + 1} steps, "
+            f"streams {out[f'{form} {engine}']['digest']} ({card})")
+    print(json.dumps({"serve_steps": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        steps=out)}), flush=True)
     return 0
 
 
@@ -6721,7 +7192,8 @@ def main() -> int:
              "paged-walks": paged_walks_only, "mlp-gemms": mlp_gemms_only,
              "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
              "flash": flash_ab_only, "ln-bwd": ln_bwd_only,
-             "qmm-dx": qmm_dx_only, "moe-dx": moe_dx_only}
+             "qmm-dx": qmm_dx_only, "moe-dx": moe_dx_only,
+             "capture": capture_only, "serve-steps": serve_steps_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -6853,6 +7325,11 @@ def main() -> int:
     gmm = timed(phase_gmm, dev, card)
     moe_cfg = replace(cfg, **MOE)
     gmm_launches = timed(phase_moe_serve, moe_cfg, dev, card, fp16_step_ms)
+
+    # 15. every unified form on the captured step and the async engine,
+    # beside the eager step and the synchronous engine
+    capture_launches = timed(phase_captured, model, cfg, moe_cfg, dev,
+                             card)[0]
     moe_fwd = timed(phase_moe_forward,
                     replace(moe_cfg, moe_capacity_factor=1.25), dev, card)
     gmm_bwd_launches = timed(phase_moe_grads,
@@ -6999,6 +7476,24 @@ def main() -> int:
                        "launches: the flash_attn_unpadded calls of phase 13 "
                        "(c)"))})
     row_of = {k["name"]: k for k in kernels}
+    # the rows phase 15 runs inside the captured step: launches one replay
+    # of each form's capture holds
+    for name, key in (
+            ("ragged_paged_attention", ("ragged_paged_attention",
+                                        "launches", None)),
+            ("quant_matmul_int8", ("quant_matmul_fwd", "launches", "int8")),
+            ("quant_matmul_int4", ("quant_matmul_fwd", "launches", "int4")),
+            ("mega_attn", ("mega_attn_layer", "launches", None)),
+            ("mega_mlp", ("mega_mlp", "launches", None)),
+            ("grouped_matmul_fp", ("grouped_matmul_fwd", "launches", "fp"))):
+        row_of[name]["captured_replay"] = {
+            label: st["replay"][key] for label, st in capture_launches.items()
+            if st["replay"].get(key)}
+        # the main path's steps replay captures: the wrapper adds a
+        # capture's launches a replay, and phase 15 held that to the
+        # profiler's count of the kernels the replays ran
+        row_of[name]["launches_from"] = ("counters; on the captured step a "
+                                         "replay adds its capture's launches")
     for i, part in enumerate(("attn", "mlp")):   # gpt3-760m / 2.7b widths
         row_of[f"mega_{part}"]["wide_launches"] = wide_launches[i]
     serving, long_fwd, long_bwd = flash[bf16], flash["long"], bwd["long"]

@@ -38,6 +38,7 @@ import torch
 from .._device import resolve_device
 from ..observability import MetricsRegistry
 from ..ops.paged_attention import PAGE_SIZE_DEFAULT
+from .staging import STAGING_SLOTS_DEFAULT, DeviceBuffer
 
 
 def kv_cache_quantized(kv_cache_dtype) -> bool:
@@ -248,14 +249,17 @@ class KVCacheManager:
     scale planes ``k_scales`` / ``v_scales`` ``[num_layers, num_pages + 1,
     page_size, kv_heads]`` — one scale per (page slot, head), so a scale
     travels with its page through copy-on-write and prefix sharing;
-    ``dtype`` stays the compute dtype.
+    ``dtype`` stays the compute dtype. ``staging_slots``: pinned host
+    buffers behind each device view (``inference/staging.py``), one per
+    step the serving engine may have in flight, plus one.
     """
 
     def __init__(self, num_layers, num_kv_heads, head_dim, *, num_pages,
                  max_batch, max_seq_len, page_size=None,
                  dtype=torch.float32, enable_prefix_cache=False,
                  quantize_kv=False, mesh=None, metrics=None,
-                 host_tier_bytes=0, device=None):
+                 host_tier_bytes=0, device=None,
+                 staging_slots=STAGING_SLOTS_DEFAULT):
         if mesh is not None:
             raise NotImplementedError(
                 "head-sharded pools are the multi-GPU serving slice")
@@ -287,8 +291,14 @@ class KVCacheManager:
         self._seq_lens = np.zeros((self.max_batch,), np.int32)
         self._pt_rev = 0
         self._sl_rev = 0
-        self._pt_dev = (-1, None)
-        self._sl_dev = (-1, None)
+        # the step's device views: persistent buffers (a captured step
+        # keeps their addresses), refreshed in place through pinned staging
+        # when a mutator changed the host copy since the last refresh
+        self._pt_buf = DeviceBuffer(self._page_table.shape, torch.int32,
+                                    self.device, staging_slots)
+        self._sl_buf = DeviceBuffer(self._seq_lens.shape, torch.int32,
+                                    self.device, staging_slots)
+        self._pt_sent = self._sl_sent = -1
         self._free_pages = list(range(self.num_pages - 1, -1, -1))  # pop()
         self._free_slots = list(range(self.max_batch - 1, -1, -1))
         self.enable_prefix_cache = bool(enable_prefix_cache)
@@ -577,20 +587,24 @@ class KVCacheManager:
         return self.k_pool, self.v_pool
 
     def page_table_device(self) -> torch.Tensor:
-        """The page table on the pools' device, uploaded only when a
-        mutator changed it since the last upload."""
-        rev, dev = self._pt_dev
-        if rev != self._pt_rev:
-            dev = torch.from_numpy(self._page_table.copy()).to(self.device)
-            self._pt_dev = (self._pt_rev, dev)
-        return dev
+        """The page table on the pools' device: ONE persistent buffer,
+        refreshed in place (a queued copy, ordered after every step already
+        dispatched) only when a mutator changed it since the last refresh.
+        Unlike the reference's snapshots, a later refresh rewrites what an
+        earlier call returned: a step reads it in stream order, before the
+        next refresh lands."""
+        if self._pt_sent != self._pt_rev:
+            self._pt_buf.put(self._page_table)
+            self._pt_sent = self._pt_rev
+        return self._pt_buf.tensor
 
     def seq_lens_device(self) -> torch.Tensor:
-        rev, dev = self._sl_dev
-        if rev != self._sl_rev:
-            dev = torch.from_numpy(self._seq_lens.copy()).to(self.device)
-            self._sl_dev = (self._sl_rev, dev)
-        return dev
+        """``seq_lens`` on the pools' device, kept like
+        :meth:`page_table_device`."""
+        if self._sl_sent != self._sl_rev:
+            self._sl_buf.put(self._seq_lens)
+            self._sl_sent = self._sl_rev
+        return self._sl_buf.tensor
 
     def seq_len(self, slot: int) -> int:
         return int(self._seq_lens[slot])

@@ -1,5 +1,5 @@
 """Continuous-batching serving over the paged KV cache — port of
-``paddle_tpu/inference/serving.py`` with its synchronous engine.
+``paddle_tpu/inference/serving.py``.
 
 Every scheduler round packs ONE unified step (``models/gpt.py
 build_unified_step``) over a per-step token budget:
@@ -36,9 +36,29 @@ stacked weights after the cast to ``dtype``, and ``kv_cache_dtype="int8"``
 (or the config's) keeps the KV pools int8; ``mega_decode=True`` (or the
 config's) serves every round through the mega kernels. MoE configs
 (``moe_experts``) serve on the per-op unified step, their expert stacks
-quantized per expert with the weights. Not ported here: the async
-dispatch-ahead engine (``async_engine=True`` raises), SLO shedding,
-deadlines and fault injection; speculation config flags raise.
+quantized per expert with the weights.
+
+The async dispatch-ahead engine (the default on the unified path, as in
+the reference; ``async_engine=False`` selects the synchronous engine, the
+same pack and capacity code at pipeline depth zero): ``step()`` packs and
+dispatches round N, then lands round N-1's tokens. Decode lanes whose
+input token is still on the device read it from the previous step's
+``next_toks`` (the ``feedback`` lanes), so host bookkeeping that needs
+only token COUNTS (page growth, admission, budget retirement, prefix
+registration) runs at pack time and bookkeeping that needs token VALUES
+(``output_ids``, eos, TTFT, preemption-replay contexts) reconciles one
+step behind. A step whose emissions could finish a request (eos set, or
+the output budget reachable) reconciles behind-by-one; steps that cannot
+complete anything defer up to ``max_inflight_steps`` and land in one
+batch (``flush()``). Every upload goes through pinned staging
+(``inference/staging.py``) into persistent device buffers: the step on a
+CUDA device is a captured graph that reads them, and no upload waits for
+the step in flight. The one hard sync is the reconcile's wait for a ring
+entry's copied-out ``next_toks``. Greedy streams are bit-identical, and
+seeded sampled streams identical, to the synchronous engine's.
+
+Not ported here: speculation (config flags raise), SLO shedding,
+deadlines and fault injection.
 """
 from __future__ import annotations
 
@@ -53,6 +73,7 @@ from ..observability import MetricsRegistry
 from ..ops.paged_attention import CHUNK_DEFAULT, PAGE_SIZE_DEFAULT
 from .kv_cache import KVCacheManager, kv_cache_quantized, pages_needed
 from .quantize import quantize_serving_params
+from .staging import DeviceBuffer
 
 WAITING, RUNNING, FINISHED, FAILED = ("waiting", "running", "finished",
                                       "failed")
@@ -83,6 +104,7 @@ class Request:
         self.eos_token_id = eos_token_id
         self.error: dict | None = None
         self.retry_count = 0
+        self._finish_counted = False
         # temperature == 0 -> greedy argmax; the seed defaults to the
         # request id so a preemption replay re-samples the SAME stream
         self.temperature = float(temperature)
@@ -90,6 +112,10 @@ class Request:
         self.top_p = float(top_p)
         self.seed = self.req_id if seed is None else int(seed)
         self.output_ids: list[int] = []
+        # tokens the async engine dispatched for this request whose values
+        # have not reached the host yet: they count toward the output
+        # budget and the context length; their values land at reconcile
+        self._pending_n = 0
         self.state = WAITING
         self.preempt_count = 0
         self.truncated = False  # stopped by the max_seq_len ceiling
@@ -100,12 +126,18 @@ class Request:
 
     @property
     def done(self) -> bool:
-        return self.truncated or stream_done(
-            self.output_ids, self.max_new_tokens, self.eos_token_id)
+        if self.truncated:
+            return True
+        if len(self.output_ids) + self._pending_n >= self.max_new_tokens:
+            return True
+        return (self.eos_token_id is not None and bool(self.output_ids)
+                and self.output_ids[-1] == self.eos_token_id)
 
     @property
     def _ctx_len(self) -> int:
-        return len(self.prompt_ids) + len(self.output_ids)
+        """Context length including dispatched tokens not yet landed — what
+        the count-based packing sees."""
+        return len(self.prompt_ids) + len(self.output_ids) + self._pending_n
 
     @property
     def ttft(self) -> float | None:
@@ -120,42 +152,99 @@ class Request:
         return self.prompt_ids + self.output_ids
 
 
+class _Pending:
+    """One dispatched, not yet reconciled unified step: an entry of the
+    async engine's in-flight ring. ``out`` is the host copy of the step's
+    ``next_toks`` (filled by a queued device-to-host copy; ``ready`` is its
+    CUDA event, ``None`` on the CPU), ``completing`` the ``(slot, req)``
+    lanes that emit, ``must_sync`` whether an emission could finish a
+    request."""
+
+    __slots__ = ("out", "ready", "completing", "must_sync")
+
+    def __init__(self, out, ready, completing, must_sync):
+        self.out = out
+        self.ready = ready
+        self.completing = completing
+        self.must_sync = must_sync
+
+
+class _Feed:
+    """The unified step's small inputs, laid out in one int32 host array
+    and one persistent device buffer (each segment 16-byte aligned; fp32
+    segments are views of the same bytes): ``host[name]`` / ``dev[name]``.
+    :meth:`upload` refreshes the device buffer through pinned staging;
+    ``cached`` skips the copy when the host bytes equal the last ones
+    sent."""
+
+    def __init__(self, segments, device, slots, cached=False):
+        offsets, n = {}, 0
+        for name, size, _ in segments:
+            offsets[name] = n
+            n += -(-size // 4) * 4
+        self.array = np.zeros((max(n, 4),), np.int32)
+        self.buffer = DeviceBuffer(self.array.shape, torch.int32, device,
+                                   slots)
+        self.host, self.dev = {}, {}
+        for name, size, kind in segments:
+            lo = offsets[name]
+            h, d = self.array[lo:lo + size], self.buffer.tensor[lo:lo + size]
+            if kind == "f32":
+                h, d = h.view(np.float32), d.view(torch.float32)
+            self.host[name], self.dev[name] = h, d
+        self._sent = np.full_like(self.array, -1) if cached else None
+
+    def upload(self) -> None:
+        if self._sent is not None:
+            if np.array_equal(self._sent, self.array):
+                return
+            self._sent[...] = self.array
+        self.buffer.put(self.array)
+
+
 class ServingPredictor:
-    """Continuous-batching predictor for a GPT model (synchronous engine).
+    """Continuous-batching predictor for a GPT model.
 
     ``add_request`` enqueues; ``step`` runs one scheduler round (retire /
-    admit / grow / preempt around ONE unified-step launch, then lands its
-    tokens); ``generate`` drives ``step`` until a set of prompts finishes.
-    The model's weights are stacked once (``serving_params``), cast to
-    ``dtype`` when given, moved to ``device`` (``None`` = ``cuda:0``) and
-    then, when ``config.weight_dtype`` is set, quantized
+    admit / grow / preempt around ONE unified-step launch); ``generate``
+    drives ``step`` until a set of prompts finishes. The model's weights
+    are stacked once (``serving_params``), cast to ``dtype`` when given,
+    moved to ``device`` (``None`` = ``cuda:0``) and then, when
+    ``config.weight_dtype`` is set, quantized
     (``quantize_serving_params``). ``kv_cache_dtype`` (default: the
     config's) ``"int8"`` stores the KV pools int8. ``mega_decode``
     (default: the config's) runs every step's layers through the two mega
     kernels (``ops/mega_decode.py``) instead of the per-op chain; MoE
     configs cannot take it (``ValueError``, as in the reference).
-    ``unified=False`` runs the reference's legacy two-program path
-    (per-bucket prefill at admission + the decode step); it refuses an
-    int8 KV cache, speculation, ``mega_decode`` and MoE with the
-    reference's ``ValueError``s. ``max_seq_len`` (capped at the config's)
-    bounds every context; ``prefix_cache`` defaults to ``unified``.
+    ``async_engine`` (default: on for the unified path) dispatches ahead
+    and lands tokens one step behind (see the module docstring);
+    ``flush()`` lands every step in flight; ``max_inflight_steps`` bounds
+    the steps deferred. ``unified=False`` runs the reference's legacy
+    two-program path (per-bucket prefill at admission + the decode step),
+    eager and synchronous; it refuses the async engine, an int8 KV cache,
+    speculation, ``mega_decode`` and MoE with the reference's
+    ``ValueError``s. ``max_seq_len`` (capped at the config's) bounds every
+    context; ``prefix_cache`` defaults to ``unified``.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
                  max_seq_len=None, prefill_bucket=16, dtype=None,
                  unified=None, chunk=None, prefix_cache=None,
-                 kv_cache_dtype=None, async_engine=None, device=None,
-                 mega_decode=None):
+                 kv_cache_dtype=None, async_engine=None,
+                 max_inflight_steps=4, device=None, mega_decode=None):
         from ..models.gpt import (build_decode_step, build_prefill,
                                   build_unified_step, serving_params)
 
         gpt = model.gpt if hasattr(model, "gpt") else model
         self.config = cfg = gpt.config
-        if async_engine:
-            raise NotImplementedError(
-                "the async dispatch-ahead engine is a later port slice; "
-                "async_engine=None/False runs the synchronous engine")
         self.unified = unified is None or bool(unified)
+        self.async_engine = bool(self.unified if async_engine is None
+                                 else async_engine)
+        if self.async_engine and not self.unified:
+            raise ValueError(
+                "the async engine rides the unified step's device-resident "
+                "token feedback; the legacy two-jit path serves sync only")
+        self.max_inflight_steps = max(1, int(max_inflight_steps))
         self.device = resolve_device(device)
         self.metrics = MetricsRegistry()
         self._init_instruments()
@@ -213,6 +302,7 @@ class ServingPredictor:
             # are bf16-rounded
             self.params = quantize_serving_params(
                 self.params, cfg.weight_dtype, cfg.weight_quant_group_size)
+        slots = self.max_inflight_steps + 1
         self.cache = KVCacheManager(
             cfg.num_layers, cfg.num_heads, cfg.head_dim,
             num_pages=num_pages, max_batch=self.max_batch,
@@ -221,15 +311,40 @@ class ServingPredictor:
             enable_prefix_cache=(self.unified if prefix_cache is None
                                  else bool(prefix_cache)),
             quantize_kv=self.kv_quant, metrics=self.metrics,
-            device=self.device)
+            device=self.device, staging_slots=slots)
         self.token_budget = self.max_batch + self.chunk
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}   # slot -> request
         b, t = self.max_batch, self.token_budget
-        self._zeros_t = torch.zeros((t,), dtype=torch.int32,
-                                    device=self.device)
-        self._zeros_b = torch.zeros((b,), dtype=torch.int32,
-                                    device=self.device)
+        # the step's inputs: the per-round arrays, uploaded every round,
+        # and the slowly-changing ones (copy-on-write lanes, sampling
+        # parameters), uploaded when their bytes change
+        self._feed = _Feed(
+            [(n, t, "i32") for n in ("tok_ids", "tok_slot", "tok_pos",
+                                     "feedback")]
+            + [(n, b, "i32") for n in ("q_lens", "last_idx", "emit_mask",
+                                       "produced")], self.device, slots)
+        self._slow = _Feed(
+            [("cow_src", b, "i32"), ("cow_dst", b, "i32"),
+             ("seeds", b, "i32"), ("temp", b, "f32"), ("top_k", b, "i32"),
+             ("top_p", b, "f32")], self.device, slots, cached=True)
+        # the feedback carry: the last dispatch's next_toks (the sync
+        # engine keeps it zero: its lanes never read it)
+        self._prev = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        self._lane_seeds = np.zeros((b,), np.uint32)
+        self._inflight: deque[_Pending] = deque()
+        self._did_sync = False   # set by _reconcile_one, charged per call
+        # steady-decode pack cache (async): the last full pack re-served
+        # while the schedule signature holds
+        self._steady: dict | None = None
+        # perf accounting: wall intervals with no step in flight bound the
+        # device's idle gaps between steps from above; the window marks
+        # (reset_perf_stats) are plain timestamps
+        self._span_start = None
+        self._last_event = None
+        self._idle_since = None
+        self._w_marks = {"step_s": 0.0, "sync_s": 0.0, "gap_s": 0.0,
+                         "calls": 0.0}
         # the legacy path's per-slot decode input: each running slot's next
         # token to feed
         self._next_token = np.zeros((b,), np.int32)
@@ -238,8 +353,14 @@ class ServingPredictor:
         m = self.metrics
         self._m_steps = m.counter(
             "serving_steps", "scheduler rounds that dispatched a step")
+        self._m_step_calls = m.counter(
+            "serving_step_calls", "step() invocations (perf-window unit)")
         self._m_tokens = m.counter(
             "serving_tokens_emitted", "tokens emitted")
+        self._m_hard_syncs = m.counter(
+            "serving_hard_syncs", "step()/flush() calls that materialized")
+        self._m_steady = m.counter(
+            "serving_steady_hits", "async steady-decode pack-cache hits")
         self._m_preempt = m.counter(
             "serving_preemptions", "requests preempted back to the queue")
         self._m_admitted = m.counter(
@@ -254,10 +375,16 @@ class ServingPredictor:
         self._m_retries = m.counter(
             "serving_step_retries", "lane requeues after a failed step")
         self._m_step_s = m.counter(
-            "serving_step_seconds", "host wall seconds inside step()")
+            "serving_step_seconds", "host wall seconds inside step()/flush()")
+        self._m_sync_s = m.counter(
+            "serving_sync_seconds", "seconds blocked materializing outputs")
+        self._m_gap_s = m.counter(
+            "serving_gap_seconds", "wall seconds with no step in flight")
         self._m_ttft = m.histogram(
             "serving_ttft_ms", "submit -> first generated token",
             buckets=(1, 2, 5, 10, 25, 50, 100, 250, 1000, 5000))
+        self._m_inflight = m.gauge(
+            "serving_inflight_depth", "dispatched-unreconciled steps")
         self._m_running = m.gauge(
             "serving_running_lanes", "slots in RUNNING after a step")
         self._m_waiting = m.gauge(
@@ -274,9 +401,19 @@ class ServingPredictor:
         return int(self._m_tokens.value)
 
     @property
+    def hard_syncs(self) -> int:
+        return int(self._m_hard_syncs.value)
+
+    @property
+    def steady_hits(self) -> int:
+        return int(self._m_steady.value)
+
+    @property
     def decode_trace_count(self) -> int:
-        """Builds of the serving step (one per predictor): the unified step,
-        or on the legacy path the decode step."""
+        """Programs of the serving step: on the unified path the step's
+        captures on a CUDA device (one per geometry; the CPU counts the
+        geometries that ran), on the legacy path the decode step's builds
+        (one)."""
         return (self._unified if self.unified else self._decode).trace_count
 
     @property
@@ -295,6 +432,71 @@ class ServingPredictor:
         cache instruments)."""
         return self.metrics.snapshot_flat()
 
+    # -- perf accounting ---------------------------------------------------
+
+    def _mark_dispatch(self) -> None:
+        """A step was dispatched: any interval since the pipeline last
+        drained was a host-side bubble the device could not fill."""
+        now = time.monotonic()
+        if self._span_start is None:
+            self._span_start = now
+        if self._idle_since is not None:
+            self._m_gap_s.inc(now - self._idle_since)
+            self._idle_since = None
+        self._last_event = now
+
+    def _mark_drained(self) -> None:
+        """No dispatched, unmaterialized work remains."""
+        now = time.monotonic()
+        self._idle_since = now
+        self._last_event = now
+
+    def _window(self, key: str, counter) -> float:
+        """A duration counter's accumulation since the last
+        :meth:`reset_perf_stats`."""
+        return max(0.0, counter.value - self._w_marks[key])
+
+    @property
+    def step_gap_frac(self) -> float:
+        """Fraction of the measured window with no step in flight: the
+        host-observable upper bound on the device's idle gaps between
+        steps (the sync engine's pack and bookkeeping bubble; near 0 for
+        the async engine). The window starts at the first dispatch after
+        :meth:`reset_perf_stats`."""
+        if self._span_start is None or self._last_event is None:
+            return 0.0
+        window = self._last_event - self._span_start
+        if window <= 0:
+            return 0.0
+        return min(1.0, self._window("gap_s", self._m_gap_s) / window)
+
+    @property
+    def host_ms_per_step(self) -> float:
+        """Host milliseconds per ``step()`` outside the blocking waits for
+        the device: the scheduling and bookkeeping cost the async engine
+        overlaps with device execution."""
+        calls = self._window("calls", self._m_step_calls)
+        if not calls:
+            return 0.0
+        busy = (self._window("step_s", self._m_step_s)
+                - self._window("sync_s", self._m_sync_s))
+        return max(0.0, busy * 1e3 / calls)
+
+    def reset_perf_stats(self) -> None:
+        """Start a fresh measurement window (after a warm-up): the registry
+        counters are monotonic, the window is their delta against the
+        marks taken here."""
+        self._span_start = None
+        self._last_event = None
+        self._idle_since = None if self._inflight else time.monotonic()
+        if self._idle_since is not None:
+            self._span_start = self._idle_since
+            self._last_event = self._idle_since
+        self._w_marks = {"step_s": self._m_step_s.value,
+                         "sync_s": self._m_sync_s.value,
+                         "gap_s": self._m_gap_s.value,
+                         "calls": self._m_step_calls.value}
+
     # -- queue API ---------------------------------------------------------
 
     def add_request(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
@@ -310,7 +512,7 @@ class ServingPredictor:
         return req
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self._inflight)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -325,9 +527,16 @@ class ServingPredictor:
         self.waiting.appendleft(req)
         self._m_preempt.inc()
 
+    def _count_finished(self, req: Request) -> None:
+        """Count a finished request once, when its emissions are final (no
+        token of it still in flight)."""
+        if not req._finish_counted and req._pending_n == 0:
+            req._finish_counted = True
+            self._m_finished.inc()
+
     def _finish(self, req: Request) -> None:
         req.state = FINISHED
-        self._m_finished.inc()
+        self._count_finished(req)
 
     def _fail(self, req: Request, code: str, message) -> None:
         """Terminal FAILED with an error record; the caller has released
@@ -342,7 +551,7 @@ class ServingPredictor:
         past ``MAX_STEP_RETRIES`` such requeues the request FAILS."""
         req = self.running.pop(slot)
         self.cache.free(slot)
-        if req.done:
+        if req.done and req._pending_n == 0:
             self._finish(req)    # nothing left to replay
             return
         req._registered = False
@@ -426,13 +635,14 @@ class ServingPredictor:
                 cache.register_prefix(slot, req.prompt_ids[:written],
                                       include_tail=False)
 
-    # -- the step ----------------------------------------------------------
+    # -- the unified step --------------------------------------------------
 
-    def _schedule(self) -> tuple[dict[int, int], dict[int, tuple]]:
+    def _schedule(self):
         """Pack the token budget (decode lanes first, then prefill chunks
         FIFO by age), then run the capacity pass: ceiling stops, page
         growth, CoW claims, preempting the youngest under pressure.
-        Returns ``(slot -> tokens this step, slot -> (src, dst))``."""
+        Returns ``(slot -> tokens this step, slot -> (src, dst) of every
+        CoW claimed)``."""
         cache = self.cache
         budget = self.token_budget
         sched: dict[int, int] = {}
@@ -493,76 +703,119 @@ class ServingPredictor:
             if slot not in self.running:
                 sched.pop(slot, None)
         sched = {s: n for s, n in sched.items() if s in self.running}
-        return sched, {s: c for s, c in cows.items() if s in sched}
+        return sched, cows
 
-    def _dispatch(self, sched, cows) -> dict[int, list[int]]:
-        """Build the packed step arrays, run the unified step, land the
-        completing lanes' tokens."""
-        cache, b, t = self.cache, self.max_batch, self.token_budget
-        tok_ids = np.zeros((t,), np.int32)
-        tok_slot = np.full((t,), -1, np.int32)
-        tok_pos = np.zeros((t,), np.int32)
-        last_idx = np.full((b,), t, np.int32)   # idle-lane sentinel
-        q_lens = np.zeros((b,), np.int32)
-        emit_mask = np.zeros((b,), np.int32)
-        produced_n = np.zeros((b,), np.int32)
-        seeds = np.zeros((b,), np.int64)
-        temp = np.zeros((b,), np.float32)
-        top_k = np.zeros((b,), np.int32)
-        top_p = np.ones((b,), np.float32)
+    def _pack(self, sched, cows):
+        """Fill the host arrays of a full pack; returns the completing
+        ``(slot, req)`` lanes."""
+        cache = self.cache
+        h, sh = self._feed.host, self._slow.host
+        self._feed.array[...] = 0
+        h["tok_slot"][...] = -1
+        h["last_idx"][...] = self.token_budget   # idle-lane sentinel
+        sh["cow_src"][...] = cache.num_pages     # no-copy sentinel
+        sh["cow_dst"][...] = cache.num_pages
+        for slot, (src, dst) in cows.items():
+            if slot in sched:
+                sh["cow_src"][slot], sh["cow_dst"][slot] = src, dst
+        sh["temp"][...] = 0.0
+        sh["top_k"][...] = 0
+        sh["top_p"][...] = 1.0
         completing = []
         w = 0
         for slot in sorted(sched):
             n = sched[slot]
             req = self.running[slot]
             written = cache.seq_len(slot)
-            tok_ids[w:w + n] = req._context_ids()[written:written + n]
-            tok_slot[w:w + n] = slot
-            tok_pos[w:w + n] = np.arange(written, written + n)
-            last_idx[slot] = w + n - 1
-            q_lens[slot] = n
+            if req._pending_n:
+                # only a decode lane can have a token in flight (replays
+                # and prefills are value-barriered), and that token is the
+                # one it feeds: read it from the device carry
+                h["feedback"][w] = 1
+            else:
+                h["tok_ids"][w:w + n] = req._context_ids()[written:
+                                                           written + n]
+            h["tok_slot"][w:w + n] = slot
+            h["tok_pos"][w:w + n] = np.arange(written, written + n)
+            h["last_idx"][slot] = w + n - 1
+            h["q_lens"][slot] = n
             w += n
             if written + n == req._ctx_len:
-                emit_mask[slot] = 1
-                produced_n[slot] = len(req.output_ids)
-                seeds[slot] = req.seed
-                temp[slot] = req.temperature
-                top_k[slot] = req.top_k
-                top_p[slot] = req.top_p
+                h["emit_mask"][slot] = 1
+                h["produced"][slot] = len(req.output_ids) + req._pending_n
+                sh["temp"][slot] = req.temperature
+                sh["top_k"][slot] = req.top_k
+                sh["top_p"][slot] = req.top_p
+                if req.temperature > 0:
+                    self._lane_seeds[slot] = req.seed & 0xFFFFFFFF
                 completing.append((slot, req))
-        cow_src = cow_dst = None
-        if cows:
-            src = np.full((b,), cache.num_pages, np.int32)
-            dst = src.copy()
-            for slot, (s, d) in cows.items():
-                src[slot], dst[slot] = s, d
-            cow_src, cow_dst = self._put(src), self._put(dst)
-        # page-table / seq-len views are taken BEFORE this step's advance:
-        # kv_lens counts tokens cached before the step
+        sh["seeds"][...] = self._lane_seeds.view(np.int32)
+        return completing
+
+    def _pack_dispatch(self) -> _Pending | None:
+        """Schedule, pack the step's arrays and DISPATCH the unified step —
+        everything that needs only token counts. Returns the in-flight
+        entry (``None`` when nothing was scheduled); reads no device
+        value."""
+        cache = self.cache
+        sched, cows = self._schedule()
+        if not sched:
+            return None
+        # steady decode (async only): every scheduled lane is a feedback
+        # decode lane and the schedule matches the last full pack's, so the
+        # packed arrays differ only in positions and produced counts
+        steady_sig = None
+        if (self.async_engine and not cows
+                and all(n == 1 for n in sched.values())
+                and all(self.running[s]._pending_n > 0 for s in sched)):
+            steady_sig = tuple((s, self.running[s].req_id)
+                               for s in sorted(sched))
+        st = self._steady
+        if steady_sig is not None and st is not None \
+                and st["sig"] == steady_sig:
+            self._m_steady.inc()
+            completing = st["completing"]
+            h = self._feed.host
+            for w, (slot, req) in enumerate(completing):
+                h["tok_pos"][w] = cache.seq_len(slot)
+                h["produced"][slot] = len(req.output_ids) + req._pending_n
+        else:
+            completing = self._pack(sched, cows)
+            self._steady = (dict(sig=steady_sig, completing=completing)
+                            if steady_sig is not None else None)
+        # could an emission of this step FINISH a request? (the engine's
+        # sync-boundary predicate: eos set, or the output budget reachable)
+        must_sync = any(req.eos_token_id is not None
+                        or len(req.output_ids) + req._pending_n + 1
+                        >= req.max_new_tokens for _, req in completing)
+        self._feed.upload()
+        self._slow.upload()
+        d, sd = self._feed.dev, self._slow.dev
+        # the page-table / seq-len views are refreshed BEFORE this step's
+        # advance: kv_lens counts the tokens cached before the step
         next_toks = self._unified(
-            self.params, self._put(tok_ids), self._put(tok_slot),
-            self._put(tok_pos), self._put(q_lens), cache.seq_lens_device(),
-            self._put(last_idx), self._zeros_t, self._zeros_b,
-            self._put(emit_mask), self._put(produced_n), *cache.pools(),
-            cache.page_table_device(), cow_src, cow_dst,
-            self._put(seeds), self._put(temp), self._put(top_k),
-            self._put(top_p), sample=bool((temp > 0).any()))[0]
-        self._m_steps.inc()
+            self.params, d["tok_ids"], d["tok_slot"], d["tok_pos"],
+            d["q_lens"], cache.seq_lens_device(), d["last_idx"],
+            d["feedback"], self._prev, d["emit_mask"], d["produced"],
+            *cache.pools(), cache.page_table_device(), sd["cow_src"],
+            sd["cow_dst"], sd["seeds"], sd["temp"], sd["top_k"],
+            sd["top_p"])[0]
+        self._mark_dispatch()
+        if self.async_engine:
+            self._prev.copy_(next_toks)
+        out = ready = None
+        if completing:
+            # queued behind the step: reconcile waits on this copy alone,
+            # not on the steps dispatched after it
+            out = next_toks.to("cpu", non_blocking=True)
+            if next_toks.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+        for _, req in completing:
+            req._pending_n += 1
         for slot, n in sched.items():
             cache.advance(slot, n)
-        out = next_toks.cpu().numpy()
-        produced: dict[int, list[int]] = {}
-        for slot, req in completing:
-            if stream_done(req.output_ids, req.max_new_tokens,
-                           req.eos_token_id):
-                continue
-            tok = int(out[slot])
-            self._emit(req, tok)
-            produced[req.req_id] = [tok]
-        return produced
-
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        return _Pending(out, ready, completing, must_sync)
 
     def _emit(self, req: Request, tok: int) -> None:
         req.output_ids.append(tok)
@@ -571,15 +824,91 @@ class ServingPredictor:
             req.first_token_time = time.monotonic()
             self._m_ttft.observe(req.ttft * 1e3)
 
+    def _reconcile_one(self) -> dict[int, list[int]]:
+        """Land the OLDEST in-flight step: wait for its copied-out tokens
+        (the hard sync), append them, charge TTFT and the token counters.
+        A token past a request's budget or eos (as landed) is dropped."""
+        e = self._inflight.popleft()
+        self._m_inflight.set(len(self._inflight))
+        out = None
+        if e.completing:
+            t0 = time.monotonic()
+            if e.ready is not None:
+                e.ready.synchronize()
+            out = e.out.numpy()
+            self._m_sync_s.inc(time.monotonic() - t0)
+            self._did_sync = True
+        if not self._inflight:
+            self._mark_drained()
+        produced: dict[int, list[int]] = {}
+        for slot, req in e.completing:
+            if req.state != FAILED and not stream_done(
+                    req.output_ids, req.max_new_tokens, req.eos_token_id):
+                tok = int(out[slot])
+                self._emit(req, tok)
+                produced[req.req_id] = [tok]
+            req._pending_n = max(0, req._pending_n - 1)
+            if req.state == FINISHED:
+                self._count_finished(req)
+        return produced
+
+    @staticmethod
+    def _merge_produced(dst: dict, src: dict) -> None:
+        for rid, toks in src.items():
+            dst.setdefault(rid, []).extend(toks)
+
+    def _reconcile_all(self) -> dict[int, list[int]]:
+        produced: dict[int, list[int]] = {}
+        while self._inflight:
+            self._merge_produced(produced, self._reconcile_one())
+        return produced
+
+    def flush(self) -> dict[int, list[int]]:
+        """Land every step in flight (a hard sync) and return the tokens,
+        merged in emission order; nothing to do for the sync engine or the
+        legacy path."""
+        t0 = time.monotonic()
+        self._did_sync = False
+        try:
+            out = self._reconcile_all()
+            self._register_prefixes()
+            return out
+        finally:
+            if self._did_sync:
+                self._m_hard_syncs.inc()
+            self._m_step_s.inc(time.monotonic() - t0)
+
     def _step_unified(self) -> dict[int, list[int]]:
+        produced: dict[int, list[int]] = {}
+        # value barrier: admission replays a preempted request's context
+        # (token VALUES), so a waiting request with tokens in flight lands
+        # the whole ring first
+        if self._inflight and any(r._pending_n for r in self.waiting):
+            self._merge_produced(produced, self._reconcile_all())
         self._retire_finished()
         self._admit_waiting()
         if not self.running:
-            return {}
-        sched, cows = self._schedule()
-        if not sched:
-            return {}
-        produced = self._dispatch(sched, cows)
+            self._merge_produced(produced, self._reconcile_all())
+            return produced
+        entry = self._pack_dispatch()
+        if entry is None:
+            self._merge_produced(produced, self._reconcile_all())
+            return produced
+        self._inflight.append(entry)
+        self._m_inflight.set(len(self._inflight))
+        self._m_steps.inc()
+        if not self.async_engine:
+            # pipeline depth zero: land the step just dispatched
+            self._merge_produced(produced, self._reconcile_all())
+        else:
+            # behind-by-one while an emission boundary is in the ring;
+            # otherwise defer up to max_inflight_steps
+            while self._inflight and (
+                    len(self._inflight) > self.max_inflight_steps
+                    or (len(self._inflight) > 1
+                        and any(p.must_sync
+                                for p in list(self._inflight)[:-1]))):
+                self._merge_produced(produced, self._reconcile_one())
         self._register_prefixes()
         return produced
 
@@ -685,8 +1014,13 @@ class ServingPredictor:
             self.params, self._put(self._next_token),
             cache.seq_lens_device(), cache.k_pool, cache.v_pool,
             cache.page_table_device())[0]
+        self._mark_dispatch()
         self._m_steps.inc()
+        t_sync = time.monotonic()
         out = next_ids.cpu().numpy()
+        self._m_sync_s.inc(time.monotonic() - t_sync)
+        self._did_sync = True
+        self._mark_drained()
         produced = {}
         for slot, req in self.running.items():
             tok = int(out[slot])
@@ -696,19 +1030,30 @@ class ServingPredictor:
             produced[req.req_id] = [tok]
         return produced
 
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        """A blocking upload (the legacy path is synchronous)."""
+        return torch.from_numpy(arr).to(self.device)
+
     def step(self) -> dict[int, list[int]]:
         """One scheduler round. Returns ``{req_id: [token]}`` for the
-        tokens produced this round; a unified round that only advanced
-        prefill chunks produces none (a legacy round's admission prefill
-        of a 1-token context emits outside the returned map, as in the
-        reference)."""
+        tokens landed this round: the async engine lands them one step (or
+        up to ``max_inflight_steps``) behind the dispatch — drain with
+        :meth:`flush`; a unified round that only advanced prefill chunks
+        produces none (a legacy round's admission prefill of a 1-token
+        context emits outside the returned map, as in the reference)."""
         t0 = time.monotonic()
+        self._did_sync = False
         try:
             if self.unified:
                 return self._step_unified()
             return self._step_legacy()
         finally:
+            if self._did_sync:
+                # ONE hard sync per call however many entries it landed:
+                # the oldest blocks, the rest are already on the host
+                self._m_hard_syncs.inc()
             self._m_step_s.inc(time.monotonic() - t0)
+            self._m_step_calls.inc()
             self._m_running.set(len(self.running))
             self._m_waiting.set(len(self.waiting))
 
@@ -731,6 +1076,8 @@ class ServingPredictor:
             if n > limit:
                 raise RuntimeError("serving loop exceeded step budget "
                                    f"({limit}) — scheduler stuck")
+        # a request can finish by count with its last tokens in flight
+        self.flush()
         return [list(r.output_ids) for r in reqs]
 
 

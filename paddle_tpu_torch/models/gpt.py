@@ -510,10 +510,12 @@ def _sample_epilogue(logits, u, temperature, top_k, top_p):
     :func:`lane_uniform`). ``top_k <= 0`` disables the k filter, ``top_p``
     outside (0, 1) the p filter; ties at the k-th / p-th value stay in.
     Returns ids [b] int64 — the caller selects argmax where
-    temperature == 0."""
+    temperature == 0. Every lane runs it (one program for greedy and
+    sampled lanes): a greedy lane divides by 1, so its values stay finite
+    and every index stays in range."""
     v = logits.shape[-1]
-    t = temperature.clamp_min(1e-6).float()
-    scaled = logits / t[:, None]
+    t = torch.where(temperature > 0, temperature.clamp_min(1e-6), 1.0)
+    scaled = logits / t.float()[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     k = torch.where(top_k > 0, top_k, v).clamp(1, v).long()
     kth = sorted_desc.gather(1, (k - 1)[:, None])
@@ -521,20 +523,74 @@ def _sample_epilogue(logits, u, temperature, top_k, top_p):
     probs = torch.softmax(sorted_desc, dim=-1)
     cum_exclusive = probs.cumsum(-1) - probs
     p_active = (top_p > 0.0) & (top_p < 1.0)
-    n_keep = (cum_exclusive < top_p[:, None]).sum(-1).clamp_min(1)
+    n_keep = (cum_exclusive < top_p[:, None]).sum(-1).clamp(1, v)
     n_keep = torch.where(p_active, n_keep, v).long()
     pth = sorted_desc.gather(1, (n_keep - 1)[:, None])
     keep &= scaled >= pth
     masked = torch.where(keep, scaled, -1e30)
     cdf = torch.softmax(masked, dim=-1).double().cumsum(-1)
     target = u.double()[:, None] * cdf[:, -1:]
-    return torch.searchsorted(cdf, target, right=True)[:, 0].clamp_max(v - 1)
+    return torch.searchsorted(cdf, target, right=True)[:, 0].clamp(0, v - 1)
+
+
+class _Captured:
+    """One geometry's step captured in a CUDA graph: the tensors of the
+    call it was captured from are its inputs, its outputs are static
+    buffers, and ``delta`` is what the capture added to the kernel
+    wrappers' counters (see ``ops.counters``), which every replay adds."""
+
+    def __init__(self, fn, args):
+        from .. import ops
+
+        self.args = args            # keeps the bound buffers alive
+        before = ops.counters()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.out = fn(*args)
+        finally:
+            after = ops.counters()
+            # a capture launches nothing
+            ops.set_counters({k: before.get(k, 0) for k in after})
+        self.delta = {k: n - before.get(k, 0) for k, n in after.items()
+                      if n != before.get(k, 0)}
+
+    def replay(self, args):
+        from .. import ops
+
+        for i, (bound, arg) in enumerate(zip(self.args[1:], args[1:]), 1):
+            if arg.data_ptr() != bound.data_ptr() or arg.shape != bound.shape:
+                raise ValueError(f"argument {i} of the captured step is not "
+                                 "the tensor its capture bound: a caller "
+                                 "fills the same buffers every round")
+        self.graph.replay()
+        ops.set_counters(self.delta, add=True)
+        return self.out
 
 
 class UnifiedStep:
-    """The serving step :func:`build_unified_step` returns. Calling it runs
-    one step; ``trace_count`` counts builds of this step (one: PyTorch runs
-    eagerly; CUDA-graph capture per geometry is a later slice)."""
+    """The serving step :func:`build_unified_step` returns.
+
+    On a CUDA device each step geometry is captured once in a CUDA graph
+    and every later call of that geometry replays it. The geometry is the
+    key (page size, chunk, token budget, ``max_batch``, ``kv_quant``,
+    ``mega``, dtype, weight kind, MoE) together with the weights and the
+    pools the capture binds. The first call of a geometry runs the step
+    eagerly on a side stream (it builds and loads every kernel, sets their
+    attributes and grows every scratch buffer) and returns that result;
+    the capture follows. The tensors of that first call become the graph's
+    inputs: every later call must pass the same tensors, refilled (the
+    serving predictor's persistent buffers), and one that passes others
+    raises. Outputs are copied out of the graph's static buffers before
+    they are returned. A capture that fails raises;
+    nothing falls back to the eager step.
+
+    ``trace_count`` counts captures on a CUDA device and, on the CPU
+    (where every call runs eagerly), the distinct geometries that ran —
+    the reference's one jitted executable per geometry. :meth:`eager`
+    runs one step without capture.
+    """
 
     def __init__(self, config, page_size, chunk, kv_quant=False,
                  mega=False):
@@ -543,14 +599,72 @@ class UnifiedStep:
         self.chunk = int(chunk)
         self.kv_quant = bool(kv_quant)
         self.mega = bool(mega)
-        self.trace_count = 1
+        self._programs: dict = {}    # geometry -> _Captured (CPU: None)
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._programs)
+
+    @property
+    def replay_counts(self) -> list:
+        """What one replay of each capture adds to the kernel wrappers'
+        counters (``ops.counters`` keys), in capture order."""
+        return [dict(p.delta) for p in self._programs.values()
+                if p is not None]
+
+    def _geometry(self, params, tok_ids, q_lens, pools):
+        w = params["layers"]["wqkv"]
+        kind = ((str(w["q"].dtype), tuple(w["q"].shape), tuple(w["s"].shape))
+                if isinstance(w, dict) else "fp")
+        key = (self.page_size, self.chunk, tok_ids.shape[0], q_lens.shape[0],
+               self.kv_quant, self.mega, params["tok_emb"].dtype, kind,
+               self.config.moe_experts)
+        if tok_ids.device.type != "cuda":
+            return key
+        return key + (id(params), tuple(p.data_ptr() for p in pools))
 
     @torch.no_grad()
     def __call__(self, params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
                  last_idx, feedback, prev_toks, emit_mask, produced,
-                 *pools_and_tail, sample=None):
-        """One step over the packed token budget (reference signature, with
-        ``lane_seeds [b]`` in place of the threefry ``base_keys``): after
+                 *pools_and_tail):
+        """One step; the arguments and results of :meth:`eager`."""
+        args = (params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
+                last_idx, feedback, prev_toks, emit_mask, produced,
+                *pools_and_tail)
+        pools = self._split_tail(pools_and_tail)[0]
+        key = self._geometry(params, tok_ids, q_lens, pools)
+        if tok_ids.device.type != "cuda":
+            self._programs.setdefault(key, None)
+            return self.eager(*args)
+        prog = self._programs.get(key)
+        if prog is None:
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = self.eager(*args)
+            cur.wait_stream(side)
+            for t in out[:2]:
+                t.record_stream(cur)
+            self._programs[key] = _Captured(self.eager, args)
+            return out
+        next_toks, logits, *_ = prog.replay(args)
+        return (next_toks.clone(), logits.clone()) + tuple(pools)
+
+    def _split_tail(self, pools_and_tail):
+        n_pool = 4 if self.kv_quant else 2
+        if len(pools_and_tail) != n_pool + 7:
+            raise TypeError(f"the unified step takes {n_pool} pools and 7 "
+                            f"trailing arrays, got {len(pools_and_tail)}")
+        return pools_and_tail[:n_pool], pools_and_tail[n_pool:]
+
+    @torch.no_grad()
+    def eager(self, params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
+              last_idx, feedback, prev_toks, emit_mask, produced,
+              *pools_and_tail):
+        """One step over the packed token budget, run op by op (reference
+        signature, with ``lane_seeds [b]`` — int32 or int64, read as
+        unsigned 32-bit — in place of the threefry ``base_keys``): after
         ``produced`` come the pools — ``k_pool, v_pool`` and, with
         ``kv_quant``, ``k_scales, v_scales`` — then ``page_table, cow_src,
         cow_dst, lane_seeds, temperature, top_k, top_p``.
@@ -560,25 +674,22 @@ class UnifiedStep:
         kv_heads]`` fp32): page ``num_pages`` is the spare page that padding
         and unallocated writes land in (the reference's ``mode="drop"``).
         They are updated in place (the reference donates them) and
-        returned. ``sample``: whether any lane samples (the host knows;
-        ``None`` reads ``temperature``). ``cow_src = cow_dst = None`` skips
-        the copy-on-write lanes (no copy this step). Returns ``(next_toks
-        [b] int32, logits [b, v] fp32, *pools)``.
+        returned. The copy-on-write lanes always run: a lane with no copy
+        due carries the ``num_pages`` sentinel in ``cow_src`` and
+        ``cow_dst`` (its copy lands in the spare page). The sampling
+        epilogue always runs too, and ``temperature > 0`` picks its token
+        over the greedy argmax per lane. Returns ``(next_toks [b] int32,
+        logits [b, v] fp32, *pools)``.
         """
-        n_pool = 4 if self.kv_quant else 2
-        if len(pools_and_tail) != n_pool + 7:
-            raise TypeError(f"the unified step takes {n_pool} pools and 7 "
-                            f"trailing arrays, got {len(pools_and_tail)}")
-        pools = pools_and_tail[:n_pool]
+        pools, tail = self._split_tail(pools_and_tail)
         (page_table, cow_src, cow_dst, lane_seeds, temperature, top_k,
-         top_p) = pools_and_tail[n_pool:]
+         top_p) = tail
         cfg, chunk, ps = self.config, self.chunk, self.page_size
         t, b = tok_ids.shape[0], q_lens.shape[0]
         num_pages = pools[0].shape[1] - 1
-        if cow_dst is not None:
-            # scale planes are page-keyed: they ride the same copy lanes
-            for pool in pools:
-                paged_copy_pages_(pool, cow_src, cow_dst)
+        # scale planes are page-keyed: they ride the same copy lanes
+        for pool in pools:
+            paged_copy_pages_(pool, cow_src, cow_dst)
         valid = tok_slot >= 0
         slot_c = tok_slot.long().clamp(0, b - 1)
         tok_ids = torch.where((feedback > 0) & valid, prev_toks[slot_c],
@@ -602,13 +713,9 @@ class UnifiedStep:
         x = _srv_ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
         h_last = x[last_idx.long().clamp(0, t - 1)]
         logits = _srv_logits(params, h_last).float()
-        next_ids = logits.argmax(-1)
-        if sample is None:
-            sample = bool((temperature > 0).any())
-        if sample:
-            u = lane_uniform(lane_seeds, produced)
-            sampled = _sample_epilogue(logits, u, temperature, top_k, top_p)
-            next_ids = torch.where(temperature > 0, sampled, next_ids)
+        sampled = _sample_epilogue(logits, lane_uniform(lane_seeds, produced),
+                                   temperature, top_k, top_p)
+        next_ids = torch.where(temperature > 0, sampled, logits.argmax(-1))
         next_toks = torch.where(emit_mask > 0, next_ids.to(torch.int32),
                                 prev_toks)
         return (next_toks, logits) + tuple(pools)

@@ -137,13 +137,17 @@ def moe_ffn(x, gate_w, w1, b1, w2, b2, *, top_k: int,
     gates = gates * keep.to(gates.dtype)
 
     # token-choice pairs sorted by expert (stable: token-major within an
-    # expert) — the ragged grouped layout
-    pair_tok = torch.arange(n, device=x.device).repeat_interleave(k)
+    # expert) — the ragged grouped layout. Every size here is fixed by the
+    # shapes (no host read of a device value: the serving step runs in a
+    # captured CUDA graph), so the expert counts are a scatter-add into E
+    # bins rather than ``bincount``, which reads the max on the host
+    pair_tok = torch.arange(n * k, device=x.device) // k
     eid = idx.reshape(-1).long()
     order = torch.argsort(eid, stable=True)
     tok_sorted = pair_tok[order]
     eid_sorted = eid[order]
-    counts = torch.bincount(eid, minlength=e)
+    counts = torch.zeros(e, dtype=torch.long, device=x.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]
                         ).to(torch.int32)
 
@@ -163,7 +167,7 @@ def moe_ffn(x, gate_w, w1, b1, w2, b2, *, top_k: int,
     kept = keep.to(torch.float32)
     n_pairs = (valid.to(torch.float32).sum().clamp_min(1.0) * k
                if valid is not None
-               else torch.tensor(float(n * k), device=x.device))
+               else torch.full((), float(n * k), device=x.device))
     load = (torch.nn.functional.one_hot(eid, e).to(torch.float32)
             * kept.reshape(-1, 1)).sum(0)
     stats = {

@@ -1977,3 +1977,160 @@ def test_eager_bert_gradients_flash_vs_plain(cuda):
         assert got is not None and want is not None, name
         err = (got - want).abs().max() / want.abs().max()
         assert err.item() <= GRAD_TOL, (name, err.item())
+
+
+# -- the captured serving step ------------------------------------------------
+
+CAPTURE_FORMS = {
+    "fp32": (dict(), dict(), torch.float32),
+    "bf16": (dict(), dict(), torch.bfloat16),
+    "fp16": (dict(), dict(), torch.float16),
+    "int8_int8kv": (dict(weight_dtype="int8"), dict(kv_cache_dtype="int8"),
+                    torch.bfloat16),
+    "int4_int8kv": (dict(weight_dtype="int4", weight_quant_group_size=64),
+                    dict(kv_cache_dtype="int8"), torch.bfloat16),
+    "mega": (dict(), dict(mega_decode=True), torch.bfloat16),
+    "moe": (dict(moe_experts=4, moe_capacity_factor=1.25), dict(),
+            torch.bfloat16),
+}
+
+
+class _EagerStep:
+    """A predictor's unified step run op by op on every call."""
+
+    def __init__(self, sp):
+        self.step = sp._unified
+        sp._unified = self
+
+    @property
+    def trace_count(self):
+        return self.step.trace_count
+
+    def __call__(self, *args):
+        return self.step.eager(*args)
+
+
+@pytest.mark.parametrize("form", sorted(CAPTURE_FORMS))
+def test_captured_step_one_capture_replays_bitwise_and_counts(cuda, form):
+    """A two-layer model (head_dim 64) served on the captured step with the
+    async engine: one capture over a churn with preemption and copy-on-write;
+    the streams of the synchronous engine on the eager step; every step's
+    launches counted once; then one more replay of the capture against the
+    eager step on copies of the pools — next tokens, logits and pools
+    bitwise equal — adding exactly what the capture recorded to the
+    counters, as many launches of each kernel as the profiler sees the
+    replay run; a call on other tensors than the bound ones raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.inference import ServingPredictor
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    over, fields, dtype = CAPTURE_FORMS[form]
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5,
+                    **over)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    model.eval()
+    rng = np.random.RandomState(11)
+    p0 = [int(x) for x in rng.randint(0, 97, 30)]
+    prompts = [p0, [int(x) for x in rng.randint(0, 97, 9)], list(p0),
+               p0[:20] + [1, 2, 3], [int(x) for x in rng.randint(0, 97, 17)]]
+    kw = dict(max_batch=3, page_size=8, chunk=8, num_pages=10, device=cuda,
+              dtype=dtype, **fields)
+    eager = ServingPredictor(model, async_engine=False, **kw)
+    _EagerStep(eager)
+    want = eager.generate(prompts, max_new_tokens=12)
+    assert eager.decode_trace_count == 0
+    before = ops.counters()
+    sp = ServingPredictor(model, **kw)
+    assert sp.async_engine
+    got = sp.generate(prompts, max_new_tokens=12)
+    torch.cuda.synchronize()
+    assert got == want and all(len(s) == 12 for s in got)
+    assert sp.decode_trace_count == 1 and sp.steps == eager.steps
+    tel = sp.telemetry()
+    assert tel["serving_preemptions"] > 0 and tel["kv_cow_copies"] > 0
+    assert 0 < sp.hard_syncs < sp.steps
+    ran = ops.counters()
+    n = sp.steps * cfg.num_layers
+    key = (("mega_attn_layer", "launches", None) if sp.mega_decode
+           else ("ragged_paged_attention", "launches", None))
+    assert ran[key] - before[key] == n
+    assert ops.twin_routes() == 0
+    step = sp._unified
+    (prog,) = step._programs.values()
+    args = list(prog.args)
+    n_pool = len(sp.cache.pools())
+    args[11:11 + n_pool] = [p.clone() for p in args[11:11 + n_pool]]
+    want_out = step.eager(*args)
+    torch.cuda.synchronize()
+    mid = ops.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got_out = step(*prog.args)
+        torch.cuda.synchronize()
+    after = ops.counters()
+    delta = step.replay_counts[0]
+    assert {k: v - mid[k] for k, v in after.items() if v != mid[k]} == delta
+    assert delta[key] == cfg.num_layers
+    assert step.trace_count == 1
+    for g, w in zip(got_out, want_out):
+        assert torch.equal(g, w)
+    # the counters' replay launches are the kernels the replay ran
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == DeviceType.CUDA]
+    for mark, wrapper in (("ragged_split_kernel", "ragged_paged_attention"),
+                          ("mega_attn_kernel", "mega_attn_layer"),
+                          ("mega_mlp_kernel", "mega_mlp"),
+                          ("qmm_", "quant_matmul_fwd"),
+                          ("gmm_", "grouped_matmul_fwd")):
+        assert sum(mark in n for n in names) == sum(
+            n for (w, attr, _), n in delta.items()
+            if w == wrapper and attr == "launches"), (mark, names)
+    # a captured step runs on the tensors its capture bound, and no others
+    foreign = list(prog.args)
+    foreign[1] = foreign[1].clone()
+    with pytest.raises(ValueError, match="capture bound"):
+        step(*foreign)
+
+
+def test_moe_ffn_with_stats_captures_bitwise(cuda):
+    """``moe_ffn`` reads no device value on the host (expert counts by a
+    scatter-add, the router stats' one-hot and pair count on the device):
+    captured in a CUDA graph, with and without its stats, a replay is
+    bitwise equal to the eager call."""
+    from paddle_tpu_torch.models.moe import moe_ffn
+
+    rng = np.random.RandomState(5)
+    n, d, f, e = 40, 128, 256, 4
+    x = _rand(rng, (n, d), cuda, torch.bfloat16)
+    gate = _rand(rng, (d, e), cuda, torch.bfloat16)
+    w1 = _rand(rng, (e, d, f), cuda, torch.bfloat16, 0.05)
+    w2 = _rand(rng, (e, f, d), cuda, torch.bfloat16, 0.05)
+    b1 = _rand(rng, (e, f), cuda, torch.bfloat16)
+    b2 = _rand(rng, (e, d), cuda, torch.bfloat16)
+    valid = torch.arange(n, device=cuda) < n - 3
+    for stats in (False, True):
+        def run():
+            return moe_ffn(x, gate, w1, b1, w2, b2, top_k=2,
+                           capacity_factor=1.25, valid=valid,
+                           with_stats=stats)
+
+        with torch.no_grad():
+            want = run()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = run()
+            graph.replay()
+            torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if stats:
+            assert torch.equal(got[2]["load"], want[2]["load"])
+            assert torch.equal(got[2]["drop_rate"], want[2]["drop_rate"])

@@ -332,7 +332,8 @@ def test_unified_step_matches_jax(cf):
         tout, tlog, *tpools = tstep(
             tparams, *(torch.from_numpy(a) for a in
                        (ids, slot, pos, ql, kl, last, zt, zb, emit, zb)),
-            *tpools, torch.from_numpy(pt), None, None,
+            *tpools, torch.from_numpy(pt), torch.from_numpy(nocow),
+            torch.from_numpy(nocow),
             torch.zeros(b, dtype=torch.int64), torch.zeros(b),
             torch.zeros(b, dtype=torch.int32), torch.ones(b))
         rows = sorted(lanes)

@@ -188,8 +188,10 @@ def test_sampling_within_port():
 
 def test_unported_engines_raise():
     _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="async"):
-        ServingPredictor(tm, async_engine=True, device="cpu")
+    # the async engine is ported; the legacy path refuses it, as the
+    # reference's does
+    with pytest.raises(ValueError, match="async"):
+        ServingPredictor(tm, async_engine=True, unified=False, device="cpu")
     model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, spec_decode_k=2),
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="speculative"):
