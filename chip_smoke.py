@@ -63,7 +63,12 @@ trees on one card) and prints one JSON line. PART is one of:
   GPT-125M on ROOT's package's defaults (and, where it has the captured
   step, on the eager step with the synchronous engine), timed in turns
   from the end of each run's first step, with a digest of the streams:
-  run it for a parent and a change as parent, change, change, parent.
+  run it for a parent and a change as parent, change, change, parent;
+- ``spec``: only phase 16 (speculative decoding on the captured step and
+  the async engine); ROOT's package must have speculation.
+- ``moe-profile``: phase 11's three profiled bf16 MoE windows, 5 times
+  each with and without the profiler's idle margin, each window's
+  kernels by graph launch logged and a short window counted.
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -128,7 +133,8 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    at the odd shape), every forward and dx launched twice and bitwise
    equal, and the int8 and int4 four GEMMs are timed at a decode round (M
    8) too, their dx at M 8 and at 256 rows (beside the bound and cuBLAS
-   on the pre-dequantized weight); the ragged kernel's int8-KV
+   on the pre-dequantized weight); every config's four GEMMs are held
+   and timed at M 56, phase 16's verify budget; the ragged kernel's int8-KV
    branch vs its plain version; then ``ServingPredictor`` on GPT-125M with
    (a) int8 weights, (b) int4 weights in groups of 128, (c) int8 weights
    and an int8 KV cache, the phase-6 requests in fp32: every greedy token
@@ -328,6 +334,32 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    must be the window's steps times what a step launches). The kernel
    rows run inside the captured step gain ``captured_replay``: launches
    one replay holds, by form.
+16. speculative decoding (run after phase 15): GPT-125M at max_batch 8,
+   page 64, chunk 16 over phase 6's requests with every prompt tiled from
+   a 4-token motif, on the captured step and the async engine. Per form
+   (per-op fp32 and bf16, mega bf16, int8 and int4 g128 weights with an
+   int8 KV cache in bf16) spec off, then in turns ``SPEC_RUNS`` timed
+   runs each of spec off and its spec runs: n-gram drafts at k 1 / 2 / 4
+   (per-op), k 4 (mega, quantized), and the model self-draft of its first
+   3 layers at k 4 (per-op, and on the mega chain). Every stream is held
+   token for token to the plain forward of the served params, a token
+   other than its argmax allowed only at a near tie (the fp32 forms'
+   ``TIE_MARGIN``; the others twice the spec-off run's largest logits
+   error against that forward); every n-gram run must accept drafts, and
+   the self-draft's drafts must be the greedy tokens of the plain forward
+   of its 3-layer params (the first layers of random weights need not
+   agree with the whole stack); after a run the pool and the prefix
+   registry equal spec off's (rejected drafts' pages went back); the verify step and each draft program captured
+   once; no twin route; per form one more n-gram k 4 run in which the
+   verify step runs eagerly on the kernels and on the twins at the inputs
+   of each call with more drafts than any before, every verify row's
+   logits and token held (a token off only at a near tie); four profiled
+   windows' launches equal the counters'. Logged per run: the mean step and
+   tokens/s (medians from the end of the first step),
+   ``accepted_tokens_per_step``, ``draft_acceptance_rate``,
+   ``draft_overhead_frac``, hard syncs and captures. The rows of the
+   ragged kernel, the int8 and int4 weight-only GEMMs and the mega
+   kernels count the phase's launches (``spec_launches``).
 
 Every serving phase runs the predictor's defaults, so phases 6, 8, 10, 11
 and 14 serve on the captured step and the async engine too. Their bf16
@@ -445,6 +477,7 @@ QMM_SHAPES = {"wqkv": (768, 2304), "wo": (768, 768), "w1": (768, 3072),
               "w2": (3072, 768)}          # GPT-125M's [K, N] projections
 QMM_ROWS = 24                             # the serving token budget
 QMM_DECODE_ROWS = 8                       # a decode round of 8 lanes
+QMM_SPEC_ROWS = 56                        # the spec budget: 8 (1 + 4) + 16
 QMM_DX_ROWS = 256                         # the input-gradient drives' rows
 QMM_CONFIGS = (("int8", -1), ("int8", 128), ("int4", 128))
 # (label, config fields, logits tolerance). Served logits vs the plain
@@ -1118,7 +1151,8 @@ class StepRecord:
     def __init__(self, sp, legacy=False, routes=False):
         self.sp, self.legacy, self.routes = sp, legacy, routes
         self.step = sp._decode if legacy else sp._unified
-        params = list(inspect.signature(self.step.__call__).parameters)
+        params = (list(inspect.signature(self.step.__call__).parameters)
+                  if legacy else list(unified_of(self.step).arg_names))
         self.emit_at = None if legacy else params.index("emit_mask")
         self.slot_at = None if legacy else params.index("tok_slot")
         self.rows, self.calls, self.n = {}, [], 0
@@ -1285,7 +1319,8 @@ def int8pack_ms(x, q, s):
 
 def phase_qmm(dev):
     """The four weight-only GEMM kernels vs their plain versions; per
-    (config, dtype) the summed times of the four serving shapes."""
+    (config, dtype) the summed times of the four serving shapes (at M
+    ``QMM_ROWS``, ``QMM_DECODE_ROWS`` and ``QMM_SPEC_ROWS``)."""
     from paddle_tpu_torch.ops.quant_matmul import (
         dequantize_weight, quant_matmul_bwd, quant_matmul_dx_reference,
         quant_matmul_fwd, quant_matmul_reference)
@@ -1379,6 +1414,15 @@ def phase_qmm(dev):
                     + (f"{lib:.4f}" if lib is not None else "null"))
             if (wd, gs) != ("int8", 128):
                 tot.update(qmm_decode(wd, gs, dtype, dev))
+            # the speculative verify step's budget (phase 16)
+            tot["spec_ms"], tot["spec_bound_ms"] = qmm_rows(
+                wd, gs, dtype, dev, QMM_SPEC_ROWS, SEED + 30)
+            log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at "
+                f"M {QMM_SPEC_ROWS} (the spec verify step's budget, "
+                f"{'tensor-core' if dtype != torch.float32 else 'CUDA-core'}"
+                f" route, held to quant_matmul_reference, repeat bitwise "
+                f"equal): kernel {tot['spec_ms']:.4f} ms, bound "
+                f"{tot['spec_bound_ms']:.4f} ms")
             tot.update(qmm_dx_rows(wd, gs, dtype, dev, QMM_DX_ROWS))
             tot["bound_by"] = ("bytes" if work[0] / HBM_BYTES_PER_S
                                >= work[1] / PEAK_OPS[dtype] else "operations")
@@ -1440,32 +1484,45 @@ def qmm_dx_rows(wd, gs, dtype, dev, m):
     return {f"dx{m}_{key}": v for key, v in t.items()}
 
 
-def qmm_decode(wd, gs, dtype, dev):
-    """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
-    tokens) on the route the plan picks (the tensor cores in bf16, int8 or
-    int4): held as phase 8 holds them, the summed kernel time and
-    bound; their dx the same way (:func:`qmm_dx_rows`)."""
+def qmm_rows(wd, gs, dtype, dev, m, seed):
+    """The four serving GEMMs at ``m`` tokens on the route the plan picks
+    (the tensor cores in bf16 and fp16 up to M 64, one ``tc_launches``
+    each; fp32 the CUDA-core kernel): held as phase 8 holds them, launched
+    twice (bitwise equal); returns the summed kernel time and bound."""
     from paddle_tpu_torch.ops.quant_matmul import (quant_matmul_fwd,
                                                    quant_matmul_reference)
 
     ms, work = 0.0, [0.0, 0.0]
     for ci, (k, n) in enumerate(QMM_SHAPES.values()):
-        x, _, q, sc = qmm_case(QMM_DECODE_ROWS, k, n, wd, gs, dtype, dev,
-                               SEED + 10 + ci)
+        x, _, q, sc = qmm_case(m, k, n, wd, gs, dtype, dev, seed + ci)
+        n0 = qmm_tc_count()
         got = quant_matmul_fwd(x, q, sc)
+        route = qmm_tc_count() - n0
+        again = quant_matmul_fwd(x, q, sc)
         want = quant_matmul_reference(x, q, sc)
         err, held = kernel_error(got, want, dtype)
         if dtype == torch.float32:
             held = err / want.abs().max().item()
-        if not held <= QMM_TOL[dtype]:
-            raise AssertionError(f"quant_matmul {wd} g{gs} {dtype} decode "
-                                 f"[{QMM_DECODE_ROWS}, {k}] x [{k}, {n}]: "
-                                 f"held error {held} > {QMM_TOL[dtype]}")
+        if (not held <= QMM_TOL[dtype] or not torch.equal(got, again)
+                or route != (dtype != torch.float32)):
+            raise AssertionError(f"quant_matmul {wd} g{gs} {dtype} [{m}, {k}]"
+                                 f" x [{k}, {n}]: held error {held} (tol "
+                                 f"{QMM_TOL[dtype]}), bitwise repeat "
+                                 f"{torch.equal(got, again)}, {route} "
+                                 "tensor-core launches")
         ms += time_ms(lambda: quant_matmul_fwd(x, q, sc))
-        nbytes, nops = qmm_work(QMM_DECODE_ROWS, k, n, int(wd[3:]),
-                                sc.shape[0], x.element_size())
+        nbytes, nops = qmm_work(m, k, n, int(wd[3:]), sc.shape[0],
+                                x.element_size())
         work = [work[0] + nbytes, work[1] + nops]
-    out = dict(decode_ms=ms, decode_bound_ms=bound_ms(*work, dtype))
+    return ms, bound_ms(*work, dtype)
+
+
+def qmm_decode(wd, gs, dtype, dev):
+    """The four serving GEMMs at a decode round (``QMM_DECODE_ROWS``
+    tokens, :func:`qmm_rows`); their dx the same way
+    (:func:`qmm_dx_rows`)."""
+    ms, bound = qmm_rows(wd, gs, dtype, dev, QMM_DECODE_ROWS, SEED + 10)
+    out = dict(decode_ms=ms, decode_bound_ms=bound)
     log(f"[quant] qmm {wd} g{gs} {str(dtype)[6:]}, the four GEMMs at M "
         f"{QMM_DECODE_ROWS} (a decode round, "
         f"{'tensor-core' if dtype != torch.float32 else 'CUDA-core'} "
@@ -2171,6 +2228,13 @@ def mega_counts():
     return mega_attn_layer.launches, mega_mlp.launches
 
 
+# idle host time after a profiler starts and before it stops: without it
+# a trace lost the records of kernels launched just after the start (all
+# of a short session's) and of a long window's last replays (PERF.md, PR
+# 21; ``profile_margin.py``)
+PROFILE_MARGIN_S = 0.2
+
+
 def profile_run(fn, card, tag, what):
     """``fn()`` once under ``torch.profiler``: logs (``what()`` naming the
     run) the device busy and idle share of its wall time and the device
@@ -2181,10 +2245,12 @@ def profile_run(fn, card, tag, what):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_MARGIN_S)
     return trace_report(prof, wall_us, card, tag, what)
 
 
@@ -2210,7 +2276,8 @@ def group_launches() -> dict:
                                   grouped_matmul.grouped_matmul_bwd)}
 
 
-def profile_serve(sp, early, late, card, tag, top=0, need=False):
+def profile_serve(sp, early, late, card, tag, top=0, need=False,
+                  detail=False, margin=PROFILE_MARGIN_S):
     """One served run with ``torch.profiler`` on from the end of its first
     step (which holds the capture of a captured step) to the end of its
     flush: as :func:`profile_run`, plus the ``top`` kernels by device time.
@@ -2219,7 +2286,10 @@ def profile_serve(sp, early, late, card, tag, top=0, need=False):
     over the window (on the captured step the counters add a capture's
     launches a replay: the trace sees the replays' kernels), or it raises.
     Returns (groups, busy us, steps in the window), or None when the trace
-    holds no device time (``need``: raises then)."""
+    holds no device time (``need``: raises then). A mismatch, and every
+    window with ``detail``, logs :func:`launch_detail`. The profiler runs
+    ``margin`` seconds of idle host time before and after the window (not
+    in its wall time; see ``PROFILE_MARGIN_S``)."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -2228,12 +2298,14 @@ def profile_serve(sp, early, late, card, tag, top=0, need=False):
     def begin(_):
         torch.cuda.synchronize()
         prof.start()
+        time.sleep(margin)
         mark.update(t=time.perf_counter(), steps=sp.steps,
                     counted=group_launches())
 
     serve(sp, early, late, after_first=begin)
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - mark["t"])
+    time.sleep(margin)
     prof.stop()
     steps = sp.steps - mark["steps"]
     out = trace_report(prof, wall_us, card, tag,
@@ -2244,6 +2316,9 @@ def profile_serve(sp, early, late, card, tag, top=0, need=False):
         return None
     counted = {g: n - mark["counted"][g] for g, n in group_launches().items()}
     seen = {g: out[0][g][1] for g in counted}
+    if detail or seen != counted:
+        log(f"{tag} launches by graph launch: "
+            + launch_detail(prof, [g for g, n in counted.items() if n]))
     if seen != counted:
         raise AssertionError(f"{tag}: the trace's launches by kernel group "
                              f"{seen} differ from the counters' {counted} "
@@ -2253,22 +2328,79 @@ def profile_serve(sp, early, late, card, tag, top=0, need=False):
     return out + (steps,)
 
 
+TRACE_GROUPS = {"mega kernels": ("mega_attn", "mega_mlp"),
+                "ragged kernel": ("ragged",),
+                "paged decode kernel": ("paged_decode",),
+                "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel",
+                                     "qmm_dx_kernel"),
+                "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
+                                 "gmm_wg_kernel", "gmm_sk_kernel",
+                                 "gmm_dx_kernel"),
+                "cuBLAS": ("gemm", "nvjet", "cutlass")}
+
+
+def trace_group(name: str) -> str:
+    """The :data:`TRACE_GROUPS` group of a kernel's name."""
+    key = name.lower()
+    return next((n for n, marks in TRACE_GROUPS.items()
+                 if any(m in key for m in marks)), "other PyTorch kernels")
+
+
+def launch_detail(prof, groups) -> str:
+    """Per kernel group of ``groups``, how many of the trace's launches
+    (one correlation id: a CUDA graph replay's kernels share its
+    ``cudaGraphLaunch``'s) held how many of the group's kernels; the
+    trace's ``cudaGraphLaunch`` calls and device events of no duration;
+    and each launch short of the commonest count, by its place among the
+    launches (first kernel's start) and its kernels of any kind: a launch
+    short of kernels is a lost profiler record (a graph runs whole), a
+    launch missing a replay the counters charged that never ran."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    per = {g: Counter() for g in groups}
+    every, first = Counter(), {}
+    graph_launches = no_time = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            if ev.duration_ns() <= 0:
+                no_time += 1
+                continue
+            c = ev.correlation_id()
+            every[c] += 1
+            first[c] = min(first.get(c, ev.start_ns()), ev.start_ns())
+            g = trace_group(ev.name())
+            if g in per:
+                per[g][c] += 1
+        elif "cudaGraphLaunch" in ev.name():
+            graph_launches += 1
+    order = {c: i for i, c in enumerate(sorted(
+        set().union(*per.values()), key=first.get))}
+    out = [f"cudaGraphLaunch calls {graph_launches}, device events of no "
+           f"duration {no_time}"]
+    for g, ids in per.items():
+        hist = Counter(ids.values())
+        if not hist:
+            continue
+        common = hist.most_common(1)[0][0]
+        short = sorted((order[c], every[c]) for c, n in ids.items()
+                       if n < common)
+        full = Counter(every[c] for c, n in ids.items() if n == common)
+        out.append(f"{g}: {len(ids)} launches, kernels a launch "
+                   f"{dict(sorted(hist.items()))}; short launches (place, "
+                   f"kernels of any kind) {short} of {len(order)}, a full "
+                   f"launch's kernels {dict(full)}")
+    return "; ".join(out)
+
+
 def trace_report(prof, wall_us, card, tag, what, top=0):
     """The device time of a finished ``torch.profiler`` trace by kernel
     group against ``wall_us`` (see :func:`profile_run`), and with ``top``
     the longest kernels by name."""
     from torch.autograd import DeviceType
 
-    groups = {"mega kernels": ("mega_attn", "mega_mlp"),
-              "ragged kernel": ("ragged",),
-              "paged decode kernel": ("paged_decode",),
-              "weight-only GEMM": ("qmm_kernel", "qmm_tc_kernel",
-                                   "qmm_dx_kernel"),
-              "grouped GEMM": ("gmm_kernel", "gmm_tc_kernel",
-                               "gmm_wg_kernel", "gmm_sk_kernel",
-                               "gmm_dx_kernel"),
-              "cuBLAS": ("gemm", "nvjet", "cutlass")}
-    times = {name: 0.0 for name in groups}
+    times = {name: 0.0 for name in TRACE_GROUPS}
     times["other PyTorch kernels"] = 0.0
     counts = dict.fromkeys(times, 0)
     by_name: dict = {}
@@ -2278,10 +2410,7 @@ def trace_report(prof, wall_us, card, tag, what, top=0):
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
             continue
-        key = ev.name().lower()
-        name = next((n for n, marks in groups.items()
-                     if any(m in key for m in marks)),
-                    "other PyTorch kernels")
+        name = trace_group(ev.name())
         times[name] += ev.duration_ns() / 1e3
         counts[name] += 1
         if top:
@@ -2812,11 +2941,8 @@ class RouterFlips:
     def __init__(self, sp, at):
         self.sp, self.step, self.at, self.calls = sp, sp._unified, at, 0
         self.flips = self.choices = self.rows = None
-        inner = self.step   # the unified step, under any StepRecord
-        while "emit_mask" not in inspect.signature(inner.__call__).parameters:
-            inner = inner.step
-        self.emit_at = list(inspect.signature(
-            inner.__call__).parameters).index("emit_mask")
+        # the unified step, under any StepRecord
+        self.emit_at = unified_of(self.step).arg_names.index("emit_mask")
         sp._unified = self
 
     def __call__(self, *args, **kw):
@@ -3617,6 +3743,441 @@ def phase_captured(model, cfg, moe_cfg, dev, card):
             f"({card})")
         timing[label] = st
     return launches, timing
+
+
+# -- phase 16 ---------------------------------------------------------------
+
+# (label, config fields, predictor fields, dtype, the spec runs of the form:
+# (label, predictor fields)) served on GPT-125M at max_batch 8, page 64,
+# chunk 16 over the motif requests; draft_layers 3 = 12 // 4 (the
+# reference's bench_serve spec leg)
+SPEC_DRAFT_LAYERS = 3
+SPEC_MODEL = dict(draft_source="model", draft_layers=SPEC_DRAFT_LAYERS)
+SPEC_FORMS = (
+    ("per-op fp32", {}, {}, torch.float32,
+     tuple((f"n-gram k {k}", dict(spec_decode_k=k)) for k in (1, 2, 4))),
+    ("per-op bf16", {}, {}, torch.bfloat16,
+     tuple((f"n-gram k {k}", dict(spec_decode_k=k)) for k in (1, 2, 4))
+     + (("model k 4", dict(spec_decode_k=4, **SPEC_MODEL)),)),
+    ("mega bf16", {}, dict(mega_decode=True), torch.bfloat16,
+     (("n-gram k 4", dict(spec_decode_k=4)),
+      ("model k 4", dict(spec_decode_k=4, **SPEC_MODEL)))),
+    ("int8 g128 + int8 KV bf16", dict(weight_dtype="int8",
+                                      weight_quant_group_size=128),
+     dict(kv_cache_dtype="int8"), torch.bfloat16,
+     (("n-gram k 4", dict(spec_decode_k=4)),)),
+    ("int4 g128 + int8 KV bf16", dict(weight_dtype="int4",
+                                      weight_quant_group_size=128),
+     dict(kv_cache_dtype="int8"), torch.bfloat16,
+     (("n-gram k 4", dict(spec_decode_k=4)),)),
+)
+SPEC_RUNS = 3
+# the runs profiled: a window's launches by kernel group must equal the
+# counters' gain
+SPEC_PROFILED = (("per-op bf16", "n-gram k 4"), ("per-op bf16", "model k 4"),
+                 ("mega bf16", "n-gram k 4"), ("mega bf16", "model k 4"))
+
+
+def motif_requests(cfg):
+    """Phase 6's eight requests (the same lengths, the late ones sharing
+    the first one's pages) with every prompt tiled from a 4-token motif
+    (the reference's ``bench_serve`` spec workload)."""
+    rng = np.random.RandomState(SEED + 2)
+
+    def tile(n):
+        return np.tile(rng.randint(0, cfg.vocab_size, 4),
+                       (n + 3) // 4)[:n].tolist()
+
+    a = tile(100)
+    early = [a, tile(5), tile(37), tile(150), tile(300), tile(64)]
+    late = [a + tile(20), a[:80] + tile(40)]
+    return early, late
+
+
+def spec_predictor(model, cfg, form, dev, fields=None):
+    """The predictor of ``form`` (a ``SPEC_FORMS`` label) with the spec
+    ``fields`` (none: spec off), on the defaults otherwise (captured step,
+    async engine, page 64, chunk 16)."""
+    _, quant, pfields, dtype, _ = next(f for f in SPEC_FORMS
+                                       if f[0] == form)
+    return quant_predictor(model, cfg, quant, dev, dtype=dtype,
+                           **pfields, **(fields or {}))
+
+
+def served_oracle(sp, cfg, reqs):
+    """Per request, the logits of the plain forward of ``sp``'s params (in
+    its dtype, plain fp32 attention, int8 KV through the write's quantizer
+    when the pool is int8) over prompt + stream, at the stream's
+    positions."""
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_reference
+
+    out = []
+    with torch.no_grad():
+        for r in reqs:
+            p, o = list(r.prompt_ids), list(r.output_ids)
+            ids = torch.tensor(p + o[:-1], device=sp.device)
+            logits = quant_forward(sp.params, embed(sp.params, ids), cfg,
+                                   sp.kv_quant, quant_matmul_reference)
+            out.append(logits[len(p) - 1:].float())
+    return out
+
+
+def hold_to_oracle(label, reqs, oracle, bar):
+    """Every emitted token is the oracle's argmax, unless the oracle's top-2
+    margin there is below ``bar`` or zero (a near tie, counted). Returns
+    the near ties."""
+    ties = 0
+    for i, (r, logits) in enumerate(zip(reqs, oracle)):
+        o = list(r.output_ids)
+        if len(o) != MAX_NEW:
+            raise AssertionError(f"({label}) request {i}: {len(o)} tokens")
+        top2 = logits.topk(2, dim=-1)
+        want = top2.indices[:, 0].tolist()
+        margin = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        for j, (w, g) in enumerate(zip(want, o)):
+            if w == g:
+                continue
+            if margin[j] < bar or margin[j] == 0:    # an exact tie too
+                ties += 1
+                continue
+            raise AssertionError(
+                f"({label}) request {i} token {j}: served {g}, oracle {w} "
+                f"(top-2 margin {margin[j]:.3e} >= {bar:.3e})")
+    return ties
+
+
+def equal_prefix(outs, want):
+    """Tokens equal to ``want``'s, per request up to its first difference."""
+    n = 0
+    for o, w in zip(outs, want):
+        for a, b in zip(o, w):
+            if a != b:
+                break
+            n += 1
+    return n
+
+
+def registered_prefixes(sp):
+    """The prefix registry's chain keys and the pool's page counts once a
+    run has drained (every page free or on the LRU)."""
+    c = sp.cache
+    if c.available_page_count != c.num_pages:
+        raise AssertionError(f"{c.num_pages - c.available_page_count} pages "
+                             "still held after the run")
+    return frozenset(c._prefix_pages), c.free_page_count
+
+
+class SpecProbe:
+    """Stands in for a speculative predictor's unified step. Before each
+    call that verifies more drafts than every call before it, runs the step
+    eagerly on the call's own inputs (the pools cloned), once on the kernels
+    and once on the twins, with every verify row's logits; keeps both
+    results, the lanes' ``q_lens`` and ``spec_len``. The comparison's
+    launches and twin routes are taken off the counters again."""
+
+    def __init__(self, sp):
+        self.sp, self.step = sp, sp._unified
+        sp._unified = self
+        self.drafts, self.calls = 0, []
+
+    @property
+    def trace_count(self):
+        return self.step.trace_count
+
+    def __call__(self, params, *arrays):
+        from paddle_tpu_torch import ops
+
+        n = int(self.sp._feed.host["spec_len"].sum())
+        if n > self.drafts:
+            self.drafts = n
+            step = unified_of(self.step)
+            lead, pools, tail = step._split(arrays)
+            names = step.arg_names[1:]
+            counted = ops.counters()
+            outs = []
+            for ctx in (contextlib.nullcontext(), twins()):
+                with ctx:
+                    outs.append(step.eager(
+                        params, *lead, *[p.clone() for p in pools], *tail,
+                        all_rows=True)[:4])
+            self.calls.append((outs, lead[names.index("q_lens")].tolist(),
+                               lead[names.index("spec_len")].tolist()))
+            ops.set_counters(counted)
+        return self.step(params, *arrays)
+
+
+class DraftProbe:
+    """Stands in for a model draft engine's ``propose`` and keeps the
+    contexts and drafts of its first ``calls`` calls that drafted."""
+
+    def __init__(self, eng, calls=3):
+        self.propose, self.calls, self.seen = eng.propose, calls, []
+        eng.propose = self
+
+    def __call__(self, lanes):
+        out = self.propose(lanes)
+        if len(self.seen) < self.calls and any(out.values()):
+            self.seen.append([(list(lanes[key][1]), d)
+                              for key, d in out.items() if d])
+        return out
+
+
+def hold_drafts(sp, probe, cfg, bar, label):
+    """Each kept draft is the greedy token of the plain forward of the
+    draft's truncated params over the context and the drafts before it,
+    unless that forward's top-2 margin is below ``bar`` or zero (a near
+    tie: the lane's later drafts are not held). Returns (drafts held,
+    near ties)."""
+    from paddle_tpu_torch.models.gpt import draft_config
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_reference
+
+    eng = sp._draft_engine
+    dcfg = draft_config(cfg, eng.draft_layers)
+    held = ties = 0
+    with torch.no_grad():
+        for call in probe.seen:
+            for ctx, drafts in call:
+                seq = list(ctx)
+                for d in drafts:
+                    ids = torch.tensor(seq, device=sp.device)
+                    logits = quant_forward(
+                        eng.params, embed(eng.params, ids), dcfg,
+                        sp.kv_quant, quant_matmul_reference)[-1].float()
+                    top2 = logits.topk(2)
+                    want = int(top2.indices[0])
+                    if want != d:
+                        margin = (top2.values[0] - top2.values[1]).item()
+                        if margin < bar or margin == 0:
+                            ties += 1
+                            break
+                        raise AssertionError(
+                            f"({label}) draft {d} after {len(seq)} tokens: "
+                            f"the truncated forward's greedy token is {want}"
+                            f" (top-2 margin {margin:.3e})")
+                    held += 1
+                    seq.append(d)
+    if not held:
+        raise AssertionError(f"({label}) no draft held")
+    return held, ties
+
+
+def hold_verify_step(probe, fp32, label):
+    """Every call ``probe`` compared: in each lane that feeds rows, each
+    verify row up to its drafts (``spec_len``) holds its logits against
+    the twins' (fp32 ``LOGIT_TOL``; bf16 ``MOE_BF16_STEP_TOL`` of the row's
+    max) and its token to the twins', unless the twins' top-2 margin there
+    is within twice the row's error (a near tie, counted); a lane with no
+    near tie emits what the twins emit (``n_emit`` and the tokens). Returns
+    (rows held, logits error, near ties)."""
+    rows = ties = 0
+    err = 0.0
+    for ((ids, ne, _, lg), (ids_t, ne_t, _, lg_t)), q_lens, spec_len in \
+            probe.calls:
+        abs_err = (lg - lg_t).abs().amax(-1)                   # [b, k + 1]
+        row_err = abs_err if fp32 else \
+            abs_err / lg_t.abs().amax(-1).clamp_min(1e-30)
+        top2 = lg_t.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= 2 * abs_err
+        same = ids == ids_t
+        for b, (q, s) in enumerate(zip(q_lens, spec_len)):
+            if not q:
+                continue
+            rows += s + 1
+            err = max(err, row_err[b, :s + 1].max().item())
+            off = [j for j in range(s + 1) if not same[b, j]]
+            if any(not tie[b, j] for j in off):
+                raise AssertionError(
+                    f"({label}) verify step lane {b} (spec_len {s}): tokens "
+                    f"{ids[b, :s + 1].tolist()} vs the twins' "
+                    f"{ids_t[b, :s + 1].tolist()} past a near tie")
+            ties += len(off)
+            if not off and (ne[b] != ne_t[b] or not torch.equal(
+                    ids[b, :int(ne[b])], ids_t[b, :int(ne[b])])):
+                raise AssertionError(f"({label}) verify step lane {b}: "
+                                     f"n_emit {int(ne[b])} vs the twins' "
+                                     f"{int(ne_t[b])}")
+    tol = LOGIT_TOL if fp32 else MOE_BF16_STEP_TOL
+    log(f"[spec] ({label}) the verify step on the kernels vs the twins, "
+        f"eagerly on the inputs of {len(probe.calls)} calls (each verifying "
+        f"more drafts than the calls before it, up to {probe.drafts}): "
+        f"{rows} verify rows, logits error {err:.3e} "
+        f"({'abs' if fp32 else 'of the row max'}, tol {tol}), tokens "
+        f"equal but for {ties} near ties, emissions equal")
+    if not probe.drafts or not err <= tol:
+        raise AssertionError(f"({label}) verify step kernels vs twins: "
+                             f"error {err} (tol {tol}), drafts "
+                             f"{probe.drafts}")
+    return rows, err, ties
+
+
+def phase_spec(model, cfg, dev, card):
+    """16. Speculative decoding on the captured step and the async engine:
+    every ``SPEC_FORMS`` form over the motif requests, spec off and each
+    spec run (n-gram at k 1 / 2 / 4, the model self-draft of
+    ``SPEC_DRAFT_LAYERS`` layers per-op and on the mega chain, the
+    quantized forms) in turns, ``SPEC_RUNS`` timed runs each. Every
+    stream is held to the plain forward of the served params (``bar``: the
+    fp32 forms' ``TIE_MARGIN``; the others twice the largest logits error
+    of the spec-off run's rows against that forward); drafts must be
+    accepted; the prefix registry and the pool after a spec run equal the
+    spec-off run's; one capture of the verify step and of each draft
+    program; no twin route; the verify step of each form at k 4 is held
+    against its twins at every verify row (:class:`SpecProbe`,
+    :func:`hold_verify_step`); the profiled windows' launches equal the
+    counters'. Returns the phase's launches by kernel."""
+    from paddle_tpu_torch import ops
+
+    early, late = motif_requests(cfg)
+    reset_counts()
+    summary = {}
+    for form, _, _, _, runs in SPEC_FORMS:
+        # spec off, recorded: the oracle's bar and the streams to compare
+        sp = spec_predictor(model, cfg, form, dev)
+        rec = StepRecord(sp)
+        reqs = serve(sp, early, late)
+        torch.cuda.synchronize()
+        oracle = served_oracle(sp, cfg, reqs)
+        err = max((torch.stack([rec.rows[(r.req_id, j)] for j in range(
+            len(r.output_ids))]) - o).abs().max().item()
+            for r, o in zip(reqs, oracle))
+        fp32 = sp.params["tok_emb"].dtype == torch.float32
+        if fp32 and not err <= LOGIT_TOL:
+            raise AssertionError(f"({form}) spec-off logits {err} from the "
+                                 "plain forward's")
+        bar = TIE_MARGIN if fp32 else 2 * err
+        ties = hold_to_oracle(f"{form}, spec off", reqs, oracle, bar)
+        off = [list(r.output_ids) for r in reqs]
+        off_pages = registered_prefixes(sp)
+        log(f"[spec] {form} spec off: logits within {err:.3e} of the plain "
+            f"forward over the served params; the streams' bar {bar:.3e} "
+            f"({ties} near ties); {sp.steps} steps, captures "
+            f"{unified_of(sp._unified).trace_count}")
+        del sp, rec
+        timing = {"off": []}
+        for label, fields in runs:
+            timing[label] = []
+        for run in range(SPEC_RUNS):
+            order = [("off", {})] + list(runs)
+            for label, fields in (order if run % 2 else order[::-1]):
+                sp = spec_predictor(model, cfg, form, dev, fields)
+                drafts = (DraftProbe(sp._draft_engine)
+                          if run == 0 and sp._draft_engine is not None
+                          else None)
+                got = timed_serve(sp, early, late)
+                torch.cuda.synchronize()
+                timing[label].append(dict(
+                    got, reqs=None, outs=[list(r.output_ids)
+                                          for r in got["reqs"]],
+                    aps=sp.accepted_tokens_per_step,
+                    rate=sp.draft_acceptance_rate,
+                    overhead=sp.draft_overhead_frac,
+                    accepted=sp.spec_accepted, proposed=sp.spec_proposed,
+                    captures=sp.decode_trace_count,
+                    draft_captures=sp.draft_trace_count,
+                    trimmed=sp.telemetry()["kv_pages_trimmed"],
+                    syncs=sp.hard_syncs, steps=sp.steps))
+                if ops.twin_routes():
+                    raise AssertionError(f"({form}, {label}) ran "
+                                         f"{ops.twin_routes()} plain twins")
+                if label == "off":
+                    del sp
+                    continue
+                # the gate on the first run of each spec form
+                if run == 0:
+                    ties = hold_to_oracle(f"{form}, {label}", got["reqs"],
+                                          served_oracle(sp, cfg,
+                                                        got["reqs"]), bar)
+                    pages = registered_prefixes(sp)
+                    if pages != off_pages:
+                        raise AssertionError(
+                            f"({form}, {label}) after the run: "
+                            f"{len(pages[0])} registered pages and "
+                            f"{pages[1]} free vs spec off's "
+                            f"{len(off_pages[0])} and {off_pages[1]}")
+                    # the n-gram table must accept on motif prompts; the
+                    # self-draft's first layers of random weights need not
+                    # agree with the whole stack, so its drafts are held to
+                    # the truncated stack's own greedy tokens instead
+                    if drafts is not None:
+                        n, dties = hold_drafts(sp, drafts, cfg, bar,
+                                               f"{form}, {label}")
+                        log(f"[spec] {form} {label}: {n} drafts of "
+                            f"{len(drafts.seen)} draft passes equal the "
+                            f"greedy tokens of the plain forward of the "
+                            f"{sp.draft_layers}-layer draft params ({dties}"
+                            " near ties)")
+                    elif not sp.spec_accepted:
+                        raise AssertionError(f"({form}, {label}) accepted no "
+                                             "draft on the motif requests")
+                    eng = sp._draft_engine
+                    owners = [] if eng is None else (
+                        [eng._catchup] + list(eng._chains.values()))
+                    if sp.decode_trace_count != 1 or any(
+                            o.trace_count > 1 for o in owners):
+                        raise AssertionError(
+                            f"({form}, {label}) captures: verify "
+                            f"{sp.decode_trace_count}, draft "
+                            f"{[o.trace_count for o in owners]}")
+                    outs = timing[label][-1]["outs"]
+                    log(f"[spec] {form} {label}: streams held to the plain "
+                        f"forward ({ties} near ties), equal to spec off's in"
+                        f" {equal_prefix(outs, off)} of "
+                        f"{sum(map(len, off))} tokens up to each request's "
+                        f"first difference; {sp.spec_accepted} of "
+                        f"{sp.spec_proposed} drafts accepted, "
+                        f"{timing[label][-1]['trimmed']:.0f} pages trimmed,"
+                        f" the pool and the prefix registry as spec off's;"
+                        f" captures: verify {sp.decode_trace_count}, draft "
+                        f"programs {sp.draft_trace_count} "
+                        f"({[o.trace_count for o in owners]})")
+                del sp
+        # the verify step on the kernels vs the twins at every verify row,
+        # in a run of its own (its comparisons would hold up a timed run)
+        sp = spec_predictor(model, cfg, form, dev, dict(spec_decode_k=4))
+        probe = SpecProbe(sp)
+        serve(sp, early, late)
+        torch.cuda.synchronize()
+        verify = hold_verify_step(probe, fp32, f"{form}, n-gram k 4")
+        del sp, probe
+        st = {}
+        for label, rows in timing.items():
+            med = median_run(rows)
+            st[label] = {k: med[k] for k in (
+                "step_ms", "tok_s", "steps", "aps", "rate", "overhead",
+                "captures", "draft_captures", "syncs", "gap", "host_ms")}
+            st[label]["runs"] = [r["step_ms"] for r in rows]
+            log(f"[spec] {form} {label}: mean step {med['step_ms']:.3f} ms "
+                f"(median of {SPEC_RUNS}; runs {step_list(rows)} ms), "
+                f"{med['tok_s']:.1f} tokens/s, {med['steps']} steps after "
+                f"the first, accepted_tokens_per_step {med['aps']:.3f}, "
+                f"draft_acceptance_rate {med['rate']:.3f}, "
+                f"draft_overhead_frac {med['overhead']:.3f}, hard syncs "
+                f"{med['syncs']}, step_gap_frac {med['gap']:.3f}, "
+                f"host_ms_per_step {med['host_ms']:.3f}, captures "
+                f"{med['captures']} + {med['draft_captures']} draft "
+                f"({card})")
+        st["n-gram k 4"]["verify"] = dict(zip(("rows", "err", "ties"),
+                                               verify))
+        summary[form] = st
+    for form, label in SPEC_PROFILED:
+        fields = dict(next(f for f in SPEC_FORMS if f[0] == form)[4])[label]
+        sp = spec_predictor(model, cfg, form, dev, fields)
+        groups, busy, steps = profile_serve(
+            sp, early, late, card, f"[spec] ({form}, {label})", top=8,
+            need=True)
+        summary[form][label]["busy_ms"] = busy / 1e3 / steps
+        summary[form][label]["kernels"] = {g: c for g, (_, c) in
+                                           groups.items() if c}
+        del sp
+    ragged_n, qmm, (attn_n, mlp_n) = read_counts()[1], qmm_counts(), \
+        mega_counts()
+    launches = dict(ragged=ragged_n, int8=qmm["int8"], int4=qmm["int4"],
+                    mega_attn=attn_n, mega_mlp=mlp_n)
+    log(f"[spec] launches over the phase's runs: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the spec path never ran: "
+                             f"{launches}")
+    return launches, summary
 
 
 # -- phase 12 ---------------------------------------------------------------
@@ -5078,8 +5639,10 @@ def call_kernels(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     names = {}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
@@ -5296,9 +5859,11 @@ def profile_step(step, params, mom, ids, labels, card, tag="[train]"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         step(params, mom, ids, labels)[2].item()
         wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_MARGIN_S)
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other PyTorch kernels"] = 0.0
     kernels = [ev for ev in prof.key_averages()
@@ -6273,8 +6838,10 @@ def backward_profile(loss_fn, pattern, card, tag):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         loss.backward()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     dx_us = all_us = 0.0
     n = 0
     for ev in prof.profiler.kineto_results.events():
@@ -6904,6 +7471,89 @@ def capture_only(root: Path) -> int:
     return 0
 
 
+def spec_only(root: Path) -> int:
+    """``--ab spec [ROOT]``: only phase 16 (speculative decoding on the
+    captured step and the async engine) on GPT-125M, with the
+    ``paddle_tpu_torch`` package at ``ROOT`` (it must have speculation);
+    builds the three kernel sources the serving forms run first, in
+    parallel; prints one JSON line."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build(["ragged_paged_attention", "quant_matmul", "mega_decode"])
+    log(f"[build] three kernel sources in {time.perf_counter() - t0:.1f} s")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    t0 = time.perf_counter()
+    launches, summary = phase_spec(model, cfg, dev, card)
+    log(f"[spec] phase 16 in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"spec": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        launches=launches, timing=summary)}, default=str), flush=True)
+    return 0
+
+
+MOE_PROFILE_REPS = 5
+
+
+def moe_profile_only(root: Path) -> int:
+    """``--ab moe-profile [ROOT]``: phase 11's three profiled bf16 MoE
+    windows (cf 1.25; int8 and int4 g128 expert stacks) on GPT-125M with 4
+    experts, top-2, ``MOE_PROFILE_REPS`` times each in turns, with the
+    ``paddle_tpu_torch`` package at ``ROOT``; each window's launches by
+    graph launch logged (:func:`launch_detail`), a window whose trace
+    differs from the counters counted, not raised; each window with no
+    idle margin around it and with ``PROFILE_MARGIN_S``, in turns; prints one
+    JSON line."""
+    sys.path.insert(0, str(root))
+    from dataclasses import replace
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build(["ragged_paged_attention", "quant_matmul", "grouped_matmul"])
+    log(f"[build] three kernel sources in {time.perf_counter() - t0:.1f} s")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = moe_model(replace(cfg, **MOE), dev)
+    mcfg = model.config
+    mcfg.moe_capacity_factor = 1.25
+    early, late = requests(cfg)
+    windows = (("cf 1.25", {}),) + MOE_SERVE_BF16
+    differ = {f"{label}, margin {m}": [] for label, _ in windows
+              for m in (0.0, PROFILE_MARGIN_S)}
+    for rep in range(MOE_PROFILE_REPS):
+        for label, quant in windows:
+            for m in (0.0, PROFILE_MARGIN_S)[::1 if rep % 2 else -1]:
+                sp = quant_predictor(model, mcfg, quant, dev,
+                                     dtype=torch.bfloat16)
+                tag = f"[moe-profile] ({label}, margin {m}, window {rep})"
+                try:
+                    profile_serve(sp, early, late, card, tag, need=True,
+                                  detail=True, margin=m)
+                except AssertionError as e:
+                    log(f"{tag} {e}")
+                    differ[f"{label}, margin {m}"].append(rep)
+                del sp
+    print(json.dumps({"moe_profile": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        reps=MOE_PROFILE_REPS, differ=differ)}), flush=True)
+    return 0
+
+
 def serve_steps_only(root: Path) -> int:
     """``--ab serve-steps [ROOT]``: GPT-125M bf16 served with the
     ``paddle_tpu_torch`` package at ``ROOT`` on its defaults, per-op, mega
@@ -7193,7 +7843,8 @@ def main() -> int:
              "moe-gemms": moe_gemms_only, "int4-decode": int4_decode_only,
              "flash": flash_ab_only, "ln-bwd": ln_bwd_only,
              "qmm-dx": qmm_dx_only, "moe-dx": moe_dx_only,
-             "capture": capture_only, "serve-steps": serve_steps_only}
+             "capture": capture_only, "serve-steps": serve_steps_only,
+             "spec": spec_only, "moe-profile": moe_profile_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -7336,6 +7987,9 @@ def main() -> int:
                              replace(moe_cfg, moe_capacity_factor=1.25), dev)
     timed(phase_attention_routing, dev)
 
+    # 16. speculative decoding on the captured step and the async engine
+    spec_launches = timed(phase_spec, model, cfg, dev, card)[0]
+
     # 12. the legacy two-program path: the paged decode kernel, the ragged
     # kernel's new head dims, GPT-125M served legacy, a d 96 model
     decode = timed(phase_decode_kernel, dev)
@@ -7386,7 +8040,8 @@ def main() -> int:
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}", line,
                          quant_launches[f"int{bits}"]
-                         + quant_launches[f"int{bits}_bf16"], st))
+                         + quant_launches[f"int{bits}_bf16"]
+                         + spec_launches[f"int{bits}"], st))
     for bits, gs, line in ((8, -1, 194), (4, 128, 210)):
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}_bwd", line,
@@ -7400,8 +8055,8 @@ def main() -> int:
             ("ragged_paged_attention",
              "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:264",
-             ragged_launches + quant_launches["ragged"],
-             ragged[torch.float32]),
+             ragged_launches + quant_launches["ragged"]
+             + spec_launches["ragged"], ragged[torch.float32]),
             ("paged_decode_attention",
              "paddle_tpu_torch/csrc/paged_decode_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:90",
@@ -7424,7 +8079,7 @@ def main() -> int:
                   zip(FUSED_KINDS, (105, 128, 281, 293)))),
             *((f"mega_{part}", "paddle_tpu_torch/csrc/mega_decode.cu",
                f"paddle_tpu/ops/pallas/mega_decode.py:{line}",
-               mega_launches[i], st)
+               mega_launches[i] + spec_launches[f"mega_{part}"], st)
               for i, (part, line, st) in enumerate((
                   ("attn", 224, mega[(None, False, torch.float32)]["attn"]),
                   ("mlp", 677, mlp_rounds[("served round", None,
@@ -7496,6 +8151,12 @@ def main() -> int:
                                          "replay adds its capture's launches")
     for i, part in enumerate(("attn", "mlp")):   # gpt3-760m / 2.7b widths
         row_of[f"mega_{part}"]["wide_launches"] = wide_launches[i]
+    # phase 16's speculative runs, counted in the rows' launches
+    for name, key in (("ragged_paged_attention", "ragged"),
+                      ("quant_matmul_int8", "int8"),
+                      ("quant_matmul_int4", "int4"),
+                      ("mega_attn", "mega_attn"), ("mega_mlp", "mega_mlp")):
+        row_of[name]["spec_launches"] = spec_launches[key]
     serving, long_fwd, long_bwd = flash[bf16], flash["long"], bwd["long"]
     row_of["flash_attention_fwd"]["serving_shape"] = dict(
         shape=list(FLASH_SHAPE), dtype="bf16",
@@ -7596,7 +8257,9 @@ def main() -> int:
         f"the pre-dequantized weight (the fp product it replaces, reading "
         f"twice the bytes): {q8r['cublas_ms']:.4f} ms; at M "
         f"{QMM_DECODE_ROWS}: ms {q8r['decode_ms']:.4f}, bound_ms "
-        f"{q8r['decode_bound_ms']:.6f}; fp32: ms "
+        f"{q8r['decode_bound_ms']:.6f}; at M {QMM_SPEC_ROWS} (phase 16's "
+        f"verify budget): ms {q8r['spec_ms']:.4f}, bound_ms "
+        f"{q8r['spec_bound_ms']:.6f}; fp32: ms "
         f"{qmm[('int8', -1, torch.float32)]['ms']:.4f}, bound_ms "
         f"{qmm[('int8', -1, torch.float32)]['bound_ms']:.6f}; int8 g128 "
         f"bf16: ms {qmm[('int8', 128, bf16)]['ms']:.4f}; launches: phase 8's "
@@ -7608,7 +8271,9 @@ def main() -> int:
         "bf16 g128, the sum of one layer's four GEMMs at M "
         f"{QMM_ROWS} on the tensor-core route (qmm_tc_kernel<uint8_t>); at "
         f"M {QMM_DECODE_ROWS}: ms {q4r['decode_ms']:.4f}, bound_ms "
-        f"{q4r['decode_bound_ms']:.6f}; fp32 (qmm_kernel, the CUDA-core "
+        f"{q4r['decode_bound_ms']:.6f}; at M {QMM_SPEC_ROWS}: ms "
+        f"{q4r['spec_ms']:.4f}, bound_ms {q4r['spec_bound_ms']:.6f}; fp32 "
+        f"(qmm_kernel, the CUDA-core "
         f"kernel): ms {q4f['ms']:.4f}, plain_ms {q4f['plain_ms']:.4f}, "
         f"bound_ms {q4f['bound_ms']:.6f}; bf16 serving (b): mean step "
         + " / ".join(f"{w:.3f}" for w in s4["step_ms"]) + " ms"

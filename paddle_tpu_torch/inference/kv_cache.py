@@ -23,8 +23,12 @@ land there, nothing wraps or faults, and the attention kernel is handed
 the pools without it. The pools update in place — the reference donates
 them to its jit.
 
-Not ported here (they raise): the host-DRAM tier, page import/export,
-withholding pages and trimming speculative pages.
+Speculative decoding's page accounting is here too: the draft allowance
+(drafts claim only strictly-free pages), the plain-step page need, and
+the rollback of rejected drafts' pages (``trim_pages`` / ``rollback``).
+
+Not ported here (they raise): the host-DRAM tier, page import/export and
+withholding pages.
 """
 from __future__ import annotations
 
@@ -320,6 +324,8 @@ class KVCacheManager:
             "kv_prefix_evictions", "registered pages evicted off the LRU")
         self._m_cow = m.counter(
             "kv_cow_copies", "copy-on-write page copies prepared")
+        self._m_trimmed = m.counter(
+            "kv_pages_trimmed", "pages released by draft rollback")
         self._note_occupancy()
 
     def _note_occupancy(self) -> None:
@@ -431,6 +437,76 @@ class KVCacheManager:
     def advance(self, slot: int, n: int = 1) -> None:
         self._seq_lens[slot] += n
         self._sl_rev += 1
+
+    def draft_allowance(self, slot: int, reserve: int = 0) -> int:
+        """Draft tokens ``slot`` may feed this step beyond its base decode
+        token using only its own pages and strictly-free ones, after
+        reserving the base token's growth page, a copy-on-write destination
+        when the write position is shared, and ``reserve`` pages promised
+        elsewhere (the plain needs of the other slots scheduled this step):
+        a rejected draft never costs a registered prefix page its place or
+        preempts anyone."""
+        written = int(self._seq_lens[slot])
+        if written >= self.max_seq_len:
+            return 0     # at the ceiling: the truncation stop owns it
+        have = int((self._page_table[slot] >= 0).sum())
+        base_need = max(0, self.pages_needed(written + 1) - have)
+        cow_need = 1 if self.needs_cow(slot, written) else 0
+        spare = max(0, len(self._free_pages) - base_need - cow_need
+                    - max(0, int(reserve)))
+        cap = min((have + base_need + spare) * self.page_size,
+                  self.max_seq_len)
+        return max(0, cap - written - 1)
+
+    def plain_step_page_need(self, slot: int, n_tokens: int) -> int:
+        """Pages ``slot`` claims this step to write ``n_tokens`` plain
+        (non-draft) tokens: growth pages, and a copy-on-write destination
+        when the first write position is shared."""
+        written = int(self._seq_lens[slot])
+        if written >= self.max_seq_len:
+            return 0
+        have = int((self._page_table[slot] >= 0).sum())
+        grow = max(0, self.pages_needed(
+            min(written + max(1, n_tokens), self.max_seq_len)) - have)
+        return grow + (1 if self.needs_cow(slot, written) else 0)
+
+    def trim_pages(self, slot: int) -> int:
+        """Release ``slot``'s pages past what ``seq_len`` needs: the host
+        half of a rejected draft's rollback. The pages go back highest
+        index first, so the free list ends as a never-speculated run's
+        (allocation pops its tail). Trimmed pages are fresh refcount-1
+        pages: shared prefix pages sit below the watermark, and a shared
+        tail was copied before any draft wrote into it. Returns the pages
+        released."""
+        keep = self.pages_needed(int(self._seq_lens[slot]))
+        have = int((self._page_table[slot] >= 0).sum())
+        freed = 0
+        for i in range(have - 1, keep - 1, -1):
+            page = int(self._page_table[slot, i])
+            if page < 0:
+                continue
+            self._page_table[slot, i] = -1
+            self._release_page(page)
+            freed += 1
+        if freed:
+            self._pt_rev += 1
+            self._m_trimmed.inc(freed)
+            self._note_occupancy()
+        return freed
+
+    def rollback(self, slot: int, new_len: int) -> int:
+        """Shrink ``slot``'s watermark to ``new_len`` tokens and release the
+        pages past it (the draft pool's self-heal; its pages are never
+        shared). Returns the pages released."""
+        new_len = max(0, int(new_len))
+        if new_len > int(self._seq_lens[slot]):
+            raise ValueError(
+                f"rollback to {new_len} tokens past slot {slot}'s "
+                f"watermark {int(self._seq_lens[slot])}")
+        if new_len != int(self._seq_lens[slot]):
+            self._seq_lens[slot] = new_len
+            self._sl_rev += 1
+        return self.trim_pages(slot)
 
     def free(self, slot: int) -> None:
         """Drop the slot's page references (shared pages survive in other
@@ -619,7 +695,6 @@ class KVCacheManager:
             self.device)
 
     withhold_pages = _not_ported("withhold_pages", "fault injection")
-    trim_pages = _not_ported("trim_pages", "speculative decoding")
     read_page_payload = _not_ported("read_page_payload",
                                     "KV-page transfer")
     prefix_page_records = _not_ported("prefix_page_records",

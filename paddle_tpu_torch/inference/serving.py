@@ -57,8 +57,24 @@ the step in flight. The one hard sync is the reconcile's wait for a ring
 entry's copied-out ``next_toks``. Greedy streams are bit-identical, and
 seeded sampled streams identical, to the synchronous engine's.
 
-Not ported here: speculation (config flags raise), SLO shedding,
-deadlines and fault injection.
+Speculative decoding (``spec_decode_k``, or the config's): every decode
+lane may feed up to ``spec_k`` draft tokens after its last context token,
+and the one unified step verifies them (``build_unified_step(spec_k=)``):
+a lane emits its accepted drafts and one token more, so greedy and seeded
+streams are those of plain decode. The drafts come from the request's
+n-gram table (``draft_source="ngram"``, the default) or from the model's
+first ``draft_layers`` layers (``"model"``, or ``spec_draft_layers`` in the
+config), drafted for every lane in one pass a round
+(``inference/draft.py``). Drafts claim only pages no one else needs
+(``KVCacheManager.draft_allowance``); a rejected draft's pages go back at
+reconcile (``trim_pages``), so page accounting equals a never-speculated
+run's. The token budget grows to ``max_batch * (1 + spec_k) + chunk``
+(``token_budget`` overrides it). In the async engine a step with drafts
+reconciles at the start of the next round (behind by one), and a round
+with none rides the plain deferral. Speculation with MoE and the legacy
+path raise.
+
+Not ported here: SLO shedding, deadlines and fault injection.
 """
 from __future__ import annotations
 
@@ -73,7 +89,7 @@ from ..observability import MetricsRegistry
 from ..ops.paged_attention import CHUNK_DEFAULT, PAGE_SIZE_DEFAULT
 from .kv_cache import KVCacheManager, kv_cache_quantized, pages_needed
 from .quantize import quantize_serving_params
-from .staging import DeviceBuffer
+from .staging import Feed
 
 WAITING, RUNNING, FINISHED, FAILED = ("waiting", "running", "finished",
                                       "failed")
@@ -155,51 +171,23 @@ class Request:
 class _Pending:
     """One dispatched, not yet reconciled unified step: an entry of the
     async engine's in-flight ring. ``out`` is the host copy of the step's
-    ``next_toks`` (filled by a queued device-to-host copy; ``ready`` is its
-    CUDA event, ``None`` on the CPU), ``completing`` the ``(slot, req)``
-    lanes that emit, ``must_sync`` whether an emission could finish a
-    request."""
+    ``next_toks`` (speculative: its ``out_ids``, and ``ne`` of its
+    ``n_emit``), filled by queued device-to-host copies; ``ready`` is their
+    CUDA event (``None`` on the CPU). ``completing`` holds the ``(slot,
+    req, drafts, was_decode)`` lanes that emit, ``spec_slots`` the lanes
+    that drafted (they advance by ``n_emit`` at reconcile), ``must_sync``
+    whether an emission could finish a request."""
 
-    __slots__ = ("out", "ready", "completing", "must_sync")
+    __slots__ = ("out", "ne", "ready", "completing", "spec_slots",
+                 "must_sync")
 
-    def __init__(self, out, ready, completing, must_sync):
+    def __init__(self, out, ne, ready, completing, spec_slots, must_sync):
         self.out = out
+        self.ne = ne
         self.ready = ready
         self.completing = completing
+        self.spec_slots = spec_slots
         self.must_sync = must_sync
-
-
-class _Feed:
-    """The unified step's small inputs, laid out in one int32 host array
-    and one persistent device buffer (each segment 16-byte aligned; fp32
-    segments are views of the same bytes): ``host[name]`` / ``dev[name]``.
-    :meth:`upload` refreshes the device buffer through pinned staging;
-    ``cached`` skips the copy when the host bytes equal the last ones
-    sent."""
-
-    def __init__(self, segments, device, slots, cached=False):
-        offsets, n = {}, 0
-        for name, size, _ in segments:
-            offsets[name] = n
-            n += -(-size // 4) * 4
-        self.array = np.zeros((max(n, 4),), np.int32)
-        self.buffer = DeviceBuffer(self.array.shape, torch.int32, device,
-                                   slots)
-        self.host, self.dev = {}, {}
-        for name, size, kind in segments:
-            lo = offsets[name]
-            h, d = self.array[lo:lo + size], self.buffer.tensor[lo:lo + size]
-            if kind == "f32":
-                h, d = h.view(np.float32), d.view(torch.float32)
-            self.host[name], self.dev[name] = h, d
-        self._sent = np.full_like(self.array, -1) if cached else None
-
-    def upload(self) -> None:
-        if self._sent is not None:
-            if np.array_equal(self._sent, self.array):
-                return
-            self._sent[...] = self.array
-        self.buffer.put(self.array)
 
 
 class ServingPredictor:
@@ -224,16 +212,24 @@ class ServingPredictor:
     eager and synchronous; it refuses the async engine, an int8 KV cache,
     speculation, ``mega_decode`` and MoE with the reference's
     ``ValueError``s. ``max_seq_len`` (capped at the config's) bounds every
-    context; ``prefix_cache`` defaults to ``unified``.
+    context; ``prefix_cache`` defaults to ``unified``. ``spec_decode_k``
+    (default: the config's) turns on speculative decoding with drafts from
+    ``draft_source`` (``"ngram"``, or ``"model"`` with ``draft_layers``,
+    the default when the config's ``spec_draft_layers`` is set) and a
+    draft pool of ``draft_num_pages`` (see the module docstring);
+    ``token_budget`` overrides the packed step's token count.
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
                  max_seq_len=None, prefill_bucket=16, dtype=None,
                  unified=None, chunk=None, prefix_cache=None,
                  kv_cache_dtype=None, async_engine=None,
-                 max_inflight_steps=4, device=None, mega_decode=None):
+                 max_inflight_steps=4, device=None, mega_decode=None,
+                 token_budget=None, spec_decode_k=None, draft_source=None,
+                 draft_layers=None, draft_num_pages=None):
         from ..models.gpt import (build_decode_step, build_prefill,
-                                  build_unified_step, serving_params)
+                                  build_unified_step, draft_config,
+                                  serving_params)
 
         gpt = model.gpt if hasattr(model, "gpt") else model
         self.config = cfg = gpt.config
@@ -267,22 +263,45 @@ class ServingPredictor:
         self.chunk = int(chunk or CHUNK_DEFAULT)
         self.mega_decode = bool(cfg.mega_decode if mega_decode is None
                                 else mega_decode)
-        if cfg.spec_decode_k and not self.unified:
+        self.spec_k = int(cfg.spec_decode_k if spec_decode_k is None
+                          else spec_decode_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_decode_k must be >= 0, got "
+                             f"{self.spec_k}")
+        if self.spec_k and not self.unified:
             raise ValueError(
                 "speculative decoding rides the unified step's verify "
                 "rows; the legacy two-jit path serves plain decode only")
+        if self.spec_k and self.spec_k >= self.chunk:
+            raise ValueError(
+                f"spec_decode_k {self.spec_k} needs 1 + k <= chunk "
+                f"{self.chunk} (verify rows ride the per-slot chunk block)")
+        self.draft_layers = int(cfg.spec_draft_layers if draft_layers is None
+                                else draft_layers)
+        if draft_source is None:
+            draft_source = ("model" if self.spec_k and self.draft_layers
+                            else "ngram")
+        if draft_source not in ("ngram", "model"):
+            raise ValueError(f"draft_source must be 'ngram' or 'model', "
+                             f"got {draft_source!r}")
+        self.draft_source = draft_source
+        if draft_source == "model":
+            if not self.spec_k:
+                raise ValueError("draft_source='model' needs spec_decode_k "
+                                 "> 0 (there is nothing to draft)")
+            draft_config(cfg, self.draft_layers)   # rejects bad depths
         if self.mega_decode and not self.unified:
             raise ValueError(
                 "mega_decode rides the unified step's packed layout; the "
                 "legacy two-jit path serves the per-op chain only")
-        # config flags of unported paths (speculation) and what the mega
-        # kernels cannot serve (MoE, int4 weights, head dims on the card)
-        # raise here; the legacy builders refuse MoE
+        # what the mega kernels cannot serve (MoE, int4 weights, head dims
+        # on the card) and speculation with MoE raise here; the legacy
+        # builders refuse MoE
         self._unified = self._prefill = self._decode = None
         if self.unified:
             self._unified = build_unified_step(
                 cfg, page_size, self.chunk, kv_quant=self.kv_quant,
-                spec_k=cfg.spec_decode_k, mega=self.mega_decode,
+                spec_k=self.spec_k, mega=self.mega_decode,
                 device=self.device)
         else:
             self._decode = build_decode_step(cfg, page_size)
@@ -312,19 +331,37 @@ class ServingPredictor:
                                  else bool(prefix_cache)),
             quantize_kv=self.kv_quant, metrics=self.metrics,
             device=self.device, staging_slots=slots)
-        self.token_budget = self.max_batch + self.chunk
+        self.token_budget = int(token_budget or (
+            self.max_batch * (1 + self.spec_k) + self.chunk))
+        self._draft_engine = None
+        if self.draft_source == "model":
+            from .draft import ModelDraftEngine
+
+            self._draft_engine = ModelDraftEngine(
+                cfg, self.params, self.draft_layers,
+                page_size=self.cache.page_size, chunk=self.chunk,
+                max_batch=self.max_batch, max_seq_len=self.max_seq_len,
+                num_pages=draft_num_pages, kv_quant=self.kv_quant,
+                max_k=self.spec_k, mega=self.mega_decode,
+                device=self.device, staging_slots=slots)
+        # req_id -> draft proposer, kept across preemption (the replayed
+        # context proposes the same drafts and resumes the backoff)
+        self._drafts: dict[int, object] = {}
+        self._accept_ema: float | None = None
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}   # slot -> request
         b, t = self.max_batch, self.token_budget
         # the step's inputs: the per-round arrays, uploaded every round,
         # and the slowly-changing ones (copy-on-write lanes, sampling
         # parameters), uploaded when their bytes change
-        self._feed = _Feed(
+        self._feed = Feed(
             [(n, t, "i32") for n in ("tok_ids", "tok_slot", "tok_pos",
                                      "feedback")]
             + [(n, b, "i32") for n in ("q_lens", "last_idx", "emit_mask",
-                                       "produced")], self.device, slots)
-        self._slow = _Feed(
+                                       "produced")]
+            + ([("spec_len", b, "i32")] if self.spec_k else []),
+            self.device, slots)
+        self._slow = Feed(
             [("cow_src", b, "i32"), ("cow_dst", b, "i32"),
              ("seeds", b, "i32"), ("temp", b, "f32"), ("top_k", b, "i32"),
              ("top_p", b, "f32")], self.device, slots, cached=True)
@@ -344,7 +381,7 @@ class ServingPredictor:
         self._last_event = None
         self._idle_since = None
         self._w_marks = {"step_s": 0.0, "sync_s": 0.0, "gap_s": 0.0,
-                         "calls": 0.0}
+                         "calls": 0.0, "draft_s": 0.0}
         # the legacy path's per-slot decode input: each running slot's next
         # token to feed
         self._next_token = np.zeros((b,), np.int32)
@@ -389,6 +426,29 @@ class ServingPredictor:
             "serving_running_lanes", "slots in RUNNING after a step")
         self._m_waiting = m.gauge(
             "serving_waiting_requests", "queued requests after a step")
+        # speculative decoding, per completing decode lane-step
+        self._m_spec_lane_steps = m.counter(
+            "serving_spec_lane_steps", "decode lane-steps while spec is on")
+        self._m_spec_emitted = m.counter(
+            "serving_spec_tokens_emitted", "tokens emitted by spec lanes")
+        self._m_draft_proposed = m.counter(
+            "serving_draft_proposed", "draft tokens proposed")
+        self._m_draft_accepted = m.counter(
+            "serving_draft_accepted", "draft tokens accepted by verify")
+        self._m_draft_rollback = m.counter(
+            "serving_draft_rollback_pages", "over-allocated pages trimmed")
+        self._m_draft_model_steps = m.counter(
+            "serving_draft_model_steps",
+            "draft-model launches (catch-up chunks + chains)")
+        self._m_draft_src = m.counter(
+            "serving_draft_tokens_proposed",
+            "draft tokens proposed, by source", labels=("source",))
+        self._m_spec_deferred = m.counter(
+            "serving_spec_async_deferred_steps",
+            "spec-build dispatches reconciled behind-by-one or deferred")
+        self._m_draft_s = m.counter(
+            "serving_draft_seconds",
+            "host wall seconds inside the draft-model proposal pass")
 
     # -- read surface ------------------------------------------------------
 
@@ -407,6 +467,60 @@ class ServingPredictor:
     @property
     def steady_hits(self) -> int:
         return int(self._m_steady.value)
+
+    @property
+    def spec_lane_steps(self) -> int:
+        return int(self._m_spec_lane_steps.value)
+
+    @property
+    def spec_emitted(self) -> int:
+        return int(self._m_spec_emitted.value)
+
+    @property
+    def spec_proposed(self) -> int:
+        return int(self._m_draft_proposed.value)
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._m_draft_accepted.value)
+
+    @property
+    def accepted_tokens_per_step(self) -> float:
+        """Tokens emitted per completing decode lane-step while speculation
+        is on (1.0: plain decode)."""
+        if not self.spec_lane_steps:
+            return 1.0
+        return self.spec_emitted / self.spec_lane_steps
+
+    @property
+    def draft_acceptance_rate(self) -> float:
+        """The share of proposed drafts the verify step accepted."""
+        if not self.spec_proposed:
+            return 0.0
+        return self.spec_accepted / self.spec_proposed
+
+    @property
+    def draft_overhead_frac(self) -> float:
+        """The share of the measured window's ``step()`` wall time spent in
+        the model draft pass (0.0 for the n-gram source)."""
+        step = self._window("step_s", self._m_step_s)
+        if step <= 0:
+            return 0.0
+        return min(1.0, self._window("draft_s", self._m_draft_s) / step)
+
+    @property
+    def spec_accept_ema(self) -> float:
+        """EMA over the drafted lane-steps' acceptance shares (0.0 before
+        any drafted step)."""
+        return 0.0 if self._accept_ema is None else self._accept_ema
+
+    @property
+    def draft_trace_count(self) -> int:
+        """Captures of the model draft programs (the catch-up step and one
+        chain per length run; on the CPU the geometries that ran); 0 for
+        the n-gram source."""
+        eng = self._draft_engine
+        return 0 if eng is None else eng.trace_count
 
     @property
     def decode_trace_count(self) -> int:
@@ -495,7 +609,8 @@ class ServingPredictor:
         self._w_marks = {"step_s": self._m_step_s.value,
                          "sync_s": self._m_sync_s.value,
                          "gap_s": self._m_gap_s.value,
-                         "calls": self._m_step_calls.value}
+                         "calls": self._m_step_calls.value,
+                         "draft_s": self._m_draft_s.value}
 
     # -- queue API ---------------------------------------------------------
 
@@ -534,9 +649,17 @@ class ServingPredictor:
             req._finish_counted = True
             self._m_finished.inc()
 
+    def _close_request(self, req: Request) -> None:
+        """Terminal teardown: drop the request's draft proposer and draft
+        lane (preemption keeps both: the replay heals against them)."""
+        self._drafts.pop(req.req_id, None)
+        if self._draft_engine is not None:
+            self._draft_engine.release(req.req_id)
+
     def _finish(self, req: Request) -> None:
         req.state = FINISHED
         self._count_finished(req)
+        self._close_request(req)
 
     def _fail(self, req: Request, code: str, message) -> None:
         """Terminal FAILED with an error record; the caller has released
@@ -545,6 +668,7 @@ class ServingPredictor:
         req.error = {"code": code, "message": str(message)[:300]}
         self._m_failed.inc()
         self._m_fail_reasons.labels(reason=code).inc()
+        self._close_request(req)
 
     def _requeue_one(self, slot: int, exc, code: str) -> None:
         """Send a lane that cannot grow back through the replay path;
@@ -635,27 +759,116 @@ class ServingPredictor:
                 cache.register_prefix(slot, req.prompt_ids[:written],
                                       include_tail=False)
 
+    # -- speculation: the draft proposers ------------------------------------
+
+    def _proposer_for(self, req: Request):
+        """The request's draft proposer, made on first use and kept across
+        preemption (its backoff resumes where it left off)."""
+        prop = self._drafts.get(req.req_id)
+        if prop is None:
+            from .draft import DraftProposer, ModelDraftProposer
+
+            if self._draft_engine is not None:
+                prop = ModelDraftProposer(self.spec_k, self._draft_engine,
+                                          req.req_id)
+            else:
+                prop = DraftProposer(self.spec_k)
+            self._drafts[req.req_id] = prop
+        return prop
+
+    def _proposer_k(self, req: Request) -> int:
+        """The lane's adaptive speculation length, without making a
+        proposer (a fresh request starts at ``spec_k``)."""
+        prop = self._drafts.get(req.req_id)
+        return prop.k if prop is not None else self.spec_k
+
+    def _draft_room(self, slot, req, budget_room: int) -> int:
+        """The per-lane draft clamp of both sources: the token budget, the
+        chunk block, the request's output budget, the length ceiling and
+        the pages claimable without evicting or preempting
+        (``draft_allowance``). The capacity pass clamps again at claim
+        time; this one saves draft work."""
+        written = self.cache.seq_len(slot)
+        return min(budget_room, self._proposer_k(req), self.chunk - 1,
+                   req.max_new_tokens - len(req.output_ids) - 1,
+                   self.max_seq_len - written - 1,
+                   self.cache.draft_allowance(slot))
+
+    def _draft_propose(self, slot, req, budget_room: int) -> list:
+        """N-gram drafts for one decode lane."""
+        prop = self._proposer_for(req)
+        room = self._draft_room(slot, req, budget_room)
+        return prop.propose(req._context_ids(), room) if room > 0 else []
+
+    def _propose_model_drafts(self, decode_slots, budget: int) -> dict:
+        """One draft-engine pass for every decode lane that may speculate
+        this round, with the rooms of the n-gram path's budget split (every
+        lane's base token reserved first). The engine's launches count as
+        a dispatch (the device has draft work) and its one host sync as a
+        hard sync of this call."""
+        lanes: dict[int, tuple] = {}
+        n_left = len(decode_slots)
+        for slot in decode_slots:
+            n_left -= 1
+            req = self.running[slot]
+            self._proposer_for(req)
+            r = self._draft_room(slot, req, budget - 1 - n_left)
+            budget -= 1
+            if r > 0:
+                lanes[slot] = (req.req_id, req._context_ids(), r)
+                budget -= r
+        if not lanes:
+            return {}
+        eng = self._draft_engine
+        launches, syncs = eng.model_steps, eng.chain_syncs
+        t0 = time.monotonic()
+        try:
+            return eng.propose(lanes)
+        finally:
+            self._m_draft_s.inc(time.monotonic() - t0)
+            if eng.model_steps != launches:
+                # the device had draft work
+                self._m_draft_model_steps.inc(eng.model_steps - launches)
+                self._mark_dispatch()
+            if eng.chain_syncs != syncs:
+                self._did_sync = True
+
     # -- the unified step --------------------------------------------------
 
     def _schedule(self):
-        """Pack the token budget (decode lanes first, then prefill chunks
-        FIFO by age), then run the capacity pass: ceiling stops, page
+        """Pack the token budget (decode lanes first, each with its drafts
+        under speculation, then prefill chunks FIFO by age), then run the
+        capacity pass: ceiling stops, the claim-time draft clamp, page
         growth, CoW claims, preempting the youngest under pressure.
         Returns ``(slot -> tokens this step, slot -> (src, dst) of every
-        CoW claimed)``."""
+        CoW claimed, slot -> draft tokens, the decode slots)``."""
         cache = self.cache
         budget = self.token_budget
         sched: dict[int, int] = {}
+        drafts: dict[int, list] = {}
         decode_slots, prefill_slots = [], []
         for slot in sorted(self.running):
             req = self.running[slot]
             remaining = req._ctx_len - cache.seq_len(slot)
             (decode_slots if remaining == 1 else prefill_slots).append(slot)
-        for slot in decode_slots:
+        model_drafts: dict[int, list] = {}
+        if self._draft_engine is not None and decode_slots:
+            model_drafts = self._propose_model_drafts(decode_slots, budget)
+        for idx, slot in enumerate(decode_slots):
             if budget <= 0:
                 break
-            sched[slot] = 1
-            budget -= 1
+            # drafts spend only budget left after every decode lane still
+            # to pack has its base token
+            room = budget - 1 - (len(decode_slots) - idx - 1)
+            if self._draft_engine is not None:
+                d = model_drafts.get(slot, [])[:max(0, room)]
+            else:
+                d = (self._draft_propose(slot, self.running[slot], room)
+                     if self.spec_k else [])
+            if d:
+                drafts[slot] = d
+            sched[slot] = 1 + len(d)
+            budget -= 1 + len(d)
         for slot in sorted(prefill_slots,
                            key=lambda s: self.running[s].req_id):
             if budget <= 0:
@@ -665,8 +878,17 @@ class ServingPredictor:
             if n > 0:
                 sched[slot] = n
                 budget -= n
+        # the pages each scheduled slot claims for its plain tokens, held
+        # back from the drafts of the slots before it
+        plain_need: dict[int, int] = {}
+        pending_need = 0
+        if drafts:
+            plain_need = {s: cache.plain_step_page_need(
+                s, sched[s] - len(drafts.get(s, []))) for s in sched}
+            pending_need = sum(plain_need.values())
         cows: dict[int, tuple[int, int]] = {}
         for slot in sorted(sched):
+            pending_need -= plain_need.pop(slot, 0)
             if slot not in self.running:
                 continue
             req = self.running[slot]
@@ -679,7 +901,18 @@ class ServingPredictor:
                 cache.free(slot)
                 self._finish(req)
                 continue
-            n = sched[slot] = min(sched[slot], self.max_seq_len - written)
+            n = min(sched[slot], self.max_seq_len - written)
+            if slot in drafts:
+                # the claim-time clamp: slots before this one may have
+                # taken the free pages counted at propose time
+                keep = max(0, min(len(drafts[slot]), n - 1,
+                                  cache.draft_allowance(
+                                      slot, reserve=pending_need)))
+                drafts[slot] = drafts[slot][:keep]
+                if not keep:
+                    del drafts[slot]
+                n = 1 + keep
+            sched[slot] = n
             while True:
                 if cache.ensure_capacity(slot, written + n) and (
                         not cache.needs_cow(slot, written)
@@ -703,11 +936,12 @@ class ServingPredictor:
             if slot not in self.running:
                 sched.pop(slot, None)
         sched = {s: n for s, n in sched.items() if s in self.running}
-        return sched, cows
+        drafts = {s: d for s, d in drafts.items() if s in sched}
+        return sched, cows, drafts, set(decode_slots)
 
-    def _pack(self, sched, cows):
+    def _pack(self, sched, cows, drafts, decode_set):
         """Fill the host arrays of a full pack; returns the completing
-        ``(slot, req)`` lanes."""
+        ``(slot, req, drafts, was_decode)`` lanes."""
         cache = self.cache
         h, sh = self._feed.host, self._slow.host
         self._feed.array[...] = 0
@@ -727,7 +961,13 @@ class ServingPredictor:
             n = sched[slot]
             req = self.running[slot]
             written = cache.seq_len(slot)
-            if req._pending_n:
+            d = drafts.get(slot, [])
+            if d:
+                # a drafting lane (its context value-complete) feeds its
+                # last context token, then its drafts
+                h["tok_ids"][w:w + n] = [req._context_ids()[written]] + d
+                h["spec_len"][slot] = len(d)
+            elif req._pending_n:
                 # only a decode lane can have a token in flight (replays
                 # and prefills are value-barriered), and that token is the
                 # one it feeds: read it from the device carry
@@ -737,10 +977,12 @@ class ServingPredictor:
                                                            written + n]
             h["tok_slot"][w:w + n] = slot
             h["tok_pos"][w:w + n] = np.arange(written, written + n)
-            h["last_idx"][slot] = w + n - 1
+            # the row whose logits decide the next token: the first verify
+            # row of a drafting lane, else the last row fed
+            h["last_idx"][slot] = w + n - 1 - len(d)
             h["q_lens"][slot] = n
             w += n
-            if written + n == req._ctx_len:
+            if written + n - len(d) == req._ctx_len:
                 h["emit_mask"][slot] = 1
                 h["produced"][slot] = len(req.output_ids) + req._pending_n
                 sh["temp"][slot] = req.temperature
@@ -748,7 +990,7 @@ class ServingPredictor:
                 sh["top_p"][slot] = req.top_p
                 if req.temperature > 0:
                     self._lane_seeds[slot] = req.seed & 0xFFFFFFFF
-                completing.append((slot, req))
+                completing.append((slot, req, len(d), slot in decode_set))
         sh["seeds"][...] = self._lane_seeds.view(np.int32)
         return completing
 
@@ -758,14 +1000,14 @@ class ServingPredictor:
         entry (``None`` when nothing was scheduled); reads no device
         value."""
         cache = self.cache
-        sched, cows = self._schedule()
+        sched, cows, drafts, decode_set = self._schedule()
         if not sched:
             return None
         # steady decode (async only): every scheduled lane is a feedback
         # decode lane and the schedule matches the last full pack's, so the
         # packed arrays differ only in positions and produced counts
         steady_sig = None
-        if (self.async_engine and not cows
+        if (self.async_engine and not cows and not drafts
                 and all(n == 1 for n in sched.values())
                 and all(self.running[s]._pending_n > 0 for s in sched)):
             steady_sig = tuple((s, self.running[s].req_id)
@@ -776,46 +1018,56 @@ class ServingPredictor:
             self._m_steady.inc()
             completing = st["completing"]
             h = self._feed.host
-            for w, (slot, req) in enumerate(completing):
+            for w, (slot, req, _, _) in enumerate(completing):
                 h["tok_pos"][w] = cache.seq_len(slot)
                 h["produced"][slot] = len(req.output_ids) + req._pending_n
         else:
-            completing = self._pack(sched, cows)
+            completing = self._pack(sched, cows, drafts, decode_set)
             self._steady = (dict(sig=steady_sig, completing=completing)
                             if steady_sig is not None else None)
         # could an emission of this step FINISH a request? (the engine's
-        # sync-boundary predicate: eos set, or the output budget reachable)
+        # sync-boundary predicate: eos set, or the output budget reachable,
+        # up to 1 + drafts tokens for a drafting lane)
         must_sync = any(req.eos_token_id is not None
-                        or len(req.output_ids) + req._pending_n + 1
-                        >= req.max_new_tokens for _, req in completing)
+                        or len(req.output_ids) + req._pending_n + 1 + k_i
+                        >= req.max_new_tokens
+                        for _, req, k_i, _ in completing)
         self._feed.upload()
         self._slow.upload()
         d, sd = self._feed.dev, self._slow.dev
         # the page-table / seq-len views are refreshed BEFORE this step's
         # advance: kv_lens counts the tokens cached before the step
-        next_toks = self._unified(
-            self.params, d["tok_ids"], d["tok_slot"], d["tok_pos"],
-            d["q_lens"], cache.seq_lens_device(), d["last_idx"],
-            d["feedback"], self._prev, d["emit_mask"], d["produced"],
-            *cache.pools(), cache.page_table_device(), sd["cow_src"],
-            sd["cow_dst"], sd["seeds"], sd["temp"], sd["top_k"],
-            sd["top_p"])[0]
+        head = (d["tok_ids"], d["tok_slot"], d["tok_pos"], d["q_lens"],
+                cache.seq_lens_device(), d["last_idx"])
+        if self.spec_k:
+            head += (d["spec_len"],)
+        res = self._unified(
+            self.params, *head, d["feedback"], self._prev, d["emit_mask"],
+            d["produced"], *cache.pools(), cache.page_table_device(),
+            sd["cow_src"], sd["cow_dst"], sd["seeds"], sd["temp"],
+            sd["top_k"], sd["top_p"])
         self._mark_dispatch()
+        out_dev, ne_dev = (res[0], res[1]) if self.spec_k else (res[0], None)
         if self.async_engine:
-            self._prev.copy_(next_toks)
-        out = ready = None
+            self._prev.copy_(res[2] if self.spec_k else res[0])
+        spec_slots = sorted(drafts)
+        out = ne = ready = None
         if completing:
-            # queued behind the step: reconcile waits on this copy alone,
-            # not on the steps dispatched after it
-            out = next_toks.to("cpu", non_blocking=True)
-            if next_toks.is_cuda:
+            # queued behind the step: reconcile waits on these copies
+            # alone, not on the steps dispatched after it
+            out = out_dev.to("cpu", non_blocking=True)
+            if spec_slots:
+                ne = ne_dev.to("cpu", non_blocking=True)
+            if out_dev.is_cuda:
                 ready = torch.cuda.Event()
                 ready.record()
-        for _, req in completing:
+        for _, req, _, _ in completing:
             req._pending_n += 1
+        # drafting lanes advance at reconcile, by n_emit (a device value)
         for slot, n in sched.items():
-            cache.advance(slot, n)
-        return _Pending(out, ready, completing, must_sync)
+            if slot not in drafts:
+                cache.advance(slot, n)
+        return _Pending(out, ne, ready, completing, spec_slots, must_sync)
 
     def _emit(self, req: Request, tok: int) -> None:
         req.output_ids.append(tok)
@@ -826,30 +1078,64 @@ class ServingPredictor:
 
     def _reconcile_one(self) -> dict[int, list[int]]:
         """Land the OLDEST in-flight step: wait for its copied-out tokens
-        (the hard sync), append them, charge TTFT and the token counters.
-        A token past a request's budget or eos (as landed) is dropped."""
+        (the hard sync), advance its drafting lanes by ``n_emit`` and trim
+        their rejected drafts' pages, append the tokens, charge TTFT, the
+        token and the speculation counters. A token past a request's budget
+        or eos (as landed) is dropped."""
         e = self._inflight.popleft()
         self._m_inflight.set(len(self._inflight))
-        out = None
+        out = ne = None
         if e.completing:
             t0 = time.monotonic()
             if e.ready is not None:
                 e.ready.synchronize()
             out = e.out.numpy()
+            ne = None if e.ne is None else e.ne.numpy()
             self._m_sync_s.inc(time.monotonic() - t0)
             self._did_sync = True
         if not self._inflight:
             self._mark_drained()
+        for slot in e.spec_slots:
+            # the context token and the accepted drafts are the valid K/V;
+            # the pages past them go back, as if never speculated
+            self.cache.advance(slot, int(ne[slot]))
+            self._m_draft_rollback.inc(self.cache.trim_pages(slot))
         produced: dict[int, list[int]] = {}
-        for slot, req in e.completing:
-            if req.state != FAILED and not stream_done(
-                    req.output_ids, req.max_new_tokens, req.eos_token_id):
-                tok = int(out[slot])
+        for slot, req, k_i, was_decode in e.completing:
+            if self.spec_k:
+                m = int(ne[slot]) if k_i else 1
+                toks = [int(x) for x in out[slot, :m]]
+            else:
+                toks = [int(out[slot])]
+            emitted = 0
+            for tok in toks:
+                if req.state == FAILED or stream_done(
+                        req.output_ids, req.max_new_tokens,
+                        req.eos_token_id):
+                    break
                 self._emit(req, tok)
-                produced[req.req_id] = [tok]
+                emitted += 1
+                produced.setdefault(req.req_id, []).append(tok)
+            # the pack charged one pending token a completing lane; a
+            # drafting lane's accepted drafts land beside it
             req._pending_n = max(0, req._pending_n - 1)
             if req.state == FINISHED:
                 self._count_finished(req)
+            if self.spec_k and was_decode:
+                acc = int(ne[slot]) - 1 if k_i else 0
+                self._m_spec_lane_steps.inc()
+                self._m_spec_emitted.inc(emitted)
+                self._m_draft_proposed.inc(k_i)
+                self._m_draft_src.labels(source=self.draft_source).inc(k_i)
+                self._m_draft_accepted.inc(acc)
+                if k_i:
+                    frac = acc / k_i
+                    self._accept_ema = (
+                        frac if self._accept_ema is None
+                        else 0.8 * self._accept_ema + 0.2 * frac)
+                prop = self._drafts.get(req.req_id)
+                if prop is not None:
+                    prop.update(k_i, acc)
         return produced
 
     @staticmethod
@@ -880,6 +1166,18 @@ class ServingPredictor:
 
     def _step_unified(self) -> dict[int, list[int]]:
         produced: dict[int, list[int]] = {}
+        # speculation's behind-by-one: a drafted step's advance, rollback
+        # and proposer feedback land before this round schedules anything,
+        # and so does a ring holding the input token of a lane that may
+        # draft again (its proposal reads the value-complete context)
+        if self._inflight and self.spec_k and (
+                any(p.spec_slots for p in self._inflight)
+                or any(r._pending_n and self._proposer_k(r) > 0
+                       for r in self.running.values())):
+            self._merge_produced(produced, self._reconcile_all())
+            # a lane whose last prompt token rode the drained step can
+            # register its partial tail page only now
+            self._register_prefixes()
         # value barrier: admission replays a preempted request's context
         # (token VALUES), so a waiting request with tokens in flight lands
         # the whole ring first
@@ -900,6 +1198,9 @@ class ServingPredictor:
         if not self.async_engine:
             # pipeline depth zero: land the step just dispatched
             self._merge_produced(produced, self._reconcile_all())
+        elif entry.spec_slots:
+            # a drafted step reconciles at the start of the next round
+            pass
         else:
             # behind-by-one while an emission boundary is in the ring;
             # otherwise defer up to max_inflight_steps
@@ -909,6 +1210,9 @@ class ServingPredictor:
                         and any(p.must_sync
                                 for p in list(self._inflight)[:-1]))):
                 self._merge_produced(produced, self._reconcile_one())
+        if self.spec_k and self._inflight and self._inflight[-1] is entry:
+            # a speculative step whose reconcile outlived this call
+            self._m_spec_deferred.inc()
         self._register_prefixes()
         return produced
 

@@ -55,4 +55,37 @@ class DeviceBuffer:
         return self.tensor
 
 
-__all__ = ["DeviceBuffer", "STAGING_SLOTS_DEFAULT"]
+class Feed:
+    """A step's small inputs, laid out in one int32 host array and one
+    persistent device buffer (each segment 16-byte aligned; fp32 segments
+    are views of the same bytes): ``host[name]`` / ``dev[name]``.
+    :meth:`upload` refreshes the device buffer through pinned staging;
+    ``cached`` skips the copy when the host bytes equal the last ones
+    sent."""
+
+    def __init__(self, segments, device, slots, cached=False):
+        offsets, n = {}, 0
+        for name, size, _ in segments:
+            offsets[name] = n
+            n += -(-size // 4) * 4
+        self.array = np.zeros((max(n, 4),), np.int32)
+        self.buffer = DeviceBuffer(self.array.shape, torch.int32, device,
+                                   slots)
+        self.host, self.dev = {}, {}
+        for name, size, kind in segments:
+            lo = offsets[name]
+            h, d = self.array[lo:lo + size], self.buffer.tensor[lo:lo + size]
+            if kind == "f32":
+                h, d = h.view(np.float32), d.view(torch.float32)
+            self.host[name], self.dev[name] = h, d
+        self._sent = np.full_like(self.array, -1) if cached else None
+
+    def upload(self) -> None:
+        if self._sent is not None:
+            if np.array_equal(self._sent, self.array):
+                return
+            self._sent[...] = self.array
+        self.buffer.put(self.array)
+
+
+__all__ = ["DeviceBuffer", "Feed", "STAGING_SLOTS_DEFAULT"]

@@ -31,6 +31,7 @@ weights cross from the reference without a transpose.
 """
 from __future__ import annotations
 
+import gc
 import math
 from dataclasses import dataclass
 
@@ -56,8 +57,10 @@ from .moe import GPTMoE, moe_ffn
 @dataclass
 class GPTConfig:
     """Same fields and defaults as the reference ``GPTConfig``. Fields for
-    paths not ported yet (TP, recompute, speculation) raise where they
-    would change behaviour; ``fused_mlp`` sends the eager decoder block
+    paths not ported yet (TP, recompute) raise where they would change
+    behaviour; ``spec_decode_k`` / ``spec_draft_layers`` configure
+    speculative serving (``inference.serving``); ``fused_mlp`` sends the
+    eager decoder block
     through the fused LN / GELU kernels; ``mega_decode`` serves through
     the mega kernels; ``moe_experts`` replaces every block's MLP with a
     top-``moe_top_k`` routed expert FFN (``models/moe.py``);
@@ -395,6 +398,14 @@ def _srv_ln(x, g, b, eps):
         x.float(), x.shape[-1:], g.float(), b.float(), eps).to(x.dtype)
 
 
+def _srv_embed(params, tok_ids, tok_pos):
+    """Token + position embeddings of packed rows (ids and positions
+    clamped into their tables; padding rows carry -1 or 0)."""
+    pos_c = tok_pos.long().clamp(0, params["pos_emb"].shape[0] - 1)
+    return params["tok_emb"][tok_ids.long().clamp_min(0)] \
+        + params["pos_emb"][pos_c]
+
+
 def _srv_logits(params, h):
     """h [..., hidden] -> logits [..., vocab] (tied head unless lm_head)."""
     if "lm_head" in params:
@@ -533,23 +544,43 @@ def _sample_epilogue(logits, u, temperature, top_k, top_p):
     return torch.searchsorted(cdf, target, right=True)[:, 0].clamp(0, v - 1)
 
 
+def _param_leaves(params, path=()):
+    """``(path, tensor)`` for every tensor leaf of a serving params dict,
+    in key order (quantized ``{"q", "s"}`` leaves included)."""
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, dict):
+            yield from _param_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
 class _Captured:
-    """One geometry's step captured in a CUDA graph: the tensors of the
-    call it was captured from are its inputs, its outputs are static
-    buffers, and ``delta`` is what the capture added to the kernel
-    wrappers' counters (see ``ops.counters``), which every replay adds."""
+    """One geometry's program captured in a CUDA graph: the tensors of the
+    call it was captured from are its inputs (the params by their leaves),
+    its outputs are static buffers, and ``delta`` is what the capture added
+    to the kernel wrappers' counters (see ``ops.counters``), which every
+    replay adds."""
 
     def __init__(self, fn, args):
         from .. import ops
 
         self.args = args            # keeps the bound buffers alive
+        self.leaves = list(_param_leaves(args[0]))
         before = ops.counters()
         self.graph = torch.cuda.CUDAGraph()
+        # no cyclic garbage collection while capturing: a dead cycle that
+        # holds another CUDA graph (or pinned memory) would be freed in the
+        # middle of the capture, which invalidates it
+        was_enabled = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
                 self.out = fn(*args)
         finally:
+            if was_enabled:
+                gc.enable()
             after = ops.counters()
             # a capture launches nothing
             ops.set_counters({k: before.get(k, 0) for k in after})
@@ -559,6 +590,17 @@ class _Captured:
     def replay(self, args):
         from .. import ops
 
+        leaves = list(_param_leaves(args[0]))
+        if [p for p, _ in leaves] != [p for p, _ in self.leaves]:
+            raise ValueError("the params of the captured step hold other "
+                             "leaves than the ones its capture bound")
+        for (path, arg), (_, bound) in zip(leaves, self.leaves):
+            if arg.data_ptr() != bound.data_ptr() or arg.shape != bound.shape:
+                raise ValueError(
+                    f"params leaf {'/'.join(path)} of the captured step is "
+                    "not the tensor its capture bound: the step serves the "
+                    "weights it was captured with (build another step for "
+                    "other weights)")
         for i, (bound, arg) in enumerate(zip(self.args[1:], args[1:]), 1):
             if arg.data_ptr() != bound.data_ptr() or arg.shape != bound.shape:
                 raise ValueError(f"argument {i} of the captured step is not "
@@ -569,37 +611,13 @@ class _Captured:
         return self.out
 
 
-class UnifiedStep:
-    """The serving step :func:`build_unified_step` returns.
+class _CapturedProgram:
+    """A program captured once per geometry (see :class:`UnifiedStep`):
+    ``_programs`` maps each geometry to its :class:`_Captured` (``None`` on
+    the CPU, where every call runs eagerly)."""
 
-    On a CUDA device each step geometry is captured once in a CUDA graph
-    and every later call of that geometry replays it. The geometry is the
-    key (page size, chunk, token budget, ``max_batch``, ``kv_quant``,
-    ``mega``, dtype, weight kind, MoE) together with the weights and the
-    pools the capture binds. The first call of a geometry runs the step
-    eagerly on a side stream (it builds and loads every kernel, sets their
-    attributes and grows every scratch buffer) and returns that result;
-    the capture follows. The tensors of that first call become the graph's
-    inputs: every later call must pass the same tensors, refilled (the
-    serving predictor's persistent buffers), and one that passes others
-    raises. Outputs are copied out of the graph's static buffers before
-    they are returned. A capture that fails raises;
-    nothing falls back to the eager step.
-
-    ``trace_count`` counts captures on a CUDA device and, on the CPU
-    (where every call runs eagerly), the distinct geometries that ran —
-    the reference's one jitted executable per geometry. :meth:`eager`
-    runs one step without capture.
-    """
-
-    def __init__(self, config, page_size, chunk, kv_quant=False,
-                 mega=False):
-        self.config = config
-        self.page_size = int(page_size)
-        self.chunk = int(chunk)
-        self.kv_quant = bool(kv_quant)
-        self.mega = bool(mega)
-        self._programs: dict = {}    # geometry -> _Captured (CPU: None)
+    def __init__(self):
+        self._programs: dict = {}
 
     @property
     def trace_count(self) -> int:
@@ -612,28 +630,14 @@ class UnifiedStep:
         return [dict(p.delta) for p in self._programs.values()
                 if p is not None]
 
-    def _geometry(self, params, tok_ids, q_lens, pools):
-        w = params["layers"]["wqkv"]
-        kind = ((str(w["q"].dtype), tuple(w["q"].shape), tuple(w["s"].shape))
-                if isinstance(w, dict) else "fp")
-        key = (self.page_size, self.chunk, tok_ids.shape[0], q_lens.shape[0],
-               self.kv_quant, self.mega, params["tok_emb"].dtype, kind,
-               self.config.moe_experts)
-        if tok_ids.device.type != "cuda":
-            return key
-        return key + (id(params), tuple(p.data_ptr() for p in pools))
-
-    @torch.no_grad()
-    def __call__(self, params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
-                 last_idx, feedback, prev_toks, emit_mask, produced,
-                 *pools_and_tail):
-        """One step; the arguments and results of :meth:`eager`."""
-        args = (params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
-                last_idx, feedback, prev_toks, emit_mask, produced,
-                *pools_and_tail)
-        pools = self._split_tail(pools_and_tail)[0]
-        key = self._geometry(params, tok_ids, q_lens, pools)
-        if tok_ids.device.type != "cuda":
+    def _run(self, key, args, n_out, pools):
+        """Run ``self.eager(*args)`` under geometry ``key``: eagerly on the
+        CPU; on a CUDA device eagerly on a side stream the first time (it
+        builds and loads every kernel and grows every scratch buffer), then
+        captured, and replayed on every later call. Returns the first
+        ``n_out`` outputs (copied out of the graph's static buffers) and
+        ``pools``, updated in place."""
+        if args[1].device.type != "cuda":
             self._programs.setdefault(key, None)
             return self.eager(*args)
         prog = self._programs.get(key)
@@ -644,28 +648,98 @@ class UnifiedStep:
             with torch.cuda.stream(side):
                 out = self.eager(*args)
             cur.wait_stream(side)
-            for t in out[:2]:
+            for t in out[:n_out]:
                 t.record_stream(cur)
             self._programs[key] = _Captured(self.eager, args)
             return out
-        next_toks, logits, *_ = prog.replay(args)
-        return (next_toks.clone(), logits.clone()) + tuple(pools)
+        out = prog.replay(args)
+        return tuple(t.clone() for t in out[:n_out]) + tuple(pools)
 
-    def _split_tail(self, pools_and_tail):
-        n_pool = 4 if self.kv_quant else 2
-        if len(pools_and_tail) != n_pool + 7:
-            raise TypeError(f"the unified step takes {n_pool} pools and 7 "
-                            f"trailing arrays, got {len(pools_and_tail)}")
-        return pools_and_tail[:n_pool], pools_and_tail[n_pool:]
+
+def _weight_kind(params):
+    w = params["layers"]["wqkv"]
+    return ((str(w["q"].dtype), tuple(w["q"].shape), tuple(w["s"].shape))
+            if isinstance(w, dict) else "fp")
+
+
+class UnifiedStep(_CapturedProgram):
+    """The serving step :func:`build_unified_step` returns.
+
+    On a CUDA device each step geometry is captured once in a CUDA graph
+    and every later call of that geometry replays it. The geometry is the
+    key (page size, chunk, token budget, ``max_batch``, ``spec_k``,
+    ``kv_quant``, ``mega``, dtype, weight kind, MoE) together with the
+    pools the capture binds. The first call of a geometry runs the step
+    eagerly on a side stream (it builds and loads every kernel, sets their
+    attributes and grows every scratch buffer) and returns that result;
+    the capture follows. The tensors of that first call become the graph's
+    inputs, the params by their leaves (each leaf's address and shape, not
+    the dict): every later call must pass the same tensors, refilled (the
+    serving predictor's persistent buffers), in any dict, and one that
+    passes another tensor, a params leaf included, raises. Outputs are
+    copied out of the graph's static buffers before they are returned. A
+    capture that fails raises; nothing falls back to the eager step.
+
+    ``trace_count`` counts captures on a CUDA device and, on the CPU
+    (where every call runs eagerly), the distinct geometries that ran —
+    the reference's one jitted executable per geometry. :meth:`eager`
+    runs one step without capture.
+    """
+
+    def __init__(self, config, page_size, chunk, kv_quant=False,
+                 mega=False, spec_k=0):
+        super().__init__()
+        self.config = config
+        self.page_size = int(page_size)
+        self.chunk = int(chunk)
+        self.kv_quant = bool(kv_quant)
+        self.mega = bool(mega)
+        self.spec_k = int(spec_k)
+
+    @property
+    def arg_names(self) -> tuple:
+        """The names of the step's arguments before the pools."""
+        return (("params", "tok_ids", "tok_slot", "tok_pos", "q_lens",
+                 "kv_lens", "last_idx")
+                + (("spec_len",) if self.spec_k else ())
+                + ("feedback", "prev_toks", "emit_mask", "produced"))
+
+    def _geometry(self, params, tok_ids, q_lens, pools):
+        key = (self.page_size, self.chunk, tok_ids.shape[0], q_lens.shape[0],
+               self.spec_k, self.kv_quant, self.mega, params["tok_emb"].dtype,
+               _weight_kind(params), self.config.moe_experts)
+        if tok_ids.device.type != "cuda":
+            return key
+        return key + (tuple(p.data_ptr() for p in pools),)
 
     @torch.no_grad()
-    def eager(self, params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens,
-              last_idx, feedback, prev_toks, emit_mask, produced,
-              *pools_and_tail):
+    def __call__(self, params, *arrays):
+        """One step; the arguments and results of :meth:`eager`."""
+        args = (params,) + arrays
+        pools = self._split(arrays)[1]
+        key = self._geometry(params, arrays[0], arrays[3], pools)
+        return self._run(key, args, 4 if self.spec_k else 2, pools)
+
+    def _split(self, arrays):
+        """The step's arrays after params: (lead, pools, tail)."""
+        n_lead = len(self.arg_names) - 1
+        n_pool = 4 if self.kv_quant else 2
+        if len(arrays) != n_lead + n_pool + 7:
+            raise TypeError(
+                f"the unified step takes params, {n_lead} packed and lane "
+                f"arrays, {n_pool} pools and 7 trailing arrays, got params "
+                f"and {len(arrays)} arrays")
+        return (arrays[:n_lead], arrays[n_lead:n_lead + n_pool],
+                arrays[n_lead + n_pool:])
+
+    @torch.no_grad()
+    def eager(self, params, *arrays, all_rows=False):
         """One step over the packed token budget, run op by op (reference
         signature, with ``lane_seeds [b]`` — int32 or int64, read as
-        unsigned 32-bit — in place of the threefry ``base_keys``): after
-        ``produced`` come the pools — ``k_pool, v_pool`` and, with
+        unsigned 32-bit — in place of the threefry ``base_keys``):
+        ``params, tok_ids, tok_slot, tok_pos, q_lens, kv_lens, last_idx``,
+        with ``spec_k`` then ``spec_len``, then ``feedback, prev_toks,
+        emit_mask, produced``; then the pools — ``k_pool, v_pool`` and, with
         ``kv_quant``, ``k_scales, v_scales`` — then ``page_table, cow_src,
         cow_dst, lane_seeds, temperature, top_k, top_p``.
 
@@ -679,9 +753,14 @@ class UnifiedStep:
         ``cow_dst`` (its copy lands in the spare page). The sampling
         epilogue always runs too, and ``temperature > 0`` picks its token
         over the greedy argmax per lane. Returns ``(next_toks [b] int32,
-        logits [b, v] fp32, *pools)``.
+        logits [b, v] fp32, *pools)``; with ``spec_k`` see
+        :meth:`_verify` (``all_rows``: the logits of every verify row in
+        place of row 0's, for checks).
         """
-        pools, tail = self._split_tail(pools_and_tail)
+        lead, pools, tail = self._split(arrays)
+        tok_ids, tok_slot, tok_pos, q_lens, kv_lens, last_idx = lead[:6]
+        spec_len = lead[6] if self.spec_k else None
+        feedback, prev_toks, emit_mask, produced = lead[-4:]
         (page_table, cow_src, cow_dst, lane_seeds, temperature, top_k,
          top_p) = tail
         cfg, chunk, ps = self.config, self.chunk, self.page_size
@@ -694,9 +773,7 @@ class UnifiedStep:
         slot_c = tok_slot.long().clamp(0, b - 1)
         tok_ids = torch.where((feedback > 0) & valid, prev_toks[slot_c],
                               tok_ids)
-        pos_c = tok_pos.long().clamp(0, params["pos_emb"].shape[0] - 1)
-        x = params["tok_emb"][tok_ids.long().clamp_min(0)] \
-            + params["pos_emb"][pos_c]
+        x = _srv_embed(params, tok_ids, tok_pos)
         # packed <-> [b, chunk] block plumbing shared by every layer: each
         # token's row in the flattened [(b + 1) * chunk] query block (block
         # b is the dump block for padding tokens) and its page slot
@@ -711,6 +788,11 @@ class UnifiedStep:
             x = self._per_op_layers(params, x, pools, page_table, q_lens,
                                     kv_lens, q_rows, a_rows, dest, valid)
         x = _srv_ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
+        sampling = (lane_seeds, temperature, top_k, top_p)
+        if self.spec_k:
+            return self._verify(params, x, tok_ids, last_idx, spec_len,
+                                prev_toks, emit_mask, produced, sampling,
+                                all_rows) + tuple(pools)
         h_last = x[last_idx.long().clamp(0, t - 1)]
         logits = _srv_logits(params, h_last).float()
         sampled = _sample_epilogue(logits, lane_uniform(lane_seeds, produced),
@@ -719,6 +801,42 @@ class UnifiedStep:
         next_toks = torch.where(emit_mask > 0, next_ids.to(torch.int32),
                                 prev_toks)
         return (next_toks, logits) + tuple(pools)
+
+    def _verify(self, params, x, tok_ids, last_idx, spec_len, prev_toks,
+                emit_mask, produced, sampling, all_rows=False):
+        """The speculative verify rows and the fused accept epilogue
+        (reference ``build_unified_step(spec_k=)``): rows ``last_idx ..
+        last_idx + spec_k`` of each lane (its last context token, then its
+        drafts) each yield a token, row j sampled with ``produced + j`` so a
+        seeded stream equals plain decode's; drafts are accepted while
+        ``draft[i] == token[i - 1]`` within ``spec_len``. Returns
+        ``(out_ids [b, spec_k + 1] int32, n_emit [b] int32, next_toks [b]
+        int32, logits [b, v] fp32 of row 0)``: a lane's first ``n_emit``
+        tokens of ``out_ids`` are its emissions (accepted drafts and one
+        more), and ``next_toks`` carries its last emission; with
+        ``all_rows`` the logits are every row's, ``[b, spec_k + 1, v]``."""
+        lane_seeds, temperature, top_k, top_p = sampling
+        k, t, b = self.spec_k, x.shape[0], last_idx.shape[0]
+        k1 = k + 1
+        step = torch.arange(k1, device=x.device)
+        rows = (last_idx.long()[:, None] + step).clamp(0, t - 1)  # [b, k1]
+        logits = _srv_logits(params, x[rows]).float()          # [b, k1, v]
+        v = logits.shape[-1]
+        rep = lambda a: a.repeat_interleave(k1)  # noqa: E731
+        u = lane_uniform(rep(lane_seeds),
+                         (produced.long()[:, None] + step).reshape(-1))
+        sampled = _sample_epilogue(logits.reshape(b * k1, v), u,
+                                   rep(temperature), rep(top_k), rep(top_p))
+        out_ids = torch.where((temperature > 0)[:, None],
+                              sampled.view(b, k1), logits.argmax(-1)
+                              ).to(torch.int32)
+        drafts = tok_ids[rows[:, 1:]]                             # [b, k]
+        ok = (drafts == out_ids[:, :k]) & (step[None, :k]
+                                           < spec_len.long()[:, None])
+        n_emit = (1 + ok.int().cumprod(1).sum(1)).to(torch.int32)
+        last_emit = out_ids.gather(1, (n_emit.long() - 1)[:, None])[:, 0]
+        next_toks = torch.where(emit_mask > 0, last_emit, prev_toks)
+        return out_ids, n_emit, next_toks, logits if all_rows else logits[:, 0]
 
     def _per_op_layers(self, params, x, pools, page_table, q_lens, kv_lens,
                        q_rows, a_rows, dest, valid=None):
@@ -806,36 +924,192 @@ class UnifiedStep:
 def build_unified_step(config: GPTConfig, page_size: int, chunk: int,
                        kv_quant: bool = False, mesh=None, spec_k: int = 0,
                        mega: bool = False, device=None) -> UnifiedStep:
-    """The unified serving step on one device, without speculation (mesh
-    and ``spec_k`` raise, naming their slices). ``kv_quant=True`` takes int8
-    pools with fp32 scale planes (quantize on write); quantized weight
-    leaves in the params run the weight-only GEMM. ``mega=True`` runs each
-    layer through the two mega kernels instead (``ops/mega_decode.py``;
-    ``validate_mega_config`` rejects MoE, int4 weights and misaligned
-    scale groups here, at build time). With ``moe_experts`` each layer's
-    FFN is the routed expert FFN (``_srv_moe``). The step runs the
-    kernels when its tensors are on a CUDA device and their plain versions
-    when they are on the CPU. ``device``: where those tensors will live,
-    when the caller knows; on a CUDA device a mega build also rejects head
-    dims the mega kernels are not built for (the plain versions take any)."""
-    for flag, later in ((mesh is not None, "multi-GPU (tensor-parallel) "
-                                           "serving"),
-                        (spec_k, "speculative decoding")):
-        if flag:
-            raise NotImplementedError(
-                f"build_unified_step: {later} is a later port slice")
+    """The unified serving step on one device (``mesh`` raises, naming its
+    slice). ``kv_quant=True`` takes int8 pools with fp32 scale planes
+    (quantize on write); quantized weight leaves in the params run the
+    weight-only GEMM. ``mega=True`` runs each layer through the two mega
+    kernels instead (``ops/mega_decode.py``; ``validate_mega_config``
+    rejects MoE, int4 weights and misaligned scale groups here, at build
+    time). With ``moe_experts`` each layer's FFN is the routed expert FFN
+    (``_srv_moe``). ``spec_k > 0`` builds the speculative step: the
+    arrays gain ``spec_len [b]`` after ``last_idx``, which becomes each
+    lane's first verify row, and the step returns ``(out_ids [b, spec_k +
+    1], n_emit [b], next_toks [b], logits [b, v], *pools)``
+    (:meth:`UnifiedStep._verify`); one capture serves every k <= spec_k.
+    Speculation with MoE raises (a later slice). The step runs the kernels
+    when its tensors are on a CUDA device and their plain versions when
+    they are on the CPU. ``device``: where those tensors will live, when
+    the caller knows; on a CUDA device a mega build also rejects head dims
+    the mega kernels are not built for (the plain versions take any)."""
+    if mesh is not None:
+        raise NotImplementedError("build_unified_step: multi-GPU "
+                                  "(tensor-parallel) serving is a later "
+                                  "port slice")
+    spec_k = int(spec_k)
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+    if spec_k and config.moe_experts:
+        raise NotImplementedError(
+            "build_unified_step: speculative decoding with moe_experts is a "
+            "later port slice")
     if mega:
-        validate_mega_config(config.weight_dtype,
-                             config.weight_quant_group_size, config.head_dim,
-                             moe_experts=config.moe_experts)
-        if (device is not None and torch.device(device).type == "cuda"
-                and config.head_dim not in MEGA_HEAD_DIMS):
-            raise NotImplementedError(
-                f"mega_decode on CUDA: the mega attention kernel is built for "
-                f"head_dim in {MEGA_HEAD_DIMS}, got {config.head_dim} — serve "
-                "this config with mega_decode=False")
+        _check_mega(config, device)
     return UnifiedStep(config, page_size, chunk, kv_quant=kv_quant,
-                       mega=mega)
+                       mega=mega, spec_k=spec_k)
+
+
+def _check_mega(config: GPTConfig, device) -> None:
+    """The mega kernels' build-time rejections (see
+    :func:`build_unified_step`)."""
+    validate_mega_config(config.weight_dtype, config.weight_quant_group_size,
+                         config.head_dim, moe_experts=config.moe_experts)
+    if (device is not None and torch.device(device).type == "cuda"
+            and config.head_dim not in MEGA_HEAD_DIMS):
+        raise NotImplementedError(
+            f"mega_decode on CUDA: the mega attention kernel is built for "
+            f"head_dim in {MEGA_HEAD_DIMS}, got {config.head_dim} — serve "
+            "this config with mega_decode=False")
+
+
+# ---------------------------------------------------------------------------
+# the self-draft: a truncated stack of the same serving params
+# ---------------------------------------------------------------------------
+
+
+def draft_config(config: GPTConfig, draft_layers: int) -> GPTConfig:
+    """The truncated-stack config of the draft programs (reference
+    ``draft_config``): the first ``draft_layers`` layers, no nested
+    speculation, the per-op family (:func:`build_draft_chain` takes
+    ``mega`` itself). ``draft_layers`` below 1 or at least ``num_layers``
+    raises."""
+    import dataclasses
+
+    draft_layers = int(draft_layers)
+    if draft_layers < 1:
+        raise ValueError(
+            f"spec_draft_layers must be >= 1, got {draft_layers}")
+    if draft_layers >= config.num_layers:
+        raise ValueError(
+            f"spec_draft_layers {draft_layers} must be < num_layers "
+            f"{config.num_layers} (a full-depth draft would run the "
+            "target twice per token instead of a cheap proposer)")
+    return dataclasses.replace(config, num_layers=draft_layers,
+                               spec_decode_k=0, spec_draft_layers=0,
+                               mega_decode=False)
+
+
+def draft_serving_params(params: dict, draft_layers: int) -> dict:
+    """``params`` cut to its first ``draft_layers`` layers: the embeddings,
+    final LN and LM head are the same tensors, and each layer stack (fp, or
+    both halves of a quantized leaf) a view of its first rows. Make it once
+    and keep it: a captured draft program binds these views."""
+    d = int(draft_layers)
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {
+        n: ({q: t[:d] for q, t in w.items()} if isinstance(w, dict)
+            else w[:d]) for n, w in params["layers"].items()}
+    return out
+
+
+def build_draft_step(config: GPTConfig, draft_layers: int, page_size: int,
+                     chunk: int, kv_quant: bool = False, mesh=None,
+                     device=None) -> UnifiedStep:
+    """The draft pass's catch-up step: the per-op unified step of the
+    truncated config (:func:`draft_config`) at ``chunk`` tokens a lane, one
+    capture per geometry like the target's. ``mesh`` raises."""
+    return build_unified_step(draft_config(config, draft_layers), page_size,
+                              chunk, kv_quant=kv_quant, mesh=mesh,
+                              device=device)
+
+
+class DraftChain(_CapturedProgram):
+    """What :func:`build_draft_chain` returns: the k chunk-1 steps of the
+    truncated stack, each lane's greedy token fed to its next step on the
+    device, run as one program — on a CUDA device one CUDA graph per
+    geometry (batch, ``k``, the pools it binds), captured as
+    :class:`UnifiedStep` captures."""
+
+    def __init__(self, config, page_size, k, kv_quant=False, mega=False):
+        super().__init__()
+        self.config = config
+        self.k = int(k)
+        # the layer bodies of the unified step at chunk 1
+        self._step = UnifiedStep(config, page_size, 1, kv_quant=kv_quant,
+                                 mega=mega)
+
+    @torch.no_grad()
+    def __call__(self, params, first_toks, steps, kv_lens, *rest):
+        """One chain; the arguments and results of :meth:`eager`."""
+        st = self._step
+        pools = rest[:-1]
+        key = (st.page_size, self.k, first_toks.shape[0], st.kv_quant,
+               st.mega, params["tok_emb"].dtype, _weight_kind(params))
+        if first_toks.device.type == "cuda":
+            key += (tuple(p.data_ptr() for p in pools),)
+        return self._run(key, (params, first_toks, steps, kv_lens) + rest,
+                         1, pools)
+
+    @torch.no_grad()
+    def eager(self, params, first_toks, steps, kv_lens, *rest):
+        """``first_toks [b]`` each lane's last context token, ``steps [b]``
+        the chain steps it runs (0: idle, it writes nothing), ``kv_lens
+        [b]`` the draft pool's watermark, then the pools (as
+        :meth:`UnifiedStep.eager`) and ``page_table``, whose pages must
+        already hold ``kv_lens + steps`` tokens. Step j writes each active
+        lane's K / V at ``kv_lens + j`` and takes its greedy token. Returns
+        ``(drafts [b, k] int32, *pools)``, a lane's drafts past its steps
+        0."""
+        st = self._step
+        pools, page_table = rest[:-1], rest[-1]
+        eps = self.config.layer_norm_eps
+        b = first_toks.shape[0]
+        num_pages = pools[0].shape[1] - 1
+        lane = torch.arange(b, dtype=torch.int32, device=first_toks.device)
+        ids = first_toks.to(torch.int32)
+        drafts = []
+        for j in range(self.k):
+            active = steps > j
+            q_lens = active.to(torch.int32)
+            tok_slot = torch.where(active, lane, -1)
+            pos = kv_lens + j
+            slot_c = tok_slot.long().clamp(0, b - 1)
+            x = _srv_embed(params, ids, pos)
+            q_rows = torch.where(active, tok_slot.long(), b)
+            dest = packed_dest(page_table, tok_slot, pos, st.page_size,
+                               num_pages)
+            if st.mega:
+                x = st._mega_layers(params, x, pools, page_table, q_lens,
+                                    pos, q_rows, slot_c, dest)
+            else:
+                x = st._per_op_layers(params, x, pools, page_table, q_lens,
+                                      pos, q_rows, slot_c, dest, active)
+            x = _srv_ln(x, params["lnf_g"], params["lnf_b"], eps)
+            nxt = _srv_logits(params, x).float().argmax(-1).to(torch.int32)
+            ids = torch.where(active, nxt, ids)
+            drafts.append(torch.where(active, nxt, 0))
+        return (torch.stack(drafts, 1),) + tuple(pools)
+
+
+def build_draft_chain(config: GPTConfig, draft_layers: int, page_size: int,
+                      k: int, kv_quant: bool = False, mesh=None,
+                      mega: bool = False, device=None) -> DraftChain:
+    """The whole k-step draft proposal as ONE program (reference
+    ``build_draft_chain``): ``fn(params, first_toks [b], steps [b],
+    kv_lens [b], *pools, page_table) -> (drafts [b, k], *pools)``, the
+    pools updated in place; see :meth:`DraftChain.eager`. ``mega=True``
+    runs each chain step's layers through the mega kernels (validated as
+    :func:`build_unified_step` validates them). ``mesh`` raises."""
+    cfg = draft_config(config, draft_layers)
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"draft chain length k must be >= 1, got {k}")
+    if mesh is not None:
+        raise NotImplementedError("build_draft_chain: multi-GPU "
+                                  "(tensor-parallel) serving is a later "
+                                  "port slice")
+    if mega:
+        _check_mega(cfg, device)
+    return DraftChain(cfg, page_size, k, kv_quant=kv_quant, mega=mega)
 
 
 # ---------------------------------------------------------------------------

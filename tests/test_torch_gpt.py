@@ -130,10 +130,13 @@ def test_unported_flags_raise():
         tgpt.build_unified_step(tgpt.GPTConfig(**TINY, moe_experts=2), 8, 4,
                                 mega=True)
     tgpt.build_unified_step(tgpt.GPTConfig(**TINY, moe_experts=2), 8, 4)
+    # speculation is ported on the dense step; with MoE it is a later slice
     cfg = tgpt.GPTConfig(**TINY)
-    for kw in (dict(spec_k=2), dict(mesh=object())):
+    assert tgpt.build_unified_step(cfg, 8, 4, spec_k=2).spec_k == 2
+    for c, kw in ((tgpt.GPTConfig(**TINY, moe_experts=2), dict(spec_k=2)),
+                  (cfg, dict(mesh=object()))):
         with pytest.raises(NotImplementedError, match="later port slice"):
-            tgpt.build_unified_step(cfg, 8, 4, **kw)
+            tgpt.build_unified_step(c, 8, 4, **kw)
     # mega is ported; int4 weights are what it cannot serve, as in the
     # reference
     with pytest.raises(ValueError, match="int4"):

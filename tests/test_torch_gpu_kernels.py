@@ -60,6 +60,7 @@ against its plain version and against the ragged kernel at chunk 1 on the same
 pools.
 """
 import contextlib
+import time
 
 import numpy as np
 import pytest
@@ -96,6 +97,10 @@ BF16_ROW_TOL = 1e-2
 FP16_ROW_TOL = 2e-3
 ROW_TOL = {torch.bfloat16: BF16_ROW_TOL, torch.float16: FP16_ROW_TOL}
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# idle host time after a profiler starts and before it stops: without it
+# a trace can lose the records of the kernels launched just after the
+# start (a short session's all; ``profile_margin.py``)
+PROFILE_MARGIN_S = 0.2
 BWD_FP32_TOL = 1e-5
 # rows zero in exact arithmetic, over the tensor's max |want|: fp32 noise
 # both sides. bf16's 16-bit products mostly sum exactly in fp32; fp16's
@@ -513,8 +518,10 @@ def test_ln_bwd_is_one_kernel_and_leaves_counters_zero(cuda, dtype,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         ln_bwd(*args)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     kernels = [ev.name() for ev in prof.profiler.kineto_results.events()
                if ev.device_type() == DeviceType.CUDA]
     assert len(kernels) == 1 and "ln_bwd_kernel" in kernels[0], kernels
@@ -2044,6 +2051,7 @@ def test_captured_step_one_capture_replays_bitwise_and_counts(cuda, form):
     want = eager.generate(prompts, max_new_tokens=12)
     assert eager.decode_trace_count == 0
     before = ops.counters()
+    routes = ops.twin_routes()
     sp = ServingPredictor(model, **kw)
     assert sp.async_engine
     got = sp.generate(prompts, max_new_tokens=12)
@@ -2058,7 +2066,7 @@ def test_captured_step_one_capture_replays_bitwise_and_counts(cuda, form):
     key = (("mega_attn_layer", "launches", None) if sp.mega_decode
            else ("ragged_paged_attention", "launches", None))
     assert ran[key] - before[key] == n
-    assert ops.twin_routes() == 0
+    assert ops.twin_routes() == routes
     step = sp._unified
     (prog,) = step._programs.values()
     args = list(prog.args)
@@ -2069,8 +2077,10 @@ def test_captured_step_one_capture_replays_bitwise_and_counts(cuda, form):
     mid = ops.counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         got_out = step(*prog.args)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     after = ops.counters()
     delta = step.replay_counts[0]
     assert {k: v - mid[k] for k, v in after.items() if v != mid[k]} == delta
@@ -2134,3 +2144,170 @@ def test_moe_ffn_with_stats_captures_bitwise(cuda):
         if stats:
             assert torch.equal(got[2]["load"], want[2]["load"])
             assert torch.equal(got[2]["drop_rate"], want[2]["drop_rate"])
+
+
+# -- the captured step's params binding and speculation -----------------------
+
+
+def _tiny_served(cuda, **over):
+    """A two-layer model at head_dim 64 and motif prompts that repeat."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5,
+                    **over)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    rng = np.random.RandomState(2)
+    prompts = [np.tile(rng.randint(0, 97, 3), n // 3 + 1)[:n].tolist()
+               for n in (9, 30, 5, 17, 12)]
+    return model.eval(), prompts
+
+
+def _replay_held(prog_owner, prog, run):
+    """``run()`` replays ``prog`` (a capture of ``prog_owner``) once under
+    the profiler: the counters gain exactly the capture's delta, as many
+    launches of each kernel as the profiler sees, and no capture is
+    added."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import ops
+
+    n_prog = prog_owner.trace_count
+    torch.cuda.synchronize()
+    mid = ops.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    after = ops.counters()
+    assert {k: v - mid[k] for k, v in after.items()
+            if v != mid[k]} == prog.delta
+    assert prog_owner.trace_count == n_prog
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == DeviceType.CUDA]
+    for mark, wrapper in (("ragged_split_kernel", "ragged_paged_attention"),
+                          ("mega_attn_kernel", "mega_attn_layer"),
+                          ("mega_mlp_kernel", "mega_mlp"),
+                          ("qmm_", "quant_matmul_fwd")):
+        assert sum(mark in n for n in names) == sum(
+            n for (w, attr, _), n in prog.delta.items()
+            if w == wrapper and attr == "launches"), (mark, names)
+
+
+def test_captured_step_binds_params_by_leaf(cuda):
+    """The captured step binds the params by their leaves: a new dict of
+    the same tensors replays the one capture (bitwise the same outputs),
+    and a leaf replaced in the bound dict raises instead of replaying the
+    old weights."""
+    from paddle_tpu_torch.inference import ServingPredictor
+
+    model, prompts = _tiny_served(cuda)
+    sp = ServingPredictor(model, max_batch=3, page_size=8, chunk=8,
+                          device=cuda)
+    sp.generate(prompts, max_new_tokens=6)
+    step = sp._unified
+    assert step.trace_count == 1
+    (prog,) = step._programs.values()
+    n_pool = len(sp.cache.pools())
+    pools = prog.args[11:11 + n_pool]
+    saved = [p.clone() for p in pools]
+    outs = []
+    for params in (sp.params, {k: (dict(v) if isinstance(v, dict) else v)
+                               for k, v in sp.params.items()}):
+        for p, s in zip(pools, saved):
+            p.copy_(s)
+        outs.append(step(params, *prog.args[1:]))
+        torch.cuda.synchronize()
+        assert step.trace_count == 1
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        assert torch.equal(a, b)
+    w1 = sp.params["layers"]["w1"]
+    sp.params["layers"]["w1"] = w1 * 2
+    try:
+        with pytest.raises(ValueError, match="capture bound"):
+            step(*prog.args)
+    finally:
+        sp.params["layers"]["w1"] = w1
+    assert step.trace_count == 1
+
+
+@pytest.mark.parametrize("form", ["per-op", "mega", "int8_int8kv"])
+@pytest.mark.parametrize("source", ["ngram", "model"])
+def test_spec_serving_captures_once_and_counts(cuda, form, source):
+    """Speculative serving on the captured step with the async engine: the
+    spec-off streams, the verify step captured once, every model draft
+    program once (the catch-up step, one chain a length), no twin route;
+    a replay of each capture adds its recorded launches, as many as the
+    profiler sees."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.inference import ServingPredictor
+
+    over = (dict(weight_dtype="int8", weight_quant_group_size=64)
+            if form == "int8_int8kv" else {})
+    model, prompts = _tiny_served(cuda, **over)
+    routes = ops.twin_routes()
+    kw = dict(max_batch=3, page_size=8, chunk=8, device=cuda,
+              dtype=torch.bfloat16, mega_decode=form == "mega",
+              kv_cache_dtype="int8" if over else None)
+    want = ServingPredictor(model, **kw).generate(prompts, 12)
+    extra = (dict(draft_source="model", draft_layers=1)
+             if source == "model" else {})
+    sp = ServingPredictor(model, spec_decode_k=4, **extra, **kw)
+    got = sp.generate(prompts, 12)
+    torch.cuda.synchronize()
+    assert got == want and sp.spec_proposed > 0
+    assert sp.decode_trace_count == 1 and ops.twin_routes() == routes
+    assert sp.cache.available_page_count == sp.cache.num_pages
+    step = sp._unified
+    (prog,) = step._programs.values()
+    _replay_held(step, prog, lambda: step(*prog.args))
+    eng = sp._draft_engine
+    if eng is None:
+        assert sp.draft_trace_count == 0
+        return
+    owners = [eng._catchup] + list(eng._chains.values())
+    assert all(o.trace_count <= 1 for o in owners)
+    assert sp.draft_trace_count == sum(o.trace_count for o in owners) >= 2
+    assert len(eng.replay_counts) == sp.draft_trace_count
+    for owner in owners:
+        for p in owner._programs.values():
+            _replay_held(owner, p, lambda: owner(*p.args))
+
+
+def test_capture_holds_off_cyclic_gc(cuda):
+    """A dead reference cycle holding a captured CUDA graph (a dropped
+    predictor) is not collected during a capture: freeing a graph
+    mid-capture invalidates the capture. With a collection due at every
+    allocation, the capture still succeeds and replays, and the cycle is
+    collected after it."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.models.gpt import _Captured
+
+    x = torch.ones(4, device=cuda)
+
+    class Holder:
+        pass
+
+    held = Holder()
+    held.cycle = held
+    held.capture = _Captured(lambda params, t: (t * 2,), ({}, x))
+    dead = weakref.ref(held)
+    del held
+    saved = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        cap = _Captured(lambda params, t: tuple(t + i for i in range(50)),
+                        ({}, x))
+    finally:
+        gc.set_threshold(*saved)
+    assert gc.isenabled()
+    gc.collect()
+    assert dead() is None
+    out = cap.replay(({}, x))
+    torch.cuda.synchronize()
+    assert torch.equal(out[3], x + 3)

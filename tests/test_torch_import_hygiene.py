@@ -129,3 +129,26 @@ def test_moe_slice_modules_are_covered():
         assert not [n for n in names if _forbidden(n)], rel
     assert (ROOT / "paddle_tpu_torch" / "csrc"
             / "grouped_matmul.cu").is_file()
+
+
+def test_speculation_module_is_covered():
+    """The walk above imports the speculation slice's module, which imports
+    neither jax nor the reference on its own either: it keeps its own copy
+    of the reference's n-gram table."""
+    code = ("import sys, paddle_tpu_torch.inference.draft as d\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.split('.')[0] in ('jax', 'jaxlib', "
+            "'paddle_tpu'))\n"
+            "assert not bad, bad\n"
+            "print(d.DraftProposer.__module__)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "paddle_tpu_torch.inference.draft"
+    tree = ast.parse((ROOT / "paddle_tpu_torch" / "inference"
+                      / "draft.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert names and not [n for n in names if _forbidden(n)]

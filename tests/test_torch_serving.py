@@ -192,8 +192,14 @@ def test_unported_engines_raise():
     # reference's does
     with pytest.raises(ValueError, match="async"):
         ServingPredictor(tm, async_engine=True, unified=False, device="cpu")
+    # speculation is ported; its verify rows must fit the chunk block, as
+    # in the reference, and its MoE composition is a later slice
     model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, spec_decode_k=2),
                                 device="cpu")
+    with pytest.raises(ValueError, match="chunk"):
+        ServingPredictor(model, chunk=2, device="cpu")
+    model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY, spec_decode_k=2,
+                                               moe_experts=2), device="cpu")
     with pytest.raises(NotImplementedError, match="speculative"):
         ServingPredictor(model, device="cpu")
     # mega is ported; int4 weights are what it cannot serve, as in the
