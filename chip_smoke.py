@@ -69,6 +69,11 @@ trees on one card) and prints one JSON line. PART is one of:
 - ``moe-profile``: phase 11's three profiled bf16 MoE windows, 5 times
   each with and without the profiler's idle margin, each window's
   kernels by graph launch logged and a short window counted.
+- ``resilience``: phase 17 (e): the bf16 per-op and mega serving steps
+  of GPT-125M with the resilience and observability layers disarmed,
+  timed in turns, then once each with a host recording window open where
+  ROOT's package has the profiler: run it for a parent and a change as
+  parent, change, change, parent.
 
 Phases (each failure ends the run non-zero). Every kernel is built for
 fp32, bf16 and fp16; the phases that hold kernels against their plain
@@ -360,6 +365,34 @@ the three types where they say fp32 and bf16 (fp16 to ``KERNEL_TOL``'s
    ``draft_overhead_frac``, hard syncs and captures. The rows of the
    ragged kernel, the int8 and int4 weight-only GEMMs and the mega
    kernels count the phase's launches (``spec_launches``).
+17. the resilience and observability layers (run after phase 16):
+   GPT-125M bf16 over phase 6's requests on the captured step and the
+   async engine. (a) per-op and mega bf16, and per-op fp32, under a
+   seeded ``FaultPlan`` with the dispatch, reconcile, h2d, slow_step and
+   pool-squeeze seams armed (``RES_PLAN``, a pool of ``RES_PAGES``
+   pages): every request ends with the fault-free run's tokens or FAILED
+   with a named code (in bf16 a replayed stream may leave them only at a
+   near tie of its own plain forward: the replay's chunked recompute of
+   its context rounds otherwise than the decode steps did), the drained
+   pool (available pages, free slots, references, withheld pages) and
+   the captures equal the fault-free run's, launches are steps x 12 and
+   every raised fault is counted; a bf16 control with no seam armed
+   preempts every running lane twice (``RES_PREEMPT_AT``), holds its
+   streams the same way and reports which departed, replayed or not; (b) int4 g128 weights with
+   ``SLOConfig(max_waiting=6)``: a burst of 12 (6 shed, 3 past their
+   deadlines, two queued and one running), ``healthz()`` and the counters
+   match; (c) bf16 and int8 weights + int8 KV through a host tier under
+   a ``TIER_PAGES`` pool, phase 6's prompts twice, under the drop and
+   corruption seams: spills, restores, detected corruption, the pools
+   unmoved, one capture, a chain evicted through the tier back bitwise,
+   the spills' stream waits logged; (d) one ``Profiler`` window (GPU
+   target): the exported trace's spans, matched request lanes, counter
+   track and device kernels, the kernels by group equal to the counters;
+   (e) the disarmed per-op and mega steps (``RES_RUNS`` runs each in
+   turns) and once with a host recording window open: mean step and
+   ``host_ms_per_step``. The rows of the ragged kernel, the int8 and
+   int4 weight-only GEMMs and the mega kernels count the phase's
+   launches (``resilience_launches``).
 
 Every serving phase runs the predictor's defaults, so phases 6, 8, 10, 11
 and 14 serve on the captured step and the async engine too. Their bf16
@@ -1066,11 +1099,14 @@ def dispatched(req):
     return len(req.output_ids) + getattr(req, "_pending_n", 0)
 
 
-def serve(sp, early, late, after_first=None):
+def serve(sp, early, late, after_first=None, failed_ok=False,
+          every_step=None):
     """``early`` at once, ``late`` once the first request has emitted (a
     token dispatched counts, landed or not, so the synchronous and the
     async engine see one schedule), stepped until every request finished,
-    then flushed. ``after_first(reqs)`` runs after the first step."""
+    then flushed. ``after_first(reqs)`` runs after the first step,
+    ``every_step(reqs, n)`` after the ``n``-th (from 1). A FAILED request
+    raises unless ``failed_ok``."""
     from paddle_tpu_torch.inference.serving import FAILED, FINISHED
 
     reqs = [sp.add_request(p, MAX_NEW) for p in early]
@@ -1086,12 +1122,14 @@ def serve(sp, early, late, after_first=None):
         if after_first is not None:
             after_first(reqs)
             after_first = None
+        if every_step is not None:
+            every_step(reqs, sp.steps)
     else:
         raise AssertionError("serving did not finish")
     if hasattr(sp, "flush"):
         sp.flush()
     failed = [r.error for r in reqs if r.state == FAILED]
-    if failed:
+    if failed and not failed_ok:
         raise AssertionError(f"requests failed: {failed}")
     return reqs
 
@@ -2359,10 +2397,14 @@ def launch_detail(prof, groups) -> str:
 
     from torch.autograd import DeviceType
 
+    from paddle_tpu_torch.profiler.profiler import is_annotation
+
     per = {g: Counter() for g in groups}
     every, first = Counter(), {}
     graph_launches = no_time = 0
     for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and is_annotation(ev):
+            continue
         if ev.device_type() == DeviceType.CUDA:
             if ev.duration_ns() <= 0:
                 no_time += 1
@@ -2398,7 +2440,7 @@ def trace_report(prof, wall_us, card, tag, what, top=0):
     """The device time of a finished ``torch.profiler`` trace by kernel
     group against ``wall_us`` (see :func:`profile_run`), and with ``top``
     the longest kernels by name."""
-    from torch.autograd import DeviceType
+    from paddle_tpu_torch.profiler.profiler import is_device_work
 
     times = {name: 0.0 for name in TRACE_GROUPS}
     times["other PyTorch kernels"] = 0.0
@@ -2408,7 +2450,7 @@ def trace_report(prof, wall_us, card, tag, what, top=0):
     # times key_averages() would, without the event tree it builds first:
     # tens of seconds for the ~10^5 kernels of a served MoE run
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
+        if not is_device_work(ev):
             continue
         name = trace_group(ev.name())
         times[name] += ev.duration_ns() / 1e3
@@ -7352,6 +7394,509 @@ def int4_decode_only(root: Path) -> int:
     return 0
 
 
+# -- phase 17: the resilience and observability layers ----------------------
+
+#: phase 17 (a)'s seeded plan: every serving seam non-zero
+RES_PLAN = dict(seed=5, dispatch=0.02, reconcile=0.02, h2d=0.015,
+                slow_step=0.05, slow_step_s=0.002, pool_squeeze=0.15,
+                squeeze_pages=6, squeeze_steps=2)
+#: (a)'s bf16 control: no seam armed; after these steps every running
+#: lane is preempted (the replay a failure requeue sends it through)
+RES_PREEMPT_AT = (8, 24)
+#: a failure requeues every running lane, each a retry of its request
+RES_RETRIES = 12
+#: (a)'s pool: room for phase 6's requests with little to spare, so a
+#: squeeze preempts
+RES_PAGES = 24
+#: (c)'s pool: phase 6's prompts served twice through it evict their
+#: prefixes, which the host tier keeps
+TIER_PAGES = 12
+TIER_BYTES = 256 << 20
+TIER_PLAN = dict(seed=1, host_spill_drop=0.2, tier_restore_corrupt=0.3)
+#: (e): timed runs of each form each way, in turns
+RES_RUNS = 3
+
+
+def pool_state(sp):
+    """The accounting a drained run must leave: pages available of the
+    pool, free slots, references held (prefix pins included), pages
+    withheld."""
+    c = sp.cache
+    return dict(available=c.available_page_count, of=c.num_pages,
+                free_slots=c.free_slot_count,
+                refs=int(c._refcount.sum()), withheld=c.withheld_page_count)
+
+
+def departures(reqs, want):
+    """The finished requests whose tokens are not ``want``'s: (index, first
+    token that differs, preemptions, failure retries) each."""
+    off = []
+    for i, r in enumerate(reqs):
+        if r.state == "finished" and list(r.output_ids) != want[i]:
+            j = next(k for k, (a, b) in enumerate(zip(r.output_ids, want[i]))
+                     if a != b)
+            off.append((i, j, r.preempt_count, r.retry_count))
+    return off
+
+
+def replay_split(reqs, off):
+    """How many requests replayed (a preemption or a failure retry), and
+    of the departures, how many had replayed and how many had not."""
+    replayed = {i for i, r in enumerate(reqs)
+                if r.preempt_count or r.retry_count}
+    gone = {i for i, *_ in off}
+    return dict(replayed=len(replayed), off_replayed=len(gone & replayed),
+                off_not_replayed=len(gone - replayed))
+
+
+def launch_count(sp):
+    """The attention launches a served form's steps make: the ragged
+    kernel's (per-op) or the mega pair's."""
+    attn, mlp = mega_counts()
+    return (attn, mlp) if sp.mega_decode else read_counts()[1]
+
+
+def phase_resilience(model, cfg, dev, card):
+    """17. The resilience and observability layers on GPT-125M (bf16,
+    phase 6's requests, the captured step and the async engine): (a)
+    chaos, (b) deadlines and SLO shedding, (c) the host tier, (d) one
+    GPU-target profiler window, (e) the cost of the disarmed layers.
+    Returns the phase's launches by kernel and (e)'s timings."""
+    from paddle_tpu_torch.inference import FaultPlan
+
+    bf16 = torch.bfloat16
+    early, late = requests(cfg)
+    reset_counts()
+    out = {}
+
+    # (a) chaos: every request ends with the fault-free tokens or FAILS
+    # with a named code; the drained pool and the captures are the
+    # fault-free run's. A replay recomputes its context in prefill chunks,
+    # whose attention splits the keys between the page walk and the
+    # in-chunk block otherwise than the decode steps that first wrote
+    # them: the recomputed K / V may differ in the last bits, so a
+    # replayed stream may leave the fault-free one at a near tie of its
+    # own plain forward (held as phase 16 holds its streams); in fp32
+    # every finished stream must be the fault-free one
+    fired_all = {}
+    for form, mega, dtype in (("per-op", None, bf16), ("mega", True, bf16),
+                              ("per-op fp32", None, torch.float32)):
+        kw = dict(dtype=dtype, mega_decode=mega, num_pages=RES_PAGES,
+                  max_step_retries=RES_RETRIES, retry_backoff_s=0.0)
+        sp = quant_predictor(model, cfg, {}, dev, **kw)
+        rec = StepRecord(sp)
+        base = serve(sp, early, late)
+        torch.cuda.synchronize()
+        want = [list(r.output_ids) for r in base]
+        oracle = served_oracle(sp, cfg, base)
+        err = max((torch.stack([rec.rows[(r.req_id, j)] for j in range(
+            len(r.output_ids))]) - o).abs().max().item()
+            for r, o in zip(base, oracle))
+        bar = TIE_MARGIN if dtype == torch.float32 else 2 * err
+        hold_to_oracle(f"(a) {form} fault-free", base, oracle, bar)
+        want_pool = pool_state(sp)
+        want_captures = unified_of(sp._unified).trace_count
+        del sp, rec
+        sp = quant_predictor(model, cfg, {}, dev, **kw)
+        n0 = launch_count(sp)
+        with FaultPlan(**RES_PLAN) as plan:
+            reqs = serve(sp, early, late, failed_ok=True)
+        torch.cuda.synchronize()
+        failed, ties = 0, 0
+        for i, r in enumerate(reqs):
+            if r.state == "failed" and r.error and r.error.get("code"):
+                failed += 1
+            elif r.state != "finished":
+                raise AssertionError(f"(a) {form}: request {i} ended "
+                                     f"{r.state} without a named error")
+        off = departures(reqs, want)
+        same = len(reqs) - failed - len(off)
+        if off and dtype == torch.float32:
+            # fp32 replays recompute bitwise enough: no departure at all
+            raise AssertionError(f"(a) {form}: requests {off} (index, first "
+                                 "token, preemptions, retries) left the "
+                                 "fault-free tokens")
+        if off:
+            held = [reqs[i] for i, *_ in off]
+            ties = hold_to_oracle(f"(a) {form} chaos", held,
+                                  served_oracle(sp, cfg, held), bar)
+        if pool_state(sp) != want_pool:
+            raise AssertionError(f"(a) {form}: pool {pool_state(sp)} after "
+                                 f"the chaos run, {want_pool} fault-free")
+        if sp.decode_trace_count != want_captures:
+            raise AssertionError(f"(a) {form}: {sp.decode_trace_count} "
+                                 f"captures, {want_captures} fault-free")
+        n = sp.steps * cfg.num_layers
+        got = launch_count(sp)
+        want_n = (n0[0] + n, n0[1] + n) if mega else n0 + n
+        if got != want_n:
+            raise AssertionError(f"(a) {form}: launches {got}, want "
+                                 f"{want_n} over {sp.steps} steps")
+        flat = sp.telemetry()
+        raised = sum(plan.fired[s] for s in ("dispatch", "h2d", "reconcile"))
+        if flat["serving_step_failures"] != raised:
+            raise AssertionError(f"(a) {form}: {flat['serving_step_failures']}"
+                                 f" step failures, {raised} faults raised")
+        for seam, k in plan.fired.items():
+            fired_all[seam] = fired_all.get(seam, 0) + k
+        codes = sorted({r.error["code"] for r in reqs if r.error})
+        split = replay_split(reqs, off)
+        log(f"[resilience] (a) {form}: {same} finished with the fault-free "
+            f"tokens, {len(off)} finished off them from a near tie of "
+            f"their plain forward (request, first token, preemptions, "
+            f"retries: {off}; {ties} near ties, bar {bar:.3e}; {split}), "
+            f"{failed} failed {codes}; fired "
+            f"{ {k: v for k, v in plan.fired.items() if v} }; "
+            f"{sp.steps} steps, retries "
+            f"{int(flat['serving_step_retries'])}, preemptions "
+            f"{int(flat['serving_preemptions'])}; pool {pool_state(sp)}, "
+            f"captures {sp.decode_trace_count} ({card})")
+        out[f"chaos {form}"] = dict(same=same, off=off, failed=failed,
+                                    codes=codes, steps=sp.steps,
+                                    fired=dict(plan.fired), **split)
+        del sp
+        if dtype != torch.float32:
+            out[f"preemption only {form}"] = preempt_only(
+                model, cfg, dev, kw, early, late, want, bar, form, card)
+    missing = [s for s in ("dispatch", "h2d", "reconcile", "slow_step",
+                           "pool") if not fired_all.get(s)]
+    if missing:
+        raise AssertionError(f"(a) seams that never fired: {missing}")
+    out["deadlines"] = resilience_deadlines(model, cfg, dev, early, late,
+                                            card)
+    out["tier"] = resilience_tier(model, cfg, dev, early, late, card)
+    out["trace"] = resilience_trace(model, cfg, dev, early, late, card)
+    ragged_n, qmm, (attn_n, mlp_n) = read_counts()[1], qmm_counts(), \
+        mega_counts()
+    launches = dict(ragged=ragged_n, int8=qmm["int8"], int4=qmm["int4"],
+                    mega_attn=attn_n, mega_mlp=mlp_n)
+    log(f"[resilience] launches over (a)-(d): {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of phase 17 never ran: {launches}")
+    out["cost"] = resilience_cost(model, cfg, dev, early, late, card)
+    return launches, out
+
+
+def preempt_only(model, cfg, dev, kw, early, late, want, bar, form, card):
+    """(a)'s control for a bf16 form: the same requests with no seam armed,
+    every running lane preempted after each step of ``RES_PREEMPT_AT``
+    once the ring has landed (youngest first, as a failure requeues
+    them). No step fails, so the recovery paths never run: the replays
+    are the plain preemption replay, which a chaos run's failure requeues
+    go through too. A stream that leaves the fault-free tokens here does
+    so without the recovery code, and is held to its plain forward as the
+    chaos run's are. Raises unless the preemptions happened and no step
+    failed."""
+    sp = quant_predictor(model, cfg, {}, dev, **kw)
+
+    def preempt_all(reqs, n):
+        if n in RES_PREEMPT_AT:
+            sp.flush()      # lands and retires: every lane left has work
+            assert not any(r.done for r in sp.running.values())
+            while sp.running:
+                sp._preempt_youngest()
+
+    reqs = serve(sp, early, late, every_step=preempt_all)
+    torch.cuda.synchronize()
+    flat = sp.telemetry()
+    preempted = int(flat["serving_preemptions"])
+    if flat["serving_step_failures"] or not preempted:
+        raise AssertionError(
+            f"(a) {form} preemption only: {flat['serving_step_failures']} "
+            f"step failures, {preempted} preemptions (want 0 and > 0)")
+    off = departures(reqs, want)
+    held = [reqs[i] for i, *_ in off]
+    ties = (hold_to_oracle(f"(a) {form} preemption only", held,
+                           served_oracle(sp, cfg, held), bar) if off else 0)
+    split = replay_split(reqs, off)
+    log(f"[resilience] (a) {form} preemption only (no seam armed, every "
+        f"running lane preempted after steps {RES_PREEMPT_AT}; recovery "
+        f"never ran): {len(reqs) - len(off)} finished with the fault-free "
+        f"tokens, {len(off)} off them (request, first token, preemptions, "
+        f"retries: {off}; {ties} near ties, bar {bar:.3e}; {split}); "
+        f"preemptions {preempted}, {sp.steps} steps ({card})")
+    return dict(off=off, ties=ties, preemptions=preempted, steps=sp.steps,
+                **split)
+
+
+def resilience_deadlines(model, cfg, dev, early, late, card):
+    """(b): int4 g128 weights, ``SLOConfig(max_waiting=6)``. A burst of
+    12 requests before the first step: 6 queue, 6 shed ``queue_full``;
+    of the queued, two carry a deadline of 0 s (shed from the queue) and
+    the 300-token prompt one of 20 ms (it retires running). The shed and
+    deadline counters and ``healthz()`` must show exactly that."""
+    from paddle_tpu_torch.inference import SLOConfig
+
+    sp = quant_predictor(model, cfg, {"weight_dtype": "int4",
+                                      "weight_quant_group_size": 128}, dev,
+                         dtype=torch.bfloat16,
+                         slo=SLOConfig(max_waiting=6))
+    prompts = early + late + early[:4]
+    deadlines = [None, 0.0, None, None, 0.02, 0.0] + [None] * 6
+    reqs = [sp.add_request(p, MAX_NEW, deadline_s=d)
+            for p, d in zip(prompts, deadlines)]
+    burst = sp.healthz()
+    want_burst = dict(status="shedding", shed_reason="queue_full",
+                      waiting=6, requests_shed=6, requests_failed=6)
+    if {k: burst[k] for k in want_burst} != want_burst:
+        raise AssertionError(f"(b) healthz after the burst {burst}")
+    while sp.has_work():
+        sp.step()
+    sp.flush()
+    torch.cuda.synchronize()
+    codes = [r.error["code"] if r.error else r.state for r in reqs]
+    want_codes = (["finished", "deadline_exceeded", "finished", "finished",
+                   "deadline_exceeded", "deadline_exceeded"]
+                  + ["shed_queue_full"] * 6)
+    if codes != want_codes:
+        raise AssertionError(f"(b) outcomes {codes}, want {want_codes}")
+    if "running" not in reqs[4].error["message"]:
+        raise AssertionError(f"(b) the 20 ms request: {reqs[4].error}")
+    if any(len(r.output_ids) != MAX_NEW for r in reqs
+           if r.state == "finished"):
+        raise AssertionError("(b) a finished stream is short")
+    hz, flat = sp.healthz(), sp.telemetry()
+    want_hz = dict(status="ok", shed_reason=None, waiting=0, running=0,
+                   inflight_steps=0, requests_shed=6, deadline_misses=3,
+                   requests_failed=9, step_failures=0, free_slots=8)
+    if {k: hz[k] for k in want_hz} != want_hz or (
+            flat["serving_fail_reasons{reason=shed_queue_full}"] != 6
+            or flat["serving_fail_reasons{reason=deadline_exceeded}"] != 3):
+        raise AssertionError(f"(b) healthz {hz}")
+    log(f"[resilience] (b) int4 g128: 12 sent, 6 shed queue_full, 3 past "
+        f"their deadlines (2 queued, 1 running after "
+        f"{len(reqs[4].output_ids)} tokens), 3 finished; healthz "
+        f"{json.dumps(hz)} ({card})")
+    return dict(healthz=hz)
+
+
+def resilience_tier(model, cfg, dev, early, late, card):
+    """(c): phase 6's prompts served twice through a pool too small to
+    keep their prefixes, with a host tier, fp (bf16) and int8 weights with
+    an int8 KV cache, under the tier's seeded drop and corruption seams:
+    every request finishes, pages spill and land back, corrupt entries
+    are detected and dropped (recompute), the pools keep their addresses
+    and one capture serves. Then, seams off, a chain evicted through the
+    tier lands back bitwise equal. Logs the spills' stream waits."""
+    from paddle_tpu_torch.inference import FaultPlan
+
+    res = {}
+    prompts = early + late
+    for form, quant, kv in (("bf16", {}, None),
+                            ("int8 + int8 KV", {"weight_dtype": "int8"},
+                             "int8")):
+        sp = quant_predictor(model, cfg, quant, dev, dtype=torch.bfloat16,
+                             kv_cache_dtype=kv, num_pages=TIER_PAGES,
+                             host_tier_bytes=TIER_BYTES)
+        ptrs = [p.data_ptr() for p in sp.cache.pools()]
+        with FaultPlan(**TIER_PLAN) as plan:
+            serve(sp, prompts, [])
+            serve(sp, prompts, [])
+        torch.cuda.synchronize()
+        flat = sp.telemetry()
+        need = ("kv_tier_spills", "kv_tier_restores", "kv_tier_spill_drops",
+                "kv_tier_restore_corrupt")
+        if not all(flat[k] for k in need):
+            raise AssertionError(f"(c) {form}: tier counters "
+                                 f"{ {k: flat[k] for k in need} }")
+        if [p.data_ptr() for p in sp.cache.pools()] != ptrs:
+            raise AssertionError(f"(c) {form}: the pools moved")
+        if sp.decode_trace_count != 1:
+            raise AssertionError(f"(c) {form}: {sp.decode_trace_count} "
+                                 "captures")
+        # seams off: the first prompt's chain through the tier, bitwise
+        # (the longest chain the seams left whole)
+        c = sp.cache
+        toks = max(prompts, key=lambda t: sum(
+            n for _, _, n in c.prefix_page_records(t)))
+        recs = c.prefix_page_records(toks)
+        before = {k: c.read_page_payload(pg, n) for k, pg, n in recs}
+        c.reserve_import_room(c.num_pages)
+        if c._prefix_pages:
+            raise AssertionError(f"(c) {form}: pages left registered")
+        restores = int(c._m_tier_restores.value)
+        slot, hit = c.admit_prefix(toks)
+        after = {k: c.read_page_payload(pg, n)
+                 for k, pg, n in c.prefix_page_records(toks)}
+        c.free(slot)
+        same = before.keys() == after.keys() and all(
+            np.array_equal(before[k][n], after[k][n])
+            for k in before for n in before[k])
+        want_hit = min(sum(n for _, _, n in recs), len(toks) - 1)
+        if len(before) < 2 or not same or hit != want_hit:
+            raise AssertionError(f"(c) {form}: restored chain of "
+                                 f"{len(before)} pages differs (hit {hit}"
+                                 f" of {want_hit})")
+        syncs = int(flat["kv_tier_payload_syncs"])
+        log(f"[resilience] (c) {form}: {int(flat['kv_tier_spills'])} "
+            f"spills, {int(flat['kv_tier_restores'])} restores, "
+            f"{int(flat['kv_tier_spill_drops'])} dropped spills, "
+            f"{int(flat['kv_tier_restore_corrupt'])} corrupt entries "
+            f"detected (fired {plan.fired['host_spill_drop']} / "
+            f"{plan.fired['tier_restore_corrupt']}); a {len(toks)}-token "
+            f"prompt's {len(before)} pages back bitwise ({int(c._m_tier_restores.value) - restores}"
+            f" restored); spill stream waits {syncs} over {sp.steps} steps "
+            f"({syncs / sp.steps:.3f} a step); tier "
+            f"{c.host_tier_bytes_used} B; pools unmoved, 1 capture ({card})")
+        res[form] = dict(spills=int(flat["kv_tier_spills"]),
+                         restores=int(flat["kv_tier_restores"]),
+                         syncs=syncs, steps=sp.steps)
+        del sp
+    return res
+
+
+def resilience_trace(model, cfg, dev, early, late, card):
+    """(d): one ``Profiler`` window (GPU target) over the served steps
+    after the first: the exported trace holds the host spans, a matched
+    lane a request (admit and eos instants), the in-flight counter track
+    and the device kernels, and its kernels by group equal what the
+    wrappers' counters gained over the window (the spans' device-side
+    annotation ranges are not among the device events)."""
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           export_chrome_tracing,
+                                           load_profiler_result)
+
+    sp = quant_predictor(model, cfg, {}, dev, dtype=torch.bfloat16)
+    prof = Profiler(targets=[ProfilerTarget.GPU],
+                    on_trace_ready=export_chrome_tracing(
+                        str(ROOT / "build" / "phase17"), "serve"))
+    mark = {}
+
+    def begin(_):
+        torch.cuda.synchronize()
+        prof.start()
+        time.sleep(PROFILE_MARGIN_S)
+        mark.update(steps=sp.steps, counted=group_launches())
+
+    serve(sp, early, late, after_first=begin)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_MARGIN_S)
+    prof.stop()
+    events = load_profiler_result(prof._last_export)
+    spans = {e["name"] for e in events if e["ph"] == "X"
+             and e["pid"] != "device"}
+    begins = {e["id"] for e in events if e["ph"] == "b"}
+    ends = {e["id"] for e in events if e["ph"] == "e"}
+    instants = {}
+    for e in events:
+        if e["ph"] == "n":
+            instants.setdefault(e["id"], set()).add(e["name"])
+    track = [e for e in events if e["ph"] == "C"
+             and e["name"] == "inflight_steps"]
+    device = [e for e in events if e.get("pid") == "device"
+              and e["ph"] == "X"]
+    kernels = [e for e in device if "kernel" in e["cat"].lower()]
+    seen = {g: 0 for g in mark["counted"]}
+    for e in kernels:
+        g = trace_group(e["name"])
+        if g in seen:
+            seen[g] += 1
+    counted = {g: n - mark["counted"][g] for g, n in group_launches().items()}
+    bad = []
+    if not {"pack_dispatch", "dispatch", "reconcile", "flush"} <= spans:
+        bad.append(f"spans {sorted(spans)}")
+    if not begins or begins != ends or any(
+            not {"eos"} <= instants.get(i, set()) for i in begins):
+        bad.append(f"lanes: {len(begins)} begun, {len(ends)} ended")
+    if not track:
+        bad.append("no inflight_steps track")
+    if seen != counted or not counted["ragged kernel"]:
+        bad.append(f"kernels by group {seen}, counters {counted}")
+    if spans & {e["name"] for e in device}:
+        bad.append("span ranges among the device events")
+    if bad:
+        raise AssertionError("(d) the exported trace: " + "; ".join(bad))
+    steps = sp.steps - mark["steps"]
+    log(f"[resilience] (d) one GPU-target window over {steps} steps: "
+        f"{len(events)} events in {Path(prof._last_export).name} "
+        f"({Path(prof._last_export).stat().st_size} B): spans "
+        f"{sorted(spans)}, {len(begins)} matched request lanes, "
+        f"{len(track)} inflight_steps samples, {len(device)} device events "
+        f"({len(kernels)} kernels); kernels by group equal the counters' "
+        f"{ {g: n for g, n in counted.items() if n} } ({card})")
+    return dict(steps=steps, events=len(events), kernels=len(kernels),
+                lanes=len(begins))
+
+
+def resilience_cost(model, cfg, dev, early, late, card, runs=RES_RUNS):
+    """(e): the bf16 per-op and mega steps with every layer disarmed (no
+    plan, no deadline, no SLO, no window), ``runs`` timed runs of each in
+    turns from the end of their first step, then one run of each with a
+    host recording window open (the port's ``Profiler``, CPU target:
+    spans, lanes and the counter track recorded) where the package has
+    it. Logs and returns the median mean step and ``host_ms_per_step``."""
+    try:
+        from paddle_tpu_torch.profiler import Profiler
+    except ImportError:
+        Profiler = None
+    forms = {"per-op": None, "mega": True}
+
+    def run(form, window=False):
+        sp = quant_predictor(model, cfg, {}, dev, dtype=torch.bfloat16,
+                             mega_decode=forms[form])
+        if not window:
+            return timed_serve(sp, early, late)
+        with Profiler():
+            return timed_serve(sp, early, late)
+
+    for form in forms:
+        run(form)
+    rows = {form: [] for form in forms}
+    for i in range(runs):
+        for form in (forms if i % 2 else list(forms)[::-1]):
+            rows[form].append(run(form))
+    res = {}
+    for form, rs in rows.items():
+        med = median_run(rs)
+        res[form] = dict(step_ms=med["step_ms"], host_ms=med["host_ms"],
+                         runs=[r["step_ms"] for r in rs],
+                         host_runs=[r["host_ms"] for r in rs])
+        line = (f"[resilience] (e) {form} bf16, layers disarmed: mean step "
+                f"{med['step_ms']:.4f} ms (median of {runs}; runs "
+                f"{step_list(rs)}), host_ms_per_step {med['host_ms']:.4f}")
+        if Profiler is not None:
+            w = run(form, window=True)
+            res[form].update(window_step_ms=w["step_ms"],
+                             window_host_ms=w["host_ms"])
+            line += (f"; with a recording window open {w['step_ms']:.4f} ms,"
+                     f" host_ms_per_step {w['host_ms']:.4f}")
+        log(line + f" ({card})")
+    return res
+
+
+def resilience_only(root: Path) -> int:
+    """``--ab resilience [ROOT]``: phase 17 (e) with the
+    ``paddle_tpu_torch`` package at ``ROOT``: the bf16 per-op and mega
+    steps of GPT-125M over phase 6's requests with every resilience and
+    observability layer disarmed, ``RES_RUNS`` runs each in turns, then
+    one run of each with a recording window open where the package has
+    the profiler. Run it for a parent and a change as parent, change,
+    change, parent; prints one JSON line."""
+    sys.path.insert(0, str(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.convert import (random_state,
+                                                 state_from_jax_numpy)
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build(["ragged_paged_attention", "mega_decode"])
+    log(f"[build] two kernel sources in {time.perf_counter() - t0:.1f} s")
+    cfg = GPT_CONFIGS["gpt3-125m"]
+    model = state_from_jax_numpy(random_state(cfg, SEED), cfg, device=dev)
+    model.eval()
+    early, late = requests(cfg)
+    res = resilience_cost(model, cfg, dev, early, late, card,
+                          runs=CAPTURE_RUNS)
+    print(json.dumps({"resilience": dict(
+        package=str(Path(paddle_tpu_torch.__file__).parent), card=card,
+        steps=res)}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -7844,7 +8389,8 @@ def main() -> int:
              "flash": flash_ab_only, "ln-bwd": ln_bwd_only,
              "qmm-dx": qmm_dx_only, "moe-dx": moe_dx_only,
              "capture": capture_only, "serve-steps": serve_steps_only,
-             "spec": spec_only, "moe-profile": moe_profile_only}
+             "spec": spec_only, "moe-profile": moe_profile_only,
+             "resilience": resilience_only}
     if args[:1] == ["--ab"] and 2 <= len(args) <= 3 and args[1] in parts:
         root = Path(args[2]).resolve() if len(args) == 3 else ROOT
     elif args:
@@ -7990,6 +8536,9 @@ def main() -> int:
     # 16. speculative decoding on the captured step and the async engine
     spec_launches = timed(phase_spec, model, cfg, dev, card)[0]
 
+    # 17. the resilience and observability layers on the captured step
+    res_launches = timed(phase_resilience, model, cfg, dev, card)[0]
+
     # 12. the legacy two-program path: the paged decode kernel, the ragged
     # kernel's new head dims, GPT-125M served legacy, a d 96 model
     decode = timed(phase_decode_kernel, dev)
@@ -8041,7 +8590,8 @@ def main() -> int:
         qmm_rows.append((f"quant_matmul_int{bits}", line,
                          quant_launches[f"int{bits}"]
                          + quant_launches[f"int{bits}_bf16"]
-                         + spec_launches[f"int{bits}"], st))
+                         + spec_launches[f"int{bits}"]
+                         + res_launches[f"int{bits}"], st))
     for bits, gs, line in ((8, -1, 194), (4, 128, 210)):
         st = qmm[(f"int{bits}", gs, bf16)]
         qmm_rows.append((f"quant_matmul_int{bits}_bwd", line,
@@ -8056,7 +8606,8 @@ def main() -> int:
              "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:264",
              ragged_launches + quant_launches["ragged"]
-             + spec_launches["ragged"], ragged[torch.float32]),
+             + spec_launches["ragged"] + res_launches["ragged"],
+             ragged[torch.float32]),
             ("paged_decode_attention",
              "paddle_tpu_torch/csrc/paged_decode_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:90",
@@ -8079,7 +8630,8 @@ def main() -> int:
                   zip(FUSED_KINDS, (105, 128, 281, 293)))),
             *((f"mega_{part}", "paddle_tpu_torch/csrc/mega_decode.cu",
                f"paddle_tpu/ops/pallas/mega_decode.py:{line}",
-               mega_launches[i] + spec_launches[f"mega_{part}"], st)
+               mega_launches[i] + spec_launches[f"mega_{part}"]
+               + res_launches[f"mega_{part}"], st)
               for i, (part, line, st) in enumerate((
                   ("attn", 224, mega[(None, False, torch.float32)]["attn"]),
                   ("mlp", 677, mlp_rounds[("served round", None,
@@ -8157,6 +8709,7 @@ def main() -> int:
                       ("quant_matmul_int4", "int4"),
                       ("mega_attn", "mega_attn"), ("mega_mlp", "mega_mlp")):
         row_of[name]["spec_launches"] = spec_launches[key]
+        row_of[name]["resilience_launches"] = res_launches[key]
     serving, long_fwd, long_bwd = flash[bf16], flash["long"], bwd["long"]
     row_of["flash_attention_fwd"]["serving_shape"] = dict(
         shape=list(FLASH_SHAPE), dtype="bf16",
@@ -8465,7 +9018,8 @@ def main() -> int:
                                          for k, v in PHASE_S.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(summary: ragged times in fp32 at the serving shapes of phase 3, "
-        "launches on the main paths of phases 5-8; flash_attention_fwd and "
+        "launches on the main paths of phases 5-8, 16 and 17; "
+        "flash_attention_fwd and "
         f"_bwd in bf16 at the training shape {list(BWD_SHAPE)}, launches in "
         "phase 5 and the bf16 training runs; "
         "quant_matmul_* in bf16, the sum of one layer's four GEMMs at M "

@@ -27,13 +27,34 @@ Speculative decoding's page accounting is here too: the draft allowance
 (drafts claim only strictly-free pages), the plain-step page need, and
 the rollback of rejected drafts' pages (``trim_pages`` / ``rollback``).
 
-Not ported here (they raise): the host-DRAM tier, page import/export and
-withholding pages.
+The HOST TIER (``host_tier_bytes``): a bounded host-DRAM buffer under the
+device pool. A zero-ref prefix page evicted off the LRU spills its
+payload (K/V rows, the int8 scale planes, partial tails included) to the
+host under the same chain key, with a crc32 taken at spill time. A later
+admission (or export walk) whose chain breaks in the device registry but
+continues in the tier lands the missing links back through the batched
+import (:meth:`KVCacheManager.import_prefix_pages`: one scatter a plane a
+round, in place, into the pools the captured step binds), and the match
+walk then pins them like never-evicted pages. Eviction runs device ->
+host -> drop: the tier keeps its own LRU under its byte budget, and an
+entry whose checksum fails at restore is detected, dropped and counted —
+the admission recomputes, corrupt bytes never reach the pool. Reading a
+page's payload to the host (:meth:`KVCacheManager.read_page_payload`, a
+spill's first step) waits for the stream: under the async engine a spill
+at pack time waits for every step in flight
+(``kv_tier_payload_syncs`` counts the waits).
+
+The page payload seams: the chain-keyed export walk
+(``prefix_page_records``), ``read_page_payload``, ``pin_page`` /
+``unpin_page``, the landing zones (``import_prefix_page`` /
+``import_prefix_pages``) and ``discard_imported_prefix``; and the
+fault-injection squeeze, ``withhold_pages`` / ``restore_withheld``.
 """
 from __future__ import annotations
 
 import hashlib
 import math
+import zlib
 from collections import OrderedDict
 
 import numpy as np
@@ -42,6 +63,7 @@ import torch
 from .._device import resolve_device
 from ..observability import MetricsRegistry
 from ..ops.paged_attention import PAGE_SIZE_DEFAULT
+from .faults import fault_point
 from .staging import STAGING_SLOTS_DEFAULT, DeviceBuffer
 
 
@@ -230,17 +252,53 @@ def paged_copy_pages(pages, src, dst):
     return ext[:, :n]
 
 
+def batched_import_rows_(pools, vals, pg, row):
+    """In-place landing of one restore round's token rows in ONE scatter:
+    ``pools`` ``[L, num_pages + 1, page_size, kv_heads, head_dim]`` (or a
+    scale plane ``[L, num_pages + 1, page_size, kv_heads]``), ``vals``
+    ``[L, R, kv_heads, head_dim]`` (resp. ``[L, R, kv_heads]``): flat row
+    ``r`` lands at ``pools[:, pg[r], row[r]]``. Padding rows carry ``pg ==
+    num_pages`` and land in the spare page."""
+    pools[:, pg, row] = vals.to(pools.dtype)
+
+
+#: numpy storage of a pool dtype for host payloads: bf16 travels as its
+#: bit pattern (numpy has no bf16), every other dtype as itself
+_HOST_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
+                torch.bfloat16: np.uint16, torch.int8: np.int8}
+
+
+def _host_dtype(dtype) -> np.dtype:
+    return np.dtype(_HOST_DTYPES[dtype])
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as its host payload array (bf16 as uint16 bits)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_host(a: np.ndarray, dtype) -> torch.Tensor:
+    """A host payload array back as a CPU tensor of the pool's dtype."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
+
+
+def _payload_crc(planes: dict) -> int:
+    """The host tier's integrity checksum: one crc32 over every plane's
+    bytes in plane-name order, taken at spill time and checked at restore
+    (a corrupt stored payload must be detected, never scattered into the
+    pool)."""
+    crc = 0
+    for name in sorted(planes):
+        crc = zlib.crc32(planes[name].tobytes(), crc)
+    return crc
+
+
 # ---------------------------------------------------------------------------
 # host side
 # ---------------------------------------------------------------------------
-
-
-def _not_ported(name: str, later: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"KVCacheManager.{name} belongs to {later}, a later port slice")
-    method.__name__ = name
-    return method
 
 
 class KVCacheManager:
@@ -256,6 +314,9 @@ class KVCacheManager:
     ``dtype`` stays the compute dtype. ``staging_slots``: pinned host
     buffers behind each device view (``inference/staging.py``), one per
     step the serving engine may have in flight, plus one.
+    ``host_tier_bytes`` (0: off) sizes the host-DRAM spill tier under the
+    pool (see the module docstring). ``metrics`` must be enabled: the
+    read surface (hit tokens, tier counters) reads its instruments.
     """
 
     def __init__(self, num_layers, num_kv_heads, head_dim, *, num_pages,
@@ -267,9 +328,6 @@ class KVCacheManager:
         if mesh is not None:
             raise NotImplementedError(
                 "head-sharded pools are the multi-GPU serving slice")
-        if host_tier_bytes:
-            raise NotImplementedError(
-                "the host-DRAM spill tier is the fleet/robustness slice")
         self.device = resolve_device(device)
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
@@ -305,12 +363,31 @@ class KVCacheManager:
         self._pt_sent = self._sl_sent = -1
         self._free_pages = list(range(self.num_pages - 1, -1, -1))  # pop()
         self._free_slots = list(range(self.max_batch - 1, -1, -1))
+        # pages out of circulation (the fault plan's pool squeeze): out of
+        # every free / available count until restored
+        self._withheld: list[int] = []
         self.enable_prefix_cache = bool(enable_prefix_cache)
         self._refcount = np.zeros((self.num_pages,), np.int32)
         self._page_key: dict[int, bytes] = {}      # page -> chain key
         self._prefix_pages: dict[bytes, int] = {}  # chain key -> page
         self._lru: OrderedDict[int, None] = OrderedDict()
+        # the host tier: chain key -> (ntok, host planes, nbytes, crc32),
+        # LRU-ordered under the byte budget (0: off, evictions drop)
+        self.host_tier_limit = int(host_tier_bytes or 0)
+        if self.host_tier_limit < 0:
+            raise ValueError(
+                f"host_tier_bytes must be >= 0, got {host_tier_bytes}")
+        self._host_tier: OrderedDict[
+            bytes, tuple[int, dict, int, int]] = OrderedDict()
+        self._host_tier_nbytes = 0
+        # per registered page, its real token count: a partial tail spills
+        # exactly its fill
+        self._page_ntok: dict[int, int] = {}
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if not self.metrics.enabled:
+            raise ValueError(
+                "KVCacheManager requires an enabled metrics registry; "
+                "the one passed is disabled")
         m = self.metrics
         self._m_pages_free = m.gauge("kv_pages_free", "strictly-free pages")
         self._m_pages_evictable = m.gauge(
@@ -326,12 +403,49 @@ class KVCacheManager:
             "kv_cow_copies", "copy-on-write page copies prepared")
         self._m_trimmed = m.counter(
             "kv_pages_trimmed", "pages released by draft rollback")
+        self._m_withheld = m.gauge(
+            "kv_pages_withheld", "pages withheld from circulation")
+        # the host tier's instruments exist with or without a tier, so the
+        # flat snapshot has one schema
+        self._m_tier_pages = m.gauge(
+            "kv_tier_pages", "page payloads held in the host tier")
+        self._m_tier_bytes = m.gauge("kv_tier_bytes",
+                                     "host-tier bytes in use")
+        self._m_tier_spills = m.counter(
+            "kv_tier_spills", "evicted pages spilled to the host tier")
+        self._m_tier_spill_bytes = m.counter(
+            "kv_tier_spill_bytes", "payload bytes spilled to the host tier")
+        self._m_tier_restores = m.counter(
+            "kv_tier_restores", "host-tier pages landed back in the pool")
+        self._m_tier_restore_bytes = m.counter(
+            "kv_tier_restore_bytes", "payload bytes restored from the tier")
+        self._m_tier_lookups = m.counter(
+            "kv_tier_lookups", "chain links probed against the host tier")
+        self._m_tier_hits = m.counter(
+            "kv_tier_hits", "host-tier probes that returned a verified "
+            "payload")
+        self._m_tier_evictions = m.counter(
+            "kv_tier_evictions", "host-tier entries dropped by its own LRU")
+        self._m_tier_spill_drops = m.counter(
+            "kv_tier_spill_drops", "spills lost at the host_spill_drop seam")
+        self._m_tier_corrupt = m.counter(
+            "kv_tier_restore_corrupt", "host-tier payloads the restore "
+            "checksum rejected (detected, dropped, recomputed)")
+        self._m_restore_scatters = m.counter(
+            "kv_tier_restore_device_calls", "device scatters issued by "
+            "batched imports (one a plane a round)")
+        self._m_payload_syncs = m.counter(
+            "kv_tier_payload_syncs", "stream waits of page payload reads "
+            "to the host (a spill waits for every step in flight)")
         self._note_occupancy()
 
     def _note_occupancy(self) -> None:
         self._m_pages_free.set(len(self._free_pages))
         self._m_pages_evictable.set(len(self._lru))
         self._m_slots_free.set(len(self._free_slots))
+        self._m_withheld.set(len(self._withheld))
+        self._m_tier_pages.set(len(self._host_tier))
+        self._m_tier_bytes.set(self._host_tier_nbytes)
 
     # -- capacity ----------------------------------------------------------
 
@@ -356,6 +470,10 @@ class KVCacheManager:
     def free_slot_count(self) -> int:
         return len(self._free_slots)
 
+    @property
+    def withheld_page_count(self) -> int:
+        return len(self._withheld)
+
     def pages_needed(self, length: int) -> int:
         return pages_needed(length, self.page_size)
 
@@ -367,15 +485,172 @@ class KVCacheManager:
 
     def _alloc_page(self) -> int:
         """The free list first, then evict the LRU tail of the zero-ref
-        registered pages (unregistering it)."""
+        registered pages (unregistering it; its payload spills to the
+        host tier first)."""
         if self._free_pages:
             return self._free_pages.pop()
         if self._lru:
-            page, _ = self._lru.popitem(last=False)   # oldest
-            del self._prefix_pages[self._page_key.pop(page)]
-            self._m_evictions.inc()
-            return page
+            self._evict_lru_tail()
+            return self._free_pages.pop()
         raise RuntimeError("cache exhausted: no free or evictable pages")
+
+    def _evict_lru_tail(self) -> None:
+        """Evict the oldest zero-ref registered page down the ladder: its
+        payload spills to the host tier (when one is on), its key leaves
+        the registry, the page joins the free list."""
+        page, _ = self._lru.popitem(last=False)   # oldest
+        key = self._page_key.pop(page)
+        del self._prefix_pages[key]
+        self._spill_page(key, page, self._page_ntok.pop(page, 0))
+        self._m_evictions.inc()
+        self._free_pages.append(page)
+
+    # -- host tier ---------------------------------------------------------
+
+    def _spill_page(self, key: bytes, page: int, ntok: int) -> bool:
+        """Spill one evicted page's payload to the host tier. Content-
+        addressed: a key already resident only refreshes its recency. Host
+        pressure drops the tier's own LRU head. Returns True when the
+        payload is resident after the call."""
+        if not self.host_tier_limit or not ntok \
+                or not self.enable_prefix_cache:
+            return False
+        if key in self._host_tier:
+            self._host_tier.move_to_end(key)
+            return True
+        if fault_point("host_spill_drop"):
+            # a lost spill: the eviction proceeds, the tier never sees the
+            # bytes (a cache-effectiveness loss, counted, never an error)
+            self._m_tier_spill_drops.inc()
+            return False
+        planes = self.read_page_payload(page, int(ntok))
+        nbytes = sum(a.nbytes for a in planes.values())
+        if nbytes > self.host_tier_limit:
+            return False
+        while self._host_tier_nbytes + nbytes > self.host_tier_limit:
+            self._drop_tier_entry(next(iter(self._host_tier)))
+            self._m_tier_evictions.inc()
+        self._host_tier[key] = (int(ntok), planes, nbytes,
+                                _payload_crc(planes))
+        self._host_tier_nbytes += nbytes
+        self._m_tier_spills.inc()
+        self._m_tier_spill_bytes.inc(nbytes)
+        return True
+
+    def _drop_tier_entry(self, key: bytes) -> None:
+        _, _, nbytes, _ = self._host_tier.pop(key)
+        self._host_tier_nbytes -= nbytes
+
+    def reserve_import_room(self, npages: int) -> bool:
+        """Refill the strictly-free list to ``npages`` by evicting LRU-tail
+        zero-ref pages down the ladder (each spills first). The landing
+        zones themselves never evict; this is the room-making step a
+        restore round runs first. ``available_page_count`` is unchanged
+        (pages move from the evictable rung to the free one). Returns
+        True when the room exists after the call."""
+        npages = int(npages)
+        while len(self._free_pages) < npages and self._lru:
+            self._evict_lru_tail()
+        self._note_occupancy()
+        return len(self._free_pages) >= npages
+
+    def _tier_lookup(self, key: bytes):
+        """Probe the host tier for one chain key and verify the stored
+        checksum before handing the payload out; the
+        ``tier_restore_corrupt`` seam flips a stored byte first, and the
+        mismatch drops the entry (counted) and reads as a miss. Returns
+        ``(ntok, planes)`` or None."""
+        self._m_tier_lookups.inc()
+        ent = self._host_tier.get(key)
+        if ent is None:
+            return None
+        ntok, planes, nbytes, crc = ent
+        if fault_point("tier_restore_corrupt"):
+            flat = planes[min(planes)].reshape(-1).view(np.uint8)
+            flat[flat.shape[0] // 2] ^= 0xFF
+        if _payload_crc(planes) != crc:
+            self._drop_tier_entry(key)
+            self._m_tier_corrupt.inc()
+            return None
+        self._host_tier.move_to_end(key)
+        self._m_tier_hits.inc()
+        return ntok, planes
+
+    def _tier_restore(self, tokens) -> int:
+        """Walk ``tokens``'s chain and land back every link the device
+        registry lost but the host tier holds, so the match or export walk
+        that follows sees them as registered pages. The walk mirrors
+        :meth:`_match_prefix` (full pages in chain order, then the longest
+        partial tail), touches this chain's device-resident links to the
+        LRU's young end (the room-making must not evict them), makes room
+        down the ladder and lands the round through
+        :meth:`import_prefix_pages`; under true pressure a prefix of the
+        round lands and the rest stays in the tier. Restored entries stay
+        in the tier. Returns the pages restored."""
+        if not self.host_tier_limit or not self._host_tier:
+            return 0
+        ps = self.page_size
+        n = len(tokens)
+        entries: list[tuple[bytes, int, dict]] = []
+        pos = 0
+        h = b""
+        while pos + ps <= n:
+            nxt = chain_key(h, tokens[pos:pos + ps])
+            if nxt in self._prefix_pages:
+                page = self._prefix_pages[nxt]
+                if page in self._lru:
+                    self._lru.move_to_end(page)
+            else:
+                ent = self._tier_lookup(nxt)
+                if ent is None:
+                    break
+                entries.append((nxt, ent[0], ent[1]))
+            pos += ps
+            h = nxt
+        for t in range(min(ps - 1, n - pos), 0, -1):
+            nxt = chain_key(h, tokens[pos:pos + t])
+            if nxt in self._prefix_pages:
+                break                      # a deeper device tail wins
+            ent = self._tier_lookup(nxt)
+            if ent is not None:
+                entries.append((nxt, ent[0], ent[1]))
+                break
+        if not entries:
+            return 0
+        self.reserve_import_room(len(entries))
+        restored = 0
+        for (_, _, planes), status in zip(
+                entries, self.import_prefix_pages(entries)):
+            if status == "imported":
+                restored += 1
+                self._m_tier_restores.inc()
+                self._m_tier_restore_bytes.inc(
+                    sum(a.nbytes for a in planes.values()))
+        return restored
+
+    @property
+    def host_tier_page_count(self) -> int:
+        return len(self._host_tier)
+
+    @property
+    def host_tier_bytes_used(self) -> int:
+        return int(self._host_tier_nbytes)
+
+    @property
+    def host_tier_occupancy(self) -> float:
+        """The host tier's byte budget in use, 0..1 (0.0 with no tier)."""
+        if not self.host_tier_limit:
+            return 0.0
+        return self._host_tier_nbytes / self.host_tier_limit
+
+    @property
+    def tier_hit_rate(self) -> float:
+        """The share of host-tier probes that returned a verified payload
+        (0.0 before any probe)."""
+        lookups = int(self._m_tier_lookups.value)
+        if not lookups:
+            return 0.0
+        return int(self._m_tier_hits.value) / lookups
 
     def _release_page(self, page: int) -> None:
         """Drop one reference; a zero-ref page parks on the LRU if
@@ -469,6 +744,29 @@ class KVCacheManager:
         grow = max(0, self.pages_needed(
             min(written + max(1, n_tokens), self.max_seq_len)) - have)
         return grow + (1 if self.needs_cow(slot, written) else 0)
+
+    def withhold_pages(self, n: int) -> int:
+        """Take up to ``n`` strictly-free pages out of circulation until
+        :meth:`restore_withheld` (the fault plan's pool squeeze). One
+        holder: ``restore_withheld`` returns all of them. Referenced and
+        prefix-LRU pages are never taken. Returns how many were
+        withheld."""
+        take = min(max(0, int(n)), len(self._free_pages))
+        for _ in range(take):
+            self._withheld.append(self._free_pages.pop())
+        if take:
+            self._note_occupancy()
+        return take
+
+    def restore_withheld(self) -> int:
+        """Every withheld page back to the free list, in the order that
+        restores the pre-withhold pops. Returns how many came back."""
+        n = len(self._withheld)
+        while self._withheld:
+            self._free_pages.append(self._withheld.pop())
+        if n:
+            self._note_occupancy()
+        return n
 
     def trim_pages(self, slot: int) -> int:
         """Release ``slot``'s pages past what ``seq_len`` needs: the host
@@ -565,6 +863,11 @@ class KVCacheManager:
             if soft:
                 return None
             raise RuntimeError("no free decode slots")
+        if self.enable_prefix_cache:
+            # the chain's host-tier survivors land back first, so the match
+            # walk pins them like never-evicted pages (cache state only:
+            # free pages move to the LRU, the availability counts hold)
+            self._tier_restore(tokens)
         shared, matched = (self._match_prefix(tokens)
                            if self.enable_prefix_cache else ([], 0))
         need_total = self.pages_needed(n)
@@ -619,6 +922,7 @@ class KVCacheManager:
             if page not in self._page_key and h not in self._prefix_pages:
                 self._page_key[page] = h
                 self._prefix_pages[h] = page
+                self._page_ntok[page] = t
             pos += t
             i += 1
 
@@ -627,6 +931,236 @@ class KVCacheManager:
         if not self.prefix_query_tokens:
             return 0.0
         return self.prefix_hit_tokens / self.prefix_query_tokens
+
+    # -- page payloads: export, import ---------------------------------------
+    #
+    # A page travels addressed by its chain key: another manager (a replica
+    # of the same build) lands it as a zero-ref registered LRU page, and
+    # its next admission pins it like a page it prefilled itself.
+
+    def prefix_page_records(self, tokens):
+        """The chain-keyed export walk: every registered page holding a
+        prefix of ``tokens`` (full pages, then the longest registered
+        partial tail) as ``(chain_key, page, ntok)`` in chain order, with
+        no ``n - 1`` feed cap (the receiver's admission applies it). Stops
+        at the first unregistered link. Host-tier survivors land back
+        first, so an export reaches through the tier."""
+        if self.enable_prefix_cache:
+            self._tier_restore(tokens)
+        ps = self.page_size
+        n = len(tokens)
+        recs: list[tuple[bytes, int, int]] = []
+        pos = 0
+        h = b""
+        while pos + ps <= n:
+            nxt = chain_key(h, tokens[pos:pos + ps])
+            page = self._prefix_pages.get(nxt)
+            if page is None:
+                break
+            recs.append((nxt, page, ps))
+            pos += ps
+            h = nxt
+        for t in range(min(ps - 1, n - pos), 0, -1):
+            nxt = chain_key(h, tokens[pos:pos + t])
+            page = self._prefix_pages.get(nxt)
+            if page is not None:
+                recs.append((nxt, page, t))
+                break
+        return recs
+
+    def pin_page(self, page: int) -> None:
+        """One more reference on ``page`` (an export in flight keeps its
+        source page from eviction); balanced by :meth:`unpin_page`."""
+        if self._refcount[page] == 0:
+            self._lru.pop(page, None)
+        self._refcount[page] += 1
+        self._note_occupancy()
+
+    def unpin_page(self, page: int) -> None:
+        self._release_page(page)
+        self._note_occupancy()
+
+    def read_page_payload(self, page: int, ntok: int) -> dict:
+        """One page's payload on the host: the first ``ntok`` token rows of
+        every layer's K and V (``"k"`` / ``"v"`` ``[L, ntok, kv_heads,
+        head_dim]``), and with an int8 pool the scale planes (``"ks"`` /
+        ``"vs"`` ``[L, ntok, kv_heads]``), as numpy arrays (bf16 as its
+        uint16 bits). On a CUDA device the copies are queued on the
+        current stream and the call waits for it: every step dispatched
+        before has run (counted on ``kv_tier_payload_syncs``)."""
+        planes = {"k": self.k_pool[:, page, :ntok],
+                  "v": self.v_pool[:, page, :ntok]}
+        if self.quantize_kv:
+            planes["ks"] = self.k_scales[:, page, :ntok]
+            planes["vs"] = self.v_scales[:, page, :ntok]
+        if self.device.type == "cuda":
+            host = {n: t.to("cpu", non_blocking=True)
+                    for n, t in planes.items()}
+            torch.cuda.current_stream(self.device).synchronize()
+            self._m_payload_syncs.inc()
+        else:
+            host = {n: t.clone() for n, t in planes.items()}
+        return {n: _to_host(t) for n, t in host.items()}
+
+    def import_prefix_page(self, key: bytes, ntok: int, payload: dict):
+        """Land one page: take a strictly-free page, write the payload
+        rows into it in place, register ``key`` and park the page zero-ref
+        on the LRU. Returns ``"imported"``, ``"present"`` (the key is
+        registered already: a re-delivery is a no-op) or ``None`` when no
+        page is strictly free (an import never evicts). Geometry or dtype
+        mismatches raise. :meth:`import_prefix_pages` lands a whole round
+        in one scatter a plane; this per-page path is its oracle."""
+        if not self.enable_prefix_cache:
+            raise RuntimeError(
+                "import_prefix_page needs enable_prefix_cache=True "
+                "(imported pages land in the prefix registry)")
+        if key in self._prefix_pages:
+            return "present"
+        self._validate_import(ntok, payload)
+        if not self._free_pages:
+            return None
+        page = self._free_pages.pop()
+        self._refcount[page] = 0
+        for name, pool in zip(("k", "v", "ks", "vs"), self.pools()):
+            pool[:, page, :ntok] = _from_host(payload[name], pool.dtype).to(
+                self.device)
+        self._page_key[page] = key
+        self._prefix_pages[key] = page
+        self._page_ntok[page] = int(ntok)
+        self._lru[page] = None                 # young end, zero-ref
+        self._note_occupancy()
+        return "imported"
+
+    def _validate_import(self, ntok: int, payload: dict) -> None:
+        """The landing zones' geometry and dtype gate (both paths).
+        Mismatches are configuration errors between managers that must be
+        built alike: they raise."""
+        if not (0 < int(ntok) <= self.page_size):
+            raise ValueError(
+                f"ntok must be in (0, {self.page_size}], got {ntok}")
+        want = {"k", "v"} | ({"ks", "vs"} if self.quantize_kv else set())
+        if set(payload) != want:
+            raise ValueError(
+                f"payload planes {sorted(payload)} do not match this "
+                f"pool's {sorted(want)} (fp and int8-KV managers must be "
+                "built alike)")
+        shape = (self.num_layers, int(ntok), self.num_kv_heads,
+                 self.head_dim)
+        kv = _host_dtype(self.k_pool.dtype)
+        for name in ("k", "v"):
+            a = payload[name]
+            if tuple(a.shape) != shape or a.dtype != kv:
+                raise ValueError(
+                    f"plane '{name}' is {a.dtype}{tuple(a.shape)}, "
+                    f"expected {kv}{shape}")
+        if self.quantize_kv:
+            for name in ("ks", "vs"):
+                a = payload[name]
+                if tuple(a.shape) != shape[:3] or a.dtype != np.float32:
+                    raise ValueError(
+                        f"plane '{name}' is {a.dtype}{tuple(a.shape)}, "
+                        f"expected float32{shape[:3]}")
+
+    def import_prefix_pages(self, entries):
+        """The batched landing zone: land a round of ``(key, ntok,
+        payload)`` entries with ONE in-place scatter a plane
+        (:func:`batched_import_rows_`) into the pools the captured step
+        binds (their addresses do not change). Registration is
+        :meth:`import_prefix_page`'s (zero-ref LRU parking, strictly-free
+        pages, idempotent re-delivery) and the landed bytes are the
+        per-page path's. Every entry is validated before anything changes.
+        Returns a status a entry: ``"imported"``, ``"present"`` or
+        ``None`` (once the free list runs dry, every later entry)."""
+        if not self.enable_prefix_cache:
+            raise RuntimeError(
+                "import_prefix_pages needs enable_prefix_cache=True "
+                "(imported pages land in the prefix registry)")
+        entries = list(entries)
+        for _, ntok, payload in entries:
+            self._validate_import(ntok, payload)
+        statuses: list = [None] * len(entries)
+        landings = []       # (entry index, key, ntok, payload, page)
+        claimed: set[bytes] = set()
+        for i, (key, ntok, payload) in enumerate(entries):
+            if key in self._prefix_pages or key in claimed:
+                statuses[i] = "present"
+                continue
+            if not self._free_pages:
+                continue                       # stays None: pressure
+            landings.append((i, key, int(ntok), payload,
+                             self._free_pages.pop()))
+            claimed.add(key)
+        if not landings:
+            return statuses
+        self._scatter_landings(landings)
+        for i, key, ntok, _, page in landings:
+            self._refcount[page] = 0
+            self._page_key[page] = key
+            self._prefix_pages[key] = page
+            self._page_ntok[page] = ntok
+            self._lru[page] = None
+            statuses[i] = "imported"
+        self._note_occupancy()
+        return statuses
+
+    def _scatter_landings(self, landings) -> None:
+        """Flatten a round's (page, row) destinations and land each plane
+        with one scatter, queued on the current stream behind the steps
+        already dispatched. The row axis pads to a power of two; padding
+        rows go to the spare page ``num_pages``."""
+        total = sum(ntok for _, _, ntok, _, _ in landings)
+        cap = 1
+        while cap < total:
+            cap *= 2
+        pg = np.full((cap,), self.num_pages, np.int64)
+        row = np.zeros((cap,), np.int64)
+        pools = dict(zip(("k", "v", "ks", "vs"), self.pools()))
+        vals = {name: np.zeros((self.num_layers, cap)
+                               + tuple(pool.shape[3:]),
+                               _host_dtype(pool.dtype))
+                for name, pool in pools.items()}
+        off = 0
+        for _, _, ntok, payload, page in landings:
+            pg[off:off + ntok] = page
+            row[off:off + ntok] = np.arange(ntok)
+            for name in vals:
+                vals[name][:, off:off + ntok] = payload[name]
+            off += ntok
+        cuda = self.device.type == "cuda"
+
+        def put(a, dtype=None):
+            t = _from_host(a, dtype) if dtype is not None \
+                else torch.from_numpy(a)
+            if cuda:
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
+
+        pg_d, row_d = put(pg), put(row)
+        for name, pool in pools.items():
+            batched_import_rows_(pool, put(vals[name], pool.dtype), pg_d,
+                                 row_d)
+            self._m_restore_scatters.inc()
+
+    def discard_imported_prefix(self, keys) -> int:
+        """Undo a failed import: unregister and free every page of
+        ``keys`` still zero-ref (a page an admission pinned serves traffic
+        and stays). Keys in reverse import order give the free list back
+        its pre-import order. No host-tier spill: an undo leaves no trace.
+        Returns the pages freed."""
+        dropped = 0
+        for key in keys:
+            page = self._prefix_pages.get(key)
+            if page is None or int(self._refcount[page]) != 0:
+                continue
+            del self._prefix_pages[key]
+            del self._page_key[page]
+            self._page_ntok.pop(page, None)
+            self._lru.pop(page, None)
+            self._free_pages.append(page)
+            dropped += 1
+        if dropped:
+            self._note_occupancy()
+        return dropped
 
     # -- copy-on-write -----------------------------------------------------
 
@@ -694,12 +1228,3 @@ class KVCacheManager:
         return torch.from_numpy(self._page_table[slot].copy()).to(
             self.device)
 
-    withhold_pages = _not_ported("withhold_pages", "fault injection")
-    read_page_payload = _not_ported("read_page_payload",
-                                    "KV-page transfer")
-    prefix_page_records = _not_ported("prefix_page_records",
-                                      "KV-page transfer")
-    import_prefix_page = _not_ported("import_prefix_page",
-                                     "KV-page transfer")
-    import_prefix_pages = _not_ported("import_prefix_pages",
-                                      "KV-page transfer")

@@ -74,7 +74,37 @@ reconciles at the start of the next round (behind by one), and a round
 with none rides the plain deferral. Speculation with MoE and the legacy
 path raise.
 
-Not ported here: SLO shedding, deadlines and fault injection.
+The resilience layer: a request ends FINISHED or FAILED, a failure with
+an error record ``{"code", "message"}`` — never-admittable contexts,
+exhausted step retries, shed admissions and missed deadlines fail one
+request while the predictor serves the rest. ``deadline_s`` gives a
+request a wall-clock budget from its submission: a waiting request past
+it is shed at the next round, a running one retires at the next round
+(both ``deadline_exceeded``). ``slo=SLOConfig(...)`` sheds at
+``add_request`` (a bounded queue, and with a backlog the pool occupancy,
+the in-flight depth and the TTFT-p99 EMA); ``admission_verdict()`` and
+``healthz()`` are the load signals a router reads. A step is
+crash-consistent: an injected fault (``inference/faults.py``) or a CUDA
+out-of-memory error inside the pack, the upload, the launch or the
+reconcile drops the failed ring entries, takes back the tokens they
+charged and requeues every affected lane through the preemption replay
+(its greedy stream is the fault-free run's; in bf16 on a CUDA device the
+replay's chunked recompute of its context can round otherwise than the
+decode steps did, and a stream may leave it at a near tie), with
+bounded retries
+(``max_step_retries``) and exponential backoff (``retry_backoff_s``)
+before a request fails. Other exceptions propagate: a CUDA error that
+poisons the context (an illegal address, a device-side assert) cannot be
+recovered in the process. With no plan armed, no deadline and
+``slo=None``, every seam is one module-global check and the engine's
+streams and page accounting are those of the engine without the layer.
+
+Observability: ``pack_dispatch`` / ``dispatch`` / ``reconcile`` /
+``flush`` host spans, one async lane a request (admit, prefill chunks,
+decode / spec_verify rounds, preempt, retry, first_token, eos / failed)
+and the ``inflight_steps`` counter track are recorded while a profiler
+window is open (``paddle_tpu_torch.profiler``); otherwise each is one
+flag check. The engine's clock is ``observability.monotonic``.
 """
 from __future__ import annotations
 
@@ -85,15 +115,20 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..observability import MetricsRegistry
+from ..observability import (MetricsRegistry, counter_event, monotonic,
+                             request_begin, request_end, request_event,
+                             span, tracing_active)
 from ..ops.paged_attention import CHUNK_DEFAULT, PAGE_SIZE_DEFAULT
+from ..profiler.record import recorder as _recorder
+from .faults import InjectedFault, fault_point
 from .kv_cache import KVCacheManager, kv_cache_quantized, pages_needed
 from .quantize import quantize_serving_params
 from .staging import Feed
 
 WAITING, RUNNING, FINISHED, FAILED = ("waiting", "running", "finished",
                                       "failed")
-MAX_STEP_RETRIES = 3   # requeues of a lane that cannot grow before it fails
+#: the failures a step recovers from: they leave the CUDA context usable
+RECOVERABLE = (InjectedFault, torch.cuda.OutOfMemoryError)
 
 
 def stream_done(output_ids, max_new_tokens, eos_token_id) -> bool:
@@ -104,13 +139,26 @@ def stream_done(output_ids, max_new_tokens, eos_token_id) -> bool:
             and output_ids[-1] == eos_token_id)
 
 
+def deadline_passed(submit_time, deadline_s, now=None) -> bool:
+    """Whether a deadline of ``deadline_s`` seconds from ``submit_time`` (on
+    the ``observability.monotonic`` clock) has passed; ``None`` never
+    does."""
+    if deadline_s is None:
+        return False
+    return (monotonic() if now is None else now) >= submit_time + deadline_s
+
+
 class Request:
-    """One generation request; ``output_ids`` fills as steps land."""
+    """One generation request; ``output_ids`` fills as steps land.
+    ``deadline_s`` is its wall-clock budget from ``submit_time`` (the
+    submission; a preemption replay keeps it); a FAILED request carries
+    ``error = {"code", "message"}``."""
 
     _next_id = [0]
 
     def __init__(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
-                 temperature=0.0, top_k=0, top_p=1.0, seed=None):
+                 temperature=0.0, top_k=0, top_p=1.0, seed=None,
+                 deadline_s=None):
         self.req_id = Request._next_id[0]
         Request._next_id[0] += 1
         self.prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
@@ -118,7 +166,12 @@ class Request:
             raise ValueError("empty prompt")
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        if self.deadline_s is not None and self.deadline_s < 0:
+            raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
         self.error: dict | None = None
+        # failure-driven requeues (not preemptions), bounded by the
+        # predictor's max_step_retries
         self.retry_count = 0
         self._finish_counted = False
         # temperature == 0 -> greedy argmax; the seed defaults to the
@@ -135,7 +188,7 @@ class Request:
         self.state = WAITING
         self.preempt_count = 0
         self.truncated = False  # stopped by the max_seq_len ceiling
-        self.submit_time = time.monotonic()
+        self.submit_time = monotonic()
         self.first_token_time: float | None = None
         self.cached_prefix_len = 0
         self._registered = False     # prompt pages in the prefix registry
@@ -166,6 +219,53 @@ class Request:
         """Prompt + generated-so-far — what a replay after preemption
         re-prefills."""
         return self.prompt_ids + self.output_ids
+
+    def past_deadline(self, now=None) -> bool:
+        return deadline_passed(self.submit_time, self.deadline_s, now)
+
+
+class SLOConfig:
+    """Admission control for one predictor: ``slo=None`` never sheds; an
+    armed config fails a request at ``add_request`` with a ``shed_*`` code
+    instead of queueing it into an overload.
+
+    - ``max_waiting`` — the bounded waiting queue (``shed_queue_full``);
+    - ``max_pool_occupancy`` — with a backlog, the KV pool's claimed
+      fraction at or above this (``shed_pool_pressure``);
+    - ``max_inflight_depth`` — with a backlog, the async ring at or above
+      this depth (``shed_inflight_depth``);
+    - ``ttft_p99_slo_ms`` — with a backlog, the TTFT-p99 EMA above this
+      (``shed_ttft_slo``); ``ema_alpha`` smooths it.
+
+    Every threshold but ``max_waiting`` defaults to off.
+    """
+
+    def __init__(self, *, max_waiting=256, max_pool_occupancy=None,
+                 max_inflight_depth=None, ttft_p99_slo_ms=None,
+                 ema_alpha=0.2):
+        self.max_waiting = None if max_waiting is None else int(max_waiting)
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
+        self.max_pool_occupancy = (None if max_pool_occupancy is None
+                                   else float(max_pool_occupancy))
+        if self.max_pool_occupancy is not None \
+                and not 0.0 < self.max_pool_occupancy <= 1.0:
+            raise ValueError(f"max_pool_occupancy is a fraction in (0, 1], "
+                             f"got {max_pool_occupancy}")
+        self.max_inflight_depth = (None if max_inflight_depth is None
+                                   else int(max_inflight_depth))
+        if self.max_inflight_depth is not None \
+                and self.max_inflight_depth < 0:
+            raise ValueError(f"max_inflight_depth must be >= 0, "
+                             f"got {max_inflight_depth}")
+        self.ttft_p99_slo_ms = (None if ttft_p99_slo_ms is None
+                                else float(ttft_p99_slo_ms))
+        if self.ttft_p99_slo_ms is not None and self.ttft_p99_slo_ms <= 0:
+            raise ValueError(f"ttft_p99_slo_ms must be > 0, "
+                             f"got {ttft_p99_slo_ms}")
+        self.ema_alpha = float(ema_alpha)
+        if not 0.0 < self.ema_alpha <= 1.0:
+            raise ValueError(f"ema_alpha must be in (0, 1], got {ema_alpha}")
 
 
 class _Pending:
@@ -218,6 +318,16 @@ class ServingPredictor:
     the default when the config's ``spec_draft_layers`` is set) and a
     draft pool of ``draft_num_pages`` (see the module docstring);
     ``token_budget`` overrides the packed step's token count.
+
+    The resilience knobs: ``slo`` (an :class:`SLOConfig` or ``None``),
+    ``max_step_retries`` failure requeues of a request before it fails,
+    ``retry_backoff_s`` the first backoff after a failed step (doubling
+    with consecutive failures, capped at 1 s). ``metrics`` is the
+    registry the predictor and its cache feed (an enabled one; default: a
+    fresh one). ``replica_id`` and ``role`` name the predictor in
+    ``healthz()`` (``role`` is identity only: the predictor serves the
+    same in every role). ``host_tier_bytes`` sizes the KV cache's host
+    tier (0: off).
     """
 
     def __init__(self, model, *, max_batch=8, num_pages=None, page_size=None,
@@ -226,7 +336,9 @@ class ServingPredictor:
                  kv_cache_dtype=None, async_engine=None,
                  max_inflight_steps=4, device=None, mega_decode=None,
                  token_budget=None, spec_decode_k=None, draft_source=None,
-                 draft_layers=None, draft_num_pages=None):
+                 draft_layers=None, draft_num_pages=None, metrics=None,
+                 slo=None, max_step_retries=3, retry_backoff_s=0.02,
+                 replica_id=0, role="colocated", host_tier_bytes=0):
         from ..models.gpt import (build_decode_step, build_prefill,
                                   build_unified_step, draft_config,
                                   serving_params)
@@ -242,8 +354,38 @@ class ServingPredictor:
                 "token feedback; the legacy two-jit path serves sync only")
         self.max_inflight_steps = max(1, int(max_inflight_steps))
         self.device = resolve_device(device)
-        self.metrics = MetricsRegistry()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if not self.metrics.enabled:
+            # these counters back the read surface (tokens, steps, TTFT,
+            # telemetry): a disabled registry would report zeros
+            raise ValueError(
+                "ServingPredictor requires an enabled metrics registry; "
+                "the one passed is disabled")
         self._init_instruments()
+        if slo is not None and not isinstance(slo, SLOConfig):
+            raise ValueError(f"slo must be an SLOConfig or None, "
+                             f"got {type(slo).__name__}")
+        self.slo = slo
+        self.replica_id = int(replica_id)
+        if self.replica_id < 0:
+            raise ValueError(f"replica_id must be >= 0, got {replica_id}")
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"role must be 'colocated', 'prefill' or "
+                             f"'decode', got {role!r}")
+        self.role = role
+        self.max_step_retries = int(max_step_retries)
+        if self.max_step_retries < 0:
+            raise ValueError(f"max_step_retries must be >= 0, "
+                             f"got {max_step_retries}")
+        self.retry_backoff_s = float(retry_backoff_s)
+        # the deadline sweep arms with the first deadlined request
+        self._deadlines_armed = False
+        self._consec_failures = 0
+        self._ttft_ema_ms: float | None = None
+        self._last_round_end = monotonic()
+        # req_id -> recorder generation of its lane's recorded 'b': a lane
+        # is open only in the window (generation) that recorded its begin
+        self._traced_reqs: dict[int, int] = {}
         self.kv_quant = kv_cache_quantized(kv_cache_dtype
                                            or cfg.kv_cache_dtype)
         if self.kv_quant and not self.unified:
@@ -330,7 +472,8 @@ class ServingPredictor:
             enable_prefix_cache=(self.unified if prefix_cache is None
                                  else bool(prefix_cache)),
             quantize_kv=self.kv_quant, metrics=self.metrics,
-            device=self.device, staging_slots=slots)
+            host_tier_bytes=host_tier_bytes, device=self.device,
+            staging_slots=slots)
         self.token_budget = int(token_budget or (
             self.max_batch * (1 + self.spec_k) + self.chunk))
         self._draft_engine = None
@@ -449,6 +592,16 @@ class ServingPredictor:
         self._m_draft_s = m.counter(
             "serving_draft_seconds",
             "host wall seconds inside the draft-model proposal pass")
+        # the resilience layer
+        self._m_shed = m.counter(
+            "serving_requests_shed", "admissions shed by the SLO policy")
+        self._m_deadline = m.counter(
+            "serving_deadline_misses", "requests failed past their deadline")
+        self._m_step_failures = m.counter(
+            "serving_step_failures", "pack/dispatch/reconcile failures")
+        self._m_faults = m.counter(
+            "serving_faults_injected", "injected faults observed, by seam",
+            labels=("seam",))
 
     # -- read surface ------------------------------------------------------
 
@@ -551,7 +704,7 @@ class ServingPredictor:
     def _mark_dispatch(self) -> None:
         """A step was dispatched: any interval since the pipeline last
         drained was a host-side bubble the device could not fill."""
-        now = time.monotonic()
+        now = monotonic()
         if self._span_start is None:
             self._span_start = now
         if self._idle_since is not None:
@@ -561,7 +714,7 @@ class ServingPredictor:
 
     def _mark_drained(self) -> None:
         """No dispatched, unmaterialized work remains."""
-        now = time.monotonic()
+        now = monotonic()
         self._idle_since = now
         self._last_event = now
 
@@ -602,7 +755,7 @@ class ServingPredictor:
         marks taken here."""
         self._span_start = None
         self._last_event = None
-        self._idle_since = None if self._inflight else time.monotonic()
+        self._idle_since = None if self._inflight else monotonic()
         if self._idle_since is not None:
             self._span_start = self._idle_since
             self._last_event = self._idle_since
@@ -615,16 +768,105 @@ class ServingPredictor:
     # -- queue API ---------------------------------------------------------
 
     def add_request(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
-                    temperature=0.0, top_k=0, top_p=1.0, seed=None) -> Request:
+                    temperature=0.0, top_k=0, top_p=1.0, seed=None,
+                    deadline_s=None) -> Request:
+        """Enqueue one request; with ``slo`` armed and the verdict a shed,
+        the request comes back FAILED (``shed_<reason>``) unqueued."""
         req = Request(prompt_ids, max_new_tokens, eos_token_id,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed)
+                      seed=seed, deadline_s=deadline_s)
         if len(req.prompt_ids) > self.max_seq_len:
             raise ValueError(
                 f"prompt of {len(req.prompt_ids)} tokens exceeds "
                 f"max_seq_len {self.max_seq_len}")
+        if self.slo is not None:
+            verdict = self.admission_verdict()
+            if verdict is not None:
+                self._m_shed.inc()
+                self._fail(req, "shed_" + verdict,
+                           f"admission shed under load ({verdict}): "
+                           f"{len(self.waiting)} waiting, "
+                           f"{len(self.running)} running")
+                return req
+        if req.deadline_s is not None:
+            self._deadlines_armed = True
         self.waiting.append(req)
         return req
+
+    # -- load signals ------------------------------------------------------
+
+    @property
+    def pool_occupancy(self) -> float:
+        """The KV pool's claimed fraction (evictable prefix pages count as
+        available)."""
+        cache = self.cache
+        return 1.0 - cache.available_page_count / max(1, cache.num_pages)
+
+    @property
+    def ttft_p99_ema_ms(self) -> float:
+        """EMA over the TTFT histogram's p99 estimate (0.0 before the first
+        token): the SLO shedding signal."""
+        return 0.0 if self._ttft_ema_ms is None else self._ttft_ema_ms
+
+    def admission_verdict(self) -> str | None:
+        """Would :meth:`add_request` shed now? ``None`` admits, else the
+        reason (``queue_full`` / ``pool_pressure`` / ``inflight_depth`` /
+        ``ttft_slo``). A pure read."""
+        slo = self.slo
+        if slo is None:
+            return None
+        if (slo.max_waiting is not None
+                and len(self.waiting) >= slo.max_waiting):
+            return "queue_full"
+        # backlog-gated: a full pool with an empty queue is a saturated
+        # batch, not an overload
+        if self.waiting:
+            if (slo.max_pool_occupancy is not None
+                    and self.pool_occupancy >= slo.max_pool_occupancy):
+                return "pool_pressure"
+            if (slo.max_inflight_depth is not None
+                    and len(self._inflight) >= slo.max_inflight_depth):
+                return "inflight_depth"
+            if (slo.ttft_p99_slo_ms is not None
+                    and self.ttft_p99_ema_ms > slo.ttft_p99_slo_ms):
+                return "ttft_slo"
+        return None
+
+    def healthz(self) -> dict:
+        """One JSON-able health and load snapshot (the reference's keys):
+        status and shed reason, identity, the seconds since the last
+        completed round, queue, ring, slot, pool and host-tier occupancy,
+        the TTFT and acceptance EMAs, and the resilience counters."""
+        verdict = self.admission_verdict()
+        cache = self.cache
+        return {
+            "status": "shedding" if verdict is not None else "ok",
+            "shed_reason": verdict,
+            "replica_id": self.replica_id,
+            "role": self.role,
+            # unacknowledged KV-page frames: the fleet slice's router
+            # stamps them (not ported yet), so none here
+            "transfer_backlog": 0,
+            "snapshot_age_s": round(
+                max(0.0, monotonic() - self._last_round_end), 6),
+            "waiting": len(self.waiting),
+            "running": len(self.running),
+            "inflight_steps": len(self._inflight),
+            "free_slots": cache.free_slot_count,
+            "pool_occupancy": round(self.pool_occupancy, 4),
+            "withheld_pages": cache.withheld_page_count,
+            "host_tier_occupancy": round(cache.host_tier_occupancy, 4),
+            "host_tier_bytes": int(cache.host_tier_bytes_used),
+            "ttft_p99_ema_ms": round(self.ttft_p99_ema_ms, 3),
+            "spec_accept_ema": round(self.spec_accept_ema, 4),
+            "steps": self.steps,
+            "tokens_emitted": self.tokens_emitted,
+            "requests_shed": int(self._m_shed.value),
+            "deadline_misses": int(self._m_deadline.value),
+            "requests_failed": int(self._m_failed.value),
+            "step_failures": int(self._m_step_failures.value),
+            "step_retries": int(self._m_retries.value),
+        }
 
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self._inflight)
@@ -641,6 +883,8 @@ class ServingPredictor:
         req._registered = False   # fresh pages on replay; re-register
         self.waiting.appendleft(req)
         self._m_preempt.inc()
+        self._req_event(req.req_id, "preempt",
+                        args={"count": req.preempt_count})
 
     def _count_finished(self, req: Request) -> None:
         """Count a finished request once, when its emissions are final (no
@@ -649,44 +893,129 @@ class ServingPredictor:
             req._finish_counted = True
             self._m_finished.inc()
 
-    def _close_request(self, req: Request) -> None:
+    def _close_request(self, req: Request, event: str, args) -> None:
         """Terminal teardown: drop the request's draft proposer and draft
-        lane (preemption keeps both: the replay heals against them)."""
+        lane (preemption keeps both: the replay heals against them) and
+        close its trace lane."""
         self._drafts.pop(req.req_id, None)
         if self._draft_engine is not None:
             self._draft_engine.release(req.req_id)
+        if tracing_active():
+            self._req_event(req.req_id, event, args=args)
+            request_end(req.req_id)
+        self._traced_reqs.pop(req.req_id, None)
 
     def _finish(self, req: Request) -> None:
         req.state = FINISHED
         self._count_finished(req)
-        self._close_request(req)
+        self._close_request(req, "truncated" if req.truncated else "eos",
+                            {"outputs": len(req.output_ids)})
 
     def _fail(self, req: Request, code: str, message) -> None:
-        """Terminal FAILED with an error record; the caller has released
-        the request's slot and pages."""
+        """Terminal FAILED with an error record (every failure path: shed,
+        deadline, never-admittable, retries exhausted, stuck); the caller
+        has released the request's slot and pages."""
         req.state = FAILED
         req.error = {"code": code, "message": str(message)[:300]}
         self._m_failed.inc()
         self._m_fail_reasons.labels(reason=code).inc()
-        self._close_request(req)
+        self._close_request(req, "failed", dict(req.error))
 
-    def _requeue_one(self, slot: int, exc, code: str) -> None:
-        """Send a lane that cannot grow back through the replay path;
-        past ``MAX_STEP_RETRIES`` such requeues the request FAILS."""
+    # -- crash-consistent step retry ----------------------------------------
+
+    def _note_step_failure(self, exc) -> None:
+        self._m_step_failures.inc()
+        self._consec_failures += 1
+        if isinstance(exc, InjectedFault):
+            self._m_faults.labels(seam=exc.seam).inc()
+
+    def _after_failure_backoff(self) -> None:
+        """Sleep after a failed step: ``retry_backoff_s`` doubled a
+        consecutive failure, at most 1 s (a successful dispatch resets
+        the count)."""
+        if self.retry_backoff_s > 0:
+            time.sleep(min(
+                self.retry_backoff_s * (2 ** (self._consec_failures - 1)),
+                1.0))
+
+    def _requeue_req(self, req: Request, exc, code: str) -> None:
+        """The bounded-retry policy: count a failure requeue, FAIL the
+        request past ``max_step_retries``, else send it back through the
+        preemption replay. The caller has released its slot and pages."""
+        req._registered = False
+        req.retry_count += 1
+        if req.retry_count > self.max_step_retries:
+            self._fail(req, code,
+                       f"step failed {req.retry_count} times over this "
+                       f"request; last: {exc!r}")
+            return
+        req.state = WAITING
+        self._m_retries.inc()
+        self._req_event(req.req_id, "retry",
+                        args={"count": req.retry_count})
+        self.waiting.appendleft(req)
+
+    def _requeue_one(self, slot: int, exc,
+                     code: str = "step_retry_exhausted") -> None:
+        """Requeue one running lane after a failed step: ``free()`` gives
+        back its page claims (shared and registered pages stay with their
+        other references); a request whose landed output is final
+        finishes instead."""
         req = self.running.pop(slot)
         self.cache.free(slot)
         if req.done and req._pending_n == 0:
             self._finish(req)    # nothing left to replay
             return
-        req._registered = False
-        req.retry_count += 1
-        if req.retry_count > MAX_STEP_RETRIES:
-            self._fail(req, code, f"step failed {req.retry_count} times "
-                                  f"over this request; last: {exc!r}")
-            return
-        req.state = WAITING
-        self._m_retries.inc()
-        self.waiting.appendleft(req)
+        self._requeue_req(req, exc, code)
+
+    def _requeue_running(self, exc) -> None:
+        # youngest first with appendleft: the queue front is oldest first
+        for slot in sorted(self.running,
+                           key=lambda s: -self.running[s].req_id):
+            self._requeue_one(slot, exc)
+
+    def _recover_dispatch_failure(self, exc) -> None:
+        """A failure inside ``_pack_dispatch`` (schedule, pack, upload or
+        launch): the entry never entered the ring and nothing was charged,
+        so requeueing every running lane returns this step's claims.
+        Older ring entries ran and stay; the requeued lanes' tokens in
+        flight make the value barrier land them before any replay."""
+        self._note_step_failure(exc)
+        self._requeue_running(exc)
+        self._steady = None
+        self._after_failure_backoff()
+
+    def _recover_reconcile_failure(self, e: _Pending, exc) -> None:
+        """A failure landing ring entry ``e``: its token values are lost
+        and every younger entry fed on its carry, so the whole ring drops.
+        Each dropped entry's charged tokens are taken back, a request
+        finished by count whose final tokens were in it reopens, and every
+        running lane requeues for its replay."""
+        self._note_step_failure(exc)
+        dropped = [e] + list(self._inflight)
+        self._inflight.clear()
+        self._m_inflight.set(0)
+        counter_event("inflight_steps", 0)
+        reopen: dict[int, Request] = {}
+        for entry in dropped:
+            for _slot, req, _k, _decode in entry.completing:
+                req._pending_n = max(0, req._pending_n - 1)
+                if req.state == FINISHED and not req.done:
+                    reopen[req.req_id] = req
+                elif req.state == FINISHED:
+                    # done before the dropped token (eos landed earlier):
+                    # its deferred finished count lands here
+                    self._count_finished(req)
+        self._requeue_running(exc)
+        for req in reopen.values():
+            # retirement already freed its slot
+            self._requeue_req(req, exc, "step_retry_exhausted")
+        # a replayed lane reads neither the dropped steps' next_toks nor a
+        # pack built for them
+        self._prev.zero_()
+        self._steady = None
+        self._mark_drained()
+        self._after_failure_backoff()
 
     def _retire_finished(self) -> None:
         for slot in [s for s, r in self.running.items() if r.done]:
@@ -708,6 +1037,56 @@ class ServingPredictor:
             self._finish(req)
             return True
         return False
+
+    def _shed_expired(self) -> None:
+        """The deadline sweep, once a round after the first deadlined
+        request: expired waiting requests leave the queue and expired
+        running ones retire, both FAILED ``deadline_exceeded``."""
+        now = monotonic()
+        if any(r.deadline_s is not None for r in self.waiting):
+            keep: deque[Request] = deque()
+            while self.waiting:
+                req = self.waiting.popleft()
+                if req.past_deadline(now):
+                    self._m_deadline.inc()
+                    self._fail(req, "deadline_exceeded",
+                               f"queued past its {req.deadline_s}s "
+                               "deadline")
+                else:
+                    keep.append(req)
+            self.waiting = keep
+        for slot in [s for s, r in self.running.items()
+                     if r.past_deadline(now)]:
+            req = self.running.pop(slot)
+            self.cache.free(slot)
+            self._m_deadline.inc()
+            self._fail(req, "deadline_exceeded",
+                       f"still running past its {req.deadline_s}s "
+                       f"deadline with {len(req.output_ids)} tokens out")
+
+    def _note_admit(self, req, slot, cached) -> None:
+        """One admission (or replay): the counter, and on the request's
+        lane ``admit`` (``readmit`` when its lane is open already)."""
+        self._m_admitted.inc()
+        if not tracing_active():
+            return
+        self._req_event(req.req_id,
+                        "readmit" if self._lane_open(req.req_id) else "admit",
+                        args={"slot": slot, "cached_prefix": int(cached)})
+
+    def _lane_open(self, req_id) -> bool:
+        return self._traced_reqs.get(req_id) == _recorder.generation
+
+    def _req_event(self, req_id, name, args=None) -> None:
+        """An instant on one request's lane, opening the lane first when
+        this recording window has no begin of it yet (every window's trace
+        stands alone: no instant or end without its begin)."""
+        if not tracing_active():
+            return
+        if not self._lane_open(req_id):
+            if request_begin(req_id, args={"req_id": req_id}):
+                self._traced_reqs[req_id] = _recorder.generation
+        request_event(req_id, name, args=args)
 
     def _fail_never_admittable(self, req: Request, need: int) -> None:
         """A context that can never fit the pool fails on its own; the
@@ -740,7 +1119,7 @@ class ServingPredictor:
             req.cached_prefix_len = cached
             req.state = RUNNING
             self.running[slot] = req
-            self._m_admitted.inc()
+            self._note_admit(req, slot, cached)
             self.waiting.popleft()
 
     def _register_prefixes(self) -> None:
@@ -821,11 +1200,11 @@ class ServingPredictor:
             return {}
         eng = self._draft_engine
         launches, syncs = eng.model_steps, eng.chain_syncs
-        t0 = time.monotonic()
+        t0 = monotonic()
         try:
             return eng.propose(lanes)
         finally:
-            self._m_draft_s.inc(time.monotonic() - t0)
+            self._m_draft_s.inc(monotonic() - t0)
             if eng.model_steps != launches:
                 # the device had draft work
                 self._m_draft_model_steps.inc(eng.model_steps - launches)
@@ -1032,6 +1411,7 @@ class ServingPredictor:
                         or len(req.output_ids) + req._pending_n + 1 + k_i
                         >= req.max_new_tokens
                         for _, req, k_i, _ in completing)
+        fault_point("h2d")
         self._feed.upload()
         self._slow.upload()
         d, sd = self._feed.dev, self._slow.dev
@@ -1041,11 +1421,21 @@ class ServingPredictor:
                 cache.seq_lens_device(), d["last_idx"])
         if self.spec_k:
             head += (d["spec_len"],)
-        res = self._unified(
-            self.params, *head, d["feedback"], self._prev, d["emit_mask"],
-            d["produced"], *cache.pools(), cache.page_table_device(),
-            sd["cow_src"], sd["cow_dst"], sd["seeds"], sd["temp"],
-            sd["top_k"], sd["top_p"])
+        if tracing_active():
+            # what kind of work each scheduled request got this step
+            for slot, n in sched.items():
+                kind = (("spec_verify" if slot in drafts else "decode")
+                        if slot in decode_set else "prefill_chunk")
+                self._req_event(self.running[slot].req_id, kind,
+                                args={"tokens": int(n)})
+        fault_point("slow_step")
+        fault_point("dispatch")
+        with span("dispatch"):
+            res = self._unified(
+                self.params, *head, d["feedback"], self._prev,
+                d["emit_mask"], d["produced"], *cache.pools(),
+                cache.page_table_device(), sd["cow_src"], sd["cow_dst"],
+                sd["seeds"], sd["temp"], sd["top_k"], sd["top_p"])
         self._mark_dispatch()
         out_dev, ne_dev = (res[0], res[1]) if self.spec_k else (res[0], None)
         if self.async_engine:
@@ -1073,25 +1463,49 @@ class ServingPredictor:
         req.output_ids.append(tok)
         self._m_tokens.inc()
         if req.first_token_time is None:
-            req.first_token_time = time.monotonic()
-            self._m_ttft.observe(req.ttft * 1e3)
+            self._note_first_token(req)
+
+    def _note_first_token(self, req: Request) -> None:
+        """TTFT: the histogram, its p99 EMA (the shedding signal) and the
+        lane's ``first_token`` instant."""
+        req.first_token_time = monotonic()
+        self._m_ttft.observe(req.ttft * 1e3)
+        a = self.slo.ema_alpha if self.slo is not None else 0.2
+        p99 = self._m_ttft.quantile(0.99)
+        self._ttft_ema_ms = (p99 if self._ttft_ema_ms is None
+                             else (1 - a) * self._ttft_ema_ms + a * p99)
+        self._req_event(req.req_id, "first_token")
 
     def _reconcile_one(self) -> dict[int, list[int]]:
-        """Land the OLDEST in-flight step: wait for its copied-out tokens
-        (the hard sync), advance its drafting lanes by ``n_emit`` and trim
-        their rejected drafts' pages, append the tokens, charge TTFT, the
-        token and the speculation counters. A token past a request's budget
-        or eos (as landed) is dropped."""
-        e = self._inflight.popleft()
-        self._m_inflight.set(len(self._inflight))
+        """Land the OLDEST in-flight step (see :meth:`_reconcile_entry`).
+        A recoverable failure drops the whole ring and requeues every
+        affected lane (:meth:`_recover_reconcile_failure`)."""
+        with span("reconcile"):
+            e = self._inflight.popleft()
+            self._m_inflight.set(len(self._inflight))
+            # the ring-depth track going down too: a drain shows it empty
+            counter_event("inflight_steps", len(self._inflight))
+            try:
+                return self._reconcile_entry(e)
+            except RECOVERABLE as exc:
+                self._recover_reconcile_failure(e, exc)
+                return {}
+
+    def _reconcile_entry(self, e: _Pending) -> dict[int, list[int]]:
+        """Wait for ``e``'s copied-out tokens (the hard sync), advance its
+        drafting lanes by ``n_emit`` and trim their rejected drafts' pages,
+        append the tokens, charge TTFT, the token and the speculation
+        counters. A token past a request's budget or eos (as landed), or
+        of a request FAILED meanwhile, is dropped."""
         out = ne = None
         if e.completing:
-            t0 = time.monotonic()
+            fault_point("reconcile")
+            t0 = monotonic()
             if e.ready is not None:
                 e.ready.synchronize()
             out = e.out.numpy()
             ne = None if e.ne is None else e.ne.numpy()
-            self._m_sync_s.inc(time.monotonic() - t0)
+            self._m_sync_s.inc(monotonic() - t0)
             self._did_sync = True
         if not self._inflight:
             self._mark_drained()
@@ -1133,6 +1547,8 @@ class ServingPredictor:
                     self._accept_ema = (
                         frac if self._accept_ema is None
                         else 0.8 * self._accept_ema + 0.2 * frac)
+                    self._req_event(req.req_id, "spec_accept",
+                                    args={"proposed": k_i, "accepted": acc})
                 prop = self._drafts.get(req.req_id)
                 if prop is not None:
                     prop.update(k_i, acc)
@@ -1145,7 +1561,11 @@ class ServingPredictor:
 
     def _reconcile_all(self) -> dict[int, list[int]]:
         produced: dict[int, list[int]] = {}
-        while self._inflight:
+        # bounded by the ring at entry: each turn lands one entry, or a
+        # failure's recovery empties the ring
+        for _ in range(len(self._inflight)):
+            if not self._inflight:
+                break
             self._merge_produced(produced, self._reconcile_one())
         return produced
 
@@ -1153,16 +1573,18 @@ class ServingPredictor:
         """Land every step in flight (a hard sync) and return the tokens,
         merged in emission order; nothing to do for the sync engine or the
         legacy path."""
-        t0 = time.monotonic()
+        t0 = monotonic()
         self._did_sync = False
         try:
-            out = self._reconcile_all()
-            self._register_prefixes()
-            return out
+            with span("flush"):
+                out = self._reconcile_all()
+                self._register_prefixes()
+                return out
         finally:
             if self._did_sync:
                 self._m_hard_syncs.inc()
-            self._m_step_s.inc(time.monotonic() - t0)
+            self._m_step_s.inc(monotonic() - t0)
+            self._last_round_end = monotonic()
 
     def _step_unified(self) -> dict[int, list[int]]:
         produced: dict[int, list[int]] = {}
@@ -1178,6 +1600,10 @@ class ServingPredictor:
             # a lane whose last prompt token rode the drained step can
             # register its partial tail page only now
             self._register_prefixes()
+        # the deadline sweep frees slots, so it runs after the drafted
+        # ring landed (its advance still references them)
+        if self._deadlines_armed:
+            self._shed_expired()
         # value barrier: admission replays a preempted request's context
         # (token VALUES), so a waiting request with tokens in flight lands
         # the whole ring first
@@ -1188,12 +1614,21 @@ class ServingPredictor:
         if not self.running:
             self._merge_produced(produced, self._reconcile_all())
             return produced
-        entry = self._pack_dispatch()
+        with span("pack_dispatch"):
+            try:
+                entry = self._pack_dispatch()
+            except RECOVERABLE as exc:
+                # the claims go back with the requeued lanes; the next
+                # step() retries
+                self._recover_dispatch_failure(exc)
+                return produced
         if entry is None:
             self._merge_produced(produced, self._reconcile_all())
             return produced
+        self._consec_failures = 0
         self._inflight.append(entry)
         self._m_inflight.set(len(self._inflight))
+        counter_event("inflight_steps", len(self._inflight))
         self._m_steps.inc()
         if not self.async_engine:
             # pipeline depth zero: land the step just dispatched
@@ -1239,7 +1674,7 @@ class ServingPredictor:
                 < self.cache.pages_needed(need_len) + headroom):
             return False
         slot = self.cache.admit(need_len)
-        self._m_admitted.inc()
+        self._note_admit(req, slot, 0)
         # bucket rounding must not push the prefill shape past the model's
         # position table (max_seq_len need not be a bucket multiple)
         padded = min(self._bucket(need_len), self.config.max_seq_len)
@@ -1275,6 +1710,8 @@ class ServingPredictor:
             self.waiting.popleft()
 
     def _step_legacy(self) -> dict[int, list[int]]:
+        if self._deadlines_armed:
+            self._shed_expired()
         self._retire_finished()
         # admit/retire to fixpoint: a fresh prompt whose prefill token
         # already satisfies done (budget 1, or eos) retires BEFORE the
@@ -1314,15 +1751,16 @@ class ServingPredictor:
                     break
         if not self.running:
             return {}
-        next_ids = self._decode(
-            self.params, self._put(self._next_token),
-            cache.seq_lens_device(), cache.k_pool, cache.v_pool,
-            cache.page_table_device())[0]
+        with span("dispatch"):
+            next_ids = self._decode(
+                self.params, self._put(self._next_token),
+                cache.seq_lens_device(), cache.k_pool, cache.v_pool,
+                cache.page_table_device())[0]
         self._mark_dispatch()
         self._m_steps.inc()
-        t_sync = time.monotonic()
+        t_sync = monotonic()
         out = next_ids.cpu().numpy()
-        self._m_sync_s.inc(time.monotonic() - t_sync)
+        self._m_sync_s.inc(monotonic() - t_sync)
         self._did_sync = True
         self._mark_drained()
         produced = {}
@@ -1345,8 +1783,12 @@ class ServingPredictor:
         :meth:`flush`; a unified round that only advanced prefill chunks
         produces none (a legacy round's admission prefill of a 1-token
         context emits outside the returned map, as in the reference)."""
-        t0 = time.monotonic()
+        t0 = monotonic()
         self._did_sync = False
+        # the pool-squeeze seam ticks every round, above the early returns
+        # of an empty round: a squeeze must expire even while its pages
+        # are what blocks the next admission
+        fault_point("pool", cache=self.cache)
         try:
             if self.unified:
                 return self._step_unified()
@@ -1356,10 +1798,11 @@ class ServingPredictor:
                 # ONE hard sync per call however many entries it landed:
                 # the oldest blocks, the rest are already on the host
                 self._m_hard_syncs.inc()
-            self._m_step_s.inc(time.monotonic() - t0)
+            self._m_step_s.inc(monotonic() - t0)
             self._m_step_calls.inc()
             self._m_running.set(len(self.running))
             self._m_waiting.set(len(self.waiting))
+            self._last_round_end = monotonic()
 
     def generate(self, prompts, max_new_tokens=32, eos_token_id=None,
                  max_steps=None, **sampling):
@@ -1378,12 +1821,33 @@ class ServingPredictor:
                 break
             n += 1
             if n > limit:
+                # no request is left non-terminal, and the predictor stays
+                # serviceable for everyone else
+                self._fail_stragglers(
+                    reqs, f"serving loop exceeded step budget ({limit})")
                 raise RuntimeError("serving loop exceeded step budget "
                                    f"({limit}) — scheduler stuck")
         # a request can finish by count with its last tokens in flight
         self.flush()
         return [list(r.output_ids) for r in reqs]
 
+    def _fail_stragglers(self, reqs, message: str) -> None:
+        """FAIL every non-terminal request of ``reqs`` with
+        ``scheduler_stuck``, releasing the slots and pages they hold."""
+        stuck = [r for r in reqs if r.state not in (FINISHED, FAILED)]
+        if not stuck:
+            return
+        ids = {id(r) for r in stuck}
+        for slot in [s for s, r in self.running.items() if id(r) in ids]:
+            self.running.pop(slot)
+            self.cache.free(slot)
+        if any(id(r) in ids for r in self.waiting):
+            self.waiting = deque(r for r in self.waiting
+                                 if id(r) not in ids)
+        for req in stuck:
+            self._fail(req, "scheduler_stuck", message)
 
-__all__ = ["Request", "ServingPredictor", "stream_done", "WAITING",
-           "RUNNING", "FINISHED", "FAILED"]
+
+__all__ = ["Request", "ServingPredictor", "SLOConfig", "deadline_passed",
+           "stream_done", "RECOVERABLE", "WAITING", "RUNNING", "FINISHED",
+           "FAILED"]

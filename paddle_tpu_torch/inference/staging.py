@@ -9,7 +9,9 @@ ring of pinned host slots with ``non_blocking=True`` copies, ordered on the
 current stream behind whatever was dispatched before. Each slot carries a
 CUDA event recorded after its copy: the host waits on it only before it
 rewrites that slot, so it never overwrites bytes a queued copy has not read
-yet. On the CPU the buffer is a plain tensor and ``put`` copies at once.
+yet. The slots are taken round robin whatever became of the step a copy
+fed: a step the serving engine drops after a failure holds none. On the
+CPU the buffer is a plain tensor and ``put`` copies at once.
 """
 from __future__ import annotations
 
@@ -81,11 +83,14 @@ class Feed:
         self._sent = np.full_like(self.array, -1) if cached else None
 
     def upload(self) -> None:
-        if self._sent is not None:
-            if np.array_equal(self._sent, self.array):
-                return
-            self._sent[...] = self.array
+        if self._sent is not None and np.array_equal(self._sent,
+                                                     self.array):
+            return
         self.buffer.put(self.array)
+        # recorded only once the copy is queued: an upload that raised
+        # must not leave the next round skipping its bytes
+        if self._sent is not None:
+            self._sent[...] = self.array
 
 
 __all__ = ["DeviceBuffer", "Feed", "STAGING_SLOTS_DEFAULT"]

@@ -390,7 +390,8 @@ def build_spmd_train_step(config: GPTConfig, mesh=None, *, batch_size: int,
     The example batch is ``np.random.RandomState(0)`` ids and labels, as in
     the reference. Counters ``train_steps`` and ``train_dispatch_seconds``
     (host seconds per call, from the second call on: the first builds the
-    kernels) go to ``observability.default_registry``.
+    kernels) go to ``observability.default_registry``, which counts once
+    ``observability.enable_metrics()`` turned it on.
     """
     _check_train_config(config, mesh, zero_stage, comm_quant)
     dev = resolve_device(device)

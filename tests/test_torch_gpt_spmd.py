@@ -34,7 +34,8 @@ from paddle_tpu_torch.models.convert import (random_train_params,
                                              train_params_from_jax_numpy,
                                              train_params_to_numpy)
 from paddle_tpu_torch.models.gpt import GPTConfig as TConfig
-from paddle_tpu_torch.observability import default_registry
+from paddle_tpu_torch.observability import (default_registry,
+                                             disable_metrics, enable_metrics)
 from paddle_tpu_torch.ops import flash_attention as tflash
 from paddle_tpu_torch.ops import fused_mlp as tfm
 
@@ -189,21 +190,31 @@ def test_remat_save_attn_counts_flash_forwards(monkeypatch, recompute,
 
 
 def test_step_counters_and_in_place_update():
+    # the library-wide registry is off by default (one flag check a call)
+    assert not default_registry.enabled
     steps = default_registry.counter("train_steps")
     secs = default_registry.counter("train_dispatch_seconds")
     n0, s0 = steps.value, secs.value
     cfg = TConfig(**SMALL)
     step, params, mom, batch = tspmd.build_spmd_train_step(
         cfg, batch_size=2, seq_len=16, device="cpu")
-    wqkv = params["stages"]["wqkv"]
-    before = wqkv.detach().clone()
-    out_params, out_mom, loss = step(params, mom, *batch)
-    assert out_params is params and out_mom is mom
-    assert out_params["stages"]["wqkv"] is wqkv          # updated in place
-    assert not torch.equal(wqkv.detach(), before)
-    assert steps.value == n0 + 1 and secs.value == s0    # 1st call untimed
     step(params, mom, *batch)
-    assert steps.value == n0 + 2 and secs.value > s0
+    assert steps.value == n0 and secs.value == s0        # off: not counted
+    enable_metrics()
+    try:
+        step, params, mom, batch = tspmd.build_spmd_train_step(
+            cfg, batch_size=2, seq_len=16, device="cpu")
+        wqkv = params["stages"]["wqkv"]
+        before = wqkv.detach().clone()
+        out_params, out_mom, loss = step(params, mom, *batch)
+        assert out_params is params and out_mom is mom
+        assert out_params["stages"]["wqkv"] is wqkv      # updated in place
+        assert not torch.equal(wqkv.detach(), before)
+        assert steps.value == n0 + 1 and secs.value == s0    # 1st call untimed
+        step(params, mom, *batch)
+        assert steps.value == n0 + 2 and secs.value > s0
+    finally:
+        disable_metrics()
 
 
 def test_init_params_layout_and_seed():

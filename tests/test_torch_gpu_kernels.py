@@ -2311,3 +2311,146 @@ def test_capture_holds_off_cyclic_gc(cuda):
     out = cap.replay(({}, x))
     torch.cuda.synchronize()
     assert torch.equal(out[3], x + 3)
+
+
+def _resilience_model(cuda):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96, initializer_range=0.5)
+    model = state_from_jax_numpy(random_state(cfg, 3), cfg, device=cuda)
+    return model.eval()
+
+
+def _resilience_prompts(n=10):
+    rng = np.random.RandomState(17)
+    return [[int(x) for x in rng.randint(0, 97, int(rng.randint(3, 30)))]
+            for _ in range(n)]
+
+
+def test_dispatch_fault_and_capture_failure_leave_one_capture(cuda):
+    """A dispatch fault on a geometry's first call fires before the step
+    runs or is captured; an out-of-memory error raised while the capture
+    runs ends it, restores garbage collection and stores no program; the
+    predictor recovers from both and its retry captures once, with the
+    fault-free streams."""
+    import gc
+
+    from paddle_tpu_torch.inference import FaultPlan, ServingPredictor
+    from paddle_tpu_torch.models.gpt import UnifiedStep
+
+    model = _resilience_model(cuda)
+    prompts = _resilience_prompts(4)
+    kw = dict(max_batch=3, page_size=8, chunk=8, device=cuda,
+              dtype=torch.bfloat16, retry_backoff_s=0.0)
+    want = ServingPredictor(model, **kw).generate(prompts, max_new_tokens=8)
+    sp = ServingPredictor(model, **kw)
+    reqs = [sp.add_request(p, max_new_tokens=8) for p in prompts]
+    with FaultPlan(seed=0, dispatch=1.0):
+        sp.step()
+    assert sp.decode_trace_count == 0 and not sp._unified._programs
+    eager = UnifiedStep.eager
+    fired = []
+
+    def eager_oom(self, *args):
+        if torch.cuda.is_current_stream_capturing() and not fired:
+            fired.append(1)
+            raise torch.cuda.OutOfMemoryError("injected inside the capture")
+        return eager(self, *args)
+
+    UnifiedStep.eager = eager_oom
+    try:
+        sp.step()
+    finally:
+        UnifiedStep.eager = eager
+    assert fired and gc.isenabled()
+    assert sp.decode_trace_count == 0 and not sp._unified._programs
+    assert sp.telemetry()["serving_step_failures"] == 2
+    while sp.has_work():
+        sp.step()
+    sp.flush()
+    assert [r.output_ids for r in reqs] == want
+    assert sp.decode_trace_count == 1
+    assert sp.cache.available_page_count == sp.cache.num_pages
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_tier_import_keeps_pool_addresses(cuda, kv):
+    """A chain evicted through the host tier lands back with one scatter
+    a plane into the pools the captured step binds: their data_ptr
+    unchanged, the payloads (int8 scales too) bitwise the evicted ones,
+    every payload read one counted stream wait."""
+    from paddle_tpu_torch.inference import KVCacheManager
+
+    m = KVCacheManager(2, 2, 64, num_pages=8, max_batch=2, max_seq_len=64,
+                       page_size=8, dtype=torch.bfloat16,
+                       enable_prefix_cache=True, quantize_kv=kv == "int8",
+                       host_tier_bytes=1 << 20, device=cuda)
+    toks = list(range(20))
+    slot, _ = m.admit_prefix(toks)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for pool in m.pools():
+        pool.copy_(torch.randn(pool.shape, generator=g, device=cuda)
+                   .mul_(50).to(pool.dtype))
+    m._seq_lens[slot] = len(toks)
+    m.register_prefix(slot, toks)
+    m.free(slot)
+    ptrs = [p.data_ptr() for p in m.pools()]
+    before = {k: m.read_page_payload(p, n)
+              for k, p, n in m.prefix_page_records(toks)}
+    syncs = int(m._m_payload_syncs.value)
+    assert m.reserve_import_room(m.num_pages) and not m._prefix_pages
+    assert int(m._m_payload_syncs.value) - syncs == 3     # one a spill
+    slot, hit = m.admit_prefix(toks)
+    assert hit == 19 and int(m._m_tier_restores.value) == 3
+    assert int(m._m_restore_scatters.value) == len(m.pools())
+    assert [p.data_ptr() for p in m.pools()] == ptrs
+    after = {k: m.read_page_payload(p, n)
+             for k, p, n in m.prefix_page_records(toks)}
+    assert before.keys() == after.keys()
+    for k in before:
+        for name in before[k]:
+            assert np.array_equal(before[k][name], after[k][name])
+
+
+@pytest.mark.parametrize("mega", [False, True])
+def test_chaos_on_the_captured_async_step_keeps_the_streams(cuda, mega):
+    """A churn on the captured step and the async engine under every
+    serving seam: each request finishes with the fault-free tokens or
+    fails with a named code, the drained pool is whole, the captures are
+    the fault-free run's, and launches are steps x layers."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.inference import FaultPlan, ServingPredictor
+
+    model = _resilience_model(cuda)
+    prompts = _resilience_prompts(12)
+    kw = dict(max_batch=3, page_size=8, chunk=8, num_pages=14, device=cuda,
+              dtype=torch.bfloat16, mega_decode=mega, max_step_retries=8,
+              retry_backoff_s=0.0)
+    base = ServingPredictor(model, **kw)
+    want = base.generate(prompts, max_new_tokens=10)
+    sp = ServingPredictor(model, **kw)
+    key = (("mega_attn_layer", "launches", None) if mega
+           else ("ragged_paged_attention", "launches", None))
+    n0 = ops.counters()[key]
+    with FaultPlan(seed=4, dispatch=0.08, h2d=0.05, reconcile=0.08,
+                   slow_step=0.05, slow_step_s=1e-3, pool_squeeze=0.15,
+                   squeeze_pages=3, squeeze_steps=2) as plan:
+        reqs = [sp.add_request(p, max_new_tokens=10) for p in prompts]
+        while sp.has_work():
+            sp.step()
+        sp.flush()
+    torch.cuda.synchronize()
+    assert plan.fired["dispatch"] and plan.fired["reconcile"]
+    done = [i for i, r in enumerate(reqs) if r.state == "finished"]
+    assert done
+    for i, r in enumerate(reqs):
+        if r.state == "finished":
+            assert r.output_ids == want[i], i
+        else:
+            assert r.state == "failed" and r.error["code"]
+    assert sp.decode_trace_count == base.decode_trace_count == 1
+    assert ops.counters()[key] - n0 == sp.steps * 2
+    assert sp.cache.available_page_count == sp.cache.num_pages
+    assert sp.cache.free_slot_count == sp.max_batch
+    assert not sp.cache._refcount.any()

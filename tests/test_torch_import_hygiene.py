@@ -152,3 +152,31 @@ def test_speculation_module_is_covered():
     names += [n.module or "" for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.level == 0]
     assert names and not [n for n in names if _forbidden(n)]
+
+
+def test_resilience_slice_modules_are_covered():
+    """The walk above imports the resilience and observability slice's
+    modules: the new ``profiler`` subpackage, the tracing API and the fault
+    plan, each of them free of jax and of the reference on its own."""
+    code = ("import pkgutil, sys, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.observability.tracing, "
+            "paddle_tpu_torch.inference.faults\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.split('.')[0] in ('jax', 'jaxlib', "
+            "'paddle_tpu'))\n"
+            "assert not bad, bad\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(\n"
+            "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    walked = set(res.stdout.split())
+    assert {"paddle_tpu_torch.profiler",
+            "paddle_tpu_torch.profiler.record",
+            "paddle_tpu_torch.profiler.utils",
+            "paddle_tpu_torch.profiler.timer",
+            "paddle_tpu_torch.profiler.profiler_statistic",
+            "paddle_tpu_torch.profiler.profiler",
+            "paddle_tpu_torch.observability.tracing",
+            "paddle_tpu_torch.observability.metrics",
+            "paddle_tpu_torch.inference.faults"} <= walked
